@@ -5,27 +5,54 @@ Run from the repository root: `python3 chip_smoke.py`.  Phases, in
 order; any failure raises and the script exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile csrc/stream_traverse.cu with nvcc (build/imbatracer_torch/).
-3. Kernel vs plain: 262,144 rays (camera rays, and bounce-like random rays
-   with ~80% of lanes active) on three scenes -- the procedural cornell
+2. Build: compile csrc/stream_traverse.cu and csrc/khit_traverse.cu with
+   nvcc and csrc/bvh_builder.cpp with g++, all at once, into
+   build/imbatracer_torch/; print each kernel entry's ptxas register and
+   spill lines.
+3. Stream kernel vs plain: 262,144 rays (camera rays, and bounce-like
+   random rays with ~80% of lanes active) on the procedural cornell
    (S=1 super-chunk), make_big_scene(150) (S=3) and make_big_scene(4000)
-   (S=68) -- closest hit and any hit, the CUDA kernel against its plain
-   PyTorch version on the same tensors.  Tolerances: hit ids equal except
-   where both hits have bit-equal t (ties); t/u/v within 1e-5 * max(1, |x|)
-   (both are built to round alike, so 0 is expected); any-hit flags may
-   differ on at most 1e-4 of the rays.  Times both at the main-path shape
-   (262,144 sorted bounce rays, S=68).
-4. Main path: make_frame_fn + ProgressiveRenderer.step() for 3 frames of
-   make_big_scene(4000) at 1024^2, spp 1, max_len 6, and of the cornell at
-   1024^2, max_len 10.  Launch counters are zeroed just before; both kernel
-   entry points must have launched and the plain version must not have run.
-   The films must be finite with a positive mean.
-5. Film parity: cornell at 64^2, spp 16, max_len 10, rendered on the card
-   and on the CPU (plain version); the films must agree to a mean relative
-   difference <= 1% with >= 95% of pixels within 1e-3 relative (RR decisions
-   flipped by last-ulp differences of transcendentals move a few paths).
-6. Output: the kernels' JSON line, the card's name and power limit, and
-   last the {"ok": true, "device": ...} line.
+   (S=68), closest hit and any hit, the CUDA kernel against its plain
+   PyTorch version on the same tensors.  Tolerances: hit ids equal
+   except where both hits have bit-equal t (ties); t/u/v within
+   1e-5 * max(1, |x|) (both are built to round alike, so 0 is expected);
+   any-hit flags may differ on at most 1e-4 of the rays.  Times both at
+   the main-path shape (262,144 sorted bounce rays, S=68), and at S=3 (a
+   scene the JAX package would send to its VMEM kernel): the kernel alone
+   (candidate lists computed beforehand) and the wrapper with its lists;
+   then runs the kernel's counting instantiation on the same rays, which
+   must return the same rows, for the work behind the bound.
+4. khit kernel vs plain: the same two ray sets, closest-hit bounds
+   (tmin 1e-3, tmax 1e30), on make_leaf_scene(6000), make_still_life_like()
+   (S=142) and the cornell (S=1).  The K=4 t vectors must agree to
+   1e-5 * max(1, |t|) (0 expected) with the same hits present; ids equal
+   except between hits of bit-equal t (including a tie between the K-th
+   hit and the next one, which either version may keep).  Times both on
+   the still-life bounce rays, and counts the kernel's work, as in 3.
+5. Main paths, each with every launch counter set to 0 just before its
+   timed frames and read just after them: (a) make_frame_fn +
+   ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
+   1024^2, spp 1, max_len 6, and (b) of the cornell at 1024^2, max_len
+   10 -- both stream-kernel entry points must have launched, no plain
+   version may have run; (c) the
+   still-life proxy (alpha masks + env map) at 1920x1080, spp 1,
+   max_len 8: one warm-up frame, reset(), 8 frames, as the JAX package's
+   curve (results/curves_r5/curve_still_life_pt_1080p.csv) was taken --
+   the khit kernel must have launched and no plain version run, and the
+   image's PSNR against goldens/still_life_1080p_len8.png must lie within
+   0.5 dB of the JAX renderer's 17.16 dB at 8 frames; then one more
+   still-life frame is traced with torch.profiler (device busy time, idle
+   share, kernel count, the kernels and host ops that take longest).
+   Films must be finite with a positive mean.
+6. Film parity: the cornell and the masked scene at 64^2, spp 16,
+   max_len 10, rendered on the card and on the CPU (plain versions); the
+   films must agree to a mean relative difference <= 1% with >= 95% of
+   pixels within 1e-3 relative (RR decisions flipped by last-ulp
+   differences of transcendentals move a few paths).
+7. Output: the kernels' JSON line (`ms` the kernel alone; `bound_ms` the
+   larger of its bytes over 3.35 TB/s and the float32 instructions its
+   counting launch tallied over 33.5e12/s, see bound()), the card's name
+   and power limit, and last the {"ok": true, "device": ...} line.
 """
 
 import json
@@ -33,6 +60,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,8 +68,31 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 NUM_RAYS = 1 << 18
-REPLACES = ("imbatracer_tpu/ops/pallas_stream.py:345 "
-            "(+ imbatracer_tpu/ops/pallas_vmem.py:48)")
+MAIN_FRAMES = 3
+STILL_LIFE_FRAMES = 8
+STILL_LIFE_PSNR = 17.16       # JAX renderer at 8 frames, spp 1
+PSNR_TOL = 0.5
+REPLACES = {
+    "stream": "imbatracer_tpu/ops/pallas_stream.py:345 "
+              "(+ imbatracer_tpu/ops/pallas_vmem.py:48)",
+    "khit": "imbatracer_tpu/ops/pallas_khit.py:57 (via _khit_call :198)",
+}
+# Roofline of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
+# instructions/s outside the tensor cores.  The sheet's 67 TFLOP/s counts
+# an FMA as two operations; the kernels are built with --fmad=false, so
+# each add, multiply, min, max or compare they issue is one instruction,
+# at half that rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 67e12 / 2
+# Float instructions of one slab test (6 sub, 6 mul, 10 min/max, 3
+# compares), and of one feature-dot Moller-Trumbore test up to the stage
+# it ended at (stream_traverse.WORK_SLOTS[1:]): empty slot 1 (id test);
+# |det| rejected 9 (+ det 5, |det| test, reciprocal counted as 1, zero
+# test); t rejected 18 (+ t 7, 2 compares); u rejected 31 (+ u 12, 1
+# compare); v rejected or hit 46 (+ v 12, u + v, 2 compares).  A khit hit
+# adds K compares for its insertion.
+SLAB_OPS = 25
+MT_STAGE_OPS = (1, 9, 18, 31, 46, 46)
 
 
 def log(msg):
@@ -71,8 +122,70 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def reset_counters():
+    from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.render import traverse as tt
+
+    st.reset_launches()
+    kh.reset_launches()
+    for k in tt.MASK_STATS:
+        tt.MASK_STATS[k] = 0
+
+
+def counters():
+    from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.render import traverse as tt
+
+    return dict(closest_hit=st.LAUNCHES["closest_hit"],
+                any_hit=st.LAUNCHES["any_hit"],
+                stream_plain=st.LAUNCHES["plain"], khit=kh.LAUNCHES["khit"],
+                khit_plain=kh.LAUNCHES["plain"], **tt.MASK_STATS)
+
+
+def bound(rays, sbox, tiles, out_cols, work, insert_ops=0):
+    """(bound_ms, bound_by, detail): the least time one H100 could take
+    for a traversal kernel's work on these rays -- the larger of the
+    bytes (rays in, sbox and tiles read once, rows out) over the HBM rate
+    and the float32 instructions the kernel issued over the float32
+    instruction rate.  `work` holds the tallies of the kernel's counting
+    launch on these rays (stream_traverse.WORK_SLOTS), costed with
+    SLAB_OPS and MT_STAGE_OPS, plus `insert_ops` per hit."""
+    from imbatracer_torch.ops import stream_traverse as st
+
+    w = dict(zip(st.WORK_SLOTS, work.tolist()))
+    ops = (w["slab"] * SLAB_OPS + w["mt_hit"] * insert_ops
+           + sum(w[k] * c for k, c in zip(st.WORK_SLOTS[1:], MT_STAGE_OPS)))
+    nbytes = 4 * (rays.numel() + sbox.numel() + tiles.numel()
+                  + rays.shape[0] * out_cols)
+    t_ops, t_bytes = ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+    detail = dict(w, ops=ops, bytes=nbytes)
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", detail)
+
+
+def time_kernel(launch, rays, sbox, tiles, out_cols, insert_ops=0):
+    """Time a CUDA wrapper on these rays: (kernel ms with the candidate
+    lists computed beforehand, wrapper ms with them computed per call,
+    bound).  The counting launch behind the bound must return what the
+    renderer's launch returns."""
+    from imbatracer_torch.ops import stream_traverse as st
+
+    lists = st.superchunk_candidates(rays, sbox)
+    ms = cuda_ms(lambda: launch(lists=lists), 10)
+    wrapper_ms = cuda_ms(launch, 10)
+    work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                       device=rays.device)
+    if not torch.equal(launch(lists=lists, work=work), launch(lists=lists)):
+        raise AssertionError("the counting launch disagrees with the kernel")
+    return ms, wrapper_ms, bound(rays, sbox, tiles, out_cols, work,
+                                 insert_ops)
+
+
 def ray_sets(scene, meta, dev, st):
-    """(name, rays (R, 8) rows, sorted) for camera and bounce-like rays."""
+    """(name, closest rays (R, 8), any-hit rays (R, 8)) for camera and
+    bounce-like rays, sorted as the dispatch sorts them."""
     from imbatracer_torch.render.camera import make_camera
     from imbatracer_torch.render.integrators.pt import camera_rays
 
@@ -138,38 +251,100 @@ def compare(scene, meta, label, dev, st, stats):
         stats["closest_err"] = max(stats.get("closest_err", 0.0), abs_err)
         stats["any_err"] = max(stats.get("any_err", 0.0),
                                float((ka[:, 0] - pa[:, 0]).abs().max()))
-        if label == "big_4000" and name == "bounce":
+        if label in ("big_150", "big_4000") and name == "bounce":
             for key, rays, occl in (("closest", closest, False),
                                     ("any", anyr, True)):
                 args = (rays, scene.bvh.sbox, scene.bvh.tiles, occl)
-                stats[f"{key}_ms"] = cuda_ms(lambda: st.traverse_cuda(*args),
-                                             10)
-                stats[f"{key}_plain_ms"] = cuda_ms(
+                stats[label, key] = time_kernel(
+                    partial(st.traverse_cuda, *args), *args[:3], 8)
+                stats[label, f"{key}_plain_ms"] = cuda_ms(
                     lambda: st.traverse_plain(*args), 2)
 
 
-def main_path(scene, meta, label, width, max_len, card):
+def compare_khit(scene, meta, label, dev, st, kh, stats):
+    sbox, tiles = scene.bvh.sbox, scene.bvh.tiles
+    for name, rays, _ in ray_sets(scene, meta, dev, st):
+        k = kh.khit_cuda(rays, sbox, tiles)
+        # K + 1 nearest from the plain version: its first K are the plain
+        # K-nearest, the extra one shows ties across the K-th place.
+        p5 = kh.khit_plain(rays, sbox, tiles, k=kh.K + 1)
+        p = p5[:, :8 * kh.K]
+        torch.cuda.synchronize()
+        kt, pt_ = k[:, 0::8], p[:, 0::8]
+        kid, pid = k[:, 3::8], p[:, 3::8]
+        present = pid >= 0
+        if not torch.equal(kid >= 0, present):
+            raise AssertionError(f"khit: present hits differ on "
+                                 f"{label}/{name}")
+        terr = float(((kt - pt_).abs() / torch.clamp(pt_.abs(), min=1.0))
+                     [present].max()) if present.any() else 0.0
+        # A slot is tied when another hit (returned or the next one) has
+        # its bit-equal t: two triangles at one t, taken in either order.
+        t5, present5 = p5[:, 0::8], p5[:, 3::8] >= 0
+        tie = torch.zeros_like(present)
+        for a in range(kh.K):
+            for b in range(kh.K + 1):
+                if a != b:
+                    tie[:, a] |= (t5[:, a] == t5[:, b]) & present5[:, b]
+        bad_id = int((present & (kid != pid) & ~tie).sum())
+        same = present & (kid == pid)
+        uv_err = 0.0
+        if same.any():
+            uv_err = max(float((k[:, f::8] - p[:, f::8]).abs()[same].max())
+                         for f in (1, 2))
+        per_slot = [int(present[:, s].sum()) for s in range(kh.K)]
+        log(f"[khit] {label:<11} S={sbox.shape[0]:<3} {name:<7} hits per "
+            f"slot {per_slot} id_mismatch={bad_id} "
+            f"ties={int((present & (kid != pid)).sum())} "
+            f"max_rel_err(t)={terr:.3e} max_abs_err(u,v)={uv_err:.3e}")
+        if bad_id or terr > 1e-5 or uv_err > 1e-5:
+            raise AssertionError(f"khit kernel disagrees with the plain "
+                                 f"version on {label}/{name}")
+        stats["khit_err"] = max(stats.get("khit_err", 0.0),
+                                float((kt - pt_).abs()[present].max())
+                                if present.any() else 0.0, uv_err)
+        if label == "still_life" and name == "bounce":
+            stats["khit"] = time_kernel(
+                partial(kh.khit_cuda, rays, sbox, tiles), rays, sbox, tiles,
+                8 * kh.K, insert_ops=kh.K)
+            stats["khit_plain_ms"] = cuda_ms(
+                lambda: kh.khit_plain(rays, sbox, tiles), 2)
+
+
+def main_path(scene, meta, label, width, height, max_len, frames, card,
+              warmup_reset=False):
+    """Drive make_frame_fn + ProgressiveRenderer on the card: a warm-up
+    frame (then reset() with `warmup_reset`), then `frames` timed frames,
+    with every launch counter set to 0 just before them and read just
+    after.  Returns the renderer, the counters, ms/frame and Mrays/s
+    (traced rays counted afterwards by re-rendering the timed frames with
+    `with_stats`; those launches are not in the counters)."""
     from imbatracer_torch.frontend.engine import make_frame_fn
     from imbatracer_torch.frontend.renderer import (ProgressiveRenderer,
                                                     RenderSettings)
     from imbatracer_torch.render.integrators.pt import render_pt_frame
 
-    settings = RenderSettings(width=width, height=width, spp=1,
+    settings = RenderSettings(width=width, height=height, spp=1,
                               max_path_len=max_len)
     frame_fn, cam = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
     renderer.step()                       # warm-up frame 0
+    if warmup_reset:
+        renderer.reset()
     torch.cuda.synchronize()
-    frames = 3
+    first = renderer.frames
+    reset_counters()
     t0 = time.time()
     for _ in range(frames):
         renderer.step()
     torch.cuda.synchronize()
     ms = (time.time() - t0) * 1000.0 / frames
+    launches = counters()
     rays = 0
-    for f in range(1, frames + 1):
-        _, n = render_pt_frame(scene, cam, f, width, width, spp=1,
-                               max_len=max_len, with_stats=True)
+    for f in range(first, first + frames):
+        _, n = render_pt_frame(scene, cam, f, width, height, spp=1,
+                               max_len=max_len, has_masks=meta.has_masks,
+                               with_stats=True)
         rays += int(n)
     film = renderer.accum
     mean = float(film.mean())
@@ -177,42 +352,94 @@ def main_path(scene, meta, label, width, max_len, card):
         raise AssertionError(f"{label}: film is not finite with a positive "
                              f"mean (mean {mean})")
     mrays = rays / (ms * frames / 1000.0) / 1e6
-    log(f"[main] {label}: {width}x{width} spp 1 max_len {max_len}: "
-        f"{ms:.1f} ms/frame, {rays // frames} rays/frame, {mrays:.2f} Mrays/s"
-        f" (film mean {mean / renderer.frames:.4f}) [{card}]")
-    return ms, mrays
+    log(f"[main] {label}: {width}x{height} spp 1 max_len {max_len}: "
+        f"{ms:.1f} ms/frame over {frames} frames, {rays // frames} "
+        f"rays/frame, {mrays:.2f} Mrays/s (film mean "
+        f"{mean / renderer.frames:.4f}) [{card}]")
+    return renderer, launches, ms, mrays
 
 
-def film_parity(dev):
+def profile_frame(renderer, label, card, top=8):
+    """Trace one more frame of `renderer` with torch.profiler: wall time,
+    device busy time (kernel time summed; the frame runs on one stream),
+    the device's idle share, the kernel count, and the kernels with the
+    most device time and the host ops with the most host time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        renderer.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+    rows = prof.key_averages()
+    dev = [e for e in rows
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    log(f"[profile] {label}, one traced frame: wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms (idle {100.0 * (1.0 - busy / wall):.1f}%), "
+        f"{sum(e.count for e in dev)} kernels [{card}]")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   device {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:7d}x  {e.key[:80]}")
+    host = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
+        log(f"[profile]   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
+            f"{e.count:7d}x  {e.key[:80]}")
+
+
+def film_parity(dev, label, builder, has_masks):
     from imbatracer_torch.render.camera import make_camera
     from imbatracer_torch.render.integrators.pt import render_pt_frame
-    from imbatracer_torch.scene.procedural import make_cornell_scene
 
     films = {}
     for where in (dev, "cpu"):
-        scene, meta = make_cornell_scene(device=where)
+        scene, meta = builder(device=where)
         cam = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, 64, 64,
                           60.0, device=where)
-        films[str(where)] = render_pt_frame(scene, cam, 5, 64, 64, spp=16,
-                                            max_len=10).cpu().numpy()
+        films[str(where)] = render_pt_frame(
+            scene, cam, 5, 64, 64, spp=16, max_len=10,
+            has_masks=has_masks).cpu().numpy()
     g, c = films[str(dev)], films["cpu"]
     mean_rel = abs(float(g.mean()) - float(c.mean())) / float(c.mean())
     rel = np.abs(g - c) / np.maximum(np.abs(c), 1e-3)
     within = float((rel.max(axis=-1) <= 1e-3).mean())
-    log(f"[film] cornell 64x64 spp 16 max_len 10, card vs CPU: mean rel diff "
-        f"{mean_rel:.3e}, pixels within 1e-3: {within:.4f}, exact pixels: "
-        f"{float((g == c).all(axis=-1).mean()):.4f}")
+    log(f"[film] {label} 64x64 spp 16 max_len 10, card vs CPU: mean rel "
+        f"diff {mean_rel:.3e}, pixels within 1e-3: {within:.4f}, exact "
+        f"pixels: {float((g == c).all(axis=-1).mean()):.4f}")
     if not (mean_rel <= 0.01 and within >= 0.95):
-        raise AssertionError("card and CPU films disagree")
+        raise AssertionError(f"{label}: card and CPU films disagree")
+
+
+def log_time(what, timed, plain_ms, card):
+    ms, wrapper_ms, (bound_ms, bound_by, detail) = timed
+    log(f"[time] {what} [{card}]: kernel {ms:.3f} ms (wrapper with its "
+        f"candidate lists {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by}, {detail})")
+
+
+def kernel_entry(name, source, replaces, launches, err, timed, plain_ms):
+    ms, _, (bound_ms, bound_by, _) = timed
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    from imbatracer_torch import libbuild
+    from imbatracer_torch.accel import native
     from imbatracer_torch.device import get_device
+    from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.scene.procedural import (make_big_scene,
-                                                   make_cornell_scene)
+                                                   make_cornell_scene,
+                                                   make_leaf_scene,
+                                                   make_masked_scene,
+                                                   make_still_life_like)
+    from imbatracer_torch.utils.metrics import load_reference_png, psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -220,56 +447,101 @@ def main():
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.time()
 
     t0 = time.time()
-    so = st.build_library()
+    libs = (st.LIB, kh.LIB, native.LIB)
+    paths = libbuild.build_all(libs)
     st._library()
-    log(f"[build] {os.path.relpath(so)} in {time.time() - t0:.1f} s")
-    for line in st.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    kh._library()
+    log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
+        + ", ".join(os.path.relpath(p) for p in paths))
+    for lib in libs:
+        info = libbuild.BUILD_INFO.get(lib.name, {})
+        log(f"[build] {lib.source}: {info.get('seconds', 0.0):.1f} s")
+        for line in libbuild.ptxas_lines(lib.name):
+            log(f"[build]   {line}")
 
     t0 = time.time()
     scenes = {
         "cornell": make_cornell_scene(device=dev),
         "big_150": make_big_scene(150, device=dev),
         "big_4000": make_big_scene(4000, device=dev),
+        "leaf_6000": make_leaf_scene(6000, device=dev),
+        "still_life": make_still_life_like(device=dev),
     }
     log(f"[scenes] built in {time.time() - t0:.1f} s: " + ", ".join(
         f"{k} {m.num_tris} tris S={s.bvh.sbox.shape[0]}"
         for k, (s, m) in scenes.items()))
 
     stats = {}
-    for label, (scene, meta) in scenes.items():
-        compare(scene, meta, label, dev, st, stats)
-    log(f"[time] S=68, {NUM_RAYS} sorted bounce rays [{card}]: closest "
-        f"kernel {stats['closest_ms']:.3f} ms vs plain "
-        f"{stats['closest_plain_ms']:.3f} ms; any kernel "
-        f"{stats['any_ms']:.3f} ms vs plain {stats['any_plain_ms']:.3f} ms")
+    for label in ("cornell", "big_150", "big_4000"):
+        compare(*scenes[label], label, dev, st, stats)
+    for label in ("big_150", "big_4000"):
+        num_s = scenes[label][0].bvh.sbox.shape[0]
+        for key in ("closest", "any"):
+            log_time(f"stream kernel {key}, {label} (S={num_s}), {NUM_RAYS} "
+                     f"sorted bounce rays", stats[label, key],
+                     stats[label, f"{key}_plain_ms"], card)
+    for label in ("leaf_6000", "still_life", "cornell"):
+        compare_khit(*scenes[label], label, dev, st, kh, stats)
+    log_time(f"khit kernel, S={scenes['still_life'][0].bvh.sbox.shape[0]}, "
+             f"{NUM_RAYS} sorted still-life bounce rays", stats["khit"],
+             stats["khit_plain_ms"], card)
 
-    st.reset_launches()
-    main_path(*scenes["big_4000"], "big_4000", 1024, 6, card)
-    main_path(*scenes["cornell"], "cornell", 1024, 10, card)
-    launches = dict(st.LAUNCHES)
-    log(f"[main] launches: {launches}")
-    if (launches["closest_hit"] == 0 or launches["any_hit"] == 0
-            or launches["plain"] != 0):
-        raise AssertionError("the main path did not run through the kernel")
+    stream_launches = {"closest_hit": 0, "any_hit": 0}
+    for label, max_len in (("big_4000", 6), ("cornell", 10)):
+        _, got, _, _ = main_path(*scenes[label], label, 1024, 1024, max_len,
+                                 MAIN_FRAMES, card)
+        log(f"[main] {label} launches over the timed frames: {got}")
+        if (got["closest_hit"] == 0 or got["any_hit"] == 0
+                or got["stream_plain"] or got["khit_plain"]):
+            raise AssertionError(f"{label}: the main path did not run "
+                                 f"through the stream kernel")
+        for k in stream_launches:
+            stream_launches[k] += got[k]
 
-    film_parity(dev)
+    renderer, sl_got, sl_ms, sl_mrays = main_path(
+        *scenes["still_life"], "still_life", 1920, 1080, 8,
+        STILL_LIFE_FRAMES, card, warmup_reset=True)
+    busy = max(sl_got["dispatches"] - sl_got["empty"], 1)
+    log(f"[main] still_life launches over the timed frames: {sl_got}; khit "
+        f"rounds per non-empty masked dispatch: "
+        f"{sl_got['rounds'] / busy:.4f}")
+    if sl_got["khit"] == 0 or sl_got["stream_plain"] or sl_got["khit_plain"]:
+        raise AssertionError("still_life: the main path did not run through "
+                             "the khit kernel")
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "goldens", "still_life_1080p_len8.png")
+    p = psnr(renderer.image(), load_reference_png(golden))
+    log(f"[main] still_life PSNR after {renderer.frames} frames vs "
+        f"{os.path.basename(golden)}: {p:.3f} dB (JAX renderer "
+        f"{STILL_LIFE_PSNR} dB; {sl_ms:.1f} ms/frame, {sl_mrays:.2f} "
+        f"Mrays/s) [{card}]")
+    if not abs(p - STILL_LIFE_PSNR) <= PSNR_TOL:
+        raise AssertionError(f"still_life PSNR {p:.3f} dB is not within "
+                             f"{PSNR_TOL} dB of {STILL_LIFE_PSNR} dB")
+    profile_frame(renderer, "still_life 1920x1080 max_len 8", card)
 
+    film_parity(dev, "cornell", make_cornell_scene, False)
+    film_parity(dev, "masked", make_masked_scene, True)
+
+    src = "imbatracer_torch/csrc/"
     kernels = [
-        {"name": "stream_traverse_closest_hit", "route": "cuda",
-         "source": "imbatracer_torch/csrc/stream_traverse.cu",
-         "replaces": REPLACES, "launches": launches["closest_hit"],
-         "max_abs_err": stats["closest_err"], "ms": stats["closest_ms"],
-         "plain_ms": stats["closest_plain_ms"]},
-        {"name": "stream_traverse_any_hit", "route": "cuda",
-         "source": "imbatracer_torch/csrc/stream_traverse.cu",
-         "replaces": REPLACES, "launches": launches["any_hit"],
-         "max_abs_err": stats["any_err"], "ms": stats["any_ms"],
-         "plain_ms": stats["any_plain_ms"]},
+        kernel_entry("stream_traverse_closest_hit",
+                     src + "stream_traverse.cu", REPLACES["stream"],
+                     stream_launches["closest_hit"], stats["closest_err"],
+                     stats["big_4000", "closest"],
+                     stats["big_4000", "closest_plain_ms"]),
+        kernel_entry("stream_traverse_any_hit", src + "stream_traverse.cu",
+                     REPLACES["stream"], stream_launches["any_hit"],
+                     stats["any_err"], stats["big_4000", "any"],
+                     stats["big_4000", "any_plain_ms"]),
+        kernel_entry("khit_closest_k4", src + "khit_traverse.cu",
+                     REPLACES["khit"], sl_got["khit"], stats["khit_err"],
+                     stats["khit"], stats["khit_plain_ms"]),
     ]
+    log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

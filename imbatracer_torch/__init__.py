@@ -3,14 +3,13 @@
 A port of `imbatracer_tpu` (the JAX/Pallas package beside it, which stays
 the reference).  Module layout and names mirror the JAX package so each
 function's counterpart is easy to find.  The port imports torch and never
-jax; the only framework-free host modules it shares with the JAX package
-are the BVH builders (`imbatracer_tpu.accel.builder`, `.native`,
-`.flatten`), which are plain NumPy / C++.
+jax, and no module of the JAX package: it keeps its own copies of the host
+BVH builder (`accel/`, `csrc/bvh_builder.cpp`).
 
 Every tensor lives on a device the caller names explicitly ("cuda" or
 "cpu", see `device.py`).  On CUDA tensors, traversal runs the hand-written
-kernel in `csrc/stream_traverse.cu`; on CPU tensors it runs the kernel's
-plain PyTorch version.
+kernels in `csrc/` (stream_traverse.cu, and khit_traverse.cu for alpha-
+masked scenes); on CPU tensors it runs their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

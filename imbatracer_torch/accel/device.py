@@ -2,8 +2,9 @@
 imbatracer_tpu.accel.device.DeviceBvh in its "stream" mode, the only
 mode the port has).
 
-On Hopper every non-instanced, mask-free scene traverses through the one
-hand-written kernel (ops/stream_traverse.py), so the TPU's small-scene
+On Hopper every non-instanced scene traverses through the hand-written
+kernels over these tiles (ops/stream_traverse.py, and ops/khit.py for
+alpha-masked scenes), so the TPU's small-scene
 modes ("dense", "densel", "vmem" routing, the XLA skip-link loop) have no
 counterpart here.  The packed leaf-order triangle arrays stay for
 brute-force validation and tooling.

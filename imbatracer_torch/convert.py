@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 
 from .accel.device import DeviceBvh
-from .render.lights import ENV_NOT_PORTED, BSphere, LightTable
+from .render.envmap import ENV_KEYS, EnvMapData
+from .render.lights import BSphere, LightTable
 from .render.materials import MaterialTable
 from .scene.textures import TextureAtlas
 from .scene.types import DeviceScene, TriAttrs
@@ -40,9 +41,9 @@ def _np(x):
 
 
 def scene_to_numpy(scene) -> dict:
-    """Flatten a DeviceScene (JAX or port) into the shared array dict."""
-    if getattr(scene, "env", None) is not None:
-        raise NotImplementedError(ENV_NOT_PORTED)
+    """Flatten a DeviceScene (JAX or port) into the shared array dict;
+    the environment map's tables ride along as "env.*" (None without
+    one)."""
     out = {f"bvh.{k}": _np(getattr(scene.bvh, k)) for k in BVH_KEYS}
     for table, keys in TABLES.items():
         obj = getattr(scene, table)
@@ -51,6 +52,9 @@ def scene_to_numpy(scene) -> dict:
     mask_rec = scene.attrs.mask_rec
     out["attrs.mask_rec"] = None if mask_rec is None else _np(mask_rec)
     out["attrs.shade_cols"] = tuple(scene.attrs.shade_cols)
+    env = getattr(scene, "env", None)
+    for k in ENV_KEYS:
+        out[f"env.{k}"] = None if env is None else _np(getattr(env, k))
     out["mat_kinds"] = tuple(scene.mat_kinds)
     out["light_kinds"] = tuple(scene.light_kinds)
     return out
@@ -66,6 +70,9 @@ def scene_from_numpy(arrays: dict, device) -> DeviceScene:
         return {k: t(arrays[f"{name}.{k}"]) for k in TABLES[name]}
 
     mask_rec = arrays.get("attrs.mask_rec")
+    env = None
+    if arrays.get("env.img") is not None:
+        env = EnvMapData(**{k: t(arrays[f"env.{k}"]) for k in ENV_KEYS})
     bvh = DeviceBvh.from_packed(*(np.asarray(arrays[f"bvh.{k}"])
                                   for k in BVH_KEYS), device=device)
     return DeviceScene(
@@ -77,6 +84,7 @@ def scene_from_numpy(arrays: dict, device) -> DeviceScene:
         lights=LightTable(**table("lights")),
         textures=TextureAtlas(**table("textures")),
         bsphere=BSphere(**table("bsphere")),
+        env=env,
         mat_kinds=tuple(arrays["mat_kinds"]),
         light_kinds=tuple(arrays["light_kinds"]),
     )

@@ -15,7 +15,7 @@
 // ascending and a ray's own entry t is never below the block minimum, so
 // no later candidate can matter.  Inside a super-chunk the thread slab-
 // tests its 64 chunk boxes and runs the feature-dot Moller-Trumbore test
-// on the 16 triangles of each chunk it enters; an any-hit thread returns
+// on the 16 triangles of each chunk it enters; an any-hit thread stops
 // at its first hit.  The TPU-only machinery of the Pallas kernels (column-
 // best planes, SMEM group compaction, the grid-carried exit bound, the DMA
 // double buffer) has no counterpart: an exit bound here is per thread.
@@ -31,44 +31,22 @@
 // coherent.  Shared-memory tile staging, warp-level culling and tensor-
 // core formulations are left to later work.
 //
-// Numerics: built with --fmad=false, every product and sum is rounded on
-// its own in the order the plain PyTorch version uses, and division is
-// IEEE, so t/u/v match the plain version bit for bit on the same inputs.
-// Comparisons are strict (t > tmin, t < limit); |det| < 1e-12 rejects.
-// With bit-equal t, the first triangle found in walk order wins.
+// Numerics: the slab and Moller-Trumbore tests are those of
+// traverse_common.cuh (shared with khit_traverse.cu), which match the
+// plain version bit for bit.  With bit-equal t, the first triangle found
+// in walk order wins.
 
-#include <cuda_runtime.h>
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int kTileRows = 24;
-constexpr int kTriRows = 1024;
-constexpr int kSuper = 64;
-constexpr int kChunk = 16;
+using namespace imba;
 
-__device__ __forceinline__ float safe_inv(float x) {
-  const float s = x >= 0.0f ? 1.0f : -1.0f;
-  return s / fmaxf(fabsf(x), 1e-12f);
-}
-
-// Slab test: true when the ray's [tmin, limit] interval enters the box.
-__device__ __forceinline__ bool enters(float lox, float loy, float loz,
-                                       float hix, float hiy, float hiz,
-                                       float ox, float oy, float oz,
-                                       float ix, float iy, float iz,
-                                       float tmin, float limit) {
-  const float tx0 = (lox - ox) * ix, tx1 = (hix - ox) * ix;
-  const float ty0 = (loy - oy) * iy, ty1 = (hiy - oy) * iy;
-  const float tz0 = (loz - oz) * iz, tz1 = (hiz - oz) * iz;
-  const float tn =
-      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  const float tf =
-      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-  return (tn <= tf) && (tf >= tmin) && (tn <= limit);
-}
-
-template <bool OCCL>
-__global__ void __launch_bounds__(128)
+// The minimum of 8 resident blocks an SM gives ptxas a 64-register
+// budget; without it ptxas kept the any-hit kernel at 40 registers with an
+// 8-byte stack frame and 4 bytes of spill stores.
+template <bool OCCL, class W>
+__global__ void __launch_bounds__(128, 8)
 stream_traverse_kernel(const float* __restrict__ rays,
                        const float* __restrict__ sbox,
                        const float* __restrict__ tiles,
@@ -76,72 +54,48 @@ stream_traverse_kernel(const float* __restrict__ rays,
                        const float* __restrict__ skey,
                        const int* __restrict__ scount,
                        float* __restrict__ out, int num_rays, int num_s,
-                       int blk) {
+                       int blk, unsigned long long* __restrict__ work_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= num_rays) return;
-  const float* ray = rays + (size_t)r * 8;
-  const float ox = ray[0], oy = ray[1], oz = ray[2], tmin = ray[3];
-  const float dx = ray[4], dy = ray[5], dz = ray[6], tmax = ray[7];
+  const Ray ray = load_ray(rays + (size_t)r * 8);
   float* o = out + (size_t)r * 8;
-  float best_t = tmax, best_u = 0.0f, best_v = 0.0f, best_id = -1.0f;
+  W work;
+  float best_t = ray.tmax, best_u = 0.0f, best_v = 0.0f, best_id = -1.0f;
   bool occluded = false;
 
-  if (tmax >= 0.0f) {
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    const float cx = oy * dz - oz * dy;
-    const float cy = oz * dx - ox * dz;
-    const float cz = ox * dy - oy * dx;
+  if (ray.tmax >= 0.0f) {
     const int b = r / blk;
     const int n = scount[b];
     const int* list = slist + (size_t)b * num_s;
     const float* keys = skey + (size_t)b * num_s;
 
-    for (int k = 0; k < n && !occluded; ++k) {
+    for (int k = 0; k < n; ++k) {
       if (keys[k] >= best_t) break;  // best_t == tmax for any hit
       const int sc = list[k];
-      const float* sb = sbox + (size_t)sc * 8;
-      if (!enters(sb[0], sb[1], sb[2], sb[3], sb[4], sb[5], ox, oy, oz, ix,
-                  iy, iz, tmin, best_t))
-        continue;
+      work.slab();
+      if (!enters_superchunk(sbox + (size_t)sc * 8, ray, best_t)) continue;
       const float* T = tiles + (size_t)sc * kTileRows * kTriRows;
-#define ROW(row, lane) __ldg(T + (row) * kTriRows + (lane))
-      for (int c = 0; c < kSuper && !occluded; ++c) {
-        if (!enters(ROW(6, c), ROW(7, c), ROW(14, c), ROW(15, c), ROW(22, c),
-                    ROW(23, c), ox, oy, oz, ix, iy, iz, tmin, best_t))
-          continue;
+      for (int c = 0; c < kSuper; ++c) {
+        work.slab();
+        if (!enters_chunk(T, c, ray, best_t)) continue;
         for (int j = c * kChunk; j < (c + 1) * kChunk; ++j) {
-          const float tid = ROW(4, j);
-          if (!(tid >= 0.0f)) continue;
-          const float nx = ROW(0, j), ny = ROW(1, j), nz = ROW(2, j);
-          const float det = -(dx * nx + dy * ny + dz * nz);
-          const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / det;
-          if (inv_det == 0.0f) continue;
-          const float t = (ox * nx + oy * ny + oz * nz - ROW(3, j)) * inv_det;
-          if (!(t > tmin && t < best_t)) continue;
-          const float u_num = cx * ROW(11, j) + cy * ROW(12, j) +
-                              cz * ROW(13, j) + dx * ROW(8, j) +
-                              dy * ROW(9, j) + dz * ROW(10, j);
-          const float u = u_num * inv_det;
-          if (!(u >= 0.0f)) continue;
-          const float v_num = cx * ROW(19, j) + cy * ROW(20, j) +
-                              cz * ROW(21, j) + dx * ROW(16, j) +
-                              dy * ROW(17, j) + dz * ROW(18, j);
-          const float v = v_num * inv_det;
-          if (!(v >= 0.0f && u + v <= 1.0f)) continue;
+          float t, u, v, id;
+          if (!hit_slot(T, j, ray, best_t, t, u, v, id, work)) continue;
           if (OCCL) {
             occluded = true;
-            break;
+            goto done;
           }
           best_t = t;
           best_u = u;
           best_v = v;
-          best_id = tid;
+          best_id = id;
         }
       }
-#undef ROW
     }
   }
 
+done:
+  work.flush(work_out);
   if (OCCL) {
     o[0] = occluded ? 1.0f : 0.0f;
     o[1] = o[2] = o[3] = 0.0f;
@@ -154,32 +108,40 @@ stream_traverse_kernel(const float* __restrict__ rays,
   o[4] = o[5] = o[6] = o[7] = 0.0f;
 }
 
+template <bool OCCL, class W>
+void launch(int blocks, cudaStream_t s, const void* rays, const void* sbox,
+            const void* tiles, const void* slist, const void* skey,
+            const void* scount, void* out, int num_rays, int num_s, int blk,
+            void* work) {
+  stream_traverse_kernel<OCCL, W><<<blocks, 128, 0, s>>>(
+      static_cast<const float*>(rays), static_cast<const float*>(sbox),
+      static_cast<const float*>(tiles), static_cast<const int*>(slist),
+      static_cast<const float*>(skey), static_cast<const int*>(scount),
+      static_cast<float*>(out), num_rays, num_s, blk,
+      static_cast<unsigned long long*>(work));
+}
+
 }  // namespace
 
 // C entry point.  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError() of the launch (0 on success).
+// With `work` null it launches the renderer's kernel; otherwise the
+// counting instantiation, which adds its kWorkSlots tallies (slab tests,
+// then Moller-Trumbore tests by the stage they ended at) to the
+// zero-initialised uint64 array `work`.
 extern "C" int imba_stream_traverse(const void* rays, const void* sbox,
                                     const void* tiles, const void* slist,
                                     const void* skey, const void* scount,
                                     void* out, int num_rays, int num_s,
-                                    int blk, int occl, void* stream) {
-  const int threads = 128;
-  const int blocks = (num_rays + threads - 1) / threads;
+                                    int blk, int occl, void* work,
+                                    void* stream) {
+  const int blocks = (num_rays + 127) / 128;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(rays);
-  const float* b = static_cast<const float*>(sbox);
-  const float* t = static_cast<const float*>(tiles);
-  const int* l = static_cast<const int*>(slist);
-  const float* k = static_cast<const float*>(skey);
-  const int* n = static_cast<const int*>(scount);
-  float* o = static_cast<float*>(out);
   if (blocks > 0) {
-    if (occl)
-      stream_traverse_kernel<true><<<blocks, threads, 0, s>>>(
-          r, b, t, l, k, n, o, num_rays, num_s, blk);
-    else
-      stream_traverse_kernel<false><<<blocks, threads, 0, s>>>(
-          r, b, t, l, k, n, o, num_rays, num_s, blk);
+    auto* go = occl ? (work ? launch<true, Work> : launch<true, NoWork>)
+                    : (work ? launch<false, Work> : launch<false, NoWork>);
+    go(blocks, s, rays, sbox, tiles, slist, skey, scount, out, num_rays,
+       num_s, blk, work);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,11 @@
-"""PNG output with the standard library only (zlib + struct).
+"""PNG output and input with the standard library only (zlib + struct)
+and NumPy.
 
 Tone mapping matches imbatracer_tpu.io.image.store_png
-(`pow(v * weight, gamma)`, clamp, 8-bit quantisation).  No PIL: the
-machine with the card does not have it.
+(`pow(v * weight, gamma)`, clamp, 8-bit quantisation).  `load_png`
+decodes 8-bit RGB / RGBA PNGs (filter types 0-4, no interlace), enough
+for the repository's goldens.  No PIL: the machine with the card does
+not have it.
 """
 
 from __future__ import annotations
@@ -39,3 +42,74 @@ def store_png(path: str, img: np.ndarray, weight: float = 1.0,
     out = (rgb * 255.0 + 0.5).astype(np.uint8)
     with open(path, "wb") as f:
         f.write(encode_png(out))
+
+
+def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth) of a
+    decompressed IDAT stream; returns (h, w * bpp) uint8 rows."""
+    stride = w * bpp
+    buf = np.frombuffer(raw, np.uint8)
+    if buf.size != h * (stride + 1):
+        raise ValueError(f"PNG data holds {buf.size} bytes, expected "
+                         f"{h * (stride + 1)}")
+    rows = buf.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype in (1, 3, 4):
+            # Left-neighbour filters run byte by byte along the row.
+            cur = np.zeros(stride, np.int32)
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = prev[i]
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else (
+                        b if pb <= pc else c)
+                cur[i] = (line[i] + pred) & 0xFF
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def load_png(path: str) -> np.ndarray:
+    """8-bit RGB or RGBA PNG file -> (H, W, 3 or 4) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = hdr
+    channels = {2: 3, 6: 4}.get(ctype)
+    if depth != 8 or channels is None or interlace != 0:
+        raise ValueError(f"{path}: only 8-bit RGB/RGBA non-interlaced PNGs "
+                         f"are supported (depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace})")
+    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels)
+    return rows.reshape(h, w, channels)

@@ -29,14 +29,12 @@ version for CPU tensors; nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
+
+from ..accel.flatten import pack_chunks
+from ..libbuild import NativeLib
 
 BLK = 128          # rays per candidate list == threads per CUDA block
 CHUNK = 16
@@ -54,6 +52,11 @@ _FEAT_ROWS = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 16, 17, 18, 19, 20, 21)
 # the main path ran through the kernel.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "plain": 0}
 
+# Counter slots of a counting launch (csrc/traverse_common.cuh): slab
+# tests, then Moller-Trumbore tests by the stage they ended at.
+WORK_SLOTS = ("slab", "mt_empty", "mt_det", "mt_t", "mt_u", "mt_v",
+              "mt_hit")
+
 
 def reset_launches():
     for k in LAUNCHES:
@@ -68,8 +71,6 @@ def pack_stream_tiles(tri_v0, tri_e1, tri_e2, tri_id):
     """(sbox (S,8), tiles (S,24,1024), center (3,)) from packed leaf-order
     triangles.  Geometry is recentred on the scene bbox centre; callers
     subtract `center` from ray origins."""
-    from imbatracer_tpu.accel.flatten import pack_chunks
-
     valid = tri_id >= 0
     if valid.any():
         va = tri_v0[valid]
@@ -325,57 +326,20 @@ def traverse_plain(rays, sbox, tiles, occl: bool):
 # The CUDA kernel
 # --------------------------------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "stream_traverse.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                         "imbatracer_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+LIB = NativeLib("stream_traverse", "stream_traverse.cu",
+                headers=("traverse_common.cuh",))
 
 _lib = None
-BUILD_INFO = {}
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA traversal kernel is built "
-                       "with the CUDA toolkit's nvcc")
-
-
-def build_library() -> str:
-    """Compile csrc/stream_traverse.cu into build/imbatracer_torch/ (once
-    per source content) and return the .so path."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(BUILD_DIR, f"libstream_traverse_{digest[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(seconds=time.time() - t0, ptxas=res.stderr.strip())
-    return so
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_library())
+        lib = ctypes.CDLL(LIB.build())
         fn = lib.imba_stream_traverse
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 2
         _lib = lib
     return _lib
 
@@ -390,8 +354,8 @@ def _check(name, x, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def traverse_cuda(rays, sbox, tiles, occl: bool):
-    """Launch the CUDA kernel on CUDA tensors (raises on anything else)."""
+def check_inputs(rays, sbox, tiles):
+    """Validate the (rays, sbox, tiles) triple a CUDA kernel reads."""
     num_r, num_s = rays.shape[0], sbox.shape[0]
     _check("rays", rays, torch.float32, (num_r, 8))
     _check("sbox", sbox, torch.float32, (num_s, 8))
@@ -402,14 +366,37 @@ def traverse_cuda(rays, sbox, tiles, occl: bool):
     for name, x in (("rays", rays), ("sbox", sbox), ("tiles", tiles)):
         if x.device.type != "cuda" or x.device != rays.device:
             raise ValueError(f"{name}: must be on the rays' CUDA device")
+    return num_r, num_s
+
+
+def work_ptr(work, device):
+    """The kernel's `work` argument: None, or the address of a
+    (len(WORK_SLOTS),) int64 counter tensor on `device`."""
+    if work is None:
+        return None
+    _check("work", work, torch.int64, (len(WORK_SLOTS),))
+    if work.device != device:
+        raise ValueError("work: must be on the rays' CUDA device")
+    return work.data_ptr()
+
+
+def traverse_cuda(rays, sbox, tiles, occl: bool, lists=None, work=None):
+    """Launch the CUDA kernel on CUDA tensors (raises on anything else).
+
+    `lists` is superchunk_candidates(rays, sbox), computed here unless
+    given.  With `work`, a zeroed (len(WORK_SLOTS),) int64 tensor, the
+    counting instantiation runs instead and adds its tallies to it."""
+    num_r, num_s = check_inputs(rays, sbox, tiles)
     lib = _library()
-    slist, skey, scount = superchunk_candidates(rays, sbox)
+    if lists is None:
+        lists = superchunk_candidates(rays, sbox)
+    slist, skey, scount = lists
     out = torch.empty((num_r, 8), dtype=torch.float32, device=rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.imba_stream_traverse(
         rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), slist.data_ptr(),
         skey.data_ptr(), scount.data_ptr(), out.data_ptr(), num_r, num_s,
-        BLK, int(occl), stream)
+        BLK, int(occl), work_ptr(work, rays.device), stream)
     if err != 0:
         raise RuntimeError(f"stream_traverse kernel launch failed: CUDA "
                            f"error {err}")

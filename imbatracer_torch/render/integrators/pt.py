@@ -4,8 +4,10 @@ imbatracer_tpu.render.integrators.pt, its banded frame renderer).
 A frame is rendered in pixel bands of BAND_RAYS rays.  Each band is one
 lockstep wavefront: a Python loop of `max_len` bounces, every bounce
 traversing, shading and extending all lanes under an active mask
-(emitter-hit MIS, one uniformly picked light for NEE with an any-hit
-shadow ray, BSDF sampling with Russian roulette).  The per-ray RNG state
+(environment-miss and emitter-hit MIS, one uniformly picked light for
+NEE with an any-hit shadow ray, BSDF sampling with Russian roulette).
+Scenes with alpha masks traverse through the masked route (`alpha_fn_for`,
+render/traverse.py).  The per-ray RNG state
 rides in the carry, so the estimator matches the JAX package's path for
 path.  Mid-frame compaction, the fused-frame dispatch, lane regeneration
 and deferred shadow rays are schedule variants of the same estimator and
@@ -21,7 +23,9 @@ import torch
 
 from ...core import rng as rng_mod
 from ...core.sampling import mis_power_heuristic, russian_roulette_prob
-from ...core.vecmath import dot
+from ...core.vecmath import dot, normalize
+from ...scene.textures import _mask_texel_opaque, _wrap_uv
+from .. import envmap as envmap_mod
 from .. import lights as light_mod
 from .. import materials as mat_mod
 from ..camera import Camera, generate_ray
@@ -31,6 +35,34 @@ from ..traverse import any_hit, closest_hit
 
 # Rays per band: the lockstep wavefront's width.
 BAND_RAYS = 1 << 18
+
+
+def alpha_fn_for(scene):
+    """Transparency test for masked traversal: alpha_fn(prim, u, v) ->
+    opaque.  Reads the narrow per-triangle mask record
+    (TriAttrs.mask_rec: mask texture, its width, height and atlas offset,
+    and the three uvs): two gathers, a row and a texel, with the texel
+    lookup of textures.sample_mask.  The JAX package's chained lookup
+    through shade record and material row (IMBA_MASK_REC=0) is not
+    ported; a masked scene always carries the record."""
+    mask_rec = scene.attrs.mask_rec
+    if mask_rec is None:
+        raise NotImplementedError(
+            "alpha masks need the scene's mask record (TriAttrs.mask_rec); "
+            "the chained shade-record lookup is not ported")
+
+    def alpha_fn(prim, u, v):
+        rec = mask_rec[prim.long()]
+        bits = rec[:, 0:4].view(torch.int32)
+        mt, w, h, off = bits[:, 0], bits[:, 1], bits[:, 2], bits[:, 3]
+        w0 = 1.0 - u - v
+        tu = w0 * rec[:, 4] + u * rec[:, 6] + v * rec[:, 8]
+        tv = w0 * rec[:, 5] + u * rec[:, 7] + v * rec[:, 9]
+        tu, tv = _wrap_uv(tu, tv)
+        return (_mask_texel_opaque(scene.textures, off, w, h, tu, tv)
+                | (mt < 0))
+
+    return alpha_fn
 
 
 def _init_carry(org, d, state):
@@ -47,16 +79,25 @@ def _init_carry(org, d, state):
     )
 
 
-def _pt_bounce(scene, c, *, has_bump, max_len):
+def _pt_bounce(scene, c, *, alpha_fn, has_bump, max_len):
     """One PT bounce for every lane of the carry."""
     num_lights = scene.lights.kind.shape[0]
     first = c["depth"] == 0
     hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
-                      active=c["active"], sort=True)
+                      alpha_fn=alpha_fn, active=c["active"], sort=True)
     n_rays = c["n_rays"] + c["active"].sum()
 
+    # ---- environment misses ----------------------------------------------
     miss = c["active"] & (hit.prim_id < 0)
     radiance = c["radiance"]
+    if scene.env is not None:
+        li, pdf_direct_w, _ = envmap_mod.radiance(
+            scene.env, normalize(c["d"]), scene.bsphere.inv_radius_sqr)
+        pdf_di = pdf_direct_w / num_lights
+        w = torch.where(first | c["last_specular"], 1.0,
+                        mis_power_heuristic(c["last_pdf"], pdf_di))
+        radiance = radiance + torch.where(
+            miss[..., None], c["throughput"] * li * w[..., None], 0.0)
     active = c["active"] & ~miss
 
     isect = make_interaction(scene, hit, c["org"], c["d"], has_bump=has_bump)
@@ -98,7 +139,8 @@ def _pt_bounce(scene, c, *, has_bump, max_len):
                  & torch.any(contrib > 0.0, dim=-1))
     offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
     occluded = any_hit(scene.bvh, isect.pos, ds.dir, offset,
-                       ds.distance - offset, active=shadow_ok, sort=True)
+                       ds.distance - offset, alpha_fn=alpha_fn,
+                       active=shadow_ok, sort=True)
     radiance = radiance + torch.where((shadow_ok & ~occluded)[..., None],
                                       contrib, 0.0)
     n_rays = n_rays + shadow_ok.sum()
@@ -130,14 +172,16 @@ def _pt_bounce(scene, c, *, has_bump, max_len):
     )
 
 
-def trace_paths(scene, org, d, state, max_len: int, has_bump: bool = False,
-                with_stats: bool = False):
+def trace_paths(scene, org, d, state, max_len: int, has_masks: bool = False,
+                has_bump: bool = False, with_stats: bool = False):
     """Trace a batch of camera paths to completion.  Returns per-ray
     radiance (R, 3); with stats, also the count of traced rays (closest
     hit + occlusion)."""
+    alpha_fn = alpha_fn_for(scene) if has_masks else None
     c = _init_carry(org, d, state)
     for _ in range(max_len):
-        c = _pt_bounce(scene, c, has_bump=has_bump, max_len=max_len)
+        c = _pt_bounce(scene, c, alpha_fn=alpha_fn, has_bump=has_bump,
+                       max_len=max_len)
     if with_stats:
         return c["radiance"], c["n_rays"]
     return c["radiance"]
@@ -193,12 +237,12 @@ def camera_rays(cam: Camera, width: int, height: int, spp: int, frame,
 
 
 def _pt_band(scene, cam, frame, start_pixel, *, width, height, spp, max_len,
-             has_bump, with_stats, band_pixels):
+             has_masks, has_bump, with_stats, band_pixels):
     org, d, state, _ = camera_rays(cam, width, height, spp, frame,
                                    start_pixel=start_pixel,
                                    count=band_pixels)
-    out = trace_paths(scene, org, d, state, max_len, has_bump=has_bump,
-                      with_stats=with_stats)
+    out = trace_paths(scene, org, d, state, max_len, has_masks=has_masks,
+                      has_bump=has_bump, with_stats=with_stats)
     if with_stats:
         radiance, n_rays = out
         return unswizzle_film(radiance, spp, band_pixels, width), n_rays
@@ -212,10 +256,6 @@ def render_pt_frame(scene, cam: Camera, frame, width: int, height: int,
     radiance-sum film (divide by frames * spp for display), and with
     `with_stats` the traced-ray count.  `frame` is a 32-bit frame number
     (Python int or integer tensor)."""
-    if has_masks:
-        raise NotImplementedError(
-            "alpha-masked scenes are not ported yet (ROADMAP.md, Queue A: "
-            "masks with the k-nearest-hit kernel)")
     num_pixels = width * height
     band = max(1, BAND_RAYS // max(spp, 1))
     parts = []
@@ -223,8 +263,9 @@ def render_pt_frame(scene, cam: Camera, frame, width: int, height: int,
     for start in range(0, num_pixels, band):
         bp = min(band, num_pixels - start)
         out = _pt_band(scene, cam, frame, start, width=width, height=height,
-                       spp=spp, max_len=max_len, has_bump=has_bump,
-                       with_stats=with_stats, band_pixels=bp)
+                       spp=spp, max_len=max_len, has_masks=has_masks,
+                       has_bump=has_bump, with_stats=with_stats,
+                       band_pixels=bp)
         if with_stats:
             parts.append(out[0])
             stats = stats + out[1]

@@ -3,8 +3,9 @@ imbatracer_tpu.render.lights).
 
 Kinds: TRI (area emitter), POINT, DIR(ectional), SPOT, ENV.  The
 `{radiance, cos_out, pdf_emit_w, pdf_direct_w}` contract and the kind
-select order follow the JAX module.  Environment lights are not ported
-yet: a table or scene holding one raises NotImplementedError.
+select order follow the JAX module.  Only NEE sampling (`sample_direct`)
+is ported; photon emission (`sample_emit`, LT and the VCM family) comes
+with those integrators.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..core.sampling import (PI, concentric_disc_pdf, cos_hemisphere_pdf,
                              uniform_sphere_pdf)
 from ..core.vecmath import dot, where3
 from ..tensors import TensorData
+from . import envmap as envmap_mod
 
 LIGHT_TRI = 0
 LIGHT_POINT = 1
@@ -28,9 +30,6 @@ LIGHT_SPOT = 3
 LIGHT_ENV = 4
 
 FAR = 1e30
-
-ENV_NOT_PORTED = ("environment lights are not ported yet "
-                  "(ROADMAP.md, Queue A: envmap and the still-life proxy)")
 
 
 @dataclass
@@ -92,9 +91,11 @@ def sample_direct(lights: LightTable, light_idx, from_pos, u1, u2,
                   bsphere: BSphere, env=None,
                   kinds: tuple = ()) -> DirectSample:
     """Sample a point / direction on light `light_idx` for NEE shadow
-    rays.  `kinds`: the scene's static light-kind set."""
-    if env is not None or LIGHT_ENV in kinds:
-        raise NotImplementedError(ENV_NOT_PORTED)
+    rays.  `kinds`: the scene's static light-kind set; `env`: the
+    scene's EnvMapData, which an ENV light samples."""
+    if env is None and LIGHT_ENV in kinds:
+        raise ValueError("the light table holds an environment light but "
+                         "no environment map was given")
     rec = lights.rec[light_idx.clamp(min=0).long()]
     kind = rec[:, 0].view(torch.int32)
     p0, p1, p2 = rec[:, 1:4], rec[:, 4:7], rec[:, 7:10]
@@ -170,6 +171,17 @@ def sample_direct(lights: LightTable, light_idx, from_pos, u1, u2,
         pdf_ds.append((LIGHT_SPOT, distsq_p))
         cos_outs.append((LIGHT_SPOT, ones))
 
+    if env is not None and has(LIGHT_ENV):
+        env_dir, env_li, env_pdf = envmap_mod.sample_dir(env, u1, u2)
+        dirs.append((LIGHT_ENV, env_dir))
+        dists.append((LIGHT_ENV, torch.full_like(ones, FAR)))
+        rads.append((LIGHT_ENV,
+                     env_li / torch.clamp(env_pdf, min=1e-20)[..., None]))
+        pdf_es.append((LIGHT_ENV, concentric_disc_pdf()
+                       * bsphere.inv_radius_sqr * env_pdf))
+        pdf_ds.append((LIGHT_ENV, env_pdf))
+        cos_outs.append((LIGHT_ENV, ones))
+
     return DirectSample(
         dir=_chain(kind, dirs),
         distance=_chain(kind, dists),
@@ -184,8 +196,6 @@ def sample_direct(lights: LightTable, light_idx, from_pos, u1, u2,
 def build_light_table(rows: list[dict], device) -> LightTable:
     """Host-side table assembly from a list of per-light dicts; an empty
     list gives one black point light so the table is never empty."""
-    if any(int(r["kind"]) == LIGHT_ENV for r in rows):
-        raise NotImplementedError(ENV_NOT_PORTED)
     L = max(len(rows), 1)
 
     def arr(key, default, width=None):

@@ -2,12 +2,12 @@
 (torch-native counterpart of imbatracer_tpu.scene.build.
 assemble_device_scene).
 
-The host side is NumPy and reuses the JAX package's framework-free BVH
-modules by import (the binned-SAH builders in `accel.builder` /
-`accel.native`, and `accel.flatten.thread_bvh` with `octants=False`,
-which keeps it from importing jax).  The arrays are laid out exactly as
-the JAX builder lays them out and then go through `convert.
-scene_from_numpy`, so both packages hold identical scene data.
+The host side is NumPy plus the port's own native binned-SAH builder
+(accel/native.py, csrc/bvh_builder.cpp) and leaf packing
+(accel/flatten.py), copies of the JAX package's host modules.  The
+arrays are laid out exactly as the JAX builder lays them out and then go
+through `convert.scene_from_numpy`, so both packages hold identical
+scene data.
 """
 
 from __future__ import annotations
@@ -15,11 +15,12 @@ from __future__ import annotations
 import time
 
 import numpy as np
-from imbatracer_tpu.accel.builder import build_bvh, triangle_bboxes
-from imbatracer_tpu.accel.flatten import thread_bvh
-from imbatracer_tpu.accel.native import build_bvh_native
 
+from ..accel.builder import triangle_bboxes
+from ..accel.flatten import thread_bvh
+from ..accel.native import build_bvh_native
 from ..render import lights as light_mod
+from ..render.envmap import ENV_KEYS
 from ..utils.log import logger
 from .textures import pack_textures
 from .types import shade_columns
@@ -44,9 +45,11 @@ def _light_arrays(rows):
              "cos_angle")}
 
 
-def assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows, textures):
+def assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows, textures,
+                    env=None):
     """BVH build + table assembly on the host.  Returns (arrays, stats):
-    the shared scene array dict (see convert.py) and the BVH stats."""
+    the shared scene array dict (see convert.py) and the BVH stats.
+    `env`: the scene's EnvMapData (render/envmap.py) or None."""
     lo = np.minimum(np.minimum(v0.min(0), v1.min(0)), v2.min(0))
     hi = np.maximum(np.maximum(v0.max(0), v1.max(0)), v2.max(0))
     center = 0.5 * (lo + hi)
@@ -54,10 +57,7 @@ def assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows, textures):
 
     t_bvh = time.time()
     blo, bhi = triangle_bboxes(v0, v1, v2)
-    nodes = build_bvh_native(blo, bhi)
-    if nodes is None:
-        nodes = build_bvh(blo, bhi)
-    threaded = thread_bvh(nodes, v0, v1, v2, octants=False)
+    threaded = thread_bvh(build_bvh_native(blo, bhi), v0, v1, v2)
     logger.info("BVH: %s in %.2fs", threaded.stats, time.time() - t_bvh)
 
     arr = lambda key, dt=np.float32: np.asarray([m[key] for m in mat_rows],
@@ -151,6 +151,9 @@ def assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows, textures):
     for key in ("n0", "n1", "n2", "uv0", "uv1", "uv2", "mat_id", "light_id",
                 "inst_id", "local_id"):
         arrays[f"attrs.{key}"] = attrs[key]
+    for key in ENV_KEYS:
+        arrays[f"env.{key}"] = (None if env is None
+                                else getattr(env, key).cpu().numpy())
     return arrays, threaded.stats
 
 
@@ -159,8 +162,6 @@ def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures,
     """Shared tail of scene construction; returns (DeviceScene, stats)."""
     from ..convert import scene_from_numpy
 
-    if env is not None:
-        raise NotImplementedError(light_mod.ENV_NOT_PORTED)
     arrays, stats = assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows,
-                                    textures)
+                                    textures, env)
     return scene_from_numpy(arrays, device), stats

@@ -1,5 +1,8 @@
 """Procedural scenes (no asset files), torch-native counterparts of
-imbatracer_tpu.scene.procedural.make_cornell_scene / make_big_scene.
+imbatracer_tpu.scene.procedural: make_cornell_scene, make_big_scene, and
+the alpha-masked make_masked_scene, make_leaf_scene and
+make_still_life_like (the 1080p still-life proxy: the full material set,
+an HDR environment map, an area light and masked foliage cards).
 
 The geometry, materials and lights are built by the same construction as
 the JAX package (same seeds, same triangle order), so the two packages
@@ -12,6 +15,7 @@ import numpy as np
 
 from ..render import lights as light_mod
 from ..render import materials as mat_mod
+from ..render.envmap import build_envmap
 from .build import assemble_device_scene
 from .types import SceneMeta
 
@@ -163,6 +167,238 @@ def make_big_scene(num_boxes: int = 4000, seed: int = 0, *, device):
         name=f"procedural_big_{num_boxes}", num_tris=len(tris),
         num_materials=len(mat_rows), num_lights=len(light_rows),
         cam_pos=(0.0, 14.0, 55.0), cam_dir=(0.0, -0.2, -1.0),
+        cam_up=(0.0, 1.0, 0.0), bvh_stats=stats)
+    return scene, meta
+
+
+def _disc_mask(m: int = 64):
+    """(m, m, 3) mask image: opaque (white) inside radius 0.5 of the
+    card centre, transparent (black) outside."""
+    yy, xx = np.mgrid[0:m, 0:m]
+    disc = (((xx + 0.5) / m - 0.5) ** 2 + ((yy + 0.5) / m - 0.5) ** 2
+            <= 0.25)
+    return np.broadcast_to(
+        np.where(disc[..., None], 1.0, 0.0).astype(np.float32),
+        (m, m, 3)).copy()
+
+
+def _random_card(rs, S, y_lo, y_hi, h_lo, h_hi):
+    """Corners of a randomly oriented square card (make_leaf_scene)."""
+    c = np.array([rs.uniform(-S, S), rs.uniform(y_lo, y_hi),
+                  rs.uniform(-S, S)])
+    a, b = rs.randn(3), rs.randn(3)
+    a /= np.linalg.norm(a)
+    b -= a * np.dot(a, b)
+    b /= np.linalg.norm(b)
+    h = rs.uniform(h_lo, h_hi)
+    p00, p10 = c - a * h - b * h, c + a * h - b * h
+    p11, p01 = c + a * h + b * h, c - a * h + b * h
+    return tuple(p00), tuple(p10), tuple(p11), tuple(p01)
+
+
+_CARD_UV = [((0, 0), (1, 0), (1, 1)), ((0, 0), (1, 1), (0, 1))]
+
+
+def make_masked_scene(*, device):
+    """Cornell box plus an alpha-masked occluder quad under the light:
+    its mask is transparent for u < 0.5 and opaque for u >= 0.5, with u
+    along +x, so shadows fall only under the opaque half."""
+    tris = []
+    white = 0
+
+    def add(quads, mat):
+        for t in quads:
+            tris.append((*t, mat))
+
+    add(_quad((-1, 0, 1), (1, 0, 1), (1, 0, -1), (-1, 0, -1)), white)
+    add(_quad((-1, 2, -1), (1, 2, -1), (1, 2, 1), (-1, 2, 1)), white)
+    add(_quad((-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1)), white)
+    add(_quad((-1, 0, 1), (-1, 0, -1), (-1, 2, -1), (-1, 2, 1)), 1)
+    add(_quad((1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1)), 2)
+    add(_quad((-0.3, 1.99, -0.3), (0.3, 1.99, -0.3), (0.3, 1.99, 0.3),
+              (-0.3, 1.99, 0.3)), 3)
+    masked = 4
+    occ = _quad((-0.8, 1.2, -0.6), (0.8, 1.2, -0.6), (0.8, 1.2, 0.6),
+                (-0.8, 1.2, 0.6))
+    add(occ, masked)
+
+    v0, v1, v2, mat_id, attrs = _arrays(tris)
+    F = len(tris)
+    attrs.update({k: np.zeros((F, 2), np.float32)
+                  for k in ("uv0", "uv1", "uv2")})
+    # UVs on the occluder: u = (x + 0.8) / 1.6, v = 0.5.
+    for k, (a, b, c) in enumerate(occ):
+        ti = F - 2 + k
+        for key, p in (("uv0", a), ("uv1", b), ("uv2", c)):
+            attrs[key][ti] = ((p[0] + 0.8) / 1.6, 0.5)
+    emit_intensity = (18.0, 14.0, 9.0)
+    mat_rows = [
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.76, 0.75, 0.5)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.63, 0.06, 0.04)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.15, 0.48, 0.09)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.78, 0.78, 0.78),
+             emit=emit_intensity),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.7, 0.7, 0.7), mask_tex=0),
+    ]
+    light_rows = _tri_lights(v0, v1, v2, mat_id, attrs, 3, emit_intensity)
+    # Mask: 64x4, black left half (transparent), white right (opaque).
+    mask_img = np.zeros((4, 64, 3), np.float32)
+    mask_img[:, 32:] = 1.0
+    scene, stats = assemble_device_scene(v0, v1, v2, attrs, mat_rows,
+                                         light_rows, [mask_img], None, device)
+    meta = SceneMeta(
+        name="procedural_masked", num_tris=F, num_materials=len(mat_rows),
+        num_lights=len(light_rows), num_textures=1, has_masks=True,
+        cam_pos=(0.0, 1.0, 3.6), cam_dir=(0.0, 0.0, -1.0),
+        cam_up=(0.0, 1.0, 0.0), bvh_stats=stats)
+    return scene, meta
+
+
+def make_leaf_scene(num_leaves: int = 6000, seed: int = 0, *, device):
+    """A canopy of `num_leaves` disc-masked leaf cards (2 triangles each)
+    over a ground plane, one area light above: about (1 - pi/4) of the
+    card-crossing rays pass through a card."""
+    rs = np.random.RandomState(seed)
+    tris = []
+    ground, leaf, lightm = 0, 1, 2
+    S = 20.0
+
+    def add(quads, mat):
+        for t in quads:
+            tris.append((*t, mat))
+
+    add(_quad((-S, 0, S), (S, 0, S), (S, 0, -S), (-S, 0, -S)), ground)
+    add(_quad((-4, 19.9, -4), (4, 19.9, -4), (4, 19.9, 4), (-4, 19.9, 4)),
+        lightm)
+    uvs = _CARD_UV * 2                                     # ground + light
+    for _ in range(num_leaves):
+        add(_quad(*_random_card(rs, S, 2.0, 12.0, 0.3, 0.9)), leaf)
+        uvs += _CARD_UV
+
+    v0, v1, v2, mat_id, attrs = _arrays(tris)
+    F = len(tris)
+    uv_arr = np.asarray(uvs[:F], np.float32)               # (F, 3, 2)
+    attrs.update(uv0=uv_arr[:, 0], uv1=uv_arr[:, 1], uv2=uv_arr[:, 2])
+    emit_intensity = (300.0, 280.0, 250.0)
+    mat_rows = [
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.5, 0.45, 0.35)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.15, 0.45, 0.1),
+             mask_tex=0),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.8, 0.8, 0.8),
+             emit=emit_intensity),
+    ]
+    light_rows = _tri_lights(v0, v1, v2, mat_id, attrs, lightm,
+                             emit_intensity)
+    scene, stats = assemble_device_scene(v0, v1, v2, attrs, mat_rows,
+                                         light_rows, [_disc_mask()], None,
+                                         device)
+    meta = SceneMeta(
+        name=f"procedural_leaves_{num_leaves}", num_tris=F,
+        num_materials=len(mat_rows), num_lights=len(light_rows),
+        num_textures=1, has_masks=True,
+        cam_pos=(0.0, 6.0, 28.0), cam_dir=(0.0, -0.1, -1.0),
+        cam_up=(0.0, 1.0, 0.0), bvh_stats=stats)
+    return scene, meta
+
+
+def make_still_life_like(num_objects: int = 8300, num_cards: int = 400,
+                         seed: int = 3, with_env: bool = True,
+                         specular_share: bool = True, *, device):
+    """The 1080p still-life proxy: an Oren-Nayar ground plane under an HDR
+    sky with a bright sun disc, one floating area light, `num_objects`
+    boxes (12 triangles each) over the full material set (diffuse,
+    mirror, glass, glossy, phong, Oren-Nayar) and `num_cards` disc-masked
+    foliage cards; 100,404 triangles at the defaults.  `with_env`,
+    `specular_share` and `num_cards=0` drop the env light, the non-
+    diffuse kinds and the masked cards."""
+    rs = np.random.RandomState(seed)
+    tris = []
+    S = 30.0
+    (floor_m, white, red, green, mirror_m, glass_m, glossy_m, phong_m,
+     onayar_m, leaf_m, lightm) = range(11)
+
+    def add(quads, mat):
+        for t in quads:
+            tris.append((*t, mat))
+
+    add(_quad((-S, 0, S), (S, 0, S), (S, 0, -S), (-S, 0, -S)), floor_m)
+    add(_quad((-4, 24.0, -4), (4, 24.0, -4), (4, 24.0, 4), (-4, 24.0, 4)),
+        lightm)
+    if specular_share:
+        mats = [white, red, green, mirror_m, glass_m, glossy_m, phong_m,
+                onayar_m]
+        probs = [0.30, 0.14, 0.14, 0.08, 0.08, 0.10, 0.08, 0.08]
+    else:
+        mats, probs = [white, red, green], [0.5, 0.25, 0.25]
+    for _ in range(num_objects):
+        c = (rs.uniform(-S, S), rs.uniform(0.2, 8.0), rs.uniform(-S, S))
+        sz = tuple(rs.uniform(0.2, 1.2, 3))
+        _add_box(tris, center=c, size=sz, angle_deg=rs.uniform(0, 360),
+                 mat=int(rs.choice(mats, p=probs)))
+    n_before = len(tris)
+    for _ in range(num_cards):
+        add(_quad(*_random_card(rs, S, 6.0, 12.0, 0.4, 1.0)), leaf_m)
+
+    v0, v1, v2, mat_id, attrs = _arrays(tris)
+    F = len(tris)
+    attrs.update({k: np.zeros((F, 2), np.float32)
+                  for k in ("uv0", "uv1", "uv2")})
+    for k in range(n_before, F):
+        for key, val in zip(("uv0", "uv1", "uv2"),
+                            _CARD_UV[(k - n_before) % 2]):
+            attrs[key][k] = val
+    emit_intensity = (400.0, 380.0, 330.0)
+    mat_rows = [
+        dict(_BASE, kind=mat_mod.MAT_OREN_NAYAR, kd=(0.55, 0.5, 0.42),
+             ns=20.0),                                          # floor
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.7, 0.7, 0.7)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.6, 0.1, 0.05)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.1, 0.5, 0.1)),
+        dict(_BASE, kind=mat_mod.MAT_MIRROR, kd=(0, 0, 0),
+             ks=(0.9, 0.9, 0.9), ns=1000.0),
+        dict(_BASE, kind=mat_mod.MAT_GLASS, kd=(0, 0, 0), ks=(1, 1, 1),
+             tf=(1, 1, 1), ior=1.5),
+        dict(_BASE, kind=mat_mod.MAT_GLOSSY, kd=(0.3, 0.25, 0.1),
+             ks=(0.6, 0.6, 0.6), ns=80.0),
+        dict(_BASE, kind=mat_mod.MAT_PHONG, kd=(0.2, 0.2, 0.45),
+             ks=(0.5, 0.5, 0.5), ns=30.0),
+        dict(_BASE, kind=mat_mod.MAT_OREN_NAYAR, kd=(0.5, 0.35, 0.2),
+             ns=40.0),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.15, 0.45, 0.1),
+             mask_tex=0),                                       # leaf cards
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.8, 0.8, 0.8),
+             emit=emit_intensity),
+    ]
+    if not specular_share:
+        mat_rows[floor_m] = dict(_BASE, kind=mat_mod.MAT_DIFFUSE,
+                                 kd=(0.55, 0.5, 0.42))
+    light_rows = _tri_lights(v0, v1, v2, mat_id, attrs, lightm,
+                             emit_intensity)
+
+    # HDR sky: horizon-to-zenith gradient + a sun disc ~200x the sky.
+    env = None
+    if with_env:
+        eh, ew = 64, 128
+        tt = (np.arange(eh, dtype=np.float32) + 0.5) / eh      # 0=up pole
+        sky = np.zeros((eh, ew, 3), np.float32)
+        zen = np.array([0.25, 0.45, 0.9], np.float32)
+        hor = np.array([0.9, 0.8, 0.7], np.float32)
+        sky[:] = zen[None, None] * (1 - tt)[:, None, None] + \
+            hor[None, None] * tt[:, None, None]
+        sy, sx = int(eh * 0.28), int(ew * 0.8)
+        sky[max(sy - 1, 0): sy + 2, max(sx - 1, 0): sx + 2] = (180.0, 160.0,
+                                                               120.0)
+        env = build_envmap(sky, (1.0, 1.0, 1.0))
+        light_rows.append(dict(kind=light_mod.LIGHT_ENV, intensity=(1, 1, 1)))
+
+    scene, stats = assemble_device_scene(v0, v1, v2, attrs, mat_rows,
+                                         light_rows, [_disc_mask()], env,
+                                         device)
+    meta = SceneMeta(
+        name=f"procedural_still_life_{num_objects}", num_tris=F,
+        num_materials=len(mat_rows), num_lights=len(light_rows),
+        num_textures=1, has_env=with_env, has_masks=num_cards > 0,
+        cam_pos=(0.0, 10.0, 42.0), cam_dir=(0.0, -0.18, -1.0),
         cam_up=(0.0, 1.0, 0.0), bvh_stats=stats)
     return scene, meta
 

@@ -70,3 +70,25 @@ def sample_bilinear(atlas: TextureAtlas, tex_id, u, v):
     val = ((1 - gy) * ((1 - gx) * i00 + gx * i10)
            + gy * ((1 - gx) * i01 + gx * i11))
     return torch.where((tex_id >= 0)[..., None], val, 1.0)
+
+
+def sample_mask(atlas: TextureAtlas, tex_id, u, v):
+    """Binary transparency lookup, nearest neighbour: opaque where the
+    texel is non-black.  tex_id < 0 is always opaque."""
+    tid = tex_id.clamp(min=0).long()
+    w = atlas.width[tid]
+    h = atlas.height[tid]
+    off = atlas.offset[tid]
+    u, v = _wrap_uv(u, v)
+    return _mask_texel_opaque(atlas, off, w, h, u, v) | (tex_id < 0)
+
+
+def _mask_texel_opaque(atlas: TextureAtlas, off, w, h, u, v):
+    """Nearest texel at wrapped (u, v) of a w x h image at `off` (i32
+    tensors), binarised: non-black is opaque."""
+    x = torch.minimum(torch.clamp((u * w.to(torch.float32)).to(torch.int32),
+                                  min=0), w - 1)
+    y = torch.minimum(torch.clamp((v * h.to(torch.float32)).to(torch.int32),
+                                  min=0), h - 1)
+    texel = atlas.texels[(off + y * w + x).long()]
+    return torch.sum(texel, dim=-1) > 0.0

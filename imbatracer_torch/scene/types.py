@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from ..accel.device import DeviceBvh
+from ..render.envmap import EnvMapData
 from ..render.lights import BSphere, LightTable
 from ..render.materials import MaterialTable
 from ..tensors import TensorData
@@ -83,7 +84,7 @@ class DeviceScene(TensorData):
     lights: LightTable
     textures: TextureAtlas
     bsphere: BSphere
-    env: None = None
+    env: Optional[EnvMapData] = None
     # Static per-scene facts: the sorted sets of material / light kinds
     # present; `()` means "unknown, evaluate every kind".
     mat_kinds: tuple = ()

@@ -1,25 +1,31 @@
-"""The CUDA traversal kernel (csrc/stream_traverse.cu) against its plain
-PyTorch version on the same ray rows.  Needs an NVIDIA GPU and nvcc: the
+"""The CUDA traversal kernels (csrc/stream_traverse.cu, and the
+k-nearest-hit kernel csrc/khit_traverse.cu) against their plain PyTorch
+versions on the same ray rows.  Needs an NVIDIA GPU and nvcc: the
 kernel has no CPU or interpret mode, so every test here is marked `cuda`
 and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py
 
-Tolerances: the kernel is built with --fmad=false and rounds every
+Tolerances: the kernels are built with --fmad=false and round every
 product and sum in the plain version's order, so t/u/v are expected bit
-for bit; the test allows 1e-5 relative.  Ids are equal except where the
+for bit; the tests allow 1e-5 relative.  Ids are equal except where the
 two hits have bit-equal t; any-hit flags may differ on 1 ray in 4096.
+The k-nearest t vectors must be equal.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
 import torch
 
+from imbatracer_torch.ops import khit as kh
 from imbatracer_torch.ops import stream_traverse as st
 from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
-from imbatracer_torch.scene.procedural import make_big_scene
+from imbatracer_torch.scene.procedural import (make_big_scene,
+                                               make_leaf_scene)
 
 
 @pytest.fixture
@@ -88,3 +94,97 @@ def test_cuda_traversal_api_and_input_checks(cuda_device):
         st.traverse_cuda(torch.zeros((128, 8), dtype=torch.float64,
                                      device=cuda_device),
                          gpu.bvh.sbox, gpu.bvh.tiles, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounded", [False, True])
+def test_cuda_khit_matches_plain(cuda_device, bounded):
+    scene, _ = make_leaf_scene(300, seed=2, device="cpu")
+    rays = _rays(4096, 11, scene, bounded)
+    gpu = scene.to(cuda_device)
+    before = kh.LAUNCHES["khit"]
+    k = kh.khit(rays.to(cuda_device), gpu.bvh.sbox, gpu.bvh.tiles).cpu()
+    assert kh.LAUNCHES["khit"] == before + 1
+    p5 = kh.khit_plain(rays, scene.bvh.sbox, scene.bvh.tiles, k=kh.K + 1)
+    p = p5[:, :8 * kh.K]
+    assert torch.equal(k[:, 0::8], p[:, 0::8])
+    kid, pid = k[:, 3::8], p[:, 3::8]
+    # Ties include one between the K-th hit and the (K+1)-th.
+    t5, id5 = p5[:, 0::8], p5[:, 3::8]
+    tie = torch.zeros_like(kid, dtype=torch.bool)
+    for a in range(kh.K):
+        for b in range(kh.K + 1):
+            if a != b:
+                tie[:, a] |= (t5[:, a] == t5[:, b]) & (id5[:, b] >= 0)
+    assert bool(((kid == pid) | tie).all())
+    same = (kid == pid) & (pid >= 0)
+    for f in (1, 2):
+        torch.testing.assert_close(k[:, f::8][same], p[:, f::8][same],
+                                   rtol=1e-5, atol=1e-5)
+    assert int((pid[:, 0] >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["closest", "any", "khit"])
+def test_cuda_counting_launch(cuda_device, kind):
+    """The counting instantiation returns the kernel's rows, and its
+    tallies are consistent: every entered chunk tests its 16 slots (a
+    closest or khit walk), and the walk tests no more triangles than the
+    plain version's walk without early exit enters."""
+    scene, _ = make_leaf_scene(300, seed=2, device="cpu")
+    rays = _rays(4096, 11, scene, kind == "any")
+    gpu = scene.to(cuda_device)
+    rg, sbox, tiles = rays.to(cuda_device), gpu.bvh.sbox, gpu.bvh.tiles
+    launch = (partial(kh.khit_cuda, rg, sbox, tiles) if kind == "khit" else
+              partial(st.traverse_cuda, rg, sbox, tiles, kind == "any"))
+    lists = st.superchunk_candidates(rg, sbox)
+    work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                       device=cuda_device)
+    assert torch.equal(launch(lists=lists, work=work), launch(lists=lists))
+    w = dict(zip(st.WORK_SLOTS, work.cpu().tolist()))
+    mt = sum(w[k] for k in st.WORK_SLOTS[1:])
+    inv = st._safe_inv(rays[:, 4:7])
+    cbox = scene.bvh.tiles[:, list(st._CBOX_ROWS), :st.SUPER].permute(0, 2, 1)
+    live = (rays[:, 7] >= 0.0).nonzero(as_tuple=True)[0]
+    plain_mt = st.CHUNK * sum(int(rr.shape[0]) for rr, _ in
+                              st._triangle_batches(live, rays, scene.bvh.sbox,
+                                                   cbox, inv))
+    assert w["mt_hit"] > 100 and w["slab"] > 0
+    assert 0 < mt <= plain_mt
+    if kind != "any":
+        assert mt % st.CHUNK == 0
+
+
+@pytest.mark.cuda
+def test_cuda_masked_traversal_matches_cpu(cuda_device):
+    from imbatracer_torch.render.integrators.pt import alpha_fn_for
+
+    scene, _ = make_leaf_scene(300, seed=2, device="cpu")
+    gpu = scene.to(cuda_device)
+    rs = np.random.RandomState(4)
+    org = torch.from_numpy(rs.uniform((-20, 1, -20), (20, 12, 20),
+                                      (3000, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rs.randn(3000, 3).astype(np.float32)), dim=1)
+    hc = tt.closest_hit(scene.bvh, org, d, 0.0, BIG,
+                        alpha_fn=alpha_fn_for(scene))
+    before = dict(kh.LAUNCHES)
+    hg = tt.closest_hit(gpu.bvh, org.to(cuda_device), d.to(cuda_device), 0.0,
+                        BIG, alpha_fn=alpha_fn_for(gpu))
+    assert kh.LAUNCHES["khit"] > before["khit"]
+    assert kh.LAUNCHES["plain"] == before["plain"]
+    assert torch.equal(hc.t, hg.t.cpu())
+    tie = (hc.prim_id != hg.prim_id.cpu())
+    assert int(tie.sum()) <= 2
+
+
+@pytest.mark.cuda
+def test_cuda_khit_input_checks(cuda_device):
+    scene, _ = make_leaf_scene(300, seed=2, device=cuda_device)
+    with pytest.raises(ValueError):
+        kh.khit_cuda(torch.zeros((100, 8), device=cuda_device),
+                     scene.bvh.sbox, scene.bvh.tiles)
+    with pytest.raises(TypeError):
+        kh.khit_cuda(torch.zeros((128, 8), dtype=torch.float64,
+                                 device=cuda_device),
+                     scene.bvh.sbox, scene.bvh.tiles)

@@ -11,6 +11,7 @@ mean relative difference <= 1e-3, >= 98% of pixels within 1e-4 relative
 choice or a Russian-roulette draw decided by one ulp moves a few paths).
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -86,37 +87,55 @@ def test_frame_fn_and_progressive_renderer(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """The port imports torch and never jax: with jax (and flax, PIL)
-    made unimportable, it builds the cornell and renders a 16x16 frame."""
+    """The port imports torch and never jax or the JAX package: with jax,
+    flax, PIL and imbatracer_tpu made unimportable, it builds the cornell
+    and the masked scene and renders a 16x16 frame of each."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'PIL'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'PIL', 'imbatracer_tpu'):\n"
         "    sys.modules[m] = None\n"
         "from imbatracer_torch.frontend.engine import make_frame_fn\n"
         "from imbatracer_torch.frontend.renderer import RenderSettings\n"
-        "from imbatracer_torch.scene.procedural import make_cornell_scene\n"
-        "scene, meta = make_cornell_scene(device='cpu')\n"
+        "from imbatracer_torch.scene.procedural import (\n"
+        "    make_cornell_scene, make_masked_scene)\n"
         "s = RenderSettings(width=16, height=16, spp=1, max_path_len=3)\n"
-        "film = make_frame_fn(scene, meta, s)[0](0)\n"
-        "assert film.shape == (256, 3) and bool(film.isfinite().all())\n"
-        "print('mean', float(film.mean()))\n"
+        "for build in (make_cornell_scene, make_masked_scene):\n"
+        "    scene, meta = build(device='cpu')\n"
+        "    film = make_frame_fn(scene, meta, s)[0](0)\n"
+        "    assert film.shape == (256, 3) and bool(film.isfinite().all())\n"
+        "    print('mean', float(film.mean()))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=root, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert float(res.stdout.split()[-1]) > 0.0
+    means = [float(ln.split()[-1]) for ln in res.stdout.splitlines()
+             if ln.startswith("mean")]
+    assert len(means) == 2 and min(means) > 0.0
 
 
 def test_port_sources_import_no_jax():
-    root = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "imbatracer_torch")
-    for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    for line in fh:
-                        s = line.strip()
-                        assert not s.startswith(("import jax", "from jax")), (
-                            f, s)
+    """No module of imbatracer_torch/, and not chip_smoke.py, imports jax,
+    flax or any module of the JAX package, at any depth of the source
+    (function-local imports included)."""
+    banned = ("jax", "jaxlib", "flax", "imbatracer_tpu")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(repo, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(repo, "imbatracer_torch")):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    assert len(paths) > 30
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (
+                    os.path.relpath(path, repo), node.lineno, name)

@@ -143,9 +143,20 @@ def test_sample_direct_all_light_kinds(kinds):
 
 
 def test_env_light_raises():
-    with pytest.raises(NotImplementedError):
-        tlights.build_light_table([dict(kind=tlights.LIGHT_ENV,
-                                        intensity=(1, 1, 1))], device="cpu")
+    """An ENV row builds the JAX package's table; sampling a table that
+    names ENV lights without an environment map raises."""
+    rows = [dict(kind=tlights.LIGHT_ENV, intensity=(1, 1, 1))]
+    tt = tlights.build_light_table(rows, device="cpu")
+    np.testing.assert_array_equal(
+        tt.rec.numpy().view(np.uint32),
+        np.asarray(jlights.build_light_table(rows).rec).view(np.uint32))
+    ones = torch.ones(4)
+    tb = tlights.BSphere(center=torch.zeros(3), radius=torch.tensor(1.0),
+                         inv_radius_sqr=torch.tensor(1.0))
+    with pytest.raises(ValueError):
+        tlights.sample_direct(tt, torch.zeros(4, dtype=torch.int32),
+                              torch.zeros(4, 3), ones * 0.5, ones * 0.5, tb,
+                              None, kinds=(tlights.LIGHT_ENV,))
 
 
 @pytest.mark.parametrize("builder,has_bump", [

@@ -178,8 +178,31 @@ def test_candidates_and_sort_keys_match_jax(big):
 
 
 def test_unported_routes_raise(big):
-    org = torch.zeros((4, 3))
-    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3)
+    """Masked traversal needs the scene's mask record: the JAX package's
+    chained alpha lookup without it (IMBA_MASK_REC=0) is not ported."""
+    from imbatracer_torch.render.integrators.pt import alpha_fn_for
+
+    assert big.attrs.mask_rec is None
     with pytest.raises(NotImplementedError):
-        tt.closest_hit(big.bvh, org, d, 0.0, BIG,
-                       alpha_fn=lambda p, u, v: p >= 0)
+        alpha_fn_for(big)
+
+
+def test_work_slots_match_kernel_header():
+    """The counting launch's slots (stream_traverse.WORK_SLOTS) are those
+    of csrc/traverse_common.cuh: slab tests, then one per Moller-Trumbore
+    stage, in the header's enum order; chip_smoke.py costs each stage."""
+    import os
+    import re
+
+    import chip_smoke
+    from imbatracer_torch.libbuild import CSRC
+
+    with open(os.path.join(CSRC, "traverse_common.cuh")) as fh:
+        src = fh.read()
+    stages = re.search(r"enum MtStage \{([^}]*)\}", src).group(1)
+    stages = [s.strip() for s in stages.split(",")]
+    assert stages[-1] == "kStages"
+    assert len(st.WORK_SLOTS) == 1 + len(stages) - 1
+    assert [s[3:] for s in st.WORK_SLOTS[1:]] == [s[1:].lower()
+                                                  for s in stages[:-1]]
+    assert len(chip_smoke.MT_STAGE_OPS) == len(stages) - 1
