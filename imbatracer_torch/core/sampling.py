@@ -69,6 +69,15 @@ def sample_power_cos_hemisphere(power, u1, u2):
     return d, pdf
 
 
+def sample_uniform_sphere(u1, u2):
+    """Uniform direction on the full sphere. pdf = 1/(4pi)."""
+    phi = 2.0 * PI * u1
+    z = 1.0 - 2.0 * u2
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    d = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    return d, torch.full_like(u1, 1.0 / (4.0 * PI))
+
+
 def uniform_sphere_pdf():
     return 1.0 / (4.0 * PI)
 
@@ -79,8 +88,34 @@ def sample_uniform_triangle(u1, u2):
     return 1.0 - su, u2 * su
 
 
+def sample_uniform_cone(cos_max, u1, u2):
+    """Uniform direction in a cone around +z. pdf = 1/(2pi (1-cos_max))."""
+    phi = 2.0 * PI * u1
+    z = 1.0 - u2 * (1.0 - cos_max)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    d = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    pdf = 1.0 / (2.0 * PI * torch.clamp(1.0 - cos_max, min=1e-20))
+    return d, torch.broadcast_to(pdf, u1.shape)
+
+
 def uniform_cone_pdf(cos_max):
     return 1.0 / (2.0 * PI * torch.clamp(1.0 - cos_max, min=1e-20))
+
+
+def sample_concentric_disc(u1, u2):
+    """Shirley-Chiu concentric disc mapping, branchless."""
+    ox = 2.0 * u1 - 1.0
+    oy = 2.0 * u2 - 1.0
+    zero = (ox == 0.0) & (oy == 0.0)
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    theta = torch.where(
+        use_x,
+        (PI / 4.0) * (oy / torch.where(ox == 0.0, 1.0, ox)),
+        (PI / 2.0) - (PI / 4.0) * (ox / torch.where(oy == 0.0, 1.0, oy)))
+    x = torch.where(zero, 0.0, r * torch.cos(theta))
+    y = torch.where(zero, 0.0, r * torch.sin(theta))
+    return x, y
 
 
 def concentric_disc_pdf():
@@ -100,7 +135,8 @@ def mis_power_heuristic(pdf_a, pdf_b):
 __all__ = [
     "PI", "INV_PI", "local_coordinates", "to_world", "to_local",
     "sample_cos_hemisphere", "cos_hemisphere_pdf",
-    "sample_power_cos_hemisphere", "uniform_sphere_pdf",
-    "sample_uniform_triangle", "uniform_cone_pdf", "concentric_disc_pdf",
+    "sample_power_cos_hemisphere", "sample_uniform_sphere",
+    "uniform_sphere_pdf", "sample_uniform_triangle", "sample_uniform_cone",
+    "uniform_cone_pdf", "sample_concentric_disc", "concentric_disc_pdf",
     "russian_roulette_prob", "mis_power_heuristic",
 ]

@@ -30,6 +30,20 @@ class RenderSettings:
     max_samples: int = 2 ** 31 - 1
     max_time_sec: float = float("inf")
     algorithm: str = "pt"
+    light_path_count: int = 0      # 0 -> width*height/2, capped (below)
+    num_connections: int = 1
+    radius_factor: float = 2.0
+
+    def resolved_light_path_count(self) -> int:
+        """An explicit count wins.  The default is the reference's
+        width*height/2, capped per family as the JAX package caps it: the
+        merge-free estimators (BPT, LT) at 2^16, the merging ones at 2^17
+        (the JAX renderer measured equal-or-better quality at a fixed time
+        budget with fewer, cheaper light paths)."""
+        if self.light_path_count:
+            return self.light_path_count
+        cap = 1 << 16 if self.algorithm in ("bpt", "lt") else 1 << 17
+        return min((self.width * self.height) // 2, cap)
 
 
 class ProgressiveRenderer:

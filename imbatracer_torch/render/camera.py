@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.vecmath import normalize
+from ..core.vecmath import dot, normalize
 from ..tensors import TensorData
 
 
@@ -53,3 +53,24 @@ def generate_ray(cam: Camera, raster_x, raster_y):
     d = normalize(p)
     org = cam.pos.expand(d.shape)
     return org, d
+
+
+def world_to_raster(cam: Camera, world_pos):
+    """Project world points to raster coords; returns (raster_x, raster_y,
+    depth_along_forward)."""
+    dp = world_pos - cam.pos
+    depth = dot(dp, cam.forward)
+    safe = torch.where(torch.abs(depth) < 1e-8, 1e-8, depth)
+    a = dot(dp, cam.right) * cam.img_plane_dist / safe
+    b = dot(dp, cam.down) * cam.img_plane_dist / safe
+    rx = 0.5 * cam.width + a
+    ry = 0.5 * cam.height + (cam.height / cam.width) * b
+    return rx, ry, depth
+
+
+def raster_to_id(cam: Camera, rx, ry):
+    """Raster position -> pixel id, -1 outside."""
+    x = torch.floor(rx).to(torch.int32)
+    y = torch.floor(ry).to(torch.int32)
+    inside = (x >= 0) & (x < cam.width) & (y >= 0) & (y < cam.height)
+    return torch.where(inside, y * cam.width + x, -1)

@@ -1,0 +1,589 @@
+"""Vertex Connection and Merging and its sub-algorithms (BPT / PPM / LT /
+PT') as one template over the `algo` flag (torch twin of
+imbatracer_tpu.render.integrators.vcm, its default schedule).
+
+The MIS algebra is the partial-weight scheme of the VCM technical report
+as the JAX module transcribes it: per-frame progressive radius and
+eta constants, light-path and camera-path dVC / dVCM / dVM recursions,
+NEE, vertex connection through a uniformly sampled cached light vertex,
+light-to-camera connections splatted to the film, and vertex merging
+with the Epanechnikov kernel through the photon-merge kernel
+(ops/merge.py).  Light paths terminate at emitter surfaces, as in the
+JAX module (its docstring gives the reason).
+
+A frame: the light pass in bands of BAND_RAYS paths (sample_emit,
+closest-hit traversal, vertices logged per bounce and appended to the
+collect cache once per band, camera connections splatted once per
+band), then `select_shallowest` down to the working cache capacity and
+`build_merge_grid`, then the camera pass in bands of BAND_RAYS rays,
+each a lockstep loop of `max_len` bounces (env and emitter hits, NEE
+and vertex connections with one batched any-hit dispatch, merging,
+BSDF sampling with Russian roulette).  Banding is estimator-neutral:
+the RNG is keyed by global path and pixel ids, the light-path count
+normalises every light-side estimate, and the collect cache holds every
+vertex a frame can store (`max_len` a path), so the selected cache is
+the same under any band size.
+
+Not ported (schedule variants of the same estimator, off by default or
+TPU-only in the JAX package): camera-pass compaction, deferred merging,
+deferred shadow rays, the connect slice, the masked band cap, the
+windowed hash-grid merge route and `debug_light_pass`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core import rng as rng_mod
+from ...core.sampling import PI, russian_roulette_prob
+from ...core.vecmath import dot, normalize
+from ...ops import merge as merge_mod
+from ...scene.textures import sample_bilinear
+from .. import envmap as envmap_mod
+from .. import lights as light_mod
+from .. import materials as mat_mod
+from ..camera import Camera, raster_to_id, world_to_raster
+from ..film import splat
+from ..intersect import BIG
+from ..light_cache import (append_packed, empty_cache, pack_batch,
+                           select_shallowest)
+from ..surface import make_interaction
+from ..traverse import any_hit, closest_hit
+from .pt import BAND_RAYS, alpha_fn_for, camera_rays, unswizzle_film
+
+ALGOS = ("vcm", "bpt", "ppm", "lt", "pt")
+
+# Sampling-technique tags for the MIS debugger: each tag gates one
+# contribution site while the RNG streams stay identical, so renders of
+# single techniques sum to the full render.
+TECHNIQUES = ("light_hit", "next_event", "connect", "merge", "cam_connect")
+
+LIGHT_SEED = 0x1157A9
+
+
+def shading_normal_adjoint(normal, gn, w_out, w_in):
+    """Veach's adjoint-BSDF cosine correction."""
+    denom = dot(w_out, gn)
+    denom = torch.where(torch.abs(denom) < 1e-9,
+                        torch.where(denom < 0, -1e-9, 1e-9), denom)
+    return dot(w_out, normal) * dot(w_in, gn) / denom
+
+
+def _vertex_from_rec(scene, rec):
+    """Unpack gathered (R, 24) cache records (LightVertexCache.packed)."""
+    bits = lambda c: rec[:, c].contiguous().view(torch.int32)
+    mat_id = bits(14)
+    uv = rec[:, 12:14]
+    params = mat_mod.gather_params(scene.materials, mat_id)
+    if scene.textures.texels.shape[0] > 1:
+        params["kd"] = torch.where(
+            (params["kd_tex"] >= 0)[..., None],
+            sample_bilinear(scene.textures, params["kd_tex"], uv[:, 0],
+                            uv[:, 1]), params["kd"])
+    return dict(pos=rec[:, 0:3], w_out=rec[:, 3:6], normal=rec[:, 6:9],
+                gn=rec[:, 9:12], params=params, throughput=rec[:, 15:18],
+                d_vc=rec[:, 18], d_vcm=rec[:, 19], d_vm=rec[:, 20],
+                path_length=bits(21))
+
+
+def auto_cache_capacity(light_path_count: int, max_len: int) -> int:
+    """Default working cache capacity: 2x light_path_count (at most
+    max_len - 1 vertices a path).  `select_shallowest` keeps the
+    shallowest vertices, i.e. depth-capped admission, whose quality the
+    JAX package measured (its auto_cache_capacity docstring)."""
+    return max(int(min(2, max(max_len - 1, 1)) * light_path_count), 1)
+
+
+def pixel_area(cam: Camera) -> float:
+    """A pixel's area on the image plane, in the plane's pixel units: the
+    camera maps raster y to (w / h)(y - h / 2) (render/camera.py), so a
+    pixel is 1 wide and w / h tall.  The camera's solid-angle pdf and its
+    importance divide by it.  The JAX package, like the reference, takes
+    it as 1, which scales light tracing by w / h on non-square images and
+    tilts the MIS of BPT / VCM there; on square images the two agree."""
+    return cam.width / cam.height
+
+
+def _mis_constants(frame, base_radius, light_path_count: int, algo: str):
+    """Progressive radius r_i = r0 / i^(0.5 (1 - 0.75)) and the MIS
+    constants eta_vcm = pi r^2 n_light_paths, eta_vc = 1 / eta_vcm,
+    eta_vm = eta_vcm (0 for BPT)."""
+    iteration = frame.to(torch.float32) + 1.0
+    pm_radius = base_radius / torch.pow(iteration, 0.5 * (1.0 - 0.75))
+    pm_radius = torch.clamp(pm_radius, min=1e-7)
+    eta_vcm = PI * pm_radius * pm_radius * light_path_count
+    mis_eta_vc = 1.0 / eta_vcm
+    mis_eta_vm = torch.zeros_like(eta_vcm) if algo == "bpt" else eta_vcm
+    return pm_radius, mis_eta_vc, mis_eta_vm
+
+
+# ======================================================================
+#  Light pass
+# ======================================================================
+
+def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, cache, *,
+                algo, num_pixels, light_path_count, max_len, alpha_fn,
+                has_bump, techniques=TECHNIQUES, path_start=0, band_paths=0):
+    """One band of light paths.  Returns (film (num_pixels, 3) of the
+    light-to-camera connections, cache with the band's vertices
+    appended)."""
+    dev = cam.pos.device
+    num_lights = scene.lights.kind.shape[0]
+    L = band_paths if band_paths > 0 else light_path_count
+    pdf_lightpick = 1.0 / num_lights
+
+    path_id = path_start + torch.arange(L, dtype=torch.int32, device=dev)
+    state = rng_mod.seed(path_id, frame, LIGHT_SEED)
+    # Uniform split of the GLOBAL path index over the lights, so banding
+    # never changes which light a path samples.
+    light_idx = (path_id * num_lights) // light_path_count
+    state, (u1, u2, u3, u4) = rng_mod.next_floats(state, 4)
+    es = light_mod.sample_emit(scene.lights, light_idx, u1, u2, u3, u4,
+                               scene.bsphere, scene.env,
+                               kinds=scene.light_kinds)
+
+    throughput = es.radiance / pdf_lightpick
+    d_vcm = es.pdf_direct_a / torch.clamp(es.pdf_emit_w, min=1e-20)
+    d_vc = torch.where(es.is_delta, 0.0, es.cos_out / torch.clamp(
+        es.pdf_emit_w * pdf_lightpick, min=1e-20))
+    d_vm = d_vc * mis_eta_vc
+    org, d = es.pos, es.dir
+    tmin = torch.full((L,), 1e-3, dtype=torch.float32, device=dev)
+    active = (es.pdf_emit_w > 0.0) & torch.any(es.radiance != 0.0, dim=-1)
+
+    use_cc = algo != "ppm" and "cam_connect" in techniques
+    use_cache = algo != "lt"
+    vrecs, vstores, cc_rows, cc_pix = [], [], [], []
+    for i in range(max_len):
+        hit = closest_hit(scene.bvh, org, d, tmin, BIG, alpha_fn=alpha_fn,
+                          active=active, sort=True)
+        # Light rays ignore the environment.
+        active = active & (hit.prim_id >= 0)
+        isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
+        cos_o = torch.abs(dot(isect.w_out, isect.normal))
+        # Terminate at emitter surfaces (the camera pass does too).
+        active = active & (cos_o > 0.0) & (isect.light_id < 0)
+
+        # Complete the partial weights.
+        t_sqr = hit.t * hit.t
+        d_vcm = d_vcm * (t_sqr if i > 0 else torch.where(es.is_finite, t_sqr,
+                                                          1.0))
+        inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
+        d_vcm = d_vcm * inv_cos
+        d_vc = d_vc * inv_cos
+        d_vm = d_vm * inv_cos
+        non_spec = ~mat_mod.is_specular(isect.params)
+
+        if use_cache:
+            vrecs.append(pack_batch(
+                isect.pos, isect.w_out, isect.normal, isect.gn, isect.uv,
+                isect.mat_id, throughput, d_vc, d_vcm, d_vm,
+                torch.full((L,), i + 2, dtype=torch.int32, device=dev),
+                path_id))
+            vstores.append(active & non_spec)
+        if use_cc:
+            # Normalised by the GLOBAL light-path count, not the band.
+            contrib, pix = _connect_to_camera(
+                scene, cam, isect, throughput, d_vc, d_vcm,
+                active & non_spec, mis_eta_vm, light_path_count, algo,
+                alpha_fn)
+            cc_rows.append(contrib)
+            cc_pix.append(pix)
+
+        (org, d, tmin, throughput, active, d_vc, d_vcm, d_vm,
+         state) = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm,
+                          active, state, hit, mis_eta_vc, mis_eta_vm,
+                          adjoint=True, algo=algo,
+                          last_bounce=(i + 1 >= max_len))
+
+    # One splat and one append per band, in (bounce, path) order.
+    if use_cc:
+        film = splat(torch.cat(cc_rows), torch.cat(cc_pix), num_pixels)
+    else:
+        film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
+    if use_cache:
+        cache = append_packed(cache, torch.cat(vstores), torch.cat(vrecs))
+    return film, cache
+
+
+def _connect_to_camera(scene, cam, isect, throughput, d_vc, d_vcm, valid,
+                       mis_eta_vm, light_path_count, algo, alpha_fn):
+    """Light vertex -> camera connection: (contrib (R, 3), pixel id (R,),
+    -1 where nothing lands)."""
+    to_cam = cam.pos - isect.pos
+    in_front = dot(-to_cam, cam.forward) >= 0.0
+    rx, ry, _ = world_to_raster(cam, isect.pos)
+    pixel = raster_to_id(cam, rx, ry)
+    valid = valid & in_front & (pixel >= 0)
+
+    dist_sqr = torch.clamp(dot(to_cam, to_cam), min=1e-12)
+    dist = torch.sqrt(dist_sqr)
+    dir_c = to_cam / dist[..., None]
+    cos_cam = torch.abs(dot(cam.forward, -dir_c))
+    cos_surf = torch.abs(shading_normal_adjoint(isect.normal, isect.gn,
+                                                isect.w_out, dir_c))
+    f, _, pdf_rev = mat_mod.eval_pdf_bsdf(
+        isect.params, isect.normal, isect.gn, isect.w_out, dir_c,
+        kinds=scene.mat_kinds)
+    valid = valid & (pdf_rev > 0.0)
+
+    ipd = cam.img_plane_dist
+    img_to_surf = (ipd * ipd * cos_surf) / torch.clamp(
+        dist_sqr * cos_cam * cos_cam * cos_cam, min=1e-12) / pixel_area(cam)
+    w_light = (img_to_surf / light_path_count) * (
+        mis_eta_vm + d_vcm + d_vc * pdf_rev)
+    w = 1.0 if algo == "lt" else 1.0 / (w_light + 1.0)
+    contrib = throughput * f * (w * img_to_surf / light_path_count)[..., None]
+    valid = valid & torch.any(contrib > 0.0, dim=-1)
+
+    offset = dist * 1e-3
+    occluded = any_hit(scene.bvh, isect.pos, dir_c, offset, dist - offset,
+                       alpha_fn=alpha_fn, active=valid, sort=True)
+    ok = valid & ~occluded
+    return torch.where(ok[..., None], contrib, 0.0), torch.where(ok, pixel, -1)
+
+
+def _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm, active, state, hit,
+            mis_eta_vc, mis_eta_vm, *, adjoint, algo, last_bounce):
+    """Shared camera / light bounce with the partial-weight updates."""
+    state, (urr, u1, u2, u3) = rng_mod.next_floats(state, 4)
+    rr_pdf = russian_roulette_prob(throughput)
+    survive = urr < rr_pdf
+    p = isect.params
+    wi, f, pdf_dir, spec, valid = mat_mod.sample_bsdf(
+        p, isect.normal, isect.gn, isect.w_out, u1, u2, u3, adjoint=adjoint,
+        kinds=scene.mat_kinds)
+    if algo == "ppm" and not adjoint:
+        # PPM camera paths follow specular chains only.
+        valid = valid & mat_mod.is_specular(p)
+    pdf_rev = torch.where(spec, pdf_dir, mat_mod.pdf_bsdf(
+        p, isect.normal, isect.gn, wi, isect.w_out, kinds=scene.mat_kinds))
+    if adjoint:
+        cos_i = torch.abs(shading_normal_adjoint(isect.normal, isect.gn,
+                                                 isect.w_out, wi))
+    else:
+        cos_i = torch.abs(dot(wi, isect.normal))
+
+    safe_pdf = torch.clamp(pdf_dir, min=1e-20)
+    ratio = cos_i / safe_pdf
+    new_d_vc = torch.where(spec, d_vc * cos_i,
+                           ratio * (d_vc * pdf_rev + d_vcm + mis_eta_vm))
+    new_d_vm = torch.where(spec, d_vm * cos_i,
+                           ratio * (d_vm * pdf_rev + d_vcm * mis_eta_vc + 1.0))
+    new_d_vcm = torch.where(spec, 0.0, 1.0 / safe_pdf)
+    new_throughput = throughput * f * (cos_i / (rr_pdf * safe_pdf))[..., None]
+    active = active & survive & valid
+    if last_bounce:
+        active = torch.zeros_like(active)
+
+    a3 = active[..., None]
+    return (torch.where(a3, isect.pos, 0.0), torch.where(a3, wi, 0.0),
+            hit.t * 1e-4, torch.where(a3, new_throughput, throughput), active,
+            torch.where(active, new_d_vc, d_vc),
+            torch.where(active, new_d_vcm, d_vcm),
+            torch.where(active, new_d_vm, d_vm), state)
+
+
+# ======================================================================
+#  Camera pass
+# ======================================================================
+
+def _camera_pass(scene, cam: Camera, frame, cache, cache_rec, grid,
+                 pm_radius, base_radius, mis_eta_vc, mis_eta_vm, *, algo,
+                 width, height, spp, max_len, light_path_count,
+                 num_connections, has_bump, alpha_fn, techniques,
+                 start_pixel, band_pixels, mat_kinds, record=None):
+    """One band of camera paths -> its (band_pixels, 3) film.  With
+    `record`, a list, the arguments of the first bounce's merge call are
+    appended to it."""
+    org, d, state, _ = camera_rays(cam, width, height, spp, frame,
+                                   start_pixel=start_pixel, count=band_pixels)
+    # dVCM init: the pixel pdf converted to solid angle.
+    cos_o = dot(d, cam.forward)
+    a = cam.img_plane_dist / cos_o
+    d_vcm = light_path_count / (a * a / cos_o / pixel_area(cam))
+    zero1 = torch.zeros_like(org[:, 0])
+    tmin, d_vc, d_vm = zero1, zero1, zero1
+    throughput = torch.ones_like(org)
+    radiance = torch.zeros_like(org)
+    active = torch.ones_like(zero1, dtype=torch.bool)
+    num_lights = scene.lights.kind.shape[0]
+    ppm = algo == "ppm"
+
+    for i in range(max_len):
+        hit = closest_hit(scene.bvh, org, d, tmin, BIG, alpha_fn=alpha_fn,
+                          active=active, sort=True)
+        # --- environment misses -----------------------------------------
+        # The template's PT variant weights the first vertex fully, as the
+        # dedicated path tracer does (the JAX module's deviation).
+        miss = active & (hit.prim_id < 0)
+        if scene.env is not None and "light_hit" in techniques:
+            li, pdf_direct_w, pdf_emit_w = envmap_mod.radiance(
+                scene.env, normalize(d), scene.bsphere.inv_radius_sqr)
+            w_cam = ((pdf_direct_w / num_lights) * d_vcm
+                     + (pdf_emit_w / num_lights) * d_vc)
+            if ppm or (algo == "pt" and i == 0):
+                w = torch.ones_like(w_cam)
+            else:
+                w = 1.0 / (w_cam + 1.0)
+            radiance = radiance + torch.where(
+                miss[..., None], throughput * li * w[..., None], 0.0)
+        active = active & ~miss
+
+        isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
+        cos_o = torch.abs(dot(isect.w_out, isect.normal))
+        inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
+        d_vcm = d_vcm * (hit.t * hit.t) * inv_cos
+        d_vc = d_vc * inv_cos
+        d_vm = d_vm * inv_cos
+        active = active & (cos_o > 0.0)
+
+        # --- emitter hits -------------------------------------------------
+        is_emitter = active & (isect.light_id >= 0)
+        area = torch.clamp(isect.area, min=1e-12)
+        cos_geom = dot(isect.gn, isect.w_out)
+        front = cos_geom > 0.0
+        li = torch.where(front[..., None], isect.emit, 0.0)
+        pdf_direct_a = torch.where(front, 1.0 / area, 1.0)
+        # The area emitter's pdf_emit_w is measured about the geometric
+        # normal.
+        pdf_emit_w = torch.where(
+            front, torch.clamp(cos_geom, min=0.0) / PI / area, 1.0)
+        w_cam = ((pdf_direct_a / num_lights) * d_vcm
+                 + (pdf_emit_w / num_lights) * d_vc)
+        if ppm or i == 0:
+            w_emit = torch.ones_like(w_cam)
+        else:
+            w_emit = 1.0 / (w_cam + 1.0)
+        if "light_hit" in techniques:
+            radiance = radiance + torch.where(
+                is_emitter[..., None], throughput * li * w_emit[..., None],
+                0.0)
+        active = active & ~is_emitter
+        non_spec = ~mat_mod.is_specular(isect.params)
+
+        # --- NEE + vertex connections: one any-hit dispatch ---------------
+        shadow = []
+        if algo != "ppm":
+            state = _direct_illum(
+                scene, isect, throughput, d_vc, d_vcm, active, state,
+                mis_eta_vm, num_lights, algo, shadow,
+                enabled="next_event" in techniques)
+        if algo in ("vcm", "bpt"):
+            for _ in range(num_connections):
+                state = _connect(
+                    scene, cache, cache_rec, isect, throughput, d_vc, d_vcm,
+                    active & non_spec, state, mis_eta_vm, light_path_count,
+                    num_connections, max_len, i + 1, base_radius, shadow,
+                    enabled="connect" in techniques)
+        if shadow:
+            cat = lambda k: torch.cat([s[k] for s in shadow])
+            occ = any_hit(scene.bvh, cat(0), cat(1), cat(2), cat(3),
+                          alpha_fn=alpha_fn, active=cat(4), sort=True)
+            n = shadow[0][4].shape[0]
+            for k, (_, _, _, _, ok, contrib) in enumerate(shadow):
+                hit_ok = ok & ~occ[k * n:(k + 1) * n]
+                radiance = radiance + torch.where(hit_ok[..., None], contrib,
+                                                  0.0)
+
+        # --- vertex merging -------------------------------------------------
+        if algo in ("vcm", "ppm") and "merge" in techniques:
+            radiance = _vertex_merging(
+                grid, isect, throughput, d_vcm, d_vm, active & non_spec,
+                radiance, mis_eta_vc, pm_radius, light_path_count, algo,
+                mat_kinds, record=record if i == 0 else None)
+
+        (org, d, tmin, throughput, active, d_vc, d_vcm, d_vm,
+         state) = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm,
+                          active, state, hit, mis_eta_vc, mis_eta_vm,
+                          adjoint=False, algo=algo,
+                          last_bounce=(i + 1 >= max_len))
+
+    return unswizzle_film(radiance, spp, band_pixels, width)
+
+
+def _direct_illum(scene, isect, throughput, d_vc, d_vcm, active, state,
+                  mis_eta_vm, num_lights, algo, shadow, enabled=True):
+    """NEE: appends (org, dir, tmin, tmax, ok, contrib) to `shadow` when
+    `enabled`; the RNG advances either way.  Returns the new state."""
+    state, (ul, ua, ub) = rng_mod.next_floats(state, 3)
+    light_idx = torch.clamp((ul * num_lights).to(torch.int32),
+                            max=num_lights - 1)
+    ds = light_mod.sample_direct(scene.lights, light_idx, isect.pos, ua, ub,
+                                 scene.bsphere, scene.env,
+                                 kinds=scene.light_kinds)
+    cos_i = torch.abs(dot(isect.normal, ds.dir))
+    f, pdf_dir, pdf_rev = mat_mod.eval_pdf_bsdf(
+        isect.params, isect.normal, isect.gn, isect.w_out, ds.dir,
+        kinds=scene.mat_kinds)
+    ok = active & (pdf_dir > 0.0) & (pdf_rev > 0.0)
+
+    pdf_forward = torch.where(ds.is_delta, 0.0, pdf_dir)
+    w_light = pdf_forward * num_lights / torch.clamp(ds.pdf_direct_w,
+                                                     min=1e-20)
+    w_cam = (ds.pdf_emit_w * cos_i / torch.clamp(
+        ds.pdf_direct_w * ds.cos_out, min=1e-20)) * (
+        mis_eta_vm + d_vcm + d_vc * pdf_rev)
+    w = (torch.ones_like(w_cam) if algo == "pt"
+         else 1.0 / (w_cam + 1.0 + w_light))
+    contrib = throughput * f * ds.radiance * (w * cos_i * num_lights)[..., None]
+    ok = ok & torch.any(contrib > 0.0, dim=-1)
+    offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
+    if enabled:
+        shadow.append((isect.pos, ds.dir, offset, ds.distance - offset, ok,
+                       contrib))
+    return state
+
+
+def _connect(scene, cache, cache_rec, isect, throughput, d_vc, d_vcm, active,
+             state, mis_eta_vm, light_path_count, num_connections, max_len,
+             cam_path_length, base_radius, shadow, enabled=True):
+    """One vertex connection per ray to a uniformly picked cached light
+    vertex; appends its shadow ray to `shadow` when `enabled`.  Returns
+    the new state."""
+    count = cache.count
+    state, (uc,) = rng_mod.next_floats(state, 1)
+    j = torch.minimum((uc * count.to(torch.float32)).to(torch.int32),
+                      torch.clamp(count - 1, min=0))
+    v = _vertex_from_rec(scene, cache_rec[j.long()])
+    ok = active & (count > 0) & (v["path_length"] + cam_path_length <= max_len)
+
+    to_v = v["pos"] - isect.pos
+    dist_sq = torch.clamp(dot(to_v, to_v), min=1e-20)
+    dist = torch.sqrt(dist_sq)
+    cdir = to_v / dist[..., None]
+    ok = ok & (dist >= base_radius)
+
+    f_cam, pdf_cam, pdf_cam_rev = mat_mod.eval_pdf_bsdf(
+        isect.params, isect.normal, isect.gn, isect.w_out, cdir,
+        kinds=scene.mat_kinds)
+    vn, vgn, vout = v["normal"], v["gn"], v["w_out"]
+    f_light, pdf_light, pdf_light_rev = mat_mod.eval_pdf_bsdf(
+        v["params"], vn, vgn, vout, -cdir, kinds=scene.mat_kinds)
+    ok = (ok & (pdf_cam > 0) & (pdf_cam_rev > 0) & (pdf_light > 0)
+          & (pdf_light_rev > 0))
+
+    cos_cam = torch.abs(dot(isect.normal, cdir))
+    cos_light = torch.abs(shading_normal_adjoint(vn, vgn, vout, -cdir))
+    geom = cos_cam * cos_light / dist_sq
+    ok = ok & (geom > 0.0)
+    pdf_cam_a = pdf_cam * cos_light / dist_sq
+    pdf_light_a = pdf_light * cos_cam / dist_sq
+    w_light = pdf_cam_a * (mis_eta_vm + v["d_vcm"] + v["d_vc"] * pdf_light_rev)
+    w_cam = pdf_light_a * (mis_eta_vm + d_vcm + d_vc * pdf_cam_rev)
+    w = 1.0 / (w_cam + 1.0 + w_light)
+    vc_weight = count.to(torch.float32) / (light_path_count * num_connections)
+    contrib = (throughput * v["throughput"] * f_cam * f_light
+               * (w * geom * vc_weight)[..., None])
+    ok = ok & torch.any(contrib > 0.0, dim=-1)
+    offset = 1e-3 * dist
+    if enabled:
+        shadow.append((isect.pos, cdir, offset, dist - offset, ok, contrib))
+    return state
+
+
+def _vertex_merging(grid, isect, throughput, d_vcm, d_vm, active, radiance,
+                    mis_eta_vc, pm_radius, light_path_count, algo, mat_kinds,
+                    record=None):
+    """Fixed-radius photon gather with the Epanechnikov kernel: the exact,
+    unbounded walk of the merge kernel (ops/merge.py).  With `record`, a
+    list, merge_contrib's arguments are appended to it by name."""
+    radius_sqr = torch.clamp(pm_radius * pm_radius, min=1e-20)
+    kinds = mat_kinds if mat_kinds is not None else merge_mod.MERGE_KINDS
+    args = dict(grid=grid, qpos=isect.pos, normal=isect.normal, gn=isect.gn,
+                w_out=isect.w_out, params=isect.params, d_vcm=d_vcm,
+                d_vm=d_vm, active=active, mis_eta_vc=mis_eta_vc, kinds=kinds,
+                ppm=(algo == "ppm"))
+    if record is not None:
+        record.append(args)
+    contrib = merge_mod.merge_contrib(**args)
+    norm = 2.0 / (PI * radius_sqr * light_path_count)
+    return radiance + torch.where(active[..., None],
+                                  throughput * contrib * norm, 0.0)
+
+
+# ======================================================================
+#  Frame entry point
+# ======================================================================
+
+def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
+                     algo: str = "vcm", width: int = 512, height: int = 512,
+                     spp: int = 1, max_len: int = 10,
+                     light_path_count: int = 0, num_connections: int = 1,
+                     has_masks: bool = False,
+                     has_bump: bool = False, techniques: tuple = TECHNIQUES,
+                     mat_kinds: tuple = None, light_band: int = BAND_RAYS,
+                     camera_band: int = BAND_RAYS, stats: dict = None):
+    """One progressive VCM-family frame; returns the un-normalised
+    (H*W, 3) film (divide by frames * spp for display).  `frame` is the
+    frame number (Python int or integer tensor), `base_radius` the
+    frame-0 merge radius.  `mat_kinds`: the scene's material kinds (the
+    merge kernel skips absent ones; None = every non-delta kind).
+    `light_band` / `camera_band` are the band sizes (estimator-neutral).
+    With `stats`, a dict, it records the collected and kept vertex
+    counts ("collected", "cache") and the photon count ("photons"); if
+    it holds a list under "merge_queries", each camera band appends the
+    arguments of its camera bounce-1 merge call (merge_contrib's, by
+    name) to it."""
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algorithm {algo!r}")
+    dev = cam.pos.device
+    frame = torch.as_tensor(frame, device=dev).to(torch.int64)
+    base_radius = torch.as_tensor(base_radius, dtype=torch.float32,
+                                  device=dev)
+    num_pixels = width * height
+    if light_path_count <= 0:
+        light_path_count = num_pixels // 2
+    cache_capacity = auto_cache_capacity(light_path_count, max_len)
+    pm_radius, mis_eta_vc, mis_eta_vm = _mis_constants(
+        frame, base_radius, light_path_count, algo)
+    alpha_fn = alpha_fn_for(scene) if has_masks else None
+
+    film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
+    cache = cache_rec = grid = None
+    if algo != "pt":
+        # The collect cache holds every vertex a frame can store (one a
+        # path per bounce), so nothing is dropped before the selection.
+        collect = (empty_cache(light_path_count * max_len, dev)
+                   if algo != "lt" else None)
+        for start in range(0, light_path_count, light_band):
+            bp = min(light_band, light_path_count - start)
+            light_film, collect = _light_pass(
+                scene, cam, frame, mis_eta_vc, mis_eta_vm, collect, algo=algo,
+                num_pixels=num_pixels, light_path_count=light_path_count,
+                max_len=max_len, alpha_fn=alpha_fn, has_bump=has_bump,
+                techniques=techniques, path_start=start, band_paths=bp)
+            film = film + light_film
+        if collect is not None:
+            # Canonical (path, bounce) layout of the shallowest vertices:
+            # the same set and order under any band schedule.
+            cache = select_shallowest(collect, cache_capacity)
+            cache_rec = cache.packed()
+            if stats is not None:
+                stats["collected"] = collect.count
+                stats["cache"] = cache.count
+            del collect
+        if algo in ("vcm", "ppm"):
+            valid = torch.arange(cache.capacity, device=dev) < cache.count
+            grid = merge_mod.build_merge_grid(
+                cache.pos, valid, pm_radius, cache.w_out, cache.throughput,
+                cache.d_vcm, cache.d_vm)
+            if stats is not None:
+                stats["photons"] = valid.sum()
+
+    if algo != "lt":
+        band = max(1, camera_band // max(spp, 1))
+        record = stats.get("merge_queries") if stats is not None else None
+        parts = []
+        for start in range(0, num_pixels, band):
+            bp = min(band, num_pixels - start)
+            parts.append(_camera_pass(
+                scene, cam, frame, cache, cache_rec, grid, pm_radius,
+                base_radius, mis_eta_vc, mis_eta_vm, algo=algo, width=width,
+                height=height, spp=spp, max_len=max_len,
+                light_path_count=light_path_count,
+                num_connections=num_connections, has_bump=has_bump,
+                alpha_fn=alpha_fn, techniques=techniques, start_pixel=start,
+                band_pixels=bp, mat_kinds=mat_kinds, record=record))
+        film = film + (parts[0] if len(parts) == 1 else torch.cat(parts))
+    return film

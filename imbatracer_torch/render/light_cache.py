@@ -1,0 +1,150 @@
+"""Light-path vertex cache (torch twin of imbatracer_tpu.render.
+light_cache): SoA, fixed capacity, on the cache's device.
+
+The light pass appends its stored vertices in bulk (`append_packed`:
+slots by an exclusive prefix sum over the valid mask, so the order is
+deterministic).  Each vertex keeps what re-evaluating its BSDF at
+connection time needs (position, outgoing direction, shading and
+geometric normals, uv, material id) plus throughput and the dVC / dVCM /
+dVM partial MIS weights.
+
+Unlike the JAX module, an append that does not fit raises instead of
+dropping the rows past the capacity: the renderer sizes its collect
+cache to hold every vertex a frame can store (vcm.py) and selects the
+working set with `select_shallowest`, so nothing is lost silently.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..tensors import TensorData
+
+# Columns of the (C, 24) wide record (LightVertexCache.packed).
+REC_W = 24
+_INT_COLS = (14, 21, 22)          # mat_id, path_length, path_id (i32 bits)
+_I32_MAX = 2 ** 31 - 1
+
+
+@dataclass
+class LightVertexCache(TensorData):
+    pos: torch.Tensor          # (C, 3)
+    w_out: torch.Tensor        # (C, 3) direction toward the previous vertex
+    normal: torch.Tensor       # (C, 3)
+    gn: torch.Tensor           # (C, 3)
+    uv: torch.Tensor           # (C, 2)
+    mat_id: torch.Tensor       # (C,) i32
+    throughput: torch.Tensor   # (C, 3)
+    d_vc: torch.Tensor         # (C,)
+    d_vcm: torch.Tensor        # (C,)
+    d_vm: torch.Tensor         # (C,)
+    path_length: torch.Tensor  # (C,) i32
+    path_id: torch.Tensor      # (C,) i32 global light-path index
+    count: torch.Tensor        # () i32 number of valid vertices
+
+    @property
+    def capacity(self) -> int:
+        return self.pos.shape[0]
+
+    def packed(self) -> torch.Tensor:
+        """Wide-record view (C, 24): [pos(0:3), w_out(3:6), normal(6:9),
+        gn(9:12), uv(12:14), mat_id(14, i32 bits), throughput(15:18),
+        dVC(18), dVCM(19), dVM(20), path_length(21, i32 bits),
+        path_id(22, i32 bits), pad(23)]."""
+        return pack_batch(self.pos, self.w_out, self.normal, self.gn,
+                          self.uv, self.mat_id, self.throughput, self.d_vc,
+                          self.d_vcm, self.d_vm, self.path_length,
+                          self.path_id)
+
+
+def _bits(a):
+    return a.to(torch.int32).view(torch.float32)[:, None]
+
+
+def _from_rec(rec, count) -> LightVertexCache:
+    ib = lambda c: rec[:, c].contiguous().view(torch.int32)
+    return LightVertexCache(
+        pos=rec[:, 0:3].contiguous(), w_out=rec[:, 3:6].contiguous(),
+        normal=rec[:, 6:9].contiguous(), gn=rec[:, 9:12].contiguous(),
+        uv=rec[:, 12:14].contiguous(), mat_id=ib(14),
+        throughput=rec[:, 15:18].contiguous(), d_vc=rec[:, 18].contiguous(),
+        d_vcm=rec[:, 19].contiguous(), d_vm=rec[:, 20].contiguous(),
+        path_length=ib(21), path_id=ib(22), count=count)
+
+
+def empty_cache(capacity: int, device) -> LightVertexCache:
+    rec = torch.zeros((capacity, REC_W), dtype=torch.float32, device=device)
+    return _from_rec(rec, torch.zeros((), dtype=torch.int32, device=device))
+
+
+def pack_batch(pos, w_out, normal, gn, uv, mat_id, throughput, d_vc, d_vcm,
+               d_vm, path_length, path_id) -> torch.Tensor:
+    """Pack a vertex batch into the (N, 24) wide-record layout of
+    LightVertexCache.packed() (ints bitcast into float lanes)."""
+    n = pos.shape[0]
+    return torch.cat([
+        pos, w_out, normal, gn, uv, _bits(mat_id), throughput,
+        d_vc[:, None], d_vcm[:, None], d_vm[:, None], _bits(path_length),
+        _bits(path_id), torch.zeros((n, 1), dtype=torch.float32,
+                                    device=pos.device)], dim=1)
+
+
+def append_packed(cache: LightVertexCache, valid,
+                  rec: torch.Tensor) -> LightVertexCache:
+    """Append the `valid` rows of a packed (N, 24) record batch in batch
+    order after the cache's current rows.  Raises if they do not fit (one
+    host sync for the count)."""
+    add = int(valid.sum())
+    count = int(cache.count)
+    if count + add > cache.capacity:
+        raise RuntimeError(
+            f"light vertex cache overflow: {count} + {add} vertices do not "
+            f"fit its capacity of {cache.capacity}")
+    full = cache.packed()
+    full[count:count + add] = rec[valid]
+    return _from_rec(full, cache.count + add)
+
+
+def append(cache: LightVertexCache, valid, pos, w_out, normal, gn, uv,
+           mat_id, throughput, d_vc, d_vcm, d_vm, path_length,
+           path_id) -> LightVertexCache:
+    """pack_batch + append_packed."""
+    return append_packed(
+        cache, valid,
+        pack_batch(pos, w_out, normal, gn, uv, mat_id, throughput, d_vc,
+                   d_vcm, d_vm, path_length, path_id))
+
+
+def _sorted_by(cache: LightVertexCache, major, minor, rows: int):
+    """The first `rows` records in (major, minor) order, invalid rows
+    (past the count) last; both keys are non-negative int32 on valid
+    rows, so one int64 key orders them."""
+    idx = torch.arange(cache.capacity, device=cache.pos.device)
+    valid = idx < cache.count
+    key = torch.where(valid, major.to(torch.int64) * (1 << 32)
+                      + minor.to(torch.int64), _I32_MAX * (1 << 32) + _I32_MAX)
+    order = torch.sort(key, stable=True)[1][:rows]
+    return cache.packed()[order]
+
+
+def canonicalize(cache: LightVertexCache) -> LightVertexCache:
+    """Sort valid vertices into (path_id, path_length) order, which makes
+    the layout, and the RNG-indexed vertex sampling downstream,
+    independent of the band schedule."""
+    rec = _sorted_by(cache, cache.path_id, cache.path_length, cache.capacity)
+    return _from_rec(rec, cache.count)
+
+
+def select_shallowest(cache: LightVertexCache,
+                      capacity: int) -> LightVertexCache:
+    """Depth-capped admission: keep the first `capacity` valid vertices in
+    (path_length, path_id) order -- the set a single-band append-order
+    truncation keeps, under any band schedule -- and return a
+    `capacity`-size cache in canonical order."""
+    if capacity >= cache.capacity:
+        return canonicalize(cache)
+    rec = _sorted_by(cache, cache.path_length, cache.path_id, capacity)
+    kept = _from_rec(rec, torch.clamp(cache.count, max=capacity))
+    return canonicalize(kept)

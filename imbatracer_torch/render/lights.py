@@ -2,10 +2,9 @@
 imbatracer_tpu.render.lights).
 
 Kinds: TRI (area emitter), POINT, DIR(ectional), SPOT, ENV.  The
-`{radiance, cos_out, pdf_emit_w, pdf_direct_w}` contract and the kind
-select order follow the JAX module.  Only NEE sampling (`sample_direct`)
-is ported; photon emission (`sample_emit`, LT and the VCM family) comes
-with those integrators.
+`{radiance, cos_out, pdf_emit_w, pdf_direct_w|a}` contract and the kind
+select order follow the JAX module: `sample_direct` for NEE shadow rays,
+`sample_emit` for the light paths of the VCM family.
 """
 
 from __future__ import annotations
@@ -17,9 +16,11 @@ import numpy as np
 import torch
 
 from ..core.sampling import (PI, concentric_disc_pdf, cos_hemisphere_pdf,
-                             sample_uniform_triangle, uniform_cone_pdf,
-                             uniform_sphere_pdf)
-from ..core.vecmath import dot, where3
+                             local_coordinates, sample_concentric_disc,
+                             sample_cos_hemisphere, sample_uniform_cone,
+                             sample_uniform_sphere, sample_uniform_triangle,
+                             to_world, uniform_cone_pdf, uniform_sphere_pdf)
+from ..core.vecmath import dot, normalize, where3
 from ..tensors import TensorData
 from . import envmap as envmap_mod
 
@@ -66,6 +67,19 @@ class DirectSample(NamedTuple):
     is_delta: torch.Tensor
 
 
+class EmitSample(NamedTuple):
+    """One photon-emission sample."""
+
+    pos: torch.Tensor
+    dir: torch.Tensor
+    radiance: torch.Tensor
+    cos_out: torch.Tensor
+    pdf_emit_w: torch.Tensor
+    pdf_direct_a: torch.Tensor
+    is_finite: torch.Tensor
+    is_delta: torch.Tensor
+
+
 def _has(kinds, K) -> bool:
     return (not kinds) or (K in kinds)
 
@@ -87,6 +101,110 @@ def is_delta_kind(kind):
     return (kind == LIGHT_POINT) | (kind == LIGHT_DIR) | (kind == LIGHT_SPOT)
 
 
+def is_finite_kind(kind):
+    return (kind != LIGHT_DIR) & (kind != LIGHT_ENV)
+
+
+def _fetch(lights: LightTable, light_idx):
+    """Per-ray light rows: (kind, p0, p1, p2, n, intensity, area,
+    cos_angle)."""
+    rec = lights.rec[light_idx.clamp(min=0).long()]
+    return (rec[:, 0].contiguous().view(torch.int32), rec[:, 1:4],
+            rec[:, 4:7], rec[:, 7:10], rec[:, 10:13], rec[:, 13:16],
+            rec[:, 16], rec[:, 17])
+
+
+def sample_emit(lights: LightTable, light_idx, u1, u2, u3, u4,
+                bsphere: BSphere, env=None, kinds: tuple = ()) -> EmitSample:
+    """Sample an outgoing photon ray from light `light_idx` (the light
+    pass).  `kinds`: the scene's static light-kind set; `env`: the
+    scene's EnvMapData, which an ENV light samples."""
+    if env is None and LIGHT_ENV in kinds:
+        raise ValueError("the light table holds an environment light but "
+                         "no environment map was given")
+    kind, p0, p1, p2, n, intensity, area_row, cos_angle = _fetch(lights,
+                                                                 light_idx)
+    has = lambda K: _has(kinds, K)
+    poss, dirss, rads, pdf_es, pdf_das, cos_outs = [], [], [], [], [], []
+    ones = torch.ones_like(area_row)
+
+    if has(LIGHT_TRI):
+        area = torch.clamp(area_row, min=1e-12)
+        tu, tv = sample_uniform_triangle(u1, u2)
+        pos_t = (tu[..., None] * p0 + tv[..., None] * p1
+                 + (1.0 - tu - tv)[..., None] * p2)
+        d_loc, pdf_cos = sample_cos_hemisphere(u3, u4)
+        dir_t = to_world(d_loc, n)
+        degen = pdf_cos <= 0.0
+        poss.append((LIGHT_TRI, pos_t))
+        dirss.append((LIGHT_TRI, dir_t))
+        rads.append((LIGHT_TRI, torch.where(
+            degen[..., None], 0.0, intensity * (area * PI)[..., None])))
+        pdf_es.append((LIGHT_TRI, torch.where(degen, 1.0, pdf_cos / area)))
+        pdf_das.append((LIGHT_TRI, torch.where(degen, 1.0, 1.0 / area)))
+        cos_outs.append((LIGHT_TRI, torch.where(degen, 0.0, d_loc[..., 2])))
+
+    if has(LIGHT_POINT):
+        d_sph, pdf_sph = sample_uniform_sphere(u3, u4)
+        poss.append((LIGHT_POINT, p0))
+        dirss.append((LIGHT_POINT, d_sph))
+        rads.append((LIGHT_POINT, intensity))
+        pdf_es.append((LIGHT_POINT, pdf_sph))
+        pdf_das.append((LIGHT_POINT, ones))
+        cos_outs.append((LIGHT_POINT, ones))
+
+    has_env = env is not None and has(LIGHT_ENV)
+    if has(LIGHT_DIR) or has_env:
+        dx, dy = sample_concentric_disc(u1, u2)
+    if has(LIGHT_DIR):
+        # A disc on the bounding sphere, facing along the light.
+        t_dir, b_dir = local_coordinates(n)
+        pos_d = bsphere.center + bsphere.radius * (
+            -n + b_dir * dx[..., None] + t_dir * dy[..., None])
+        pdf_emit_d = concentric_disc_pdf() * bsphere.inv_radius_sqr
+        poss.append((LIGHT_DIR, pos_d))
+        dirss.append((LIGHT_DIR, torch.broadcast_to(n, p0.shape)))
+        rads.append((LIGHT_DIR, intensity / pdf_emit_d))
+        pdf_es.append((LIGHT_DIR, torch.broadcast_to(pdf_emit_d, ones.shape)))
+        pdf_das.append((LIGHT_DIR, ones))
+        cos_outs.append((LIGHT_DIR, ones))
+
+    if has(LIGHT_SPOT):
+        d_cone, pdf_cone = sample_uniform_cone(cos_angle, u3, u4)
+        poss.append((LIGHT_SPOT, p0))
+        dirss.append((LIGHT_SPOT, to_world(d_cone, n)))
+        rads.append((LIGHT_SPOT, intensity / pdf_cone[..., None]))
+        pdf_es.append((LIGHT_SPOT, pdf_cone))
+        pdf_das.append((LIGHT_SPOT, ones))
+        cos_outs.append((LIGHT_SPOT, ones))
+
+    if has_env:
+        env_dir, env_li, env_pdf = envmap_mod.sample_dir(env, u3, u4)
+        inward = -env_dir
+        te, be = local_coordinates(inward)
+        pos_e = bsphere.center + bsphere.radius * (
+            -inward + be * dx[..., None] + te * dy[..., None])
+        pdf_emit_e = concentric_disc_pdf() * bsphere.inv_radius_sqr * env_pdf
+        poss.append((LIGHT_ENV, pos_e))
+        dirss.append((LIGHT_ENV, inward))
+        rads.append((LIGHT_ENV, env_li / torch.clamp(
+            pdf_emit_e, min=1e-20)[..., None]))
+        pdf_es.append((LIGHT_ENV, pdf_emit_e))
+        pdf_das.append((LIGHT_ENV, env_pdf))
+        cos_outs.append((LIGHT_ENV, ones))
+
+    return EmitSample(
+        pos=_chain(kind, poss),
+        dir=normalize(_chain(kind, dirss)),
+        radiance=_chain(kind, rads),
+        cos_out=_chain(kind, cos_outs),
+        pdf_emit_w=_chain(kind, pdf_es),
+        pdf_direct_a=_chain(kind, pdf_das),
+        is_finite=is_finite_kind(kind),
+        is_delta=is_delta_kind(kind),
+    )
+
+
 def sample_direct(lights: LightTable, light_idx, from_pos, u1, u2,
                   bsphere: BSphere, env=None,
                   kinds: tuple = ()) -> DirectSample:
@@ -96,19 +214,13 @@ def sample_direct(lights: LightTable, light_idx, from_pos, u1, u2,
     if env is None and LIGHT_ENV in kinds:
         raise ValueError("the light table holds an environment light but "
                          "no environment map was given")
-    rec = lights.rec[light_idx.clamp(min=0).long()]
-    kind = rec[:, 0].view(torch.int32)
-    p0, p1, p2 = rec[:, 1:4], rec[:, 4:7], rec[:, 7:10]
-    n = rec[:, 10:13]
-    intensity = rec[:, 13:16]
-    cos_angle = rec[:, 17]
-
+    kind, p0, p1, p2, n, intensity, area, cos_angle = _fetch(lights,
+                                                             light_idx)
     has = lambda K: _has(kinds, K)
     dirs, dists, rads, pdf_es, pdf_ds, cos_outs = [], [], [], [], [], []
-    ones = torch.ones_like(rec[:, 0])
+    ones = torch.ones_like(area)
 
     if has(LIGHT_TRI):
-        area = rec[:, 16]
         tu, tv = sample_uniform_triangle(u1, u2)
         pos = (tu[..., None] * p0 + tv[..., None] * p1
                + (1.0 - tu - tv)[..., None] * p2)

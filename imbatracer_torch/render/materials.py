@@ -54,6 +54,16 @@ class MatParams(dict):
     ior, emit and the texture ids."""
 
 
+def gather_params(table: MaterialTable, mat_id) -> MatParams:
+    """Per-ray parameters from one row gather of the wide record."""
+    rec = table.rec[mat_id.clamp(min=0).long()]
+    bits = lambda c: rec[:, c].contiguous().view(torch.int32)
+    return MatParams(
+        kind=bits(0), kd=rec[:, 1:4], ks=rec[:, 4:7], tf=rec[:, 7:10],
+        ns=rec[:, 10], ior=rec[:, 11], emit=rec[:, 12:15], kd_tex=bits(15),
+        bump_tex=bits(16), mask_tex=bits(17))
+
+
 def is_specular(p: MatParams) -> torch.Tensor:
     return (p["kind"] == MAT_MIRROR) | (p["kind"] == MAT_GLASS)
 
@@ -245,6 +255,51 @@ def _lambert_eval(kd, lo, li):
 
 # ---------------------------------------------------------------- eval/pdf
 
+def eval_bsdf(p: MatParams, n, gn, wo, wi, adjoint: bool = False,
+              kinds: tuple = ()):
+    """BSDF value; zero for delta kinds and across the geometric surface.
+    The non-delta kinds are symmetric, so `adjoint` changes nothing."""
+    lo = to_local(wo, n)
+    li = to_local(wi, n)
+    same_geom = dot(wo, gn) * dot(wi, gn) > 0.0
+    kind = p["kind"]
+    f = torch.zeros_like(p["kd"])
+    if _has(kinds, MAT_DIFFUSE):
+        f = where3(kind == MAT_DIFFUSE, _lambert_eval(p["kd"], lo, li), f)
+    if _has(kinds, MAT_GLOSSY):
+        f = where3(kind == MAT_GLOSSY,
+                   0.5 * (_ct_eval(p["ks"], p["ns"], lo, li)
+                          + _lambert_eval(p["kd"], lo, li)), f)
+    if _has(kinds, MAT_PHONG):
+        f = where3(kind == MAT_PHONG, _phong_eval(p["ks"], p["ns"], lo, li), f)
+    if _has(kinds, MAT_OREN_NAYAR):
+        f = where3(kind == MAT_OREN_NAYAR,
+                   _oren_nayar_eval(p["kd"], p["ns"], lo, li), f)
+    return where3(same_geom, f, torch.zeros_like(f))
+
+
+def pdf_bsdf(p: MatParams, n, gn, wo, wi, kinds: tuple = ()):
+    """Solid-angle pdf of sample_bsdf picking wi; zero for delta kinds."""
+    lo = to_local(wo, n)
+    li = to_local(wi, n)
+    same_geom = dot(wo, gn) * dot(wi, gn) > 0.0
+    same_hemi = lo[..., 2] * li[..., 2] > 0.0
+    pdf_cos = torch.where(same_hemi,
+                          cos_hemisphere_pdf(torch.abs(li[..., 2])), 0.0)
+    kind = p["kind"]
+    pdf = torch.zeros_like(pdf_cos)
+    if _has(kinds, MAT_DIFFUSE):
+        pdf = torch.where(kind == MAT_DIFFUSE, pdf_cos, pdf)
+    if _has(kinds, MAT_GLOSSY):
+        pdf = torch.where(kind == MAT_GLOSSY,
+                          0.5 * (_ct_pdf(p["ns"], lo, li) + pdf_cos), pdf)
+    if _has(kinds, MAT_PHONG):
+        pdf = torch.where(kind == MAT_PHONG, _phong_pdf(p["ns"], lo, li), pdf)
+    if _has(kinds, MAT_OREN_NAYAR):
+        pdf = torch.where(kind == MAT_OREN_NAYAR, pdf_cos, pdf)
+    return torch.where(same_geom, pdf, 0.0)
+
+
 def eval_pdf_bsdf(p: MatParams, n, gn, wo, wi, kinds: tuple = ()):
     """Fused BSDF value + forward pdf + reverse pdf; zero for delta kinds.
     Returns (f, pdf_fwd, pdf_rev)."""
@@ -298,10 +353,12 @@ def eval_pdf_bsdf(p: MatParams, n, gn, wo, wi, kinds: tuple = ()):
 
 # ------------------------------------------------------------------ sample
 
-def sample_bsdf(p: MatParams, n, gn, wo, u1, u2, u3, kinds: tuple = ()):
+def sample_bsdf(p: MatParams, n, gn, wo, u1, u2, u3, adjoint: bool = False,
+                kinds: tuple = ()):
     """Sample an incoming direction.  Returns (wi, f, pdf, specular,
     valid); `f` excludes the cosine term, `pdf` includes the
-    component-choice probabilities."""
+    component-choice probabilities.  `adjoint` (light paths) drops the
+    (eta_i / eta_t)^2 radiance scaling of glass transmission."""
     lo = to_local(wo, n)
     kind = p["kind"]
     has = lambda K: _has(kinds, K)
@@ -344,10 +401,11 @@ def sample_bsdf(p: MatParams, n, gn, wo, u1, u2, u3, kinds: tuple = ()):
         li_trans = torch.stack([-eta_frac * lo[..., 0],
                                 -eta_frac * lo[..., 1], cos_t], dim=-1)
         li_trans = torch.where(tir[..., None], li_mirror, li_trans)
-        # Radiance transport scales transmission by (eta_i / eta_t)^2 (the
-        # adjoint variant for light tracing comes with the VCM family).
+        # Radiance transport scales transmission by (eta_i / eta_t)^2, the
+        # adjoint (light tracing) does not.
+        radiance_factor = 1.0 if adjoint else eta_frac * eta_frac
         f_trans = p["tf"] * (
-            eta_frac * eta_frac * (1.0 - fr_diel)
+            radiance_factor * (1.0 - fr_diel)
             / torch.clamp(torch.abs(li_trans[..., 2]), min=1e-12))[..., None]
         f_trans = torch.where(tir[..., None], 0.0, f_trans)
         f_glass_refl = p["ks"] * (fr_diel / torch.clamp(

@@ -1,8 +1,8 @@
-"""The CUDA traversal kernels (csrc/stream_traverse.cu, and the
-k-nearest-hit kernel csrc/khit_traverse.cu) against their plain PyTorch
-versions on the same ray rows.  Needs an NVIDIA GPU and nvcc: the
-kernel has no CPU or interpret mode, so every test here is marked `cuda`
-and skips without a card.  This file imports no jax, so it also runs on
+"""The CUDA kernels (the traversal kernels csrc/stream_traverse.cu and
+csrc/khit_traverse.cu, and the photon-merge kernel csrc/merge_kernel.cu)
+against their plain PyTorch versions on the same inputs.  Needs an
+NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
+test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py
@@ -11,7 +11,9 @@ Tolerances: the kernels are built with --fmad=false and round every
 product and sum in the plain version's order, so t/u/v are expected bit
 for bit; the tests allow 1e-5 relative.  Ids are equal except where the
 two hits have bit-equal t; any-hit flags may differ on 1 ray in 4096.
-The k-nearest t vectors must be equal.
+The k-nearest t vectors must be equal.  Merge sums agree within 1e-4
+relative (only powf and torch.pow round differently), with equal counted
+work.
 """
 
 from functools import partial
@@ -188,3 +190,79 @@ def test_cuda_khit_input_checks(cuda_device):
         kh.khit_cuda(torch.zeros((128, 8), dtype=torch.float64,
                                  device=cuda_device),
                      scene.bvh.sbox, scene.bvh.tiles)
+
+
+# --------------------------------------------------------------------------
+# The photon-merge kernel (csrc/merge_kernel.cu)
+# --------------------------------------------------------------------------
+
+def _merge_case(seed, num_p=3000, num_q=2000, kinds=(0, 3, 4, 5),
+                radius=0.07):
+    """A photon grid and sorted query rows from a numpy seed."""
+    from imbatracer_torch.ops import merge as mg
+
+    rs = np.random.RandomState(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+
+    def unit(n):
+        v = rs.randn(n, 3)
+        return f32(v / np.linalg.norm(v, axis=1, keepdims=True))
+
+    grid = mg.build_merge_grid(
+        f32(rs.rand(num_p, 3)), torch.from_numpy(rs.rand(num_p) > 0.1),
+        radius, unit(num_p), f32(rs.rand(num_p, 3)), f32(rs.rand(num_p)),
+        f32(rs.rand(num_p)))
+    n = unit(num_q)
+    gn = torch.nn.functional.normalize(n + 0.1 * unit(num_q), dim=1)
+    params = dict(kind=torch.from_numpy(rs.choice(kinds, num_q).astype(
+        np.int32)), kd=f32(rs.rand(num_q, 3)), ks=f32(rs.rand(num_q, 3)),
+        ns=f32(1.0 + rs.rand(num_q) * 30.0))
+    qrec, _ = mg.prepare_queries(
+        grid, f32(rs.rand(num_q, 3)), n, gn, unit(num_q), params,
+        f32(rs.rand(num_q) * 2), f32(rs.rand(num_q) * 2),
+        torch.from_numpy(rs.rand(num_q) > 0.15))
+    return grid, qrec, mg.scalars(grid, 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds,ppm", [((0,), False), ((0, 3, 4, 5), False),
+                                       ((0, 3, 4, 5), True)])
+def test_cuda_merge_matches_plain(cuda_device, kinds, ppm):
+    """Per-query sums within 1e-4 relative (the two round alike but for
+    powf against torch.pow), and the counting launch returns the
+    kernel's rows with the plain version's tallies."""
+    from imbatracer_torch.ops import merge as mg
+
+    grid, qrec, scal = _merge_case(5, kinds=kinds)
+    ggrid, gq, gs = grid.to(cuda_device), qrec.to(cuda_device), scal.to(
+        cuda_device)
+    before = mg.LAUNCHES["merge"]
+    k = mg.merge_rows(gq, ggrid, gs, kinds, ppm)
+    assert mg.LAUNCHES["merge"] == before + 1
+    pw = torch.zeros(len(mg.WORK_SLOTS), dtype=torch.int64)
+    p = mg.merge_plain(qrec, grid, scal, kinds, ppm, work=pw)
+    kw = torch.zeros(len(mg.WORK_SLOTS), dtype=torch.int64,
+                     device=cuda_device)
+    assert torch.equal(mg.merge_cuda(gq, ggrid, gs, kinds, ppm, work=kw), k)
+    k = k.cpu()
+    scale = torch.clamp(p[:, :3].abs(), min=1e-6 * float(p[:, :3].abs().max()))
+    assert float(((k[:, :3] - p[:, :3]).abs() / scale).max()) <= 1e-4
+    assert torch.equal(k[:, 3:], torch.zeros_like(k[:, 3:]))
+    assert float(p[:, :3].sum()) > 0.0
+    assert torch.equal(kw.cpu(), pw)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_input_checks(cuda_device):
+    from imbatracer_torch.ops import merge as mg
+
+    grid, qrec, scal = _merge_case(6, num_p=300, num_q=100)
+    g = grid.to(cuda_device)
+    with pytest.raises(ValueError):
+        mg.merge_cuda(qrec, g, scal.to(cuda_device), (0,), False)   # on CPU
+    with pytest.raises(ValueError):
+        mg.merge_cuda(qrec[:, :20].contiguous().to(cuda_device), g,
+                      scal.to(cuda_device), (0,), False)
+    with pytest.raises(TypeError):
+        mg.merge_cuda(qrec.double().to(cuda_device), g,
+                      scal.to(cuda_device), (0,), False)

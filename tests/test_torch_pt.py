@@ -80,8 +80,9 @@ def test_frame_fn_and_progressive_renderer(tmp_path):
     assert renderer.frames == 2 and img.shape == (16, 24, 3)
     np.testing.assert_array_equal(renderer.raw(), want)
 
-    with pytest.raises(NotImplementedError):
-        make_frame_fn(scene, meta, RenderSettings(algorithm="vcm"))
+    vcm_fn, _ = make_frame_fn(scene, meta, RenderSettings(
+        width=8, height=8, max_path_len=2, algorithm="vcm"))
+    assert vcm_fn(0).shape == (64, 3)
     with pytest.raises(ValueError):
         make_frame_fn(scene, meta, RenderSettings(algorithm="nope"))
 
@@ -89,7 +90,7 @@ def test_frame_fn_and_progressive_renderer(tmp_path):
 def test_port_runs_without_jax():
     """The port imports torch and never jax or the JAX package: with jax,
     flax, PIL and imbatracer_tpu made unimportable, it builds the cornell
-    and the masked scene and renders a 16x16 frame of each."""
+    and the masked scene and renders a 16x16 PT and VCM frame of each."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'PIL', 'imbatracer_tpu'):\n"
@@ -98,12 +99,15 @@ def test_port_runs_without_jax():
         "from imbatracer_torch.frontend.renderer import RenderSettings\n"
         "from imbatracer_torch.scene.procedural import (\n"
         "    make_cornell_scene, make_masked_scene)\n"
-        "s = RenderSettings(width=16, height=16, spp=1, max_path_len=3)\n"
         "for build in (make_cornell_scene, make_masked_scene):\n"
         "    scene, meta = build(device='cpu')\n"
-        "    film = make_frame_fn(scene, meta, s)[0](0)\n"
-        "    assert film.shape == (256, 3) and bool(film.isfinite().all())\n"
-        "    print('mean', float(film.mean()))\n"
+        "    for algo in ('pt', 'vcm'):\n"
+        "        s = RenderSettings(width=16, height=16, spp=1,\n"
+        "                           max_path_len=3, algorithm=algo)\n"
+        "        film = make_frame_fn(scene, meta, s)[0](0)\n"
+        "        assert film.shape == (256, 3)\n"
+        "        assert bool(film.isfinite().all())\n"
+        "        print('mean', float(film.mean()))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
@@ -112,7 +116,7 @@ def test_port_runs_without_jax():
     assert res.returncode == 0, res.stderr
     means = [float(ln.split()[-1]) for ln in res.stdout.splitlines()
              if ln.startswith("mean")]
-    assert len(means) == 2 and min(means) > 0.0
+    assert len(means) == 4 and min(means) > 0.0
 
 
 def test_port_sources_import_no_jax():
