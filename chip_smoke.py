@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch + CUDA port (imbatracer_torch) on one GPU.
 
 Run from the repository root: `python3 chip_smoke.py`.  Phases, in
-order; any failure raises and the script exits non-zero:
+order, each logging its start as `[phase] <name> at <seconds> s`; any
+failure raises and the script exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile csrc/stream_traverse.cu and csrc/khit_traverse.cu with
-   nvcc and csrc/bvh_builder.cpp with g++, all at once, into
+2. Build: compile csrc/stream_traverse.cu, csrc/khit_traverse.cu,
+   csrc/merge_kernel.cu and csrc/pairs_kernel.cu with nvcc and
+   csrc/bvh_builder.cpp with g++, all at once, into
    build/imbatracer_torch/; print each kernel entry's ptxas register and
    spill lines.
 3. Stream kernel vs plain: 262,144 rays (camera rays, and bounce-like
@@ -74,17 +76,48 @@ order; any failure raises and the script exits non-zero:
    life without the specular kinds.
    (d) Card vs CPU films of vcm and ppm on the cornell and vcm on the
    masked scene, 64^2, spp 4, max_len 8, held as in 6.
-8. Output: the kernels' JSON line (`ms` the kernel alone; `bound_ms` the
+8. The `.scene` / OBJ slice with two-level instancing, on the scene
+   scene/generate.CARD writes into a temporary directory (BASELINE
+   config 5: ~940k flat triangles from ~38k unique in 341 instances of 6
+   meshes, ~1,400 super-chunks, area panels and an RLE HDR sky, every MTL
+   path).  (a) The instanced stream kernel against its plain version on
+   the two ray sets of phase 3 (same tolerances), timed and counted; the
+   pair kernel, flat (make_big_scene(4000), S = 68) and instanced, closest
+   and any hit, against its plain version on one queue and, as a route
+   with its saturation fallback, against the stream kernel (exact; the
+   number of rays the fallback re-traced is printed, and must be positive
+   on the instanced scene), timed alone, in its
+   route and plain, and counted.  (b) The main path: `python -m
+   imbatracer_torch <scene> <out.png> -a vcm -w 1920 -h2 1080 -s 1` run
+   in this process (the perf line and the PNG), then make_frame_fn +
+   ProgressiveRenderer, vcm at 1920x1080 with the default light paths, a
+   warm-up frame, reset(), 2 timed frames with the counters zeroed just
+   before and read just after: both instanced stream kernels and the
+   merge kernel must have launched, khit and every plain version not;
+   film finite with its mean within 5% of PT's over the same frames; one
+   traced frame.  (c) PT through the pair queue (the BVH's pairs switch
+   on) on the instanced scene at 1920x1080 and on big_4000 at 1024^2,
+   the same frames as the stream route: the pair kernels must launch and
+   the images agree to PSNR_MIN.  (d) PT at 512^2 on the two-level and the
+   flattened build of the scene (the flattened one masked through khit):
+   images within PSNR_MIN.
+9. Output: the kernels' JSON line (`ms` the kernel alone; `bound_ms` the
    larger of its bytes over 3.35 TB/s and the float32 instructions its
-   counting launch tallied over 33.5e12/s, see bound() and
+   counting launch tallied over 33.5e12/s, see bound(), pair_bound() and
    merge_bound()), the card's name and power limit, and last the
-   {"ok": true, "device": ...} line.
+   {"ok": true, "device": ...} line.  Every kernel must have launched on
+   a main path.
 """
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -103,12 +136,22 @@ REPLACES = {
               "(+ imbatracer_tpu/ops/pallas_vmem.py:48)",
     "khit": "imbatracer_tpu/ops/pallas_khit.py:57 (via _khit_call :198)",
     "merge": "imbatracer_tpu/ops/pallas_merge.py:205 (via _merge_call :465)",
+    "stream_inst": "imbatracer_tpu/ops/pallas_stream.py:345 "
+                   "(_make_kernel(occl, instanced=True), via _stream_call "
+                   ":553)",
+    "pairs": "imbatracer_tpu/ops/pallas_pairs.py:235 (_make_span_kernel, "
+             "via _pairs_call :372)",
 }
 VCM_LPC = 1 << 20             # light paths a frame: BASELINE's 1M photons/iter
 VCM_FRAMES = 2
 FAMILY_SIZE = (480, 270)
 MEAN_TOL = 0.05               # family film mean vs PT's
 LT_FRAMES = 64
+INST_SIZE = (1920, 1080)      # the instanced slice's main path
+INST_FRAMES = 2
+FLAT_SIZE = (512, 512)        # two-level vs flattened
+PSNR_MIN = 40.0               # pairs vs stream, two-level vs flattened
+CLI_SAMPLES = 1
 # Roofline of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
 # instructions/s outside the tensor cores.  The sheet's 67 TFLOP/s counts
 # an FMA as two operations; the kernels are built with --fmad=false, so
@@ -136,8 +179,16 @@ MT_STAGE_OPS = (1, 9, 18, 31, 46, 46)
 MERGE_STAGE_OPS = (9, 24, 16, 16 + 77, 16 + 15, 16 + 36, 22)
 
 
+_START = time.time()
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def phase(what):
+    """Log the start of a phase with the seconds since the script began."""
+    log(f"[phase] {what} at {time.time() - _START:.1f} s")
 
 
 def card_line():
@@ -148,10 +199,11 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Mean device time of fn() over reps calls (CUDA events), after one
-    warm-up call."""
-    fn()
+    warm-up call unless `warm` is False (fn ran just before)."""
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -166,12 +218,14 @@ def cuda_ms(fn, reps):
 def reset_counters():
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.render import traverse as tt
 
     st.reset_launches()
     kh.reset_launches()
     mg.reset_launches()
+    pm.reset_launches()
     for k in tt.MASK_STATS:
         tt.MASK_STATS[k] = 0
 
@@ -179,34 +233,47 @@ def reset_counters():
 def counters():
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.render import traverse as tt
 
-    return dict(closest_hit=st.LAUNCHES["closest_hit"],
-                any_hit=st.LAUNCHES["any_hit"],
-                stream_plain=st.LAUNCHES["plain"], khit=kh.LAUNCHES["khit"],
-                khit_plain=kh.LAUNCHES["plain"], merge=mg.LAUNCHES["merge"],
-                merge_plain=mg.LAUNCHES["plain"], **tt.MASK_STATS)
+    got = {k: v for k, v in st.LAUNCHES.items() if k != "plain"}
+    got.update({f"pairs_{k}": v for k, v in pm.LAUNCHES.items()
+                if k != "plain"})
+    return dict(got, stream_plain=st.LAUNCHES["plain"],
+                khit=kh.LAUNCHES["khit"], khit_plain=kh.LAUNCHES["plain"],
+                merge=mg.LAUNCHES["merge"], merge_plain=mg.LAUNCHES["plain"],
+                pairs_plain=pm.LAUNCHES["plain"],
+                fallback_dispatches=pm.FALLBACK["dispatches"],
+                fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS)
 
 
 def plain_runs(got):
-    return got["stream_plain"] + got["khit_plain"] + got["merge_plain"]
+    return (got["stream_plain"] + got["khit_plain"] + got["merge_plain"]
+            + got["pairs_plain"])
 
 
-def bound(rays, sbox, tiles, out_cols, work, insert_ops=0):
+def bound(rays, sbox, tiles, out_cols, work, insert_ops=0, inst=None):
     """(bound_ms, bound_by, detail): the least time one H100 could take
     for a traversal kernel's work on these rays -- the larger of the
-    bytes (rays in, sbox and tiles read once, rows out) over the HBM rate
-    and the float32 instructions the kernel issued over the float32
-    instruction rate.  `work` holds the tallies of the kernel's counting
-    launch on these rays (stream_traverse.WORK_SLOTS), costed with
-    SLAB_OPS and MT_STAGE_OPS, plus `insert_ops` per hit."""
+    bytes (the row of each active ray and the tmax word that marks each
+    inactive one, sbox and tiles read once, the instancing metadata
+    `inst` read once, rows out) over the HBM rate and the float32
+    instructions the kernel issued over the float32 instruction rate.
+    `work` holds the tallies of the kernel's counting launch on these
+    rays (stream_traverse.WORK_SLOTS), costed with SLAB_OPS and
+    MT_STAGE_OPS, plus `insert_ops` per hit.  An instanced kernel's ray
+    transforms (~54 instructions per super-chunk entered, before its 64
+    chunk tests of 25 each) are not counted: the bound errs low by <4%."""
     from imbatracer_torch.ops import stream_traverse as st
 
     w = dict(zip(st.WORK_SLOTS, work.tolist()))
     ops = (w["slab"] * SLAB_OPS + w["mt_hit"] * insert_ops
            + sum(w[k] * c for k, c in zip(st.WORK_SLOTS[1:], MT_STAGE_OPS)))
-    nbytes = 4 * (rays.numel() + sbox.numel() + tiles.numel()
+    meta = 0 if inst is None else sum(x.numel() for x in inst)
+    active = int((rays[:, 7] >= 0.0).sum())
+    ray_words = 8 * active + (rays.shape[0] - active)
+    nbytes = 4 * (ray_words + sbox.numel() + tiles.numel() + meta
                   + rays.shape[0] * out_cols)
     t_ops, t_bytes = ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
     detail = dict(w, ops=ops, bytes=nbytes)
@@ -214,7 +281,8 @@ def bound(rays, sbox, tiles, out_cols, work, insert_ops=0):
             "operations" if t_ops >= t_bytes else "bytes", detail)
 
 
-def time_kernel(launch, rays, sbox, tiles, out_cols, insert_ops=0):
+def time_kernel(launch, rays, sbox, tiles, out_cols, insert_ops=0,
+                inst=None):
     """Time a CUDA wrapper on these rays: (kernel ms with the candidate
     lists computed beforehand, wrapper ms with them computed per call,
     bound).  The counting launch behind the bound must return what the
@@ -229,7 +297,7 @@ def time_kernel(launch, rays, sbox, tiles, out_cols, insert_ops=0):
     if not torch.equal(launch(lists=lists, work=work), launch(lists=lists)):
         raise AssertionError("the counting launch disagrees with the kernel")
     return ms, wrapper_ms, bound(rays, sbox, tiles, out_cols, work,
-                                 insert_ops)
+                                 insert_ops, inst)
 
 
 def ray_sets(scene, meta, dev, st):
@@ -271,9 +339,12 @@ def ray_sets(scene, meta, dev, st):
 
 
 def compare(scene, meta, label, dev, st, stats):
+    inst = scene.bvh.inst
     for name, closest, anyr in ray_sets(scene, meta, dev, st):
-        k = st.traverse_cuda(closest, scene.bvh.sbox, scene.bvh.tiles, False)
-        p = st.traverse_plain(closest, scene.bvh.sbox, scene.bvh.tiles, False)
+        k = st.traverse_cuda(closest, scene.bvh.sbox, scene.bvh.tiles, False,
+                             inst=inst)
+        p = st.traverse_plain(closest, scene.bvh.sbox, scene.bvh.tiles, False,
+                              inst=inst)
         torch.cuda.synchronize()
         kid, pid = k[:, 3], p[:, 3]
         tie = (kid != pid) & (k[:, 0] == p[:, 0]) & (kid >= 0) & (pid >= 0)
@@ -286,8 +357,10 @@ def compare(scene, meta, label, dev, st, stats):
             err = float((diff / scale).max())
             abs_err = float(diff.max())
         hits = int((kid >= 0).sum())
-        ka = st.traverse_cuda(anyr, scene.bvh.sbox, scene.bvh.tiles, True)
-        pa = st.traverse_plain(anyr, scene.bvh.sbox, scene.bvh.tiles, True)
+        ka = st.traverse_cuda(anyr, scene.bvh.sbox, scene.bvh.tiles, True,
+                              inst=inst)
+        pa = st.traverse_plain(anyr, scene.bvh.sbox, scene.bvh.tiles, True,
+                               inst=inst)
         flips = int((ka[:, 0] != pa[:, 0]).sum())
         occ = float(ka[:, 0].mean())
         log(f"[parity] {label:<12} S={scene.bvh.sbox.shape[0]:<3} {name:<7} "
@@ -297,17 +370,22 @@ def compare(scene, meta, label, dev, st, stats):
         if bad_id or err > 1e-5 or flips > 1e-4 * NUM_RAYS:
             raise AssertionError(f"kernel disagrees with the plain version "
                                  f"on {label}/{name}")
-        stats["closest_err"] = max(stats.get("closest_err", 0.0), abs_err)
-        stats["any_err"] = max(stats.get("any_err", 0.0),
-                               float((ka[:, 0] - pa[:, 0]).abs().max()))
-        if label in ("big_150", "big_4000") and name == "bounce":
+        tag = "" if inst is None else "_instanced"
+        stats["closest_err" + tag] = max(stats.get("closest_err" + tag, 0.0),
+                                         abs_err)
+        stats["any_err" + tag] = max(stats.get("any_err" + tag, 0.0),
+                                     float((ka[:, 0] - pa[:, 0]).abs().max()))
+        if label in ("big_150", "big_4000", "instanced") and name == "bounce":
             for key, rays, occl in (("closest", closest, False),
                                     ("any", anyr, True)):
                 args = (rays, scene.bvh.sbox, scene.bvh.tiles, occl)
                 stats[label, key] = time_kernel(
-                    partial(st.traverse_cuda, *args), *args[:3], 8)
+                    partial(st.traverse_cuda, *args, inst=inst), *args[:3], 8,
+                    inst=inst)
+                reps = 1 if inst is not None else 2
                 stats[label, f"{key}_plain_ms"] = cuda_ms(
-                    lambda: st.traverse_plain(*args), 2)
+                    lambda: st.traverse_plain(*args, inst=inst), reps,
+                    warm=inst is None)
 
 
 def compare_khit(scene, meta, label, dev, st, kh, stats):
@@ -408,11 +486,55 @@ def main_path(scene, meta, label, width, height, max_len, frames, card,
     return renderer, launches, ms, mrays
 
 
+def trace_totals(events):
+    """({name: [ns, count]} of the device events, the same of the host
+    events by self time) of a torch.profiler trace's raw events: what
+    key_averages() reports as self device and self CPU time, summed
+    straight from the events.  key_averages() first builds an event tree
+    in Python, which takes minutes for the ~2M events of one instanced
+    1080p frame.  A host event's self time is its duration less that of
+    the events nested directly in it on its thread; as there, an event
+    whose only child has its name counts once with that child."""
+    dev, host, threads = {}, {}, {}
+
+    def add(rows, name, ns, n=1):
+        row = rows.setdefault(name, [0, 0])
+        row[0] += ns
+        row[1] += n
+
+    def close(frame):                   # [end, name, self, children, last]
+        _, name, ns, children, last = frame
+        add(host, name, ns, 0 if children == 1 and last == name else 1)
+
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            add(dev, e.name(), e.duration_ns())
+        elif e.is_async():
+            add(host, e.name(), e.duration_ns())
+        else:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.duration_ns(), e.name()))
+    for evs in threads.values():
+        evs.sort()                      # parents before their children
+        stack = []                      # the open events, outermost first
+        for start, neg_ns, name in evs:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            if stack:
+                stack[-1][2] += neg_ns
+                stack[-1][3] += 1
+                stack[-1][4] = name
+            stack.append([start - neg_ns, name, -neg_ns, 0, None])
+        while stack:
+            close(stack.pop())
+    return dev, host
+
+
 def profile_frame(renderer, label, card, top=8):
     """Trace one more frame of `renderer` with torch.profiler: wall time,
     device busy time (kernel time summed; the frame runs on one stream),
     the device's idle share, the kernel count, and the kernels with the
-    most device time and the host ops with the most host time."""
+    most device time and the host ops with the most host (self) time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -421,20 +543,16 @@ def profile_frame(renderer, label, card, top=8):
         renderer.step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.time() - t0)
-    rows = prof.key_averages()
-    dev = [e for e in rows
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    dev, host = trace_totals(prof.profiler.kineto_results.events())
+    busy = sum(ns for ns, _ in dev.values()) / 1e6
     log(f"[profile] {label}, one traced frame: wall {wall:.1f} ms, device "
         f"busy {busy:.1f} ms (idle {100.0 * (1.0 - busy / wall):.1f}%), "
-        f"{sum(e.count for e in dev)} kernels [{card}]")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[profile]   device {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:7d}x  {e.key[:80]}")
-    host = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU]
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
-        log(f"[profile]   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
-            f"{e.count:7d}x  {e.key[:80]}")
+        f"{sum(n for _, n in dev.values())} kernels [{card}]")
+    for where, rows in (("device", dev), ("host  ", host)):
+        for name, (ns, n) in sorted(rows.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
+            log(f"[profile]   {where} {ns / 1e6:9.2f} ms {n:7d}x  "
+                f"{name[:80]}")
 
 
 def film_parity(dev, label, builder, has_masks):
@@ -616,26 +734,30 @@ def time_merge(label, q, stats):
 
 
 def family_frames(scene, meta, algo, width, height, max_len, frames,
-                  queries=None):
-    """make_frame_fn + ProgressiveRenderer: a warm-up frame, reset(), then
-    `frames` timed frames with the launch counters set to 0 just before
-    them and read just after.  Returns (renderer, counters, ms/frame,
-    stats of the warm-up frame).  With `queries`, a list, the warm-up
-    frame appends each camera band's bounce-1 merge arguments to it."""
+                  queries=None, lpc=None, warmup=True):
+    """make_frame_fn + ProgressiveRenderer: a warm-up frame (unless not
+    `warmup`), reset(), then `frames` timed frames with the launch
+    counters set to 0 just before them and read just after.  Returns
+    (renderer, counters, ms/frame, stats of the warm-up frame).  With
+    `queries`, a list, the warm-up frame appends each camera band's
+    bounce-1 merge arguments to it.  `lpc`: light paths a frame (0: the
+    default, capped count; None: VCM_LPC for vcm at 1920x1080, else the
+    default)."""
     from imbatracer_torch.frontend.engine import make_frame_fn
     from imbatracer_torch.frontend.renderer import (ProgressiveRenderer,
                                                     RenderSettings)
 
     settings = RenderSettings(width=width, height=height, spp=1,
                               max_path_len=max_len, algorithm=algo)
-    if algo == "vcm" and (width, height) == (1920, 1080):
-        settings.light_path_count = VCM_LPC
+    if lpc is None and algo == "vcm" and (width, height) == (1920, 1080):
+        lpc = VCM_LPC
+    settings.light_path_count = lpc or 0
     frame_fn, _ = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
     fstats = {} if queries is None else {"merge_queries": queries}
-    if algo == "pt":
+    if warmup and algo == "pt":
         renderer.step()
-    else:
+    elif warmup:
         renderer.accum = renderer.accum + frame_fn(0, stats=fstats)
     fstats.pop("merge_queries", None)
     renderer.reset()
@@ -786,6 +908,277 @@ def vcm_film_parity(dev, label, builder, algo):
         raise AssertionError(f"{label} {algo}: card and CPU films disagree")
 
 
+def hold_rows(k, p, occl):
+    """(mismatches, max relative t/u/v error, max abs error) of kernel
+    rows against reference rows: any-hit flags that differ, or closest-hit
+    ids that differ where the two t are not bit-equal; the errors over
+    rows with equal ids."""
+    if occl:
+        return int((k[:, 0] != p[:, 0]).sum()), 0.0, float(
+            (k[:, 0] - p[:, 0]).abs().max())
+    kid, pid = k[:, 3], p[:, 3]
+    tie = (kid != pid) & (k[:, 0] == p[:, 0])
+    bad = int(((kid != pid) & ~tie).sum())
+    both = (kid == pid) & (kid >= 0)
+    if not bool(both.any()):
+        return bad, 0.0, 0.0
+    diff = (k[both, :3] - p[both, :3]).abs()
+    rel = float((diff / torch.clamp(p[both, :3].abs(), min=1.0)).max())
+    return bad, rel, float(diff.max())
+
+
+def pair_bound(rows, sc, tiles, inst, work):
+    """(bound_ms, bound_by, detail) of the pair kernel on one queue: the
+    bytes it must move (each lane's super-chunk, the ray row of each live
+    lane -- a lane with sc = -1 needs none --, each tile a live lane
+    reads, the instancing metadata, the rows out) over the HBM rate, and
+    the float32 instructions of its counting launch over the float32
+    instruction rate (ray transforms not counted, as in bound())."""
+    from imbatracer_torch.ops import stream_traverse as st
+
+    w = dict(zip(st.WORK_SLOTS, work.tolist()))
+    ops = w["slab"] * SLAB_OPS + sum(
+        w[k] * c for k, c in zip(st.WORK_SLOTS[1:], MT_STAGE_OPS))
+    live = (sc >= 0) & (rows[:, 7] >= 0.0)
+    n_live = int(live.sum())
+    tiles_read = int(torch.unique(st.tile_of(sc[live].long(), inst)).numel())
+    meta = 0 if inst is None else sum(x.numel() for x in inst)
+    nbytes = 4 * (8 * n_live + sc.numel() + meta + 8 * rows.shape[0]
+                  + tiles_read * st.TILE_ROWS * st.TRI_ROWS)
+    t_ops, t_bytes = ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(w, ops=ops, bytes=nbytes, lanes=n_live,
+                 tiles_read=tiles_read))
+
+
+def compare_pairs(scene, meta, label, dev, st, pm, stats):
+    """Phase 8a, the pair kernel: on each ray set and query kind, the
+    kernel against its plain version on one queue (ray_candidates +
+    build_queue), and the whole route (pair_rows: queue, kernel, resolve,
+    saturation fallback) against the stream kernel; on the bounce rays,
+    timed alone, in its route and plain, and counted."""
+    sbox, tiles, inst = scene.bvh.sbox, scene.bvh.tiles, scene.bvh.inst
+    tag = "" if inst is None else "_instanced"
+    for name, closest, anyr in ray_sets(scene, meta, dev, st):
+        for key, rays, occl in (("closest", closest, False),
+                                ("any", anyr, True)):
+            idx, _, count, _ = pm.ray_candidates(rays, sbox)
+            rows, sc, _ = pm.build_queue(idx, rays, sbox.shape[0])
+            k = pm.pairs_cuda(rows, sc, tiles, occl, inst)
+            p = pm.pairs_plain(rows, sc, tiles, occl, inst)
+            before = pm.FALLBACK["rays"]
+            route = pm.pair_rows(rays, sbox, tiles, occl, inst)
+            fallback = pm.FALLBACK["rays"] - before
+            ref = st.traverse_cuda(rays, sbox, tiles, occl, inst=inst)
+            torch.cuda.synchronize()
+            bad, rel, abs_err = hold_rows(k, p, occl)
+            rbad, rrel, _ = hold_rows(route, ref, occl)
+            saturated = int((count > idx.shape[1]).sum())
+            log(f"[pairs] {label:<9} S={sbox.shape[0]:<5} {name:<7} {key:<7}"
+                f" lanes={int((sc >= 0).sum())} kernel vs plain: mismatch="
+                f"{bad} max_rel_err(t,u,v)={rel:.3e}; route vs stream "
+                f"kernel: mismatch={rbad} max_rel_err={rrel:.3e}; rays with "
+                f"> {idx.shape[1]} candidates {saturated}, re-traced by the "
+                f"fallback {fallback}")
+            allow = 1e-4 * rays.shape[0] if occl else 0
+            if bad > allow or rel > 1e-5 or rbad > allow or rrel > 1e-5:
+                raise AssertionError(f"pairs kernel or route disagrees on "
+                                     f"{label}/{name}/{key}")
+            err_key = f"pairs_{key}{tag}_err"
+            stats[err_key] = max(stats.get(err_key, 0.0), abs_err)
+            stats[f"fallback {label} {name} {key}"] = fallback
+            if name != "bounce":
+                continue
+            ms = cuda_ms(lambda: pm.pairs_cuda(rows, sc, tiles, occl, inst),
+                         10)
+            wrapper_ms = cuda_ms(
+                lambda: pm.pair_rows(rays, sbox, tiles, occl, inst), 3)
+            plain_ms = cuda_ms(
+                lambda: pm.pairs_plain(rows, sc, tiles, occl, inst), 1,
+                warm=False)
+            work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                               device=dev)
+            if not torch.equal(pm.pairs_cuda(rows, sc, tiles, occl, inst,
+                                             work=work), k):
+                raise AssertionError("the pairs counting launch disagrees "
+                                     "with the kernel")
+            stats[f"pairs_{key}{tag}"] = (ms, wrapper_ms, pair_bound(
+                rows, sc, tiles, inst, work))
+            stats[f"pairs_{key}{tag}_plain_ms"] = plain_ms
+
+
+def with_pairs(scene):
+    """The scene with its BVH's pairs switch on (accel/device.py)."""
+    return dataclasses.replace(
+        scene, bvh=dataclasses.replace(scene.bvh, pairs=True))
+
+
+def pairs_main_path(scene, meta, label, width, height, max_len, ref, card):
+    """Phase 8c: PT through the pair queue (the switch on), the frames
+    `ref` took through the stream kernel (no warm-up: nothing is compiled
+    and the frame indices match); the pair kernels must launch, no plain
+    version may run, and the image must agree with `ref`'s to PSNR_MIN.
+    Returns the launch counters."""
+    from imbatracer_torch.utils.metrics import psnr
+
+    r, got, ms, _ = family_frames(with_pairs(scene), meta, "pt", width,
+                                  height, max_len, INST_FRAMES, warmup=False)
+    p = psnr(r.image(), ref.image())
+    log(f"[pairs] {label} {width}x{height} PT with the pairs switch on: "
+        f"{ms:.1f} ms/frame over {INST_FRAMES} frames, PSNR {p:.2f} dB "
+        f"against the stream route's frames; launches {got} [{card}]")
+    tag = "_instanced" if scene.bvh.two_level else ""
+    if (not got[f"pairs_closest_hit{tag}"] or not got[f"pairs_any_hit{tag}"]
+            or plain_runs(got) or not p >= PSNR_MIN):
+        raise AssertionError(f"{label}: the pairs route did not run through "
+                             f"the pair kernels or disagrees with the "
+                             f"stream route")
+    return got
+
+
+def run_cli(path, out_png, card):
+    """Phase 8b: `python -m imbatracer_torch` as a user types it, run in
+    this process: vcm at INST_SIZE, the default light-path count,
+    CLI_SAMPLES samples a pixel.  It must print the perf line and write
+    the PNG."""
+    from imbatracer_torch.frontend import cli
+
+    w, h = INST_SIZE
+    argv = [path, out_png, "-a", "vcm", "-w", str(w), "-h2", str(h), "-s",
+            str(CLI_SAMPLES), "-q"]
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue().strip()
+    log(f"[cli] python -m imbatracer_torch {' '.join(argv[2:])} "
+        f"<instances.scene> <out.png>: rc {rc} in {time.time() - t0:.1f} s "
+        f"(scene build included): {text} [{card}]")
+    with open(out_png, "rb") as f:
+        ok_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    if rc != 0 or "Done after" not in text or not ok_png:
+        raise AssertionError("the CLI did not render the instanced scene")
+
+
+def instanced_phase(dev, card, big, stats):
+    """Phase 8: the `.scene` / OBJ slice on the generated instanced scene
+    (scene/generate.CARD, written to a temporary directory).  Returns the
+    launch counts of its main paths."""
+    from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+    from imbatracer_torch.utils.metrics import psnr
+
+    phase("8 the instanced scene: write and build")
+    tmp = tempfile.mkdtemp(prefix="imba_instanced_")
+    try:
+        t0 = time.time()
+        path = write_instanced_scene(tmp, **CARD)
+        t_write = time.time() - t0
+        t0 = time.time()
+        scene, meta = build_scene(path, quiet=True, device=dev)
+        torch.cuda.synchronize()
+        bvh = scene.bvh
+        shade = sum(x.numel() * x.element_size() for x in
+                    (scene.attrs.rec, scene.attrs.shade_rec, scene.attrs.gn,
+                     scene.attrs.n0, scene.attrs.n1, scene.attrs.n2,
+                     scene.attrs.uv0, scene.attrs.uv1, scene.attrs.uv2,
+                     scene.attrs.mask_rec))
+        log(f"[inst] scene written in {t_write:.1f} s, built in "
+            f"{time.time() - t0:.1f} s: {meta.num_tris} flat triangles, "
+            f"{meta.bvh_stats}, {meta.num_lights} lights, "
+            f"{meta.num_textures} textures, masks {meta.has_masks}, bump "
+            f"{meta.has_bump}, env {meta.has_env}; tiles "
+            f"{bvh.tiles.numel() * 4 / 2**20:.1f} MB, flat shading records "
+            f"{shade / 2**20:.1f} MB")
+        if not bvh.two_level:
+            raise AssertionError("the instanced scene was not built two-level")
+
+        # (a) Kernel parity, timing and counted work.
+        phase("8a instanced stream and pair kernels vs plain")
+        compare(scene, meta, "instanced", dev, st, stats)
+        num_s = bvh.sbox.shape[0]
+        for key in ("closest", "any"):
+            log_time(f"instanced stream kernel {key}, S={num_s}, "
+                     f"{bvh.tiles.shape[0]} tiles, {NUM_RAYS} sorted bounce "
+                     f"rays", stats["instanced", key],
+                     stats["instanced", f"{key}_plain_ms"], card)
+        for label, sc in (("instanced", (scene, meta)), ("big_4000", big)):
+            compare_pairs(sc[0], sc[1], label, dev, st, pm, stats)
+            tag = "_instanced" if sc[0].bvh.two_level else ""
+            for key in ("closest", "any"):
+                log_time(f"pairs kernel {key}{tag}, S={sc[0].bvh.sbox.shape[0]}"
+                         f", {NUM_RAYS} sorted bounce rays (kernel on the "
+                         f"prepared queue; wrapper: the route)",
+                         stats[f"pairs_{key}{tag}"],
+                         stats[f"pairs_{key}{tag}_plain_ms"], card)
+        if not any(v for k, v in stats.items() if isinstance(k, str)
+                   and k.startswith("fallback instanced")):
+            raise AssertionError("the saturation fallback re-traced no ray "
+                                 "on the instanced scene")
+
+        # (b) The main path: the CLI, then make_frame_fn + the renderer.
+        phase("8b the CLI and the instanced vcm main path")
+        run_cli(path, os.path.join(tmp, "cli_vcm.png"), card)
+        w, h = INST_SIZE
+        vr, got, ms, fstats = family_frames(scene, meta, "vcm", w, h, 8,
+                                            INST_FRAMES, lpc=0)
+        log(f"[inst] vcm {w}x{h} spp 1 max_len 8, default light paths: "
+            f"{ms:.1f} ms/frame over {INST_FRAMES} frames; warm-up frame "
+            f"{fstats}; launches over the timed frames {got} [{card}]")
+        if (not got["closest_hit_instanced"] or not got["any_hit_instanced"]
+                or not got["merge"] or got["khit"] or plain_runs(got)):
+            raise AssertionError("instanced vcm: the main path did not run "
+                                 "through the instanced and merge kernels "
+                                 "alone")
+        mean = film_mean(vr, "instanced vcm")
+        pt, pt_got, pt_ms, _ = family_frames(scene, meta, "pt", w, h, 8,
+                                             INST_FRAMES)
+        log(f"[inst] pt {w}x{h} spp 1 max_len 8: {pt_ms:.1f} ms/frame over "
+            f"{INST_FRAMES} frames; launches {pt_got} [{card}]")
+        check_mean(f"instanced {w}x{h} vcm", mean, film_mean(pt, "instanced"
+                                                             " pt"), card)
+        profile_frame(vr, f"instanced vcm {w}x{h} max_len 8", card)
+        del vr
+
+        # (c) The pairs route, instanced and flat.
+        phase("8c the pairs route")
+        pairs_got = pairs_main_path(scene, meta, "instanced", w, h, 8, pt,
+                                    card)
+        del pt
+        big_ref, _, _, _ = family_frames(*big, "pt", 1024, 1024, 6,
+                                         INST_FRAMES)
+        pairs_got.update({k: v for k, v in pairs_main_path(
+            *big, "big_4000", 1024, 1024, 6, big_ref, card).items()
+            if k in ("pairs_closest_hit", "pairs_any_hit")})
+
+        # (d) Two-level against flattened.
+        phase("8d two-level vs flattened")
+        flat, fmeta = build_scene(path, quiet=True, device=dev,
+                                  force_flatten=True)
+        fw, fh = FLAT_SIZE
+        tr, tgot, tms, _ = family_frames(scene, meta, "pt", fw, fh, 8,
+                                         INST_FRAMES)
+        fr, fgot, fms, _ = family_frames(flat, fmeta, "pt", fw, fh, 8,
+                                         INST_FRAMES)
+        p = psnr(tr.image(), fr.image())
+        log(f"[inst] two-level vs flattened (S={flat.bvh.sbox.shape[0]}, "
+            f"{flat.bvh.tiles.numel() * 4 / 2**20:.1f} MB of tiles), PT "
+            f"{fw}x{fh}, {INST_FRAMES} frames: PSNR {p:.2f} dB; two-level "
+            f"{tms:.1f} ms/frame, masked rounds {tgot['rounds']}; flattened "
+            f"{fms:.1f} ms/frame, khit {fgot['khit']} [{card}]")
+        if (not p >= PSNR_MIN or tgot["khit"] or not fgot["khit"]
+                or plain_runs(tgot) or plain_runs(fgot)):
+            raise AssertionError("two-level and flattened renders disagree "
+                                 "or took the wrong routes")
+        return dict(got, **{k: v for k, v in pairs_got.items()
+                            if k.startswith("pairs_")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def log_time(what, timed, plain_ms, card):
     ms, wrapper_ms, (bound_ms, bound_by, detail) = timed
     log(f"[time] {what} [{card}]: kernel {ms:.3f} ms (wrapper with its "
@@ -809,6 +1202,7 @@ def main():
     from imbatracer_torch.device import get_device
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.scene.procedural import (make_big_scene,
                                                    make_cornell_scene,
@@ -823,14 +1217,15 @@ def main():
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t_start = time.time()
 
+    phase("2 build")
     t0 = time.time()
-    libs = (st.LIB, kh.LIB, mg.LIB, native.LIB)
+    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, native.LIB)
     paths = libbuild.build_all(libs)
     st._library()
     kh._library()
     mg._library()
+    pm._library()
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
         + ", ".join(os.path.relpath(p) for p in paths))
     for lib in libs:
@@ -852,6 +1247,7 @@ def main():
         for k, (s, m) in scenes.items()))
 
     stats = {}
+    phase("3 stream kernel vs plain")
     for label in ("cornell", "big_150", "big_4000"):
         compare(*scenes[label], label, dev, st, stats)
     for label in ("big_150", "big_4000"):
@@ -860,12 +1256,14 @@ def main():
             log_time(f"stream kernel {key}, {label} (S={num_s}), {NUM_RAYS} "
                      f"sorted bounce rays", stats[label, key],
                      stats[label, f"{key}_plain_ms"], card)
+    phase("4 khit kernel vs plain")
     for label in ("leaf_6000", "still_life", "cornell"):
         compare_khit(*scenes[label], label, dev, st, kh, stats)
     log_time(f"khit kernel, S={scenes['still_life'][0].bvh.sbox.shape[0]}, "
              f"{NUM_RAYS} sorted still-life bounce rays", stats["khit"],
              stats["khit_plain_ms"], card)
 
+    phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
     for label, max_len in (("big_4000", 6), ("cornell", 10)):
         _, got, _, _ = main_path(*scenes[label], label, 1024, 1024, max_len,
@@ -900,10 +1298,12 @@ def main():
                              f"{PSNR_TOL} dB of {STILL_LIFE_PSNR} dB")
     profile_frame(renderer, "still_life 1920x1080 max_len 8", card)
 
+    phase("6 film parity")
     film_parity(dev, "cornell", make_cornell_scene, False)
     film_parity(dev, "masked", make_masked_scene, True)
 
     # The VCM family (phase 7).
+    phase("7 the VCM family: merge parity and the still-life vcm main path")
     for ppm in (False, True):
         compare_merge("random", *random_merge_case(dev, 11), (0, 3, 4, 5),
                       ppm, stats)
@@ -916,11 +1316,17 @@ def main():
         f" ms, bound {bound_ms:.4f} ms by {bound_by}, {detail})")
     profile_frame(vcm_renderer, "still_life vcm 1920x1080 max_len 8", card)
     del vcm_renderer
+    phase("7c bpt, ppm, vcm_pt and lt at 480x270")
     other_algorithms(*scenes["still_life"], card)
+    phase("7d vcm and ppm films, card vs CPU")
     vcm_film_parity(dev, "cornell", make_cornell_scene, "vcm")
     vcm_film_parity(dev, "cornell", make_cornell_scene, "ppm")
     vcm_film_parity(dev, "masked", make_masked_scene, "vcm")
 
+    # The `.scene` / OBJ slice with two-level instancing (phase 8).
+    inst_got = instanced_phase(dev, card, scenes["big_4000"], stats)
+
+    phase("9 output")
     src = "imbatracer_torch/csrc/"
     kernels = [
         kernel_entry("stream_traverse_closest_hit",
@@ -939,7 +1345,24 @@ def main():
                      REPLACES["merge"], merge_launches, stats["merge_err"],
                      stats["merge"], stats["merge_plain_ms"]),
     ]
-    log(f"[done] {time.time() - t_start:.1f} s")
+    for key in ("closest", "any"):
+        kernels.append(kernel_entry(
+            f"stream_traverse_{key}_hit_instanced", src + "stream_traverse.cu",
+            REPLACES["stream_inst"], inst_got[f"{key}_hit_instanced"],
+            stats[f"{key}_err_instanced"], stats["instanced", key],
+            stats["instanced", f"{key}_plain_ms"]))
+    for tag in ("", "_instanced"):
+        for key in ("closest", "any"):
+            kernels.append(kernel_entry(
+                f"pairs_{key}_hit{tag}", src + "pairs_kernel.cu",
+                REPLACES["pairs"], inst_got[f"pairs_{key}_hit{tag}"],
+                stats[f"pairs_{key}{tag}_err"], stats[f"pairs_{key}{tag}"],
+                stats[f"pairs_{key}{tag}_plain_ms"]))
+    for k in kernels:
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched on a main "
+                                 f"path")
+    log(f"[done] {time.time() - _START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

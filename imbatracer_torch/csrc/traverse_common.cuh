@@ -1,7 +1,8 @@
 // Tests shared by the port's traversal kernels (stream_traverse.cu,
-// khit_traverse.cu): the slab test of a super-chunk or chunk box and the
-// feature-dot Moller-Trumbore test of one triangle slot, over the
-// (sbox, tiles) layout documented in imbatracer_torch/ops/stream_traverse.py.
+// khit_traverse.cu, pairs_kernel.cu): the slab test of a super-chunk or
+// chunk box, the feature-dot Moller-Trumbore test of one triangle slot and
+// the instance transform of a ray, over the (sbox, tiles[, inst]) layout
+// documented in imbatracer_torch/ops/stream_traverse.py.
 //
 // Numerics: the kernels are built with --fmad=false; every product and
 // sum below is rounded on its own, in the order the plain PyTorch
@@ -61,15 +62,44 @@ struct Ray {
   float ix, iy, iz, cx, cy, cz;
 };
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ row) {
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float tmin, float dx, float dy,
+                                        float dz, float tmax) {
   Ray r;
-  r.ox = row[0]; r.oy = row[1]; r.oz = row[2]; r.tmin = row[3];
-  r.dx = row[4]; r.dy = row[5]; r.dz = row[6]; r.tmax = row[7];
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  r.cx = r.oy * r.dz - r.oz * r.dy;
-  r.cy = r.oz * r.dx - r.ox * r.dz;
-  r.cz = r.ox * r.dy - r.oy * r.dx;
+  r.ox = ox; r.oy = oy; r.oz = oz; r.tmin = tmin;
+  r.dx = dx; r.dy = dy; r.dz = dz; r.tmax = tmax;
+  r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
+  r.cx = oy * dz - oz * dy;
+  r.cy = oz * dx - ox * dz;
+  r.cz = ox * dy - oy * dx;
   return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ row) {
+  return make_ray(row[0], row[1], row[2], row[3], row[4], row[5], row[6],
+                  row[7]);
+}
+
+// Two-level instancing: the ray in the mesh space of an instance whose
+// world->mesh 3x4 affine is m[0..11] (row-major), each product and sum
+// rounded on its own, left to right, as the plain version
+// (stream_traverse.instance_ray) computes it.  The direction stays
+// unnormalised, so t is the same in both spaces and a best t found in
+// one instance bounds the others.
+__device__ __forceinline__ Ray instance_ray(const Ray& w,
+                                            const float* __restrict__ m) {
+  return make_ray(
+      __ldg(m + 0) * w.ox + __ldg(m + 1) * w.oy + __ldg(m + 2) * w.oz +
+          __ldg(m + 3),
+      __ldg(m + 4) * w.ox + __ldg(m + 5) * w.oy + __ldg(m + 6) * w.oz +
+          __ldg(m + 7),
+      __ldg(m + 8) * w.ox + __ldg(m + 9) * w.oy + __ldg(m + 10) * w.oz +
+          __ldg(m + 11),
+      w.tmin,
+      __ldg(m + 0) * w.dx + __ldg(m + 1) * w.dy + __ldg(m + 2) * w.dz,
+      __ldg(m + 4) * w.dx + __ldg(m + 5) * w.dy + __ldg(m + 6) * w.dz,
+      __ldg(m + 8) * w.dx + __ldg(m + 9) * w.dy + __ldg(m + 10) * w.dz,
+      w.tmax);
 }
 
 // Slab test: true when the ray's [tmin, limit] interval enters the box.

@@ -1,7 +1,7 @@
 """Progressive render orchestration (torch twin of
 imbatracer_tpu.frontend.renderer): accumulate per-frame films, stop on a
-sample or time budget, report the reference-format perf line, write the
-tone-mapped PNG."""
+sample or time budget, log progress, dump intermediate images, report the
+reference-format perf line, write the tone-mapped PNG."""
 
 from __future__ import annotations
 
@@ -32,7 +32,12 @@ class RenderSettings:
     algorithm: str = "pt"
     light_path_count: int = 0      # 0 -> width*height/2, capped (below)
     num_connections: int = 1
+    # The JAX package's k-nearest photon count of its windowed hash-grid
+    # merge; the port merges exactly (ops/merge.py) and never reads it.
+    num_knn: int = 10
     radius_factor: float = 2.0
+    intermediate_path: str = ""
+    intermediate_time: float = float("inf")
 
     def resolved_light_path_count(self) -> int:
         """An explicit count wins.  The default is the reference's
@@ -66,18 +71,32 @@ class ProgressiveRenderer:
         self.accum = self.accum + self.frame_fn(self.frames)
         self.frames += 1
 
-    def run(self):
-        """Render until the sample or time budget is spent; prints the
-        perf line in the reference's format."""
+    def run(self, quiet: bool = False):
+        """Render until the sample or time budget is spent; unless
+        `quiet`, log samples, fps and ms/frame every 10 s; every
+        `intermediate_time` seconds write `<intermediate_path>_<s>s.png`;
+        print the perf line in the reference's format."""
         s = self.s
         t_start = time.time()
+        t_last_report = t_last_dump = t_start
+        frame_ms = []
         while True:
+            t0 = time.time()
             self.step()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            frame_ms.append((time.time() - t0) * 1000.0)
             elapsed = time.time() - t_start
-            if (self.frames * s.spp >= s.max_samples
-                    or elapsed >= s.max_time_sec):
+            samples = self.frames * s.spp
+            if not quiet and time.time() - t_last_report > 10.0:
+                logger.info("%d samples, %.2f fps, %.2f ms/frame", samples,
+                            self.frames / elapsed, np.mean(frame_ms[-20:]))
+                t_last_report = time.time()
+            if (s.intermediate_path
+                    and time.time() - t_last_dump >= s.intermediate_time):
+                self.save(f"{s.intermediate_path}_{int(elapsed)}s.png")
+                t_last_dump = time.time()
+            if samples >= s.max_samples or elapsed >= s.max_time_sec:
                 break
         elapsed = time.time() - t_start
         samples = self.frames * s.spp

@@ -47,30 +47,31 @@ def reset_launches():
 def khit_plain(rays, sbox, tiles, k: int = K):
     """Plain PyTorch version of the kernel: every (ray, triangle)
     candidate of the super-chunk / chunk walk (stream_traverse.
-    _triangle_batches) goes through the kernel's feature-dot Moller-
-    Trumbore test (_mt, same rounding), and each ray keeps its k smallest
-    t (ties to the lowest triangle slot).  `k` other than K serves the
-    checks that look one hit past the K-th."""
+    _ray_superchunks and _pair_triangles) goes through the kernel's
+    feature-dot Moller-Trumbore test (_mt, same rounding), and each ray
+    keeps its k smallest t (ties to the lowest triangle slot).  `k` other
+    than K serves the checks that look one hit past the K-th."""
     LAUNCHES["plain"] += 1
     dev = rays.device
     num_r = rays.shape[0]
     num_s = sbox.shape[0]
-    cbox = tiles[:, list(st._CBOX_ROWS), :st.SUPER].permute(0, 2, 1)
+    cbox = st.cbox_rows(tiles)
     feat = tiles[:, list(st._FEAT_ROWS), :].permute(0, 2, 1)
     feat = feat.reshape(num_s * st.TRI_ROWS, len(st._FEAT_ROWS))
     o, tmin, d, tmax = rays[:, 0:3], rays[:, 3], rays[:, 4:7], rays[:, 7]
-    inv = st._safe_inv(d)
     c = st._cross_od(o, d)
 
     parts = []
     live = (tmax >= 0.0).nonzero(as_tuple=True)[0]
-    for rr, slot in st._triangle_batches(live, rays, sbox, cbox, inv):
-        t, u, v, tid, ok = st._mt(feat[slot], o[rr, None], d[rr, None],
-                                  c[rr, None], tmin[rr, None],
-                                  tmax[rr, None])
-        q, j = ok.nonzero(as_tuple=True)
-        parts.append((rr[q], slot[q, j], t[q, j], u[q, j], v[q, j],
-                      tid[q, j]))
+    for r1, s1 in st._ray_superchunks(live, rays, sbox):
+        for rr, ss, local in st._pair_triangles(r1, s1, rays, cbox, None):
+            slot = ss[:, None] * st.TRI_ROWS + local
+            t, u, v, tid, ok = st._mt(feat[slot], o[rr, None], d[rr, None],
+                                      c[rr, None], tmin[rr, None],
+                                      tmax[rr, None])
+            q, j = ok.nonzero(as_tuple=True)
+            parts.append((rr[q], slot[q, j], t[q, j], u[q, j], v[q, j],
+                          tid[q, j]))
 
     out = torch.zeros((num_r, 8 * k), dtype=torch.float32, device=dev)
     out[:, 0::8] = BIG

@@ -3,10 +3,11 @@ tiles: the hand-written CUDA kernel, its plain PyTorch version, and the
 torch-side machinery around them (tile packing, per-block candidate
 lists, ray sort keys, the sorted dispatch).
 
-Replaces the two TPU kernels of the main path:
-  imbatracer_tpu/ops/pallas_stream.py::_make_kernel (instanced=False)
+Replaces the TPU kernels
+  imbatracer_tpu/ops/pallas_stream.py::_make_kernel (instanced=False and
+      instanced=True)
   imbatracer_tpu/ops/pallas_vmem.py::_make_vmem_kernel
-Both compute one function over the same `(sbox, tiles)` packing, and so
+which compute one function over the same `(sbox, tiles)` packing, and so
 does `csrc/stream_traverse.cu` (its header note says what bounds it).
 
 Layouts (shared with the JAX package):
@@ -14,13 +15,24 @@ Layouts (shared with the JAX package):
           origins recentred (minus `center`); tmax < 0 marks a lane that
           does nothing
   sbox  : (S, 8) f32 super-chunk bboxes [lo.xyz, hi.xyz, pad2]
-  tiles : (S, 24, 1024) f32; triangle slot j of super-chunk s in lane j:
+  tiles : (T, 24, 1024) f32 (T == S on a flat BVH); triangle slot j of
+          tile s in lane j:
             rows 0..2 n = e1 x e2, 3 v0.n, 4 id (f32), 5 mask id,
             8..10 v0 x e2, 11..13 e2, 16..18 e1 x v0, 19..21 -e1;
           chunk c = slots 16c..16c+15, its bbox in rows 6,7,14 (lo.xyz)
           and 15,22,23 (hi.xyz), lane c (c < 64)
+  inst  : None (flat), or under two-level instancing the tuple
+          (tile_idx (S,) i32, inst_of (S,) i32, itab (I, 16) f32):
+          super-chunk s reads tile tile_idx[s] in the mesh space of
+          instance inst_of[s], whose row of itab holds the world->mesh
+          3x4 affine (columns 0..11, row-major) and the instance's flat
+          primitive-id offset (column 12).  Boxes in sbox are world
+          space and origins are not recentred (center is zero).
   out   : (R, 8) f32 rows [t u v id 0 0 0 0] (closest hit; on a miss
-          t = tmax, u = v = 0, id = -1) or [flag 0 ...] (any hit)
+          t = tmax, u = v = 0, id = -1) or [flag 0 ...] (any hit).  Ids
+          are carried in float32 (the tiles' id row, plus the instance
+          offset as a float add), so they are exact below 2^24 flat
+          triangles.
 
 Dispatch: `traverse` runs the kernel for CUDA tensors and the plain
 version for CPU tensors; nothing falls back from one to the other.
@@ -42,6 +54,8 @@ SUPER = 64
 TRI_ROWS = CHUNK * SUPER
 TILE_ROWS = 24
 BIG = 1e30
+# Super-chunk boxes slab-tested at once when building candidate lists.
+CAND_GROUP = 32
 
 _CBOX_ROWS = (6, 7, 14, 15, 22, 23)
 # Feature rows read by the Möller-Trumbore test, in the order _mt uses.
@@ -50,7 +64,8 @@ _FEAT_ROWS = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 16, 17, 18, 19, 20, 21)
 # Launch counts: one per kernel launch on the CUDA route, one per call of
 # the plain version on the CPU route.  chip_smoke.py reads them to show
 # the main path ran through the kernel.
-LAUNCHES = {"closest_hit": 0, "any_hit": 0, "plain": 0}
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_hit_instanced": 0,
+            "any_hit_instanced": 0, "plain": 0}
 
 # Counter slots of a counting launch (csrc/traverse_common.cuh): slab
 # tests, then Moller-Trumbore tests by the stage they ended at.
@@ -181,15 +196,16 @@ def superchunk_candidates(rays, sbox, blk: int = BLK):
     Returns (slist (B,S) i32, skey (B,S) f32, scount (B,) i32):
     slist[b, :scount[b]] are the super-chunks any ray of block b can hit,
     ordered by the block-min entry t, which skey carries (BIG past the
-    count).  Slab tests run in groups of 8 super-chunks to bound the
-    (8, 3, R) intermediates."""
+    count).  Slab tests run in groups of CAND_GROUP super-chunks to bound
+    the (R, CAND_GROUP, 3) intermediates (the reductions are exact, so
+    the group size does not change the lists)."""
     num_b = rays.shape[0] // blk
     o, tmin, tmax = rays[:, None, 0:3], rays[:, 3, None], rays[:, 7, None]
     inv = _safe_inv(rays[:, None, 4:7])
     hit_rows, key_rows = [], []
-    for g in range(0, sbox.shape[0], 8):
-        tn, tf = _slab(sbox[None, g:g + 8, 0:3], sbox[None, g:g + 8, 3:6],
-                       o, inv)                             # (R, G)
+    for g in range(0, sbox.shape[0], CAND_GROUP):
+        tn, tf = _slab(sbox[None, g:g + CAND_GROUP, 0:3],
+                       sbox[None, g:g + CAND_GROUP, 3:6], o, inv)  # (R, G)
         m = (tn <= tf) & (tf >= tmin) & (tn <= tmax)
         G = m.shape[1]
         hit_rows.append(m.view(num_b, blk, G).any(dim=1))
@@ -239,87 +255,149 @@ def _cross_od(o, d):
                         o[..., 0] * d[..., 1] - o[..., 1] * d[..., 0]], -1)
 
 
-def _triangle_batches(ray_idx, rays, sbox, cbox, inv, ray_batch=8192,
-                      pair_batch=32768, tri_batch=131072):
-    """Yield (rr (T,), slot (T, 16)): for each ray of `ray_idx` and each
-    chunk whose super-chunk box and chunk box its [tmin, tmax] interval
-    enters, the ray index and the chunk's 16 triangle slots.  Batched so
-    the intermediates stay bounded."""
+def tile_of(ss, inst):
+    """Tile rows of super-chunks `ss` (int64): the super-chunk itself on
+    a flat BVH, `tile_idx[ss]` under two-level instancing."""
+    return ss if inst is None else inst[0][ss].long()
+
+
+def instance_ray(m, o, d):
+    """Mesh-space origin and direction under (P, 16) instance rows `m`
+    (world->mesh 3x4 affine in columns 0..11): each product and sum
+    rounded on its own, left to right, as the kernels compute them.
+    Directions stay unnormalised, so t is the same in both spaces."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    po = [m[:, 4 * r] * ox + m[:, 4 * r + 1] * oy + m[:, 4 * r + 2] * oz
+          + m[:, 4 * r + 3] for r in range(3)]
+    pd = [m[:, 4 * r] * dx + m[:, 4 * r + 1] * dy + m[:, 4 * r + 2] * dz
+          for r in range(3)]
+    return torch.stack(po, -1), torch.stack(pd, -1)
+
+
+def pair_frame(rays, rr, ss, inst):
+    """(o, d, inv, o x d) of rays `rr` (rows of `rays`) in the frame of
+    super-chunks `ss`: world space on a flat BVH, the super-chunk's
+    instance's mesh space under two-level instancing."""
+    o, d = rays[rr, 0:3], rays[rr, 4:7]
+    if inst is not None:
+        _, inst_of, itab = inst
+        o, d = instance_ray(itab[inst_of[ss].long()], o, d)
+    return o, d, _safe_inv(d), _cross_od(o, d)
+
+
+def _ray_superchunks(ray_idx, rays, sbox, ray_batch=8192):
+    """Yield (rr, ss): the rays of `ray_idx` and the super-chunks whose
+    world-space box their [tmin, tmax] interval enters.  Batched so the
+    (rays, S) intermediates stay bounded."""
     o, tmin, tmax = rays[:, 0:3], rays[:, 3], rays[:, 7]
-    lane = torch.arange(CHUNK, device=rays.device)
-
-    def enters(lo, hi, r):
-        tn, tf = _slab(lo, hi, o[r, None], inv[r, None])
-        return (tn <= tf) & (tf >= tmin[r, None]) & (tn <= tmax[r, None])
-
+    inv = _safe_inv(rays[:, 4:7])
     for r0 in range(0, ray_idx.shape[0], ray_batch):
         rb = ray_idx[r0:r0 + ray_batch]
-        q1, s1 = enters(sbox[None, :, 0:3], sbox[None, :, 3:6],
-                        rb).nonzero(as_tuple=True)
-        r1 = rb[q1]
-        for p0 in range(0, r1.shape[0], pair_batch):
-            rp, sp = r1[p0:p0 + pair_batch], s1[p0:p0 + pair_batch]
-            cb = cbox[sp]                                   # (P, 64, 6)
-            q2, c2 = enters(cb[..., 0:3], cb[..., 3:6],
-                            rp).nonzero(as_tuple=True)
-            r2 = rp[q2]
-            base = sp[q2] * TRI_ROWS + c2 * CHUNK
-            for t0 in range(0, r2.shape[0], tri_batch):
-                yield (r2[t0:t0 + tri_batch],
-                       base[t0:t0 + tri_batch, None] + lane)
+        tn, tf = _slab(sbox[None, :, 0:3], sbox[None, :, 3:6], o[rb, None],
+                       inv[rb, None])
+        q, ss = ((tn <= tf) & (tf >= tmin[rb, None])
+                 & (tn <= tmax[rb, None])).nonzero(as_tuple=True)
+        yield rb[q], ss
 
 
-def traverse_plain(rays, sbox, tiles, occl: bool):
-    """Plain PyTorch version of the kernel: the same function, as a
-    vectorised walk over super-chunk, then chunk, then triangle
-    (_triangle_batches), with the kernel's feature-dot Möller-Trumbore
-    test (_mt).  The closest hit is the smallest t, ties going to the
-    lowest triangle slot, whose t/u/v are recomputed from that one
-    triangle."""
-    LAUNCHES["plain"] += 1
+def _pair_triangles(rr, ss, rays, cbox, inst, pair_batch=32768,
+                    tri_batch=131072):
+    """Yield (r, s, slot (T, 16)): for each (ray, super-chunk) pair of
+    (rr, ss) and each chunk of the super-chunk's tile that the ray, in
+    the super-chunk's frame, enters over [tmin, tmax], the ray, the
+    super-chunk and the chunk's 16 triangle slots within the tile."""
+    tmin, tmax = rays[:, 3], rays[:, 7]
+    lane = torch.arange(CHUNK, device=rays.device)
+    for p0 in range(0, rr.shape[0], pair_batch):
+        rp, sp = rr[p0:p0 + pair_batch], ss[p0:p0 + pair_batch]
+        o, _, inv, _ = pair_frame(rays, rp, sp, inst)
+        cb = cbox[tile_of(sp, inst)]                       # (P, 64, 6)
+        tn, tf = _slab(cb[..., 0:3], cb[..., 3:6], o[:, None], inv[:, None])
+        q, c = ((tn <= tf) & (tf >= tmin[rp, None])
+                & (tn <= tmax[rp, None])).nonzero(as_tuple=True)
+        r2, s2, base = rp[q], sp[q], c * CHUNK
+        for t0 in range(0, r2.shape[0], tri_batch):
+            yield (r2[t0:t0 + tri_batch], s2[t0:t0 + tri_batch],
+                   base[t0:t0 + tri_batch, None] + lane)
+
+
+def walk_rows(rays, tiles, inst, occl: bool, triangles):
+    """(R, 8) hit rows of a plain triangle walk.  `triangles(ray_idx)`
+    yields (r, s, slot) batches of the triangles each ray of `ray_idx`
+    may hit (_pair_triangles), and is walked twice for a closest hit:
+    once for the smallest t, once for the lowest (super-chunk, slot) at
+    that t, whose t/u/v/id are then recomputed from that one triangle.
+    Under two-level instancing the id is offset by the instance's flat
+    primitive-id base, a float add as in the kernels."""
     dev = rays.device
     num_r = rays.shape[0]
-    num_s = sbox.shape[0]
-    cbox = tiles[:, list(_CBOX_ROWS), :SUPER].permute(0, 2, 1)  # (S,64,6)
     feat = tiles[:, list(_FEAT_ROWS), :].permute(0, 2, 1)
-    feat = feat.reshape(num_s * TRI_ROWS, len(_FEAT_ROWS))      # (S*1024,17)
-    o, tmin, d, tmax = rays[:, 0:3], rays[:, 3], rays[:, 4:7], rays[:, 7]
-    inv = _safe_inv(d)
-    c = _cross_od(o, d)
+    feat = feat.reshape(-1, len(_FEAT_ROWS))                # (T*1024, 17)
+    tmin, tmax = rays[:, 3], rays[:, 7]
 
-    def test(rr, slot):
-        return _mt(feat[slot], o[rr, None], d[rr, None], c[rr, None],
-                   tmin[rr, None], tmax[rr, None])
+    def test(rr, ss, slot):
+        o, d, _, c = pair_frame(rays, rr, ss, inst)
+        f = feat[tile_of(ss, inst)[:, None] * TRI_ROWS + slot]
+        return _mt(f, o[:, None], d[:, None], c[:, None], tmin[rr, None],
+                   tmax[rr, None])
 
     live = (tmax >= 0.0).nonzero(as_tuple=True)[0]
     out = torch.zeros((num_r, 8), dtype=torch.float32, device=dev)
     if occl:
-        for rr, slot in _triangle_batches(live, rays, sbox, cbox, inv):
-            ok = test(rr, slot)[4]
+        for rr, ss, slot in triangles(live):
+            ok = test(rr, ss, slot)[4]
             out[rr[ok.any(dim=1)], 0] = 1.0
         return out
 
     best_t = torch.full((num_r,), float("inf"), device=dev)
-    for rr, slot in _triangle_batches(live, rays, sbox, cbox, inv):
-        t, _, _, _, ok = test(rr, slot)
+    for rr, ss, slot in triangles(live):
+        t, _, _, _, ok = test(rr, ss, slot)
         best_t.scatter_reduce_(
             0, rr, torch.where(ok, t, float("inf")).amin(dim=1), "amin")
     hit_r = torch.isfinite(best_t).nonzero(as_tuple=True)[0]
-    none = feat.shape[0]
-    best_slot = torch.full((num_r,), none, dtype=torch.int64, device=dev)
-    for rr, slot in _triangle_batches(hit_r, rays, sbox, cbox, inv):
-        t, _, _, _, ok = test(rr, slot)
-        win = torch.where(ok & (t == best_t[rr, None]), slot, none)
-        best_slot.scatter_reduce_(0, rr, win.amin(dim=1), "amin")
+    none = torch.iinfo(torch.int64).max
+    best_key = torch.full((num_r,), none, dtype=torch.int64, device=dev)
+    for rr, ss, slot in triangles(hit_r):
+        t, _, _, _, ok = test(rr, ss, slot)
+        key = ss[:, None] * TRI_ROWS + slot
+        win = torch.where(ok & (t == best_t[rr, None]), key, none)
+        best_key.scatter_reduce_(0, rr, win.amin(dim=1), "amin")
 
     out[:, 0] = tmax
     out[:, 3] = -1.0
-    t, u, v, tid, _ = test(hit_r, best_slot[hit_r, None])
+    wk = best_key[hit_r]
+    ws = wk // TRI_ROWS
+    t, u, v, tid, _ = test(hit_r, ws, (wk % TRI_ROWS)[:, None])
+    tid = tid[:, 0]
+    if inst is not None:
+        tid = tid + inst[2][inst[1][ws].long(), 12]
     out[hit_r, 0] = t[:, 0]
     out[hit_r, 1] = u[:, 0]
     out[hit_r, 2] = v[:, 0]
-    out[hit_r, 3] = tid[:, 0]
+    out[hit_r, 3] = tid
     return out
+
+
+def cbox_rows(tiles):
+    """(T, 64, 6) chunk boxes [lo.xyz, hi.xyz] of every tile."""
+    return tiles[:, list(_CBOX_ROWS), :SUPER].permute(0, 2, 1)
+
+
+def traverse_plain(rays, sbox, tiles, occl: bool, inst=None):
+    """Plain PyTorch version of the kernel: the same function, as a
+    vectorised walk over super-chunk (world-space box), then chunk, then
+    triangle (in the super-chunk's frame), with the kernel's feature-dot
+    Möller-Trumbore test (_mt).  The closest hit is the smallest t, ties
+    going to the lowest (super-chunk, slot)."""
+    LAUNCHES["plain"] += 1
+    cbox = cbox_rows(tiles)
+
+    def triangles(ray_idx):
+        for rr, ss in _ray_superchunks(ray_idx, rays, sbox):
+            yield from _pair_triangles(rr, ss, rays, cbox, inst)
+
+    return walk_rows(rays, tiles, inst, occl, triangles)
 
 
 # --------------------------------------------------------------------------
@@ -338,7 +416,7 @@ def _library():
         lib = ctypes.CDLL(LIB.build())
         fn = lib.imba_stream_traverse
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p] * 2
         _lib = lib
     return _lib
@@ -354,19 +432,45 @@ def _check(name, x, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def check_inputs(rays, sbox, tiles):
-    """Validate the (rays, sbox, tiles) triple a CUDA kernel reads."""
+def check_inputs(rays, sbox, tiles, inst=None):
+    """Validate the (rays, sbox, tiles[, inst]) a CUDA kernel reads.  On a
+    flat BVH tiles has one row per super-chunk; with `inst` any number,
+    and tile_idx / inst_of hold one int32 per super-chunk and itab 16
+    floats per instance (their values are checked when the BVH is built,
+    accel/device.py)."""
     num_r, num_s = rays.shape[0], sbox.shape[0]
     _check("rays", rays, torch.float32, (num_r, 8))
     _check("sbox", sbox, torch.float32, (num_s, 8))
-    _check("tiles", tiles, torch.float32, (num_s, TILE_ROWS, TRI_ROWS))
+    num_t = num_s if inst is None else tiles.shape[0]
+    _check("tiles", tiles, torch.float32, (num_t, TILE_ROWS, TRI_ROWS))
     if num_r % BLK:
         raise ValueError(f"rays: row count {num_r} is not a multiple of "
                          f"{BLK}")
-    for name, x in (("rays", rays), ("sbox", sbox), ("tiles", tiles)):
+    named = [("rays", rays), ("sbox", sbox), ("tiles", tiles)]
+    if inst is not None:
+        tile_idx, inst_of, itab = inst
+        _check("tile_idx", tile_idx, torch.int32, (num_s,))
+        _check("inst_of", inst_of, torch.int32, (num_s,))
+        _check("itab", itab, torch.float32, (itab.shape[0], 16))
+        named += [("tile_idx", tile_idx), ("inst_of", inst_of),
+                  ("itab", itab)]
+    for name, x in named:
         if x.device.type != "cuda" or x.device != rays.device:
             raise ValueError(f"{name}: must be on the rays' CUDA device")
     return num_r, num_s
+
+
+def inst_ptrs(inst):
+    """The kernels' (tile_idx, inst_of, itab) pointer arguments: null on a
+    flat BVH."""
+    if inst is None:
+        return None, None, None
+    return tuple(x.data_ptr() for x in inst)
+
+
+def launch_key(occl: bool, inst) -> str:
+    return (("any_hit" if occl else "closest_hit")
+            + ("" if inst is None else "_instanced"))
 
 
 def work_ptr(work, device):
@@ -380,13 +484,15 @@ def work_ptr(work, device):
     return work.data_ptr()
 
 
-def traverse_cuda(rays, sbox, tiles, occl: bool, lists=None, work=None):
+def traverse_cuda(rays, sbox, tiles, occl: bool, lists=None, work=None,
+                  inst=None):
     """Launch the CUDA kernel on CUDA tensors (raises on anything else).
 
     `lists` is superchunk_candidates(rays, sbox), computed here unless
     given.  With `work`, a zeroed (len(WORK_SLOTS),) int64 tensor, the
-    counting instantiation runs instead and adds its tallies to it."""
-    num_r, num_s = check_inputs(rays, sbox, tiles)
+    counting instantiation runs instead and adds its tallies to it.
+    `inst` selects the two-level instanced variant."""
+    num_r, num_s = check_inputs(rays, sbox, tiles, inst)
     lib = _library()
     if lists is None:
         lists = superchunk_candidates(rays, sbox)
@@ -395,45 +501,53 @@ def traverse_cuda(rays, sbox, tiles, occl: bool, lists=None, work=None):
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.imba_stream_traverse(
         rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), slist.data_ptr(),
-        skey.data_ptr(), scount.data_ptr(), out.data_ptr(), num_r, num_s,
-        BLK, int(occl), work_ptr(work, rays.device), stream)
+        skey.data_ptr(), scount.data_ptr(), *inst_ptrs(inst), out.data_ptr(),
+        num_r, num_s, BLK, int(occl), work_ptr(work, rays.device), stream)
     if err != 0:
         raise RuntimeError(f"stream_traverse kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["any_hit" if occl else "closest_hit"] += 1
+    LAUNCHES[launch_key(occl, inst)] += 1
     return out
 
 
-def traverse(rays, sbox, tiles, occl: bool):
+def traverse(rays, sbox, tiles, occl: bool, inst=None):
     """(R, 8) rays -> (R, 8) hit rows: the kernel on CUDA tensors, the
     plain version on CPU tensors."""
     if rays.device.type == "cuda":
-        return traverse_cuda(rays, sbox, tiles, occl)
+        return traverse_cuda(rays, sbox, tiles, occl, inst=inst)
     if rays.device.type == "cpu":
-        return traverse_plain(rays, sbox, tiles, occl)
+        return traverse_plain(rays, sbox, tiles, occl, inst=inst)
     raise ValueError(f"unsupported device {rays.device}")
 
 
-def dispatch(sbox, tiles, org, d, tmin, tmax, active, occl: bool,
-             sort: bool):
-    """Ray arrays -> (num_r, 8) hit rows.  With `sort`, rays are ordered
-    by sort_keys first (the ray record is permuted as one gather, the
-    output un-permuted as one scatter), so incoherent batches get
-    coherent per-block candidate lists and dead lanes gather in trailing
-    blocks.  Exact under any permutation."""
+def sorted_call(fn, sbox, org, d, tmin, tmax, active):
+    """Run `fn(rays (R', 8)) -> (R', 8)` on the ray rows ordered by
+    sort_keys (the ray record permuted as one gather, the output
+    un-permuted as one scatter), so incoherent batches get coherent
+    per-block candidate lists and dead lanes gather in trailing blocks.
+    Exact under any permutation.  Returns the (num_r, 8) rows."""
     num_r = org.shape[0]
     if active is None:
         active = torch.ones(num_r, dtype=torch.bool, device=org.device)
     rays, _ = rays8(org, d, tmin, tmax, active)
-    if not sort:
-        return traverse(rays, sbox, tiles, occl)[:num_r]
     lo, hi = scene_bounds(sbox)
     perm = torch.sort(sort_keys(org, d, active, lo, hi), stable=True)[1]
     pad = rays.shape[0] - num_r
     if pad:
         perm = torch.cat([perm, torch.arange(num_r, num_r + pad,
                                              device=org.device)])
-    res = traverse(rays[perm], sbox, tiles, occl)
+    res = fn(rays[perm])
     out = torch.empty_like(res)
     out[perm] = res
     return out[:num_r]
+
+
+def dispatch(sbox, tiles, org, d, tmin, tmax, active, occl: bool,
+             sort: bool, inst=None):
+    """Ray arrays -> (num_r, 8) hit rows, sorted first with `sort`
+    (sorted_call)."""
+    if not sort:
+        rays, num_r = rays8(org, d, tmin, tmax, active)
+        return traverse(rays, sbox, tiles, occl, inst)[:num_r]
+    return sorted_call(lambda r: traverse(r, sbox, tiles, occl, inst), sbox,
+                       org, d, tmin, tmax, active)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (the traversal kernels csrc/stream_traverse.cu and
-csrc/khit_traverse.cu, and the photon-merge kernel csrc/merge_kernel.cu)
+"""The CUDA kernels (the traversal kernels csrc/stream_traverse.cu, its
+instanced variant included, csrc/khit_traverse.cu and
+csrc/pairs_kernel.cu, and the photon-merge kernel csrc/merge_kernel.cu)
 against their plain PyTorch versions on the same inputs.  Needs an
 NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
 test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
@@ -145,12 +146,12 @@ def test_cuda_counting_launch(cuda_device, kind):
     assert torch.equal(launch(lists=lists, work=work), launch(lists=lists))
     w = dict(zip(st.WORK_SLOTS, work.cpu().tolist()))
     mt = sum(w[k] for k in st.WORK_SLOTS[1:])
-    inv = st._safe_inv(rays[:, 4:7])
-    cbox = scene.bvh.tiles[:, list(st._CBOX_ROWS), :st.SUPER].permute(0, 2, 1)
+    cbox = st.cbox_rows(scene.bvh.tiles)
     live = (rays[:, 7] >= 0.0).nonzero(as_tuple=True)[0]
-    plain_mt = st.CHUNK * sum(int(rr.shape[0]) for rr, _ in
-                              st._triangle_batches(live, rays, scene.bvh.sbox,
-                                                   cbox, inv))
+    plain_mt = st.CHUNK * sum(
+        int(rr.shape[0])
+        for r1, s1 in st._ray_superchunks(live, rays, scene.bvh.sbox)
+        for rr, _, _ in st._pair_triangles(r1, s1, rays, cbox, None))
     assert w["mt_hit"] > 100 and w["slab"] > 0
     assert 0 < mt <= plain_mt
     if kind != "any":
@@ -266,3 +267,119 @@ def test_cuda_merge_input_checks(cuda_device):
     with pytest.raises(TypeError):
         mg.merge_cuda(qrec.double().to(cuda_device), g,
                       scal.to(cuda_device), (0,), False)
+
+
+# --------------------------------------------------------------------------
+# Two-level instancing (the stream kernel's INST variant) and the pair
+# queue (csrc/pairs_kernel.cu)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def instanced_scene(tmp_path_factory):
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import write_instanced_scene
+
+    path = write_instanced_scene(str(tmp_path_factory.mktemp("inst")))
+    scene, _ = build_scene(path, device="cpu")
+    assert scene.bvh.two_level
+    return scene
+
+
+def _inst_rays(n, seed, occl):
+    rs = np.random.RandomState(seed)
+    org = torch.from_numpy(rs.uniform((-8, 0, -8), (8, 4, 8),
+                                      (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rs.randn(n, 3).astype(np.float32)), dim=1)
+    act = torch.from_numpy(rs.rand(n) < 0.8)
+    tmax = torch.from_numpy(rs.uniform(0.5, 6.0, n).astype(np.float32))
+    rays, _ = st.rays8(org, d, 1e-3, tmax if occl else BIG, act)
+    return rays
+
+
+def _hold_rows(k, p, occl):
+    """Kernel rows against plain rows: flags within 1 ray, ids equal
+    except at bit-equal t, t/u/v within 1e-5 relative."""
+    k = k.cpu()
+    if occl:
+        assert int((k[:, 0] != p[:, 0]).sum()) <= 1
+        assert 0.0 < float(p[:, 0].mean()) < 1.0
+        return
+    tie = (k[:, 3] != p[:, 3]) & (k[:, 0] == p[:, 0])
+    assert bool(((k[:, 3] == p[:, 3]) | tie).all())
+    same = k[:, 3] == p[:, 3]
+    assert int((p[:, 3] >= 0).sum()) > 100
+    torch.testing.assert_close(k[same, :4], p[same, :4], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occl", [False, True])
+def test_cuda_instanced_kernel_matches_plain(cuda_device, instanced_scene,
+                                             occl):
+    scene = instanced_scene
+    rays = _inst_rays(4096, 3, occl)
+    gpu = scene.to(cuda_device)
+    key = st.launch_key(occl, gpu.bvh.inst)
+    before = st.LAUNCHES[key]
+    k = st.traverse(rays.to(cuda_device), gpu.bvh.sbox, gpu.bvh.tiles, occl,
+                    gpu.bvh.inst)
+    assert st.LAUNCHES[key] == before + 1
+    p = st.traverse_plain(rays, scene.bvh.sbox, scene.bvh.tiles, occl,
+                          scene.bvh.inst)
+    _hold_rows(k, p, occl)
+    work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                       device=cuda_device)
+    rg = rays.to(cuda_device)
+    lists = st.superchunk_candidates(rg, gpu.bvh.sbox)
+    args = (rg, gpu.bvh.sbox, gpu.bvh.tiles, occl)
+    assert torch.equal(
+        st.traverse_cuda(*args, lists=lists, work=work, inst=gpu.bvh.inst),
+        st.traverse_cuda(*args, lists=lists, inst=gpu.bvh.inst))
+    assert int(work[-1]) > 0
+    with pytest.raises(ValueError):                       # tiles rows != S
+        st.traverse_cuda(rg, gpu.bvh.sbox, gpu.bvh.tiles, occl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instanced", [False, True])
+@pytest.mark.parametrize("occl", [False, True])
+def test_cuda_pairs_kernel_matches_plain(cuda_device, instanced_scene,
+                                         instanced, occl):
+    """The pair kernel against its plain version on one queue, and the
+    whole pairs route on the card against the stream route's plain
+    version (S > K_MAX on both scenes, so the fallback runs)."""
+    from imbatracer_torch.ops import pairs as pm
+
+    if instanced:
+        scene, rays = instanced_scene, _inst_rays(4096, 5, occl)
+    else:
+        scene, _ = make_big_scene(700, seed=9, device="cpu")      # S = 12
+        rays = _rays(4096, 5, scene, occl)
+    assert scene.bvh.sbox.shape[0] > pm.K_MAX
+    gpu = scene.to(cuda_device)
+    inst, ginst = scene.bvh.inst, gpu.bvh.inst
+    idx, _, _, _ = pm.ray_candidates(rays, scene.bvh.sbox)
+    qrows, sc, _ = pm.build_queue(idx, rays, scene.bvh.sbox.shape[0])
+    key = st.launch_key(occl, inst)
+    before = pm.LAUNCHES[key]
+    k = pm.pairs(qrows.to(cuda_device), sc.to(cuda_device), gpu.bvh.tiles,
+                 occl, ginst)
+    assert pm.LAUNCHES[key] == before + 1
+    p = pm.pairs_plain(qrows, sc, scene.bvh.tiles, occl, inst)
+    if occl:
+        assert int((k.cpu()[:, 0] != p[:, 0]).sum()) <= 1
+    else:
+        _hold_rows(k, p, occl)
+    work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                       device=cuda_device)
+    gq, gsc = qrows.to(cuda_device), sc.to(cuda_device)
+    assert torch.equal(pm.pairs_cuda(gq, gsc, gpu.bvh.tiles, occl, ginst,
+                                     work=work),
+                       pm.pairs_cuda(gq, gsc, gpu.bvh.tiles, occl, ginst))
+
+    route = pm.pair_rows(rays.to(cuda_device), gpu.bvh.sbox, gpu.bvh.tiles,
+                         occl, ginst)
+    plain = st.traverse_plain(rays, scene.bvh.sbox, scene.bvh.tiles, occl,
+                              inst)
+    _hold_rows(route, plain, occl)
