@@ -9,8 +9,8 @@ failure raises and the script exits non-zero:
 2. Build: compile csrc/stream_traverse.cu, csrc/khit_traverse.cu,
    csrc/merge_kernel.cu and csrc/pairs_kernel.cu with nvcc and
    csrc/bvh_builder.cpp with g++, all at once, into
-   build/imbatracer_torch/; print each kernel entry's ptxas register and
-   spill lines.
+   build/imbatracer_torch/; print each kernel entry's ptxas register,
+   static shared-memory and spill lines.
 3. Stream kernel vs plain: 262,144 rays (camera rays, and bounce-like
    random rays with ~80% of lanes active) on the procedural cornell
    (S=1 super-chunk), make_big_scene(150) (S=3) and make_big_scene(4000)
@@ -20,23 +20,33 @@ failure raises and the script exits non-zero:
    1e-5 * max(1, |x|) (both are built to round alike, so 0 is expected);
    any-hit flags may differ on at most 1e-4 of the rays.  Times both at
    the main-path shape (262,144 sorted bounce rays, S=68), and at S=3 (a
-   scene the JAX package would send to its VMEM kernel): the kernel alone
-   (candidate lists computed beforehand) and the wrapper with its lists;
-   then runs the kernel's counting instantiation on the same rays, which
-   must return the same rows, for the work behind the bound.
+   scene the JAX package would send to its VMEM kernel): `ms` is the one
+   launch a dispatch makes, its candidate stage included (each 128-ray
+   block builds its list on the card), and the stage is also timed alone
+   (imba_block_candidates); then runs the kernel's counting instantiation
+   on the same rays, which must return the same rows, for the work behind
+   the bound, and prints the kernel's registers, shared memory, spills
+   and resident blocks an SM.  Before the timings, `[cand]` lines hold
+   the card's candidate stage against its plain version
+   (superchunk_candidates) on big_4000, the still life and (phase 8a) the
+   instanced scene, camera and bounce rays, closest- and any-hit bounds:
+   counts, lists and keys up to each count must be equal bit for bit (a
+   -0 key counts as +0), with 0 mismatches.
 4. khit kernel vs plain: the same two ray sets, closest-hit bounds
    (tmin 1e-3, tmax 1e30), on make_leaf_scene(6000), make_still_life_like()
-   (S=142) and the cornell (S=1).  The K=4 t vectors must agree to
+   (S=140) and the cornell (S=1).  The K=4 t vectors must agree to
    1e-5 * max(1, |t|) (0 expected) with the same hits present; ids equal
    except between hits of bit-equal t (including a tie between the K-th
    hit and the next one, which either version may keep).  Times both on
-   the still-life bounce rays, and counts the kernel's work, as in 3.
+   the still-life bounce rays (`ms` the one launch with its candidate
+   stage), and counts the kernel's work, as in 3.
 5. Main paths, each with every launch counter set to 0 just before its
    timed frames and read just after them: (a) make_frame_fn +
    ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
    1024^2, spp 1, max_len 6, and (b) of the cornell at 1024^2, max_len
    10 -- both stream-kernel entry points must have launched, no plain
-   version may have run; (c) the
+   version (superchunk_candidates, the plain candidate stage, included;
+   so in every phase below) may have run; (c) the
    still-life proxy (alpha masks + env map) at 1920x1080, spp 1,
    max_len 8: one warm-up frame, reset(), 8 frames, as the JAX package's
    curve (results/curves_r5/curve_still_life_pt_1080p.csv) was taken --
@@ -101,12 +111,14 @@ failure raises and the script exits non-zero:
    the images agree to PSNR_MIN.  (d) PT at 512^2 on the two-level and the
    flattened build of the scene (the flattened one masked through khit):
    images within PSNR_MIN.
-9. Output: the kernels' JSON line (`ms` the kernel alone; `bound_ms` the
-   larger of its bytes over 3.35 TB/s and the float32 instructions its
-   counting launch tallied over 33.5e12/s, see bound(), pair_bound() and
-   merge_bound()), the card's name and power limit, and last the
-   {"ok": true, "device": ...} line.  Every kernel must have launched on
-   a main path.
+9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
+   and khit kernels the one launch with its candidate stage; `bound_ms`
+   the larger of its bytes over 3.35 TB/s and the float32 instructions
+   its counting launch tallied over 33.5e12/s, the candidate stage's slab
+   tests included and padding chunks, which the kernels skip, not, see
+   bound(), pair_bound() and merge_bound()), the card's name and power
+   limit, and last the {"ok": true, "device": ...} line.  Every kernel
+   must have launched on a main path.
 """
 
 import contextlib
@@ -237,10 +249,11 @@ def counters():
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.render import traverse as tt
 
-    got = {k: v for k, v in st.LAUNCHES.items() if k != "plain"}
+    got = {k: v for k, v in st.LAUNCHES.items() if k not in st.PLAIN_KEYS}
     got.update({f"pairs_{k}": v for k, v in pm.LAUNCHES.items()
                 if k != "plain"})
     return dict(got, stream_plain=st.LAUNCHES["plain"],
+                candidates_plain=st.LAUNCHES["candidates_plain"],
                 khit=kh.LAUNCHES["khit"], khit_plain=kh.LAUNCHES["plain"],
                 merge=mg.LAUNCHES["merge"], merge_plain=mg.LAUNCHES["plain"],
                 pairs_plain=pm.LAUNCHES["plain"],
@@ -249,8 +262,8 @@ def counters():
 
 
 def plain_runs(got):
-    return (got["stream_plain"] + got["khit_plain"] + got["merge_plain"]
-            + got["pairs_plain"])
+    return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
+            + got["merge_plain"] + got["pairs_plain"])
 
 
 def bound(rays, sbox, tiles, out_cols, work, insert_ops=0, inst=None):
@@ -261,14 +274,19 @@ def bound(rays, sbox, tiles, out_cols, work, insert_ops=0, inst=None):
     `inst` read once, rows out) over the HBM rate and the float32
     instructions the kernel issued over the float32 instruction rate.
     `work` holds the tallies of the kernel's counting launch on these
-    rays (stream_traverse.WORK_SLOTS), costed with SLAB_OPS and
-    MT_STAGE_OPS, plus `insert_ops` per hit.  An instanced kernel's ray
-    transforms (~54 instructions per super-chunk entered, before its 64
-    chunk tests of 25 each) are not counted: the bound errs low by <4%."""
+    rays (stream_traverse.WORK_SLOTS): the candidate stage's slab tests
+    and the walk's (super-chunk and non-padding chunk boxes; padding
+    chunks, which the kernels skip, are work these inputs do not need)
+    costed with SLAB_OPS, the first-pass Moller-Trumbore stages with
+    MT_STAGE_OPS, plus `insert_ops` per hit.  The walk's second looks
+    (the design's own: each repeats a test counted above) and an
+    instanced kernel's ray transforms (~54 instructions per super-chunk
+    entered, before its chunk tests of 25 each) are not counted."""
     from imbatracer_torch.ops import stream_traverse as st
 
     w = dict(zip(st.WORK_SLOTS, work.tolist()))
-    ops = (w["slab"] * SLAB_OPS + w["mt_hit"] * insert_ops
+    ops = ((w["slab"] + w["cand_slab"]) * SLAB_OPS
+           + w["mt_hit"] * insert_ops
            + sum(w[k] * c for k, c in zip(st.WORK_SLOTS[1:], MT_STAGE_OPS)))
     meta = 0 if inst is None else sum(x.numel() for x in inst)
     active = int((rays[:, 7] >= 0.0).sum())
@@ -283,21 +301,50 @@ def bound(rays, sbox, tiles, out_cols, work, insert_ops=0, inst=None):
 
 def time_kernel(launch, rays, sbox, tiles, out_cols, insert_ops=0,
                 inst=None):
-    """Time a CUDA wrapper on these rays: (kernel ms with the candidate
-    lists computed beforehand, wrapper ms with them computed per call,
+    """Time a CUDA wrapper on these rays: (ms of its one launch, the
+    candidate stage included; ms of the candidate stage launched alone;
     bound).  The counting launch behind the bound must return what the
     renderer's launch returns."""
     from imbatracer_torch.ops import stream_traverse as st
 
-    lists = st.superchunk_candidates(rays, sbox)
-    ms = cuda_ms(lambda: launch(lists=lists), 10)
-    wrapper_ms = cuda_ms(launch, 10)
+    ms = cuda_ms(launch, 10)
+    stage_ms = cuda_ms(lambda: st.candidates_cuda(rays, sbox), 10)
     work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
                        device=rays.device)
-    if not torch.equal(launch(lists=lists, work=work), launch(lists=lists)):
+    if not torch.equal(launch(work=work), launch()):
         raise AssertionError("the counting launch disagrees with the kernel")
-    return ms, wrapper_ms, bound(rays, sbox, tiles, out_cols, work,
-                                 insert_ops, inst)
+    return ms, stage_ms, bound(rays, sbox, tiles, out_cols, work,
+                               insert_ops, inst)
+
+
+def compare_candidates(scene, meta, label, dev, st):
+    """`[cand]`: the kernels' candidate stage (launched alone) against its
+    plain version, superchunk_candidates, on the camera and bounce rays
+    with closest-hit (tmax 1e30) and any-hit bounds: the number of blocks
+    whose counts differ, and of list entries and keys (as bits, -0 as +0)
+    that differ up to each block's count.  All must be 0."""
+    sbox = scene.bvh.sbox
+    for name, closest, anyr in ray_sets(scene, meta, dev, st):
+        for key, rays in (("closest", closest), ("any", anyr)):
+            ref = st.superchunk_candidates(rays, sbox)
+            bad = st.candidate_mismatches(st.candidates_cuda(rays, sbox), ref)
+            rc = ref[2]
+            log(f"[cand] {label:<10} S={sbox.shape[0]:<5} {name:<7} {key:<7}"
+                f" blocks={rc.shape[0]} candidates={int(rc.sum())} (mean "
+                f"{float(rc.float().mean()):.2f}, max {int(rc.max())}) "
+                f"count_mismatch={bad[0]} list_mismatch={bad[1]} "
+                f"key_mismatch={bad[2]}")
+            if any(bad):
+                raise AssertionError(f"the card's candidate stage disagrees "
+                                     f"with superchunk_candidates on "
+                                     f"{label}/{name}/{key}")
+
+
+def log_resources(what, res, card):
+    log(f"[res] {what} [{card}]: {res['registers']} registers, "
+        f"{res['static_smem']} B static + {res['dynamic_smem']} B dynamic "
+        f"shared memory, {res['local_bytes']} B local (spills), "
+        f"{res['blocks_per_sm']} resident blocks an SM")
 
 
 def ray_sets(scene, meta, dev, st):
@@ -1099,21 +1146,25 @@ def instanced_phase(dev, card, big, stats):
         # (a) Kernel parity, timing and counted work.
         phase("8a instanced stream and pair kernels vs plain")
         compare(scene, meta, "instanced", dev, st, stats)
+        compare_candidates(scene, meta, "instanced", dev, st)
         num_s = bvh.sbox.shape[0]
         for key in ("closest", "any"):
             log_time(f"instanced stream kernel {key}, S={num_s}, "
                      f"{bvh.tiles.shape[0]} tiles, {NUM_RAYS} sorted bounce "
                      f"rays", stats["instanced", key],
                      stats["instanced", f"{key}_plain_ms"], card)
+            log_resources(f"instanced stream kernel {key}, S={num_s}",
+                          st.resources(key == "any", True, num_s), card)
         for label, sc in (("instanced", (scene, meta)), ("big_4000", big)):
             compare_pairs(sc[0], sc[1], label, dev, st, pm, stats)
             tag = "_instanced" if sc[0].bvh.two_level else ""
             for key in ("closest", "any"):
                 log_time(f"pairs kernel {key}{tag}, S={sc[0].bvh.sbox.shape[0]}"
                          f", {NUM_RAYS} sorted bounce rays (kernel on the "
-                         f"prepared queue; wrapper: the route)",
+                         f"prepared queue)",
                          stats[f"pairs_{key}{tag}"],
-                         stats[f"pairs_{key}{tag}_plain_ms"], card)
+                         stats[f"pairs_{key}{tag}_plain_ms"], card,
+                         second="the route")
         if not any(v for k, v in stats.items() if isinstance(k, str)
                    and k.startswith("fallback instanced")):
             raise AssertionError("the saturation fallback re-traced no ray "
@@ -1179,11 +1230,11 @@ def instanced_phase(dev, card, big, stats):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def log_time(what, timed, plain_ms, card):
-    ms, wrapper_ms, (bound_ms, bound_by, detail) = timed
-    log(f"[time] {what} [{card}]: kernel {ms:.3f} ms (wrapper with its "
-        f"candidate lists {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by}, {detail})")
+def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
+    ms, second_ms, (bound_ms, bound_by, detail) = timed
+    log(f"[time] {what} [{card}]: kernel {ms:.3f} ms ({second} "
+        f"{second_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+        f"ms by {bound_by}, {detail})")
 
 
 def kernel_entry(name, source, replaces, launches, err, timed, plain_ms):
@@ -1250,18 +1301,23 @@ def main():
     phase("3 stream kernel vs plain")
     for label in ("cornell", "big_150", "big_4000"):
         compare(*scenes[label], label, dev, st, stats)
+    compare_candidates(*scenes["big_4000"], "big_4000", dev, st)
     for label in ("big_150", "big_4000"):
         num_s = scenes[label][0].bvh.sbox.shape[0]
         for key in ("closest", "any"):
             log_time(f"stream kernel {key}, {label} (S={num_s}), {NUM_RAYS} "
                      f"sorted bounce rays", stats[label, key],
                      stats[label, f"{key}_plain_ms"], card)
+            log_resources(f"stream kernel {key}, S={num_s}",
+                          st.resources(key == "any", False, num_s), card)
     phase("4 khit kernel vs plain")
     for label in ("leaf_6000", "still_life", "cornell"):
         compare_khit(*scenes[label], label, dev, st, kh, stats)
-    log_time(f"khit kernel, S={scenes['still_life'][0].bvh.sbox.shape[0]}, "
-             f"{NUM_RAYS} sorted still-life bounce rays", stats["khit"],
-             stats["khit_plain_ms"], card)
+    compare_candidates(*scenes["still_life"], "still_life", dev, st)
+    num_s = scenes["still_life"][0].bvh.sbox.shape[0]
+    log_time(f"khit kernel, S={num_s}, {NUM_RAYS} sorted still-life bounce "
+             f"rays", stats["khit"], stats["khit_plain_ms"], card)
+    log_resources(f"khit kernel, S={num_s}", kh.resources(num_s), card)
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
@@ -1269,8 +1325,7 @@ def main():
         _, got, _, _ = main_path(*scenes[label], label, 1024, 1024, max_len,
                                  MAIN_FRAMES, card)
         log(f"[main] {label} launches over the timed frames: {got}")
-        if (got["closest_hit"] == 0 or got["any_hit"] == 0
-                or got["stream_plain"] or got["khit_plain"]):
+        if got["closest_hit"] == 0 or got["any_hit"] == 0 or plain_runs(got):
             raise AssertionError(f"{label}: the main path did not run "
                                  f"through the stream kernel")
         for k in stream_launches:
@@ -1283,7 +1338,7 @@ def main():
     log(f"[main] still_life launches over the timed frames: {sl_got}; khit "
         f"rounds per non-empty masked dispatch: "
         f"{sl_got['rounds'] / busy:.4f}")
-    if sl_got["khit"] == 0 or sl_got["stream_plain"] or sl_got["khit_plain"]:
+    if sl_got["khit"] == 0 or plain_runs(sl_got):
         raise AssertionError("still_life: the main path did not run through "
                              "the khit kernel")
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),

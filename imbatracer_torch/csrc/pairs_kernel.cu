@@ -11,7 +11,8 @@
 // two-level instancing metadata are those of ops/stream_traverse.py.
 //
 // Design: one thread per pair lane.  It reads its ray row and its super-
-// chunk, slab-tests that super-chunk's 64 chunk boxes and runs the
+// chunk, slab-tests that super-chunk's non-padding chunk boxes (a padding
+// chunk's inverted box would read as all of space) and runs the
 // feature-dot Moller-Trumbore test (traverse_common.cuh) on the 16
 // triangles of each chunk it enters, keeping its best hit in registers,
 // bounded from tmax (closest hit), or stops at its first hit (any hit).
@@ -67,11 +68,13 @@ pairs_kernel(const float* __restrict__ rows, const int* __restrict__ sc_of,
     const size_t tile = INST ? (size_t)__ldg(tile_idx + sc) : (size_t)sc;
     const float* T = tiles + tile * kTileRows * kTriRows;
     for (int c = 0; c < kSuper; ++c) {
+      if (padding_chunk(T, c)) continue;
       work.slab();
       if (!enters_chunk(T, c, ray, best_t)) continue;
       for (int j = c * kChunk; j < (c + 1) * kChunk; ++j) {
         float t, u, v, id;
-        if (!hit_slot(T, j, ray, best_t, t, u, v, id, work)) continue;
+        if (!hit_slot(GlobalRows{T}, j, ray, best_t, t, u, v, id, work))
+          continue;
         if (OCCL) {
           occluded = true;
           goto done;

@@ -5,44 +5,45 @@
 //   imbatracer_tpu/ops/pallas_stream.py::_make_kernel (instanced=False and
 //       instanced=True, the INST template parameter here)
 //   imbatracer_tpu/ops/pallas_vmem.py::_make_vmem_kernel
-// which compute the same function over the same (sbox, tiles[, inst])
-// packing; the layouts are documented in imbatracer_torch/ops/
-// stream_traverse.py.
+// and the candidate lists that fed them (superchunk_candidates), over the
+// same (sbox, tiles[, inst]) packing; the layouts are documented in
+// imbatracer_torch/ops/stream_traverse.py.
 //
-// Design: one thread per ray, best hit in registers.  Each block of BLK
-// threads walks the candidate super-chunk list of its ray block (built by
-// torch ops, sorted front-to-back by the block-min entry t), and every
-// thread stops its own walk as soon as the next candidate's entry t is at
-// or beyond its best hit (closest hit) or its tmax (any hit) -- the list is
-// ascending and a ray's own entry t is never below the block minimum, so
-// no later candidate can matter.  Inside a super-chunk the thread slab-
-// tests its 64 chunk boxes and runs the feature-dot Moller-Trumbore test
-// on the 16 triangles of each chunk it enters; an any-hit thread stops
-// at its first hit.  Under two-level instancing (INST) the super-chunk
-// box is tested with the world-space ray, and the chunk and triangle tests
-// run on tile tile_idx[sc] with the ray transformed into the mesh space of
-// instance inst_of[sc] (traverse_common.cuh instance_ray); the hit id is
-// offset by that instance's flat primitive-id base, a float add, so ids
-// are exact below 2^24 flat triangles.  The TPU-only machinery of the
-// Pallas kernels (column-
-// best planes, SMEM group compaction, the grid-carried exit bound, the DMA
-// double buffer) has no counterpart: an exit bound here is per thread.
+// Design: one launch a dispatch, one block of kBlk = 128 rays, one thread
+// a ray with its best hit in registers.  The block first builds its own
+// candidate list in shared memory (traverse_common.cuh block_candidates:
+// the super-chunks any of its rays enters, sorted by the block-min entry
+// t), then walks it (block_walk): super-chunk box with the world ray,
+// chunk boxes and triangles staged in shared memory with cp.async and
+// tested, spread over (ray, chunk) pairs, with the ray in the super-chunk's
+// frame; each thread takes its hits in its own walk order.  A closest-hit
+// thread's bound is its best t, an any-hit thread's its tmax, and an
+// any-hit thread stops at its first hit.  Under two-level instancing
+// (INST) the chunk and triangle tests run on tile tile_idx[sc] with the
+// ray transformed into the mesh space of instance inst_of[sc], and the
+// hit id is offset by that instance's flat primitive-id base, a float add,
+// so ids are exact below 2^24 flat triangles.  The TPU-only machinery of
+// the Pallas kernels (column-best planes, SMEM group compaction, the
+// grid-carried exit bound) has no counterpart: an exit bound here is per
+// thread.
 //
-// What bounds it: memory latency.  Tile rows are read straight from
-// global memory through the read-only path; at the main-path scene (S = 68
-// super-chunks, 6.7 MB of tiles) the whole tile set sits in the 50 MB L2,
-// so loads hit L2, and threads of a warp walking the same chunk read the
-// same addresses (broadcast).  Work per ray is ~25 flops per tested
-// triangle, far below the card's compute bound.  Divergence (threads of
-// one warp entering different chunks) is the main inefficiency; ray
-// sorting on the torch side (octant-major, Morton-minor keys) keeps warps
-// coherent.  Shared-memory tile staging, warp-level culling and tensor-
-// core formulations are left to later work.
+// What bounds it now: block barriers (five a candidate, four a feature
+// batch) and the latency of each batch's staging; at S = 1,404 (the
+// instanced card scene) the candidate stage's slab tests and warp
+// reductions are two fifths of the launch.  What the design does about the
+// one-thread-a-ray kernel's limits is in traverse_common.cuh: tile values
+// from shared memory rather than dependent L2 loads, the next candidate's
+// boxes loading while the current ones are tested, padding chunks skipped,
+// lanes busy on (ray, chunk) pairs rather than idle behind other lanes'
+// chunks, no torch ops for the lists.  Left for later there too:
+// persistent blocks, TMA, a ray sort on the card.
 //
 // Numerics: the slab and Moller-Trumbore tests are those of
 // traverse_common.cuh (shared with khit_traverse.cu), which match the
 // plain version bit for bit.  With bit-equal t, the first triangle found
 // in walk order wins.
+
+#include <type_traits>
 
 #include "traverse_common.cuh"
 
@@ -50,126 +51,164 @@ namespace {
 
 using namespace imba;
 
-// The minimum of 8 resident blocks an SM gives ptxas a 64-register
-// budget; without it ptxas kept the any-hit kernel at 40 registers with an
-// 8-byte stack frame and 4 bytes of spill stores.
+struct Closest {
+  float t, u = 0.0f, v = 0.0f, id = -1.0f;
+  __device__ explicit Closest(float tmax) : t(tmax) {}
+  __device__ __forceinline__ float bound() const { return t; }
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ void accept(float t_, float u_, float v_,
+                                         float id_) {
+    t = t_;
+    u = u_;
+    v = v_;
+    id = id_;
+  }
+};
+
+struct Any {
+  float tmax;
+  bool hit = false;
+  __device__ explicit Any(float tmax_) : tmax(tmax_) {}
+  __device__ __forceinline__ float bound() const { return tmax; }
+  __device__ __forceinline__ bool done() const { return hit; }
+  __device__ __forceinline__ void accept(float, float, float, float) {
+    hit = true;
+  }
+};
+
+// Four resident blocks an SM give ptxas a budget of 128 registers.
 template <bool OCCL, bool INST, class W>
-__global__ void __launch_bounds__(128, 8)
+__global__ void __launch_bounds__(kBlk, 4)
 stream_traverse_kernel(const float* __restrict__ rays,
                        const float* __restrict__ sbox,
                        const float* __restrict__ tiles,
-                       const int* __restrict__ slist,
-                       const float* __restrict__ skey,
-                       const int* __restrict__ scount,
                        const int* __restrict__ tile_idx,
                        const int* __restrict__ inst_of,
                        const float* __restrict__ itab,
-                       float* __restrict__ out, int num_rays, int num_s,
-                       int blk, unsigned long long* __restrict__ work_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= num_rays) return;
+                       float* __restrict__ out, int num_s,
+                       unsigned long long* __restrict__ work_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockSmem sm(smem, num_s);
+  const int r = blockIdx.x * kBlk + threadIdx.x;
   const Ray ray = load_ray(rays + (size_t)r * 8);
-  float* o = out + (size_t)r * 8;
   W work;
-  float best_t = ray.tmax, best_u = 0.0f, best_v = 0.0f, best_id = -1.0f;
-  bool occluded = false;
+  const int count = block_candidates(ray, sbox, num_s, sm.list, sm.feat,
+                                     work);
+  using P = typename std::conditional<OCCL, Any, Closest>::type;
+  P pol(ray.tmax);
+  block_walk<INST>(ray, pol, sm.list, count, sm.cand, sm.feat, sbox, tiles,
+                   tile_idx, inst_of, itab, work);
 
-  if (ray.tmax >= 0.0f) {
-    const int b = r / blk;
-    const int n = scount[b];
-    const int* list = slist + (size_t)b * num_s;
-    const float* keys = skey + (size_t)b * num_s;
-
-    for (int k = 0; k < n; ++k) {
-      if (keys[k] >= best_t) break;  // best_t == tmax for any hit
-      const int sc = list[k];
-      work.slab();
-      if (!enters_superchunk(sbox + (size_t)sc * 8, ray, best_t)) continue;
-      const float* m = INST ? itab + (size_t)__ldg(inst_of + sc) * 16
-                            : nullptr;
-      const Ray mray = INST ? instance_ray(ray, m) : ray;
-      const size_t tile = INST ? (size_t)__ldg(tile_idx + sc) : (size_t)sc;
-      const float* T = tiles + tile * kTileRows * kTriRows;
-      for (int c = 0; c < kSuper; ++c) {
-        work.slab();
-        if (!enters_chunk(T, c, mray, best_t)) continue;
-        for (int j = c * kChunk; j < (c + 1) * kChunk; ++j) {
-          float t, u, v, id;
-          if (!hit_slot(T, j, mray, best_t, t, u, v, id, work)) continue;
-          if (OCCL) {
-            occluded = true;
-            goto done;
-          }
-          best_t = t;
-          best_u = u;
-          best_v = v;
-          best_id = INST ? id + __ldg(m + 12) : id;
-        }
-      }
-    }
-  }
-
-done:
   work.flush(work_out);
-  if (OCCL) {
-    o[0] = occluded ? 1.0f : 0.0f;
+  float* o = out + (size_t)r * 8;
+  if constexpr (OCCL) {
+    o[0] = pol.hit ? 1.0f : 0.0f;
     o[1] = o[2] = o[3] = 0.0f;
   } else {
-    o[0] = best_t;
-    o[1] = best_u;
-    o[2] = best_v;
-    o[3] = best_id;
+    o[0] = pol.t;
+    o[1] = pol.u;
+    o[2] = pol.v;
+    o[3] = pol.id;
   }
   o[4] = o[5] = o[6] = o[7] = 0.0f;
 }
 
-template <bool OCCL, bool INST, class W>
-void launch(int blocks, cudaStream_t s, const void* rays, const void* sbox,
-            const void* tiles, const void* slist, const void* skey,
-            const void* scount, const void* tile_idx, const void* inst_of,
-            const void* itab, void* out, int num_rays, int num_s, int blk,
-            void* work) {
-  stream_traverse_kernel<OCCL, INST, W><<<blocks, 128, 0, s>>>(
-      static_cast<const float*>(rays), static_cast<const float*>(sbox),
-      static_cast<const float*>(tiles), static_cast<const int*>(slist),
-      static_cast<const float*>(skey), static_cast<const int*>(scount),
-      static_cast<const int*>(tile_idx), static_cast<const int*>(inst_of),
-      static_cast<const float*>(itab), static_cast<float*>(out), num_rays,
-      num_s, blk, static_cast<unsigned long long*>(work));
+// The candidate stage alone: writes block b's list to slist[b, :count],
+// skey[b, :count] and count to scount[b].
+__global__ void __launch_bounds__(kBlk)
+block_candidates_kernel(const float* __restrict__ rays,
+                        const float* __restrict__ sbox, int num_s,
+                        int* __restrict__ slist, float* __restrict__ skey,
+                        int* __restrict__ scount) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockSmem sm(smem, num_s);
+  const Ray ray = load_ray(rays + ((size_t)blockIdx.x * kBlk + threadIdx.x) * 8);
+  NoWork work;
+  const int count = block_candidates(ray, sbox, num_s, sm.list, sm.feat,
+                                     work);
+  const size_t row = (size_t)blockIdx.x * num_s;
+  for (int i = threadIdx.x; i < count; i += kBlk) {
+    const unsigned long long e = sm.list[i];
+    slist[row + i] = (int)(e & 0xffffffffu);
+    skey[row + i] = __uint_as_float((unsigned)(e >> 32));
+  }
+  if (threadIdx.x == 0) scount[blockIdx.x] = count;
 }
 
+using KernelFn = void (*)(const float*, const float*, const float*,
+                          const int*, const int*, const float*, float*, int,
+                          unsigned long long*);
+
 template <bool OCCL, bool INST>
-auto pick(void* work) {
-  return work ? launch<OCCL, INST, Work> : launch<OCCL, INST, NoWork>;
+KernelFn pick(bool work) {
+  return work ? stream_traverse_kernel<OCCL, INST, Work>
+              : stream_traverse_kernel<OCCL, INST, NoWork>;
+}
+
+KernelFn kernel_for(int occl, bool inst, bool work) {
+  return occl ? (inst ? pick<true, true>(work) : pick<true, false>(work))
+              : (inst ? pick<false, true>(work) : pick<false, false>(work));
 }
 
 }  // namespace
 
 // C entry point.  Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError() of the launch (0 on success).
-// With `work` null it launches the renderer's kernel; otherwise the
-// counting instantiation, which adds its kWorkSlots tallies (slab tests,
-// then Moller-Trumbore tests by the stage they ended at) to the
-// zero-initialised uint64 array `work`.  With `tile_idx` non-null it
-// launches the two-level instanced variant (tile_idx, inst_of: one int32
-// per super-chunk; itab: 16 floats per instance).
+// synchronise; returns cudaGetLastError() of the launch (0 on success), or
+// cudaErrorInvalidValue when num_rays is not a multiple of 128 or num_s
+// lies outside [1, kMaxSuper].  With `work` null it launches the
+// renderer's kernel; otherwise the counting instantiation, which adds its
+// kWorkSlots tallies (traverse_common.cuh) to the zero-initialised uint64
+// array `work`.  With `tile_idx` non-null it launches the two-level
+// instanced variant (tile_idx, inst_of: one int32 per super-chunk; itab:
+// 16 floats per instance).
 extern "C" int imba_stream_traverse(const void* rays, const void* sbox,
-                                    const void* tiles, const void* slist,
-                                    const void* skey, const void* scount,
-                                    const void* tile_idx,
+                                    const void* tiles, const void* tile_idx,
                                     const void* inst_of, const void* itab,
                                     void* out, int num_rays, int num_s,
-                                    int blk, int occl, void* work,
-                                    void* stream) {
-  const int blocks = (num_rays + 127) / 128;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks > 0) {
-    const bool inst = tile_idx != nullptr;
-    auto* go = occl ? (inst ? pick<true, true>(work) : pick<true, false>(work))
-                    : (inst ? pick<false, true>(work)
-                            : pick<false, false>(work));
-    go(blocks, s, rays, sbox, tiles, slist, skey, scount, tile_idx, inst_of,
-       itab, out, num_rays, num_s, blk, work);
-  }
+                                    int occl, void* work, void* stream) {
+  if (bad_shape(num_rays, num_s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = num_rays / kBlk;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  KernelFn k = kernel_for(occl, tile_idx != nullptr, work != nullptr);
+  const size_t smem = block_smem_bytes(num_s);
+  const cudaError_t e = prepare(k, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  k<<<blocks, kBlk, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rays), static_cast<const float*>(sbox),
+      static_cast<const float*>(tiles), static_cast<const int*>(tile_idx),
+      static_cast<const int*>(inst_of), static_cast<const float*>(itab),
+      static_cast<float*>(out), num_s,
+      static_cast<unsigned long long*>(work));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The candidate stage alone (tests and chip_smoke.py; no main path calls
+// it): block b of the rays' 128-ray blocks writes its sorted list to
+// slist[b, :count] (int32) and skey[b, :count] (float32), rows of num_s,
+// and count to scount[b].  Entries past the count are left as they were.
+extern "C" int imba_block_candidates(const void* rays, const void* sbox,
+                                     void* slist, void* skey, void* scount,
+                                     int num_rays, int num_s, void* stream) {
+  if (bad_shape(num_rays, num_s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = num_rays / kBlk;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = block_smem_bytes(num_s);
+  const cudaError_t e = prepare(block_candidates_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  block_candidates_kernel<<<blocks, kBlk, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rays), static_cast<const float*>(sbox), num_s,
+      static_cast<int*>(slist), static_cast<float*>(skey),
+      static_cast<int*>(scount));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resources of the kernel imba_stream_traverse would launch for these
+// arguments (traverse_common.cuh resources()); returns a CUDA error code.
+extern "C" int imba_stream_resources(int occl, int inst, int work, int num_s,
+                                     int* out) {
+  return static_cast<int>(resources(kernel_for(occl, inst != 0, work != 0),
+                                    num_s, out));
 }

@@ -104,8 +104,9 @@ def build_all(libs) -> list:
 
 
 def ptxas_lines(name: str) -> list:
-    """The entry-function, register and spill lines of a CUDA library's
-    last build."""
+    """The entry-function, register, shared-memory and spill lines of a
+    CUDA library's last build."""
     log = BUILD_INFO.get(name, {}).get("log", "")
     return [ln.strip() for ln in log.splitlines()
-            if "entry function" in ln or "registers" in ln or "spill" in ln]
+            if any(k in ln for k in ("entry function", "registers", "smem",
+                                     "spill"))]

@@ -7,9 +7,9 @@ Replaces the TPU kernel imbatracer_tpu/ops/pallas_khit.py::_khit_kernel
 K-th returned one is missing.  render/traverse.py alpha-tests the K hits
 together and re-traces only rays whose K hits were all masked out.
 
-Layouts: rays (R, 8), sbox, tiles and candidate lists as in
-ops/stream_traverse.py; out (R, 8K) f32, hit k in columns 8k..8k+3 =
-[t u v id]; an absent hit is t = BIG, u = v = 0, id = -1.
+Layouts: rays (R, 8), sbox and tiles as in ops/stream_traverse.py; out
+(R, 8K) f32, hit k in columns 8k..8k+3 = [t u v id]; an absent hit is
+t = BIG, u = v = 0, id = -1.
 
 Dispatch: `khit` runs the kernel (csrc/khit_traverse.cu) for CUDA
 tensors and the plain version for CPU tensors; nothing falls back from
@@ -110,31 +110,37 @@ def _library():
         lib = ctypes.CDLL(LIB.build())
         fn = lib.imba_khit_traverse
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p] * 2
+        fn = lib.imba_khit_resources
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
-def khit_cuda(rays, sbox, tiles, lists=None, work=None):
+def khit_cuda(rays, sbox, tiles, work=None):
     """Launch the CUDA kernel (K = 4) on CUDA tensors (raises on anything
-    else).  `lists` and `work` as in stream_traverse.traverse_cuda."""
+    else): one launch, which builds each block's candidate list and walks
+    it.  `work` as in stream_traverse.traverse_cuda."""
     num_r, num_s = st.check_inputs(rays, sbox, tiles)
     lib = _library()
-    if lists is None:
-        lists = st.superchunk_candidates(rays, sbox)
-    slist, skey, scount = lists
     out = torch.empty((num_r, 8 * K), dtype=torch.float32,
                       device=rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.imba_khit_traverse(
-        rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), slist.data_ptr(),
-        skey.data_ptr(), scount.data_ptr(), out.data_ptr(), num_r, num_s,
-        st.BLK, K, st.work_ptr(work, rays.device), stream)
+        rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+        num_r, num_s, K, st.work_ptr(work, rays.device), stream)
     if err != 0:
         raise RuntimeError(f"khit kernel launch failed: CUDA error {err}")
     LAUNCHES["khit"] += 1
     return out
+
+
+def resources(num_s: int, work: bool = False):
+    """Registers, shared memory, spills and resident blocks an SM of the
+    khit kernel a launch at S = num_s runs (needs the card)."""
+    return st._resources(_library().imba_khit_resources, int(work), num_s)
 
 
 def khit(rays, sbox, tiles):

@@ -9,6 +9,9 @@ Replaces the TPU kernels
   imbatracer_tpu/ops/pallas_vmem.py::_make_vmem_kernel
 which compute one function over the same `(sbox, tiles)` packing, and so
 does `csrc/stream_traverse.cu` (its header note says what bounds it).
+Each launch builds its blocks' candidate lists on the card
+(csrc/traverse_common.cuh block_candidates); `superchunk_candidates` is
+that stage's plain version, and `block_candidates` runs the stage alone.
 
 Layouts (shared with the JAX package):
   rays  : (R, 8) f32 rows [ox oy oz tmin dx dy dz tmax], R % BLK == 0,
@@ -56,21 +59,34 @@ TILE_ROWS = 24
 BIG = 1e30
 # Super-chunk boxes slab-tested at once when building candidate lists.
 CAND_GROUP = 32
+# The most super-chunks a CUDA block's candidate list holds in shared
+# memory (csrc/traverse_common.cuh kMaxSuper), and the bytes of a block's
+# other staging buffers (kTailBytes: two candidate buffers of 1,632 bytes,
+# two feature batches of 8 chunks x 17 rows x 16 floats).
+MAX_SUPER = 16384
+_SMEM_TAIL = 2 * 1632 + 2 * 8 * 17 * 16 * 4
 
 _CBOX_ROWS = (6, 7, 14, 15, 22, 23)
 # Feature rows read by the Möller-Trumbore test, in the order _mt uses.
 _FEAT_ROWS = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12, 13, 16, 17, 18, 19, 20, 21)
 
 # Launch counts: one per kernel launch on the CUDA route, one per call of
-# the plain version on the CPU route.  chip_smoke.py reads them to show
-# the main path ran through the kernel.
+# the plain version on the CPU route ("candidates": the candidate stage
+# launched alone; "candidates_plain": superchunk_candidates).
+# chip_smoke.py reads them to show the main path ran through the kernel.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_hit_instanced": 0,
-            "any_hit_instanced": 0, "plain": 0}
+            "any_hit_instanced": 0, "candidates": 0, "plain": 0,
+            "candidates_plain": 0}
+PLAIN_KEYS = ("plain", "candidates_plain")
 
-# Counter slots of a counting launch (csrc/traverse_common.cuh): slab
-# tests, then Moller-Trumbore tests by the stage they ended at.
+# Counter slots of a counting launch (csrc/traverse_common.cuh): the
+# walk's slab tests (super-chunk and non-padding chunk boxes), the
+# first-pass Moller-Trumbore tests by the stage they ended at, the
+# candidate stage's slab tests (group and super-chunk boxes), and the
+# walk's second looks (chunk boxes against a thread's current bound, the
+# re-run of a slot that hit in the first pass).
 WORK_SLOTS = ("slab", "mt_empty", "mt_det", "mt_t", "mt_u", "mt_v",
-              "mt_hit")
+              "mt_hit", "cand_slab", "retest")
 
 
 def reset_launches():
@@ -198,7 +214,9 @@ def superchunk_candidates(rays, sbox, blk: int = BLK):
     ordered by the block-min entry t, which skey carries (BIG past the
     count).  Slab tests run in groups of CAND_GROUP super-chunks to bound
     the (R, CAND_GROUP, 3) intermediates (the reductions are exact, so
-    the group size does not change the lists)."""
+    the group size does not change the lists).  This is the plain
+    version of the CUDA kernels' candidate stage."""
+    LAUNCHES["candidates_plain"] += 1
     num_b = rays.shape[0] // blk
     o, tmin, tmax = rays[:, None, 0:3], rays[:, 3, None], rays[:, 7, None]
     inv = _safe_inv(rays[:, None, 4:7])
@@ -416,8 +434,15 @@ def _library():
         lib = ctypes.CDLL(LIB.build())
         fn = lib.imba_stream_traverse
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p] * 2
+        fn = lib.imba_block_candidates
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn = lib.imba_stream_resources
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -432,21 +457,47 @@ def _check(name, x, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def block_smem_bytes(num_s: int) -> int:
+    """Dynamic shared memory of a stream or khit block at S = num_s
+    (csrc/traverse_common.cuh block_smem_bytes): the sorted candidate list,
+    8 bytes an entry over a power of two >= max(S, 2), and the staging
+    buffers."""
+    return 8 * (1 << (max(num_s, 2) - 1).bit_length()) + _SMEM_TAIL
+
+
+def check_capacity(num_s: int):
+    """Raise before a launch whose candidate lists cannot fit a block's
+    shared memory beside its staging buffers."""
+    if num_s > MAX_SUPER:
+        raise ValueError(
+            f"sbox: {num_s} super-chunks exceed the cap of {MAX_SUPER} that "
+            f"a CUDA block's candidate list in shared memory holds "
+            f"({block_smem_bytes(MAX_SUPER)} bytes of the 232,448 a block "
+            f"may use)")
+    if num_s < 1:
+        raise ValueError("sbox: the BVH has no super-chunk")
+
+
 def check_inputs(rays, sbox, tiles, inst=None):
-    """Validate the (rays, sbox, tiles[, inst]) a CUDA kernel reads.  On a
-    flat BVH tiles has one row per super-chunk; with `inst` any number,
-    and tile_idx / inst_of hold one int32 per super-chunk and itab 16
-    floats per instance (their values are checked when the BVH is built,
-    accel/device.py)."""
+    """Validate the (rays, sbox, tiles[, inst]) a CUDA kernel reads (tiles
+    None: the candidate stage alone).  On a flat BVH tiles has one row per
+    super-chunk; with `inst` any number, and tile_idx / inst_of hold one
+    int32 per super-chunk and itab 16 floats per instance (their values
+    are checked when the BVH is built, accel/device.py).  The kernels copy
+    sbox, tile and itab rows 16 bytes at a time, so those tensors must
+    start on a 16-byte boundary."""
     num_r, num_s = rays.shape[0], sbox.shape[0]
     _check("rays", rays, torch.float32, (num_r, 8))
     _check("sbox", sbox, torch.float32, (num_s, 8))
-    num_t = num_s if inst is None else tiles.shape[0]
-    _check("tiles", tiles, torch.float32, (num_t, TILE_ROWS, TRI_ROWS))
+    check_capacity(num_s)
+    named = [("rays", rays), ("sbox", sbox)]
+    if tiles is not None:
+        num_t = num_s if inst is None else tiles.shape[0]
+        _check("tiles", tiles, torch.float32, (num_t, TILE_ROWS, TRI_ROWS))
+        named.append(("tiles", tiles))
     if num_r % BLK:
         raise ValueError(f"rays: row count {num_r} is not a multiple of "
                          f"{BLK}")
-    named = [("rays", rays), ("sbox", sbox), ("tiles", tiles)]
     if inst is not None:
         tile_idx, inst_of, itab = inst
         _check("tile_idx", tile_idx, torch.int32, (num_s,))
@@ -457,6 +508,8 @@ def check_inputs(rays, sbox, tiles, inst=None):
     for name, x in named:
         if x.device.type != "cuda" or x.device != rays.device:
             raise ValueError(f"{name}: must be on the rays' CUDA device")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: must start on a 16-byte boundary")
     return num_r, num_s
 
 
@@ -484,30 +537,89 @@ def work_ptr(work, device):
     return work.data_ptr()
 
 
-def traverse_cuda(rays, sbox, tiles, occl: bool, lists=None, work=None,
-                  inst=None):
-    """Launch the CUDA kernel on CUDA tensors (raises on anything else).
+def traverse_cuda(rays, sbox, tiles, occl: bool, work=None, inst=None):
+    """Launch the CUDA kernel on CUDA tensors (raises on anything else):
+    one launch, which builds each block's candidate list and walks it.
 
-    `lists` is superchunk_candidates(rays, sbox), computed here unless
-    given.  With `work`, a zeroed (len(WORK_SLOTS),) int64 tensor, the
-    counting instantiation runs instead and adds its tallies to it.
-    `inst` selects the two-level instanced variant."""
+    With `work`, a zeroed (len(WORK_SLOTS),) int64 tensor, the counting
+    instantiation runs instead and adds its tallies to it.  `inst` selects
+    the two-level instanced variant."""
     num_r, num_s = check_inputs(rays, sbox, tiles, inst)
     lib = _library()
-    if lists is None:
-        lists = superchunk_candidates(rays, sbox)
-    slist, skey, scount = lists
     out = torch.empty((num_r, 8), dtype=torch.float32, device=rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.imba_stream_traverse(
-        rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), slist.data_ptr(),
-        skey.data_ptr(), scount.data_ptr(), *inst_ptrs(inst), out.data_ptr(),
-        num_r, num_s, BLK, int(occl), work_ptr(work, rays.device), stream)
+        rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), *inst_ptrs(inst),
+        out.data_ptr(), num_r, num_s, int(occl), work_ptr(work, rays.device),
+        stream)
     if err != 0:
         raise RuntimeError(f"stream_traverse kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES[launch_key(occl, inst)] += 1
     return out
+
+
+def candidates_cuda(rays, sbox):
+    """The kernels' candidate stage launched alone on CUDA tensors:
+    (slist (B, S) i32, skey (B, S) f32, scount (B,) i32) as
+    superchunk_candidates returns them for BLK = 128.  Entries past a
+    block's count are slist -1 and skey BIG (superchunk_candidates' skey
+    is BIG there too; its slist holds the other super-chunks)."""
+    num_r, num_s = check_inputs(rays, sbox, None)
+    lib = _library()
+    num_b = num_r // BLK
+    dev = rays.device
+    slist = torch.full((num_b, num_s), -1, dtype=torch.int32, device=dev)
+    skey = torch.full((num_b, num_s), BIG, dtype=torch.float32, device=dev)
+    scount = torch.empty((num_b,), dtype=torch.int32, device=dev)
+    err = lib.imba_block_candidates(
+        rays.data_ptr(), sbox.data_ptr(), slist.data_ptr(), skey.data_ptr(),
+        scount.data_ptr(), num_r, num_s,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_candidates kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["candidates"] += 1
+    return slist, skey, scount
+
+
+def candidate_mismatches(got, ref):
+    """(count, list, key) mismatches of candidate lists `got` against
+    `ref`, each (slist, skey, scount) on one device: the blocks whose
+    counts differ, and the list entries and keys (compared as bits, a -0
+    key as +0) that differ up to each block's count."""
+    (gl, gk, gc), (rl, rk, rc) = got, ref
+    n = torch.minimum(gc, rc).long()
+    upto = torch.arange(gl.shape[1], device=gl.device)[None, :] < n[:, None]
+    gbits, rbits = ((k + 0.0).view(torch.int32) for k in (gk, rk))
+    return (int((gc != rc).sum()), int(((gl != rl) & upto).sum()),
+            int(((gbits != rbits) & upto).sum()))
+
+
+def block_candidates(rays, sbox):
+    """Per-block candidate lists: the kernels' stage on CUDA tensors, its
+    plain version (superchunk_candidates) on CPU tensors."""
+    if rays.device.type == "cuda":
+        return candidates_cuda(rays, sbox)
+    if rays.device.type == "cpu":
+        return superchunk_candidates(rays, sbox)
+    raise ValueError(f"unsupported device {rays.device}")
+
+
+def resources(occl: bool, inst: bool, num_s: int, work: bool = False):
+    """Registers, shared memory, spills and resident blocks an SM of the
+    stream kernel a launch at S = num_s runs (needs the card)."""
+    return _resources(_library().imba_stream_resources, int(occl),
+                      int(inst), int(work), num_s)
+
+
+def _resources(fn, *args):
+    out = (ctypes.c_int * 5)()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"kernel resource query failed: CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes", "blocks_per_sm"), out))
 
 
 def traverse(rays, sbox, tiles, occl: bool, inst=None):

@@ -12,9 +12,11 @@ Tolerances: the kernels are built with --fmad=false and round every
 product and sum in the plain version's order, so t/u/v are expected bit
 for bit; the tests allow 1e-5 relative.  Ids are equal except where the
 two hits have bit-equal t; any-hit flags may differ on 1 ray in 4096.
-The k-nearest t vectors must be equal.  Merge sums agree within 1e-4
-relative (only powf and torch.pow round differently), with equal counted
-work.
+The k-nearest t vectors must be equal.  The kernels' candidate stage
+must equal superchunk_candidates exactly: counts, and lists and keys up
+to each block's count bit for bit (a key of -0 counts as +0).  Merge sums
+agree within 1e-4 relative (only powf and torch.pow round differently),
+with equal counted work.
 """
 
 from functools import partial
@@ -131,31 +133,146 @@ def test_cuda_khit_matches_plain(cuda_device, bounded):
 @pytest.mark.parametrize("kind", ["closest", "any", "khit"])
 def test_cuda_counting_launch(cuda_device, kind):
     """The counting instantiation returns the kernel's rows, and its
-    tallies are consistent: every entered chunk tests its 16 slots (a
-    closest or khit walk), and the walk tests no more triangles than the
-    plain version's walk without early exit enters."""
+    tallies follow the count rule: the candidate stage tests each group
+    box of 8 super-chunks once per ray (inactive lanes included) and the
+    boxes of a group whose box a lane of the ray's warp enters; the walk's
+    slab tests are super-chunk boxes and non-padding chunk boxes only,
+    every chunk a thread enters is re-tested against its current bound
+    before its triangles, and each one entered tests its 16 slots (a
+    closest or khit walk); the walk tests no more triangles than the
+    plain version's walk over the non-padding chunks without early exit
+    enters."""
     scene, _ = make_leaf_scene(300, seed=2, device="cpu")
     rays = _rays(4096, 11, scene, kind == "any")
     gpu = scene.to(cuda_device)
     rg, sbox, tiles = rays.to(cuda_device), gpu.bvh.sbox, gpu.bvh.tiles
     launch = (partial(kh.khit_cuda, rg, sbox, tiles) if kind == "khit" else
               partial(st.traverse_cuda, rg, sbox, tiles, kind == "any"))
-    lists = st.superchunk_candidates(rg, sbox)
     work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
                        device=cuda_device)
-    assert torch.equal(launch(lists=lists, work=work), launch(lists=lists))
+    assert torch.equal(launch(work=work), launch())
     w = dict(zip(st.WORK_SLOTS, work.cpu().tolist()))
-    mt = sum(w[k] for k in st.WORK_SLOTS[1:])
+    mt = sum(w[k] for k in st.WORK_SLOTS[1:7])
+    num_s = scene.bvh.sbox.shape[0]
+    groups = -(-num_s // 8)
+    assert (rays.shape[0] * groups <= w["cand_slab"]
+            <= rays.shape[0] * (groups + num_s))
     cbox = st.cbox_rows(scene.bvh.tiles)
+    padding = cbox[..., 0] > cbox[..., 3]                    # (S, 64)
     live = (rays[:, 7] >= 0.0).nonzero(as_tuple=True)[0]
-    plain_mt = st.CHUNK * sum(
-        int(rr.shape[0])
-        for r1, s1 in st._ray_superchunks(live, rays, scene.bvh.sbox)
-        for rr, _, _ in st._pair_triangles(r1, s1, rays, cbox, None))
-    assert w["mt_hit"] > 100 and w["slab"] > 0
+    plain_mt = 0
+    pairs = 0
+    for r1, s1 in st._ray_superchunks(live, rays, scene.bvh.sbox):
+        pairs += int(r1.shape[0])
+        for rr, ss, slot in st._pair_triangles(r1, s1, rays, cbox, None):
+            keep = ~padding[ss, slot[:, 0] // st.CHUNK]
+            plain_mt += st.CHUNK * int(keep.sum())
+    # At most one super-chunk test per live ray and list entry, and the
+    # non-padding chunks of each (ray, super-chunk) pair the plain walk
+    # visits.
+    chunks = int((~padding).sum(dim=1).max())
+    assert 0 < w["slab"] <= live.shape[0] * num_s + pairs * chunks
+    assert w["mt_hit"] > 100 and w["retest"] > 0
     assert 0 < mt <= plain_mt
     if kind != "any":
         assert mt % st.CHUNK == 0
+        assert w["retest"] >= mt // st.CHUNK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["big", "instanced", "inactive", "wide"])
+def test_cuda_candidate_stage_matches_plain(cuda_device, instanced_scene,
+                                            case):
+    """The kernels' candidate stage (launched alone) against its plain
+    version: counts, lists and keys.  `inactive`: every lane of the first
+    blocks has tmax = -1; `wide`: 4,000 random boxes, whose list needs
+    more than 48 KB of shared memory."""
+    if case == "instanced":
+        sbox = instanced_scene.bvh.sbox
+        rays = _inst_rays(4096, 8, False)
+    elif case == "wide":
+        rs = np.random.RandomState(4)
+        lo = rs.uniform(-30, 30, (4000, 3)).astype(np.float32)
+        hi = lo + rs.uniform(0.1, 4.0, (4000, 3)).astype(np.float32)
+        sbox = torch.from_numpy(np.concatenate(
+            [lo, hi, np.zeros((4000, 2), np.float32)], 1))
+        assert st.block_smem_bytes(4000) > 48 * 1024
+        scene, _ = make_big_scene(110, seed=9, device="cpu")
+        rays = _rays(4096, 8, scene, True)
+    else:
+        scene, _ = make_big_scene(700, seed=9, device="cpu")
+        sbox = scene.bvh.sbox
+        rays = _rays(4096, 8, scene, True)
+        if case == "inactive":
+            rays[:512, 7] = -1.0
+    rg, sg = rays.to(cuda_device), sbox.to(cuda_device)
+    before = st.LAUNCHES["candidates"]
+    got = st.block_candidates(rg, sg)
+    assert st.LAUNCHES["candidates"] == before + 1
+    ref = st.superchunk_candidates(rays, sbox)
+    assert st.candidate_mismatches(tuple(x.cpu() for x in got), ref) == \
+        (0, 0, 0)
+    assert int(ref[2].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["closest", "short", "any", "khit"])
+def test_cuda_staging_batches_and_early_exit(cuda_device, kind):
+    """Kernel against plain on unsorted rays through make_big_scene(700),
+    whose 128-ray blocks enter more chunks of one super-chunk than
+    several staging batches hold; `short` and `any` rays stop early
+    (tmax of 0.5-12, any hit at the first hit)."""
+    scene, _ = make_big_scene(700, seed=9, device="cpu")
+    rays = _rays(4096, 13, scene, kind in ("short", "any"))
+    sbox, tiles = scene.bvh.sbox, scene.bvh.tiles
+    # The union of entered chunks per (block, super-chunk).
+    cbox = st.cbox_rows(tiles)
+    tn, tf = st._slab(cbox[None, :, :, 0:3], cbox[None, :, :, 3:6],
+                      rays[:, None, None, 0:3],
+                      st._safe_inv(rays[:, None, None, 4:7]))
+    enter = ((tn <= tf) & (tf >= rays[:, 3, None, None])
+             & (tn <= rays[:, 7, None, None]) & (rays[:, 7, None, None] >= 0)
+             & ~(cbox[None, ..., 0] > cbox[None, ..., 3]))
+    union = enter.view(-1, st.BLK, *enter.shape[1:]).any(dim=1).sum(dim=-1)
+    assert int(union.max()) > 2 * 8                     # three batches
+    gpu = scene.to(cuda_device)
+    rg = rays.to(cuda_device)
+    if kind == "khit":
+        k = kh.khit_cuda(rg, gpu.bvh.sbox, gpu.bvh.tiles).cpu()
+        p = kh.khit_plain(rays, sbox, tiles)
+        assert torch.equal(k[:, 0::8], p[:, 0::8])
+        return
+    occl = kind == "any"
+    k = st.traverse_cuda(rg, gpu.bvh.sbox, gpu.bvh.tiles, occl)
+    _hold_rows(k, st.traverse_plain(rays, sbox, tiles, occl), occl)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_list_launches(cuda_device):
+    """A traversal launch whose candidate list needs more than 48 KB of
+    shared memory (S = 4,000 boxes over tiles of padding only): every ray
+    misses, and no chunk is entered."""
+    rs = np.random.RandomState(6)
+    num_s = 4000
+    lo = torch.from_numpy(rs.uniform(-30, 30, (num_s, 3)).astype(np.float32))
+    sbox = torch.cat([lo, lo + 2.0, torch.zeros(num_s, 2)], 1)
+    tiles = torch.zeros((num_s, st.TILE_ROWS, st.TRI_ROWS))
+    tiles[:, 4, :] = -1.0
+    for r, v in zip((6, 7, 14, 15, 22, 23), (1e30,) * 3 + (-1e30,) * 3):
+        tiles[:, r, :st.SUPER] = v
+    scene, _ = make_big_scene(110, seed=9, device="cpu")
+    rays = _rays(4096, 2, scene, False).to(cuda_device)
+    work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                       device=cuda_device)
+    out = st.traverse_cuda(rays, sbox.to(cuda_device), tiles.to(cuda_device),
+                           False, work=work).cpu()
+    assert bool((out[:, 3] == -1.0).all())
+    assert torch.equal(out[:, 0], rays[:, 7].cpu())
+    w = dict(zip(st.WORK_SLOTS, work.cpu().tolist()))
+    assert st.resources(False, False, num_s)["dynamic_smem"] == \
+        st.block_smem_bytes(num_s)
+    assert w["cand_slab"] >= rays.shape[0] * (num_s // 8)
+    assert w["slab"] > 0 and w["retest"] == 0 and w["mt_empty"] == 0
 
 
 @pytest.mark.cuda
@@ -331,12 +448,11 @@ def test_cuda_instanced_kernel_matches_plain(cuda_device, instanced_scene,
     work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
                        device=cuda_device)
     rg = rays.to(cuda_device)
-    lists = st.superchunk_candidates(rg, gpu.bvh.sbox)
     args = (rg, gpu.bvh.sbox, gpu.bvh.tiles, occl)
     assert torch.equal(
-        st.traverse_cuda(*args, lists=lists, work=work, inst=gpu.bvh.inst),
-        st.traverse_cuda(*args, lists=lists, inst=gpu.bvh.inst))
-    assert int(work[-1]) > 0
+        st.traverse_cuda(*args, work=work, inst=gpu.bvh.inst),
+        st.traverse_cuda(*args, inst=gpu.bvh.inst))
+    assert int(work[st.WORK_SLOTS.index("mt_hit")]) > 0
     with pytest.raises(ValueError):                       # tiles rows != S
         st.traverse_cuda(rg, gpu.bvh.sbox, gpu.bvh.tiles, occl)
 

@@ -152,16 +152,47 @@ def test_sorted_dispatch_is_exact(big):
     assert torch.equal(o0, o1)
 
 
-def test_candidates_and_sort_keys_match_jax(big):
-    org, d, act, tmax = _rays(1024, 6, (-30, 1, -30), (30, 10, 30))
-    org = org - big.bvh.center.numpy()
+@pytest.fixture(scope="module")
+def instanced(tmp_path_factory):
+    """The generated instanced scene's two-level BVH: world-space
+    super-chunk boxes of overlapping instances, origins not recentred."""
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import write_instanced_scene
+
+    path = write_instanced_scene(str(tmp_path_factory.mktemp("cand")))
+    scene, _ = build_scene(path, quiet=True, device="cpu")
+    assert scene.bvh.two_level and scene.bvh.sbox.shape[0] > 1
+    return scene
+
+
+@pytest.mark.parametrize("case", ["flat", "instanced", "inactive_block"])
+def test_candidates_and_sort_keys_match_jax(big, instanced, case):
+    """superchunk_candidates (the plain version of the CUDA kernels'
+    candidate stage) against the JAX package's lists: on a flat BVH, on
+    the world boxes of a two-level BVH, and with a whole ray block
+    inactive (tmax = -1 on every lane, which still lists the boxes that
+    contain a lane's origin, as JAX does)."""
+    if case == "instanced":
+        scene = instanced
+        org, d, act, tmax = _rays(1024, 6, (-8, 0, -8), (8, 4, 8))
+    else:
+        scene = big
+        org, d, act, tmax = _rays(1024, 6, (-30, 1, -30), (30, 10, 30))
+    if case == "inactive_block":
+        act[:ps.BLK] = False
+    org = org - scene.bvh.center.numpy()
     rays, _ = st.rays8(torch.from_numpy(org), torch.from_numpy(d), 0.0,
                        torch.from_numpy(tmax), torch.from_numpy(act))
     jr, _ = ps._rays8t(jnp.asarray(org), jnp.asarray(d), 0.0,
                        jnp.asarray(tmax), jnp.asarray(act))
     np.testing.assert_array_equal(rays.numpy(), np.asarray(jr).T)
-    sbox = big.bvh.sbox
+    sbox = scene.bvh.sbox
+    before = st.LAUNCHES["candidates_plain"]
     slist, skey, scount = st.superchunk_candidates(rays, sbox, blk=ps.BLK)
+    assert st.LAUNCHES["candidates_plain"] == before + 1
+    assert int(scount.sum()) > 0
+    if case == "inactive_block":
+        assert bool((rays[:ps.BLK, 7] < 0.0).all())
     jl, jk, jc = ps.superchunk_candidates(jr, jnp.asarray(sbox.numpy()))
     np.testing.assert_array_equal(scount.numpy(), np.asarray(jc)[:, 0, 0])
     np.testing.assert_array_equal(skey.numpy(), np.asarray(jk)[:, 0])
@@ -175,6 +206,49 @@ def test_candidates_and_sort_keys_match_jax(big):
     jkey = ps.sort_keys(jnp.asarray(org), jnp.asarray(d), jnp.asarray(act),
                         jlo, jhi)
     np.testing.assert_array_equal(key.numpy(), np.asarray(jkey))
+    # On the CPU the stage's dispatch is the plain version, and the
+    # comparison the CUDA tests and chip_smoke.py hold the card's stage
+    # with counts each kind of difference.
+    before = st.LAUNCHES["candidates_plain"]
+    sl, sk, sc = st.block_candidates(rays, sbox)
+    assert st.LAUNCHES["candidates_plain"] == before + 1
+    assert st.candidate_mismatches((sl, sk, sc), (sl, sk, sc)) == (0, 0, 0)
+    b = int(sc.argmax())
+    worse = sk.clone()
+    worse[b, 0] = -0.0 if worse[b, 0] == 0.0 else worse[b, 0] * 2.0
+    swapped = sl.clone()
+    swapped[b, 0] = -1
+    fewer = sc.clone()
+    fewer[b] -= 1
+    assert st.candidate_mismatches((sl, worse, sc), (sl, sk, sc)) == (
+        (0, 0, 0) if float(sk[b, 0]) == 0.0 else (0, 0, 1))
+    assert st.candidate_mismatches((swapped, sk, sc),
+                                   (sl, sk, sc)) == (0, 1, 0)
+    assert st.candidate_mismatches((sl, sk, fewer), (sl, sk, sc)) == (1, 0, 0)
+
+
+@pytest.mark.parametrize("wrapper", ["stream", "khit", "candidates"])
+def test_candidate_capacity_check_raises_with_the_cap(wrapper):
+    """A CUDA wrapper raises before its launch when the block's candidate
+    list cannot hold S super-chunks in shared memory; the message names
+    the cap.  Checked with CPU tensors: the capacity check comes before
+    the device check."""
+    from imbatracer_torch.ops import khit as kh
+
+    num_s = st.MAX_SUPER + 1
+    rays = torch.zeros((st.BLK, 8))
+    sbox = torch.zeros((num_s, 8))
+    tiles = torch.zeros((num_s, st.TILE_ROWS, st.TRI_ROWS))
+    call = {"stream": lambda: st.traverse_cuda(rays, sbox, tiles, False),
+            "khit": lambda: kh.khit_cuda(rays, sbox, tiles),
+            "candidates": lambda: st.candidates_cuda(rays, sbox)}[wrapper]
+    with pytest.raises(ValueError, match=f"cap of {st.MAX_SUPER}"):
+        call()
+    st.check_capacity(st.MAX_SUPER)
+    assert st.block_smem_bytes(st.MAX_SUPER) <= 232448
+    assert st.block_smem_bytes(2 * st.MAX_SUPER) > 232448
+    assert st.block_smem_bytes(140) == 8 * 256 + st.block_smem_bytes(1) - 16
+    assert st.block_smem_bytes(1) == st.block_smem_bytes(2)
 
 
 def test_unported_routes_raise(big):
@@ -190,7 +264,8 @@ def test_unported_routes_raise(big):
 def test_work_slots_match_kernel_header():
     """The counting launch's slots (stream_traverse.WORK_SLOTS) are those
     of csrc/traverse_common.cuh: slab tests, then one per Moller-Trumbore
-    stage, in the header's enum order; chip_smoke.py costs each stage."""
+    stage, in the header's enum order, then the candidate stage's slab
+    tests and the chunk re-tests; chip_smoke.py costs each stage."""
     import os
     import re
 
@@ -202,7 +277,15 @@ def test_work_slots_match_kernel_header():
     stages = re.search(r"enum MtStage \{([^}]*)\}", src).group(1)
     stages = [s.strip() for s in stages.split(",")]
     assert stages[-1] == "kStages"
-    assert len(st.WORK_SLOTS) == 1 + len(stages) - 1
-    assert [s[3:] for s in st.WORK_SLOTS[1:]] == [s[1:].lower()
-                                                  for s in stages[:-1]]
-    assert len(chip_smoke.MT_STAGE_OPS) == len(stages) - 1
+    num_mt = len(stages) - 1
+    assert len(st.WORK_SLOTS) == 1 + num_mt + 2
+    assert [s[3:] for s in st.WORK_SLOTS[1:1 + num_mt]] == [
+        s[1:].lower() for s in stages[:-1]]
+    assert "kCandSlot = 1 + kStages;" in src
+    assert "kRetestSlot = kCandSlot + 1;" in src
+    assert "kWorkSlots = kRetestSlot + 1;" in src
+    assert st.WORK_SLOTS[1 + num_mt:] == ("cand_slab", "retest")
+    assert len(chip_smoke.MT_STAGE_OPS) == num_mt
+    # The wrapper's cap and shared-memory sizes mirror the header's.
+    assert f"kMaxSuper = {st.MAX_SUPER};" in src
+    assert f"kBlk = {st.BLK};" in src
