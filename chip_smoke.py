@@ -7,7 +7,8 @@ failure raises and the script exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile csrc/stream_traverse.cu, csrc/khit_traverse.cu,
-   csrc/merge_kernel.cu and csrc/pairs_kernel.cu with nvcc and
+   csrc/merge_kernel.cu and csrc/pairs_kernel.cu (the pair route's
+   candidates, queue, pair and resolve kernels) with nvcc and
    csrc/bvh_builder.cpp with g++, all at once, into
    build/imbatracer_torch/; print each kernel entry's ptxas register,
    static shared-memory and spill lines.
@@ -31,7 +32,12 @@ failure raises and the script exits non-zero:
    (superchunk_candidates) on big_4000, the still life and (phase 8a) the
    instanced scene, camera and bounce rays, closest- and any-hit bounds:
    counts, lists and keys up to each count must be equal bit for bit (a
-   -0 key counts as +0), with 0 mismatches.
+   -0 key counts as +0), with 0 mismatches.  `[cap]` lines: card_grid's
+   17,161 super-chunks, above the 16,384 a block's shared-memory list
+   holds, so each launch is a list launch into a global buffer and the
+   walk: the flat stream kernel (closest and any hit), the instanced one
+   and khit, CAP_RAYS rays each, against their plain versions (the
+   tolerances below), timed.
 4. khit kernel vs plain: the same two ray sets, closest-hit bounds
    (tmin 1e-3, tmax 1e30), on make_leaf_scene(6000), make_still_life_like()
    (S=140) and the cornell (S=1).  The K=4 t vectors must agree to
@@ -76,9 +82,12 @@ failure raises and the script exits non-zero:
    the photons, and on random queries with
    kinds (0, 3, 4, 5), ppm both ways: per-query sums within 1e-4
    relative (of max(|plain|, 1e-6 max|plain|)), the counting launch's
-   tallies equal to the plain version's; the kernel timed alone (queries
-   prepared beforehand) and in merge_contrib, the plain version over 2
-   calls.  (c) bpt, ppm and vcm_pt on the still life at 480x270,
+   tallies equal to the plain version's; on the recorded queries also the
+   query preparation kernels against prepare_queries (rows and
+   permutation bit for bit); the kernel timed alone (queries prepared
+   beforehand), in merge_contrib (printed beside the same function with
+   torch glue, TORCH_GLUE_MS) and the preparation alone, the plain
+   versions over 2-3 calls.  (c) bpt, ppm and vcm_pt on the still life at 480x270,
    max_len 8, 2 frames each: finite, non-zero, mean within 5% of PT's.
    lt there too (finite, non-zero, reported); light tracing cannot see
    emitters directly nor through mirrors and glass, so it is held, over
@@ -92,12 +101,17 @@ failure raises and the script exits non-zero:
    meshes, ~1,400 super-chunks, area panels and an RLE HDR sky, every MTL
    path).  (a) The instanced stream kernel against its plain version on
    the two ray sets of phase 3 (same tolerances), timed and counted; the
-   pair kernel, flat (make_big_scene(4000), S = 68) and instanced, closest
-   and any hit, against its plain version on one queue and, as a route
-   with its saturation fallback, against the stream kernel (exact; the
-   number of rays the fallback re-traced is printed, and must be positive
-   on the instanced scene), timed alone, in its
-   route and plain, and counted.  (b) The main path: `python -m
+   pair route, flat (make_big_scene(4000), S = 68) and instanced, closest
+   and any hit, on the card: `[pcand]` lines, the candidates kernel
+   against ray_candidates (0 mismatches); the card's queue against
+   build_queue and segment_table; the pair kernel against its plain
+   version on that queue; the resolve kernel against resolve; and the
+   route with its saturation fallback against the stream kernel (exact;
+   the number of rays the fallback re-traced is printed, and must be
+   positive on the instanced scene); timed alone, as a route (printed
+   beside the route with torch glue and the stream kernel's launch) and
+   plain, and counted; the candidates, queue and resolve kernels timed at
+   the instanced scene's S.  (b) The main path: `python -m
    imbatracer_torch <scene> <out.png> -a vcm -w 1920 -h2 1080 -s 1` run
    in this process (the perf line and the PNG), then make_frame_fn +
    ProgressiveRenderer, vcm at 1920x1080 with the default light paths, a
@@ -107,8 +121,9 @@ failure raises and the script exits non-zero:
    film finite with its mean within 5% of PT's over the same frames; one
    traced frame.  (c) PT through the pair queue (the BVH's pairs switch
    on) on the instanced scene at 1920x1080 and on big_4000 at 1024^2,
-   the same frames as the stream route: the pair kernels must launch and
-   the images agree to PSNR_MIN.  (d) PT at 512^2 on the two-level and the
+   the same frames as the stream route, whose ms/frame is printed beside:
+   the pair route's kernels must launch and the images agree to
+   PSNR_MIN.  (d) PT at 512^2 on the two-level and the
    flattened build of the scene (the flattened one masked through khit):
    images within PSNR_MIN.
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
@@ -116,9 +131,10 @@ failure raises and the script exits non-zero:
    the larger of its bytes over 3.35 TB/s and the float32 instructions
    its counting launch tallied over 33.5e12/s, the candidate stage's slab
    tests included and padding chunks, which the kernels skip, not, see
-   bound(), pair_bound() and merge_bound()), the card's name and power
-   limit, and last the {"ok": true, "device": ...} line.  Every kernel
-   must have launched on a main path.
+   bound(), pair_bound(), pair_candidates_bound() and merge_bound();
+   `route_ms` on the pair and merge entries: the route, merge_contrib),
+   the card's name and power limit, and last the {"ok": true, "device":
+   ...} line.  Every kernel must have launched on a main path.
 """
 
 import contextlib
@@ -153,7 +169,23 @@ REPLACES = {
                    ":553)",
     "pairs": "imbatracer_tpu/ops/pallas_pairs.py:235 (_make_span_kernel, "
              "via _pairs_call :372)",
+    "pair_candidates": "imbatracer_tpu/ops/pallas_pairs.py:98 (ray_candidates"
+                       ", around pallas_call :397)",
+    "pair_queue": "imbatracer_tpu/ops/pallas_pairs.py:200 (build_queue, "
+                  "around pallas_call :397)",
+    "pair_resolve": "imbatracer_tpu/ops/pallas_pairs.py:421 (_resolve_closest"
+                    " and the fallback test, around pallas_call :397)",
+    "merge_prep": "imbatracer_tpu/ops/pallas_merge.py:497 (merge_contrib's "
+                  "query preparation, around pallas_call :469)",
 }
+# The same functions when their glue was torch ops (the route's candidates,
+# queue and resolve; merge_contrib's query preparation and un-permutation),
+# measured by this script on an NVIDIA H100 80GB HBM3 at 700 W on the same
+# inputs: the route on 262,144 sorted bounce rays, merge_contrib on the
+# still life's busiest band.
+TORCH_GLUE_MS = {("big_4000", "closest"): 13.940, ("big_4000", "any"): 14.713,
+                 ("instanced", "closest"): 65.831,
+                 ("instanced", "any"): 74.949, "merge_contrib": 3.605}
 VCM_LPC = 1 << 20             # light paths a frame: BASELINE's 1M photons/iter
 VCM_FRAMES = 2
 FAMILY_SIZE = (480, 270)
@@ -192,6 +224,88 @@ MERGE_STAGE_OPS = (9, 24, 16, 16 + 77, 16 + 15, 16 + 36, 22)
 
 
 _START = time.time()
+
+# Phase 3's `[cap]` line: a grid of CAP_SIDE^2 = 17,161 cards, one
+# super-chunk each, above the 16,384 a block's shared-memory list holds.
+CAP_SIDE = 131
+CAP_RAYS = 1 << 14
+
+
+def card_grid(side=CAP_SIDE):
+    """(mesh, instances) for accel/instancing.build_two_level: side^2
+    instances of one 2-triangle card (a 0.8-wide square in the xz plane)
+    on a unit grid, each turned about y and lifted a little.  Each
+    instance is one super-chunk."""
+    from imbatracer_torch.core.math3d import instance_matrix
+
+    v0 = np.asarray([[-0.4, 0, -0.4], [-0.4, 0, -0.4]], np.float32)
+    v1 = np.asarray([[0.4, 0, -0.4], [0.4, 0, 0.4]], np.float32)
+    v2 = np.asarray([[0.4, 0, 0.4], [-0.4, 0, 0.4]], np.float32)
+    insts = []
+    for i in range(side):
+        for j in range(side):
+            insts.append(dict(mesh_idx=0, face_base=2 * len(insts),
+                              matrix=instance_matrix(
+                                  (i - side / 2, 0.1 * ((7 * i + 3 * j) % 5),
+                                   j - side / 2), (1.0, 1.0, 1.0),
+                                  (0.0, float((13 * i + 7 * j) % 90), 0.0))))
+    return (v0, v1, v2), insts
+
+
+def wide_flat_bvh(mesh, insts, device):
+    """(sbox (S, 8), tiles (S, 24, 1024)) of a flat BVH with one
+    super-chunk per instance of `card_grid`: its two triangles in world
+    space in slots 0-1 of chunk 0, the other 63 chunks padding (inverted
+    boxes, id -1); the layout of stream_traverse.pack_stream_tiles, not
+    recentred.  Built on `device` (1.7 GB at CAP_SIDE)."""
+    m = np.stack([np.asarray(x["matrix"], np.float64) for x in insts])
+    world = [torch.as_tensor(
+        (np.einsum("sij,vj->svi", m[:, :3, :3], a.astype(np.float64))
+         + m[:, None, :3, 3]).astype(np.float32), device=device)
+        for a in mesh]                                     # (S, 2, 3) each
+    v0, e1, e2 = world[0], world[1] - world[0], world[2] - world[0]
+    num_s = v0.shape[0]
+    tiles = torch.zeros((num_s, 24, 1024), dtype=torch.float32,
+                        device=device)
+    cols = lambda x: x.permute(0, 2, 1)                    # (S, 3, 2)
+    n = torch.linalg.cross(e1, e2)
+    tiles[:, 0:3, :2] = cols(n)
+    tiles[:, 3, :2] = (v0 * n).sum(-1)
+    tiles[:, 4:6, :] = -1.0
+    tiles[:, 4, :2] = torch.arange(2 * num_s, device=device).view(
+        num_s, 2).to(torch.float32)
+    tiles[:, 8:11, :2] = cols(torch.linalg.cross(v0, e2))
+    tiles[:, 11:14, :2] = cols(e2)
+    tiles[:, 16:19, :2] = cols(torch.linalg.cross(e1, v0))
+    tiles[:, 19:22, :2] = cols(-e1)
+    lo = torch.minimum(torch.minimum(world[0], world[1]), world[2]).amin(1)
+    hi = torch.maximum(torch.maximum(world[0], world[1]), world[2]).amax(1)
+    for r, row in enumerate((6, 7, 14, 15, 22, 23)):
+        tiles[:, row, 1:64] = 1e30 if r < 3 else -1e30
+        tiles[:, row, 0] = (lo if r < 3 else hi)[:, r % 3]
+    sbox = torch.cat([lo, hi, torch.zeros((num_s, 2), device=device)], 1)
+    return sbox.contiguous(), tiles
+
+
+def card_grid_rays(num, seed, side=CAP_SIDE, bounded=False):
+    """(num, 8) ray rows from above `card_grid`'s cards, aimed down with a
+    tilt: each enters a few card boxes.  `bounded`: tmax 0.5-6 (any hit),
+    else 1e30."""
+    from imbatracer_torch.ops import stream_traverse as st
+
+    rs = np.random.RandomState(seed)
+    half = side / 2 - 1
+    org = np.stack([rs.uniform(-half, half, num), rs.uniform(1.0, 4.0, num),
+                    rs.uniform(-half, half, num)], 1)
+    d = np.stack([rs.uniform(-0.4, 0.4, num), -np.ones(num),
+                  rs.uniform(-0.4, 0.4, num)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rs.uniform(0.5, 6.0, num) if bounded else st.BIG
+    rays, _ = st.rays8(torch.as_tensor(org, dtype=torch.float32),
+                       torch.as_tensor(d, dtype=torch.float32), 1e-3,
+                       torch.as_tensor(tmax, dtype=torch.float32),
+                       torch.as_tensor(rs.rand(num) < 0.9))
+    return rays
 
 
 def log(msg):
@@ -251,17 +365,20 @@ def counters():
 
     got = {k: v for k, v in st.LAUNCHES.items() if k not in st.PLAIN_KEYS}
     got.update({f"pairs_{k}": v for k, v in pm.LAUNCHES.items()
-                if k != "plain"})
+                if k not in pm.PLAIN_KEYS})
     return dict(got, stream_plain=st.LAUNCHES["plain"],
                 candidates_plain=st.LAUNCHES["candidates_plain"],
                 khit=kh.LAUNCHES["khit"], khit_plain=kh.LAUNCHES["plain"],
-                merge=mg.LAUNCHES["merge"], merge_plain=mg.LAUNCHES["plain"],
-                pairs_plain=pm.LAUNCHES["plain"],
+                merge=mg.LAUNCHES["merge"], merge_prep=mg.LAUNCHES["prep"],
+                merge_plain=sum(mg.LAUNCHES[k] for k in mg.PLAIN_KEYS),
+                pairs_plain=sum(pm.LAUNCHES[k] for k in pm.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
                 fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS)
 
 
 def plain_runs(got):
+    """Calls of any plain version (stream, candidate stage, khit, the
+    merge and its preparation, every step of the pair route)."""
     return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
             + got["merge_plain"] + got["pairs_plain"])
 
@@ -435,6 +552,98 @@ def compare(scene, meta, label, dev, st, stats):
                     warm=inst is None)
 
 
+def hold_khit(k, p5, K):
+    """K-nearest kernel rows `k` against the plain version's K + 1 nearest
+    `p5`: (log text, max abs error of t/u/v, disagrees).  They agree when
+    the same hits are present, t within 1e-5 relative (0 expected), ids
+    equal except between hits of bit-equal t (two triangles at one t,
+    taken in either order, including a tie between the K-th hit and the
+    next one, which either version may keep), and u/v within 1e-5 where
+    the ids agree."""
+    p = p5[:, :8 * K]
+    kt, pt_ = k[:, 0::8], p[:, 0::8]
+    kid, pid = k[:, 3::8], p[:, 3::8]
+    present = pid >= 0
+    t5, present5 = p5[:, 0::8], p5[:, 3::8] >= 0
+    tie = torch.zeros_like(present)
+    for a in range(K):
+        for b in range(K + 1):
+            if a != b:
+                tie[:, a] |= (t5[:, a] == t5[:, b]) & present5[:, b]
+    bad_id = int((present & (kid != pid) & ~tie).sum())
+    terr = t_abs = uv_err = 0.0
+    if present.any():
+        terr = float(((kt - pt_).abs() / torch.clamp(pt_.abs(), min=1.0))
+                     [present].max())
+        t_abs = float((kt - pt_).abs()[present].max())
+    same = present & (kid == pid)
+    if same.any():
+        uv_err = max(float((k[:, f::8] - p[:, f::8]).abs()[same].max())
+                     for f in (1, 2))
+    per_slot = [int(present[:, s].sum()) for s in range(K)]
+    text = (f"hits per slot {per_slot} id_mismatch={bad_id} ties="
+            f"{int((present & (kid != pid)).sum())} max_rel_err(t)="
+            f"{terr:.3e} max_abs_err(u,v)={uv_err:.3e}")
+    bad = (not torch.equal(kid >= 0, present) or bad_id > 0 or terr > 1e-5
+           or uv_err > 1e-5)
+    return text, max(t_abs, uv_err), bad
+
+
+def compare_cap(dev, st, kh, card):
+    """Phase 3's `[cap]` lines: card_grid's 17,161 super-chunks, above the
+    16,384 a block's shared-memory list holds, so each launch is a list
+    launch into a global buffer and the walk: the flat stream kernel
+    (closest and any hit) and khit on one super-chunk a card, and the
+    instanced stream kernel on the two-level build, CAP_RAYS rays each,
+    against their plain versions run on the card's tensors."""
+    from imbatracer_torch.accel.device import DeviceBvh
+    from imbatracer_torch.accel.instancing import build_two_level
+
+    t0 = time.time()
+    mesh, insts = card_grid()
+    sbox, tiles = wide_flat_bvh(mesh, insts, dev)
+    tl = build_two_level([mesh], insts)
+    two = DeviceBvh.from_two_level(tl.sbox, tl.tiles, tl.tile_idx, tl.inst_of,
+                                   tl.itab, device=dev)
+    closest = card_grid_rays(CAP_RAYS, 3).to(dev)
+    anyr = card_grid_rays(CAP_RAYS, 3, bounded=True).to(dev)
+    num_s = sbox.shape[0]
+    scratch = st.list_scratch_bytes(CAP_RAYS, num_s)
+    log(f"[cap] S={num_s} (cap {st.MAX_SUPER}) built in "
+        f"{time.time() - t0:.1f} s: flat tiles "
+        f"{tiles.numel() * 4 / 2**20:.1f} MB; lists of {CAP_RAYS} rays in a "
+        f"global buffer of {scratch} B")
+    for what, rays, occl, inst in (
+            ("stream closest", closest, False, None),
+            ("stream any", anyr, True, None),
+            ("stream closest instanced", closest, False, two.inst),
+            ("stream any instanced", anyr, True, two.inst)):
+        sb, tb = (sbox, tiles) if inst is None else (two.sbox, two.tiles)
+        launch = partial(st.traverse_cuda, rays, sb, tb, occl, inst=inst)
+        k = launch()
+        p = st.traverse_plain(rays, sb, tb, occl, inst=inst)
+        bad, rel, _ = hold_rows(k, p, occl)
+        hits = int((p[:, 0] > 0.0).sum() if occl else (p[:, 3] >= 0.0).sum())
+        ms = cuda_ms(launch, 3)
+        log(f"[cap] S={num_s} {what:<24}: hits {hits}, mismatch={bad} "
+            f"max_rel_err(t,u,v)={rel:.3e}; list launch + walk {ms:.3f} ms "
+            f"[{card}]")
+        if bad > (1e-4 * CAP_RAYS if occl else 0) or rel > 1e-5:
+            raise AssertionError(f"[cap] {what}: the kernel disagrees with "
+                                 f"the plain version")
+    text, _, bad = hold_khit(kh.khit_cuda(closest, sbox, tiles),
+                             kh.khit_plain(closest, sbox, tiles, k=kh.K + 1),
+                             kh.K)
+    ms = cuda_ms(partial(kh.khit_cuda, closest, sbox, tiles), 3)
+    log(f"[cap] S={num_s} khit                    : {text}; list launch + "
+        f"walk {ms:.3f} ms [{card}]")
+    if bad:
+        raise AssertionError("[cap] khit: the kernel disagrees with the "
+                             "plain version")
+    del sbox, tiles, two
+    torch.cuda.empty_cache()
+
+
 def compare_khit(scene, meta, label, dev, st, kh, stats):
     sbox, tiles = scene.bvh.sbox, scene.bvh.tiles
     for name, rays, _ in ray_sets(scene, meta, dev, st):
@@ -442,41 +651,13 @@ def compare_khit(scene, meta, label, dev, st, kh, stats):
         # K + 1 nearest from the plain version: its first K are the plain
         # K-nearest, the extra one shows ties across the K-th place.
         p5 = kh.khit_plain(rays, sbox, tiles, k=kh.K + 1)
-        p = p5[:, :8 * kh.K]
         torch.cuda.synchronize()
-        kt, pt_ = k[:, 0::8], p[:, 0::8]
-        kid, pid = k[:, 3::8], p[:, 3::8]
-        present = pid >= 0
-        if not torch.equal(kid >= 0, present):
-            raise AssertionError(f"khit: present hits differ on "
-                                 f"{label}/{name}")
-        terr = float(((kt - pt_).abs() / torch.clamp(pt_.abs(), min=1.0))
-                     [present].max()) if present.any() else 0.0
-        # A slot is tied when another hit (returned or the next one) has
-        # its bit-equal t: two triangles at one t, taken in either order.
-        t5, present5 = p5[:, 0::8], p5[:, 3::8] >= 0
-        tie = torch.zeros_like(present)
-        for a in range(kh.K):
-            for b in range(kh.K + 1):
-                if a != b:
-                    tie[:, a] |= (t5[:, a] == t5[:, b]) & present5[:, b]
-        bad_id = int((present & (kid != pid) & ~tie).sum())
-        same = present & (kid == pid)
-        uv_err = 0.0
-        if same.any():
-            uv_err = max(float((k[:, f::8] - p[:, f::8]).abs()[same].max())
-                         for f in (1, 2))
-        per_slot = [int(present[:, s].sum()) for s in range(kh.K)]
-        log(f"[khit] {label:<11} S={sbox.shape[0]:<3} {name:<7} hits per "
-            f"slot {per_slot} id_mismatch={bad_id} "
-            f"ties={int((present & (kid != pid)).sum())} "
-            f"max_rel_err(t)={terr:.3e} max_abs_err(u,v)={uv_err:.3e}")
-        if bad_id or terr > 1e-5 or uv_err > 1e-5:
+        text, err, bad = hold_khit(k, p5, kh.K)
+        log(f"[khit] {label:<11} S={sbox.shape[0]:<3} {name:<7} {text}")
+        if bad:
             raise AssertionError(f"khit kernel disagrees with the plain "
                                  f"version on {label}/{name}")
-        stats["khit_err"] = max(stats.get("khit_err", 0.0),
-                                float((kt - pt_).abs()[present].max())
-                                if present.any() else 0.0, uv_err)
+        stats["khit_err"] = max(stats.get("khit_err", 0.0), err)
         if label == "still_life" and name == "bounce":
             stats["khit"] = time_kernel(
                 partial(kh.khit_cuda, rays, sbox, tiles), rays, sbox, tiles,
@@ -756,19 +937,31 @@ def random_merge_case(dev, seed, num_p=1 << 17, num_q=1 << 16):
     return qrec, grid, mg.scalars(grid, 0.3)
 
 
-def time_merge(label, q, stats):
-    """The merge kernel on recorded still-life queries (`q`, merge_contrib's
-    arguments by name): parity, then the kernel alone (queries prepared
-    beforehand), the wrapper (merge_contrib: preparation, kernel,
-    un-permutation), the plain version over 2 calls, and the bound from
-    the counting launch."""
+def time_merge(label, q, stats, card):
+    """The merge kernels on recorded still-life queries (`q`,
+    merge_contrib's arguments by name): the preparation kernels against
+    prepare_queries (rows and permutation bit for bit), the gather's
+    parity, then the gather alone (queries prepared beforehand), the
+    wrapper (merge_contrib: preparation, gather into the caller's rows),
+    the preparation alone, the plain versions, and the bounds."""
     from imbatracer_torch.ops import merge as mg
 
     stats["merge_label"] = label
     grid, kinds, ppm = q["grid"], q["kinds"], q["ppm"]
-    qrec, _ = mg.prepare_queries(grid, q["qpos"], q["normal"], q["gn"],
-                                 q["w_out"], q["params"], q["d_vcm"],
-                                 q["d_vm"], q["active"])
+    args = [q[k] for k in ("qpos", "normal", "gn", "w_out", "params",
+                           "d_vcm", "d_vm", "active")]
+    qrec, perm = mg.prepare_queries(grid, *args)
+    gq, gperm = mg.prepare_cuda(grid, *args)
+    torch.cuda.synchronize()
+    row_bad = int((gq.view(torch.int32) != qrec.view(torch.int32)).any(
+        dim=1).sum())
+    perm_bad = int((gperm != perm).sum())
+    log(f"[merge] {label}: query preparation kernels vs prepare_queries: "
+        f"{qrec.shape[0]} rows, {row_bad} rows and {perm_bad} permutation "
+        f"entries not bit-equal")
+    if row_bad or perm_bad:
+        raise AssertionError("the merge preparation kernels disagree with "
+                             "prepare_queries")
     scal = mg.scalars(grid, q["mis_eta_vc"])
     work = compare_merge(label, qrec, grid, scal, kinds, ppm, stats)
     ms = cuda_ms(lambda: mg.merge_cuda(qrec, grid, scal, kinds, ppm), 10)
@@ -778,6 +971,18 @@ def time_merge(label, q, stats):
     stats["merge"] = (ms, wrapper_ms,
                       merge_bound(qrec, grid, scal, kinds, ppm, work))
     stats["merge_plain_ms"] = plain_ms
+    num_q = qrec.shape[0]
+    # In: 3 position, 3 normal, 3 geometric normal, 3 w_out, kind, 3 kd,
+    # 3 ks, ns, d_vcm, d_vm words and the active byte a query; out: its
+    # 40-word row and 8-byte permutation entry.
+    stats["merge_prep"] = (
+        cuda_ms(lambda: mg.prepare_cuda(grid, *args), 10), None,
+        bytes_bound(num_q * (4 * 22 + 1 + 4 * mg.QREC_W + 8), queries=num_q))
+    stats["merge_prep_plain_ms"] = cuda_ms(
+        lambda: mg.prepare_queries(grid, *args), 3)
+    stats["merge_prep_err"] = float((gq - qrec).abs().max())
+    log_time(f"merge preparation kernels, {label} queries", stats["merge_prep"],
+             stats["merge_prep_plain_ms"], card, second=None)
 
 
 def family_frames(scene, meta, algo, width, height, max_len, frames,
@@ -838,7 +1043,7 @@ def check_mean(label, mean, pt_mean, card):
 
 def vcm_main_path(scene, meta, card, stats):
     """The slice's main path (phase 7a); returns the renderer for the
-    traced frame and the merge launches of the timed frames."""
+    traced frame and the launch counters of the timed frames."""
     from imbatracer_torch.utils.metrics import load_reference_png, psnr
 
     queries = []
@@ -850,7 +1055,8 @@ def vcm_main_path(scene, meta, card, stats):
     log(f"[vcm] warm-up frame: {fstats['collected']} vertices collected, "
         f"cache {fstats['cache']}, photons {fstats['photons']}; launches "
         f"over the timed frames: {got}")
-    if got["merge"] == 0 or got["khit"] == 0 or plain_runs(got):
+    if (got["merge"] == 0 or got["merge_prep"] == 0 or got["khit"] == 0
+            or plain_runs(got)):
         raise AssertionError("still_life vcm: the main path did not run "
                              "through the merge and khit kernels")
     mean = film_mean(renderer, "still_life vcm")
@@ -868,9 +1074,9 @@ def vcm_main_path(scene, meta, card, stats):
     band = max(range(len(queries)),
                key=lambda b: int(queries[b]["active"].sum()))
     time_merge(f"still_life band {band}, camera bounce 1", queries[band],
-               stats)
+               stats, card)
     del queries
-    return renderer, got["merge"]
+    return renderer, got
 
 
 def direct_emission_mean(scene, meta, width, height, frames):
@@ -999,60 +1205,198 @@ def pair_bound(rows, sc, tiles, inst, work):
                  tiles_read=tiles_read))
 
 
-def compare_pairs(scene, meta, label, dev, st, pm, stats):
-    """Phase 8a, the pair kernel: on each ray set and query kind, the
-    kernel against its plain version on one queue (ray_candidates +
-    build_queue), and the whole route (pair_rows: queue, kernel, resolve,
-    saturation fallback) against the stream kernel; on the bounce rays,
-    timed alone, in its route and plain, and counted."""
+def bytes_bound(nbytes, **detail):
+    """(bound_ms, "bytes", detail) of a function that moves `nbytes` and
+    does little arithmetic on them."""
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes", dict(detail, bytes=nbytes)
+
+
+def pair_candidates_bound(rays, sbox, k):
+    """(bound_ms, bound_by, detail) of the candidates kernel: the bytes of
+    the rays and boxes in and of idx, ent, rank, count, mindrop and the
+    histogram out, and the slab tests its group boxes leave (one per ray
+    and group of 8 boxes, and one per ray and box of each group it
+    enters, inactive lanes included, as the kernel tests them)."""
+    from imbatracer_torch.ops import stream_traverse as st
+
+    num_r, num_s = rays.shape[0], sbox.shape[0]
+    groups = -(-num_s // 8)
+    box = torch.cat([sbox[:, 0:6], sbox.new_zeros((groups * 8 - num_s, 6))])
+    box = box.view(groups, 8, 6)
+    real = (torch.arange(groups * 8, device=sbox.device) < num_s).view(
+        groups, 8)
+    lo = torch.where(real[..., None], box[..., 0:3], st.BIG).amin(1)
+    hi = torch.where(real[..., None], box[..., 3:6], -st.BIG).amax(1)
+    inverted = ((box[..., 0] > box[..., 3]) & real).any(1)
+    lo = torch.where(inverted[:, None], -st.BIG, lo)
+    hi = torch.where(inverted[:, None], st.BIG, hi)
+    size = real.sum(1)
+    tests = num_r * groups
+    for r0 in range(0, num_r, 1 << 15):
+        r = rays[r0:r0 + (1 << 15)]
+        tn, tf = st._slab(lo[None], hi[None], r[:, None, 0:3],
+                          st._safe_inv(r[:, None, 4:7]))
+        enter = (tn <= tf) & (tf >= r[:, 3, None]) & (tn <= r[:, 7, None])
+        tests += int((enter * size[None]).sum())
+    ops = tests * SLAB_OPS
+    nbytes = 4 * (num_r * 8 + num_s * 6 + num_r * (3 * k + 2) + num_s)
+    t_ops, t_bytes = ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(slab_tests=tests, ops=ops, bytes=nbytes))
+
+
+def queue_slots(rays, idx, order, hist):
+    """(slots, rows, sc) of the card queue's lanes: the pair slots in
+    queue order, their ray rows and their super-chunks, as pairs_plain
+    takes a queue."""
+    slots = order[:int(hist.sum())].long()
+    k = idx.shape[1]
+    return (slots, rays[slots // k].contiguous(),
+            idx.view(-1)[slots].contiguous())
+
+
+def compare_pair_candidates(label, name, key, rays, sbox, pm):
+    """`[pcand]`: the candidates kernel against ray_candidates: idx, count
+    and mindrop that differ, and entry t that differ as bits (-0 read as
+    +0).  All must be 0."""
+    got = pm.candidates_cuda(rays, sbox)[:4]
+    ref = pm.ray_candidates(rays, sbox)
+    bits = lambda x: (x + 0.0).view(torch.int32)
+    bad = dict(idx=int((got[0] != ref[0]).sum()),
+               ent=int((bits(got[1]) != bits(ref[1])).sum()),
+               count=int((got[2] != ref[2]).sum()),
+               mindrop=int((got[3] != ref[3]).sum()))
+    k = ref[0].shape[1]
+    log(f"[pcand] {label:<9} S={sbox.shape[0]:<5} {name:<7} {key:<7} rays "
+        f"{rays.shape[0]}, candidates {int(ref[2].sum())} (> {k}: "
+        f"{int((ref[2] > k).sum())} rays); mismatches {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"the pair candidates kernel disagrees with "
+                             f"ray_candidates on {label}/{name}/{key}")
+
+
+def compare_pairs(scene, meta, label, dev, st, pm, stats, card):
+    """Phase 8a, the pair route on the card: on each ray set and query
+    kind, the candidates kernel against ray_candidates (`[pcand]`), the
+    card's queue against build_queue (the same lanes in each super-chunk's
+    run) and segment_table, the pair kernel against its plain version on
+    that queue, the resolve kernel against resolve on the kernel's lanes,
+    and the whole route (pair_rows: candidates, queue, kernel, resolve,
+    saturation fallback) against the stream kernel; on the bounce rays the
+    kernels timed alone, the route, the plain versions, and the pair
+    kernel counted."""
     sbox, tiles, inst = scene.bvh.sbox, scene.bvh.tiles, scene.bvh.inst
+    num_s = sbox.shape[0]
     tag = "" if inst is None else "_instanced"
     for name, closest, anyr in ray_sets(scene, meta, dev, st):
         for key, rays, occl in (("closest", closest, False),
                                 ("any", anyr, True)):
-            idx, _, count, _ = pm.ray_candidates(rays, sbox)
-            rows, sc, _ = pm.build_queue(idx, rays, sbox.shape[0])
-            k = pm.pairs_cuda(rows, sc, tiles, occl, inst)
+            compare_pair_candidates(label, name, key, rays, sbox, pm)
+            idx, _, count, mindrop, hist, rank = pm.candidates_cuda(rays,
+                                                                    sbox)
+            k = idx.shape[1]
+            order, seg, nseg = pm.queue_cuda(idx, rank, hist)
+            lanes = pm.pairs_cuda(rays, sbox, tiles, order, seg, nseg, k,
+                                  occl, inst)
+            slots, rows, sc = queue_slots(rays, idx, order, hist)
+            # The same lanes in each run: build_queue's (stable) order is
+            # the card's sorted by (super-chunk, pair slot).
+            _, rsc, rorder = pm.build_queue(idx, rays, num_s)
+            total, num_p = slots.shape[0], idx.numel()
+            by_run = torch.sort(sc.long() * num_p + slots)[0] % num_p
+            queue_bad = int((sc != rsc[:total]).sum()) + int(
+                (by_run != rorder[:total]).sum())
+            table = pm.segment_table(hist)
+            queue_bad += int(int(nseg) != table.shape[0]) + int(
+                (seg[:table.shape[0]] != table).any())
             p = pm.pairs_plain(rows, sc, tiles, occl, inst)
+            out, _, sat, nsat = pm.resolve_cuda(rays, lanes, count, mindrop,
+                                                k, occl)
+            want, want_sat = pm.resolve(rays, lanes, count, mindrop, k, occl)
             before = pm.FALLBACK["rays"]
             route = pm.pair_rows(rays, sbox, tiles, occl, inst)
             fallback = pm.FALLBACK["rays"] - before
             ref = st.traverse_cuda(rays, sbox, tiles, occl, inst=inst)
             torch.cuda.synchronize()
-            bad, rel, abs_err = hold_rows(k, p, occl)
+            bad, rel, abs_err = hold_rows(lanes[slots], p, occl)
             rbad, rrel, _ = hold_rows(route, ref, occl)
-            saturated = int((count > idx.shape[1]).sum())
-            log(f"[pairs] {label:<9} S={sbox.shape[0]:<5} {name:<7} {key:<7}"
-                f" lanes={int((sc >= 0).sum())} kernel vs plain: mismatch="
-                f"{bad} max_rel_err(t,u,v)={rel:.3e}; route vs stream "
-                f"kernel: mismatch={rbad} max_rel_err={rrel:.3e}; rays with "
-                f"> {idx.shape[1]} candidates {saturated}, re-traced by the "
-                f"fallback {fallback}")
+            resolve_bad = int((out != want).any(dim=1).sum()) + int(
+                (sat != want_sat).sum()) + abs(int(nsat) - int(want_sat.sum()))
+            log(f"[pairs] {label:<9} S={num_s:<5} {name:<7} {key:<7} lanes="
+                f"{slots.shape[0]} in {int(nseg)} segments; queue mismatch="
+                f"{queue_bad}; kernel vs plain: mismatch={bad} "
+                f"max_rel_err(t,u,v)={rel:.3e}; resolve mismatch="
+                f"{resolve_bad}; route vs stream kernel: mismatch={rbad} "
+                f"max_rel_err={rrel:.3e}; rays with > {k} candidates "
+                f"{int((count > k).sum())}, re-traced by the fallback "
+                f"{fallback}")
             allow = 1e-4 * rays.shape[0] if occl else 0
-            if bad > allow or rel > 1e-5 or rbad > allow or rrel > 1e-5:
-                raise AssertionError(f"pairs kernel or route disagrees on "
+            if (queue_bad or resolve_bad or bad > allow or rel > 1e-5
+                    or rbad > allow or rrel > 1e-5):
+                raise AssertionError(f"the pair route disagrees on "
                                      f"{label}/{name}/{key}")
             err_key = f"pairs_{key}{tag}_err"
             stats[err_key] = max(stats.get(err_key, 0.0), abs_err)
             stats[f"fallback {label} {name} {key}"] = fallback
             if name != "bounce":
                 continue
-            ms = cuda_ms(lambda: pm.pairs_cuda(rows, sc, tiles, occl, inst),
-                         10)
-            wrapper_ms = cuda_ms(
-                lambda: pm.pair_rows(rays, sbox, tiles, occl, inst), 3)
+            ms = cuda_ms(lambda: pm.pairs_cuda(rays, sbox, tiles, order, seg,
+                                               nseg, k, occl, inst), 10)
+            route_ms = cuda_ms(
+                lambda: pm.pair_rows(rays, sbox, tiles, occl, inst), 10)
             plain_ms = cuda_ms(
                 lambda: pm.pairs_plain(rows, sc, tiles, occl, inst), 1,
                 warm=False)
             work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
                                device=dev)
-            if not torch.equal(pm.pairs_cuda(rows, sc, tiles, occl, inst,
-                                             work=work), k):
+            counted = pm.pairs_cuda(rays, sbox, tiles, order, seg, nseg, k,
+                                    occl, inst, work=work)
+            if not torch.equal(counted[slots], lanes[slots]):
                 raise AssertionError("the pairs counting launch disagrees "
                                      "with the kernel")
-            stats[f"pairs_{key}{tag}"] = (ms, wrapper_ms, pair_bound(
+            stats[f"pairs_{key}{tag}"] = (ms, route_ms, pair_bound(
                 rows, sc, tiles, inst, work))
             stats[f"pairs_{key}{tag}_plain_ms"] = plain_ms
+            stream_ms = stats[label, key][0]
+            log(f"[time] pair route {label} S={num_s} {key}, {rays.shape[0]} "
+                f"sorted bounce rays [{card}]: {route_ms:.3f} ms (with torch "
+                f"glue {TORCH_GLUE_MS[label, key]:.3f} ms; the stream "
+                f"kernel's launch {stream_ms:.3f} ms)")
+            if label != "instanced" or key != "closest":
+                continue
+            # The route's other kernels, at the instanced scene's S.
+            prep = (idx, rank, hist)
+            stats["pair_candidates"] = (
+                cuda_ms(lambda: pm.candidates_cuda(rays, sbox), 10), None,
+                pair_candidates_bound(rays, sbox, k))
+            stats["pair_candidates_plain_ms"] = cuda_ms(
+                lambda: pm.ray_candidates(rays, sbox), 2)
+            stats["pair_queue"] = (
+                cuda_ms(lambda: pm.queue_cuda(*prep), 10), None,
+                bytes_bound(4 * (2 * num_p + num_s + total + num_s
+                                 + 4 * int(nseg)), lanes=total))
+            stats["pair_queue_plain_ms"] = cuda_ms(
+                lambda: pm.build_queue(idx, rays, num_s), 3)
+            stats["pair_queue_library_ms"] = cuda_ms(
+                lambda: torch.sort(idx.view(-1), stable=True), 10)
+            stats["pair_resolve"] = (
+                cuda_ms(lambda: pm.resolve_cuda(rays, lanes, count, mindrop,
+                                                k, occl), 10), None,
+                bytes_bound(4 * (8 * rays.shape[0] + 8 * total
+                                 + 2 * rays.shape[0] + 16 * rays.shape[0])
+                            + rays.shape[0], lanes=total))
+            stats["pair_resolve_plain_ms"] = cuda_ms(
+                lambda: pm.resolve(rays, lanes, count, mindrop, k, occl), 3)
+            stats["pair_resolve_err"] = float((out - want).abs().max())
+            for what, second in (("pair_candidates", "ray_candidates"),
+                                 ("pair_queue", "build_queue"),
+                                 ("pair_resolve", "resolve")):
+                log_time(f"{what} kernel, {label} S={num_s}, {rays.shape[0]} "
+                         f"sorted bounce rays", stats[what],
+                         stats[f"{what}_plain_ms"], card, second=None)
+            log_resources(f"pairs kernel {key}{tag}",
+                          pm.resources(occl, inst is not None), card)
 
 
 def with_pairs(scene):
@@ -1061,22 +1405,26 @@ def with_pairs(scene):
         scene, bvh=dataclasses.replace(scene.bvh, pairs=True))
 
 
-def pairs_main_path(scene, meta, label, width, height, max_len, ref, card):
+def pairs_main_path(scene, meta, label, width, height, max_len, ref, ref_ms,
+                    card):
     """Phase 8c: PT through the pair queue (the switch on), the frames
-    `ref` took through the stream kernel (no warm-up: nothing is compiled
-    and the frame indices match); the pair kernels must launch, no plain
-    version may run, and the image must agree with `ref`'s to PSNR_MIN.
-    Returns the launch counters."""
+    `ref` took through the stream kernel in `ref_ms` a frame (no warm-up:
+    nothing is compiled and the frame indices match); the pair route's
+    kernels must launch, no plain version may run, and the image must
+    agree with `ref`'s to PSNR_MIN.  Returns the launch counters."""
     from imbatracer_torch.utils.metrics import psnr
 
     r, got, ms, _ = family_frames(with_pairs(scene), meta, "pt", width,
                                   height, max_len, INST_FRAMES, warmup=False)
     p = psnr(r.image(), ref.image())
     log(f"[pairs] {label} {width}x{height} PT with the pairs switch on: "
-        f"{ms:.1f} ms/frame over {INST_FRAMES} frames, PSNR {p:.2f} dB "
-        f"against the stream route's frames; launches {got} [{card}]")
+        f"{ms:.1f} ms/frame over {INST_FRAMES} frames (the stream route "
+        f"{ref_ms:.1f} ms/frame), PSNR {p:.2f} dB against the stream "
+        f"route's frames; launches {got} [{card}]")
     tag = "_instanced" if scene.bvh.two_level else ""
+    route = ("pairs_candidates", "pairs_queue", "pairs_resolve")
     if (not got[f"pairs_closest_hit{tag}"] or not got[f"pairs_any_hit{tag}"]
+            or not all(got[k] for k in route)
             or plain_runs(got) or not p >= PSNR_MIN):
         raise AssertionError(f"{label}: the pairs route did not run through "
                              f"the pair kernels or disagrees with the "
@@ -1156,12 +1504,12 @@ def instanced_phase(dev, card, big, stats):
             log_resources(f"instanced stream kernel {key}, S={num_s}",
                           st.resources(key == "any", True, num_s), card)
         for label, sc in (("instanced", (scene, meta)), ("big_4000", big)):
-            compare_pairs(sc[0], sc[1], label, dev, st, pm, stats)
+            compare_pairs(sc[0], sc[1], label, dev, st, pm, stats, card)
             tag = "_instanced" if sc[0].bvh.two_level else ""
             for key in ("closest", "any"):
                 log_time(f"pairs kernel {key}{tag}, S={sc[0].bvh.sbox.shape[0]}"
                          f", {NUM_RAYS} sorted bounce rays (kernel on the "
-                         f"prepared queue)",
+                         f"card's queue)",
                          stats[f"pairs_{key}{tag}"],
                          stats[f"pairs_{key}{tag}_plain_ms"], card,
                          second="the route")
@@ -1197,13 +1545,16 @@ def instanced_phase(dev, card, big, stats):
         # (c) The pairs route, instanced and flat.
         phase("8c the pairs route")
         pairs_got = pairs_main_path(scene, meta, "instanced", w, h, 8, pt,
-                                    card)
+                                    pt_ms, card)
         del pt
-        big_ref, _, _, _ = family_frames(*big, "pt", 1024, 1024, 6,
-                                         INST_FRAMES)
-        pairs_got.update({k: v for k, v in pairs_main_path(
-            *big, "big_4000", 1024, 1024, 6, big_ref, card).items()
-            if k in ("pairs_closest_hit", "pairs_any_hit")})
+        big_ref, _, big_ms, _ = family_frames(*big, "pt", 1024, 1024, 6,
+                                              INST_FRAMES)
+        big_got = pairs_main_path(*big, "big_4000", 1024, 1024, 6, big_ref,
+                                  big_ms, card)
+        for k in ("pairs_closest_hit", "pairs_any_hit"):
+            pairs_got[k] = big_got[k]
+        for k in ("pairs_candidates", "pairs_queue", "pairs_resolve"):
+            pairs_got[k] += big_got[k]
 
         # (d) Two-level against flattened.
         phase("8d two-level vs flattened")
@@ -1231,18 +1582,27 @@ def instanced_phase(dev, card, big, stats):
 
 
 def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
+    """`[time]`: (ms, the second time or None, bound) as timed."""
     ms, second_ms, (bound_ms, bound_by, detail) = timed
-    log(f"[time] {what} [{card}]: kernel {ms:.3f} ms ({second} "
-        f"{second_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
-        f"ms by {bound_by}, {detail})")
+    also = "" if second is None else f"{second} {second_ms:.3f} ms, "
+    log(f"[time] {what} [{card}]: kernel {ms:.3f} ms ({also}plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{detail})")
 
 
-def kernel_entry(name, source, replaces, launches, err, timed, plain_ms):
-    ms, _, (bound_ms, bound_by, _) = timed
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+def kernel_entry(name, source, replaces, launches, err, timed, plain_ms,
+                 route_ms=False, library_ms=None):
+    """One entry of the kernels line; with `route_ms` it also carries the
+    second time of `timed`, its wrapper's: the pair route, or
+    merge_contrib."""
+    ms, second_ms, (bound_ms, bound_by, _) = timed
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    if route_ms:
+        entry["route_ms"] = second_ms
+    return entry
 
 
 def main():
@@ -1310,6 +1670,7 @@ def main():
                      stats[label, f"{key}_plain_ms"], card)
             log_resources(f"stream kernel {key}, S={num_s}",
                           st.resources(key == "any", False, num_s), card)
+    compare_cap(dev, st, kh, card)
     phase("4 khit kernel vs plain")
     for label in ("leaf_6000", "still_life", "cornell"):
         compare_khit(*scenes[label], label, dev, st, kh, stats)
@@ -1362,13 +1723,15 @@ def main():
     for ppm in (False, True):
         compare_merge("random", *random_merge_case(dev, 11), (0, 3, 4, 5),
                       ppm, stats)
-    vcm_renderer, merge_launches = vcm_main_path(*scenes["still_life"],
-                                                 card, stats)
+    vcm_renderer, vcm_got = vcm_main_path(*scenes["still_life"], card,
+                                          stats)
     ms, wrapper_ms, (bound_ms, bound_by, detail) = stats["merge"]
     log(f"[time] merge kernel, {stats['merge_label']} queries "
         f"[{card}]: kernel {ms:.3f} ms (merge_contrib with the query "
-        f"preparation {wrapper_ms:.3f} ms, plain {stats['merge_plain_ms']:.3f}"
-        f" ms, bound {bound_ms:.4f} ms by {bound_by}, {detail})")
+        f"preparation {wrapper_ms:.3f} ms, with torch glue "
+        f"{TORCH_GLUE_MS['merge_contrib']:.3f} ms; plain "
+        f"{stats['merge_plain_ms']:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {detail})")
     profile_frame(vcm_renderer, "still_life vcm 1920x1080 max_len 8", card)
     del vcm_renderer
     phase("7c bpt, ppm, vcm_pt and lt at 480x270")
@@ -1397,8 +1760,12 @@ def main():
                      REPLACES["khit"], sl_got["khit"], stats["khit_err"],
                      stats["khit"], stats["khit_plain_ms"]),
         kernel_entry("merge_contrib", src + "merge_kernel.cu",
-                     REPLACES["merge"], merge_launches, stats["merge_err"],
-                     stats["merge"], stats["merge_plain_ms"]),
+                     REPLACES["merge"], vcm_got["merge"], stats["merge_err"],
+                     stats["merge"], stats["merge_plain_ms"], route_ms=True),
+        kernel_entry("merge_prep", src + "merge_kernel.cu",
+                     REPLACES["merge_prep"], vcm_got["merge_prep"],
+                     stats["merge_prep_err"], stats["merge_prep"],
+                     stats["merge_prep_plain_ms"]),
     ]
     for key in ("closest", "any"):
         kernels.append(kernel_entry(
@@ -1412,7 +1779,14 @@ def main():
                 f"pairs_{key}_hit{tag}", src + "pairs_kernel.cu",
                 REPLACES["pairs"], inst_got[f"pairs_{key}_hit{tag}"],
                 stats[f"pairs_{key}{tag}_err"], stats[f"pairs_{key}{tag}"],
-                stats[f"pairs_{key}{tag}_plain_ms"]))
+                stats[f"pairs_{key}{tag}_plain_ms"], route_ms=True))
+    for name, err in (("candidates", 0.0), ("queue", 0.0),
+                      ("resolve", stats["pair_resolve_err"])):
+        kernels.append(kernel_entry(
+            f"pair_{name}", src + "pairs_kernel.cu",
+            REPLACES[f"pair_{name}"], inst_got[f"pairs_{name}"], err,
+            stats[f"pair_{name}"], stats[f"pair_{name}_plain_ms"],
+            library_ms=stats.get(f"pair_{name}_library_ms")))
     for k in kernels:
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was not launched on a main "

@@ -13,8 +13,9 @@
 // id = -1 (not tmax, unlike the single-hit kernel).
 //
 // Design: the block machinery of the stream kernel (traverse_common.cuh:
-// one launch a dispatch; each 128-ray block builds its sorted candidate
-// list in shared memory, then walks it with chunk boxes and triangles
+// one launch a dispatch, two above kMaxSuper super-chunks, where the
+// lists go through a global buffer; each 128-ray block builds its sorted
+// candidate list in shared memory, then walks it with chunk boxes and triangles
 // staged in shared memory by cp.async, the tests spread over (ray, chunk)
 // pairs).  Each thread keeps K sorted slots (t, u, v, id) in registers (K
 // is a template parameter and the slot loops unroll, so the slots never
@@ -87,16 +88,19 @@ template <int K, class W>
 __global__ void __launch_bounds__(kBlk, 4)
 khit_kernel(const float* __restrict__ rays, const float* __restrict__ sbox,
             const float* __restrict__ tiles, float* __restrict__ out,
-            int num_s, unsigned long long* __restrict__ work_out) {
+            int num_s, unsigned long long* __restrict__ glist,
+            const int* __restrict__ gcount,
+            unsigned long long* __restrict__ work_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const BlockSmem sm(smem, num_s);
   const int r = blockIdx.x * kBlk + threadIdx.x;
   const Ray ray = load_ray(rays + (size_t)r * 8);
   W work;
-  const int count = block_candidates(ray, sbox, num_s, sm.list, sm.feat,
-                                     work);
+  unsigned long long* list;
+  const int count = block_list(ray, sbox, num_s, sm, glist, gcount, list,
+                               work);
   KNearest<K> pol(ray.tmax);
-  block_walk<false>(ray, pol, sm.list, count, sm.cand, sm.feat, sbox, tiles,
+  block_walk<false>(ray, pol, list, count, sm.cand, sm.feat, sbox, tiles,
                     nullptr, nullptr, nullptr, work);
 
   work.flush(work_out);
@@ -113,7 +117,8 @@ khit_kernel(const float* __restrict__ rays, const float* __restrict__ sbox,
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, float*,
-                          int, unsigned long long*);
+                          int, unsigned long long*, const int*,
+                          unsigned long long*);
 
 KernelFn kernel_for(bool work) {
   return work ? khit_kernel<4, Work> : khit_kernel<4, NoWork>;
@@ -124,25 +129,41 @@ KernelFn kernel_for(bool work) {
 // C entry point.  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError() of the launch (0 on success),
 // or cudaErrorInvalidValue for a K that is not instantiated, num_rays
-// that is not a multiple of 128 or num_s outside [1, kMaxSuper].  With
-// `work` null it launches the renderer's kernel; otherwise the counting
-// instantiation, which adds its kWorkSlots tallies (traverse_common.cuh)
-// to the zero-initialised uint64 array `work`.
+// that is not a multiple of 128, num_s < 1, or num_s > kMaxSuper without
+// the list buffers `glist` / `gcount` (as for imba_stream_traverse: above
+// kMaxSuper a list launch writes each block's sorted list there and the
+// walk launch reads it).  With `work` null it launches the renderer's
+// kernels; otherwise the counting instantiations, which add their
+// kWorkSlots tallies (traverse_common.cuh) to the zero-initialised uint64
+// array `work`.
 extern "C" int imba_khit_traverse(const void* rays, const void* sbox,
                                   const void* tiles, void* out, int num_rays,
-                                  int num_s, int k, void* work,
-                                  void* stream) {
-  if (k != 4 || bad_shape(num_rays, num_s))
+                                  int num_s, int k, void* glist, void* gcount,
+                                  void* work, void* stream) {
+  if (k != 4 || bad_shape(num_rays, num_s, glist) ||
+      (global_list(num_s) && gcount == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = num_rays / kBlk;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!global_list(num_s)) {
+    glist = nullptr;
+    gcount = nullptr;
+  } else {
+    const cudaError_t e = launch_candidates(rays, sbox, num_rays, num_s, glist,
+                                            gcount, nullptr, nullptr, nullptr,
+                                            work, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   KernelFn fn = kernel_for(work != nullptr);
   const size_t smem = block_smem_bytes(num_s);
   const cudaError_t e = prepare(fn, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fn<<<blocks, kBlk, smem, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<blocks, kBlk, smem, s>>>(
       static_cast<const float*>(rays), static_cast<const float*>(sbox),
       static_cast<const float*>(tiles), static_cast<float*>(out), num_s,
+      static_cast<unsigned long long*>(glist),
+      static_cast<const int*>(gcount),
       static_cast<unsigned long long*>(work));
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,8 @@
 // a ray with its best hit in registers.  The block first builds its own
 // candidate list in shared memory (traverse_common.cuh block_candidates:
 // the super-chunks any of its rays enters, sorted by the block-min entry
-// t), then walks it (block_walk): super-chunk box with the world ray,
+// t; above kMaxSuper = 16,384 super-chunks a list launch of its own builds
+// the lists in a global buffer, which the walk launch reads), then walks it (block_walk): super-chunk box with the world ray,
 // chunk boxes and triangles staged in shared memory with cp.async and
 // tested, spread over (ray, chunk) pairs, with the ray in the super-chunk's
 // frame; each thread takes its hits in its own walk order.  A closest-hit
@@ -51,31 +52,6 @@ namespace {
 
 using namespace imba;
 
-struct Closest {
-  float t, u = 0.0f, v = 0.0f, id = -1.0f;
-  __device__ explicit Closest(float tmax) : t(tmax) {}
-  __device__ __forceinline__ float bound() const { return t; }
-  __device__ __forceinline__ bool done() const { return false; }
-  __device__ __forceinline__ void accept(float t_, float u_, float v_,
-                                         float id_) {
-    t = t_;
-    u = u_;
-    v = v_;
-    id = id_;
-  }
-};
-
-struct Any {
-  float tmax;
-  bool hit = false;
-  __device__ explicit Any(float tmax_) : tmax(tmax_) {}
-  __device__ __forceinline__ float bound() const { return tmax; }
-  __device__ __forceinline__ bool done() const { return hit; }
-  __device__ __forceinline__ void accept(float, float, float, float) {
-    hit = true;
-  }
-};
-
 // Four resident blocks an SM give ptxas a budget of 128 registers.
 template <bool OCCL, bool INST, class W>
 __global__ void __launch_bounds__(kBlk, 4)
@@ -86,57 +62,29 @@ stream_traverse_kernel(const float* __restrict__ rays,
                        const int* __restrict__ inst_of,
                        const float* __restrict__ itab,
                        float* __restrict__ out, int num_s,
+                       unsigned long long* __restrict__ glist,
+                       const int* __restrict__ gcount,
                        unsigned long long* __restrict__ work_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const BlockSmem sm(smem, num_s);
   const int r = blockIdx.x * kBlk + threadIdx.x;
   const Ray ray = load_ray(rays + (size_t)r * 8);
   W work;
-  const int count = block_candidates(ray, sbox, num_s, sm.list, sm.feat,
-                                     work);
+  unsigned long long* list;
+  const int count = block_list(ray, sbox, num_s, sm, glist, gcount, list,
+                               work);
   using P = typename std::conditional<OCCL, Any, Closest>::type;
   P pol(ray.tmax);
-  block_walk<INST>(ray, pol, sm.list, count, sm.cand, sm.feat, sbox, tiles,
+  block_walk<INST>(ray, pol, list, count, sm.cand, sm.feat, sbox, tiles,
                    tile_idx, inst_of, itab, work);
 
   work.flush(work_out);
-  float* o = out + (size_t)r * 8;
-  if constexpr (OCCL) {
-    o[0] = pol.hit ? 1.0f : 0.0f;
-    o[1] = o[2] = o[3] = 0.0f;
-  } else {
-    o[0] = pol.t;
-    o[1] = pol.u;
-    o[2] = pol.v;
-    o[3] = pol.id;
-  }
-  o[4] = o[5] = o[6] = o[7] = 0.0f;
-}
-
-// The candidate stage alone: writes block b's list to slist[b, :count],
-// skey[b, :count] and count to scount[b].
-__global__ void __launch_bounds__(kBlk)
-block_candidates_kernel(const float* __restrict__ rays,
-                        const float* __restrict__ sbox, int num_s,
-                        int* __restrict__ slist, float* __restrict__ skey,
-                        int* __restrict__ scount) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const BlockSmem sm(smem, num_s);
-  const Ray ray = load_ray(rays + ((size_t)blockIdx.x * kBlk + threadIdx.x) * 8);
-  NoWork work;
-  const int count = block_candidates(ray, sbox, num_s, sm.list, sm.feat,
-                                     work);
-  const size_t row = (size_t)blockIdx.x * num_s;
-  for (int i = threadIdx.x; i < count; i += kBlk) {
-    const unsigned long long e = sm.list[i];
-    slist[row + i] = (int)(e & 0xffffffffu);
-    skey[row + i] = __uint_as_float((unsigned)(e >> 32));
-  }
-  if (threadIdx.x == 0) scount[blockIdx.x] = count;
+  write_hit<OCCL>(pol, out + (size_t)r * 8);
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*,
                           const int*, const int*, const float*, float*, int,
+                          unsigned long long*, const int*,
                           unsigned long long*);
 
 template <bool OCCL, bool INST>
@@ -154,31 +102,50 @@ KernelFn kernel_for(int occl, bool inst, bool work) {
 
 // C entry point.  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError() of the launch (0 on success), or
-// cudaErrorInvalidValue when num_rays is not a multiple of 128 or num_s
-// lies outside [1, kMaxSuper].  With `work` null it launches the
-// renderer's kernel; otherwise the counting instantiation, which adds its
-// kWorkSlots tallies (traverse_common.cuh) to the zero-initialised uint64
-// array `work`.  With `tile_idx` non-null it launches the two-level
-// instanced variant (tile_idx, inst_of: one int32 per super-chunk; itab:
-// 16 floats per instance).
+// cudaErrorInvalidValue when num_rays is not a multiple of 128, num_s < 1,
+// or num_s > kMaxSuper without the list buffers.  Above kMaxSuper it makes
+// two launches: the list launch writes each block's sorted list to its row
+// of `glist` (num_rays / 128 rows of list_stride(num_s) uint64) and its
+// count to `gcount` (num_rays / 128 int32), and the walk launch reads them
+// (traverse_common.cuh); at or below it one launch builds each list in
+// shared memory and `glist` / `gcount` are not read.  With `work` null it
+// launches the renderer's kernels; otherwise the counting instantiations,
+// which add their kWorkSlots tallies (traverse_common.cuh) to the
+// zero-initialised uint64 array `work`.  With `tile_idx` non-null it
+// launches the two-level instanced variant (tile_idx, inst_of: one int32
+// per super-chunk; itab: 16 floats per instance).
 extern "C" int imba_stream_traverse(const void* rays, const void* sbox,
                                     const void* tiles, const void* tile_idx,
                                     const void* inst_of, const void* itab,
                                     void* out, int num_rays, int num_s,
-                                    int occl, void* work, void* stream) {
-  if (bad_shape(num_rays, num_s))
+                                    int occl, void* glist, void* gcount,
+                                    void* work, void* stream) {
+  if (bad_shape(num_rays, num_s, glist) ||
+      (global_list(num_s) && gcount == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = num_rays / kBlk;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!global_list(num_s)) {
+    glist = nullptr;
+    gcount = nullptr;
+  } else {
+    const cudaError_t e = launch_candidates(rays, sbox, num_rays, num_s, glist,
+                                            gcount, nullptr, nullptr, nullptr,
+                                            work, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   KernelFn k = kernel_for(occl, tile_idx != nullptr, work != nullptr);
   const size_t smem = block_smem_bytes(num_s);
   const cudaError_t e = prepare(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  k<<<blocks, kBlk, smem, static_cast<cudaStream_t>(stream)>>>(
+  k<<<blocks, kBlk, smem, s>>>(
       static_cast<const float*>(rays), static_cast<const float*>(sbox),
       static_cast<const float*>(tiles), static_cast<const int*>(tile_idx),
       static_cast<const int*>(inst_of), static_cast<const float*>(itab),
       static_cast<float*>(out), num_s,
+      static_cast<unsigned long long*>(glist),
+      static_cast<const int*>(gcount),
       static_cast<unsigned long long*>(work));
   return static_cast<int>(cudaGetLastError());
 }
@@ -186,23 +153,20 @@ extern "C" int imba_stream_traverse(const void* rays, const void* sbox,
 // The candidate stage alone (tests and chip_smoke.py; no main path calls
 // it): block b of the rays' 128-ray blocks writes its sorted list to
 // slist[b, :count] (int32) and skey[b, :count] (float32), rows of num_s,
-// and count to scount[b].  Entries past the count are left as they were.
+// and count to scount[b]; above kMaxSuper it sorts the list in its row of
+// `glist` (as for imba_stream_traverse).  Entries past the count are left
+// as they were.
 extern "C" int imba_block_candidates(const void* rays, const void* sbox,
                                      void* slist, void* skey, void* scount,
-                                     int num_rays, int num_s, void* stream) {
-  if (bad_shape(num_rays, num_s))
+                                     void* glist, int num_rays, int num_s,
+                                     void* stream) {
+  if (bad_shape(num_rays, num_s, glist))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = num_rays / kBlk;
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = block_smem_bytes(num_s);
-  const cudaError_t e = prepare(block_candidates_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  block_candidates_kernel<<<blocks, kBlk, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rays), static_cast<const float*>(sbox), num_s,
-      static_cast<int*>(slist), static_cast<float*>(skey),
-      static_cast<int*>(scount));
-  return static_cast<int>(cudaGetLastError());
+  if (num_rays == 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_candidates(
+      rays, sbox, num_rays, num_s, global_list(num_s) ? glist : nullptr,
+      nullptr, slist, skey, scount, nullptr,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Resources of the kernel imba_stream_traverse would launch for these

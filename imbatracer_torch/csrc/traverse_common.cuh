@@ -80,7 +80,7 @@ constexpr int kBlk = 128;             // rays per block == per candidate list
 constexpr int kWarps = kBlk / 32;
 constexpr int kFeatRows = 17;         // tile rows a Moller-Trumbore test reads
 constexpr int kBatch = 8;             // chunks a feature staging batch holds
-constexpr int kMaxSuper = 16384;      // super-chunks a block's list can hold
+constexpr int kMaxSuper = 16384;      // super-chunks a shared-memory list holds
 constexpr int kGroup = 8;             // super-chunk boxes under one group box
 
 // Moller-Trumbore stages, in test order: empty slot, |det| rejected, t
@@ -299,12 +299,28 @@ __host__ __device__ inline int pow2_at_least(int n) {
 // so the buffers after it start on 16 bytes, as cp.async needs), two
 // CandBufs, two feature batches (kBatch chunks x 17 rows x 16 floats); the
 // candidate stage's scratch aliases the feature batches.
+//
+// Above kMaxSuper super-chunks a block's list no longer fits its shared
+// memory beside the staging buffers.  It then lives in a global scratch
+// buffer, one row of list_stride(S) words a block: a list launch
+// (block_candidates_kernel) builds and sorts each block's list in its row,
+// and the walk launch reads it from there.  The shared memory then starts
+// with the CandBufs, as at S <= kMaxSuper it starts 16-byte aligned after
+// the list.
 constexpr int kFeatBatchFloats = kBatch * kFeatRows * kChunk;
 constexpr int kTailBytes =
     2 * (int)sizeof(CandBuf) + 2 * kFeatBatchFloats * (int)sizeof(float);
 
+__host__ __device__ inline bool global_list(int num_s) {
+  return num_s > kMaxSuper;
+}
+
+__host__ __device__ inline size_t list_stride(int num_s) {
+  return (size_t)pow2_at_least(num_s < 2 ? 2 : num_s);
+}
+
 __host__ __device__ inline size_t list_bytes(int num_s) {
-  return 8 * (size_t)pow2_at_least(num_s < 2 ? 2 : num_s);
+  return global_list(num_s) ? 0 : 8 * list_stride(num_s);
 }
 
 __host__ __device__ inline size_t block_smem_bytes(int num_s) {
@@ -312,12 +328,13 @@ __host__ __device__ inline size_t block_smem_bytes(int num_s) {
 }
 
 struct BlockSmem {
-  unsigned long long* list;
+  unsigned long long* list;          // null when the list is global
   CandBuf* cand;
   float* feat;
 
   __device__ __forceinline__ BlockSmem(unsigned char* base, int num_s) {
-    list = reinterpret_cast<unsigned long long*>(base);
+    list = global_list(num_s) ? nullptr
+                              : reinterpret_cast<unsigned long long*>(base);
     cand = reinterpret_cast<CandBuf*>(base + list_bytes(num_s));
     feat = reinterpret_cast<float*>(cand + 2);
   }
@@ -333,10 +350,11 @@ cudaError_t prepare(K* kernel, size_t smem) {
                               (int)smem);
 }
 
-// The launch shapes a stream or khit kernel takes: whole 128-ray blocks
-// and 1 <= S <= kMaxSuper.
-inline bool bad_shape(int num_rays, int num_s) {
-  return num_rays % kBlk != 0 || num_s < 1 || num_s > kMaxSuper;
+// The launch shapes a stream or khit kernel takes: whole 128-ray blocks,
+// S >= 1, and above kMaxSuper a global list buffer `glist`.
+inline bool bad_shape(int num_rays, int num_s, const void* glist) {
+  return num_rays % kBlk != 0 || num_s < 1 ||
+         (global_list(num_s) && glist == nullptr);
 }
 
 // A kernel's resources at S super-chunks: out[0] registers a thread,
@@ -381,6 +399,10 @@ cudaError_t resources(K* kernel, int num_s, int* out) {
 // min and max only grows or shrinks with its input), so the group box's
 // tn is at most the box's and its tf at least the box's.  A group with
 // an inverted box (which reads as all of space) gets an infinite one.
+// `list` is the block's shared-memory list or, above kMaxSuper, its row of
+// the global list buffer: the compaction and the bitonic sort are the same
+// code on either, since __syncthreads orders a block's global accesses as
+// it does its shared ones.
 template <class W>
 __device__ int block_candidates(const Ray& ray, const float* __restrict__ sbox,
                                 int num_s, unsigned long long* list,
@@ -615,6 +637,49 @@ __device__ __forceinline__ bool enters_box(const CandBuf& cb, int c,
                 cb.box[4][c], cb.box[5][c], r, limit);
 }
 
+// The hit policies of the single-hit kernels (stream_traverse.cu,
+// pairs_kernel.cu): a closest-hit thread's bound is its best t, an any-hit
+// thread's its tmax, and an any-hit thread stops at its first hit.
+struct Closest {
+  float t, u = 0.0f, v = 0.0f, id = -1.0f;
+  __device__ explicit Closest(float tmax) : t(tmax) {}
+  __device__ __forceinline__ float bound() const { return t; }
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ void accept(float t_, float u_, float v_,
+                                         float id_) {
+    t = t_;
+    u = u_;
+    v = v_;
+    id = id_;
+  }
+};
+
+struct Any {
+  float tmax;
+  bool hit = false;
+  __device__ explicit Any(float tmax_) : tmax(tmax_) {}
+  __device__ __forceinline__ float bound() const { return tmax; }
+  __device__ __forceinline__ bool done() const { return hit; }
+  __device__ __forceinline__ void accept(float, float, float, float) {
+    hit = true;
+  }
+};
+
+// A single-hit kernel's output row: [t u v id 0 0 0 0], or [flag 0 ...].
+template <bool OCCL, class P>
+__device__ __forceinline__ void write_hit(const P& pol, float* o) {
+  if constexpr (OCCL) {
+    o[0] = pol.hit ? 1.0f : 0.0f;
+    o[1] = o[2] = o[3] = 0.0f;
+  } else {
+    o[0] = pol.t;
+    o[1] = pol.u;
+    o[2] = pol.v;
+    o[3] = pol.id;
+  }
+  o[4] = o[5] = o[6] = o[7] = 0.0f;
+}
+
 // The walk of one block over its sorted candidate list.  P is the hit
 // policy: bound() (the thread's current exit and Moller-Trumbore limit),
 // done() (an any-hit thread that has its hit) and accept(t, u, v, id).
@@ -779,6 +844,83 @@ __device__ void block_walk(const Ray& ray, P& pol,
     cp_async_wait<0>();
   }
   cp_async_wait<0>();
+}
+
+// --------------------------------------------------------------------------
+// The candidate stage as a launch of its own
+// --------------------------------------------------------------------------
+
+// Block b builds its sorted list: in shared memory, or above kMaxSuper in
+// row b of `glist` (list_stride(S) words a row), where it stays for the
+// walk launch, with its count in gcount[b] when gcount is non-null.  With
+// `slist` non-null it also writes the list out as the candidate stage
+// alone returns it: slist[b, :count] (int32) and skey[b, :count] (float32),
+// rows of num_s, and the count in scount[b].
+template <class W>
+__global__ void __launch_bounds__(kBlk)
+block_candidates_kernel(const float* __restrict__ rays,
+                        const float* __restrict__ sbox, int num_s,
+                        unsigned long long* __restrict__ glist,
+                        int* __restrict__ gcount, int* __restrict__ slist,
+                        float* __restrict__ skey, int* __restrict__ scount,
+                        unsigned long long* __restrict__ work_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockSmem sm(smem, num_s);
+  const Ray ray =
+      load_ray(rays + ((size_t)blockIdx.x * kBlk + threadIdx.x) * 8);
+  W work;
+  unsigned long long* list =
+      sm.list ? sm.list : glist + blockIdx.x * list_stride(num_s);
+  const int count = block_candidates(ray, sbox, num_s, list, sm.feat, work);
+  work.flush(work_out);
+  if (slist) {
+    const size_t row = (size_t)blockIdx.x * num_s;
+    for (int i = threadIdx.x; i < count; i += kBlk) {
+      const unsigned long long e = list[i];
+      slist[row + i] = (int)(e & 0xffffffffu);
+      skey[row + i] = __uint_as_float((unsigned)(e >> 32));
+    }
+    if (threadIdx.x == 0) scount[blockIdx.x] = count;
+  }
+  if (gcount && threadIdx.x == 0) gcount[blockIdx.x] = count;
+}
+
+// Host side: launch the list stage for num_rays rays (see above); the
+// counting instantiation when `work` is non-null.
+inline cudaError_t launch_candidates(const void* rays, const void* sbox,
+                                     int num_rays, int num_s, void* glist,
+                                     void* gcount, void* slist, void* skey,
+                                     void* scount, void* work,
+                                     cudaStream_t stream) {
+  auto* k = work ? block_candidates_kernel<Work>
+                 : block_candidates_kernel<NoWork>;
+  const size_t smem = block_smem_bytes(num_s);
+  const cudaError_t e = prepare(k, smem);
+  if (e != cudaSuccess) return e;
+  k<<<num_rays / kBlk, kBlk, smem, stream>>>(
+      static_cast<const float*>(rays), static_cast<const float*>(sbox), num_s,
+      static_cast<unsigned long long*>(glist), static_cast<int*>(gcount),
+      static_cast<int*>(slist), static_cast<float*>(skey),
+      static_cast<int*>(scount), static_cast<unsigned long long*>(work));
+  return cudaGetLastError();
+}
+
+// The walk's list and count: the block's own, built here in shared memory,
+// or (glist non-null, above kMaxSuper) the row the list launch wrote.
+template <class W>
+__device__ __forceinline__ int block_list(const Ray& ray,
+                                          const float* __restrict__ sbox,
+                                          int num_s, const BlockSmem& sm,
+                                          unsigned long long* glist,
+                                          const int* gcount,
+                                          unsigned long long*& list,
+                                          W& work) {
+  if (glist) {
+    list = glist + blockIdx.x * list_stride(num_s);
+    return gcount[blockIdx.x];
+  }
+  list = sm.list;
+  return block_candidates(ray, sbox, num_s, sm.list, sm.feat, work);
 }
 
 }  // namespace imba

@@ -53,7 +53,10 @@ class RenderSettings:
 
 class ProgressiveRenderer:
     """Accumulates frames from `frame_fn(frame_index) -> (H*W, 3)` films
-    on `device`."""
+    on `device`; `image()` divides the sum by frames * spp.  A frame's
+    film holds spp camera samples a pixel; the VCM family's one light pass
+    a frame comes weighted by spp (render_vcm_frame), so it too is at
+    full weight after the division."""
 
     def __init__(self, frame_fn, settings: RenderSettings, device):
         self.frame_fn = frame_fn

@@ -111,7 +111,7 @@ def _library():
         fn = lib.imba_khit_traverse
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p] * 2
+            ctypes.c_void_p] * 4
         fn = lib.imba_khit_resources
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -122,15 +122,18 @@ def _library():
 def khit_cuda(rays, sbox, tiles, work=None):
     """Launch the CUDA kernel (K = 4) on CUDA tensors (raises on anything
     else): one launch, which builds each block's candidate list and walks
-    it.  `work` as in stream_traverse.traverse_cuda."""
+    it (two above stream_traverse.MAX_SUPER, through its list_scratch).
+    `work` as in stream_traverse.traverse_cuda."""
     num_r, num_s = st.check_inputs(rays, sbox, tiles)
     lib = _library()
     out = torch.empty((num_r, 8 * K), dtype=torch.float32,
                       device=rays.device)
+    glist, gcount = st.list_scratch(num_r, num_s, rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.imba_khit_traverse(
         rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), out.data_ptr(),
-        num_r, num_s, K, st.work_ptr(work, rays.device), stream)
+        num_r, num_s, K, st._ptr(glist), st._ptr(gcount),
+        st.work_ptr(work, rays.device), stream)
     if err != 0:
         raise RuntimeError(f"khit kernel launch failed: CUDA error {err}")
     LAUNCHES["khit"] += 1

@@ -15,8 +15,9 @@ i's row r is tiles[i // PT, r, i % PT].  Rows: pos 0:3 (BIG for
 padding), cell key 3 (PAD_KEY for padding), w_in 4:7, throughput 7:10,
 d_vcm 10, d_vm 11, pad 12:16.
 
-Queries (`prepare_queries`, as merge_contrib prepares them): the (Q, 40)
-records of pallas_merge.py's QREC layout, sorted by anchor key: pos 0:3,
+Queries (`prepare_queries`, and on the card `prepare_cuda`, as
+merge_contrib prepares them): the (Q, 40) records of pallas_merge.py's
+QREC layout, sorted by anchor key: pos 0:3,
 tangent 3:6, bitangent 6:9, shading normal 9:12, geometric normal 12:15,
 w_out in the local frame 15:18, s_o = w_out . gn 18, d_vcm 19, d_vm 20,
 kind 21, kd 22:25, ks 25:28, ns 28, the four combo cell keys 29:33 (f32;
@@ -28,9 +29,10 @@ Output rows (Q, 8): columns 0:3 the summed contribution, 3:8 zero.  A
 query that is inactive, or whose kind is not one of the non-delta kinds
 present in the scene (`kinds`, diffuse always on), sums nothing.
 
-Dispatch: `merge_rows` runs the kernel (csrc/merge_kernel.cu) for CUDA
-tensors and the plain version for CPU tensors; nothing falls back from
-one to the other.
+Dispatch: `merge_contrib` (query preparation, gather) and `merge_rows`
+(the gather on sorted rows) run the kernels (csrc/merge_kernel.cu) for
+CUDA tensors and the plain versions for CPU tensors; nothing falls back
+from one to the other.
 """
 
 from __future__ import annotations
@@ -61,10 +63,12 @@ MAT_OREN_NAYAR = 5
 # Non-delta kinds the merge evaluates, in the kernel's kind-mask bits.
 MERGE_KINDS = (MAT_DIFFUSE, MAT_GLOSSY, MAT_PHONG, MAT_OREN_NAYAR)
 
-# Launch counts: one per kernel launch on the CUDA route, one per call of
-# the plain version.  chip_smoke.py reads them to show the main path ran
-# through the kernel.
-LAUNCHES = {"merge": 0, "plain": 0}
+# Launch counts: one per wrapper call on the CUDA route ("merge" the
+# gather, "prep" the query preparation), one per call of a plain version
+# (PLAIN_KEYS).  chip_smoke.py reads them to show the main path ran
+# through the kernels.
+LAUNCHES = {"merge": 0, "prep": 0, "plain": 0, "prep_plain": 0}
+PLAIN_KEYS = ("plain", "prep_plain")
 
 # Counter slots of a counting launch (csrc/merge_kernel.cu): photons
 # examined (in a combo key range of a live query), those within the
@@ -180,14 +184,14 @@ def combo_keys(grid: MergeGrid, qpos, active):
 
 def prepare_queries(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
                     d_vm, active):
-    """(qrec (Q, 40) sorted by anchor key, inv_perm (Q,)): the kernel's
-    input rows, and the permutation back to the caller's order."""
+    """(qrec (Q, 40) sorted by anchor key, perm (Q,) int64): the gather's
+    input rows, row i for the caller's query perm[i].  The plain version
+    of prepare_cuda."""
+    LAUNCHES["prep_plain"] += 1
     num_q = qpos.shape[0]
     keys = combo_keys(grid, qpos, active)
     sort_key = torch.where(active, keys[:, 0], 1 << 30)
     perm = torch.sort(sort_key, stable=True)[1]
-    inv_perm = torch.empty_like(perm)
-    inv_perm[perm] = torch.arange(num_q, device=qpos.device)
 
     t, b = local_coordinates(normal)
     proj = lambda v, a: (v[:, 0] * a[:, 0] + v[:, 1] * a[:, 1]
@@ -202,7 +206,7 @@ def prepare_queries(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
         torch.zeros((num_q, QREC_W - 34), dtype=torch.float32,
                     device=qpos.device),
     ], dim=1)
-    return qrec[perm].contiguous(), inv_perm
+    return qrec[perm].contiguous(), perm
 
 
 def kind_mask(kinds: tuple) -> int:
@@ -422,12 +426,14 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(LIB.build())
-        fn = lib.imba_merge
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_void_p])
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        for name, args in (
+                ("imba_merge", [vp, i, vp, i, vp, vp, i, i, vp, vp, vp, vp]),
+                ("imba_merge_sort_keys", [vp] * 4 + [i, vp, vp]),
+                ("imba_merge_query_rows", [vp] * 14 + [i, vp, vp])):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
         _lib = lib
     return _lib
 
@@ -444,9 +450,51 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be on the queries' CUDA device")
 
 
+def _launched(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def prepare_cuda(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
+                 d_vm, active):
+    """prepare_queries' (qrec, perm) on CUDA tensors (raises on anything
+    else): a kernel writes each query's anchor sort key, torch.sort orders
+    them (stable), and a second kernel writes the rows in sorted order."""
+    dev = qpos.device
+    num_q = qpos.shape[0]
+    f32 = lambda x: x.to(torch.float32).contiguous()
+    args = dict(qpos=f32(qpos), normal=f32(normal), gn=f32(gn),
+                w_out=f32(w_out), kind=params["kind"].to(
+                    torch.int32).contiguous(), kd=f32(params["kd"]),
+                ks=f32(params["ks"]), ns=f32(params["ns"]), d_vcm=f32(d_vcm),
+                d_vm=f32(d_vm), active=active.to(torch.bool).contiguous(),
+                bbox_min=f32(grid.bbox_min), inv_cell=f32(grid.inv_cell))
+    shapes = dict(kind=(num_q,), ns=(num_q,), d_vcm=(num_q,), d_vm=(num_q,),
+                  active=(num_q,), bbox_min=(3,), inv_cell=())
+    for name, x in args.items():
+        _check(name, x, x.dtype, shapes.get(name, (num_q, 3)), dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sort_key = torch.empty((num_q,), dtype=torch.int32, device=dev)
+    _launched(lib.imba_merge_sort_keys(
+        args["qpos"].data_ptr(), args["active"].data_ptr(),
+        args["bbox_min"].data_ptr(), args["inv_cell"].data_ptr(), num_q,
+        sort_key.data_ptr(), stream), "merge sort keys")
+    perm = torch.sort(sort_key, stable=True)[1]
+    qrec = torch.empty((num_q, QREC_W), dtype=torch.float32, device=dev)
+    _launched(lib.imba_merge_query_rows(
+        perm.data_ptr(), *(args[k].data_ptr() for k in (
+            "qpos", "normal", "gn", "w_out", "kind", "kd", "ks", "ns",
+            "d_vcm", "d_vm", "active", "bbox_min", "inv_cell")),
+        num_q, qrec.data_ptr(), stream), "merge query rows")
+    LAUNCHES["prep"] += 1
+    return qrec, perm
+
+
 def merge_cuda(qrec, grid: MergeGrid, scal, kinds: tuple, ppm: bool,
-               work=None):
-    """Launch the CUDA kernel on CUDA tensors (raises on anything else).
+               work=None, perm=None):
+    """Launch the gather on CUDA tensors (raises on anything else): (Q, 8)
+    rows, query i's in row i, or with `perm` (Q,) int64 in row perm[i].
     With `work`, a zeroed (len(WORK_SLOTS),) int64 tensor, the counting
     instantiation runs instead and adds its tallies to it."""
     dev = qrec.device
@@ -458,15 +506,16 @@ def merge_cuda(qrec, grid: MergeGrid, scal, kinds: tuple, ppm: bool,
     _check("scal", scal, torch.float32, (2,), dev)
     if work is not None:
         _check("work", work, torch.int64, (len(WORK_SLOTS),), dev)
+    if perm is not None:
+        _check("perm", perm, torch.int64, (num_q,), dev)
     lib = _library()
     out = torch.empty((num_q, 8), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.imba_merge(
+    _launched(lib.imba_merge(
         qrec.data_ptr(), num_q, grid.keys.data_ptr(), num_t * PT,
         grid.tiles.data_ptr(), scal.data_ptr(), int(ppm), kind_mask(kinds),
-        out.data_ptr(), None if work is None else work.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"merge kernel launch failed: CUDA error {err}")
+        None if perm is None else perm.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "merge kernel")
     LAUNCHES["merge"] += 1
     return out
 
@@ -483,9 +532,19 @@ def merge_rows(qrec, grid: MergeGrid, scal, kinds: tuple, ppm: bool):
 
 def merge_contrib(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
                   d_vm, active, mis_eta_vc, *, kinds: tuple, ppm: bool):
-    """Per-query merged photon contribution (Q, 3); the caller applies
-    throughput and the 2 / (pi r^2 n_paths) normalisation."""
-    qrec, inv_perm = prepare_queries(grid, qpos, normal, gn, w_out, params,
-                                     d_vcm, d_vm, active)
-    out = merge_rows(qrec, grid, scalars(grid, mis_eta_vc), kinds, ppm)
-    return out[inv_perm, 0:3]
+    """Per-query merged photon contribution (Q, 3) in the caller's order;
+    the caller applies throughput and the 2 / (pi r^2 n_paths)
+    normalisation.  On CUDA tensors the preparation kernels and the gather,
+    which writes each sum straight to its caller's row; on CPU tensors
+    their plain versions."""
+    args = (grid, qpos, normal, gn, w_out, params, d_vcm, d_vm, active)
+    scal = scalars(grid, mis_eta_vc)
+    if qpos.device.type == "cuda":
+        qrec, perm = prepare_cuda(*args)
+        return merge_cuda(qrec, grid, scal, kinds, ppm, perm=perm)[:, 0:3]
+    if qpos.device.type == "cpu":
+        qrec, perm = prepare_queries(*args)
+        out = torch.empty((qrec.shape[0], 8), dtype=torch.float32)
+        out[perm] = merge_plain(qrec, grid, scal, kinds, ppm)
+        return out[:, 0:3]
+    raise ValueError(f"unsupported device {qpos.device}")

@@ -10,8 +10,11 @@ Replaces the TPU kernels
 which compute one function over the same `(sbox, tiles)` packing, and so
 does `csrc/stream_traverse.cu` (its header note says what bounds it).
 Each launch builds its blocks' candidate lists on the card
-(csrc/traverse_common.cuh block_candidates); `superchunk_candidates` is
-that stage's plain version, and `block_candidates` runs the stage alone.
+(csrc/traverse_common.cuh block_candidates) in shared memory; above
+MAX_SUPER super-chunks a list launch of its own writes them to a global
+scratch buffer (list_scratch), which the walk launch reads.
+`superchunk_candidates` is that stage's plain version, and
+`block_candidates` runs the stage alone.
 
 Layouts (shared with the JAX package):
   rays  : (R, 8) f32 rows [ox oy oz tmin dx dy dz tmax], R % BLK == 0,
@@ -60,9 +63,10 @@ BIG = 1e30
 # Super-chunk boxes slab-tested at once when building candidate lists.
 CAND_GROUP = 32
 # The most super-chunks a CUDA block's candidate list holds in shared
-# memory (csrc/traverse_common.cuh kMaxSuper), and the bytes of a block's
-# other staging buffers (kTailBytes: two candidate buffers of 1,632 bytes,
-# two feature batches of 8 chunks x 17 rows x 16 floats).
+# memory (csrc/traverse_common.cuh kMaxSuper; above it the lists go through
+# a global scratch buffer), and the bytes of a block's other staging
+# buffers (kTailBytes: two candidate buffers of 1,632 bytes, two feature
+# batches of 8 chunks x 17 rows x 16 floats).
 MAX_SUPER = 16384
 _SMEM_TAIL = 2 * 1632 + 2 * 8 * 17 * 16 * 4
 
@@ -435,10 +439,10 @@ def _library():
         fn = lib.imba_stream_traverse
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p] * 2
+            ctypes.c_void_p] * 4
         fn = lib.imba_block_candidates
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
         fn = lib.imba_stream_resources
         fn.restype = ctypes.c_int
@@ -457,25 +461,64 @@ def _check(name, x, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def list_stride(num_s: int) -> int:
+    """Entries of one block's candidate list: a power of two >= max(S, 2)
+    (csrc/traverse_common.cuh list_stride)."""
+    return 1 << (max(num_s, 2) - 1).bit_length()
+
+
 def block_smem_bytes(num_s: int) -> int:
     """Dynamic shared memory of a stream or khit block at S = num_s
     (csrc/traverse_common.cuh block_smem_bytes): the sorted candidate list,
-    8 bytes an entry over a power of two >= max(S, 2), and the staging
-    buffers."""
-    return 8 * (1 << (max(num_s, 2) - 1).bit_length()) + _SMEM_TAIL
+    8 bytes an entry over list_stride(S) (none above MAX_SUPER, where the
+    list is global), and the staging buffers."""
+    return (0 if num_s > MAX_SUPER else 8 * list_stride(num_s)) + _SMEM_TAIL
 
 
-def check_capacity(num_s: int):
-    """Raise before a launch whose candidate lists cannot fit a block's
-    shared memory beside its staging buffers."""
-    if num_s > MAX_SUPER:
-        raise ValueError(
-            f"sbox: {num_s} super-chunks exceed the cap of {MAX_SUPER} that "
-            f"a CUDA block's candidate list in shared memory holds "
-            f"({block_smem_bytes(MAX_SUPER)} bytes of the 232,448 a block "
-            f"may use)")
+def list_scratch_bytes(num_r: int, num_s: int) -> int:
+    """Bytes of the global candidate-list buffer a launch over num_r rays
+    at S = num_s needs: none up to MAX_SUPER, else one list_stride(S) row
+    of 8-byte entries for each 128-ray block."""
+    if num_s <= MAX_SUPER:
+        return 0
+    return (num_r // BLK) * list_stride(num_s) * 8
+
+
+def check_capacity(num_s: int, num_r: int = BLK, limit: int = None):
+    """Raise before a launch over num_r rays at S = num_s that cannot run:
+    a BVH with no super-chunk, or a global list buffer (above MAX_SUPER)
+    of more than `limit` bytes, the card's memory."""
     if num_s < 1:
         raise ValueError("sbox: the BVH has no super-chunk")
+    need = list_scratch_bytes(num_r, num_s)
+    if limit is not None and need > limit:
+        raise ValueError(
+            f"sbox: the candidate lists of {num_r} rays over {num_s} "
+            f"super-chunks need a global buffer of {need:,} bytes, more than "
+            f"the card's {limit:,}")
+
+
+def _card_memory(device):
+    """Bytes of memory of the card `device` is on (None off a card)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def list_scratch(num_r: int, num_s: int, device):
+    """(glist, gcount) buffers of a launch above MAX_SUPER (None, None at
+    or below it): num_r / 128 rows of list_stride(S) int64 entries, and
+    one int32 count a row."""
+    if num_s <= MAX_SUPER:
+        return None, None
+    num_b = num_r // BLK
+    return (torch.empty((num_b * list_stride(num_s),), dtype=torch.int64,
+                        device=device),
+            torch.empty((num_b,), dtype=torch.int32, device=device))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def check_inputs(rays, sbox, tiles, inst=None):
@@ -489,7 +532,7 @@ def check_inputs(rays, sbox, tiles, inst=None):
     num_r, num_s = rays.shape[0], sbox.shape[0]
     _check("rays", rays, torch.float32, (num_r, 8))
     _check("sbox", sbox, torch.float32, (num_s, 8))
-    check_capacity(num_s)
+    check_capacity(num_s, num_r, _card_memory(rays.device))
     named = [("rays", rays), ("sbox", sbox)]
     if tiles is not None:
         num_t = num_s if inst is None else tiles.shape[0]
@@ -539,7 +582,8 @@ def work_ptr(work, device):
 
 def traverse_cuda(rays, sbox, tiles, occl: bool, work=None, inst=None):
     """Launch the CUDA kernel on CUDA tensors (raises on anything else):
-    one launch, which builds each block's candidate list and walks it.
+    one launch, which builds each block's candidate list and walks it (two
+    above MAX_SUPER: the lists, then the walk, through list_scratch).
 
     With `work`, a zeroed (len(WORK_SLOTS),) int64 tensor, the counting
     instantiation runs instead and adds its tallies to it.  `inst` selects
@@ -547,11 +591,12 @@ def traverse_cuda(rays, sbox, tiles, occl: bool, work=None, inst=None):
     num_r, num_s = check_inputs(rays, sbox, tiles, inst)
     lib = _library()
     out = torch.empty((num_r, 8), dtype=torch.float32, device=rays.device)
+    glist, gcount = list_scratch(num_r, num_s, rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.imba_stream_traverse(
         rays.data_ptr(), sbox.data_ptr(), tiles.data_ptr(), *inst_ptrs(inst),
-        out.data_ptr(), num_r, num_s, int(occl), work_ptr(work, rays.device),
-        stream)
+        out.data_ptr(), num_r, num_s, int(occl), _ptr(glist), _ptr(gcount),
+        work_ptr(work, rays.device), stream)
     if err != 0:
         raise RuntimeError(f"stream_traverse kernel launch failed: CUDA "
                            f"error {err}")
@@ -572,9 +617,10 @@ def candidates_cuda(rays, sbox):
     slist = torch.full((num_b, num_s), -1, dtype=torch.int32, device=dev)
     skey = torch.full((num_b, num_s), BIG, dtype=torch.float32, device=dev)
     scount = torch.empty((num_b,), dtype=torch.int32, device=dev)
+    glist, _ = list_scratch(num_r, num_s, dev)
     err = lib.imba_block_candidates(
         rays.data_ptr(), sbox.data_ptr(), slist.data_ptr(), skey.data_ptr(),
-        scount.data_ptr(), num_r, num_s,
+        scount.data_ptr(), _ptr(glist), num_r, num_s,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_candidates kernel launch failed: CUDA "

@@ -517,8 +517,22 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
     """One progressive VCM-family frame; returns the un-normalised
     (H*W, 3) film (divide by frames * spp for display).  `frame` is the
     frame number (Python int or integer tensor), `base_radius` the
-    frame-0 merge radius.  `mat_kinds`: the scene's material kinds (the
-    merge kernel skips absent ones; None = every non-delta kind).
+    frame-0 merge radius.
+
+    The light pass runs once a frame, whatever `spp`, and its film (light
+    tracing, and the light-side splats of BPT and VCM) is weighted by
+    `spp` before the camera pass adds its spp samples a pixel, so that the
+    division by frames * spp leaves it at full weight.  Each of a pixel's
+    spp camera samples pairs with the same light paths, so the camera-side
+    techniques are averaged over spp samples while the light splats come
+    from one pass.  The MIS weights of all techniques still sum to one,
+    so the estimator stays unbiased, although at spp > 1 the weights no
+    longer follow the balance heuristic for the actual sample counts.  At
+    spp 1 nothing changes.  (The JAX package adds the light film once, so
+    at spp > 1 its light tracing is 1/spp of this one.)
+
+    `mat_kinds`: the scene's material kinds (the merge kernel skips absent
+    ones; None = every non-delta kind).
     `light_band` / `camera_band` are the band sizes (estimator-neutral).
     With `stats`, a dict, it records the collected and kept vertex
     counts ("collected", "cache") and the photon count ("photons"); if
@@ -554,6 +568,7 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                 max_len=max_len, alpha_fn=alpha_fn, has_bump=has_bump,
                 techniques=techniques, path_start=start, band_paths=bp)
             film = film + light_film
+        film = film * float(spp)
         if collect is not None:
             # Canonical (path, bounce) layout of the shallowest vertices:
             # the same set and order under any band schedule.

@@ -160,6 +160,56 @@ def test_inst_inputs_are_checked(boxes):
         st.traverse_cuda(rays, bvh2.sbox, bvh2.tiles, False, inst=bvh2.inst)
 
 
+def test_plain_route_beyond_the_list_cap_matches_jax():
+    """A two-level scene of 131^2 = 17,161 card instances (one super-chunk
+    each) lies above the 16,384 super-chunks a CUDA block's candidate list
+    holds in shared memory (the kernels then take their global-list
+    route); the plain route has no cap and returns the JAX stream route's
+    rows on a few hundred rays, at the tolerances above."""
+    import chip_smoke
+
+    mesh, insts = chip_smoke.card_grid()
+    tl = build_two_level([mesh], insts)
+    assert tl.sbox.shape[0] == 131 * 131 > st.MAX_SUPER
+    bvh = DeviceBvh.from_two_level(tl.sbox, tl.tiles, tl.tile_idx,
+                                   tl.inst_of, tl.itab, device="cpu")
+    jl = jtwo([mesh], insts)
+    inst = (jnp.asarray(jl.tile_idx), jnp.asarray(jl.inst_of),
+            jnp.asarray(jl.itab))
+    rays = chip_smoke.card_grid_rays(256, 5)
+    org, d = rays[:, 0:3].numpy(), rays[:, 4:7].numpy()
+    tmax = np.where(rays[:, 7].numpy() >= 0.0, 1e30, -1.0)
+    occ_tmax = np.random.RandomState(6).uniform(0.5, 3.0, 256)
+
+    def run():
+        h = ps.closest_hit_stream(jnp.asarray(jl.sbox), jnp.asarray(jl.tiles),
+                                  jnp.asarray(org), jnp.asarray(d), 1e-3,
+                                  BIG, active=jnp.asarray(tmax >= 0), inst=inst)
+        occ = ps.any_hit_stream(jnp.asarray(jl.sbox), jnp.asarray(jl.tiles),
+                                jnp.asarray(org), jnp.asarray(d), 1e-3,
+                                jnp.asarray(occ_tmax, jnp.float32),
+                                active=jnp.asarray(tmax >= 0), inst=inst)
+        return [np.asarray(x) for x in h], np.asarray(occ)
+
+    (jt, jid, _, _), jocc = _interp(run)
+    o, dd = torch.from_numpy(org), torch.from_numpy(d)
+    act = torch.from_numpy(tmax >= 0)
+    h = tt.closest_hit(bvh, o, dd, 1e-3, BIG, active=act)
+    pid = h.prim_id.numpy()
+    assert (pid >= 0).sum() > 100 and pid.max() > 2 * st.MAX_SUPER
+    live = tmax >= 0
+    tie = (pid != jid) & (h.t.numpy() == jt)
+    assert ((pid == jid) | tie)[live].all()
+    same = (pid == jid) & (pid >= 0)
+    np.testing.assert_allclose(h.t.numpy()[same], jt[same], rtol=1e-5,
+                               atol=1e-6)
+    occ = tt.any_hit(bvh, o, dd, 1e-3,
+                     torch.as_tensor(occ_tmax, dtype=torch.float32),
+                     active=act).numpy()
+    np.testing.assert_array_equal(occ[live], jocc[live])
+    assert 0 < occ[live].sum() < live.sum()
+
+
 @pytest.fixture(scope="module")
 def masked_scenes(tmp_path_factory):
     path = write_instanced_scene(str(tmp_path_factory.mktemp("masked")),

@@ -1,7 +1,9 @@
 """The CUDA kernels (the traversal kernels csrc/stream_traverse.cu, its
-instanced variant included, csrc/khit_traverse.cu and
-csrc/pairs_kernel.cu, and the photon-merge kernel csrc/merge_kernel.cu)
-against their plain PyTorch versions on the same inputs.  Needs an
+instanced variant included, and csrc/khit_traverse.cu, also above the
+16,384 super-chunks a shared-memory candidate list holds; the pair
+route's kernels csrc/pairs_kernel.cu; the photon-merge gather and its
+query preparation csrc/merge_kernel.cu) against their plain PyTorch
+versions on the same inputs.  Needs an
 NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
 test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
@@ -14,9 +16,13 @@ for bit; the tests allow 1e-5 relative.  Ids are equal except where the
 two hits have bit-equal t; any-hit flags may differ on 1 ray in 4096.
 The k-nearest t vectors must be equal.  The kernels' candidate stage
 must equal superchunk_candidates exactly: counts, and lists and keys up
-to each block's count bit for bit (a key of -0 counts as +0).  Merge sums
+to each block's count bit for bit (a key of -0 counts as +0), and so must
+the pair route's per-ray candidates (ray_candidates: idx, count and
+mindrop equal, entry t as bits).  The card's pair queue holds the lanes
+of build_queue, run by run as sets, and segment_table's rows.  Merge sums
 agree within 1e-4 relative (only powf and torch.pow round differently),
-with equal counted work.
+with equal counted work; the card's query rows equal prepare_queries' bit
+for bit.
 """
 
 from functools import partial
@@ -275,6 +281,68 @@ def test_cuda_wide_list_launches(cuda_device):
     assert w["slab"] > 0 and w["retest"] == 0 and w["mt_empty"] == 0
 
 
+@pytest.fixture(scope="module")
+def card_grid_bvhs():
+    """chip_smoke.card_grid's 17,161 cards, above the 16,384 super-chunks a
+    shared-memory list holds: its two-level BVH (one tile, one super-chunk
+    an instance) and a flat BVH of one super-chunk a card (1.7 GB of
+    tiles), both on the card."""
+    import chip_smoke
+    from imbatracer_torch.accel.device import DeviceBvh
+    from imbatracer_torch.accel.instancing import build_two_level
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh, insts = chip_smoke.card_grid()
+    tl = build_two_level([mesh], insts)
+    two = DeviceBvh.from_two_level(tl.sbox, tl.tiles, tl.tile_idx,
+                                   tl.inst_of, tl.itab, device="cuda")
+    flat = chip_smoke.wide_flat_bvh(mesh, insts, "cuda")
+    return two, flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["instanced", "flat", "khit", "candidates"])
+def test_cuda_kernels_beyond_the_list_cap(cuda_device, card_grid_bvhs, kind):
+    """Above MAX_SUPER the candidate lists go through a global buffer (a
+    list launch, then the walk): the stream kernel (instanced and flat),
+    khit and the candidate stage alone equal their plain versions, run on
+    the card's tensors."""
+    import chip_smoke
+
+    two, (sbox, tiles) = card_grid_bvhs
+    num_s = sbox.shape[0]
+    assert num_s > st.MAX_SUPER and st.list_scratch_bytes(4096, num_s) > 0
+    closest = chip_smoke.card_grid_rays(4096, 3).to(cuda_device)
+    anyr = chip_smoke.card_grid_rays(4096, 3, bounded=True).to(cuda_device)
+    if kind == "candidates":
+        got = st.candidates_cuda(anyr, sbox)
+        ref = st.superchunk_candidates(anyr, sbox)
+        assert st.candidate_mismatches(got, ref) == (0, 0, 0)
+        assert int(ref[2].sum()) > 0
+        return
+    if kind == "khit":
+        k = kh.khit_cuda(closest, sbox, tiles)
+        p = kh.khit_plain(closest, sbox, tiles)
+        assert torch.equal(k[:, 0::8], p[:, 0::8])
+        assert int((p[:, 3] >= 0).sum()) > 100
+        return
+    bvh_sbox, bvh_tiles, inst = ((two.sbox, two.tiles, two.inst)
+                                 if kind == "instanced" else
+                                 (sbox, tiles, None))
+    for rays, occl in ((closest, False), (anyr, True)):
+        work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                           device=cuda_device)
+        k = st.traverse_cuda(rays, bvh_sbox, bvh_tiles, occl, work=work,
+                             inst=inst)
+        assert torch.equal(k, st.traverse_cuda(rays, bvh_sbox, bvh_tiles,
+                                               occl, inst=inst))
+        assert int(work[st.WORK_SLOTS.index("cand_slab")]) >= \
+            rays.shape[0] * (num_s // 8)
+        _hold_rows(k, st.traverse_plain(rays, bvh_sbox, bvh_tiles, occl,
+                                        inst).cpu(), occl)
+
+
 @pytest.mark.cuda
 def test_cuda_masked_traversal_matches_cpu(cuda_device):
     from imbatracer_torch.render.integrators.pt import alpha_fn_for
@@ -457,45 +525,159 @@ def test_cuda_instanced_kernel_matches_plain(cuda_device, instanced_scene,
         st.traverse_cuda(rg, gpu.bvh.sbox, gpu.bvh.tiles, occl)
 
 
+def _pair_case(instanced_scene, instanced, occl, seed):
+    """(scene on the CPU, rays (4096, 8)) of the pair tests: the instanced
+    scene or make_big_scene(700) (S = 12), both above K_MAX."""
+    from imbatracer_torch.ops import pairs as pm
+
+    if instanced:
+        scene, rays = instanced_scene, _inst_rays(4096, seed, occl)
+    else:
+        scene, _ = make_big_scene(700, seed=9, device="cpu")
+        rays = _rays(4096, seed, scene, occl)
+    assert scene.bvh.sbox.shape[0] > pm.K_MAX
+    return scene, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instanced", [False, True])
+@pytest.mark.parametrize("occl", [False, True])
+def test_cuda_pair_candidates_and_queue_match_plain(cuda_device,
+                                                    instanced_scene,
+                                                    instanced, occl):
+    """The candidates kernel against ray_candidates (idx, count, mindrop
+    equal, entry t as bits with -0 read as +0), and the card's queue
+    against build_queue: each super-chunk's run holds the same pair
+    slots, the counts are build_queue's, and the segment table is
+    segment_table's.  k_max is 2, so that many rays saturate."""
+    from imbatracer_torch.ops import pairs as pm
+
+    scene, rays = _pair_case(instanced_scene, instanced, occl, 4)
+    num_s = scene.bvh.sbox.shape[0]
+    rg, sg = rays.to(cuda_device), scene.bvh.sbox.to(cuda_device)
+    before = pm.LAUNCHES["candidates"]
+    idx, ent, count, mindrop, hist, rank = pm.candidates_cuda(rg, sg, 2)
+    assert pm.LAUNCHES["candidates"] == before + 1
+    ridx, rent, rcount, rmin = pm.ray_candidates(rays, scene.bvh.sbox, 2)
+    assert torch.equal(idx.cpu(), ridx)
+    assert torch.equal(count.cpu(), rcount)
+    assert torch.equal(mindrop.cpu(), rmin)
+    assert torch.equal((ent.cpu() + 0.0).view(torch.int32),
+                       (rent + 0.0).view(torch.int32))
+    assert int((rcount > 2).sum()) > 0
+
+    order, seg, nseg = pm.queue_cuda(idx, rank, hist)
+    _, rsc, rorder = pm.build_queue(ridx, rays, num_s)
+    total = int((ridx >= 0).sum())
+    assert torch.equal(hist.cpu().long(),
+                       torch.bincount(ridx[ridx >= 0].long(),
+                                      minlength=num_s))
+    got = order[:total].cpu().long()
+    assert torch.equal(ridx.view(-1)[got].long(), rsc[:total].long())
+    key = ridx.view(-1)[got].long() * ridx.numel() + got
+    assert torch.equal(got[torch.sort(key)[1]], rorder[:total])
+    tab = pm.segment_table(hist.cpu())
+    assert int(nseg) == tab.shape[0]
+    assert torch.equal(seg[:tab.shape[0]].cpu(), tab)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("instanced", [False, True])
 @pytest.mark.parametrize("occl", [False, True])
 def test_cuda_pairs_kernel_matches_plain(cuda_device, instanced_scene,
                                          instanced, occl):
-    """The pair kernel against its plain version on one queue, and the
-    whole pairs route on the card against the stream route's plain
-    version (S > K_MAX on both scenes, so the fallback runs)."""
+    """The pair kernel against its plain version on the card's queue, the
+    resolve kernel against resolve on the kernel's lanes, and the whole
+    pairs route on the card against the stream route's plain version, at
+    k_max 2 and K_MAX (S > K_MAX on both scenes; at 2 the fallback
+    runs)."""
     from imbatracer_torch.ops import pairs as pm
 
-    if instanced:
-        scene, rays = instanced_scene, _inst_rays(4096, 5, occl)
-    else:
-        scene, _ = make_big_scene(700, seed=9, device="cpu")      # S = 12
-        rays = _rays(4096, 5, scene, occl)
-    assert scene.bvh.sbox.shape[0] > pm.K_MAX
+    scene, rays = _pair_case(instanced_scene, instanced, occl, 5)
     gpu = scene.to(cuda_device)
     inst, ginst = scene.bvh.inst, gpu.bvh.inst
-    idx, _, _, _ = pm.ray_candidates(rays, scene.bvh.sbox)
-    qrows, sc, _ = pm.build_queue(idx, rays, scene.bvh.sbox.shape[0])
+    rg = rays.to(cuda_device)
+    sbox, tiles = gpu.bvh.sbox, gpu.bvh.tiles
+    idx, _, count, mindrop, hist, rank = pm.candidates_cuda(rg, sbox, 2)
+    k = idx.shape[1]
+    order, seg, nseg = pm.queue_cuda(idx, rank, hist)
     key = st.launch_key(occl, inst)
     before = pm.LAUNCHES[key]
-    k = pm.pairs(qrows.to(cuda_device), sc.to(cuda_device), gpu.bvh.tiles,
-                 occl, ginst)
+    lanes = pm.pairs_cuda(rg, sbox, tiles, order, seg, nseg, k, occl, ginst)
     assert pm.LAUNCHES[key] == before + 1
-    p = pm.pairs_plain(qrows, sc, scene.bvh.tiles, occl, inst)
+    total = int(hist.sum())
+    slots = order[:total].long()
+    rows = rg[slots // k].clone()
+    p = pm.pairs_plain(rows.cpu(), idx.view(-1)[slots].cpu(),
+                       scene.bvh.tiles, occl, inst)
     if occl:
-        assert int((k.cpu()[:, 0] != p[:, 0]).sum()) <= 1
+        assert int((lanes[slots].cpu()[:, 0] != p[:, 0]).sum()) <= 1
     else:
-        _hold_rows(k, p, occl)
+        _hold_rows(lanes[slots], p, occl)
     work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
                        device=cuda_device)
-    gq, gsc = qrows.to(cuda_device), sc.to(cuda_device)
-    assert torch.equal(pm.pairs_cuda(gq, gsc, gpu.bvh.tiles, occl, ginst,
-                                     work=work),
-                       pm.pairs_cuda(gq, gsc, gpu.bvh.tiles, occl, ginst))
+    again = pm.pairs_cuda(rg, sbox, tiles, order, seg, nseg, k, occl, ginst,
+                          work=work)
+    assert torch.equal(again[slots], lanes[slots])
+    assert int(work[st.WORK_SLOTS.index("mt_hit")]) > 0
 
-    route = pm.pair_rows(rays.to(cuda_device), gpu.bvh.sbox, gpu.bvh.tiles,
-                         occl, ginst)
+    out, _, sat, nsat = pm.resolve_cuda(rg, lanes, count, mindrop, k, occl)
+    want, want_sat = pm.resolve(rg, lanes, count, mindrop, k, occl)
+    assert torch.equal(out, want) and torch.equal(sat, want_sat)
+    assert int(nsat) == int(want_sat.sum()) > 0
+
     plain = st.traverse_plain(rays, scene.bvh.sbox, scene.bvh.tiles, occl,
                               inst)
-    _hold_rows(route, plain, occl)
+    for k_max in (2, pm.K_MAX):
+        _hold_rows(pm.pair_rows(rg, sbox, tiles, occl, ginst, k_max), plain,
+                   occl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [(0,), (0, 3, 4, 5)])
+def test_cuda_merge_preparation_matches_plain(cuda_device, kinds):
+    """The query preparation kernels against prepare_queries: rows and
+    permutation bit for bit; and merge_contrib on the card (preparation,
+    the gather writing each caller's row) against the CPU's, within the
+    gather's 1e-4."""
+    from imbatracer_torch.ops import merge as mg
+
+    rs = np.random.RandomState(8)
+    num_p, num_q = 3000, 2000
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+
+    def unit(n):
+        v = rs.randn(n, 3)
+        return f32(v / np.linalg.norm(v, axis=1, keepdims=True))
+
+    grid = mg.build_merge_grid(
+        f32(rs.rand(num_p, 3)), torch.from_numpy(rs.rand(num_p) > 0.1), 0.07,
+        unit(num_p), f32(rs.rand(num_p, 3)), f32(rs.rand(num_p)),
+        f32(rs.rand(num_p)))
+    n = unit(num_q)
+    args = dict(
+        qpos=f32(rs.rand(num_q, 3) * 1.2 - 0.1), normal=n,
+        gn=torch.nn.functional.normalize(n + 0.1 * unit(num_q), dim=1),
+        w_out=unit(num_q),
+        params=dict(kind=torch.from_numpy(rs.choice(kinds, num_q).astype(
+            np.int32)), kd=f32(rs.rand(num_q, 3)), ks=f32(rs.rand(num_q, 3)),
+            ns=f32(1.0 + rs.rand(num_q) * 30.0)),
+        d_vcm=f32(rs.rand(num_q) * 2), d_vm=f32(rs.rand(num_q) * 2),
+        active=torch.from_numpy(rs.rand(num_q) > 0.15))
+    on = lambda x: ({k: v.to(cuda_device) for k, v in x.items()}
+                    if isinstance(x, dict) else x.to(cuda_device))
+    gargs = {k: on(v) for k, v in args.items()}
+    ggrid = grid.to(cuda_device)
+    before = mg.LAUNCHES["prep"]
+    qrec, perm = mg.prepare_cuda(ggrid, **gargs)
+    assert mg.LAUNCHES["prep"] == before + 1
+    want, wperm = mg.prepare_queries(grid, **args)
+    assert torch.equal(perm.cpu(), wperm)
+    assert torch.equal(qrec.cpu().view(torch.int32), want.view(torch.int32))
+    got = mg.merge_contrib(ggrid, **gargs, mis_eta_vc=0.3, kinds=kinds,
+                           ppm=False).cpu()
+    ref = mg.merge_contrib(grid, **args, mis_eta_vc=0.3, kinds=kinds,
+                           ppm=False)
+    scale = torch.clamp(ref.abs(), min=1e-6 * float(ref.abs().max()))
+    assert float(((got - ref).abs() / scale).max()) <= 1e-4
+    assert float(ref.sum()) > 0.0

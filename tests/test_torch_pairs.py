@@ -222,3 +222,72 @@ def test_pairs_switch_routes_sorted_dispatches(flat_case):
     assert sb.sbox.shape[0] < tt.PAIRS_MIN_SUPERCHUNKS
     tt.closest_hit(sb, o[:64] * 0.01, dd[:64], 1e-3, BIG, sort=True)
     assert pm.LAUNCHES["plain"] == p0 + 2
+
+
+@pytest.mark.parametrize("seg_len", [7, pm.SEG])
+def test_segment_table_cuts_the_runs(flat_case, seg_len):
+    """segment_table, the plain version of the card queue's table: rows
+    ascend by super-chunk and tile build_queue's valid lanes [0, total)
+    without a gap, each row's lanes share its super-chunk, and every
+    segment is full but a run's last."""
+    bvh, org = flat_case
+    d, act, _ = _rays(org, 6)
+    rays, _ = st.rays8(torch.from_numpy(org), torch.from_numpy(d), 1e-3, BIG,
+                       torch.from_numpy(act))
+    num_s = bvh.sbox.shape[0]
+    idx, _, _, _ = pm.ray_candidates(rays, bvh.sbox)
+    _, sc, _ = pm.build_queue(idx, rays, num_s)
+    counts = torch.bincount(idx[idx >= 0].long(), minlength=num_s)
+    tab = pm.segment_table(counts.to(torch.int32), seg_len)
+    assert tab.dtype == torch.int32 and tab.shape[1] == 4
+    tab = tab.long()
+    sc_of, start, length = tab[:, 0], tab[:, 1], tab[:, 2]
+    total = int(counts.sum())
+    assert bool(((length >= 1) & (length <= seg_len)).all())
+    assert torch.equal(start, torch.cumsum(length, 0) - length)
+    assert int(length.sum()) == total
+    assert torch.equal(torch.repeat_interleave(sc_of, length),
+                       sc[:total].long())
+    last = torch.ones_like(sc_of, dtype=torch.bool)
+    last[:-1] = sc_of[1:] != sc_of[:-1]
+    assert bool((length[~last] == seg_len).all())
+    assert int((counts > seg_len).sum()) > 0
+    assert bool((tab[:, 3] == 0).all())
+
+
+@pytest.mark.parametrize("occl", [False, True])
+def test_resolve_matches_the_route_logic(inst_case, occl):
+    """resolve, the plain version of the resolve kernel, against the
+    route's logic it took over: the queue's lanes put back in pair order,
+    the argmin over a ray's k lanes (a lane past the ray's count is a miss
+    at tmax -1), the miss row at tmax, and the saturation flag; k = 2, so
+    that many rays saturate."""
+    bvh, org, _ = inst_case
+    d, act, tmax = _rays(org, 8)
+    rays, _ = st.rays8(torch.from_numpy(org), torch.from_numpy(d), 1e-3,
+                       torch.from_numpy(tmax) if occl else BIG,
+                       torch.from_numpy(act))
+    num_r = rays.shape[0]
+    idx, _, count, mindrop = pm.ray_candidates(rays, bvh.sbox, 2)
+    k = idx.shape[1]
+    rows, sc, order = pm.build_queue(idx, rays, bvh.sbox.shape[0])
+    lanes = torch.empty((num_r * k, 8))
+    lanes[order] = pm.pairs_plain(rows, sc, bvh.tiles, occl, bvh.inst)
+    out, sat = pm.resolve(rays, lanes, count, mindrop, k, occl)
+
+    res, ray_tmax = lanes.view(num_r, k, 8), rays[:, 7]
+    if occl:
+        occ = (res[:, :, 0] > 0.0).any(dim=1)
+        want = torch.zeros_like(rays)
+        want[:, 0] = occ.to(torch.float32)
+        want_sat = (count > k) & ~occ
+    else:
+        t = torch.where(res[:, :, 3] >= 0.0, res[:, :, 0], BIG)
+        want = res[torch.arange(num_r), torch.argmin(t, dim=1)]
+        found = want[:, 3] >= 0.0
+        want[:, 0] = torch.where(found, want[:, 0], ray_tmax)
+        want_sat = (count > k) & (~found | (want[:, 0] > mindrop))
+    want_sat = want_sat & (ray_tmax >= 0.0)
+    assert torch.equal(out, want)
+    assert torch.equal(sat, want_sat)
+    assert 0 < int(sat.sum()) < num_r

@@ -229,24 +229,36 @@ def test_candidates_and_sort_keys_match_jax(big, instanced, case):
 
 @pytest.mark.parametrize("wrapper", ["stream", "khit", "candidates"])
 def test_candidate_capacity_check_raises_with_the_cap(wrapper):
-    """A CUDA wrapper raises before its launch when the block's candidate
-    list cannot hold S super-chunks in shared memory; the message names
-    the cap.  Checked with CPU tensors: the capacity check comes before
+    """Above the MAX_SUPER super-chunks a block's list holds in shared
+    memory, the lists go through a global buffer of list_scratch_bytes, so
+    the CUDA wrappers no longer raise for a large S: check_capacity
+    accepts S = 20,000, and raises for a BVH with no super-chunk and for a
+    global buffer larger than the card's memory, with the byte count in
+    its message.  Checked with CPU tensors: the capacity check comes before
     the device check."""
     from imbatracer_torch.ops import khit as kh
 
-    num_s = st.MAX_SUPER + 1
     rays = torch.zeros((st.BLK, 8))
-    sbox = torch.zeros((num_s, 8))
-    tiles = torch.zeros((num_s, st.TILE_ROWS, st.TRI_ROWS))
+    sbox = torch.zeros((0, 8))
+    tiles = torch.zeros((0, st.TILE_ROWS, st.TRI_ROWS))
     call = {"stream": lambda: st.traverse_cuda(rays, sbox, tiles, False),
             "khit": lambda: kh.khit_cuda(rays, sbox, tiles),
             "candidates": lambda: st.candidates_cuda(rays, sbox)}[wrapper]
-    with pytest.raises(ValueError, match=f"cap of {st.MAX_SUPER}"):
+    with pytest.raises(ValueError, match="no super-chunk"):
         call()
+    st.check_capacity(20000)
     st.check_capacity(st.MAX_SUPER)
+    with pytest.raises(ValueError, match="no super-chunk"):
+        st.check_capacity(0)
+    need = st.list_scratch_bytes(1 << 18, 20000)
+    assert need == 2048 * 32768 * 8
+    assert st.list_scratch_bytes(1 << 18, st.MAX_SUPER) == 0
+    st.check_capacity(20000, 1 << 18, limit=need)
+    with pytest.raises(ValueError, match="536,870,912 bytes"):
+        st.check_capacity(20000, 1 << 18, limit=need - 1)
     assert st.block_smem_bytes(st.MAX_SUPER) <= 232448
-    assert st.block_smem_bytes(2 * st.MAX_SUPER) > 232448
+    assert st.block_smem_bytes(st.MAX_SUPER + 1) == \
+        st.block_smem_bytes(1) - 16
     assert st.block_smem_bytes(140) == 8 * 256 + st.block_smem_bytes(1) - 16
     assert st.block_smem_bytes(1) == st.block_smem_bytes(2)
 

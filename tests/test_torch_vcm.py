@@ -193,6 +193,42 @@ def test_light_tracing_matches_pt_on_non_square_images(width, height):
     assert abs(light / indirect - 1.0) <= 0.1
 
 
+def test_light_film_is_weighted_by_spp(scenes):
+    """The one light pass a frame is weighted by spp, so that dividing by
+    frames * spp leaves light tracing at full weight: LT at spp 4 is 4x
+    LT at spp 1 bit for bit (a power of two scales exactly), and 4x the
+    JAX package's spp-4 LT frame, which adds the light film once (the
+    deliberate difference from the reference), at the square frames'
+    tolerances."""
+    js, ts, meta = scenes["cornell"]
+    one = _port_frame(ts, meta, "lt")
+    four = _port_frame(ts, meta, "lt", spp=4)
+    assert one.sum() > 0.0
+    np.testing.assert_array_equal(four, 4.0 * one)
+    cam = jcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, W, W, 60.0)
+    jf = np.asarray(jrender(
+        js, cam, jnp.uint32(FRAME), jnp.float32(RADIUS), algo="lt", width=W,
+        height=W, spp=4, max_len=MAX_LEN, light_path_count=LPC))
+    _assert_films_agree(four, 4.0 * jf)
+
+
+@pytest.mark.parametrize("algo", ["bpt", "vcm"])
+def test_spp4_family_matches_pt(algo):
+    """At spp 4 BPT and VCM keep PT's film mean (5%) over the same frames
+    of the cornell with boxes, 32x32, max_len 4, 1,024 light paths: their
+    light splats are no longer divided by spp (BPT fell 21% below PT
+    before)."""
+    scene, meta = make_cornell_scene(with_boxes=True, device="cpu")
+    means = {}
+    for a in ("pt", algo):
+        settings = RenderSettings(width=32, height=32, spp=4, max_path_len=4,
+                                  algorithm=a, light_path_count=1024)
+        frame_fn = tengine.make_frame_fn(scene, meta, settings)[0]
+        means[a] = sum(float(frame_fn(f).mean()) for f in range(6))
+    assert means["pt"] > 0.0
+    assert abs(means[algo] / means["pt"] - 1.0) <= 0.05
+
+
 def test_light_pass_raises_on_a_cache_too_small(scenes):
     _, ts, meta = scenes["cornell"]
     cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, 16, 16, 60.0,
