@@ -126,15 +126,50 @@ failure raises and the script exits non-zero:
    PSNR_MIN.  (d) PT at 512^2 on the two-level and the
    flattened build of the scene (the flattened one masked through khit):
    images within PSNR_MIN.
+10. Split BVH, cache and interactive (after phase 8, before the output).
+   (a) make_still_life_like()'s arrays through assemble_device_scene(...,
+   spatial=True) (the function itself is unchanged): the native split
+   build's seconds beside the binned build's, references over triangles,
+   S, tile MB and sah_cost against the binned build's; on phase 4's
+   262,144 still-life bounce rays, the same rays on both builds: khit and
+   the stream kernel (closest and any) against their plain versions at
+   phase 3/4's tolerances, 0 repeated ids in any khit row (kernel and
+   plain), and khit's rows equal to the binned build's (t, and u and v
+   where the ids agree, bit for bit; ids only differing on bit-equal-t
+   ties); each kernel timed at both builds (CUDA events, 10 launches).
+   (b) The main path over the split build: PT at 1920x1080, spp 1,
+   max_len 8, a warm-up frame, reset(), 8 frames (counters zeroed just
+   before, read just after; khit must launch, no plain version run):
+   PSNR against goldens/still_life_1080p_len8.png within PSNR_TOL of
+   17.16 dB, and at least PSNR_MIN against phase 5's binned image of the
+   same frames; ms/frame beside phase 5's.  (c) A flat scene written by
+   scene/generate.write_instanced_scene at CARD's mesh sizes, one
+   instance of each mesh (38,244 triangles, below the two-level rule):
+   `python -m imbatracer_torch <scene> out.png --sbvh -a pt -s 2` twice
+   in a fresh cache directory; the first run builds the split BVH and
+   writes the cache, the second loads it; the two PNGs must be equal
+   byte for byte (else held to phase 6's tolerance on the 8-bit images,
+   and the line says which held); both runs' scene-build seconds.  (d)
+   `python -m imbatracer_torch <scene> out.png --interactive -a pt -w 640
+   -h2 360` with stdin, stdout and stderr on a pseudo-terminal, under a
+   time limit: once it has redrawn, the keys w, j, p and x with pauses;
+   it must exit 0 after drawing half-block rows, its spp count must fall
+   back after the move, and out.png must exist and not be black.
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
    its counting launch tallied over 33.5e12/s, the candidate stage's slab
    tests included and padding chunks, which the kernels skip, not, see
    bound(), pair_bound(), pair_candidates_bound() and merge_bound();
-   `route_ms` on the pair and merge entries: the route, merge_contrib),
-   the card's name and power limit, and last the {"ok": true, "device":
-   ...} line.  Every kernel must have launched on a main path.
+   `route_ms` on the pair and merge entries: the route, merge_contrib;
+   `split_ms` and `split_launches` on the khit and stream entries: the
+   kernel at the split build, phase 10a, and its launches on phase 10b's
+   main path), the card's name and power limit, and last the {"ok":
+   true, "device": ...} line.  Every kernel must have launched on a main
+   path.
+
+The script keeps its BVH disk cache (io/bvh_cache.py) in a temporary
+directory of its own, removed at the end.
 """
 
 import contextlib
@@ -142,6 +177,9 @@ import dataclasses
 import io
 import json
 import os
+import pty
+import re
+import select
 import shutil
 import subprocess
 import sys
@@ -196,6 +234,9 @@ INST_FRAMES = 2
 FLAT_SIZE = (512, 512)        # two-level vs flattened
 PSNR_MIN = 40.0               # pairs vs stream, two-level vs flattened
 CLI_SAMPLES = 1
+INTERACTIVE_SIZE = (640, 360)  # phase 10d
+SUBPROCESS_LIMIT = 300         # seconds a CLI run of phase 10 may take
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # Roofline of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
 # instructions/s outside the tensor cores.  The sheet's 67 TFLOP/s counts
 # an FMA as two operations; the kernels are built with --fmad=false, so
@@ -1581,6 +1622,319 @@ def instanced_phase(dev, card, big, stats):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def repeated_ids(rows, k):
+    """Slots of khit rows (R, 8k) whose id repeats an earlier slot's."""
+    ids = rows[:, 3::8]
+    return sum(int(((ids[:, a] >= 0) & (ids[:, a] == ids[:, b])).sum())
+               for a in range(k) for b in range(a))
+
+
+def split_still_life(dev):
+    """make_still_life_like() with its arrays passed on to
+    assemble_device_scene(..., spatial=True): (scene, meta, (v0, v1,
+    v2)).  The function and its default are left as they are."""
+    from imbatracer_torch.scene import procedural
+
+    real = procedural.assemble_device_scene
+    seen = {}
+
+    def spatial(*args, **kw):
+        seen["tris"] = args[:3]
+        return real(*args, **dict(kw, spatial=True))
+
+    procedural.assemble_device_scene = spatial
+    try:
+        scene, meta = procedural.make_still_life_like(device=dev)
+    finally:
+        procedural.assemble_device_scene = real
+    return scene, meta, seen["tris"]
+
+
+def chunk_stats(scene):
+    """What the chunk packing of a flat scene makes of its references:
+    (reference counts of the two most-referenced triangles, chunks that
+    hold either, chunks, mean surface area of the chunk boxes).  A chunk
+    box spans its triangles whole, however the builder clipped them."""
+    from imbatracer_torch.ops import stream_traverse as st
+
+    ids = scene.bvh.tri_id.long()
+    top = torch.topk(torch.bincount(ids[ids >= 0]), 2)
+    pad = scene.bvh.sbox.shape[0] * st.TRI_ROWS - ids.shape[0]
+    chunks = torch.nn.functional.pad(ids, (0, pad), value=-1).view(
+        -1, st.CHUNK)
+    holding = int(torch.isin(chunks, top.indices).any(1).sum())
+    box = st.cbox_rows(scene.bvh.tiles).reshape(-1, 6).double()
+    ext = box[:, 3:] - box[:, :3]
+    e = ext[(ext >= 0).all(1)]
+    area = 2.0 * (e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2] + e[:, 0] * e[:, 2])
+    return top.values.tolist(), holding, e.shape[0], float(area.mean())
+
+
+def split_kernels(binned, split, tris, dev, card, stats):
+    """Phase 10a: the split build's numbers, and khit and the stream
+    kernel over it, held against their plain versions and against the
+    binned build's khit rows, each timed at both builds."""
+    from imbatracer_torch.accel.builder import triangle_bboxes
+    from imbatracer_torch.accel.native import (build_bvh_native,
+                                               build_sbvh_native)
+    from imbatracer_torch.accel.sbvh import sah_cost
+    from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import stream_traverse as st
+
+    v0, v1, v2 = tris
+    t0 = time.time()
+    nodes_b = build_bvh_native(*triangle_bboxes(v0, v1, v2))
+    t_b = time.time() - t0
+    t0 = time.time()
+    nodes_s = build_sbvh_native(np.stack([v0, v1, v2], axis=1))
+    t_s = time.time() - t0
+    (sb, mb), (ss, _) = binned, split
+    refs = int((ss.bvh.tri_id >= 0).sum())
+    mbytes = lambda sc: sc.bvh.tiles.numel() * 4 / 2**20
+    log(f"[sbvh] still life, {mb.num_tris} triangles: native split build "
+        f"{t_s:.2f} s (binned {t_b:.2f} s); {refs} references = "
+        f"{refs / mb.num_tris:.4f} x the triangles; S={ss.bvh.sbox.shape[0]}"
+        f" (binned {sb.bvh.sbox.shape[0]}); tiles {mbytes(ss):.1f} MB "
+        f"(binned {mbytes(sb):.1f} MB); sah_cost {sah_cost(nodes_s):.2f} "
+        f"(binned {sah_cost(nodes_b):.2f}, ratio "
+        f"{sah_cost(nodes_s) / sah_cost(nodes_b):.4f})")
+    (refs_s, hold_s, n_s, area_s), (refs_b, hold_b, n_b, area_b) = (
+        chunk_stats(sc) for sc in (ss, sb))
+    log(f"[sbvh] chunk packing: the two most-referenced triangles have "
+        f"{refs_s} references (binned {refs_b}); {hold_s} of {n_s} chunks "
+        f"hold one (binned {hold_b} of {n_b}); mean chunk box surface area "
+        f"{area_s:.1f} (binned {area_b:.1f})")
+
+    rays = {}
+    for name, (scene, meta) in (("binned", binned), ("split", split)):
+        rays[name] = {n: (c, a) for n, c, a in
+                      ray_sets(scene, meta, dev, st)}["bounce"]
+    if not all(torch.equal(x, y) for x, y in zip(rays["binned"],
+                                                 rays["split"])):
+        raise AssertionError("[sbvh] the two builds' ray sets differ")
+    closest, anyr = rays["split"]
+    sbox, tiles = ss.bvh.sbox, ss.bvh.tiles
+    k = kh.khit_cuda(closest, sbox, tiles)
+    p5 = kh.khit_plain(closest, sbox, tiles, k=kh.K + 1)
+    kb = kh.khit_cuda(closest, sb.bvh.sbox, sb.bvh.tiles)
+    torch.cuda.synchronize()
+    text, err, bad = hold_khit(k, p5, kh.K)
+    rep_k, rep_p = repeated_ids(k, kh.K), repeated_ids(p5, kh.K + 1)
+    bits = lambda x: x.contiguous().view(torch.int32)
+    t5, present5 = p5[:, 0::8], p5[:, 3::8] >= 0
+    tie = torch.zeros_like(k[:, 3::8], dtype=torch.bool)
+    for a in range(kh.K):
+        for b in range(kh.K + 1):
+            if a != b:
+                tie[:, a] |= (t5[:, a] == t5[:, b]) & present5[:, b]
+    kid, bid = k[:, 3::8], kb[:, 3::8]
+    same = kid == bid
+    t_bits = int((bits(k[:, 0::8]) != bits(kb[:, 0::8])).sum())
+    id_off = int((~same & ~tie).sum())
+    uv_bits = sum(int(((bits(k[:, f::8]) != bits(kb[:, f::8])) & same).sum())
+                  for f in (1, 2))
+    log(f"[sbvh] khit, split build, {NUM_RAYS} sorted bounce rays: {text};"
+        f" repeated ids: kernel {rep_k}, plain {rep_p}; against the binned "
+        f"build's rows: t not bit-equal {t_bits}, ids differing off a "
+        f"bit-equal-t tie {id_off} (on ties {int((~same).sum())}), u/v not "
+        f"bit-equal where the ids agree {uv_bits}")
+    if bad or rep_k or rep_p or t_bits or id_off or uv_bits:
+        raise AssertionError("[sbvh] khit over the split build disagrees")
+    stats["khit_err"] = max(stats["khit_err"], err)
+    for key, rays_, occl in (("closest", closest, False), ("any", anyr,
+                                                            True)):
+        bad, rel, abs_err = hold_rows(st.traverse_cuda(rays_, sbox, tiles,
+                                                       occl),
+                                      st.traverse_plain(rays_, sbox, tiles,
+                                                        occl), occl)
+        log(f"[sbvh] stream {key}, split build: mismatch={bad} "
+            f"max_rel_err(t,u,v)={rel:.3e}")
+        if bad > (1e-4 * NUM_RAYS if occl else 0) or rel > 1e-5:
+            raise AssertionError(f"[sbvh] stream {key} over the split build "
+                                 f"disagrees with the plain version")
+        stats[f"{key}_err"] = max(stats[f"{key}_err"], abs_err)
+
+    for name, (scene, _) in (("binned", binned), ("split", split)):
+        c, a = rays[name]
+        sb_, tb_ = scene.bvh.sbox, scene.bvh.tiles
+        stats["sbvh", name, "khit"] = time_kernel(
+            partial(kh.khit_cuda, c, sb_, tb_), c, sb_, tb_, 8 * kh.K,
+            insert_ops=kh.K)
+        for key, rays_, occl in (("closest", c, False), ("any", a, True)):
+            stats["sbvh", name, key] = time_kernel(
+                partial(st.traverse_cuda, rays_, sb_, tb_, occl), rays_, sb_,
+                tb_, 8)
+    for kind in ("khit", "closest", "any"):
+        (b_ms, _, b_bound), (s_ms, _, s_bound) = (
+            stats["sbvh", n, kind] for n in ("binned", "split"))
+        log(f"[sbvh] {kind} at both builds, {NUM_RAYS} sorted still-life "
+            f"bounce rays [{card}]: binned (S={sb.bvh.sbox.shape[0]}) "
+            f"{b_ms:.3f} ms, bound {b_bound[0]:.4f} ms; split "
+            f"(S={ss.bvh.sbox.shape[0]}) {s_ms:.3f} ms, bound "
+            f"{s_bound[0]:.4f} ms")
+
+
+def run_sbvh_cli(path, tmp, card):
+    """Phase 10c: `python -m imbatracer_torch <scene> <png> --sbvh -a pt
+    -s 2` twice in a fresh cache directory: the first builds and caches
+    the split BVH, the second loads it; the PNGs must be equal byte for
+    byte, or else equal to phase 6's tolerance on the 8-bit images."""
+    from imbatracer_torch.io.image import load_png
+
+    env = dict(os.environ, IMBATRACER_CACHE_DIR=os.path.join(tmp, "accel"),
+               PYTHONPATH=ROOT)
+    pngs, built = [], []
+    for run, says in enumerate(("wrote BVH cache", "BVH loaded from cache")):
+        out = os.path.join(tmp, f"sbvh{run}.png")
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "imbatracer_torch", path, out, "--sbvh",
+             "-a", "pt", "-s", "2"], capture_output=True, text=True,
+            cwd=ROOT, env=env, timeout=SUBPROCESS_LIMIT)
+        m = re.search(r"scene built in ([0-9.]+)s", res.stderr)
+        built.append(float(m.group(1)) if m else float("nan"))
+        perf = [ln for ln in res.stdout.splitlines() if "Done after" in ln]
+        log(f"[cli] --sbvh run {run + 1}: rc {res.returncode} in "
+            f"{time.time() - t0:.1f} s, scene built in {built[-1]:.2f} s, "
+            f"{'; '.join(ln.split('] ', 1)[-1] for ln in res.stderr.splitlines() if 'BVH' in ln)}"
+            f"; {perf[0] if perf else 'no perf line'} [{card}]")
+        if (res.returncode != 0 or not perf or says not in res.stderr
+                or (run == 0 and "BVH (sbvh)" not in res.stderr)):
+            raise AssertionError(f"--sbvh run {run + 1} failed:\n"
+                                 f"{res.stderr[-3000:]}")
+        with open(out, "rb") as f:
+            pngs.append(f.read())
+    if pngs[0] == pngs[1]:
+        held = "equal byte for byte"
+    else:
+        a, b = (load_png(os.path.join(tmp, f"sbvh{r}.png")).astype(np.float64)
+                for r in range(2))
+        mean_rel = abs(a.mean() - b.mean()) / max(b.mean(), 1e-9)
+        within = float((np.abs(a - b).max(axis=-1) <= 1.0).mean())
+        held = (f"not byte-equal; held to phase 6's tolerance: mean rel diff "
+                f"{mean_rel:.3e}, pixels within a level {within:.4f}")
+        if not (mean_rel <= 0.01 and within >= 0.95):
+            raise AssertionError(f"--sbvh: the two runs' images differ "
+                                 f"({held})")
+    log(f"[cli] --sbvh: the second run loaded the cached split BVH; scene "
+        f"build {built[0]:.2f} s, then {built[1]:.2f} s; images {held} "
+        f"[{card}]")
+
+
+def run_interactive_pty(path, tmp, card):
+    """Phase 10d: `--interactive` on a pseudo-terminal: after it has
+    redrawn a few times, w (a move), j (a turn), p (save) and x (quit),
+    with pauses.  It must exit 0 within SUBPROCESS_LIMIT after drawing
+    half-block rows, restart its spp count after the move and leave a
+    PNG that is not black."""
+    from imbatracer_torch.io.image import load_png
+
+    out = os.path.join(tmp, "interactive.png")
+    w, h = INTERACTIVE_SIZE
+    master, slave = pty.openpty()
+    env = dict(os.environ, PYTHONPATH=ROOT, COLUMNS="100", LINES="30")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "imbatracer_torch", path, out,
+         "--interactive", "-a", "pt", "-w", str(w), "-h2", str(h)],
+        stdin=slave, stdout=slave, stderr=slave, cwd=ROOT, env=env,
+        close_fds=True)
+    os.close(slave)
+    buf = bytearray()
+
+    def read_until(pred, limit):
+        t_end = min(time.time() + limit, t0 + SUBPROCESS_LIMIT)
+        while time.time() < t_end and not pred():
+            ready, _, _ = select.select([master], [], [], 0.2)
+            if ready:
+                try:
+                    buf.extend(os.read(master, 1 << 16))
+                except OSError:
+                    break
+        return pred()
+
+    spp = lambda: [int(x) for x in re.findall(rb"(\d+) spp", bytes(buf))]
+    try:
+        if not read_until(lambda: max(spp(), default=0) >= 3, 200):
+            raise AssertionError("--interactive: no redraw")
+        seen = len(spp())
+        os.write(master, b"w")
+        fell = read_until(lambda: any(
+            b < a for a, b in zip(spp()[seen - 1:], spp()[seen:])), 60)
+        time.sleep(0.5)
+        os.write(master, b"j")
+        time.sleep(0.5)
+        os.write(master, b"p")
+        saved = read_until(lambda: os.path.exists(out), 60)
+        time.sleep(0.5)
+        os.write(master, b"x")
+        read_until(lambda: proc.poll() is not None, 60)
+        rc = proc.wait(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        os.close(master)
+    counts = spp()
+    blocks = bytes(buf).count("▀".encode())
+    mean = float(load_png(out).mean()) if os.path.exists(out) else 0.0
+    log(f"[interactive] {w}x{h} PT on a pseudo-terminal: rc {rc} after "
+        f"{time.time() - t0:.1f} s, {len(counts)} redraws (spp "
+        f"{counts[:6]}...{counts[-3:]}), spp restarted after the move "
+        f"{fell}, saved on p {saved}, half-blocks drawn {blocks}, final PNG "
+        f"mean {mean:.2f} of 255 [{card}]")
+    if rc != 0 or not fell or not saved or not blocks or not mean > 0.0:
+        raise AssertionError(f"--interactive failed:\n"
+                             f"{bytes(buf)[-3000:].decode(errors='replace')}")
+
+
+def split_phase(dev, card, still_life, binned_image, binned_ms, stats):
+    """Phase 10: the split BVH on the still life (kernels and main path),
+    the CLI's --sbvh with the cache, and --interactive.  Returns the main
+    path's launch counters."""
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+    from imbatracer_torch.utils.metrics import load_reference_png, psnr
+
+    phase("10a split BVH: the still life's build and kernels")
+    t0 = time.time()
+    scene, meta, tris = split_still_life(dev)
+    log(f"[sbvh] the split still life assembled in {time.time() - t0:.1f} s")
+    split_kernels(still_life, (scene, meta), tris, dev, card, stats)
+
+    phase("10b split BVH: the still-life main path")
+    w, h = 1920, 1080
+    r, got, ms, _ = family_frames(scene, meta, "pt", w, h, 8,
+                                  STILL_LIFE_FRAMES)
+    golden = os.path.join(ROOT, "goldens", "still_life_1080p_len8.png")
+    p_gold = psnr(r.image(), load_reference_png(golden))
+    p_route = psnr(r.image(), binned_image)
+    log(f"[sbvh] still life {w}x{h} PT over the split build, "
+        f"{STILL_LIFE_FRAMES} frames: PSNR {p_gold:.3f} dB vs "
+        f"{os.path.basename(golden)} (JAX renderer {STILL_LIFE_PSNR} dB), "
+        f"{p_route:.2f} dB vs the binned build's image of the same frames; "
+        f"{ms:.1f} ms/frame (binned {binned_ms:.1f} ms/frame, phase 5); "
+        f"launches {got} [{card}]")
+    if (not got["khit"] or plain_runs(got)
+            or not abs(p_gold - STILL_LIFE_PSNR) <= PSNR_TOL
+            or not p_route >= PSNR_MIN):
+        raise AssertionError("the still life over the split build did not "
+                             "run through khit alone or disagrees")
+    del r, scene
+
+    phase("10c the CLI with --sbvh and the BVH cache")
+    tmp = tempfile.mkdtemp(prefix="imba_sbvh_")
+    try:
+        sizes = {k: v for k, v in CARD.items() if k != "counts"}
+        path = write_instanced_scene(
+            tmp, **dict(sizes, counts={m: 1 for m in CARD["counts"]}))
+        run_sbvh_cli(path, tmp, card)
+        phase("10d --interactive on a pseudo-terminal")
+        run_interactive_pty(path, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
 def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
     """`[time]`: (ms, the second time or None, bound) as timed."""
     ms, second_ms, (bound_ms, bound_by, detail) = timed
@@ -1591,10 +1945,12 @@ def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
 
 
 def kernel_entry(name, source, replaces, launches, err, timed, plain_ms,
-                 route_ms=False, library_ms=None):
+                 route_ms=False, library_ms=None, split=None):
     """One entry of the kernels line; with `route_ms` it also carries the
     second time of `timed`, its wrapper's: the pair route, or
-    merge_contrib."""
+    merge_contrib; with `split` = (timed, launches) the kernel's time at
+    the split build (phase 10a) and its launches on phase 10b's main
+    path."""
     ms, second_ms, (bound_ms, bound_by, _) = timed
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1602,12 +1958,23 @@ def kernel_entry(name, source, replaces, launches, err, timed, plain_ms,
              "bound_by": bound_by, "library_ms": library_ms}
     if route_ms:
         entry["route_ms"] = second_ms
+    if split is not None:
+        entry["split_ms"], entry["split_launches"] = split[0][0], split[1]
     return entry
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    cache = tempfile.mkdtemp(prefix="imba_accel_")
+    os.environ["IMBATRACER_CACHE_DIR"] = cache
+    try:
+        run()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def run():
     from imbatracer_torch import libbuild
     from imbatracer_torch.accel import native
     from imbatracer_torch.device import get_device
@@ -1704,7 +2071,8 @@ def main():
                              "the khit kernel")
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "goldens", "still_life_1080p_len8.png")
-    p = psnr(renderer.image(), load_reference_png(golden))
+    sl_image = renderer.image()       # phase 10b's yardstick
+    p = psnr(sl_image, load_reference_png(golden))
     log(f"[main] still_life PSNR after {renderer.frames} frames vs "
         f"{os.path.basename(golden)}: {p:.3f} dB (JAX renderer "
         f"{STILL_LIFE_PSNR} dB; {sl_ms:.1f} ms/frame, {sl_mrays:.2f} "
@@ -1744,6 +2112,10 @@ def main():
     # The `.scene` / OBJ slice with two-level instancing (phase 8).
     inst_got = instanced_phase(dev, card, scenes["big_4000"], stats)
 
+    # The split BVH, the BVH cache and the interactive preview (phase 10).
+    split_got = split_phase(dev, card, scenes["still_life"], sl_image,
+                            sl_ms, stats)
+
     phase("9 output")
     src = "imbatracer_torch/csrc/"
     kernels = [
@@ -1751,14 +2123,20 @@ def main():
                      src + "stream_traverse.cu", REPLACES["stream"],
                      stream_launches["closest_hit"], stats["closest_err"],
                      stats["big_4000", "closest"],
-                     stats["big_4000", "closest_plain_ms"]),
+                     stats["big_4000", "closest_plain_ms"],
+                     split=(stats["sbvh", "split", "closest"],
+                            split_got["closest_hit"])),
         kernel_entry("stream_traverse_any_hit", src + "stream_traverse.cu",
                      REPLACES["stream"], stream_launches["any_hit"],
                      stats["any_err"], stats["big_4000", "any"],
-                     stats["big_4000", "any_plain_ms"]),
+                     stats["big_4000", "any_plain_ms"],
+                     split=(stats["sbvh", "split", "any"],
+                            split_got["any_hit"])),
         kernel_entry("khit_closest_k4", src + "khit_traverse.cu",
                      REPLACES["khit"], sl_got["khit"], stats["khit_err"],
-                     stats["khit"], stats["khit_plain_ms"]),
+                     stats["khit"], stats["khit_plain_ms"],
+                     split=(stats["sbvh", "split", "khit"],
+                            split_got["khit"])),
         kernel_entry("merge_contrib", src + "merge_kernel.cu",
                      REPLACES["merge"], vcm_got["merge"], stats["merge_err"],
                      stats["merge"], stats["merge_plain_ms"], route_ms=True),

@@ -4,7 +4,9 @@
 // Replaces the TPU kernel
 //   imbatracer_tpu/ops/pallas_khit.py::_khit_kernel (via _khit_call)
 // and the candidate lists that fed it, and returns, per ray, the K = 4
-// nearest hits in (tmin, tmax) sorted by t -- the input of the exact
+// nearest hits on distinct triangles in (tmin, tmax) sorted by t (a
+// triangle that a split BVH references from several leaves counts once,
+// as in the Pallas kernel's resolve) -- the input of the exact
 // alpha-masked closest hit (imbatracer_torch/render/traverse.py), which
 // alpha-tests the K hits outside the kernel and re-traces only rays whose
 // K hits were all masked out.  Layouts: rays, sbox and tiles as in
@@ -64,10 +66,18 @@ struct KNearest {
   }
   __device__ __forceinline__ float bound() const { return st[K - 1]; }
   __device__ __forceinline__ bool done() const { return false; }
-  // Bubble-down: the hit takes the first slot it beats (strictly) and
+  // A hit on a triangle a slot already holds is dropped: a split BVH
+  // references a triangle from several leaves, with identical tile rows,
+  // so both tests give the same t, u and v.  (Were the first copy already
+  // pushed out, the second would not beat the K-th slot either.)  Then a
+  // bubble-down: the hit takes the first slot it beats (strictly) and
   // carries the displaced entry further down.
   __device__ __forceinline__ void accept(float t, float u, float v,
                                          float id) {
+    bool held = false;
+#pragma unroll
+    for (int s = 0; s < K; ++s) held |= sid[s] == id;
+    if (held) return;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       const bool take = t < st[s];

@@ -5,27 +5,24 @@
 The JAX CLI's flags, names and defaults: `-a` algorithm, `-w` / `-h2`
 size, `-s` / `-t` sample and time budgets, `-q` quiet, the integrator
 knobs (connections clamped to [1, 8], light paths defaulting to
-width*height/2 with the per-family cap), `--gamma`, and headless
-intermediate dumps (`--intermediate-path` / `--intermediate-time`).
-`--device` (cuda by default, or cpu) picks where the scene lives and
-renders; the port never falls back from one to the other.  `--sbvh` and
-`--interactive` are not ported yet: they exit with an error, never
-silently ignored.
+width*height/2 with the per-family cap), `--gamma`, headless
+intermediate dumps (`--intermediate-path` / `--intermediate-time`),
+`--sbvh` (a spatial-split BVH for a flat scene, kept in the disk cache
+as every flat scene's BVH is) and `--interactive` (the live terminal
+preview, frontend/interactive.py).  `--device` (cuda by default, or cpu)
+picks where the scene lives and renders; the port never falls back from
+one to the other.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 from ..device import get_device
 from ..scene.build import build_scene
 from ..utils.log import logger
 from .engine import ALGORITHMS, make_frame_fn
 from .renderer import ProgressiveRenderer, RenderSettings
-
-NOT_PORTED = ("sbvh", "interactive")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -53,11 +50,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gamma", type=float, default=0.5)
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--sbvh", action="store_true",
-                   help="spatial-split BVH build (not ported yet)")
+                   help="spatial-split BVH build (slower build, faster "
+                        "traversal on thin-triangle scenes; cached)")
     p.add_argument("--intermediate-path", default="")
     p.add_argument("--intermediate-time", type=float, default=float("inf"))
     p.add_argument("--interactive", action="store_true",
-                   help="interactive preview (not ported yet)")
+                   help="interactive preview: WASD/QE move, IJKL look, "
+                        "live terminal view (the reference's render "
+                        "window; needs a TTY)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the scene lives and renders")
     return p
@@ -88,19 +88,21 @@ def settings_from_args(args) -> RenderSettings:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            print(f"imbatracer_torch: --{flag} is not ported yet",
-                  file=sys.stderr)
-            return 2
     settings = settings_from_args(args)
     device = get_device(args.device)
 
-    scene, meta = build_scene(args.scene, quiet=args.quiet, device=device)
+    scene, meta = build_scene(args.scene, quiet=args.quiet, device=device,
+                              spatial=args.sbvh)
     if not args.quiet:
         logger.info("scene %s: %d tris, %d lights, algo=%s, device %s",
                     meta.name, meta.num_tris, meta.num_lights,
                     args.algorithm, device)
+
+    if args.interactive:
+        from .interactive import run_interactive
+
+        run_interactive(scene, meta, settings, args.output)
+        return 0
 
     frame_fn, _cam = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, device)

@@ -47,21 +47,35 @@ def estimate_pixel_size(scene, cam: Camera, meta) -> float:
 
 def make_frame_fn(scene, meta, settings: RenderSettings):
     """Returns (frame_fn, camera); frame_fn(frame_index) -> (H*W, 3) film,
-    rendered on the scene's device.  The VCM family's frame_fn also takes
-    `stats`, a dict that render_vcm_frame fills with the frame's vertex
-    and photon counts."""
+    rendered on the scene's device from the scene's camera.  The VCM
+    family's frame_fn also takes `stats`, a dict that render_vcm_frame
+    fills with the frame's vertex and photon counts."""
+    core, cam = make_camera_frame_fn(scene, meta, settings)
+
+    def frame_fn(frame, stats=None):
+        return core(frame, cam, stats)
+
+    return frame_fn, cam
+
+
+def make_camera_frame_fn(scene, meta, settings: RenderSettings):
+    """Returns (core_fn, default_camera) with core_fn(frame_index, camera,
+    stats=None) -> (H*W, 3) film for that camera (the interactive preview
+    moves it).  The VCM family's base radius is estimated once, from the
+    default camera, as the JAX package does; `stats` as in
+    make_frame_fn (the PT route fills none)."""
     algo = settings.algorithm
     if algo not in ALGO_MAP:
         raise ValueError(f"unknown algorithm {algo!r}")
     cam = camera_for_scene(meta, settings, scene.device)
 
     if algo == "pt":
-        def frame_fn(frame):
+        def core(frame, camera, stats=None):
             return render_pt_frame(
-                scene, cam, frame, settings.width, settings.height,
+                scene, camera, frame, settings.width, settings.height,
                 spp=settings.spp, max_len=settings.max_path_len,
                 has_masks=meta.has_masks, has_bump=meta.has_bump)
-        return frame_fn, cam
+        return core, cam
 
     vcm_algo = ALGO_MAP[algo]
     base_radius = 1.0
@@ -72,13 +86,13 @@ def make_frame_fn(scene, meta, settings: RenderSettings):
     # The scene's material kinds: absent ones are skipped by the merge.
     mat_kinds = tuple(sorted(set(scene.materials.kind.tolist())))
 
-    def frame_fn(frame, stats=None):
+    def core(frame, camera, stats=None):
         return render_vcm_frame(
-            scene, cam, frame, base_radius, algo=vcm_algo,
+            scene, camera, frame, base_radius, algo=vcm_algo,
             width=settings.width, height=settings.height, spp=settings.spp,
             max_len=settings.max_path_len, light_path_count=lpc,
             num_connections=settings.num_connections,
             has_masks=meta.has_masks, has_bump=meta.has_bump,
             mat_kinds=mat_kinds, stats=stats)
 
-    return frame_fn, cam
+    return core, cam

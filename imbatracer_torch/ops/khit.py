@@ -2,10 +2,12 @@
 its plain PyTorch version, and the sorted dispatch around them.
 
 Replaces the TPU kernel imbatracer_tpu/ops/pallas_khit.py::_khit_kernel
-(via _khit_call / khit_sorted): per ray, the K = 4 nearest hits in
-(tmin, tmax), sorted by t.  The set is gap-free: no hit closer than the
-K-th returned one is missing.  render/traverse.py alpha-tests the K hits
-together and re-traces only rays whose K hits were all masked out.
+(via _khit_call / khit_sorted): per ray, the K = 4 nearest hits on
+distinct triangles in (tmin, tmax), sorted by t.  The set is gap-free:
+no hit closer than the K-th returned one is missing.  A triangle that a
+split BVH references from several leaves counts once, as in the Pallas
+kernel's resolve.  render/traverse.py alpha-tests the K hits together
+and re-traces only rays whose K hits were all masked out.
 
 Layouts: rays (R, 8), sbox and tiles as in ops/stream_traverse.py; out
 (R, 8K) f32, hit k in columns 8k..8k+3 = [t u v id]; an absent hit is
@@ -49,8 +51,9 @@ def khit_plain(rays, sbox, tiles, k: int = K):
     candidate of the super-chunk / chunk walk (stream_traverse.
     _ray_superchunks and _pair_triangles) goes through the kernel's
     feature-dot Moller-Trumbore test (_mt, same rounding), and each ray
-    keeps its k smallest t (ties to the lowest triangle slot).  `k` other
-    than K serves the checks that look one hit past the K-th."""
+    keeps its k smallest t over distinct triangle ids (ties to the lowest
+    triangle slot).  `k` other than K serves the checks that look one hit
+    past the K-th."""
     LAUNCHES["plain"] += 1
     dev = rays.device
     num_r = rays.shape[0]
@@ -76,7 +79,7 @@ def khit_plain(rays, sbox, tiles, k: int = K):
     out = torch.zeros((num_r, 8 * k), dtype=torch.float32, device=dev)
     out[:, 0::8] = BIG
     out[:, 3::8] = -1.0
-    if not parts:
+    if not sum(len(part[0]) for part in parts):
         return out
     hr, hslot, ht, hu, hv, hid = (torch.cat(x) for x in zip(*parts))
     # Order by (ray, t, slot): stable sorts from the minor key up.
@@ -84,6 +87,16 @@ def khit_plain(rays, sbox, tiles, k: int = K):
     order = order[torch.sort(ht[order], stable=True)[1]]
     order = order[torch.sort(hr[order], stable=True)[1]]
     hr, ht, hu, hv, hid = hr[order], ht[order], hu[order], hv[order], hid[order]
+    # A triangle referenced from several leaves (a split BVH) counts once:
+    # its references carry identical tile rows, so they tie in t, and the
+    # first of each (ray, id) pair in this order stays.
+    pair = hr * (int(hid.max()) + 1) + hid.long()
+    by_pair = torch.sort(pair, stable=True)[1]
+    first = torch.ones_like(pair, dtype=torch.bool)
+    first[1:] = pair[by_pair[1:]] != pair[by_pair[:-1]]
+    keep = torch.empty_like(first)
+    keep[by_pair] = first
+    hr, ht, hu, hv, hid = hr[keep], ht[keep], hu[keep], hv[keep], hid[keep]
     counts = torch.bincount(hr, minlength=num_r)
     first = torch.cumsum(counts, 0) - counts
     rank = torch.arange(hr.shape[0], device=dev) - first[hr]

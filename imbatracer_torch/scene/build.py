@@ -24,8 +24,12 @@ The host side is NumPy plus the port's own native binned-SAH builder
 (accel/flatten.py), copies of the JAX package's host modules.  The
 arrays are laid out exactly as the JAX builder lays them out and then go
 through `convert.scene_from_numpy`, so both packages hold identical
-scene data.  The JAX package's on-disk BVH cache (io/bvh_cache.py) is not
-ported: every build runs the builder.
+scene data.  `spatial` (the CLI's `--sbvh`) builds a flat scene through
+the native split-BVH builder instead (accel/native.build_sbvh_native);
+two-level scenes ignore it, as in the JAX package.  `build_scene` keeps
+each flat scene's packed triangles in the on-disk BVH cache
+(io/bvh_cache.py), keyed by the mesh and `.scene` files and the build
+kind, and loads them from there while those files are unchanged.
 """
 
 from __future__ import annotations
@@ -38,8 +42,9 @@ import numpy as np
 
 from ..accel.builder import triangle_bboxes
 from ..accel.flatten import thread_bvh
-from ..accel.native import build_bvh_native
+from ..accel.native import build_bvh_native, build_sbvh_native
 from ..core import math3d
+from ..io import bvh_cache
 from ..io import image as image_io
 from ..io import obj as obj_io
 from ..io.scene_file import SceneDesc, parse_scene_file
@@ -70,16 +75,34 @@ def _light_arrays(rows):
              "cos_angle")}
 
 
-def _bvh_arrays(v0, v1, v2, two_level):
+def _packed_triangles(v0, v1, v2, spatial):
+    """Leaf-packed triangles of the native binned-SAH build, or of the
+    split build with `spatial`."""
+    if spatial:
+        nodes = build_sbvh_native(np.stack([v0, v1, v2], axis=1))
+    else:
+        nodes = build_bvh_native(*triangle_bboxes(v0, v1, v2))
+    return thread_bvh(nodes, v0, v1, v2)
+
+
+def _bvh_arrays(v0, v1, v2, two_level, spatial=False, cache=None):
     """(bvh arrays of the shared dict, stats): the native build over the
-    flat triangles, or the two-level build of `two_level` = (mesh_tris,
-    inst_list)."""
+    flat triangles (split with `spatial`; through the disk cache when
+    `cache` = (file, key)), or the two-level build of `two_level` =
+    (mesh_tris, inst_list)."""
     t_bvh = time.time()
     if two_level is None:
-        blo, bhi = triangle_bboxes(v0, v1, v2)
-        threaded = thread_bvh(build_bvh_native(blo, bhi), v0, v1, v2)
-        stats = threaded.stats
-        arrays = {f"bvh.{k}": getattr(threaded, k)
+        packed = None if cache is None else bvh_cache.load_accel(*cache)
+        if packed is not None:
+            logger.info("BVH loaded from cache: %s", packed.stats)
+        else:
+            packed = _packed_triangles(v0, v1, v2, spatial)
+            logger.info("BVH%s: %s in %.2fs", " (sbvh)" if spatial else "",
+                        packed.stats, time.time() - t_bvh)
+            if cache is not None:
+                bvh_cache.store_accel(cache[0], packed, cache[1])
+        stats = packed.stats
+        arrays = {f"bvh.{k}": getattr(packed, k)
                   for k in ("tri_v0", "tri_e1", "tri_e2", "tri_id")}
     else:
         from ..accel.instancing import build_two_level
@@ -88,24 +111,25 @@ def _bvh_arrays(v0, v1, v2, two_level):
         stats = dict(tl.stats)
         arrays = {f"bvh.{k}": getattr(tl, k)
                   for k in ("sbox", "tiles", "tile_idx", "inst_of", "itab")}
-    logger.info("%sBVH: %s in %.2fs", "" if two_level is None else
-                "two-level ", stats, time.time() - t_bvh)
+        logger.info("two-level BVH: %s in %.2fs", stats, time.time() - t_bvh)
     return arrays, stats
 
 
 def assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows, textures,
-                    env=None, two_level=None):
+                    env=None, two_level=None, spatial=False, cache=None):
     """BVH build + table assembly on the host.  Returns (arrays, stats):
     the shared scene array dict (see convert.py) and the BVH stats.
     `env`: the scene's EnvMapData (render/envmap.py) or None;
     `two_level`: None (flat BVH over v0/v1/v2) or (mesh_tris, inst_list)
-    for accel/instancing.build_two_level."""
+    for accel/instancing.build_two_level; `spatial`: a split build of a
+    flat BVH; `cache`: None or the (file, key) of a flat BVH's disk
+    cache (io/bvh_cache.py)."""
     lo = np.minimum(np.minimum(v0.min(0), v1.min(0)), v2.min(0))
     hi = np.maximum(np.maximum(v0.max(0), v1.max(0)), v2.max(0))
     center = 0.5 * (lo + hi)
     radius = float(np.linalg.norm(hi - center)) + 1e-6
 
-    bvh_arrays, stats = _bvh_arrays(v0, v1, v2, two_level)
+    bvh_arrays, stats = _bvh_arrays(v0, v1, v2, two_level, spatial, cache)
 
     arr = lambda key, dt=np.float32: np.asarray([m[key] for m in mat_rows],
                                                 dt)
@@ -204,13 +228,16 @@ def assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows, textures,
 
 
 def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures,
-                          env, device, two_level=None, pairs: bool = False):
+                          env, device, two_level=None, pairs: bool = False,
+                          spatial: bool = False, cache=None):
     """Shared tail of scene construction; returns (DeviceScene, stats).
-    `pairs` is the BVH's pairs switch (accel/device.py)."""
+    `pairs` is the BVH's pairs switch (accel/device.py); `spatial` and
+    `cache` as in assemble_arrays."""
     from ..convert import scene_from_numpy
 
     arrays, stats = assemble_arrays(v0, v1, v2, attrs, mat_rows, light_rows,
-                                    textures, env, two_level)
+                                    textures, env, two_level, spatial,
+                                    cache)
     return scene_from_numpy(arrays, device, pairs=pairs), stats
 
 
@@ -453,12 +480,32 @@ def wants_two_level(num_instances: int, num_tris: int,
             and num_tris >= 2 * unique_tris)
 
 
+def _cache_entry(desc: SceneDesc, scene_path: str, spatial: bool):
+    """(file, key) of a flat scene's BVH in the disk cache, or None when
+    the cache directory cannot be made."""
+    mesh_files = [mp if os.path.isabs(mp) else os.path.join(desc.base_dir, mp)
+                  for mp in desc.mesh_paths]
+    key = bvh_cache.fingerprint(mesh_files + [scene_path])
+    if spatial:
+        key += ":sbvh"
+    directory = bvh_cache.cache_dir()
+    try:
+        os.makedirs(directory, exist_ok=True)
+    except OSError:
+        return None
+    name = os.path.basename(scene_path) + "." + key.replace(":", "_")
+    return os.path.join(directory, name + ".npz"), key
+
+
 def build_scene(scene_path: str, quiet: bool = False, *, device,
-                force_flatten: bool = False, pairs: bool = False):
+                force_flatten: bool = False, pairs: bool = False,
+                spatial: bool = False):
     """Load + build everything on `device`.  Returns (DeviceScene,
     SceneMeta).  `force_flatten` skips two-level instancing even where it
     is taken (the self-check renders both routes and compares); `pairs`
-    is the BVH's pairs switch (accel/device.py)."""
+    is the BVH's pairs switch (accel/device.py); `spatial` builds a flat
+    scene's BVH with spatial splits (two-level scenes ignore it).  A flat
+    scene's BVH goes through the disk cache (io/bvh_cache.py)."""
     t_start = time.time()
     desc = parse_scene_file(scene_path)
 
@@ -507,9 +554,11 @@ def build_scene(scene_path: str, quiet: bool = False, *, device,
         logger.info("two-level instancing: %d instances, %d unique tris "
                     "(%d flat)", len(inst_list), unique_tris, num_tris)
 
+    cache = None if two_level else _cache_entry(desc, scene_path, spatial)
     scene, stats = assemble_device_scene(
         v0, v1, v2, attrs, conv.rows, light_rows, conv.textures, env,
-        device, two_level=two_level, pairs=pairs)
+        device, two_level=two_level, pairs=pairs, spatial=spatial,
+        cache=cache)
     meta = SceneMeta(
         name=os.path.basename(scene_path),
         num_tris=num_tris,

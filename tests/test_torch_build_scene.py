@@ -30,6 +30,9 @@ from imbatracer_torch.render import lights as L
 from imbatracer_torch.render import materials as M
 from imbatracer_torch.scene import build as tb
 from imbatracer_torch.scene.generate import write_instanced_scene
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 @pytest.fixture(scope="module")

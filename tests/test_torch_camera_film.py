@@ -19,6 +19,9 @@ from imbatracer_torch.io.image import store_png
 from imbatracer_torch.render import film as tfilm
 from imbatracer_torch.render.camera import make_camera as tcamera
 from imbatracer_torch.render.integrators import pt as tpt
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CAM = ((0.0, 1.0, 3.6), (0.1, -0.05, -1.0), (0.0, 1.0, 0.0))
 

@@ -5,7 +5,10 @@ renders from a generated `.scene`.
   unimportable, `python -m imbatracer_torch <scene> <out.png> --device
   cpu -s 2` renders and writes the PNG.
 * The parser has the JAX CLI's destinations and defaults (plus
-  `--device`); `--sbvh` and `--interactive` exit non-zero.
+  `--device`).
+* `--sbvh` on a flat scene: a film equal to the binned build's to the
+  tolerance below, and the cached build on a second run
+  (`--interactive` is tested by tests/test_torch_interactive.py).
 * PT and VCM films through the port's `make_frame_fn` on the generated
   scene, flattened and two-level, agree with the JAX package's frame
   renderers (`render_pt_frame`, `render_vcm_frame`, what its
@@ -36,6 +39,9 @@ from imbatracer_torch.frontend.engine import make_frame_fn
 from imbatracer_torch.frontend.renderer import RenderSettings
 from imbatracer_torch.scene.build import build_scene
 from imbatracer_torch.scene.generate import write_instanced_scene
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = 20
@@ -81,10 +87,40 @@ def test_parser_matches_jax():
         ["s.scene", "-c", "99"])) == jren.RenderSettings(num_connections=8)
 
 
-@pytest.mark.parametrize("flag", ["--sbvh", "--interactive"])
-def test_unported_flags_exit_nonzero(flag, capsys):
-    assert tcli.main(["missing.scene", "out.png", flag]) != 0
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("algo", ["pt", "vcm"])
+def test_sbvh_flag(algo, tmp_path, monkeypatch, caplog):
+    """`--sbvh` on a written flat scene (one instance of each mesh, packed
+    close, so the split build duplicates a reference): the film over the
+    split build equals the binned build's to the route tolerance
+    (`_agree`); the CLI's first run builds and caches the split BVH, its
+    second loads it and writes the same PNG."""
+    monkeypatch.setenv("IMBATRACER_CACHE_DIR", str(tmp_path / "accel"))
+    path = write_instanced_scene(
+        str(tmp_path / "flat"), spread=2.0,
+        counts=dict(ground=1, sphere=1, blob=1, crystal=1, card=1, panel=1))
+    settings = RenderSettings(width=W, height=W, spp=1, max_path_len=4,
+                              algorithm=algo)
+    films = {}
+    for spatial in (False, True):
+        scene, meta = build_scene(path, quiet=True, device="cpu",
+                                  spatial=spatial)
+        assert not scene.bvh.two_level
+        films[spatial] = make_frame_fn(scene, meta, settings)[0](3).numpy()
+    assert int((scene.bvh.tri_id >= 0).sum()) > meta.num_tris
+    _agree(films[True], films[False])
+
+    monkeypatch.setenv("IMBATRACER_CACHE_DIR", str(tmp_path / "cli"))
+    caplog.set_level("INFO", logger="imbatracer_torch")
+    pngs = []
+    for run, says in enumerate(("BVH (sbvh)", "BVH loaded from cache")):
+        caplog.clear()
+        out = tmp_path / f"{algo}{run}.png"
+        assert tcli.main([path, str(out), "--sbvh", "-a", algo, "-s", "1",
+                          "-w", str(W), "-h2", str(W), "--max-path-len",
+                          "4", "--device", "cpu", "-q"]) == 0
+        assert says in caplog.text
+        pngs.append(out.read_bytes())
+    assert pngs[0] == pngs[1]
 
 
 def _jax_film(js, jm, algo):

@@ -23,6 +23,9 @@ from imbatracer_torch.render import camera as tcam
 from imbatracer_torch.render import envmap as tenv
 from imbatracer_torch.render import lights as tlights
 from imbatracer_torch.render import materials as tmat
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 2048
 

@@ -18,6 +18,9 @@ from imbatracer_tpu.render import envmap as jenv
 from imbatracer_tpu.render import lights as jlights
 from imbatracer_torch.render import envmap as tenv
 from imbatracer_torch.render import lights as tlights
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 4096
 

@@ -35,6 +35,9 @@ from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.build import build_scene
 from imbatracer_torch.scene.generate import write_instanced_scene
 from imbatracer_torch.scene.procedural import _add_box
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 1024
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (the traversal kernels csrc/stream_traverse.cu, its
 instanced variant included, and csrc/khit_traverse.cu, also above the
-16,384 super-chunks a shared-memory candidate list holds; the pair
+16,384 super-chunks a shared-memory candidate list holds, and over a
+packing that references a triangle from several leaves; the pair
 route's kernels csrc/pairs_kernel.cu; the photon-merge gather and its
 query preparation csrc/merge_kernel.cu) against their plain PyTorch
 versions on the same inputs.  Needs an
@@ -37,6 +38,9 @@ from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.procedural import (make_big_scene,
                                                make_leaf_scene)
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 @pytest.fixture
@@ -133,6 +137,71 @@ def test_cuda_khit_matches_plain(cuda_device, bounded):
         torch.testing.assert_close(k[:, f::8][same], p[:, f::8][same],
                                    rtol=1e-5, atol=1e-5)
     assert int((pid[:, 0] >= 0).sum()) > 100
+
+
+def _split_build_tiles(packing):
+    """Stream tiles of long thin triangles (tests/test_sbvh.py's class)
+    whose packing references triangles more than once: a split build at
+    a reference budget of 3.0, or a binned build with every triangle
+    referenced twice.  Returns (v0, sbox, tiles, center)."""
+    from imbatracer_torch.accel.builder import build_bvh, triangle_bboxes
+    from imbatracer_torch.accel.flatten import thread_bvh
+    from imbatracer_torch.accel.native import build_sbvh_native
+
+    rs = np.random.RandomState(0)
+    n = 3000
+    base = rs.rand(n, 3).astype(np.float32) * 10
+    d1 = 3.0 + rs.randn(n, 3).astype(np.float32) * 0.05
+    v = np.stack([base, base + d1,
+                  base + rs.randn(n, 3).astype(np.float32) * 0.05], axis=1)
+    v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
+    if packing == "split":
+        nodes = build_sbvh_native(v, ref_budget=3.0)
+    else:
+        nodes = build_bvh(*triangle_bboxes(*(np.concatenate([x, x])
+                                             for x in (v0, v1, v2))))
+        nodes.prim_ids = nodes.prim_ids % n
+    p = thread_bvh(nodes, v0, v1, v2)
+    assert (p.tri_id >= 0).sum() > n
+    sbox, tiles, center = st.pack_stream_tiles(p.tri_v0, p.tri_e1, p.tri_e2,
+                                               p.tri_id)
+    return v, torch.from_numpy(sbox), torch.from_numpy(tiles), \
+        torch.from_numpy(center)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["split", "doubled"])
+def test_cuda_khit_drops_duplicate_references(cuda_device, packing):
+    """khit over a packing that references triangles more than once: no
+    row repeats an id, and the rows equal khit_plain's (t bit for bit,
+    ids up to ties)."""
+    v, sbox, tiles, center = _split_build_tiles(packing)
+    rs = np.random.RandomState(4)
+    r = 4096
+    org = torch.from_numpy((rs.rand(r, 3) * 14 - 2).astype(np.float32))
+    tri = v[rs.randint(0, v.shape[0], r)]
+    aim = (rs.dirichlet((1, 1, 1), r)[:, :, None] * tri).sum(1)
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(aim.astype(np.float32)) - org, dim=1)
+    rays, _ = st.rays8(org - center, d, 0.0, BIG, None)
+    k = kh.khit_cuda(rays.to(cuda_device), sbox.to(cuda_device),
+                     tiles.to(cuda_device)).cpu()
+    p5 = kh.khit_plain(rays, sbox, tiles, k=kh.K + 1)
+    p = p5[:, :8 * kh.K]
+    kid, pid = k[:, 3::8], p[:, 3::8]
+    for a in range(kh.K):
+        for b in range(a):
+            assert not bool(((kid[:, a] >= 0) & (kid[:, a] == kid[:, b]))
+                            .any())
+    assert torch.equal(k[:, 0::8], p[:, 0::8])
+    t5, id5 = p5[:, 0::8], p5[:, 3::8]
+    tie = torch.zeros_like(kid, dtype=torch.bool)
+    for a in range(kh.K):
+        for b in range(kh.K + 1):
+            if a != b:
+                tie[:, a] |= (t5[:, a] == t5[:, b]) & (id5[:, b] >= 0)
+    assert bool(((kid == pid) | tie).all())
+    assert int((pid[:, 1] >= 0).sum()) > 500
 
 
 @pytest.mark.cuda

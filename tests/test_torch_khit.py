@@ -26,6 +26,9 @@ from imbatracer_torch.accel.flatten import thread_bvh
 from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
 from imbatracer_torch.ops import khit as kh
 from imbatracer_torch.ops import stream_traverse as st
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 K = kh.K
 
@@ -231,3 +234,75 @@ def test_khit_plain_rows_and_dispatch():
     with pytest.raises(ValueError):
         kh.khit(rays.to(torch.float64).to("meta"), ts.bvh.sbox,
                 ts.bvh.tiles)
+
+
+# sha256 of khit_plain's rows on the inputs below, as the code gave them
+# before the plain version dropped repeated triangle ids: a binned build
+# references each triangle once, so nothing may change there.
+BINNED_ROWS_SHA256 = {
+    "stacked": "99929dc1d70de7337020b85f71d142da23ff3d7fd26bf29194408f74ef"
+               "7854c8",
+    "big_110": "0aaa585e7e6348db8ac9ac280275e2d67b4b4e52efe5e728070c30b4d8"
+               "1f53f0",
+}
+
+
+@pytest.mark.parametrize("case", sorted(BINNED_ROWS_SHA256))
+def test_khit_plain_rows_unchanged_on_binned_builds(case, stacked):
+    import hashlib
+
+    if case == "stacked":
+        _, _, _, sbox, tiles, center, org, d = stacked
+        sbox, tiles = torch.from_numpy(sbox), torch.from_numpy(tiles)
+        rays, _ = st.rays8(torch.from_numpy(org - center),
+                           torch.from_numpy(d), 0.0, st.BIG, None)
+    else:
+        js, _ = jproc.make_big_scene(num_boxes=110, seed=9)
+        ts = scene_from_numpy(scene_to_numpy(js), "cpu")
+        sbox, tiles = ts.bvh.sbox, ts.bvh.tiles
+        rs = np.random.RandomState(2)
+        n = 256
+        org = torch.from_numpy(rs.uniform(-20, 20, (n, 3)).astype(np.float32))
+        d = torch.nn.functional.normalize(
+            torch.from_numpy(rs.randn(n, 3).astype(np.float32)), dim=1)
+        rays, _ = st.rays8(org - ts.bvh.center, d, 1e-3, st.BIG, None)
+    rows = kh.khit_plain(rays, sbox, tiles).numpy()
+    assert (rows[:, 3::8] >= 0).sum() > 100
+    assert hashlib.sha256(rows.tobytes()).hexdigest() == \
+        BINNED_ROWS_SHA256[case]
+
+
+def test_khit_drops_duplicate_references(stacked):
+    """Every triangle packed twice (the references a split BVH makes):
+    the rows equal those of the single packing, t, u and v bit for bit
+    and ids up to bit-equal-t ties, and no row repeats an id."""
+    v0, v1, v2, sbox, tiles, center, org, d = stacked
+    n = v0.shape[0]
+    lo, hi = triangle_bboxes(*(np.concatenate([v, v]) for v in (v0, v1, v2)))
+    nodes = build_bvh(lo, hi)
+    nodes.prim_ids = nodes.prim_ids % n          # references i and i + n
+    p = thread_bvh(nodes, v0, v1, v2)
+    assert np.array_equal(np.bincount(p.tri_id[p.tri_id >= 0]),
+                          np.full(n, 2))
+    two = st.pack_stream_tiles(p.tri_v0, p.tri_e1, p.tri_e2, p.tri_id)
+    assert np.array_equal(two[2], center)
+    rows = []
+    for sbox, tiles, center in ((sbox, tiles, center), two):
+        rays, _ = st.rays8(torch.from_numpy(org - center),
+                           torch.from_numpy(d), 0.0, st.BIG, None)
+        rows.append(kh.khit_plain(rays, torch.from_numpy(sbox),
+                                  torch.from_numpy(tiles)).numpy())
+    a, b = rows
+    ids = b[:, 3::8]
+    for k in range(K):
+        for j in range(k):
+            assert not ((ids[:, k] >= 0) & (ids[:, k] == ids[:, j])).any()
+    for col in (0, 1, 2):
+        np.testing.assert_array_equal(a[:, col::8].view(np.uint32),
+                                      b[:, col::8].view(np.uint32))
+    tie = np.zeros(ids.shape, bool)
+    t = b[:, 0::8]
+    for k in range(1, K):
+        tie[:, k] = tie[:, k - 1] = t[:, k] == t[:, k - 1]
+    assert ((a[:, 3::8] == ids) | tie).all()
+    assert (ids >= 0).sum() > 100

@@ -14,6 +14,9 @@ import torch
 from imbatracer_tpu.render import light_cache as jlc
 from imbatracer_tpu.render.integrators import vcm as jvcm
 from imbatracer_torch.render import light_cache as tlc
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FIELDS = ("pos", "w_out", "normal", "gn", "uv", "mat_id", "throughput",
           "d_vc", "d_vcm", "d_vm", "path_length", "path_id", "count")

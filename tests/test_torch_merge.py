@@ -20,6 +20,9 @@ from imbatracer_tpu.ops import pallas_merge as jmerge
 from imbatracer_tpu.render import materials as jmat
 from imbatracer_torch.ops import merge as tmerge
 from imbatracer_torch.render import materials as tmat
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _unit(rs, n):

@@ -24,6 +24,9 @@ from imbatracer_torch.scene import build as tb
 from imbatracer_torch.scene.generate import write_instanced_scene
 from imbatracer_torch.scene.procedural import (make_big_scene,
                                                make_still_life_like)
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CASES = ["big_4000", "still_life", "instanced", "flattened"]
 

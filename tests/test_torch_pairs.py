@@ -36,6 +36,9 @@ from imbatracer_torch.ops import stream_traverse as st
 from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.procedural import _add_box, make_cornell_scene
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 1024
 

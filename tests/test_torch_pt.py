@@ -31,6 +31,9 @@ from imbatracer_torch.frontend.renderer import (ProgressiveRenderer,
 from imbatracer_torch.render.camera import make_camera as tcamera
 from imbatracer_torch.render.integrators.pt import render_pt_frame as trender
 from imbatracer_torch.scene.procedural import make_cornell_scene
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 W, SPP, MAX_LEN = 32, 2, 4
 

@@ -10,6 +10,9 @@ import torch
 
 from imbatracer_tpu.core import rng as jrng
 from imbatracer_torch.core import rng as trng
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FRAMES = [0, 1, 7919, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]
 

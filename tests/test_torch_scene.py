@@ -15,6 +15,9 @@ from imbatracer_tpu.ops.pallas_stream import pack_stream_tiles
 from imbatracer_tpu.scene import procedural as jproc
 from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
 from imbatracer_torch.scene import procedural as tproc
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SCENES = [
     ("make_cornell_scene", {}),

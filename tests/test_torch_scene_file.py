@@ -20,6 +20,9 @@ from imbatracer_torch.io import obj as tobj
 from imbatracer_torch.io import scene_file as tscene
 from imbatracer_torch.scene.generate import sky_image, write_hdr, \
     write_instanced_scene
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,9 @@ from imbatracer_torch.render import lights as tlights
 from imbatracer_torch.render import materials as tmat
 from imbatracer_torch.render import surface as tsurf
 from imbatracer_torch.render.traverse import Hit as THit
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 2048

@@ -30,6 +30,9 @@ from imbatracer_torch.render.camera import make_camera as tcamera
 from imbatracer_torch.render.integrators.pt import render_pt_frame as trender
 from imbatracer_torch.scene.procedural import make_still_life_like
 from imbatracer_torch.utils import metrics as tmetrics
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 W, SPP, MAX_LEN = 32, 2, 4
 SMALL_STILL_LIFE = dict(num_objects=40, num_cards=16)

@@ -24,6 +24,9 @@ from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
 from imbatracer_torch.ops import stream_traverse as st
 from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG, brute_force_closest_hit
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _interp(fn):

@@ -30,6 +30,9 @@ from imbatracer_torch.render import light_cache as tlc
 from imbatracer_torch.render.camera import make_camera as tcamera
 from imbatracer_torch.render.integrators import vcm as tvcm
 from imbatracer_torch.scene.procedural import make_cornell_scene
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 W, MAX_LEN, LPC, RADIUS, FRAME = 24, 4, 256, 0.06, 2
 
