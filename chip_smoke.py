@@ -155,6 +155,32 @@ failure raises and the script exits non-zero:
    time limit: once it has redrawn, the keys w, j, p and x with pauses;
    it must exit 0 after drawing half-block rows, its spp count must fall
    back after the move, and out.png must exist and not be black.
+11. Multi-rank (parallel/, after phase 10, before the output): two cells
+   at 1920x1080, spp 1, max_len 8, each through make_frame_fn with a
+   Comm and without one on the same card: the still-life PT, a warm-up
+   frame then frames 0 and 1, and the instanced vcm of phase 8 (default
+   light paths), a warm-up frame then frame 0; launch counters and the
+   Comm's counts set to 0 just before the timed frames and read just
+   after (khit must launch on the PT cell, both instanced stream kernels
+   and the merge kernel on the vcm cell, no plain version on either).
+   The sharded PT films must equal the unsharded ones bit for bit on at
+   least 99.99% of pixels (a difference can only come from an exact-t
+   tie that another block composition resolves otherwise), the vcm
+   film's mean within 1e-6 relative and at least 99.9% of its pixels
+   within 1e-5 relative (of max(|x|, 1e-3)): the light splat's
+   index_add_ adds with atomics on the card.  (a) NCCL at world size 1
+   in this process, with ms/frame for both routes and the collectives'
+   count, bytes and ms a frame (CUDA events).  (b) Two ranks sharing the
+   card over gloo, spawned through parallel/launch.py: the same checks
+   on rank 0's films (rank 1's equal to rank 0's bit for bit), its
+   ms/frame a correctness run, not a scaling number.  (c) One NCCL rank
+   a card when the machine has two or more, with the speed-up over (a);
+   with one card a line says that it did not run and why.  (d) The CLI's
+   rank function (`python -m imbatracer_torch <instances.scene> out.png
+   -a pt -w 512 -h2 512 -s 2`) on two ranks over gloo on the card,
+   against the one-process CLI: the PNGs equal byte for byte, or else
+   at least 99.99% of pixels equal in the 8-bit images (the line says
+   which held).
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
@@ -1935,6 +1961,212 @@ def split_phase(dev, card, still_life, binned_image, binned_ms, stats):
     return got
 
 
+DIST_SIZE = (1920, 1080)        # phase 11's cells
+DIST_CELLS = (("still_life pt", "pt", 2), ("instanced vcm", "vcm", 1))
+DIST_PT_EQUAL = 0.9999            # PT pixels bit-equal to the unsharded film
+DIST_VCM_MEAN = 1e-6              # vcm film mean, relative
+DIST_VCM_PIXELS = 0.999           # vcm pixels within DIST_VCM_REL
+DIST_VCM_REL = 1e-5
+DIST_CLI_SIZE = 512
+DIST_TIMEOUT = 600                # seconds a rank may wait in a collective
+
+
+def dist_cells(dev, comm, inst_path):
+    """Phase 11's cells on `dev`, across `comm`'s ranks (or unsharded
+    without one): {cell: dict(films, ms, launches, collectives)}, the
+    films of the timed frames on the host."""
+    from imbatracer_torch.frontend.engine import make_frame_fn
+    from imbatracer_torch.frontend.renderer import RenderSettings
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.procedural import make_still_life_like
+
+    out = {}
+    w, h = DIST_SIZE
+    for cell, algo, frames in DIST_CELLS:
+        scene, meta = (make_still_life_like(device=dev) if algo == "pt" else
+                       build_scene(inst_path, quiet=True, device=dev))
+        settings = RenderSettings(width=w, height=h, spp=1, max_path_len=8,
+                                  algorithm=algo)
+        frame_fn, _ = make_frame_fn(scene, meta, settings, comm=comm)
+        frame_fn(0)                       # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        if comm is not None:
+            comm.reset_counts()
+            comm.timed = True
+        t0 = time.time()
+        films = [frame_fn(f) for f in range(frames)]
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1000.0 / frames
+        got = dict(films=[f.cpu() for f in films], ms=ms,
+                   launches=counters())
+        if comm is not None:
+            got["collectives"] = dict(
+                calls=comm.calls / frames, bytes=comm.bytes / frames,
+                ms=comm.collective_ms() / frames,
+                kinds={k: v / frames for k, v in comm.kinds.items()})
+            comm.timed = False
+        out[cell] = got
+        del scene, frame_fn, films
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(comm, inst_path, out_dir):
+    """A spawned rank of phase 11b / 11c: dist_cells across the ranks;
+    every rank saves its results to out_dir/rank<r>.pt."""
+    got = dist_cells(comm.device, comm, inst_path)
+    torch.save(got, os.path.join(out_dir, f"rank{comm.rank}.pt"))
+
+
+def hold_dist(label, got, ref, card):
+    """Hold one route's cells against the unsharded ones; log and return
+    the per-cell parity."""
+    for cell, algo, _ in DIST_CELLS:
+        g, r = got[cell], ref[cell]
+        la = g["launches"]
+        need = (("khit",) if algo == "pt" else
+                ("closest_hit_instanced", "any_hit_instanced", "merge"))
+        if not all(la[k] for k in need) or plain_runs(la):
+            raise AssertionError(f"{label} {cell}: the sharded frames did not "
+                                 f"run through {need} alone: {la}")
+        if algo == "pt":
+            same = [float((a == b).all(dim=1).double().mean())
+                    for a, b in zip(g["films"], r["films"])]
+            ok = min(same) >= DIST_PT_EQUAL
+            parity = (f"pixels bit-equal {', '.join(f'{x:.6f}' for x in same)}"
+                      f" (need >= {DIST_PT_EQUAL})")
+        else:
+            a, b = g["films"][0].double(), r["films"][0].double()
+            mean = abs(float(a.mean() - b.mean())) / float(b.mean())
+            rel = ((a - b).abs() / b.abs().clamp(min=1e-3)).amax(dim=1)
+            within = float((rel <= DIST_VCM_REL).double().mean())
+            ok = mean <= DIST_VCM_MEAN and within >= DIST_VCM_PIXELS
+            parity = (f"mean rel diff {mean:.3e} (need <= {DIST_VCM_MEAN}), "
+                      f"pixels within {DIST_VCM_REL} rel {within:.6f} (need "
+                      f">= {DIST_VCM_PIXELS}), max rel {float(rel.max()):.3e}")
+        c = g.get("collectives", {})
+        log(f"[dist] {label} {cell} {DIST_SIZE[0]}x{DIST_SIZE[1]}: {parity}; "
+            f"{g['ms']:.1f} ms/frame sharded, {r['ms']:.1f} unsharded; "
+            f"collectives a frame {c.get('calls')} ({c.get('kinds')}), "
+            f"{c.get('bytes', 0) / 1e6:.3f} MB, {c.get('ms', 0.0):.3f} ms; "
+            f"launches a frame a rank {per_frame(la, cell)} [{card}]")
+        if not ok:
+            raise AssertionError(f"{label} {cell}: the sharded film disagrees "
+                                 f"with the unsharded one")
+
+
+def per_frame(launches, cell):
+    frames = dict((c, f) for c, _, f in DIST_CELLS)[cell]
+    keys = ("closest_hit", "any_hit", "closest_hit_instanced",
+            "any_hit_instanced", "khit", "merge", "merge_prep")
+    return {k: launches[k] / frames for k in keys if launches.get(k)}
+
+
+def spawn_dist(label, world, backend, inst_path, ref, card):
+    """Phase 11b / 11c: dist_rank on `world` spawned ranks; holds rank 0's
+    cells against `ref` and every rank's films against rank 0's."""
+    from imbatracer_torch.parallel import launch
+
+    out_dir = tempfile.mkdtemp(prefix="imba_dist_")
+    try:
+        t0 = time.time()
+        launch.spawn(dist_rank, world, "cuda", backend,
+                     args=(inst_path, out_dir), timeout=DIST_TIMEOUT)
+        took = time.time() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, got in enumerate(ranks[1:], 1):
+        for cell, _, _ in DIST_CELLS:
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got[cell]["films"], ranks[0][cell]["films"])):
+                raise AssertionError(f"{label}: rank {r}'s {cell} film is not "
+                                     f"rank 0's")
+    log(f"[dist] {label}: backend {backend}, world {world}, cards "
+        f"{torch.cuda.device_count()}, spawned and joined in {took:.1f} s; "
+        f"every rank's films equal rank 0's")
+    hold_dist(label, ranks[0], ref, card)
+    return ranks[0]
+
+
+def dist_cli(inst_path, tmp, card):
+    """Phase 11d: the CLI on two ranks over gloo against one process."""
+    from imbatracer_torch.frontend import cli
+    from imbatracer_torch.io.image import load_png
+    from imbatracer_torch.parallel import launch
+
+    n = str(DIST_CLI_SIZE)
+    argv = ["-a", "pt", "-w", n, "-h2", n, "-s", "2", "-q"]
+    one, two = os.path.join(tmp, "one.png"), os.path.join(tmp, "two.png")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main([inst_path, one] + argv)
+    t_one = time.time() - t0
+    t0 = time.time()
+    launch.spawn(cli.render_rank, 2, "cuda", "gloo",
+                 args=([inst_path, two] + argv,), timeout=DIST_TIMEOUT)
+    t_two = time.time() - t0
+    with open(one, "rb") as f1, open(two, "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    equal = float((load_png(one) == load_png(two)).all(axis=-1).mean())
+    log(f"[dist] 11d the CLI {' '.join(argv)} <instances.scene>: one process "
+        f"{t_one:.1f} s, two ranks over gloo on the card {t_two:.1f} s "
+        f"(scene builds included); PNGs equal byte for byte: {same_bytes}; "
+        f"8-bit pixels equal {equal:.6f} (need byte equality or >= "
+        f"{DIST_PT_EQUAL}) [{card}]")
+    if not (same_bytes or equal >= DIST_PT_EQUAL):
+        raise AssertionError("11d: the CLI's PNG across two ranks differs "
+                             "from the one-process PNG")
+
+
+def multi_rank_phase(dev, card):
+    """Phase 11: the sharded frames (parallel/) on the card."""
+    from imbatracer_torch.parallel import launch
+    from imbatracer_torch.parallel.comm import Comm
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+
+    phase("11a multi-rank: NCCL at world size 1")
+    tmp = tempfile.mkdtemp(prefix="imba_dist_scene_")
+    try:
+        inst_path = write_instanced_scene(tmp, **CARD)
+        ref = dist_cells(dev, None, inst_path)
+        comm = Comm.init("nccl", launch.ADDR, launch.free_port(), 0, 1, dev,
+                         timeout=DIST_TIMEOUT)
+        try:
+            world1 = dist_cells(dev, comm, inst_path)
+        finally:
+            comm.close()
+        log(f"[dist] 11a: backend nccl, world 1, cards "
+            f"{torch.cuda.device_count()}")
+        hold_dist("11a nccl world 1", world1, ref, card)
+        torch.cuda.empty_cache()
+
+        phase("11b multi-rank: two ranks sharing the card over gloo")
+        spawn_dist("11b gloo world 2 (one card, a correctness run)", 2,
+                   "gloo", inst_path, ref, card)
+
+        phase("11c multi-rank: one NCCL rank a card")
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            got = spawn_dist(f"11c nccl world {cards}", cards, "nccl",
+                             inst_path, ref, card)
+            for cell, _, _ in DIST_CELLS:
+                log(f"[dist] 11c {cell}: {got[cell]['ms']:.1f} ms/frame on "
+                    f"{cards} cards, {world1[cell]['ms']:.1f} at world 1: "
+                    f"speed-up {world1[cell]['ms'] / got[cell]['ms']:.3f}x "
+                    f"[{card}]")
+        else:
+            log(f"[dist] 11c did not run: the machine has {cards} card, and "
+                f"NCCL takes one card a rank")
+
+        phase("11d multi-rank: the CLI on two ranks")
+        dist_cli(inst_path, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
     """`[time]`: (ms, the second time or None, bound) as timed."""
     ms, second_ms, (bound_ms, bound_by, detail) = timed
@@ -2115,6 +2347,9 @@ def run():
     # The split BVH, the BVH cache and the interactive preview (phase 10).
     split_got = split_phase(dev, card, scenes["still_life"], sl_image,
                             sl_ms, stats)
+
+    # The sharded frames (phase 11).
+    multi_rank_phase(dev, card)
 
     phase("9 output")
     src = "imbatracer_torch/csrc/"

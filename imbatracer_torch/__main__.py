@@ -3,4 +3,5 @@ command-line renderer (frontend/cli.py)."""
 
 from .frontend.cli import main
 
-raise SystemExit(main())
+if __name__ == "__main__":
+    raise SystemExit(main())

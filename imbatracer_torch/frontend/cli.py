@@ -12,13 +12,25 @@ as every flat scene's BVH is) and `--interactive` (the live terminal
 preview, frontend/interactive.py).  `--device` (cuda by default, or cpu)
 picks where the scene lives and renders; the port never falls back from
 one to the other.
+
+With `--device cuda` and more than one visible card, the CLI starts one
+rank a card (parallel/launch.py; CUDA_VISIBLE_DEVICES picks the cards),
+each builds the scene on its card and every frame is rendered across
+them (parallel/shard.py), as the JAX CLI shards over its chips; rank 0
+writes the PNG and prints the perf line, and in `--interactive` keeps
+the terminal while the others follow its camera.  `--device cpu` is one
+process.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
+
+import torch
 
 from ..device import get_device
+from ..parallel import launch
 from ..scene.build import build_scene
 from ..utils.log import logger
 from .engine import ALGORITHMS, make_frame_fn
@@ -87,25 +99,56 @@ def settings_from_args(args) -> RenderSettings:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     settings = settings_from_args(args)
     device = get_device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cards > 1:
+        if args.interactive:
+            from .interactive import require_tty
 
-    scene, meta = build_scene(args.scene, quiet=args.quiet, device=device,
+            require_tty()
+        logger.info("sharding over %d cards", cards)
+        launch.spawn(render_rank, cards, "cuda", "nccl", args=(argv,))
+        return 0
+    return render(args, settings, device)
+
+
+def render_rank(comm, argv):
+    """One rank of a render across `comm`'s ranks: the CLI's arguments,
+    the scene built on the rank's device.  The spawned rank 0 of
+    `--interactive` reads the terminal on file descriptor 0, which the
+    launch leaves open in its ranks."""
+    args = build_parser().parse_args(argv)
+    if args.interactive and comm.rank == 0:
+        sys.stdin = open(0, closefd=False)
+    return render(args, settings_from_args(args), comm.device, comm=comm)
+
+
+def render(args, settings, device, comm=None):
+    """Build the scene on `device` and render it (across `comm`'s ranks,
+    when given); the leader writes the PNG."""
+    quiet = args.quiet or (comm is not None and comm.rank != 0)
+    scene, meta = build_scene(args.scene, quiet=quiet, device=device,
                               spatial=args.sbvh)
-    if not args.quiet:
+    if not quiet:
         logger.info("scene %s: %d tris, %d lights, algo=%s, device %s",
                     meta.name, meta.num_tris, meta.num_lights,
                     args.algorithm, device)
 
     if args.interactive:
-        from .interactive import run_interactive
+        from .interactive import follow_interactive, run_interactive
 
-        run_interactive(scene, meta, settings, args.output)
+        if comm is not None and comm.rank != 0:
+            follow_interactive(scene, meta, settings, comm)
+        else:
+            run_interactive(scene, meta, settings, args.output, comm=comm)
         return 0
 
-    frame_fn, _cam = make_frame_fn(scene, meta, settings)
-    renderer = ProgressiveRenderer(frame_fn, settings, device)
+    frame_fn, _cam = make_frame_fn(scene, meta, settings, comm=comm)
+    renderer = ProgressiveRenderer(frame_fn, settings, device, comm=comm)
     renderer.run(quiet=args.quiet)
-    renderer.save(args.output)
+    if renderer.leader:
+        renderer.save(args.output)
     return 0

@@ -15,6 +15,11 @@ alternate screen buffer.  Works over ssh; no display server needed.
 Keys:  w/a/s/d  move      q/e   down/up        i/j/k/l  look
        +/-      speed     r     reset accum    p        save PNG
        ESC/x    quit (saves the final image)
+
+Across several ranks (parallel/), rank 0 runs this loop and, before each
+frame, broadcasts the command, the frame index and the camera pose; the
+other ranks run `follow_interactive`, which renders the same frame with
+the same camera, until rank 0 broadcasts the end.
 """
 
 from __future__ import annotations
@@ -158,29 +163,66 @@ def _read_keys(timeout: float) -> str:
 _MOVES = {"w": (0, 0, 1), "s": (0, 0, -1), "a": (-1, 0, 0), "d": (1, 0, 0),
           "q": (0, -1, 0), "e": (0, 1, 0)}
 
+# Rank 0's message before each frame: [command, frame, pos(3), dir(3),
+# up(3)] in float64, which holds the pose and the frame index exactly.
+RENDER, QUIT = 0, 1
+_MSG_LEN = 11
 
-def run_interactive(scene, meta, settings, out_path: str):
-    """The interactive render loop (render_window.cpp:50-122 analogue)."""
+
+def _message(command, frame, pose, device):
+    pos, direction, up = pose
+    return torch.tensor([command, frame, *pos, *direction, *up],
+                        dtype=torch.float64, device=device)
+
+
+def require_tty():
+    if not sys.stdin.isatty():
+        raise SystemExit("--interactive needs a TTY (run without -q "
+                         "redirection); use the normal mode otherwise")
+
+
+def follow_interactive(scene, meta, settings, comm):
+    """The preview on a rank other than 0: each frame, rank 0's command,
+    frame index and camera pose, then the same frame function call."""
+    from .engine import make_camera_frame_fn
+
+    core, _ = make_camera_frame_fn(scene, meta, settings, comm=comm)
+    blank = torch.zeros(_MSG_LEN, dtype=torch.float64, device=comm.device)
+    while True:
+        m = comm.broadcast(blank).tolist()
+        if int(m[0]) == QUIT:
+            return
+        cam = make_camera(m[2:5], m[5:8], m[8:11], settings.width,
+                          settings.height, settings.fov, scene.device)
+        core(int(m[1]), cam)
+
+
+def run_interactive(scene, meta, settings, out_path: str, comm=None):
+    """The interactive render loop (render_window.cpp:50-122 analogue);
+    with `comm`, rank 0's side of it (see the module docstring)."""
     import termios
     import tty
 
     from .engine import make_camera_frame_fn
     from .renderer import ProgressiveRenderer
 
-    if not sys.stdin.isatty():
-        raise SystemExit("--interactive needs a TTY (run without -q "
-                         "redirection); use the normal mode otherwise")
+    require_tty()
 
     device = scene.device
-    core, cam0 = make_camera_frame_fn(scene, meta, settings)
+    core, cam0 = make_camera_frame_fn(scene, meta, settings, comm=comm)
     # Camera speed from the scene extent, like the reference derives it
     # from the setup (main.cpp:142-147 velocity argument).
     speed = float(scene.bsphere.radius) * 0.05
     fps_cam = FirstPersonCamera(meta.cam_pos, meta.cam_dir, meta.cam_up,
                                 speed)
-    state = {"cam": cam0}
-    r = ProgressiveRenderer(lambda f: core(f, state["cam"]), settings,
-                            device)
+    state = {"cam": cam0, "pose": (meta.cam_pos, meta.cam_dir, meta.cam_up)}
+
+    def frame_fn(f):
+        if comm is not None:
+            comm.broadcast(_message(RENDER, f, state["pose"], comm.device))
+        return core(f, state["cam"])
+
+    r = ProgressiveRenderer(frame_fn, settings, device)
 
     fd = sys.stdin.fileno()
     old = termios.tcgetattr(fd)
@@ -237,6 +279,8 @@ def run_interactive(scene, meta, settings, out_path: str):
             if moved:
                 # Camera moved: a new Camera, restart accumulation
                 # (render_window.cpp:164-175 clear-on-input).
+                state["pose"] = (fps_cam.pos.copy(), fps_cam.forward.copy(),
+                                 fps_cam.up.copy())
                 state["cam"] = fps_cam.camera(
                     settings.width, settings.height, settings.fov, device)
                 r.reset()
@@ -246,5 +290,7 @@ def run_interactive(scene, meta, settings, out_path: str):
         termios.tcsetattr(fd, termios.TCSADRAIN, old)
         sys.stdout.write("\x1b[?25h\x1b[?1049l")
         sys.stdout.flush()
+        if comm is not None:
+            comm.broadcast(_message(QUIT, 0, state["pose"], comm.device))
     r.save(out_path)
     logger.info("interactive preview ended after %d frames", r.frames)

@@ -56,12 +56,20 @@ class ProgressiveRenderer:
     on `device`; `image()` divides the sum by frames * spp.  A frame's
     film holds spp camera samples a pixel; the VCM family's one light pass
     a frame comes weighted by spp (render_vcm_frame), so it too is at
-    full weight after the division."""
+    full weight after the division.
 
-    def __init__(self, frame_fn, settings: RenderSettings, device):
+    With a `comm` (a frame_fn sharded over its ranks), every rank runs the
+    same frames: rank 0 decides after each frame whether the budget is
+    spent and broadcasts the decision, and only rank 0 logs, writes the
+    intermediate images and prints the perf line."""
+
+    def __init__(self, frame_fn, settings: RenderSettings, device,
+                 comm=None):
         self.frame_fn = frame_fn
         self.s = settings
         self.device = torch.device(device)
+        self.comm = comm
+        self.leader = comm is None or comm.rank == 0
         self.reset()
 
     def reset(self):
@@ -91,22 +99,27 @@ class ProgressiveRenderer:
             frame_ms.append((time.time() - t0) * 1000.0)
             elapsed = time.time() - t_start
             samples = self.frames * s.spp
-            if not quiet and time.time() - t_last_report > 10.0:
+            if (self.leader and not quiet
+                    and time.time() - t_last_report > 10.0):
                 logger.info("%d samples, %.2f fps, %.2f ms/frame", samples,
                             self.frames / elapsed, np.mean(frame_ms[-20:]))
                 t_last_report = time.time()
-            if (s.intermediate_path
+            if (self.leader and s.intermediate_path
                     and time.time() - t_last_dump >= s.intermediate_time):
                 self.save(f"{s.intermediate_path}_{int(elapsed)}s.png")
                 t_last_dump = time.time()
-            if samples >= s.max_samples or elapsed >= s.max_time_sec:
+            stop = samples >= s.max_samples or elapsed >= s.max_time_sec
+            if self.comm is not None:
+                stop = bool(self.comm.broadcast_flag(stop))
+            if stop:
                 break
         elapsed = time.time() - t_start
         samples = self.frames * s.spp
         fps = self.frames / max(elapsed, 1e-9)
         ms = 1000.0 * elapsed / max(self.frames, 1)
-        print(f"Done after {elapsed} seconds, {samples} samples @ {fps} "
-              f"frames per second, {ms} ms per frame")
+        if self.leader:
+            print(f"Done after {elapsed} seconds, {samples} samples @ {fps} "
+                  f"frames per second, {ms} ms per frame")
         return self.image()
 
     def image(self) -> np.ndarray:

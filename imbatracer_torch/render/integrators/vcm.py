@@ -506,6 +506,24 @@ def _vertex_merging(grid, isect, throughput, d_vcm, d_vm, active, radiance,
 #  Frame entry point
 # ======================================================================
 
+def frame_constants(cam: Camera, frame, base_radius, *, algo: str,
+                    num_pixels: int, light_path_count: int, max_len: int):
+    """A frame's constants on the camera's device: (frame, base_radius,
+    light_path_count (its default resolved), cache_capacity, pm_radius,
+    mis_eta_vc, mis_eta_vm)."""
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algorithm {algo!r}")
+    dev = cam.pos.device
+    frame = torch.as_tensor(frame, device=dev).to(torch.int64)
+    base_radius = torch.as_tensor(base_radius, dtype=torch.float32,
+                                  device=dev)
+    if light_path_count <= 0:
+        light_path_count = num_pixels // 2
+    cache_capacity = auto_cache_capacity(light_path_count, max_len)
+    return (frame, base_radius, light_path_count, cache_capacity,
+            *_mis_constants(frame, base_radius, light_path_count, algo))
+
+
 def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                      algo: str = "vcm", width: int = 512, height: int = 512,
                      spp: int = 1, max_len: int = 10,
@@ -539,18 +557,12 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
     it holds a list under "merge_queries", each camera band appends the
     arguments of its camera bounce-1 merge call (merge_contrib's, by
     name) to it."""
-    if algo not in ALGOS:
-        raise ValueError(f"unknown algorithm {algo!r}")
     dev = cam.pos.device
-    frame = torch.as_tensor(frame, device=dev).to(torch.int64)
-    base_radius = torch.as_tensor(base_radius, dtype=torch.float32,
-                                  device=dev)
     num_pixels = width * height
-    if light_path_count <= 0:
-        light_path_count = num_pixels // 2
-    cache_capacity = auto_cache_capacity(light_path_count, max_len)
-    pm_radius, mis_eta_vc, mis_eta_vm = _mis_constants(
-        frame, base_radius, light_path_count, algo)
+    (frame, base_radius, light_path_count, cache_capacity, pm_radius,
+     mis_eta_vc, mis_eta_vm) = frame_constants(
+        cam, frame, base_radius, algo=algo, num_pixels=num_pixels,
+        light_path_count=light_path_count, max_len=max_len)
     alpha_fn = alpha_fn_for(scene) if has_masks else None
 
     film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
@@ -579,26 +591,44 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                 stats["cache"] = cache.count
             del collect
         if algo in ("vcm", "ppm"):
-            valid = torch.arange(cache.capacity, device=dev) < cache.count
-            grid = merge_mod.build_merge_grid(
-                cache.pos, valid, pm_radius, cache.w_out, cache.throughput,
-                cache.d_vcm, cache.d_vm)
-            if stats is not None:
-                stats["photons"] = valid.sum()
+            grid = photon_grid(cache, pm_radius, stats)
 
     if algo != "lt":
         band = max(1, camera_band // max(spp, 1))
-        record = stats.get("merge_queries") if stats is not None else None
-        parts = []
-        for start in range(0, num_pixels, band):
-            bp = min(band, num_pixels - start)
-            parts.append(_camera_pass(
-                scene, cam, frame, cache, cache_rec, grid, pm_radius,
-                base_radius, mis_eta_vc, mis_eta_vm, algo=algo, width=width,
-                height=height, spp=spp, max_len=max_len,
-                light_path_count=light_path_count,
-                num_connections=num_connections, has_bump=has_bump,
-                alpha_fn=alpha_fn, techniques=techniques, start_pixel=start,
-                band_pixels=bp, mat_kinds=mat_kinds, record=record))
-        film = film + (parts[0] if len(parts) == 1 else torch.cat(parts))
+        bands = [(start, min(band, num_pixels - start))
+                 for start in range(0, num_pixels, band)]
+        film = film + camera_film(
+            scene, cam, frame, cache, cache_rec, grid, pm_radius,
+            base_radius, mis_eta_vc, mis_eta_vm, bands, stats=stats,
+            algo=algo, width=width, height=height, spp=spp, max_len=max_len,
+            light_path_count=light_path_count,
+            num_connections=num_connections, has_bump=has_bump,
+            alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds)
     return film
+
+
+def photon_grid(cache, pm_radius, stats=None):
+    """The merge kernel's photon grid over the cache's valid vertices;
+    records the photon count in `stats` ("photons")."""
+    valid = torch.arange(cache.capacity, device=cache.pos.device) < cache.count
+    grid = merge_mod.build_merge_grid(
+        cache.pos, valid, pm_radius, cache.w_out, cache.throughput,
+        cache.d_vcm, cache.d_vm)
+    if stats is not None:
+        stats["photons"] = valid.sum()
+    return grid
+
+
+def camera_film(scene, cam, frame, cache, cache_rec, grid, pm_radius,
+                base_radius, mis_eta_vc, mis_eta_vm, bands, *, stats, spp,
+                **kw):
+    """The camera pass over `bands`, (start_pixel, pixels) pairs of
+    consecutive pixels, concatenated in order: (sum of pixels, 3)."""
+    record = stats.get("merge_queries") if stats is not None else None
+    parts = [_camera_pass(
+        scene, cam, frame, cache, cache_rec, grid, pm_radius, base_radius,
+        mis_eta_vc, mis_eta_vm, spp=spp, start_pixel=start, band_pixels=n,
+        record=record, **kw) for start, n in bands]
+    if not parts:
+        return torch.zeros((0, 3), dtype=torch.float32, device=cam.pos.device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -74,6 +74,16 @@ def _from_rec(rec, count) -> LightVertexCache:
         path_length=ib(21), path_id=ib(22), count=count)
 
 
+def from_rows(rows: torch.Tensor, capacity: int) -> LightVertexCache:
+    """A cache of max(len(rows), capacity) slots whose valid vertices are
+    the packed (N, 24) `rows`, in their order; the slots after are zero,
+    as an empty cache's are."""
+    rec = rows.new_zeros((max(rows.shape[0], capacity), REC_W))
+    rec[:rows.shape[0]] = rows
+    return _from_rec(rec, torch.tensor(rows.shape[0], dtype=torch.int32,
+                                       device=rows.device))
+
+
 def empty_cache(capacity: int, device) -> LightVertexCache:
     rec = torch.zeros((capacity, REC_W), dtype=torch.float32, device=device)
     return _from_rec(rec, torch.zeros((), dtype=torch.int32, device=device))
