@@ -181,6 +181,23 @@ failure raises and the script exits non-zero:
    against the one-process CLI: the PNGs equal byte for byte, or else
    at least 99.99% of pixels equal in the 8-bit images (the line says
    which held).
+12. Compaction (after phase 11, before the output): still_life PT at
+   1920x1080 (max_len 8), cornell (max_len 10) and big_4000 (max_len 6)
+   PT at 1024^2, still_life vcm (VCM_LPC light paths) and the instanced
+   vcm of phase 8 (written and built again) at 1920x1080 (max_len 8),
+   each through the integrators with make_frame_fn's arguments: the
+   default route, which must have compacted, and the banded one
+   (compact=False), a warm-up frame, then COMPACT_CELLS' frames of both
+   interleaved at the same frame numbers, each with the launch counters
+   and the peak memory set just before it and read just after.  Per
+   cell: the share of lanes alive after the phase-1 bounces, the
+   phase-2 bands and the band-bounces a frame, the stream, 1b, khit and
+   merge launches a frame, ms/frame of both routes, the peak memory,
+   and the traced rays a frame (PT: closest hit + shadow; vcm: those of
+   the camera pass); PT films must be bit-equal on >= 99.99% of pixels,
+   vcm film means within 1e-6 relative, traced rays within 1e-4
+   relative, no plain version run.  Every earlier phase runs the
+   default route, compacted wherever a frame has more than one band.
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
@@ -2167,6 +2184,165 @@ def multi_rank_phase(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 12's cells: (cell, scene, algorithm, width, height, max_len, timed
+# frames a route).
+COMPACT_CELLS = (
+    ("still_life pt", "still_life", "pt", 1920, 1080, 8, 3),
+    ("cornell pt", "cornell", "pt", 1024, 1024, 10, 3),
+    ("big_4000 pt", "big_4000", "pt", 1024, 1024, 6, 3),
+    ("still_life vcm", "still_life", "vcm", 1920, 1080, 8, 2),
+    ("instanced vcm", "instanced", "vcm", 1920, 1080, 8, 2),
+)
+COMPACT_PT_EQUAL = 0.9999     # PT pixels bit-equal across the two routes
+COMPACT_VCM_MEAN = 1e-6       # vcm film means, relative
+COMPACT_RAYS_REL = 1e-4       # traced rays a frame, relative
+ROUTE_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
+              "any_hit_instanced", "khit", "merge")
+
+
+def route_fn(scene, meta, algo, width, height, max_len):
+    """f(frame, compact) -> (film, traced rays, route counts) of one
+    phase-12 cell, with the arguments make_frame_fn gives the
+    integrators (vcm: VCM_LPC light paths on the still life at 1080p,
+    else the default count).  PT's rays are the frame's closest-hit and
+    shadow rays, vcm's those of its camera pass."""
+    from imbatracer_torch.frontend.engine import estimate_pixel_size
+    from imbatracer_torch.frontend.renderer import (RenderSettings,
+                                                    camera_for_scene)
+    from imbatracer_torch.render.integrators.pt import render_pt_frame
+    from imbatracer_torch.render.integrators.vcm import render_vcm_frame
+
+    settings = RenderSettings(width=width, height=height, spp=1,
+                              max_path_len=max_len, algorithm=algo)
+    cam = camera_for_scene(meta, settings, scene.device)
+    if algo == "pt":
+        def fn(frame, compact):
+            route = {}
+            film, rays = render_pt_frame(
+                scene, cam, frame, width, height, max_len=max_len,
+                has_masks=meta.has_masks, has_bump=meta.has_bump,
+                with_stats=True, compact=compact, stats=route)
+            return film, rays, route
+        return fn
+    lpc = (VCM_LPC if (width, height) == (1920, 1080)
+           and not scene.bvh.two_level
+           else settings.resolved_light_path_count())
+    radius = estimate_pixel_size(scene, cam, meta) * settings.radius_factor
+    kinds = tuple(sorted(set(scene.materials.kind.tolist())))
+
+    def fn(frame, compact):
+        route = {}
+        film = render_vcm_frame(
+            scene, cam, frame, radius, algo=algo, width=width, height=height,
+            max_len=max_len, light_path_count=lpc, has_masks=meta.has_masks,
+            has_bump=meta.has_bump, mat_kinds=kinds, compact=compact,
+            stats={"route": route})
+        return film, route["camera_rays"], route
+    return fn
+
+
+def run_route(fn, frame, compact):
+    """One frame of one route, the launch counters and the peak memory
+    set just before it and read just after."""
+    torch.cuda.synchronize()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.time()
+    film, rays, route = fn(frame, compact)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1000.0
+    return dict(film=film, rays=int(rays), route=route, ms=ms,
+                launches=counters(), held=held,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def hold_routes(cell, algo, compacted, banded, card):
+    """Log one phase-12 cell's two routes over the same frames and hold
+    them against each other: the default must have compacted, PT films
+    bit-equal on COMPACT_PT_EQUAL of the pixels, vcm film means within
+    COMPACT_VCM_MEAN (the light splat adds with atomics), traced rays
+    within COMPACT_RAYS_REL, no plain version run."""
+    n = len(compacted)
+    cr = [r["route"] for r in compacted]
+    if any("alive" not in r for r in cr):
+        raise AssertionError(f"{cell}: the default route did not compact")
+    for r in compacted + banded:
+        if not bool(torch.isfinite(r["film"]).all()) or not float(
+                r["film"].mean()) > 0.0 or plain_runs(r["launches"]):
+            raise AssertionError(f"{cell}: a film is not finite with a "
+                                 f"positive mean, or a plain version ran")
+    parity, ok = [], True
+    for c, b in zip(compacted, banded):
+        if algo == "pt":
+            x = float((c["film"] == b["film"]).all(dim=1).double().mean())
+            ok = ok and x >= COMPACT_PT_EQUAL
+        else:
+            x = abs(float(c["film"].double().mean()
+                          - b["film"].double().mean())) / float(
+                b["film"].double().mean())
+            ok = ok and x <= COMPACT_VCM_MEAN
+        parity.append(f"{x:.6g}")
+        ok = ok and abs(c["rays"] - b["rays"]) <= COMPACT_RAYS_REL * b["rays"]
+    ms = lambda runs: ", ".join(f"{r['ms']:.1f}" for r in runs)
+    mean_ms = lambda runs: sum(r["ms"] for r in runs) / n
+    launches = lambda runs: {k: sum(r["launches"][k] for r in runs) / n
+                             for k in ROUTE_KEYS}
+    peak = lambda runs: max(r["peak"] for r in runs) / 2**20
+    alive = ", ".join(f"{r['alive'] / r['lanes']:.4f}" for r in cr)
+    log(f"[compact] {cell}: alive after the phase-1 bounces {alive} of "
+        f"{cr[0]['lanes']} lanes; phase-2 bands "
+        f"{[r['phase2_bands'] for r in cr]}; band-bounces a frame compacted "
+        f"{[r['band_bounces'] for r in cr]}, banded "
+        f"{[r['route']['band_bounces'] for r in banded]} [{card}]")
+    log(f"[compact] {cell}: ms/frame compacted {mean_ms(compacted):.1f} "
+        f"({ms(compacted)}), banded {mean_ms(banded):.1f} ({ms(banded)}), "
+        f"{n} frames each, interleaved [{card}]")
+    log(f"[compact] {cell}: launches a frame compacted "
+        f"{launches(compacted)}, banded {launches(banded)}; traced rays a "
+        f"frame compacted {[r['rays'] for r in compacted]}, banded "
+        f"{[r['rays'] for r in banded]}")
+    log(f"[compact] {cell}: peak memory compacted {peak(compacted):.1f} "
+        f"MiB, banded {peak(banded):.1f} MiB, of which "
+        f"{compacted[0]['held'] / 2**20:.1f} MiB was held before the frame;"
+        f" film parity "
+        + (f"pixels bit-equal {', '.join(parity)} (need >= "
+           f"{COMPACT_PT_EQUAL})" if algo == "pt" else
+           f"mean rel diff {', '.join(parity)} (need <= "
+           f"{COMPACT_VCM_MEAN})")
+        + f", rays within {COMPACT_RAYS_REL} rel [{card}]")
+    if not ok:
+        raise AssertionError(f"{cell}: the compacted and banded routes "
+                             f"disagree")
+
+
+def compaction_phase(dev, card, scenes):
+    """Phase 12: each cell of COMPACT_CELLS through the default route
+    (compacted on the card) and the banded one, a warm-up frame, then
+    the same frame numbers interleaved."""
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+
+    phase("12 compaction: the compacted and banded routes")
+    tmp = tempfile.mkdtemp(prefix="imba_compact_")
+    try:
+        scenes = dict(scenes, instanced=build_scene(
+            write_instanced_scene(tmp, **CARD), quiet=True, device=dev))
+        for cell, key, algo, w, h, max_len, frames in COMPACT_CELLS:
+            fn = route_fn(*scenes[key], algo, w, h, max_len)
+            fn(0, None)
+            runs = {None: [], False: []}
+            for f in range(1, frames + 1):
+                for compact in ((None, False) if f % 2 else (False, None)):
+                    runs[compact].append(run_route(fn, f, compact))
+            hold_routes(f"{cell} {w}x{h} max_len {max_len}", algo,
+                        runs[None], runs[False], card)
+            del fn, runs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
     """`[time]`: (ms, the second time or None, bound) as timed."""
     ms, second_ms, (bound_ms, bound_by, detail) = timed
@@ -2350,6 +2526,9 @@ def run():
 
     # The sharded frames (phase 11).
     multi_rank_phase(dev, card)
+
+    # The compacted and banded routes side by side (phase 12).
+    compaction_phase(dev, card, scenes)
 
     phase("9 output")
     src = "imbatracer_torch/csrc/"

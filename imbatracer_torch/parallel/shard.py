@@ -22,9 +22,10 @@ those of the single-process frame.  Collectives a frame: PT 1 (+1 for
 the ray count of `with_stats`); the VCM family 1 per light step, 2 for
 the cache (counts, rows) and 1 for the camera film.
 
-Not ported: the compacted variants of the JAX module (mid-frame
-compaction of the PT frame and of the VCM camera pass), which the
-port's single-card renderer does not have either.
+Mid-frame lane compaction (the PT frame and the VCM camera pass, see
+render/integrators/pt.py) runs within each rank: a rank sorts its own
+bands' lanes and picks its own phase-2 band count, with no collective,
+by the single-process rule on its own band count (`compact=None`).
 """
 
 from __future__ import annotations
@@ -68,28 +69,19 @@ def _pixel_counts(width: int, height: int, world: int):
 def render_pt_frame_sharded(scene, cam, frame, width: int, height: int,
                             comm, *, spp: int = 1, max_len: int = 10,
                             has_masks: bool = False, has_bump: bool = False,
-                            with_stats: bool = False):
+                            with_stats: bool = False, compact: bool = None):
     """One PT frame across the ranks of `comm`: the full un-normalised
     (H*W, 3) film on every rank (and, with `with_stats`, the traced rays
     of all ranks), equal to render_pt_frame's film up to exact-t ties
     that a different block composition of the traversal resolves
-    differently."""
+    differently.  `compact` as in render_pt_frame, decided by each rank
+    for its own bands."""
     y0, y1 = row_range(height, comm.rank, comm.world)
-    dev = cam.pos.device
-    parts = []
-    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for start, n in row_bands(y0, y1, width, pt_mod.BAND_RAYS // max(spp, 1)):
-        out = pt_mod._pt_band(
-            scene, cam, frame, start, width=width, height=height, spp=spp,
-            max_len=max_len, has_masks=has_masks, has_bump=has_bump,
-            with_stats=with_stats, band_pixels=n)
-        if with_stats:
-            parts.append(out[0])
-            n_rays = n_rays + out[1]
-        else:
-            parts.append(out)
-    local = (torch.cat(parts) if parts else
-             torch.zeros((0, 3), dtype=torch.float32, device=dev))
+    local, n_rays = pt_mod.pt_bands(
+        scene, cam, frame,
+        row_bands(y0, y1, width, pt_mod.BAND_RAYS // max(spp, 1)),
+        width=width, height=height, spp=spp, max_len=max_len,
+        has_masks=has_masks, has_bump=has_bump, compact=compact)
     film = comm.all_gather_rows(
         local, counts=_pixel_counts(width, height, comm.world))
     if with_stats:
@@ -129,7 +121,7 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
                              mat_kinds: tuple = None,
                              light_band: int = pt_mod.BAND_RAYS,
                              camera_band: int = pt_mod.BAND_RAYS,
-                             stats: dict = None):
+                             stats: dict = None, compact: bool = None):
     """One VCM-family frame across the ranks of `comm`, with
     render_vcm_frame's arguments; the full film on every rank.  On the
     CPU it equals render_vcm_frame(..., light_band=bp) bit for bit, bp =
@@ -137,7 +129,8 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
     step; on a card the light splat's atomics reorder its sums.
     `light_path_count` must divide by the number of ranks (ValueError):
     tracing more or fewer paths than it biases the light film, so the
-    engine rounds it up."""
+    engine rounds it up.  `compact`: camera-pass compaction as in
+    render_vcm_frame, decided by each rank for its own bands."""
     dev = cam.pos.device
     num_pixels = width * height
     (frame, base_radius, light_path_count, cache_capacity, pm_radius,
@@ -187,7 +180,8 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
             stats=stats, algo=algo, width=width, height=height, spp=spp,
             max_len=max_len, light_path_count=light_path_count,
             num_connections=num_connections, has_bump=has_bump,
-            alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds)
+            alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds,
+            compact=compact)
         film = film + comm.all_gather_rows(
             local, counts=_pixel_counts(width, height, world))
     return film

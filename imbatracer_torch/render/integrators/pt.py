@@ -9,9 +9,20 @@ NEE with an any-hit shadow ray, BSDF sampling with Russian roulette).
 Scenes with alpha masks traverse through the masked route (`alpha_fn_for`,
 render/traverse.py).  The per-ray RNG state
 rides in the carry, so the estimator matches the JAX package's path for
-path.  Mid-frame compaction, the fused-frame dispatch, lane regeneration
-and deferred shadow rays are schedule variants of the same estimator and
-are not ported (ROADMAP.md, Queue A).
+path.
+
+Mid-frame lane compaction (the JAX module's compacted frame, after the
+reference's RayQueue::compact): Russian roulette, misses and emitter hits
+kill most lanes within a few bounces, yet a banded frame runs every band
+for all `max_len` bounces.  The compacted frame runs the first
+`compact_depth(max_len)` bounces of every band, stably sorts the merged
+carry's lanes live-first (`_compact_carry`) and runs the remaining
+bounces on ceil(alive / band lanes) bands only; one host sync a frame
+reads the live count.  Each lane carries its RNG state and its lane id,
+so a lane's path is the banded frame's, and the film is put back in lane
+order before the per-band reshape-sums of the banded frame.  It is the
+default on a CUDA device for frames of more than one band
+(`use_compact`); the CPU keeps the banded frame unless asked.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from ..traverse import any_hit, closest_hit
 
 # Rays per band: the lockstep wavefront's width.
 BAND_RAYS = 1 << 18
+# Bounces every band of a compacted frame runs before its lanes are sorted.
+COMPACT_DEPTH = 3
 
 
 def alpha_fn_for(scene):
@@ -172,19 +185,99 @@ def _pt_bounce(scene, c, *, alpha_fn, has_bump, max_len):
     )
 
 
-def trace_paths(scene, org, d, state, max_len: int, has_masks: bool = False,
-                has_bump: bool = False, with_stats: bool = False):
-    """Trace a batch of camera paths to completion.  Returns per-ray
-    radiance (R, 3); with stats, also the count of traced rays (closest
-    hit + occlusion)."""
-    alpha_fn = alpha_fn_for(scene) if has_masks else None
-    c = _init_carry(org, d, state)
-    for _ in range(max_len):
+def _trace(scene, c, bounces, *, alpha_fn, has_bump, max_len):
+    """`bounces` PT bounces of every lane of the carry.  The bounce is
+    depth-per-lane, so lanes at mixed depths may share the carry."""
+    for _ in range(bounces):
         c = _pt_bounce(scene, c, alpha_fn=alpha_fn, has_bump=has_bump,
                        max_len=max_len)
-    if with_stats:
-        return c["radiance"], c["n_rays"]
-    return c["radiance"]
+    return c
+
+
+def compact_depth(max_len: int) -> int:
+    """Phase-1 bounces of a compacted PT frame: COMPACT_DEPTH within
+    [1, max_len - 1]."""
+    return max(1, min(COMPACT_DEPTH, max_len - 1))
+
+
+def use_compact(device, num_bands: int, max_len: int) -> bool:
+    """Whether a frame of `num_bands` bands takes the compacted route by
+    default: on a CUDA device, with more than one band and max_len >= 2.
+    Every bounce of a band costs the card its launches whether or not
+    its lanes live; on the CPU a dead lane costs only its arithmetic, so
+    the banded frame stays."""
+    return (torch.device(device).type == "cuda" and num_bands > 1
+            and max_len >= 2)
+
+
+def _compact_carry(c, lane_id):
+    """Stable partition of a lockstep carry's lanes, live lanes first: one
+    stable sort of ~active and a gather of every column and of
+    `lane_id`.  Returns (sorted carry, sorted lane ids, live count as a
+    0-d tensor)."""
+    _, order = torch.sort((~c["active"]).to(torch.uint8), stable=True)
+    return ({k: v[order] for k, v in c.items()}, lane_id[order],
+            c["active"].sum())
+
+
+def compact_lanes(carries, band_lanes: int, phase2, stats=None):
+    """Phase 2 of a compacted frame: merge the phase-1 carries (each a
+    dict of per-lane columns), sort their lanes live-first, run
+    `phase2(carry)` -> carry on the first ceil(alive / band_lanes)
+    slices of `band_lanes` lanes, and return every lane's radiance in
+    the carries' order (a scatter of unique lane ids, so the film sums
+    as the banded frame's does).  The live count is the one host sync.
+    Empties `carries`.  With `stats`, a dict, records "lanes", "alive"
+    and "phase2_bands"."""
+    merged = {k: torch.cat([c[k] for c in carries]) for k in carries[0]}
+    carries.clear()
+    lanes = merged["active"].shape[0]
+    lane_id = torch.arange(lanes, device=merged["active"].device)
+    sc, lane_id, alive = _compact_carry(merged, lane_id)
+    del merged
+    n_alive = int(alive)
+    rad = sc["radiance"]
+    n_bands2 = 0
+    for done in range(0, n_alive, band_lanes):
+        end = min(done + band_lanes, lanes)
+        rad[done:end] = phase2({k: v[done:end] for k, v in sc.items()})[
+            "radiance"]
+        n_bands2 += 1
+    if stats is not None:
+        stats.update(lanes=lanes, alive=n_alive, phase2_bands=n_bands2)
+    return torch.empty_like(rad).index_copy_(0, lane_id, rad)
+
+
+def run_bands(bands, *, spp: int, width: int, max_len: int, depth0: int,
+              compact: bool, phase1, phase2, stats=None):
+    """A lockstep wavefront over `bands`, (start_pixel, pixels) runs of
+    consecutive pixels: their films concatenated in order, (sum of
+    pixels, 3).  `phase1(start, pixels)` returns a band's carry after
+    `depth0` bounces (all `max_len` of them when not `compact`);
+    `phase2(carry)` runs the remaining ones (compact_lanes).  With
+    `stats`, a dict, also records "band_bounces", the bounces run summed
+    over bands."""
+    parts, carries = [], []
+    for start, n in bands:
+        c = phase1(start, n)
+        if compact:
+            carries.append(c)
+        else:
+            parts.append(unswizzle_film(c["radiance"], spp, n, width))
+        del c
+    if compact:
+        rad = compact_lanes(carries, max(n for _, n in bands) * spp, phase2,
+                            stats)
+        off = 0
+        for _, n in bands:
+            parts.append(unswizzle_film(rad[off:off + n * spp], spp, n,
+                                        width))
+            off += n * spp
+    if stats is not None:
+        stats["band_bounces"] = len(bands) * depth0 + (
+            stats.get("phase2_bands", 0) * (max_len - depth0) if compact
+            else 0)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 @functools.lru_cache(maxsize=8)
@@ -236,42 +329,66 @@ def camera_rays(cam: Camera, width: int, height: int, spp: int, frame,
     return org, d, state, pixel_id
 
 
-def _pt_band(scene, cam, frame, start_pixel, *, width, height, spp, max_len,
-             has_masks, has_bump, with_stats, band_pixels):
-    org, d, state, _ = camera_rays(cam, width, height, spp, frame,
-                                   start_pixel=start_pixel,
-                                   count=band_pixels)
-    out = trace_paths(scene, org, d, state, max_len, has_masks=has_masks,
-                      has_bump=has_bump, with_stats=with_stats)
-    if with_stats:
-        radiance, n_rays = out
-        return unswizzle_film(radiance, spp, band_pixels, width), n_rays
-    return unswizzle_film(out, spp, band_pixels, width)
+def pt_bands(scene, cam: Camera, frame, bands, *, width: int, height: int,
+             spp: int, max_len: int, has_masks: bool = False,
+             has_bump: bool = False, compact: bool = None,
+             stats: dict = None):
+    """PT over `bands`, (start_pixel, pixels) runs of consecutive pixels:
+    (their films concatenated in order, traced rays).  `compact`: the
+    compacted route (None: `use_compact` on the camera's device)."""
+    dev = cam.pos.device
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if not bands:
+        return torch.zeros((0, 3), dtype=torch.float32, device=dev), n_rays
+    if compact is None:
+        compact = use_compact(dev, len(bands), max_len)
+    depth0 = compact_depth(max_len) if compact else max_len
+    trace = functools.partial(
+        _trace, scene, alpha_fn=alpha_fn_for(scene) if has_masks else None,
+        has_bump=has_bump, max_len=max_len)
+    counts = []
+
+    def phase1(start, n):
+        org, d, state, _ = camera_rays(cam, width, height, spp, frame,
+                                       start_pixel=start, count=n)
+        c = trace(_init_carry(org, d, state), depth0)
+        counts.append(c.pop("n_rays"))
+        return c
+
+    def phase2(c):
+        c = trace(dict(c, n_rays=torch.zeros_like(n_rays)),
+                  max_len - depth0)
+        counts.append(c.pop("n_rays"))
+        return c
+
+    film = run_bands(bands, spp=spp, width=width, max_len=max_len,
+                     depth0=depth0, compact=compact, phase1=phase1,
+                     phase2=phase2, stats=stats)
+    for n in counts:
+        n_rays = n_rays + n
+    return film, n_rays
 
 
 def render_pt_frame(scene, cam: Camera, frame, width: int, height: int,
                     spp: int = 1, max_len: int = 10, has_masks: bool = False,
-                    has_bump: bool = False, with_stats: bool = False):
+                    has_bump: bool = False, with_stats: bool = False,
+                    compact: bool = None, stats: dict = None):
     """Render one progressive frame; returns an un-normalised (H*W, 3)
     radiance-sum film (divide by frames * spp for display), and with
     `with_stats` the traced-ray count.  `frame` is a 32-bit frame number
-    (Python int or integer tensor)."""
+    (Python int or integer tensor).  `compact`: mid-frame lane
+    compaction (None: `use_compact`, on for a CUDA device and more than
+    one band).  With `stats`, a dict, records the bands' "band_bounces"
+    and, compacted, the lanes, the live lanes after the phase-1 bounces
+    and the phase-2 bands (compact_lanes)."""
     num_pixels = width * height
     band = max(1, BAND_RAYS // max(spp, 1))
-    parts = []
-    stats = torch.zeros((), dtype=torch.int64, device=cam.pos.device)
-    for start in range(0, num_pixels, band):
-        bp = min(band, num_pixels - start)
-        out = _pt_band(scene, cam, frame, start, width=width, height=height,
-                       spp=spp, max_len=max_len, has_masks=has_masks,
-                       has_bump=has_bump, with_stats=with_stats,
-                       band_pixels=bp)
-        if with_stats:
-            parts.append(out[0])
-            stats = stats + out[1]
-        else:
-            parts.append(out)
-    film = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    bands = [(start, min(band, num_pixels - start))
+             for start in range(0, num_pixels, band)]
+    film, n_rays = pt_bands(scene, cam, frame, bands, width=width,
+                            height=height, spp=spp, max_len=max_len,
+                            has_masks=has_masks, has_bump=has_bump,
+                            compact=compact, stats=stats)
     if with_stats:
-        return film, stats
+        return film, n_rays
     return film

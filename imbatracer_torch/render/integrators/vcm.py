@@ -18,19 +18,25 @@ band), then `select_shallowest` down to the working cache capacity and
 `build_merge_grid`, then the camera pass in bands of BAND_RAYS rays,
 each a lockstep loop of `max_len` bounces (env and emitter hits, NEE
 and vertex connections with one batched any-hit dispatch, merging,
-BSDF sampling with Russian roulette).  Banding is estimator-neutral:
+BSDF sampling with Russian roulette).  On a CUDA device a camera pass
+of several bands is compacted mid-frame as the PT frame is
+(render/integrators/pt.py): VCM_COMPACT_DEPTH bounces a band, the
+lanes sorted live-first, the remaining bounces on the bands the live
+lanes fill.  Banding is estimator-neutral:
 the RNG is keyed by global path and pixel ids, the light-path count
 normalises every light-side estimate, and the collect cache holds every
 vertex a frame can store (`max_len` a path), so the selected cache is
 the same under any band size.
 
 Not ported (schedule variants of the same estimator, off by default or
-TPU-only in the JAX package): camera-pass compaction, deferred merging,
-deferred shadow rays, the connect slice, the masked band cap, the
-windowed hash-grid merge route and `debug_light_pass`.
+TPU-only in the JAX package): deferred merging, deferred shadow rays,
+the connect slice, the masked band cap, the windowed hash-grid merge
+route and `debug_light_pass`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -49,9 +55,13 @@ from ..light_cache import (append_packed, empty_cache, pack_batch,
                            select_shallowest)
 from ..surface import make_interaction
 from ..traverse import any_hit, closest_hit
-from .pt import BAND_RAYS, alpha_fn_for, camera_rays, unswizzle_film
+from .pt import (BAND_RAYS, alpha_fn_for, camera_rays, run_bands,
+                 use_compact)
 
 ALGOS = ("vcm", "bpt", "ppm", "lt", "pt")
+# Camera bounces every band of a compacted camera pass runs before its
+# lanes are sorted.
+VCM_COMPACT_DEPTH = 4
 
 # Sampling-technique tags for the MIS debugger: each tag gates one
 # contribution site while the RNG streams stay identical, so renders of
@@ -288,118 +298,149 @@ def _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm, active, state, hit,
 #  Camera pass
 # ======================================================================
 
-def _camera_pass(scene, cam: Camera, frame, cache, cache_rec, grid,
-                 pm_radius, base_radius, mis_eta_vc, mis_eta_vm, *, algo,
-                 width, height, spp, max_len, light_path_count,
-                 num_connections, has_bump, alpha_fn, techniques,
-                 start_pixel, band_pixels, mat_kinds, record=None):
-    """One band of camera paths -> its (band_pixels, 3) film.  With
-    `record`, a list, the arguments of the first bounce's merge call are
-    appended to it."""
+def vcm_compact_depth(max_len: int) -> int:
+    """Phase-1 bounces of a compacted camera pass: VCM_COMPACT_DEPTH
+    within [1, max_len - 1]."""
+    return max(1, min(VCM_COMPACT_DEPTH, max_len - 1))
+
+
+def use_vcm_compact(device, num_bands: int, max_len: int) -> bool:
+    """Whether a camera pass of `num_bands` bands is compacted by
+    default: the PT frame's rule (pt.use_compact), on a CUDA device with
+    more than one band and max_len >= 2."""
+    return use_compact(device, num_bands, max_len)
+
+
+def _camera_carry(cam: Camera, frame, *, width, height, spp,
+                  light_path_count, start_pixel, band_pixels):
+    """The primary-ray carry of one band of camera paths."""
     org, d, state, _ = camera_rays(cam, width, height, spp, frame,
                                    start_pixel=start_pixel, count=band_pixels)
     # dVCM init: the pixel pdf converted to solid angle.
     cos_o = dot(d, cam.forward)
     a = cam.img_plane_dist / cos_o
-    d_vcm = light_path_count / (a * a / cos_o / pixel_area(cam))
     zero1 = torch.zeros_like(org[:, 0])
-    tmin, d_vc, d_vm = zero1, zero1, zero1
-    throughput = torch.ones_like(org)
-    radiance = torch.zeros_like(org)
-    active = torch.ones_like(zero1, dtype=torch.bool)
+    return dict(org=org, d=d, tmin=zero1, throughput=torch.ones_like(org),
+                radiance=torch.zeros_like(org),
+                active=torch.ones_like(zero1, dtype=torch.bool),
+                d_vc=zero1,
+                d_vcm=light_path_count / (a * a / cos_o / pixel_area(cam)),
+                d_vm=zero1, state=state)
+
+
+def _camera_bounce(scene, c, i, *, cache, cache_rec, grid, pm_radius,
+                   base_radius, mis_eta_vc, mis_eta_vm, algo, max_len,
+                   light_path_count, num_connections, has_bump, alpha_fn,
+                   techniques, mat_kinds, record=None):
+    """Camera bounce `i` of every lane of the carry.  The lanes are
+    lockstep: every live lane is at bounce `i`, which the first-vertex
+    weights, the connections' path length and the last bounce read.
+    With `record`, a list, the arguments of the bounce's merge call are
+    appended to it.  With "n_rays" in the carry, the bounce adds its
+    traced rays (closest hit + shadow) to it."""
+    org, d, throughput, active, state = (c["org"], c["d"], c["throughput"],
+                                         c["active"], c["state"])
+    d_vc, d_vcm, d_vm, radiance = c["d_vc"], c["d_vcm"], c["d_vm"], \
+        c["radiance"]
     num_lights = scene.lights.kind.shape[0]
     ppm = algo == "ppm"
-
-    for i in range(max_len):
-        hit = closest_hit(scene.bvh, org, d, tmin, BIG, alpha_fn=alpha_fn,
-                          active=active, sort=True)
-        # --- environment misses -----------------------------------------
-        # The template's PT variant weights the first vertex fully, as the
-        # dedicated path tracer does (the JAX module's deviation).
-        miss = active & (hit.prim_id < 0)
-        if scene.env is not None and "light_hit" in techniques:
-            li, pdf_direct_w, pdf_emit_w = envmap_mod.radiance(
-                scene.env, normalize(d), scene.bsphere.inv_radius_sqr)
-            w_cam = ((pdf_direct_w / num_lights) * d_vcm
-                     + (pdf_emit_w / num_lights) * d_vc)
-            if ppm or (algo == "pt" and i == 0):
-                w = torch.ones_like(w_cam)
-            else:
-                w = 1.0 / (w_cam + 1.0)
-            radiance = radiance + torch.where(
-                miss[..., None], throughput * li * w[..., None], 0.0)
-        active = active & ~miss
-
-        isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
-        cos_o = torch.abs(dot(isect.w_out, isect.normal))
-        inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
-        d_vcm = d_vcm * (hit.t * hit.t) * inv_cos
-        d_vc = d_vc * inv_cos
-        d_vm = d_vm * inv_cos
-        active = active & (cos_o > 0.0)
-
-        # --- emitter hits -------------------------------------------------
-        is_emitter = active & (isect.light_id >= 0)
-        area = torch.clamp(isect.area, min=1e-12)
-        cos_geom = dot(isect.gn, isect.w_out)
-        front = cos_geom > 0.0
-        li = torch.where(front[..., None], isect.emit, 0.0)
-        pdf_direct_a = torch.where(front, 1.0 / area, 1.0)
-        # The area emitter's pdf_emit_w is measured about the geometric
-        # normal.
-        pdf_emit_w = torch.where(
-            front, torch.clamp(cos_geom, min=0.0) / PI / area, 1.0)
-        w_cam = ((pdf_direct_a / num_lights) * d_vcm
+    hit = closest_hit(scene.bvh, org, d, c["tmin"], BIG, alpha_fn=alpha_fn,
+                      active=active, sort=True)
+    rays = [active.sum()] if "n_rays" in c else None
+    # --- environment misses -----------------------------------------
+    # The template's PT variant weights the first vertex fully, as the
+    # dedicated path tracer does (the JAX module's deviation).
+    miss = active & (hit.prim_id < 0)
+    if scene.env is not None and "light_hit" in techniques:
+        li, pdf_direct_w, pdf_emit_w = envmap_mod.radiance(
+            scene.env, normalize(d), scene.bsphere.inv_radius_sqr)
+        w_cam = ((pdf_direct_w / num_lights) * d_vcm
                  + (pdf_emit_w / num_lights) * d_vc)
-        if ppm or i == 0:
-            w_emit = torch.ones_like(w_cam)
+        if ppm or (algo == "pt" and i == 0):
+            w = torch.ones_like(w_cam)
         else:
-            w_emit = 1.0 / (w_cam + 1.0)
-        if "light_hit" in techniques:
-            radiance = radiance + torch.where(
-                is_emitter[..., None], throughput * li * w_emit[..., None],
-                0.0)
-        active = active & ~is_emitter
-        non_spec = ~mat_mod.is_specular(isect.params)
+            w = 1.0 / (w_cam + 1.0)
+        radiance = radiance + torch.where(
+            miss[..., None], throughput * li * w[..., None], 0.0)
+    active = active & ~miss
 
-        # --- NEE + vertex connections: one any-hit dispatch ---------------
-        shadow = []
-        if algo != "ppm":
-            state = _direct_illum(
-                scene, isect, throughput, d_vc, d_vcm, active, state,
-                mis_eta_vm, num_lights, algo, shadow,
-                enabled="next_event" in techniques)
-        if algo in ("vcm", "bpt"):
-            for _ in range(num_connections):
-                state = _connect(
-                    scene, cache, cache_rec, isect, throughput, d_vc, d_vcm,
-                    active & non_spec, state, mis_eta_vm, light_path_count,
-                    num_connections, max_len, i + 1, base_radius, shadow,
-                    enabled="connect" in techniques)
-        if shadow:
-            cat = lambda k: torch.cat([s[k] for s in shadow])
-            occ = any_hit(scene.bvh, cat(0), cat(1), cat(2), cat(3),
-                          alpha_fn=alpha_fn, active=cat(4), sort=True)
-            n = shadow[0][4].shape[0]
-            for k, (_, _, _, _, ok, contrib) in enumerate(shadow):
-                hit_ok = ok & ~occ[k * n:(k + 1) * n]
-                radiance = radiance + torch.where(hit_ok[..., None], contrib,
-                                                  0.0)
+    isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
+    cos_o = torch.abs(dot(isect.w_out, isect.normal))
+    inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
+    d_vcm = d_vcm * (hit.t * hit.t) * inv_cos
+    d_vc = d_vc * inv_cos
+    d_vm = d_vm * inv_cos
+    active = active & (cos_o > 0.0)
 
-        # --- vertex merging -------------------------------------------------
-        if algo in ("vcm", "ppm") and "merge" in techniques:
-            radiance = _vertex_merging(
-                grid, isect, throughput, d_vcm, d_vm, active & non_spec,
-                radiance, mis_eta_vc, pm_radius, light_path_count, algo,
-                mat_kinds, record=record if i == 0 else None)
+    # --- emitter hits -------------------------------------------------
+    is_emitter = active & (isect.light_id >= 0)
+    area = torch.clamp(isect.area, min=1e-12)
+    cos_geom = dot(isect.gn, isect.w_out)
+    front = cos_geom > 0.0
+    li = torch.where(front[..., None], isect.emit, 0.0)
+    pdf_direct_a = torch.where(front, 1.0 / area, 1.0)
+    # The area emitter's pdf_emit_w is measured about the geometric
+    # normal.
+    pdf_emit_w = torch.where(
+        front, torch.clamp(cos_geom, min=0.0) / PI / area, 1.0)
+    w_cam = ((pdf_direct_a / num_lights) * d_vcm
+             + (pdf_emit_w / num_lights) * d_vc)
+    if ppm or i == 0:
+        w_emit = torch.ones_like(w_cam)
+    else:
+        w_emit = 1.0 / (w_cam + 1.0)
+    if "light_hit" in techniques:
+        radiance = radiance + torch.where(
+            is_emitter[..., None], throughput * li * w_emit[..., None],
+            0.0)
+    active = active & ~is_emitter
+    non_spec = ~mat_mod.is_specular(isect.params)
 
-        (org, d, tmin, throughput, active, d_vc, d_vcm, d_vm,
-         state) = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm,
-                          active, state, hit, mis_eta_vc, mis_eta_vm,
-                          adjoint=False, algo=algo,
-                          last_bounce=(i + 1 >= max_len))
+    # --- NEE + vertex connections: one any-hit dispatch ---------------
+    shadow = []
+    if algo != "ppm":
+        state = _direct_illum(
+            scene, isect, throughput, d_vc, d_vcm, active, state,
+            mis_eta_vm, num_lights, algo, shadow,
+            enabled="next_event" in techniques)
+    if algo in ("vcm", "bpt"):
+        for _ in range(num_connections):
+            state = _connect(
+                scene, cache, cache_rec, isect, throughput, d_vc, d_vcm,
+                active & non_spec, state, mis_eta_vm, light_path_count,
+                num_connections, max_len, i + 1, base_radius, shadow,
+                enabled="connect" in techniques)
+    if shadow:
+        cat = lambda k: torch.cat([s[k] for s in shadow])
+        ok_all = cat(4)
+        occ = any_hit(scene.bvh, cat(0), cat(1), cat(2), cat(3),
+                      alpha_fn=alpha_fn, active=ok_all, sort=True)
+        if rays is not None:
+            rays.append(ok_all.sum())
+        n = shadow[0][4].shape[0]
+        for k, (_, _, _, _, ok, contrib) in enumerate(shadow):
+            hit_ok = ok & ~occ[k * n:(k + 1) * n]
+            radiance = radiance + torch.where(hit_ok[..., None], contrib,
+                                              0.0)
 
-    return unswizzle_film(radiance, spp, band_pixels, width)
+    # --- vertex merging -------------------------------------------------
+    if algo in ("vcm", "ppm") and "merge" in techniques:
+        radiance = _vertex_merging(
+            grid, isect, throughput, d_vcm, d_vm, active & non_spec,
+            radiance, mis_eta_vc, pm_radius, light_path_count, algo,
+            mat_kinds, record=record)
+
+    (org, d, tmin, throughput, active, d_vc, d_vcm, d_vm,
+     state) = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm,
+                      active, state, hit, mis_eta_vc, mis_eta_vm,
+                      adjoint=False, algo=algo,
+                      last_bounce=(i + 1 >= max_len))
+    out = dict(org=org, d=d, tmin=tmin, throughput=throughput,
+               radiance=radiance, active=active, d_vc=d_vc, d_vcm=d_vcm,
+               d_vm=d_vm, state=state)
+    if rays is not None:
+        out["n_rays"] = c["n_rays"] + sum(rays)
+    return out
 
 
 def _direct_illum(scene, isect, throughput, d_vc, d_vcm, active, state,
@@ -531,7 +572,8 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                      has_masks: bool = False,
                      has_bump: bool = False, techniques: tuple = TECHNIQUES,
                      mat_kinds: tuple = None, light_band: int = BAND_RAYS,
-                     camera_band: int = BAND_RAYS, stats: dict = None):
+                     camera_band: int = BAND_RAYS, stats: dict = None,
+                     compact: bool = None):
     """One progressive VCM-family frame; returns the un-normalised
     (H*W, 3) film (divide by frames * spp for display).  `frame` is the
     frame number (Python int or integer tensor), `base_radius` the
@@ -552,11 +594,14 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
     `mat_kinds`: the scene's material kinds (the merge kernel skips absent
     ones; None = every non-delta kind).
     `light_band` / `camera_band` are the band sizes (estimator-neutral).
+    `compact`: mid-frame compaction of the camera pass (None:
+    `use_vcm_compact`, on for a CUDA device and more than one band).
     With `stats`, a dict, it records the collected and kept vertex
     counts ("collected", "cache") and the photon count ("photons"); if
     it holds a list under "merge_queries", each camera band appends the
     arguments of its camera bounce-1 merge call (merge_contrib's, by
-    name) to it."""
+    name) to it, and if it holds a dict under "route", camera_film
+    records the camera pass's rays and band counts there."""
     dev = cam.pos.device
     num_pixels = width * height
     (frame, base_radius, light_path_count, cache_capacity, pm_radius,
@@ -603,7 +648,8 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
             algo=algo, width=width, height=height, spp=spp, max_len=max_len,
             light_path_count=light_path_count,
             num_connections=num_connections, has_bump=has_bump,
-            alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds)
+            alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds,
+            compact=compact)
     return film
 
 
@@ -620,15 +666,59 @@ def photon_grid(cache, pm_radius, stats=None):
 
 
 def camera_film(scene, cam, frame, cache, cache_rec, grid, pm_radius,
-                base_radius, mis_eta_vc, mis_eta_vm, bands, *, stats, spp,
-                **kw):
+                base_radius, mis_eta_vc, mis_eta_vm, bands, *, stats, width,
+                height, spp, max_len, light_path_count, compact=None, **kw):
     """The camera pass over `bands`, (start_pixel, pixels) pairs of
-    consecutive pixels, concatenated in order: (sum of pixels, 3)."""
+    consecutive pixels, concatenated in order: (sum of pixels, 3).
+    `compact`: mid-frame lane compaction (None: use_vcm_compact on the
+    camera's device).  `stats`, a dict or None: if it holds a list under
+    "merge_queries", each band appends the arguments of its bounce-1
+    merge call to it; if it holds a dict under "route", the pass records
+    there its traced rays ("camera_rays": closest hit + shadow) and
+    pt.run_bands' counts of lanes and band-bounces."""
+    dev = cam.pos.device
+    if not bands:
+        return torch.zeros((0, 3), dtype=torch.float32, device=dev)
+    if compact is None:
+        compact = use_vcm_compact(dev, len(bands), max_len)
+    depth0 = vcm_compact_depth(max_len) if compact else max_len
     record = stats.get("merge_queries") if stats is not None else None
-    parts = [_camera_pass(
-        scene, cam, frame, cache, cache_rec, grid, pm_radius, base_radius,
-        mis_eta_vc, mis_eta_vm, spp=spp, start_pixel=start, band_pixels=n,
-        record=record, **kw) for start, n in bands]
-    if not parts:
-        return torch.zeros((0, 3), dtype=torch.float32, device=cam.pos.device)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    route = stats.get("route") if stats is not None else None
+    bounce = functools.partial(
+        _camera_bounce, scene, cache=cache, cache_rec=cache_rec, grid=grid,
+        pm_radius=pm_radius, base_radius=base_radius, mis_eta_vc=mis_eta_vc,
+        mis_eta_vm=mis_eta_vm, max_len=max_len,
+        light_path_count=light_path_count, **kw)
+    counts = []
+
+    def counted(c):
+        if route is None:
+            return c
+        return dict(c, n_rays=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def tally(c):
+        if route is not None:
+            counts.append(c.pop("n_rays"))
+        return c
+
+    def phase1(start, n):
+        c = counted(_camera_carry(
+            cam, frame, width=width, height=height, spp=spp,
+            light_path_count=light_path_count, start_pixel=start,
+            band_pixels=n))
+        for i in range(depth0):
+            c = bounce(c, i, record=record if i == 0 else None)
+        return tally(c)
+
+    def phase2(c):
+        c = counted(c)
+        for i in range(depth0, max_len):
+            c = bounce(c, i)
+        return tally(c)
+
+    film = run_bands(bands, spp=spp, width=width, max_len=max_len,
+                     depth0=depth0, compact=compact, phase1=phase1,
+                     phase2=phase2, stats=route)
+    if route is not None:
+        route["camera_rays"] = sum(counts)
+    return film

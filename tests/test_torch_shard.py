@@ -11,6 +11,10 @@ ranks, on the CPU.
   four; gather_cache equals select_shallowest over one collect cache of
   every rank's vertices, row for row, both from real light passes and
   from synthetic vertex sets that the capacity cuts.
+* Compaction: with compact=True at 2 ranks and bands of 128 pixels
+  (four a rank), the PT and vcm frames equal the one-process compacted
+  frame and the one-process banded frame, bit for bit: each rank sorts
+  its own lanes, and a lane's path does not depend on its neighbours.
 * Tails: a 13x5 image at 2 and 3 ranks and a 13x2 image at 3 ranks (a
   rank with no rows) cover every pixel once; 255 light paths at 2 ranks
   raise ValueError.
@@ -48,6 +52,7 @@ from imbatracer_torch.parallel import shard
 from imbatracer_torch.parallel.comm import Comm
 from imbatracer_torch.render import light_cache as tlc
 from imbatracer_torch.render.camera import make_camera as tcamera
+from imbatracer_torch.render.integrators import pt as tpt
 from imbatracer_torch.render.integrators import vcm as tvcm
 from imbatracer_torch.render.integrators.pt import render_pt_frame
 from torch_threads import cap_torch_threads
@@ -174,6 +179,31 @@ def test_light_steps_equal_one_process_bands(cornell, algo):
         assert st.keys() == ref_stats.keys()
         for k, v in ref_stats.items():
             assert int(st[k]) == int(v), k
+
+
+@pytest.mark.parametrize("algo", ["pt", "vcm"])
+def test_compacted_frames_equal_one_process(cornell, algo, monkeypatch):
+    _, ts, meta = cornell
+    cam = _cam(meta)
+    monkeypatch.setattr(tpt, "BAND_RAYS", 128)
+    monkeypatch.setattr(tpt, "COMPACT_DEPTH", 2)
+    monkeypatch.setattr(tvcm, "VCM_COMPACT_DEPTH", 2)
+    if algo == "pt":
+        refs = [render_pt_frame(ts, cam, FRAME, W, W, max_len=MAX_LEN,
+                                compact=compact) for compact in (True, False)]
+        got = run_ranks(2, lambda c: shard.render_pt_frame_sharded(
+            ts, cam, FRAME, W, W, c, max_len=MAX_LEN, compact=True))
+    else:
+        kw = dict(algo=algo, width=W, height=W, max_len=MAX_LEN,
+                  light_path_count=LPC, mat_kinds=_kinds(ts), camera_band=128)
+        refs = [tvcm.render_vcm_frame(ts, cam, FRAME, RADIUS,
+                                      light_band=LPC // 2, compact=compact,
+                                      **kw) for compact in (True, False)]
+        got = run_ranks(2, lambda c: shard.render_vcm_frame_sharded(
+            ts, cam, FRAME, RADIUS, c, compact=True, **kw))
+    assert float(refs[0].mean()) > 0.0
+    for ref in refs:
+        _assert_all_equal(got, ref)
 
 
 def _collect(ts, cam, algo, path_ranges, capacity, lpc):
