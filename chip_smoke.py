@@ -198,6 +198,31 @@ failure raises and the script exits non-zero:
    vcm film means within 1e-6 relative, traced rays within 1e-4
    relative, no plain version run.  Every earlier phase runs the
    default route, compacted wherever a frame has more than one band.
+13. CUDA graphs (after phase 12, before the output): still_life PT and
+   still_life over the split build (phase 10's) at 1920x1080 (max_len
+   8), cornell (max_len 10) and big_4000 (max_len 6) PT at 1024^2, and
+   the instanced PT of phase 8 (written and built again) at 1920x1080
+   (max_len 8), each through render_pt_frame with make_frame_fn's
+   arguments: the default route, which must replay one captured bounce
+   a band-bounce (render/graphs.py), and graph=False, a warm-up frame of
+   each (the capture), then GRAPH_FRAMES frames of both interleaved at
+   the same frame numbers, each with the launch counters and the peak
+   memory set just before it and read just after.  Per cell: ms/frame
+   of both routes; captures, replays and reruns a frame; the stream,
+   1b and khit launches a frame; the most rounds one eager masked
+   dispatch needed and the most lanes it carried past its first round
+   (what render/traverse.py's re-trace rounds and slot shares are
+   chosen from); peak memory; then one traced frame of each route
+   (torch.profiler: wall, device busy, idle share, kernels, and the
+   host's cudaLaunchKernel and cudaGraphLaunch calls).  Films must be
+   bit-equal on >= 99.99% of pixels, traced rays equal, no plain
+   version run.  On the flat and two-level masked cells, one bounce of
+   a band's lanes captured with one re-trace round, with the rounds at
+   full width and on the gathered slots (the default), timed as load +
+   replay: the extra full-width rounds' cost a frame against the
+   graphed frame's device busy time.  Every earlier phase runs the
+   default route, graphed wherever it is a PT frame on the card (the
+   pairs switch's frames of phase 8c eager, by rule).
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
@@ -430,12 +455,14 @@ def reset_counters():
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
 
     st.reset_launches()
     kh.reset_launches()
     mg.reset_launches()
     pm.reset_launches()
+    graphs.reset_stats()
     for k in tt.MASK_STATS:
         tt.MASK_STATS[k] = 0
 
@@ -445,6 +472,7 @@ def counters():
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
 
     got = {k: v for k, v in st.LAUNCHES.items() if k not in st.PLAIN_KEYS}
@@ -457,7 +485,8 @@ def counters():
                 merge_plain=sum(mg.LAUNCHES[k] for k in mg.PLAIN_KEYS),
                 pairs_plain=sum(pm.LAUNCHES[k] for k in pm.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
-                fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS)
+                fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS,
+                **{f"graph_{k}": v for k, v in graphs.GRAPH_STATS.items()})
 
 
 def plain_runs(got):
@@ -2200,6 +2229,30 @@ ROUTE_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
               "any_hit_instanced", "khit", "merge")
 
 
+def pt_route_fn(scene, meta, width, height, max_len, route):
+    """f(frame, x) -> (film, traced rays, route stats) of one PT frame at
+    spp 1 through render_pt_frame with `route`=x ("compact" or "graph";
+    None: the default), and the arguments make_frame_fn gives it; the
+    camera is f.cam."""
+    from imbatracer_torch.frontend.renderer import (RenderSettings,
+                                                    camera_for_scene)
+    from imbatracer_torch.render.integrators.pt import render_pt_frame
+
+    settings = RenderSettings(width=width, height=height, spp=1,
+                              max_path_len=max_len)
+    cam = camera_for_scene(meta, settings, scene.device)
+
+    def fn(frame, x):
+        stats = {}
+        film, rays = render_pt_frame(
+            scene, cam, frame, width, height, max_len=max_len,
+            has_masks=meta.has_masks, has_bump=meta.has_bump,
+            with_stats=True, stats=stats, **{route: x})
+        return film, rays, stats
+    fn.cam = cam
+    return fn
+
+
 def route_fn(scene, meta, algo, width, height, max_len):
     """f(frame, compact) -> (film, traced rays, route counts) of one
     phase-12 cell, with the arguments make_frame_fn gives the
@@ -2209,21 +2262,13 @@ def route_fn(scene, meta, algo, width, height, max_len):
     from imbatracer_torch.frontend.engine import estimate_pixel_size
     from imbatracer_torch.frontend.renderer import (RenderSettings,
                                                     camera_for_scene)
-    from imbatracer_torch.render.integrators.pt import render_pt_frame
     from imbatracer_torch.render.integrators.vcm import render_vcm_frame
 
+    if algo == "pt":
+        return pt_route_fn(scene, meta, width, height, max_len, "compact")
     settings = RenderSettings(width=width, height=height, spp=1,
                               max_path_len=max_len, algorithm=algo)
     cam = camera_for_scene(meta, settings, scene.device)
-    if algo == "pt":
-        def fn(frame, compact):
-            route = {}
-            film, rays = render_pt_frame(
-                scene, cam, frame, width, height, max_len=max_len,
-                has_masks=meta.has_masks, has_bump=meta.has_bump,
-                with_stats=True, compact=compact, stats=route)
-            return film, rays, route
-        return fn
     lpc = (VCM_LPC if (width, height) == (1920, 1080)
            and not scene.bvh.two_level
            else settings.resolved_light_path_count())
@@ -2242,8 +2287,9 @@ def route_fn(scene, meta, algo, width, height, max_len):
 
 
 def run_route(fn, frame, compact):
-    """One frame of one route, the launch counters and the peak memory
-    set just before it and read just after."""
+    """One frame of one route (`compact`: fn's second argument), the
+    launch counters and the peak memory set just before it and read just
+    after."""
     torch.cuda.synchronize()
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
@@ -2337,6 +2383,177 @@ def compaction_phase(dev, card, scenes):
                     runs[compact].append(run_route(fn, f, compact))
             hold_routes(f"{cell} {w}x{h} max_len {max_len}", algo,
                         runs[None], runs[False], card)
+            del fn, runs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+GRAPH_CELLS = (
+    ("still_life pt", "still_life", 1920, 1080, 8),
+    ("still_life sbvh pt", "still_life_sbvh", 1920, 1080, 8),
+    ("cornell pt", "cornell", 1024, 1024, 10),
+    ("big_4000 pt", "big_4000", 1024, 1024, 6),
+    ("instanced pt", "instanced", 1920, 1080, 8),
+)
+GRAPH_FRAMES = 2              # timed frames of each route, interleaved
+GRAPH_PT_EQUAL = 0.9999       # pixels bit-equal across the two routes
+COST_REPS = 10                # bounce replays timed a re-trace variant
+
+
+def trace_route(fn, frame, graph):
+    """One frame of fn traced with torch.profiler: (wall ms, device busy
+    ms, kernels, cudaLaunchKernel calls, cudaGraphLaunch calls)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        fn(frame, graph)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+    dev, host = trace_totals(prof.profiler.kineto_results.events())
+    calls = lambda pre: sum(n for name, (_, n) in host.items()
+                            if name.startswith(pre))
+    return dict(wall=wall, busy=sum(ns for ns, _ in dev.values()) / 1e6,
+                kernels=sum(n for _, n in dev.values()),
+                launch_kernel=calls("cudaLaunchKernel"),
+                graph_launch=calls("cudaGraphLaunch"))
+
+
+def retrace_cost(cell, scene, meta, fn, size, max_len, band_bounces,
+                 busy_ms, card):
+    """What the masked re-trace's extra rounds cost a graphed frame: one
+    bounce of the first band's lanes, after one bounce, captured three
+    ways -- one round, the route's rounds at full width (its slot share
+    1), and those rounds on the gathered slots (the default) -- each
+    timed as load + replay (CUDA events, COST_REPS
+    times).  The extra full-width rounds' cost a frame is their time
+    over one round's, times the band-bounces a frame; it is printed as a
+    share of the graphed frame's device busy time."""
+    from functools import partial as bind
+
+    from imbatracer_torch.render import graphs
+    from imbatracer_torch.render import traverse as tt
+    from imbatracer_torch.render.integrators import pt
+
+    lanes = pt.BAND_RAYS
+    org, d, state, _ = pt.camera_rays(fn.cam, *size, 1, 1, 0, lanes)
+    step = bind(pt._pt_bounce, scene, alpha_fn=pt.alpha_fn_for(scene),
+                has_bump=meta.has_bump, max_len=max_len)
+    c = step(pt._init_carry(org, d, state),
+             overflow=torch.zeros((), dtype=torch.int32, device=scene.device))
+    two = scene.bvh.two_level
+    names = ("RETRACE_ROUNDS", "RETRACE_SLOT_DIV") if two else (
+        "KHIT_ROUNDS", "KHIT_SLOT_DIV")
+    rounds, div = tt.retrace_plan(two)
+    ms = {}
+    for name, plan in (("one round", (1, div)), ("full width", (rounds, 1)),
+                       ("gathered", (rounds, div))):
+        for k, v in zip(names, plan):
+            setattr(tt, k, v)
+        try:
+            g = graphs.SceneGraphs(scene.device).bounce(name, step, c, lanes)
+        finally:
+            for k, v in zip(names, (rounds, div)):
+                setattr(tt, k, v)
+        ms[name] = cuda_ms(lambda: (g.load(c), g.replay()), COST_REPS)
+        del g
+    extra = (ms["full width"] - ms["one round"]) * band_bounces
+    log(f"[graphs] {cell}: one bounce of {lanes} lanes (load + replay): "
+        f"one round {ms['one round']:.3f} ms, {rounds} rounds full width "
+        f"{ms['full width']:.3f} ms, {rounds} rounds on "
+        f"{tt.retrace_slots(lanes, two)} gathered slots "
+        f"{ms['gathered']:.3f} ms;"
+        f" extra full-width rounds x {band_bounces} band-bounces = "
+        f"{extra:.1f} ms a frame, {100.0 * extra / busy_ms:.1f}% of the "
+        f"graphed frame's device busy {busy_ms:.1f} ms; gathered "
+        f"{(ms['gathered'] - ms['one round']) * band_bounces:.1f} ms "
+        f"[{card}]")
+
+
+def hold_graph_cell(cell, runs, traced, card):
+    """Log one phase-13 cell's two routes over the same frames and hold
+    them against each other: the default must have replayed captured
+    bounces (no capture and no rerun in the timed frames), films
+    bit-equal on GRAPH_PT_EQUAL of the pixels, traced rays equal, no
+    plain version run."""
+    g, e = runs[None], runs[False]
+    ok = all(r["launches"]["graph_replays"] > 0
+             and r["launches"]["graph_captures"] == 0 for r in g)
+    ok = ok and not any(r["launches"]["graph_replays"] for r in e)
+    parity = []
+    for a, b in zip(g, e):
+        x = float((a["film"] == b["film"]).all(dim=1).double().mean())
+        parity.append(f"{x:.6g}")
+        ok = ok and x >= GRAPH_PT_EQUAL and a["rays"] == b["rays"]
+    for r in g + e:
+        ok = ok and bool(torch.isfinite(r["film"]).all()) and not plain_runs(
+            r["launches"])
+    n = len(g)
+    mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
+    each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
+    keys = ROUTE_KEYS[:5] + ("graph_captures", "graph_replays",
+                             "graph_reruns")
+    per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
+                      for k in keys}
+    peak = lambda rs: max(r["peak"] for r in rs) / 2**20
+    log(f"[graphs] {cell}: ms/frame graphed {mean_ms(g):.1f} ({each(g)}), "
+        f"eager {mean_ms(e):.1f} ({each(e)}), {n} frames each, "
+        f"interleaved; band-bounces a frame "
+        f"{[r['route']['band_bounces'] for r in g]} [{card}]")
+    most = lambda k: max(r["launches"][k] for r in e)
+    log(f"[graphs] {cell}: a frame graphed {per(g)}, eager {per(e)}; one "
+        f"eager masked dispatch needed at most {most('max_rounds')} rounds "
+        f"and carried at most {most('max_lanes')} lanes past its first")
+    log(f"[graphs] {cell}: peak memory graphed {peak(g):.1f} MiB, eager "
+        f"{peak(e):.1f} MiB, of which {g[0]['held'] / 2**20:.1f} MiB was "
+        f"held before the frame; pixels bit-equal {', '.join(parity)} (need "
+        f">= {GRAPH_PT_EQUAL}), traced rays graphed "
+        f"{[r['rays'] for r in g]}, eager {[r['rays'] for r in e]} [{card}]")
+    for name, t in (("graphed", traced[None]), ("eager", traced[False])):
+        log(f"[graphs] {cell}: one traced frame {name}: wall "
+            f"{t['wall']:.1f} ms, device busy {t['busy']:.1f} ms (idle "
+            f"{100.0 * (1.0 - t['busy'] / t['wall']):.1f}%), "
+            f"{t['kernels']} kernels, {t['launch_kernel']} cudaLaunchKernel"
+            f", {t['graph_launch']} cudaGraphLaunch [{card}]")
+    if not ok:
+        raise AssertionError(f"{cell}: the graphed and eager routes "
+                             f"disagree, or the default did not replay")
+
+
+def graph_phase(dev, card, scenes):
+    """Phase 13: each cell of GRAPH_CELLS through the default route
+    (CUDA graphs on the card) and graph=False, a warm-up frame of each,
+    then the same frame numbers interleaved, then one traced frame of
+    each; the re-trace's extra rounds costed on the masked cells."""
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+
+    phase("13 CUDA graphs: the graphed and eager PT routes")
+    tmp = tempfile.mkdtemp(prefix="imba_graphs_")
+    try:
+        split, split_meta, _ = split_still_life(dev)
+        scenes = dict(scenes, still_life_sbvh=(split, split_meta),
+                      instanced=build_scene(write_instanced_scene(tmp, **CARD),
+                                            quiet=True, device=dev))
+        for cell, key, w, h, max_len in GRAPH_CELLS:
+            scene, meta = scenes[key]
+            label = f"{cell} {w}x{h} max_len {max_len}"
+            fn = pt_route_fn(scene, meta, w, h, max_len, "graph")
+            fn(0, None)
+            fn(0, False)
+            runs = {None: [], False: []}
+            for f in range(1, GRAPH_FRAMES + 1):
+                for graph in ((None, False) if f % 2 else (False, None)):
+                    runs[graph].append(run_route(fn, f, graph))
+            traced = {g: trace_route(fn, GRAPH_FRAMES + 1, g)
+                      for g in (None, False)}
+            hold_graph_cell(label, runs, traced, card)
+            if meta.has_masks and key != "still_life_sbvh":
+                retrace_cost(label, scene, meta, fn, (w, h), max_len,
+                             runs[None][0]["route"]["band_bounces"],
+                             traced[None]["busy"], card)
             del fn, runs
             torch.cuda.empty_cache()
     finally:
@@ -2529,6 +2746,9 @@ def run():
 
     # The compacted and banded routes side by side (phase 12).
     compaction_phase(dev, card, scenes)
+
+    # The graphed and eager PT routes side by side (phase 13).
+    graph_phase(dev, card, scenes)
 
     phase("9 output")
     src = "imbatracer_torch/csrc/"

@@ -868,6 +868,13 @@ block_candidates_kernel(const float* __restrict__ rays,
   const BlockSmem sm(smem, num_s);
   const Ray ray =
       load_ray(rays + ((size_t)blockIdx.x * kBlk + threadIdx.x) * 8);
+  // The list launch of a walk leaves a block with no live lane an empty
+  // list (block_list returns before reading it); the candidate stage
+  // alone builds every block's list, as superchunk_candidates does.
+  if (!slist && !__syncthreads_or(ray.tmax >= 0.0f)) {
+    if (gcount && threadIdx.x == 0) gcount[blockIdx.x] = 0;
+    return;
+  }
   W work;
   unsigned long long* list =
       sm.list ? sm.list : glist + blockIdx.x * list_stride(num_s);
@@ -906,7 +913,10 @@ inline cudaError_t launch_candidates(const void* rays, const void* sbox,
 }
 
 // The walk's list and count: the block's own, built here in shared memory,
-// or (glist non-null, above kMaxSuper) the row the list launch wrote.
+// or (glist non-null, above kMaxSuper) the row the list launch wrote.  A
+// block with no live lane (tmax < 0 everywhere: padding, dead lanes of a
+// sorted dispatch) gets an empty list, so its walk only writes its miss
+// rows, which are what a walk of its list would write.
 template <class W>
 __device__ __forceinline__ int block_list(const Ray& ray,
                                           const float* __restrict__ sbox,
@@ -915,6 +925,10 @@ __device__ __forceinline__ int block_list(const Ray& ray,
                                           const int* gcount,
                                           unsigned long long*& list,
                                           W& work) {
+  if (!__syncthreads_or(ray.tmax >= 0.0f)) {
+    list = sm.list;
+    return 0;
+  }
   if (glist) {
     list = glist + blockIdx.x * list_stride(num_s);
     return gcount[blockIdx.x];

@@ -177,9 +177,8 @@ def khit_sorted(sbox, tiles, org, d, tmin, tmax, active=None):
     absent hit."""
     num_r = org.shape[0]
     dev = org.device
-    tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev)
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
-    tmin, tmax = tmin.expand(num_r), tmax.expand(num_r)
+    tmin = st.full_lanes(tmin, num_r, dev)
+    tmax = st.full_lanes(tmax, num_r, dev)
     act = (torch.ones(num_r, dtype=torch.bool, device=dev)
            if active is None else active)
     lo, hi = st.scene_bounds(sbox)

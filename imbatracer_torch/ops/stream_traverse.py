@@ -162,15 +162,22 @@ def _slab(lo, hi, o, inv):
             torch.amin(torch.maximum(t0, t1), dim=-1))
 
 
+def full_lanes(x, num_r: int, device):
+    """(num_r,) float32 lanes of `x`, a tensor (broadcast) or a Python
+    number (a fill on `device`, so no host-to-device copy: a CUDA graph
+    can capture it)."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32).expand(num_r)
+    return torch.full((num_r,), x, dtype=torch.float32, device=device)
+
+
 def rays8(org, d, tmin, tmax, active):
     """(R, 8) ray rows padded to a BLK multiple; inactive and padding
     lanes get tmax = -1.  Returns (rays, num_r)."""
     num_r = org.shape[0]
     dev = org.device
-    tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev)
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
-    tmin = tmin.expand(num_r)
-    tmax = tmax.expand(num_r)
+    tmin = full_lanes(tmin, num_r, dev)
+    tmax = full_lanes(tmax, num_r, dev)
     if active is not None:
         tmax = torch.where(active, tmax, -1.0)
     pad = (-num_r) % BLK

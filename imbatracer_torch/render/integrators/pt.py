@@ -23,6 +23,13 @@ so a lane's path is the banded frame's, and the film is put back in lane
 order before the per-band reshape-sums of the banded frame.  It is the
 default on a CUDA device for frames of more than one band
 (`use_compact`); the CPU keeps the banded frame unless asked.
+
+CUDA graphs (the JAX module's compiled band programs, render/graphs.py):
+on a CUDA device every band replays one captured bounce (`use_graphs`),
+the camera rays, the compaction and the film staying eager.  The graphed
+bounce traverses masked scenes through the graph-ready re-trace
+(render/traverse.py), whose overflow counter the frame reads once, at
+its end; a frame that overflowed is rendered again on the eager route.
 """
 
 from __future__ import annotations
@@ -36,9 +43,12 @@ from ...core import rng as rng_mod
 from ...core.sampling import mis_power_heuristic, russian_roulette_prob
 from ...core.vecmath import dot, normalize
 from ...scene.textures import _mask_texel_opaque, _wrap_uv
+from ...utils.log import logger
 from .. import envmap as envmap_mod
+from .. import graphs as graphs_mod
 from .. import lights as light_mod
 from .. import materials as mat_mod
+from .. import traverse as tt
 from ..camera import Camera, generate_ray
 from ..intersect import BIG
 from ..surface import make_interaction
@@ -92,12 +102,15 @@ def _init_carry(org, d, state):
     )
 
 
-def _pt_bounce(scene, c, *, alpha_fn, has_bump, max_len):
-    """One PT bounce for every lane of the carry."""
+def _pt_bounce(scene, c, *, alpha_fn, has_bump, max_len, overflow=None):
+    """One PT bounce for every lane of the carry.  With `overflow`, a 0-d
+    int32 device tensor, masked traversal takes the graph-ready re-trace
+    (render/traverse.py) and the bounce reads nothing on the host."""
     num_lights = scene.lights.kind.shape[0]
     first = c["depth"] == 0
     hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
-                      alpha_fn=alpha_fn, active=c["active"], sort=True)
+                      alpha_fn=alpha_fn, active=c["active"], sort=True,
+                      overflow=overflow)
     n_rays = c["n_rays"] + c["active"].sum()
 
     # ---- environment misses ----------------------------------------------
@@ -153,7 +166,7 @@ def _pt_bounce(scene, c, *, alpha_fn, has_bump, max_len):
     offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
     occluded = any_hit(scene.bvh, isect.pos, ds.dir, offset,
                        ds.distance - offset, alpha_fn=alpha_fn,
-                       active=shadow_ok, sort=True)
+                       active=shadow_ok, sort=True, overflow=overflow)
     radiance = radiance + torch.where((shadow_ok & ~occluded)[..., None],
                                       contrib, 0.0)
     n_rays = n_rays + shadow_ok.sum()
@@ -208,6 +221,15 @@ def use_compact(device, num_bands: int, max_len: int) -> bool:
     the banded frame stays."""
     return (torch.device(device).type == "cuda" and num_bands > 1
             and max_len >= 2)
+
+
+def use_graphs(device, bvh) -> bool:
+    """Whether a PT frame replays captured bounces by default: on a CUDA
+    device, unless the BVH's pairs switch is on (the pair route reads
+    its saturation count on the host each dispatch, so a bounce through
+    it cannot be captured; it is off by default).  The CPU has no
+    graphs."""
+    return torch.device(device).type == "cuda" and not bvh.pairs
 
 
 def _compact_carry(c, lane_id):
@@ -280,13 +302,15 @@ def run_bands(bands, *, spp: int, width: int, max_len: int, depth0: int,
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-@functools.lru_cache(maxsize=8)
-def _tile_perm(num_pixels: int, width: int, tw: int = 32, th: int = 16):
+@functools.lru_cache(maxsize=16)
+def _tile_perm(num_pixels: int, width: int, device, tw: int = 32,
+               th: int = 16):
     """Static permutation ordering a contiguous pixel band into (tw x th)
-    image tiles; (None, None) when the band is not row-aligned.  Cached
-    (read-only arrays): it depends on the band's shape only, and a sort of
-    every band's pixels on each call would cost more than the frame's
-    shading."""
+    image tiles and its inverse, int64 tensors on `device`; (None, None)
+    when the band is not row-aligned.  Cached: it depends on the band's
+    shape only, a sort of every band's pixels on each call would cost
+    more than the frame's shading, and a copy to the card on each call
+    would be a host-to-device copy a frame."""
     if num_pixels % width != 0 or num_pixels < width * th:
         return None, None
     i = np.arange(num_pixels)
@@ -294,17 +318,16 @@ def _tile_perm(num_pixels: int, width: int, tw: int = 32, th: int = 16):
     perm = np.lexsort((x % tw, y % th, x // tw, y // th)).astype(np.int64)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(num_pixels, dtype=np.int64)
-    perm.flags.writeable = False
-    inv.flags.writeable = False
-    return perm, inv
+    return (torch.tensor(perm, device=device),
+            torch.tensor(inv, device=device))
 
 
 def unswizzle_film(radiance, spp: int, num_pixels: int, width: int):
     """Undo the _tile_perm ordering and sum over spp: (spp*P, 3) -> (P, 3)."""
-    _, inv = _tile_perm(num_pixels, width)
+    _, inv = _tile_perm(num_pixels, width, radiance.device)
     r = radiance.reshape(spp, num_pixels, 3)
     if inv is not None:
-        r = r[:, torch.tensor(inv, device=radiance.device)]
+        r = r[:, inv]
     return r.sum(dim=0)
 
 
@@ -316,9 +339,8 @@ def camera_rays(cam: Camera, width: int, height: int, spp: int, frame,
     image."""
     dev = cam.pos.device
     num_pixels = count if count > 0 else width * height
-    perm, _ = _tile_perm(num_pixels, width)
-    rel = (torch.tensor(perm, device=dev) if perm is not None
-           else torch.arange(num_pixels, device=dev))
+    perm, _ = _tile_perm(num_pixels, width, dev)
+    rel = perm if perm is not None else torch.arange(num_pixels, device=dev)
     pixel_id = (start_pixel + rel).repeat(spp)
     sample_id = torch.arange(spp, device=dev).repeat_interleave(num_pixels)
     state = rng_mod.seed(pixel_id, sample_id, frame)
@@ -332,38 +354,105 @@ def camera_rays(cam: Camera, width: int, height: int, spp: int, frame,
 def pt_bands(scene, cam: Camera, frame, bands, *, width: int, height: int,
              spp: int, max_len: int, has_masks: bool = False,
              has_bump: bool = False, compact: bool = None,
-             stats: dict = None):
+             graph: bool = None, stats: dict = None):
     """PT over `bands`, (start_pixel, pixels) runs of consecutive pixels:
     (their films concatenated in order, traced rays).  `compact`: the
-    compacted route (None: `use_compact` on the camera's device)."""
+    compacted route (None: `use_compact` on the camera's device).
+    `graph`: every band replays one captured bounce (render/graphs.py)
+    of the widest band's lanes, the others padded with dead lanes (None:
+    `use_graphs`: on a CUDA device unless the BVH's pairs switch is on,
+    whose route is eager by rule; True where graphs cannot run raises).
+    A failed capture raises.  A graphed frame whose masked re-trace
+    overflowed (render/traverse.py) is rendered again on the eager route,
+    counted in graphs.GRAPH_STATS["reruns"] and logged."""
     dev = cam.pos.device
-    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     if not bands:
-        return torch.zeros((0, 3), dtype=torch.float32, device=dev), n_rays
+        return (torch.zeros((0, 3), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
     if compact is None:
         compact = use_compact(dev, len(bands), max_len)
+    if graph is None:
+        graph = use_graphs(dev, scene.bvh)
+    elif graph and not use_graphs(dev, scene.bvh):
+        raise ValueError("graph=True needs a CUDA device and the BVH's "
+                         "pairs switch off")
+    args = (scene, cam, frame, bands, width, height, spp, max_len,
+            has_masks, has_bump, compact)
+    if graph:
+        sg = graphs_mod.for_scene(scene)
+        sg.overflow.zero_()
+        film, n_rays = _bands(*args, stats, sg)
+        lost = int(sg.overflow)
+        if lost == 0:
+            return film, n_rays
+        graphs_mod.GRAPH_STATS["reruns"] += 1
+        logger.info("PT frame: %d lanes of the masked re-trace left "
+                    "unresolved under graphs; rendered again on the eager "
+                    "route", lost)
+    return _bands(*args, stats, None)
+
+
+def _bands(scene, cam, frame, bands, width, height, spp, max_len, has_masks,
+           has_bump, compact, stats, sg):
+    """pt_bands' frame: eager, or with `sg` (the scene's SceneGraphs)
+    through its captured bounce."""
+    dev = cam.pos.device
     depth0 = compact_depth(max_len) if compact else max_len
-    trace = functools.partial(
-        _trace, scene, alpha_fn=alpha_fn_for(scene) if has_masks else None,
-        has_bump=has_bump, max_len=max_len)
+    alpha_fn = alpha_fn_for(scene) if has_masks else None
     counts = []
 
-    def phase1(start, n):
+    def carry0(start, n):
         org, d, state, _ = camera_rays(cam, width, height, spp, frame,
                                        start_pixel=start, count=n)
-        c = trace(_init_carry(org, d, state), depth0)
-        counts.append(c.pop("n_rays"))
-        return c
+        return _init_carry(org, d, state)
 
-    def phase2(c):
-        c = trace(dict(c, n_rays=torch.zeros_like(n_rays)),
-                  max_len - depth0)
-        counts.append(c.pop("n_rays"))
-        return c
+    if sg is None:
+        trace = functools.partial(_trace, scene, alpha_fn=alpha_fn,
+                                  has_bump=has_bump, max_len=max_len)
+
+        def phase1(start, n):
+            c = trace(carry0(start, n), depth0)
+            counts.append(c.pop("n_rays"))
+            return c
+
+        def phase2(c):
+            c = trace(dict(c, n_rays=torch.zeros((), dtype=torch.int64,
+                                                 device=dev)),
+                      max_len - depth0)
+            counts.append(c.pop("n_rays"))
+            return c
+    else:
+        lanes = max(n for _, n in bands) * spp
+        step = functools.partial(_pt_bounce, scene, alpha_fn=alpha_fn,
+                                 has_bump=has_bump, max_len=max_len)
+        key = (lanes, max_len, has_masks, has_bump,
+               tt.graph_route(scene.bvh, has_masks))
+        g = None
+
+        def run(c, bounces):
+            nonlocal g
+            if g is None:
+                g = sg.bounce(key, step, c, lanes)
+            g.load(c)
+            g.replay(bounces)
+            counts.append(g.carry["n_rays"].clone())
+            return g.carry
+
+        def phase1(start, n):
+            c = run(carry0(start, n), depth0)
+            if not compact:
+                return {"radiance": c["radiance"][:n * spp]}
+            return {k: v[:n * spp].clone() for k, v in c.items()
+                    if k != "n_rays"}
+
+        def phase2(c):
+            n = c["active"].shape[0]
+            return {"radiance": run(c, max_len - depth0)["radiance"][:n]}
 
     film = run_bands(bands, spp=spp, width=width, max_len=max_len,
                      depth0=depth0, compact=compact, phase1=phase1,
                      phase2=phase2, stats=stats)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     for n in counts:
         n_rays = n_rays + n
     return film, n_rays
@@ -372,15 +461,17 @@ def pt_bands(scene, cam: Camera, frame, bands, *, width: int, height: int,
 def render_pt_frame(scene, cam: Camera, frame, width: int, height: int,
                     spp: int = 1, max_len: int = 10, has_masks: bool = False,
                     has_bump: bool = False, with_stats: bool = False,
-                    compact: bool = None, stats: dict = None):
+                    compact: bool = None, graph: bool = None,
+                    stats: dict = None):
     """Render one progressive frame; returns an un-normalised (H*W, 3)
     radiance-sum film (divide by frames * spp for display), and with
     `with_stats` the traced-ray count.  `frame` is a 32-bit frame number
     (Python int or integer tensor).  `compact`: mid-frame lane
     compaction (None: `use_compact`, on for a CUDA device and more than
-    one band).  With `stats`, a dict, records the bands' "band_bounces"
-    and, compacted, the lanes, the live lanes after the phase-1 bounces
-    and the phase-2 bands (compact_lanes)."""
+    one band).  `graph`: replay a captured bounce (None: `use_graphs`,
+    on for a CUDA device; see pt_bands).  With `stats`, a dict, records
+    the bands' "band_bounces" and, compacted, the lanes, the live lanes
+    after the phase-1 bounces and the phase-2 bands (compact_lanes)."""
     num_pixels = width * height
     band = max(1, BAND_RAYS // max(spp, 1))
     bands = [(start, min(band, num_pixels - start))
@@ -388,7 +479,7 @@ def render_pt_frame(scene, cam: Camera, frame, width: int, height: int,
     film, n_rays = pt_bands(scene, cam, frame, bands, width=width,
                             height=height, spp=spp, max_len=max_len,
                             has_masks=has_masks, has_bump=has_bump,
-                            compact=compact, stats=stats)
+                            compact=compact, graph=graph, stats=stats)
     if with_stats:
         return film, n_rays
     return film

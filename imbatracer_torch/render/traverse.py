@@ -16,6 +16,22 @@ JAX package routes them except where the last item says:
     khit never sees one), and for occlusion an unmasked any-hit dispatch
     before it (`_any_hit_masked`); the JAX package has no such any-hit
     dispatch, and its re-trace never takes the pair queue.
+
+The masked re-trace has two forms.  The eager one loops until every
+lane is resolved and reads the device each round (`nonzero`, `any`).
+The graph-ready one, taken when the caller passes an `overflow`
+counter, is JAX's device-side while loop with its trip count fixed:
+KHIT_ROUNDS khit rounds on a flat BVH, RETRACE_ROUNDS stream
+dispatches on a two-level one.  The first round covers every lane, as
+the eager one does; the rest run on `retrace_slots` lanes gathered
+without a host read (`gather_slots`: torch.nonzero_static, so the lanes
+keep their order and each dispatch sorts its live lanes as the eager
+loop's subset does).  Lanes still unresolved after the last round,
+and lanes past the slots, are added to `overflow`, a device int32
+counter that the caller reads once a frame; a frame that overflowed is
+rendered again on the eager route (render/integrators/pt.py).  With no
+overflow both forms return the same hits bit for bit.  CUDA graphs
+capture the graph-ready form only.
 """
 
 from __future__ import annotations
@@ -34,15 +50,32 @@ from .intersect import BIG
 # round, so the loop ends anyway; the guard caps an epsilon stall.
 MASK_MAX_ROUNDS = 4096
 
+# The graph-ready re-trace's rounds (khit rounds on a flat BVH, stream
+# dispatches, the first included, on a two-level one) and the share of
+# a dispatch's lanes it carries past its first round (one in *_SLOT_DIV,
+# at least one 128-ray block).  The rounds are the most any masked
+# dispatch of chip_smoke.py's eager frames needed (MASK_STATS
+# "max_rounds"); the slots hold several times the most lanes one
+# carried past its first round ("max_lanes": 1 of 262,144 on the still
+# life, 21,816 on the instanced scene); PERF.md names the run.
+KHIT_ROUNDS = 2
+KHIT_SLOT_DIV = 256
+RETRACE_ROUNDS = 9
+RETRACE_SLOT_DIV = 4
+
 # Below this super-chunk count the pair queue's sorts cost more than the
 # divergence they save; the JAX package's threshold.
 PAIRS_MIN_SUPERCHUNKS = 8
 
 # Masked traversal counters: dispatches (masked closest / any hit calls),
-# the empty ones among them (no active lane), and rounds summed over them
-# (khit rounds on a flat BVH, stream dispatches of the re-trace on a
-# two-level one); chip_smoke.py reports rounds per non-empty dispatch.
-MASK_STATS = {"dispatches": 0, "empty": 0, "rounds": 0}
+# the empty ones among them (no active lane; eager route only), rounds
+# summed over them (khit rounds on a flat BVH, stream dispatches of the
+# re-trace on a two-level one), and, on the eager route, the most rounds
+# one dispatch needed and the most lanes one dispatch carried past its
+# first round (what the graph-ready form's rounds and slots are chosen
+# from); chip_smoke.py reports rounds per non-empty dispatch.
+MASK_STATS = {"dispatches": 0, "empty": 0, "rounds": 0, "max_rounds": 0,
+              "max_lanes": 0}
 
 
 class Hit(NamedTuple):
@@ -72,16 +105,11 @@ def _closest_hit_masked_khit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
     org = _recenter(bvh, org)
     num_r = org.shape[0]
     dev = org.device
-    tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev)
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
-    tmin, tmax = tmin.expand(num_r), tmax.expand(num_r)
+    tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
     need = (torch.ones(num_r, dtype=torch.bool, device=dev)
             if active is None else active.clone())
     tcur = tmin.clone()
-    ht = torch.full((num_r,), BIG, device=dev)
-    hid = torch.full((num_r,), -1, dtype=torch.int32, device=dev)
-    hu = torch.zeros((num_r,), device=dev)
-    hv = torch.zeros((num_r,), device=dev)
+    ht, hid, hu, hv = _miss(num_r, dev)
     K = khit_mod.K
 
     MASK_STATS["dispatches"] += 1
@@ -91,7 +119,7 @@ def _closest_hit_masked_khit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
             if k == 0:
                 MASK_STATS["empty"] += 1
             break
-        MASK_STATS["rounds"] += 1
+        _count_round(k + 1, idx.shape[0])
         t4, u4, v4, id4 = khit_mod.khit_sorted(
             bvh.sbox, bvh.tiles, org[idx], d[idx], tcur[idx], tmax[idx])
         n = idx.shape[0]
@@ -134,8 +162,182 @@ def _unmasked(bvh: DeviceBvh, org, d, tmin, tmax, active, occl: bool,
                        occl=occl, sort=sort, inst=bvh.inst)
 
 
-def _full(x, num_r, dev):
-    return torch.as_tensor(x, dtype=torch.float32, device=dev).expand(num_r)
+_full = st.full_lanes
+
+
+def _count_round(k: int, lanes: int):
+    """Count the k-th round of an eager masked dispatch, over `lanes`
+    lanes."""
+    MASK_STATS["rounds"] += 1
+    MASK_STATS["max_rounds"] = max(MASK_STATS["max_rounds"], k)
+    if k == 2:
+        MASK_STATS["max_lanes"] = max(MASK_STATS["max_lanes"], lanes)
+
+
+def _miss(num_r, dev) -> Hit:
+    return Hit(t=torch.full((num_r,), BIG, device=dev),
+               prim_id=torch.full((num_r,), -1, dtype=torch.int32,
+                                  device=dev),
+               u=torch.zeros(num_r, device=dev),
+               v=torch.zeros(num_r, device=dev))
+
+
+def retrace_plan(two_level: bool) -> tuple:
+    """(rounds, slot share) of the graph-ready re-trace over a two-level
+    or a flat BVH."""
+    if two_level:
+        return RETRACE_ROUNDS, RETRACE_SLOT_DIV
+    return KHIT_ROUNDS, KHIT_SLOT_DIV
+
+
+def retrace_slots(num_r: int, two_level: bool) -> int:
+    """Lanes the graph-ready re-trace carries past its first round."""
+    div = retrace_plan(two_level)[1]
+    return min(num_r, max(st.BLK, -(-num_r // div)))
+
+
+def gather_slots(need, slots: int):
+    """The first `slots` lanes of `need`, in lane order, with no host
+    read (torch.nonzero_static): (idx (slots,) int64, each slot's lane,
+    0 for an empty slot; valid (slots,) bool; dropped, a 0-d count of
+    the `need` lanes past the slots)."""
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum()
+    valid = torch.arange(slots, device=need.device) < count
+    return idx, valid, torch.clamp(count - slots, min=0)
+
+
+def _rows(hit: Hit, idx) -> Hit:
+    return Hit(*(x[idx] for x in hit))
+
+
+def _merge_slots(idx, valid, hit: Hit, sub: Hit) -> Hit:
+    """`hit` with the lane of each valid slot taken from `sub`: one
+    scatter a field, the empty slots writing a spare row past the
+    lanes."""
+    num_r = hit.t.shape[0]
+    to = torch.where(valid, idx, num_r)
+    out = []
+    for h, s in zip(hit, sub):
+        row = torch.cat([h, h[:1]])
+        row[to] = s
+        out.append(row[:num_r])
+    return Hit(*out)
+
+
+def _add_overflow(overflow, *counts):
+    for n in counts:
+        overflow.add_(n.to(overflow.dtype))
+
+
+def _khit_round(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, need, tcur,
+                hit: Hit):
+    """One round of the graph-ready khit re-trace (the JAX while loop's
+    body): the K nearest hits past `tcur` of the `need` lanes, the
+    others dispatched dead, alpha-tested together.  Returns (need, tcur,
+    hit) for the next round."""
+    K = khit_mod.K
+    t4, u4, v4, id4 = khit_mod.khit_sorted(
+        bvh.sbox, bvh.tiles, org, d, torch.where(need, tcur, tmin), tmax,
+        active=need)
+    ht, hu, hv, hid = hit.t, hit.u, hit.v, hit.prim_id
+    # One alpha test of all K columns (an elementwise function, so the
+    # same bits as K tests of one column).
+    opaque = alpha_fn(torch.clamp(id4, min=0).reshape(-1), u4.reshape(-1),
+                      v4.reshape(-1)).view(-1, K)
+    found = torch.zeros_like(need)
+    for j in range(K):
+        take = need & ~found & (id4[:, j] >= 0) & opaque[:, j]
+        ht = torch.where(take, t4[:, j], ht)
+        hu = torch.where(take, u4[:, j], hu)
+        hv = torch.where(take, v4[:, j], hv)
+        hid = torch.where(take, id4[:, j], hid)
+        found = found | take
+    last = t4[:, K - 1]
+    exhausted = need & ~found & (id4[:, K - 1] >= 0)
+    tcur = torch.where(exhausted, last + 1e-3 * torch.clamp(last, min=1e-3),
+                       tcur)
+    return exhausted, tcur, Hit(t=ht, prim_id=hid, u=hu, v=hv)
+
+
+def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
+                                   alpha_fn, active, overflow) -> Hit:
+    """The graph-ready form of _closest_hit_masked_khit: KHIT_ROUNDS
+    rounds, the first over every lane, the others over retrace_slots
+    lanes gathered from those still unresolved; the lanes left
+    unresolved and those past the slots are added to `overflow`."""
+    org = _recenter(bvh, org)
+    num_r = org.shape[0]
+    dev = org.device
+    tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
+    need = (torch.ones(num_r, dtype=torch.bool, device=dev)
+            if active is None else active)
+    MASK_STATS["dispatches"] += 1
+    MASK_STATS["rounds"] += KHIT_ROUNDS
+    need, tcur, hit = _khit_round(bvh, org, d, tmin, tmax, alpha_fn, need,
+                                  tmin, _miss(num_r, dev))
+    if KHIT_ROUNDS == 1:
+        _add_overflow(overflow, need.sum())
+        return hit
+    idx, valid, dropped = gather_slots(need, retrace_slots(num_r, False))
+    sub = (org[idx], d[idx], tmin[idx], tmax[idx])
+    s_need, s_tcur, s_hit = valid, tcur[idx], _rows(hit, idx)
+    for _ in range(KHIT_ROUNDS - 1):
+        s_need, s_tcur, s_hit = _khit_round(bvh, *sub, alpha_fn, s_need,
+                                            s_tcur, s_hit)
+    _add_overflow(overflow, dropped, s_need.sum())
+    return _merge_slots(idx, valid, hit, s_hit)
+
+
+def _transparent(alpha_fn, hit: Hit):
+    """Lanes whose hit `alpha_fn` reports transparent."""
+    opaque = alpha_fn(torch.clamp(hit.prim_id, min=0), hit.u, hit.v)
+    return (hit.prim_id >= 0) & ~opaque
+
+
+def _stream_hit(out) -> Hit:
+    """Hit of (R, 8) closest-hit rows: t = BIG on a miss."""
+    rid = out[:, 3].to(torch.int32)
+    return Hit(t=torch.where(rid >= 0, out[:, 0], BIG), prim_id=rid,
+               u=out[:, 1], v=out[:, 2])
+
+
+def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
+                              active, sort: bool, overflow) -> Hit:
+    """The graph-ready form of _closest_hit_masked: the first dispatch
+    over every lane, then RETRACE_ROUNDS - 1 re-trace dispatches, sorted,
+    over retrace_slots lanes gathered from those whose hit was
+    transparent (JAX's `active = retrace` body on the slots); the lanes
+    still re-tracing after them and those past the slots are added to
+    `overflow`."""
+    num_r = org.shape[0]
+    dev = org.device
+    tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
+    act = (torch.ones(num_r, dtype=torch.bool, device=dev)
+           if active is None else active)
+    MASK_STATS["dispatches"] += 1
+    MASK_STATS["rounds"] += RETRACE_ROUNDS
+    hit = _stream_hit(_unmasked(bvh, org, d, tmin, tmax, act, False, sort))
+    retrace = act & _transparent(alpha_fn, hit)
+    if RETRACE_ROUNDS == 1:
+        _add_overflow(overflow, retrace.sum())
+        return hit
+    idx, valid, dropped = gather_slots(retrace, retrace_slots(num_r, True))
+    s_retrace = valid
+    s_org, s_d, s_tmin, s_tmax = org[idx], d[idx], tmin[idx], tmax[idx]
+    s_hit = _rows(hit, idx)
+    for _ in range(RETRACE_ROUNDS - 1):
+        t = s_hit.t
+        new = _stream_hit(_unmasked(
+            bvh, s_org, s_d,
+            torch.where(s_retrace, t + 1e-3 * torch.clamp(t, min=1e-3),
+                        s_tmin),
+            s_tmax, s_retrace, False, True))
+        s_hit = Hit(*(torch.where(s_retrace, n, h)
+                      for n, h in zip(new, s_hit)))
+        s_retrace = s_retrace & _transparent(alpha_fn, s_hit)
+    _add_overflow(overflow, dropped, s_retrace.sum())
+    return _merge_slots(idx, valid, hit, s_hit)
 
 
 def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
@@ -162,28 +364,22 @@ def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
     MASK_STATS["dispatches"] += 1
     if not bool(act.any()):
         MASK_STATS["empty"] += 1
-        return Hit(t=torch.full((num_r,), BIG, device=dev),
-                   prim_id=torch.full((num_r,), -1, dtype=torch.int32,
-                                      device=dev),
-                   u=torch.zeros(num_r, device=dev),
-                   v=torch.zeros(num_r, device=dev))
-    MASK_STATS["rounds"] += 1
-    out = _unmasked(bvh, org, d, tmin, tmax, act, False, sort)
-    hid = out[:, 3].to(torch.int32)
-    ht = torch.where(hid >= 0, out[:, 0], BIG)
-    hu, hv = out[:, 1].clone(), out[:, 2].clone()
+        return _miss(num_r, dev)
+    _count_round(1, num_r)
+    ht, hid, hu, hv = _stream_hit(_unmasked(bvh, org, d, tmin, tmax, act,
+                                            False, sort))
+    hu, hv = hu.clone(), hv.clone()
 
     def transparent(idx):
-        got = hid[idx] >= 0
-        opaque = alpha_fn(torch.clamp(hid[idx], min=0), hu[idx], hv[idx])
-        return got & ~opaque
+        return _transparent(alpha_fn, Hit(ht[idx], hid[idx], hu[idx],
+                                          hv[idx]))
 
     idx = (act & (hid >= 0)).nonzero(as_tuple=True)[0]
     idx = idx[transparent(idx)]
-    for _ in range(MASK_MAX_ROUNDS):
+    for k in range(2, MASK_MAX_ROUNDS + 2):
         if idx.numel() == 0:
             break
-        MASK_STATS["rounds"] += 1
+        _count_round(k, idx.shape[0])
         t = ht[idx]
         out = _unmasked(bvh, org[idx], d[idx],
                         t + 1e-3 * torch.clamp(t, min=1e-3), tmax[idx], None,
@@ -198,18 +394,23 @@ def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
 
 
 def _any_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, active,
-                    sort: bool):
+                    sort: bool, overflow=None):
     """Masked occlusion on a two-level BVH: an unmasked any-hit dispatch
     first (a ray with no occluder at all has no opaque one), then the
     masked closest hit of only the rays it found occluded.  Exact, and
     the same function as the JAX package's masked any hit (the masked
     closest hit's `prim_id >= 0` over every lane); a shadow ray that sees
     nothing costs one any-hit walk, which stops at its first hit and
-    culls by tmax, instead of a closest-hit walk."""
+    culls by tmax, instead of a closest-hit walk.  With `overflow`, the
+    graph-ready form: the masked closest hit over `active = occ`, sorted,
+    with no `nonzero`."""
     num_r = org.shape[0]
     dev = org.device
     tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
     occ = _unmasked(bvh, org, d, tmin, tmax, active, True, sort)[:, 0] > 0.0
+    if overflow is not None:
+        return _closest_hit_masked_graph(bvh, org, d, tmin, tmax, alpha_fn,
+                                         occ, True, overflow).prim_id >= 0
     idx = occ.nonzero(as_tuple=True)[0]
     hit = _closest_hit_masked(bvh, org[idx], d[idx], tmin[idx], tmax[idx],
                               alpha_fn, None, True)
@@ -219,34 +420,51 @@ def _any_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, active,
 
 
 def closest_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None,
-                active=None, sort: bool = False) -> Hit:
+                active=None, sort: bool = False, overflow=None) -> Hit:
     """Closest hit for a batch of rays.  org/d: (R, 3); tmin/tmax: scalar
     or (R,); lanes where `active` is False do nothing and miss.  `sort`
     orders the batch by direction octant + origin Morton code before the
     dispatch (exact; only block coherence changes).  With `alpha_fn(prim,
-    u, v) -> opaque`, hits it reports transparent are passed through."""
+    u, v) -> opaque`, hits it reports transparent are passed through;
+    with `overflow`, a 0-d int32 device tensor, through the graph-ready
+    re-trace, which adds the lanes it left unresolved to it."""
     if alpha_fn is not None:
         if bvh.two_level:
+            if overflow is not None:
+                return _closest_hit_masked_graph(bvh, org, d, tmin, tmax,
+                                                 alpha_fn, active, sort,
+                                                 overflow)
             return _closest_hit_masked(bvh, org, d, tmin, tmax, alpha_fn,
                                        active, sort)
+        if overflow is not None:
+            return _closest_hit_masked_khit_graph(bvh, org, d, tmin, tmax,
+                                                  alpha_fn, active, overflow)
         return _closest_hit_masked_khit(bvh, org, d, tmin, tmax, alpha_fn,
                                         active)
-    out = _unmasked(bvh, org, d, tmin, tmax, active, False, sort)
-    prim_id = out[:, 3].to(torch.int32)
-    t = torch.where(prim_id >= 0, out[:, 0], BIG)
-    return Hit(t=t, prim_id=prim_id, u=out[:, 1], v=out[:, 2])
+    return _stream_hit(_unmasked(bvh, org, d, tmin, tmax, active, False,
+                                 sort))
 
 
 def any_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None, active=None,
-            sort: bool = False) -> torch.Tensor:
+            sort: bool = False, overflow=None) -> torch.Tensor:
     """Occlusion query: True where any (opaque, under `alpha_fn`)
     primitive lies in (tmin, tmax).  Masked, it is the masked closest
-    hit's `prim_id >= 0` (through `_any_hit_masked` on a two-level BVH)."""
+    hit's `prim_id >= 0` (through `_any_hit_masked` on a two-level BVH);
+    `overflow` as in closest_hit."""
     if alpha_fn is not None:
         if bvh.two_level:
             return _any_hit_masked(bvh, org, d, tmin, tmax, alpha_fn, active,
-                                   sort)
-        hit = _closest_hit_masked_khit(bvh, org, d, tmin, tmax, alpha_fn,
-                                       active)
-        return hit.prim_id >= 0
+                                   sort, overflow)
+        return closest_hit(bvh, org, d, tmin, tmax, alpha_fn, active,
+                           overflow=overflow).prim_id >= 0
     return _unmasked(bvh, org, d, tmin, tmax, active, True, sort)[:, 0] > 0.0
+
+
+def graph_route(bvh: DeviceBvh, masked: bool) -> tuple:
+    """The traversal route a graph-ready dispatch takes, as part of a
+    captured graph's key: the BVH's kind and, masked, the re-trace with
+    its rounds and slot share."""
+    kind = "two_level" if bvh.two_level else "flat"
+    if not masked:
+        return (kind,)
+    return (kind, "masked") + retrace_plan(bvh.two_level)

@@ -1,0 +1,500 @@
+"""The port's CUDA-graph route (render/graphs.py) and the graph-ready
+masked re-trace (render/traverse.py) on the CPU, where graphs do not
+exist: a stand-in for the graph object runs the captured bounce at each
+replay, so the route's bookkeeping (static carry, padding of short
+bands, keys, launch deltas, the overflow counter and the eager rerun)
+runs as it does on the card.
+
+* The sync-free re-trace on the stacked masked layers of
+  tests/test_torch_masks.py (1, 6 and 10 layers: more than the
+  KHIT_ROUNDS * K layers khit resolves and the RETRACE_ROUNDS - 1 the
+  two-level re-trace does), over a flat BVH (khit) and a two-level one:
+  hits and occlusion flags equal to the eager route's bit for bit, and
+  to JAX's masked traversal as test_masked_traversal_matches_jax holds
+  them (t within 1e-5 relative, ids and flags equal), wherever the
+  overflow counter stays 0; the counter is 0 when every lane needs at
+  most the route's rounds and above 0 beyond them.  A lane past the
+  gathered slots counts too.
+* A no-sync guard: one `_pt_bounce` of a few hundred lanes on each
+  route (flat unmasked, flat masked, two-level masked; the masked ones
+  with an env map, bump maps and every material kind) under a context
+  that raises on any host read (Tensor.__bool__, __int__, __float__,
+  item, tolist, numpy, nonzero, a boolean-mask index) and on
+  torch.tensor / torch.as_tensor of host data.  The kernel wrappers'
+  plain versions, which stand for one launch each, run with the guard
+  lifted.  It passes for the graph-ready bounce and trips on the eager
+  khit loop's nonzero.
+* Film parity: PT frames through the graph route (the stand-in graph)
+  equal to the eager route's bit for bit, traced rays equal, banded and
+  compacted, with short last bands padded (the cornell, the masked
+  scene, a two-level masked scene), and to JAX's render_pt_frame within
+  tests/test_torch_pt.py's tolerances; a frame whose re-trace overflows
+  is rendered again eagerly, bit for bit, and counted.
+* Bookkeeping: one capture a key, replays a band-bounce, launch counts
+  of a graphed frame equal to the eager frame's, load() padding and its
+  size check, and graph=True refused where graphs cannot run.
+"""
+
+import contextlib
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imbatracer_tpu.render import traverse as jtr
+from imbatracer_tpu.render.camera import make_camera as jcamera
+from imbatracer_tpu.render.integrators.pt import render_pt_frame as jrender
+from imbatracer_tpu.scene import procedural as jproc
+from imbatracer_torch.accel.device import DeviceBvh
+from imbatracer_torch.accel.instancing import build_two_level
+from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
+from imbatracer_torch.frontend.renderer import (RenderSettings,
+                                                camera_for_scene)
+from imbatracer_torch.ops import khit as kh
+from imbatracer_torch.ops import stream_traverse as st
+from imbatracer_torch.render import graphs
+from imbatracer_torch.render import traverse as tt
+from imbatracer_torch.render.camera import make_camera as tcamera
+from imbatracer_torch.render.integrators import pt as tpt
+from imbatracer_torch.render.intersect import BIG
+from imbatracer_torch.scene.build import build_scene
+from imbatracer_torch.scene.generate import write_instanced_scene
+from imbatracer_torch.scene.procedural import make_still_life_like
+from test_torch_masks import _layers
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
+
+class StandInGraph:
+    """The graph object on the CPU: capture() runs the bounce once, as a
+    capture runs its Python, and puts back the tensors it wrote, as a
+    capture launches nothing; replay() runs it again with the launch
+    counters held, as a replay ticks none of them."""
+
+    def __init__(self, device, pool):
+        self.fn = None
+
+    def capture(self, fn, state):
+        saved = [t.clone() for t in state]
+        fn()
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        self.fn = fn
+
+    def replay(self):
+        before = graphs._snapshot()
+        self.fn()
+        for c, b in zip(graphs._counters(), before):
+            c.update(b)
+
+
+@pytest.fixture
+def standin(monkeypatch):
+    monkeypatch.setattr(graphs, "make_graph", StandInGraph)
+    monkeypatch.setattr(tpt, "use_graphs", lambda dev, bvh: not bvh.pairs)
+    graphs.reset_stats()
+
+
+# --------------------------------------------------------------------------
+# The no-sync guard
+# --------------------------------------------------------------------------
+
+class HostRead(AssertionError):
+    pass
+
+
+_GUARD = {"on": False}
+
+
+@contextlib.contextmanager
+def _lifted():
+    was = _GUARD["on"]
+    _GUARD["on"] = False
+    try:
+        yield
+    finally:
+        _GUARD["on"] = was
+
+
+def _bool_index(idx):
+    items = idx if isinstance(idx, tuple) else (idx,)
+    return any(torch.is_tensor(i) and i.dtype == torch.bool and i.dim() > 0
+               for i in items)
+
+
+@contextlib.contextmanager
+def no_sync(monkeypatch):
+    """Raise HostRead on any host read of a tensor and on any tensor made
+    from host data while the body runs; the kernel wrappers (st.traverse,
+    kh.khit), which launch one kernel each on the card, run unguarded."""
+    T = torch.Tensor
+
+    def refuse(name, orig):
+        def f(*a, **k):
+            if _GUARD["on"]:
+                raise HostRead(name)
+            return orig(*a, **k)
+        return f
+
+    for name in ("__bool__", "__int__", "__float__", "item", "tolist",
+                 "numpy", "nonzero"):
+        monkeypatch.setattr(T, name, refuse(name, getattr(T, name)))
+    for name in ("tensor", "as_tensor"):
+        orig = getattr(torch, name)
+
+        def make(data, *a, _orig=orig, _name=name, **k):
+            if _GUARD["on"] and not torch.is_tensor(data):
+                raise HostRead(f"torch.{_name} of host data")
+            return _orig(data, *a, **k)
+        monkeypatch.setattr(torch, name, make)
+    for name in ("__getitem__", "__setitem__"):
+        orig = getattr(T, name)
+
+        def index(self, idx, *a, _orig=orig, _name=name):
+            if _GUARD["on"] and _bool_index(idx):
+                raise HostRead(f"boolean-mask {_name}")
+            return _orig(self, idx, *a)
+        monkeypatch.setattr(T, name, index)
+    for mod, name in ((st, "traverse"), (kh, "khit")):
+        orig = getattr(mod, name)
+
+        def kernel(*a, _orig=orig, **k):
+            with _lifted():
+                return _orig(*a, **k)
+        monkeypatch.setattr(mod, name, kernel)
+    _GUARD["on"] = True
+    try:
+        yield
+    finally:
+        _GUARD["on"] = False
+
+
+# --------------------------------------------------------------------------
+# Scenes
+# --------------------------------------------------------------------------
+
+def _two_level_layers(layers):
+    """_layers' triangles under one identity instance of a two-level BVH
+    (flat ids equal mesh ids, so _layers' alpha functions apply)."""
+    f, half = (2, 1) if layers == 1 else (4, 2)
+    tris = [((-f, 0, f), (f, 0, f), (f, 0, -f)),
+            ((-f, 0, f), (f, 0, -f), (-f, 0, -f))]
+    for k in range(layers):
+        y = 1.0 + k
+        tris += [((-half, y, half), (half, y, half), (half, y, -half)),
+                 ((-half, y, half), (half, y, -half), (-half, y, -half))]
+    v = [np.asarray([t[i] for t in tris], np.float32) for i in range(3)]
+    tl = build_two_level([tuple(v)], [dict(mesh_idx=0, matrix=np.eye(4),
+                                           face_base=0)])
+    return DeviceBvh.from_two_level(tl.sbox, tl.tiles, tl.tile_idx,
+                                    tl.inst_of, tl.itab, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def procedural():
+    out = {}
+    for name, build in (("cornell", jproc.make_cornell_scene),
+                        ("masked", jproc.make_masked_scene)):
+        js, meta = build()
+        out[name] = (js, scene_from_numpy(scene_to_numpy(js), "cpu"), meta)
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_level_masked(tmp_path_factory):
+    path = write_instanced_scene(str(tmp_path_factory.mktemp("graphs")),
+                                 counts=dict(ground=1, sphere=3, blob=1,
+                                             crystal=1, card=6, panel=1))
+    scene, meta = build_scene(path, quiet=True, device="cpu")
+    assert scene.bvh.two_level and meta.has_masks
+    return scene, meta
+
+
+# --------------------------------------------------------------------------
+# The sync-free re-trace
+# --------------------------------------------------------------------------
+
+def _stack_rays(layers, n=64):
+    top = layers + 2.0
+    span = 0.9 if layers == 1 else 1.5
+    x = np.linspace(-span, span, n, dtype=np.float32)
+    org = np.stack([x, np.full(n, top, np.float32),
+                    np.zeros(n, np.float32)], axis=1)
+    d = np.tile(np.asarray([[0.0, -1.0, 0.0]], np.float32), (n, 1))
+    return x, top, org, d
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("layers", [1, 6, 10])
+def test_graph_ready_retrace_matches_eager_and_jax(layers, two_level,
+                                                   monkeypatch):
+    jbvh, flat, jalpha, talpha = _layers(layers)
+    bvh = _two_level_layers(layers) if two_level else flat
+    x, top, org, d = _stack_rays(layers)
+    o, dd = torch.from_numpy(org), torch.from_numpy(d)
+    # Rounds the see-through rays need: khit takes K layers a round, the
+    # two-level re-trace one.
+    need = layers + 1 if two_level else layers // kh.K + 1
+    rounds = tt.RETRACE_ROUNDS if two_level else tt.KHIT_ROUNDS
+    monkeypatch.setitem(tt.MASK_STATS, "max_rounds", 0)
+    eager = tt.closest_hit(bvh, o, dd, 0.0, BIG, alpha_fn=talpha, sort=True)
+    assert tt.MASK_STATS["max_rounds"] == need
+    ovf = torch.zeros((), dtype=torch.int32)
+    got = tt.closest_hit(bvh, o, dd, 0.0, BIG, alpha_fn=talpha, sort=True,
+                         overflow=ovf)
+    tmax = torch.full((x.shape[0],), top - 0.5)   # short of the floor
+    occ_ovf = torch.zeros((), dtype=torch.int32)
+    occ = tt.any_hit(bvh, o, dd, 0.0, tmax, alpha_fn=talpha, sort=True,
+                     overflow=occ_ovf)
+    occ_eager = tt.any_hit(bvh, o, dd, 0.0, tmax, alpha_fn=talpha, sort=True)
+    clear = x < 0.0
+    if need <= rounds:
+        assert int(ovf) == 0 and int(occ_ovf) == 0
+        for a, b in zip(got, eager):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(occ.numpy(), occ_eager.numpy())
+        jh = jtr.closest_hit(jbvh, jnp.asarray(org), jnp.asarray(d), 0.0,
+                             BIG, alpha_fn=jalpha)
+        np.testing.assert_array_equal(got.prim_id.numpy(),
+                                      np.asarray(jh.prim_id))
+        np.testing.assert_allclose(got.t.numpy(), np.asarray(jh.t),
+                                   rtol=1e-5)
+        jo = jtr.any_hit(jbvh, jnp.asarray(org), jnp.asarray(d), 0.0,
+                         jnp.asarray(tmax.numpy()), alpha_fn=jalpha)
+        np.testing.assert_array_equal(occ.numpy(), np.asarray(jo))
+    else:
+        # Every see-through ray is left unresolved; the others agree.
+        assert int(ovf) == int(clear.sum()) > 0
+        assert int(occ_ovf) == int(clear.sum())
+        for a, b in zip(got, eager):
+            np.testing.assert_array_equal(a.numpy()[~clear],
+                                          b.numpy()[~clear])
+    np.testing.assert_allclose(eager.t.numpy(),
+                               np.where(clear, top, top - layers), rtol=1e-5)
+    np.testing.assert_array_equal(occ_eager.numpy(), ~clear)
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+def test_lanes_past_the_slots_overflow(two_level, monkeypatch):
+    """With one slot block for 512 lanes and every lane re-tracing, the
+    lanes past the slots count as unresolved."""
+    layers = 1 if two_level else 6
+    _, flat, _, talpha = _layers(layers)
+    bvh = _two_level_layers(layers) if two_level else flat
+    n = 512
+    _, _, org, d = _stack_rays(layers, n)
+    org[:, 0] = -0.5                      # every ray sees through
+    monkeypatch.setattr(tt, "RETRACE_SLOT_DIV" if two_level
+                        else "KHIT_SLOT_DIV", n)
+    assert tt.retrace_slots(n, two_level) == st.BLK
+    ovf = torch.zeros((), dtype=torch.int32)
+    got = tt.closest_hit(bvh, torch.from_numpy(org), torch.from_numpy(d),
+                         0.0, BIG, alpha_fn=talpha, overflow=ovf, sort=True)
+    assert int(ovf) == n - st.BLK
+    # The slots' rays reach the floor (ids 0 and 1); the others keep
+    # their first round's result.
+    assert int(((got.prim_id >= 0) & (got.prim_id < 2)).sum()) == st.BLK
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.01, 0.5, 1.0])
+def test_gather_and_merge_slots(fill):
+    rs = np.random.RandomState(int(100 * fill))
+    need = torch.from_numpy(rs.rand(1000) < fill)
+    idx, valid, dropped = tt.gather_slots(need, 64)
+    lanes = need.numpy().nonzero()[0]
+    k = min(len(lanes), 64)
+    np.testing.assert_array_equal(idx.numpy()[:k], lanes[:k])
+    assert int(valid.sum()) == k and bool(valid[:k].all())
+    assert int(dropped) == len(lanes) - k
+    hit = tt.Hit(*(torch.from_numpy(rs.rand(1000).astype(np.float32))
+                   for _ in range(4)))
+    sub = tt.Hit(*(torch.from_numpy(rs.rand(64).astype(np.float32))
+                   for _ in range(4)))
+    got = tt._merge_slots(idx, valid, hit, sub)
+    for g, h, s in zip(got, hit, sub):
+        want = h.numpy().copy()
+        want[lanes[:k]] = s.numpy()[:k]
+        np.testing.assert_array_equal(g.numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# The no-sync guard
+# --------------------------------------------------------------------------
+
+def _carry(scene, meta, size=16):
+    cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, size, size, 60.0,
+                  device="cpu")
+    org, d, state, _ = tpt.camera_rays(cam, size, size, 1, 2)
+    return tpt._init_carry(org, d, state)
+
+
+def _bounce(scene, meta, c, overflow):
+    return tpt._pt_bounce(
+        scene, c, alpha_fn=tpt.alpha_fn_for(scene) if meta.has_masks
+        else None, has_bump=meta.has_bump, max_len=4, overflow=overflow)
+
+
+@pytest.mark.parametrize("route", ["flat", "flat_masked", "still_life",
+                                   "two_level_masked"])
+def test_graph_ready_bounce_reads_nothing(route, procedural,
+                                          two_level_masked, monkeypatch):
+    """Flat unmasked (the cornell: mirror and glass), flat masked (the
+    masked scene; a small still life: the env map and every material
+    kind) and two-level masked (env map, bump maps, every light kind)."""
+    if route == "still_life":
+        scene, meta = make_still_life_like(num_objects=40, num_cards=16,
+                                           device="cpu")
+    else:
+        _, scene, meta = (procedural["cornell"] if route == "flat" else
+                          procedural["masked"] if route == "flat_masked"
+                          else (None,) + two_level_masked)
+    c = _carry(scene, meta)
+    c = _bounce(scene, meta, c, None)             # a mid-path carry
+    want = _bounce(scene, meta, c, torch.zeros((), dtype=torch.int32))
+    ovf = torch.zeros((), dtype=torch.int32)
+    with no_sync(monkeypatch):
+        got = _bounce(scene, meta, c, ovf)
+    assert int(ovf) == 0 and int(c["active"].sum()) > 100
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
+
+
+def test_guard_trips_on_the_eager_khit_loop(procedural, monkeypatch):
+    _, scene, meta = procedural["masked"]
+    c = _carry(scene, meta)
+    with pytest.raises(HostRead, match="nonzero"):
+        with no_sync(monkeypatch):
+            _bounce(scene, meta, c, None)
+
+
+# --------------------------------------------------------------------------
+# Film parity and bookkeeping
+# --------------------------------------------------------------------------
+
+def _frames(scene, meta, cam, size, spp=1, max_len=4, compact=None,
+            frame=3):
+    """[(film, traced rays)] of `frame` on the eager and the graph route;
+    the graph route's frame must have replayed one bounce a band-bounce
+    (a rerun adds none)."""
+    out = []
+    for graph in (False, True):
+        replays, stats = graphs.GRAPH_STATS["replays"], {}
+        film, n = tpt.render_pt_frame(
+            scene, cam, frame, *size, spp=spp, max_len=max_len,
+            has_masks=meta.has_masks, has_bump=meta.has_bump,
+            with_stats=True, compact=compact, graph=graph, stats=stats)
+        assert graphs.GRAPH_STATS["replays"] - replays == (
+            stats["band_bounces"] if graph else 0)
+        out.append((film.numpy(), int(n)))
+    return out
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("name", ["cornell", "masked"])
+def test_graph_films_equal_eager_and_jax(name, compact, procedural, standin,
+                                         monkeypatch):
+    js, ts, meta = procedural[name]
+    W, SPP, MAX_LEN = 32, 2, 4
+    # 320-pixel bands: three full bands and a short one of 64 pixels.
+    monkeypatch.setattr(tpt, "BAND_RAYS", 320 * SPP)
+    cam = (meta.cam_pos, meta.cam_dir, meta.cam_up, W, W, 60.0)
+    tcam = tcamera(*cam, device="cpu")
+    (ef, en), (gf, gn) = _frames(ts, meta, tcam, (W, W), spp=SPP,
+                                 max_len=MAX_LEN, compact=compact)
+    np.testing.assert_array_equal(gf, ef)
+    assert gn == en
+    assert graphs.GRAPH_STATS["captures"] <= 1    # one a key and scene
+    assert graphs.GRAPH_STATS["reruns"] == 0
+    jf, jn = jrender(js, jcamera(*cam), jnp.uint32(3), W, W, spp=SPP,
+                     max_len=MAX_LEN, has_masks=meta.has_masks,
+                     with_stats=True, max_steps=0)
+    jf = np.asarray(jf)
+    assert abs(gf.mean() - jf.mean()) / jf.mean() <= 1e-3
+    rel = np.abs(gf - jf) / np.maximum(np.abs(jf), 1e-3)
+    assert (rel.max(axis=-1) <= 1e-4).mean() >= 0.98
+    assert abs(gn - int(jn)) <= 1e-2 * int(jn)
+
+
+@pytest.mark.parametrize("rounds", [tt.RETRACE_ROUNDS, 1])
+def test_two_level_graph_film_and_rerun(rounds, two_level_masked, standin,
+                                        monkeypatch):
+    """The two-level masked scene through the graph route: bit-equal to
+    the eager frame; with one round a transparent hit overflows and the
+    frame is rendered again eagerly, bit for bit."""
+    scene, meta = two_level_masked
+    monkeypatch.setattr(tt, "RETRACE_ROUNDS", rounds)
+    cam = camera_for_scene(meta, RenderSettings(width=32, height=24, spp=1,
+                                                max_path_len=4), "cpu")
+    # Frame 1 at spp 4: seven lanes cross a transparent texel.
+    (ef, en), (gf, gn) = _frames(scene, meta, cam, (32, 24), spp=4,
+                                 frame=1)
+    np.testing.assert_array_equal(gf, ef)
+    assert gn == en
+    assert graphs.GRAPH_STATS["reruns"] == (1 if rounds == 1 else 0)
+
+
+def test_replays_count_the_frames_launches(procedural, standin, monkeypatch):
+    """A graphed frame counts the launches the eager frame makes; one
+    capture a key, one replay a band-bounce; another max_len is another
+    key."""
+    _, ts, meta = procedural["cornell"]
+    monkeypatch.setattr(tpt, "BAND_RAYS", 320)
+    cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, 32, 32, 60.0,
+                  device="cpu")
+
+    def frame(graph, max_len=4):
+        st.reset_launches()
+        stats = {}
+        tpt.render_pt_frame(ts, cam, 1, 32, 32, max_len=max_len,
+                            graph=graph, stats=stats)
+        return st.LAUNCHES["plain"], stats["band_bounces"]
+
+    frame(True)                                   # captures, warms up
+    assert graphs.GRAPH_STATS["captures"] == 1
+    replays = graphs.GRAPH_STATS["replays"]
+    eager, bb = frame(False)
+    graphed, bb2 = frame(True)
+    assert graphed == eager == 2 * bb and bb == bb2 == 4 * 4
+    assert graphs.GRAPH_STATS["replays"] - replays == bb
+    assert graphs.GRAPH_STATS["captures"] == 1
+    frame(True, max_len=3)
+    assert graphs.GRAPH_STATS["captures"] == 2
+    sg = graphs.for_scene(ts)
+    assert {(320, 3), (320, 4)} <= {k[:2] for k in sg.graphs}
+
+
+def test_load_pads_with_dead_lanes(procedural, standin):
+    _, ts, meta = procedural["cornell"]
+    c = _carry(ts, meta, 16)                      # 256 lanes
+    sg = graphs.SceneGraphs("cpu")
+    step = lambda carry, overflow: _bounce(ts, meta, carry, overflow)
+    g = sg.bounce("k", step, c, 300)
+    assert sg.bounce("k", None, None, 0) is g
+    g.carry["n_rays"].fill_(7)
+    g.load({k: v[:100] for k, v in c.items() if k != "n_rays"})
+    assert bool(g.carry["active"][:100].all())
+    assert not bool(g.carry["active"][100:].any())
+    assert int(g.carry["n_rays"]) == 0
+    np.testing.assert_array_equal(g.carry["org"][:100].numpy(),
+                                  c["org"][:100].numpy())
+    g.replay(2)
+    assert int(g.carry["n_rays"]) > 0
+    assert not bool(g.carry["active"][100:].any())
+    with pytest.raises(ValueError, match="does not fit"):
+        g.load({k: torch.cat([v, v]) for k, v in c.items()
+                if k != "n_rays"})
+
+
+def test_graph_true_is_refused_where_graphs_cannot_run(procedural):
+    _, ts, meta = procedural["cornell"]
+    cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, 8, 8, 60.0,
+                  device="cpu")
+    assert not tpt.use_graphs("cpu", ts.bvh)
+    with pytest.raises(ValueError, match="graph=True"):
+        tpt.render_pt_frame(ts, cam, 0, 8, 8, graph=True)
+    paired = dataclasses.replace(ts.bvh, pairs=True)
+    assert not tpt.use_graphs("cuda", paired)
+    assert tpt.use_graphs("cuda", ts.bvh)

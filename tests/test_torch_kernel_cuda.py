@@ -750,3 +750,106 @@ def test_cuda_merge_preparation_matches_plain(cuda_device, kinds):
     scale = torch.clamp(ref.abs(), min=1e-6 * float(ref.abs().max()))
     assert float(((got - ref).abs() / scale).max()) <= 1e-4
     assert float(ref.sum()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["closest", "any", "khit"])
+def test_cuda_dead_blocks_return_early(cuda_device, kind):
+    """A 128-ray block with no live lane writes its miss rows and builds
+    no candidate list: the rows equal the plain version's, and the
+    counting launch's candidate-stage slab tests are those of the live
+    blocks alone (the rays of an all-live launch of those blocks)."""
+    scene, _ = make_leaf_scene(300, seed=2, device="cpu")
+    rays = _rays(4096, 11, scene, kind == "any")
+    rays[: 16 * st.BLK, 7] = -1.0                 # blocks 0-15 dead
+    rays[20 * st.BLK: 24 * st.BLK, 7] = -1.0      # and 20-23
+    gpu = scene.to(cuda_device)
+    sbox, tiles = gpu.bvh.sbox, gpu.bvh.tiles
+
+    def launch(r, work=None):
+        if kind == "khit":
+            return kh.khit_cuda(r, sbox, tiles, work=work)
+        return st.traverse_cuda(r, sbox, tiles, kind == "any", work=work)
+
+    rg = rays.to(cuda_device)
+    got = launch(rg).cpu()
+    if kind == "khit":
+        want = kh.khit_plain(rays, scene.bvh.sbox, scene.bvh.tiles)
+        assert torch.equal(got[:, 0::8], want[:, 0::8])
+    else:
+        _hold_rows(got.to(cuda_device), st.traverse_plain(
+            rays, scene.bvh.sbox, scene.bvh.tiles, kind == "any"),
+            kind == "any")
+    live = torch.cat([rg[16 * st.BLK: 20 * st.BLK], rg[24 * st.BLK:]])
+    tallies = []
+    for r in (rg, live):
+        work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                           device=cuda_device)
+        launch(r, work)
+        tallies.append(dict(zip(st.WORK_SLOTS, work.cpu().tolist())))
+    assert tallies[0] == tallies[1]
+    dead = torch.full_like(rg, 0.0)
+    dead[:, 7] = -1.0
+    work = torch.zeros(len(st.WORK_SLOTS), dtype=torch.int64,
+                       device=cuda_device)
+    out = launch(dead, work)
+    assert int(work.sum()) == 0
+    col, miss = (0, 0.0) if kind == "any" else (3, -1.0)
+    assert bool((out[:, col] == miss).all())
+
+
+def _pt_films(scene, cam, size, graph, frames=(0, 1), **kw):
+    from imbatracer_torch.render.integrators.pt import render_pt_frame
+
+    out = []
+    for f in frames:
+        film, n = render_pt_frame(scene, cam, f, *size, with_stats=True,
+                                  graph=graph, **kw)
+        out.append((film, int(n)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_graph_films_equal_eager(cuda_device, masked):
+    """PT at 64x64 (cornell) and 64x48 (the masked scene), spp 4, on the
+    default route (CUDA graphs) and graph=False: films equal bit for bit,
+    traced rays equal; the default route captured one bounce and replayed
+    it once a band-bounce; replays add the capture's launches, so a
+    graphed frame counts the stream launches the eager frame makes."""
+    from imbatracer_torch.render import graphs
+    from imbatracer_torch.render.camera import make_camera
+    from imbatracer_torch.render.integrators import pt
+    from imbatracer_torch.scene.procedural import (make_cornell_scene,
+                                                   make_masked_scene)
+
+    scene, meta = (make_masked_scene if masked else make_cornell_scene)(
+        device=cuda_device)
+    size = (64, 48) if masked else (64, 64)
+    cam = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, *size, 60.0,
+                      device=cuda_device)
+    kw = dict(spp=4, max_len=6, has_masks=meta.has_masks)
+    assert pt.use_graphs(cuda_device, scene.bvh)
+    graphs.reset_stats()
+    eager = _pt_films(scene, cam, size, False, **kw)
+    graphed = _pt_films(scene, cam, size, None, **kw)
+    for (ef, en), (gf, gn) in zip(eager, graphed):
+        assert torch.equal(ef, gf) and en == gn
+    assert graphs.GRAPH_STATS["captures"] == 1
+    assert graphs.GRAPH_STATS["reruns"] == 0
+    st.reset_launches()
+    kh.reset_launches()
+    replays = graphs.GRAPH_STATS["replays"]
+    stats = {}
+    pt.render_pt_frame(scene, cam, 2, *size, stats=stats, **kw)
+    torch.cuda.synchronize()
+    graphed_counts = (dict(st.LAUNCHES), dict(kh.LAUNCHES))
+    assert graphs.GRAPH_STATS["replays"] - replays == stats["band_bounces"]
+    if masked:
+        per = 2 * tt.KHIT_ROUNDS * stats["band_bounces"]
+        assert kh.LAUNCHES["khit"] == per
+    else:
+        st.reset_launches()
+        pt.render_pt_frame(scene, cam, 2, *size, graph=False, **kw)
+        assert graphed_counts[0] == dict(st.LAUNCHES)
+        assert st.LAUNCHES["closest_hit"] == stats["band_bounces"]
