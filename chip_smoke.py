@@ -187,10 +187,10 @@ failure raises and the script exits non-zero:
    vcm of phase 8 (written and built again) at 1920x1080 (max_len 8),
    each through the integrators with make_frame_fn's arguments: the
    default route, which must have compacted, and the banded one
-   (compact=False), a warm-up frame, then COMPACT_CELLS' frames of both
-   interleaved at the same frame numbers, each with the launch counters
-   and the peak memory set just before it and read just after.  Per
-   cell: the share of lanes alive after the phase-1 bounces, the
+   (compact=False), a warm-up frame of each, then COMPACT_CELLS' frames
+   of both interleaved at the same frame numbers, each with the launch
+   counters and the peak memory set just before it and read just after.
+   Per cell: the share of lanes alive after the phase-1 bounces, the
    phase-2 bands and the band-bounces a frame, the stream, 1b, khit and
    merge launches a frame, ms/frame of both routes, the peak memory,
    and the traced rays a frame (PT: closest hit + shadow; vcm: those of
@@ -220,9 +220,30 @@ failure raises and the script exits non-zero:
    a band's lanes captured with one re-trace round, with the rounds at
    full width and on the gathered slots (the default), timed as load +
    replay: the extra full-width rounds' cost a frame against the
-   graphed frame's device busy time.  Every earlier phase runs the
-   default route, graphed wherever it is a PT frame on the card (the
-   pairs switch's frames of phase 8c eager, by rule).
+   graphed frame's device busy time.
+14. VCM graphs (after phase 13, before the output): still_life vcm
+   (VCM_LPC light paths) and the instanced vcm of phase 8 (default light
+   paths, written and built again) at 1920x1080, and bpt, ppm, lt and
+   vcm_pt on the still life at 480x270, max_len 8, each through
+   render_vcm_frame with make_frame_fn's arguments: the default route,
+   which must replay captured light bands and camera phases
+   (render/integrators/vcm.py over render/graphs.py), and graph=False, a
+   warm-up frame of each (the captures), then GRAPH_FRAMES frames of
+   both at 1080p, one at 480x270, interleaved at the same frame numbers,
+   each with the launch counters and the peak memory set just before it
+   and read just after.  Per cell: ms/frame of both routes; captures,
+   replays and reruns a frame; the stream, 1b, khit, merge and
+   preparation launches a frame; the most rounds one eager masked
+   dispatch needed and the most lanes it carried past its first round;
+   peak memory; on the 1080p cells one traced frame of each route (wall,
+   device busy, idle share, kernels, cudaLaunchKernel and
+   cudaGraphLaunch calls).  Film means must agree within 1e-6 relative
+   and >= 99.9% of pixels within 1e-5 relative (the light splat adds
+   with atomics), traced rays equal, no rerun, no plain version run.
+   Every earlier phase runs the default route, graphed wherever it is a
+   frame on the card (the pairs switch's frames of phase 8c, and phase
+   7a's warm-up frame that records merge queries, eager by rule; phase
+   7a runs one more warm-up frame for the captures).
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
@@ -242,6 +263,7 @@ directory of its own, removed at the end.
 
 import contextlib
 import dataclasses
+import faulthandler
 import io
 import json
 import os
@@ -1105,7 +1127,8 @@ def family_frames(scene, meta, algo, width, height, max_len, frames,
     counters set to 0 just before them and read just after.  Returns
     (renderer, counters, ms/frame, stats of the warm-up frame).  With
     `queries`, a list, the warm-up frame appends each camera band's
-    bounce-1 merge arguments to it.  `lpc`: light paths a frame (0: the
+    bounce-1 merge arguments to it (an eager frame) and one more warm-up
+    frame captures the graphs.  `lpc`: light paths a frame (0: the
     default, capped count; None: VCM_LPC for vcm at 1920x1080, else the
     default)."""
     from imbatracer_torch.frontend.engine import make_frame_fn
@@ -1124,6 +1147,10 @@ def family_frames(scene, meta, algo, width, height, max_len, frames,
         renderer.step()
     elif warmup:
         renderer.accum = renderer.accum + frame_fn(0, stats=fstats)
+        if queries is not None:
+            # A frame that records is eager by rule: capture the graphs
+            # outside the timed frames.
+            frame_fn(0)
     fstats.pop("merge_queries", None)
     renderer.reset()
     torch.cuda.synchronize()
@@ -2065,6 +2092,17 @@ def dist_rank(comm, inst_path, out_dir):
     torch.save(got, os.path.join(out_dir, f"rank{comm.rank}.pt"))
 
 
+def vcm_parity(a, b):
+    """(film mean rel diff, share of pixels within DIST_VCM_REL, max rel)
+    of film `a` against `b`: the rule for VCM films of two exact routes
+    (the light splat adds with atomics on the card)."""
+    a, b = a.double(), b.double()
+    mean = abs(float(a.mean() - b.mean())) / max(abs(float(b.mean())), 1e-30)
+    rel = ((a - b).abs() / b.abs().clamp(min=1e-3)).amax(dim=1)
+    return mean, float((rel <= DIST_VCM_REL).double().mean()), float(
+        rel.max())
+
+
 def hold_dist(label, got, ref, card):
     """Hold one route's cells against the unsharded ones; log and return
     the per-cell parity."""
@@ -2083,14 +2121,11 @@ def hold_dist(label, got, ref, card):
             parity = (f"pixels bit-equal {', '.join(f'{x:.6f}' for x in same)}"
                       f" (need >= {DIST_PT_EQUAL})")
         else:
-            a, b = g["films"][0].double(), r["films"][0].double()
-            mean = abs(float(a.mean() - b.mean())) / float(b.mean())
-            rel = ((a - b).abs() / b.abs().clamp(min=1e-3)).amax(dim=1)
-            within = float((rel <= DIST_VCM_REL).double().mean())
+            mean, within, worst = vcm_parity(g["films"][0], r["films"][0])
             ok = mean <= DIST_VCM_MEAN and within >= DIST_VCM_PIXELS
             parity = (f"mean rel diff {mean:.3e} (need <= {DIST_VCM_MEAN}), "
                       f"pixels within {DIST_VCM_REL} rel {within:.6f} (need "
-                      f">= {DIST_VCM_PIXELS}), max rel {float(rel.max()):.3e}")
+                      f">= {DIST_VCM_PIXELS}), max rel {worst:.3e}")
         c = g.get("collectives", {})
         log(f"[dist] {label} {cell} {DIST_SIZE[0]}x{DIST_SIZE[1]}: {parity}; "
             f"{g['ms']:.1f} ms/frame sharded, {r['ms']:.1f} unsharded; "
@@ -2253,19 +2288,22 @@ def pt_route_fn(scene, meta, width, height, max_len, route):
     return fn
 
 
-def route_fn(scene, meta, algo, width, height, max_len):
-    """f(frame, compact) -> (film, traced rays, route counts) of one
-    phase-12 cell, with the arguments make_frame_fn gives the
-    integrators (vcm: VCM_LPC light paths on the still life at 1080p,
-    else the default count).  PT's rays are the frame's closest-hit and
-    shadow rays, vcm's those of its camera pass."""
-    from imbatracer_torch.frontend.engine import estimate_pixel_size
+def route_fn(scene, meta, algo, width, height, max_len, switch="compact"):
+    """f(frame, x) -> (film, traced rays, route counts) of one frame of a
+    phase-12 or phase-14 cell through the integrators with `switch`=x
+    ("compact" or "graph"; None: the default), with the arguments
+    make_frame_fn gives them (vcm: VCM_LPC light paths on the still life
+    at 1080p, else the default count; `algo` a CLI name, vcm_pt the
+    template's PT).  PT's rays are the frame's closest-hit and shadow
+    rays, the family's those of its camera pass (none for lt)."""
+    from imbatracer_torch.frontend.engine import (ALGO_MAP,
+                                                  estimate_pixel_size)
     from imbatracer_torch.frontend.renderer import (RenderSettings,
                                                     camera_for_scene)
     from imbatracer_torch.render.integrators.vcm import render_vcm_frame
 
     if algo == "pt":
-        return pt_route_fn(scene, meta, width, height, max_len, "compact")
+        return pt_route_fn(scene, meta, width, height, max_len, switch)
     settings = RenderSettings(width=width, height=height, spp=1,
                               max_path_len=max_len, algorithm=algo)
     cam = camera_for_scene(meta, settings, scene.device)
@@ -2275,14 +2313,14 @@ def route_fn(scene, meta, algo, width, height, max_len):
     radius = estimate_pixel_size(scene, cam, meta) * settings.radius_factor
     kinds = tuple(sorted(set(scene.materials.kind.tolist())))
 
-    def fn(frame, compact):
+    def fn(frame, x):
         route = {}
         film = render_vcm_frame(
-            scene, cam, frame, radius, algo=algo, width=width, height=height,
-            max_len=max_len, light_path_count=lpc, has_masks=meta.has_masks,
-            has_bump=meta.has_bump, mat_kinds=kinds, compact=compact,
-            stats={"route": route})
-        return film, route["camera_rays"], route
+            scene, cam, frame, radius, algo=ALGO_MAP[algo], width=width,
+            height=height, max_len=max_len, light_path_count=lpc,
+            has_masks=meta.has_masks, has_bump=meta.has_bump,
+            mat_kinds=kinds, stats={"route": route}, **{switch: x})
+        return film, route.get("camera_rays", 0), route
     return fn
 
 
@@ -2364,8 +2402,9 @@ def hold_routes(cell, algo, compacted, banded, card):
 
 def compaction_phase(dev, card, scenes):
     """Phase 12: each cell of COMPACT_CELLS through the default route
-    (compacted on the card) and the banded one, a warm-up frame, then
-    the same frame numbers interleaved."""
+    (compacted on the card) and the banded one, a warm-up frame of each
+    (the captures of their graphs), then the same frame numbers
+    interleaved."""
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
 
@@ -2377,6 +2416,7 @@ def compaction_phase(dev, card, scenes):
         for cell, key, algo, w, h, max_len, frames in COMPACT_CELLS:
             fn = route_fn(*scenes[key], algo, w, h, max_len)
             fn(0, None)
+            fn(0, False)
             runs = {None: [], False: []}
             for f in range(1, frames + 1):
                 for compact in ((None, False) if f % 2 else (False, None)):
@@ -2560,6 +2600,119 @@ def graph_phase(dev, card, scenes):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 14's cells: (cell, scene, algorithm, width, height, max_len, timed
+# frames a route, traced).
+VCM_GRAPH_CELLS = (
+    ("still_life vcm", "still_life", "vcm", 1920, 1080, 8, GRAPH_FRAMES,
+     True),
+    ("instanced vcm", "instanced", "vcm", 1920, 1080, 8, GRAPH_FRAMES, True),
+    ("still_life bpt", "still_life", "bpt", *FAMILY_SIZE, 8, 1, False),
+    ("still_life ppm", "still_life", "ppm", *FAMILY_SIZE, 8, 1, False),
+    ("still_life lt", "still_life", "lt", *FAMILY_SIZE, 8, 1, False),
+    ("still_life vcm_pt", "still_life", "vcm_pt", *FAMILY_SIZE, 8, 1,
+     False),
+)
+VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
+                   "any_hit_instanced", "khit", "merge", "merge_prep",
+                   "graph_captures", "graph_replays", "graph_reruns")
+
+
+def hold_vcm_graph_cell(cell, runs, traced, card):
+    """Log one phase-14 cell's two routes over the same frames and hold
+    them against each other: the default must have replayed captured
+    graphs with no capture and no rerun in the timed frames, film means
+    within DIST_VCM_MEAN and DIST_VCM_PIXELS of the pixels within
+    DIST_VCM_REL, traced rays equal, no plain version run."""
+    g, e = runs[None], runs[False]
+    ok = all(r["launches"]["graph_replays"] > 0
+             and r["launches"]["graph_captures"] == 0
+             and r["launches"]["graph_reruns"] == 0 for r in g)
+    ok = ok and not any(r["launches"]["graph_replays"] for r in e)
+    parity = []
+    for a, b in zip(g, e):
+        mean, within, worst = vcm_parity(a["film"], b["film"])
+        parity.append(f"mean rel {mean:.3e}, pixels within {DIST_VCM_REL} "
+                      f"{within:.6f}, max rel {worst:.3e}")
+        ok = (ok and mean <= DIST_VCM_MEAN and within >= DIST_VCM_PIXELS
+              and a["rays"] == b["rays"])
+    for r in g + e:
+        ok = (ok and bool(torch.isfinite(r["film"]).all())
+              and float(r["film"].mean()) > 0.0
+              and not plain_runs(r["launches"]))
+    n = len(g)
+    mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
+    each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
+    per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
+                      for k in VCM_LAUNCH_KEYS}
+    peak = lambda rs: max(r["peak"] for r in rs) / 2**20
+    most = lambda k: max(r["launches"][k] for r in e)
+    log(f"[vcmgraphs] {cell}: ms/frame graphed {mean_ms(g):.1f} "
+        f"({each(g)}), eager {mean_ms(e):.1f} ({each(e)}), {n} frames "
+        f"each, interleaved [{card}]")
+    log(f"[vcmgraphs] {cell}: a frame graphed {per(g)}, eager {per(e)}; "
+        f"one eager masked dispatch needed at most {most('max_rounds')} "
+        f"rounds and carried at most {most('max_lanes')} lanes past its "
+        f"first")
+    log(f"[vcmgraphs] {cell}: peak memory graphed {peak(g):.1f} MiB, eager "
+        f"{peak(e):.1f} MiB, of which {g[0]['held'] / 2**20:.1f} MiB was "
+        f"held before the frame; films {'; '.join(parity)} (need mean <= "
+        f"{DIST_VCM_MEAN}, pixels >= {DIST_VCM_PIXELS}); traced rays "
+        f"graphed {[r['rays'] for r in g]}, eager {[r['rays'] for r in e]} "
+        f"[{card}]")
+    for name, t in (("graphed", traced.get(None)), ("eager",
+                                                    traced.get(False))):
+        if t is not None:
+            log(f"[vcmgraphs] {cell}: one traced frame {name}: wall "
+                f"{t['wall']:.1f} ms, device busy {t['busy']:.1f} ms (idle "
+                f"{100.0 * (1.0 - t['busy'] / t['wall']):.1f}%), "
+                f"{t['kernels']} kernels, {t['launch_kernel']} "
+                f"cudaLaunchKernel, {t['graph_launch']} cudaGraphLaunch "
+                f"[{card}]")
+    if not ok:
+        raise AssertionError(f"{cell}: the graphed and eager routes "
+                             f"disagree, or the default did not replay")
+
+
+def vcm_graph_phase(dev, card, scenes):
+    """Phase 14: each cell of VCM_GRAPH_CELLS through render_vcm_frame on
+    the default route (CUDA graphs on the card) and graph=False, a
+    warm-up frame of each (the captures), then the same frame numbers
+    interleaved, then, on the 1080p cells, one traced frame of each."""
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+    from imbatracer_torch.scene.procedural import make_still_life_like
+
+    phase("14 VCM graphs: the graphed and eager VCM-family routes")
+    tmp = tempfile.mkdtemp(prefix="imba_vcm_graphs_")
+    try:
+        # Both scenes built again, so that every graph traced here is
+        # captured in this phase: tracing a graphed still-life vcm frame
+        # whose graphs phase 7 had captured and traced crashed the
+        # process inside the replay (PERF.md section 7).
+        scenes = dict(scenes, still_life=make_still_life_like(device=dev),
+                      instanced=build_scene(write_instanced_scene(tmp, **CARD),
+                                            quiet=True, device=dev))
+        for cell, key, algo, w, h, max_len, frames, trace in \
+                VCM_GRAPH_CELLS:
+            label = f"{cell} {w}x{h} max_len {max_len}"
+            fn = route_fn(*scenes[key], algo, w, h, max_len, "graph")
+            fn(0, None)
+            fn(0, False)
+            log(f"[vcmgraphs] {label}: warm-up frames done")
+            runs = {None: [], False: []}
+            for f in range(1, frames + 1):
+                for graph in ((None, False) if f % 2 else (False, None)):
+                    runs[graph].append(run_route(fn, f, graph))
+            log(f"[vcmgraphs] {label}: timed frames done")
+            traced = ({g: trace_route(fn, frames + 1, g)
+                       for g in (None, False)} if trace else {})
+            hold_vcm_graph_cell(label, runs, traced, card)
+            del fn, runs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
     """`[time]`: (ms, the second time or None, bound) as timed."""
     ms, second_ms, (bound_ms, bound_by, detail) = timed
@@ -2591,6 +2744,7 @@ def kernel_entry(name, source, replaces, launches, err, timed, plain_ms,
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    faulthandler.enable()
     cache = tempfile.mkdtemp(prefix="imba_accel_")
     os.environ["IMBATRACER_CACHE_DIR"] = cache
     try:
@@ -2749,6 +2903,9 @@ def run():
 
     # The graphed and eager PT routes side by side (phase 13).
     graph_phase(dev, card, scenes)
+
+    # The graphed and eager VCM-family routes side by side (phase 14).
+    vcm_graph_phase(dev, card, scenes)
 
     phase("9 output")
     src = "imbatracer_torch/csrc/"

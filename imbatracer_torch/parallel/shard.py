@@ -20,7 +20,8 @@ own card.  Rays never move between ranks.
 RNG streams are keyed by global pixel and path ids, so a rank's rays are
 those of the single-process frame.  Collectives a frame: PT 1 (+1 for
 the ray count of `with_stats`); the VCM family 1 per light step, 2 for
-the cache (counts, rows) and 1 for the camera film.
+the cache (counts, rows), 1 for the camera film and, under CUDA graphs,
+1 for the ranks' overflow counters.
 
 Mid-frame lane compaction (the PT frame and the VCM camera pass, see
 render/integrators/pt.py) runs within each rank: a rank sorts its own
@@ -35,9 +36,10 @@ import hashlib
 
 import torch
 
+from ..render import graphs
 from ..render.integrators import pt as pt_mod
 from ..render.integrators import vcm as vcm_mod
-from ..render.light_cache import empty_cache, from_rows, select_shallowest
+from ..render.light_cache import from_rows, select_shallowest
 from ..tensors import TensorData
 
 _DIGEST_CHUNK = 1 << 26   # bytes copied to the host at a time
@@ -121,7 +123,8 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
                              mat_kinds: tuple = None,
                              light_band: int = pt_mod.BAND_RAYS,
                              camera_band: int = pt_mod.BAND_RAYS,
-                             stats: dict = None, compact: bool = None):
+                             stats: dict = None, compact: bool = None,
+                             graph: bool = None):
     """One VCM-family frame across the ranks of `comm`, with
     render_vcm_frame's arguments; the full film on every rank.  On the
     CPU it equals render_vcm_frame(..., light_band=bp) bit for bit, bp =
@@ -130,61 +133,78 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
     `light_path_count` must divide by the number of ranks (ValueError):
     tracing more or fewer paths than it biases the light film, so the
     engine rounds it up.  `compact`: camera-pass compaction as in
-    render_vcm_frame, decided by each rank for its own bands."""
+    render_vcm_frame, decided by each rank for its own bands.  `graph`
+    as in render_vcm_frame: each rank replays its own captured light
+    bands (of bp lanes) and camera phases; the ranks' overflow counters
+    are summed (one more collective), and if the sum is above 0 every
+    rank renders the frame again eagerly."""
     dev = cam.pos.device
     num_pixels = width * height
+    record = stats is not None and "merge_queries" in stats
+    graph = vcm_mod.resolve_graph(graph, dev, scene.bvh, record)
     (frame, base_radius, light_path_count, cache_capacity, pm_radius,
      mis_eta_vc, mis_eta_vm) = vcm_mod.frame_constants(
         cam, frame, base_radius, algo=algo, num_pixels=num_pixels,
         light_path_count=light_path_count, max_len=max_len)
     alpha_fn = pt_mod.alpha_fn_for(scene) if has_masks else None
     world, rank = comm.world, comm.rank
+    if algo != "pt" and light_path_count % world:
+        raise ValueError(
+            f"light_path_count ({light_path_count}) must be divisible by "
+            f"the number of ranks ({world}); round it up as the engine "
+            f"does")
+    per_rank = light_path_count // world
+    bp = min(light_band, per_rank)
+    inputs = vcm_mod.FrameInputs(cam, frame, base_radius, pm_radius,
+                                 mis_eta_vc, mis_eta_vm)
+    key = vcm_mod.statics_key(width, height, light_path_count, max_len,
+                               per_rank * max_len, cache_capacity)
 
-    film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
-    cache = cache_rec = grid = None
-    if algo != "pt":
-        if light_path_count % world:
-            raise ValueError(
-                f"light_path_count ({light_path_count}) must be divisible by "
-                f"the number of ranks ({world}); round it up as the engine "
-                f"does")
-        per_rank = light_path_count // world
-        bp = min(light_band, per_rank)
-        collect = (empty_cache(per_rank * max_len, dev) if algo != "lt"
-                   else None)
-        for start in range(0, light_path_count, bp * world):
-            # Both the count and the stride divide by the ranks, so the
-            # last step splits evenly too.
-            n = min(bp, (light_path_count - start) // world)
-            light_film, collect = vcm_mod._light_pass(
-                scene, cam, frame, mis_eta_vc, mis_eta_vm, collect, algo=algo,
+    def render(sg):
+        fi = inputs if sg is None else inputs.static(sg.inputs(key))
+        film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
+        cache = grid = None
+        if algo != "pt":
+            collect = (vcm_mod.frame_collect(sg, key, per_rank * max_len, dev)
+                       if algo != "lt" else None)
+            band = vcm_mod.light_bands(
+                scene, fi, collect, sg=sg, key=key, lanes=bp, algo=algo,
                 num_pixels=num_pixels, light_path_count=light_path_count,
                 max_len=max_len, alpha_fn=alpha_fn, has_bump=has_bump,
-                techniques=techniques, path_start=start + rank * n,
-                band_paths=n)
-            film = comm.sum_in_rank_order(light_film, init=film)
-        film = film * float(spp)
-        if collect is not None:
-            cache = gather_cache(comm, collect, cache_capacity, stats)
-            cache_rec = cache.packed()
-            del collect
-        if algo in ("vcm", "ppm"):
-            grid = vcm_mod.photon_grid(cache, pm_radius, stats)
-
-    if algo != "lt":
+                techniques=techniques)
+            for start in range(0, light_path_count, bp * world):
+                # Both the count and the stride divide by the ranks, so the
+                # last step splits evenly too.
+                n = min(bp, (light_path_count - start) // world)
+                film = comm.sum_in_rank_order(band(start + rank * n, n),
+                                              init=film)
+            film = film * float(spp)
+            if collect is not None:
+                collect.check()
+                cache = gather_cache(comm, collect.cache(), cache_capacity,
+                                     stats)
+                del collect
+            if algo in ("vcm", "ppm"):
+                grid = vcm_mod.photon_grid(cache, pm_radius, stats)
+        if algo == "lt":
+            return film
         y0, y1 = row_range(height, rank, world)
         local = vcm_mod.camera_film(
-            scene, cam, frame, cache, cache_rec, grid, pm_radius,
-            base_radius, mis_eta_vc, mis_eta_vm,
+            scene, vcm_mod.working_cache(fi, cache, grid, sg, key),
             row_bands(y0, y1, width, camera_band // max(spp, 1)),
             stats=stats, algo=algo, width=width, height=height, spp=spp,
             max_len=max_len, light_path_count=light_path_count,
             num_connections=num_connections, has_bump=has_bump,
             alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds,
-            compact=compact)
-        film = film + comm.all_gather_rows(
+            compact=compact, sg=sg, key=key)
+        return film + comm.all_gather_rows(
             local, counts=_pixel_counts(width, height, world))
-    return film
+
+    def total(overflow):
+        return int(torch.stack(comm.all_gather(overflow.reshape(1))).sum())
+
+    return graphs.render_frame(scene, graph, render,
+                               f"VCM frame on rank {rank}", total)
 
 
 def scene_digest(scene) -> bytes:

@@ -43,7 +43,6 @@ from ...core import rng as rng_mod
 from ...core.sampling import mis_power_heuristic, russian_roulette_prob
 from ...core.vecmath import dot, normalize
 from ...scene.textures import _mask_texel_opaque, _wrap_uv
-from ...utils.log import logger
 from .. import envmap as envmap_mod
 from .. import graphs as graphs_mod
 from .. import lights as light_mod
@@ -377,19 +376,9 @@ def pt_bands(scene, cam: Camera, frame, bands, *, width: int, height: int,
         raise ValueError("graph=True needs a CUDA device and the BVH's "
                          "pairs switch off")
     args = (scene, cam, frame, bands, width, height, spp, max_len,
-            has_masks, has_bump, compact)
-    if graph:
-        sg = graphs_mod.for_scene(scene)
-        sg.overflow.zero_()
-        film, n_rays = _bands(*args, stats, sg)
-        lost = int(sg.overflow)
-        if lost == 0:
-            return film, n_rays
-        graphs_mod.GRAPH_STATS["reruns"] += 1
-        logger.info("PT frame: %d lanes of the masked re-trace left "
-                    "unresolved under graphs; rendered again on the eager "
-                    "route", lost)
-    return _bands(*args, stats, None)
+            has_masks, has_bump, compact, stats)
+    return graphs_mod.render_frame(scene, graph, lambda sg: _bands(*args, sg),
+                                   "PT frame")
 
 
 def _bands(scene, cam, frame, bands, width, height, spp, max_len, has_masks,

@@ -14,7 +14,8 @@ JAX module (its docstring gives the reason).
 A frame: the light pass in bands of BAND_RAYS paths (sample_emit,
 closest-hit traversal, vertices logged per bounce and appended to the
 collect cache once per band, camera connections splatted once per
-band), then `select_shallowest` down to the working cache capacity and
+band), the collect cache's overflow read once, then `select_shallowest`
+down to the working cache capacity and
 `build_merge_grid`, then the camera pass in bands of BAND_RAYS rays,
 each a lockstep loop of `max_len` bounces (env and emitter hits, NEE
 and vertex connections with one batched any-hit dispatch, merging,
@@ -28,6 +29,21 @@ normalises every light-side estimate, and the collect cache holds every
 vertex a frame can store (`max_len` a path), so the selected cache is
 the same under any band size.
 
+CUDA graphs (the JAX module's compiled band programs, render/graphs.py):
+on a CUDA device every light band replays one captured graph of all its
+bounces, its vertex logging, its sync-free append and its camera
+splat (`light_bands`, JAX's `_vcm_light_band`), and every camera band
+one captured phase of its bounces (`camera_film`: `_vcm_camera_band`,
+or compacted `_vcm_camera_phase1` / `_phase2`), so the bounce index is
+a Python constant in each capture.  The graphs read the frame's
+constants, camera, working cache and photon grid from static copies
+(`FrameInputs.static`); the camera rays, the collect selection, the
+photon grid and the compaction stay eager.  Short bands are padded with
+dead lanes.  The masked re-trace takes its graph-ready form, whose
+overflow counter the frame reads once, at its end; a frame that
+overflowed is rendered again on the eager route.  A frame that records
+merge queries, and the pairs switch's frames, are eager by rule.
+
 Not ported (schedule variants of the same estimator, off by default or
 TPU-only in the JAX package): deferred merging, deferred shadow rays,
 the connect slice, the masked band cap, the windowed hash-grid merge
@@ -36,6 +52,7 @@ route and `debug_light_pass`.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -46,15 +63,18 @@ from ...core.vecmath import dot, normalize
 from ...ops import merge as merge_mod
 from ...scene.textures import sample_bilinear
 from .. import envmap as envmap_mod
+from .. import graphs as graphs_mod
 from .. import lights as light_mod
 from .. import materials as mat_mod
+from .. import traverse as tt
 from ..camera import Camera, raster_to_id, world_to_raster
 from ..film import splat
 from ..intersect import BIG
-from ..light_cache import (append_packed, empty_cache, pack_batch,
+from ..light_cache import (CollectCache, empty_collect, pack_batch,
                            select_shallowest)
 from ..surface import make_interaction
 from ..traverse import any_hit, closest_hit
+from . import pt as pt_mod
 from .pt import (BAND_RAYS, alpha_fn_for, camera_rays, run_bands,
                  use_compact)
 
@@ -131,22 +151,30 @@ def _mis_constants(frame, base_radius, light_path_count: int, algo: str):
 #  Light pass
 # ======================================================================
 
-def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, cache, *,
-                algo, num_pixels, light_path_count, max_len, alpha_fn,
-                has_bump, techniques=TECHNIQUES, path_start=0, band_paths=0):
-    """One band of light paths.  Returns (film (num_pixels, 3) of the
-    light-to-camera connections, cache with the band's vertices
-    appended)."""
+def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, collect,
+                *, algo, num_pixels, light_path_count, max_len, alpha_fn,
+                has_bump, techniques=TECHNIQUES, path_start=0, band_paths=0,
+                path_end=None, overflow=None):
+    """One band of light paths: lane k traces path path_start + k
+    (`path_start` an int or a 0-d int32 tensor).  Returns the film
+    (num_pixels, 3) of its light-to-camera connections and appends its
+    vertices to `collect`, a CollectCache (None for LT), in place.  With
+    `path_end`, the lanes of paths at or past it are padding: dead from
+    the start, they log and splat nothing.  With `overflow`, masked
+    traversal takes the graph-ready re-trace and the band reads nothing
+    on the host (render/graphs.py captures it)."""
     dev = cam.pos.device
     num_lights = scene.lights.kind.shape[0]
     L = band_paths if band_paths > 0 else light_path_count
     pdf_lightpick = 1.0 / num_lights
 
     path_id = path_start + torch.arange(L, dtype=torch.int32, device=dev)
-    state = rng_mod.seed(path_id, frame, LIGHT_SEED)
+    state = rng_mod.seed(path_id, frame, torch.full(
+        (), LIGHT_SEED, dtype=torch.int64, device=dev))
     # Uniform split of the GLOBAL path index over the lights, so banding
-    # never changes which light a path samples.
-    light_idx = (path_id * num_lights) // light_path_count
+    # never changes which light a path samples (clamped for padding).
+    light_idx = torch.clamp((path_id * num_lights) // light_path_count,
+                            max=num_lights - 1)
     state, (u1, u2, u3, u4) = rng_mod.next_floats(state, 4)
     es = light_mod.sample_emit(scene.lights, light_idx, u1, u2, u3, u4,
                                scene.bsphere, scene.env,
@@ -160,13 +188,15 @@ def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, cache, *,
     org, d = es.pos, es.dir
     tmin = torch.full((L,), 1e-3, dtype=torch.float32, device=dev)
     active = (es.pdf_emit_w > 0.0) & torch.any(es.radiance != 0.0, dim=-1)
+    if path_end is not None:
+        active = active & (path_id < path_end)
 
     use_cc = algo != "ppm" and "cam_connect" in techniques
-    use_cache = algo != "lt"
+    use_cache = collect is not None
     vrecs, vstores, cc_rows, cc_pix = [], [], [], []
     for i in range(max_len):
         hit = closest_hit(scene.bvh, org, d, tmin, BIG, alpha_fn=alpha_fn,
-                          active=active, sort=True)
+                          active=active, sort=True, overflow=overflow)
         # Light rays ignore the environment.
         active = active & (hit.prim_id >= 0)
         isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
@@ -196,7 +226,7 @@ def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, cache, *,
             contrib, pix = _connect_to_camera(
                 scene, cam, isect, throughput, d_vc, d_vcm,
                 active & non_spec, mis_eta_vm, light_path_count, algo,
-                alpha_fn)
+                alpha_fn, overflow)
             cc_rows.append(contrib)
             cc_pix.append(pix)
 
@@ -207,17 +237,16 @@ def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, cache, *,
                           last_bounce=(i + 1 >= max_len))
 
     # One splat and one append per band, in (bounce, path) order.
-    if use_cc:
-        film = splat(torch.cat(cc_rows), torch.cat(cc_pix), num_pixels)
-    else:
-        film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
     if use_cache:
-        cache = append_packed(cache, torch.cat(vstores), torch.cat(vrecs))
-    return film, cache
+        collect.append(torch.cat(vstores), torch.cat(vrecs))
+    if use_cc:
+        return splat(torch.cat(cc_rows), torch.cat(cc_pix), num_pixels)
+    return torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
 
 
 def _connect_to_camera(scene, cam, isect, throughput, d_vc, d_vcm, valid,
-                       mis_eta_vm, light_path_count, algo, alpha_fn):
+                       mis_eta_vm, light_path_count, algo, alpha_fn,
+                       overflow=None):
     """Light vertex -> camera connection: (contrib (R, 3), pixel id (R,),
     -1 where nothing lands)."""
     to_cam = cam.pos - isect.pos
@@ -248,7 +277,8 @@ def _connect_to_camera(scene, cam, isect, throughput, d_vc, d_vcm, valid,
 
     offset = dist * 1e-3
     occluded = any_hit(scene.bvh, isect.pos, dir_c, offset, dist - offset,
-                       alpha_fn=alpha_fn, active=valid, sort=True)
+                       alpha_fn=alpha_fn, active=valid, sort=True,
+                       overflow=overflow)
     ok = valid & ~occluded
     return torch.where(ok[..., None], contrib, 0.0), torch.where(ok, pixel, -1)
 
@@ -328,16 +358,17 @@ def _camera_carry(cam: Camera, frame, *, width, height, spp,
                 d_vm=zero1, state=state)
 
 
-def _camera_bounce(scene, c, i, *, cache, cache_rec, grid, pm_radius,
+def _camera_bounce(scene, c, i, *, cache_count, cache_rec, grid, pm_radius,
                    base_radius, mis_eta_vc, mis_eta_vm, algo, max_len,
                    light_path_count, num_connections, has_bump, alpha_fn,
-                   techniques, mat_kinds, record=None):
+                   techniques, mat_kinds, record=None, overflow=None):
     """Camera bounce `i` of every lane of the carry.  The lanes are
     lockstep: every live lane is at bounce `i`, which the first-vertex
     weights, the connections' path length and the last bounce read.
     With `record`, a list, the arguments of the bounce's merge call are
     appended to it.  With "n_rays" in the carry, the bounce adds its
-    traced rays (closest hit + shadow) to it."""
+    traced rays (closest hit + shadow) to it.  `overflow` as in
+    _light_pass."""
     org, d, throughput, active, state = (c["org"], c["d"], c["throughput"],
                                          c["active"], c["state"])
     d_vc, d_vcm, d_vm, radiance = c["d_vc"], c["d_vcm"], c["d_vm"], \
@@ -345,7 +376,7 @@ def _camera_bounce(scene, c, i, *, cache, cache_rec, grid, pm_radius,
     num_lights = scene.lights.kind.shape[0]
     ppm = algo == "ppm"
     hit = closest_hit(scene.bvh, org, d, c["tmin"], BIG, alpha_fn=alpha_fn,
-                      active=active, sort=True)
+                      active=active, sort=True, overflow=overflow)
     rays = [active.sum()] if "n_rays" in c else None
     # --- environment misses -----------------------------------------
     # The template's PT variant weights the first vertex fully, as the
@@ -406,7 +437,7 @@ def _camera_bounce(scene, c, i, *, cache, cache_rec, grid, pm_radius,
     if algo in ("vcm", "bpt"):
         for _ in range(num_connections):
             state = _connect(
-                scene, cache, cache_rec, isect, throughput, d_vc, d_vcm,
+                scene, cache_count, cache_rec, isect, throughput, d_vc, d_vcm,
                 active & non_spec, state, mis_eta_vm, light_path_count,
                 num_connections, max_len, i + 1, base_radius, shadow,
                 enabled="connect" in techniques)
@@ -414,7 +445,8 @@ def _camera_bounce(scene, c, i, *, cache, cache_rec, grid, pm_radius,
         cat = lambda k: torch.cat([s[k] for s in shadow])
         ok_all = cat(4)
         occ = any_hit(scene.bvh, cat(0), cat(1), cat(2), cat(3),
-                      alpha_fn=alpha_fn, active=ok_all, sort=True)
+                      alpha_fn=alpha_fn, active=ok_all, sort=True,
+                      overflow=overflow)
         if rays is not None:
             rays.append(ok_all.sum())
         n = shadow[0][4].shape[0]
@@ -476,13 +508,12 @@ def _direct_illum(scene, isect, throughput, d_vc, d_vcm, active, state,
     return state
 
 
-def _connect(scene, cache, cache_rec, isect, throughput, d_vc, d_vcm, active,
+def _connect(scene, count, cache_rec, isect, throughput, d_vc, d_vcm, active,
              state, mis_eta_vm, light_path_count, num_connections, max_len,
              cam_path_length, base_radius, shadow, enabled=True):
     """One vertex connection per ray to a uniformly picked cached light
-    vertex; appends its shadow ray to `shadow` when `enabled`.  Returns
-    the new state."""
-    count = cache.count
+    vertex (`count` rows of `cache_rec`); appends its shadow ray to
+    `shadow` when `enabled`.  Returns the new state."""
     state, (uc,) = rng_mod.next_floats(state, 1)
     j = torch.minimum((uc * count.to(torch.float32)).to(torch.int32),
                       torch.clamp(count - 1, min=0))
@@ -565,6 +596,144 @@ def frame_constants(cam: Camera, frame, base_radius, *, algo: str,
             *_mis_constants(frame, base_radius, light_path_count, algo))
 
 
+@dataclasses.dataclass
+class FrameInputs:
+    """What a frame's bands read besides the scene: the camera, the
+    frame's constants (frame_constants) and, once the light pass has
+    run, the working cache's row count and packed (C, 24) rows and the
+    photon grid (None where the algorithm has none)."""
+
+    cam: Camera
+    frame: torch.Tensor
+    base_radius: torch.Tensor
+    pm_radius: torch.Tensor
+    mis_eta_vc: torch.Tensor
+    mis_eta_vm: torch.Tensor
+    cache_count: torch.Tensor = None
+    cache_rec: torch.Tensor = None
+    grid: merge_mod.MergeGrid = None
+
+    def static(self, ins) -> "FrameInputs":
+        """The same inputs as the static tensors of `ins`
+        (graphs.StaticInputs), this frame's values copied into them."""
+        held = {}
+        for pre, obj in (("", self), ("cam_", self.cam),
+                         ("grid_", self.grid)):
+            if obj is None:
+                continue
+            names = [f.name for f in dataclasses.fields(obj)
+                     if torch.is_tensor(getattr(obj, f.name))]
+            ins.load(**{pre + n: getattr(obj, n) for n in names})
+            held[pre] = dataclasses.replace(
+                obj, **{n: ins[pre + n] for n in names})
+        return dataclasses.replace(held[""], cam=held["cam_"],
+                                   grid=held.get("grid_"))
+
+
+def use_vcm_graphs(device, bvh, record: bool) -> bool:
+    """Whether a VCM-family frame replays captured light bands and camera
+    phases by default: PT's rule (pt.use_graphs: a CUDA device, the
+    BVH's pairs switch off), and no merge_queries `record` (its bounce-0
+    merge arguments are a band's own tensors, so such a frame is eager by
+    rule)."""
+    return pt_mod.use_graphs(device, bvh) and not record
+
+
+def resolve_graph(graph, device, bvh, record: bool) -> bool:
+    """`graph` resolved: None -> use_vcm_graphs; True where graphs cannot
+    run raises."""
+    if graph is None:
+        return use_vcm_graphs(device, bvh, record)
+    if graph and not use_vcm_graphs(device, bvh, record):
+        raise ValueError("graph=True needs a CUDA device, the BVH's pairs "
+                         "switch off and no merge_queries record")
+    return graph
+
+
+def statics_key(width, height, light_path_count, max_len, collect_capacity,
+                 cache_capacity) -> tuple:
+    """The key of a frame shape's static inputs in the scene's graphs; it
+    leads the key of every graph that reads them."""
+    return ("vcm", width, height, light_path_count, max_len,
+            collect_capacity, cache_capacity)
+
+
+def frame_collect(sg, key, capacity: int, device) -> CollectCache:
+    """An empty collect cache of `capacity` rows: a new one, or with `sg`
+    (the scene's SceneGraphs) the static one of `key`, emptied."""
+    if sg is None:
+        return empty_collect(capacity, device)
+    ins = sg.inputs(key)
+    if "collect_rec" not in ins:
+        c = empty_collect(capacity, device)
+        ins.update(collect_rec=c.rec, collect_count=c.count,
+                   collect_lost=c.lost)
+    c = CollectCache(ins["collect_rec"], ins["collect_count"],
+                     ins["collect_lost"])
+    for t in (c.rec, c.count, c.lost):
+        t.zero_()
+    return c
+
+
+def _args_key(kw) -> tuple:
+    """The hashable arguments of a band function (its alpha_fn stands in
+    as its presence)."""
+    return tuple(sorted((k, v if k != "alpha_fn" else v is not None)
+                        for k, v in kw.items()))
+
+
+def light_bands(scene, fi: FrameInputs, collect, *, sg, key, lanes: int,
+                **kw):
+    """band(start, n) -> the light film (num_pixels, 3) of paths [start,
+    start + n), their vertices appended to `collect`; n <= `lanes`.
+    Eager (`sg` None): one _light_pass a band.  Graphed: one replay of
+    the scene's light graph of `lanes` lanes (JAX's `_vcm_light_band`)
+    over `fi`'s static inputs, a short band padded with dead lanes; its
+    film is the graph's static buffer, to be read before the next band.
+    `kw`: _light_pass's keyword arguments."""
+    if sg is None:
+        return lambda start, n: _light_pass(
+            scene, fi.cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm, collect,
+            path_start=start, band_paths=n, **kw)
+    ins = sg.inputs(key)
+    dev = fi.frame.device
+    if "light_film" not in ins:
+        ins.update(light_film=torch.zeros((kw["num_pixels"], 3),
+                                          dtype=torch.float32, device=dev),
+                   path_start=torch.zeros((), dtype=torch.int32, device=dev),
+                   path_end=torch.zeros((), dtype=torch.int32, device=dev))
+    state = {"film": ins["light_film"]}
+    if collect is not None:
+        state.update(rec=collect.rec, count=collect.count, lost=collect.lost)
+
+    def step(st, overflow):
+        col = (CollectCache(st["rec"], st["count"], st["lost"])
+               if "rec" in st else None)
+        st["film"].copy_(_light_pass(
+            scene, fi.cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm, col,
+            path_start=ins["path_start"], band_paths=lanes,
+            path_end=ins["path_end"], overflow=overflow, **kw))
+
+    gkey = key + ("light", lanes, _args_key(kw),
+                  tt.graph_route(scene.bvh, kw["alpha_fn"] is not None))
+
+    def band(start, n):
+        ins["path_start"].fill_(start)
+        ins["path_end"].fill_(start + n)
+        sg.phase(gkey, step, state).replay()
+        return ins["light_film"]
+    return band
+
+
+def working_cache(fi: FrameInputs, cache, grid, sg, key) -> FrameInputs:
+    """`fi` with the working cache's count and rows and the photon grid
+    (static copies with `sg`)."""
+    fi = dataclasses.replace(
+        fi, grid=grid, cache_count=None if cache is None else cache.count,
+        cache_rec=None if cache is None else cache.packed())
+    return fi if sg is None else fi.static(sg.inputs(key))
+
+
 def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                      algo: str = "vcm", width: int = 512, height: int = 512,
                      spp: int = 1, max_len: int = 10,
@@ -573,7 +742,7 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                      has_bump: bool = False, techniques: tuple = TECHNIQUES,
                      mat_kinds: tuple = None, light_band: int = BAND_RAYS,
                      camera_band: int = BAND_RAYS, stats: dict = None,
-                     compact: bool = None):
+                     compact: bool = None, graph: bool = None):
     """One progressive VCM-family frame; returns the un-normalised
     (H*W, 3) film (divide by frames * spp for display).  `frame` is the
     frame number (Python int or integer tensor), `base_radius` the
@@ -596,61 +765,77 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
     `light_band` / `camera_band` are the band sizes (estimator-neutral).
     `compact`: mid-frame compaction of the camera pass (None:
     `use_vcm_compact`, on for a CUDA device and more than one band).
+    `graph`: the light bands and camera phases replay captured graphs
+    (render/graphs.py; None: `use_vcm_graphs`, on for a CUDA device;
+    True where graphs cannot run raises); a failed capture raises, and a
+    graphed frame whose masked re-trace overflowed is rendered again on
+    the eager route, counted in graphs.GRAPH_STATS["reruns"] and logged.
     With `stats`, a dict, it records the collected and kept vertex
     counts ("collected", "cache") and the photon count ("photons"); if
     it holds a list under "merge_queries", each camera band appends the
     arguments of its camera bounce-1 merge call (merge_contrib's, by
-    name) to it, and if it holds a dict under "route", camera_film
-    records the camera pass's rays and band counts there."""
+    name) to it (such a frame is eager), and if it holds a dict under
+    "route", camera_film records the camera pass's rays and band counts
+    there."""
     dev = cam.pos.device
     num_pixels = width * height
+    record = stats is not None and "merge_queries" in stats
+    graph = resolve_graph(graph, dev, scene.bvh, record)
     (frame, base_radius, light_path_count, cache_capacity, pm_radius,
      mis_eta_vc, mis_eta_vm) = frame_constants(
         cam, frame, base_radius, algo=algo, num_pixels=num_pixels,
         light_path_count=light_path_count, max_len=max_len)
     alpha_fn = alpha_fn_for(scene) if has_masks else None
+    inputs = FrameInputs(cam, frame, base_radius, pm_radius, mis_eta_vc,
+                         mis_eta_vm)
+    # The collect cache holds every vertex a frame can store (one a path
+    # per bounce), so nothing is dropped before the selection.
+    collect_capacity = light_path_count * max_len
+    key = statics_key(width, height, light_path_count, max_len,
+                       collect_capacity, cache_capacity)
 
-    film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
-    cache = cache_rec = grid = None
-    if algo != "pt":
-        # The collect cache holds every vertex a frame can store (one a
-        # path per bounce), so nothing is dropped before the selection.
-        collect = (empty_cache(light_path_count * max_len, dev)
-                   if algo != "lt" else None)
-        for start in range(0, light_path_count, light_band):
-            bp = min(light_band, light_path_count - start)
-            light_film, collect = _light_pass(
-                scene, cam, frame, mis_eta_vc, mis_eta_vm, collect, algo=algo,
+    def render(sg):
+        fi = inputs if sg is None else inputs.static(sg.inputs(key))
+        film = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
+        cache = grid = None
+        if algo != "pt":
+            collect = (frame_collect(sg, key, collect_capacity, dev)
+                       if algo != "lt" else None)
+            band = light_bands(
+                scene, fi, collect, sg=sg, key=key,
+                lanes=min(light_band, light_path_count), algo=algo,
                 num_pixels=num_pixels, light_path_count=light_path_count,
                 max_len=max_len, alpha_fn=alpha_fn, has_bump=has_bump,
-                techniques=techniques, path_start=start, band_paths=bp)
-            film = film + light_film
-        film = film * float(spp)
-        if collect is not None:
-            # Canonical (path, bounce) layout of the shallowest vertices:
-            # the same set and order under any band schedule.
-            cache = select_shallowest(collect, cache_capacity)
-            cache_rec = cache.packed()
-            if stats is not None:
-                stats["collected"] = collect.count
-                stats["cache"] = cache.count
-            del collect
-        if algo in ("vcm", "ppm"):
-            grid = photon_grid(cache, pm_radius, stats)
-
-    if algo != "lt":
+                techniques=techniques)
+            for start in range(0, light_path_count, light_band):
+                film = film + band(start, min(light_band,
+                                              light_path_count - start))
+            film = film * float(spp)
+            if collect is not None:
+                collect.check()
+                # Canonical (path, bounce) layout of the shallowest
+                # vertices: the same set and order under any band schedule.
+                cache = select_shallowest(collect.cache(), cache_capacity)
+                if stats is not None:
+                    stats["collected"] = collect.count.clone()
+                    stats["cache"] = cache.count.clone()
+                del collect
+            if algo in ("vcm", "ppm"):
+                grid = photon_grid(cache, pm_radius, stats)
+        if algo == "lt":
+            return film
         band = max(1, camera_band // max(spp, 1))
         bands = [(start, min(band, num_pixels - start))
                  for start in range(0, num_pixels, band)]
-        film = film + camera_film(
-            scene, cam, frame, cache, cache_rec, grid, pm_radius,
-            base_radius, mis_eta_vc, mis_eta_vm, bands, stats=stats,
-            algo=algo, width=width, height=height, spp=spp, max_len=max_len,
-            light_path_count=light_path_count,
+        return film + camera_film(
+            scene, working_cache(fi, cache, grid, sg, key), bands,
+            stats=stats, algo=algo, width=width, height=height, spp=spp,
+            max_len=max_len, light_path_count=light_path_count,
             num_connections=num_connections, has_bump=has_bump,
             alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds,
-            compact=compact)
-    return film
+            compact=compact, sg=sg, key=key)
+
+    return graphs_mod.render_frame(scene, graph, render, "VCM frame")
 
 
 def photon_grid(cache, pm_radius, stats=None):
@@ -665,17 +850,26 @@ def photon_grid(cache, pm_radius, stats=None):
     return grid
 
 
-def camera_film(scene, cam, frame, cache, cache_rec, grid, pm_radius,
-                base_radius, mis_eta_vc, mis_eta_vm, bands, *, stats, width,
-                height, spp, max_len, light_path_count, compact=None, **kw):
+def camera_film(scene, fi: FrameInputs, bands, *, stats, width, height, spp,
+                max_len, light_path_count, compact=None, sg=None, key=(),
+                **kw):
     """The camera pass over `bands`, (start_pixel, pixels) pairs of
     consecutive pixels, concatenated in order: (sum of pixels, 3).
     `compact`: mid-frame lane compaction (None: use_vcm_compact on the
-    camera's device).  `stats`, a dict or None: if it holds a list under
-    "merge_queries", each band appends the arguments of its bounce-1
-    merge call to it; if it holds a dict under "route", the pass records
-    there its traced rays ("camera_rays": closest hit + shadow) and
-    pt.run_bands' counts of lanes and band-bounces."""
+    camera's device).  `sg`, the scene's SceneGraphs, or None for the
+    eager route: each band replays one captured phase of its bounces over
+    `fi`'s static inputs (JAX's `_vcm_camera_band`; compacted, one graph
+    for bounces [0, depth0) and one for [depth0, max_len), JAX's
+    `_vcm_camera_phase1` / `_phase2`), of the widest band's lanes, the
+    others padded with dead lanes; `key` leads the graphs' keys.
+    `stats`, a dict or None: if it holds a list under "merge_queries"
+    (eager only), each band appends the arguments of its bounce-1 merge
+    call to it; if it holds a dict under "route", the pass records there
+    its traced rays ("camera_rays": closest hit + shadow) and
+    pt.run_bands' counts of lanes and band-bounces.  `kw`:
+    _camera_bounce's algo, num_connections, has_bump, alpha_fn,
+    techniques and mat_kinds."""
+    cam = fi.cam
     dev = cam.pos.device
     if not bands:
         return torch.zeros((0, 3), dtype=torch.float32, device=dev)
@@ -684,37 +878,69 @@ def camera_film(scene, cam, frame, cache, cache_rec, grid, pm_radius,
     depth0 = vcm_compact_depth(max_len) if compact else max_len
     record = stats.get("merge_queries") if stats is not None else None
     route = stats.get("route") if stats is not None else None
+    if record is not None and sg is not None:
+        raise ValueError("merge_queries records an eager camera pass only")
     bounce = functools.partial(
-        _camera_bounce, scene, cache=cache, cache_rec=cache_rec, grid=grid,
-        pm_radius=pm_radius, base_radius=base_radius, mis_eta_vc=mis_eta_vc,
-        mis_eta_vm=mis_eta_vm, max_len=max_len,
+        _camera_bounce, scene, cache_count=fi.cache_count,
+        cache_rec=fi.cache_rec, grid=fi.grid, pm_radius=fi.pm_radius,
+        base_radius=fi.base_radius, mis_eta_vc=fi.mis_eta_vc,
+        mis_eta_vm=fi.mis_eta_vm, max_len=max_len,
         light_path_count=light_path_count, **kw)
     counts = []
 
+    def carry0(start, n):
+        return _camera_carry(cam, fi.frame, width=width, height=height,
+                             spp=spp, light_path_count=light_path_count,
+                             start_pixel=start, band_pixels=n)
+
     def counted(c):
-        if route is None:
-            return c
         return dict(c, n_rays=torch.zeros((), dtype=torch.int64, device=dev))
 
-    def tally(c):
-        if route is not None:
-            counts.append(c.pop("n_rays"))
-        return c
+    if sg is None:
+        def tally(c):
+            if route is not None:
+                counts.append(c.pop("n_rays"))
+            return c
 
-    def phase1(start, n):
-        c = counted(_camera_carry(
-            cam, frame, width=width, height=height, spp=spp,
-            light_path_count=light_path_count, start_pixel=start,
-            band_pixels=n))
-        for i in range(depth0):
-            c = bounce(c, i, record=record if i == 0 else None)
-        return tally(c)
+        def phase1(start, n):
+            c = carry0(start, n)
+            c = counted(c) if route is not None else c
+            for i in range(depth0):
+                c = bounce(c, i, record=record if i == 0 else None)
+            return tally(c)
 
-    def phase2(c):
-        c = counted(c)
-        for i in range(depth0, max_len):
-            c = bounce(c, i)
-        return tally(c)
+        def phase2(c):
+            c = counted(c) if route is not None else c
+            for i in range(depth0, max_len):
+                c = bounce(c, i)
+            return tally(c)
+    else:
+        lanes = max(n for _, n in bands) * spp
+        gkey = key + ("camera", lanes, spp, max_len, light_path_count,
+                      _args_key(kw),
+                      tt.graph_route(scene.bvh, kw["alpha_fn"] is not None))
+
+        def run(c, a, b):
+            def step(carry, overflow):
+                for i in range(a, b):
+                    carry = bounce(carry, i, overflow=overflow)
+                return carry
+            g = sg.bounce(gkey + (a, b), step, counted(c), lanes)
+            g.load(c)
+            g.replay()
+            counts.append(g.carry["n_rays"].clone())
+            return g.carry
+
+        def phase1(start, n):
+            c = run(carry0(start, n), 0, depth0)
+            if not compact:
+                return {"radiance": c["radiance"][:n * spp]}
+            return {k: v[:n * spp].clone() for k, v in c.items()
+                    if k != "n_rays"}
+
+        def phase2(c):
+            n = c["active"].shape[0]
+            return {"radiance": run(c, depth0, max_len)["radiance"][:n]}
 
     film = run_bands(bands, spp=spp, width=width, max_len=max_len,
                      depth0=depth0, compact=compact, phase1=phase1,

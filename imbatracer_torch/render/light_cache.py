@@ -1,17 +1,22 @@
 """Light-path vertex cache (torch twin of imbatracer_tpu.render.
 light_cache): SoA, fixed capacity, on the cache's device.
 
-The light pass appends its stored vertices in bulk (`append_packed`:
-slots by an exclusive prefix sum over the valid mask, so the order is
-deterministic).  Each vertex keeps what re-evaluating its BSDF at
-connection time needs (position, outgoing direction, shading and
-geometric normals, uv, material id) plus throughput and the dVC / dVCM /
-dVM partial MIS weights.
+The light pass appends its stored vertices in bulk, in the JAX module's
+form: slots by an exclusive prefix sum over the valid mask, so the order
+is deterministic, and one scatter of the rows into the packed record
+buffer of the frame's collect cache (`CollectCache.append`), in place
+and with no host read, so a CUDA graph can hold it.  Each vertex keeps
+what re-evaluating its BSDF at connection time needs (position,
+outgoing direction, shading and geometric normals, uv, material id)
+plus throughput and the dVC / dVCM / dVM partial MIS weights.
 
-Unlike the JAX module, an append that does not fit raises instead of
-dropping the rows past the capacity: the renderer sizes its collect
-cache to hold every vertex a frame can store (vcm.py) and selects the
-working set with `select_shallowest`, so nothing is lost silently.
+Unlike the JAX module, a cache that overflows raises instead of dropping
+the rows past the capacity silently: the rows that did not fit go to a
+trash row and are counted on the device (`lost`), and the frame reads
+that count once, after its light pass (`CollectCache.check`).  The
+renderer sizes its collect cache to hold every vertex a frame can store
+(vcm.py) and selects the working set with `select_shallowest`, so
+nothing is lost.
 """
 
 from __future__ import annotations
@@ -101,20 +106,63 @@ def pack_batch(pos, w_out, normal, gn, uv, mat_id, throughput, d_vc, d_vcm,
                                     device=pos.device)], dim=1)
 
 
+@dataclass
+class CollectCache(TensorData):
+    """A cache appended in place: packed rows, a row count and a count of
+    the rows that did not fit, all on the device."""
+
+    rec: torch.Tensor     # (C + 1, 24) packed rows; row C is the trash row
+    count: torch.Tensor   # () i32 rows appended
+    lost: torch.Tensor    # () i32 rows that did not fit
+
+    @property
+    def capacity(self) -> int:
+        return self.rec.shape[0] - 1
+
+    def append(self, valid, rows: torch.Tensor):
+        """Append the `valid` rows of a packed (N, 24) batch in batch
+        order after the current rows, with no host read: each valid row
+        goes to slot count + (valid rows before it), a row past the
+        capacity to the trash row, where it adds to `lost`."""
+        cap = self.capacity
+        v = valid.to(torch.int32)
+        slot = self.count + (torch.cumsum(v, 0, dtype=torch.int32) - v)
+        target = torch.where(valid & (slot < cap), slot, cap)
+        self.rec.index_copy_(0, target.long(), rows)
+        total = self.count + v.sum(dtype=torch.int32)
+        self.lost.add_(torch.clamp(total - cap, min=0))
+        self.count.copy_(torch.clamp(total, max=cap))
+
+    def check(self):
+        """Raise if rows did not fit (one host read)."""
+        lost = int(self.lost)
+        if lost:
+            raise RuntimeError(
+                f"light vertex cache overflow: {lost} vertices did not fit "
+                f"its capacity of {self.capacity}")
+
+    def cache(self) -> LightVertexCache:
+        return _from_rec(self.rec[:-1], self.count)
+
+
+def empty_collect(capacity: int, device) -> CollectCache:
+    z = lambda: torch.zeros((), dtype=torch.int32, device=device)
+    return CollectCache(torch.zeros((capacity + 1, REC_W),
+                                    dtype=torch.float32, device=device),
+                        z(), z())
+
+
 def append_packed(cache: LightVertexCache, valid,
                   rec: torch.Tensor) -> LightVertexCache:
     """Append the `valid` rows of a packed (N, 24) record batch in batch
-    order after the cache's current rows.  Raises if they do not fit (one
-    host sync for the count)."""
-    add = int(valid.sum())
-    count = int(cache.count)
-    if count + add > cache.capacity:
-        raise RuntimeError(
-            f"light vertex cache overflow: {count} + {add} vertices do not "
-            f"fit its capacity of {cache.capacity}")
+    order after the cache's current rows (CollectCache.append on a copy
+    of the cache).  Raises if they do not fit (one host read)."""
     full = cache.packed()
-    full[count:count + add] = rec[valid]
-    return _from_rec(full, cache.count + add)
+    collect = CollectCache(torch.cat([full, full[:1]]), cache.count.clone(),
+                           torch.zeros_like(cache.count))
+    collect.append(valid, rec)
+    collect.check()
+    return collect.cache()
 
 
 def append(cache: LightVertexCache, valid, pos, w_out, normal, gn, uv,

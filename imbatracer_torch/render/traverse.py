@@ -29,7 +29,7 @@ keep their order and each dispatch sorts its live lanes as the eager
 loop's subset does).  Lanes still unresolved after the last round,
 and lanes past the slots, are added to `overflow`, a device int32
 counter that the caller reads once a frame; a frame that overflowed is
-rendered again on the eager route (render/integrators/pt.py).  With no
+rendered again on the eager route (render/graphs.py).  With no
 overflow both forms return the same hits bit for bit.  CUDA graphs
 capture the graph-ready form only.
 """
@@ -54,13 +54,15 @@ MASK_MAX_ROUNDS = 4096
 # dispatches, the first included, on a two-level one) and the share of
 # a dispatch's lanes it carries past its first round (one in *_SLOT_DIV,
 # at least one 128-ray block).  The rounds are the most any masked
-# dispatch of chip_smoke.py's eager frames needed (MASK_STATS
-# "max_rounds"); the slots hold several times the most lanes one
+# dispatch of chip_smoke.py's eager PT and VCM frames needed (MASK_STATS
+# "max_rounds": 2 on the still life; 9 for the instanced scene's PT
+# frames, 11 for the shadow and connection rays of its VCM frames, one
+# more kept in hand); the slots hold several times the most lanes one
 # carried past its first round ("max_lanes": 1 of 262,144 on the still
-# life, 21,816 on the instanced scene); PERF.md names the run.
+# life, 21,816 on the instanced scene); PERF.md names the runs.
 KHIT_ROUNDS = 2
 KHIT_SLOT_DIV = 256
-RETRACE_ROUNDS = 9
+RETRACE_ROUNDS = 12
 RETRACE_SLOT_DIV = 4
 
 # Below this super-chunk count the pair queue's sorts cost more than the

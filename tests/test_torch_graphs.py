@@ -6,9 +6,10 @@ bands, keys, launch deltas, the overflow counter and the eager rerun)
 runs as it does on the card.
 
 * The sync-free re-trace on the stacked masked layers of
-  tests/test_torch_masks.py (1, 6 and 10 layers: more than the
-  KHIT_ROUNDS * K layers khit resolves and the RETRACE_ROUNDS - 1 the
-  two-level re-trace does), over a flat BVH (khit) and a two-level one:
+  tests/test_torch_masks.py (1, 6, 10 and 12 layers: 6 and more are
+  more than the KHIT_ROUNDS * K layers khit resolves, 12 more than the
+  RETRACE_ROUNDS - 1 the two-level re-trace does), over a flat BVH
+  (khit) and a two-level one:
   hits and occlusion flags equal to the eager route's bit for bit, and
   to JAX's masked traversal as test_masked_traversal_matches_jax holds
   them (t within 1e-5 relative, ids and flags equal), wherever the
@@ -35,7 +36,6 @@ runs as it does on the card.
   size check, and graph=True refused where graphs cannot run.
 """
 
-import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -63,113 +63,10 @@ from imbatracer_torch.scene.build import build_scene
 from imbatracer_torch.scene.generate import write_instanced_scene
 from imbatracer_torch.scene.procedural import make_still_life_like
 from test_torch_masks import _layers
+from torch_graph_guard import HostRead, no_sync, standin  # noqa: F401
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
-
-
-class StandInGraph:
-    """The graph object on the CPU: capture() runs the bounce once, as a
-    capture runs its Python, and puts back the tensors it wrote, as a
-    capture launches nothing; replay() runs it again with the launch
-    counters held, as a replay ticks none of them."""
-
-    def __init__(self, device, pool):
-        self.fn = None
-
-    def capture(self, fn, state):
-        saved = [t.clone() for t in state]
-        fn()
-        for t, s in zip(state, saved):
-            t.copy_(s)
-        self.fn = fn
-
-    def replay(self):
-        before = graphs._snapshot()
-        self.fn()
-        for c, b in zip(graphs._counters(), before):
-            c.update(b)
-
-
-@pytest.fixture
-def standin(monkeypatch):
-    monkeypatch.setattr(graphs, "make_graph", StandInGraph)
-    monkeypatch.setattr(tpt, "use_graphs", lambda dev, bvh: not bvh.pairs)
-    graphs.reset_stats()
-
-
-# --------------------------------------------------------------------------
-# The no-sync guard
-# --------------------------------------------------------------------------
-
-class HostRead(AssertionError):
-    pass
-
-
-_GUARD = {"on": False}
-
-
-@contextlib.contextmanager
-def _lifted():
-    was = _GUARD["on"]
-    _GUARD["on"] = False
-    try:
-        yield
-    finally:
-        _GUARD["on"] = was
-
-
-def _bool_index(idx):
-    items = idx if isinstance(idx, tuple) else (idx,)
-    return any(torch.is_tensor(i) and i.dtype == torch.bool and i.dim() > 0
-               for i in items)
-
-
-@contextlib.contextmanager
-def no_sync(monkeypatch):
-    """Raise HostRead on any host read of a tensor and on any tensor made
-    from host data while the body runs; the kernel wrappers (st.traverse,
-    kh.khit), which launch one kernel each on the card, run unguarded."""
-    T = torch.Tensor
-
-    def refuse(name, orig):
-        def f(*a, **k):
-            if _GUARD["on"]:
-                raise HostRead(name)
-            return orig(*a, **k)
-        return f
-
-    for name in ("__bool__", "__int__", "__float__", "item", "tolist",
-                 "numpy", "nonzero"):
-        monkeypatch.setattr(T, name, refuse(name, getattr(T, name)))
-    for name in ("tensor", "as_tensor"):
-        orig = getattr(torch, name)
-
-        def make(data, *a, _orig=orig, _name=name, **k):
-            if _GUARD["on"] and not torch.is_tensor(data):
-                raise HostRead(f"torch.{_name} of host data")
-            return _orig(data, *a, **k)
-        monkeypatch.setattr(torch, name, make)
-    for name in ("__getitem__", "__setitem__"):
-        orig = getattr(T, name)
-
-        def index(self, idx, *a, _orig=orig, _name=name):
-            if _GUARD["on"] and _bool_index(idx):
-                raise HostRead(f"boolean-mask {_name}")
-            return _orig(self, idx, *a)
-        monkeypatch.setattr(T, name, index)
-    for mod, name in ((st, "traverse"), (kh, "khit")):
-        orig = getattr(mod, name)
-
-        def kernel(*a, _orig=orig, **k):
-            with _lifted():
-                return _orig(*a, **k)
-        monkeypatch.setattr(mod, name, kernel)
-    _GUARD["on"] = True
-    try:
-        yield
-    finally:
-        _GUARD["on"] = False
 
 
 # --------------------------------------------------------------------------
@@ -228,7 +125,7 @@ def _stack_rays(layers, n=64):
 
 
 @pytest.mark.parametrize("two_level", [False, True])
-@pytest.mark.parametrize("layers", [1, 6, 10])
+@pytest.mark.parametrize("layers", [1, 6, 10, 12])
 def test_graph_ready_retrace_matches_eager_and_jax(layers, two_level,
                                                    monkeypatch):
     jbvh, flat, jalpha, talpha = _layers(layers)

@@ -853,3 +853,53 @@ def test_cuda_graph_films_equal_eager(cuda_device, masked):
         pt.render_pt_frame(scene, cam, 2, *size, graph=False, **kw)
         assert graphed_counts[0] == dict(st.LAUNCHES)
         assert st.LAUNCHES["closest_hit"] == stats["band_bounces"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,masked", [("vcm", False), ("vcm", True),
+                                         ("bpt", True), ("lt", False)])
+def test_cuda_vcm_graph_films_equal_eager(cuda_device, algo, masked):
+    """The VCM family at 64x64 with 1,000 light paths in bands of 384
+    (the last padded) and camera bands of 1,500 pixels (compacted on the
+    card), on the default route (captured light bands and camera phases)
+    and graph=False: film means within 1e-6 relative and >= 99.9% of
+    pixels within 1e-5 relative (the light splat adds with atomics),
+    traced rays equal, no rerun; a graphed frame counts the eager
+    frame's merge launches."""
+    from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.render import graphs
+    from imbatracer_torch.render.camera import make_camera
+    from imbatracer_torch.render.integrators import vcm
+    from imbatracer_torch.scene.procedural import (make_cornell_scene,
+                                                   make_masked_scene)
+
+    scene, meta = (make_masked_scene if masked else make_cornell_scene)(
+        device=cuda_device)
+    cam = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, 64, 64, 60.0,
+                      device=cuda_device)
+    kinds = tuple(sorted(set(scene.materials.kind.tolist())))
+    assert vcm.use_vcm_graphs(cuda_device, scene.bvh, False)
+
+    def frame(f, graph):
+        mg.reset_launches()
+        route = {}
+        film = vcm.render_vcm_frame(
+            scene, cam, f, 0.05, algo=algo, width=64, height=64, max_len=6,
+            light_path_count=1000, has_masks=meta.has_masks,
+            mat_kinds=kinds, light_band=384, camera_band=1500,
+            stats={"route": route}, graph=graph)
+        torch.cuda.synchronize()
+        return film.double(), int(route.get("camera_rays", 0)), dict(
+            mg.LAUNCHES)
+
+    graphs.reset_stats()
+    frame(0, None)                                # captures
+    for f in (1, 2):
+        (ef, en, el), (gf, gn, gl) = frame(f, False), frame(f, None)
+        assert float(ef.mean()) > 0.0
+        assert abs(float(gf.mean() - ef.mean())) <= 1e-6 * float(ef.mean())
+        rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-3)).amax(dim=1)
+        assert float((rel <= 1e-5).double().mean()) >= 0.999
+        assert gn == en and gl == el
+    assert graphs.GRAPH_STATS["reruns"] == 0
+    assert graphs.GRAPH_STATS["replays"] > 0

@@ -87,14 +87,15 @@ def _port_collect(scene, cam, lpc, max_len, band):
 
     pm = torch.tensor(0.05)
     eta = tvcm.PI * pm * pm * lpc
-    cache = tlc.empty_cache(lpc * max_len, "cpu")
+    collect = tlc.empty_collect(lpc * max_len, "cpu")
     for start in range(0, lpc, band):
-        _, cache = tvcm._light_pass(
-            scene, cam, 0, 1.0 / eta, eta, cache, algo="vcm",
+        tvcm._light_pass(
+            scene, cam, 0, 1.0 / eta, eta, collect, algo="vcm",
             num_pixels=cam.width * cam.height, light_path_count=lpc,
             max_len=max_len, alpha_fn=None, has_bump=False,
             path_start=start, band_paths=min(band, lpc - start))
-    return cache
+    collect.check()
+    return collect.cache()
 
 
 def test_selection_is_band_invariant_and_matches_jax():

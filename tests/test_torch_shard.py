@@ -210,13 +210,14 @@ def _collect(ts, cam, algo, path_ranges, capacity, lpc):
     """A collect cache of the light passes over `path_ranges`."""
     pm, evc, evm = tvcm._mis_constants(torch.tensor(FRAME), torch.tensor(
         RADIUS), lpc, algo)
-    cache = tlc.empty_cache(capacity, "cpu")
+    collect = tlc.empty_collect(capacity, "cpu")
     for start, n in path_ranges:
-        _, cache = tvcm._light_pass(
-            ts, cam, torch.tensor(FRAME), evc, evm, cache, algo=algo,
+        tvcm._light_pass(
+            ts, cam, torch.tensor(FRAME), evc, evm, collect, algo=algo,
             num_pixels=W * W, light_path_count=lpc, max_len=MAX_LEN,
             alpha_fn=None, has_bump=False, path_start=start, band_paths=n)
-    return cache
+    collect.check()
+    return collect.cache()
 
 
 @pytest.mark.parametrize("world", [2, 3])

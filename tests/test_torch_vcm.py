@@ -237,11 +237,13 @@ def test_light_pass_raises_on_a_cache_too_small(scenes):
     cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, 16, 16, 60.0,
                   device="cpu")
     eta = torch.tensor(100.0)
+    collect = tlc.empty_collect(LPC // 4, "cpu")
+    tvcm._light_pass(ts, cam, 0, 1.0 / eta, eta, collect, algo="vcm",
+                     num_pixels=256, light_path_count=LPC, max_len=MAX_LEN,
+                     alpha_fn=None, has_bump=False)
+    assert int(collect.count) == LPC // 4 and int(collect.lost) > 0
     with pytest.raises(RuntimeError, match="overflow"):
-        tvcm._light_pass(ts, cam, 0, 1.0 / eta, eta,
-                         tlc.empty_cache(LPC // 4, "cpu"), algo="vcm",
-                         num_pixels=256, light_path_count=LPC,
-                         max_len=MAX_LEN, alpha_fn=None, has_bump=False)
+        collect.check()
 
 
 def test_engine_runs_every_algorithm(scenes):
