@@ -244,6 +244,30 @@ failure raises and the script exits non-zero:
    frame on the card (the pairs switch's frames of phase 8c, and phase
    7a's warm-up frame that records merge queries, eager by rule; phase
    7a runs one more warm-up frame for the captures).
+15. Entry points (after phase 14, before the output), each part with the
+   launch counters and graph counts zeroed just before it and read just
+   after, its files under results/phase15/.  (a) imbatracer_torch.
+   bench.main() in this process, stdout captured: its last line must be
+   {"metric": "pt_megastep_throughput_cornell_1024", "value" > 0, "unit":
+   "Mrays/s", "card"} with no vs_baseline, both secondaries (big_4000
+   and the still life, ms/frame) written with values > 0, the stream and
+   khit kernels launched, no plain version run and no frame rendered
+   again; the headline printed beside phase 5b's cornell Mrays/s and the
+   still life beside phase 5c's ms/frame, not compared.  (b)
+   tools.run_bench.run_one on config 2 (still_life_pt_1080p) in curve
+   mode, a sample every frame, CURVE_SECONDS: its PSNR against
+   goldens/still_life_1080p_len8.png at frames 1-21 within PSNR_TOL of the
+   JAX renderer's tracked curve (results/curves_r5/
+   curve_still_life_pt_1080p.csv, its frame and PSNR columns).  (c)
+   run_bench.main() with --proxies on configs 1, 3, 4 and 5 (config 5 on
+   gen:card), PROXY_SECONDS each: every row without an error, config 4
+   launching the merge kernel and config 5 the instanced stream and
+   merge kernels, no plain version run, no frame rendered again (the
+   counters' and the row's graph_reruns both 0).  (d)
+   --selfcheck-instances at 512^2 on gen:card, PROXY_SECONDS: the gate
+   must be PASS (PSNR >= 40 dB between the two-level and the flattened
+   route); its reruns are printed, not gated: it is no timed cell, and
+   its 512^2 two-level PT frames rerun as phase 8d's do.
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
@@ -262,6 +286,7 @@ directory of its own, removed at the end.
 """
 
 import contextlib
+import csv
 import dataclasses
 import faulthandler
 import io
@@ -446,14 +471,6 @@ def log(msg):
 def phase(what):
     """Log the start of a phase with the seconds since the script began."""
     log(f"[phase] {what} at {time.time() - _START:.1f} s")
-
-
-def card_line():
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-        check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -2713,6 +2730,161 @@ def vcm_graph_phase(dev, card, scenes):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 15: the measuring entry points (imbatracer_torch.bench and
+# imbatracer_torch.tools.run_bench).
+ENTRY_OUT = os.path.join(ROOT, "results", "phase15")
+CURVE_SECONDS = 20.0          # 15b: the still-life curve's budget
+CURVE_FRAMES = 21             # JAX's tracked curve holds frames 1-21
+CURVE_JAX = os.path.join(ROOT, "results", "curves_r5",
+                         "curve_still_life_pt_1080p.csv")
+PROXY_SECONDS = 10.0          # 15c and 15d: budget a run
+PROXY_CONFIGS = (             # 15c: BASELINE configs 1, 3, 4 and 5
+    ("still_life_pt_512_16spp", ()),
+    ("still_life_bpt_1080p", ()),
+    ("still_life_ppm_1M", ("merge",)),
+    ("instances_vcm_1080p", ("closest_hit_instanced", "any_hit_instanced",
+                             "merge")),
+)
+
+
+def nonzero(got):
+    return {k: v for k, v in got.items() if v}
+
+
+def read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def bench_entry(card, cornell_mrays, sl_ms):
+    """15a: bench.main() in this process, stdout captured, the launch
+    counters and graph counts zeroed just before and read just after;
+    the card's clock, power and temperature sampled beside it."""
+    from imbatracer_torch import bench
+    from imbatracer_torch.device import smi_query
+
+    def gpu_state():
+        return smi_query("cuda", "clocks.sm,power.draw,temperature.gpu")
+
+    buf = io.StringIO()
+    state = gpu_state()
+    reset_counters()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--out-dir", ENTRY_OUT])
+    got = counters()
+    log(f"[entry] card before / after the bench (SM clock, power, "
+        f"temperature): {state} / {gpu_state()}")
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[entry] bench | {line}")
+    head = json.loads(lines[-1])
+    res = {}
+    for key in ("big", "1080p"):
+        with open(os.path.join(ENTRY_OUT, f"torch_bench_{key}.json")) as f:
+            res[key] = json.load(f)
+    log(f"[entry] bench in {time.time() - t0:.1f} s, rc {rc}; launches "
+        f"{nonzero(got)}")
+    log(f"[entry] bench headline {head['value']} {head['unit']} (20 frames)"
+        f" beside phase 5b's cornell 1024^2 {cornell_mrays:.2f} Mrays/s (3 "
+        f"frames); still life {res['1080p']['value']} ms/frame (3 frames) "
+        f"beside phase 5c's {sl_ms:.1f} ms/frame (8 frames); big_4000 "
+        f"{res['big']['value']} ms/frame [{card}]")
+    if (rc != 0 or head.get("metric") != "pt_megastep_throughput_cornell_1024"
+            or not head.get("value", 0) > 0 or head.get("unit") != "Mrays/s"
+            or "card" not in head or "vs_baseline" in head):
+        raise AssertionError(f"bench: unexpected last line {lines[-1]!r}")
+    if not all(r["value"] > 0 for r in res.values()):
+        raise AssertionError(f"bench: a secondary is not positive: {res}")
+    if (not got["closest_hit"] or not got["any_hit"] or not got["khit"]
+            or plain_runs(got) or got["graph_reruns"]):
+        raise AssertionError("bench: the stream and khit kernels did not "
+                             "both launch, a plain version ran, or a frame "
+                             "was rendered again")
+
+
+def curve_entry(card):
+    """15b: run_one's curve mode on config 2, a sample every frame, held
+    frame by frame against the JAX renderer's tracked curve (its frame and
+    PSNR columns only)."""
+    from imbatracer_torch.tools import run_bench as rb
+
+    run = {r[0]: r for r in rb.PROXY_RUNS}["still_life_pt_1080p"]
+    path = os.path.join(ENTRY_OUT, "curve_still_life_pt_1080p.csv")
+    reset_counters()
+    row = rb.run_one(*run, seconds=CURVE_SECONDS, curve_path=path,
+                     curve_every=0.0)
+    got = counters()
+    ours = {int(r["frames"]): float(r["psnr"]) for r in read_csv(path)}
+    ref = {int(r["frames"]): float(r["psnr"]) for r in read_csv(CURVE_JAX)}
+    diffs = {f: ours[f] - ref[f] for f in range(1, CURVE_FRAMES + 1)
+             if f in ours}
+    worst = max(abs(d) for d in diffs.values()) if diffs else float("nan")
+    log(f"[entry] curve {run[0]}: {row}; launches {nonzero(got)}")
+    log(f"[entry] curve PSNR port / JAX at frames 1-{CURVE_FRAMES}: "
+        + ", ".join(f"{f}: {ours[f]:.2f}/{ref[f]:.2f}" for f in diffs)
+        + f"; largest difference {worst:.3f} dB [{card}]")
+    if len(diffs) < CURVE_FRAMES or not worst <= PSNR_TOL:
+        raise AssertionError(f"curve: {len(diffs)} of frames 1-{CURVE_FRAMES}"
+                             f" sampled, largest PSNR difference {worst} dB "
+                             f"(bound {PSNR_TOL})")
+    if not got["khit"] or plain_runs(got):
+        raise AssertionError("curve: khit did not launch or a plain version "
+                             "ran")
+
+
+def proxy_entry(card):
+    """15c: configs 1, 3, 4 and 5 through run_bench.main(), each with the
+    counters zeroed just before and read just after; 15d: the instanced
+    self-check."""
+    from imbatracer_torch.tools import run_bench as rb
+
+    for name, kernels in PROXY_CONFIGS:
+        path = os.path.join(ENTRY_OUT, f"proxy_{name}.csv")
+        reset_counters()
+        rc = rb.main(["--proxies", "--only", f"{name}$", "-t",
+                      str(PROXY_SECONDS), "-o", path])
+        got = counters()
+        rows = read_csv(path)
+        log(f"[entry] proxy {name}: rc {rc}, rows {rows}; launches "
+            f"{nonzero(got)} [{card}]")
+        if (rc != 0 or [r["name"] for r in rows] != [name]
+                or rows[0]["error"] or not int(rows[0]["samples"])):
+            raise AssertionError(f"proxy {name}: no clean row")
+        # A rerun frame mixes the eager route into the row's ms/frame.
+        if got["graph_reruns"] or int(rows[0]["graph_reruns"]):
+            raise AssertionError(f"proxy {name}: {got['graph_reruns']} frames"
+                                 f" rendered again on the eager route")
+        if not all(got[k] for k in kernels) or plain_runs(got):
+            raise AssertionError(f"proxy {name}: {kernels} did not all "
+                                 f"launch, or a plain version ran")
+
+    phase("15d entry points: the instanced self-check")
+    path = os.path.join(ENTRY_OUT, "selfcheck.csv")
+    reset_counters()
+    rc = rb.main(["--selfcheck-instances", "--only", "instances_selfcheck$",
+                  "--size", "512", "-t", str(PROXY_SECONDS), "-o", path])
+    got = counters()
+    rows = read_csv(path)
+    log(f"[entry] selfcheck: rc {rc}, rows {rows}; launches {nonzero(got)} "
+        f"[{card}]")
+    if rc != 0 or len(rows) != 1 or rows[0]["gate"] != "PASS":
+        raise AssertionError("selfcheck: the two-level and flattened routes "
+                             "did not PASS")
+
+
+def entry_points_phase(card, cornell_mrays, sl_ms):
+    """Phase 15: the port's measuring entry points on the card."""
+    shutil.rmtree(ENTRY_OUT, ignore_errors=True)
+    os.makedirs(ENTRY_OUT)
+    phase("15a entry points: python -m imbatracer_torch.bench")
+    bench_entry(card, cornell_mrays, sl_ms)
+    phase("15b entry points: run_one curve parity with JAX")
+    curve_entry(card)
+    phase("15c entry points: run_bench --proxies, configs 1, 3, 4, 5")
+    proxy_entry(card)
+
+
 def log_time(what, timed, plain_ms, card, second="its candidate stage alone"):
     """`[time]`: (ms, the second time or None, bound) as timed."""
     ms, second_ms, (bound_ms, bound_by, detail) = timed
@@ -2756,7 +2928,7 @@ def main():
 def run():
     from imbatracer_torch import libbuild
     from imbatracer_torch.accel import native
-    from imbatracer_torch.device import get_device
+    from imbatracer_torch.device import card_line, get_device
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
@@ -2771,7 +2943,7 @@ def run():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = get_device("cuda")
-    card = card_line()
+    card = card_line(dev)
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -2828,9 +3000,10 @@ def run():
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
+    main_mrays = {}
     for label, max_len in (("big_4000", 6), ("cornell", 10)):
-        _, got, _, _ = main_path(*scenes[label], label, 1024, 1024, max_len,
-                                 MAIN_FRAMES, card)
+        _, got, _, main_mrays[label] = main_path(
+            *scenes[label], label, 1024, 1024, max_len, MAIN_FRAMES, card)
         log(f"[main] {label} launches over the timed frames: {got}")
         if got["closest_hit"] == 0 or got["any_hit"] == 0 or plain_runs(got):
             raise AssertionError(f"{label}: the main path did not run "
@@ -2906,6 +3079,9 @@ def run():
 
     # The graphed and eager VCM-family routes side by side (phase 14).
     vcm_graph_phase(dev, card, scenes)
+
+    # The measuring entry points (phase 15).
+    entry_points_phase(card, main_mrays["cornell"], sl_ms)
 
     phase("9 output")
     src = "imbatracer_torch/csrc/"

@@ -181,3 +181,34 @@ def triangle_bboxes(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):
     hi = np.maximum(np.maximum(v0, v1), v2)
     return lo, hi
 
+
+def validate_bvh(nodes: BvhNodes, bbox_lo: np.ndarray,
+                 bbox_hi: np.ndarray) -> None:
+    """Structural check of a depth-first BVH over primitive boxes: every
+    primitive in exactly one leaf and inside its leaf's box, each inner
+    node's right child after it, both children's boxes inside their
+    parent's (within 1e-4).  Raises ValueError on the first breach."""
+    n_nodes = nodes.right.shape[0]
+    seen = np.zeros(bbox_lo.shape[0], np.int32)
+    for i in range(n_nodes):
+        lo, hi = nodes.bbox_min[i] - 1e-4, nodes.bbox_max[i] + 1e-4
+        if nodes.right[i] == -1:
+            ids = nodes.prim_ids[nodes.start[i]:nodes.start[i]
+                                 + nodes.count[i]]
+            np.add.at(seen, ids, 1)
+            if not (np.all(bbox_lo[ids] >= lo) and np.all(bbox_hi[ids] <= hi)):
+                raise ValueError(f"leaf {i}: a primitive lies outside its "
+                                 f"box")
+            continue
+        right = int(nodes.right[i])
+        if not i + 1 < right < n_nodes:
+            raise ValueError(f"node {i}: right child {right} is not after "
+                             f"its left child {i + 1}")
+        for child in (i + 1, right):
+            if not (np.all(nodes.bbox_min[child] >= lo)
+                    and np.all(nodes.bbox_max[child] <= hi)):
+                raise ValueError(f"node {i}: child {child}'s box is not "
+                                 f"inside its parent's")
+    if not np.all(seen == 1):
+        bad = int(np.count_nonzero(seen != 1))
+        raise ValueError(f"{bad} primitives are not in exactly one leaf")

@@ -52,6 +52,11 @@ class DeviceBvh(TensorData):
         return self.tile_idx is not None
 
     @property
+    def mode(self) -> str:
+        """The JAX package's name of this traversal mode."""
+        return "stream2" if self.two_level else "stream"
+
+    @property
     def inst(self):
         """(tile_idx, inst_of, itab) of a two-level BVH, else None: the
         `inst` argument of the traversal kernels."""

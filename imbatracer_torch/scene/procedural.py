@@ -1,8 +1,9 @@
 """Procedural scenes (no asset files), torch-native counterparts of
-imbatracer_tpu.scene.procedural: make_cornell_scene, make_big_scene, and
-the alpha-masked make_masked_scene, make_leaf_scene and
-make_still_life_like (the 1080p still-life proxy: the full material set,
-an HDR environment map, an area light and masked foliage cards).
+imbatracer_tpu.scene.procedural: make_cornell_scene, make_big_scene,
+the bump-mapped make_bumped_scene, and the alpha-masked
+make_masked_scene, make_leaf_scene and make_still_life_like (the 1080p
+still-life proxy: the full material set, an HDR environment map, an area
+light and masked foliage cards).
 
 The geometry, materials and lights are built by the same construction as
 the JAX package (same seeds, same triangle order), so the two packages
@@ -249,6 +250,60 @@ def make_masked_scene(*, device):
     meta = SceneMeta(
         name="procedural_masked", num_tris=F, num_materials=len(mat_rows),
         num_lights=len(light_rows), num_textures=1, has_masks=True,
+        cam_pos=(0.0, 1.0, 3.6), cam_dir=(0.0, 0.0, -1.0),
+        cam_up=(0.0, 1.0, 0.0), bvh_stats=stats)
+    return scene, meta
+
+
+def make_bumped_scene(*, device):
+    """Cornell-like box whose floor carries a bump texture: a linear
+    height ramp along u, so the central-difference slope is the same
+    constant everywhere away from the wrap seam (render/surface.py's bump
+    normal).  Floor UVs: u = (x + 1) / 2, v = (z + 1) / 2."""
+    tris = []
+    white = 0
+
+    def add(quads, mat):
+        for t in quads:
+            tris.append((*t, mat))
+
+    floor = _quad((-1, 0, 1), (1, 0, 1), (1, 0, -1), (-1, 0, -1))
+    add(floor, 4)                                                 # bumped
+    add(_quad((-1, 2, -1), (1, 2, -1), (1, 2, 1), (-1, 2, 1)), white)
+    add(_quad((-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1)), white)
+    add(_quad((-1, 0, 1), (-1, 0, -1), (-1, 2, -1), (-1, 2, 1)), 1)
+    add(_quad((1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1)), 2)
+    add(_quad((-0.3, 1.99, -0.3), (0.3, 1.99, -0.3), (0.3, 1.99, 0.3),
+              (-0.3, 1.99, 0.3)), 3)
+
+    v0, v1, v2, mat_id, attrs = _arrays(tris)
+    F = len(tris)
+    attrs.update({k: np.zeros((F, 2), np.float32)
+                  for k in ("uv0", "uv1", "uv2")})
+    for k, corners in enumerate(floor):
+        for key, p in zip(("uv0", "uv1", "uv2"), corners):
+            attrs[key][k] = ((p[0] + 1.0) / 2.0, (p[2] + 1.0) / 2.0)
+    emit_intensity = (18.0, 14.0, 9.0)
+    mat_rows = [
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.76, 0.75, 0.5)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.63, 0.06, 0.04)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.15, 0.48, 0.09)),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.78, 0.78, 0.78),
+             emit=emit_intensity),
+        dict(_BASE, kind=mat_mod.MAT_DIFFUSE, kd=(0.7, 0.7, 0.7), bump_tex=0),
+    ]
+    light_rows = _tri_lights(v0, v1, v2, mat_id, attrs, 3, emit_intensity)
+    # Bump height: a 64x4 ramp along x (u), constant along y; bilinear
+    # sampling of a linear ramp is exact.
+    w = 64
+    ramp = np.broadcast_to(
+        (np.arange(w, dtype=np.float32) / (w - 1))[None, :, None],
+        (4, w, 3)).copy()
+    scene, stats = assemble_device_scene(v0, v1, v2, attrs, mat_rows,
+                                         light_rows, [ramp], None, device)
+    meta = SceneMeta(
+        name="procedural_bumped", num_tris=F, num_materials=len(mat_rows),
+        num_lights=len(light_rows), num_textures=1, has_bump=True,
         cam_pos=(0.0, 1.0, 3.6), cam_dir=(0.0, 0.0, -1.0),
         cam_up=(0.0, 1.0, 0.0), bvh_stats=stats)
     return scene, meta

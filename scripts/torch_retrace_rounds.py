@@ -27,6 +27,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from imbatracer_torch import libbuild  # noqa: E402
 from imbatracer_torch.accel import native  # noqa: E402
+from imbatracer_torch.device import card_line  # noqa: E402
 from imbatracer_torch.ops import khit as kh  # noqa: E402
 from imbatracer_torch.ops import merge as mg  # noqa: E402
 from imbatracer_torch.ops import pairs as pm  # noqa: E402
@@ -86,7 +87,7 @@ def main():
     t0 = time.time()
     libbuild.build_all((st.LIB, kh.LIB, mg.LIB, pm.LIB, native.LIB))
     dev = torch.device("cuda")
-    card = cs.card_line()
+    card = card_line(dev)
     records, tag = [], ["?"]
     record_dispatches(records, tag)
     tmp = tempfile.mkdtemp(prefix="imba_rounds_")

@@ -29,6 +29,7 @@ SCENES = [
     ("make_masked_scene", {}),
     ("make_leaf_scene", dict(num_leaves=200)),
     ("make_still_life_like", dict(num_objects=40, num_cards=16)),
+    ("make_bumped_scene", {}),
 ]
 
 
@@ -144,3 +145,54 @@ def test_native_library_path_tracks_sources(monkeypatch, tmp_path):
     assert lib.path() not in (first, second)
     assert libbuild.NativeLib("k", "k.cu", headers=("k.cuh",),
                               cuda=False).path() != lib.path()
+
+
+def _triangle_boxes(name):
+    """Primitive boxes of a port scene's triangles (from its packed
+    leaf-order arrays, padding dropped)."""
+    from imbatracer_torch.accel.builder import triangle_bboxes
+
+    ts, _ = getattr(tproc, name)(device="cpu")
+    ok = ts.bvh.tri_id >= 0
+    v0 = ts.bvh.tri_v0[ok].numpy()
+    return triangle_bboxes(v0, v0 + ts.bvh.tri_e1[ok].numpy(),
+                           v0 + ts.bvh.tri_e2[ok].numpy())
+
+
+@pytest.mark.parametrize("name", ["make_cornell_scene", "make_leaf_scene"])
+@pytest.mark.parametrize("builder", ["binned", "native"])
+def test_validate_bvh_accepts_both_builds(name, builder):
+    """validate_bvh passes the NumPy binned build and the native build."""
+    from imbatracer_torch.accel.builder import build_bvh, validate_bvh
+    from imbatracer_torch.accel.native import build_bvh_native
+
+    lo, hi = _triangle_boxes(name)
+    build = build_bvh if builder == "binned" else build_bvh_native
+    nodes = build(lo, hi)
+    assert (nodes.right >= 0).any()
+    validate_bvh(nodes, lo, hi)
+
+
+@pytest.mark.parametrize("breach", ["shrunk child", "lost primitive",
+                                    "right child first"])
+def test_validate_bvh_raises(breach):
+    """validate_bvh raises on a child box shrunk inside its parent, a
+    primitive in no leaf, and a right child placed before the left."""
+    from imbatracer_torch.accel.builder import validate_bvh
+    from imbatracer_torch.accel.native import build_bvh_native
+
+    lo, hi = _triangle_boxes("make_cornell_scene")
+    nodes = build_bvh_native(lo, hi)
+    validate_bvh(nodes, lo, hi)
+    inner = int(np.nonzero(nodes.right >= 0)[0][0])
+    if breach == "shrunk child":
+        child = int(nodes.right[inner])
+        ext = nodes.bbox_max[child] - nodes.bbox_min[child]
+        nodes.bbox_max[child] -= 0.25 * ext
+    elif breach == "lost primitive":
+        leaf = int(np.nonzero((nodes.right == -1) & (nodes.count > 1))[0][0])
+        nodes.count[leaf] -= 1
+    else:
+        nodes.right[inner] = inner
+    with pytest.raises(ValueError):
+        validate_bvh(nodes, lo, hi)

@@ -14,11 +14,11 @@ from imbatracer_tpu.render import materials as jmat
 from imbatracer_tpu.render import surface as jsurf
 from imbatracer_tpu.render.traverse import Hit as JHit
 from imbatracer_tpu.scene import procedural as jproc
-from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
 from imbatracer_torch.render import lights as tlights
 from imbatracer_torch.render import materials as tmat
 from imbatracer_torch.render import surface as tsurf
 from imbatracer_torch.render.traverse import Hit as THit
+from imbatracer_torch.scene import procedural as tproc
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -168,7 +168,7 @@ def test_make_interaction(builder, has_bump):
     """Shade-record fetch, attribute lerp, bump mapping (textured floor of
     make_bumped_scene) and the normal flip, on random hits."""
     js, _ = getattr(jproc, builder)()
-    ts = scene_from_numpy(scene_to_numpy(js), "cpu")
+    ts, _ = getattr(tproc, builder)(device="cpu")
     num_f = int(js.attrs.rec.shape[0])
     rs = np.random.RandomState(8)
     prim = rs.randint(-1, num_f, N).astype(np.int32)
