@@ -7,8 +7,9 @@ failure raises and the script exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile csrc/stream_traverse.cu, csrc/khit_traverse.cu,
-   csrc/merge_kernel.cu and csrc/pairs_kernel.cu (the pair route's
-   candidates, queue, pair and resolve kernels) with nvcc and
+   csrc/merge_kernel.cu, csrc/pairs_kernel.cu (the pair route's
+   candidates, queue, pair and resolve kernels) and csrc/graph_cond.cu
+   (the WHILE conditional nodes of render/graphs.py) with nvcc and
    csrc/bvh_builder.cpp with g++, all at once, into
    build/imbatracer_torch/; print each kernel entry's ptxas register,
    static shared-memory and spill lines.
@@ -125,7 +126,7 @@ failure raises and the script exits non-zero:
    the pair route's kernels must launch and the images agree to
    PSNR_MIN.  (d) PT at 512^2 on the two-level and the
    flattened build of the scene (the flattened one masked through khit):
-   images within PSNR_MIN.
+   images within PSNR_MIN, no graphed frame rendered again.
 10. Split BVH, cache and interactive (after phase 8, before the output).
    (a) make_still_life_like()'s arrays through assemble_device_scene(...,
    spatial=True) (the function itself is unchanged): the native split
@@ -209,18 +210,24 @@ failure raises and the script exits non-zero:
    the same frame numbers, each with the launch counters and the peak
    memory set just before it and read just after.  Per cell: ms/frame
    of both routes; captures, replays and reruns a frame; the stream,
-   1b and khit launches a frame; the most rounds one eager masked
-   dispatch needed and the most lanes it carried past its first round
-   (what render/traverse.py's re-trace rounds and slot shares are
-   chosen from); peak memory; then one traced frame of each route
-   (torch.profiler: wall, device busy, idle share, kernels, and the
-   host's cudaLaunchKernel and cudaGraphLaunch calls).  Films must be
-   bit-equal on >= 99.99% of pixels, traced rays equal, no plain
-   version run.  On the flat and two-level masked cells, one bounce of
-   a band's lanes captured with one re-trace round, with the rounds at
-   full width and on the gathered slots (the default), timed as load +
-   replay: the extra full-width rounds' cost a frame against the
-   graphed frame's device busy time.
+   1b and khit launches a frame; peak memory; then one traced frame of
+   each route (torch.profiler: wall, device busy, idle share, kernels,
+   and the host's cudaLaunchKernel and cudaGraphLaunch calls).  Films
+   must be bit-equal on >= 99.99% of pixels, traced rays equal, no
+   plain version run, no frame rendered again.  On the masked cells
+   (hold_rounds): the rounds a non-empty masked dispatch ran, mean and
+   most, graphed (from the device counts of render/graphs.py) and eager,
+   against the cap (render/traverse.py's KHIT_MAX_ROUNDS or
+   RETRACE_MAX_ROUNDS); the most lanes one dispatch carried past its
+   first round (what the slot shares are chosen from); the traversal
+   launches a frame of both routes, the graphed ones held to the eager
+   ones plus at most one first round for each empty dispatch; lanes past
+   the slots and at the cap (both must be 0); the warm-up frame's
+   captures, their seconds and the graph pool's and the conditional
+   bodies' pools' MiB.  On the flat and two-level masked cells, frame 1
+   replayed with the cap at one round (every loop's body skipped) and as
+   run, each from graphs of its own, timed over COST_FRAMES frames: the
+   loops' cost a frame against the graphed frame's device busy time.
 14. VCM graphs (after phase 13, before the output): still_life vcm
    (VCM_LPC light paths) and the instanced vcm of phase 8 (default light
    paths, written and built again) at 1920x1080, and bpt, ppm, lt and
@@ -233,13 +240,13 @@ failure raises and the script exits non-zero:
    each with the launch counters and the peak memory set just before it
    and read just after.  Per cell: ms/frame of both routes; captures,
    replays and reruns a frame; the stream, 1b, khit, merge and
-   preparation launches a frame; the most rounds one eager masked
-   dispatch needed and the most lanes it carried past its first round;
-   peak memory; on the 1080p cells one traced frame of each route (wall,
-   device busy, idle share, kernels, cudaLaunchKernel and
-   cudaGraphLaunch calls).  Film means must agree within 1e-6 relative
-   and >= 99.9% of pixels within 1e-5 relative (the light splat adds
-   with atomics), traced rays equal, no rerun, no plain version run.
+   preparation launches a frame; peak memory; on the 1080p cells one
+   traced frame of each route (wall, device busy, idle share, kernels,
+   cudaLaunchKernel and cudaGraphLaunch calls); the re-trace's rounds,
+   launches and captures as in phase 13 (hold_rounds).  Film means must
+   agree within 1e-6 relative and >= 99.9% of pixels within 1e-5
+   relative (the light splat adds with atomics), traced rays equal, no
+   rerun, no plain version run.
    Every earlier phase runs the default route, graphed wherever it is a
    frame on the card (the pairs switch's frames of phase 8c, and phase
    7a's warm-up frame that records merge queries, eager by rule; phase
@@ -266,8 +273,9 @@ failure raises and the script exits non-zero:
    counters' and the row's graph_reruns both 0).  (d)
    --selfcheck-instances at 512^2 on gen:card, PROXY_SECONDS: the gate
    must be PASS (PSNR >= 40 dB between the two-level and the flattened
-   route); its reruns are printed, not gated: it is no timed cell, and
-   its 512^2 two-level PT frames rerun as phase 8d's do.
+   route), with no frame rendered again.  A frame rendered again fails
+   its phase (8d, 13, 14, 15c, 15d) with its lanes past the gathered
+   slots and past the cap of the rounds.
 9. Output: the kernels' JSON line (`ms` the kernel alone: for the stream
    and khit kernels the one launch with its candidate stage; `bound_ms`
    the larger of its bytes over 3.35 TB/s and the float32 instructions
@@ -1726,12 +1734,19 @@ def instanced_phase(dev, card, big, stats):
         log(f"[inst] two-level vs flattened (S={flat.bvh.sbox.shape[0]}, "
             f"{flat.bvh.tiles.numel() * 4 / 2**20:.1f} MB of tiles), PT "
             f"{fw}x{fh}, {INST_FRAMES} frames: PSNR {p:.2f} dB; two-level "
-            f"{tms:.1f} ms/frame, masked rounds {tgot['rounds']}; flattened "
-            f"{fms:.1f} ms/frame, khit {fgot['khit']} [{card}]")
+            f"{tms:.1f} ms/frame, masked rounds {tgot['rounds']}, most "
+            f"{tgot['max_rounds']} a dispatch; flattened {fms:.1f} ms/frame, "
+            f"khit {fgot['khit']}; frames rendered again two-level "
+            f"{tgot['graph_reruns']}, flattened {fgot['graph_reruns']} "
+            f"(lanes past the slots {tgot['dropped'] + fgot['dropped']}, at "
+            f"the cap {tgot['capped'] + fgot['capped']}) [{card}]")
         if (not p >= PSNR_MIN or tgot["khit"] or not fgot["khit"]
                 or plain_runs(tgot) or plain_runs(fgot)):
             raise AssertionError("two-level and flattened renders disagree "
                                  "or took the wrong routes")
+        if tgot["graph_reruns"] or fgot["graph_reruns"]:
+            raise AssertionError("two-level vs flattened: a graphed frame "
+                                 "was rendered again on the eager route")
         return dict(got, **{k: v for k, v in pairs_got.items()
                             if k.startswith("pairs_")})
     finally:
@@ -2455,7 +2470,7 @@ GRAPH_CELLS = (
 )
 GRAPH_FRAMES = 2              # timed frames of each route, interleaved
 GRAPH_PT_EQUAL = 0.9999       # pixels bit-equal across the two routes
-COST_REPS = 10                # bounce replays timed a re-trace variant
+COST_FRAMES = 3               # replayed frames timed a re-trace variant
 
 
 def trace_route(fn, frame, graph):
@@ -2478,55 +2493,137 @@ def trace_route(fn, frame, graph):
                 graph_launch=calls("cudaGraphLaunch"))
 
 
-def retrace_cost(cell, scene, meta, fn, size, max_len, band_bounces,
-                 busy_ms, card):
-    """What the masked re-trace's extra rounds cost a graphed frame: one
-    bounce of the first band's lanes, after one bounce, captured three
-    ways -- one round, the route's rounds at full width (its slot share
-    1), and those rounds on the gathered slots (the default) -- each
-    timed as load + replay (CUDA events, COST_REPS
-    times).  The extra full-width rounds' cost a frame is their time
-    over one round's, times the band-bounces a frame; it is printed as a
-    share of the graphed frame's device busy time."""
-    from functools import partial as bind
-
+def loop_cost(cell, scene, meta, fn, size, max_len, frame, busy_ms, card):
+    """What the masked re-trace's while loops cost a graphed frame: frame
+    `frame` through the captured bounce with the cap on the rounds at 1,
+    so that every loop's body is skipped (its WHILE node and the kernel
+    that sets its flag still run; the lanes that needed more rounds stay
+    unresolved and the film is not used), and as the route runs it, each
+    from a SceneGraphs of its own captured in a warm-up frame and timed
+    over COST_FRAMES replayed frames (CUDA events, no rerun).  The
+    difference is printed against the graphed frame's device busy
+    time."""
     from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
     from imbatracer_torch.render.integrators import pt
 
-    lanes = pt.BAND_RAYS
-    org, d, state, _ = pt.camera_rays(fn.cam, *size, 1, 1, 0, lanes)
-    step = bind(pt._pt_bounce, scene, alpha_fn=pt.alpha_fn_for(scene),
-                has_bump=meta.has_bump, max_len=max_len)
-    c = step(pt._init_carry(org, d, state),
-             overflow=torch.zeros((), dtype=torch.int32, device=scene.device))
-    two = scene.bvh.two_level
-    names = ("RETRACE_ROUNDS", "RETRACE_SLOT_DIV") if two else (
-        "KHIT_ROUNDS", "KHIT_SLOT_DIV")
-    rounds, div = tt.retrace_plan(two)
-    ms = {}
-    for name, plan in (("one round", (1, div)), ("full width", (rounds, 1)),
-                       ("gathered", (rounds, div))):
-        for k, v in zip(names, plan):
-            setattr(tt, k, v)
+    w, h = size
+    band = pt.BAND_RAYS
+    bands = [(s0, min(band, w * h - s0)) for s0 in range(0, w * h, band)]
+    compact = pt.use_compact(scene.device, len(bands), max_len)
+    name = ("RETRACE_MAX_ROUNDS" if scene.bvh.two_level
+            else "KHIT_MAX_ROUNDS")
+    cap = getattr(tt, name)
+    slot = graphs._slot(tt.MASK_STATS, "rounds")
+    ms, passes = {}, {}
+    for label, rounds in (("rounds skipped", 1), ("as run", cap)):
+        setattr(tt, name, rounds)
         try:
-            g = graphs.SceneGraphs(scene.device).bounce(name, step, c, lanes)
+            sg = graphs.SceneGraphs(scene.device)
+            run = partial(pt._bands, scene, fn.cam, frame, bands, w, h, 1,
+                          max_len, meta.has_masks, meta.has_bump, compact,
+                          None, sg)
+            run()
+            sg.counts.zero_()
+            ms[label] = cuda_ms(run, COST_FRAMES, warm=False)
+            passes[label] = sg.counts.tolist()[slot] / COST_FRAMES
         finally:
-            for k, v in zip(names, (rounds, div)):
-                setattr(tt, k, v)
-        ms[name] = cuda_ms(lambda: (g.load(c), g.replay()), COST_REPS)
-        del g
-    extra = (ms["full width"] - ms["one round"]) * band_bounces
-    log(f"[graphs] {cell}: one bounce of {lanes} lanes (load + replay): "
-        f"one round {ms['one round']:.3f} ms, {rounds} rounds full width "
-        f"{ms['full width']:.3f} ms, {rounds} rounds on "
-        f"{tt.retrace_slots(lanes, two)} gathered slots "
-        f"{ms['gathered']:.3f} ms;"
-        f" extra full-width rounds x {band_bounces} band-bounces = "
-        f"{extra:.1f} ms a frame, {100.0 * extra / busy_ms:.1f}% of the "
-        f"graphed frame's device busy {busy_ms:.1f} ms; gathered "
-        f"{(ms['gathered'] - ms['one round']) * band_bounces:.1f} ms "
-        f"[{card}]")
+            setattr(tt, name, cap)
+        del run, sg
+        torch.cuda.empty_cache()
+    extra = ms["as run"] - ms["rounds skipped"]
+    log(f"[graphs] {cell}: graphed frame {frame} (CUDA events, "
+        f"{COST_FRAMES} frames): rounds past the first skipped "
+        f"{ms['rounds skipped']:.1f} ms, as run {ms['as run']:.1f} ms "
+        f"({passes['as run']:.1f} loop passes a frame, cap {cap}); the "
+        f"loops' rounds {extra:.1f} ms a frame, {100.0 * extra / busy_ms:.1f}"
+        f"% of the graphed frame's device busy {busy_ms:.1f} ms [{card}]")
+
+
+TRAVERSAL_KEYS = ROUTE_KEYS[:5]
+
+
+def pool_mib(scene):
+    """(MiB, MiB) of card memory the scene's graphs hold: their pool, and
+    the pools of their conditional bodies (None where the allocator's
+    snapshot names no pools)."""
+    from imbatracer_torch.render import graphs
+
+    sg = graphs.for_scene(scene)
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None, None
+    mib = lambda ids: sum(s["total_size"] for s in segs
+                          if tuple(s["segment_pool_id"]) in ids) / 2**20
+    return (mib({tuple(sg.pool)}),
+            mib({tuple(p) for _, p in sg.bodies}))
+
+
+def warm_captures(fn, scene):
+    """The warm-up frame of the default route (its captures) with the
+    counters set to 0 just before it and read just after: (captures,
+    seconds they took, pool MiB, body pools MiB)."""
+    torch.cuda.synchronize()
+    reset_counters()
+    fn(0, None)
+    torch.cuda.synchronize()
+    got = counters()
+    return dict(captures=got["graph_captures"],
+                seconds=got["graph_capture_s"], pools=pool_mib(scene))
+
+
+def hold_rounds(tag, cell, runs, two_level, warm, card):
+    """Log a masked cell's re-trace, graphed against eager over the same
+    frames: rounds a non-empty masked dispatch (mean and most; the
+    graphed route's from the device counts) against the cap, the
+    traversal launches a frame, the lanes past the slots and the cap,
+    and the warm-up frame's captures, their seconds and pool memory.
+    Holds the graphed launches to the eager ones plus at most one first
+    round for each empty dispatch, with no lane past the slots or the
+    cap and no frame rendered again."""
+    from imbatracer_torch.render import traverse as tt
+
+    g, e = runs[None], runs[False]
+    tot = lambda rs, k: sum(r["launches"][k] for r in rs)
+    n = len(g)
+    if not tot(e, "dispatches"):
+        return
+    cap, div = tt.retrace_plan(two_level)
+    mean_g = (tot(g, "rounds") - tot(g, "empty")) / max(
+        tot(g, "dispatches") - tot(g, "empty"), 1)
+    mean_e = tot(e, "rounds") / max(tot(e, "dispatches") - tot(e, "empty"),
+                                    1)
+    most = lambda rs, k: max(r["launches"][k] for r in rs)
+    delta = {k: (tot(g, k) - tot(e, k)) / n for k in TRAVERSAL_KEYS}
+    empty = tot(g, "empty") / n
+    pools = warm["pools"]
+    log(f"[{tag}] {cell}: rounds a non-empty masked dispatch graphed mean "
+        f"{mean_g:.6f}, most {most(g, 'max_rounds')} (device counts), "
+        f"eager mean {mean_e:.6f}, most {most(e, 'max_rounds')}; cap "
+        f"{cap}, slot share 1/{div}, lanes carried past the first at most "
+        f"{most(e, 'max_lanes')}; lanes past the slots "
+        f"{tot(g, 'dropped')}, at the cap {tot(g, 'capped')}")
+    log(f"[{tag}] {cell}: traversal launches a frame graphed "
+        f"{ {k: tot(g, k) / n for k in TRAVERSAL_KEYS} }, eager "
+        f"{ {k: tot(e, k) / n for k in TRAVERSAL_KEYS} }; graphed - eager "
+        f"{delta}, empty masked dispatches {empty} a frame; masked "
+        f"dispatches {tot(g, 'dispatches') / n} a frame [{card}]")
+    took = (f"{warm['captures']} captures in {warm['seconds']:.3f} s "
+            f"(warm-up runs included)" if warm["captures"] else
+            "no capture (the scene's graphs were captured in an earlier "
+            "phase)")
+    log(f"[{tag}] {cell}: warm-up frame: {took}; the scene's graph pool "
+        + ("not measured" if pools[0] is None else
+           f"{pools[0]:.1f} MiB, conditional bodies' pools "
+           f"{pools[1]:.1f} MiB") + f" [{card}]")
+    if (any(v < 0 for v in delta.values()) or sum(delta.values()) > empty
+            or tot(g, "dropped") or tot(g, "capped")
+            or tot(g, "graph_reruns")):
+        raise AssertionError(
+            f"{cell}: the graphed re-trace ran other rounds than the eager "
+            f"one, or {tot(g, 'graph_reruns')} frames were rendered again "
+            f"({tot(g, 'dropped')} lanes past the slots, "
+            f"{tot(g, 'capped')} at the cap of {cap} rounds)")
 
 
 def hold_graph_cell(cell, runs, traced, card):
@@ -2534,10 +2631,11 @@ def hold_graph_cell(cell, runs, traced, card):
     them against each other: the default must have replayed captured
     bounces (no capture and no rerun in the timed frames), films
     bit-equal on GRAPH_PT_EQUAL of the pixels, traced rays equal, no
-    plain version run."""
+    plain version run.  The masked re-trace's rounds: hold_rounds."""
     g, e = runs[None], runs[False]
     ok = all(r["launches"]["graph_replays"] > 0
-             and r["launches"]["graph_captures"] == 0 for r in g)
+             and r["launches"]["graph_captures"] == 0
+             and r["launches"]["graph_reruns"] == 0 for r in g)
     ok = ok and not any(r["launches"]["graph_replays"] for r in e)
     parity = []
     for a, b in zip(g, e):
@@ -2559,10 +2657,7 @@ def hold_graph_cell(cell, runs, traced, card):
         f"eager {mean_ms(e):.1f} ({each(e)}), {n} frames each, "
         f"interleaved; band-bounces a frame "
         f"{[r['route']['band_bounces'] for r in g]} [{card}]")
-    most = lambda k: max(r["launches"][k] for r in e)
-    log(f"[graphs] {cell}: a frame graphed {per(g)}, eager {per(e)}; one "
-        f"eager masked dispatch needed at most {most('max_rounds')} rounds "
-        f"and carried at most {most('max_lanes')} lanes past its first")
+    log(f"[graphs] {cell}: a frame graphed {per(g)}, eager {per(e)}")
     log(f"[graphs] {cell}: peak memory graphed {peak(g):.1f} MiB, eager "
         f"{peak(e):.1f} MiB, of which {g[0]['held'] / 2**20:.1f} MiB was "
         f"held before the frame; pixels bit-equal {', '.join(parity)} (need "
@@ -2583,7 +2678,8 @@ def graph_phase(dev, card, scenes):
     """Phase 13: each cell of GRAPH_CELLS through the default route
     (CUDA graphs on the card) and graph=False, a warm-up frame of each,
     then the same frame numbers interleaved, then one traced frame of
-    each; the re-trace's extra rounds costed on the masked cells."""
+    each; the re-trace's rounds held (hold_rounds) and its loops costed
+    on the masked cells."""
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
 
@@ -2598,7 +2694,7 @@ def graph_phase(dev, card, scenes):
             scene, meta = scenes[key]
             label = f"{cell} {w}x{h} max_len {max_len}"
             fn = pt_route_fn(scene, meta, w, h, max_len, "graph")
-            fn(0, None)
+            warm = warm_captures(fn, scene)
             fn(0, False)
             runs = {None: [], False: []}
             for f in range(1, GRAPH_FRAMES + 1):
@@ -2607,10 +2703,11 @@ def graph_phase(dev, card, scenes):
             traced = {g: trace_route(fn, GRAPH_FRAMES + 1, g)
                       for g in (None, False)}
             hold_graph_cell(label, runs, traced, card)
+            hold_rounds("graphs", label, runs, scene.bvh.two_level, warm,
+                        card)
             if meta.has_masks and key != "still_life_sbvh":
-                retrace_cost(label, scene, meta, fn, (w, h), max_len,
-                             runs[None][0]["route"]["band_bounces"],
-                             traced[None]["busy"], card)
+                loop_cost(label, scene, meta, fn, (w, h), max_len, 1,
+                          traced[None]["busy"], card)
             del fn, runs
             torch.cuda.empty_cache()
     finally:
@@ -2662,14 +2759,10 @@ def hold_vcm_graph_cell(cell, runs, traced, card):
     per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
                       for k in VCM_LAUNCH_KEYS}
     peak = lambda rs: max(r["peak"] for r in rs) / 2**20
-    most = lambda k: max(r["launches"][k] for r in e)
     log(f"[vcmgraphs] {cell}: ms/frame graphed {mean_ms(g):.1f} "
         f"({each(g)}), eager {mean_ms(e):.1f} ({each(e)}), {n} frames "
         f"each, interleaved [{card}]")
-    log(f"[vcmgraphs] {cell}: a frame graphed {per(g)}, eager {per(e)}; "
-        f"one eager masked dispatch needed at most {most('max_rounds')} "
-        f"rounds and carried at most {most('max_lanes')} lanes past its "
-        f"first")
+    log(f"[vcmgraphs] {cell}: a frame graphed {per(g)}, eager {per(e)}")
     log(f"[vcmgraphs] {cell}: peak memory graphed {peak(g):.1f} MiB, eager "
         f"{peak(e):.1f} MiB, of which {g[0]['held'] / 2**20:.1f} MiB was "
         f"held before the frame; films {'; '.join(parity)} (need mean <= "
@@ -2694,7 +2787,8 @@ def vcm_graph_phase(dev, card, scenes):
     """Phase 14: each cell of VCM_GRAPH_CELLS through render_vcm_frame on
     the default route (CUDA graphs on the card) and graph=False, a
     warm-up frame of each (the captures), then the same frame numbers
-    interleaved, then, on the 1080p cells, one traced frame of each."""
+    interleaved, then, on the 1080p cells, one traced frame of each; the
+    re-trace's rounds held (hold_rounds)."""
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
     from imbatracer_torch.scene.procedural import make_still_life_like
@@ -2713,7 +2807,7 @@ def vcm_graph_phase(dev, card, scenes):
                 VCM_GRAPH_CELLS:
             label = f"{cell} {w}x{h} max_len {max_len}"
             fn = route_fn(*scenes[key], algo, w, h, max_len, "graph")
-            fn(0, None)
+            warm = warm_captures(fn, scenes[key][0])
             fn(0, False)
             log(f"[vcmgraphs] {label}: warm-up frames done")
             runs = {None: [], False: []}
@@ -2724,6 +2818,8 @@ def vcm_graph_phase(dev, card, scenes):
             traced = ({g: trace_route(fn, frames + 1, g)
                        for g in (None, False)} if trace else {})
             hold_vcm_graph_cell(label, runs, traced, card)
+            hold_rounds("vcmgraphs", label, runs,
+                        scenes[key][0].bvh.two_level, warm, card)
             del fn, runs
             torch.cuda.empty_cache()
     finally:
@@ -2854,7 +2950,9 @@ def proxy_entry(card):
         # A rerun frame mixes the eager route into the row's ms/frame.
         if got["graph_reruns"] or int(rows[0]["graph_reruns"]):
             raise AssertionError(f"proxy {name}: {got['graph_reruns']} frames"
-                                 f" rendered again on the eager route")
+                                 f" rendered again on the eager route "
+                                 f"({got['dropped']} lanes past the slots, "
+                                 f"{got['capped']} at the cap)")
         if not all(got[k] for k in kernels) or plain_runs(got):
             raise AssertionError(f"proxy {name}: {kernels} did not all "
                                  f"launch, or a plain version ran")
@@ -2871,6 +2969,11 @@ def proxy_entry(card):
     if rc != 0 or len(rows) != 1 or rows[0]["gate"] != "PASS":
         raise AssertionError("selfcheck: the two-level and flattened routes "
                              "did not PASS")
+    if got["graph_reruns"]:
+        raise AssertionError(
+            f"selfcheck: {got['graph_reruns']} frames rendered again on the "
+            f"eager route ({got['dropped']} lanes past the slots, "
+            f"{got['capped']} at the cap)")
 
 
 def entry_points_phase(card, cornell_mrays, sl_ms):
@@ -2933,6 +3036,7 @@ def run():
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.render import graphs
     from imbatracer_torch.scene.procedural import (make_big_scene,
                                                    make_cornell_scene,
                                                    make_leaf_scene,
@@ -2949,12 +3053,13 @@ def run():
 
     phase("2 build")
     t0 = time.time()
-    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, native.LIB)
+    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, graphs.COND_LIB, native.LIB)
     paths = libbuild.build_all(libs)
     st._library()
     kh._library()
     mg._library()
     pm._library()
+    graphs._cond_library()
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
         + ", ".join(os.path.relpath(p) for p in paths))
     for lib in libs:

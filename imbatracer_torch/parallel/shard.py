@@ -21,7 +21,7 @@ RNG streams are keyed by global pixel and path ids, so a rank's rays are
 those of the single-process frame.  Collectives a frame: PT 1 (+1 for
 the ray count of `with_stats`); the VCM family 1 per light step, 2 for
 the cache (counts, rows), 1 for the camera film and, under CUDA graphs,
-1 for the ranks' overflow counters.
+1 for the ranks' device counts (their overflow counters summed).
 
 Mid-frame lane compaction (the PT frame and the VCM camera pass, see
 render/integrators/pt.py) runs within each rank: a rank sorts its own
@@ -135,9 +135,9 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
     engine rounds it up.  `compact`: camera-pass compaction as in
     render_vcm_frame, decided by each rank for its own bands.  `graph`
     as in render_vcm_frame: each rank replays its own captured light
-    bands (of bp lanes) and camera phases; the ranks' overflow counters
-    are summed (one more collective), and if the sum is above 0 every
-    rank renders the frame again eagerly."""
+    bands (of bp lanes) and camera phases; the ranks' device counts are
+    gathered (one more collective), their overflow counters summed, and
+    if the sum is above 0 every rank renders the frame again eagerly."""
     dev = cam.pos.device
     num_pixels = width * height
     record = stats is not None and "merge_queries" in stats
@@ -200,8 +200,11 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
         return film + comm.all_gather_rows(
             local, counts=_pixel_counts(width, height, world))
 
-    def total(overflow):
-        return int(torch.stack(comm.all_gather(overflow.reshape(1))).sum())
+    def total(counts):
+        # Every rank's device counts in one collective and one host read:
+        # the overflow counters summed, this rank's own launch counts.
+        rows = torch.stack(comm.all_gather(counts)).tolist()
+        return [sum(r[0] for r in rows)] + rows[rank][1:]
 
     return graphs.render_frame(scene, graph, render,
                                f"VCM frame on rank {rank}", total)

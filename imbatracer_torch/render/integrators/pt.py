@@ -28,8 +28,10 @@ CUDA graphs (the JAX module's compiled band programs, render/graphs.py):
 on a CUDA device every band replays one captured bounce (`use_graphs`),
 the camera rays, the compaction and the film staying eager.  The graphed
 bounce traverses masked scenes through the graph-ready re-trace
-(render/traverse.py), whose overflow counter the frame reads once, at
-its end; a frame that overflowed is rendered again on the eager route.
+(render/traverse.py), whose rounds past the first run in a WHILE
+conditional node while a lane needs one; its overflow counter and the
+device launch counts are read once, at the frame's end; a frame that
+overflowed is rendered again on the eager route.
 """
 
 from __future__ import annotations

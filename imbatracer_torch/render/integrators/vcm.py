@@ -40,8 +40,10 @@ constants, camera, working cache and photon grid from static copies
 (`FrameInputs.static`); the camera rays, the collect selection, the
 photon grid and the compaction stay eager.  Short bands are padded with
 dead lanes.  The masked re-trace takes its graph-ready form, whose
-overflow counter the frame reads once, at its end; a frame that
-overflowed is rendered again on the eager route.  A frame that records
+rounds past the first run in a WHILE conditional node while a lane
+needs one; its overflow counter and the device launch counts are read
+once, at the frame's end; a frame that overflowed is rendered again on
+the eager route.  A frame that records
 merge queries, and the pairs switch's frames, are eager by rule.
 
 Not ported (schedule variants of the same estimator, off by default or

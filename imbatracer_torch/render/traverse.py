@@ -20,18 +20,23 @@ JAX package routes them except where the last item says:
 The masked re-trace has two forms.  The eager one loops until every
 lane is resolved and reads the device each round (`nonzero`, `any`).
 The graph-ready one, taken when the caller passes an `overflow`
-counter, is JAX's device-side while loop with its trip count fixed:
-KHIT_ROUNDS khit rounds on a flat BVH, RETRACE_ROUNDS stream
-dispatches on a two-level one.  The first round covers every lane, as
-the eager one does; the rest run on `retrace_slots` lanes gathered
-without a host read (`gather_slots`: torch.nonzero_static, so the lanes
-keep their order and each dispatch sorts its live lanes as the eager
-loop's subset does).  Lanes still unresolved after the last round,
-and lanes past the slots, are added to `overflow`, a device int32
-counter that the caller reads once a frame; a frame that overflowed is
-rendered again on the eager route (render/graphs.py).  With no
-overflow both forms return the same hits bit for bit.  CUDA graphs
-capture the graph-ready form only.
+counter, is JAX's device-side while loop: the first round covers every
+lane, as the eager one does; the rounds past it run in
+graphs.while_loop (a WHILE conditional node under CUDA graphs) while
+some lane still needs one, up to KHIT_MAX_ROUNDS khit rounds on a flat
+BVH or RETRACE_MAX_ROUNDS stream dispatches on a two-level one (the
+first included), on `retrace_slots` lanes gathered without a host read
+(`gather_slots`: torch.nonzero_static, so the lanes keep their order
+and each dispatch sorts its live lanes as the eager loop's subset
+does).  The loop's state (the slots' need flags, tcur and hits, and the
+round count) lives in tensors made before it, which each pass updates
+in place, so a skipped pass leaves them as they were.  Lanes still
+unresolved at the cap, and lanes past the slots, are added to
+`overflow`, a device int32 counter that the caller reads once a frame;
+a frame that overflowed is rendered again on the eager route
+(render/graphs.py).  With no overflow both forms run the same rounds
+and return the same hits bit for bit.  CUDA graphs capture the
+graph-ready form only.
 """
 
 from __future__ import annotations
@@ -44,25 +49,24 @@ from ..accel.device import DeviceBvh
 from ..ops import khit as khit_mod
 from ..ops import pairs as pairs_mod
 from ..ops import stream_traverse as st
+from . import graphs
 from .intersect import BIG
 
 # Runaway guard of the masked re-trace: tmin strictly advances every
 # round, so the loop ends anyway; the guard caps an epsilon stall.
 MASK_MAX_ROUNDS = 4096
 
-# The graph-ready re-trace's rounds (khit rounds on a flat BVH, stream
-# dispatches, the first included, on a two-level one) and the share of
-# a dispatch's lanes it carries past its first round (one in *_SLOT_DIV,
-# at least one 128-ray block).  The rounds are the most any masked
-# dispatch of chip_smoke.py's eager PT and VCM frames needed (MASK_STATS
-# "max_rounds": 2 on the still life; 9 for the instanced scene's PT
-# frames, 11 for the shadow and connection rays of its VCM frames, one
-# more kept in hand); the slots hold several times the most lanes one
-# carried past its first round ("max_lanes": 1 of 262,144 on the still
-# life, 21,816 on the instanced scene); PERF.md names the runs.
-KHIT_ROUNDS = 2
+# The graph-ready re-trace's caps on its rounds (khit rounds on a flat
+# BVH, stream dispatches, the first included, on a two-level one): JAX's
+# cap, since a round runs only while a lane needs it.  The share of a
+# dispatch's lanes it carries past its first round is one in *_SLOT_DIV,
+# at least one 128-ray block: several times the most lanes one carried
+# past its first round in chip_smoke.py's eager frames ("max_lanes": 1
+# of 262,144 on the still life, 21,816 on the instanced scene; PERF.md
+# names the runs).
+KHIT_MAX_ROUNDS = MASK_MAX_ROUNDS
 KHIT_SLOT_DIV = 256
-RETRACE_ROUNDS = 12
+RETRACE_MAX_ROUNDS = MASK_MAX_ROUNDS
 RETRACE_SLOT_DIV = 4
 
 # Below this super-chunk count the pair queue's sorts cost more than the
@@ -70,14 +74,17 @@ RETRACE_SLOT_DIV = 4
 PAIRS_MIN_SUPERCHUNKS = 8
 
 # Masked traversal counters: dispatches (masked closest / any hit calls),
-# the empty ones among them (no active lane; eager route only), rounds
-# summed over them (khit rounds on a flat BVH, stream dispatches of the
-# re-trace on a two-level one), and, on the eager route, the most rounds
-# one dispatch needed and the most lanes one dispatch carried past its
-# first round (what the graph-ready form's rounds and slots are chosen
-# from); chip_smoke.py reports rounds per non-empty dispatch.
+# the empty ones among them (no active lane), rounds summed over them
+# (khit rounds on a flat BVH, stream dispatches of the re-trace on a
+# two-level one), the most rounds one dispatch ran and the most lanes one
+# dispatch carried past its first round (what the graph-ready form's
+# slots are chosen from), and, on the graph-ready route, the lanes left
+# unresolved past the gathered slots ("dropped") and at the cap of the
+# rounds ("capped").  The graph-ready route runs the first round of an
+# empty dispatch too, and counts it; chip_smoke.py reports rounds per
+# non-empty dispatch.
 MASK_STATS = {"dispatches": 0, "empty": 0, "rounds": 0, "max_rounds": 0,
-              "max_lanes": 0}
+              "max_lanes": 0, "dropped": 0, "capped": 0}
 
 
 class Hit(NamedTuple):
@@ -185,11 +192,11 @@ def _miss(num_r, dev) -> Hit:
 
 
 def retrace_plan(two_level: bool) -> tuple:
-    """(rounds, slot share) of the graph-ready re-trace over a two-level
-    or a flat BVH."""
+    """(cap on the rounds, slot share) of the graph-ready re-trace over a
+    two-level or a flat BVH."""
     if two_level:
-        return RETRACE_ROUNDS, RETRACE_SLOT_DIV
-    return KHIT_ROUNDS, KHIT_SLOT_DIV
+        return RETRACE_MAX_ROUNDS, RETRACE_SLOT_DIV
+    return KHIT_MAX_ROUNDS, KHIT_SLOT_DIV
 
 
 def retrace_slots(num_r: int, two_level: bool) -> int:
@@ -227,9 +234,37 @@ def _merge_slots(idx, valid, hit: Hit, sub: Hit) -> Hit:
     return Hit(*out)
 
 
-def _add_overflow(overflow, *counts):
-    for n in counts:
-        overflow.add_(n.to(overflow.dtype))
+def _retrace_loop(cond, body, cap: int, dev):
+    """After a dispatch's first round, run body() while cond() and fewer
+    than `cap` rounds have run (graphs.while_loop), counting each round
+    and, on the device, the most rounds a dispatch ran."""
+    rounds = torch.ones((), dtype=torch.int32, device=dev)
+
+    def counted():
+        MASK_STATS["rounds"] += 1
+        body()
+        rounds.add_(1)
+
+    graphs.while_loop(lambda: cond() & (rounds < cap), counted)
+    graphs.count(MASK_STATS, "max_rounds", rounds)
+
+
+def _finish(overflow, need, dropped, unresolved):
+    """Add the lanes past the slots (`dropped`) and those still
+    unresolved at the cap to `overflow` and to their counts; `need`, the
+    lanes the first round left unresolved, counts as the lanes carried
+    past it."""
+    graphs.count(MASK_STATS, "max_lanes", need.sum())
+    left = unresolved.sum()
+    graphs.count(MASK_STATS, "dropped", dropped)
+    graphs.count(MASK_STATS, "capped", left)
+    overflow.add_((dropped + left).to(overflow.dtype))
+
+
+def _copy(dst, src):
+    """Copy each tensor of `src` into its tensor of `dst` in place."""
+    for a, b in zip(dst, src):
+        a.copy_(b)
 
 
 def _khit_round(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, need, tcur,
@@ -264,10 +299,11 @@ def _khit_round(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, need, tcur,
 
 def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
                                    alpha_fn, active, overflow) -> Hit:
-    """The graph-ready form of _closest_hit_masked_khit: KHIT_ROUNDS
-    rounds, the first over every lane, the others over retrace_slots
-    lanes gathered from those still unresolved; the lanes left
-    unresolved and those past the slots are added to `overflow`."""
+    """The graph-ready form of _closest_hit_masked_khit: the first round
+    over every lane, then rounds over retrace_slots lanes gathered from
+    those still unresolved while one is, up to KHIT_MAX_ROUNDS rounds in
+    all; the lanes left unresolved and those past the slots are added to
+    `overflow`."""
     org = _recenter(bvh, org)
     num_r = org.shape[0]
     dev = org.device
@@ -275,19 +311,21 @@ def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
     need = (torch.ones(num_r, dtype=torch.bool, device=dev)
             if active is None else active)
     MASK_STATS["dispatches"] += 1
-    MASK_STATS["rounds"] += KHIT_ROUNDS
+    MASK_STATS["rounds"] += 1
+    graphs.count(MASK_STATS, "empty", ~need.any())
     need, tcur, hit = _khit_round(bvh, org, d, tmin, tmax, alpha_fn, need,
                                   tmin, _miss(num_r, dev))
-    if KHIT_ROUNDS == 1:
-        _add_overflow(overflow, need.sum())
-        return hit
     idx, valid, dropped = gather_slots(need, retrace_slots(num_r, False))
     sub = (org[idx], d[idx], tmin[idx], tmax[idx])
-    s_need, s_tcur, s_hit = valid, tcur[idx], _rows(hit, idx)
-    for _ in range(KHIT_ROUNDS - 1):
-        s_need, s_tcur, s_hit = _khit_round(bvh, *sub, alpha_fn, s_need,
+    s_need, s_tcur, s_hit = valid.clone(), tcur[idx], _rows(hit, idx)
+
+    def body():
+        n_need, n_tcur, n_hit = _khit_round(bvh, *sub, alpha_fn, s_need,
                                             s_tcur, s_hit)
-    _add_overflow(overflow, dropped, s_need.sum())
+        _copy((s_need, s_tcur, *s_hit), (n_need, n_tcur, *n_hit))
+
+    _retrace_loop(s_need.any, body, KHIT_MAX_ROUNDS, dev)
+    _finish(overflow, need, dropped, s_need)
     return _merge_slots(idx, valid, hit, s_hit)
 
 
@@ -307,38 +345,39 @@ def _stream_hit(out) -> Hit:
 def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
                               active, sort: bool, overflow) -> Hit:
     """The graph-ready form of _closest_hit_masked: the first dispatch
-    over every lane, then RETRACE_ROUNDS - 1 re-trace dispatches, sorted,
-    over retrace_slots lanes gathered from those whose hit was
-    transparent (JAX's `active = retrace` body on the slots); the lanes
-    still re-tracing after them and those past the slots are added to
-    `overflow`."""
+    over every lane, then re-trace dispatches, sorted, over
+    retrace_slots lanes gathered from those whose hit was transparent
+    while one is (JAX's `active = retrace` body on the slots), up to
+    RETRACE_MAX_ROUNDS dispatches in all; the lanes still re-tracing at
+    the cap and those past the slots are added to `overflow`."""
     num_r = org.shape[0]
     dev = org.device
     tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
     act = (torch.ones(num_r, dtype=torch.bool, device=dev)
            if active is None else active)
     MASK_STATS["dispatches"] += 1
-    MASK_STATS["rounds"] += RETRACE_ROUNDS
+    MASK_STATS["rounds"] += 1
+    graphs.count(MASK_STATS, "empty", ~act.any())
     hit = _stream_hit(_unmasked(bvh, org, d, tmin, tmax, act, False, sort))
     retrace = act & _transparent(alpha_fn, hit)
-    if RETRACE_ROUNDS == 1:
-        _add_overflow(overflow, retrace.sum())
-        return hit
     idx, valid, dropped = gather_slots(retrace, retrace_slots(num_r, True))
-    s_retrace = valid
+    s_retrace = valid.clone()
     s_org, s_d, s_tmin, s_tmax = org[idx], d[idx], tmin[idx], tmax[idx]
     s_hit = _rows(hit, idx)
-    for _ in range(RETRACE_ROUNDS - 1):
+
+    def body():
         t = s_hit.t
         new = _stream_hit(_unmasked(
             bvh, s_org, s_d,
             torch.where(s_retrace, t + 1e-3 * torch.clamp(t, min=1e-3),
                         s_tmin),
             s_tmax, s_retrace, False, True))
-        s_hit = Hit(*(torch.where(s_retrace, n, h)
-                      for n, h in zip(new, s_hit)))
-        s_retrace = s_retrace & _transparent(alpha_fn, s_hit)
-    _add_overflow(overflow, dropped, s_retrace.sum())
+        new = Hit(*(torch.where(s_retrace, n, h) for n, h in zip(new, s_hit)))
+        again = s_retrace & _transparent(alpha_fn, new)
+        _copy((s_retrace, *s_hit), (again, *new))
+
+    _retrace_loop(s_retrace.any, body, RETRACE_MAX_ROUNDS, dev)
+    _finish(overflow, retrace, dropped, s_retrace)
     return _merge_slots(idx, valid, hit, s_hit)
 
 
@@ -465,7 +504,7 @@ def any_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None, active=None,
 def graph_route(bvh: DeviceBvh, masked: bool) -> tuple:
     """The traversal route a graph-ready dispatch takes, as part of a
     captured graph's key: the BVH's kind and, masked, the re-trace with
-    its rounds and slot share."""
+    its cap on the rounds and its slot share."""
     kind = "two_level" if bvh.two_level else "flat"
     if not masked:
         return (kind,)

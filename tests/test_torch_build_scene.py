@@ -11,6 +11,9 @@ the JAX package's, on generated `.scene` / OBJ / MTL / PNG / HDR files.
   shape alone and uploads those arrays.
 * A texture that cannot be decoded becomes the magenta placeholder.
 * The generated scene covers every MTL path and every `.scene` light.
+* JAX's native builder is loaded in this process (tests/
+  torch_jax_native.py): a process whose in-place build of it failed
+  gets it back, so JAX never falls back to its NumPy builder here.
 """
 
 import os
@@ -19,6 +22,7 @@ import shutil
 import numpy as np
 import pytest
 
+from imbatracer_tpu.accel import native as jnative
 from imbatracer_tpu.accel.instancing import build_two_level as jtwo
 from imbatracer_tpu.ops.pallas_stream import pack_stream_tiles
 from imbatracer_tpu.scene.build import build_scene as jbuild
@@ -30,9 +34,11 @@ from imbatracer_torch.render import lights as L
 from imbatracer_torch.render import materials as M
 from imbatracer_torch.scene import build as tb
 from imbatracer_torch.scene.generate import write_instanced_scene
+from torch_jax_native import ensure_jax_native
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
+ensure_jax_native()
 
 
 @pytest.fixture(scope="module")
@@ -82,6 +88,21 @@ def _flat_matches_jax(path):
 
 
 def test_flattened_scene_matches_jax(scene_path):
+    _flat_matches_jax(scene_path)
+
+
+def test_lost_native_builder_is_restored(scene_path, monkeypatch):
+    """A process that lost the race for the JAX package's libbvh.so
+    (get_lib() None for good) gets a working library back from
+    ensure_jax_native, built outside imbatracer_tpu/, and the flattened
+    scene matches JAX's again."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(jnative, "_LIB", jnative._LIB)
+    assert jnative.get_lib() is None
+    lib = ensure_jax_native()
+    assert lib is not None and jnative.get_lib() is lib
+    assert os.path.dirname(jnative._LIB) != os.path.dirname(jnative._SRC)
     _flat_matches_jax(scene_path)
 
 

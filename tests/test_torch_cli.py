@@ -39,9 +39,11 @@ from imbatracer_torch.frontend.engine import make_frame_fn
 from imbatracer_torch.frontend.renderer import RenderSettings
 from imbatracer_torch.scene.build import build_scene
 from imbatracer_torch.scene.generate import write_instanced_scene
+from torch_jax_native import ensure_jax_native
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
+ensure_jax_native()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = 20

@@ -6,16 +6,18 @@ bands, keys, launch deltas, the overflow counter and the eager rerun)
 runs as it does on the card.
 
 * The sync-free re-trace on the stacked masked layers of
-  tests/test_torch_masks.py (1, 6, 10 and 12 layers: 6 and more are
-  more than the KHIT_ROUNDS * K layers khit resolves, 12 more than the
-  RETRACE_ROUNDS - 1 the two-level re-trace does), over a flat BVH
-  (khit) and a two-level one:
-  hits and occlusion flags equal to the eager route's bit for bit, and
-  to JAX's masked traversal as test_masked_traversal_matches_jax holds
-  them (t within 1e-5 relative, ids and flags equal), wherever the
-  overflow counter stays 0; the counter is 0 when every lane needs at
-  most the route's rounds and above 0 beyond them.  A lane past the
-  gathered slots counts too.
+  tests/test_torch_masks.py (1, 6, 10, 12 and 16 layers: 16 needs 17
+  rounds of the two-level re-trace, more than the 12 fixed rounds it
+  once ran), over a flat BVH (khit) and a two-level one: hits and
+  occlusion flags equal to the eager route's bit for bit, and to JAX's
+  masked traversal as test_masked_traversal_matches_jax holds them (t
+  within 1e-5 relative, ids and flags equal), with the overflow counter
+  0 at the route's cap on the rounds; with the cap cut to 2 khit rounds
+  or 12 dispatches the counter is 0 when every lane needs at most that
+  many and above 0 beyond them.  A lane past the gathered slots counts
+  too.  Under a stand-in capture the device counts hold the rounds the
+  eager loop ran, and a loop whose flag is false leaves the slot state
+  as it was.
 * A no-sync guard: one `_pt_bounce` of a few hundred lanes on each
   route (flat unmasked, flat masked, two-level masked; the masked ones
   with an env map, bump maps and every material kind) under a context
@@ -32,8 +34,10 @@ runs as it does on the card.
   tests/test_torch_pt.py's tolerances; a frame whose re-trace overflows
   is rendered again eagerly, bit for bit, and counted.
 * Bookkeeping: one capture a key, replays a band-bounce, launch counts
-  of a graphed frame equal to the eager frame's, load() padding and its
-  size check, and graph=True refused where graphs cannot run.
+  of a graphed frame equal to the eager frame's (on the masked scene,
+  plus one first round for each empty dispatch, with the rounds past
+  the first from the device counts), load() padding and its size check,
+  and graph=True refused where graphs cannot run.
 """
 
 import dataclasses
@@ -124,18 +128,31 @@ def _stack_rays(layers, n=64):
     return x, top, org, d
 
 
+# The caps that a capped case cuts the rounds to: the rounds the
+# graph-ready re-trace once ran in every dispatch.
+SMALL_CAPS = {False: ("KHIT_MAX_ROUNDS", 2),
+              True: ("RETRACE_MAX_ROUNDS", 12)}
+
+
+def _rounds_needed(layers, two_level):
+    """Rounds the see-through rays need: khit takes K layers a round, the
+    two-level re-trace one."""
+    return layers + 1 if two_level else layers // kh.K + 1
+
+
+@pytest.mark.parametrize("capped", [False, True])
 @pytest.mark.parametrize("two_level", [False, True])
-@pytest.mark.parametrize("layers", [1, 6, 10, 12])
-def test_graph_ready_retrace_matches_eager_and_jax(layers, two_level,
+@pytest.mark.parametrize("layers", [1, 6, 10, 12, 16])
+def test_graph_ready_retrace_matches_eager_and_jax(layers, two_level, capped,
                                                    monkeypatch):
     jbvh, flat, jalpha, talpha = _layers(layers)
     bvh = _two_level_layers(layers) if two_level else flat
     x, top, org, d = _stack_rays(layers)
     o, dd = torch.from_numpy(org), torch.from_numpy(d)
-    # Rounds the see-through rays need: khit takes K layers a round, the
-    # two-level re-trace one.
-    need = layers + 1 if two_level else layers // kh.K + 1
-    rounds = tt.RETRACE_ROUNDS if two_level else tt.KHIT_ROUNDS
+    need = _rounds_needed(layers, two_level)
+    if capped:
+        monkeypatch.setattr(tt, *SMALL_CAPS[two_level])
+    rounds = tt.retrace_plan(two_level)[0]
     monkeypatch.setitem(tt.MASK_STATS, "max_rounds", 0)
     eager = tt.closest_hit(bvh, o, dd, 0.0, BIG, alpha_fn=talpha, sort=True)
     assert tt.MASK_STATS["max_rounds"] == need
@@ -164,6 +181,7 @@ def test_graph_ready_retrace_matches_eager_and_jax(layers, two_level,
         np.testing.assert_array_equal(occ.numpy(), np.asarray(jo))
     else:
         # Every see-through ray is left unresolved; the others agree.
+        assert capped
         assert int(ovf) == int(clear.sum()) > 0
         assert int(occ_ovf) == int(clear.sum())
         for a, b in zip(got, eager):
@@ -172,6 +190,134 @@ def test_graph_ready_retrace_matches_eager_and_jax(layers, two_level,
     np.testing.assert_allclose(eager.t.numpy(),
                                np.where(clear, top, top - layers), rtol=1e-5)
     np.testing.assert_array_equal(occ_eager.numpy(), ~clear)
+
+
+def _captured_dispatch(bvh, o, dd, talpha, tmin=0.0):
+    """A masked closest hit over `bvh` captured by the stand-in graph
+    (its hit written into a static state) and its SceneGraphs."""
+    sg = graphs.SceneGraphs("cpu")
+    n = o.shape[0]
+    state = {"t": torch.zeros(n), "id": torch.zeros(n, dtype=torch.int32)}
+
+    def step(st_, overflow):
+        hit = tt.closest_hit(bvh, o, dd, tmin, BIG, alpha_fn=talpha,
+                             sort=True, overflow=overflow)
+        st_["t"].copy_(hit.t)
+        st_["id"].copy_(hit.prim_id)
+
+    return sg.phase("k", step, state), sg, state
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("layers", [6, 16])
+def test_device_counts_hold_the_eager_rounds(layers, two_level, standin,
+                                             monkeypatch):
+    """A replay runs the rounds the eager loop runs: its device counts
+    and the replay's deltas add up to the eager dispatch's rounds, most
+    rounds and lanes past the first, and its hits equal the eager ones
+    bit for bit."""
+    _, flat, _, talpha = _layers(layers)
+    bvh = _two_level_layers(layers) if two_level else flat
+    _, _, org, d = _stack_rays(layers)
+    o, dd = torch.from_numpy(org), torch.from_numpy(d)
+    for k in tt.MASK_STATS:
+        monkeypatch.setitem(tt.MASK_STATS, k, 0)
+    eager = tt.closest_hit(bvh, o, dd, 0.0, BIG, alpha_fn=talpha, sort=True)
+    want = dict(tt.MASK_STATS)
+    assert want["max_rounds"] == _rounds_needed(layers, two_level)
+    g, sg, state = _captured_dispatch(bvh, o, dd, talpha)
+    for k in tt.MASK_STATS:
+        tt.MASK_STATS[k] = 0
+    sg.counts.zero_()
+    g.replay()
+    values = sg.counts.tolist()
+    assert values[0] == 0
+    at = lambda k: values[graphs._slot(tt.MASK_STATS, k)]
+    assert at("rounds") == want["rounds"] - 1     # the first is a delta
+    assert tt.MASK_STATS["rounds"] == 1
+    graphs.add_device_counts(values)
+    assert tt.MASK_STATS == want
+    np.testing.assert_array_equal(state["t"].numpy(), eager.t.numpy())
+    np.testing.assert_array_equal(state["id"].numpy(),
+                                  eager.prim_id.numpy())
+
+
+def _loop_graph(nested: bool):
+    """A stand-in graph whose step runs graphs.while_loop over a static
+    state: each pass doubles `x`, counts one round and takes one off
+    `left`; nested, each pass runs an inner loop that adds 1 to `y`
+    `inner` times."""
+    sg = graphs.SceneGraphs("cpu")
+    state = {"x": torch.arange(8.0), "y": torch.zeros(8),
+             "left": torch.zeros((), dtype=torch.int32),
+             "inner": torch.zeros((), dtype=torch.int32),
+             "k": torch.zeros((), dtype=torch.int32)}
+
+    def step(s_, overflow):
+        def inner():
+            s_["y"].add_(1.0)
+            s_["k"].add_(1)
+
+        def body():
+            tt.MASK_STATS["rounds"] += 1
+            s_["x"].mul_(2.0)
+            s_["left"].sub_(1)
+            if nested:
+                s_["k"].zero_()
+                graphs.while_loop(lambda: s_["k"] < s_["inner"], inner)
+
+        graphs.while_loop(lambda: s_["left"] > 0, body)
+
+    return sg.phase("loop", step, state), sg, state
+
+
+@pytest.mark.parametrize("nested", [False, True])
+def test_while_loop_runs_while_its_flag_is_set(nested, standin):
+    """A replay runs the body as often as the flag asks and counts each
+    pass on the device; with the flag false at the start the state stays
+    bit for bit as it was."""
+    g, sg, state = _loop_graph(nested)
+    slot = graphs._slot(tt.MASK_STATS, "rounds")
+    for left, inner in ((0, 2), (3, 2), (0, 0), (1, 3)):
+        before = {k: v.clone() for k, v in state.items()}
+        state["left"].fill_(left)
+        state["inner"].fill_(inner)
+        sg.counts.zero_()
+        g.replay()
+        assert int(sg.counts[slot]) == left
+        np.testing.assert_array_equal(state["x"].numpy(),
+                                      before["x"].numpy() * 2.0 ** left)
+        np.testing.assert_array_equal(
+            state["y"].numpy(),
+            before["y"].numpy() + (left * inner if nested else 0))
+        if left == 0:
+            for k in ("x", "y", "k"):
+                assert torch.equal(state[k], before[k]), k
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+def test_resolved_dispatch_runs_no_round_past_its_first(two_level,
+                                                        standin):
+    """A dispatch whose first round resolves every lane: the replay's
+    hits equal the eager ones, and its device counts hold no round past
+    the first and one round as the most a dispatch ran."""
+    layers = 1 if two_level else 2
+    _, flat, _, talpha = _layers(layers)
+    bvh = _two_level_layers(layers) if two_level else flat
+    _, _, org, d = _stack_rays(layers)
+    org[:, 0] = 0.5                       # every ray hits an opaque texel
+    o, dd = torch.from_numpy(org), torch.from_numpy(d)
+    eager = tt.closest_hit(bvh, o, dd, 0.0, BIG, alpha_fn=talpha, sort=True)
+    g, sg, state = _captured_dispatch(bvh, o, dd, talpha)
+    sg.counts.zero_()
+    g.replay()
+    values = sg.counts.tolist()
+    assert values[0] == 0
+    assert values[graphs._slot(tt.MASK_STATS, "rounds")] == 0
+    assert values[graphs._slot(tt.MASK_STATS, "max_rounds")] == 1
+    np.testing.assert_array_equal(state["t"].numpy(), eager.t.numpy())
+    np.testing.assert_array_equal(state["id"].numpy(),
+                                  eager.prim_id.numpy())
 
 
 @pytest.mark.parametrize("two_level", [False, True])
@@ -315,14 +461,17 @@ def test_graph_films_equal_eager_and_jax(name, compact, procedural, standin,
     assert abs(gn - int(jn)) <= 1e-2 * int(jn)
 
 
-@pytest.mark.parametrize("rounds", [tt.RETRACE_ROUNDS, 1])
+@pytest.mark.parametrize("rounds", [tt.RETRACE_MAX_ROUNDS, 1])
 def test_two_level_graph_film_and_rerun(rounds, two_level_masked, standin,
                                         monkeypatch):
     """The two-level masked scene through the graph route: bit-equal to
-    the eager frame; with one round a transparent hit overflows and the
-    frame is rendered again eagerly, bit for bit."""
+    the eager frame; with the rounds capped at one a transparent hit
+    overflows at the cap and the frame is rendered again eagerly, bit
+    for bit."""
     scene, meta = two_level_masked
-    monkeypatch.setattr(tt, "RETRACE_ROUNDS", rounds)
+    monkeypatch.setattr(tt, "RETRACE_MAX_ROUNDS", rounds)
+    for k in ("dropped", "capped"):
+        monkeypatch.setitem(tt.MASK_STATS, k, 0)
     cam = camera_for_scene(meta, RenderSettings(width=32, height=24, spp=1,
                                                 max_path_len=4), "cpu")
     # Frame 1 at spp 4: seven lanes cross a transparent texel.
@@ -331,36 +480,69 @@ def test_two_level_graph_film_and_rerun(rounds, two_level_masked, standin,
     np.testing.assert_array_equal(gf, ef)
     assert gn == en
     assert graphs.GRAPH_STATS["reruns"] == (1 if rounds == 1 else 0)
+    assert tt.MASK_STATS["dropped"] == 0
+    assert (tt.MASK_STATS["capped"] > 0) == (rounds == 1)
 
 
-def test_replays_count_the_frames_launches(procedural, standin, monkeypatch):
+@pytest.mark.parametrize("name", ["cornell", "masked", "two_level"])
+def test_replays_count_the_frames_launches(name, procedural,
+                                           two_level_masked, standin,
+                                           monkeypatch):
     """A graphed frame counts the launches the eager frame makes; one
     capture a key, one replay a band-bounce; another max_len is another
-    key."""
-    _, ts, meta = procedural["cornell"]
-    monkeypatch.setattr(tpt, "BAND_RAYS", 320)
-    cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, 32, 32, 60.0,
-                  device="cpu")
+    key.  On the masked scenes the rounds are the eager frame's, plus one
+    first round for each empty dispatch, the rounds past the first
+    counted on the device (a capture runs the loop's body once, and
+    counts none of it): khit rounds on the flat masked scene, stream
+    dispatches on the two-level one, whose frame 1 at spp 4 re-traces."""
+    if name == "two_level":
+        ts, meta = two_level_masked
+        cam = camera_for_scene(meta, RenderSettings(
+            width=32, height=24, spp=4, max_path_len=4), "cpu")
+        size, spp = (32, 24), 4
+    else:
+        _, ts, meta = procedural[name]
+        cam = tcamera(meta.cam_pos, meta.cam_dir, meta.cam_up, 32, 32,
+                      60.0, device="cpu")
+        size, spp = (32, 32), 1
+    monkeypatch.setattr(tpt, "BAND_RAYS", 320 * spp)
 
     def frame(graph, max_len=4):
         st.reset_launches()
+        kh.reset_launches()
+        for k in tt.MASK_STATS:
+            monkeypatch.setitem(tt.MASK_STATS, k, 0)
         stats = {}
-        tpt.render_pt_frame(ts, cam, 1, 32, 32, max_len=max_len,
-                            graph=graph, stats=stats)
-        return st.LAUNCHES["plain"], stats["band_bounces"]
+        tpt.render_pt_frame(ts, cam, 1, *size, spp=spp, max_len=max_len,
+                            has_masks=meta.has_masks,
+                            has_bump=meta.has_bump, graph=graph,
+                            stats=stats)
+        return (st.LAUNCHES["plain"] + kh.LAUNCHES["plain"],
+                dict(tt.MASK_STATS), stats["band_bounces"])
 
     frame(True)                                   # captures, warms up
     assert graphs.GRAPH_STATS["captures"] == 1
     replays = graphs.GRAPH_STATS["replays"]
-    eager, bb = frame(False)
-    graphed, bb2 = frame(True)
-    assert graphed == eager == 2 * bb and bb == bb2 == 4 * 4
-    assert graphs.GRAPH_STATS["replays"] - replays == bb
+    eager, eager_mask, bb = frame(False)
+    graphed, mask, bb2 = frame(True)
+    assert graphs.GRAPH_STATS["replays"] - replays == bb == bb2
     assert graphs.GRAPH_STATS["captures"] == 1
+    assert graphs.GRAPH_STATS["reruns"] == 0
+    if name == "cornell":
+        assert graphed == eager == 2 * bb and bb == 4 * 4
+    else:
+        empty = mask["empty"]
+        assert graphed == eager + empty
+        assert mask["rounds"] == eager_mask["rounds"] + empty
+        for k in ("dispatches", "empty", "max_rounds", "max_lanes",
+                  "dropped", "capped"):
+            assert mask[k] == eager_mask[k], k
+        assert eager_mask["max_rounds"] == (2 if name == "two_level"
+                                            else 1)
     frame(True, max_len=3)
     assert graphs.GRAPH_STATS["captures"] == 2
     sg = graphs.for_scene(ts)
-    assert {(320, 3), (320, 4)} <= {k[:2] for k in sg.graphs}
+    assert {(320 * spp, 3), (320 * spp, 4)} <= {k[:2] for k in sg.graphs}
 
 
 def test_load_pads_with_dead_lanes(procedural, standin):

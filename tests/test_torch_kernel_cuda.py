@@ -815,8 +815,10 @@ def test_cuda_graph_films_equal_eager(cuda_device, masked):
     """PT at 64x64 (cornell) and 64x48 (the masked scene), spp 4, on the
     default route (CUDA graphs) and graph=False: films equal bit for bit,
     traced rays equal; the default route captured one bounce and replayed
-    it once a band-bounce; replays add the capture's launches, so a
-    graphed frame counts the stream launches the eager frame makes."""
+    it once a band-bounce; replays add the capture's launches and the
+    device counts the re-trace's rounds, so a graphed frame counts the
+    stream launches the eager frame makes, and on the masked scene its
+    khit rounds plus one first round for each empty dispatch."""
     from imbatracer_torch.render import graphs
     from imbatracer_torch.render.camera import make_camera
     from imbatracer_torch.render.integrators import pt
@@ -837,22 +839,83 @@ def test_cuda_graph_films_equal_eager(cuda_device, masked):
         assert torch.equal(ef, gf) and en == gn
     assert graphs.GRAPH_STATS["captures"] == 1
     assert graphs.GRAPH_STATS["reruns"] == 0
-    st.reset_launches()
-    kh.reset_launches()
-    replays = graphs.GRAPH_STATS["replays"]
-    stats = {}
-    pt.render_pt_frame(scene, cam, 2, *size, stats=stats, **kw)
-    torch.cuda.synchronize()
-    graphed_counts = (dict(st.LAUNCHES), dict(kh.LAUNCHES))
-    assert graphs.GRAPH_STATS["replays"] - replays == stats["band_bounces"]
-    if masked:
-        per = 2 * tt.KHIT_ROUNDS * stats["band_bounces"]
-        assert kh.LAUNCHES["khit"] == per
-    else:
+
+    def counted(graph):
         st.reset_launches()
-        pt.render_pt_frame(scene, cam, 2, *size, graph=False, **kw)
-        assert graphed_counts[0] == dict(st.LAUNCHES)
+        kh.reset_launches()
+        for k in tt.MASK_STATS:
+            tt.MASK_STATS[k] = 0
+        stats = {}
+        pt.render_pt_frame(scene, cam, 2, *size, stats=stats, graph=graph,
+                           **kw)
+        torch.cuda.synchronize()
+        return (dict(st.LAUNCHES), dict(kh.LAUNCHES), dict(tt.MASK_STATS),
+                stats)
+
+    replays = graphs.GRAPH_STATS["replays"]
+    g_st, g_kh, g_mask, stats = counted(None)
+    assert graphs.GRAPH_STATS["replays"] - replays == stats["band_bounces"]
+    e_st, e_kh, e_mask, _ = counted(False)
+    if masked:
+        # The rounds the eager loop ran, plus one first round for each
+        # empty dispatch; the rounds past the first from the device.
+        empty = g_mask["empty"]
+        assert g_kh["khit"] == e_kh["khit"] + empty
+        assert g_mask["rounds"] == e_mask["rounds"] + empty
+        for k in ("dispatches", "empty", "max_rounds", "max_lanes"):
+            assert g_mask[k] == e_mask[k], k
+    else:
+        assert g_st == e_st
         assert st.LAUNCHES["closest_hit"] == stats["band_bounces"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nested", [False, True])
+def test_cuda_while_loop_runs_while_its_flag_is_set(cuda_device, nested):
+    """graphs.while_loop captured as a WHILE conditional node: a replay
+    runs the body (which allocates temporaries) as often as its device
+    flag asks, nested loops too, and counts each pass in the device
+    counts; with the flag false at the start the state stays bit for bit
+    as it was.  No host read between passes: the flag lives on the card."""
+    from imbatracer_torch.render import graphs
+
+    sg = graphs.SceneGraphs(cuda_device)
+    state = {"x": torch.arange(8.0, device=cuda_device),
+             "y": torch.zeros(8, device=cuda_device)}
+    for k in ("left", "inner", "k"):
+        state[k] = torch.zeros((), dtype=torch.int32, device=cuda_device)
+
+    def step(s_, overflow):
+        def inner():
+            s_["y"].copy_(s_["y"] + 1.0)
+            s_["k"].add_(1)
+
+        def body():
+            tt.MASK_STATS["rounds"] += 1
+            s_["x"].copy_(s_["x"] * 2.0)
+            s_["left"].sub_(1)
+            if nested:
+                s_["k"].zero_()
+                graphs.while_loop(lambda: s_["k"] < s_["inner"], inner)
+
+        graphs.while_loop(lambda: s_["left"] > 0, body)
+
+    g = sg.phase("loop", step, state)
+    slot = graphs._slot(tt.MASK_STATS, "rounds")
+    for left, inner in ((0, 2), (3, 2), (0, 0), (5, 3), (1, 0)):
+        before = {k: v.clone() for k, v in state.items()}
+        state["left"].fill_(left)
+        state["inner"].fill_(inner)
+        sg.counts.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(sg.counts[slot]) == left
+        assert torch.equal(state["x"], before["x"] * 2.0 ** left)
+        assert torch.equal(state["y"],
+                           before["y"] + (left * inner if nested else 0))
+        if left == 0:
+            for k in ("x", "y", "k"):
+                assert torch.equal(state[k], before[k]), k
 
 
 @pytest.mark.cuda

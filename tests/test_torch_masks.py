@@ -28,9 +28,11 @@ from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.integrators.pt import alpha_fn_for
 from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.textures import sample_mask
+from torch_jax_native import ensure_jax_native
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
+ensure_jax_native()
 
 
 def _layers(layers):

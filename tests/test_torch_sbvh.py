@@ -37,9 +37,11 @@ from imbatracer_torch.ops import stream_traverse as st
 from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
 from test_torch_khit import _both, _brute_hits
+from torch_jax_native import ensure_jax_native
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
+ensure_jax_native()
 
 K = kh.K
 

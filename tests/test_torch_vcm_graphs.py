@@ -15,9 +15,11 @@ guard of tests/torch_graph_guard.py.
 * The sync-free append (CollectCache.append) gives the boolean-mask
   append's rows and count bit for bit, counts the rows past the
   capacity, and check() raises on them.
-* A frame whose re-trace overflows is rendered again eagerly, bit for
-  bit, and counted; a graphed frame's merge, khit and stream launch
-  counts equal the eager frame's; a padded light band logs and splats
+* A frame whose re-trace overflows at a cut cap is rendered again
+  eagerly, bit for bit, and counted; a graphed frame's merge, khit and
+  stream launch counts equal the eager frame's (plus one first round for
+  each empty masked dispatch, the rounds past the first from the device
+  counts, on a two-level masked frame); a padded light band logs and splats
   nothing; the sharded graphed frame (ranks as threads) equals the
   unsharded one; graph=True is refused where graphs cannot run.
 """
@@ -325,46 +327,72 @@ def test_graph_frame_matches_jax(name, procedural, standin):  # noqa: F811
     _assert_films_agree(film.numpy(), _jax_frame(js, ts, meta, "vcm"))
 
 
-@pytest.mark.parametrize("rounds", [tt.RETRACE_ROUNDS, 1])
+@pytest.mark.parametrize("rounds", [tt.RETRACE_MAX_ROUNDS, 1])
 def test_overflowing_frame_is_rendered_again(rounds, two_level_masked,
                                              standin,
                                              monkeypatch):  # noqa: F811
-    """The two-level masked scene with one re-trace round: a transparent
-    hit overflows, and the frame is rendered again eagerly, bit for bit,
-    and counted."""
+    """The two-level masked scene with the re-trace capped at one round:
+    a transparent hit overflows at the cap, and the frame is rendered
+    again eagerly, bit for bit, and counted."""
     scene, meta = two_level_masked
-    monkeypatch.setattr(tt, "RETRACE_ROUNDS", rounds)
+    monkeypatch.setattr(tt, "RETRACE_MAX_ROUNDS", rounds)
+    for k in ("dropped", "capped"):
+        monkeypatch.setitem(tt.MASK_STATS, k, 0)
     (ef, en), (gf, gn) = _frames(scene, meta, "vcm", 32, 24, 300,
                                  light_band=128, camera_band=320, frame=1)
     np.testing.assert_array_equal(gf, ef)
     assert gn == en
     assert graphs.GRAPH_STATS["reruns"] == (1 if rounds == 1 else 0)
+    assert tt.MASK_STATS["dropped"] == 0
+    assert (tt.MASK_STATS["capped"] > 0) == (rounds == 1)
 
 
-def test_replays_count_the_frames_launches(procedural, standin):  # noqa: F811
+@pytest.mark.parametrize("name", ["cornell", "two_level"])
+def test_replays_count_the_frames_launches(name, procedural, two_level_masked,
+                                           standin,
+                                           monkeypatch):  # noqa: F811
     """A graphed frame counts the eager frame's merge, khit and stream
-    launches (plain versions on the CPU).  On the cornell: a masked
-    dispatch's graph-ready re-trace runs its fixed rounds, where the
-    eager one stops when its lanes are resolved."""
-    _, ts, meta = procedural["cornell"]
-    cam = _cam(ts, meta, 32, 32)
+    launches (plain versions on the CPU).  On the two-level masked scene
+    (frame 1 re-traces) the stream dispatches are the eager frame's plus
+    one first round for each empty masked dispatch, and the masked
+    traversal counts (rounds past the first from the device counts) the
+    eager frame's."""
+    if name == "two_level":
+        ts, meta = two_level_masked
+        w, h, number = 32, 24, 1
+    else:
+        _, ts, meta = procedural["cornell"]
+        w, h, number = 32, 32, 3
+    cam = _cam(ts, meta, w, h)
 
     def frame(graph):
         for reset in (st.reset_launches, kh.reset_launches,
                       tmerge.reset_launches):
             reset()
-        tvcm.render_vcm_frame(ts, cam, 3, RADIUS, graph=graph,
+        for k in tt.MASK_STATS:
+            monkeypatch.setitem(tt.MASK_STATS, k, 0)
+        tvcm.render_vcm_frame(ts, cam, number, RADIUS, graph=graph,
                               light_band=128, camera_band=320,
-                              **_frame_kw(ts, meta, "vcm", 32, 32, 300))
-        return (dict(st.LAUNCHES), dict(kh.LAUNCHES), dict(tmerge.LAUNCHES))
+                              **_frame_kw(ts, meta, "vcm", w, h, 300))
+        return (dict(st.LAUNCHES), dict(kh.LAUNCHES), dict(tmerge.LAUNCHES),
+                dict(tt.MASK_STATS))
 
     frame(True)                                   # captures, warms up
     captures = graphs.GRAPH_STATS["captures"]
     eager, graphed = frame(False), frame(True)
-    assert graphed == eager
+    assert graphs.GRAPH_STATS["captures"] == captures
+    assert graphs.GRAPH_STATS["reruns"] == 0
+    assert graphed[1:3] == eager[1:3]
     assert eager[0]["plain"] > 0 and eager[2]["plain"] > 0
     assert eager[2]["prep_plain"] > 0
-    assert graphs.GRAPH_STATS["captures"] == captures
+    mask, eager_mask = graphed[3], eager[3]
+    empty = mask["empty"]
+    assert graphed[0] == dict(eager[0], plain=eager[0]["plain"] + empty)
+    assert mask["rounds"] == eager_mask["rounds"] + empty
+    for k in ("dispatches", "empty", "max_rounds", "max_lanes", "dropped",
+              "capped"):
+        assert mask[k] == eager_mask[k], k
+    assert eager_mask["max_rounds"] == (0 if name == "cornell" else 2)
 
 
 @pytest.mark.parametrize("algo", ["vcm", "bpt"])

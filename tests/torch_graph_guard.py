@@ -4,12 +4,15 @@ by tests/test_torch_graphs.py and tests/test_torch_vcm_graphs.py.
 * StandInGraph and the `standin` fixture: the graph object on the CPU,
   where graphs do not exist; it runs the captured step at each replay,
   so the route's bookkeeping (static state, padding of short bands,
-  keys, launch deltas, the overflow counter and the eager rerun) runs as
-  it does on the card.
+  keys, launch deltas, the device counts, the overflow counter and the
+  eager rerun) runs as it does on the card.  Its while loops run their
+  body once at the capture, as a capture runs the body's Python once,
+  and at a replay while their flag is true, as a WHILE node does.
 * no_sync: a context that raises HostRead on any host read of a tensor
   and on any tensor made from host data, as a failed capture would; the
   kernel wrappers' plain versions, which stand for one launch each on
-  the card, run with it lifted.
+  the card, and the host read of a while loop's flag, which a WHILE
+  node makes on the card, run with it lifted.
 """
 
 import contextlib
@@ -28,10 +31,21 @@ class StandInGraph:
     """The graph object on the CPU: capture() runs the bounce once, as a
     capture runs its Python, and puts back the tensors it wrote, as a
     capture launches nothing; replay() runs it again with the launch
-    counters held, as a replay ticks none of them."""
+    counters held, as a replay ticks none of them.  while_loop() runs
+    the body once at the capture and, at a replay, while the flag is
+    true."""
 
-    def __init__(self, device, pool):
+    def __init__(self, sg):
         self.fn = None
+
+    def while_loop(self, cond, body):
+        if self.fn is None:
+            cond()
+            body()
+            cond()
+            return
+        while graphs._host_flag(cond()):
+            body()
 
     def capture(self, fn, state):
         saved = [t.clone() for t in state]
@@ -82,8 +96,9 @@ def no_sync(monkeypatch):
     """Raise HostRead on any host read of a tensor and on any tensor made
     from host data while the body runs; the kernel wrappers' plain
     versions (st.traverse, kh.khit, merge_plain, whose pair_chunks reads
-    its pair count), which stand for one launch each on the card, run
-    unguarded."""
+    its pair count), which stand for one launch each on the card, and
+    graphs._host_flag, a while loop's flag, read by a WHILE node on the
+    card, run unguarded."""
     T = torch.Tensor
 
     def refuse(name, orig):
@@ -113,7 +128,7 @@ def no_sync(monkeypatch):
             return _orig(self, idx, *a)
         monkeypatch.setattr(T, name, index)
     for mod, name in ((st, "traverse"), (kh, "khit"),
-                      (merge_mod, "merge_plain")):
+                      (merge_mod, "merge_plain"), (graphs, "_host_flag")):
         orig = getattr(mod, name)
 
         def kernel(*a, _orig=orig, **k):
