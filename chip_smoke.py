@@ -8,8 +8,9 @@ failure raises and the script exits non-zero:
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile csrc/stream_traverse.cu, csrc/khit_traverse.cu,
    csrc/merge_kernel.cu, csrc/pairs_kernel.cu (the pair route's
-   candidates, queue, pair and resolve kernels) and csrc/graph_cond.cu
-   (the WHILE conditional nodes of render/graphs.py) with nvcc and
+   candidates, queue, pair and resolve kernels), csrc/pt_shade.cu (the PT
+   bounce's shading) and csrc/graph_cond.cu (the WHILE conditional nodes
+   of render/graphs.py) with nvcc and
    csrc/bvh_builder.cpp with g++, all at once, into
    build/imbatracer_torch/; print each kernel entry's ptxas register,
    static shared-memory and spill lines.
@@ -47,13 +48,32 @@ failure raises and the script exits non-zero:
    hit and the next one, which either version may keep).  Times both on
    the still-life bounce rays (`ms` the one launch with its candidate
    stage), and counts the kernel's work, as in 3.
+4b. Shade kernels vs plain: the PT bounce's shading kernels
+   (ops/shade.py: pt_shade_kernel and pt_shade_finish_kernel of
+   csrc/pt_shade.cu) against their plain versions on the same carry and
+   closest hit, run on the card: the middle NUM_RAYS band (whole rows) of
+   PT frame 1 of the still life at 1920x1080 at bounce 0 and after 3
+   bounces, of the cornell at 1024^2 after 1 and of the bumped scene at
+   1024^2 at bounce 0 (phase 8a: the instanced scene at 1920x1080 after
+   1).  Per column of the next carry, the shadow ray, contrib and the
+   finish: the bit-equal share of the lanes, the share within 1e-5 *
+   max(1, |x|) and the max relative error; the RNG state and the counts
+   must be equal on every lane, active, depth, last_specular and the
+   shadow flag on >= 99.99% of the lanes, each float column within on >=
+   99.9%.  Each kernel timed alone (CUDA events, 10 launches) beside the
+   plain composite (3 calls) and its bound (shade_bytes: the lanes'
+   columns in and out, the distinct shade-record and light rows; or
+   SHADE_LANE_OPS float instructions a lane, whichever is larger), and
+   the kernels' registers, spills and resident blocks.
 5. Main paths, each with every launch counter set to 0 just before its
    timed frames and read just after them: (a) make_frame_fn +
    ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
    1024^2, spp 1, max_len 6, and (b) of the cornell at 1024^2, max_len
    10 -- both stream-kernel entry points must have launched, no plain
    version (superchunk_candidates, the plain candidate stage, included;
-   so in every phase below) may have run; (c) the
+   so in every phase below, the plain shading too) may have run, and
+   pt_shade and pt_shade_finish once each a band-bounce (a graph
+   replay); (c) the
    still-life proxy (alpha masks + env map) at 1920x1080, spp 1,
    max_len 8: one warm-up frame, reset(), 8 frames, as the JAX package's
    curve (results/curves_r5/curve_still_life_pt_1080p.csv) was taken --
@@ -63,7 +83,9 @@ failure raises and the script exits non-zero:
    still-life frame is traced with torch.profiler (device busy time, idle
    share, kernel count, the kernels and host ops that take longest).
    Films must be finite with a positive mean.
-6. Film parity: the cornell and the masked scene at 64^2, spp 16,
+6. Film parity: the cornell, the masked scene, a small still life
+   (make_still_life_like(num_objects=40, num_cards=16): the env map, masks
+   and every material kind) and the bumped scene at 64^2, spp 16,
    max_len 10, rendered on the card and on the CPU (plain versions); the
    films must agree to a mean relative difference <= 1% with >= 95% of
    pixels within 1e-3 relative (RR decisions flipped by last-ulp
@@ -214,7 +236,8 @@ failure raises and the script exits non-zero:
    each route (torch.profiler: wall, device busy, idle share, kernels,
    and the host's cudaLaunchKernel and cudaGraphLaunch calls).  Films
    must be bit-equal on >= 99.99% of pixels, traced rays equal, no
-   plain version run, no frame rendered again.  On the masked cells
+   plain version run, no frame rendered again, pt_shade and
+   pt_shade_finish launched once a band-bounce on both routes.  On the masked cells
    (hold_rounds): the rounds a non-empty masked dispatch ran, mean and
    most, graphed (from the device counts of render/graphs.py) and eager,
    against the cap (render/traverse.py's KHIT_MAX_ROUNDS or
@@ -281,7 +304,8 @@ failure raises and the script exits non-zero:
    the larger of its bytes over 3.35 TB/s and the float32 instructions
    its counting launch tallied over 33.5e12/s, the candidate stage's slab
    tests included and padding chunks, which the kernels skip, not, see
-   bound(), pair_bound(), pair_candidates_bound() and merge_bound();
+   bound(), pair_bound(), pair_candidates_bound() and merge_bound(), the
+   shade kernels' of phase 4b's first cell (shade_bound());
    `route_ms` on the pair and merge entries: the route, merge_contrib;
    `split_ms` and `split_launches` on the khit and stream entries: the
    kernel at the split build, phase 10a, and its launches on phase 10b's
@@ -338,6 +362,12 @@ REPLACES = {
                     " and the fallback test, around pallas_call :397)",
     "merge_prep": "imbatracer_tpu/ops/pallas_merge.py:497 (merge_contrib's "
                   "query preparation, around pallas_call :469)",
+    "pt_shade": "imbatracer_tpu/render/integrators/pt.py:241 (_pt_bounce's "
+                "shading between its traversal calls, XLA-fused in _pt_band "
+                ":536; no pallas_call)",
+    "pt_shade_finish": "imbatracer_tpu/render/integrators/pt.py:241 "
+                       "(_pt_bounce's NEE add after its any_hit, XLA-fused; "
+                       "no pallas_call)",
 }
 # The same functions when their glue was torch ops (the route's candidates,
 # queue and resolve; merge_contrib's query preparation and un-permutation),
@@ -501,6 +531,7 @@ def reset_counters():
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
@@ -509,6 +540,7 @@ def reset_counters():
     kh.reset_launches()
     mg.reset_launches()
     pm.reset_launches()
+    sh.reset_launches()
     graphs.reset_stats()
     for k in tt.MASK_STATS:
         tt.MASK_STATS[k] = 0
@@ -518,6 +550,7 @@ def counters():
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
@@ -531,6 +564,9 @@ def counters():
                 merge=mg.LAUNCHES["merge"], merge_prep=mg.LAUNCHES["prep"],
                 merge_plain=sum(mg.LAUNCHES[k] for k in mg.PLAIN_KEYS),
                 pairs_plain=sum(pm.LAUNCHES[k] for k in pm.PLAIN_KEYS),
+                pt_shade=sh.LAUNCHES["pt_shade"],
+                pt_shade_finish=sh.LAUNCHES["pt_shade_finish"],
+                shade_plain=sum(sh.LAUNCHES[k] for k in sh.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
                 fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS,
                 **{f"graph_{k}": v for k, v in graphs.GRAPH_STATS.items()})
@@ -538,9 +574,21 @@ def counters():
 
 def plain_runs(got):
     """Calls of any plain version (stream, candidate stage, khit, the
-    merge and its preparation, every step of the pair route)."""
+    merge and its preparation, every step of the pair route, the PT
+    shading and its finish)."""
     return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
-            + got["merge_plain"] + got["pairs_plain"])
+            + got["merge_plain"] + got["pairs_plain"] + got["shade_plain"])
+
+
+def hold_shade_launches(label, got):
+    """A PT main path's shade launches: one pt_shade and one
+    pt_shade_finish a band-bounce, a graph replay each."""
+    if not (got["pt_shade"] == got["pt_shade_finish"] == got["graph_replays"]
+            > 0):
+        raise AssertionError(f"{label}: {got['pt_shade']} pt_shade and "
+                             f"{got['pt_shade_finish']} pt_shade_finish "
+                             f"launches over {got['graph_replays']} "
+                             f"band-bounces")
 
 
 def bound(rays, sbox, tiles, out_cols, work, insert_ops=0, inst=None):
@@ -826,6 +874,202 @@ def compare_khit(scene, meta, label, dev, st, kh, stats):
                 lambda: kh.khit_plain(rays, sbox, tiles), 2)
 
 
+# The shade phase's gates (hold_shade): the RNG state equal on every lane,
+# the flags on SHADE_FLAGS of the lanes, float columns within SHADE_REL *
+# max(1, |x|) on SHADE_FLOATS of the lanes.
+SHADE_FLAGS = 0.9999
+SHADE_FLOATS = 0.999
+SHADE_REL = 1e-5
+# Float instructions a lane of pt_shade_kernel issues at the least (a
+# diffuse lane with a triangle light: the interaction ~60, the light
+# sample ~45, the BSDF eval ~70, the sample ~60, MIS, RR and the outputs
+# ~40; transcendentals and divisions counted as one), for the bound.
+SHADE_LANE_OPS = 275
+# Bytes of a lane's columns: in (org, d, tmin, throughput, radiance,
+# active, depth, last_pdf, last_specular, state; the hit's t, prim_id, u,
+# v) and out (the next carry; the shadow ray's pos, dir, tmin, tmax, ok;
+# contrib).
+SHADE_LANE_IN = 12 + 12 + 4 + 12 + 12 + 1 + 4 + 4 + 1 + 8 + 16
+SHADE_LANE_OUT = 12 + 12 + 4 + 12 + 12 + 1 + 4 + 4 + 1 + 8 + 33 + 12
+# The finish kernel's lane: radiance, contrib, shadow_ok, occluded in,
+# radiance out.
+FINISH_LANE_BYTES = 12 + 12 + 1 + 1 + 12
+
+
+def shade_carry(scene, meta, width, height, max_len, bounces, dev):
+    """The middle band (up to NUM_RAYS lanes, whole rows) of PT frame 1
+    at width x height after `bounces` bounces (the bounce as the renderer
+    runs it, through the shade kernels), with its closest hit: (carry,
+    hit, alpha_fn)."""
+    from imbatracer_torch.frontend.renderer import (RenderSettings,
+                                                    camera_for_scene)
+    from imbatracer_torch.render.integrators import pt
+    from imbatracer_torch.render.intersect import BIG
+    from imbatracer_torch.render.traverse import closest_hit
+
+    cam = camera_for_scene(meta, RenderSettings(width=width, height=height),
+                           dev)
+    n = min(NUM_RAYS, width * height)
+    start = (width * height - n) // 2 // width * width
+    org, d, state, _ = pt.camera_rays(cam, width, height, 1, 1,
+                                      start_pixel=start, count=n)
+    c = pt._init_carry(org, d, state)
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    for _ in range(bounces):
+        c = pt._pt_bounce(scene, c, alpha_fn=alpha_fn, has_bump=meta.has_bump,
+                          max_len=max_len)
+    hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                      alpha_fn=alpha_fn, active=c["active"], sort=True)
+    return c, hit, alpha_fn
+
+
+def hold_column(k, p):
+    """(bit-equal share, within-tolerance share, max rel err, max abs err)
+    of a kernel column against the plain one, lane by lane (a lane's
+    components together; NaN equal to NaN).  Rel err: |k - p| / max(1,
+    |p|) over the lanes where both are finite."""
+    if k.dtype != torch.float32:
+        eq = (k == p).reshape(k.shape[0], -1).all(dim=1) if k.dim() else (
+            k == p).reshape(1)
+        share = float(eq.double().mean())
+        return share, share, 0.0, 0.0
+    kk, pp = k.reshape(k.shape[0], -1), p.reshape(p.shape[0], -1)
+    nan = torch.isnan(kk) & torch.isnan(pp)
+    bits = (kk.view(torch.int32) == pp.view(torch.int32)) | nan
+    fin = torch.isfinite(kk) & torch.isfinite(pp)
+    diff = torch.where(fin, (kk - pp).abs(), 0.0)
+    rel = diff / torch.clamp(pp.abs(), min=1.0)
+    within = bits | (fin & (rel <= SHADE_REL))
+    return (float(bits.all(dim=1).double().mean()),
+            float(within.all(dim=1).double().mean()), float(rel.max()),
+            float(diff.max()))
+
+
+def shade_bytes(scene, c, hit):
+    """(bytes, detail): what pt_shade must move on this carry, each word
+    once: every lane's columns in and out, the distinct shade-record rows
+    its hits read (a miss reads row 0) and the distinct light rows its
+    NEE samples pick.  Texel and environment-table reads are not counted
+    (the bound stays a least time)."""
+    from imbatracer_torch.core import rng
+
+    lanes = c["active"].shape[0]
+    rows = int(torch.unique(hit.prim_id.clamp(min=0)).numel())
+    num_lights = scene.lights.kind.shape[0]
+    _, (ul,) = rng.next_floats(c["state"], 1)
+    picks = torch.clamp((ul * num_lights).to(torch.int32), max=num_lights - 1)
+    lights = int(torch.unique(picks).numel())
+    cols = scene.attrs.shade_rec.shape[1]
+    nbytes = (lanes * (SHADE_LANE_IN + SHADE_LANE_OUT) + rows * cols * 4
+              + lights * scene.lights.rec.shape[1] * 4)
+    return nbytes, dict(lanes=lanes, shade_rows=rows, shade_cols=cols,
+                        light_rows=lights)
+
+
+def shade_bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the float instructions over the float32 instruction rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def hold_shade(label, scene, meta, c, hit, alpha_fn, max_len, card, stats):
+    """`[shade]`: pt_shade_cuda and pt_shade_finish_cuda against their
+    plain versions on the same carry and hit on the card, column by
+    column (bit-equal share, share within SHADE_REL, max rel and abs
+    err), gated as SHADE_FLAGS and SHADE_FLOATS say; each kernel timed
+    alone (CUDA events, 10 launches) beside its plain composite and its
+    bound.  Records the largest abs err and the first cell's times in
+    `stats`."""
+    from imbatracer_torch.ops import shade as sh
+    from imbatracer_torch.render.traverse import any_hit
+
+    kw = dict(has_bump=meta.has_bump, max_len=max_len)
+    k_nxt, k_sh, k_con = sh.pt_shade_cuda(scene, c, hit, **kw)
+    p_nxt, p_sh, p_con = sh.pt_shade_plain(scene, c, hit, **kw)
+    occ = any_hit(scene.bvh, p_sh.pos, p_sh.dir, p_sh.tmin, p_sh.tmax,
+                  alpha_fn=alpha_fn, active=p_sh.ok, sort=True)
+    fin_args = (p_nxt["radiance"], p_con, p_sh.ok, occ, p_nxt["n_rays"])
+    k_fin = sh.pt_shade_finish_cuda(*fin_args)
+    p_fin = sh.pt_shade_finish_plain(*fin_args)
+    torch.cuda.synchronize()
+    cols = {k: (k_nxt[k], p_nxt[k]) for k in p_nxt}
+    cols.update({f"shadow.{k}": (getattr(k_sh, k), getattr(p_sh, k))
+                 for k in sh.ShadowRay._fields})
+    cols["contrib"] = (k_con, p_con)
+    cols["finish.radiance"] = (k_fin[0], p_fin[0])
+    cols["finish.n_rays"] = (k_fin[1], p_fin[1])
+    flags = ("active", "depth", "last_specular", "shadow.ok")
+    bad, parts, err = [], [], {}
+    for name, (k, p) in cols.items():
+        bits, within, rel, abs_err = hold_column(k, p)
+        parts.append(f"{name} {bits:.6f}" + (f"/{within:.6f} rel "
+                     f"{rel:.2e}" if k.dtype == torch.float32 else ""))
+        err[name] = abs_err
+        need = (1.0 if name in ("state", "n_rays", "finish.n_rays") else
+                SHADE_FLAGS if name in flags else
+                SHADE_FLOATS if k.dtype == torch.float32 else 1.0)
+        if within < need:
+            bad.append(f"{name} {within:.6f} < {need}")
+    alive = float(c["active"].double().mean())
+    log(f"[shade] {label}: {c['active'].shape[0]} lanes, {alive:.4f} "
+        f"active, depths {sorted(set(c['depth'].tolist()))}; bit-equal"
+        f"/within {SHADE_REL} share a column: " + ", ".join(parts))
+    if bad:
+        raise AssertionError(f"[shade] {label}: the shade kernels disagree "
+                             f"with the plain versions: {bad}")
+    launch = partial(sh.pt_shade_cuda, scene, c, hit, **kw)
+    ms = cuda_ms(launch, 10)
+    plain_ms = cuda_ms(partial(sh.pt_shade_plain, scene, c, hit, **kw), 3)
+    fin_ms = cuda_ms(partial(sh.pt_shade_finish_cuda, *fin_args), 10)
+    fin_plain_ms = cuda_ms(partial(sh.pt_shade_finish_plain, *fin_args), 3)
+    lanes = c["active"].shape[0]
+    nbytes, detail = shade_bytes(scene, c, hit)
+    bound_ms, bound_by = shade_bound(nbytes, lanes * SHADE_LANE_OPS)
+    fin_bound = shade_bound(lanes * FINISH_LANE_BYTES, 0)
+    log(f"[time] pt_shade kernel, {label} [{card}]: kernel {ms:.3f} ms "
+        f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{nbytes} bytes {detail}); pt_shade_finish kernel {fin_ms:.4f} ms "
+        f"(plain {fin_plain_ms:.3f} ms, bound {fin_bound[0]:.4f} ms by "
+        f"bytes)")
+    stats["shade_err"] = max(stats.get("shade_err", 0.0), max(
+        v for k, v in err.items() if not k.startswith("finish.")))
+    stats["shade_finish_err"] = max(stats.get("shade_finish_err", 0.0),
+                                    err["finish.radiance"])
+    stats.setdefault("shade", (ms, None, (bound_ms, bound_by, detail)))
+    stats.setdefault("shade_plain_ms", plain_ms)
+    stats.setdefault("shade_finish", (fin_ms, None, (*fin_bound, {})))
+    stats.setdefault("shade_finish_plain_ms", fin_plain_ms)
+
+
+def shade_phase(dev, card, scenes, stats):
+    """Phase 4b: the shade kernels against their plain versions on one
+    NUM_RAYS band of the still life at bounce 0 and bounce 3, of the
+    cornell and of the bumped scene (the instanced scene's band: phase
+    8a), with the kernels' resources."""
+    from imbatracer_torch.ops import shade as sh
+    from imbatracer_torch.scene.procedural import make_bumped_scene
+
+    phase("4b shade kernels vs plain")
+    cells = (("still_life 1920x1080 bounce 0", scenes["still_life"], 1920,
+              1080, 8, 0),
+             ("still_life 1920x1080 bounce 3", scenes["still_life"], 1920,
+              1080, 8, 3),
+             ("cornell 1024x1024 bounce 1", scenes["cornell"], 1024, 1024, 10,
+              1),
+             ("bumped 1024x1024 bounce 0", make_bumped_scene(device=dev),
+              1024, 1024, 10, 0))
+    for label, (scene, meta), w, h, max_len, bounces in cells:
+        c, hit, alpha_fn = shade_carry(scene, meta, w, h, max_len, bounces,
+                                       dev)
+        hold_shade(label, scene, meta, c, hit, alpha_fn, max_len, card,
+                   stats)
+    for finish in (False, True):
+        log_resources("pt_shade_finish kernel" if finish else
+                      "pt_shade kernel", sh.resources(finish), card)
+
+
 def main_path(scene, meta, label, width, height, max_len, frames, card,
               warmup_reset=False):
     """Drive make_frame_fn + ProgressiveRenderer on the card: a warm-up
@@ -943,7 +1187,7 @@ def profile_frame(renderer, label, card, top=8):
                 f"{name[:80]}")
 
 
-def film_parity(dev, label, builder, has_masks):
+def film_parity(dev, label, builder):
     from imbatracer_torch.render.camera import make_camera
     from imbatracer_torch.render.integrators.pt import render_pt_frame
 
@@ -954,7 +1198,7 @@ def film_parity(dev, label, builder, has_masks):
                           60.0, device=where)
         films[str(where)] = render_pt_frame(
             scene, cam, 5, 64, 64, spp=16, max_len=10,
-            has_masks=has_masks).cpu().numpy()
+            has_masks=meta.has_masks, has_bump=meta.has_bump).cpu().numpy()
     g, c = films[str(dev)], films["cpu"]
     mean_rel = abs(float(g.mean()) - float(c.mean())) / float(c.mean())
     rel = np.abs(g - c) / np.maximum(np.abs(c), 1e-3)
@@ -1682,6 +1926,11 @@ def instanced_phase(dev, card, big, stats):
                    and k.startswith("fallback instanced")):
             raise AssertionError("the saturation fallback re-traced no ray "
                                  "on the instanced scene")
+        w, h = INST_SIZE
+        c, hit, alpha_fn = shade_carry(scene, meta, w, h, 8, 1, dev)
+        hold_shade(f"instanced {w}x{h} bounce 1", scene, meta, c, hit,
+                   alpha_fn, 8, card, stats)
+        del c, hit
 
         # (b) The main path: the CLI, then make_frame_fn + the renderer.
         phase("8b the CLI and the instanced vcm main path")
@@ -2645,10 +2894,14 @@ def hold_graph_cell(cell, runs, traced, card):
     for r in g + e:
         ok = ok and bool(torch.isfinite(r["film"]).all()) and not plain_runs(
             r["launches"])
+        ok = ok and (r["launches"]["pt_shade"]
+                     == r["launches"]["pt_shade_finish"]
+                     == r["route"]["band_bounces"])
     n = len(g)
     mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
     each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
-    keys = ROUTE_KEYS[:5] + ("graph_captures", "graph_replays",
+    keys = ROUTE_KEYS[:5] + ("pt_shade", "pt_shade_finish",
+                             "graph_captures", "graph_replays",
                              "graph_reruns")
     per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
                       for k in keys}
@@ -3035,9 +3288,11 @@ def run():
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.render import graphs
     from imbatracer_torch.scene.procedural import (make_big_scene,
+                                                   make_bumped_scene,
                                                    make_cornell_scene,
                                                    make_leaf_scene,
                                                    make_masked_scene,
@@ -3053,12 +3308,14 @@ def run():
 
     phase("2 build")
     t0 = time.time()
-    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, graphs.COND_LIB, native.LIB)
+    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, graphs.COND_LIB,
+            native.LIB)
     paths = libbuild.build_all(libs)
     st._library()
     kh._library()
     mg._library()
     pm._library()
+    sh._library()
     graphs._cond_library()
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
         + ", ".join(os.path.relpath(p) for p in paths))
@@ -3102,6 +3359,7 @@ def run():
     log_time(f"khit kernel, S={num_s}, {NUM_RAYS} sorted still-life bounce "
              f"rays", stats["khit"], stats["khit_plain_ms"], card)
     log_resources(f"khit kernel, S={num_s}", kh.resources(num_s), card)
+    shade_phase(dev, card, scenes, stats)
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
@@ -3113,6 +3371,7 @@ def run():
         if got["closest_hit"] == 0 or got["any_hit"] == 0 or plain_runs(got):
             raise AssertionError(f"{label}: the main path did not run "
                                  f"through the stream kernel")
+        hold_shade_launches(label, got)
         for k in stream_launches:
             stream_launches[k] += got[k]
 
@@ -3126,6 +3385,7 @@ def run():
     if sl_got["khit"] == 0 or plain_runs(sl_got):
         raise AssertionError("still_life: the main path did not run through "
                              "the khit kernel")
+    hold_shade_launches("still_life", sl_got)
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "goldens", "still_life_1080p_len8.png")
     sl_image = renderer.image()       # phase 10b's yardstick
@@ -3140,8 +3400,11 @@ def run():
     profile_frame(renderer, "still_life 1920x1080 max_len 8", card)
 
     phase("6 film parity")
-    film_parity(dev, "cornell", make_cornell_scene, False)
-    film_parity(dev, "masked", make_masked_scene, True)
+    film_parity(dev, "cornell", make_cornell_scene)
+    film_parity(dev, "masked", make_masked_scene)
+    film_parity(dev, "small still life", partial(
+        make_still_life_like, num_objects=40, num_cards=16))
+    film_parity(dev, "bumped", make_bumped_scene)
 
     # The VCM family (phase 7).
     phase("7 the VCM family: merge parity and the still-life vcm main path")
@@ -3209,6 +3472,13 @@ def run():
                      stats["khit"], stats["khit_plain_ms"],
                      split=(stats["sbvh", "split", "khit"],
                             split_got["khit"])),
+        kernel_entry("pt_shade", src + "pt_shade.cu", REPLACES["pt_shade"],
+                     sl_got["pt_shade"], stats["shade_err"], stats["shade"],
+                     stats["shade_plain_ms"]),
+        kernel_entry("pt_shade_finish", src + "pt_shade.cu",
+                     REPLACES["pt_shade_finish"], sl_got["pt_shade_finish"],
+                     stats["shade_finish_err"], stats["shade_finish"],
+                     stats["shade_finish_plain_ms"]),
         kernel_entry("merge_contrib", src + "merge_kernel.cu",
                      REPLACES["merge"], vcm_got["merge"], stats["merge_err"],
                      stats["merge"], stats["merge_plain_ms"], route_ms=True),

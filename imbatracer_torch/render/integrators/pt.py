@@ -6,10 +6,12 @@ lockstep wavefront: a Python loop of `max_len` bounces, every bounce
 traversing, shading and extending all lanes under an active mask
 (environment-miss and emitter-hit MIS, one uniformly picked light for
 NEE with an any-hit shadow ray, BSDF sampling with Russian roulette).
-Scenes with alpha masks traverse through the masked route (`alpha_fn_for`,
-render/traverse.py).  The per-ray RNG state
-rides in the carry, so the estimator matches the JAX package's path for
-path.
+The shading runs in ops/shade.py: on the card two hand-written CUDA
+kernels a bounce, one on each side of the shadow ray (the counterpart
+of the XLA fusions of JAX's compiled band), on the CPU their plain
+versions.  Scenes with alpha masks traverse through the masked route
+(`alpha_fn_for`, render/traverse.py).  The per-ray RNG state rides in
+the carry, so the estimator matches the JAX package's path for path.
 
 Mid-frame lane compaction (the JAX module's compacted frame, after the
 reference's RayQueue::compact): Russian roulette, misses and emitter hits
@@ -42,17 +44,12 @@ import numpy as np
 import torch
 
 from ...core import rng as rng_mod
-from ...core.sampling import mis_power_heuristic, russian_roulette_prob
-from ...core.vecmath import dot, normalize
+from ...ops import shade as shade_mod
 from ...scene.textures import _mask_texel_opaque, _wrap_uv
-from .. import envmap as envmap_mod
 from .. import graphs as graphs_mod
-from .. import lights as light_mod
-from .. import materials as mat_mod
 from .. import traverse as tt
 from ..camera import Camera, generate_ray
 from ..intersect import BIG
-from ..surface import make_interaction
 from ..traverse import any_hit, closest_hit
 
 # Rays per band: the lockstep wavefront's width.
@@ -104,99 +101,24 @@ def _init_carry(org, d, state):
 
 
 def _pt_bounce(scene, c, *, alpha_fn, has_bump, max_len, overflow=None):
-    """One PT bounce for every lane of the carry.  With `overflow`, a 0-d
-    int32 device tensor, masked traversal takes the graph-ready re-trace
-    (render/traverse.py) and the bounce reads nothing on the host."""
-    num_lights = scene.lights.kind.shape[0]
-    first = c["depth"] == 0
+    """One PT bounce for every lane of the carry: the closest hit, the
+    shading (ops/shade.py: the env and emitter MIS terms, NEE light
+    sampling, Russian roulette, BSDF sampling), the shadow ray's any hit
+    and the NEE add.  With `overflow`, a 0-d int32 device tensor, masked
+    traversal takes the graph-ready re-trace (render/traverse.py) and
+    the bounce reads nothing on the host."""
     hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
                       alpha_fn=alpha_fn, active=c["active"], sort=True,
                       overflow=overflow)
-    n_rays = c["n_rays"] + c["active"].sum()
-
-    # ---- environment misses ----------------------------------------------
-    miss = c["active"] & (hit.prim_id < 0)
-    radiance = c["radiance"]
-    if scene.env is not None:
-        li, pdf_direct_w, _ = envmap_mod.radiance(
-            scene.env, normalize(c["d"]), scene.bsphere.inv_radius_sqr)
-        pdf_di = pdf_direct_w / num_lights
-        w = torch.where(first | c["last_specular"], 1.0,
-                        mis_power_heuristic(c["last_pdf"], pdf_di))
-        radiance = radiance + torch.where(
-            miss[..., None], c["throughput"] * li * w[..., None], 0.0)
-    active = c["active"] & ~miss
-
-    isect = make_interaction(scene, hit, c["org"], c["d"], has_bump=has_bump)
-
-    # ---- emitter hits ----------------------------------------------------
-    is_emitter = active & (isect.light_id >= 0)
-    cos_geom = dot(isect.gn, isect.w_out)
-    cos_shade = dot(isect.normal, isect.w_out)
-    area = torch.clamp(isect.area, min=1e-12)
-    d_sqr = hit.t * hit.t
-    pdf_di_emit = (1.0 / area) / num_lights * d_sqr / torch.where(
-        cos_shade <= 0.0, 1.0, cos_shade)
-    w_emit = torch.where(first | c["last_specular"], 1.0,
-                         mis_power_heuristic(c["last_pdf"], pdf_di_emit))
-    emit_ok = is_emitter & (cos_geom > 0.0) & (cos_shade > 0.0)
-    radiance = radiance + torch.where(
-        emit_ok[..., None], c["throughput"] * isect.emit * w_emit[..., None],
-        0.0)
-    active = active & ~is_emitter
-
-    # ---- next-event estimation -------------------------------------------
-    st, (ul, ua, ub) = rng_mod.next_floats(c["state"], 3)
-    light_idx = torch.clamp((ul * num_lights).to(torch.int32),
-                            max=num_lights - 1)
-    ds = light_mod.sample_direct(scene.lights, light_idx, isect.pos, ua, ub,
-                                 scene.bsphere, scene.env,
-                                 kinds=scene.light_kinds)
-    f_nee, pdf_hit, _ = mat_mod.eval_pdf_bsdf(
-        isect.params, isect.normal, isect.gn, isect.w_out, ds.dir,
-        kinds=scene.mat_kinds)
-    pdf_lightpick = 1.0 / num_lights
-    pdf_di = pdf_lightpick * ds.pdf_direct_w
-    w_nee = torch.where(ds.is_delta, 1.0,
-                        pdf_di / torch.clamp(pdf_di + pdf_hit, min=1e-20))
-    contrib = (c["throughput"] * f_nee * ds.radiance
-               * (torch.abs(dot(isect.normal, ds.dir)) * w_nee
-                  / pdf_lightpick)[..., None])
-    shadow_ok = (active & (pdf_hit > 0.0) & (pdf_di > 0.0)
-                 & torch.any(contrib > 0.0, dim=-1))
-    offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
-    occluded = any_hit(scene.bvh, isect.pos, ds.dir, offset,
-                       ds.distance - offset, alpha_fn=alpha_fn,
-                       active=shadow_ok, sort=True, overflow=overflow)
-    radiance = radiance + torch.where((shadow_ok & ~occluded)[..., None],
-                                      contrib, 0.0)
-    n_rays = n_rays + shadow_ok.sum()
-
-    # ---- bounce ----------------------------------------------------------
-    st, (urr, u1, u2, u3) = rng_mod.next_floats(st, 4)
-    rr_pdf = russian_roulette_prob(c["throughput"])
-    survive = urr < rr_pdf
-    wi, f, pdf, spec, valid = mat_mod.sample_bsdf(
-        isect.params, isect.normal, isect.gn, isect.w_out, u1, u2, u3,
-        kinds=scene.mat_kinds)
-    cos_term = torch.abs(dot(isect.normal, wi))
-    new_throughput = c["throughput"] * f * (
-        cos_term / torch.clamp(pdf * rr_pdf, min=1e-20))[..., None]
-    active = active & survive & valid & (c["depth"] + 1 < max_len)
-    a3 = active[..., None]
-    return dict(
-        org=torch.where(a3, isect.pos, c["org"]),
-        d=torch.where(a3, wi, c["d"]),
-        tmin=torch.where(active, 1e-3 * hit.t, c["tmin"]),
-        throughput=torch.where(a3, new_throughput, c["throughput"]),
-        radiance=radiance,
-        active=active,
-        depth=torch.where(active, c["depth"] + 1, c["depth"]),
-        last_pdf=torch.where(active, pdf, c["last_pdf"]),
-        last_specular=torch.where(active, spec, c["last_specular"]),
-        state=st,
-        n_rays=n_rays,
-    )
+    nxt, shadow, contrib = shade_mod.pt_shade(scene, c, hit,
+                                              has_bump=has_bump,
+                                              max_len=max_len)
+    occluded = any_hit(scene.bvh, shadow.pos, shadow.dir, shadow.tmin,
+                       shadow.tmax, alpha_fn=alpha_fn, active=shadow.ok,
+                       sort=True, overflow=overflow)
+    nxt["radiance"], nxt["n_rays"] = shade_mod.pt_shade_finish(
+        nxt["radiance"], contrib, shadow.ok, occluded, nxt["n_rays"])
+    return nxt
 
 
 def _trace(scene, c, bounces, *, alpha_fn, has_bump, max_len):

@@ -9,7 +9,7 @@ shading normal flipped into the geometric normal's hemisphere.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
@@ -17,7 +17,11 @@ from ..core.sampling import local_coordinates
 from ..core.vecmath import dot, normalize
 from ..scene.textures import sample_bilinear
 from . import materials as mat_mod
-from .traverse import Hit
+
+if TYPE_CHECKING:
+    # Not at run time: render/traverse.py imports render/graphs.py, which
+    # imports ops/shade.py, which imports this module.
+    from .traverse import Hit
 
 
 class SurfaceInteraction(NamedTuple):

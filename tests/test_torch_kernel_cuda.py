@@ -3,8 +3,9 @@ instanced variant included, and csrc/khit_traverse.cu, also above the
 16,384 super-chunks a shared-memory candidate list holds, and over a
 packing that references a triangle from several leaves; the pair
 route's kernels csrc/pairs_kernel.cu; the photon-merge gather and its
-query preparation csrc/merge_kernel.cu) against their plain PyTorch
-versions on the same inputs.  Needs an
+query preparation csrc/merge_kernel.cu; the PT bounce's shading
+csrc/pt_shade.cu) against their plain PyTorch versions on the same
+inputs.  Needs an
 NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
 test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
@@ -23,7 +24,9 @@ mindrop equal, entry t as bits).  The card's pair queue holds the lanes
 of build_queue, run by run as sets, and segment_table's rows.  Merge sums
 agree within 1e-4 relative (only powf and torch.pow round differently),
 with equal counted work; the card's query rows equal prepare_queries' bit
-for bit.
+for bit.  The shade kernels' flags, RNG state and counts equal the plain
+versions', their float columns within 1e-5 * max(1, |x|) on >= 99.9% of
+the lanes (bit for bit expected: they round each op as torch does).
 """
 
 from functools import partial
@@ -966,3 +969,96 @@ def test_cuda_vcm_graph_films_equal_eager(cuda_device, algo, masked):
         assert gn == en and gl == el
     assert graphs.GRAPH_STATS["reruns"] == 0
     assert graphs.GRAPH_STATS["replays"] > 0
+
+
+# --------------------------------------------------------------------------
+# The PT bounce's shading (csrc/pt_shade.cu)
+# --------------------------------------------------------------------------
+
+def _shade_columns(nxt, shadow, contrib):
+    cols = dict(nxt)
+    cols.update({f"shadow.{k}": getattr(shadow, k) for k in shadow._fields})
+    cols["contrib"] = contrib
+    return cols
+
+
+def _hold_shade_column(name, k, p):
+    """Flags and the RNG state equal on every lane; a float column within
+    1e-5 * max(1, |x|) (NaN equal to NaN) on >= 99.9% of its lanes; the
+    kernel rounds every op as the plain version's torch ops do, so the
+    columns are expected bit for bit."""
+    assert k.shape == p.shape and k.dtype == p.dtype, name
+    if k.dtype != torch.float32:
+        assert torch.equal(k, p), name
+        return
+    k, p = k.reshape(k.shape[0], -1), p.reshape(p.shape[0], -1)
+    same = (k == p) | (torch.isnan(k) & torch.isnan(p))
+    near = (k - p).abs() <= 1e-5 * p.abs().clamp(min=1.0)
+    assert float((same | near).all(dim=1).double().mean()) >= 0.999, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("name", ["cornell", "specular", "still_life",
+                                  "bumped", "delta_lights"])
+def test_cuda_pt_shade_matches_plain(cuda_device, name, mixed):
+    """pt_shade_cuda and pt_shade_finish_cuda against their plain
+    versions on the card, column by column, on the five scenes of
+    tests/torch_shade_cases.py, at bounce 0 and on a mixed-depth carry;
+    each kernel launches once and counts its lanes on the card."""
+    from imbatracer_torch.ops import shade as sh
+    from imbatracer_torch.render.integrators import pt
+    from torch_shade_cases import (MAX_LEN, SCENES, carry_arrays,
+                                   port_scene, torch_carry)
+
+    scene, meta = port_scene(name, cuda_device)
+    arrays = carry_arrays(meta, 4096, seed=SCENES.index(name) + 10 * mixed,
+                          mixed=mixed)
+    c = torch_carry(arrays, cuda_device)
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                         alpha_fn=alpha_fn, active=c["active"], sort=True)
+    kw = dict(has_bump=meta.has_bump, max_len=MAX_LEN)
+    sh.reset_launches()
+    got = sh.pt_shade_cuda(scene, c, hit, **kw)
+    want = sh.pt_shade_plain(scene, c, hit, **kw)
+    assert sh.LAUNCHES["pt_shade"] == 1 and sh.LAUNCHES["plain"] == 1
+    kcols, pcols = _shade_columns(*got), _shade_columns(*want)
+    assert set(kcols) == set(pcols)
+    for k in pcols:
+        _hold_shade_column(k, kcols[k], pcols[k])
+    assert int(kcols["n_rays"]) == int(c["active"].sum())
+    shadow = want[1]
+    occ = tt.any_hit(scene.bvh, shadow.pos, shadow.dir, shadow.tmin,
+                     shadow.tmax, alpha_fn=alpha_fn, active=shadow.ok,
+                     sort=True)
+    args = (want[0]["radiance"], want[2], shadow.ok, occ, want[0]["n_rays"])
+    (kr, kn), (pr, pn) = sh.pt_shade_finish_cuda(*args), \
+        sh.pt_shade_finish_plain(*args)
+    assert torch.equal(kr, pr) and int(kn) == int(pn)
+    assert int(kn) == int(c["active"].sum()) + int(shadow.ok.sum())
+    assert sh.LAUNCHES["pt_shade_finish"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_pt_shade_input_checks(cuda_device):
+    """The wrappers raise on tensors off the card or of another type; an
+    empty carry launches nothing and returns empty columns."""
+    from imbatracer_torch.ops import shade as sh
+    from torch_shade_cases import carry_arrays, port_scene, torch_carry
+
+    scene, meta = port_scene("cornell", cuda_device)
+    c = torch_carry(carry_arrays(meta, 256, seed=1, mixed=True), cuda_device)
+    hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                         active=c["active"], sort=True)
+    bad = dict(c, depth=c["depth"].long())
+    with pytest.raises(ValueError, match="depth"):
+        sh.pt_shade_cuda(scene, bad, hit, has_bump=False, max_len=4)
+    with pytest.raises(ValueError, match="hit.t"):
+        sh.pt_shade_cuda(scene, c, hit._replace(t=hit.t.cpu()),
+                         has_bump=False, max_len=4)
+    empty = {k: v[:0] if v.dim() else v for k, v in c.items()}
+    ehit = type(hit)(*(x[:0] for x in hit))
+    nxt, shadow, contrib = sh.pt_shade_cuda(scene, empty, ehit,
+                                            has_bump=False, max_len=4)
+    assert contrib.shape == (0, 3) and int(nxt["n_rays"]) == 0
