@@ -65,6 +65,26 @@ failure raises and the script exits non-zero:
    columns in and out, the distinct shade-record and light rows; or
    SHADE_LANE_OPS float instructions a lane, whichever is larger), and
    the kernels' registers, spills and resident blocks.
+4c. VCM shade kernels vs plain: the VCM family's bounce shading kernels
+   (ops/vcm_shade.py: vcm_light_start_kernel, vcm_light_shade_kernel,
+   vcm_camera_shade_kernel and both entries of vcm_finish_kernel in
+   csrc/vcm_shade.cu) against their plain versions on the same inputs, run
+   on the card: NUM_RAYS-lane bands of the still life at 1920x1080 with
+   VCM_LPC light paths -- the light band's start (its padded form, the
+   band end a pointer), light bounces 0 and 3, camera bounces 0 and 3 with
+   the working cache of a light pass and its photon grid -- and of the
+   cornell with a point, a spot and a directional light beside its
+   triangle light at 1024^2 (sample_emit of every finite and delta kind,
+   the camera at bounce 1 with 3 connections; phase 8a: the instanced
+   scene at 1920x1080, light and camera bounce 1).  `[vcmshade]` lines:
+   per output column the bit-equal share, the share within 1e-5 * max(1,
+   |x|) and the max relative error, at phase 4b's gates (the RNG state,
+   the counts and the integer columns equal; the flags and pixel ids on
+   >= 99.99% of the lanes; each float column within on >= 99.9%).  Each
+   kernel timed alone beside its plain composite and its bound
+   (vcm_shade_bytes: the columns it reads and writes, the distinct
+   shade-record, light, cache and material rows; or VCM_LANE_OPS float
+   instructions a lane), with its registers, spills and resident blocks.
 5. Main paths, each with every launch counter set to 0 just before its
    timed frames and read just after them: (a) make_frame_fn +
    ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
@@ -97,7 +117,9 @@ failure raises and the script exits non-zero:
    arguments of each band with the frame's photon grid), reset(), 2 timed
    frames with every
    launch counter set to 0 just before them and read just after -- the
-   merge and khit kernels must have launched and no plain version run;
+   merge and khit kernels must have launched, the VCM shade kernels too
+   (each light band's start, light bounce and connection finish, each
+   camera bounce and its shadow sets' finish), and no plain version run;
    the film must be finite and its mean within 5% of the PT film's mean
    over the same frames (PT is unbiased; the family agrees with it to
    ~2% in the JAX renderer); then one traced frame.  (b) Merge kernel vs
@@ -262,8 +284,8 @@ failure raises and the script exits non-zero:
    both at 1080p, one at 480x270, interleaved at the same frame numbers,
    each with the launch counters and the peak memory set just before it
    and read just after.  Per cell: ms/frame of both routes; captures,
-   replays and reruns a frame; the stream, 1b, khit, merge and
-   preparation launches a frame; peak memory; on the 1080p cells one
+   replays and reruns a frame; the stream, 1b, khit, merge,
+   preparation and VCM shade launches a frame; peak memory; on the 1080p cells one
    traced frame of each route (wall, device busy, idle share, kernels,
    cudaLaunchKernel and cudaGraphLaunch calls); the re-trace's rounds,
    launches and captures as in phase 13 (hold_rounds).  Film means must
@@ -368,6 +390,23 @@ REPLACES = {
     "pt_shade_finish": "imbatracer_tpu/render/integrators/pt.py:241 "
                        "(_pt_bounce's NEE add after its any_hit, XLA-fused; "
                        "no pallas_call)",
+    "vcm_light_start": "imbatracer_tpu/render/integrators/vcm.py:142 "
+                       "(_light_pass's head before its loop, XLA-fused in "
+                       "_vcm_light_band :1078; no pallas_call)",
+    "vcm_light_shade": "imbatracer_tpu/render/integrators/vcm.py:237 "
+                       "(_light_pass's body with _connect_to_camera :368 and "
+                       "_bounce :425, XLA-fused in _vcm_light_band :1078; no "
+                       "pallas_call)",
+    "vcm_light_finish": "imbatracer_tpu/render/integrators/vcm.py:368 "
+                        "(_connect_to_camera's select after its any_hit, "
+                        "XLA-fused; no pallas_call)",
+    "vcm_camera_shade": "imbatracer_tpu/render/integrators/vcm.py:547 "
+                        "(_camera_body_fn's body with _direct_illum :858, "
+                        "_connect :900 and _bounce :425, XLA-fused in "
+                        "_vcm_camera_band :1124; no pallas_call)",
+    "vcm_camera_finish": "imbatracer_tpu/render/integrators/vcm.py:663 (the "
+                         "body's shadow-set adds after its batched any_hit, "
+                         "XLA-fused; no pallas_call)",
 }
 # The same functions when their glue was torch ops (the route's candidates,
 # queue and resolve; merge_contrib's query preparation and un-permutation),
@@ -533,6 +572,7 @@ def reset_counters():
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.ops import vcm_shade as vs
     from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
 
@@ -541,6 +581,7 @@ def reset_counters():
     mg.reset_launches()
     pm.reset_launches()
     sh.reset_launches()
+    vs.reset_launches()
     graphs.reset_stats()
     for k in tt.MASK_STATS:
         tt.MASK_STATS[k] = 0
@@ -552,6 +593,7 @@ def counters():
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.ops import vcm_shade as vs
     from imbatracer_torch.render import graphs
     from imbatracer_torch.render import traverse as tt
 
@@ -567,6 +609,8 @@ def counters():
                 pt_shade=sh.LAUNCHES["pt_shade"],
                 pt_shade_finish=sh.LAUNCHES["pt_shade_finish"],
                 shade_plain=sum(sh.LAUNCHES[k] for k in sh.PLAIN_KEYS),
+                **{f"vcm_{k}": vs.LAUNCHES[k] for k in vs.KERNELS},
+                vcm_shade_plain=sum(vs.LAUNCHES[k] for k in vs.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
                 fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS,
                 **{f"graph_{k}": v for k, v in graphs.GRAPH_STATS.items()})
@@ -575,9 +619,30 @@ def counters():
 def plain_runs(got):
     """Calls of any plain version (stream, candidate stage, khit, the
     merge and its preparation, every step of the pair route, the PT
-    shading and its finish)."""
+    shading and its finish, the VCM bounces' shading and finishes)."""
     return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
-            + got["merge_plain"] + got["pairs_plain"] + got["shade_plain"])
+            + got["merge_plain"] + got["pairs_plain"] + got["shade_plain"]
+            + got["vcm_shade_plain"])
+
+
+def hold_vcm_shade_launches(label, got, algo):
+    """A VCM-family main path's shade launches: every kernel its algorithm
+    runs (the light band's start, bounce and connection finish, the camera
+    bounce and its shadow sets' finish) launched, and no plain version."""
+    need = []
+    if algo != "pt":
+        need += ["vcm_light_start", "vcm_light_shade"]
+        if algo != "ppm":
+            need.append("vcm_light_finish")
+    if algo != "lt":
+        need.append("vcm_camera_shade")
+        if algo != "ppm":
+            need.append("vcm_camera_finish")
+    missing = [k for k in need if not got[k]]
+    if missing or got["vcm_shade_plain"]:
+        raise AssertionError(f"{label}: the VCM shade kernels {missing} did "
+                             f"not launch, or {got['vcm_shade_plain']} plain "
+                             f"versions ran")
 
 
 def hold_shade_launches(label, got):
@@ -938,7 +1003,7 @@ def hold_column(k, p):
     bits = (kk.view(torch.int32) == pp.view(torch.int32)) | nan
     fin = torch.isfinite(kk) & torch.isfinite(pp)
     diff = torch.where(fin, (kk - pp).abs(), 0.0)
-    rel = diff / torch.clamp(pp.abs(), min=1.0)
+    rel = torch.where(fin, diff / torch.clamp(pp.abs(), min=1.0), 0.0)
     within = bits | (fin & (rel <= SHADE_REL))
     return (float(bits.all(dim=1).double().mean()),
             float(within.all(dim=1).double().mean()), float(rel.max()),
@@ -1068,6 +1133,417 @@ def shade_phase(dev, card, scenes, stats):
     for finish in (False, True):
         log_resources("pt_shade_finish kernel" if finish else
                       "pt_shade kernel", sh.resources(finish), card)
+
+
+# Phase 4c: the VCM family's bounce shading kernels.  Gates as phase 4b's
+# (SHADE_FLAGS, SHADE_FLOATS, SHADE_REL); the columns held as flags (a
+# last-ulp difference may flip them) and those that must be equal.
+VCM_SHADE_FLAGS = ("active", "shadow.ok", "rows.store", "rows.pixel",
+                   "query.active", "finish.pixel")
+VCM_SHADE_EXACT = ("state", "n_rays", "finish.n_rays", "finite", "path_id",
+                   "rows.ints", "query.kind")
+# Float instructions a lane issues at the least (a diffuse lane with a
+# triangle light): the light start (seed, sample_emit ~50, the weights
+# ~15), a light bounce (the interaction ~60, the camera connection with
+# its BSDF eval ~120, the adjoint sample and pdf ~110, the weights ~30), a
+# camera bounce without connections (the interaction, emitter MIS, NEE
+# ~135, the sample and pdf ~110, the weights) and each connection (the
+# vertex row, two BSDF evals ~140, the weights ~40), and a finish (three
+# adds a shadow set).
+VCM_LANE_OPS = {"light_start": 70, "light_shade": 320, "camera_shade": 330,
+                "connection": 180, "camera_finish": 3, "light_finish": 0}
+VCM_CONNECTIONS = 3           # the delta-light cornell cell's connections
+
+
+def tensor_bytes(*xs):
+    """Bytes of the tensors in xs (dicts and tuples searched, None
+    skipped)."""
+    n = 0
+    for x in xs:
+        if isinstance(x, dict):
+            n += tensor_bytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            n += tensor_bytes(*x)
+        elif torch.is_tensor(x):
+            n += x.numel() * x.element_size()
+    return n
+
+
+def distinct_rows(idx, width):
+    """Bytes of the distinct rows `idx` picks of a table `width` floats
+    wide."""
+    return int(torch.unique(idx).numel()) * width * 4
+
+
+def vcm_frame_inputs(scene, meta, width, height, max_len, dev):
+    """(camera, FrameInputs of frame 1, light_path_count, cache capacity)
+    of a vcm frame at width x height with VCM_LPC light paths and the
+    renderer's base radius."""
+    from imbatracer_torch.frontend.engine import estimate_pixel_size
+    from imbatracer_torch.frontend.renderer import (RenderSettings,
+                                                    camera_for_scene)
+    from imbatracer_torch.render.integrators import vcm
+
+    settings = RenderSettings(width=width, height=height)
+    cam = camera_for_scene(meta, settings, dev)
+    base = estimate_pixel_size(scene, cam, meta) * settings.radius_factor
+    (frame, base_radius, lpc, cap, pm_radius, eta_vc,
+     eta_vm) = vcm.frame_constants(cam, 1, base, algo="vcm",
+                                   num_pixels=width * height,
+                                   light_path_count=VCM_LPC, max_len=max_len)
+    return (cam, vcm.FrameInputs(cam, frame, base_radius, pm_radius, eta_vc,
+                                 eta_vm), lpc, cap)
+
+
+def light_kw(meta, cam, fi, lpc, max_len):
+    from imbatracer_torch.render.integrators import vcm
+
+    return dict(mis_eta_vc=fi.mis_eta_vc, mis_eta_vm=fi.mis_eta_vm,
+                algo="vcm", light_path_count=lpc, max_len=max_len,
+                has_bump=meta.has_bump, pixel_area=vcm.pixel_area(cam))
+
+
+def vcm_light_band(scene, meta, cam, fi, lpc, max_len, bounces):
+    """The middle NUM_RAYS light paths of the frame after `bounces`
+    bounces (the renderer's route, through the kernels), with their
+    closest hit: (carry, hit, alpha_fn)."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt
+    from imbatracer_torch.render.intersect import BIG
+    from imbatracer_torch.render.traverse import closest_hit
+
+    start = (lpc - NUM_RAYS) // 2
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    c = vs.light_start(scene, fi.frame, fi.mis_eta_vc, lanes=NUM_RAYS,
+                       light_path_count=lpc, path_start=start)
+    kw = light_kw(meta, cam, fi, lpc, max_len)
+    for i in range(bounces + 1):
+        hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                          alpha_fn=alpha_fn, active=c["active"], sort=True)
+        if i == bounces:
+            return c, hit, alpha_fn
+        rows = vs.light_rows(NUM_RAYS, 1, False, False, cam.pos.device)
+        c, _ = vs.light_shade(scene, cam, c, hit, i, rows, **kw)
+
+
+def hold_vcm_columns(label, cols, alive, stats, key):
+    """`[vcmshade]`: each (kernel, plain) column pair held as hold_column
+    says, at phase 4b's gates; records the largest abs err under
+    `key`."""
+    bad, parts, err = [], [], 0.0
+    for name, (k, p) in cols.items():
+        bits, within, rel, abs_err = hold_column(k, p)
+        parts.append(f"{name} {bits:.6f}" + (f"/{within:.6f} rel "
+                     f"{rel:.2e}" if k.dtype == torch.float32 else ""))
+        err = max(err, abs_err)
+        need = (SHADE_FLAGS if name in VCM_SHADE_FLAGS else
+                SHADE_FLOATS if k.dtype == torch.float32 else 1.0)
+        if within < need:
+            bad.append(f"{name} {within:.6f} < {need}")
+    log(f"[vcmshade] {label}: {alive:.4f} active; bit-equal/within "
+        f"{SHADE_REL} share a column: " + ", ".join(parts))
+    if bad:
+        raise AssertionError(f"[vcmshade] {label}: the VCM shade kernels "
+                             f"disagree with the plain versions: {bad}")
+    stats[key] = max(stats.get(key, 0.0), err)
+
+
+def time_vcm(name, label, launch, plain, nbytes, ops, detail, card, stats):
+    """`[time]` of one VCM shade kernel alone (CUDA events, 10 launches)
+    beside its plain composite (3 calls) and its bound; the first cell's
+    times go to `stats`."""
+    ms = cuda_ms(launch, 10)
+    plain_ms = cuda_ms(plain, 3)
+    bound_ms, bound_by = shade_bound(nbytes, ops)
+    log(f"[time] vcm {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
+        f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{nbytes} bytes, {ops} float instructions, {detail})")
+    stats.setdefault(f"vcm_{name}", (ms, None, (bound_ms, bound_by, detail)))
+    stats.setdefault(f"vcm_{name}_plain_ms", plain_ms)
+
+
+def hold_vcm_light(label, scene, meta, cam, fi, lpc, max_len, bounce, card,
+                   stats, start_too=False):
+    """The light kernels against their plain versions on the middle band
+    at light bounce `bounce` (with `start_too`, the band's start first,
+    padded: its band end a pointer short of the band)."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.light_cache import _INT_COLS as INT_COLS
+    from imbatracer_torch.render.traverse import any_hit
+
+    dev = cam.pos.device
+    num_lights = scene.lights.kind.shape[0]
+    if start_too:
+        start = torch.tensor((lpc - NUM_RAYS) // 2, dtype=torch.int32,
+                             device=dev)
+        end = start + NUM_RAYS - 1000
+        kw = dict(lanes=NUM_RAYS, light_path_count=lpc, path_start=start,
+                  path_end=end)
+        k = vs.light_start_cuda(scene, fi.frame, fi.mis_eta_vc, **kw)
+        p = vs.light_start_plain(scene, fi.frame, fi.mis_eta_vc, **kw)
+        torch.cuda.synchronize()
+        hold_vcm_columns(f"light start, {label}", {n: (k[n], p[n]) for n in p},
+                         float(p["active"].double().mean()), stats,
+                         "vcm_light_start_err")
+        time_vcm("light_start", label,
+                 partial(vs.light_start_cuda, scene, fi.frame, fi.mis_eta_vc,
+                         **kw),
+                 partial(vs.light_start_plain, scene, fi.frame,
+                         fi.mis_eta_vc, **kw),
+                 tensor_bytes(p) + distinct_rows(torch.clamp(
+                     (p["path_id"] * num_lights) // lpc,
+                     max=num_lights - 1), 24),
+                 NUM_RAYS * VCM_LANE_OPS["light_start"],
+                 dict(lanes=NUM_RAYS), card, stats)
+    c, hit, alpha_fn = vcm_light_band(scene, meta, cam, fi, lpc, max_len,
+                                         bounce)
+    kw = light_kw(meta, cam, fi, lpc, max_len)
+    rk = vs.light_rows(NUM_RAYS, 1, True, True, dev)
+    rp = vs.light_rows(NUM_RAYS, 1, True, True, dev)
+    k_nxt, k_sh = vs.light_shade_cuda(scene, cam, c, hit, bounce, rk, **kw)
+    p_nxt, p_sh = vs.light_shade_plain(scene, cam, c, hit, bounce, rp, **kw)
+    occ = any_hit(scene.bvh, p_sh.pos, p_sh.dir, p_sh.tmin, p_sh.tmax,
+                  alpha_fn=alpha_fn, active=p_sh.ok, sort=True)
+    fk = (rp.cc.clone(), rp.pixel.clone())
+    fp = (rp.cc.clone(), rp.pixel.clone())
+    vs.light_finish_cuda(*fk, p_sh.ok, occ)
+    vs.light_finish_plain(*fp, p_sh.ok, occ)
+    torch.cuda.synchronize()
+    ints = list(INT_COLS)
+    floats = [j for j in range(24) if j not in ints]
+    cols = {n: (k_nxt[n], p_nxt[n]) for n in p_nxt}
+    cols.update({f"shadow.{n}": (getattr(k_sh, n), getattr(p_sh, n))
+                 for n in k_sh._fields})
+    cols.update({"rows.floats": (rk.rec[:, floats], rp.rec[:, floats]),
+                 "rows.ints": (rk.rec[:, ints].view(torch.int32),
+                               rp.rec[:, ints].view(torch.int32)),
+                 "rows.store": (rk.store, rp.store),
+                 "rows.cc": (rk.cc, rp.cc), "rows.pixel": (rk.pixel,
+                                                           rp.pixel)})
+    alive = float(c["active"].double().mean())
+    hold_vcm_columns(f"light bounce {bounce}, {label}", cols, alive, stats,
+                     "vcm_light_shade_err")
+    hold_vcm_columns(f"light finish, bounce {bounce}, {label}",
+                     {"finish.cc": (fk[0], fp[0]),
+                      "finish.pixel": (fk[1], fp[1])}, alive, stats,
+                     "vcm_light_finish_err")
+    rows = distinct_rows(hit.prim_id.clamp(min=0),
+                         scene.attrs.shade_rec.shape[1])
+    reads = {n: c[n] for n in ("org", "d", "throughput", "active", "d_vc",
+                               "d_vcm", "d_vm", "state", "finite",
+                               "path_id")}
+    nxt = {n: p_nxt[n] for n in vs.NEXT}
+    time_vcm("light_shade", f"bounce {bounce}, {label}",
+             partial(vs.light_shade_cuda, scene, cam, c, hit, bounce, rk,
+                     **kw),
+             partial(vs.light_shade_plain, scene, cam, c, hit, bounce, rp,
+                     **kw),
+             tensor_bytes(reads, hit, nxt, tuple(rp), tuple(p_sh)) + rows,
+             NUM_RAYS * VCM_LANE_OPS["light_shade"],
+             dict(lanes=NUM_RAYS, shade_row_bytes=rows), card, stats)
+    time_vcm("light_finish", f"bounce {bounce}, {label}",
+             partial(vs.light_finish_cuda, *fk, p_sh.ok, occ),
+             partial(vs.light_finish_plain, *fp, p_sh.ok, occ),
+             2 * tensor_bytes(fk) + tensor_bytes(p_sh.ok, occ), 0,
+             dict(lanes=NUM_RAYS), card, stats)
+
+
+def vcm_working_cache(scene, meta, cam, fi, lpc, cap, max_len):
+    """`fi` with the working cache of the frame's light pass (the
+    renderer's eager route, through the kernels) and its photon grid."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render import light_cache
+    from imbatracer_torch.render.integrators import pt, vcm
+
+    dev = cam.pos.device
+    collect = light_cache.empty_collect(lpc * max_len, dev)
+    band = vcm.light_bands(
+        scene, fi, collect, sg=None, key=(), lanes=min(vcm.BAND_RAYS, lpc),
+        algo="vcm", num_pixels=cam.width * cam.height, light_path_count=lpc,
+        max_len=max_len,
+        alpha_fn=pt.alpha_fn_for(scene) if meta.has_masks else None,
+        has_bump=meta.has_bump, techniques=vs.TECHNIQUES)
+    for start in range(0, lpc, vcm.BAND_RAYS):
+        band(start, min(vcm.BAND_RAYS, lpc - start))
+    collect.check()
+    cache = light_cache.select_shallowest(collect.cache(), cap)
+    return vcm.working_cache(fi, cache, vcm.photon_grid(cache, fi.pm_radius),
+                             None, ())
+
+
+def camera_kw(meta, fi, lpc, max_len, conns):
+    from imbatracer_torch.ops import vcm_shade as vs
+
+    return dict(cache_count=fi.cache_count, cache_rec=fi.cache_rec,
+                base_radius=fi.base_radius, mis_eta_vc=fi.mis_eta_vc,
+                mis_eta_vm=fi.mis_eta_vm, algo="vcm", max_len=max_len,
+                light_path_count=lpc, num_connections=conns,
+                has_bump=meta.has_bump, techniques=vs.TECHNIQUES)
+
+
+def connection_rows(scene, c, fi, conns):
+    """(cache-row bytes, material-row bytes) the connections of the
+    carry's lanes pick (their draws follow NEE's three)."""
+    from imbatracer_torch.core import rng
+
+    count = fi.cache_count
+    state, _ = rng.next_floats(c["state"], 3)
+    picks = []
+    for _ in range(conns):
+        state, (uc,) = rng.next_floats(state, 1)
+        picks.append(torch.minimum((uc * count.float()).to(torch.int32),
+                                   torch.clamp(count - 1, min=0)))
+    j = torch.unique(torch.cat(picks)).long()
+    mats = fi.cache_rec[j, 14].contiguous().view(torch.int32)
+    return (int(j.numel()) * 24 * 4, distinct_rows(
+        mats.clamp(min=0), scene.materials.rec.shape[1]))
+
+
+def hold_vcm_camera(label, scene, meta, cam, fi, lpc, max_len, bounce,
+                    conns, card, stats):
+    """The camera kernels against their plain versions on the middle
+    NUM_RAYS band of the frame's camera pass at camera bounce `bounce`
+    (the bounces before it through the renderer's route and the
+    kernels), with `conns` connections a bounce."""
+    from imbatracer_torch.core import rng
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt, vcm
+    from imbatracer_torch.render.intersect import BIG
+    from imbatracer_torch.render.traverse import any_hit, closest_hit
+
+    w, h = cam.width, cam.height
+    dev = cam.pos.device
+    start = (w * h - NUM_RAYS) // 2 // w * w
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    c = vcm._camera_carry(cam, fi.frame, width=w, height=h, spp=1,
+                          light_path_count=lpc, start_pixel=start,
+                          band_pixels=NUM_RAYS)
+    c["n_rays"] = torch.zeros((), dtype=torch.int64, device=dev)
+    kinds = tuple(sorted(set(scene.materials.kind.tolist())))
+    for i in range(bounce):
+        c = vcm._camera_bounce(
+            scene, c, i, cache_count=fi.cache_count, cache_rec=fi.cache_rec,
+            grid=fi.grid, pm_radius=fi.pm_radius, base_radius=fi.base_radius,
+            mis_eta_vc=fi.mis_eta_vc, mis_eta_vm=fi.mis_eta_vm, algo="vcm",
+            max_len=max_len, light_path_count=lpc, num_connections=conns,
+            has_bump=meta.has_bump, alpha_fn=alpha_fn,
+            techniques=vs.TECHNIQUES, mat_kinds=kinds)
+    hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                      alpha_fn=alpha_fn, active=c["active"], sort=True)
+    kw = camera_kw(meta, fi, lpc, max_len, conns)
+    k_nxt, k_sh, k_q = vs.camera_shade_cuda(scene, c, hit, bounce, **kw)
+    p_nxt, p_sh, p_q = vs.camera_shade_plain(scene, c, hit, bounce, **kw)
+    occ = any_hit(scene.bvh, p_sh.pos, p_sh.dir, p_sh.tmin, p_sh.tmax,
+                  alpha_fn=alpha_fn, active=p_sh.ok, sort=True)
+    fin = (p_nxt["radiance"], p_sh.contrib, p_sh.ok, occ, p_nxt["n_rays"])
+    k_fin = vs.camera_finish_cuda(*fin)
+    p_fin = vs.camera_finish_plain(*fin)
+    torch.cuda.synchronize()
+    cols = {n: (k_nxt[n], p_nxt[n]) for n in p_nxt}
+    cols.update({f"shadow.{n}": (getattr(k_sh, n), getattr(p_sh, n))
+                 for n in k_sh._fields})
+    for n in ("pos", "normal", "gn", "w_out", "d_vcm", "d_vm", "active",
+              "throughput"):
+        cols[f"query.{n}"] = (getattr(k_q, n), getattr(p_q, n))
+    for n in ("kind", "kd", "ks", "ns"):
+        cols[f"query.{n}"] = (k_q.params[n], p_q.params[n])
+    what = (f"camera bounce {bounce}, {conns} connection"
+            f"{'s' if conns > 1 else ''}, {label}")
+    alive = float(c["active"].double().mean())
+    hold_vcm_columns(what, cols, alive, stats, "vcm_camera_shade_err")
+    hold_vcm_columns(f"camera finish, {what}",
+                     {"finish.radiance": (k_fin[0], p_fin[0]),
+                      "finish.n_rays": (k_fin[1], p_fin[1])}, alive, stats,
+                     "vcm_camera_finish_err")
+    num_lights = scene.lights.kind.shape[0]
+    _, (ul,) = rng.next_floats(c["state"], 1)
+    lights = distinct_rows(torch.clamp((ul * num_lights).to(torch.int32),
+                                       max=num_lights - 1), 24)
+    shade = distinct_rows(hit.prim_id.clamp(min=0),
+                          scene.attrs.shade_rec.shape[1])
+    cache_b, mat_b = connection_rows(scene, c, fi, conns)
+    reads = {n: c[n] for n in ("org", "d", "throughput", "radiance",
+                               "active", "d_vc", "d_vcm", "d_vm", "state")}
+    nbytes = (tensor_bytes(reads, hit, p_nxt, tuple(p_sh), k_q)
+              + shade + lights + cache_b + mat_b)
+    time_vcm("camera_shade", f"bounce {bounce}, {label}",
+             partial(vs.camera_shade_cuda, scene, c, hit, bounce, **kw),
+             partial(vs.camera_shade_plain, scene, c, hit, bounce, **kw),
+             nbytes, NUM_RAYS * (VCM_LANE_OPS["camera_shade"] + conns
+                                 * VCM_LANE_OPS["connection"]),
+             dict(lanes=NUM_RAYS, connections=conns, shade_row_bytes=shade,
+                  light_row_bytes=lights, cache_row_bytes=cache_b,
+                  material_row_bytes=mat_b), card, stats)
+    sets = p_sh.ok.shape[0] // NUM_RAYS
+    time_vcm("camera_finish", f"bounce {bounce}, {label}",
+             partial(vs.camera_finish_cuda, *fin),
+             partial(vs.camera_finish_plain, *fin),
+             tensor_bytes(fin, k_fin[0]), NUM_RAYS * sets
+             * VCM_LANE_OPS["camera_finish"], dict(lanes=NUM_RAYS,
+                                                   sets=sets), card, stats)
+
+
+def vcm_shade_phase(dev, card, scenes, stats):
+    """Phase 4c: the VCM shade kernels against their plain versions on
+    NUM_RAYS bands of the still life (light start, light bounces 0 and 3,
+    camera bounces 0 and 3 over the working cache of a light pass) and of
+    the cornell with delta lights (light bounce 0, camera bounce 1 with
+    VCM_CONNECTIONS connections); the kernels' resources.  The instanced
+    scene's cell: phase 8a."""
+    from imbatracer_torch.ops import vcm_shade as vs
+
+    phase("4c VCM shade kernels vs plain")
+    scene, meta = scenes["still_life"]
+    cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    label = f"still_life 1920x1080, {lpc} light paths"
+    for bounce in (0, 3):
+        hold_vcm_light(label, scene, meta, cam, fi, lpc, 8, bounce, card,
+                       stats, start_too=bounce == 0)
+    fi = vcm_working_cache(scene, meta, cam, fi, lpc, cap, 8)
+    log(f"[vcmshade] {label}: working cache {int(fi.cache_count)} vertices")
+    for bounce in (0, 3):
+        hold_vcm_camera(label, scene, meta, cam, fi, lpc, 8, bounce, 1,
+                        card, stats)
+    del fi
+    delta = delta_light_cornell(dev)
+    cam, fi, lpc, cap = vcm_frame_inputs(*delta, 1024, 1024, 8, dev)
+    label = "cornell with point, spot and dir lights 1024x1024"
+    hold_vcm_light(label, *delta, cam, fi, lpc, 8, 0, card, stats,
+                   start_too=True)
+    fi = vcm_working_cache(*delta, cam, fi, lpc, cap, 8)
+    hold_vcm_camera(label, *delta, cam, fi, lpc, 8, 1, VCM_CONNECTIONS, card,
+                    stats)
+    for k in vs.RESOURCE_KERNELS:
+        log_resources(f"vcm {k} kernel", vs.resources(k), card)
+
+
+def delta_light_cornell(dev):
+    """The cornell with a point, a spot and a directional light beside its
+    triangle light (tests/torch_shade_cases.py's delta lights)."""
+    from imbatracer_torch.render.lights import (LIGHT_DIR, LIGHT_POINT,
+                                                LIGHT_SPOT,
+                                                build_light_table)
+    from imbatracer_torch.scene.procedural import make_cornell_scene
+
+    scene, meta = make_cornell_scene(device=dev)
+    dn = np.asarray((0.2, -0.6, -1.0), np.float32)
+    host = lambda x: x.cpu().numpy()
+    lt = scene.lights
+    rows = [dict(kind=int(host(lt.kind)[i]), p0=host(lt.p0)[i],
+                 p1=host(lt.p1)[i], p2=host(lt.p2)[i],
+                 normal=host(lt.normal)[i], intensity=host(lt.intensity)[i],
+                 area=float(host(lt.area)[i]),
+                 cos_angle=float(host(lt.cos_angle)[i]))
+            for i in range(lt.kind.shape[0])]
+    rows += [
+        dict(kind=LIGHT_POINT, p0=(0.2, 1.7, -0.1), intensity=(6.0, 5.0, 3.5)),
+        dict(kind=LIGHT_SPOT, p0=(0.0, 1.9, 0.0), normal=(0.0, -1.0, 0.0),
+             intensity=(6.0, 5.0, 3.5), cos_angle=np.cos(np.deg2rad(40.0))),
+        dict(kind=LIGHT_DIR, normal=dn / np.linalg.norm(dn),
+             intensity=(1.5, 1.3, 1.0))]
+    kinds = tuple(sorted({r["kind"] for r in rows}))
+    return dataclasses.replace(scene, lights=build_light_table(rows, dev),
+                               light_kinds=kinds), meta
 
 
 def main_path(scene, meta, label, width, height, max_len, frames, card,
@@ -1468,6 +1944,7 @@ def vcm_main_path(scene, meta, card, stats):
             or plain_runs(got)):
         raise AssertionError("still_life vcm: the main path did not run "
                              "through the merge and khit kernels")
+    hold_vcm_shade_launches("still_life vcm", got, "vcm")
     mean = film_mean(renderer, "still_life vcm")
     pt, _, pt_ms, _ = family_frames(scene, meta, "pt", 1920, 1080, 8,
                                     VCM_FRAMES)
@@ -1505,6 +1982,8 @@ def direct_emission_mean(scene, meta, width, height, frames):
 
 
 def run_family(scene, meta, label, algo, frames=VCM_FRAMES):
+    from imbatracer_torch.frontend.engine import ALGO_MAP
+
     w, h = FAMILY_SIZE
     r, got, ms, _ = family_frames(scene, meta, algo, w, h, 8, frames)
     log(f"[family] {label} {w}x{h} {algo}: {ms:.1f} ms/frame over "
@@ -1512,6 +1991,9 @@ def run_family(scene, meta, label, algo, frames=VCM_FRAMES):
     if plain_runs(got) or (algo == "ppm" and got["merge"] == 0):
         raise AssertionError(f"{label} {algo}: a plain version ran or the "
                              f"merge kernel did not")
+    if algo != "pt":                  # the dedicated path tracer
+        hold_vcm_shade_launches(f"{label} {algo}", got,
+                                ALGO_MAP.get(algo, algo))
     return film_mean(r, f"{label} {algo}")
 
 
@@ -1931,6 +2413,13 @@ def instanced_phase(dev, card, big, stats):
         hold_shade(f"instanced {w}x{h} bounce 1", scene, meta, c, hit,
                    alpha_fn, 8, card, stats)
         del c, hit
+        cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, w, h, 8, dev)
+        label = f"instanced {w}x{h}, {lpc} light paths"
+        hold_vcm_light(label, scene, meta, cam, fi, lpc, 8, 1, card, stats)
+        fi = vcm_working_cache(scene, meta, cam, fi, lpc, cap, 8)
+        hold_vcm_camera(label, scene, meta, cam, fi, lpc, 8, 1, 1, card,
+                        stats)
+        del fi
 
         # (b) The main path: the CLI, then make_frame_fn + the renderer.
         phase("8b the CLI and the instanced vcm main path")
@@ -1946,6 +2435,7 @@ def instanced_phase(dev, card, big, stats):
             raise AssertionError("instanced vcm: the main path did not run "
                                  "through the instanced and merge kernels "
                                  "alone")
+        hold_vcm_shade_launches("instanced vcm", got, "vcm")
         mean = film_mean(vr, "instanced vcm")
         pt, pt_got, pt_ms, _ = family_frames(scene, meta, "pt", w, h, 8,
                                              INST_FRAMES)
@@ -2981,15 +3471,19 @@ VCM_GRAPH_CELLS = (
 )
 VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
                    "any_hit_instanced", "khit", "merge", "merge_prep",
+                   "vcm_light_start", "vcm_light_shade", "vcm_light_finish",
+                   "vcm_camera_shade", "vcm_camera_finish",
                    "graph_captures", "graph_replays", "graph_reruns")
 
 
-def hold_vcm_graph_cell(cell, runs, traced, card):
+def hold_vcm_graph_cell(cell, algo, runs, traced, card):
     """Log one phase-14 cell's two routes over the same frames and hold
     them against each other: the default must have replayed captured
     graphs with no capture and no rerun in the timed frames, film means
     within DIST_VCM_MEAN and DIST_VCM_PIXELS of the pixels within
-    DIST_VCM_REL, traced rays equal, no plain version run."""
+    DIST_VCM_REL, traced rays equal, no plain version run, and both
+    routes' frames through the VCM shade kernels of `algo` (the
+    renderer's name)."""
     g, e = runs[None], runs[False]
     ok = all(r["launches"]["graph_replays"] > 0
              and r["launches"]["graph_captures"] == 0
@@ -3034,6 +3528,8 @@ def hold_vcm_graph_cell(cell, runs, traced, card):
     if not ok:
         raise AssertionError(f"{cell}: the graphed and eager routes "
                              f"disagree, or the default did not replay")
+    for r in g + e:
+        hold_vcm_shade_launches(cell, r["launches"], algo)
 
 
 def vcm_graph_phase(dev, card, scenes):
@@ -3042,6 +3538,7 @@ def vcm_graph_phase(dev, card, scenes):
     warm-up frame of each (the captures), then the same frame numbers
     interleaved, then, on the 1080p cells, one traced frame of each; the
     re-trace's rounds held (hold_rounds)."""
+    from imbatracer_torch.frontend.engine import ALGO_MAP
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
     from imbatracer_torch.scene.procedural import make_still_life_like
@@ -3070,7 +3567,8 @@ def vcm_graph_phase(dev, card, scenes):
             log(f"[vcmgraphs] {label}: timed frames done")
             traced = ({g: trace_route(fn, frames + 1, g)
                        for g in (None, False)} if trace else {})
-            hold_vcm_graph_cell(label, runs, traced, card)
+            hold_vcm_graph_cell(label, ALGO_MAP.get(algo, algo), runs,
+                                traced, card)
             hold_rounds("vcmgraphs", label, runs,
                         scenes[key][0].bvh.two_level, warm, card)
             del fn, runs
@@ -3269,6 +3767,56 @@ def kernel_entry(name, source, replaces, launches, err, timed, plain_ms,
     return entry
 
 
+def build_libraries():
+    """Phase 2: every native library at once, loaded, with each kernel
+    entry's ptxas lines."""
+    from imbatracer_torch import libbuild
+    from imbatracer_torch.accel import native
+    from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import shade as sh
+    from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render import graphs
+
+    phase("2 build")
+    t0 = time.time()
+    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, vs.LIB, graphs.COND_LIB,
+            native.LIB)
+    paths = libbuild.build_all(libs)
+    for load in (st._library, kh._library, mg._library, pm._library,
+                 sh._library, vs._library, graphs._cond_library):
+        load()
+    log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
+        + ", ".join(os.path.relpath(p) for p in paths))
+    for lib in libs:
+        info = libbuild.BUILD_INFO.get(lib.name, {})
+        log(f"[build] {lib.source}: {info.get('seconds', 0.0):.1f} s")
+        for line in libbuild.ptxas_lines(lib.name):
+            log(f"[build]   {line}")
+
+
+def shade_phases_alone():
+    """Phases 2, 4b and 4c alone: the shade kernels against their plain
+    versions on the cornell and the still life (`python -c "import
+    chip_smoke; chip_smoke.shade_phases_alone()"` from the repository
+    root, on the card)."""
+    from imbatracer_torch.device import card_line, get_device
+    from imbatracer_torch.scene.procedural import (make_cornell_scene,
+                                                   make_still_life_like)
+
+    dev = get_device("cuda")
+    card = card_line(dev)
+    build_libraries()
+    scenes = {"cornell": make_cornell_scene(device=dev),
+              "still_life": make_still_life_like(device=dev)}
+    stats = {}
+    shade_phase(dev, card, scenes, stats)
+    vcm_shade_phase(dev, card, scenes, stats)
+    log(f"[done] {time.time() - _START:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3282,15 +3830,9 @@ def main():
 
 
 def run():
-    from imbatracer_torch import libbuild
-    from imbatracer_torch.accel import native
     from imbatracer_torch.device import card_line, get_device
     from imbatracer_torch.ops import khit as kh
-    from imbatracer_torch.ops import merge as mg
-    from imbatracer_torch.ops import pairs as pm
-    from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
-    from imbatracer_torch.render import graphs
     from imbatracer_torch.scene.procedural import (make_big_scene,
                                                    make_bumped_scene,
                                                    make_cornell_scene,
@@ -3306,24 +3848,7 @@ def run():
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    phase("2 build")
-    t0 = time.time()
-    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, graphs.COND_LIB,
-            native.LIB)
-    paths = libbuild.build_all(libs)
-    st._library()
-    kh._library()
-    mg._library()
-    pm._library()
-    sh._library()
-    graphs._cond_library()
-    log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
-        + ", ".join(os.path.relpath(p) for p in paths))
-    for lib in libs:
-        info = libbuild.BUILD_INFO.get(lib.name, {})
-        log(f"[build] {lib.source}: {info.get('seconds', 0.0):.1f} s")
-        for line in libbuild.ptxas_lines(lib.name):
-            log(f"[build]   {line}")
+    build_libraries()
 
     t0 = time.time()
     scenes = {
@@ -3360,6 +3885,7 @@ def run():
              f"rays", stats["khit"], stats["khit_plain_ms"], card)
     log_resources(f"khit kernel, S={num_s}", kh.resources(num_s), card)
     shade_phase(dev, card, scenes, stats)
+    vcm_shade_phase(dev, card, scenes, stats)
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
@@ -3479,6 +4005,12 @@ def run():
                      REPLACES["pt_shade_finish"], sl_got["pt_shade_finish"],
                      stats["shade_finish_err"], stats["shade_finish"],
                      stats["shade_finish_plain_ms"]),
+        *[kernel_entry(f"vcm_{k}", src + "vcm_shade.cu",
+                       REPLACES[f"vcm_{k}"], vcm_got[f"vcm_{k}"],
+                       stats[f"vcm_{k}_err"], stats[f"vcm_{k}"],
+                       stats[f"vcm_{k}_plain_ms"])
+          for k in ("light_start", "light_shade", "light_finish",
+                    "camera_shade", "camera_finish")],
         kernel_entry("merge_contrib", src + "merge_kernel.cu",
                      REPLACES["merge"], vcm_got["merge"], stats["merge_err"],
                      stats["merge"], stats["merge_plain_ms"], route_ms=True),

@@ -1,20 +1,26 @@
-// Device functions of the PT bounce's shading, for NVIDIA Hopper
+// Device functions of the PT and VCM bounces' shading, for NVIDIA Hopper
 // (sm_90a): the per-lane ports of the torch functions that
-// imbatracer_torch/ops/shade.py::pt_shade_plain calls.
+// imbatracer_torch/ops/shade.py::pt_shade_plain and the plain versions of
+// imbatracer_torch/ops/vcm_shade.py call.
 //
-//   PCG RNG          core/rng.py: _pcg_step, _pcg_output, next_float
+//   PCG RNG          core/rng.py: hash_wang, seed, _pcg_step, _pcg_output,
+//                    next_float
 //   sampling         core/sampling.py: local_coordinates, to_world /
-//                    to_local, the cosine and power-cosine hemisphere
-//                    and the triangle samplers, russian_roulette_prob,
-//                    mis_power_heuristic
+//                    to_local, the cosine and power-cosine hemisphere,
+//                    the triangle, sphere, cone and concentric-disc
+//                    samplers, russian_roulette_prob, mis_power_heuristic
 //   surface          render/surface.py: make_interaction, _bump_normal
 //   textures         scene/textures.py: _wrap_uv, sample_bilinear
-//   materials        render/materials.py: eval_pdf_bsdf, sample_bsdf and
+//   materials        render/materials.py: eval_pdf_bsdf (both pdfs),
+//                    pdf_bsdf, sample_bsdf (radiance and adjoint) and
 //                    their fresnel, Cook-Torrance, Phong and Oren-Nayar
 //                    helpers (all six kinds)
-//   lights           render/lights.py: sample_direct (tri, point, dir,
-//                    spot, env)
+//   lights           render/lights.py: sample_direct and sample_emit
+//                    (tri, point, dir, spot, env)
 //   environment map  render/envmap.py: radiance, sample_dir
+//   camera           render/camera.py: world_to_raster, raster_to_id
+//   VCM              render/integrators/vcm.py: shading_normal_adjoint,
+//                    _vertex_from_rec (a packed light-cache row)
 //
 // Torch evaluates every present kind's formula block for every lane and
 // selects by kind; a lane here runs its own kind's block only.  For a
@@ -40,7 +46,17 @@
 //     fmaf(a_i, b_j, -(a_j * b_i)) (aten is built with contraction on);
 //   * clamp, maximum and minimum keep a NaN;
 //   * Python float constants are double, cast to float32 where used.
-// imbatracer_torch/tools/cuda_op_probe.py checks the first four on a card.
+//   * a float -> int32 cast (`.to(torch.int32)`) is the card's cvt.rzi:
+//     it truncates and saturates out-of-range values (NaN -> 0), as
+//     static_cast<int> does in device code; a CPU cast does not (probe
+//     line "floor(x).to(int32)");
+//   * torch.minimum of int32 tensors and the int32 product and floor
+//     division of a tensor by a Python int wrap and floor as Python's
+//     `//` does (probe lines "minimum int32" and "light pick"): int32_mul,
+//     floor_div;
+//   * a 0-d tensor divided by a Python int is the same multiply by the
+//     double reciprocal (probe line "0-d x / int").
+// imbatracer_torch/tools/cuda_op_probe.py checks each of these on a card.
 #pragma once
 
 #include <cstdint>
@@ -147,10 +163,34 @@ __device__ __forceinline__ uint32_t pcg_output(uint32_t s) {
   const uint32_t w = ((s >> ((s >> 28) + 4u)) ^ s) * 277803737u;
   return (w >> 22) ^ w;
 }
+// hash_wang: the Wang-style integer hash of core/rng.py.
+__device__ __forceinline__ uint32_t hash_wang(uint32_t x) {
+  x = (x ^ 61u) ^ (x >> 16);
+  x = x * 9u;
+  x = x ^ (x >> 4);
+  x = x * 0x27D4EB2Du;
+  return x ^ (x >> 15);
+}
+// seed(pixel_id, sample_id, frame): a lane's first RNG word.
+__device__ __forceinline__ uint32_t seed(uint32_t pixel, uint32_t sample,
+                                         uint32_t frame) {
+  const uint32_t s = hash_wang(pixel + (sample + 1u) * 0x9E3779B9u);
+  return hash_wang(s ^ (frame * 0x85EBCA6Bu + 0xC2B2AE35u)) | 1u;
+}
 // next_float: advance `s` and return a float32 in [0, 1).
 __device__ __forceinline__ float next_float(uint32_t& s) {
   s = pcg_step(s);
   return static_cast<float>(pcg_output(s) >> 8) * F(1.0 / (1 << 24));
+}
+
+// int32 tensor arithmetic as torch does it: a product that wraps, and
+// `//` by a positive Python int, which floors.
+__device__ __forceinline__ int int32_mul(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
 // ----------------------------------------------------------- sampling
@@ -205,6 +245,43 @@ __device__ __forceinline__ V3 sample_power_cos_hemisphere(float power,
   const float cos_t = powf(u2, rdiv1(power + 1.0f));
   const float sin_t = sqrtf(pos(1.0f - cos_t * cos_t));
   return {sin_t * cosf(phi), sin_t * sinf(phi), cos_t};
+}
+
+// sample_uniform_sphere: the direction (pdf 1 / (4 pi)).
+__device__ __forceinline__ V3 sample_uniform_sphere(float u1, float u2) {
+  const float phi = u1 * F(2.0 * kPi);
+  const float z = 1.0f - u2 * 2.0f;
+  const float r = sqrtf(pos(1.0f - z * z));
+  return {r * cosf(phi), r * sinf(phi), z};
+}
+
+// sample_uniform_cone about +z, cos_max per lane: the direction.
+__device__ __forceinline__ V3 sample_uniform_cone(float cos_max, float u1,
+                                                  float u2) {
+  const float phi = u1 * F(2.0 * kPi);
+  const float z = 1.0f - u2 * (1.0f - cos_max);
+  const float r = sqrtf(pos(1.0f - z * z));
+  return {r * cosf(phi), r * sinf(phi), z};
+}
+
+// uniform_cone_pdf: 1 / (2 pi clamp(1 - cos_max, 1e-20)).
+__device__ __forceinline__ float uniform_cone_pdf(float cos_max) {
+  return rdiv1(clamp_min(1.0f - cos_max, F(1e-20)) * F(2.0 * kPi));
+}
+
+// sample_concentric_disc (Shirley-Chiu), the selected branch only.
+__device__ __forceinline__ void sample_concentric_disc(float u1, float u2,
+                                                       float& x, float& y) {
+  const float ox = u1 * 2.0f - 1.0f;
+  const float oy = u2 * 2.0f - 1.0f;
+  const bool zero = ox == 0.f && oy == 0.f;
+  const bool use_x = fabsf(ox) > fabsf(oy);
+  const float r = use_x ? ox : oy;
+  const float theta =
+      use_x ? (oy / (ox == 0.f ? 1.0f : ox)) * F(kPi / 4.0)
+            : F(kPi / 2.0) - (ox / (oy == 0.f ? 1.0f : oy)) * F(kPi / 4.0);
+  x = zero ? 0.f : r * cosf(theta);
+  y = zero ? 0.f : r * sinf(theta);
 }
 
 // ----------------------------------------------------------- textures
@@ -343,14 +420,17 @@ struct DirectSample {
   V3 dir;
   float distance;
   V3 radiance;
-  float pdf_direct_w;
+  float cos_out, pdf_emit_w, pdf_direct_w;
   bool is_delta;
 };
 
 // sample_direct for one lane: light row `rec` (render/lights.py
-// LightTable.rec), the shading point `from`, uniforms u1, u2.
+// LightTable.rec), the shading point `from`, uniforms u1, u2; `inv_r2` the
+// bounding sphere's inverse squared radius (pdf_emit_w of dir and env
+// lights).
 __device__ DirectSample sample_direct(const float* rec, V3 from, float u1,
-                                      float u2, const Env& env, bool has_env) {
+                                      float u2, const Env& env, bool has_env,
+                                      float inv_r2 = 0.f) {
   const int kind = __float_as_int(rec[0]);
   const V3 p0 = load3(rec + 1), p1 = load3(rec + 4), p2 = load3(rec + 7);
   const V3 n = load3(rec + 10), intensity = load3(rec + 13);
@@ -358,6 +438,7 @@ __device__ DirectSample sample_direct(const float* rec, V3 from, float u1,
   DirectSample ds;
   ds.is_delta =
       kind == LIGHT_POINT || kind == LIGHT_DIR || kind == LIGHT_SPOT;
+  ds.cos_out = 1.0f;
   if (kind == LIGHT_TRI) {
     const float su = sqrtf(u1);
     const float tu = 1.0f - su, tv = u2 * su;
@@ -372,8 +453,11 @@ __device__ DirectSample sample_direct(const float* rec, V3 from, float u1,
     ds.dir = dir;
     ds.distance = dist;
     ds.radiance = front ? scale(intensity, (cos_out * area) / distsq) : zero3();
+    ds.pdf_emit_w =
+        front ? cos_hemisphere_pdf(cos_out) / clamp_min(area, F(1e-12)) : 1.0f;
     ds.pdf_direct_w =
         front ? distsq / clamp_min(area * cos_out, F(1e-12)) : 1.0f;
+    ds.cos_out = front ? cos_out : 1.0f;
   } else if (kind == LIGHT_POINT || kind == LIGHT_SPOT) {
     const V3 to_p = sub(p0, from);
     const float distsq = clamp_min(dot(to_p, to_p), F(1e-12));
@@ -384,14 +468,17 @@ __device__ DirectSample sample_direct(const float* rec, V3 from, float u1,
     ds.pdf_direct_w = distsq;
     if (kind == LIGHT_POINT) {
       ds.radiance = divs(intensity, distsq * F(4.0 * kPi));
+      ds.pdf_emit_w = F(1.0 / (4.0 * kPi));
     } else {
       const bool in_cone = -dot(dir, n) >= cos_angle;
       ds.radiance = in_cone ? divs(intensity, distsq) : zero3();
+      ds.pdf_emit_w = in_cone ? uniform_cone_pdf(cos_angle) : 0.f;
     }
   } else if (kind == LIGHT_DIR) {
     ds.dir = neg(n);
     ds.distance = F(kFar);
     ds.radiance = intensity;
+    ds.pdf_emit_w = inv_r2 * F(kInvPi);
     ds.pdf_direct_w = 1.0f;
   } else if (kind == LIGHT_ENV && has_env) {
     V3 li;
@@ -399,14 +486,113 @@ __device__ DirectSample sample_direct(const float* rec, V3 from, float u1,
     ds.dir = env_sample_dir(env, u1, u2, li, pdf);
     ds.distance = F(kFar);
     ds.radiance = divs(li, clamp_min(pdf, F(1e-20)));
+    ds.pdf_emit_w = (inv_r2 * F(kInvPi)) * pdf;
     ds.pdf_direct_w = pdf;
   } else {
     ds.dir = zero3();
     ds.distance = 0.f;
     ds.radiance = zero3();
+    ds.pdf_emit_w = 0.f;
     ds.pdf_direct_w = 0.f;
   }
   return ds;
+}
+
+// The bounding sphere (render/lights.py BSphere).
+struct BSphere {
+  V3 center;
+  float radius, inv_r2;
+};
+
+struct EmitSample {
+  V3 pos, dir, radiance;
+  float cos_out, pdf_emit_w, pdf_direct_a;
+  bool is_finite, is_delta;
+};
+
+// A point on the disc of the bounding sphere that faces along `-axis`:
+// center + radius (axis' reverse + b dx + t dy) with (t, b) the frame of
+// `axis` (the dir and env lights' emission origin).
+__device__ __forceinline__ V3 disc_point(const BSphere& bs, V3 axis, float dx,
+                                         float dy) {
+  V3 t, b;
+  local_coordinates(axis, t, b);
+  const V3 inner = add(add(neg(axis), scale(b, dx)), scale(t, dy));
+  return add(bs.center, scale(inner, bs.radius));
+}
+
+// sample_emit for one lane: light row `rec`, uniforms u1..u4, the
+// environment and the bounding sphere.
+__device__ EmitSample sample_emit(const float* rec, float u1, float u2,
+                                  float u3, float u4, const Env& env,
+                                  bool has_env, const BSphere& bs) {
+  const int kind = __float_as_int(rec[0]);
+  const V3 p0 = load3(rec + 1), p1 = load3(rec + 4), p2 = load3(rec + 7);
+  const V3 n = load3(rec + 10), intensity = load3(rec + 13);
+  const float area_row = rec[16], cos_angle = rec[17];
+  EmitSample es;
+  es.is_delta =
+      kind == LIGHT_POINT || kind == LIGHT_DIR || kind == LIGHT_SPOT;
+  es.is_finite = kind != LIGHT_DIR && kind != LIGHT_ENV;
+  es.cos_out = 1.0f;
+  es.pdf_direct_a = 1.0f;
+  V3 dir = zero3();
+  if (kind == LIGHT_TRI) {
+    const float area = clamp_min(area_row, F(1e-12));
+    const float su = sqrtf(u1);
+    const float tu = 1.0f - su, tv = u2 * su;
+    es.pos = add(add(scale(p0, tu), scale(p1, tv)), scale(p2, (1.0f - tu) - tv));
+    const V3 d_loc = sample_cos_hemisphere(u3, u4);
+    const float pdf_cos = d_loc.z * F(kInvPi);
+    V3 t, b;
+    local_coordinates(n, t, b);
+    dir = to_world(d_loc, t, b, n);
+    const bool degen = pdf_cos <= 0.f;
+    es.radiance = degen ? zero3() : scale(intensity, area * F(kPi));
+    es.pdf_emit_w = degen ? 1.0f : pdf_cos / area;
+    es.pdf_direct_a = degen ? 1.0f : rdiv1(area);
+    es.cos_out = degen ? 0.f : d_loc.z;
+  } else if (kind == LIGHT_POINT) {
+    es.pos = p0;
+    dir = sample_uniform_sphere(u3, u4);
+    es.radiance = intensity;
+    es.pdf_emit_w = F(1.0 / (4.0 * kPi));
+  } else if (kind == LIGHT_DIR) {
+    float dx, dy;
+    sample_concentric_disc(u1, u2, dx, dy);
+    const float pdf_emit_d = bs.inv_r2 * F(kInvPi);
+    es.pos = disc_point(bs, n, dx, dy);
+    dir = n;
+    es.radiance = divs(intensity, pdf_emit_d);
+    es.pdf_emit_w = pdf_emit_d;
+  } else if (kind == LIGHT_SPOT) {
+    const V3 d_cone = sample_uniform_cone(cos_angle, u3, u4);
+    const float pdf_cone = uniform_cone_pdf(cos_angle);
+    V3 t, b;
+    local_coordinates(n, t, b);
+    es.pos = p0;
+    dir = to_world(d_cone, t, b, n);
+    es.radiance = divs(intensity, pdf_cone);
+    es.pdf_emit_w = pdf_cone;
+  } else if (kind == LIGHT_ENV && has_env) {
+    V3 li;
+    float env_pdf;
+    const V3 inward = neg(env_sample_dir(env, u3, u4, li, env_pdf));
+    float dx, dy;
+    sample_concentric_disc(u1, u2, dx, dy);
+    const float pdf_emit_e = (bs.inv_r2 * F(kInvPi)) * env_pdf;
+    es.pos = disc_point(bs, inward, dx, dy);
+    dir = inward;
+    es.radiance = divs(li, clamp_min(pdf_emit_e, F(1e-20)));
+    es.pdf_emit_w = pdf_emit_e;
+    es.pdf_direct_a = env_pdf;
+  } else {
+    es.pos = zero3();
+    es.radiance = zero3();
+    es.pdf_emit_w = 0.f;
+  }
+  es.dir = normalize(dir);
+  return es;
 }
 
 // ---------------------------------------------------------- materials
@@ -524,21 +710,24 @@ __device__ __forceinline__ V3 oren_nayar_eval(V3 kd, float sigma_deg, V3 lo,
   return same ? scale(kd, v) : zero3();
 }
 
-// eval_pdf_bsdf: the BSDF value and forward pdf toward wi (zero for the
-// delta kinds and across the geometric surface).
+// eval_pdf_bsdf: the BSDF value toward wi with its forward and reverse
+// pdfs (zero for the delta kinds and across the geometric surface).
 __device__ V3 eval_pdf_bsdf(const Mat& m, V3 n, V3 gn, V3 wo, V3 wi,
-                            float& pdf_f) {
+                            float& pdf_f, float& pdf_r) {
   V3 t, b;
   local_coordinates(n, t, b);
   const V3 lo = project(wo, t, b, n), li = project(wi, t, b, n);
   const bool same_geom = dot(wo, gn) * dot(wi, gn) > 0.f;
   const bool same_hemi = lo.z * li.z > 0.f;
   const float pdf_cos_f = same_hemi ? cos_hemisphere_pdf(fabsf(li.z)) : 0.f;
+  const float pdf_cos_r = same_hemi ? cos_hemisphere_pdf(fabsf(lo.z)) : 0.f;
   V3 f = zero3();
   pdf_f = 0.f;
+  pdf_r = 0.f;
   if (m.kind == MAT_DIFFUSE) {
     f = lambert_eval(m.kd, lo, li);
     pdf_f = pdf_cos_f;
+    pdf_r = pdf_cos_r;
   } else if (m.kind == MAT_GLOSSY) {
     const V3 h = half_vector(lo, li);
     const float odh_f = dot(lo, h), odh_r = dot(li, h);
@@ -546,21 +735,55 @@ __device__ V3 eval_pdf_bsdf(const Mat& m, V3 n, V3 gn, V3 wo, V3 wi,
     const V3 ct = ct_value(m.ks, m.ns, lo, li, h, pow_h, odh_r);
     f = scale(add(ct, lambert_eval(m.kd, lo, li)), 0.5f);
     pdf_f = (blinn_pdf(m.ns, pow_h, odh_f, same_hemi) + pdf_cos_f) * 0.5f;
+    pdf_r = (blinn_pdf(m.ns, pow_h, odh_r, same_hemi) + pdf_cos_r) * 0.5f;
   } else if (m.kind == MAT_PHONG) {
     const float mm = mirror_dot(li, lo);
     const float v =
         ((m.ns + 2.0f) * div_factor(2.0 * kPi)) * powf(clamp(mm, 0.f, 1.f), m.ns);
     f = same_hemi ? scale(m.ks, v) : zero3();
     pdf_f = phong_pdf(m.ns, mm);
+    pdf_r = pdf_f;
   } else if (m.kind == MAT_OREN_NAYAR) {
     f = oren_nayar_eval(m.kd, m.ns, lo, li);
     pdf_f = pdf_cos_f;
+    pdf_r = pdf_cos_r;
   }
   if (!same_geom) {
     f = zero3();
     pdf_f = 0.f;
+    pdf_r = 0.f;
   }
   return f;
+}
+
+// eval_pdf_bsdf with the forward pdf only.
+__device__ __forceinline__ V3 eval_pdf_bsdf(const Mat& m, V3 n, V3 gn, V3 wo,
+                                            V3 wi, float& pdf_f) {
+  float pdf_r;
+  return eval_pdf_bsdf(m, n, gn, wo, wi, pdf_f, pdf_r);
+}
+
+// pdf_bsdf: the solid-angle pdf of sample_bsdf picking wi from wo (zero
+// for the delta kinds and across the geometric surface).
+__device__ float pdf_bsdf(const Mat& m, V3 n, V3 gn, V3 wo, V3 wi) {
+  V3 t, b;
+  local_coordinates(n, t, b);
+  const V3 lo = project(wo, t, b, n), li = project(wi, t, b, n);
+  const bool same_geom = dot(wo, gn) * dot(wi, gn) > 0.f;
+  const bool same_hemi = lo.z * li.z > 0.f;
+  const float pdf_cos = same_hemi ? cos_hemisphere_pdf(fabsf(li.z)) : 0.f;
+  float pdf = 0.f;
+  if (m.kind == MAT_DIFFUSE || m.kind == MAT_OREN_NAYAR) {
+    pdf = pdf_cos;
+  } else if (m.kind == MAT_GLOSSY) {
+    const V3 h = half_vector(lo, li);
+    pdf = (blinn_pdf(m.ns, blinn_pow(h, m.ns), dot(lo, h), same_hemi) +
+           pdf_cos) *
+          0.5f;
+  } else if (m.kind == MAT_PHONG) {
+    pdf = phong_pdf(m.ns, mirror_dot(lo, li));
+  }
+  return same_geom ? pdf : 0.f;
 }
 
 struct BsdfSample {
@@ -569,9 +792,10 @@ struct BsdfSample {
   bool specular, valid;
 };
 
-// sample_bsdf (radiance transport, not adjoint).
+// sample_bsdf: radiance transport, or with `adjoint` (light paths) glass
+// transmission without the (eta_i / eta_t)^2 radiance scaling.
 __device__ BsdfSample sample_bsdf(const Mat& m, V3 n, V3 gn, V3 wo, float u1,
-                                  float u2, float u3) {
+                                  float u2, float u3, bool adjoint = false) {
   V3 t, b;
   local_coordinates(n, t, b);
   const V3 lo = project(wo, t, b, n);
@@ -635,10 +859,10 @@ __device__ BsdfSample sample_bsdf(const Mat& m, V3 n, V3 gn, V3 wo, float u1,
       cos_t = entering ? -cos_t : cos_t;
       V3 li_trans = {(-eta_frac) * lo.x, (-eta_frac) * lo.y, cos_t};
       li_trans = tir ? li_mirror : li_trans;
+      const float t_scale = adjoint ? 1.0f - fr : ef2 * (1.0f - fr);
       const V3 f_trans =
           tir ? zero3()
-              : scale(m.tf, (ef2 * (1.0f - fr)) /
-                                clamp_min(fabsf(li_trans.z), F(1e-12)));
+              : scale(m.tf, t_scale / clamp_min(fabsf(li_trans.z), F(1e-12)));
       const V3 f_refl =
           scale(m.ks, fr / clamp_min(fabsf(lo.z), F(1e-12)));
       li = choose_trans ? li_trans : li_mirror;
@@ -681,7 +905,8 @@ __device__ BsdfSample sample_bsdf(const Mat& m, V3 n, V3 gn, V3 wo, float u1,
 // uv and the texture ids are consumed here).
 struct Interaction {
   V3 pos, w_out, normal, gn, emit;
-  int light_id;
+  float uv_x, uv_y;
+  int mat_id, light_id;
   float area;
   Mat m;
 };
@@ -749,10 +974,94 @@ __device__ Interaction make_interaction(const float* shade_rec, int rows,
   s.normal = dot(s.gn, n) < 0.f ? neg(n) : n;
   s.pos = add(org, scale(d, t));
   s.w_out = neg(normalize(d));
+  s.uv_x = uv_x;
+  s.uv_y = uv_y;
+  s.mat_id = bits(18);
   s.light_id = bits(19);
   s.emit = row3(34);
   s.area = row1(37);
   return s;
+}
+
+// ------------------------------------------------------------- camera
+
+// The pinhole camera (render/camera.py Camera) with the float32
+// constants torch derives from its size: 0.5 w, 0.5 h and h / w.
+struct Cam {
+  V3 pos, forward, right, down;
+  float ipd;
+  int width, height;
+  float half_w, half_h, h_over_w;
+};
+
+// world_to_raster: raster x and y of a world point.
+__device__ __forceinline__ void world_to_raster(const Cam& c, V3 p, float& rx,
+                                                float& ry) {
+  const V3 dp = sub(p, c.pos);
+  const float depth = dot(dp, c.forward);
+  const float safe = fabsf(depth) < F(1e-8) ? F(1e-8) : depth;
+  const float a = (dot(dp, c.right) * c.ipd) / safe;
+  const float b = (dot(dp, c.down) * c.ipd) / safe;
+  rx = a + c.half_w;
+  ry = b * c.h_over_w + c.half_h;
+}
+
+// raster_to_id: the pixel id, -1 outside.  floor(x).to(int32) is the
+// card's saturating cast (probe line "floor(x).to(int32)").
+__device__ __forceinline__ int raster_to_id(const Cam& c, float rx, float ry) {
+  const int x = static_cast<int>(floorf(rx));
+  const int y = static_cast<int>(floorf(ry));
+  const bool inside = x >= 0 && x < c.width && y >= 0 && y < c.height;
+  return inside ? int32_mul(y, c.width) + x : -1;
+}
+
+// ---------------------------------------------------------------- VCM
+
+// shading_normal_adjoint: Veach's adjoint-BSDF cosine correction.
+__device__ __forceinline__ float shading_normal_adjoint(V3 normal, V3 gn,
+                                                        V3 w_out, V3 w_in) {
+  float denom = dot(w_out, gn);
+  denom = fabsf(denom) < F(1e-9) ? (denom < 0.f ? F(-1e-9) : F(1e-9)) : denom;
+  return (dot(w_out, normal) * dot(w_in, gn)) / denom;
+}
+
+// A light vertex of the packed (C, 24) cache (render/light_cache.py
+// LightVertexCache.packed), its material gathered.
+struct LightVertex {
+  V3 pos, w_out, normal, gn, throughput;
+  float d_vc, d_vcm, d_vm;
+  int path_length;
+  Mat m;
+};
+
+// _vertex_from_rec for one row: the material row `mat_id` of the (M, 24)
+// material table (kind, kd, ks, tf, ns, ior, kd_tex), kd from its texture
+// at the row's uv where the scene has textures and the id is >= 0.
+__device__ LightVertex vertex_from_rec(const float* rec, const float* mat_rec,
+                                       int num_mats, const Atlas& at,
+                                       bool has_textures) {
+  LightVertex v;
+  v.pos = load3(rec);
+  v.w_out = load3(rec + 3);
+  v.normal = load3(rec + 6);
+  v.gn = load3(rec + 9);
+  v.throughput = load3(rec + 15);
+  v.d_vc = rec[18];
+  v.d_vcm = rec[19];
+  v.d_vm = rec[20];
+  v.path_length = __float_as_int(rec[21]);
+  const int mat_id = clampi(__float_as_int(rec[14]), 0, num_mats - 1);
+  const float* mr = mat_rec + static_cast<int64_t>(mat_id) * 24;
+  v.m.kind = __float_as_int(mr[0]);
+  v.m.kd = load3(mr + 1);
+  v.m.ks = load3(mr + 4);
+  v.m.tf = load3(mr + 7);
+  v.m.ns = mr[10];
+  v.m.ior = mr[11];
+  const int kd_tex = __float_as_int(mr[15]);
+  if (has_textures && kd_tex >= 0)
+    v.m.kd = sample_bilinear<3>(at, kd_tex, rec[12], rec[13]);
+  return v;
 }
 
 }  // namespace shade

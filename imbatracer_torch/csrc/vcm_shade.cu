@@ -1,0 +1,760 @@
+// The VCM family's light and camera bounces' shading, for NVIDIA Hopper
+// (sm_90a).
+//
+// No Pallas kernel stands behind this file: it is the card's counterpart
+// of the XLA fusions of JAX's compiled light-band and camera-band
+// programs (imbatracer_tpu/render/integrators/vcm.py `_vcm_light_band`,
+// `_vcm_camera_band`, `_vcm_camera_phase1` / `_phase2`), the shading of
+// `_light_pass`'s and `_camera_body_fn`'s bodies between and after their
+// traversal calls.  Four kernels, one thread a lane:
+//
+//   vcm_light_start_kernel   ops/vcm_shade.py::light_start_plain: a light
+//                            band's seed, light pick, sample_emit and
+//                            initial partial MIS weights;
+//   vcm_light_shade_kernel   ops/vcm_shade.py::light_shade_plain: one light
+//                            bounce between its closest hit and the camera
+//                            connection's any hit -- the interaction, the
+//                            partial weights, the vertex row and its store
+//                            flag, the camera connection up to its shadow
+//                            ray, and the adjoint bounce;
+//   vcm_camera_shade_kernel  ops/vcm_shade.py::camera_shade_plain: one
+//                            camera bounce between its closest hit and its
+//                            shadow rays' any hit -- the env-miss and
+//                            emitter MIS terms, the interaction and the
+//                            partial weights, NEE and the vertex
+//                            connections up to their shadow rays, the merge
+//                            query's columns, and the bounce;
+//   vcm_finish_kernel<camera> ops/vcm_shade.py::camera_finish_plain (each
+//                            shadow set's contribution added where it was
+//                            not occluded, in set order, the shadow rays
+//                            counted) and light_finish_plain (the camera
+//                            connection's row kept where it was not
+//                            occluded, in place).
+//
+// Layouts are the plain versions': carry columns (org, d, throughput,
+// radiance (R, 3) f32; tmin, d_vc, d_vcm, d_vm (R,) f32; active, finite
+// (R,) bool; path_id (R,) i32; state (R,) i64 holding a 32-bit word), the
+// hit's (t, u, v (R,) f32, prim_id (R,) i32), the scene's shade record
+// (F, cols) f32 read through the column map, light rows (L, 24) f32,
+// material rows (M, 24) f32, texture atlas, environment tables and the
+// bounding sphere.  Everything that changes from frame to frame (the frame
+// number, the MIS constants, the base radius, the working cache and its
+// count, the band's path range, the camera) is read through a pointer, so
+// a captured graph replays with the values of the frame it runs in; the
+// plain int and float arguments are fixed by the graph's key.  Nothing is
+// read on the host and nothing is allocated.
+//
+// What bounds it: the bytes a lane moves (its carry, hit, shade-record
+// row, light rows and cache rows, its outputs) against one BSDF sample,
+// one or two BSDF evaluations per NEE sample and connection, and one light
+// sample; the branches by material and light kind diverge within a warp.
+// The design is the plain one: a lane a thread, registers only.
+//
+// Numerics: see shading.cuh.  Built with --fmad=false.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "shading.cuh"
+
+namespace {
+
+using namespace shade;
+
+constexpr int kBlk = 128;
+constexpr int kShadeColumns = 48;
+
+// Algorithms (render/integrators/vcm.py ALGOS) and technique bits
+// (TECHNIQUES, in order).
+enum Algo { ALGO_VCM, ALGO_BPT, ALGO_PPM, ALGO_LT, ALGO_PT };
+enum Tech {
+  T_LIGHT_HIT = 1, T_NEXT_EVENT = 2, T_CONNECT = 4, T_MERGE = 8,
+  T_CAM_CONNECT = 16
+};
+
+// Kernels of imba_vcm_shade.
+enum Which { K_LIGHT_START, K_LIGHT_SHADE, K_CAMERA_SHADE, NUM_SHADE };
+
+// Pointer arguments, in the order of ops/vcm_shade.py: the scene tables,
+// the frame's inputs, the carry in, the hit, the carry out, the light
+// band's rows, the shadow rays, the merge query.  A kernel reads the slots
+// it needs; the others are null.
+enum Ptr {
+  P_SHADE_REC, P_LIGHT_REC, P_TEXELS, P_TEX_OFFSET, P_TEX_WIDTH,
+  P_TEX_HEIGHT, P_ENV_IMG, P_ENV_PDF, P_ENV_ROW_CDF, P_ENV_MARGINAL_CDF,
+  P_MAT_REC, P_BS_CENTER, P_BS_RADIUS, P_BS_INV_R2,
+  P_CAM_POS, P_CAM_FORWARD, P_CAM_RIGHT, P_CAM_DOWN, P_CAM_IPD,
+  P_FRAME, P_MIS_ETA_VC, P_MIS_ETA_VM, P_BASE_RADIUS, P_CACHE_COUNT,
+  P_CACHE_REC, P_PATH_START, P_PATH_END,
+  P_ORG, P_D, P_TMIN, P_THR, P_RAD, P_ACTIVE, P_D_VC, P_D_VCM, P_D_VM,
+  P_STATE, P_FINITE, P_PATH_ID, P_NRAYS,
+  P_HIT_T, P_HIT_PRIM, P_HIT_U, P_HIT_V,
+  P_O_ORG, P_O_D, P_O_TMIN, P_O_THR, P_O_RAD, P_O_ACTIVE, P_O_D_VC,
+  P_O_D_VCM, P_O_D_VM, P_O_STATE, P_O_FINITE, P_O_PATH_ID, P_O_NRAYS,
+  P_V_REC, P_V_STORE, P_CC_CONTRIB, P_CC_PIXEL,
+  P_S_POS, P_S_DIR, P_S_TMIN, P_S_TMAX, P_S_OK, P_S_CONTRIB,
+  P_Q_POS, P_Q_NORMAL, P_Q_GN, P_Q_W_OUT, P_Q_KIND, P_Q_KD, P_Q_KS, P_Q_NS,
+  P_Q_D_VCM, P_Q_D_VM, P_Q_ACTIVE, P_Q_THR,
+  NUM_PTRS
+};
+
+// Int arguments: the scene's, its column map, the material rows, the
+// call's.
+enum Int {
+  I_ROWS, I_COLS, I_LIGHTS, I_TEXTURES, I_TEXELS, I_IMG_H, I_IMG_W,
+  I_TAB_H, I_TAB_W, I_HAS_ENV, I_HAS_TEXTURES,
+  I_COLMAP,
+  I_MATS = I_COLMAP + kShadeColumns, I_LANES, I_HAS_BUMP, I_MAX_LEN,
+  I_BOUNCE, I_ALGO, I_TECH, I_NUM_CONN, I_LPC, I_WIDTH, I_HEIGHT,
+  I_USE_CACHE, I_USE_CC, I_PATH_START, I_CACHE_ROWS,
+  NUM_INTS
+};
+
+// Float arguments: the scene's float32 constants (ops/shade.py
+// SceneTables), then those torch derives from the call's Python numbers.
+enum Flt {
+  F_LIGHTS, F_INV_LIGHTS, F_PICK, F_INV_PICK, F_IMG_WM1, F_IMG_HM1,
+  F_TAB_W, F_TAB_H, F_INV_TAB_W, F_INV_TAB_H,
+  F_INV_PIXEL_AREA, F_INV_LPC, F_VC_NORM, F_HALF_W, F_HALF_H, F_H_OVER_W,
+  NUM_FLOATS
+};
+
+struct Args {
+  void* p[NUM_PTRS];
+  int i[NUM_INTS];
+  float f[NUM_FLOATS];
+};
+
+template <class T>
+__device__ __forceinline__ const T* in(const Args& a, int k) {
+  return static_cast<const T*>(a.p[k]);
+}
+template <class T>
+__device__ __forceinline__ T* out(const Args& a, int k) {
+  return static_cast<T*>(a.p[k]);
+}
+
+// Add `c` over the warp to *count: one atomicAdd a warp.  Every lane of
+// the warp must call it.
+__device__ __forceinline__ void count_warp(unsigned c,
+                                           unsigned long long* count) {
+  const unsigned sum = __reduce_add_sync(0xffffffffu, c);
+  if ((threadIdx.x & 31) == 0 && sum != 0u)
+    atomicAdd(count, static_cast<unsigned long long>(sum));
+}
+
+__device__ __forceinline__ Env env_of(const Args& a) {
+  Env e;
+  e.img = in<float>(a, P_ENV_IMG);
+  e.pdf_table = in<float>(a, P_ENV_PDF);
+  e.row_cdf = in<float>(a, P_ENV_ROW_CDF);
+  e.marginal_cdf = in<float>(a, P_ENV_MARGINAL_CDF);
+  e.img_h = a.i[I_IMG_H];
+  e.img_w = a.i[I_IMG_W];
+  e.tab_h = a.i[I_TAB_H];
+  e.tab_w = a.i[I_TAB_W];
+  e.img_wm1 = a.f[F_IMG_WM1];
+  e.img_hm1 = a.f[F_IMG_HM1];
+  e.tab_w_f = a.f[F_TAB_W];
+  e.tab_h_f = a.f[F_TAB_H];
+  e.inv_tab_w = a.f[F_INV_TAB_W];
+  e.inv_tab_h = a.f[F_INV_TAB_H];
+  return e;
+}
+
+__device__ __forceinline__ Atlas atlas_of(const Args& a) {
+  Atlas at;
+  at.texels = in<float>(a, P_TEXELS);
+  at.offset = in<int>(a, P_TEX_OFFSET);
+  at.width = in<int>(a, P_TEX_WIDTH);
+  at.height = in<int>(a, P_TEX_HEIGHT);
+  at.num_tex = a.i[I_TEXTURES];
+  at.num_texels = a.i[I_TEXELS];
+  return at;
+}
+
+__device__ __forceinline__ BSphere bsphere_of(const Args& a) {
+  BSphere bs;
+  bs.center = load3(in<float>(a, P_BS_CENTER));
+  bs.radius = *in<float>(a, P_BS_RADIUS);
+  bs.inv_r2 = *in<float>(a, P_BS_INV_R2);
+  return bs;
+}
+
+__device__ __forceinline__ Cam cam_of(const Args& a) {
+  Cam c;
+  c.pos = load3(in<float>(a, P_CAM_POS));
+  c.forward = load3(in<float>(a, P_CAM_FORWARD));
+  c.right = load3(in<float>(a, P_CAM_RIGHT));
+  c.down = load3(in<float>(a, P_CAM_DOWN));
+  c.ipd = *in<float>(a, P_CAM_IPD);
+  c.width = a.i[I_WIDTH];
+  c.height = a.i[I_HEIGHT];
+  c.half_w = a.f[F_HALF_W];
+  c.half_h = a.f[F_HALF_H];
+  c.h_over_w = a.f[F_H_OVER_W];
+  return c;
+}
+
+// The lane's hit shaded: make_interaction.
+__device__ __forceinline__ Interaction interaction(const Args& a, int i,
+                                                   float t, int prim, V3 org,
+                                                   V3 d) {
+  return make_interaction(in<float>(a, P_SHADE_REC), a.i[I_ROWS], a.i[I_COLS],
+                          a.i + I_COLMAP, atlas_of(a),
+                          a.i[I_HAS_TEXTURES] != 0, a.i[I_HAS_BUMP] != 0, t,
+                          prim, in<float>(a, P_HIT_U)[i],
+                          in<float>(a, P_HIT_V)[i], org, d);
+}
+
+__device__ __forceinline__ bool is_specular(const Mat& m) {
+  return m.kind == MAT_MIRROR || m.kind == MAT_GLASS;
+}
+
+// vcm.py::_bounce for one lane: Russian roulette, BSDF sampling (adjoint
+// on light paths; PPM camera paths follow specular chains only) and the
+// partial-weight updates.  Writes the next carry's columns.
+struct Bounce {
+  V3 wi, throughput;
+  float d_vc, d_vcm, d_vm;
+  bool active;
+};
+
+__device__ Bounce vcm_bounce(const Interaction& s, V3 thr, float d_vc,
+                             float d_vcm, float d_vm, bool active,
+                             uint32_t& st, float eta_vc, float eta_vm,
+                             bool adjoint, bool specular_only, bool last) {
+  const float urr = next_float(st);
+  const float u1 = next_float(st);
+  const float u2 = next_float(st);
+  const float u3 = next_float(st);
+  const float rr_pdf = russian_roulette_prob(thr);
+  const bool survive = urr < rr_pdf;
+  const BsdfSample bs =
+      sample_bsdf(s.m, s.normal, s.gn, s.w_out, u1, u2, u3, adjoint);
+  bool valid = bs.valid;
+  if (specular_only) valid = valid && bs.specular;
+  const bool spec = bs.specular;
+  const float pdf_rev =
+      spec ? bs.pdf : pdf_bsdf(s.m, s.normal, s.gn, bs.wi, s.w_out);
+  const float cos_i =
+      adjoint ? fabsf(shading_normal_adjoint(s.normal, s.gn, s.w_out, bs.wi))
+              : fabsf(dot(bs.wi, s.normal));
+  const float safe_pdf = clamp_min(bs.pdf, F(1e-20));
+  const float ratio = cos_i / safe_pdf;
+  Bounce b;
+  b.wi = bs.wi;
+  b.d_vc = spec ? d_vc * cos_i : ratio * ((d_vc * pdf_rev + d_vcm) + eta_vm);
+  b.d_vm = spec ? d_vm * cos_i
+                : ratio * ((d_vm * pdf_rev + d_vcm * eta_vc) + 1.0f);
+  b.d_vcm = spec ? 0.f : rdiv1(safe_pdf);
+  b.throughput = scale(mul(thr, bs.f), cos_i / (rr_pdf * safe_pdf));
+  b.active = active && survive && valid && !last;
+  return b;
+}
+
+// The next carry of a bounce: vcm.py::_bounce's selects.
+__device__ __forceinline__ void store_next(const Args& a, int i,
+                                           const Bounce& b, V3 pos, V3 thr,
+                                           float t, float d_vc, float d_vcm,
+                                           float d_vm, uint32_t st) {
+  const bool on = b.active;
+  store3(out<float>(a, P_O_ORG) + 3 * i, on ? pos : zero3());
+  store3(out<float>(a, P_O_D) + 3 * i, on ? b.wi : zero3());
+  out<float>(a, P_O_TMIN)[i] = t * F(1e-4);
+  store3(out<float>(a, P_O_THR) + 3 * i, on ? b.throughput : thr);
+  out<uint8_t>(a, P_O_ACTIVE)[i] = on;
+  out<float>(a, P_O_D_VC)[i] = on ? b.d_vc : d_vc;
+  out<float>(a, P_O_D_VCM)[i] = on ? b.d_vcm : d_vcm;
+  out<float>(a, P_O_D_VM)[i] = on ? b.d_vm : d_vm;
+  out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(st);
+}
+
+// ---------------------------------------------------------------------------
+// The light band's start: vcm.py::_light_pass before its loop.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kBlk)
+    vcm_light_start_kernel(const __grid_constant__ Args a) {
+  const int i = blockIdx.x * kBlk + threadIdx.x;
+  if (i >= a.i[I_LANES]) return;
+  const int* start_p = in<int>(a, P_PATH_START);
+  const int start = start_p ? *start_p : a.i[I_PATH_START];
+  const int path_id = start + i;
+  const int num_lights = a.i[I_LIGHTS];
+  const uint32_t frame =
+      static_cast<uint32_t>(*in<int64_t>(a, P_FRAME));
+  uint32_t st = seed(static_cast<uint32_t>(path_id), frame, 0x1157A9u);
+  // The uniform split of the global path index over the lights, in int32.
+  int light_idx = floor_div(int32_mul(path_id, num_lights), a.i[I_LPC]);
+  light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
+  light_idx = light_idx < 0 ? 0 : light_idx;
+  const float u1 = next_float(st);
+  const float u2 = next_float(st);
+  const float u3 = next_float(st);
+  const float u4 = next_float(st);
+  const EmitSample es =
+      sample_emit(in<float>(a, P_LIGHT_REC) + 24 * light_idx, u1, u2, u3, u4,
+                  env_of(a), a.i[I_HAS_ENV] != 0, bsphere_of(a));
+  const float d_vc =
+      es.is_delta ? 0.f
+                  : es.cos_out / clamp_min(es.pdf_emit_w * a.f[F_PICK], F(1e-20));
+  bool active = es.pdf_emit_w > 0.f && any_nonzero(es.radiance);
+  const int* end_p = in<int>(a, P_PATH_END);
+  if (end_p) active = active && path_id < *end_p;
+  store3(out<float>(a, P_O_ORG) + 3 * i, es.pos);
+  store3(out<float>(a, P_O_D) + 3 * i, es.dir);
+  out<float>(a, P_O_TMIN)[i] = F(1e-3);
+  store3(out<float>(a, P_O_THR) + 3 * i, scale(es.radiance, a.f[F_INV_PICK]));
+  out<uint8_t>(a, P_O_ACTIVE)[i] = active;
+  out<float>(a, P_O_D_VC)[i] = d_vc;
+  out<float>(a, P_O_D_VCM)[i] =
+      es.pdf_direct_a / clamp_min(es.pdf_emit_w, F(1e-20));
+  out<float>(a, P_O_D_VM)[i] = d_vc * *in<float>(a, P_MIS_ETA_VC);
+  out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(st);
+  out<uint8_t>(a, P_O_FINITE)[i] = es.is_finite;
+  out<int>(a, P_O_PATH_ID)[i] = path_id;
+}
+
+// ---------------------------------------------------------------------------
+// One light bounce: vcm.py::_light_pass's body.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kBlk)
+    vcm_light_shade_kernel(const __grid_constant__ Args a) {
+  const int i = blockIdx.x * kBlk + threadIdx.x;
+  if (i >= a.i[I_LANES]) return;
+  const int bounce = a.i[I_BOUNCE];
+  const V3 org = load3(in<float>(a, P_ORG) + 3 * i);
+  const V3 d = load3(in<float>(a, P_D) + 3 * i);
+  const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
+  uint32_t st = static_cast<uint32_t>(in<int64_t>(a, P_STATE)[i]);
+  const float t = in<float>(a, P_HIT_T)[i];
+  const int prim = in<int>(a, P_HIT_PRIM)[i];
+  const float eta_vc = *in<float>(a, P_MIS_ETA_VC);
+  const float eta_vm = *in<float>(a, P_MIS_ETA_VM);
+
+  // Light rays ignore the environment, and end at emitter surfaces.
+  bool active = in<uint8_t>(a, P_ACTIVE)[i] != 0 && prim >= 0;
+  const Interaction s = interaction(a, i, t, prim, org, d);
+  const float cos_o = fabsf(dot(s.w_out, s.normal));
+  active = active && cos_o > 0.f && s.light_id < 0;
+
+  // Complete the partial weights.
+  const float t_sqr = t * t;
+  const bool finite = bounce > 0 || in<uint8_t>(a, P_FINITE)[i] != 0;
+  const float inv_cos = rdiv1(clamp_min(cos_o, F(1e-9)));
+  const float d_vcm = (in<float>(a, P_D_VCM)[i] * (finite ? t_sqr : 1.0f)) *
+                      inv_cos;
+  const float d_vc = in<float>(a, P_D_VC)[i] * inv_cos;
+  const float d_vm = in<float>(a, P_D_VM)[i] * inv_cos;
+  const bool stored = active && !is_specular(s.m);
+
+  if (a.i[I_USE_CACHE]) {                               // pack_batch's row
+    float* r = out<float>(a, P_V_REC) + 24 * static_cast<int64_t>(i);
+    store3(r, s.pos);
+    store3(r + 3, s.w_out);
+    store3(r + 6, s.normal);
+    store3(r + 9, s.gn);
+    r[12] = s.uv_x;
+    r[13] = s.uv_y;
+    r[14] = __int_as_float(s.mat_id);
+    store3(r + 15, thr);
+    r[18] = d_vc;
+    r[19] = d_vcm;
+    r[20] = d_vm;
+    r[21] = __int_as_float(bounce + 2);
+    r[22] = __int_as_float(in<int>(a, P_PATH_ID)[i]);
+    r[23] = 0.f;
+    out<uint8_t>(a, P_V_STORE)[i] = stored;
+  }
+
+  if (a.i[I_USE_CC]) {                          // _connect_to_camera
+    const Cam cam = cam_of(a);
+    const V3 to_cam = sub(cam.pos, s.pos);
+    const bool in_front = dot(neg(to_cam), cam.forward) >= 0.f;
+    float rx, ry;
+    world_to_raster(cam, s.pos, rx, ry);
+    const int pixel = raster_to_id(cam, rx, ry);
+    bool valid = stored && in_front && pixel >= 0;
+    const float dist_sqr = clamp_min(dot(to_cam, to_cam), F(1e-12));
+    const float dist = sqrtf(dist_sqr);
+    const V3 dir_c = divs(to_cam, dist);
+    const float cos_cam = fabsf(dot(cam.forward, neg(dir_c)));
+    const float cos_surf =
+        fabsf(shading_normal_adjoint(s.normal, s.gn, s.w_out, dir_c));
+    float pdf_f, pdf_rev;
+    const V3 f = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, dir_c, pdf_f,
+                               pdf_rev);
+    valid = valid && pdf_rev > 0.f;
+    const float img_to_surf =
+        (((cam.ipd * cam.ipd) * cos_surf) /
+         clamp_min(((dist_sqr * cos_cam) * cos_cam) * cos_cam, F(1e-12))) *
+        a.f[F_INV_PIXEL_AREA];
+    const float w_light =
+        (img_to_surf * a.f[F_INV_LPC]) * ((eta_vm + d_vcm) + d_vc * pdf_rev);
+    const float w = a.i[I_ALGO] == ALGO_LT ? 1.0f : rdiv1(w_light + 1.0f);
+    const V3 contrib =
+        scale(mul(thr, f), (w * img_to_surf) * a.f[F_INV_LPC]);
+    valid = valid && any_positive(contrib);
+    const float offset = dist * F(1e-3);
+    store3(out<float>(a, P_CC_CONTRIB) + 3 * i, contrib);
+    out<int>(a, P_CC_PIXEL)[i] = pixel;
+    store3(out<float>(a, P_S_POS) + 3 * i, s.pos);
+    store3(out<float>(a, P_S_DIR) + 3 * i, dir_c);
+    out<float>(a, P_S_TMIN)[i] = offset;
+    out<float>(a, P_S_TMAX)[i] = dist - offset;
+    out<uint8_t>(a, P_S_OK)[i] = valid;
+  }
+
+  const Bounce b =
+      vcm_bounce(s, thr, d_vc, d_vcm, d_vm, active, st, eta_vc, eta_vm, true,
+                 false, bounce + 1 >= a.i[I_MAX_LEN]);
+  store_next(a, i, b, s.pos, thr, t, d_vc, d_vcm, d_vm, st);
+}
+
+// ---------------------------------------------------------------------------
+// One camera bounce: vcm.py::_camera_bounce without its traversals and
+// its merge.
+// ---------------------------------------------------------------------------
+
+// A shadow set's row `k * lanes + i`.
+__device__ __forceinline__ void store_shadow(const Args& a, int64_t row, V3 pos,
+                                             V3 dir, float tmin, float tmax,
+                                             bool ok, V3 contrib) {
+  store3(out<float>(a, P_S_POS) + 3 * row, pos);
+  store3(out<float>(a, P_S_DIR) + 3 * row, dir);
+  out<float>(a, P_S_TMIN)[row] = tmin;
+  out<float>(a, P_S_TMAX)[row] = tmax;
+  out<uint8_t>(a, P_S_OK)[row] = ok;
+  store3(out<float>(a, P_S_CONTRIB) + 3 * row, contrib);
+}
+
+__global__ void __launch_bounds__(kBlk)
+    vcm_camera_shade_kernel(const __grid_constant__ Args a) {
+  const int lanes = a.i[I_LANES];
+  const int i = blockIdx.x * kBlk + threadIdx.x;
+  const bool lane = i < lanes;
+  const bool active0 = lane && in<uint8_t>(a, P_ACTIVE)[i] != 0;
+  unsigned long long* n_rays = out<unsigned long long>(a, P_O_NRAYS);
+  if (n_rays) count_warp(active0 ? 1u : 0u, n_rays);
+  if (!lane) return;
+
+  const int bounce = a.i[I_BOUNCE];
+  const int algo = a.i[I_ALGO];
+  const int tech = a.i[I_TECH];
+  const bool ppm = algo == ALGO_PPM;
+  const V3 org = load3(in<float>(a, P_ORG) + 3 * i);
+  const V3 d = load3(in<float>(a, P_D) + 3 * i);
+  const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
+  V3 rad = load3(in<float>(a, P_RAD) + 3 * i);
+  uint32_t st = static_cast<uint32_t>(in<int64_t>(a, P_STATE)[i]);
+  const float t = in<float>(a, P_HIT_T)[i];
+  const int prim = in<int>(a, P_HIT_PRIM)[i];
+  const float eta_vc = *in<float>(a, P_MIS_ETA_VC);
+  const float eta_vm = *in<float>(a, P_MIS_ETA_VM);
+  const float inv_lights = a.f[F_INV_LIGHTS];
+  const bool has_env = a.i[I_HAS_ENV] != 0;
+  const Env env = env_of(a);
+  const float inv_r2 = *in<float>(a, P_BS_INV_R2);
+
+  // ---- environment misses ----------------------------------------------
+  const bool miss = active0 && prim < 0;
+  if (has_env && (tech & T_LIGHT_HIT)) {
+    V3 term = zero3();
+    if (miss) {
+      float pdf_w;
+      const V3 li = env_radiance(env, normalize(d), pdf_w);
+      const float pdf_emit = (inv_r2 * F(kInvPi)) * pdf_w;
+      const float w_cam = (pdf_w * inv_lights) * in<float>(a, P_D_VCM)[i] +
+                          (pdf_emit * inv_lights) * in<float>(a, P_D_VC)[i];
+      const float w = (ppm || (algo == ALGO_PT && bounce == 0))
+                          ? 1.0f
+                          : rdiv1(w_cam + 1.0f);
+      term = scale(mul(thr, li), w);
+    }
+    rad = add(rad, term);
+  }
+  bool active = active0 && !miss;
+
+  const Interaction s = interaction(a, i, t, prim, org, d);
+  const float cos_o = fabsf(dot(s.w_out, s.normal));
+  const float inv_cos = rdiv1(clamp_min(cos_o, F(1e-9)));
+  const float d_vcm = (in<float>(a, P_D_VCM)[i] * (t * t)) * inv_cos;
+  const float d_vc = in<float>(a, P_D_VC)[i] * inv_cos;
+  const float d_vm = in<float>(a, P_D_VM)[i] * inv_cos;
+  active = active && cos_o > 0.f;
+
+  // ---- emitter hits ----------------------------------------------------
+  const bool is_emitter = active && s.light_id >= 0;
+  const float area = clamp_min(s.area, F(1e-12));
+  const float cos_geom = dot(s.gn, s.w_out);
+  const bool front = cos_geom > 0.f;
+  if (tech & T_LIGHT_HIT) {
+    V3 term = zero3();
+    if (is_emitter) {
+      const V3 li = front ? s.emit : zero3();
+      const float pdf_direct_a = front ? rdiv1(area) : 1.0f;
+      const float pdf_emit_w =
+          front ? (pos(cos_geom) * div_factor(kPi)) / area : 1.0f;
+      const float w_cam = (pdf_direct_a * inv_lights) * d_vcm +
+                          (pdf_emit_w * inv_lights) * d_vc;
+      const float w = (ppm || bounce == 0) ? 1.0f : rdiv1(w_cam + 1.0f);
+      term = scale(mul(thr, li), w);
+    }
+    rad = add(rad, term);
+  }
+  active = active && !is_emitter;
+  const bool non_spec = !is_specular(s.m);
+
+  // ---- NEE and vertex connections, up to their shadow rays -------------
+  int set = 0;
+  const int64_t n = lanes;
+  if (!ppm) {                                         // _direct_illum
+    const float ul = next_float(st);
+    const float ua = next_float(st);
+    const float ub = next_float(st);
+    const int num_lights = a.i[I_LIGHTS];
+    int light_idx = static_cast<int>(ul * a.f[F_LIGHTS]);
+    light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
+    light_idx = light_idx < 0 ? 0 : light_idx;
+    const DirectSample ds =
+        sample_direct(in<float>(a, P_LIGHT_REC) + 24 * light_idx, s.pos, ua,
+                      ub, env, has_env, inv_r2);
+    const float cos_i = fabsf(dot(s.normal, ds.dir));
+    float pdf_dir, pdf_rev;
+    const V3 f =
+        eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, ds.dir, pdf_dir, pdf_rev);
+    bool ok = active && pdf_dir > 0.f && pdf_rev > 0.f;
+    const float pdf_forward = ds.is_delta ? 0.f : pdf_dir;
+    const float w_light =
+        (pdf_forward * a.f[F_LIGHTS]) / clamp_min(ds.pdf_direct_w, F(1e-20));
+    const float w_cam =
+        ((ds.pdf_emit_w * cos_i) /
+         clamp_min(ds.pdf_direct_w * ds.cos_out, F(1e-20))) *
+        ((eta_vm + d_vcm) + d_vc * pdf_rev);
+    const float w =
+        algo == ALGO_PT ? 1.0f : rdiv1((w_cam + 1.0f) + w_light);
+    const V3 contrib = scale(mul(mul(thr, f), ds.radiance),
+                             (w * cos_i) * a.f[F_LIGHTS]);
+    ok = ok && any_positive(contrib);
+    const float offset =
+        (ds.distance >= F(kBig) ? 1.0f : ds.distance) * F(1e-3);
+    if (tech & T_NEXT_EVENT) {
+      store_shadow(a, i, s.pos, ds.dir, offset, ds.distance - offset, ok,
+                   contrib);
+      set = 1;
+    }
+  }
+  if (algo == ALGO_VCM || algo == ALGO_BPT) {         // _connect
+    const int count = *in<int>(a, P_CACHE_COUNT);
+    const float count_f = static_cast<float>(count);
+    const int last_row = count - 1 > 0 ? count - 1 : 0;
+    const float base_radius = *in<float>(a, P_BASE_RADIUS);
+    const Atlas at = atlas_of(a);
+    const bool has_textures = a.i[I_HAS_TEXTURES] != 0;
+    const int cam_path_length = bounce + 1;
+    for (int k = 0; k < a.i[I_NUM_CONN]; ++k) {
+      const float uc = next_float(st);
+      int j = static_cast<int>(uc * count_f);
+      j = j < last_row ? j : last_row;
+      j = clampi(j, 0, a.i[I_CACHE_ROWS] - 1);
+      const LightVertex v = vertex_from_rec(
+          in<float>(a, P_CACHE_REC) + 24 * static_cast<int64_t>(j),
+          in<float>(a, P_MAT_REC), a.i[I_MATS], at, has_textures);
+      bool ok = active && non_spec && count > 0 &&
+                v.path_length + cam_path_length <= a.i[I_MAX_LEN];
+      const V3 to_v = sub(v.pos, s.pos);
+      const float dist_sq = clamp_min(dot(to_v, to_v), F(1e-20));
+      const float dist = sqrtf(dist_sq);
+      const V3 cdir = divs(to_v, dist);
+      ok = ok && dist >= base_radius;
+      float pdf_cam, pdf_cam_rev, pdf_light, pdf_light_rev;
+      const V3 f_cam = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, cdir,
+                                     pdf_cam, pdf_cam_rev);
+      const V3 f_light = eval_pdf_bsdf(v.m, v.normal, v.gn, v.w_out,
+                                       neg(cdir), pdf_light, pdf_light_rev);
+      ok = ok && pdf_cam > 0.f && pdf_cam_rev > 0.f && pdf_light > 0.f &&
+           pdf_light_rev > 0.f;
+      const float cos_cam = fabsf(dot(s.normal, cdir));
+      const float cos_light =
+          fabsf(shading_normal_adjoint(v.normal, v.gn, v.w_out, neg(cdir)));
+      const float geom = (cos_cam * cos_light) / dist_sq;
+      ok = ok && geom > 0.f;
+      const float pdf_cam_a = (pdf_cam * cos_light) / dist_sq;
+      const float pdf_light_a = (pdf_light * cos_cam) / dist_sq;
+      const float w_light =
+          pdf_cam_a * ((eta_vm + v.d_vcm) + v.d_vc * pdf_light_rev);
+      const float w_cam =
+          pdf_light_a * ((eta_vm + d_vcm) + d_vc * pdf_cam_rev);
+      const float w = rdiv1((w_cam + 1.0f) + w_light);
+      const float vc_weight = count_f * a.f[F_VC_NORM];
+      const V3 contrib =
+          scale(mul(mul(mul(thr, v.throughput), f_cam), f_light),
+                (w * geom) * vc_weight);
+      ok = ok && any_positive(contrib);
+      const float offset = dist * F(1e-3);
+      if (tech & T_CONNECT) {
+        store_shadow(a, set * n + i, s.pos, cdir, offset, dist - offset, ok,
+                     contrib);
+        ++set;
+      }
+    }
+  }
+
+  // ---- the merge query's columns ---------------------------------------
+  if (a.p[P_Q_POS]) {
+    store3(out<float>(a, P_Q_POS) + 3 * i, s.pos);
+    store3(out<float>(a, P_Q_NORMAL) + 3 * i, s.normal);
+    store3(out<float>(a, P_Q_GN) + 3 * i, s.gn);
+    store3(out<float>(a, P_Q_W_OUT) + 3 * i, s.w_out);
+    out<int>(a, P_Q_KIND)[i] = s.m.kind;
+    store3(out<float>(a, P_Q_KD) + 3 * i, s.m.kd);
+    store3(out<float>(a, P_Q_KS) + 3 * i, s.m.ks);
+    out<float>(a, P_Q_NS)[i] = s.m.ns;
+    out<float>(a, P_Q_D_VCM)[i] = d_vcm;
+    out<float>(a, P_Q_D_VM)[i] = d_vm;
+    out<uint8_t>(a, P_Q_ACTIVE)[i] = active && non_spec;
+    store3(out<float>(a, P_Q_THR) + 3 * i, thr);
+  }
+
+  // ---- bounce ----------------------------------------------------------
+  const Bounce b =
+      vcm_bounce(s, thr, d_vc, d_vcm, d_vm, active, st, eta_vc, eta_vm, false,
+                 ppm, bounce + 1 >= a.i[I_MAX_LEN]);
+  store_next(a, i, b, s.pos, thr, t, d_vc, d_vcm, d_vm, st);
+  store3(out<float>(a, P_O_RAD) + 3 * i, rad);
+}
+
+// ---------------------------------------------------------------------------
+// After the any hit.
+// ---------------------------------------------------------------------------
+
+// camera: out (R, 3) = radiance plus each of the `sets` shadow sets'
+// contrib (S R, 3) where ok & ~occluded, in set order, and the ok rays
+// added to *count (may be null).  light: contrib (R, 3) and pixel (R,)
+// kept where ok & ~occluded, zero and -1 elsewhere, in place.
+template <bool kCamera>
+__global__ void __launch_bounds__(kBlk)
+    vcm_finish_kernel(const float* __restrict__ radiance, float* contrib,
+                      int* pixel, const uint8_t* __restrict__ ok,
+                      const uint8_t* __restrict__ occluded,
+                      float* __restrict__ out, unsigned long long* count,
+                      int lanes, int sets) {
+  const int i = blockIdx.x * kBlk + threadIdx.x;
+  const bool lane = i < lanes;
+  if (kCamera) {
+    unsigned cast = 0;
+    V3 rad = lane ? load3(radiance + 3 * i) : zero3();
+    for (int k = 0; k < sets; ++k) {
+      const int64_t r = static_cast<int64_t>(k) * lanes + i;
+      const bool c = lane && ok[r] != 0;
+      cast += c ? 1u : 0u;
+      if (lane)
+        rad = add(rad, (c && occluded[r] == 0) ? load3(contrib + 3 * r)
+                                               : zero3());
+    }
+    if (count) count_warp(cast, count);
+    if (lane) store3(out + 3 * i, rad);
+  } else {
+    if (!lane) return;
+    if (!(ok[i] != 0 && occluded[i] == 0)) {
+      store3(contrib + 3 * i, zero3());
+      pixel[i] = -1;
+    }
+  }
+}
+
+int blocks_for(int lanes) { return (lanes + kBlk - 1) / kBlk; }
+
+const void* kernel_of(int which) {
+  switch (which) {
+    case K_LIGHT_START:
+      return reinterpret_cast<const void*>(vcm_light_start_kernel);
+    case K_LIGHT_SHADE:
+      return reinterpret_cast<const void*>(vcm_light_shade_kernel);
+    case K_CAMERA_SHADE:
+      return reinterpret_cast<const void*>(vcm_camera_shade_kernel);
+    case NUM_SHADE:
+      return reinterpret_cast<const void*>(vcm_finish_kernel<true>);
+    default:
+      return reinterpret_cast<const void*>(vcm_finish_kernel<false>);
+  }
+}
+
+}  // namespace
+
+// One of the three shade kernels (`which`: 0 light start, 1 light shade,
+// 2 camera shade) on the current stream.  `ptrs`, `ints`, `floats`: the
+// arguments of enum Ptr, Int and Flt, with their counts; a count that is
+// not the kernel's returns cudaErrorInvalidValue.  Returns a CUDA error
+// code.
+extern "C" int imba_vcm_shade(int which, void* const* ptrs, int nptrs,
+                              const int* ints, int nints, const float* floats,
+                              int nfloats, void* stream) {
+  if (nptrs != NUM_PTRS || nints != NUM_INTS || nfloats != NUM_FLOATS ||
+      which < 0 || which >= NUM_SHADE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  for (int k = 0; k < NUM_PTRS; ++k) a.p[k] = ptrs[k];
+  for (int k = 0; k < NUM_INTS; ++k) a.i[k] = ints[k];
+  for (int k = 0; k < NUM_FLOATS; ++k) a.f[k] = floats[k];
+  const int lanes = a.i[I_LANES];
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes > 0) {
+    if (which == K_LIGHT_START)
+      vcm_light_start_kernel<<<blocks_for(lanes), kBlk, 0, s>>>(a);
+    else if (which == K_LIGHT_SHADE)
+      vcm_light_shade_kernel<<<blocks_for(lanes), kBlk, 0, s>>>(a);
+    else
+      vcm_camera_shade_kernel<<<blocks_for(lanes), kBlk, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vcm_finish_kernel on the current stream: `camera` 1 with radiance, the
+// sets' contrib, ok and occluded, out and count (int64, or null); `camera`
+// 0 with contrib and pixel (updated in place), ok and occluded.  Returns a
+// CUDA error code.
+extern "C" int imba_vcm_finish(int camera, const void* radiance, void* contrib,
+                               void* pixel, const void* ok,
+                               const void* occluded, void* out, void* count,
+                               int lanes, int sets, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto c = static_cast<float*>(contrib);
+  auto o = static_cast<const uint8_t*>(ok);
+  auto occ = static_cast<const uint8_t*>(occluded);
+  if (lanes > 0) {
+    if (camera)
+      vcm_finish_kernel<true><<<blocks_for(lanes), kBlk, 0, s>>>(
+          static_cast<const float*>(radiance), c, nullptr, o, occ,
+          static_cast<float*>(out), static_cast<unsigned long long*>(count),
+          lanes, sets);
+    else
+      vcm_finish_kernel<false><<<blocks_for(lanes), kBlk, 0, s>>>(
+          nullptr, c, static_cast<int*>(pixel), o, occ, nullptr, nullptr,
+          lanes, 1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resources of kernel `which` (0-2 as imba_vcm_shade, 3 the camera finish,
+// 4 the light finish): out[0] registers, out[1] static shared bytes,
+// out[2] dynamic shared bytes, out[3] local (spill) bytes a thread, out[4]
+// resident blocks an SM.  Returns a CUDA error code.
+extern "C" int imba_vcm_resources(int which, int* out) {
+  const void* fn = kernel_of(which);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlk, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = 0;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = blocks;
+  return static_cast<int>(cudaSuccess);
+}

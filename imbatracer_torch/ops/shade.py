@@ -213,6 +213,9 @@ TABLE_INTS = ("rows", "cols", "lights", "textures", "texels", "img_h",
               "img_w", "tab_h", "tab_w", "has_env", "has_textures")
 TABLE_FLOATS = ("lights_f", "inv_lights", "pick", "inv_pick", "img_wm1",
                 "img_hm1", "tab_w_f", "tab_h_f", "inv_tab_w", "inv_tab_h")
+# What the VCM kernels (ops/vcm_shade.py) read besides: the material rows
+# (a light vertex's material) and the bounding sphere (sample_emit).
+EMIT_PTRS = ("mat_rec", "bs_center", "bs_radius", "bs_inv_r2")
 
 
 class SceneTables:
@@ -221,7 +224,9 @@ class SceneTables:
     held here, so they live as long as the tables), the column map, and
     the host facts that torch reads off shapes (the light count, whether
     there are textures and an environment map, the environment's sizes),
-    with the float32 constants torch derives from them."""
+    with the float32 constants torch derives from them; and for the VCM
+    kernels the pointers of the material rows and the bounding sphere
+    (`emit_ptrs`) and the material count."""
 
     def __init__(self, scene):
         keep = lambda x: x.contiguous()
@@ -235,8 +240,15 @@ class SceneTables:
                 env_img=keep(env.img), env_pdf=keep(env.pdf_table),
                 env_row_cdf=keep(env.row_cdf),
                 env_marginal_cdf=keep(env.marginal_cdf))
+        self.tensors.update(
+            mat_rec=keep(scene.materials.rec),
+            bs_center=keep(scene.bsphere.center),
+            bs_radius=keep(scene.bsphere.radius),
+            bs_inv_r2=keep(scene.bsphere.inv_radius_sqr))
         self.ptrs = [self.tensors[k].data_ptr() if k in self.tensors else None
                      for k in TABLE_PTRS]
+        self.emit_ptrs = [self.tensors[k].data_ptr() for k in EMIT_PTRS]
+        self.num_mats = scene.materials.rec.shape[0]
         num_lights = scene.lights.kind.shape[0]
         img_h, img_w = (0, 0) if env is None else env.img.shape[:2]
         tab_h, tab_w = (0, 0) if env is None else env.pdf_table.shape

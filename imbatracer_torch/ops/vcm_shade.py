@@ -1,0 +1,947 @@
+"""The VCM family's light and camera bounces' shading: four hand-written
+CUDA kernels, their plain PyTorch versions, and their dispatch.
+
+No Pallas kernel stands behind these: JAX compiles a whole light band
+and a whole camera band or phase into one program each
+(imbatracer_tpu/render/integrators/vcm.py `_vcm_light_band`,
+`_vcm_camera_band`, `_vcm_camera_phase1` / `_phase2`), and XLA fuses the
+shading of each bounce around its traversal calls into a handful of
+fusions.  The card's counterpart of those fusions is one kernel a side of
+each traversal:
+
+  * `light_start`: a light band's head (the seed, the light pick,
+    sample_emit, the initial throughput and partial MIS weights);
+  * `light_shade`: one light bounce between its closest hit and the
+    camera connection's any hit (the interaction, the partial weights,
+    the vertex row and its store flag, the camera connection up to its
+    shadow ray, the adjoint bounce); the rows go to the band's staging
+    buffers (`LightRows`) at the bounce's slice, so the band's one
+    collect append and one splat keep their (bounce, path) order;
+  * `camera_shade`: one camera bounce between its closest hit and its
+    shadow rays' any hit (the env-miss and emitter MIS terms, the
+    interaction and partial weights, NEE and the vertex connections up to
+    their shadow rays, the merge query's columns, the bounce);
+  * `light_finish` / `camera_finish`: one kernel with two entry points,
+    after the any hit: the camera connection's row kept where it was not
+    occluded, or each shadow set's contribution added where it was not
+    occluded, in set order, with the shadow rays counted on the card.
+
+The radiance sums keep the plain version's order (env, emitter, the
+shadow sets in order, then the merge, which `_vertex_merging` adds from
+the merge query), so films stay as they were.  The kernels read every
+value that changes from frame to frame through a pointer, so they run
+inside the captured light and camera graphs (render/graphs.py).
+
+The plain versions are the torch code of render/integrators/vcm.py as it
+was, moved here.  Dispatch: the wrappers launch the kernels
+(csrc/vcm_shade.cu, device functions in csrc/shading.cuh) for CUDA
+tensors and run the plain versions for CPU tensors; nothing falls back
+from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import rng as rng_mod
+from ..core.sampling import PI, russian_roulette_prob
+from ..core.vecmath import dot, normalize
+from ..libbuild import NativeLib
+from ..render import envmap as envmap_mod
+from ..render import lights as light_mod
+from ..render import materials as mat_mod
+from ..render.camera import raster_to_id, world_to_raster
+from ..render.intersect import BIG
+from ..render.light_cache import REC_W, pack_batch
+from ..render.surface import make_interaction
+from ..scene.textures import sample_bilinear
+from . import shade as sh
+from . import stream_traverse as st
+
+# The algorithms of the family and the MIS debugger's technique tags, in
+# the kernels' order (enum Algo, and bit k of the technique mask for
+# TECHNIQUES[k]): each tag gates one contribution site while the RNG
+# streams stay identical, so renders of single techniques sum to the full
+# render.
+ALGOS = ("vcm", "bpt", "ppm", "lt", "pt")
+TECHNIQUES = ("light_hit", "next_event", "connect", "merge", "cam_connect")
+
+LIGHT_SEED = 0x1157A9
+
+# Launch counts: one per kernel launch on the CUDA route, one per call of
+# a plain version (PLAIN_KEYS).  chip_smoke.py reads them to show the main
+# path ran through the kernels.
+KERNELS = ("light_start", "light_shade", "light_finish", "camera_shade",
+           "camera_finish")
+PLAIN_KEYS = tuple(f"{k}_plain" for k in KERNELS)
+LAUNCHES = {k: 0 for k in KERNELS + PLAIN_KEYS}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class ShadowSets(NamedTuple):
+    """A camera bounce's shadow rays: one set for NEE, then one set per
+    connection, `lanes` rows each (the sets the techniques enable)."""
+
+    pos: torch.Tensor      # (S R, 3) origin, the shading point
+    dir: torch.Tensor      # (S R, 3)
+    tmin: torch.Tensor     # (S R,)
+    tmax: torch.Tensor     # (S R,)
+    ok: torch.Tensor       # (S R,) bool: the rays cast
+    contrib: torch.Tensor  # (S R, 3) added where the ray is not occluded
+
+
+class MergeQuery(NamedTuple):
+    """What a camera bounce's merge reads: the shading point (with the
+    material's kind, kd, ks and ns in `params`), the completed partial
+    weights, the lanes that merge and the throughput before the bounce."""
+
+    pos: torch.Tensor
+    normal: torch.Tensor
+    gn: torch.Tensor
+    w_out: torch.Tensor
+    params: dict
+    d_vcm: torch.Tensor
+    d_vm: torch.Tensor
+    active: torch.Tensor
+    throughput: torch.Tensor
+
+
+class LightRows(NamedTuple):
+    """A light band's staging buffers, (max_len * lanes) rows in (bounce,
+    path) order: the packed vertex rows and their store flags (None for
+    LT), the camera connections' contributions and pixel ids (None
+    without them)."""
+
+    rec: torch.Tensor
+    store: torch.Tensor
+    cc: torch.Tensor
+    pixel: torch.Tensor
+
+    def at(self, i: int, lanes: int) -> "LightRows":
+        """The rows of bounce i (views)."""
+        sl = slice(i * lanes, (i + 1) * lanes)
+        return LightRows(*(None if x is None else x[sl] for x in self))
+
+
+def light_rows(lanes: int, max_len: int, use_cache: bool, use_cc: bool,
+               device) -> LightRows:
+    n = lanes * max_len
+    f32 = dict(dtype=torch.float32, device=device)
+    return LightRows(
+        torch.empty((n, REC_W), **f32) if use_cache else None,
+        torch.empty(n, dtype=torch.bool, device=device) if use_cache
+        else None,
+        torch.empty((n, 3), **f32) if use_cc else None,
+        torch.empty(n, dtype=torch.int32, device=device) if use_cc else None)
+
+
+def shadow_sets(algo: str, techniques, num_connections: int) -> int:
+    """The shadow sets a camera bounce casts."""
+    n = int(algo != "ppm" and "next_event" in techniques)
+    if algo in ("vcm", "bpt") and "connect" in techniques:
+        n += num_connections
+    return n
+
+
+# --------------------------------------------------------------------------
+# The plain PyTorch versions
+# --------------------------------------------------------------------------
+
+def shading_normal_adjoint(normal, gn, w_out, w_in):
+    """Veach's adjoint-BSDF cosine correction."""
+    denom = dot(w_out, gn)
+    denom = torch.where(torch.abs(denom) < 1e-9,
+                        torch.where(denom < 0, -1e-9, 1e-9), denom)
+    return dot(w_out, normal) * dot(w_in, gn) / denom
+
+
+def _vertex_from_rec(scene, rec):
+    """Unpack gathered (R, 24) cache records (LightVertexCache.packed)."""
+    bits = lambda c: rec[:, c].contiguous().view(torch.int32)
+    mat_id = bits(14)
+    uv = rec[:, 12:14]
+    params = mat_mod.gather_params(scene.materials, mat_id)
+    if scene.textures.texels.shape[0] > 1:
+        params["kd"] = torch.where(
+            (params["kd_tex"] >= 0)[..., None],
+            sample_bilinear(scene.textures, params["kd_tex"], uv[:, 0],
+                            uv[:, 1]), params["kd"])
+    return dict(pos=rec[:, 0:3], w_out=rec[:, 3:6], normal=rec[:, 6:9],
+                gn=rec[:, 9:12], params=params, throughput=rec[:, 15:18],
+                d_vc=rec[:, 18], d_vcm=rec[:, 19], d_vm=rec[:, 20],
+                path_length=bits(21))
+
+
+def light_start_plain(scene, frame, mis_eta_vc, *, lanes, light_path_count,
+                      path_start=0, path_end=None):
+    """The carry of a band of `lanes` light paths from path `path_start`
+    (an int or a 0-d int32 tensor): org, d, tmin, throughput, active,
+    d_vc, d_vcm, d_vm, state, finite (the emitter's is_finite) and
+    path_id.  The lanes of paths at or past `path_end` are dead."""
+    LAUNCHES["light_start_plain"] += 1
+    dev = scene.lights.rec.device
+    num_lights = scene.lights.kind.shape[0]
+    pdf_lightpick = 1.0 / num_lights
+    path_id = path_start + torch.arange(lanes, dtype=torch.int32, device=dev)
+    state = rng_mod.seed(path_id, frame, torch.full(
+        (), LIGHT_SEED, dtype=torch.int64, device=dev))
+    # Uniform split of the GLOBAL path index over the lights, so banding
+    # never changes which light a path samples (clamped for padding).
+    light_idx = torch.clamp((path_id * num_lights) // light_path_count,
+                            max=num_lights - 1)
+    state, (u1, u2, u3, u4) = rng_mod.next_floats(state, 4)
+    es = light_mod.sample_emit(scene.lights, light_idx, u1, u2, u3, u4,
+                               scene.bsphere, scene.env,
+                               kinds=scene.light_kinds)
+
+    throughput = es.radiance / pdf_lightpick
+    d_vcm = es.pdf_direct_a / torch.clamp(es.pdf_emit_w, min=1e-20)
+    d_vc = torch.where(es.is_delta, 0.0, es.cos_out / torch.clamp(
+        es.pdf_emit_w * pdf_lightpick, min=1e-20))
+    d_vm = d_vc * mis_eta_vc
+    active = (es.pdf_emit_w > 0.0) & torch.any(es.radiance != 0.0, dim=-1)
+    if path_end is not None:
+        active = active & (path_id < path_end)
+    return dict(org=es.pos, d=es.dir,
+                tmin=torch.full((lanes,), 1e-3, dtype=torch.float32,
+                                device=dev),
+                throughput=throughput, active=active, d_vc=d_vc, d_vcm=d_vcm,
+                d_vm=d_vm, state=state, finite=es.is_finite, path_id=path_id)
+
+
+def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
+                      mis_eta_vm, algo, light_path_count, max_len, has_bump,
+                      pixel_area):
+    """Light bounce `i` of the carry `c` after its closest hit `hit`:
+    writes the bounce's vertex rows and store flags and its camera
+    connections (before occlusion) into `rows` (LightRows.at(i)); returns
+    (next carry, the connections' shadow ray (shade.ShadowRay) or None)."""
+    LAUNCHES["light_shade_plain"] += 1
+    lanes = c["active"].shape[0]
+    # Light rays ignore the environment.
+    active = c["active"] & (hit.prim_id >= 0)
+    isect = make_interaction(scene, hit, c["org"], c["d"], has_bump=has_bump)
+    cos_o = torch.abs(dot(isect.w_out, isect.normal))
+    # Terminate at emitter surfaces (the camera pass does too).
+    active = active & (cos_o > 0.0) & (isect.light_id < 0)
+
+    # Complete the partial weights.
+    t_sqr = hit.t * hit.t
+    d_vcm = c["d_vcm"] * (t_sqr if i > 0 else torch.where(c["finite"], t_sqr,
+                                                          1.0))
+    inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
+    d_vcm = d_vcm * inv_cos
+    d_vc = c["d_vc"] * inv_cos
+    d_vm = c["d_vm"] * inv_cos
+    non_spec = ~mat_mod.is_specular(isect.params)
+
+    if rows.rec is not None:
+        rows.rec.copy_(pack_batch(
+            isect.pos, isect.w_out, isect.normal, isect.gn, isect.uv,
+            isect.mat_id, c["throughput"], d_vc, d_vcm, d_vm,
+            torch.full((lanes,), i + 2, dtype=torch.int32,
+                       device=active.device), c["path_id"]))
+        rows.store.copy_(active & non_spec)
+    shadow = None
+    if rows.cc is not None:
+        # Normalised by the GLOBAL light-path count, not the band.
+        contrib, pixel, shadow = _connect_to_camera(
+            scene, cam, isect, c["throughput"], d_vc, d_vcm,
+            active & non_spec, mis_eta_vm, light_path_count, algo,
+            pixel_area)
+        rows.cc.copy_(contrib)
+        rows.pixel.copy_(pixel)
+
+    nxt = _bounce(scene, isect, c["throughput"], d_vc, d_vcm, d_vm, active,
+                  c["state"], hit, mis_eta_vc, mis_eta_vm, adjoint=True,
+                  algo=algo, last_bounce=(i + 1 >= max_len))
+    return dict(nxt, finite=c["finite"], path_id=c["path_id"]), shadow
+
+
+def _connect_to_camera(scene, cam, isect, throughput, d_vc, d_vcm, valid,
+                       mis_eta_vm, light_path_count, algo, pixel_area):
+    """Light vertex -> camera connection up to its shadow ray: (contrib
+    (R, 3), pixel id (R,), ShadowRay)."""
+    to_cam = cam.pos - isect.pos
+    in_front = dot(-to_cam, cam.forward) >= 0.0
+    rx, ry, _ = world_to_raster(cam, isect.pos)
+    pixel = raster_to_id(cam, rx, ry)
+    valid = valid & in_front & (pixel >= 0)
+
+    dist_sqr = torch.clamp(dot(to_cam, to_cam), min=1e-12)
+    dist = torch.sqrt(dist_sqr)
+    dir_c = to_cam / dist[..., None]
+    cos_cam = torch.abs(dot(cam.forward, -dir_c))
+    cos_surf = torch.abs(shading_normal_adjoint(isect.normal, isect.gn,
+                                                isect.w_out, dir_c))
+    f, _, pdf_rev = mat_mod.eval_pdf_bsdf(
+        isect.params, isect.normal, isect.gn, isect.w_out, dir_c,
+        kinds=scene.mat_kinds)
+    valid = valid & (pdf_rev > 0.0)
+
+    ipd = cam.img_plane_dist
+    img_to_surf = (ipd * ipd * cos_surf) / torch.clamp(
+        dist_sqr * cos_cam * cos_cam * cos_cam, min=1e-12) / pixel_area
+    w_light = (img_to_surf / light_path_count) * (
+        mis_eta_vm + d_vcm + d_vc * pdf_rev)
+    w = 1.0 if algo == "lt" else 1.0 / (w_light + 1.0)
+    contrib = throughput * f * (w * img_to_surf / light_path_count)[..., None]
+    valid = valid & torch.any(contrib > 0.0, dim=-1)
+
+    offset = dist * 1e-3
+    return contrib, pixel, sh.ShadowRay(isect.pos, dir_c, offset,
+                                        dist - offset, valid)
+
+
+def light_finish_plain(contrib, pixel, ok, occluded):
+    """Keep the camera connections' rows where the shadow ray was cast and
+    not occluded; zero contrib and pixel -1 elsewhere (in place)."""
+    LAUNCHES["light_finish_plain"] += 1
+    keep = ok & ~occluded
+    contrib.copy_(torch.where(keep[..., None], contrib, 0.0))
+    pixel.copy_(torch.where(keep, pixel, -1))
+
+
+def _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm, active, state, hit,
+            mis_eta_vc, mis_eta_vm, *, adjoint, algo, last_bounce):
+    """Shared camera / light bounce with the partial-weight updates: the
+    next carry's org, d, tmin, throughput, active, d_vc, d_vcm, d_vm and
+    state."""
+    state, (urr, u1, u2, u3) = rng_mod.next_floats(state, 4)
+    rr_pdf = russian_roulette_prob(throughput)
+    survive = urr < rr_pdf
+    p = isect.params
+    wi, f, pdf_dir, spec, valid = mat_mod.sample_bsdf(
+        p, isect.normal, isect.gn, isect.w_out, u1, u2, u3, adjoint=adjoint,
+        kinds=scene.mat_kinds)
+    if algo == "ppm" and not adjoint:
+        # PPM camera paths follow specular chains only.
+        valid = valid & mat_mod.is_specular(p)
+    pdf_rev = torch.where(spec, pdf_dir, mat_mod.pdf_bsdf(
+        p, isect.normal, isect.gn, wi, isect.w_out, kinds=scene.mat_kinds))
+    if adjoint:
+        cos_i = torch.abs(shading_normal_adjoint(isect.normal, isect.gn,
+                                                 isect.w_out, wi))
+    else:
+        cos_i = torch.abs(dot(wi, isect.normal))
+
+    safe_pdf = torch.clamp(pdf_dir, min=1e-20)
+    ratio = cos_i / safe_pdf
+    new_d_vc = torch.where(spec, d_vc * cos_i,
+                           ratio * (d_vc * pdf_rev + d_vcm + mis_eta_vm))
+    new_d_vm = torch.where(spec, d_vm * cos_i,
+                           ratio * (d_vm * pdf_rev + d_vcm * mis_eta_vc + 1.0))
+    new_d_vcm = torch.where(spec, 0.0, 1.0 / safe_pdf)
+    new_throughput = throughput * f * (cos_i / (rr_pdf * safe_pdf))[..., None]
+    active = active & survive & valid
+    if last_bounce:
+        active = torch.zeros_like(active)
+
+    a3 = active[..., None]
+    return dict(org=torch.where(a3, isect.pos, 0.0),
+                d=torch.where(a3, wi, 0.0), tmin=hit.t * 1e-4,
+                throughput=torch.where(a3, new_throughput, throughput),
+                active=active, d_vc=torch.where(active, new_d_vc, d_vc),
+                d_vcm=torch.where(active, new_d_vcm, d_vcm),
+                d_vm=torch.where(active, new_d_vm, d_vm), state=state)
+
+
+def camera_shade_plain(scene, c, hit, i, *, cache_count, cache_rec,
+                       base_radius, mis_eta_vc, mis_eta_vm, algo, max_len,
+                       light_path_count, num_connections, has_bump,
+                       techniques, query=True):
+    """Camera bounce `i` of the carry `c` after its closest hit `hit`,
+    every live lane at bounce i: (next carry, ShadowSets or None,
+    MergeQuery).  The next carry's radiance holds the env and emitter
+    terms, its n_rays (with "n_rays" in c) the closest-hit rays;
+    camera_finish adds the shadow sets and their rays, and the merge adds
+    its term from the query.  `query` asks for the merge query (the plain
+    version makes it either way)."""
+    LAUNCHES["camera_shade_plain"] += 1
+    org, d, throughput, active, state = (c["org"], c["d"], c["throughput"],
+                                         c["active"], c["state"])
+    d_vc, d_vcm, d_vm, radiance = c["d_vc"], c["d_vcm"], c["d_vm"], \
+        c["radiance"]
+    num_lights = scene.lights.kind.shape[0]
+    ppm = algo == "ppm"
+    n_rays = c["n_rays"] + active.sum() if "n_rays" in c else None
+    # --- environment misses -----------------------------------------
+    # The template's PT variant weights the first vertex fully, as the
+    # dedicated path tracer does (the JAX module's deviation).
+    miss = active & (hit.prim_id < 0)
+    if scene.env is not None and "light_hit" in techniques:
+        li, pdf_direct_w, pdf_emit_w = envmap_mod.radiance(
+            scene.env, normalize(d), scene.bsphere.inv_radius_sqr)
+        w_cam = ((pdf_direct_w / num_lights) * d_vcm
+                 + (pdf_emit_w / num_lights) * d_vc)
+        if ppm or (algo == "pt" and i == 0):
+            w = torch.ones_like(w_cam)
+        else:
+            w = 1.0 / (w_cam + 1.0)
+        radiance = radiance + torch.where(
+            miss[..., None], throughput * li * w[..., None], 0.0)
+    active = active & ~miss
+
+    isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
+    cos_o = torch.abs(dot(isect.w_out, isect.normal))
+    inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
+    d_vcm = d_vcm * (hit.t * hit.t) * inv_cos
+    d_vc = d_vc * inv_cos
+    d_vm = d_vm * inv_cos
+    active = active & (cos_o > 0.0)
+
+    # --- emitter hits -------------------------------------------------
+    is_emitter = active & (isect.light_id >= 0)
+    area = torch.clamp(isect.area, min=1e-12)
+    cos_geom = dot(isect.gn, isect.w_out)
+    front = cos_geom > 0.0
+    li = torch.where(front[..., None], isect.emit, 0.0)
+    pdf_direct_a = torch.where(front, 1.0 / area, 1.0)
+    # The area emitter's pdf_emit_w is measured about the geometric
+    # normal.
+    pdf_emit_w = torch.where(
+        front, torch.clamp(cos_geom, min=0.0) / PI / area, 1.0)
+    w_cam = ((pdf_direct_a / num_lights) * d_vcm
+             + (pdf_emit_w / num_lights) * d_vc)
+    if ppm or i == 0:
+        w_emit = torch.ones_like(w_cam)
+    else:
+        w_emit = 1.0 / (w_cam + 1.0)
+    if "light_hit" in techniques:
+        radiance = radiance + torch.where(
+            is_emitter[..., None], throughput * li * w_emit[..., None],
+            0.0)
+    active = active & ~is_emitter
+    non_spec = ~mat_mod.is_specular(isect.params)
+
+    # --- NEE + vertex connections, up to their shadow rays ------------
+    shadow = []
+    if algo != "ppm":
+        state = _direct_illum(
+            scene, isect, throughput, d_vc, d_vcm, active, state,
+            mis_eta_vm, num_lights, algo, shadow,
+            enabled="next_event" in techniques)
+    if algo in ("vcm", "bpt"):
+        for _ in range(num_connections):
+            state = _connect(
+                scene, cache_count, cache_rec, isect, throughput, d_vc, d_vcm,
+                active & non_spec, state, mis_eta_vm, light_path_count,
+                num_connections, max_len, i + 1, base_radius, shadow,
+                enabled="connect" in techniques)
+    sets = None
+    if shadow:
+        sets = ShadowSets(*(torch.cat([s[k] for s in shadow])
+                            for k in range(6)))
+    q = MergeQuery(isect.pos, isect.normal, isect.gn, isect.w_out,
+                   isect.params, d_vcm, d_vm, active & non_spec, throughput)
+
+    nxt = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm, active, state,
+                  hit, mis_eta_vc, mis_eta_vm, adjoint=False, algo=algo,
+                  last_bounce=(i + 1 >= max_len))
+    nxt["radiance"] = radiance
+    if n_rays is not None:
+        nxt["n_rays"] = n_rays
+    return nxt, sets, q
+
+
+def _direct_illum(scene, isect, throughput, d_vc, d_vcm, active, state,
+                  mis_eta_vm, num_lights, algo, shadow, enabled=True):
+    """NEE: appends (org, dir, tmin, tmax, ok, contrib) to `shadow` when
+    `enabled`; the RNG advances either way.  Returns the new state."""
+    state, (ul, ua, ub) = rng_mod.next_floats(state, 3)
+    light_idx = torch.clamp((ul * num_lights).to(torch.int32),
+                            max=num_lights - 1)
+    ds = light_mod.sample_direct(scene.lights, light_idx, isect.pos, ua, ub,
+                                 scene.bsphere, scene.env,
+                                 kinds=scene.light_kinds)
+    cos_i = torch.abs(dot(isect.normal, ds.dir))
+    f, pdf_dir, pdf_rev = mat_mod.eval_pdf_bsdf(
+        isect.params, isect.normal, isect.gn, isect.w_out, ds.dir,
+        kinds=scene.mat_kinds)
+    ok = active & (pdf_dir > 0.0) & (pdf_rev > 0.0)
+
+    pdf_forward = torch.where(ds.is_delta, 0.0, pdf_dir)
+    w_light = pdf_forward * num_lights / torch.clamp(ds.pdf_direct_w,
+                                                     min=1e-20)
+    w_cam = (ds.pdf_emit_w * cos_i / torch.clamp(
+        ds.pdf_direct_w * ds.cos_out, min=1e-20)) * (
+        mis_eta_vm + d_vcm + d_vc * pdf_rev)
+    w = (torch.ones_like(w_cam) if algo == "pt"
+         else 1.0 / (w_cam + 1.0 + w_light))
+    contrib = throughput * f * ds.radiance * (w * cos_i * num_lights)[..., None]
+    ok = ok & torch.any(contrib > 0.0, dim=-1)
+    offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
+    if enabled:
+        shadow.append((isect.pos, ds.dir, offset, ds.distance - offset, ok,
+                       contrib))
+    return state
+
+
+def _connect(scene, count, cache_rec, isect, throughput, d_vc, d_vcm, active,
+             state, mis_eta_vm, light_path_count, num_connections, max_len,
+             cam_path_length, base_radius, shadow, enabled=True):
+    """One vertex connection per ray to a uniformly picked cached light
+    vertex (`count` rows of `cache_rec`); appends its shadow ray to
+    `shadow` when `enabled`.  Returns the new state."""
+    state, (uc,) = rng_mod.next_floats(state, 1)
+    j = torch.minimum((uc * count.to(torch.float32)).to(torch.int32),
+                      torch.clamp(count - 1, min=0))
+    v = _vertex_from_rec(scene, cache_rec[j.long()])
+    ok = active & (count > 0) & (v["path_length"] + cam_path_length <= max_len)
+
+    to_v = v["pos"] - isect.pos
+    dist_sq = torch.clamp(dot(to_v, to_v), min=1e-20)
+    dist = torch.sqrt(dist_sq)
+    cdir = to_v / dist[..., None]
+    ok = ok & (dist >= base_radius)
+
+    f_cam, pdf_cam, pdf_cam_rev = mat_mod.eval_pdf_bsdf(
+        isect.params, isect.normal, isect.gn, isect.w_out, cdir,
+        kinds=scene.mat_kinds)
+    vn, vgn, vout = v["normal"], v["gn"], v["w_out"]
+    f_light, pdf_light, pdf_light_rev = mat_mod.eval_pdf_bsdf(
+        v["params"], vn, vgn, vout, -cdir, kinds=scene.mat_kinds)
+    ok = (ok & (pdf_cam > 0) & (pdf_cam_rev > 0) & (pdf_light > 0)
+          & (pdf_light_rev > 0))
+
+    cos_cam = torch.abs(dot(isect.normal, cdir))
+    cos_light = torch.abs(shading_normal_adjoint(vn, vgn, vout, -cdir))
+    geom = cos_cam * cos_light / dist_sq
+    ok = ok & (geom > 0.0)
+    pdf_cam_a = pdf_cam * cos_light / dist_sq
+    pdf_light_a = pdf_light * cos_cam / dist_sq
+    w_light = pdf_cam_a * (mis_eta_vm + v["d_vcm"] + v["d_vc"] * pdf_light_rev)
+    w_cam = pdf_light_a * (mis_eta_vm + d_vcm + d_vc * pdf_cam_rev)
+    w = 1.0 / (w_cam + 1.0 + w_light)
+    vc_weight = count.to(torch.float32) / (light_path_count * num_connections)
+    contrib = (throughput * v["throughput"] * f_cam * f_light
+               * (w * geom * vc_weight)[..., None])
+    ok = ok & torch.any(contrib > 0.0, dim=-1)
+    offset = 1e-3 * dist
+    if enabled:
+        shadow.append((isect.pos, cdir, offset, dist - offset, ok, contrib))
+    return state
+
+
+def camera_finish_plain(radiance, contrib, ok, occluded, n_rays):
+    """(radiance plus each shadow set's contrib where its ray was cast and
+    not occluded, in set order; n_rays plus the cast rays, or None)."""
+    LAUNCHES["camera_finish_plain"] += 1
+    n = radiance.shape[0]
+    for k in range(ok.shape[0] // n):
+        hit_ok = ok[k * n:(k + 1) * n] & ~occluded[k * n:(k + 1) * n]
+        radiance = radiance + torch.where(hit_ok[..., None],
+                                          contrib[k * n:(k + 1) * n], 0.0)
+    return radiance, None if n_rays is None else n_rays + ok.sum()
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels
+# --------------------------------------------------------------------------
+
+LIB = NativeLib("vcm_shade", "vcm_shade.cu", headers=("shading.cuh",))
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(LIB.build())
+        fn = lib.imba_vcm_shade
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn = lib.imba_vcm_finish
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn = lib.imba_vcm_resources
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+# Pointer arguments of imba_vcm_shade, in the order of enum Ptr in
+# csrc/vcm_shade.cu: the scene tables (shade.TABLE_PTRS, shade.EMIT_PTRS),
+# FRAME_PTRS, the carry in (CARRY), the hit ("hit_" + HIT_IN), the carry
+# out ("o_" + CARRY), the light band's rows, the shadow rays ("s_" +
+# ShadowSets' fields), the merge query ("q_" + QUERY).
+FRAME_PTRS = ("cam_pos", "cam_forward", "cam_right", "cam_down", "cam_ipd",
+              "frame", "mis_eta_vc", "mis_eta_vm", "base_radius",
+              "cache_count", "cache_rec", "path_start", "path_end")
+CARRY = ("org", "d", "tmin", "throughput", "radiance", "active", "d_vc",
+         "d_vcm", "d_vm", "state", "finite", "path_id", "n_rays")
+ROW_PTRS = ("v_rec", "v_store", "cc_contrib", "cc_pixel")
+QUERY = ("pos", "normal", "gn", "w_out", "kind", "kd", "ks", "ns", "d_vcm",
+         "d_vm", "active", "throughput")
+PTRS = (sh.TABLE_PTRS + sh.EMIT_PTRS + FRAME_PTRS + CARRY
+        + tuple("hit_" + k for k in sh.HIT_IN)
+        + tuple("o_" + k for k in CARRY) + ROW_PTRS
+        + tuple("s_" + k for k in ShadowSets._fields)
+        + tuple("q_" + k for k in QUERY))
+# Int arguments (enum Int): the scene's (shade.TABLE_INTS, the column
+# map, the material rows), then the call's; float arguments (enum Flt):
+# the scene's (shade.TABLE_FLOATS), then those of the call's Python
+# numbers.
+CALL_INTS = ("mats", "lanes", "has_bump", "max_len", "bounce", "algo",
+             "tech", "num_conn", "lpc", "width", "height", "use_cache",
+             "use_cc", "path_start", "cache_rows")
+CALL_FLOATS = ("inv_pixel_area", "inv_lpc", "vc_norm", "half_w", "half_h",
+               "h_over_w")
+# imba_vcm_shade's `which`, imba_vcm_resources' kernels.
+WHICH = {"light_start": 0, "light_shade": 1, "camera_shade": 2}
+RESOURCE_KERNELS = ("light_start", "light_shade", "camera_shade",
+                    "camera_finish", "light_finish")
+
+
+def _check(x, dtype, shape, what):
+    if x.device.type != "cuda" or x.dtype != dtype or tuple(
+            x.shape) != tuple(shape):
+        raise ValueError(f"vcm_shade: {what} must be a CUDA {dtype} tensor of "
+                         f"shape {tuple(shape)}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    return x.contiguous()
+
+
+def _scalar(x, dtype, dev, what):
+    """A 0-d CUDA tensor of `x` (a Python number is copied to the card:
+    the eager route only)."""
+    if torch.is_tensor(x):
+        return _check(x.reshape(()), dtype, (), what)
+    return torch.tensor(x, dtype=dtype, device=dev)
+
+
+def _carry_kinds(lanes):
+    """(dtype, shape) of each carry column the kernels read or write."""
+    f, v3, v1 = torch.float32, (lanes, 3), (lanes,)
+    return dict(org=(f, v3), d=(f, v3), tmin=(f, v1), throughput=(f, v3),
+                radiance=(f, v3), active=(torch.bool, v1), d_vc=(f, v1),
+                d_vcm=(f, v1), d_vm=(f, v1), state=(torch.int64, v1),
+                finite=(torch.bool, v1), path_id=(torch.int32, v1),
+                n_rays=(torch.int64, ()))
+
+
+def _carry_in(c, names, lanes):
+    """The carry's columns `names` as the kernels read them, checked."""
+    kinds = _carry_kinds(lanes)
+    return {k: _check(c[k], *kinds[k], k) for k in names}
+
+
+def _hit_in(hit, lanes):
+    return {"hit_" + k: _check(getattr(hit, k), torch.int32 if k == "prim_id"
+                               else torch.float32, (lanes,), f"hit.{k}")
+            for k in sh.HIT_IN}
+
+
+def _cam_in(cam):
+    v = {f"cam_{k}": _check(getattr(cam, k), torch.float32, (3,),
+                            f"cam.{k}")
+         for k in ("pos", "forward", "right", "down")}
+    v["cam_ipd"] = _check(cam.img_plane_dist.reshape(()), torch.float32, (),
+                          "cam.img_plane_dist")
+    return v
+
+
+def _launch(which, scene, lanes, ptrs: dict, ints: dict, floats: dict,
+            dev):
+    """imba_vcm_shade(which) with the named arguments (absent pointers
+    null, absent ints and floats 0)."""
+    lib = _library()
+    tab = sh.tables_for(scene)
+    table = dict(zip(sh.TABLE_PTRS, tab.ptrs))
+    table.update(zip(sh.EMIT_PTRS, tab.emit_ptrs))
+    p = [table[k] if k in table else (
+        ptrs[k].data_ptr() if ptrs.get(k) is not None else None)
+        for k in PTRS]
+    ints = dict(ints, mats=tab.num_mats, lanes=lanes)
+    i = tab.ints + [int(ints.get(k, 0)) for k in CALL_INTS]
+    fl = tab.floats + [float(np.float32(floats.get(k, 0.0)))
+                       for k in CALL_FLOATS]
+    p_arr = (ctypes.c_void_p * len(p))(*p)
+    i_arr = (ctypes.c_int * len(i))(*i)
+    f_arr = (ctypes.c_float * len(fl))(*fl)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.imba_vcm_shade(WHICH[which], p_arr, len(p), i_arr, len(i),
+                             f_arr, len(fl), stream)
+    if err != 0:
+        raise RuntimeError(f"vcm {which} kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[which] += 1
+
+
+def _empty_carry(names, lanes, dev):
+    kinds = _carry_kinds(lanes)
+    return {k: torch.empty(kinds[k][1], dtype=kinds[k][0], device=dev)
+            for k in names}
+
+
+LIGHT_CARRY = ("org", "d", "tmin", "throughput", "active", "d_vc", "d_vcm",
+               "d_vm", "state", "finite", "path_id")
+NEXT = ("org", "d", "tmin", "throughput", "active", "d_vc", "d_vcm", "d_vm",
+        "state")
+CAMERA_CARRY = ("org", "d", "tmin", "throughput", "radiance", "active",
+                "d_vc", "d_vcm", "d_vm", "state")
+
+
+def light_start_cuda(scene, frame, mis_eta_vc, *, lanes, light_path_count,
+                     path_start=0, path_end=None):
+    """Launch vcm_light_start_kernel (raises on anything but CUDA
+    tensors): light_start_plain's carry."""
+    dev = scene.lights.rec.device
+    if dev.type != "cuda":
+        raise ValueError(f"vcm_shade: the scene must be on a CUDA device, "
+                         f"got {dev}")
+    out = _empty_carry(LIGHT_CARRY, lanes, dev)
+    ptrs = {"o_" + k: v for k, v in out.items()}
+    ptrs.update(frame=_scalar(frame, torch.int64, dev, "frame"),
+                mis_eta_vc=_scalar(mis_eta_vc, torch.float32, dev,
+                                   "mis_eta_vc"))
+    ints = dict(lpc=light_path_count)
+    if torch.is_tensor(path_start):
+        ptrs["path_start"] = _scalar(path_start, torch.int32, dev,
+                                     "path_start")
+    else:
+        ints["path_start"] = path_start
+    if path_end is not None:
+        ptrs["path_end"] = _scalar(path_end, torch.int32, dev, "path_end")
+    _launch("light_start", scene, lanes, ptrs, ints, {}, dev)
+    return out
+
+
+def _call_floats(cam, light_path_count, pixel_area=None, vc_norm=None):
+    f = dict(inv_lpc=sh.scalar_divisor(light_path_count),
+             half_w=0.5 * cam.width if cam is not None else 0.0,
+             half_h=0.5 * cam.height if cam is not None else 0.0,
+             h_over_w=cam.height / cam.width if cam is not None else 0.0)
+    if pixel_area is not None:
+        f["inv_pixel_area"] = sh.scalar_divisor(pixel_area)
+    if vc_norm is not None:
+        f["vc_norm"] = sh.scalar_divisor(vc_norm)
+    return f
+
+
+def light_shade_cuda(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
+                     mis_eta_vm, algo, light_path_count, max_len, has_bump,
+                     pixel_area):
+    """Launch vcm_light_shade_kernel (raises on anything but CUDA
+    tensors): light_shade_plain's outputs, computed a lane a thread."""
+    lanes = c["active"].shape[0]
+    dev = c["active"].device
+    ptrs = _carry_in(c, LIGHT_CARRY, lanes)
+    ptrs.update(_hit_in(hit, lanes))
+    nxt = _empty_carry(NEXT, lanes, dev)
+    ptrs.update({"o_" + k: v for k, v in nxt.items()})
+    ptrs.update(_cam_in(cam), mis_eta_vc=_scalar(
+        mis_eta_vc, torch.float32, dev, "mis_eta_vc"), mis_eta_vm=_scalar(
+        mis_eta_vm, torch.float32, dev, "mis_eta_vm"))
+    use_cache, use_cc = rows.rec is not None, rows.cc is not None
+    if use_cache:
+        ptrs.update(v_rec=_check(rows.rec, torch.float32, (lanes, REC_W),
+                                 "rows.rec"),
+                    v_store=_check(rows.store, torch.bool, (lanes,),
+                                   "rows.store"))
+    shadow = None
+    if use_cc:
+        ptrs.update(cc_contrib=_check(rows.cc, torch.float32, (lanes, 3),
+                                      "rows.cc"),
+                    cc_pixel=_check(rows.pixel, torch.int32, (lanes,),
+                                    "rows.pixel"))
+        v3 = lambda: torch.empty((lanes, 3), dtype=torch.float32, device=dev)
+        v1 = lambda: torch.empty(lanes, dtype=torch.float32, device=dev)
+        shadow = sh.ShadowRay(v3(), v3(), v1(), v1(),
+                              torch.empty(lanes, dtype=torch.bool,
+                                          device=dev))
+        ptrs.update({"s_" + k: getattr(shadow, k)
+                     for k in sh.ShadowRay._fields})
+    ints = dict(has_bump=int(has_bump), max_len=max_len, bounce=i,
+                algo=ALGOS.index(algo), lpc=light_path_count,
+                width=cam.width, height=cam.height, use_cache=int(use_cache),
+                use_cc=int(use_cc))
+    _launch("light_shade", scene, lanes, ptrs, ints,
+            _call_floats(cam, light_path_count, pixel_area=pixel_area), dev)
+    nxt.update(finite=c["finite"], path_id=c["path_id"])
+    return nxt, shadow
+
+
+def light_finish_cuda(contrib, pixel, ok, occluded):
+    """Launch the light entry of vcm_finish_kernel (raises on anything but
+    CUDA tensors): contrib and pixel updated in place."""
+    lanes = ok.shape[0]
+    for x, dt, shape, what in ((contrib, torch.float32, (lanes, 3),
+                                "contrib"),
+                               (pixel, torch.int32, (lanes,), "pixel")):
+        if not x.is_contiguous():
+            raise ValueError(f"vcm_shade: {what} is updated in place and "
+                             f"must be contiguous")
+        _check(x, dt, shape, what)
+    ok = _check(ok, torch.bool, (lanes,), "ok")
+    occluded = _check(occluded, torch.bool, (lanes,), "occluded")
+    lib = _library()
+    stream = torch.cuda.current_stream(ok.device).cuda_stream
+    err = lib.imba_vcm_finish(0, None, contrib.data_ptr(), pixel.data_ptr(),
+                              ok.data_ptr(), occluded.data_ptr(), None, None,
+                              lanes, 1, stream)
+    if err != 0:
+        raise RuntimeError(f"vcm light finish kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["light_finish"] += 1
+
+
+def camera_shade_cuda(scene, c, hit, i, *, cache_count, cache_rec,
+                      base_radius, mis_eta_vc, mis_eta_vm, algo, max_len,
+                      light_path_count, num_connections, has_bump,
+                      techniques, query=True):
+    """Launch vcm_camera_shade_kernel (raises on anything but CUDA
+    tensors): camera_shade_plain's outputs, computed a lane a thread (the
+    merge query None unless `query`)."""
+    lanes = c["active"].shape[0]
+    dev = c["active"].device
+    counted = "n_rays" in c
+    ptrs = _carry_in(c, CAMERA_CARRY + (("n_rays",) if counted else ()),
+                     lanes)
+    ptrs.update(_hit_in(hit, lanes))
+    nxt = _empty_carry(CAMERA_CARRY, lanes, dev)
+    if counted:
+        nxt["n_rays"] = ptrs["n_rays"].clone()
+    ptrs.update({"o_" + k: v for k, v in nxt.items()})
+    ptrs.update(mis_eta_vc=_scalar(mis_eta_vc, torch.float32, dev,
+                                   "mis_eta_vc"),
+                mis_eta_vm=_scalar(mis_eta_vm, torch.float32, dev,
+                                   "mis_eta_vm"))
+    connects = algo in ("vcm", "bpt")
+    ints = dict(has_bump=int(has_bump), max_len=max_len, bounce=i,
+                algo=ALGOS.index(algo), lpc=light_path_count,
+                tech=sum(1 << k for k, t in enumerate(TECHNIQUES)
+                         if t in techniques),
+                num_conn=num_connections if connects else 0)
+    if connects:
+        ptrs.update(
+            cache_count=_scalar(cache_count, torch.int32, dev, "cache_count"),
+            cache_rec=_check(cache_rec, torch.float32,
+                             (cache_rec.shape[0], REC_W), "cache_rec"),
+            base_radius=_scalar(base_radius, torch.float32, dev,
+                                "base_radius"))
+        ints["cache_rows"] = cache_rec.shape[0]
+    sets = shadow_sets(algo, techniques, num_connections)
+    shadow = None
+    if sets:
+        n = sets * lanes
+        v3 = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)
+        v1 = lambda: torch.empty(n, dtype=torch.float32, device=dev)
+        shadow = ShadowSets(v3(), v3(), v1(), v1(),
+                            torch.empty(n, dtype=torch.bool, device=dev),
+                            v3())
+        ptrs.update({"s_" + k: v for k, v in shadow._asdict().items()})
+    q = None
+    if query:
+        v3 = lambda: torch.empty((lanes, 3), dtype=torch.float32, device=dev)
+        v1 = lambda: torch.empty(lanes, dtype=torch.float32, device=dev)
+        cols = dict(pos=v3(), normal=v3(), gn=v3(), w_out=v3(),
+                    kind=torch.empty(lanes, dtype=torch.int32, device=dev),
+                    kd=v3(), ks=v3(), ns=v1(), d_vcm=v1(), d_vm=v1(),
+                    active=torch.empty(lanes, dtype=torch.bool, device=dev),
+                    throughput=v3())
+        ptrs.update({"q_" + k: v for k, v in cols.items()})
+        q = MergeQuery(cols["pos"], cols["normal"], cols["gn"],
+                       cols["w_out"], mat_mod.MatParams(
+                           kind=cols["kind"], kd=cols["kd"], ks=cols["ks"],
+                           ns=cols["ns"]),
+                       cols["d_vcm"], cols["d_vm"], cols["active"],
+                       cols["throughput"])
+    floats = _call_floats(None, light_path_count, vc_norm=(
+        light_path_count * num_connections if connects
+        and num_connections > 0 else None))
+    _launch("camera_shade", scene, lanes, ptrs, ints, floats, dev)
+    return nxt, shadow, q
+
+
+def camera_finish_cuda(radiance, contrib, ok, occluded, n_rays):
+    """Launch the camera entry of vcm_finish_kernel (raises on anything
+    but CUDA tensors): (radiance, n_rays or None)."""
+    lanes = radiance.shape[0]
+    sets = ok.shape[0] // max(lanes, 1)
+    radiance = _check(radiance, torch.float32, (lanes, 3), "radiance")
+    contrib = _check(contrib, torch.float32, (sets * lanes, 3), "contrib")
+    ok = _check(ok, torch.bool, (sets * lanes,), "ok")
+    occluded = _check(occluded, torch.bool, (sets * lanes,), "occluded")
+    count = None
+    if n_rays is not None:
+        count = _check(n_rays, torch.int64, (), "n_rays").clone()
+    lib = _library()
+    out = torch.empty_like(radiance)
+    stream = torch.cuda.current_stream(radiance.device).cuda_stream
+    err = lib.imba_vcm_finish(
+        1, radiance.data_ptr(), contrib.data_ptr(), None, ok.data_ptr(),
+        occluded.data_ptr(), out.data_ptr(),
+        None if count is None else count.data_ptr(), lanes, sets, stream)
+    if err != 0:
+        raise RuntimeError(f"vcm camera finish kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["camera_finish"] += 1
+    return out, count
+
+
+def resources(kernel: str):
+    """Registers, shared memory, spills and resident blocks an SM of one
+    of RESOURCE_KERNELS (needs the card)."""
+    return st._resources(_library().imba_vcm_resources,
+                         RESOURCE_KERNELS.index(kernel))
+
+
+# --------------------------------------------------------------------------
+# Dispatch
+# --------------------------------------------------------------------------
+
+def _route(dev, cuda, plain):
+    if dev.type == "cuda":
+        return cuda
+    if dev.type == "cpu":
+        return plain
+    raise ValueError(f"unsupported device {dev}")
+
+
+def light_start(scene, frame, mis_eta_vc, **kw):
+    """A light band's carry: the kernel for a scene on the card, the plain
+    version for one on the CPU (light_start_plain's arguments)."""
+    return _route(scene.lights.rec.device, light_start_cuda,
+                  light_start_plain)(scene, frame, mis_eta_vc, **kw)
+
+
+def light_shade(scene, cam, c, hit, i, rows, **kw):
+    """Light bounce i's shading (light_shade_plain's arguments and
+    outputs): the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    return _route(c["active"].device, light_shade_cuda, light_shade_plain)(
+        scene, cam, c, hit, i, rows, **kw)
+
+
+def light_finish(contrib, pixel, ok, occluded):
+    """The camera connections' occlusion, in place: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    return _route(ok.device, light_finish_cuda, light_finish_plain)(
+        contrib, pixel, ok, occluded)
+
+
+def camera_shade(scene, c, hit, i, **kw):
+    """Camera bounce i's shading (camera_shade_plain's arguments and
+    outputs): the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    return _route(c["active"].device, camera_shade_cuda, camera_shade_plain)(
+        scene, c, hit, i, **kw)
+
+
+def camera_finish(radiance, contrib, ok, occluded, n_rays):
+    """The shadow sets' add and count: the kernel on CUDA tensors, the
+    plain version on CPU tensors.  Returns (radiance, n_rays or None)."""
+    return _route(radiance.device, camera_finish_cuda, camera_finish_plain)(
+        radiance, contrib, ok, occluded, n_rays)

@@ -75,6 +75,7 @@ from ..ops import khit as khit_mod
 from ..ops import merge as merge_mod
 from ..ops import shade as shade_mod
 from ..ops import stream_traverse as st
+from ..ops import vcm_shade as vcm_shade_mod
 from ..utils.log import logger
 from . import traverse as tt
 
@@ -89,7 +90,7 @@ def reset_stats():
 def _counters():
     """The launch counters a replay adds its deltas to."""
     return (st.LAUNCHES, khit_mod.LAUNCHES, merge_mod.LAUNCHES,
-            shade_mod.LAUNCHES, tt.MASK_STATS)
+            shade_mod.LAUNCHES, vcm_shade_mod.LAUNCHES, tt.MASK_STATS)
 
 
 def _snapshot():

@@ -29,6 +29,12 @@ normalises every light-side estimate, and the collect cache holds every
 vertex a frame can store (`max_len` a path), so the selected cache is
 the same under any band size.
 
+The shading between a bounce's traversals is ops/vcm_shade.py's: on the
+card four hand-written CUDA kernels (the light band's start, a light
+bounce, a camera bounce, and the finish after the any hit), the
+counterpart of the XLA fusions of JAX's compiled band programs; on the
+CPU their plain versions, this module's torch code as it was.
+
 CUDA graphs (the JAX module's compiled band programs, render/graphs.py):
 on a CUDA device every light band replays one captured graph of all its
 bounces, its vertex logging, its sync-free append and its camera
@@ -59,63 +65,25 @@ import functools
 
 import torch
 
-from ...core import rng as rng_mod
-from ...core.sampling import PI, russian_roulette_prob
-from ...core.vecmath import dot, normalize
+from ...core.sampling import PI
+from ...core.vecmath import dot
 from ...ops import merge as merge_mod
-from ...scene.textures import sample_bilinear
-from .. import envmap as envmap_mod
+from ...ops import vcm_shade as vs
+from ...ops.vcm_shade import ALGOS, TECHNIQUES
 from .. import graphs as graphs_mod
-from .. import lights as light_mod
-from .. import materials as mat_mod
 from .. import traverse as tt
-from ..camera import Camera, raster_to_id, world_to_raster
+from ..camera import Camera
 from ..film import splat
 from ..intersect import BIG
-from ..light_cache import (CollectCache, empty_collect, pack_batch,
-                           select_shallowest)
-from ..surface import make_interaction
+from ..light_cache import CollectCache, empty_collect, select_shallowest
 from ..traverse import any_hit, closest_hit
 from . import pt as pt_mod
 from .pt import (BAND_RAYS, alpha_fn_for, camera_rays, run_bands,
                  use_compact)
 
-ALGOS = ("vcm", "bpt", "ppm", "lt", "pt")
 # Camera bounces every band of a compacted camera pass runs before its
 # lanes are sorted.
 VCM_COMPACT_DEPTH = 4
-
-# Sampling-technique tags for the MIS debugger: each tag gates one
-# contribution site while the RNG streams stay identical, so renders of
-# single techniques sum to the full render.
-TECHNIQUES = ("light_hit", "next_event", "connect", "merge", "cam_connect")
-
-LIGHT_SEED = 0x1157A9
-
-
-def shading_normal_adjoint(normal, gn, w_out, w_in):
-    """Veach's adjoint-BSDF cosine correction."""
-    denom = dot(w_out, gn)
-    denom = torch.where(torch.abs(denom) < 1e-9,
-                        torch.where(denom < 0, -1e-9, 1e-9), denom)
-    return dot(w_out, normal) * dot(w_in, gn) / denom
-
-
-def _vertex_from_rec(scene, rec):
-    """Unpack gathered (R, 24) cache records (LightVertexCache.packed)."""
-    bits = lambda c: rec[:, c].contiguous().view(torch.int32)
-    mat_id = bits(14)
-    uv = rec[:, 12:14]
-    params = mat_mod.gather_params(scene.materials, mat_id)
-    if scene.textures.texels.shape[0] > 1:
-        params["kd"] = torch.where(
-            (params["kd_tex"] >= 0)[..., None],
-            sample_bilinear(scene.textures, params["kd_tex"], uv[:, 0],
-                            uv[:, 1]), params["kd"])
-    return dict(pos=rec[:, 0:3], w_out=rec[:, 3:6], normal=rec[:, 6:9],
-                gn=rec[:, 9:12], params=params, throughput=rec[:, 15:18],
-                d_vc=rec[:, 18], d_vcm=rec[:, 19], d_vm=rec[:, 20],
-                path_length=bits(21))
 
 
 def auto_cache_capacity(light_path_count: int, max_len: int) -> int:
@@ -164,166 +132,40 @@ def _light_pass(scene, cam: Camera, frame, mis_eta_vc, mis_eta_vm, collect,
     `path_end`, the lanes of paths at or past it are padding: dead from
     the start, they log and splat nothing.  With `overflow`, masked
     traversal takes the graph-ready re-trace and the band reads nothing
-    on the host (render/graphs.py captures it)."""
+    on the host (render/graphs.py captures it).  The shading between the
+    traversals runs in ops/vcm_shade.py (on the card, its kernels)."""
     dev = cam.pos.device
-    num_lights = scene.lights.kind.shape[0]
     L = band_paths if band_paths > 0 else light_path_count
-    pdf_lightpick = 1.0 / num_lights
-
-    path_id = path_start + torch.arange(L, dtype=torch.int32, device=dev)
-    state = rng_mod.seed(path_id, frame, torch.full(
-        (), LIGHT_SEED, dtype=torch.int64, device=dev))
-    # Uniform split of the GLOBAL path index over the lights, so banding
-    # never changes which light a path samples (clamped for padding).
-    light_idx = torch.clamp((path_id * num_lights) // light_path_count,
-                            max=num_lights - 1)
-    state, (u1, u2, u3, u4) = rng_mod.next_floats(state, 4)
-    es = light_mod.sample_emit(scene.lights, light_idx, u1, u2, u3, u4,
-                               scene.bsphere, scene.env,
-                               kinds=scene.light_kinds)
-
-    throughput = es.radiance / pdf_lightpick
-    d_vcm = es.pdf_direct_a / torch.clamp(es.pdf_emit_w, min=1e-20)
-    d_vc = torch.where(es.is_delta, 0.0, es.cos_out / torch.clamp(
-        es.pdf_emit_w * pdf_lightpick, min=1e-20))
-    d_vm = d_vc * mis_eta_vc
-    org, d = es.pos, es.dir
-    tmin = torch.full((L,), 1e-3, dtype=torch.float32, device=dev)
-    active = (es.pdf_emit_w > 0.0) & torch.any(es.radiance != 0.0, dim=-1)
-    if path_end is not None:
-        active = active & (path_id < path_end)
-
     use_cc = algo != "ppm" and "cam_connect" in techniques
     use_cache = collect is not None
-    vrecs, vstores, cc_rows, cc_pix = [], [], [], []
+    c = vs.light_start(scene, frame, mis_eta_vc, lanes=L,
+                       light_path_count=light_path_count,
+                       path_start=path_start, path_end=path_end)
+    # The band's vertex rows and camera connections, in (bounce, path)
+    # order.
+    rows = vs.light_rows(L, max_len, use_cache, use_cc, dev)
     for i in range(max_len):
-        hit = closest_hit(scene.bvh, org, d, tmin, BIG, alpha_fn=alpha_fn,
-                          active=active, sort=True, overflow=overflow)
-        # Light rays ignore the environment.
-        active = active & (hit.prim_id >= 0)
-        isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
-        cos_o = torch.abs(dot(isect.w_out, isect.normal))
-        # Terminate at emitter surfaces (the camera pass does too).
-        active = active & (cos_o > 0.0) & (isect.light_id < 0)
-
-        # Complete the partial weights.
-        t_sqr = hit.t * hit.t
-        d_vcm = d_vcm * (t_sqr if i > 0 else torch.where(es.is_finite, t_sqr,
-                                                          1.0))
-        inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
-        d_vcm = d_vcm * inv_cos
-        d_vc = d_vc * inv_cos
-        d_vm = d_vm * inv_cos
-        non_spec = ~mat_mod.is_specular(isect.params)
-
-        if use_cache:
-            vrecs.append(pack_batch(
-                isect.pos, isect.w_out, isect.normal, isect.gn, isect.uv,
-                isect.mat_id, throughput, d_vc, d_vcm, d_vm,
-                torch.full((L,), i + 2, dtype=torch.int32, device=dev),
-                path_id))
-            vstores.append(active & non_spec)
-        if use_cc:
-            # Normalised by the GLOBAL light-path count, not the band.
-            contrib, pix = _connect_to_camera(
-                scene, cam, isect, throughput, d_vc, d_vcm,
-                active & non_spec, mis_eta_vm, light_path_count, algo,
-                alpha_fn, overflow)
-            cc_rows.append(contrib)
-            cc_pix.append(pix)
-
-        (org, d, tmin, throughput, active, d_vc, d_vcm, d_vm,
-         state) = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm,
-                          active, state, hit, mis_eta_vc, mis_eta_vm,
-                          adjoint=True, algo=algo,
-                          last_bounce=(i + 1 >= max_len))
+        hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                          alpha_fn=alpha_fn, active=c["active"], sort=True,
+                          overflow=overflow)
+        at = rows.at(i, L)
+        c, shadow = vs.light_shade(
+            scene, cam, c, hit, i, at, mis_eta_vc=mis_eta_vc,
+            mis_eta_vm=mis_eta_vm, algo=algo,
+            light_path_count=light_path_count, max_len=max_len,
+            has_bump=has_bump, pixel_area=pixel_area(cam))
+        if shadow is not None:
+            occluded = any_hit(scene.bvh, shadow.pos, shadow.dir,
+                               shadow.tmin, shadow.tmax, alpha_fn=alpha_fn,
+                               active=shadow.ok, sort=True, overflow=overflow)
+            vs.light_finish(at.cc, at.pixel, shadow.ok, occluded)
 
     # One splat and one append per band, in (bounce, path) order.
     if use_cache:
-        collect.append(torch.cat(vstores), torch.cat(vrecs))
+        collect.append(rows.store, rows.rec)
     if use_cc:
-        return splat(torch.cat(cc_rows), torch.cat(cc_pix), num_pixels)
+        return splat(rows.cc, rows.pixel, num_pixels)
     return torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
-
-
-def _connect_to_camera(scene, cam, isect, throughput, d_vc, d_vcm, valid,
-                       mis_eta_vm, light_path_count, algo, alpha_fn,
-                       overflow=None):
-    """Light vertex -> camera connection: (contrib (R, 3), pixel id (R,),
-    -1 where nothing lands)."""
-    to_cam = cam.pos - isect.pos
-    in_front = dot(-to_cam, cam.forward) >= 0.0
-    rx, ry, _ = world_to_raster(cam, isect.pos)
-    pixel = raster_to_id(cam, rx, ry)
-    valid = valid & in_front & (pixel >= 0)
-
-    dist_sqr = torch.clamp(dot(to_cam, to_cam), min=1e-12)
-    dist = torch.sqrt(dist_sqr)
-    dir_c = to_cam / dist[..., None]
-    cos_cam = torch.abs(dot(cam.forward, -dir_c))
-    cos_surf = torch.abs(shading_normal_adjoint(isect.normal, isect.gn,
-                                                isect.w_out, dir_c))
-    f, _, pdf_rev = mat_mod.eval_pdf_bsdf(
-        isect.params, isect.normal, isect.gn, isect.w_out, dir_c,
-        kinds=scene.mat_kinds)
-    valid = valid & (pdf_rev > 0.0)
-
-    ipd = cam.img_plane_dist
-    img_to_surf = (ipd * ipd * cos_surf) / torch.clamp(
-        dist_sqr * cos_cam * cos_cam * cos_cam, min=1e-12) / pixel_area(cam)
-    w_light = (img_to_surf / light_path_count) * (
-        mis_eta_vm + d_vcm + d_vc * pdf_rev)
-    w = 1.0 if algo == "lt" else 1.0 / (w_light + 1.0)
-    contrib = throughput * f * (w * img_to_surf / light_path_count)[..., None]
-    valid = valid & torch.any(contrib > 0.0, dim=-1)
-
-    offset = dist * 1e-3
-    occluded = any_hit(scene.bvh, isect.pos, dir_c, offset, dist - offset,
-                       alpha_fn=alpha_fn, active=valid, sort=True,
-                       overflow=overflow)
-    ok = valid & ~occluded
-    return torch.where(ok[..., None], contrib, 0.0), torch.where(ok, pixel, -1)
-
-
-def _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm, active, state, hit,
-            mis_eta_vc, mis_eta_vm, *, adjoint, algo, last_bounce):
-    """Shared camera / light bounce with the partial-weight updates."""
-    state, (urr, u1, u2, u3) = rng_mod.next_floats(state, 4)
-    rr_pdf = russian_roulette_prob(throughput)
-    survive = urr < rr_pdf
-    p = isect.params
-    wi, f, pdf_dir, spec, valid = mat_mod.sample_bsdf(
-        p, isect.normal, isect.gn, isect.w_out, u1, u2, u3, adjoint=adjoint,
-        kinds=scene.mat_kinds)
-    if algo == "ppm" and not adjoint:
-        # PPM camera paths follow specular chains only.
-        valid = valid & mat_mod.is_specular(p)
-    pdf_rev = torch.where(spec, pdf_dir, mat_mod.pdf_bsdf(
-        p, isect.normal, isect.gn, wi, isect.w_out, kinds=scene.mat_kinds))
-    if adjoint:
-        cos_i = torch.abs(shading_normal_adjoint(isect.normal, isect.gn,
-                                                 isect.w_out, wi))
-    else:
-        cos_i = torch.abs(dot(wi, isect.normal))
-
-    safe_pdf = torch.clamp(pdf_dir, min=1e-20)
-    ratio = cos_i / safe_pdf
-    new_d_vc = torch.where(spec, d_vc * cos_i,
-                           ratio * (d_vc * pdf_rev + d_vcm + mis_eta_vm))
-    new_d_vm = torch.where(spec, d_vm * cos_i,
-                           ratio * (d_vm * pdf_rev + d_vcm * mis_eta_vc + 1.0))
-    new_d_vcm = torch.where(spec, 0.0, 1.0 / safe_pdf)
-    new_throughput = throughput * f * (cos_i / (rr_pdf * safe_pdf))[..., None]
-    active = active & survive & valid
-    if last_bounce:
-        active = torch.zeros_like(active)
-
-    a3 = active[..., None]
-    return (torch.where(a3, isect.pos, 0.0), torch.where(a3, wi, 0.0),
-            hit.t * 1e-4, torch.where(a3, new_throughput, throughput), active,
-            torch.where(active, new_d_vc, d_vc),
-            torch.where(active, new_d_vcm, d_vcm),
-            torch.where(active, new_d_vm, d_vm), state)
 
 
 # ======================================================================
@@ -367,193 +209,38 @@ def _camera_bounce(scene, c, i, *, cache_count, cache_rec, grid, pm_radius,
     """Camera bounce `i` of every lane of the carry.  The lanes are
     lockstep: every live lane is at bounce `i`, which the first-vertex
     weights, the connections' path length and the last bounce read.
-    With `record`, a list, the arguments of the bounce's merge call are
-    appended to it.  With "n_rays" in the carry, the bounce adds its
-    traced rays (closest hit + shadow) to it.  `overflow` as in
-    _light_pass."""
-    org, d, throughput, active, state = (c["org"], c["d"], c["throughput"],
-                                         c["active"], c["state"])
-    d_vc, d_vcm, d_vm, radiance = c["d_vc"], c["d_vcm"], c["d_vm"], \
-        c["radiance"]
-    num_lights = scene.lights.kind.shape[0]
-    ppm = algo == "ppm"
-    hit = closest_hit(scene.bvh, org, d, c["tmin"], BIG, alpha_fn=alpha_fn,
-                      active=active, sort=True, overflow=overflow)
-    rays = [active.sum()] if "n_rays" in c else None
-    # --- environment misses -----------------------------------------
-    # The template's PT variant weights the first vertex fully, as the
-    # dedicated path tracer does (the JAX module's deviation).
-    miss = active & (hit.prim_id < 0)
-    if scene.env is not None and "light_hit" in techniques:
-        li, pdf_direct_w, pdf_emit_w = envmap_mod.radiance(
-            scene.env, normalize(d), scene.bsphere.inv_radius_sqr)
-        w_cam = ((pdf_direct_w / num_lights) * d_vcm
-                 + (pdf_emit_w / num_lights) * d_vc)
-        if ppm or (algo == "pt" and i == 0):
-            w = torch.ones_like(w_cam)
-        else:
-            w = 1.0 / (w_cam + 1.0)
-        radiance = radiance + torch.where(
-            miss[..., None], throughput * li * w[..., None], 0.0)
-    active = active & ~miss
-
-    isect = make_interaction(scene, hit, org, d, has_bump=has_bump)
-    cos_o = torch.abs(dot(isect.w_out, isect.normal))
-    inv_cos = 1.0 / torch.clamp(cos_o, min=1e-9)
-    d_vcm = d_vcm * (hit.t * hit.t) * inv_cos
-    d_vc = d_vc * inv_cos
-    d_vm = d_vm * inv_cos
-    active = active & (cos_o > 0.0)
-
-    # --- emitter hits -------------------------------------------------
-    is_emitter = active & (isect.light_id >= 0)
-    area = torch.clamp(isect.area, min=1e-12)
-    cos_geom = dot(isect.gn, isect.w_out)
-    front = cos_geom > 0.0
-    li = torch.where(front[..., None], isect.emit, 0.0)
-    pdf_direct_a = torch.where(front, 1.0 / area, 1.0)
-    # The area emitter's pdf_emit_w is measured about the geometric
-    # normal.
-    pdf_emit_w = torch.where(
-        front, torch.clamp(cos_geom, min=0.0) / PI / area, 1.0)
-    w_cam = ((pdf_direct_a / num_lights) * d_vcm
-             + (pdf_emit_w / num_lights) * d_vc)
-    if ppm or i == 0:
-        w_emit = torch.ones_like(w_cam)
-    else:
-        w_emit = 1.0 / (w_cam + 1.0)
-    if "light_hit" in techniques:
-        radiance = radiance + torch.where(
-            is_emitter[..., None], throughput * li * w_emit[..., None],
-            0.0)
-    active = active & ~is_emitter
-    non_spec = ~mat_mod.is_specular(isect.params)
-
-    # --- NEE + vertex connections: one any-hit dispatch ---------------
-    shadow = []
-    if algo != "ppm":
-        state = _direct_illum(
-            scene, isect, throughput, d_vc, d_vcm, active, state,
-            mis_eta_vm, num_lights, algo, shadow,
-            enabled="next_event" in techniques)
-    if algo in ("vcm", "bpt"):
-        for _ in range(num_connections):
-            state = _connect(
-                scene, cache_count, cache_rec, isect, throughput, d_vc, d_vcm,
-                active & non_spec, state, mis_eta_vm, light_path_count,
-                num_connections, max_len, i + 1, base_radius, shadow,
-                enabled="connect" in techniques)
-    if shadow:
-        cat = lambda k: torch.cat([s[k] for s in shadow])
-        ok_all = cat(4)
-        occ = any_hit(scene.bvh, cat(0), cat(1), cat(2), cat(3),
-                      alpha_fn=alpha_fn, active=ok_all, sort=True,
+    The shading between the traversals runs in ops/vcm_shade.py (on the
+    card, its kernels): env and emitter hits, NEE and the vertex
+    connections up to one batched any-hit dispatch of their shadow rays,
+    their add, then merging and BSDF sampling.  With `record`, a list,
+    the arguments of the bounce's merge call are appended to it.  With
+    "n_rays" in the carry, the bounce adds its traced rays (closest hit +
+    shadow) to it.  `overflow` as in _light_pass."""
+    hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                      alpha_fn=alpha_fn, active=c["active"], sort=True,
                       overflow=overflow)
-        if rays is not None:
-            rays.append(ok_all.sum())
-        n = shadow[0][4].shape[0]
-        for k, (_, _, _, _, ok, contrib) in enumerate(shadow):
-            hit_ok = ok & ~occ[k * n:(k + 1) * n]
-            radiance = radiance + torch.where(hit_ok[..., None], contrib,
-                                              0.0)
-
-    # --- vertex merging -------------------------------------------------
-    if algo in ("vcm", "ppm") and "merge" in techniques:
-        radiance = _vertex_merging(
-            grid, isect, throughput, d_vcm, d_vm, active & non_spec,
-            radiance, mis_eta_vc, pm_radius, light_path_count, algo,
+    merge = algo in ("vcm", "ppm") and "merge" in techniques
+    nxt, shadow, q = vs.camera_shade(
+        scene, c, hit, i, cache_count=cache_count, cache_rec=cache_rec,
+        base_radius=base_radius, mis_eta_vc=mis_eta_vc,
+        mis_eta_vm=mis_eta_vm, algo=algo, max_len=max_len,
+        light_path_count=light_path_count, num_connections=num_connections,
+        has_bump=has_bump, techniques=techniques, query=merge)
+    if shadow is not None:
+        occluded = any_hit(scene.bvh, shadow.pos, shadow.dir, shadow.tmin,
+                           shadow.tmax, alpha_fn=alpha_fn, active=shadow.ok,
+                           sort=True, overflow=overflow)
+        nxt["radiance"], n_rays = vs.camera_finish(
+            nxt["radiance"], shadow.contrib, shadow.ok, occluded,
+            nxt.get("n_rays"))
+        if n_rays is not None:
+            nxt["n_rays"] = n_rays
+    if merge:
+        nxt["radiance"] = _vertex_merging(
+            grid, q, q.throughput, q.d_vcm, q.d_vm, q.active,
+            nxt["radiance"], mis_eta_vc, pm_radius, light_path_count, algo,
             mat_kinds, record=record)
-
-    (org, d, tmin, throughput, active, d_vc, d_vcm, d_vm,
-     state) = _bounce(scene, isect, throughput, d_vc, d_vcm, d_vm,
-                      active, state, hit, mis_eta_vc, mis_eta_vm,
-                      adjoint=False, algo=algo,
-                      last_bounce=(i + 1 >= max_len))
-    out = dict(org=org, d=d, tmin=tmin, throughput=throughput,
-               radiance=radiance, active=active, d_vc=d_vc, d_vcm=d_vcm,
-               d_vm=d_vm, state=state)
-    if rays is not None:
-        out["n_rays"] = c["n_rays"] + sum(rays)
-    return out
-
-
-def _direct_illum(scene, isect, throughput, d_vc, d_vcm, active, state,
-                  mis_eta_vm, num_lights, algo, shadow, enabled=True):
-    """NEE: appends (org, dir, tmin, tmax, ok, contrib) to `shadow` when
-    `enabled`; the RNG advances either way.  Returns the new state."""
-    state, (ul, ua, ub) = rng_mod.next_floats(state, 3)
-    light_idx = torch.clamp((ul * num_lights).to(torch.int32),
-                            max=num_lights - 1)
-    ds = light_mod.sample_direct(scene.lights, light_idx, isect.pos, ua, ub,
-                                 scene.bsphere, scene.env,
-                                 kinds=scene.light_kinds)
-    cos_i = torch.abs(dot(isect.normal, ds.dir))
-    f, pdf_dir, pdf_rev = mat_mod.eval_pdf_bsdf(
-        isect.params, isect.normal, isect.gn, isect.w_out, ds.dir,
-        kinds=scene.mat_kinds)
-    ok = active & (pdf_dir > 0.0) & (pdf_rev > 0.0)
-
-    pdf_forward = torch.where(ds.is_delta, 0.0, pdf_dir)
-    w_light = pdf_forward * num_lights / torch.clamp(ds.pdf_direct_w,
-                                                     min=1e-20)
-    w_cam = (ds.pdf_emit_w * cos_i / torch.clamp(
-        ds.pdf_direct_w * ds.cos_out, min=1e-20)) * (
-        mis_eta_vm + d_vcm + d_vc * pdf_rev)
-    w = (torch.ones_like(w_cam) if algo == "pt"
-         else 1.0 / (w_cam + 1.0 + w_light))
-    contrib = throughput * f * ds.radiance * (w * cos_i * num_lights)[..., None]
-    ok = ok & torch.any(contrib > 0.0, dim=-1)
-    offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
-    if enabled:
-        shadow.append((isect.pos, ds.dir, offset, ds.distance - offset, ok,
-                       contrib))
-    return state
-
-
-def _connect(scene, count, cache_rec, isect, throughput, d_vc, d_vcm, active,
-             state, mis_eta_vm, light_path_count, num_connections, max_len,
-             cam_path_length, base_radius, shadow, enabled=True):
-    """One vertex connection per ray to a uniformly picked cached light
-    vertex (`count` rows of `cache_rec`); appends its shadow ray to
-    `shadow` when `enabled`.  Returns the new state."""
-    state, (uc,) = rng_mod.next_floats(state, 1)
-    j = torch.minimum((uc * count.to(torch.float32)).to(torch.int32),
-                      torch.clamp(count - 1, min=0))
-    v = _vertex_from_rec(scene, cache_rec[j.long()])
-    ok = active & (count > 0) & (v["path_length"] + cam_path_length <= max_len)
-
-    to_v = v["pos"] - isect.pos
-    dist_sq = torch.clamp(dot(to_v, to_v), min=1e-20)
-    dist = torch.sqrt(dist_sq)
-    cdir = to_v / dist[..., None]
-    ok = ok & (dist >= base_radius)
-
-    f_cam, pdf_cam, pdf_cam_rev = mat_mod.eval_pdf_bsdf(
-        isect.params, isect.normal, isect.gn, isect.w_out, cdir,
-        kinds=scene.mat_kinds)
-    vn, vgn, vout = v["normal"], v["gn"], v["w_out"]
-    f_light, pdf_light, pdf_light_rev = mat_mod.eval_pdf_bsdf(
-        v["params"], vn, vgn, vout, -cdir, kinds=scene.mat_kinds)
-    ok = (ok & (pdf_cam > 0) & (pdf_cam_rev > 0) & (pdf_light > 0)
-          & (pdf_light_rev > 0))
-
-    cos_cam = torch.abs(dot(isect.normal, cdir))
-    cos_light = torch.abs(shading_normal_adjoint(vn, vgn, vout, -cdir))
-    geom = cos_cam * cos_light / dist_sq
-    ok = ok & (geom > 0.0)
-    pdf_cam_a = pdf_cam * cos_light / dist_sq
-    pdf_light_a = pdf_light * cos_cam / dist_sq
-    w_light = pdf_cam_a * (mis_eta_vm + v["d_vcm"] + v["d_vc"] * pdf_light_rev)
-    w_cam = pdf_light_a * (mis_eta_vm + d_vcm + d_vc * pdf_cam_rev)
-    w = 1.0 / (w_cam + 1.0 + w_light)
-    vc_weight = count.to(torch.float32) / (light_path_count * num_connections)
-    contrib = (throughput * v["throughput"] * f_cam * f_light
-               * (w * geom * vc_weight)[..., None])
-    ok = ok & torch.any(contrib > 0.0, dim=-1)
-    offset = 1e-3 * dist
-    if enabled:
-        shadow.append((isect.pos, cdir, offset, dist - offset, ok, contrib))
-    return state
+    return nxt
 
 
 def _vertex_merging(grid, isect, throughput, d_vcm, d_vm, active, radiance,

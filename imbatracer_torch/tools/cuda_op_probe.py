@@ -12,7 +12,15 @@ bit (1.000000: the op is that formula).
   * a tensor divided by a Python scalar: a multiply by the reciprocal
     taken in float32 or in double, or an IEEE division;
   * torch.reciprocal and `-1.0 / x`: an IEEE division;
-  * torch.rsqrt against 1 / sqrt.
+  * torch.rsqrt against 1 / sqrt;
+  * the VCM kernels' (csrc/vcm_shade.cu): `floor(x).to(torch.int32)` on
+    values in and out of int32's range, NaN and infinities included,
+    against a saturating cast (NaN -> 0) and x86's INT_MIN for anything
+    out of range; torch.minimum of int32 tensors; a tensor and a 0-d
+    tensor divided by a Python int (the light-path count and the
+    connections' normaliser); the light pick `(path_id * num_lights) //
+    light_path_count` in int32, against a wrapping product and a
+    flooring division.
 
 Run: `python -m imbatracer_torch.tools.cuda_op_probe` (a few seconds;
 torch and numpy only).
@@ -80,9 +88,56 @@ def main():
           f"{share((-1.0 / xt).cpu().numpy(), f32(-1.0) / x):.6f}")
     print(f"rsqrt(x): 1 / sqrt(x) "
           f"{share(torch.rsqrt(xt).cpu().numpy(), f32(1.0) / np.sqrt(x)):.6f}")
+    probe_vcm(dev, rs)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
     return 0
+
+
+def probe_vcm(dev, rs):
+    """The ops whose CUDA results csrc/vcm_shade.cu mimics."""
+    f32 = np.float32
+    n = 1 << 16
+    x = np.concatenate([
+        rs.uniform(-4e3, 4e3, n), rs.uniform(-3e9, 3e9, n),
+        rs.choice([2.0**31, -2.0**31, 2.0**31 - 128, -2.0**31 - 256, 1e10,
+                   -1e10, 1e30, -1e30, np.inf, -np.inf, np.nan], n)]).astype(f32)
+    got = torch.floor(torch.from_numpy(x).to(dev)).to(torch.int32).cpu().numpy()
+    fl = np.floor(x.astype(np.float64))
+    sat = np.where(np.isnan(fl), 0, np.clip(np.nan_to_num(fl, posinf=2**31,
+                                                          neginf=-2**31),
+                                            -2**31, 2**31 - 1)).astype(np.int64)
+    inside = (fl >= -2**31) & (fl <= 2**31 - 1)
+    x86 = np.where(inside, np.nan_to_num(fl), -2**31).astype(np.int64)
+    print(f"floor(x).to(int32): saturating (NaN -> 0) "
+          f"{float((got == sat).mean()):.6f}, INT_MIN out of range "
+          f"{float((got == x86).mean()):.6f}; in range "
+          f"{float((got == sat)[inside].mean()):.6f}")
+    a = rs.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    b = rs.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    got = torch.minimum(torch.from_numpy(a).to(dev),
+                        torch.from_numpy(b).to(dev)).cpu().numpy()
+    print(f"minimum int32: np.minimum {float((got == np.minimum(a, b)).mean()):.6f}")
+    y = rs.uniform(0.0, 4.0e6, n).astype(f32)
+    yt = torch.from_numpy(y).to(dev)
+    for d in (192, 1 << 18, 1 << 20, 3 * (1 << 20), 8 * 1000003):
+        got = (yt / d).cpu().numpy()
+        print(f"x / {d}: x * (1 / d) in double {share(got, y * f32(1.0 / d)):.6f}"
+              f", in float32 {share(got, y * (f32(1.0) / f32(d))):.6f}; IEEE "
+              f"{share(got, y / f32(d)):.6f}")
+        zd = [torch.tensor(float(v), device=dev) / d for v in y[:64]]
+        got = np.array([float(t) for t in zd], f32)
+        print(f"0-d x / {d}: x * (1 / d) in double "
+              f"{share(got, y[:64] * f32(1.0 / d)):.6f}; IEEE "
+              f"{share(got, y[:64] / f32(d)):.6f}")
+    pid = np.concatenate([np.arange(0, 1 << 20, 97), rs.randint(
+        -2**31, 2**31, 4096, dtype=np.int64)]).astype(np.int32)
+    for lights, lpc in ((3, 1 << 20), (7, 200003), (1000, 1 << 18)):
+        got = ((torch.from_numpy(pid).to(dev) * lights) // lpc).cpu().numpy()
+        prod = (pid.astype(np.int64) * lights).astype(np.int32)   # wraps
+        want = np.floor_divide(prod.astype(np.int64), lpc)
+        print(f"light pick (path_id * {lights}) // {lpc} in int32: wrapping "
+              f"product, flooring division {float((got == want).mean()):.6f}")
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ instanced variant included, and csrc/khit_traverse.cu, also above the
 packing that references a triangle from several leaves; the pair
 route's kernels csrc/pairs_kernel.cu; the photon-merge gather and its
 query preparation csrc/merge_kernel.cu; the PT bounce's shading
-csrc/pt_shade.cu) against their plain PyTorch versions on the same
-inputs.  Needs an
+csrc/pt_shade.cu; the VCM family's bounce shading csrc/vcm_shade.cu)
+against their plain PyTorch versions on the same inputs.  Needs an
 NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
 test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
@@ -1062,3 +1062,246 @@ def test_cuda_pt_shade_input_checks(cuda_device):
     nxt, shadow, contrib = sh.pt_shade_cuda(scene, empty, ehit,
                                             has_bump=False, max_len=4)
     assert contrib.shape == (0, 3) and int(nxt["n_rays"]) == 0
+
+
+# --------------------------------------------------------------------------
+# The VCM family's bounce shading (csrc/vcm_shade.cu)
+# --------------------------------------------------------------------------
+
+VCM_LPC, VCM_MAX_LEN, VCM_SIZE = 4096, 5, 64
+
+
+def _vcm_inputs(scene, meta, dev, algo="vcm"):
+    """(camera, FrameInputs of frame 2) of a 64x64 frame."""
+    from imbatracer_torch.render.camera import make_camera
+    from imbatracer_torch.render.integrators import vcm
+
+    cam = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, VCM_SIZE,
+                      VCM_SIZE, 60.0, device=dev)
+    (frame, base, _, _, pm_radius, eta_vc, eta_vm) = vcm.frame_constants(
+        cam, 2, 0.05, algo=algo, num_pixels=VCM_SIZE ** 2,
+        light_path_count=VCM_LPC, max_len=VCM_MAX_LEN)
+    return cam, vcm.FrameInputs(cam, frame, base, pm_radius, eta_vc, eta_vm)
+
+
+def _vcm_cache(scene, meta, cam, fi):
+    """`fi` with the working cache of a light pass (through the
+    kernels)."""
+    from imbatracer_torch.render import light_cache
+    from imbatracer_torch.render.integrators import pt, vcm
+
+    collect = light_cache.empty_collect(VCM_LPC * VCM_MAX_LEN, cam.pos.device)
+    vcm._light_pass(scene, cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm,
+                    collect, algo="vcm", num_pixels=VCM_SIZE ** 2,
+                    light_path_count=VCM_LPC, max_len=VCM_MAX_LEN,
+                    alpha_fn=pt.alpha_fn_for(scene) if meta.has_masks
+                    else None, has_bump=meta.has_bump)
+    cache = light_cache.select_shallowest(
+        collect.cache(), vcm.auto_cache_capacity(VCM_LPC, VCM_MAX_LEN))
+    return vcm.working_cache(fi, cache, None, None, ())
+
+
+def _hold_vcm_columns(k, p):
+    """Every column pair of two dicts held as _hold_shade_column holds
+    them."""
+    assert set(k) == set(p)
+    for name in p:
+        _hold_shade_column(name, k[name], p[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 2])
+@pytest.mark.parametrize("name", ["cornell", "specular", "still_life",
+                                  "bumped", "delta_lights"])
+def test_cuda_vcm_shade_light_kernels_match_plain(cuda_device, name, bounce):
+    """The light band's start (padded, its band end a pointer), a light
+    bounce and its connection finish: vcm_light_start_kernel,
+    vcm_light_shade_kernel and the light entry of vcm_finish_kernel
+    against their plain versions on the card, column by column, on the
+    five scenes of tests/torch_shade_cases.py; each launches once."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt, vcm
+    from torch_shade_cases import port_scene
+
+    scene, meta = port_scene(name, cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device)
+    lanes = 3000
+    start = torch.tensor(500, dtype=torch.int32, device=cuda_device)
+    kw = dict(lanes=lanes, light_path_count=VCM_LPC, path_start=start,
+              path_end=start + lanes - 200)
+    vs.reset_launches()
+    c = vs.light_start_cuda(scene, fi.frame, fi.mis_eta_vc, **kw)
+    _hold_vcm_columns(c, vs.light_start_plain(scene, fi.frame,
+                                              fi.mis_eta_vc, **kw))
+    assert not c["active"][-200:].any() and c["active"].any()
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    skw = dict(mis_eta_vc=fi.mis_eta_vc, mis_eta_vm=fi.mis_eta_vm,
+               algo="vcm", light_path_count=VCM_LPC, max_len=VCM_MAX_LEN,
+               has_bump=meta.has_bump, pixel_area=vcm.pixel_area(cam))
+    for i in range(bounce + 1):
+        hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                             alpha_fn=alpha_fn, active=c["active"],
+                             sort=True)
+        rk = vs.light_rows(lanes, 1, True, True, cuda_device)
+        rp = vs.light_rows(lanes, 1, True, True, cuda_device)
+        k_nxt, k_sh = vs.light_shade_cuda(scene, cam, c, hit, i, rk, **skw)
+        p_nxt, p_sh = vs.light_shade_plain(scene, cam, c, hit, i, rp, **skw)
+        _hold_vcm_columns(k_nxt, p_nxt)
+        _hold_vcm_columns(_shade_columns({}, k_sh, rk.cc),
+                          _shade_columns({}, p_sh, rp.cc))
+        _hold_vcm_columns(dict(rk._asdict()), dict(rp._asdict()))
+        c = k_nxt
+    occ = tt.any_hit(scene.bvh, p_sh.pos, p_sh.dir, p_sh.tmin, p_sh.tmax,
+                     alpha_fn=alpha_fn, active=p_sh.ok, sort=True)
+    fk, fp = (rp.cc.clone(), rp.pixel.clone()), (rp.cc.clone(),
+                                                 rp.pixel.clone())
+    vs.light_finish_cuda(*fk, p_sh.ok, occ)
+    vs.light_finish_plain(*fp, p_sh.ok, occ)
+    assert torch.equal(fk[0], fp[0]) and torch.equal(fk[1], fp[1])
+    assert vs.LAUNCHES["light_start"] == 1
+    assert vs.LAUNCHES["light_shade"] == bounce + 1
+    assert vs.LAUNCHES["light_finish"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,conns,mixed", [
+    ("vcm", 1, False), ("vcm", 3, True), ("bpt", 2, True), ("ppm", 1, True),
+    ("pt", 1, False)])
+@pytest.mark.parametrize("name", ["cornell", "specular", "still_life",
+                                  "bumped", "delta_lights"])
+def test_cuda_vcm_shade_camera_kernels_match_plain(cuda_device, name, algo,
+                                                   conns, mixed):
+    """A camera bounce and its shadow sets' finish:
+    vcm_camera_shade_kernel and the camera entry of vcm_finish_kernel
+    against their plain versions on the card, with the working cache of a
+    light pass, at bounce 0 (the camera's rays) and at bounce 2 (a carry
+    at mixed depths from torch_shade_cases.carry_arrays); each launches
+    once and counts its rays on the card."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt, vcm
+    from torch_shade_cases import carry_arrays, port_scene, torch_carry
+
+    scene, meta = port_scene(name, cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device, algo)
+    fi = _vcm_cache(scene, meta, cam, fi)
+    if mixed:
+        c = torch_carry(carry_arrays(meta, 4096, seed=7, mixed=True),
+                        cuda_device)
+        g = torch.Generator().manual_seed(3)
+        for k, hi in (("d_vc", 2.0), ("d_vcm", 50.0), ("d_vm", 3.0)):
+            c[k] = (torch.rand(4096, generator=g) * hi).to(cuda_device)
+        c = {k: c[k] for k in vs.CAMERA_CARRY + ("n_rays",)}
+    else:
+        c = vcm._camera_carry(cam, fi.frame, width=VCM_SIZE, height=VCM_SIZE,
+                              spp=1, light_path_count=VCM_LPC, start_pixel=0,
+                              band_pixels=VCM_SIZE ** 2)
+        c["n_rays"] = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    i = 2 if mixed else 0
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                         alpha_fn=alpha_fn, active=c["active"], sort=True)
+    kw = dict(cache_count=fi.cache_count, cache_rec=fi.cache_rec,
+              base_radius=fi.base_radius, mis_eta_vc=fi.mis_eta_vc,
+              mis_eta_vm=fi.mis_eta_vm, algo=algo, max_len=VCM_MAX_LEN,
+              light_path_count=VCM_LPC, num_connections=conns,
+              has_bump=meta.has_bump, techniques=vs.TECHNIQUES)
+    vs.reset_launches()
+    k_nxt, k_sh, k_q = vs.camera_shade_cuda(scene, c, hit, i, **kw)
+    p_nxt, p_sh, p_q = vs.camera_shade_plain(scene, c, hit, i, **kw)
+    _hold_vcm_columns(k_nxt, p_nxt)
+    assert int(k_nxt["n_rays"]) == int(c["active"].sum())
+    kq, pq = k_q._asdict(), p_q._asdict()
+    for n in ("kind", "kd", "ks", "ns"):
+        kq[n], pq[n] = kq["params"][n], pq["params"][n]
+    del kq["params"], pq["params"]
+    _hold_vcm_columns(kq, pq)
+    sets = vs.shadow_sets(algo, vs.TECHNIQUES, conns)
+    if not sets:
+        assert k_sh is None and p_sh is None
+        return
+    _hold_vcm_columns(k_sh._asdict(), p_sh._asdict())
+    assert k_sh.ok.shape == (sets * c["active"].shape[0],)
+    occ = tt.any_hit(scene.bvh, p_sh.pos, p_sh.dir, p_sh.tmin, p_sh.tmax,
+                     alpha_fn=alpha_fn, active=p_sh.ok, sort=True)
+    args = (p_nxt["radiance"], p_sh.contrib, p_sh.ok, occ, p_nxt["n_rays"])
+    (kr, kn), (pr, pn) = vs.camera_finish_cuda(*args), \
+        vs.camera_finish_plain(*args)
+    assert torch.equal(kr, pr) and int(kn) == int(pn)
+    assert vs.LAUNCHES["camera_shade"] == vs.LAUNCHES["camera_finish"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_vcm_shade_graphs_follow_the_frame(cuda_device):
+    """The light and camera graphs read the frame number, the MIS
+    constants, the working cache and the camera through pointers: frames
+    3 and 8 of a graphed vcm frame captured at frame 0, the camera moved
+    between them, equal the eager frames (means within 1e-6 relative,
+    >= 99.9% of pixels within 1e-5), and the two frames differ; the
+    kernels launched in both routes, no plain version."""
+    import dataclasses
+
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render import graphs
+    from imbatracer_torch.render.camera import make_camera
+    from imbatracer_torch.render.integrators import vcm
+    from torch_shade_cases import port_scene
+
+    scene, meta = port_scene("still_life", cuda_device)
+    kinds = tuple(sorted(set(scene.materials.kind.tolist())))
+
+    def frame(f, cam, graph):
+        vs.reset_launches()
+        film = vcm.render_vcm_frame(
+            scene, cam, f, 0.05, algo="vcm", width=VCM_SIZE,
+            height=VCM_SIZE, max_len=VCM_MAX_LEN, light_path_count=1000,
+            has_masks=meta.has_masks, has_bump=meta.has_bump,
+            mat_kinds=kinds, light_band=384, camera_band=1500, graph=graph)
+        torch.cuda.synchronize()
+        assert all(vs.LAUNCHES[k] for k in vs.KERNELS)
+        assert not any(vs.LAUNCHES[k] for k in vs.PLAIN_KEYS)
+        return film.double()
+
+    cam0 = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, VCM_SIZE,
+                       VCM_SIZE, 60.0, device=cuda_device)
+    moved = dataclasses.replace(cam0, pos=cam0.pos + torch.tensor(
+        [0.02, -0.01, 0.03], device=cuda_device))
+    graphs.reset_stats()
+    frame(0, cam0, None)                               # captures
+    films = []
+    for f, cam in ((3, cam0), (8, moved)):
+        ef, gf = frame(f, cam, False), frame(f, cam, None)
+        assert float(ef.mean()) > 0.0
+        assert abs(float(gf.mean() - ef.mean())) <= 1e-6 * float(ef.mean())
+        rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-3)).amax(dim=1)
+        assert float((rel <= 1e-5).double().mean()) >= 0.999
+        films.append(gf)
+    assert not torch.equal(films[0], films[1])
+    assert graphs.GRAPH_STATS["reruns"] == 0
+    assert graphs.GRAPH_STATS["replays"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_vcm_shade_input_checks(cuda_device):
+    """The wrappers raise on tensors off the card or of another type."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from torch_shade_cases import port_scene
+
+    scene, meta = port_scene("cornell", cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device)
+    c = vs.light_start_cuda(scene, fi.frame, fi.mis_eta_vc, lanes=256,
+                            light_path_count=VCM_LPC)
+    hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                         active=c["active"], sort=True)
+    rows = vs.light_rows(256, 1, True, True, cuda_device)
+    kw = dict(mis_eta_vc=fi.mis_eta_vc, mis_eta_vm=fi.mis_eta_vm,
+              algo="vcm", light_path_count=VCM_LPC, max_len=4,
+              has_bump=False, pixel_area=1.0)
+    with pytest.raises(ValueError, match="path_id"):
+        vs.light_shade_cuda(scene, cam, dict(c, path_id=c["path_id"].long()),
+                            hit, 0, rows, **kw)
+    with pytest.raises(ValueError, match="hit.t"):
+        vs.light_shade_cuda(scene, cam, c, hit._replace(t=hit.t.cpu()), 0,
+                            rows, **kw)
+    with pytest.raises(ValueError, match="radiance"):
+        vs.camera_finish_cuda(rows.cc.cpu(), rows.cc, rows.store, rows.store,
+                              None)
