@@ -9,8 +9,9 @@ failure raises and the script exits non-zero:
 2. Build: compile csrc/stream_traverse.cu, csrc/khit_traverse.cu,
    csrc/merge_kernel.cu, csrc/pairs_kernel.cu (the pair route's
    candidates, queue, pair and resolve kernels), csrc/pt_shade.cu (the PT
-   bounce's shading) and csrc/graph_cond.cu (the WHILE conditional nodes
-   of render/graphs.py) with nvcc and
+   bounce's shading), csrc/vcm_shade.cu (the VCM bounces'),
+   csrc/dispatch.cu (the traversal dispatch glue) and csrc/graph_cond.cu
+   (the WHILE conditional nodes of render/graphs.py) with nvcc and
    csrc/bvh_builder.cpp with g++, all at once, into
    build/imbatracer_torch/; print each kernel entry's ptxas register,
    static shared-memory and spill lines.
@@ -85,6 +86,22 @@ failure raises and the script exits non-zero:
    (vcm_shade_bytes: the columns it reads and writes, the distinct
    shade-record, light, cache and material rows; or VCM_LANE_OPS float
    instructions a lane), with its registers, spills and resident blocks.
+4d. Dispatch glue kernels vs plain: the four kernels of csrc/dispatch.cu
+   (ops/dispatch.py: dispatch_keys_kernel, dispatch_rows_kernel,
+   khit_resolve_kernel, stream_resolve_kernel) against their plain
+   versions on the same CUDA tensors: NUM_RAYS-lane bands of bounce rays
+   (PT frame 1 after one bounce) of the still life at 1920x1080 and the
+   cornell at 1024^2 (phase 8a: the instanced scene at 1920x1080), in a
+   first round over every lane and a re-trace round over a slot map
+   (every third active lane, state by slot, tmin' past the slot's hit):
+   keys, rows, the khit resolve of the khit kernel's rows (the still
+   life), the stream resolve's closest, re-trace (masked scenes) and
+   occlusion modes of the stream kernel's rows.  `[dispatch]` lines: the
+   elements not bit-equal, which must be 0.  Each kernel timed alone
+   beside its plain version and its bound (the bytes the function moves:
+   the lane arrays in and out, the rows, the mask-record rows of the hits
+   it tests), the library sort's time a dispatch, and the kernels'
+   registers, spills and resident blocks.
 5. Main paths, each with every launch counter set to 0 just before its
    timed frames and read just after them: (a) make_frame_fn +
    ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
@@ -93,7 +110,11 @@ failure raises and the script exits non-zero:
    version (superchunk_candidates, the plain candidate stage, included;
    so in every phase below, the plain shading too) may have run, and
    pt_shade and pt_shade_finish once each a band-bounce (a graph
-   replay); (c) the
+   replay), and the dispatch keys, rows and stream resolve kernels (on
+   every main path below too, with khit_resolve on the still life's PT
+   and vcm paths and stream_resolve on the instanced ones; no resolve
+   may take opaque flags: the mask record's test runs in the kernel);
+   (c) the
    still-life proxy (alpha masks + env map) at 1920x1080, spp 1,
    max_len 8: one warm-up frame, reset(), 8 frames, as the JAX package's
    curve (results/curves_r5/curve_still_life_pt_1080p.csv) was taken --
@@ -101,7 +122,9 @@ failure raises and the script exits non-zero:
    image's PSNR against goldens/still_life_1080p_len8.png must lie within
    0.5 dB of the JAX renderer's 17.16 dB at 8 frames; then one more
    still-life frame is traced with torch.profiler (device busy time, idle
-   share, kernel count, the kernels and host ops that take longest).
+   share, kernel count, the kernels and host ops that take longest, and
+   the launches and time of the kernels TRACED_KERNELS names: the WHILE
+   nodes' set_conditional, the dispatch kernels and the library sort).
    Films must be finite with a positive mean.
 6. Film parity: the cornell, the masked scene, a small still life
    (make_still_life_like(num_objects=40, num_cards=16): the env map, masks
@@ -327,13 +350,18 @@ failure raises and the script exits non-zero:
    its counting launch tallied over 33.5e12/s, the candidate stage's slab
    tests included and padding chunks, which the kernels skip, not, see
    bound(), pair_bound(), pair_candidates_bound() and merge_bound(), the
-   shade kernels' of phase 4b's first cell (shade_bound());
+   shade kernels' of phase 4b's first cell (shade_bound()), the
+   dispatch kernels' of phase 4d's still-life cell and, for
+   stream_resolve, phase 8a's instanced cell;
    `route_ms` on the pair and merge entries: the route, merge_contrib;
    `split_ms` and `split_launches` on the khit and stream entries: the
    kernel at the split build, phase 10a, and its launches on phase 10b's
-   main path), the card's name and power limit, and last the {"ok":
-   true, "device": ...} line.  Every kernel must have launched on a main
-   path.
+   main path), before it a `[glue]` line (the library sort's time a
+   dispatch, and each traced graphed frame of phases 13-14: its kernels
+   a replayed graph, those launched outside the graphs taken off; a PT
+   band-bounce), then the card's name and power limit, and last the
+   {"ok": true, "device": ...} line.  Every kernel must have launched on
+   a main path.
 
 The script keeps its BVH disk cache (io/bvh_cache.py) in a temporary
 directory of its own, removed at the end.
@@ -407,6 +435,20 @@ REPLACES = {
     "vcm_camera_finish": "imbatracer_tpu/render/integrators/vcm.py:663 (the "
                          "body's shadow-set adds after its batched any_hit, "
                          "XLA-fused; no pallas_call)",
+    "dispatch_keys": "imbatracer_tpu/ops/pallas_stream.py:619 (sort_keys, "
+                     "with _scene_bounds :660; XLA-fused around pallas_call "
+                     ":583; no pallas_call)",
+    "dispatch_rows": "imbatracer_tpu/ops/pallas_stream.py:698 "
+                     "(_sorted_dispatch's gathers) and :751 (_rays8t); "
+                     "XLA-fused; no pallas_call",
+    "khit_resolve": "imbatracer_tpu/render/traverse.py:360-384 (the khit "
+                    "while body, alpha_fn of render/integrators/pt.py:61-83)"
+                    " and ops/pallas_khit.py:233 (khit_sorted's tail); "
+                    "XLA-fused; no pallas_call",
+    "stream_resolve": "imbatracer_tpu/ops/pallas_stream.py:769-790 "
+                      "(closest_hit_stream / any_hit_stream's decode) and "
+                      "render/traverse.py:276-297 (the re-trace body, "
+                      "_retrace_mask); XLA-fused; no pallas_call",
 }
 # The same functions when their glue was torch ops (the route's candidates,
 # queue and resolve; merge_contrib's query preparation and un-permutation),
@@ -567,6 +609,7 @@ def cuda_ms(fn, reps, warm=True):
 
 
 def reset_counters():
+    from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
@@ -577,6 +620,7 @@ def reset_counters():
     from imbatracer_torch.render import traverse as tt
 
     st.reset_launches()
+    dp.reset_launches()
     kh.reset_launches()
     mg.reset_launches()
     pm.reset_launches()
@@ -588,6 +632,7 @@ def reset_counters():
 
 
 def counters():
+    from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
@@ -600,6 +645,8 @@ def counters():
     got = {k: v for k, v in st.LAUNCHES.items() if k not in st.PLAIN_KEYS}
     got.update({f"pairs_{k}": v for k, v in pm.LAUNCHES.items()
                 if k not in pm.PLAIN_KEYS})
+    got.update({k: v for k, v in dp.LAUNCHES.items()
+                if k not in dp.PLAIN_KEYS})
     return dict(got, stream_plain=st.LAUNCHES["plain"],
                 candidates_plain=st.LAUNCHES["candidates_plain"],
                 khit=kh.LAUNCHES["khit"], khit_plain=kh.LAUNCHES["plain"],
@@ -611,6 +658,7 @@ def counters():
                 shade_plain=sum(sh.LAUNCHES[k] for k in sh.PLAIN_KEYS),
                 **{f"vcm_{k}": vs.LAUNCHES[k] for k in vs.KERNELS},
                 vcm_shade_plain=sum(vs.LAUNCHES[k] for k in vs.PLAIN_KEYS),
+                dispatch_plain=sum(dp.LAUNCHES[k] for k in dp.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
                 fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS,
                 **{f"graph_{k}": v for k, v in graphs.GRAPH_STATS.items()})
@@ -619,10 +667,25 @@ def counters():
 def plain_runs(got):
     """Calls of any plain version (stream, candidate stage, khit, the
     merge and its preparation, every step of the pair route, the PT
-    shading and its finish, the VCM bounces' shading and finishes)."""
+    shading and its finish, the VCM bounces' shading and finishes, the
+    dispatch glue)."""
     return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
             + got["merge_plain"] + got["pairs_plain"] + got["shade_plain"]
-            + got["vcm_shade_plain"])
+            + got["vcm_shade_plain"] + got["dispatch_plain"])
+
+
+def hold_dispatch_launches(label, got, resolve):
+    """A main path's dispatch glue: the keys and rows kernels and
+    `resolve` (khit_resolve or stream_resolve) launched, every alpha test
+    by the mask record (no flags variant), no plain version."""
+    need = ("dispatch_keys", "dispatch_rows", resolve)
+    missing = [k for k in need if not got[k]]
+    flags = got["khit_resolve_flags"] + got["stream_resolve_flags"]
+    if missing or flags or got["dispatch_plain"]:
+        raise AssertionError(f"{label}: the dispatch kernels {missing} did "
+                             f"not launch, {flags} resolves took opaque "
+                             f"flags, or {got['dispatch_plain']} plain "
+                             f"versions ran")
 
 
 def hold_vcm_shade_launches(label, got, algo):
@@ -1517,6 +1580,219 @@ def vcm_shade_phase(dev, card, scenes, stats):
         log_resources(f"vcm {k} kernel", vs.resources(k), card)
 
 
+# Phase 4d: the traversal dispatch glue (ops/dispatch.py, csrc/dispatch.cu).
+# Bytes behind bound_ms, each word once: keys read a slot's org and d (24
+# B), its active flag and lane index where given and write its key; rows
+# read perm (8 B), org and d, the active flag, lane index, tcur and the
+# tmin / tmax words where they are arrays and write a 32 B row; the khit
+# resolve reads perm, a (R, 32) row and the need flag and writes the need
+# flag, and tcur and the hit where it takes them, and reads the distinct
+# mask-record rows (40 B) of the hits it tests; the stream resolve reads
+# perm and a (R, 8) row, the re-trace flag in re-trace mode, writes the
+# hit (16 B) or a flag, and reads the mask rows of the hits it tests.
+# Texel reads are not counted: the bound stays a least time.
+DISPATCH_KERNELS = ("dispatch_keys", "dispatch_rows", "khit_resolve",
+                    "stream_resolve")
+BAND_KERNELS = {}             # traced graphed frames' kernels a replay
+
+
+def bit_mismatches(k, p):
+    """Elements of a kernel output that differ from the plain one's, bit
+    for bit (a float as its int32 bits)."""
+    if k.dtype == torch.float32:
+        k, p = k.view(torch.int32), p.view(torch.int32)
+    return int((k != p).sum())
+
+
+def lane_bytes(x, n):
+    """Bytes a dispatch reads of a lane array `x` (stride 0: one word)."""
+    return 0 if x is None else (x.element_size() * (n if x.stride(0) else 1))
+
+
+def tested_rows(ids, opaque, need):
+    """Distinct ids among the hits a resolve alpha-tests: a row's hits in
+    order while none before was present and opaque.  ids, opaque (n, K);
+    need (n,)."""
+    done = ~need
+    tested = []
+    for k in range(ids.shape[1]):
+        valid = ids[:, k] >= 0
+        tested.append(ids[:, k][~done & valid])
+        done = done | (valid & opaque[:, k])
+    return int(torch.unique(torch.cat(tested)).numel())
+
+
+def hold_dispatch(label, scene, c, hit, alpha_fn, card, stats, record):
+    """`[dispatch]`: the four dispatch kernels against their plain versions
+    on a carry's bounce rays, in the main path's two forms -- a first
+    round over every lane, and a re-trace round over a slot map (every
+    third active lane) with its state by slot and tmin' past the slot's
+    hit -- bit for bit: keys, rows, the khit resolve of the khit kernel's
+    rows (flat masked scenes), the stream resolve's closest, re-trace
+    (masked scenes) and occlusion modes on the stream kernel's rows.  Each
+    kernel timed alone (CUDA events, 10 launches; the resolves in place,
+    idempotent) in the first form beside its plain version (3 calls) and
+    its bound; the kernels in `record` go into `stats`."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import stream_traverse as st
+    from imbatracer_torch.render import traverse as tt
+
+    bvh = scene.bvh
+    org, d, act = c["org"], c["d"], c["active"]
+    n, dev = org.shape[0], org.device
+    rs = np.random.RandomState(13)
+    tmin = st.full_lanes(c["tmin"], n, dev)
+    tmax = st.full_lanes(st.BIG, n, dev)
+    tmax_any = torch.as_tensor(rs.uniform(0.1, 3.0, n) * float(
+        scene.bsphere.radius), dtype=torch.float32, device=dev)
+    slots = act.nonzero()[:, 0][::3].contiguous()
+    masked, khit_route = alpha_fn is not None, (alpha_fn is not None
+                                                and not bvh.two_level)
+    bad = dict.fromkeys(DISPATCH_KERNELS, 0)
+    timed, nbytes = {}, {}
+
+    def both(name, kernel, plain, state):
+        """Run kernel and plain on copies of `state` (kwargs; Hits
+        included); count the elements they leave different."""
+        def copy(x):
+            return tt.Hit(*(v.clone() for v in x)) if isinstance(
+                x, tt.Hit) else (x.clone() if torch.is_tensor(x) else x)
+        a = {k: copy(v) for k, v in state.items()}
+        b = {k: copy(v) for k, v in state.items()}
+        kernel(**a)
+        plain(**b)
+        for k in state:
+            if isinstance(state[k], tt.Hit):
+                bad[name] += sum(bit_mismatches(x, y)
+                                 for x, y in zip(a[k], b[k]))
+            elif torch.is_tensor(state[k]) and k not in ("disp", "out"):
+                bad[name] += bit_mismatches(a[k], b[k])
+        return a
+
+    for form in ("first", "retrace"):
+        first = form == "first"
+        ln = None if first else slots
+        m = n if first else slots.shape[0]
+        a = act if first else torch.ones(m, dtype=torch.bool, device=dev)
+        tc = None if first else hit.t[slots].contiguous()
+        kw = dict(active=a, center=bvh.center, lanes=ln, tcur=tc,
+                  step=not first)
+        keys = dp.keys_cuda(org, d, a, bvh.bounds, bvh.center, ln)
+        bad["dispatch_keys"] += bit_mismatches(keys, dp.keys_plain(
+            org, d, a, bvh.bounds, bvh.center, ln))
+        perm = torch.sort(keys, stable=True)[1]
+        rows = dp.rows_cuda(org, d, tmin, tmax, perm, m, **kw)
+        bad["dispatch_rows"] += bit_mismatches(rows, dp.rows_plain(
+            org, d, tmin, tmax, perm, m, **kw))
+        disp = dp.Dispatch(rows, perm, m, ln, False)
+        state_tmin = (tmin[:m].clone(memory_format=torch.contiguous_format)
+                      if first else tc.clone())
+        if khit_route:
+            out = kh.khit_cuda(rows, bvh.sbox, bvh.tiles)
+            kstate = dict(disp=disp, out=out, need_in=a,
+                          need_out=torch.empty_like(a), tcur=state_tmin,
+                          hit=tt._miss(m, dev), alpha_fn=alpha_fn)
+            res = both("khit_resolve", dp.khit_resolve_cuda,
+                       dp.khit_resolve_plain, kstate)
+            if first:
+                t4, u4, v4, id4 = dp._khit_columns(out[:m], 4)
+                opq = dp.khit_opaque(out[:m], alpha_fn, 4)
+                mrows = tested_rows(id4, opq, a[perm])
+                nbytes["khit_resolve"] = (
+                    m * (8 + 32 * 4 + 1 + 1)
+                    + 4 * int(res["need_out"].sum())
+                    + 16 * int((res["hit"].prim_id >= 0).sum())
+                    + 40 * mrows)
+                timed["khit_resolve"] = (
+                    partial(dp.khit_resolve_cuda, **kstate),
+                    partial(dp.khit_resolve_plain, **kstate))
+        out = st.traverse_cuda(rows, bvh.sbox, bvh.tiles, False,
+                               inst=bvh.inst)
+        closest = dict(disp=disp, out=out, mode=dp.CLOSEST,
+                       hit=tt._hits(m, dev))
+        res = both("stream_resolve", dp.stream_resolve_cuda,
+                   dp.stream_resolve_plain, closest)
+        sstate = closest
+        if masked:
+            sstate = dict(disp=disp, out=out, mode=dp.RETRACE,
+                          hit=res["hit"], flag=torch.empty_like(a),
+                          retrace_in=a, select=not first, alpha_fn=alpha_fn)
+            both("stream_resolve", dp.stream_resolve_cuda,
+                 dp.stream_resolve_plain, sstate)
+        if first:
+            rid = out[:m, 3].to(torch.int32)
+            sel = a[perm] & (rid >= 0)
+            mrows = (int(torch.unique(rid[sel]).numel()) if masked else 0)
+            nbytes["stream_resolve"] = m * (8 + 8 * 4 + 16 + 2 * masked) \
+                + 40 * mrows
+            timed["stream_resolve"] = (
+                partial(dp.stream_resolve_cuda, **sstate),
+                partial(dp.stream_resolve_plain, **sstate))
+            nbytes["dispatch_keys"] = m * (24 + 1 + 4)
+            nbytes["dispatch_rows"] = (m * (8 + 24 + 1 + 32)
+                                       + lane_bytes(tmin, m)
+                                       + lane_bytes(tmax, m))
+            timed["dispatch_keys"] = (
+                partial(dp.keys_cuda, org, d, a, bvh.bounds, bvh.center),
+                partial(dp.keys_plain, org, d, a, bvh.bounds, bvh.center))
+            timed["dispatch_rows"] = (
+                partial(dp.rows_cuda, org, d, tmin, tmax, perm, m, **kw),
+                partial(dp.rows_plain, org, d, tmin, tmax, perm, m, **kw))
+            sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), 10)
+        rows_any = dp.rows_cuda(org, d, tmin, st.full_lanes(
+            tmax_any, n, dev), perm, m, **kw)
+        occ = st.traverse_cuda(rows_any, bvh.sbox, bvh.tiles, True,
+                               inst=bvh.inst)
+        both("stream_resolve", dp.stream_resolve_cuda,
+             dp.stream_resolve_plain,
+             dict(disp=disp, out=occ, mode=dp.OCCLUSION,
+                  flag=torch.empty_like(a)))
+    torch.cuda.synchronize()
+    log(f"[dispatch] {label}: {n} lanes, {float(act.double().mean()):.4f} "
+        f"active, re-trace slots {slots.shape[0]}; elements not bit-equal "
+        f"to the plain version: {bad} [{card}]")
+    if any(bad.values()):
+        raise AssertionError(f"[dispatch] {label}: the dispatch kernels "
+                             f"disagree with their plain versions: {bad}")
+    for name, (kernel, plain) in timed.items():
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 3)
+        bound_ms, bound_by = shade_bound(nbytes[name], 0)
+        log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
+            f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by}, {nbytes[name]} bytes)")
+        if name in record:
+            stats[name] = (ms, None, (bound_ms, bound_by,
+                                      dict(bytes=nbytes[name], lanes=n)))
+            stats[f"{name}_plain_ms"] = plain_ms
+            stats[f"{name}_err"] = 0.0
+    log(f"[time] library sort a dispatch (torch.sort, stable, {n} int32 "
+        f"keys), {label} [{card}]: {sort_ms:.4f} ms")
+    if "dispatch_keys" in record:
+        stats["library_sort_ms"] = sort_ms
+
+
+def dispatch_phase(dev, card, scenes, stats):
+    """Phase 4d: the dispatch kernels against their plain versions on
+    NUM_RAYS-lane bands of bounce rays (shade_carry: PT frame 1 after its
+    first bounce) of the still life and the cornell (the instanced
+    scene's: phase 8a), with the kernels' resources."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    phase("4d dispatch glue kernels vs plain")
+    record = {"dispatch_keys", "dispatch_rows", "khit_resolve"}
+    for key, w, h, max_len in (("still_life", 1920, 1080, 8),
+                               ("cornell", 1024, 1024, 10)):
+        scene, meta = scenes[key]
+        c, hit, alpha_fn = shade_carry(scene, meta, w, h, max_len, 1, dev)
+        hold_dispatch(f"{key} {w}x{h} bounce 1", scene, c, hit, alpha_fn,
+                      card, stats, record)
+        record = set()
+    for k in DISPATCH_KERNELS:
+        log_resources(f"{k} kernel", dp.resources(k), card)
+
+
 def delta_light_cornell(dev):
     """The cornell with a point, a spot and a directional light beside its
     triangle light (tests/torch_shade_cases.py's delta lights)."""
@@ -1638,6 +1914,14 @@ def trace_totals(events):
     return dev, host
 
 
+# Kernels whose launches and device time a traced frame reports by name:
+# the WHILE nodes' flag kernel (csrc/graph_cond.cu), the dispatch glue's
+# kernels and the library sort's.
+TRACED_KERNELS = ("set_conditional", "dispatch_keys_kernel",
+                  "dispatch_rows_kernel", "khit_resolve_kernel",
+                  "stream_resolve_kernel", "DeviceRadixSort")
+
+
 def profile_frame(renderer, label, card, top=8):
     """Trace one more frame of `renderer` with torch.profiler: wall time,
     device busy time (kernel time summed; the frame runs on one stream),
@@ -1661,6 +1945,11 @@ def profile_frame(renderer, label, card, top=8):
                                     key=lambda kv: -kv[1][0])[:top]:
             log(f"[profile]   {where} {ns / 1e6:9.2f} ms {n:7d}x  "
                 f"{name[:80]}")
+    for part in TRACED_KERNELS:
+        ns = sum(v[0] for k, v in dev.items() if part in k)
+        n = sum(v[1] for k, v in dev.items() if part in k)
+        log(f"[profile]   kernel {part}: {n} launches, {ns / 1e6:.3f} ms"
+            f" ({ns / 1e3 / max(n, 1):.2f} us each)")
 
 
 def film_parity(dev, label, builder):
@@ -1945,6 +2234,7 @@ def vcm_main_path(scene, meta, card, stats):
         raise AssertionError("still_life vcm: the main path did not run "
                              "through the merge and khit kernels")
     hold_vcm_shade_launches("still_life vcm", got, "vcm")
+    hold_dispatch_launches("still_life vcm", got, "khit_resolve")
     mean = film_mean(renderer, "still_life vcm")
     pt, _, pt_ms, _ = family_frames(scene, meta, "pt", 1920, 1080, 8,
                                     VCM_FRAMES)
@@ -2412,6 +2702,8 @@ def instanced_phase(dev, card, big, stats):
         c, hit, alpha_fn = shade_carry(scene, meta, w, h, 8, 1, dev)
         hold_shade(f"instanced {w}x{h} bounce 1", scene, meta, c, hit,
                    alpha_fn, 8, card, stats)
+        hold_dispatch(f"instanced {w}x{h} bounce 1", scene, c, hit, alpha_fn,
+                      card, stats, {"stream_resolve"})
         del c, hit
         cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, w, h, 8, dev)
         label = f"instanced {w}x{h}, {lpc} light paths"
@@ -2436,6 +2728,7 @@ def instanced_phase(dev, card, big, stats):
                                  "through the instanced and merge kernels "
                                  "alone")
         hold_vcm_shade_launches("instanced vcm", got, "vcm")
+        hold_dispatch_launches("instanced vcm", got, "stream_resolve")
         mean = film_mean(vr, "instanced vcm")
         pt, pt_got, pt_ms, _ = family_frames(scene, meta, "pt", w, h, 8,
                                              INST_FRAMES)
@@ -3365,6 +3658,17 @@ def hold_rounds(tag, cell, runs, two_level, warm, card):
             f"{tot(g, 'capped')} at the cap of {cap} rounds)")
 
 
+def band_kernels(cell, t, card):
+    """The kernels a replayed graph of a traced graphed frame runs, those
+    launched outside the graphs taken off: (kernels - cudaLaunchKernel) /
+    cudaGraphLaunch, a PT frame's band-bounce; kept for the output."""
+    k = (t["kernels"] - t["launch_kernel"]) / max(t["graph_launch"], 1)
+    BAND_KERNELS[cell] = round(k, 1)
+    log(f"[glue] {cell}: traced graphed frame, {k:.1f} kernels a replayed "
+        f"graph ({t['kernels']} kernels, {t['launch_kernel']} launched "
+        f"outside the {t['graph_launch']} graph replays) [{card}]")
+
+
 def hold_graph_cell(cell, runs, traced, card):
     """Log one phase-13 cell's two routes over the same frames and hold
     them against each other: the default must have replayed captured
@@ -3390,9 +3694,9 @@ def hold_graph_cell(cell, runs, traced, card):
     n = len(g)
     mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
     each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
-    keys = ROUTE_KEYS[:5] + ("pt_shade", "pt_shade_finish",
-                             "graph_captures", "graph_replays",
-                             "graph_reruns")
+    keys = ROUTE_KEYS[:5] + ("pt_shade", "pt_shade_finish") + \
+        DISPATCH_KERNELS + ("graph_captures", "graph_replays",
+                            "graph_reruns")
     per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
                       for k in keys}
     peak = lambda rs: max(r["peak"] for r in rs) / 2**20
@@ -3412,6 +3716,7 @@ def hold_graph_cell(cell, runs, traced, card):
             f"{100.0 * (1.0 - t['busy'] / t['wall']):.1f}%), "
             f"{t['kernels']} kernels, {t['launch_kernel']} cudaLaunchKernel"
             f", {t['graph_launch']} cudaGraphLaunch [{card}]")
+    band_kernels(cell, traced[None], card)
     if not ok:
         raise AssertionError(f"{cell}: the graphed and eager routes "
                              f"disagree, or the default did not replay")
@@ -3473,7 +3778,8 @@ VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
                    "any_hit_instanced", "khit", "merge", "merge_prep",
                    "vcm_light_start", "vcm_light_shade", "vcm_light_finish",
                    "vcm_camera_shade", "vcm_camera_finish",
-                   "graph_captures", "graph_replays", "graph_reruns")
+                   *DISPATCH_KERNELS, "graph_captures", "graph_replays",
+                   "graph_reruns")
 
 
 def hold_vcm_graph_cell(cell, algo, runs, traced, card):
@@ -3525,6 +3831,8 @@ def hold_vcm_graph_cell(cell, algo, runs, traced, card):
                 f"{t['kernels']} kernels, {t['launch_kernel']} "
                 f"cudaLaunchKernel, {t['graph_launch']} cudaGraphLaunch "
                 f"[{card}]")
+    if traced.get(None) is not None:
+        band_kernels(cell, traced[None], card)
     if not ok:
         raise AssertionError(f"{cell}: the graphed and eager routes "
                              f"disagree, or the default did not replay")
@@ -3772,6 +4080,7 @@ def build_libraries():
     entry's ptxas lines."""
     from imbatracer_torch import libbuild
     from imbatracer_torch.accel import native
+    from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
@@ -3782,11 +4091,12 @@ def build_libraries():
 
     phase("2 build")
     t0 = time.time()
-    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, vs.LIB, graphs.COND_LIB,
-            native.LIB)
+    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, vs.LIB, dp.LIB,
+            graphs.COND_LIB, native.LIB)
     paths = libbuild.build_all(libs)
     for load in (st._library, kh._library, mg._library, pm._library,
-                 sh._library, vs._library, graphs._cond_library):
+                 sh._library, vs._library, dp._library,
+                 graphs._cond_library):
         load()
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
         + ", ".join(os.path.relpath(p) for p in paths))
@@ -3798,10 +4108,10 @@ def build_libraries():
 
 
 def shade_phases_alone():
-    """Phases 2, 4b and 4c alone: the shade kernels against their plain
-    versions on the cornell and the still life (`python -c "import
-    chip_smoke; chip_smoke.shade_phases_alone()"` from the repository
-    root, on the card)."""
+    """Phases 2, 4b, 4c and 4d alone: the shade and dispatch kernels
+    against their plain versions on the cornell and the still life
+    (`python -c "import chip_smoke; chip_smoke.shade_phases_alone()"` from
+    the repository root, on the card)."""
     from imbatracer_torch.device import card_line, get_device
     from imbatracer_torch.scene.procedural import (make_cornell_scene,
                                                    make_still_life_like)
@@ -3814,6 +4124,7 @@ def shade_phases_alone():
     stats = {}
     shade_phase(dev, card, scenes, stats)
     vcm_shade_phase(dev, card, scenes, stats)
+    dispatch_phase(dev, card, scenes, stats)
     log(f"[done] {time.time() - _START:.1f} s")
 
 
@@ -3886,6 +4197,7 @@ def run():
     log_resources(f"khit kernel, S={num_s}", kh.resources(num_s), card)
     shade_phase(dev, card, scenes, stats)
     vcm_shade_phase(dev, card, scenes, stats)
+    dispatch_phase(dev, card, scenes, stats)
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
@@ -3898,6 +4210,7 @@ def run():
             raise AssertionError(f"{label}: the main path did not run "
                                  f"through the stream kernel")
         hold_shade_launches(label, got)
+        hold_dispatch_launches(label, got, "stream_resolve")
         for k in stream_launches:
             stream_launches[k] += got[k]
 
@@ -3912,6 +4225,7 @@ def run():
         raise AssertionError("still_life: the main path did not run through "
                              "the khit kernel")
     hold_shade_launches("still_life", sl_got)
+    hold_dispatch_launches("still_life", sl_got, "khit_resolve")
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "goldens", "still_life_1080p_len8.png")
     sl_image = renderer.image()       # phase 10b's yardstick
@@ -4039,11 +4353,20 @@ def run():
             REPLACES[f"pair_{name}"], inst_got[f"pairs_{name}"], err,
             stats[f"pair_{name}"], stats[f"pair_{name}_plain_ms"],
             library_ms=stats.get(f"pair_{name}_library_ms")))
+    for name, got in (("dispatch_keys", sl_got), ("dispatch_rows", sl_got),
+                      ("khit_resolve", sl_got),
+                      ("stream_resolve", inst_got)):
+        kernels.append(kernel_entry(
+            name, src + "dispatch.cu", REPLACES[name], got[name],
+            stats[f"{name}_err"], stats[name], stats[f"{name}_plain_ms"]))
     for k in kernels:
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was not launched on a main "
                                  f"path")
     log(f"[done] {time.time() - _START:.1f} s")
+    log(f"[glue] library sort a dispatch (torch.sort of {NUM_RAYS} keys): "
+        f"{stats['library_sort_ms']:.4f} ms; traced graphed frames, kernels "
+        f"a replayed graph (a PT band-bounce): {BAND_KERNELS} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

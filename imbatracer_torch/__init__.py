@@ -12,8 +12,9 @@ Every tensor lives on a device the caller names explicitly ("cuda" or
 "cpu", see `device.py`).  On CUDA tensors, traversal runs the hand-written
 kernels in `csrc/` (stream_traverse.cu, its instanced variant included;
 khit_traverse.cu for alpha-masked flat scenes; pairs_kernel.cu for the
-pair queue) and merging runs merge_kernel.cu; on CPU tensors each runs its
-plain PyTorch version.  `python -m imbatracer_torch <scene> <out.png>` is
+pair queue; dispatch.cu for the sort keys, ray rows and hit resolves
+around each call), shading runs pt_shade.cu and vcm_shade.cu, and merging
+runs merge_kernel.cu; on CPU tensors each runs its plain PyTorch version.  `python -m imbatracer_torch <scene> <out.png>` is
 the command line (`frontend/cli.py`).
 """
 

@@ -16,6 +16,11 @@ have no counterpart here.
       super-chunk `tile_idx` / `inst_of` with the `(I, 16)` instance
       table `itab`; no packed triangles, `center` zero.
 
+`bounds` is the (6,) [lo.xyz, hi.xyz] of the super-chunk boxes that the
+sort keys quantise origins in (ops/dispatch.py), made when the BVH is:
+not a field, so neither moved by `.to()` (which makes it anew) nor
+stored in the BVH disk cache, and never made inside a captured graph.
+
 `pairs` is the pairs switch: when True, unmasked sorted dispatches on
 scenes of at least PAIRS_MIN_SUPERCHUNKS super-chunks take the pair-queue
 route (render/traverse.py), as IMBA_USE_PAIRS=1 does in the JAX package.
@@ -46,6 +51,13 @@ class DeviceBvh(TensorData):
     inst_of: Optional[torch.Tensor] = None   # (S,) i32 instance
     itab: Optional[torch.Tensor] = None      # (I, 16) f32 instance table
     pairs: bool = False
+
+    def __post_init__(self):
+        from ..ops.dispatch import bounds_of
+
+        self.bounds = (bounds_of(self.sbox) if self.sbox.shape[0] else
+                       torch.zeros(6, dtype=torch.float32,
+                                   device=self.sbox.device))
 
     @property
     def two_level(self) -> bool:

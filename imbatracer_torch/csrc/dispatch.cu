@@ -1,0 +1,366 @@
+// The traversal dispatch glue, for NVIDIA Hopper (sm_90a).
+//
+// No Pallas kernel stands behind this file: it is the card's counterpart
+// of the XLA fusions around JAX's traversal calls, which run inside its
+// compiled band programs.  Four kernels, one thread a lane or a row:
+//
+//   dispatch_keys_kernel   imbatracer_tpu/ops/pallas_stream.py::sort_keys
+//                          (:619): a lane's int32 sort key, direction
+//                          octant major, Morton code of the quantised,
+//                          recentred origin minor, 2^30 where inactive;
+//   dispatch_rows_kernel   _sorted_dispatch's gathers (:698) and _rays8t
+//                          (:751): the (R_pad, 8) ray rows in sorted
+//                          order, [o - center, tmin', d, tmax'];
+//   khit_resolve_kernel    the khit while loop's body
+//                          (imbatracer_tpu/render/traverse.py:360-384):
+//                          a sorted (R, 32) khit row's K = 4 hits alpha-
+//                          tested, the first opaque one taken, the lane's
+//                          need flag, tcur and hit written in place;
+//   stream_resolve_kernel  closest_hit_stream / any_hit_stream's decode
+//                          (pallas_stream.py:769-790) and the one-layer
+//                          re-trace's body (traverse.py:276-297): a sorted
+//                          (R, 8) stream row decoded into its lane's hit or
+//                          occlusion flag, in re-trace mode selected by the
+//                          lane's re-trace flag and alpha-tested.
+//
+// Indexing (the plain versions' in imbatracer_torch/ops/dispatch.py):
+// sorted row j holds slot s = perm[j] (perm null: s = j) of the dispatch;
+// slot s is lane lanes[s] of the ray arrays (lanes null: the lane is s);
+// the state a dispatch reads and writes (active / need flags, tcur, the
+// hit) is indexed by the lane when `by_lane` is set, else by the slot.
+// Ray arrays are read by lane: org, d (R, 3) f32, tmin, tmax (R,) f32 at
+// a stride of 0 (one value broadcast) or 1.  Every frame-varying value
+// is read through a pointer, so each kernel runs inside a captured graph
+// and a WHILE node's body.
+//
+// What bounds them: bytes.  A lane's key reads 24 B of rays and writes
+// 4; a row reads its ~40 B of lane arrays through perm and writes 32 B;
+// a khit resolve reads a 128 B row and up to K mask-record rows (40 B)
+// and texels, and writes up to 21 B at its lane; a stream resolve reads
+// 32 B and writes up to 14.  The design is the plain one: coalesced reads
+// and writes of the sorted rows, scattered reads and writes at the lane.
+//
+// Numerics: the plain versions' torch ops on the card, as shading.cuh
+// sets out; built with --fmad=false.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "shading.cuh"
+
+namespace {
+
+using namespace shade;
+
+constexpr int kBlk = 128;
+constexpr int kK = 4;                  // ops/khit.py K
+constexpr int kDeadKey = 1 << 30;
+
+// Sorted row / slot -> slot, lane and state index.
+struct Map {
+  const int64_t* perm;    // (n,) or null
+  const int64_t* lanes;   // (n,) or null
+  int by_lane;
+  int n;
+};
+
+struct Where {
+  int64_t slot, lane, state;
+};
+
+__device__ __forceinline__ Where where_slot(const Map& m, int64_t s) {
+  const int64_t lane = m.lanes ? m.lanes[s] : s;
+  return {s, lane, m.by_lane ? lane : s};
+}
+
+__device__ __forceinline__ Where where_row(const Map& m, int64_t j) {
+  return where_slot(m, m.perm ? m.perm[j] : j);
+}
+
+// The ray arrays of a dispatch.
+struct Rays {
+  const float* org;       // (R, 3)
+  const float* d;         // (R, 3)
+  const float* center;    // (3,) or null: origins used as they are
+  const float* tmin;      // (R,) at tmin_stride
+  const float* tmax;      // (R,) at tmax_stride
+  int tmin_stride, tmax_stride;
+  const uint8_t* active;  // by state index, or null: every slot active
+  const float* tcur;      // by state index, or null: tmin' = tmin
+  int step;               // tmin' = tcur + 1e-3 * max(tcur, 1e-3)
+};
+
+// The alpha test of a masked dispatch: the mask record with the atlas's
+// texels, or opaque flags by sorted row (K a row for khit).
+struct Alpha {
+  const float* mask_rec;  // (P, 10) or null
+  int mask_rows;
+  Atlas at;
+  const uint8_t* flags;   // or null
+};
+
+__device__ __forceinline__ bool opaque(const Alpha& a, int64_t flag, int id,
+                                       float u, float v) {
+  if (a.flags) return a.flags[flag] != 0;
+  const int p = min(max(id, 0), a.mask_rows - 1);
+  return mask_opaque(a.mask_rec + 10 * static_cast<int64_t>(p), a.at, u, v);
+}
+
+// t + 1e-3 * clamp(t, min=1e-3): the re-trace's next tmin.
+__device__ __forceinline__ float past(float t) {
+  return t + F(1e-3) * clamp_min(t, F(1e-3));
+}
+
+__device__ __forceinline__ int part1by2(int x) {
+  x &= 0xFF;
+  x = (x | (x << 8)) & 0x0300F00F;
+  x = (x | (x << 4)) & 0x030C30C3;
+  x = (x | (x << 2)) & 0x09249249;
+  return x;
+}
+
+__global__ void dispatch_keys_kernel(Rays r, Map m, const float* bounds,
+                                     int* keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m.n) return;
+  const Where w = where_slot(m, i);
+  if (r.active && !r.active[w.state]) {
+    keys[i] = kDeadKey;
+    return;
+  }
+  int q[3];
+  for (int a = 0; a < 3; ++a) {
+    float o = r.org[3 * w.lane + a];
+    if (r.center) o = o - r.center[a];
+    const float lo = bounds[a];
+    const float span = clamp_min(bounds[3 + a] - lo, F(1e-6));
+    const float x = clamp(((o - lo) / span) * 256.0f, 0.0f, 255.0f);
+    q[a] = static_cast<int>(x);
+  }
+  const int morton = (part1by2(q[0]) << 2) | (part1by2(q[1]) << 1) |
+                     part1by2(q[2]);
+  const float* d = r.d + 3 * w.lane;
+  const int octant = (d[0] < 0.0f) + 2 * (d[1] < 0.0f) + 4 * (d[2] < 0.0f);
+  keys[i] = (octant << 24) | morton;
+}
+
+__global__ void dispatch_rows_kernel(Rays r, Map m, float* out, int n_pad) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_pad) return;
+  float* row = out + 8 * static_cast<int64_t>(j);
+  if (j >= m.n) {
+    for (int k = 0; k < 7; ++k) row[k] = 0.0f;
+    row[7] = -1.0f;
+    return;
+  }
+  const Where w = where_row(m, j);
+  const bool act = !r.active || r.active[w.state];
+  float tmin = r.tmin[w.lane * r.tmin_stride];
+  if (r.tcur && act) {
+    const float c = r.tcur[w.state];
+    tmin = r.step ? past(c) : c;
+  }
+  const float* o = r.org + 3 * w.lane;
+  const float* d = r.d + 3 * w.lane;
+  for (int a = 0; a < 3; ++a) {
+    row[a] = r.center ? o[a] - r.center[a] : o[a];
+    row[4 + a] = d[a];
+  }
+  row[3] = tmin;
+  row[7] = act ? r.tmax[w.lane * r.tmax_stride] : -1.0f;
+}
+
+struct HitOut {
+  float* t;
+  int* id;
+  float* u;
+  float* v;
+};
+
+__global__ void khit_resolve_kernel(const float* rows, Map m,
+                                    const uint8_t* need_in, uint8_t* need_out,
+                                    float* tcur, HitOut hit, Alpha a) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m.n) return;
+  const Where w = where_row(m, j);
+  if (need_in && !need_in[w.state]) {
+    need_out[w.state] = 0;
+    return;
+  }
+  const float* row = rows + 8 * kK * static_cast<int64_t>(j);
+  bool found = false;
+  for (int k = 0; k < kK && !found; ++k) {
+    const float* h = row + 8 * k;
+    const int id = static_cast<int>(h[3]);
+    if (id >= 0 && opaque(a, static_cast<int64_t>(kK) * j + k, id, h[1], h[2])) {
+      hit.t[w.state] = h[0];
+      hit.u[w.state] = h[1];
+      hit.v[w.state] = h[2];
+      hit.id[w.state] = id;
+      found = true;
+    }
+  }
+  const float* last = row + 8 * (kK - 1);
+  const bool exhausted = !found && static_cast<int>(last[3]) >= 0;
+  need_out[w.state] = exhausted;
+  if (exhausted) tcur[w.state] = past(last[0]);
+}
+
+enum { MODE_CLOSEST, MODE_OCCLUSION, MODE_RETRACE };
+
+__global__ void stream_resolve_kernel(const float* rows, Map m, int mode,
+                                      int select, const uint8_t* retrace_in,
+                                      uint8_t* out_flag, HitOut hit, Alpha a) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m.n) return;
+  const Where w = where_row(m, j);
+  const float* row = rows + 8 * static_cast<int64_t>(j);
+  if (mode == MODE_OCCLUSION) {
+    out_flag[w.state] = row[0] > 0.0f;
+    return;
+  }
+  const bool sel = mode != MODE_RETRACE || !retrace_in || retrace_in[w.state];
+  if (select && !sel) {
+    out_flag[w.state] = 0;
+    return;
+  }
+  const int id = static_cast<int>(row[3]);
+  hit.t[w.state] = id >= 0 ? row[0] : F(kBig);
+  hit.id[w.state] = id;
+  hit.u[w.state] = row[1];
+  hit.v[w.state] = row[2];
+  if (mode == MODE_RETRACE)
+    out_flag[w.state] = sel && id >= 0 && !opaque(a, j, id, row[1], row[2]);
+}
+
+int blocks_for(int n) { return (n + kBlk - 1) / kBlk; }
+
+Map make_map(const void* perm, const void* lanes, int by_lane, int n) {
+  return {static_cast<const int64_t*>(perm), static_cast<const int64_t*>(lanes),
+          by_lane, n};
+}
+
+// Pointer arguments of the keys and rows launches, in the order of
+// ops/dispatch.py RAY_PTRS.
+enum RayPtr { R_ORG, R_D, R_CENTER, R_TMIN, R_TMAX, R_ACTIVE, R_TCUR,
+              R_PERM, R_LANES, NUM_RAY_PTRS };
+// Int arguments: the strides of tmin and tmax, step, by_lane, n.
+enum RayInt { R_TMIN_STRIDE, R_TMAX_STRIDE, R_STEP, R_BY_LANE, R_N,
+              NUM_RAY_INTS };
+
+Rays make_rays(void* const* p, const int* i) {
+  return {static_cast<const float*>(p[R_ORG]), static_cast<const float*>(p[R_D]),
+          static_cast<const float*>(p[R_CENTER]),
+          static_cast<const float*>(p[R_TMIN]),
+          static_cast<const float*>(p[R_TMAX]), i[R_TMIN_STRIDE],
+          i[R_TMAX_STRIDE], static_cast<const uint8_t*>(p[R_ACTIVE]),
+          static_cast<const float*>(p[R_TCUR]), i[R_STEP]};
+}
+
+// Alpha arguments, in the order of ops/dispatch.py ALPHA_PTRS: the mask
+// record, the atlas's texels, the flags; then its ints: the record's rows
+// and the atlas's texels.
+Alpha make_alpha(void* const* p, const int* i) {
+  Atlas at = {static_cast<const float*>(p[1]), nullptr, nullptr, nullptr, 0,
+              i[1]};
+  return {static_cast<const float*>(p[0]), i[0], at,
+          static_cast<const uint8_t*>(p[2])};
+}
+
+HitOut make_hit(void* const* p) {
+  return {static_cast<float*>(p[0]), static_cast<int*>(p[1]),
+          static_cast<float*>(p[2]), static_cast<float*>(p[3])};
+}
+
+}  // namespace
+
+// dispatch_keys_kernel on the current stream: keys (n,) i32 of the slots
+// (perm unused), bounds (6,) f32 [lo.xyz hi.xyz].  Returns a CUDA error.
+extern "C" int imba_dispatch_keys(void* const* ptrs, const int* ints,
+                                  const void* bounds, void* keys,
+                                  void* stream) {
+  const Map m = make_map(nullptr, ptrs[R_LANES], ints[R_BY_LANE], ints[R_N]);
+  if (m.n > 0)
+    dispatch_keys_kernel<<<blocks_for(m.n), kBlk, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        make_rays(ptrs, ints), m, static_cast<const float*>(bounds),
+        static_cast<int*>(keys));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dispatch_rows_kernel on the current stream: out (n_pad, 8) f32.
+extern "C" int imba_dispatch_rows(void* const* ptrs, const int* ints,
+                                  void* out, int n_pad, void* stream) {
+  const Map m = make_map(ptrs[R_PERM], ptrs[R_LANES], ints[R_BY_LANE],
+                         ints[R_N]);
+  if (n_pad > 0)
+    dispatch_rows_kernel<<<blocks_for(n_pad), kBlk, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        make_rays(ptrs, ints), m, static_cast<float*>(out), n_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// khit_resolve_kernel on the current stream over the first n rows of
+// `rows` (sorted (R_pad, 32) khit rows): map = (perm, lanes), hit = (t,
+// id, u, v), alpha = ALPHA_PTRS; ints = (by_lane, n, record rows,
+// texels).
+extern "C" int imba_khit_resolve(const void* rows, const void* perm,
+                                 const void* lanes, const void* need_in,
+                                 void* need_out, void* tcur,
+                                 void* const* hit, void* const* alpha,
+                                 const int* ints, void* stream) {
+  const Map m = make_map(perm, lanes, ints[0], ints[1]);
+  if (m.n > 0)
+    khit_resolve_kernel<<<blocks_for(m.n), kBlk, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(rows), m,
+        static_cast<const uint8_t*>(need_in), static_cast<uint8_t*>(need_out),
+        static_cast<float*>(tcur), make_hit(hit), make_alpha(alpha, ints + 2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stream_resolve_kernel on the current stream over the first n rows of
+// `rows` (sorted (R_pad, 8) stream rows): ints = (by_lane, n, mode,
+// select, record rows, texels); out_flag is the occlusion flag or the
+// re-trace flag out.
+extern "C" int imba_stream_resolve(const void* rows, const void* perm,
+                                   const void* lanes, const void* retrace_in,
+                                   void* out_flag, void* const* hit,
+                                   void* const* alpha, const int* ints,
+                                   void* stream) {
+  const Map m = make_map(perm, lanes, ints[0], ints[1]);
+  if (m.n > 0)
+    stream_resolve_kernel<<<blocks_for(m.n), kBlk, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(rows), m, ints[2], ints[3],
+        static_cast<const uint8_t*>(retrace_in),
+        static_cast<uint8_t*>(out_flag), make_hit(hit),
+        make_alpha(alpha, ints + 4));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resources of kernel `which` (0 keys, 1 rows, 2 khit resolve, 3 stream
+// resolve): out[0] registers, out[1] static shared bytes, out[2] dynamic
+// shared bytes, out[3] local (spill) bytes a thread, out[4] resident
+// blocks an SM.  Returns a CUDA error code.
+extern "C" int imba_dispatch_resources(int which, int* out) {
+  const void* fns[] = {reinterpret_cast<const void*>(dispatch_keys_kernel),
+                       reinterpret_cast<const void*>(dispatch_rows_kernel),
+                       reinterpret_cast<const void*>(khit_resolve_kernel),
+                       reinterpret_cast<const void*>(stream_resolve_kernel)};
+  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fns[which]);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which],
+                                                      kBlk, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = 0;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = blocks;
+  return static_cast<int>(cudaSuccess);
+}

@@ -333,6 +333,35 @@ __device__ V3 sample_bilinear(const Atlas& at, int tex_id, float u, float v) {
   return out;
 }
 
+// The mask record's alpha test (scene/textures.py MaskTest, the alpha_fn
+// of render/integrators/pt.py alpha_fn_for): `rec` is one (P, 10) row of
+// TriAttrs.mask_rec, mask texture, width, height and atlas offset as
+// int32 bits, then the three uvs; the nearest texel of the wrapped uv is
+// opaque where its channels sum above 0, and a triangle without a mask
+// (mt < 0) is always opaque.  The float -> int32 casts saturate as
+// torch's CUDA cast does; a negative texel index wraps as torch's
+// indexing does, then the index is clamped into the atlas.
+__device__ __forceinline__ bool mask_opaque(const float* rec, const Atlas& at,
+                                            float u, float v) {
+  const int mt = __float_as_int(rec[0]), w = __float_as_int(rec[1]);
+  const int h = __float_as_int(rec[2]), off = __float_as_int(rec[3]);
+  const float w0 = (1.0f - u) - v;
+  float tu = (w0 * rec[4] + u * rec[6]) + v * rec[8];
+  float tv = (w0 * rec[5] + u * rec[7]) + v * rec[9];
+  tu = tu - floorf(tu);                                 // _wrap_uv
+  tv = 1.0f - (tv - floorf(tv));
+  const int x = min(max(static_cast<int>(tu * static_cast<float>(w)), 0),
+                    w - 1);
+  const int y = min(max(static_cast<int>(tv * static_cast<float>(h)), 0),
+                    h - 1);
+  int64_t i = static_cast<int>(static_cast<uint32_t>(off) +
+                               static_cast<uint32_t>(int32_mul(y, w)) +
+                               static_cast<uint32_t>(x));
+  if (i < 0) i += at.num_texels;
+  const V3 c = texel(at, i);
+  return sum3(c.x, c.y, c.z) > 0.0f || mt < 0;
+}
+
 // ------------------------------------------------------- environment
 
 // The environment map's tables (render/envmap.py EnvMapData) with the

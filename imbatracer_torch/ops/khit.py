@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from ..libbuild import NativeLib
+from . import dispatch
 from . import stream_traverse as st
 
 # Hits returned per dispatch (the JAX package's IMBA_KHIT_K default).
@@ -170,22 +171,16 @@ def khit(rays, sbox, tiles):
 
 
 def khit_sorted(sbox, tiles, org, d, tmin, tmax, active=None):
-    """K nearest hits per ray through the Morton-sorted dispatch.
+    """K nearest hits per ray through the Morton-sorted dispatch
+    (ops/dispatch.py).
 
     org must be recentred (minus the BVH's `center`).  Returns (t, u, v,
     id), each (R, K), sorted by t per ray; id < 0 (and t = BIG) marks an
-    absent hit."""
-    num_r = org.shape[0]
-    dev = org.device
-    tmin = st.full_lanes(tmin, num_r, dev)
-    tmax = st.full_lanes(tmax, num_r, dev)
-    act = (torch.ones(num_r, dtype=torch.bool, device=dev)
-           if active is None else active)
-    lo, hi = st.scene_bounds(sbox)
-    perm = torch.sort(st.sort_keys(org, d, act, lo, hi), stable=True)[1]
-    rays, _ = st.rays8(org[perm], d[perm], tmin[perm], tmax[perm], act[perm])
-    res = khit(rays, sbox, tiles)[:num_r]
+    absent hit.  The masked re-trace (render/traverse.py) reads khit's
+    sorted rows itself (dispatch.khit_resolve)."""
+    disp = dispatch.prepare(org, d, tmin, tmax, active, sbox=sbox)
+    res = khit(disp.rows, sbox, tiles)[:disp.n]
     out = torch.empty_like(res)
-    out[perm] = res
+    out[disp.perm] = res
     return (out[:, 0::8], out[:, 1::8], out[:, 2::8],
             out[:, 3::8].to(torch.int32))

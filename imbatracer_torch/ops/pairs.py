@@ -33,7 +33,7 @@ pipeline as that module's `closest_hit_pairs` / `any_hit_pairs`:
      the route exact.  On the card the route makes one host sync, for the
      count of saturated rays.
 The whole route runs behind the stream dispatch's Morton / octant sort
-(`stream_traverse.sorted_call`), as the JAX package's runs behind its
+(`dispatch.sorted_call`), as the JAX package's runs behind its
 `_sorted_dispatch`.  `pair_rows` runs the kernels for CUDA tensors and
 the plain versions for CPU tensors; nothing falls back from one to the
 other.
@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from ..libbuild import NativeLib
+from . import dispatch
 from . import stream_traverse as st
 
 K_MAX = 8
@@ -421,7 +422,7 @@ def closest_hit_pairs(sbox, tiles, org, d, tmin, tmax, active=None,
                       inst=None, k_max: int = K_MAX):
     """Ray arrays -> (num_r, 8) closest-hit rows through the pair queue,
     behind the sorted dispatch."""
-    return st.sorted_call(
+    return dispatch.sorted_call(
         lambda r: pair_rows(r, sbox, tiles, False, inst, k_max), sbox, org,
         d, tmin, tmax, active)
 
@@ -430,6 +431,6 @@ def any_hit_pairs(sbox, tiles, org, d, tmin, tmax, active=None, inst=None,
                   k_max: int = K_MAX):
     """Ray arrays -> (num_r, 8) occlusion rows through the pair queue,
     behind the sorted dispatch."""
-    return st.sorted_call(
+    return dispatch.sorted_call(
         lambda r: pair_rows(r, sbox, tiles, True, inst, k_max), sbox, org, d,
         tmin, tmax, active)

@@ -1,7 +1,8 @@
 """Streaming closest-hit / any-hit traversal over super-chunk feature
 tiles: the hand-written CUDA kernel, its plain PyTorch version, and the
 torch-side machinery around them (tile packing, per-block candidate
-lists, ray sort keys, the sorted dispatch).
+lists, and the plain versions of the ray sort keys and ray rows, which
+ops/dispatch.py's sorted dispatch runs on CPU tensors).
 
 Replaces the TPU kernels
   imbatracer_tpu/ops/pallas_stream.py::_make_kernel (instanced=False and
@@ -164,11 +165,15 @@ def _slab(lo, hi, o, inv):
 
 def full_lanes(x, num_r: int, device):
     """(num_r,) float32 lanes of `x`, a tensor (broadcast) or a Python
-    number (a fill on `device`, so no host-to-device copy: a CUDA graph
-    can capture it)."""
-    if torch.is_tensor(x):
-        return x.to(device=device, dtype=torch.float32).expand(num_r)
-    return torch.full((num_r,), x, dtype=torch.float32, device=device)
+    number, at a stride of 0 (one value) or 1, as the dispatch kernels
+    read them (ops/dispatch.py); a number is a fill on `device`, so no
+    host-to-device copy: a CUDA graph can capture it."""
+    if not torch.is_tensor(x):
+        x = torch.full((1,), x, dtype=torch.float32, device=device)
+    x = x.to(device=device, dtype=torch.float32)
+    if x.numel() == 1:
+        return x.reshape(1).expand(num_r)
+    return x.expand(num_r).contiguous()
 
 
 def rays8(org, d, tmin, tmax, active):
@@ -683,36 +688,3 @@ def traverse(rays, sbox, tiles, occl: bool, inst=None):
     if rays.device.type == "cpu":
         return traverse_plain(rays, sbox, tiles, occl, inst=inst)
     raise ValueError(f"unsupported device {rays.device}")
-
-
-def sorted_call(fn, sbox, org, d, tmin, tmax, active):
-    """Run `fn(rays (R', 8)) -> (R', 8)` on the ray rows ordered by
-    sort_keys (the ray record permuted as one gather, the output
-    un-permuted as one scatter), so incoherent batches get coherent
-    per-block candidate lists and dead lanes gather in trailing blocks.
-    Exact under any permutation.  Returns the (num_r, 8) rows."""
-    num_r = org.shape[0]
-    if active is None:
-        active = torch.ones(num_r, dtype=torch.bool, device=org.device)
-    rays, _ = rays8(org, d, tmin, tmax, active)
-    lo, hi = scene_bounds(sbox)
-    perm = torch.sort(sort_keys(org, d, active, lo, hi), stable=True)[1]
-    pad = rays.shape[0] - num_r
-    if pad:
-        perm = torch.cat([perm, torch.arange(num_r, num_r + pad,
-                                             device=org.device)])
-    res = fn(rays[perm])
-    out = torch.empty_like(res)
-    out[perm] = res
-    return out[:num_r]
-
-
-def dispatch(sbox, tiles, org, d, tmin, tmax, active, occl: bool,
-             sort: bool, inst=None):
-    """Ray arrays -> (num_r, 8) hit rows, sorted first with `sort`
-    (sorted_call)."""
-    if not sort:
-        rays, num_r = rays8(org, d, tmin, tmax, active)
-        return traverse(rays, sbox, tiles, occl, inst)[:num_r]
-    return sorted_call(lambda r: traverse(r, sbox, tiles, occl, inst), sbox,
-                       org, d, tmin, tmax, active)

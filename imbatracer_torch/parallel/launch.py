@@ -59,12 +59,12 @@ def build_libraries(device_type: str):
 
     libs = [native.LIB]
     if device_type == "cuda":
-        from ..ops import (khit, merge, pairs, shade, stream_traverse,
-                           vcm_shade)
+        from ..ops import (dispatch, khit, merge, pairs, shade,
+                           stream_traverse, vcm_shade)
         from ..render import graphs
 
         libs += [stream_traverse.LIB, khit.LIB, merge.LIB, pairs.LIB,
-                 shade.LIB, vcm_shade.LIB, graphs.COND_LIB]
+                 shade.LIB, vcm_shade.LIB, dispatch.LIB, graphs.COND_LIB]
     libbuild.build_all(libs)
 
 

@@ -71,6 +71,7 @@ import weakref
 import torch
 
 from ..libbuild import NativeLib
+from ..ops import dispatch as dispatch_mod
 from ..ops import khit as khit_mod
 from ..ops import merge as merge_mod
 from ..ops import shade as shade_mod
@@ -90,7 +91,8 @@ def reset_stats():
 def _counters():
     """The launch counters a replay adds its deltas to."""
     return (st.LAUNCHES, khit_mod.LAUNCHES, merge_mod.LAUNCHES,
-            shade_mod.LAUNCHES, vcm_shade_mod.LAUNCHES, tt.MASK_STATS)
+            shade_mod.LAUNCHES, vcm_shade_mod.LAUNCHES,
+            dispatch_mod.LAUNCHES, tt.MASK_STATS)
 
 
 def _snapshot():

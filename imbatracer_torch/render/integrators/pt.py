@@ -45,7 +45,7 @@ import torch
 
 from ...core import rng as rng_mod
 from ...ops import shade as shade_mod
-from ...scene.textures import _mask_texel_opaque, _wrap_uv
+from ...scene.textures import MaskTest
 from .. import graphs as graphs_mod
 from .. import traverse as tt
 from ..camera import Camera, generate_ray
@@ -60,30 +60,17 @@ COMPACT_DEPTH = 3
 
 def alpha_fn_for(scene):
     """Transparency test for masked traversal: alpha_fn(prim, u, v) ->
-    opaque.  Reads the narrow per-triangle mask record
-    (TriAttrs.mask_rec: mask texture, its width, height and atlas offset,
-    and the three uvs): two gathers, a row and a texel, with the texel
-    lookup of textures.sample_mask.  The JAX package's chained lookup
-    through shade record and material row (IMBA_MASK_REC=0) is not
-    ported; a masked scene always carries the record."""
+    opaque, a textures.MaskTest over the narrow per-triangle mask record
+    (TriAttrs.mask_rec), which the traversal kernels also run themselves.
+    The JAX package's chained lookup through shade record and material
+    row (IMBA_MASK_REC=0) is not ported; a masked scene always carries
+    the record."""
     mask_rec = scene.attrs.mask_rec
     if mask_rec is None:
         raise NotImplementedError(
             "alpha masks need the scene's mask record (TriAttrs.mask_rec); "
             "the chained shade-record lookup is not ported")
-
-    def alpha_fn(prim, u, v):
-        rec = mask_rec[prim.long()]
-        bits = rec[:, 0:4].view(torch.int32)
-        mt, w, h, off = bits[:, 0], bits[:, 1], bits[:, 2], bits[:, 3]
-        w0 = 1.0 - u - v
-        tu = w0 * rec[:, 4] + u * rec[:, 6] + v * rec[:, 8]
-        tv = w0 * rec[:, 5] + u * rec[:, 7] + v * rec[:, 9]
-        tu, tv = _wrap_uv(tu, tv)
-        return (_mask_texel_opaque(scene.textures, off, w, h, tu, tv)
-                | (mt < 0))
-
-    return alpha_fn
+    return MaskTest(mask_rec, scene.textures)
 
 
 def _init_carry(org, d, state):

@@ -37,6 +37,15 @@ a frame that overflowed is rendered again on the eager route
 (render/graphs.py).  With no overflow both forms run the same rounds
 and return the same hits bit for bit.  CUDA graphs capture the
 graph-ready form only.
+
+Each dispatch's glue is ops/dispatch.py's (CUDA kernels on the card):
+the sort keys with the recentring fused in, the sorted ray rows read
+through the round's slot map, and a resolve that reads the traversal's
+sorted rows and writes each lane's hit, flags and tcur in place (the
+khit round's alpha test and K-hit pick, the re-trace's select and alpha
+test), as XLA fuses JAX's glue around its traversal calls.  The slot
+gather (torch.nonzero_static) and merge, and the library sort, stay
+torch ops.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import NamedTuple
 import torch
 
 from ..accel.device import DeviceBvh
+from ..ops import dispatch as dp
 from ..ops import khit as khit_mod
 from ..ops import pairs as pairs_mod
 from ..ops import stream_traverse as st
@@ -94,9 +104,30 @@ class Hit(NamedTuple):
     v: torch.Tensor        # (R,) f32 barycentric
 
 
-def _recenter(bvh: DeviceBvh, org):
-    """Shift ray origins into the tiles' recentred frame."""
-    return org - bvh.center[None, :]
+def _dispatch(bvh: DeviceBvh, org, d, tmin, tmax, active, occl: bool,
+              sort: bool, **kw):
+    """One unmasked traversal dispatch of the slots (dispatch.prepare,
+    with its `lanes`, `tcur`, `step` and `by_lane`): (Dispatch, (n_pad,
+    8) hit rows in its order).  The pair queue for sorted dispatches when
+    the pairs switch is on and the scene has enough super-chunks, else
+    the stream kernel."""
+    disp = dp.prepare(org, d, tmin, tmax, active, bounds=bvh.bounds,
+                      center=bvh.center, sort=sort, **kw)
+    if (sort and bvh.pairs
+            and bvh.sbox.shape[0] >= PAIRS_MIN_SUPERCHUNKS):
+        out = pairs_mod.pair_rows(disp.rows, bvh.sbox, bvh.tiles, occl,
+                                  bvh.inst)
+    else:
+        out = st.traverse(disp.rows, bvh.sbox, bvh.tiles, occl, bvh.inst)
+    return disp, out
+
+
+def _khit_dispatch(bvh: DeviceBvh, org, d, tmin, tmax, active, **kw):
+    """One sorted khit dispatch of the slots: (Dispatch, (n_pad, 8K)
+    sorted K-nearest hit rows)."""
+    disp = dp.prepare(org, d, tmin, tmax, active, bounds=bvh.bounds,
+                      center=bvh.center, **kw)
+    return disp, khit_mod.khit(disp.rows, bvh.sbox, bvh.tiles)
 
 
 def _closest_hit_masked_khit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
@@ -108,18 +139,17 @@ def _closest_hit_masked_khit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
     opaque hit, misses when it has fewer than K hits and none is opaque,
     and re-traces past its K-th hit only when all K were valid and masked
     out.  Exact, because the K-set is gap-free (ops/khit.py).  Each round
-    dispatches only the unresolved lanes, re-sorted (khit_sorted), as the
-    JAX loop re-sorts every round; the `need.any()` test of the Python
+    dispatches only the unresolved lanes (their slot map), re-sorted, as
+    the JAX loop re-sorts every round, and dispatch.khit_resolve writes
+    their need flags, tcur and hits in place; the `nonzero` of the Python
     loop is one host sync per round."""
-    org = _recenter(bvh, org)
     num_r = org.shape[0]
     dev = org.device
     tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
     need = (torch.ones(num_r, dtype=torch.bool, device=dev)
             if active is None else active.clone())
-    tcur = tmin.clone()
-    ht, hid, hu, hv = _miss(num_r, dev)
-    K = khit_mod.K
+    tcur = tmin.clone(memory_format=torch.contiguous_format)
+    hit = _miss(num_r, dev)
 
     MASK_STATS["dispatches"] += 1
     for k in range(MASK_MAX_ROUNDS):
@@ -129,46 +159,26 @@ def _closest_hit_masked_khit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
                 MASK_STATS["empty"] += 1
             break
         _count_round(k + 1, idx.shape[0])
-        t4, u4, v4, id4 = khit_mod.khit_sorted(
-            bvh.sbox, bvh.tiles, org[idx], d[idx], tcur[idx], tmax[idx])
-        n = idx.shape[0]
-        st_t = torch.full((n,), BIG, device=dev)
-        st_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        st_u = torch.zeros((n,), device=dev)
-        st_v = torch.zeros((n,), device=dev)
-        found = torch.zeros((n,), dtype=torch.bool, device=dev)
-        for j in range(K):
-            ok = id4[:, j] >= 0
-            opaque = alpha_fn(torch.clamp(id4[:, j], min=0), u4[:, j],
-                              v4[:, j])
-            take = ~found & ok & opaque
-            st_t = torch.where(take, t4[:, j], st_t)
-            st_u = torch.where(take, u4[:, j], st_u)
-            st_v = torch.where(take, v4[:, j], st_v)
-            st_id = torch.where(take, id4[:, j], st_id)
-            found = found | take
-        exhausted = ~found & (id4[:, K - 1] >= 0)
-        ht[idx], hu[idx], hv[idx], hid[idx] = st_t, st_u, st_v, st_id
-        last = t4[:, K - 1]
-        tcur[idx] = torch.where(
-            exhausted, last + 1e-3 * torch.clamp(last, min=1e-3), tcur[idx])
-        need[idx] = exhausted
-    return Hit(t=ht, prim_id=hid, u=hu, v=hv)
+        disp, out = _khit_dispatch(bvh, org, d, tmin, tmax, None, lanes=idx,
+                                   tcur=tcur, by_lane=True)
+        dp.khit_resolve(disp, out, need, need, tcur, hit, alpha_fn)
+    return hit
 
 
-def _unmasked(bvh: DeviceBvh, org, d, tmin, tmax, active, occl: bool,
-              sort: bool):
-    """(R, 8) hit rows of an unmasked query: the pair queue for sorted
-    dispatches when the pairs switch is on and the scene has enough
-    super-chunks, else the stream kernel."""
-    org = _recenter(bvh, org)
-    if (sort and bvh.pairs
-            and bvh.sbox.shape[0] >= PAIRS_MIN_SUPERCHUNKS):
-        fn = pairs_mod.any_hit_pairs if occl else pairs_mod.closest_hit_pairs
-        return fn(bvh.sbox, bvh.tiles, org, d, tmin, tmax, active,
-                  inst=bvh.inst)
-    return st.dispatch(bvh.sbox, bvh.tiles, org, d, tmin, tmax, active,
-                       occl=occl, sort=sort, inst=bvh.inst)
+def _closest(bvh: DeviceBvh, org, d, tmin, tmax, active, sort: bool) -> Hit:
+    """Unmasked closest hit: t = BIG on a miss."""
+    disp, out = _dispatch(bvh, org, d, tmin, tmax, active, False, sort)
+    hit = _hits(org.shape[0], org.device)
+    dp.stream_resolve(disp, out, dp.CLOSEST, hit=hit)
+    return hit
+
+
+def _occluded(bvh: DeviceBvh, org, d, tmin, tmax, active, sort: bool):
+    """Unmasked occlusion flags."""
+    disp, out = _dispatch(bvh, org, d, tmin, tmax, active, True, sort)
+    occ = torch.empty(org.shape[0], dtype=torch.bool, device=org.device)
+    dp.stream_resolve(disp, out, dp.OCCLUSION, flag=occ)
+    return occ
 
 
 _full = st.full_lanes
@@ -189,6 +199,14 @@ def _miss(num_r, dev) -> Hit:
                                   device=dev),
                u=torch.zeros(num_r, device=dev),
                v=torch.zeros(num_r, device=dev))
+
+
+def _hits(num_r, dev) -> Hit:
+    """A Hit to be written in full."""
+    return Hit(t=torch.empty(num_r, device=dev),
+               prim_id=torch.empty(num_r, dtype=torch.int32, device=dev),
+               u=torch.empty(num_r, device=dev),
+               v=torch.empty(num_r, device=dev))
 
 
 def retrace_plan(two_level: bool) -> tuple:
@@ -261,85 +279,39 @@ def _finish(overflow, need, dropped, unresolved):
     overflow.add_((dropped + left).to(overflow.dtype))
 
 
-def _copy(dst, src):
-    """Copy each tensor of `src` into its tensor of `dst` in place."""
-    for a, b in zip(dst, src):
-        a.copy_(b)
-
-
-def _khit_round(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, need, tcur,
-                hit: Hit):
-    """One round of the graph-ready khit re-trace (the JAX while loop's
-    body): the K nearest hits past `tcur` of the `need` lanes, the
-    others dispatched dead, alpha-tested together.  Returns (need, tcur,
-    hit) for the next round."""
-    K = khit_mod.K
-    t4, u4, v4, id4 = khit_mod.khit_sorted(
-        bvh.sbox, bvh.tiles, org, d, torch.where(need, tcur, tmin), tmax,
-        active=need)
-    ht, hu, hv, hid = hit.t, hit.u, hit.v, hit.prim_id
-    # One alpha test of all K columns (an elementwise function, so the
-    # same bits as K tests of one column).
-    opaque = alpha_fn(torch.clamp(id4, min=0).reshape(-1), u4.reshape(-1),
-                      v4.reshape(-1)).view(-1, K)
-    found = torch.zeros_like(need)
-    for j in range(K):
-        take = need & ~found & (id4[:, j] >= 0) & opaque[:, j]
-        ht = torch.where(take, t4[:, j], ht)
-        hu = torch.where(take, u4[:, j], hu)
-        hv = torch.where(take, v4[:, j], hv)
-        hid = torch.where(take, id4[:, j], hid)
-        found = found | take
-    last = t4[:, K - 1]
-    exhausted = need & ~found & (id4[:, K - 1] >= 0)
-    tcur = torch.where(exhausted, last + 1e-3 * torch.clamp(last, min=1e-3),
-                       tcur)
-    return exhausted, tcur, Hit(t=ht, prim_id=hid, u=hu, v=hv)
-
-
 def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
                                    alpha_fn, active, overflow) -> Hit:
-    """The graph-ready form of _closest_hit_masked_khit: the first round
-    over every lane, then rounds over retrace_slots lanes gathered from
-    those still unresolved while one is, up to KHIT_MAX_ROUNDS rounds in
-    all; the lanes left unresolved and those past the slots are added to
-    `overflow`."""
-    org = _recenter(bvh, org)
+    """The graph-ready form of _closest_hit_masked_khit (the JAX while
+    loop): the first round over every lane, then rounds over
+    retrace_slots lanes gathered from those still unresolved while one
+    is, up to KHIT_MAX_ROUNDS rounds in all, each a khit dispatch of the
+    slots' lanes and dispatch.khit_resolve updating the slots' need
+    flags, tcur and hits in place; the lanes left unresolved and those
+    past the slots are added to `overflow`."""
     num_r = org.shape[0]
     dev = org.device
     tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
-    need = (torch.ones(num_r, dtype=torch.bool, device=dev)
-            if active is None else active)
+    act = (torch.ones(num_r, dtype=torch.bool, device=dev)
+           if active is None else active)
     MASK_STATS["dispatches"] += 1
     MASK_STATS["rounds"] += 1
-    graphs.count(MASK_STATS, "empty", ~need.any())
-    need, tcur, hit = _khit_round(bvh, org, d, tmin, tmax, alpha_fn, need,
-                                  tmin, _miss(num_r, dev))
+    graphs.count(MASK_STATS, "empty", ~act.any())
+    need = torch.empty(num_r, dtype=torch.bool, device=dev)
+    tcur = tmin.clone(memory_format=torch.contiguous_format)
+    hit = _miss(num_r, dev)
+    disp, out = _khit_dispatch(bvh, org, d, tmin, tmax, act)
+    dp.khit_resolve(disp, out, act, need, tcur, hit, alpha_fn)
     idx, valid, dropped = gather_slots(need, retrace_slots(num_r, False))
-    sub = (org[idx], d[idx], tmin[idx], tmax[idx])
     s_need, s_tcur, s_hit = valid.clone(), tcur[idx], _rows(hit, idx)
 
     def body():
-        n_need, n_tcur, n_hit = _khit_round(bvh, *sub, alpha_fn, s_need,
-                                            s_tcur, s_hit)
-        _copy((s_need, s_tcur, *s_hit), (n_need, n_tcur, *n_hit))
+        disp, out = _khit_dispatch(bvh, org, d, tmin, tmax, s_need,
+                                   lanes=idx, tcur=s_tcur)
+        dp.khit_resolve(disp, out, s_need, s_need, s_tcur, s_hit, alpha_fn)
 
     _retrace_loop(s_need.any, body, KHIT_MAX_ROUNDS, dev)
     _finish(overflow, need, dropped, s_need)
     return _merge_slots(idx, valid, hit, s_hit)
-
-
-def _transparent(alpha_fn, hit: Hit):
-    """Lanes whose hit `alpha_fn` reports transparent."""
-    opaque = alpha_fn(torch.clamp(hit.prim_id, min=0), hit.u, hit.v)
-    return (hit.prim_id >= 0) & ~opaque
-
-
-def _stream_hit(out) -> Hit:
-    """Hit of (R, 8) closest-hit rows: t = BIG on a miss."""
-    rid = out[:, 3].to(torch.int32)
-    return Hit(t=torch.where(rid >= 0, out[:, 0], BIG), prim_id=rid,
-               u=out[:, 1], v=out[:, 2])
 
 
 def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
@@ -347,7 +319,9 @@ def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
     """The graph-ready form of _closest_hit_masked: the first dispatch
     over every lane, then re-trace dispatches, sorted, over
     retrace_slots lanes gathered from those whose hit was transparent
-    while one is (JAX's `active = retrace` body on the slots), up to
+    while one is (JAX's `active = retrace` body on the slots: the
+    dispatch from just past each slot's hit, dispatch.stream_resolve's
+    re-trace mode updating its hit and flag in place), up to
     RETRACE_MAX_ROUNDS dispatches in all; the lanes still re-tracing at
     the cap and those past the slots are added to `overflow`."""
     num_r = org.shape[0]
@@ -358,23 +332,21 @@ def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
     MASK_STATS["dispatches"] += 1
     MASK_STATS["rounds"] += 1
     graphs.count(MASK_STATS, "empty", ~act.any())
-    hit = _stream_hit(_unmasked(bvh, org, d, tmin, tmax, act, False, sort))
-    retrace = act & _transparent(alpha_fn, hit)
+    hit = _hits(num_r, dev)
+    retrace = torch.empty(num_r, dtype=torch.bool, device=dev)
+    disp, out = _dispatch(bvh, org, d, tmin, tmax, act, False, sort)
+    dp.stream_resolve(disp, out, dp.RETRACE, hit=hit, flag=retrace,
+                      retrace_in=act, alpha_fn=alpha_fn)
     idx, valid, dropped = gather_slots(retrace, retrace_slots(num_r, True))
     s_retrace = valid.clone()
-    s_org, s_d, s_tmin, s_tmax = org[idx], d[idx], tmin[idx], tmax[idx]
     s_hit = _rows(hit, idx)
 
     def body():
-        t = s_hit.t
-        new = _stream_hit(_unmasked(
-            bvh, s_org, s_d,
-            torch.where(s_retrace, t + 1e-3 * torch.clamp(t, min=1e-3),
-                        s_tmin),
-            s_tmax, s_retrace, False, True))
-        new = Hit(*(torch.where(s_retrace, n, h) for n, h in zip(new, s_hit)))
-        again = s_retrace & _transparent(alpha_fn, new)
-        _copy((s_retrace, *s_hit), (again, *new))
+        disp, out = _dispatch(bvh, org, d, tmin, tmax, s_retrace, False,
+                              True, lanes=idx, tcur=s_hit.t, step=True)
+        dp.stream_resolve(disp, out, dp.RETRACE, hit=s_hit, flag=s_retrace,
+                          retrace_in=s_retrace, select=True,
+                          alpha_fn=alpha_fn)
 
     _retrace_loop(s_retrace.any, body, RETRACE_MAX_ROUNDS, dev)
     _finish(overflow, retrace, dropped, s_retrace)
@@ -389,13 +361,14 @@ def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
     The first dispatch covers every active lane, sorted as the caller
     asks; a lane whose hit `alpha_fn` reports transparent re-traces from
     just past it (t + 1e-3 * max(t, 1e-3)) until it lands on an opaque
-    hit or misses.  Each re-trace dispatches only the lanes still
-    re-tracing, sorted, as the JAX loop re-sorts every round; the
-    `idx.numel()` test of the Python loop is one host sync per round.
-    Every dispatch is an unmasked closest hit (`_unmasked`: the instanced
-    stream kernel, or the pair queue when the pairs switch is on; the JAX
-    loop always takes the stream kernel).  Exact: every round returns the
-    nearest hit past the last one."""
+    hit or misses (dispatch.stream_resolve's re-trace mode, which writes
+    the hit and the re-trace flag in place).  Each re-trace dispatches
+    only the lanes still re-tracing (their slot map), sorted, as the JAX
+    loop re-sorts every round; the `nonzero` of the Python loop is one
+    host sync per round.  Every dispatch is an unmasked closest hit
+    (`_dispatch`: the instanced stream kernel, or the pair queue when the
+    pairs switch is on; the JAX loop always takes the stream kernel).
+    Exact: every round returns the nearest hit past the last one."""
     num_r = org.shape[0]
     dev = org.device
     tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
@@ -407,31 +380,21 @@ def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
         MASK_STATS["empty"] += 1
         return _miss(num_r, dev)
     _count_round(1, num_r)
-    ht, hid, hu, hv = _stream_hit(_unmasked(bvh, org, d, tmin, tmax, act,
-                                            False, sort))
-    hu, hv = hu.clone(), hv.clone()
-
-    def transparent(idx):
-        return _transparent(alpha_fn, Hit(ht[idx], hid[idx], hu[idx],
-                                          hv[idx]))
-
-    idx = (act & (hid >= 0)).nonzero(as_tuple=True)[0]
-    idx = idx[transparent(idx)]
+    hit = _hits(num_r, dev)
+    retrace = torch.empty(num_r, dtype=torch.bool, device=dev)
+    disp, out = _dispatch(bvh, org, d, tmin, tmax, act, False, sort)
+    dp.stream_resolve(disp, out, dp.RETRACE, hit=hit, flag=retrace,
+                      retrace_in=act, alpha_fn=alpha_fn)
     for k in range(2, MASK_MAX_ROUNDS + 2):
+        idx = retrace.nonzero(as_tuple=True)[0]
         if idx.numel() == 0:
             break
         _count_round(k, idx.shape[0])
-        t = ht[idx]
-        out = _unmasked(bvh, org[idx], d[idx],
-                        t + 1e-3 * torch.clamp(t, min=1e-3), tmax[idx], None,
-                        False, True)
-        rid = out[:, 3].to(torch.int32)
-        hid[idx] = rid
-        ht[idx] = torch.where(rid >= 0, out[:, 0], BIG)
-        hu[idx] = out[:, 1]
-        hv[idx] = out[:, 2]
-        idx = idx[transparent(idx)]
-    return Hit(t=ht, prim_id=hid, u=hu, v=hv)
+        disp, out = _dispatch(bvh, org, d, tmin, tmax, None, False, True,
+                              lanes=idx, tcur=hit.t, step=True, by_lane=True)
+        dp.stream_resolve(disp, out, dp.RETRACE, hit=hit, flag=retrace,
+                          retrace_in=retrace, select=True, alpha_fn=alpha_fn)
+    return hit
 
 
 def _any_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, active,
@@ -448,7 +411,7 @@ def _any_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn, active,
     num_r = org.shape[0]
     dev = org.device
     tmin, tmax = _full(tmin, num_r, dev), _full(tmax, num_r, dev)
-    occ = _unmasked(bvh, org, d, tmin, tmax, active, True, sort)[:, 0] > 0.0
+    occ = _occluded(bvh, org, d, tmin, tmax, active, sort)
     if overflow is not None:
         return _closest_hit_masked_graph(bvh, org, d, tmin, tmax, alpha_fn,
                                          occ, True, overflow).prim_id >= 0
@@ -482,8 +445,7 @@ def closest_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None,
                                                   alpha_fn, active, overflow)
         return _closest_hit_masked_khit(bvh, org, d, tmin, tmax, alpha_fn,
                                         active)
-    return _stream_hit(_unmasked(bvh, org, d, tmin, tmax, active, False,
-                                 sort))
+    return _closest(bvh, org, d, tmin, tmax, active, sort)
 
 
 def any_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None, active=None,
@@ -498,7 +460,7 @@ def any_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None, active=None,
                                    sort, overflow)
         return closest_hit(bvh, org, d, tmin, tmax, alpha_fn, active,
                            overflow=overflow).prim_id >= 0
-    return _unmasked(bvh, org, d, tmin, tmax, active, True, sort)[:, 0] > 0.0
+    return _occluded(bvh, org, d, tmin, tmax, active, sort)
 
 
 def graph_route(bvh: DeviceBvh, masked: bool) -> tuple:

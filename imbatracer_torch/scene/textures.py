@@ -83,6 +83,31 @@ def sample_mask(atlas: TextureAtlas, tex_id, u, v):
     return _mask_texel_opaque(atlas, off, w, h, u, v) | (tex_id < 0)
 
 
+class MaskTest:
+    """Transparency test of masked traversal through the narrow
+    per-triangle mask record (TriAttrs.mask_rec: mask texture, its width,
+    height and atlas offset as int32 bits, and the three uvs), called as
+    alpha_fn(prim, u, v) -> opaque: two gathers, a row and a texel, with
+    sample_mask's texel lookup.  The record and the atlas are its
+    attributes, so the traversal kernels run the same test themselves
+    (ops/dispatch.py, csrc/shading.cuh mask_opaque)."""
+
+    def __init__(self, mask_rec, textures: TextureAtlas):
+        self.mask_rec = mask_rec
+        self.textures = textures
+
+    def __call__(self, prim, u, v):
+        rec = self.mask_rec[prim.long()]
+        bits = rec[:, 0:4].view(torch.int32)
+        mt, w, h, off = bits[:, 0], bits[:, 1], bits[:, 2], bits[:, 3]
+        w0 = 1.0 - u - v
+        tu = w0 * rec[:, 4] + u * rec[:, 6] + v * rec[:, 8]
+        tv = w0 * rec[:, 5] + u * rec[:, 7] + v * rec[:, 9]
+        tu, tv = _wrap_uv(tu, tv)
+        return (_mask_texel_opaque(self.textures, off, w, h, tu, tv)
+                | (mt < 0))
+
+
 def _mask_texel_opaque(atlas: TextureAtlas, off, w, h, u, v):
     """Nearest texel at wrapped (u, v) of a w x h image at `off` (i32
     tensors), binarised: non-black is opaque."""

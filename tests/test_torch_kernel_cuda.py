@@ -1305,3 +1305,302 @@ def test_cuda_vcm_shade_input_checks(cuda_device):
     with pytest.raises(ValueError, match="radiance"):
         vs.camera_finish_cuda(rows.cc.cpu(), rows.cc, rows.store, rows.store,
                               None)
+
+
+# --------------------------------------------------------------------------
+# The traversal dispatch glue (csrc/dispatch.cu)
+# --------------------------------------------------------------------------
+
+def _layer_scene(layers, two_level, dev):
+    """tests/test_torch_masks.py's stacked layers (an opaque floor at y =
+    0, `layers` quads above it) with a mask record that makes each quad
+    transparent over world x < 0: (bvh, MaskTest) on `dev`."""
+    from imbatracer_torch.accel.builder import build_bvh, triangle_bboxes
+    from imbatracer_torch.accel.device import DeviceBvh
+    from imbatracer_torch.accel.flatten import thread_bvh
+    from imbatracer_torch.accel.instancing import build_two_level
+    from imbatracer_torch.scene.textures import MaskTest, TextureAtlas
+
+    f, half = 4, 2
+    tris = [((-f, 0, f), (f, 0, f), (f, 0, -f)),
+            ((-f, 0, f), (f, 0, -f), (-f, 0, -f))]
+    rec = np.zeros((2 + 2 * layers, 10), np.float32)
+    bits = rec[:, 0:4].view(np.int32)
+    bits[:] = (-1, 2, 1, 0)
+    for k in range(layers):
+        y = 1.0 + k
+        for j, tri in enumerate((((-half, half), (half, half), (half, -half)),
+                                 ((-half, half), (half, -half),
+                                  (-half, -half)))):
+            tris.append(tuple((x, y, z) for x, z in tri))
+            bits[2 + 2 * k + j, 0] = 0
+            rec[2 + 2 * k + j, 4:10] = [
+                c for x, z in tri for c in ((x + half) / (2 * half),
+                                            (z + half) / (2 * half))]
+    v = [np.asarray([t[i] for t in tris], np.float32) for i in range(3)]
+    if two_level:
+        tl = build_two_level([tuple(v)], [dict(mesh_idx=0, matrix=np.eye(4),
+                                               face_base=0)])
+        bvh = DeviceBvh.from_two_level(tl.sbox, tl.tiles, tl.tile_idx,
+                                       tl.inst_of, tl.itab, device=dev)
+    else:
+        jt = thread_bvh(build_bvh(*triangle_bboxes(*v)), *v)
+        bvh = DeviceBvh.from_packed(jt.tri_v0, jt.tri_e1, jt.tri_e2,
+                                    jt.tri_id, device=dev)
+    atlas = TextureAtlas(
+        texels=torch.tensor([[0.0] * 3, [1.0] * 3], device=dev),
+        offset=torch.zeros(1, dtype=torch.int32, device=dev),
+        width=torch.full((1,), 2, dtype=torch.int32, device=dev),
+        height=torch.ones(1, dtype=torch.int32, device=dev))
+    return bvh, MaskTest(torch.from_numpy(rec).to(dev), atlas)
+
+
+def _layer_rays(layers, n, seed, dev):
+    rs = np.random.RandomState(seed)
+    org = np.stack([rs.uniform(-1.5, 1.5, n), np.full(n, layers + 2.0),
+                    rs.uniform(-1.5, 1.5, n)], axis=1)
+    d = np.tile([0.0, -1.0, 0.0], (n, 1)) + rs.uniform(-0.05, 0.05, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    return t(org), t(d), t(rs.rand(n) < 0.9, torch.bool)
+
+
+def _bounce_rays(scene, meta, dev, size=96):
+    """The rays of a PT frame's second bounce: (org, d, active)."""
+    from imbatracer_torch.render.camera import make_camera
+    from imbatracer_torch.render.integrators import pt
+
+    cam = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, size, size,
+                      60.0, device=dev)
+    org, d, state, _ = pt.camera_rays(cam, size, size, 1, 3)
+    c = pt._trace(scene, pt._init_carry(org, d, state), 1,
+                  alpha_fn=pt.alpha_fn_for(scene) if meta.has_masks
+                  else None, has_bump=meta.has_bump, max_len=8)
+    return c["org"], c["d"], c["active"]
+
+
+def _dispatch_case(case, dev, tmp_path_factory):
+    """(bvh, org, d, active, tmax, MaskTest or None) of a card test."""
+    from imbatracer_torch.render.integrators import pt
+    from imbatracer_torch.scene.procedural import make_still_life_like
+
+    if case in ("layers", "layers_two_level"):
+        bvh, alpha = _layer_scene(9, case == "layers_two_level", dev)
+        org, d, act = _layer_rays(9, 3000, 1, dev)
+        return bvh, org, d, act, 7.5, alpha
+    if case == "instanced":
+        from imbatracer_torch.scene.build import build_scene
+        from imbatracer_torch.scene.generate import write_instanced_scene
+
+        path = write_instanced_scene(str(tmp_path_factory.mktemp("dinst")))
+        scene, meta = build_scene(path, device=dev)
+    else:
+        scene, meta = make_still_life_like(num_objects=300, num_cards=60,
+                                           device=dev)
+    org, d, act = _bounce_rays(scene, meta, dev)
+    if case == "random":
+        rs = np.random.RandomState(5)
+        lo, hi = scene.bvh.bounds[:3].cpu().numpy(), \
+            scene.bvh.bounds[3:].cpu().numpy()
+        org = torch.from_numpy(rs.uniform(lo, hi, org.shape).astype(
+            np.float32)).to(dev)
+        d = torch.nn.functional.normalize(torch.from_numpy(
+            rs.randn(*d.shape).astype(np.float32)).to(dev), dim=1)
+        act = torch.from_numpy(rs.rand(org.shape[0]) < 0.8).to(dev)
+    tmax = torch.from_numpy(np.random.RandomState(6).uniform(
+        0.1, 5.0, org.shape[0]).astype(np.float32)).to(dev)
+    return (scene.bvh, org, d, act, tmax,
+            pt.alpha_fn_for(scene) if meta.has_masks else None)
+
+
+def _random_hit(n, seed, dev, prims=50):
+    """A Hit of n lanes with ids in [-1, prims)."""
+    rs = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return tt.Hit(t=t(rs.uniform(0, 9, n).astype(np.float32)),
+                  prim_id=t(rs.randint(-1, prims, n).astype(np.int32)),
+                  u=t(rs.rand(n).astype(np.float32)),
+                  v=t(rs.rand(n).astype(np.float32)))
+
+
+def _both(kernel, plain, state, *args, **kw):
+    """Run a resolve's kernel and plain version on copies of `state` (a
+    dict of tensors, Hits included) and require equal bits."""
+    def copy(s):
+        return {k: (tt.Hit(*(x.clone() for x in v)) if isinstance(v, tt.Hit)
+                    else v.clone()) for k, v in s.items()}
+
+    a, b = copy(state), copy(state)
+    kernel(*args, **a, **kw)
+    plain(*args, **b, **kw)
+    for k in state:
+        for x, y in zip(*((s[k],) if torch.is_tensor(s[k]) else s[k]
+                          for s in (a, b))):
+            assert torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "still_life", "instanced",
+                                  "layers", "layers_two_level"])
+def test_cuda_dispatch_kernels_match_plain(cuda_device, tmp_path_factory,
+                                           case):
+    """The four dispatch kernels against their plain versions, bit for
+    bit, on random lanes and on the still life's and the instanced
+    scene's bounce rays (and 9 stacked masked layers, flat and
+    two-level): keys and rows over every lane and over a slot map with
+    state by slot and by lane, tmin' from tcur, past tcur or tmin; the
+    khit resolve (flat BVHs) and the stream resolve's three modes on the
+    traversal's sorted rows, each alpha test by the mask record and by
+    flags."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    bvh, org, d, act, tmax, alpha = _dispatch_case(case, cuda_device,
+                                                   tmp_path_factory)
+    dev, n = org.device, org.shape[0]
+    rs = np.random.RandomState(n)
+    lanes = torch.from_numpy(np.sort(rs.choice(n, n // 3, replace=False))
+                             ).to(dev)
+    tc = torch.from_numpy(rs.uniform(1e-5, 2.0, n).astype(np.float32)).to(dev)
+    lo, hi = st.full_lanes(1e-3, n, dev), st.full_lanes(tmax, n, dev)
+    flags = (None if alpha is None else lambda p, u, v: alpha(p, u, v))
+    stand_in = (lambda p, u, v: (p % 3) != 0)
+    tests = ([(alpha, "khit_resolve", "stream_resolve")] if alpha else []) + [
+        (flags or stand_in, "khit_resolve_flags", "stream_resolve_flags")]
+    dp.reset_launches()
+    for ln, by_lane in ((None, False), (lanes, False), (lanes, True)):
+        m = n if ln is None else ln.shape[0]
+        size = n if ln is None or by_lane else m
+        sub = (lambda x: x) if size == n else (lambda x: x[ln])
+        a, t = sub(act), sub(tc)
+        keys = dp.keys_cuda(org, d, a, bvh.bounds, bvh.center, ln, by_lane)
+        assert torch.equal(keys, dp.keys_plain(org, d, a, bvh.bounds,
+                                               bvh.center, ln, by_lane))
+        perm = torch.sort(keys, stable=True)[1]
+        for tcur, step in ((None, False), (t, False), (t, True)):
+            kw = dict(active=a, center=bvh.center, lanes=ln, tcur=tcur,
+                      step=step, by_lane=by_lane)
+            assert torch.equal(dp.rows_cuda(org, d, lo, hi, perm, m, **kw),
+                               dp.rows_plain(org, d, lo, hi, perm, m, **kw))
+        disp = dp.prepare(org, d, 1e-3, tmax, a, bounds=bvh.bounds,
+                          center=bvh.center, lanes=ln, by_lane=by_lane)
+        out = st.traverse(disp.rows, bvh.sbox, bvh.tiles, False, bvh.inst)
+        hit = _random_hit(size, 7, dev, 50 if alpha is None
+                          else alpha.mask_rec.shape[0])
+        _both(dp.stream_resolve_cuda, dp.stream_resolve_plain,
+              dict(hit=hit), disp, out, dp.CLOSEST)
+        flag = torch.zeros(size, dtype=torch.bool, device=dev)
+        for fn, kkey, skey in tests:
+            for select in (False, True):
+                before = dp.LAUNCHES[skey]
+                _both(dp.stream_resolve_cuda, dp.stream_resolve_plain,
+                      dict(hit=hit, flag=flag), disp, out, dp.RETRACE,
+                      retrace_in=a, select=select, alpha_fn=fn)
+                assert dp.LAUNCHES[skey] == before + 1
+            if not bvh.two_level:
+                kout = kh.khit(disp.rows, bvh.sbox, bvh.tiles)
+                for need_out in (None, flag):
+                    state = dict(need_in=a.clone(), tcur=t.clone(), hit=hit)
+                    if need_out is not None:
+                        state["need_out"] = need_out
+                    kern = _need_out_default(dp.khit_resolve_cuda)
+                    plain = _need_out_default(dp.khit_resolve_plain)
+                    before = dp.LAUNCHES[kkey]
+                    _both(kern, plain, state, disp, kout, alpha_fn=fn)
+                    assert dp.LAUNCHES[kkey] == before + 1
+        occ = st.traverse(disp.rows, bvh.sbox, bvh.tiles, True, bvh.inst)
+        _both(dp.stream_resolve_cuda, dp.stream_resolve_plain,
+              dict(flag=flag), disp, occ, dp.OCCLUSION)
+    assert dp.LAUNCHES["dispatch_keys"] == 6          # three here, three
+    assert dp.LAUNCHES["dispatch_rows"] == 12         # in prepare()
+
+
+def _need_out_default(fn):
+    """A khit resolve that writes its need flags in place unless given
+    need_out."""
+    def call(disp, out, need_in, tcur, hit, alpha_fn, need_out=None):
+        fn(disp, out, need_in, need_in if need_out is None else need_out,
+           tcur, hit, alpha_fn)
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True])
+def test_cuda_dispatch_graphs_follow_their_inputs(cuda_device, two_level,
+                                                  monkeypatch):
+    """The graph-ready masked closest hit and occlusion over 9 stacked
+    masked layers captured once (the khit resolve, or the stream
+    re-trace, inside the WHILE node's body) and replayed after its rays,
+    active flags and tmax change: equal bit for bit to the eager route on
+    the card, the resolves launched inside the loop's body (its device
+    counts), no overflow (every lane a slot: half of them see through)."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.render import graphs
+
+    monkeypatch.setattr(tt, "RETRACE_SLOT_DIV" if two_level
+                        else "KHIT_SLOT_DIV", 1)
+
+    bvh, alpha = _layer_scene(9, two_level, cuda_device)
+    org, d, act = _layer_rays(9, 2048, 0, cuda_device)
+    state = dict(org=org.clone(), d=d.clone(), act=act.clone(),
+                 tmax=torch.full_like(org[:, 0], 7.5),
+                 t=torch.empty_like(org[:, 0]),
+                 id=torch.empty_like(act, dtype=torch.int32),
+                 occ=torch.empty_like(act))
+
+    def step(s, overflow):
+        h = tt.closest_hit(bvh, s["org"], s["d"], 0.0, BIG, alpha_fn=alpha,
+                           active=s["act"], sort=True, overflow=overflow)
+        s["t"].copy_(h.t)
+        s["id"].copy_(h.prim_id)
+        s["occ"].copy_(tt.any_hit(bvh, s["org"], s["d"], 0.0, s["tmax"],
+                                  alpha_fn=alpha, active=s["act"], sort=True,
+                                  overflow=overflow))
+
+    sg = graphs.SceneGraphs(cuda_device)
+    g = sg.phase("masked", step, state)
+    key = "stream_resolve" if two_level else "khit_resolve"
+    slot = graphs._slot(dp.LAUNCHES, key)
+    for seed in (1, 2, 3):
+        org, d, act = _layer_rays(9, 2048, seed, cuda_device)
+        tmax = torch.full_like(org[:, 0], 2.0 + seed)
+        for k, v in (("org", org), ("d", d), ("act", act), ("tmax", tmax)):
+            state[k].copy_(v)
+        sg.counts.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(sg.overflow) == 0 and int(sg.counts[slot]) > 0
+        want = tt.closest_hit(bvh, org, d, 0.0, BIG, alpha_fn=alpha,
+                              active=act, sort=True)
+        assert torch.equal(state["t"], want.t)
+        assert torch.equal(state["id"], want.prim_id)
+        see = act & (org[:, 0] < -0.7)
+        assert bool((want.prim_id[see] < 2).all())       # the floor
+        assert torch.equal(state["occ"], tt.any_hit(
+            bvh, org, d, 0.0, tmax, alpha_fn=alpha, active=act, sort=True))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_input_checks(cuda_device):
+    """The wrappers raise on tensors off the card or of another type."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    bvh, alpha = _layer_scene(2, False, cuda_device)
+    org, d, act = _layer_rays(2, 256, 0, cuda_device)
+    with pytest.raises(ValueError):
+        dp.keys_cuda(org.cpu(), d, act, bvh.bounds)
+    with pytest.raises(ValueError):
+        dp.keys_cuda(org, d, act.int(), bvh.bounds)
+    lo = st.full_lanes(0.0, 256, cuda_device)
+    perm = torch.arange(256, device=cuda_device)
+    with pytest.raises(ValueError):
+        dp.rows_cuda(org, d, lo, lo, perm.int(), 256)
+    with pytest.raises(ValueError):
+        dp.rows_cuda(org, d, lo, lo, perm, 256, tcur=lo.double())
+    disp = dp.prepare(org, d, 0.0, BIG, act, bounds=bvh.bounds)
+    rows = st.traverse(disp.rows, bvh.sbox, bvh.tiles, False)
+    hit = _random_hit(256, 0, cuda_device)
+    with pytest.raises(ValueError):
+        dp.khit_resolve_cuda(disp, rows, act, act, lo.clone(), hit, alpha)
+    with pytest.raises(ValueError):
+        dp.stream_resolve_cuda(disp, rows, dp.CLOSEST, hit=tt.Hit(
+            hit.t, hit.prim_id.long(), hit.u, hit.v))
