@@ -10,7 +10,9 @@ failure raises and the script exits non-zero:
    csrc/merge_kernel.cu, csrc/pairs_kernel.cu (the pair route's
    candidates, queue, pair and resolve kernels), csrc/pt_shade.cu (the PT
    bounce's shading), csrc/vcm_shade.cu (the VCM bounces'),
-   csrc/dispatch.cu (the traversal dispatch glue) and csrc/graph_cond.cu
+   csrc/dispatch.cu (the traversal dispatch glue and the re-trace's
+   slot kernels), csrc/light_tail.cu (the light band's collect append
+   and splat) and csrc/graph_cond.cu
    (the WHILE conditional nodes of render/graphs.py) with nvcc and
    csrc/bvh_builder.cpp with g++, all at once, into
    build/imbatracer_torch/; print each kernel entry's ptxas register,
@@ -102,6 +104,26 @@ failure raises and the script exits non-zero:
    the lane arrays in and out, the rows, the mask-record rows of the hits
    it tests), the library sort's time a dispatch, and the kernels'
    registers, spills and resident blocks.
+4e. Light-band tail and slot kernels vs plain: csrc/light_tail.cu
+   (ops/light_tail.py: collect_append_kernel with its one-thread tail,
+   splat_kernel) on the 8 x NUM_RAYS staged rows of the middle light band
+   of a still-life vcm frame at 1920x1080 with VCM_LPC light paths
+   (`[tail]` lines): the append into an empty collect buffer of the
+   frame's capacity, into one that overflows and into a full one, from a
+   seeded buffer -- rec[:C], count and lost bit-equal to the plain
+   version, lost the rows past the capacity, CollectCache.check raising
+   exactly on an overflow; the splat's film within phase 14's rule (mean
+   1e-6 relative, >= 99.9% of pixels within 1e-5: both add with
+   atomics).  The slot kernels of csrc/dispatch.cu (ops/dispatch.py:
+   slot_gather_kernel, slot_merge_kernel, slot_finish_kernel; `[slots]`
+   lines) on the still life's bounce-1 rays as its graph-ready khit
+   re-trace gathers them (phase 8a: the instanced scene's two-level
+   re-trace) and on seeded need masks at both slot shares (no lane
+   active; past the slots; within them): the slot state, the merged hit
+   and the overflow and device counts bit-equal.  Each kernel timed
+   alone beside its plain version, its bound and, for the append and
+   the splat, one library call (index_copy_, index_add_), and the
+   kernels' registers, spills and resident blocks.
 5. Main paths, each with every launch counter set to 0 just before its
    timed frames and read just after them: (a) make_frame_fn +
    ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
@@ -112,8 +134,10 @@ failure raises and the script exits non-zero:
    pt_shade and pt_shade_finish once each a band-bounce (a graph
    replay), and the dispatch keys, rows and stream resolve kernels (on
    every main path below too, with khit_resolve on the still life's PT
-   and vcm paths and stream_resolve on the instanced ones; no resolve
-   may take opaque flags: the mask record's test runs in the kernel);
+   and vcm paths and stream_resolve on the instanced ones, and the three
+   slot kernels once each a masked dispatch on those graphed masked
+   paths; no resolve may take opaque flags: the mask record's test runs
+   in the kernel; the vcm paths launch the collect append and splat);
    (c) the
    still-life proxy (alpha masks + env map) at 1920x1080, spp 1,
    max_len 8: one warm-up frame, reset(), 8 frames, as the JAX package's
@@ -283,7 +307,9 @@ failure raises and the script exits non-zero:
    must be bit-equal on >= 99.99% of pixels, traced rays equal, no
    plain version run, no frame rendered again, pt_shade and
    pt_shade_finish launched once a band-bounce on both routes.  On the masked cells
-   (hold_rounds): the rounds a non-empty masked dispatch ran, mean and
+   (hold_rounds, hold_route_slots): the slot kernels launched once each
+   a masked dispatch on the graphed route and never on the eager one;
+   the rounds a non-empty masked dispatch ran, mean and
    most, graphed (from the device counts of render/graphs.py) and eager,
    against the cap (render/traverse.py's KHIT_MAX_ROUNDS or
    RETRACE_MAX_ROUNDS); the most lanes one dispatch carried past its
@@ -310,7 +336,11 @@ failure raises and the script exits non-zero:
    replays and reruns a frame; the stream, 1b, khit, merge,
    preparation and VCM shade launches a frame; peak memory; on the 1080p cells one
    traced frame of each route (wall, device busy, idle share, kernels,
-   cudaLaunchKernel and cudaGraphLaunch calls); the re-trace's rounds,
+   cudaLaunchKernel and cudaGraphLaunch calls; `[lighttail]`: the light
+   band's tail kernels' device time and launches in the traced graphed
+   frame); the collect append and splat kernels launched (lt: the
+   splat; ppm: the append), the slot kernels as in phase 13; the
+   re-trace's rounds,
    launches and captures as in phase 13 (hold_rounds).  Film means must
    agree within 1e-6 relative and >= 99.9% of pixels within 1e-5
    relative (the light splat adds with atomics), traced rays equal, no
@@ -352,7 +382,9 @@ failure raises and the script exits non-zero:
    bound(), pair_bound(), pair_candidates_bound() and merge_bound(), the
    shade kernels' of phase 4b's first cell (shade_bound()), the
    dispatch kernels' of phase 4d's still-life cell and, for
-   stream_resolve, phase 8a's instanced cell;
+   stream_resolve, phase 8a's instanced cell, the light-tail and slot
+   kernels' of phase 4e's first cells; `library_ms` on the append and
+   the splat: one index_copy_ / index_add_;
    `route_ms` on the pair and merge entries: the route, merge_contrib;
    `split_ms` and `split_launches` on the khit and stream entries: the
    kernel at the split build, phase 10a, and its launches on phase 10b's
@@ -449,6 +481,22 @@ REPLACES = {
                       "(closest_hit_stream / any_hit_stream's decode) and "
                       "render/traverse.py:276-297 (the re-trace body, "
                       "_retrace_mask); XLA-fused; no pallas_call",
+    "collect_append": "imbatracer_tpu/render/light_cache.py:109-150 "
+                      "(append_packed's drop-mode scatter, in "
+                      "_vcm_light_band render/integrators/vcm.py:1078); "
+                      "XLA; no pallas_call",
+    "splat": "imbatracer_tpu/render/film.py:15-23 (splat's segment_sum with "
+             "its trash segment, in _vcm_light_band render/integrators/"
+             "vcm.py:1078); XLA; no pallas_call",
+    "slot_gather": "imbatracer_tpu/render/traverse.py:296-299, :407-409 "
+                   "(the masked while loops' carry into their bodies, "
+                   "full-width in JAX); XLA-fused; no pallas_call",
+    "slot_merge": "imbatracer_tpu/render/traverse.py:288-293, :371-376 "
+                  "(the while bodies' carry select of the hits); "
+                  "XLA-fused; no pallas_call",
+    "slot_finish": "imbatracer_tpu/render/traverse.py:281-283, :356-358 "
+                   "(the while loops' exit under MASK_MAX_ROUNDS); "
+                   "XLA-fused; no pallas_call",
 }
 # The same functions when their glue was torch ops (the route's candidates,
 # queue and resolve; merge_contrib's query preparation and un-permutation),
@@ -608,9 +656,24 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=10):
+    """Mean device time of fn() over `reps` calls captured in one CUDA
+    graph and replayed (CUDA events around a replay, after a warm-up
+    call and a warm-up replay): the kernels' own time, without the
+    host's wrapper, which cuda_ms times when it is slower than them."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, 1) / reps
+
+
 def reset_counters():
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import shade as sh
@@ -621,6 +684,7 @@ def reset_counters():
 
     st.reset_launches()
     dp.reset_launches()
+    lt.reset_launches()
     kh.reset_launches()
     mg.reset_launches()
     pm.reset_launches()
@@ -634,6 +698,7 @@ def reset_counters():
 def counters():
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import shade as sh
@@ -643,6 +708,7 @@ def counters():
     from imbatracer_torch.render import traverse as tt
 
     got = {k: v for k, v in st.LAUNCHES.items() if k not in st.PLAIN_KEYS}
+    got.update({k: lt.LAUNCHES[k] for k in lt.KERNELS})
     got.update({f"pairs_{k}": v for k, v in pm.LAUNCHES.items()
                 if k not in pm.PLAIN_KEYS})
     got.update({k: v for k, v in dp.LAUNCHES.items()
@@ -659,6 +725,7 @@ def counters():
                 **{f"vcm_{k}": vs.LAUNCHES[k] for k in vs.KERNELS},
                 vcm_shade_plain=sum(vs.LAUNCHES[k] for k in vs.PLAIN_KEYS),
                 dispatch_plain=sum(dp.LAUNCHES[k] for k in dp.PLAIN_KEYS),
+                light_tail_plain=sum(lt.LAUNCHES[k] for k in lt.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
                 fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS,
                 **{f"graph_{k}": v for k, v in graphs.GRAPH_STATS.items()})
@@ -668,17 +735,22 @@ def plain_runs(got):
     """Calls of any plain version (stream, candidate stage, khit, the
     merge and its preparation, every step of the pair route, the PT
     shading and its finish, the VCM bounces' shading and finishes, the
-    dispatch glue)."""
+    dispatch glue and the re-trace's slots, the light band's tail)."""
     return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
             + got["merge_plain"] + got["pairs_plain"] + got["shade_plain"]
-            + got["vcm_shade_plain"] + got["dispatch_plain"])
+            + got["vcm_shade_plain"] + got["dispatch_plain"]
+            + got["light_tail_plain"])
 
 
-def hold_dispatch_launches(label, got, resolve):
+def hold_dispatch_launches(label, got, resolve, slots=False):
     """A main path's dispatch glue: the keys and rows kernels and
     `resolve` (khit_resolve or stream_resolve) launched, every alpha test
-    by the mask record (no flags variant), no plain version."""
+    by the mask record (no flags variant), no plain version; with
+    `slots` (a graphed masked path), the re-trace's three slot kernels
+    too, once each a graph-ready masked dispatch."""
     need = ("dispatch_keys", "dispatch_rows", resolve)
+    if slots:
+        hold_slot_launches(label, got)
     missing = [k for k in need if not got[k]]
     flags = got["khit_resolve_flags"] + got["stream_resolve_flags"]
     if missing or flags or got["dispatch_plain"]:
@@ -688,15 +760,28 @@ def hold_dispatch_launches(label, got, resolve):
                              f"versions ran")
 
 
+def hold_slot_launches(label, got):
+    """A graphed masked path's slot kernels: slot_gather, slot_merge and
+    slot_finish each launched once a masked dispatch."""
+    n = [got[k] for k in SLOT_KERNELS]
+    if not (n[0] == n[1] == n[2] == got["dispatches"] > 0):
+        raise AssertionError(f"{label}: the slot kernels launched "
+                             f"{dict(zip(SLOT_KERNELS, n))} times over "
+                             f"{got['dispatches']} masked dispatches")
+
+
 def hold_vcm_shade_launches(label, got, algo):
     """A VCM-family main path's shade launches: every kernel its algorithm
-    runs (the light band's start, bounce and connection finish, the camera
-    bounce and its shadow sets' finish) launched, and no plain version."""
+    runs (the light band's start, bounce and connection finish, its tail's
+    collect append and splat, the camera bounce and its shadow sets'
+    finish) launched, and no plain version."""
     need = []
     if algo != "pt":
         need += ["vcm_light_start", "vcm_light_shade"]
         if algo != "ppm":
-            need.append("vcm_light_finish")
+            need += ["vcm_light_finish", "splat"]
+        if algo != "lt":
+            need.append("collect_append")
     if algo != "lt":
         need.append("vcm_camera_shade")
         if algo != "ppm":
@@ -1793,6 +1878,346 @@ def dispatch_phase(dev, card, scenes, stats):
         log_resources(f"{k} kernel", dp.resources(k), card)
 
 
+# Phase 4e: the light band's tail (ops/light_tail.py, csrc/light_tail.cu)
+# and the graph-ready re-trace's slot kernels (ops/dispatch.py,
+# csrc/dispatch.cu).  Bytes behind bound_ms, each word once: the append
+# reads each staged row's flag and prefix (5 B) and the count, copies the
+# rows that fit (96 B in, 96 B out) and writes the count and lost; the
+# splat reads each row's pixel id (4 B) and the contributions of the rows
+# with one (12 B) and writes the fresh film (12 B a pixel); the slot
+# gather reads a slot's lane index (8 B), the count and its distinct
+# lanes' tcur and hit (16-20 B) and writes the slot's two flags, tcur and
+# hit and the dropped count; the merge reads a slot's flag and, where
+# valid, its lane index and hit (24 B) and writes its lane's hit (16 B);
+# the finish reads every active and unresolved flag (1 B each) and three
+# counts and writes the overflow and five counts.
+SLOT_KERNELS = ("slot_gather", "slot_merge", "slot_finish")
+TAIL_KERNELS = ("collect_append", "splat")
+
+
+def light_band_tail(scene, meta, cam, fi, lpc, max_len):
+    """The staged rows of the middle NUM_RAYS-path light band of a vcm
+    frame (vcm._light_pass as the renderer runs it, through the kernels,
+    its append and splat recorded instead of run): (valid (N,), rows (N,
+    24), contrib (N, 3), pixel (N,)), N = max_len * NUM_RAYS."""
+    from imbatracer_torch.render.integrators import pt, vcm
+
+    got = {}
+
+    class Recorder:
+        def append(self, valid, rows):
+            got["rows"] = (valid.clone(), rows.clone())
+
+    def splat(contrib, pixel, num_pixels):
+        got["cc"] = (contrib.clone(), pixel.clone())
+        return torch.zeros((num_pixels, 3), device=contrib.device)
+
+    orig = vcm.splat
+    vcm.splat = splat
+    try:
+        vcm._light_pass(
+            scene, cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm, Recorder(),
+            algo="vcm", num_pixels=cam.width * cam.height,
+            light_path_count=lpc, max_len=max_len,
+            alpha_fn=pt.alpha_fn_for(scene) if meta.has_masks else None,
+            has_bump=meta.has_bump, path_start=(lpc - NUM_RAYS) // 2,
+            band_paths=NUM_RAYS)
+    finally:
+        vcm.splat = orig
+    return got["rows"] + got["cc"]
+
+
+def hold_append(label, valid, rows, cap, count0, card, stats, timed):
+    """`[tail]`: collect_append_cuda against collect_append_plain from the
+    same seeded buffer of cap + 1 rows holding `count0` rows: rec[:cap],
+    count and lost bit-equal, lost the rows past the capacity, and
+    CollectCache.check raising exactly when one did not fit.  With
+    `timed`, the wrapper (the library prefix, the copy and the tail; the
+    count's reset taken off) beside the plain version, one index_copy_
+    of the plain version's targets, and the bound."""
+    from imbatracer_torch.ops import light_tail as lt
+    from imbatracer_torch.render.light_cache import CollectCache
+
+    dev = rows.device
+    gen = torch.Generator(device=dev).manual_seed(cap)
+    rec0 = torch.randn((cap + 1, rows.shape[1]), generator=gen, device=dev)
+    c0 = torch.full((), count0, dtype=torch.int32, device=dev)
+
+    def state():
+        return CollectCache(rec0.clone(), c0.clone(), torch.zeros_like(c0))
+
+    a, b = state(), state()
+    lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows)
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows)
+    torch.cuda.synchronize()
+    nvalid = int(valid.sum())
+    fit = max(min(nvalid, cap - count0), 0)
+    bad = (bit_mismatches(a.rec[:cap], b.rec[:cap])
+           + bit_mismatches(a.count, b.count) + bit_mismatches(a.lost, b.lost))
+    lost = count0 + nvalid - cap
+    try:
+        a.check()
+        raised = False
+    except RuntimeError:
+        raised = True
+    log(f"[tail] collect append, {label}: {rows.shape[0]} staged rows, "
+        f"{nvalid} valid, capacity {cap}, {count0} rows before; count "
+        f"{int(a.count)}, lost {int(a.lost)}, check raised {raised}; "
+        f"elements not bit-equal to the plain version: {bad} [{card}]")
+    if (bad or int(a.lost) != max(lost, 0) or raised != (lost > 0)
+            or int(a.count) != min(count0 + nvalid, cap)):
+        raise AssertionError(f"[tail] collect append, {label}: the kernel "
+                             f"disagrees with the plain version or lost "
+                             f"the wrong rows")
+    if not timed:
+        return
+    rec, cnt, lost_t = a.rec, a.count, a.lost
+    reset = lambda: cnt.copy_(c0)
+    v = valid.to(torch.int32)
+    slot = c0 + (torch.cumsum(v, 0, dtype=torch.int32) - v)
+    target = torch.where(valid & (slot < cap), slot, cap).long()
+    reset_ms = graph_ms(reset)
+    ms = graph_ms(lambda: (reset(), lt.collect_append_cuda(
+        rec, cnt, lost_t, valid, rows))) - reset_ms
+    wrapper_ms = cuda_ms(lambda: (reset(), lt.collect_append_cuda(
+        rec, cnt, lost_t, valid, rows)), 10) - cuda_ms(reset, 10)
+    plain_ms = cuda_ms(lambda: (reset(), lt.collect_append_plain(
+        rec, cnt, lost_t, valid, rows)), 3) - cuda_ms(reset, 3)
+    library_ms = cuda_ms(lambda: rec.index_copy_(0, target, rows), 3)
+    nbytes = rows.shape[0] * 5 + 4 + fit * 96 * 2 + 8
+    bound_ms, bound_by = shade_bound(nbytes, 0)
+    log(f"[time] collect_append kernel, {label} [{card}]: kernel {ms:.4f} "
+        f"ms (device, graphed launches: library prefix, copy, tail; the "
+        f"wrapper {wrapper_ms:.4f} ms; plain {plain_ms:.3f} ms, library "
+        f"index_copy_ {library_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {nbytes} bytes)")
+    stats["collect_append"] = (ms, None, (bound_ms, bound_by,
+                                          dict(bytes=nbytes, rows=fit)))
+    stats.update(collect_append_plain_ms=plain_ms, collect_append_err=0.0,
+                 collect_append_library_ms=library_ms)
+
+
+def hold_splat(label, contrib, pixel, num_pixels, card, stats):
+    """`[tail]`: splat_cuda against splat_plain on a band's camera
+    connections (both add with atomics): film mean within DIST_VCM_MEAN
+    relative, DIST_VCM_PIXELS of the pixels within DIST_VCM_REL (phase
+    14's rule); timed beside the plain version, one index_add_ of the
+    plain version's pixel ids into a zeroed film, and the bound."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    k = lt.splat_cuda(contrib, pixel, num_pixels)
+    p = lt.splat_plain(contrib, pixel, num_pixels)
+    mean, within, worst = vcm_parity(k, p)
+    err = float((k - p).abs().max())
+    n = int((pixel >= 0).sum())
+    log(f"[tail] splat, {label}: {pixel.shape[0]} rows, {n} with a pixel; "
+        f"film mean rel {mean:.3e}, pixels within {DIST_VCM_REL} "
+        f"{within:.6f}, max rel {worst:.3e}, max abs {err:.3e} [{card}]")
+    if not (mean <= DIST_VCM_MEAN and within >= DIST_VCM_PIXELS
+            and float(k.mean()) > 0.0):
+        raise AssertionError(f"[tail] splat, {label}: the kernel's film "
+                             f"disagrees with the plain version's")
+    pid = torch.where(pixel >= 0, pixel, num_pixels).long()
+    film = torch.zeros((num_pixels + 1, 3), device=contrib.device)
+    ms = graph_ms(lambda: lt.splat_cuda(contrib, pixel, num_pixels))
+    wrapper_ms = cuda_ms(lambda: lt.splat_cuda(contrib, pixel, num_pixels),
+                         10)
+    plain_ms = cuda_ms(lambda: lt.splat_plain(contrib, pixel, num_pixels), 3)
+    library_ms = cuda_ms(lambda: film.index_add_(0, pid, contrib), 3)
+    nbytes = pixel.shape[0] * 4 + n * 12 + num_pixels * 12
+    bound_ms, bound_by = shade_bound(nbytes, 0)
+    log(f"[time] splat kernel, {label} [{card}]: kernel {ms:.4f} ms "
+        f"(device, graphed launches: the film's zeros and the kernel; the "
+        f"wrapper {wrapper_ms:.4f} ms; plain {plain_ms:.3f} ms, library "
+        f"index_add_ {library_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {nbytes} bytes)")
+    stats["splat"] = (ms, None, (bound_ms, bound_by,
+                                 dict(bytes=nbytes, rows=n)))
+    stats.update(splat_plain_ms=plain_ms, splat_err=err,
+                 splat_library_ms=library_ms)
+
+
+def recorded_slots(scene, c, alpha_fn):
+    """The arguments of the graph-ready re-trace's slot gather on a
+    carry's bounce rays (render/traverse.gather_slots recorded in one
+    masked closest hit with an overflow counter): (need, slots, hit,
+    tcur)."""
+    from imbatracer_torch.render import traverse as tt
+    from imbatracer_torch.render.intersect import BIG
+
+    got = []
+    orig = tt.gather_slots
+
+    def record(need, slots, hit, tcur=None):
+        got.append((need.clone(), slots, tt.Hit(*(x.clone() for x in hit)),
+                    None if tcur is None else tcur.clone()))
+        return orig(need, slots, hit, tcur)
+
+    tt.gather_slots = record
+    try:
+        tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                       alpha_fn=alpha_fn, active=c["active"], sort=True,
+                       overflow=torch.zeros((), dtype=torch.int32,
+                                            device=c["org"].device))
+    finally:
+        tt.gather_slots = orig
+    return got[0]
+
+
+def random_slots_case(n, density, slots, seed, dev, tcur=True):
+    """Seeded inputs of a slot gather over n lanes: (active, need, hit,
+    tcur); `need` a `density` share of the active lanes (none active at
+    density 0)."""
+    from imbatracer_torch.render import traverse as tt
+
+    rs = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    act = rs.rand(n) < (0.8 if density else 0.0)
+    need = act & (rs.rand(n) < density / 0.8)
+    hit = tt.Hit(t(rs.uniform(0, 9, n).astype(np.float32)),
+                 t(rs.randint(-1, 5000, n).astype(np.int32)),
+                 t(rs.rand(n).astype(np.float32)),
+                 t(rs.rand(n).astype(np.float32)))
+    return (t(act), t(need), hit,
+            t(rs.uniform(0, 9, n).astype(np.float32)) if tcur else None)
+
+
+def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
+               record):
+    """`[slots]`: the three slot kernels against their plain versions, bit
+    for bit: the gather (the slot state and the dropped count) from
+    nonzero_static's indices; the merge of seeded slot hits into a copy
+    of `hit` where the slots are valid; the finish's overflow and device
+    counts (a seeded counts vector whose slot 0 is the overflow counter,
+    FINISH_KEYS at slots 3-7) with a seeded half of the valid slots left
+    unresolved and seeded rounds.  Each kernel timed alone beside its
+    plain version and its bound; with `record`, into `stats`."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.render import traverse as tt
+
+    dev, n = need.device, need.shape[0]
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum(dtype=torch.int32)
+    bad = dict.fromkeys(SLOT_KERNELS, 0)
+    k = dp.slot_gather_cuda(idx, count, hit, tcur)
+    p = dp.slot_gather_plain(idx, count, hit, tcur)
+    for x, y in zip(k[1:4] + tuple(k.hit) + k[5:],
+                    p[1:4] + tuple(p.hit) + p[5:]):
+        if (x is None) != (y is None):
+            bad["slot_gather"] += 1
+        elif x is not None:
+            bad["slot_gather"] += bit_mismatches(x, y)
+    rs = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    sub = tt.Hit(t(rs.uniform(0, 9, slots).astype(np.float32)),
+                 t(rs.randint(-1, 5000, slots).astype(np.int32)),
+                 t(rs.rand(slots).astype(np.float32)),
+                 t(rs.rand(slots).astype(np.float32)))
+    merged = k._replace(hit=sub)
+    mk = dp.slot_merge_cuda(merged, tt.Hit(*(x.clone() for x in hit)))
+    mp = dp.slot_merge_plain(merged, hit)
+    bad["slot_merge"] = sum(bit_mismatches(x, y) for x, y in zip(mk, mp))
+    left = merged._replace(need=k.valid & t(rs.rand(slots) < 0.5))
+    rounds = t(np.asarray(rs.randint(1, 9), dtype=np.int32))
+    counts0 = t(rs.randint(0, 100, 9).astype(np.int32))
+    where = (list(range(3, 3 + len(dp.FINISH_KEYS))),
+             [key.startswith("max_") for key in dp.FINISH_KEYS])
+    ck, cp = counts0.clone(), counts0.clone()
+    dp.slot_finish_cuda(ck[0], act, left, rounds, (ck,) + where)
+    dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where)
+    bad["slot_finish"] = bit_mismatches(ck, cp)
+    torch.cuda.synchronize()
+    nvalid, ncount = int(k.valid.sum()), int(count)
+    log(f"[slots] {label}: {n} lanes, {int(act.sum())} active, {ncount} "
+        f"in need, {slots} slots ({nvalid} valid, {int(k.dropped)} "
+        f"dropped); elements not bit-equal to the plain version: {bad} "
+        f"[{card}]")
+    if any(bad.values()):
+        raise AssertionError(f"[slots] {label}: the slot kernels disagree "
+                             f"with their plain versions: {bad}")
+    lanes = nvalid + int(nvalid < slots)
+    tw = 4 if tcur is not None else 0
+    nbytes = {"slot_gather": slots * (8 + 2 + 16 + tw) + 8
+              + lanes * (16 + tw),
+              "slot_merge": slots + nvalid * (8 + 16 + 16),
+              "slot_finish": n + slots + 12 + 24}
+    hit_copy = tt.Hit(*(x.clone() for x in hit))
+    fns = {"slot_gather": (partial(dp.slot_gather_cuda, idx, count, hit,
+                                   tcur),
+                           partial(dp.slot_gather_plain, idx, count, hit,
+                                   tcur)),
+           "slot_merge": (partial(dp.slot_merge_cuda, merged, hit_copy),
+                          partial(dp.slot_merge_plain, merged, hit)),
+           "slot_finish": (partial(dp.slot_finish_cuda, ck[0], act, left,
+                                   rounds, (ck,) + where),
+                           partial(dp.slot_finish_plain, cp[0], act, left,
+                                   rounds, (cp,) + where))}
+    for name, (kernel, plain) in fns.items():
+        ms = graph_ms(kernel)
+        wrapper_ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 3)
+        bound_ms, bound_by = shade_bound(nbytes[name], 0)
+        log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
+            f"(device, graphed launches; the wrapper {wrapper_ms:.4f} ms; "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by "
+            f"{bound_by}, {nbytes[name]} bytes)")
+        if record:
+            stats[name] = (ms, None, (bound_ms, bound_by,
+                                      dict(bytes=nbytes[name], lanes=n,
+                                           slots=slots)))
+            stats.update({f"{name}_plain_ms": plain_ms, f"{name}_err": 0.0})
+
+
+def tail_phase(dev, card, scenes, stats):
+    """Phase 4e: the light band's tail kernels against their plain
+    versions on the middle NUM_RAYS-path band of a still-life vcm frame
+    at 1920x1080 with VCM_LPC light paths (its 8 x NUM_RAYS staged rows):
+    the append into an empty collect cache of the frame's capacity, into
+    one holding all but half the band's valid rows (it overflows: lost
+    and CollectCache.check's raise) and into a full one; the splat of the
+    band's camera connections.  Then the slot kernels on the still life's
+    bounce-1 rays as its graph-ready khit re-trace gathers them, and on
+    seeded need masks at both slot shares: no lane active, past the
+    slots, within them.  The kernels' resources."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.ops import light_tail as lt
+    from imbatracer_torch.render import traverse as tt
+
+    phase("4e light-band tail and re-trace slot kernels vs plain")
+    scene, meta = scenes["still_life"]
+    cam, fi, lpc, _ = vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    valid, rows, contrib, pixel = light_band_tail(scene, meta, cam, fi, lpc,
+                                                  8)
+    label = f"still_life 1920x1080 band of {NUM_RAYS} of {lpc} light paths"
+    nvalid = int(valid.sum())
+    cap = lpc * 8
+    hold_append(label, valid, rows, cap, 0, card, stats, timed=True)
+    hold_append(f"{label}, overflowing", valid, rows, nvalid + 1000,
+                1000 + nvalid // 2, card, stats, timed=False)
+    hold_append(f"{label}, full", valid, rows, nvalid, nvalid, card, stats,
+                timed=False)
+    hold_splat(label, contrib, pixel, 1920 * 1080, card, stats)
+    del valid, rows, contrib, pixel
+    c, _, alpha_fn = shade_carry(scene, meta, 1920, 1080, 8, 1, dev)
+    need, slots, hit, tcur = recorded_slots(scene, c, alpha_fn)
+    hold_slots("still_life 1920x1080 bounce 1, the khit re-trace's",
+               c["active"], need, slots, hit, tcur, 1, card, stats,
+               record=True)
+    for density, two_level, seed in ((0.0, False, 2), (0.01, False, 3),
+                                     (0.2, True, 4), (0.3, True, 5)):
+        slots = tt.retrace_slots(NUM_RAYS, two_level)
+        act, need, hit, tcur = random_slots_case(NUM_RAYS, density, slots,
+                                                 seed, dev, not two_level)
+        hold_slots(f"seeded need {density} of the lanes, "
+                   f"{'two-level' if two_level else 'flat'} share",
+                   act, need, slots, hit, tcur, seed, card, stats,
+                   record=False)
+    for k in ("collect_append", "collect_tail", "splat"):
+        log_resources(f"{k} kernel", lt.resources(k), card)
+    for k in SLOT_KERNELS:
+        log_resources(f"{k} kernel", dp.resources(k), card)
+
+
 def delta_light_cornell(dev):
     """The cornell with a point, a spot and a directional light beside its
     triangle light (tests/torch_shade_cases.py's delta lights)."""
@@ -1919,7 +2344,14 @@ def trace_totals(events):
 # kernels and the library sort's.
 TRACED_KERNELS = ("set_conditional", "dispatch_keys_kernel",
                   "dispatch_rows_kernel", "khit_resolve_kernel",
-                  "stream_resolve_kernel", "DeviceRadixSort")
+                  "stream_resolve_kernel", "slot_gather_kernel",
+                  "slot_merge_kernel", "slot_finish_kernel",
+                  "collect_append_kernel", "collect_tail_kernel",
+                  "splat_kernel", "DeviceRadixSort", "CatArrayBatchedCopy",
+                  "index_elementwise_kernel", "indexFunc")
+# The light band's tail: the kernels of csrc/light_tail.cu.
+TAIL_TRACED = ("collect_append_kernel", "collect_tail_kernel",
+               "splat_kernel")
 
 
 def profile_frame(renderer, label, card, top=8):
@@ -2234,7 +2666,7 @@ def vcm_main_path(scene, meta, card, stats):
         raise AssertionError("still_life vcm: the main path did not run "
                              "through the merge and khit kernels")
     hold_vcm_shade_launches("still_life vcm", got, "vcm")
-    hold_dispatch_launches("still_life vcm", got, "khit_resolve")
+    hold_dispatch_launches("still_life vcm", got, "khit_resolve", slots=True)
     mean = film_mean(renderer, "still_life vcm")
     pt, _, pt_ms, _ = family_frames(scene, meta, "pt", 1920, 1080, 8,
                                     VCM_FRAMES)
@@ -2704,7 +3136,11 @@ def instanced_phase(dev, card, big, stats):
                    alpha_fn, 8, card, stats)
         hold_dispatch(f"instanced {w}x{h} bounce 1", scene, c, hit, alpha_fn,
                       card, stats, {"stream_resolve"})
-        del c, hit
+        need, slots, s_hit, tcur = recorded_slots(scene, c, alpha_fn)
+        hold_slots(f"instanced {w}x{h} bounce 1, the two-level re-trace's",
+                   c["active"], need, slots, s_hit, tcur, 6, card, stats,
+                   record=False)
+        del c, hit, need, s_hit
         cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, w, h, 8, dev)
         label = f"instanced {w}x{h}, {lpc} light paths"
         hold_vcm_light(label, scene, meta, cam, fi, lpc, 8, 1, card, stats)
@@ -2728,7 +3164,8 @@ def instanced_phase(dev, card, big, stats):
                                  "through the instanced and merge kernels "
                                  "alone")
         hold_vcm_shade_launches("instanced vcm", got, "vcm")
-        hold_dispatch_launches("instanced vcm", got, "stream_resolve")
+        hold_dispatch_launches("instanced vcm", got, "stream_resolve",
+                               slots=True)
         mean = film_mean(vr, "instanced vcm")
         pt, pt_got, pt_ms, _ = family_frames(scene, meta, "pt", w, h, 8,
                                              INST_FRAMES)
@@ -3519,10 +3956,13 @@ def trace_route(fn, frame, graph):
     dev, host = trace_totals(prof.profiler.kineto_results.events())
     calls = lambda pre: sum(n for name, (_, n) in host.items()
                             if name.startswith(pre))
+    tail = [v for k, v in dev.items() if any(p in k for p in TAIL_TRACED)]
     return dict(wall=wall, busy=sum(ns for ns, _ in dev.values()) / 1e6,
                 kernels=sum(n for _, n in dev.values()),
                 launch_kernel=calls("cudaLaunchKernel"),
-                graph_launch=calls("cudaGraphLaunch"))
+                graph_launch=calls("cudaGraphLaunch"),
+                tail_ms=sum(ns for ns, _ in tail) / 1e6,
+                tail_n=sum(n for _, n in tail))
 
 
 def loop_cost(cell, scene, meta, fn, size, max_len, frame, busy_ms, card):
@@ -3658,6 +4098,17 @@ def hold_rounds(tag, cell, runs, two_level, warm, card):
             f"{tot(g, 'capped')} at the cap of {cap} rounds)")
 
 
+def hold_route_slots(cell, graphed, eager):
+    """The re-trace's slot kernels: once each a masked dispatch in every
+    graphed frame with one, never in an eager frame."""
+    for r in graphed:
+        if r["launches"]["dispatches"]:
+            hold_slot_launches(cell, r["launches"])
+    if any(r["launches"][k] for r in eager for k in SLOT_KERNELS):
+        raise AssertionError(f"{cell}: the eager route launched the slot "
+                             f"kernels")
+
+
 def band_kernels(cell, t, card):
     """The kernels a replayed graph of a traced graphed frame runs, those
     launched outside the graphs taken off: (kernels - cudaLaunchKernel) /
@@ -3691,12 +4142,13 @@ def hold_graph_cell(cell, runs, traced, card):
         ok = ok and (r["launches"]["pt_shade"]
                      == r["launches"]["pt_shade_finish"]
                      == r["route"]["band_bounces"])
+    hold_route_slots(cell, g, e)
     n = len(g)
     mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
     each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
     keys = ROUTE_KEYS[:5] + ("pt_shade", "pt_shade_finish") + \
-        DISPATCH_KERNELS + ("graph_captures", "graph_replays",
-                            "graph_reruns")
+        DISPATCH_KERNELS + SLOT_KERNELS + ("graph_captures",
+                                           "graph_replays", "graph_reruns")
     per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
                       for k in keys}
     peak = lambda rs: max(r["peak"] for r in rs) / 2**20
@@ -3778,8 +4230,8 @@ VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
                    "any_hit_instanced", "khit", "merge", "merge_prep",
                    "vcm_light_start", "vcm_light_shade", "vcm_light_finish",
                    "vcm_camera_shade", "vcm_camera_finish",
-                   *DISPATCH_KERNELS, "graph_captures", "graph_replays",
-                   "graph_reruns")
+                   *DISPATCH_KERNELS, *SLOT_KERNELS, *TAIL_KERNELS,
+                   "graph_captures", "graph_replays", "graph_reruns")
 
 
 def hold_vcm_graph_cell(cell, algo, runs, traced, card):
@@ -3806,6 +4258,7 @@ def hold_vcm_graph_cell(cell, algo, runs, traced, card):
         ok = (ok and bool(torch.isfinite(r["film"]).all())
               and float(r["film"].mean()) > 0.0
               and not plain_runs(r["launches"]))
+    hold_route_slots(cell, g, e)
     n = len(g)
     mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
     each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
@@ -3833,6 +4286,13 @@ def hold_vcm_graph_cell(cell, algo, runs, traced, card):
                 f"[{card}]")
     if traced.get(None) is not None:
         band_kernels(cell, traced[None], card)
+        t = traced[None]
+        log(f"[lighttail] {cell}: traced graphed frame: light-band tail "
+            f"{t['tail_ms']:.3f} ms over {t['tail_n']} launches "
+            f"({', '.join(TAIL_TRACED)}); {BAND_KERNELS[cell]} kernels a "
+            f"replayed graph, device busy {t['busy']:.1f} ms (idle "
+            f"{100.0 * (1.0 - t['busy'] / t['wall']):.1f}%), {t['kernels']} "
+            f"kernels [{card}]")
     if not ok:
         raise AssertionError(f"{cell}: the graphed and eager routes "
                              f"disagree, or the default did not replay")
@@ -4082,6 +4542,7 @@ def build_libraries():
     from imbatracer_torch.accel import native
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
+    from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
     from imbatracer_torch.ops import shade as sh
@@ -4091,11 +4552,11 @@ def build_libraries():
 
     phase("2 build")
     t0 = time.time()
-    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, vs.LIB, dp.LIB,
+    libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, vs.LIB, dp.LIB, lt.LIB,
             graphs.COND_LIB, native.LIB)
     paths = libbuild.build_all(libs)
     for load in (st._library, kh._library, mg._library, pm._library,
-                 sh._library, vs._library, dp._library,
+                 sh._library, vs._library, dp._library, lt._library,
                  graphs._cond_library):
         load()
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
@@ -4125,6 +4586,7 @@ def shade_phases_alone():
     shade_phase(dev, card, scenes, stats)
     vcm_shade_phase(dev, card, scenes, stats)
     dispatch_phase(dev, card, scenes, stats)
+    tail_phase(dev, card, scenes, stats)
     log(f"[done] {time.time() - _START:.1f} s")
 
 
@@ -4198,6 +4660,7 @@ def run():
     shade_phase(dev, card, scenes, stats)
     vcm_shade_phase(dev, card, scenes, stats)
     dispatch_phase(dev, card, scenes, stats)
+    tail_phase(dev, card, scenes, stats)
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
@@ -4225,7 +4688,7 @@ def run():
         raise AssertionError("still_life: the main path did not run through "
                              "the khit kernel")
     hold_shade_launches("still_life", sl_got)
-    hold_dispatch_launches("still_life", sl_got, "khit_resolve")
+    hold_dispatch_launches("still_life", sl_got, "khit_resolve", slots=True)
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "goldens", "still_life_1080p_len8.png")
     sl_image = renderer.image()       # phase 10b's yardstick
@@ -4355,10 +4818,16 @@ def run():
             library_ms=stats.get(f"pair_{name}_library_ms")))
     for name, got in (("dispatch_keys", sl_got), ("dispatch_rows", sl_got),
                       ("khit_resolve", sl_got),
-                      ("stream_resolve", inst_got)):
+                      ("stream_resolve", inst_got), ("slot_gather", sl_got),
+                      ("slot_merge", sl_got), ("slot_finish", sl_got)):
         kernels.append(kernel_entry(
             name, src + "dispatch.cu", REPLACES[name], got[name],
             stats[f"{name}_err"], stats[name], stats[f"{name}_plain_ms"]))
+    for name in TAIL_KERNELS:
+        kernels.append(kernel_entry(
+            name, src + "light_tail.cu", REPLACES[name], vcm_got[name],
+            stats[f"{name}_err"], stats[name], stats[f"{name}_plain_ms"],
+            library_ms=stats[f"{name}_library_ms"]))
     for k in kernels:
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was not launched on a main "

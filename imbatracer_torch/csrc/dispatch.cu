@@ -1,4 +1,5 @@
-// The traversal dispatch glue, for NVIDIA Hopper (sm_90a).
+// The traversal dispatch glue and the masked re-trace's slot
+// bookkeeping, for NVIDIA Hopper (sm_90a).
 //
 // No Pallas kernel stands behind this file: it is the card's counterpart
 // of the XLA fusions around JAX's traversal calls, which run inside its
@@ -23,6 +24,24 @@
 //                          occlusion flag, in re-trace mode selected by the
 //                          lane's re-trace flag and alpha-tested.
 //
+// and three more around the WHILE node of the graph-ready re-trace
+// (imbatracer_torch/render/traverse.py), the counterpart of the while
+// loop's carry in JAX (traverse.py:276-297, :360-384), which XLA fuses
+// into the loop body: JAX's rounds run at full width, the port's past
+// the first on `slots` lanes gathered with torch.nonzero_static:
+//
+//   slot_gather_kernel     the slots' state after the first round: the
+//                          valid flags (slot < the lanes in need), the
+//                          loop's need flags, each slot's lane's tcur and
+//                          hit, and the lanes in need past the slots;
+//   slot_merge_kernel      each valid slot's hit written into its lane of
+//                          the dispatch's hit, in place;
+//   slot_finish_kernel     one block: the lanes still unresolved and
+//                          those past the slots added to the overflow
+//                          counter, and the dispatch's device counts (an
+//                          empty dispatch, its rounds, the lanes carried
+//                          past the first round, dropped, capped).
+//
 // Indexing (the plain versions' in imbatracer_torch/ops/dispatch.py):
 // sorted row j holds slot s = perm[j] (perm null: s = j) of the dispatch;
 // slot s is lane lanes[s] of the ray arrays (lanes null: the lane is s);
@@ -39,6 +58,11 @@
 // and texels, and writes up to 21 B at its lane; a stream resolve reads
 // 32 B and writes up to 14.  The design is the plain one: coalesced reads
 // and writes of the sorted rows, scattered reads and writes at the lane.
+// A slot gather reads 8 B of idx and its lane's 16-20 B and writes 18-22
+// B; a merge reads a valid slot's 25 B and writes its lane's 16; the
+// finish reads every active flag and every slot's flag, 16-byte words
+// summed in one block of 1,024 threads (a second pass or atomics would
+// cost a launch more).
 //
 // Numerics: the plain versions' torch ops on the card, as shading.cuh
 // sets out; built with --fmad=false.
@@ -234,6 +258,97 @@ __global__ void stream_resolve_kernel(const float* rows, Map m, int mode,
     out_flag[w.state] = sel && id >= 0 && !opaque(a, j, id, row[1], row[2]);
 }
 
+struct HitIn {
+  const float* t;
+  const int* id;
+  const float* u;
+  const float* v;
+};
+
+__global__ void slot_gather_kernel(const int64_t* idx, const int* count,
+                                   int slots, const float* tcur, HitIn hit,
+                                   uint8_t* valid, uint8_t* need,
+                                   float* s_tcur, HitOut s_hit,
+                                   int* dropped) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= slots) return;
+  const int c = *count;
+  if (s == 0) *dropped = max(c - slots, 0);
+  const uint8_t v = s < c;
+  valid[s] = v;
+  need[s] = v;
+  const int64_t lane = idx[s];
+  if (tcur) s_tcur[s] = tcur[lane];
+  s_hit.t[s] = hit.t[lane];
+  s_hit.id[s] = hit.id[lane];
+  s_hit.u[s] = hit.u[lane];
+  s_hit.v[s] = hit.v[lane];
+}
+
+__global__ void slot_merge_kernel(const int64_t* idx, const uint8_t* valid,
+                                  int slots, HitIn sub, HitOut hit) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= slots || !valid[s]) return;
+  const int64_t lane = idx[s];
+  hit.t[lane] = sub.t[s];
+  hit.id[lane] = sub.id[s];
+  hit.u[lane] = sub.u[s];
+  hit.v[lane] = sub.v[s];
+}
+
+constexpr int kFinishThreads = 1024;
+constexpr int kFinishKeys = 5;   // ops/dispatch.py FINISH_KEYS
+
+// The device counts' slots of FINISH_KEYS and whether each is a maximum.
+struct CountSlots {
+  int slot[kFinishKeys];
+  int is_max[kFinishKeys];
+};
+
+// The number of set flags of p[0:n] (bools, 0 or 1 a byte), summed over
+// the block; valid in thread 0.  16-byte words where p is aligned.
+__device__ int block_count(const uint8_t* p, int64_t n) {
+  __shared__ int warp_sums[kFinishThreads / 32];
+  const bool aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  const int64_t words = aligned ? n / 16 : 0;
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+  int c = 0;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < words; i += blockDim.x) {
+    const uint4 x = w[i];
+    c += __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w);
+  }
+  for (int64_t i = 16 * words + threadIdx.x; i < n; i += blockDim.x)
+    c += p[i] != 0;
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i)
+      total += warp_sums[i];
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kFinishThreads)
+    slot_finish_kernel(const uint8_t* active, int64_t num_r,
+                       const uint8_t* unresolved, int slots,
+                       const int* count, const int* dropped,
+                       const int* rounds, int* overflow, int* counts,
+                       CountSlots cs) {
+  const int live = block_count(active, num_r);
+  const int left = block_count(unresolved, slots);
+  if (threadIdx.x != 0) return;
+  *overflow += *dropped + left;
+  if (!counts) return;
+  const int vals[kFinishKeys] = {live == 0, *rounds, *count, *dropped, left};
+  for (int k = 0; k < kFinishKeys; ++k) {
+    int* c = counts + cs.slot[k];
+    *c = cs.is_max[k] ? max(*c, vals[k]) : *c + vals[k];
+  }
+}
+
 int blocks_for(int n) { return (n + kBlk - 1) / kBlk; }
 
 Map make_map(const void* perm, const void* lanes, int by_lane, int n) {
@@ -271,6 +386,11 @@ Alpha make_alpha(void* const* p, const int* i) {
 HitOut make_hit(void* const* p) {
   return {static_cast<float*>(p[0]), static_cast<int*>(p[1]),
           static_cast<float*>(p[2]), static_cast<float*>(p[3])};
+}
+
+HitIn make_hit_in(void* const* p) {
+  return {static_cast<const float*>(p[0]), static_cast<const int*>(p[1]),
+          static_cast<const float*>(p[2]), static_cast<const float*>(p[3])};
 }
 
 }  // namespace
@@ -340,22 +460,83 @@ extern "C" int imba_stream_resolve(const void* rows, const void* perm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// slot_gather_kernel on the current stream: idx (slots,) i64, count 0-d
+// i32 (the lanes in need), tcur (R,) f32 or null, hit = (t, id, u, v) of
+// the R lanes; out: valid, need (slots,) bool, s_tcur (slots,) f32 (when
+// tcur), s_hit (slots,) each, dropped 0-d i32.  Returns a CUDA error.
+extern "C" int imba_slot_gather(const void* idx, const void* count,
+                                int slots, const void* tcur,
+                                void* const* hit, void* valid, void* need,
+                                void* s_tcur, void* const* s_hit,
+                                void* dropped, void* stream) {
+  if (slots > 0)
+    slot_gather_kernel<<<blocks_for(slots), kBlk, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(idx), static_cast<const int*>(count),
+        slots, static_cast<const float*>(tcur), make_hit_in(hit),
+        static_cast<uint8_t*>(valid), static_cast<uint8_t*>(need),
+        static_cast<float*>(s_tcur), make_hit(s_hit),
+        static_cast<int*>(dropped));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slot_merge_kernel on the current stream: sub (slots,) each into hit at
+// idx[s] where valid[s], in place.  Returns a CUDA error.
+extern "C" int imba_slot_merge(const void* idx, const void* valid,
+                               int slots, void* const* sub, void* const* hit,
+                               void* stream) {
+  if (slots > 0)
+    slot_merge_kernel<<<blocks_for(slots), kBlk, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(idx), static_cast<const uint8_t*>(valid),
+        slots, make_hit_in(sub), make_hit(hit));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slot_finish_kernel on the current stream, one block: active (num_r,)
+// bool, unresolved (slots,) bool; count,
+// dropped, rounds 0-d i32; overflow 0-d i32, updated in place; counts the
+// device counts or null, with ints = (slot, is_max) of each FINISH_KEYS
+// entry.  Returns a CUDA error.
+extern "C" int imba_slot_finish(const void* active, int64_t num_r,
+                                const void* unresolved, int slots,
+                                const void* count, const void* dropped,
+                                const void* rounds, void* overflow,
+                                void* counts, const int* ints, void* stream) {
+  CountSlots cs;
+  for (int k = 0; k < kFinishKeys; ++k) {
+    cs.slot[k] = counts ? ints[k] : 0;
+    cs.is_max[k] = counts ? ints[kFinishKeys + k] : 0;
+  }
+  slot_finish_kernel<<<1, kFinishThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(active), num_r,
+      static_cast<const uint8_t*>(unresolved), slots,
+      static_cast<const int*>(count), static_cast<const int*>(dropped),
+      static_cast<const int*>(rounds), static_cast<int*>(overflow),
+      static_cast<int*>(counts), cs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Resources of kernel `which` (0 keys, 1 rows, 2 khit resolve, 3 stream
-// resolve): out[0] registers, out[1] static shared bytes, out[2] dynamic
+// resolve, 4 slot gather, 5 slot merge, 6 slot finish): out[0] registers, out[1] static shared bytes, out[2] dynamic
 // shared bytes, out[3] local (spill) bytes a thread, out[4] resident
 // blocks an SM.  Returns a CUDA error code.
 extern "C" int imba_dispatch_resources(int which, int* out) {
   const void* fns[] = {reinterpret_cast<const void*>(dispatch_keys_kernel),
                        reinterpret_cast<const void*>(dispatch_rows_kernel),
                        reinterpret_cast<const void*>(khit_resolve_kernel),
-                       reinterpret_cast<const void*>(stream_resolve_kernel)};
-  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+                       reinterpret_cast<const void*>(stream_resolve_kernel),
+                       reinterpret_cast<const void*>(slot_gather_kernel),
+                       reinterpret_cast<const void*>(slot_merge_kernel),
+                       reinterpret_cast<const void*>(slot_finish_kernel)};
+  if (which < 0 || which > 6) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fns[which]);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which],
-                                                      kBlk, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fns[which], which == 6 ? kFinishThreads : kBlk, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);

@@ -1,5 +1,6 @@
-"""The traversal dispatch glue: four hand-written CUDA kernels, their plain
-PyTorch versions, and the sorted dispatch built on them.
+"""The traversal dispatch glue and the masked re-trace's slot bookkeeping:
+seven hand-written CUDA kernels, their plain PyTorch versions, and the
+sorted dispatch built on them.
 
 No Pallas kernel stands behind these: JAX runs the glue around each
 traversal call inside its compiled band programs, where XLA fuses it
@@ -22,6 +23,21 @@ around the Pallas calls.  The card's counterpart is one kernel a step
     re-trace mode, the one-layer re-trace's body (_closest_hit_masked's
     while body): the hit selected by the lane's re-trace flag and the
     flag set again where the new hit is transparent.
+
+Around the WHILE node of the graph-ready masked re-trace
+(render/traverse.py), whose rounds past the first run on `slots` lanes
+gathered with torch.nonzero_static (JAX's rounds run at full width, its
+while loop's carry fused by XLA into the loop body), three more:
+
+  * `slot_gather`: the slots' state after the first round (class Slots:
+    valid and need flags, each slot's lane's tcur and hit, the lanes in
+    need past the slots);
+  * `slot_merge`: each valid slot's hit written into its lane of the
+    dispatch's hit (the kernel in place);
+  * `slot_finish`: the lanes still unresolved and those past the slots
+    added to the overflow counter, and, inside a capture, the dispatch's
+    device counts (FINISH_KEYS of traverse.MASK_STATS, their slots from
+    render/graphs.count_slots).
 
 A dispatch covers n slots (class Dispatch): slot s is lane lanes[s] of
 the ray arrays (every lane when `lanes` is None), and the state it reads
@@ -57,17 +73,22 @@ BIG = st.BIG
 # flags variants under keys of their own), one per call of a plain
 # version.  chip_smoke.py reads them to show the main paths ran through
 # the kernels.
-LAUNCHES = {"dispatch_keys": 0, "dispatch_rows": 0, "khit_resolve": 0,
-            "khit_resolve_flags": 0, "stream_resolve": 0,
-            "stream_resolve_flags": 0, "keys_plain": 0, "rows_plain": 0,
-            "khit_resolve_plain": 0, "stream_resolve_plain": 0}
-PLAIN_KEYS = ("keys_plain", "rows_plain", "khit_resolve_plain",
-              "stream_resolve_plain")
 KERNELS = ("dispatch_keys", "dispatch_rows", "khit_resolve",
-           "stream_resolve")
+           "stream_resolve", "slot_gather", "slot_merge", "slot_finish")
+PLAIN_KEYS = ("keys_plain", "rows_plain", "khit_resolve_plain",
+              "stream_resolve_plain", "slot_gather_plain",
+              "slot_merge_plain", "slot_finish_plain")
+LAUNCHES = dict.fromkeys(KERNELS + ("khit_resolve_flags",
+                                    "stream_resolve_flags") + PLAIN_KEYS, 0)
 
 # stream_resolve's modes (csrc/dispatch.cu).
 CLOSEST, OCCLUSION, RETRACE = 0, 1, 2
+
+# The device counts slot_finish adds to, in the kernel's order
+# (csrc/dispatch.cu kFinishKeys): an empty dispatch (no active lane), the
+# rounds it ran, the lanes in need after its first round, those past the
+# slots and those left unresolved at the cap.
+FINISH_KEYS = ("empty", "max_rounds", "max_lanes", "dropped", "capped")
 
 
 def reset_launches():
@@ -81,6 +102,17 @@ class Dispatch(NamedTuple):
     n: int                         # slots
     lanes: Optional[torch.Tensor]  # (n,) int64 lane of each slot
     by_lane: bool                  # state indexed by lane (else by slot)
+
+
+class Slots(NamedTuple):
+    """The state of a graph-ready re-trace's rounds past its first."""
+    idx: torch.Tensor              # (slots,) int64 lane; 0 when empty
+    valid: torch.Tensor            # (slots,) bool: the slot holds a lane
+    need: torch.Tensor             # (slots,) bool: the loop's flags
+    tcur: Optional[torch.Tensor]   # (slots,) f32 the lane's tcur, or None
+    hit: tuple                     # Hit (t, prim_id, u, v) of the lanes
+    count: torch.Tensor            # () int32 lanes in need
+    dropped: torch.Tensor          # () int32 lanes in need past the slots
 
 
 def bounds_of(sbox):
@@ -221,6 +253,52 @@ def stream_resolve_plain(disp: Dispatch, out, mode: int, hit=None,
     hit.t[si], hit.prim_id[si], hit.u[si], hit.v[si] = new
 
 
+def slot_gather_plain(idx, count, hit, tcur=None) -> Slots:
+    """The slots' state: slot s holds lane idx[s] when s < count (the
+    lanes in need, a 0-d int32), its need flag set; its tcur and hit
+    are its lane's (lane 0's for an empty slot)."""
+    LAUNCHES["slot_gather_plain"] += 1
+    slots = idx.shape[0]
+    valid = torch.arange(slots, device=idx.device) < count
+    return Slots(idx, valid, valid.clone(),
+                 None if tcur is None else tcur[idx],
+                 type(hit)(*(x[idx] for x in hit)), count,
+                 torch.clamp(count - slots, min=0))
+
+
+def slot_merge_plain(slots: Slots, hit):
+    """`hit` with the lane of each valid slot taken from the slots' hit:
+    one scatter a field, the empty slots writing a spare row past the
+    lanes (a new Hit)."""
+    LAUNCHES["slot_merge_plain"] += 1
+    num_r = hit.t.shape[0]
+    to = torch.where(slots.valid, slots.idx, num_r)
+    out = []
+    for h, s in zip(hit, slots.hit):
+        row = torch.cat([h, h[:1]])
+        row[to] = s
+        out.append(row[:num_r])
+    return type(hit)(*out)
+
+
+def slot_finish_plain(overflow, active, slots: Slots, rounds, counts=None):
+    """Add the lanes past the slots and those still in need (left
+    unresolved at the cap) to `overflow`; with `counts` = (the device
+    counts, the slot of each FINISH_KEYS entry, whether each is a
+    maximum), raise or add to them too: whether no lane was active, the
+    rounds, the lanes in need after the first round, dropped and
+    capped."""
+    LAUNCHES["slot_finish_plain"] += 1
+    left = slots.need.sum()
+    if counts is not None:
+        tensor, where, maxes = counts
+        for slot, is_max, n in zip(where, maxes, (
+                ~active.any(), rounds, slots.count, slots.dropped, left)):
+            c, n = tensor[slot], n.to(tensor.dtype)
+            c.copy_(torch.maximum(c, n) if is_max else c + n)
+    overflow.add_((slots.dropped + left).to(overflow.dtype))
+
+
 # --------------------------------------------------------------------------
 # The CUDA kernels
 # --------------------------------------------------------------------------
@@ -239,6 +317,10 @@ def _library():
                            ("imba_dispatch_rows", [vp] * 3 + [i, vp]),
                            ("imba_khit_resolve", [vp] * 10),
                            ("imba_stream_resolve", [vp] * 9),
+                           ("imba_slot_gather", [vp, vp, i] + [vp] * 8),
+                           ("imba_slot_merge", [vp, vp, i, vp, vp, vp]),
+                           ("imba_slot_finish",
+                            [vp, ctypes.c_int64, vp, i] + [vp] * 7),
                            ("imba_dispatch_resources", [i, vp])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -462,9 +544,91 @@ def stream_resolve_cuda(disp: Dispatch, out, mode: int, hit=None, flag=None,
              else "stream_resolve_flags"] += 1
 
 
+def _hit_in(hit, size, what):
+    """Pointers to the (t, prim_id, u, v) of a Hit the kernel reads."""
+    cols = tuple(_input(x, dt, f"{what}.{k}") for x, dt, k in zip(
+        hit, (torch.float32, torch.int32, torch.float32, torch.float32),
+        ("t", "prim_id", "u", "v")))
+    for x, k in zip(cols, ("t", "prim_id", "u", "v")):
+        _shape(x, (size,), f"{what}.{k}")
+    return (ctypes.c_void_p * 4)(*[x.data_ptr() for x in cols]), cols
+
+
+def slot_gather_cuda(idx, count, hit, tcur=None) -> Slots:
+    """Launch slot_gather_kernel on CUDA tensors (raises on anything
+    else): slot_gather_plain's state."""
+    idx = _input(idx, torch.int64, "idx")
+    count = _input(count, torch.int32, "count")
+    _shape(count, (), "count")
+    slots, num_r, dev = idx.shape[0], hit.t.shape[0], idx.device
+    tcur = _input(tcur, torch.float32, "tcur")
+    _shape(tcur, (num_r,), "tcur")
+    hptrs, keep = _hit_in(hit, num_r, "hit")
+    lib = _library()
+    valid = torch.empty(slots, dtype=torch.bool, device=dev)
+    need = torch.empty_like(valid)
+    s_tcur = None if tcur is None else torch.empty(slots, device=dev)
+    s_hit = type(hit)(*(torch.empty(slots, dtype=x.dtype, device=dev)
+                        for x in keep))
+    dropped = torch.empty((), dtype=torch.int32, device=dev)
+    _launched(lib.imba_slot_gather(
+        idx.data_ptr(), count.data_ptr(), slots, _ptr(tcur), hptrs,
+        valid.data_ptr(), need.data_ptr(), _ptr(s_tcur),
+        _hit_args(s_hit, slots), dropped.data_ptr(), _stream(idx)),
+        "slot_gather")
+    LAUNCHES["slot_gather"] += 1
+    return Slots(idx, valid, need, s_tcur, s_hit, count, dropped)
+
+
+def slot_merge_cuda(slots: Slots, hit):
+    """Launch slot_merge_kernel on CUDA tensors (raises on anything
+    else): slot_merge_plain's hit, written into `hit` in place and
+    returned."""
+    n = slots.idx.shape[0]
+    idx = _input(slots.idx, torch.int64, "idx")
+    valid = _input(slots.valid, torch.bool, "valid")
+    _shape(valid, (n,), "valid")
+    sub, keep = _hit_in(slots.hit, n, "slots.hit")
+    lib = _library()
+    _launched(lib.imba_slot_merge(idx.data_ptr(), valid.data_ptr(), n, sub,
+                                  _hit_args(hit, hit.t.shape[0]),
+                                  _stream(idx)), "slot_merge")
+    LAUNCHES["slot_merge"] += 1
+    return hit
+
+
+def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None):
+    """Launch slot_finish_kernel on CUDA tensors (raises on anything
+    else): slot_finish_plain's overflow and counts, in place."""
+    for x, what in ((overflow, "overflow"), (slots.count, "count"),
+                    (slots.dropped, "dropped"), (rounds, "rounds")):
+        _check(x, torch.int32, what, optional=False)
+        _shape(x, (), what)
+    active = _check(active, torch.bool, "active",
+                    optional=False).contiguous()
+    need = _input(slots.need, torch.bool, "need")
+    _shape(need, slots.idx.shape, "need")
+    ints, cptr = (ctypes.c_int * 10)(), None
+    if counts is not None:
+        tensor, where, maxes = counts
+        _output(tensor, torch.int32, "counts")
+        for k, (slot, is_max) in enumerate(zip(where, maxes)):
+            if not 0 <= slot < tensor.shape[0]:
+                raise ValueError(f"dispatch: count slot {slot} out of range")
+            ints[k], ints[len(FINISH_KEYS) + k] = slot, int(is_max)
+        cptr = tensor.data_ptr()
+    lib = _library()
+    _launched(lib.imba_slot_finish(
+        active.data_ptr(), active.shape[0],
+        need.data_ptr(), need.shape[0], slots.count.data_ptr(),
+        slots.dropped.data_ptr(), rounds.data_ptr(), overflow.data_ptr(),
+        cptr, ints, _stream(need)), "slot_finish")
+    LAUNCHES["slot_finish"] += 1
+
+
 def resources(which: str):
     """Registers, shared memory, spills and resident blocks an SM of one
-    of the four kernels (KERNELS; needs the card)."""
+    of the seven kernels (KERNELS; needs the card)."""
     return st._resources(_library().imba_dispatch_resources,
                          KERNELS.index(which))
 
@@ -506,6 +670,27 @@ def stream_resolve(disp: Dispatch, out, mode: int, **kw):
     the plain version on CPU tensors."""
     fn = stream_resolve_cuda if _on(out) == "cuda" else stream_resolve_plain
     fn(disp, out, mode, **kw)
+
+
+def slot_gather(idx, count, hit, tcur=None) -> Slots:
+    """The slots' state after a re-trace's first round: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    fn = slot_gather_cuda if _on(idx) == "cuda" else slot_gather_plain
+    return fn(idx, count, hit, tcur)
+
+
+def slot_merge(slots: Slots, hit):
+    """The dispatch's hit with the slots' hits merged in: the kernel (in
+    place) on CUDA tensors, the plain version on CPU tensors."""
+    fn = slot_merge_cuda if _on(hit.t) == "cuda" else slot_merge_plain
+    return fn(slots, hit)
+
+
+def slot_finish(overflow, active, slots: Slots, rounds, counts=None):
+    """The overflow counter and the device counts of a re-trace: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    fn = slot_finish_cuda if _on(overflow) == "cuda" else slot_finish_plain
+    fn(overflow, active, slots, rounds, counts)
 
 
 def prepare(org, d, tmin, tmax, active=None, *, bounds=None, sbox=None,

@@ -5,16 +5,15 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import light_tail
+
 
 def splat(contrib: torch.Tensor, pixel_id: torch.Tensor,
           num_pixels: int) -> torch.Tensor:
-    """Scatter-add (R, 3) contributions into a (num_pixels, 3) film;
-    pixel_id < 0 is dropped (routed to a trash row)."""
-    pid = torch.where(pixel_id >= 0, pixel_id, num_pixels).long()
-    film = torch.zeros((num_pixels + 1, 3), dtype=contrib.dtype,
-                       device=contrib.device)
-    film.index_add_(0, pid, contrib)
-    return film[:num_pixels]
+    """Scatter-add (R, 3) contributions into a fresh (num_pixels, 3) film;
+    pixel_id < 0 is dropped (ops/light_tail.py: on the card its kernel,
+    on the CPU its plain version, which routes them to a trash row)."""
+    return light_tail.splat(contrib, pixel_id, num_pixels)
 
 
 def tonemap(film: torch.Tensor, weight: float,

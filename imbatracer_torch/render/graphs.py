@@ -73,6 +73,7 @@ import torch
 from ..libbuild import NativeLib
 from ..ops import dispatch as dispatch_mod
 from ..ops import khit as khit_mod
+from ..ops import light_tail as light_tail_mod
 from ..ops import merge as merge_mod
 from ..ops import shade as shade_mod
 from ..ops import stream_traverse as st
@@ -92,7 +93,7 @@ def _counters():
     """The launch counters a replay adds its deltas to."""
     return (st.LAUNCHES, khit_mod.LAUNCHES, merge_mod.LAUNCHES,
             shade_mod.LAUNCHES, vcm_shade_mod.LAUNCHES,
-            dispatch_mod.LAUNCHES, tt.MASK_STATS)
+            dispatch_mod.LAUNCHES, light_tail_mod.LAUNCHES, tt.MASK_STATS)
 
 
 def _snapshot():
@@ -229,15 +230,16 @@ def while_loop(cond, body):
     graph.while_loop(cond, counted)
 
 
-def count(counter: dict, key: str, n):
-    """Add the 0-d device tensor `n` to the device count of counter[key]
-    inside a capture; nothing elsewhere (the eager route counts on the
+def count_slots(counter: dict, keys):
+    """Inside a capture, what a kernel needs to add to the device counts
+    of counter[k] for each k of `keys` itself: (the counts tensor, the
+    slot of each key, whether each is a maximum: a maximum is raised, a
+    count added to); None elsewhere (the eager route counts on the
     host)."""
-    if _ACTIVE:
-        counts = _ACTIVE[-1][1]
-        c = counts[_slot(counter, key)]
-        n = n.to(counts.dtype)
-        c.copy_(torch.maximum(c, n) if _is_max(key) else c + n)
+    if not _ACTIVE:
+        return None
+    return (_ACTIVE[-1][1], [_slot(counter, k) for k in keys],
+            [_is_max(k) for k in keys])
 
 
 class CudaGraph:

@@ -4,15 +4,16 @@ light_cache): SoA, fixed capacity, on the cache's device.
 The light pass appends its stored vertices in bulk, in the JAX module's
 form: slots by an exclusive prefix sum over the valid mask, so the order
 is deterministic, and one scatter of the rows into the packed record
-buffer of the frame's collect cache (`CollectCache.append`), in place
-and with no host read, so a CUDA graph can hold it.  Each vertex keeps
+buffer of the frame's collect cache (`CollectCache.append`, on the card
+a hand-written kernel, ops/light_tail.py), in place and with no host
+read, so a CUDA graph can hold it.  Each vertex keeps
 what re-evaluating its BSDF at connection time needs (position,
 outgoing direction, shading and geometric normals, uv, material id)
 plus throughput and the dVC / dVCM / dVM partial MIS weights.
 
 Unlike the JAX module, a cache that overflows raises instead of dropping
-the rows past the capacity silently: the rows that did not fit go to a
-trash row and are counted on the device (`lost`), and the frame reads
+the rows past the capacity silently: the rows that did not fit are
+counted on the device (`lost`), and the frame reads
 that count once, after its light pass (`CollectCache.check`).  The
 renderer sizes its collect cache to hold every vertex a frame can store
 (vcm.py) and selects the working set with `select_shallowest`, so
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops import light_tail
 from ..tensors import TensorData
 
 # Columns of the (C, 24) wide record (LightVertexCache.packed).
@@ -111,7 +113,8 @@ class CollectCache(TensorData):
     """A cache appended in place: packed rows, a row count and a count of
     the rows that did not fit, all on the device."""
 
-    rec: torch.Tensor     # (C + 1, 24) packed rows; row C is the trash row
+    rec: torch.Tensor     # (C + 1, 24) packed rows; row C, the plain
+                          # append's trash row, is read by no one
     count: torch.Tensor   # () i32 rows appended
     lost: torch.Tensor    # () i32 rows that did not fit
 
@@ -122,16 +125,12 @@ class CollectCache(TensorData):
     def append(self, valid, rows: torch.Tensor):
         """Append the `valid` rows of a packed (N, 24) batch in batch
         order after the current rows, with no host read: each valid row
-        goes to slot count + (valid rows before it), a row past the
-        capacity to the trash row, where it adds to `lost`."""
-        cap = self.capacity
-        v = valid.to(torch.int32)
-        slot = self.count + (torch.cumsum(v, 0, dtype=torch.int32) - v)
-        target = torch.where(valid & (slot < cap), slot, cap)
-        self.rec.index_copy_(0, target.long(), rows)
-        total = self.count + v.sum(dtype=torch.int32)
-        self.lost.add_(torch.clamp(total - cap, min=0))
-        self.count.copy_(torch.clamp(total, max=cap))
+        goes to slot count + (valid rows before it), and a row past the
+        capacity adds to `lost` (ops/light_tail.py: on the card its
+        kernel, which writes only the rows that fit; on the CPU its plain
+        version, which sends the others to the trash row)."""
+        light_tail.collect_append(self.rec, self.count, self.lost, valid,
+                                  rows)
 
     def check(self):
         """Raise if rows did not fit (one host read)."""

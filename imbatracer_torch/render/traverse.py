@@ -43,9 +43,11 @@ the sort keys with the recentring fused in, the sorted ray rows read
 through the round's slot map, and a resolve that reads the traversal's
 sorted rows and writes each lane's hit, flags and tcur in place (the
 khit round's alpha test and K-hit pick, the re-trace's select and alpha
-test), as XLA fuses JAX's glue around its traversal calls.  The slot
-gather (torch.nonzero_static) and merge, and the library sort, stay
-torch ops.
+test), as XLA fuses JAX's glue around its traversal calls.  Around the
+graph-ready form's while loop, its slot state, merge, overflow and
+device counts are ops/dispatch.py's too (slot_gather, slot_merge,
+slot_finish); the slot indices (torch.nonzero_static) and the count of
+lanes in need, like the library sort, stay torch ops.
 """
 
 from __future__ import annotations
@@ -223,39 +225,19 @@ def retrace_slots(num_r: int, two_level: bool) -> int:
     return min(num_r, max(st.BLK, -(-num_r // div)))
 
 
-def gather_slots(need, slots: int):
+def gather_slots(need, slots: int, hit: Hit, tcur=None) -> dp.Slots:
     """The first `slots` lanes of `need`, in lane order, with no host
-    read (torch.nonzero_static): (idx (slots,) int64, each slot's lane,
-    0 for an empty slot; valid (slots,) bool; dropped, a 0-d count of
-    the `need` lanes past the slots)."""
+    read (torch.nonzero_static and the count of `need` stay library
+    calls), and their state (dispatch.slot_gather: on the card its
+    kernel)."""
     idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
-    count = need.sum()
-    valid = torch.arange(slots, device=need.device) < count
-    return idx, valid, torch.clamp(count - slots, min=0)
-
-
-def _rows(hit: Hit, idx) -> Hit:
-    return Hit(*(x[idx] for x in hit))
-
-
-def _merge_slots(idx, valid, hit: Hit, sub: Hit) -> Hit:
-    """`hit` with the lane of each valid slot taken from `sub`: one
-    scatter a field, the empty slots writing a spare row past the
-    lanes."""
-    num_r = hit.t.shape[0]
-    to = torch.where(valid, idx, num_r)
-    out = []
-    for h, s in zip(hit, sub):
-        row = torch.cat([h, h[:1]])
-        row[to] = s
-        out.append(row[:num_r])
-    return Hit(*out)
+    return dp.slot_gather(idx, need.sum(dtype=torch.int32), hit, tcur)
 
 
 def _retrace_loop(cond, body, cap: int, dev):
     """After a dispatch's first round, run body() while cond() and fewer
-    than `cap` rounds have run (graphs.while_loop), counting each round
-    and, on the device, the most rounds a dispatch ran."""
+    than `cap` rounds have run (graphs.while_loop), counting each round;
+    returns the rounds run, a 0-d device int32."""
     rounds = torch.ones((), dtype=torch.int32, device=dev)
 
     def counted():
@@ -264,19 +246,18 @@ def _retrace_loop(cond, body, cap: int, dev):
         rounds.add_(1)
 
     graphs.while_loop(lambda: cond() & (rounds < cap), counted)
-    graphs.count(MASK_STATS, "max_rounds", rounds)
+    return rounds
 
 
-def _finish(overflow, need, dropped, unresolved):
-    """Add the lanes past the slots (`dropped`) and those still
-    unresolved at the cap to `overflow` and to their counts; `need`, the
-    lanes the first round left unresolved, counts as the lanes carried
-    past it."""
-    graphs.count(MASK_STATS, "max_lanes", need.sum())
-    left = unresolved.sum()
-    graphs.count(MASK_STATS, "dropped", dropped)
-    graphs.count(MASK_STATS, "capped", left)
-    overflow.add_((dropped + left).to(overflow.dtype))
+def _finish(overflow, act, slots: dp.Slots, rounds, hit: Hit) -> Hit:
+    """After the loop (dispatch.slot_finish, slot_merge: on the card their
+    kernels): the lanes past the slots and those still unresolved at the
+    cap added to `overflow`, and inside a capture the dispatch's device
+    counts (empty, its rounds, the lanes carried past its first round,
+    dropped, capped); returns `hit` with the slots' hits merged in."""
+    dp.slot_finish(overflow, act, slots, rounds,
+                   graphs.count_slots(MASK_STATS, dp.FINISH_KEYS))
+    return dp.slot_merge(slots, hit)
 
 
 def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
@@ -295,23 +276,22 @@ def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
            if active is None else active)
     MASK_STATS["dispatches"] += 1
     MASK_STATS["rounds"] += 1
-    graphs.count(MASK_STATS, "empty", ~act.any())
     need = torch.empty(num_r, dtype=torch.bool, device=dev)
-    tcur = tmin.clone(memory_format=torch.contiguous_format)
+    # The resolve writes tcur where a lane is exhausted, and only those
+    # lanes' tcur is read after it; an inactive lane keeps its miss.
+    tcur = torch.empty(num_r, device=dev)
     hit = _miss(num_r, dev)
     disp, out = _khit_dispatch(bvh, org, d, tmin, tmax, act)
     dp.khit_resolve(disp, out, act, need, tcur, hit, alpha_fn)
-    idx, valid, dropped = gather_slots(need, retrace_slots(num_r, False))
-    s_need, s_tcur, s_hit = valid.clone(), tcur[idx], _rows(hit, idx)
+    s = gather_slots(need, retrace_slots(num_r, False), hit, tcur)
 
     def body():
-        disp, out = _khit_dispatch(bvh, org, d, tmin, tmax, s_need,
-                                   lanes=idx, tcur=s_tcur)
-        dp.khit_resolve(disp, out, s_need, s_need, s_tcur, s_hit, alpha_fn)
+        disp, out = _khit_dispatch(bvh, org, d, tmin, tmax, s.need,
+                                   lanes=s.idx, tcur=s.tcur)
+        dp.khit_resolve(disp, out, s.need, s.need, s.tcur, s.hit, alpha_fn)
 
-    _retrace_loop(s_need.any, body, KHIT_MAX_ROUNDS, dev)
-    _finish(overflow, need, dropped, s_need)
-    return _merge_slots(idx, valid, hit, s_hit)
+    rounds = _retrace_loop(s.need.any, body, KHIT_MAX_ROUNDS, dev)
+    return _finish(overflow, act, s, rounds, hit)
 
 
 def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
@@ -331,26 +311,21 @@ def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
            if active is None else active)
     MASK_STATS["dispatches"] += 1
     MASK_STATS["rounds"] += 1
-    graphs.count(MASK_STATS, "empty", ~act.any())
     hit = _hits(num_r, dev)
     retrace = torch.empty(num_r, dtype=torch.bool, device=dev)
     disp, out = _dispatch(bvh, org, d, tmin, tmax, act, False, sort)
     dp.stream_resolve(disp, out, dp.RETRACE, hit=hit, flag=retrace,
                       retrace_in=act, alpha_fn=alpha_fn)
-    idx, valid, dropped = gather_slots(retrace, retrace_slots(num_r, True))
-    s_retrace = valid.clone()
-    s_hit = _rows(hit, idx)
+    s = gather_slots(retrace, retrace_slots(num_r, True), hit)
 
     def body():
-        disp, out = _dispatch(bvh, org, d, tmin, tmax, s_retrace, False,
-                              True, lanes=idx, tcur=s_hit.t, step=True)
-        dp.stream_resolve(disp, out, dp.RETRACE, hit=s_hit, flag=s_retrace,
-                          retrace_in=s_retrace, select=True,
-                          alpha_fn=alpha_fn)
+        disp, out = _dispatch(bvh, org, d, tmin, tmax, s.need, False,
+                              True, lanes=s.idx, tcur=s.hit.t, step=True)
+        dp.stream_resolve(disp, out, dp.RETRACE, hit=s.hit, flag=s.need,
+                          retrace_in=s.need, select=True, alpha_fn=alpha_fn)
 
-    _retrace_loop(s_retrace.any, body, RETRACE_MAX_ROUNDS, dev)
-    _finish(overflow, retrace, dropped, s_retrace)
-    return _merge_slots(idx, valid, hit, s_hit)
+    rounds = _retrace_loop(s.need.any, body, RETRACE_MAX_ROUNDS, dev)
+    return _finish(overflow, act, s, rounds, hit)
 
 
 def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,

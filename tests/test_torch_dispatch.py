@@ -390,3 +390,120 @@ def test_cpu_tensors_never_build_the_kernels(big, monkeypatch):
     org, d, act, tmax = _rays(512, 1, big.bvh)
     tt.closest_hit(big.bvh, t(org), t(d), 0.0, BIG, active=t(act), sort=True)
     tt.any_hit(big.bvh, t(org), t(d), 0.0, t(tmax), active=t(act))
+
+
+# --------------------------------------------------------------------------
+# The graph-ready re-trace's slot state, merge and finish
+# --------------------------------------------------------------------------
+
+def _composite_slots(need, slots, hit, tcur):
+    """The slot gather and state as the torch composite of the graph
+    routes computed them before dispatch.slot_gather: (idx, valid,
+    dropped, need flags, tcur, hit)."""
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum()
+    valid = torch.arange(slots) < count
+    return (idx, valid, torch.clamp(count - slots, min=0), valid.clone(),
+            None if tcur is None else tcur[idx],
+            tt.Hit(*(x[idx] for x in hit)))
+
+
+def _composite_merge(idx, valid, hit, sub):
+    num_r = hit.t.shape[0]
+    to = torch.where(valid, idx, num_r)
+    out = []
+    for h, s in zip(hit, sub):
+        row = torch.cat([h, h[:1]])
+        row[to] = s
+        out.append(row[:num_r])
+    return tt.Hit(*out)
+
+
+def _composite_finish(counts, at, overflow, act, need, dropped, unresolved,
+                      rounds):
+    """The device counts (`at`: key -> slot) and the overflow as the graph
+    routes' graphs.count calls and _finish added them."""
+    def count(key, n):
+        c = counts[at[key]]
+        n = n.to(counts.dtype)
+        c.copy_(torch.maximum(c, n) if key.startswith("max_") else c + n)
+
+    count("empty", ~act.any())
+    count("max_rounds", rounds)
+    count("max_lanes", need.sum())
+    left = unresolved.sum()
+    count("dropped", dropped)
+    count("capped", left)
+    overflow.add_((dropped + left).to(overflow.dtype))
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("case", ["empty", "within", "capped", "past"])
+def test_plain_slots_match_the_composite(case, two_level):
+    """dispatch.slot_gather / slot_merge / slot_finish's plain versions
+    against the torch composite they replace, bit for bit, on seeded need
+    masks over 2048 lanes at the flat and two-level slot shares: no lane
+    active, the lanes in need within the slots, some of them left
+    unresolved at the cap, and more lanes in need than slots (dropped):
+    the slot state, the merged hit, the overflow and the device counts."""
+    n = 2048
+    slots = tt.retrace_slots(n, two_level)
+    density = {"empty": 0.0, "within": 0.6 * slots / n,
+               "capped": 0.6 * slots / n, "past": 1.5 * slots / n}[case]
+    rs = np.random.RandomState(len(case) + 10 * two_level)
+    t = torch.from_numpy
+    act = t(rs.rand(n) < (0.8 if density else 0.0))
+    need = act & t(rs.rand(n) < min(density / 0.8, 1.0))
+    hit = tt.Hit(t(rs.uniform(0, 9, n).astype(np.float32)),
+                 t(rs.randint(-1, 500, n).astype(np.int32)),
+                 t(rs.rand(n).astype(np.float32)),
+                 t(rs.rand(n).astype(np.float32)))
+    tcur = None if two_level else t(rs.uniform(0, 9, n).astype(np.float32))
+    s = tt.gather_slots(need, slots, hit, tcur)
+    idx, valid, dropped, flags, s_tcur, s_hit = _composite_slots(
+        need, slots, hit, tcur)
+    for a, b in ((s.idx, idx), (s.valid, valid), (s.need, flags),
+                 (s.dropped, dropped), *zip(s.hit, s_hit)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (s.tcur is None) == two_level
+    if not two_level:
+        np.testing.assert_array_equal(s.tcur.numpy().view(np.uint32),
+                                      s_tcur.numpy().view(np.uint32))
+    assert int(s.dropped) == (int(need.sum()) - slots if case == "past"
+                              else 0)
+    sub = tt.Hit(t(rs.uniform(0, 9, slots).astype(np.float32)),
+                 t(rs.randint(-1, 500, slots).astype(np.int32)),
+                 t(rs.rand(slots).astype(np.float32)),
+                 t(rs.rand(slots).astype(np.float32)))
+    merged = dp.slot_merge(s._replace(hit=sub), hit)
+    for a, b in zip(merged, _composite_merge(idx, valid, hit, sub)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    unresolved = valid & (t(rs.rand(slots) < 0.3) if case == "capped"
+                          else torch.zeros(slots, dtype=torch.bool))
+    rounds = torch.tensor(7 if case == "capped" else 2, dtype=torch.int32)
+    at = {k: 2 + i for i, k in enumerate(dp.FINISH_KEYS)}
+    counts0 = t(rs.randint(0, 50, 8).astype(np.int32))
+    got, want = counts0.clone(), counts0.clone()
+    dp.slot_finish(got[0], act, s._replace(need=unresolved), rounds,
+                   (got, [at[k] for k in dp.FINISH_KEYS],
+                    [k.startswith("max_") for k in dp.FINISH_KEYS]))
+    _composite_finish(want, at, want[0], act, need, dropped, unresolved,
+                      rounds)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ovf = torch.zeros((), dtype=torch.int32)
+    dp.slot_finish(ovf, act, s._replace(need=unresolved), rounds)
+    assert int(ovf) == int(dropped) + int(unresolved.sum())
+    assert int(got[at["empty"]] - counts0[at["empty"]]) == (case == "empty")
+
+
+def test_slot_binding_matches_the_kernel():
+    """FINISH_KEYS has the finish kernel's count of keys, in the order of
+    its values, and names MASK_STATS entries."""
+    with open(f"{libbuild.CSRC}/dispatch.cu") as fh:
+        src = fh.read()
+    n = re.search(r"constexpr int kFinishKeys = (\d+);", src).group(1)
+    assert int(n) == len(dp.FINISH_KEYS)
+    vals = re.search(r"vals\[kFinishKeys\] = \{([^}]*)\}", src).group(1)
+    assert [v.strip() for v in vals.split(",")] == [
+        "live == 0", "*rounds", "*count", "*dropped", "left"]
+    assert set(dp.FINISH_KEYS) <= set(tt.MASK_STATS)

@@ -56,6 +56,7 @@ from imbatracer_torch.accel.instancing import build_two_level
 from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
 from imbatracer_torch.frontend.renderer import (RenderSettings,
                                                 camera_for_scene)
+from imbatracer_torch.ops import dispatch as dp
 from imbatracer_torch.ops import khit as kh
 from imbatracer_torch.ops import stream_traverse as st
 from imbatracer_torch.render import graphs
@@ -346,17 +347,18 @@ def test_lanes_past_the_slots_overflow(two_level, monkeypatch):
 def test_gather_and_merge_slots(fill):
     rs = np.random.RandomState(int(100 * fill))
     need = torch.from_numpy(rs.rand(1000) < fill)
-    idx, valid, dropped = tt.gather_slots(need, 64)
+    hit = tt.Hit(*(torch.from_numpy(rs.rand(1000).astype(np.float32))
+                   for _ in range(4)))
+    slots = tt.gather_slots(need, 64, hit)
+    idx, valid, dropped = slots.idx, slots.valid, slots.dropped
     lanes = need.numpy().nonzero()[0]
     k = min(len(lanes), 64)
     np.testing.assert_array_equal(idx.numpy()[:k], lanes[:k])
     assert int(valid.sum()) == k and bool(valid[:k].all())
     assert int(dropped) == len(lanes) - k
-    hit = tt.Hit(*(torch.from_numpy(rs.rand(1000).astype(np.float32))
-                   for _ in range(4)))
     sub = tt.Hit(*(torch.from_numpy(rs.rand(64).astype(np.float32))
                    for _ in range(4)))
-    got = tt._merge_slots(idx, valid, hit, sub)
+    got = dp.slot_merge(slots._replace(hit=sub), hit)
     for g, h, s in zip(got, hit, sub):
         want = h.numpy().copy()
         want[lanes[:k]] = s.numpy()[:k]

@@ -4,8 +4,10 @@ instanced variant included, and csrc/khit_traverse.cu, also above the
 packing that references a triangle from several leaves; the pair
 route's kernels csrc/pairs_kernel.cu; the photon-merge gather and its
 query preparation csrc/merge_kernel.cu; the PT bounce's shading
-csrc/pt_shade.cu; the VCM family's bounce shading csrc/vcm_shade.cu)
-against their plain PyTorch versions on the same inputs.  Needs an
+csrc/pt_shade.cu; the VCM family's bounce shading csrc/vcm_shade.cu; the
+dispatch glue and the re-trace's slot kernels csrc/dispatch.cu; the
+light band's collect append and splat csrc/light_tail.cu) against their
+plain PyTorch versions on the same inputs.  Needs an
 NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
 test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
@@ -27,6 +29,9 @@ with equal counted work; the card's query rows equal prepare_queries' bit
 for bit.  The shade kernels' flags, RNG state and counts equal the plain
 versions', their float columns within 1e-5 * max(1, |x|) on >= 99.9% of
 the lanes (bit for bit expected: they round each op as torch does).
+The slot kernels and the collect append are bit-equal to their plain
+versions; the splat adds with atomics, as index_add_ does, so a film
+agrees within the rounding of its sums' order.
 """
 
 from functools import partial
@@ -1604,3 +1609,289 @@ def test_cuda_dispatch_input_checks(cuda_device):
     with pytest.raises(ValueError):
         dp.stream_resolve_cuda(disp, rows, dp.CLOSEST, hit=tt.Hit(
             hit.t, hit.prim_id.long(), hit.u, hit.v))
+
+
+# --------------------------------------------------------------------------
+# The light band's tail (csrc/light_tail.cu) and the re-trace's slot
+# kernels (csrc/dispatch.cu)
+# --------------------------------------------------------------------------
+
+def _staged_rows(n, seed, dev, share=0.3):
+    """A band's staged rows: (valid (n,), rows (n, 24), contrib (n, 3),
+    pixel (n,) with -1 on about a third)."""
+    rs = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(rs.rand(n) < share), t(rs.randn(n, 24).astype(np.float32)),
+            t(rs.uniform(0.0, 2.0, (n, 3)).astype(np.float32)),
+            t(np.where(rs.rand(n) < 0.35, -1,
+                       rs.randint(0, 500, n)).astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "partial", "overflow", "full",
+                                  "none_valid"])
+def test_cuda_light_tail_append_matches_plain(cuda_device, case):
+    """collect_append_cuda against collect_append_plain from the same
+    seeded buffer: rec[:C], count and lost bit-equal, the rows that do
+    not fit counted in lost, CollectCache.check raising exactly then, and
+    row C (the plain version's trash row) never written by the kernel."""
+    from imbatracer_torch.ops import light_tail as lt
+    from imbatracer_torch.render.light_cache import CollectCache
+
+    valid, rows, _, _ = _staged_rows(5000, 1, cuda_device,
+                                     0.0 if case == "none_valid" else 0.3)
+    nvalid = int(valid.sum())
+    cap, count0 = {"empty": (8000, 0), "partial": (8000, 3000),
+                   "overflow": (2000, 1000), "full": (1500, 1500),
+                   "none_valid": (100, 40)}[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    rec0 = torch.randn((cap + 1, 24), generator=gen, device=cuda_device)
+
+    def state():
+        return CollectCache(rec0.clone(), torch.full(
+            (), count0, dtype=torch.int32, device=cuda_device),
+            torch.zeros((), dtype=torch.int32, device=cuda_device))
+
+    a, b = state(), state()
+    before = lt.LAUNCHES["collect_append"]
+    lt.collect_append(a.rec, a.count, a.lost, valid, rows)
+    assert lt.LAUNCHES["collect_append"] == before + 1
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows)
+    assert torch.equal(a.rec[:cap], b.rec[:cap])
+    assert torch.equal(a.rec[cap], rec0[cap])
+    assert int(a.count) == int(b.count) == min(count0 + nvalid, cap)
+    lost = max(count0 + nvalid - cap, 0)
+    assert int(a.lost) == int(b.lost) == lost
+    if lost:
+        with pytest.raises(RuntimeError, match="overflow"):
+            a.check()
+    else:
+        a.check()
+
+
+@pytest.mark.cuda
+def test_cuda_light_tail_splat_matches_plain(cuda_device):
+    """splat_cuda against splat_plain: a fresh film, the rows without a
+    pixel dropped.  Both add ~260 contributions a pixel with atomics, in
+    orders of their own, so a pixel may differ by a few hundred float32
+    roundings: within 1e-4 relative, the film's sum within 1e-5."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    _, _, contrib, pixel = _staged_rows(200_000, 2, cuda_device)
+    k = lt.splat(contrib, pixel, 500)
+    p = lt.splat_plain(contrib, pixel, 500)
+    assert k.shape == (500, 3)
+    np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(float(k.double().sum()), float(
+        contrib[pixel >= 0].double().sum()), rtol=1e-5)
+    assert float(lt.splat(contrib, torch.full_like(pixel, -1), 500).abs()
+                 .max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_light_tail_follows_the_light_pass(cuda_device, monkeypatch):
+    """A light pass on the card through the kernels against the same pass
+    with the plain versions in their place: the collect cache's rows and
+    count bit-equal, its film within rounding."""
+    from imbatracer_torch.ops import light_tail as lt
+    from imbatracer_torch.render import light_cache
+    from imbatracer_torch.render.integrators import pt, vcm
+    from imbatracer_torch.scene.procedural import make_still_life_like
+
+    scene, meta = make_still_life_like(num_objects=40, num_cards=16,
+                                       device=cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device)
+
+    def run():
+        collect = light_cache.empty_collect(VCM_LPC * VCM_MAX_LEN,
+                                            cuda_device)
+        film = vcm._light_pass(
+            scene, cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm, collect,
+            algo="vcm", num_pixels=VCM_SIZE ** 2, light_path_count=VCM_LPC,
+            max_len=VCM_MAX_LEN, alpha_fn=pt.alpha_fn_for(scene),
+            has_bump=meta.has_bump)
+        return collect, film
+
+    lt.reset_launches()
+    ck, fk = run()
+    assert lt.LAUNCHES["collect_append"] == lt.LAUNCHES["splat"] == 1
+    monkeypatch.setattr(lt, "collect_append_cuda", lt.collect_append_plain)
+    monkeypatch.setattr(lt, "splat_cuda", lt.splat_plain)
+    cp, fp = run()
+    assert int(ck.count) == int(cp.count) > 0 and int(ck.lost) == 0
+    assert torch.equal(ck.rec[:-1], cp.rec[:-1])
+    # Both splats add with atomics: a pixel's few sums within rounding.
+    fp = fp.cpu().numpy()
+    np.testing.assert_allclose(fk.cpu().numpy(), fp, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(fp).max()))
+
+
+@pytest.mark.cuda
+def test_cuda_light_tail_input_checks(cuda_device):
+    """The wrappers raise on tensors off the card, of another type or
+    shape."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    valid, rows, contrib, pixel = _staged_rows(64, 3, cuda_device)
+    rec = torch.zeros((101, 24), device=cuda_device)
+    count = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        lt.collect_append_cuda(rec, count, count.clone(), valid.cpu(), rows)
+    with pytest.raises(ValueError):
+        lt.collect_append_cuda(rec, count.long(), count.clone(), valid, rows)
+    with pytest.raises(ValueError):
+        lt.collect_append_cuda(rec, count, count.clone(), valid, rows[:, :20])
+    with pytest.raises(ValueError):
+        lt.splat_cuda(contrib, pixel.long(), 500)
+    with pytest.raises(ValueError):
+        lt.splat_cuda(contrib.double(), pixel, 500)
+
+
+def _slot_case(case, dev):
+    """(active, need, slots, hit, tcur) of a slot test over 3000 lanes."""
+    rs = np.random.RandomState(len(case))
+    n = 3000
+    t = lambda a: torch.from_numpy(a).to(dev)
+    density, slots, with_tcur = {"empty": (0.0, 128, True),
+                                 "within": (0.03, 128, True),
+                                 "past": (0.1, 128, True),
+                                 "two_level": (0.2, 750, False),
+                                 "two_level_past": (0.3, 750, False)}[case]
+    act = rs.rand(n) < (0.8 if density else 0.0)
+    need = act & (rs.rand(n) < density / 0.8)
+    hit = tt.Hit(t(rs.uniform(0, 9, n).astype(np.float32)),
+                 t(rs.randint(-1, 500, n).astype(np.int32)),
+                 t(rs.rand(n).astype(np.float32)),
+                 t(rs.rand(n).astype(np.float32)))
+    tcur = t(rs.uniform(0, 9, n).astype(np.float32)) if with_tcur else None
+    return t(act), t(need), slots, hit, tcur
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "within", "past", "two_level",
+                                  "two_level_past"])
+def test_cuda_slot_kernels_match_plain(cuda_device, case):
+    """slot_gather, slot_merge and slot_finish against their plain versions
+    bit for bit: the slot state and dropped count from nonzero_static's
+    indices, seeded slot hits merged into a copy of the lanes' hits, the
+    overflow (slot 0 of a seeded counts vector) and the device counts of
+    FINISH_KEYS with a seeded share of the slots left unresolved."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    act, need, slots, hit, tcur = _slot_case(case, cuda_device)
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum(dtype=torch.int32)
+    dp.reset_launches()
+    k = dp.slot_gather(idx, count, hit, tcur)
+    p = dp.slot_gather_plain(idx, count, hit, tcur)
+    for x, y in zip(k[1:4] + tuple(k.hit) + k[5:],
+                    p[1:4] + tuple(p.hit) + p[5:]):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert int(k.dropped) == max(int(count) - slots, 0)
+    rs = np.random.RandomState(7)
+    sub = tt.Hit(*(torch.from_numpy(a).to(cuda_device) for a in (
+        rs.uniform(0, 9, slots).astype(np.float32),
+        rs.randint(-1, 500, slots).astype(np.int32),
+        rs.rand(slots).astype(np.float32),
+        rs.rand(slots).astype(np.float32))))
+    s = k._replace(hit=sub)
+    own = tt.Hit(*(x.clone() for x in hit))
+    got = dp.slot_merge(s, own)
+    assert all(x is y for x, y in zip(got, own))        # in place
+    for x, y in zip(got, dp.slot_merge_plain(s, hit)):
+        assert torch.equal(x, y)
+    left = s._replace(need=k.valid & torch.from_numpy(
+        rs.rand(slots) < 0.5).to(cuda_device))
+    rounds = torch.tensor(5, dtype=torch.int32, device=cuda_device)
+    counts0 = torch.from_numpy(rs.randint(0, 100, 9).astype(np.int32)).to(
+        cuda_device)
+    where = (list(range(3, 3 + len(dp.FINISH_KEYS))),
+             [key.startswith("max_") for key in dp.FINISH_KEYS])
+    for with_counts in (True, False):
+        ck, cp = counts0.clone(), counts0.clone()
+        dp.slot_finish(ck[0], act, left, rounds,
+                       (ck,) + where if with_counts else None)
+        dp.slot_finish_plain(cp[0], act, left, rounds,
+                             (cp,) + where if with_counts else None)
+        assert torch.equal(ck, cp)
+    assert int(ck[0]) == int(counts0[0]) + int(k.dropped) + int(
+        left.need.sum())
+    assert dp.LAUNCHES["slot_gather"] == dp.LAUNCHES["slot_merge"] == 1
+    assert dp.LAUNCHES["slot_finish"] == 2
+    # The plain versions ran only where this test called them.
+    assert dp.LAUNCHES["slot_gather_plain"] == 1
+    assert dp.LAUNCHES["slot_merge_plain"] == 1
+    assert dp.LAUNCHES["slot_finish_plain"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True])
+def test_cuda_slot_counts_follow_the_replay(cuda_device, two_level,
+                                            monkeypatch):
+    """A captured masked closest hit over 9 stacked masked layers, replayed
+    with some lanes active and with none: the slot kernels' device counts
+    (the most rounds and lanes carried past the first, the empty
+    dispatches, dropped and capped) equal the eager route's host counts,
+    and the overflow counter stays 0."""
+    from imbatracer_torch.render import graphs
+
+    monkeypatch.setattr(tt, "RETRACE_SLOT_DIV" if two_level
+                        else "KHIT_SLOT_DIV", 1)
+    bvh, alpha = _layer_scene(9, two_level, cuda_device)
+    org, d, act = _layer_rays(9, 1024, 0, cuda_device)
+    state = dict(org=org.clone(), d=d.clone(), act=act.clone(),
+                 t=torch.empty_like(org[:, 0]))
+
+    def step(s, overflow):
+        s["t"].copy_(tt.closest_hit(bvh, s["org"], s["d"], 0.0, BIG,
+                                    alpha_fn=alpha, active=s["act"],
+                                    sort=True, overflow=overflow).t)
+
+    sg = graphs.SceneGraphs(cuda_device)
+    g = sg.phase("slots", step, state)
+    keys = ("max_rounds", "max_lanes", "empty", "dropped", "capped")
+    for none in (False, True):
+        a = torch.zeros_like(act) if none else act
+        state["act"].copy_(a)
+        for k in tt.MASK_STATS:
+            monkeypatch.setitem(tt.MASK_STATS, k, 0)
+        want = tt.closest_hit(bvh, org, d, 0.0, BIG, alpha_fn=alpha,
+                              active=a, sort=True)
+        eager = {k: tt.MASK_STATS[k] for k in keys}
+        for k in tt.MASK_STATS:
+            tt.MASK_STATS[k] = 0
+        sg.counts.zero_()
+        g.replay()
+        values = sg.counts.tolist()
+        assert values[0] == 0
+        graphs.add_device_counts(values)
+        got = {k: tt.MASK_STATS[k] for k in keys}
+        if none:       # the graph's first round ran: one round, no lane
+            eager["max_rounds"] = 1
+        assert got == eager
+        assert torch.equal(state["t"], want.t)
+
+
+@pytest.mark.cuda
+def test_cuda_slot_input_checks(cuda_device):
+    """The slot wrappers raise on tensors off the card or of another
+    type."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    act, need, slots, hit, tcur = _slot_case("within", cuda_device)
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum(dtype=torch.int32)
+    with pytest.raises(ValueError):
+        dp.slot_gather_cuda(idx.int(), count, hit, tcur)
+    with pytest.raises(ValueError):
+        dp.slot_gather_cuda(idx, count.long(), hit, tcur)
+    with pytest.raises(ValueError):
+        dp.slot_gather_cuda(idx, count, hit, tcur.cpu())
+    s = dp.slot_gather_cuda(idx, count, hit, tcur)
+    with pytest.raises(ValueError):
+        dp.slot_merge_cuda(s, tt.Hit(hit.t, hit.prim_id.long(), hit.u,
+                                     hit.v))
+    with pytest.raises(ValueError):
+        dp.slot_finish_cuda(torch.zeros((), dtype=torch.int64,
+                                        device=cuda_device), act, s,
+                            count.clone())
