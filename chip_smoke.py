@@ -124,6 +124,24 @@ failure raises and the script exits non-zero:
    alone beside its plain version, its bound and, for the append and
    the splat, one library call (index_copy_, index_add_), and the
    kernels' registers, spills and resident blocks.
+4f. The frame's middle vs plain: csrc/select.cu (ops/select.py:
+   select_keys_kernel in both modes and widths, select_gather_kernel with
+   its box) and csrc/grid_build.cu (ops/merge.py: grid_keys_kernel,
+   grid_tiles_kernel) against their plain versions on the same CUDA
+   tensors, on the still life's collect cache from a real light pass at
+   1920x1080 with VCM_LPC light paths (`[middle]` lines): the admission
+   keys of the valid rows (32- and 64-bit), the canonical keys of the
+   kept rows through the first sort's order, the working cache's rows
+   (zero past the kept ones), the photon grid's keys, bbox_min,
+   inv_cell, tiles and padded keys -- elements not bit-equal, which must
+   be 0 -- and the box against the kept rows' min and max; the same rows
+   cut to half their count, a canonical order alone (no cut) and an
+   empty cache too.  Each kernel timed alone
+   (device time of graphed launches) beside its plain version, its bound
+   (the bytes the function moves) and, for the gather, one library
+   index_select of the composed order; the whole middle through the
+   kernels and through the plain versions, and its peak memory; the
+   kernels' registers, spills and resident blocks.
 5. Main paths, each with every launch counter set to 0 just before its
    timed frames and read just after them: (a) make_frame_fn +
    ProgressiveRenderer.step() for 3 frames of make_big_scene(4000) at
@@ -137,7 +155,9 @@ failure raises and the script exits non-zero:
    and vcm paths and stream_resolve on the instanced ones, and the three
    slot kernels once each a masked dispatch on those graphed masked
    paths; no resolve may take opaque flags: the mask record's test runs
-   in the kernel; the vcm paths launch the collect append and splat);
+   in the kernel; the vcm paths launch the collect append and splat,
+   and the frame's middle kernels: the selection's on every path with a
+   collect cache, the grid's on vcm and ppm);
    (c) the
    still-life proxy (alpha masks + env map) at 1920x1080, spp 1,
    max_len 8: one warm-up frame, reset(), 8 frames, as the JAX package's
@@ -497,6 +517,20 @@ REPLACES = {
     "slot_finish": "imbatracer_tpu/render/traverse.py:281-283, :356-358 "
                    "(the while loops' exit under MASK_MAX_ROUNDS); "
                    "XLA-fused; no pallas_call",
+    "select_keys": "imbatracer_tpu/render/light_cache.py:179-184, "
+                   ":209-218 (select_shallowest's and canonicalize's sort "
+                   "keys, jitted :165, :197, called at render/integrators/"
+                   "vcm.py:1478-1482); XLA; no pallas_call",
+    "select_gather": "imbatracer_tpu/render/light_cache.py:185-194, "
+                     ":219-227 (their gathers of the packed rows); XLA; no "
+                     "pallas_call",
+    "grid_keys": "imbatracer_tpu/ops/pallas_merge.py:143-166 "
+                 "(build_merge_grid's box, cell size and keys, jitted :135,"
+                 " called at render/integrators/vcm.py:1105-1107); XLA; no "
+                 "pallas_call",
+    "grid_tiles": "imbatracer_tpu/ops/pallas_merge.py:171-198 "
+                  "(build_merge_grid's gathers, concatenation, padding and "
+                  "transposition into tiles); XLA; no pallas_call",
 }
 # The same functions when their glue was torch ops (the route's candidates,
 # queue and resolve; merge_contrib's query preparation and un-permutation),
@@ -676,6 +710,7 @@ def reset_counters():
     from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import select as sel
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.ops import vcm_shade as vs
@@ -683,6 +718,7 @@ def reset_counters():
     from imbatracer_torch.render import traverse as tt
 
     st.reset_launches()
+    sel.reset_launches()
     dp.reset_launches()
     lt.reset_launches()
     kh.reset_launches()
@@ -701,6 +737,7 @@ def counters():
     from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import select as sel
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.ops import vcm_shade as vs
@@ -709,6 +746,8 @@ def counters():
 
     got = {k: v for k, v in st.LAUNCHES.items() if k not in st.PLAIN_KEYS}
     got.update({k: lt.LAUNCHES[k] for k in lt.KERNELS})
+    got.update({k: sel.LAUNCHES[k] for k in sel.KERNELS})
+    got.update({k: mg.LAUNCHES[k] for k in mg.GRID_KERNELS})
     got.update({f"pairs_{k}": v for k, v in pm.LAUNCHES.items()
                 if k not in pm.PLAIN_KEYS})
     got.update({k: v for k, v in dp.LAUNCHES.items()
@@ -726,6 +765,7 @@ def counters():
                 vcm_shade_plain=sum(vs.LAUNCHES[k] for k in vs.PLAIN_KEYS),
                 dispatch_plain=sum(dp.LAUNCHES[k] for k in dp.PLAIN_KEYS),
                 light_tail_plain=sum(lt.LAUNCHES[k] for k in lt.PLAIN_KEYS),
+                select_plain=sum(sel.LAUNCHES[k] for k in sel.PLAIN_KEYS),
                 fallback_dispatches=pm.FALLBACK["dispatches"],
                 fallback_rays=pm.FALLBACK["rays"], **tt.MASK_STATS,
                 **{f"graph_{k}": v for k, v in graphs.GRAPH_STATS.items()})
@@ -735,11 +775,12 @@ def plain_runs(got):
     """Calls of any plain version (stream, candidate stage, khit, the
     merge and its preparation, every step of the pair route, the PT
     shading and its finish, the VCM bounces' shading and finishes, the
-    dispatch glue and the re-trace's slots, the light band's tail)."""
+    dispatch glue and the re-trace's slots, the light band's tail, the
+    frame's middle: the selection, and the grid with the merge)."""
     return (got["stream_plain"] + got["candidates_plain"] + got["khit_plain"]
             + got["merge_plain"] + got["pairs_plain"] + got["shade_plain"]
             + got["vcm_shade_plain"] + got["dispatch_plain"]
-            + got["light_tail_plain"])
+            + got["light_tail_plain"] + got["select_plain"])
 
 
 def hold_dispatch_launches(label, got, resolve, slots=False):
@@ -771,25 +812,30 @@ def hold_slot_launches(label, got):
 
 
 def hold_vcm_shade_launches(label, got, algo):
-    """A VCM-family main path's shade launches: every kernel its algorithm
-    runs (the light band's start, bounce and connection finish, its tail's
-    collect append and splat, the camera bounce and its shadow sets'
-    finish) launched, and no plain version."""
+    """A VCM-family main path's shade and middle launches: every kernel
+    its algorithm runs (the light band's start, bounce and connection
+    finish, its tail's collect append and splat, the frame's middle --
+    the selection's keys and gather, the photon grid's keys and tiles --
+    the camera bounce and its shadow sets' finish) launched, and no plain
+    version."""
     need = []
     if algo != "pt":
         need += ["vcm_light_start", "vcm_light_shade"]
         if algo != "ppm":
             need += ["vcm_light_finish", "splat"]
         if algo != "lt":
-            need.append("collect_append")
+            need += ["collect_append", "select_keys", "select_gather"]
+        if algo in ("vcm", "ppm"):
+            need += ["grid_keys", "grid_tiles"]
     if algo != "lt":
         need.append("vcm_camera_shade")
         if algo != "ppm":
             need.append("vcm_camera_finish")
     missing = [k for k in need if not got[k]]
-    if missing or got["vcm_shade_plain"]:
-        raise AssertionError(f"{label}: the VCM shade kernels {missing} did "
-                             f"not launch, or {got['vcm_shade_plain']} plain "
+    plain = got["vcm_shade_plain"] + got["select_plain"]
+    if missing or plain:
+        raise AssertionError(f"{label}: the VCM shade and middle kernels "
+                             f"{missing} did not launch, or {plain} plain "
                              f"versions ran")
 
 
@@ -1416,7 +1462,6 @@ def hold_vcm_light(label, scene, meta, cam, fi, lpc, max_len, bounce, card,
     at light bounce `bounce` (with `start_too`, the band's start first,
     padded: its band end a pointer short of the band)."""
     from imbatracer_torch.ops import vcm_shade as vs
-    from imbatracer_torch.render.light_cache import _INT_COLS as INT_COLS
     from imbatracer_torch.render.traverse import any_hit
 
     dev = cam.pos.device
@@ -1496,9 +1541,9 @@ def hold_vcm_light(label, scene, meta, cam, fi, lpc, max_len, bounce, card,
              dict(lanes=NUM_RAYS), card, stats)
 
 
-def vcm_working_cache(scene, meta, cam, fi, lpc, cap, max_len):
-    """`fi` with the working cache of the frame's light pass (the
-    renderer's eager route, through the kernels) and its photon grid."""
+def vcm_collect(scene, meta, cam, fi, lpc, max_len):
+    """The collect cache of the frame's light pass (the renderer's eager
+    route, through the kernels) and its count."""
     from imbatracer_torch.ops import vcm_shade as vs
     from imbatracer_torch.render import light_cache
     from imbatracer_torch.render.integrators import pt, vcm
@@ -1513,8 +1558,18 @@ def vcm_working_cache(scene, meta, cam, fi, lpc, cap, max_len):
         has_bump=meta.has_bump, techniques=vs.TECHNIQUES)
     for start in range(0, lpc, vcm.BAND_RAYS):
         band(start, min(vcm.BAND_RAYS, lpc - start))
-    collect.check()
-    cache = light_cache.select_shallowest(collect.cache(), cap)
+    return collect, collect.check()
+
+
+def vcm_working_cache(scene, meta, cam, fi, lpc, cap, max_len):
+    """`fi` with the working cache of the frame's light pass and its
+    photon grid, as the frame selects and builds them."""
+    from imbatracer_torch.render import light_cache
+    from imbatracer_torch.render.integrators import vcm
+
+    collect, count = vcm_collect(scene, meta, cam, fi, lpc, max_len)
+    cache = light_cache.select_shallowest(
+        collect.cache(), cap, count=count, **vcm.key_bounds(lpc, max_len))
     return vcm.working_cache(fi, cache, vcm.photon_grid(cache, fi.pm_radius),
                              None, ())
 
@@ -1891,6 +1946,7 @@ def dispatch_phase(dev, card, scenes, stats):
 # valid, its lane index and hit (24 B) and writes its lane's hit (16 B);
 # the finish reads every active and unresolved flag (1 B each) and three
 # counts and writes the overflow and five counts.
+INT_COLS = (14, 21, 22)       # mat_id, path_length, path_id of a cache row
 SLOT_KERNELS = ("slot_gather", "slot_merge", "slot_finish")
 TAIL_KERNELS = ("collect_append", "splat")
 
@@ -2218,6 +2274,224 @@ def tail_phase(dev, card, scenes, stats):
         log_resources(f"{k} kernel", dp.resources(k), card)
 
 
+MIDDLE_KERNELS = ("select_keys", "select_gather", "grid_keys", "grid_tiles")
+
+
+def hold_middle(label, name, pairs, card):
+    """`[middle]`: the elements of each (kernel output, plain output) pair
+    not bit-equal, which must be 0 (a pair of other shapes or types:
+    every element)."""
+    bad = sum(bit_mismatches(k.contiguous(), p.contiguous())
+              if k.shape == p.shape and k.dtype == p.dtype
+              else max(k.numel(), p.numel(), 1) for k, p in pairs)
+    log(f"[middle] {name}, {label}: elements not bit-equal to the plain "
+        f"version: {bad} [{card}]")
+    if bad:
+        raise AssertionError(f"[middle] {name}, {label}: the kernel "
+                             f"disagrees with its plain version")
+
+
+def time_middle(name, label, launch, plain, nbytes, card, stats,
+                library=None, detail=""):
+    """`[time]` of one middle kernel: its device time over 10 graphed
+    launches (graph_ms), its plain version (3 calls), its bytes bound
+    and, with `library`, one library call of the same function; the
+    first cell's times go to `stats`."""
+    ms = graph_ms(launch)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = None if library is None else cuda_ms(library, 3)
+    bound_ms, bound_by = shade_bound(nbytes, 0)
+    lib = "" if library is None else f", library {library_ms:.4f} ms"
+    log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
+        f"(device, graphed launches; plain {plain_ms:.3f} ms{lib}, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {nbytes} bytes{detail})")
+    stats.setdefault(name, (ms, None, (bound_ms, bound_by,
+                                       dict(bytes=nbytes))))
+    stats.setdefault(f"{name}_plain_ms", plain_ms)
+    stats.setdefault(f"{name}_library_ms", library_ms)
+    stats.setdefault(f"{name}_err", 0.0)
+
+
+def hold_selection(label, rec, n, cap, bounds, card, stats, timed):
+    """The selection's kernels against their plain versions on the first
+    n (valid) rows of the packed collect rows `rec`: the admission keys
+    in both widths, the canonical keys of the kept rows, the gather's
+    rows (zero past the kept ones) and its box; returns the working
+    cache (LightVertexCache, with the card's box).  With `timed`, each
+    kernel's `[time]` line."""
+    from imbatracer_torch.ops import select as sel
+    from imbatracer_torch.render.light_cache import LightVertexCache
+
+    b1 = sel.key_bits(bounds["lengths"], bounds["paths"])
+    b2 = sel.key_bits(bounds["paths"], bounds["lengths"])
+    order1, kept, rows = None, n, rec.shape[0]
+    if cap < rec.shape[0]:
+        pairs = [(sel.select_keys_cuda(rec, n, None, sel.SHALLOW, b),
+                  sel.select_keys_plain(rec, n, None, sel.SHALLOW, b))
+                 for b in (b1, None)]
+        hold_middle(label, f"admission keys ({b1}-bit minor and 64-bit)",
+                    pairs, card)
+        order1 = torch.sort(pairs[0][0], stable=True)[1][:cap]
+        kept, rows = min(n, cap), cap
+    k2 = sel.select_keys_cuda(rec, kept, order1, sel.CANONICAL, b2)
+    hold_middle(label, "canonical keys of the kept rows", [(k2, (
+        sel.select_keys_plain(rec, kept, order1, sel.CANONICAL, b2)))], card)
+    order2 = torch.sort(k2, stable=True)[1]
+    out, box = sel.select_gather_cuda(rec, order1, order2, rows)
+    ref, _ = sel.select_gather_plain(rec, order1, order2, rows)
+    hold_middle(label, "gathered rows", [(out, ref)], card)
+    got, want = sel.box_floats(box), sel.box_plain(ref, kept)
+    log(f"[middle] box, {label}: {got.tolist()} (plain min and max "
+        f"{want.tolist()}); rows past the kept {kept} all zero "
+        f"{not bool(out[kept:].any())} [{card}]")
+    if not torch.equal(got, want) or bool(out[kept:].any()):
+        raise AssertionError(f"[middle] box, {label}: the gather's box or "
+                             f"its rows past the kept ones are wrong")
+    if timed:
+        nk, i64 = 4 if b1 is not None else 8, 8
+        time_middle("select_keys", f"{label}, admission keys of {n} rows",
+                    lambda: sel.select_keys_cuda(rec, n, None, sel.SHALLOW,
+                                                 b1),
+                    lambda: sel.select_keys_plain(rec, n, None, sel.SHALLOW,
+                                                  b1),
+                    n * (8 + nk), card, stats)
+        time_middle("select_keys", f"{label}, canonical keys of {kept} "
+                    f"kept rows", lambda: sel.select_keys_cuda(
+                        rec, kept, order1, sel.CANONICAL, b2),
+                    lambda: sel.select_keys_plain(rec, kept, order1,
+                                                  sel.CANONICAL, b2),
+                    kept * (i64 + 8 + nk), card, {})
+        src = order2 if order1 is None else order1[order2]
+        time_middle("select_gather", f"{label}, {kept} kept rows of {rows}",
+                    lambda: sel.select_gather_cuda(rec, order1, order2, rows),
+                    lambda: sel.select_gather_plain(rec, order1, order2,
+                                                    rows),
+                    kept * (2 * i64 + 96) + rows * 96 + 24, card, stats,
+                    library=lambda: torch.index_select(rec, 0, src),
+                    detail="; library: index_select of the composed order")
+    count = torch.tensor(kept, dtype=torch.int32, device=rec.device)
+    return LightVertexCache(out, count, box)
+
+
+def hold_grid(label, cache, radius, card, stats, timed):
+    """The grid's kernels against their plain versions on a working
+    cache: keys, bbox_min, inv_cell, radius_sqr, then (the same sort)
+    tiles and padded keys, every element bit-equal."""
+    from imbatracer_torch.ops import merge as mg
+
+    rec, count = cache.rec, cache.count
+    rows = rec.shape[0]
+    valid = torch.arange(rows, device=rec.device) < count
+    key, bmin, inv, r2 = mg.grid_keys_cuda(rec, count, cache.box, radius)
+    pkey, pbmin, pinv = mg.grid_keys_plain(cache.pos, valid, radius)
+    hold_middle(label, "grid keys, bbox_min, inv_cell, radius_sqr",
+                [(key, pkey), (bmin, pbmin), (inv, pinv),
+                 (r2, radius * radius)], card)
+    ks, order = torch.sort(key, stable=True)
+    cols = (cache.pos, valid, cache.w_out, cache.throughput, cache.d_vcm,
+            cache.d_vm)
+    tiles, keys = mg.grid_tiles_cuda(rec, count, ks, order)
+    ptiles, pkeys = mg.grid_tiles_plain(ks, order, *cols)
+    hold_middle(label, "grid tiles and padded keys",
+                [(tiles, ptiles), (keys, pkeys)], card)
+    if not timed:
+        return
+    n = int(count)
+    time_middle("grid_keys", f"{label}, {n} photons of {rows}",
+                lambda: mg.grid_keys_cuda(rec, count, cache.box, radius),
+                lambda: mg.grid_keys_plain(cache.pos, valid, radius),
+                n * 12 + rows * 4 + 24 + 20, card, stats)
+    time_middle("grid_tiles", f"{label}, {tiles.shape[0]} tiles",
+                lambda: mg.grid_tiles_cuda(rec, count, ks, order),
+                lambda: mg.grid_tiles_plain(ks, order, *cols),
+                rows * (8 + 4 + 48) + tiles.numel() * 4 + keys.numel() * 4,
+                card, stats)
+
+
+def middle_phase(dev, card, scenes, stats):
+    """Phase 4f: the frame's middle kernels against their plain versions
+    on the still life's collect cache from a real light pass at
+    1920x1080 with VCM_LPC light paths (the frame's selection to its
+    working capacity), on the same rows cut to half their count and
+    canonicalised without a cut, and on an empty cache; each kernel timed on the first; the whole middle through
+    the kernels and through the plain versions, with peak memory; the
+    kernels' resources."""
+    from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import select as sel
+    from imbatracer_torch.render import light_cache
+    from imbatracer_torch.render.integrators import vcm
+
+    phase("4f the frame's middle: selection and photon grid kernels vs "
+          "plain")
+    scene, meta = scenes["still_life"]
+    cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    collect, n = vcm_collect(scene, meta, cam, fi, lpc, 8)
+    rec = collect.cache().rec
+    bounds = vcm.key_bounds(lpc, 8)
+    label = (f"still_life 1920x1080, {n} collected of {rec.shape[0]} rows, "
+             f"capacity {cap}")
+    cache = hold_selection(label, rec, n, cap, bounds, card, stats,
+                           timed=True)
+    hold_grid(label, cache, fi.pm_radius, card, stats, timed=True)
+    half = hold_selection(f"{label}, cut to {n // 2}", rec, n, n // 2,
+                          bounds, card, stats, timed=False)
+    hold_grid(f"{label}, cut to {n // 2}", half, fi.pm_radius, card, stats,
+              timed=False)
+    whole = hold_selection(f"{label}, canonical order alone", rec, n,
+                           rec.shape[0], bounds, card, stats, timed=False)
+    del half, whole
+    empty = hold_selection("an empty cache", rec, 0, cap, bounds, card, stats,
+                           timed=False)
+    hold_grid("an empty cache", empty, fi.pm_radius, card, stats,
+              timed=False)
+
+    def kernels():
+        c = light_cache.select_shallowest(collect.cache(), cap, count=n,
+                                          **bounds)
+        return vcm.photon_grid(c, fi.pm_radius)
+
+    def plain():
+        b1 = sel.key_bits(bounds["lengths"], bounds["paths"])
+        b2 = sel.key_bits(bounds["paths"], bounds["lengths"])
+        o1 = torch.sort(sel.select_keys_plain(rec, n, None, sel.SHALLOW, b1),
+                        stable=True)[1][:cap]
+        kept = min(n, cap)
+        o2 = torch.sort(sel.select_keys_plain(rec, kept, o1, sel.CANONICAL,
+                                              b2), stable=True)[1]
+        rows, _ = sel.select_gather_plain(rec, o1, o2, cap)
+        valid = torch.arange(cap, device=dev) < kept
+        return mg.build_merge_grid(rows[:, 0:3], valid, fi.pm_radius,
+                                   rows[:, 3:6], rows[:, 15:18], rows[:, 19],
+                                   rows[:, 20])
+
+    got, want = kernels(), plain()
+    hold_middle(label, "the whole middle (kernels) against the plain route",
+                [(getattr(got, k), getattr(want, k))
+                 for k in ("tiles", "keys", "bbox_min", "inv_cell",
+                           "radius_sqr")], card)
+    del got, want
+    peaks = {}
+    for name, fn in (("kernels", kernels), ("plain", plain)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        peaks[name] = (cuda_ms(fn, 3),
+                       (torch.cuda.max_memory_allocated() - held) / 2**20)
+    ms = peaks["kernels"][0]
+    log(f"[middle] the whole middle, {label} [{card}]: through the kernels "
+        f"and the library sorts {ms:.3f} ms, peak {peaks['kernels'][1]:.1f} "
+        f"MiB above the frame's; the plain versions on the card "
+        f"{peaks['plain'][0]:.3f} ms, peak {peaks['plain'][1]:.1f} MiB "
+        f"(CUDA events, 3 calls)")
+    stats["middle_ms"] = ms
+    for k in ("keys32", "keys64", "gather"):
+        log_resources(f"select {k} kernel", sel.resources(k), card)
+    for k in ("keys", "tiles"):
+        log_resources(f"grid {k} kernel", mg.grid_resources(k), card)
+    del collect, rec, cache, empty
+    torch.cuda.empty_cache()
+
+
 def delta_light_cornell(dev):
     """The cornell with a point, a spot and a directional light beside its
     triangle light (tests/torch_shade_cases.py's delta lights)."""
@@ -2347,7 +2621,10 @@ TRACED_KERNELS = ("set_conditional", "dispatch_keys_kernel",
                   "stream_resolve_kernel", "slot_gather_kernel",
                   "slot_merge_kernel", "slot_finish_kernel",
                   "collect_append_kernel", "collect_tail_kernel",
-                  "splat_kernel", "DeviceRadixSort", "CatArrayBatchedCopy",
+                  "splat_kernel", "select_keys_kernel",
+                  "select_gather_kernel", "grid_keys_kernel",
+                  "grid_tiles_kernel", "DeviceRadixSort",
+                  "CatArrayBatchedCopy",
                   "index_elementwise_kernel", "indexFunc")
 # The light band's tail: the kernels of csrc/light_tail.cu.
 TAIL_TRACED = ("collect_append_kernel", "collect_tail_kernel",
@@ -4231,7 +4508,8 @@ VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
                    "vcm_light_start", "vcm_light_shade", "vcm_light_finish",
                    "vcm_camera_shade", "vcm_camera_finish",
                    *DISPATCH_KERNELS, *SLOT_KERNELS, *TAIL_KERNELS,
-                   "graph_captures", "graph_replays", "graph_reruns")
+                   *MIDDLE_KERNELS, "graph_captures", "graph_replays",
+                   "graph_reruns")
 
 
 def hold_vcm_graph_cell(cell, algo, runs, traced, card):
@@ -4545,6 +4823,7 @@ def build_libraries():
     from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.ops import merge as mg
     from imbatracer_torch.ops import pairs as pm
+    from imbatracer_torch.ops import select as sel
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.ops import stream_traverse as st
     from imbatracer_torch.ops import vcm_shade as vs
@@ -4553,11 +4832,11 @@ def build_libraries():
     phase("2 build")
     t0 = time.time()
     libs = (st.LIB, kh.LIB, mg.LIB, pm.LIB, sh.LIB, vs.LIB, dp.LIB, lt.LIB,
-            graphs.COND_LIB, native.LIB)
+            sel.LIB, mg.GRID_LIB, graphs.COND_LIB, native.LIB)
     paths = libbuild.build_all(libs)
     for load in (st._library, kh._library, mg._library, pm._library,
                  sh._library, vs._library, dp._library, lt._library,
-                 graphs._cond_library):
+                 sel._library, mg._grid_library, graphs._cond_library):
         load()
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
         + ", ".join(os.path.relpath(p) for p in paths))
@@ -4569,10 +4848,11 @@ def build_libraries():
 
 
 def shade_phases_alone():
-    """Phases 2, 4b, 4c and 4d alone: the shade and dispatch kernels
-    against their plain versions on the cornell and the still life
-    (`python -c "import chip_smoke; chip_smoke.shade_phases_alone()"` from
-    the repository root, on the card)."""
+    """Phases 2 and 4b-4f alone: the shade, dispatch, light-tail and
+    middle kernels against their plain versions on the cornell and the
+    still life (`python -c "import chip_smoke;
+    chip_smoke.shade_phases_alone()"` from the repository root, on the
+    card)."""
     from imbatracer_torch.device import card_line, get_device
     from imbatracer_torch.scene.procedural import (make_cornell_scene,
                                                    make_still_life_like)
@@ -4587,6 +4867,7 @@ def shade_phases_alone():
     vcm_shade_phase(dev, card, scenes, stats)
     dispatch_phase(dev, card, scenes, stats)
     tail_phase(dev, card, scenes, stats)
+    middle_phase(dev, card, scenes, stats)
     log(f"[done] {time.time() - _START:.1f} s")
 
 
@@ -4661,6 +4942,7 @@ def run():
     vcm_shade_phase(dev, card, scenes, stats)
     dispatch_phase(dev, card, scenes, stats)
     tail_phase(dev, card, scenes, stats)
+    middle_phase(dev, card, scenes, stats)
 
     phase("5 main paths")
     stream_launches = {"closest_hit": 0, "any_hit": 0}
@@ -4827,6 +5109,13 @@ def run():
         kernels.append(kernel_entry(
             name, src + "light_tail.cu", REPLACES[name], vcm_got[name],
             stats[f"{name}_err"], stats[name], stats[f"{name}_plain_ms"],
+            library_ms=stats[f"{name}_library_ms"]))
+    for name in MIDDLE_KERNELS:
+        kernels.append(kernel_entry(
+            name, src + ("select.cu" if name.startswith("select")
+                         else "grid_build.cu"), REPLACES[name],
+            vcm_got[name], stats[f"{name}_err"], stats[name],
+            stats[f"{name}_plain_ms"],
             library_ms=stats[f"{name}_library_ms"]))
     for k in kernels:
         if not k["launches"]:

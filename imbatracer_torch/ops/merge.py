@@ -29,10 +29,20 @@ Output rows (Q, 8): columns 0:3 the summed contribution, 3:8 zero.  A
 query that is inactive, or whose kind is not one of the non-delta kinds
 present in the scene (`kinds`, diffuse always on), sums nothing.
 
-Dispatch: `merge_contrib` (query preparation, gather) and `merge_rows`
-(the gather on sorted rows) run the kernels (csrc/merge_kernel.cu) for
-CUDA tensors and the plain versions for CPU tensors; nothing falls back
-from one to the other.
+Photon grid on the card (`photon_grid` of a working cache's packed
+rows): two hand-written kernels around the library's stable sort
+(csrc/grid_build.cu), the counterpart of JAX's jitted build_merge_grid
+(imbatracer_tpu/ops/pallas_merge.py:135): grid_keys_kernel writes the
+cell keys and the scalars from the box the selection reduced
+(ops/select.py), grid_tiles_kernel the tiles and padded keys straight
+from the sorted order.  Their plain versions are grid_keys_plain and
+grid_tiles_plain, build_merge_grid's head and tail.
+
+Dispatch: `merge_contrib` (query preparation, gather), `merge_rows`
+(the gather on sorted rows) and `photon_grid` run the kernels
+(csrc/merge_kernel.cu, csrc/grid_build.cu) for CUDA tensors and the
+plain versions for CPU tensors; nothing falls back from one to the
+other.
 """
 
 from __future__ import annotations
@@ -46,12 +56,14 @@ import torch
 from ..core.sampling import local_coordinates
 from ..libbuild import NativeLib
 from ..tensors import TensorData
+from . import stream_traverse as st
 
 GRID = 256            # cells per axis (keys < 2^24, exact in f32)
 PAD_KEY = 1 << 25     # > any real key, exact in f32
 PT = 256              # photons per tile
 PREC_ROWS = 16
 QREC_W = 40
+REC_W = 24            # a light-cache row (render/light_cache.py REC_W)
 BIG = 1e30
 INV_PI = 1.0 / math.pi
 INVALID = -2
@@ -64,11 +76,12 @@ MAT_OREN_NAYAR = 5
 MERGE_KINDS = (MAT_DIFFUSE, MAT_GLOSSY, MAT_PHONG, MAT_OREN_NAYAR)
 
 # Launch counts: one per wrapper call on the CUDA route ("merge" the
-# gather, "prep" the query preparation), one per call of a plain version
-# (PLAIN_KEYS).  chip_smoke.py reads them to show the main path ran
-# through the kernels.
-LAUNCHES = {"merge": 0, "prep": 0, "plain": 0, "prep_plain": 0}
-PLAIN_KEYS = ("plain", "prep_plain")
+# gather, "prep" the query preparation, "grid_keys" and "grid_tiles" the
+# photon grid's build), one per call of a plain version (PLAIN_KEYS).
+# chip_smoke.py reads them to show the main path ran through the kernels.
+GRID_KERNELS = ("grid_keys", "grid_tiles")
+PLAIN_KEYS = ("plain", "prep_plain", "grid_keys_plain", "grid_tiles_plain")
+LAUNCHES = dict.fromkeys(("merge", "prep") + GRID_KERNELS + PLAIN_KEYS, 0)
 
 # Counter slots of a counting launch (csrc/merge_kernel.cu): photons
 # examined (in a combo key range of a live query), those within the
@@ -98,10 +111,23 @@ def build_merge_grid(pos, valid, radius, w_in, throughput, d_vcm,
                      d_vm) -> MergeGrid:
     """Sort photons by linear cell key and pack the tiles.  pos (P, 3);
     valid (P,) bool; radius scalar; w_in / throughput (P, 3); d_vcm /
-    d_vm (P,).  P is padded up to a PT multiple."""
-    dev = pos.device
-    num_p = pos.shape[0]
-    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    d_vm (P,).  P is padded up to a PT multiple.  The plain version of
+    the grid's build: grid_keys_plain, the library's stable sort,
+    grid_tiles_plain."""
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=pos.device)
+    key, bbox_min, inv_cell = grid_keys_plain(pos, valid, radius)
+    keys_sorted, order = torch.sort(key, stable=True)
+    tiles, keys = grid_tiles_plain(keys_sorted, order, pos, valid, w_in,
+                                   throughput, d_vcm, d_vm)
+    return MergeGrid(tiles=tiles, keys=keys, bbox_min=bbox_min,
+                     inv_cell=inv_cell, radius_sqr=radius * radius)
+
+
+def grid_keys_plain(pos, valid, radius):
+    """The grid build's head: (key (P,) i32 linear cell keys, PAD_KEY for
+    an invalid photon; bbox_min (3,); inv_cell ()), radius a 0-d f32
+    tensor."""
+    LAUNCHES["grid_keys_plain"] += 1
     v3 = valid[:, None]
     bbox_min = torch.where(v3, pos, BIG).amin(dim=0)
     bbox_max = torch.where(v3, pos, -BIG).amax(dim=0)
@@ -120,9 +146,17 @@ def build_merge_grid(pos, valid, radius, w_in, throughput, d_vcm,
 
     c = _clamp_cells(torch.floor((pos - bbox_min) * inv_cell))
     key = (c[:, 0] * GRID + c[:, 1]) * GRID + c[:, 2]
-    key = torch.where(valid, key, PAD_KEY)
-    keys_sorted, order = torch.sort(key, stable=True)
+    return torch.where(valid, key, PAD_KEY), bbox_min, inv_cell
 
+
+def grid_tiles_plain(keys_sorted, order, pos, valid, w_in, throughput, d_vcm,
+                     d_vm):
+    """The grid build's tail: (tiles (T, 16, PT), keys (T * PT,) i32) of
+    the photons in the sorted order (keys_sorted, order: the stable sort
+    of grid_keys_plain's keys), padded to whole tiles."""
+    LAUNCHES["grid_tiles_plain"] += 1
+    dev = pos.device
+    num_p = pos.shape[0]
     vs = valid[order]
     rec = torch.cat([
         torch.where(vs[:, None], pos[order], BIG),
@@ -141,9 +175,7 @@ def build_merge_grid(pos, valid, radius, w_in, throughput, d_vcm,
             (pad,), PAD_KEY, dtype=torch.int32, device=dev)])
     num_t = rec.shape[0] // PT
     tiles = rec.T.reshape(PREC_ROWS, num_t, PT).permute(1, 0, 2).contiguous()
-    return MergeGrid(tiles=tiles, keys=keys_sorted.to(torch.int32).contiguous(),
-                     bbox_min=bbox_min, inv_cell=inv_cell,
-                     radius_sqr=radius * radius)
+    return tiles, keys_sorted.to(torch.int32).contiguous()
 
 
 def _to_cells(f):
@@ -548,3 +580,106 @@ def merge_contrib(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
         out[perm] = merge_plain(qrec, grid, scal, kinds, ppm)
         return out[:, 0:3]
     raise ValueError(f"unsupported device {qpos.device}")
+
+
+# --------------------------------------------------------------------------
+# The photon grid's build (csrc/grid_build.cu)
+# --------------------------------------------------------------------------
+
+GRID_LIB = NativeLib("grid_build", "grid_build.cu")
+
+_grid_lib = None
+
+
+def _grid_library():
+    global _grid_lib
+    if _grid_lib is None:
+        lib = ctypes.CDLL(GRID_LIB.build())
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for name, args in (("imba_grid_keys", [vp] * 4 + [i64, vp, vp, vp]),
+                           ("imba_grid_tiles", [vp] * 4 + [i64, vp, vp, vp]),
+                           ("imba_grid_resources", [i, vp])):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+        _grid_lib = lib
+    return _grid_lib
+
+
+def grid_keys_cuda(rec, count, box, radius):
+    """Launch grid_keys_kernel on CUDA tensors (raises on anything else):
+    grid_keys_plain's (key, bbox_min, inv_cell) of the first `count`
+    (0-d i32) rows of the packed (P, 24) `rec`, from `box` (6,) i32, the
+    selection's (ops/select.select_gather_cuda); radius a 0-d f32 tensor.
+    Also returns radius_sqr; the scalars are views of one (5,) tensor."""
+    dev = rec.device
+    rows = rec.shape[0]
+    _check("rec", rec, torch.float32, (rows, REC_W), dev)
+    _check("count", count, torch.int32, (), dev)
+    _check("box", box, torch.int32, (6,), dev)
+    _check("radius", radius, torch.float32, (), dev)
+    key = torch.empty((rows,), dtype=torch.int32, device=dev)
+    scal = torch.empty((5,), dtype=torch.float32, device=dev)
+    _launched(_grid_library().imba_grid_keys(
+        rec.data_ptr(), count.data_ptr(), box.data_ptr(), radius.data_ptr(),
+        rows, key.data_ptr(), scal.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "grid keys kernel")
+    LAUNCHES["grid_keys"] += 1
+    return key, scal[0:3], scal[3], scal[4]
+
+
+def grid_tiles_cuda(rec, count, keys_sorted, order):
+    """Launch grid_tiles_kernel on CUDA tensors (raises on anything else):
+    grid_tiles_plain's (tiles, keys) of the packed (P, 24) `rec`, its
+    first `count` (0-d i32) rows valid, in the order of the stable sort
+    (keys_sorted, order) of grid_keys_cuda's keys."""
+    dev = rec.device
+    rows = rec.shape[0]
+    _check("rec", rec, torch.float32, (rows, REC_W), dev)
+    if rec.data_ptr() % 16:
+        raise ValueError("rec: must be 16-byte aligned")
+    _check("count", count, torch.int32, (), dev)
+    _check("keys_sorted", keys_sorted, torch.int32, (rows,), dev)
+    _check("order", order, torch.int64, (rows,), dev)
+    num_t = -(-rows // PT)
+    tiles = torch.empty((num_t, PREC_ROWS, PT), dtype=torch.float32,
+                        device=dev)
+    keys = torch.empty((num_t * PT,), dtype=torch.int32, device=dev)
+    _launched(_grid_library().imba_grid_tiles(
+        rec.data_ptr(), count.data_ptr(), keys_sorted.data_ptr(),
+        order.data_ptr(), rows, tiles.data_ptr(), keys.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "grid tiles kernel")
+    LAUNCHES["grid_tiles"] += 1
+    return tiles, keys
+
+
+def grid_resources(which: str):
+    """Registers, shared memory, spills and resident blocks an SM of
+    "keys" or "tiles" (needs the card)."""
+    return st._resources(_grid_library().imba_grid_resources,
+                         ("keys", "tiles").index(which))
+
+
+def photon_grid(rec, count, radius, box=None) -> MergeGrid:
+    """The merge grid of a working cache: the first `count` (0-d i32) of
+    its packed (P, 24) rows `rec` are the photons (pos 0:3, w_in 3:6,
+    throughput 15:18, d_vcm 19, d_vm 20).  On CUDA tensors the two
+    kernels around the library sort, with `box`, the selection's
+    (render/light_cache.py LightVertexCache.box); on CPU tensors
+    build_merge_grid on the rows' columns."""
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=rec.device)
+    if rec.device.type == "cpu":
+        valid = torch.arange(rec.shape[0]) < count
+        return build_merge_grid(rec[:, 0:3], valid, radius, rec[:, 3:6],
+                                rec[:, 15:18], rec[:, 19], rec[:, 20])
+    if rec.device.type != "cuda":
+        raise ValueError(f"unsupported device {rec.device}")
+    if box is None:
+        raise ValueError("photon_grid: the card's grid reads the box that "
+                         "the selection's gather reduced (box=None)")
+    key, bbox_min, inv_cell, radius_sqr = grid_keys_cuda(rec, count, box,
+                                                         radius)
+    keys_sorted, order = torch.sort(key, stable=True)
+    tiles, keys = grid_tiles_cuda(rec, count, keys_sorted, order)
+    return MergeGrid(tiles=tiles, keys=keys, bbox_min=bbox_min,
+                     inv_cell=inv_cell, radius_sqr=radius_sqr)

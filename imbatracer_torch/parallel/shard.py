@@ -91,7 +91,8 @@ def render_pt_frame_sharded(scene, cam, frame, width: int, height: int,
     return film
 
 
-def gather_cache(comm, collect, capacity: int, stats: dict = None):
+def gather_cache(comm, collect, capacity: int, stats: dict = None, *,
+                 count: int = None, paths: int = None, lengths: int = None):
     """The working vertex cache of all ranks' collect caches: the
     `capacity` shallowest vertices by (path_length, path_id) in canonical
     order, as select_shallowest gives them from one collect cache of
@@ -99,14 +100,18 @@ def gather_cache(comm, collect, capacity: int, stats: dict = None):
     vertices of the union lie among each rank's own shallowest
     `capacity`: each rank selects those first, then one gather of the
     counts and one of the packed (C, 24) rows bring them together.
-    With `stats`, records the collected and kept counts of all ranks."""
-    local = select_shallowest(collect, capacity)
+    With `stats`, records the collected and kept counts of all ranks.
+    `count`, `paths`, `lengths`: select_shallowest's (this rank's count
+    on the host, the sort keys' bounds)."""
+    bounds = dict(paths=paths, lengths=lengths)
+    local = select_shallowest(collect, capacity, count=count, **bounds)
     counts = torch.stack(comm.all_gather(torch.stack([
         local.count.to(torch.int64), collect.count.to(torch.int64)])))
     kept = counts[:, 0].tolist()
     rows = comm.all_gather_rows(local.packed()[:kept[comm.rank]],
                                 counts=kept)
-    cache = select_shallowest(from_rows(rows, capacity), capacity)
+    cache = select_shallowest(from_rows(rows, capacity), capacity,
+                              count=sum(kept), **bounds)
     if stats is not None:
         stats["collected"] = counts[:, 1].sum().to(torch.int32)
         stats["cache"] = cache.count
@@ -180,9 +185,10 @@ def render_vcm_frame_sharded(scene, cam, frame, base_radius, comm, *,
                                               init=film)
             film = film * float(spp)
             if collect is not None:
-                collect.check()
-                cache = gather_cache(comm, collect.cache(), cache_capacity,
-                                     stats)
+                cache = gather_cache(
+                    comm, collect.cache(), cache_capacity, stats,
+                    count=collect.check(),
+                    **vcm_mod.key_bounds(light_path_count, max_len))
                 del collect
             if algo in ("vcm", "ppm"):
                 grid = vcm_mod.photon_grid(cache, pm_radius, stats)

@@ -14,9 +14,12 @@ JAX module (its docstring gives the reason).
 A frame: the light pass in bands of BAND_RAYS paths (sample_emit,
 closest-hit traversal, vertices logged per bounce and appended to the
 collect cache once per band, camera connections splatted once per
-band), the collect cache's overflow read once, then `select_shallowest`
-down to the working cache capacity and
-`build_merge_grid`, then the camera pass in bands of BAND_RAYS rays,
+band), the collect cache's overflow and count read once, then the
+frame's middle, eager once a frame: `select_shallowest` down to the
+working cache capacity and the photon grid (on the card hand-written
+kernels around the library sorts, ops/select.py and ops/merge.py, the
+counterparts of JAX's jitted select_shallowest, canonicalize and
+build_merge_grid), then the camera pass in bands of BAND_RAYS rays,
 each a lockstep loop of `max_len` bounces (env and emitter hits, NEE
 and vertex connections with one batched any-hit dispatch, merging,
 BSDF sampling with Russian roulette).  On a CUDA device a camera pass
@@ -501,10 +504,12 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                                               light_path_count - start))
             film = film * float(spp)
             if collect is not None:
-                collect.check()
+                count = collect.check()
                 # Canonical (path, bounce) layout of the shallowest
                 # vertices: the same set and order under any band schedule.
-                cache = select_shallowest(collect.cache(), cache_capacity)
+                cache = select_shallowest(
+                    collect.cache(), cache_capacity, count=count,
+                    **key_bounds(light_path_count, max_len))
                 if stats is not None:
                     stats["collected"] = collect.count.clone()
                     stats["cache"] = cache.count.clone()
@@ -528,15 +533,21 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
 
 
 def photon_grid(cache, pm_radius, stats=None):
-    """The merge kernel's photon grid over the cache's valid vertices;
-    records the photon count in `stats` ("photons")."""
-    valid = torch.arange(cache.capacity, device=cache.pos.device) < cache.count
-    grid = merge_mod.build_merge_grid(
-        cache.pos, valid, pm_radius, cache.w_out, cache.throughput,
-        cache.d_vcm, cache.d_vm)
+    """The merge kernel's photon grid over the cache's valid vertices (on
+    the card from the box its selection reduced); records the photon
+    count in `stats` ("photons")."""
+    grid = merge_mod.photon_grid(cache.rec, cache.count, pm_radius,
+                                 cache.box)
     if stats is not None:
-        stats["photons"] = valid.sum()
+        stats["photons"] = cache.count.to(torch.int64)
     return grid
+
+
+def key_bounds(light_path_count: int, max_len: int) -> dict:
+    """The exclusive bounds of a frame's path ids and path lengths (a
+    light vertex of bounce i has length i + 2, i < max_len), which let
+    the selection's sort keys take 32 bits (ops/select.py key_bits)."""
+    return dict(paths=light_path_count, lengths=max_len + 2)
 
 
 def camera_film(scene, fi: FrameInputs, bands, *, stats, width, height, spp,

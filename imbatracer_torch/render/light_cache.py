@@ -1,5 +1,6 @@
 """Light-path vertex cache (torch twin of imbatracer_tpu.render.
-light_cache): SoA, fixed capacity, on the cache's device.
+light_cache): packed (C, 24) rows of fixed capacity, on the cache's
+device, whose columns are views.
 
 The light pass appends its stored vertices in bulk, in the JAX module's
 form: slots by an exclusive prefix sum over the valid mask, so the order
@@ -17,7 +18,9 @@ counted on the device (`lost`), and the frame reads
 that count once, after its light pass (`CollectCache.check`).  The
 renderer sizes its collect cache to hold every vertex a frame can store
 (vcm.py) and selects the working set with `select_shallowest`, so
-nothing is lost.
+nothing is lost.  The selection reads the collect buffer's rows as they
+are (on the card two hand-written kernels and the library sort,
+ops/select.py) and writes the working cache's packed rows once.
 """
 
 from __future__ import annotations
@@ -26,59 +29,51 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops import light_tail
+from ..ops import light_tail, select
 from ..tensors import TensorData
 
 # Columns of the (C, 24) wide record (LightVertexCache.packed).
 REC_W = 24
-_INT_COLS = (14, 21, 22)          # mat_id, path_length, path_id (i32 bits)
-_I32_MAX = 2 ** 31 - 1
 
 
 @dataclass
 class LightVertexCache(TensorData):
-    pos: torch.Tensor          # (C, 3)
-    w_out: torch.Tensor        # (C, 3) direction toward the previous vertex
-    normal: torch.Tensor       # (C, 3)
-    gn: torch.Tensor           # (C, 3)
-    uv: torch.Tensor           # (C, 2)
-    mat_id: torch.Tensor       # (C,) i32
-    throughput: torch.Tensor   # (C, 3)
-    d_vc: torch.Tensor         # (C,)
-    d_vcm: torch.Tensor        # (C,)
-    d_vm: torch.Tensor         # (C,)
-    path_length: torch.Tensor  # (C,) i32
-    path_id: torch.Tensor      # (C,) i32 global light-path index
+    """A cache's packed rows and count; its columns are views of the rows
+    (LightVertexCache.packed's layout), so nothing is copied to read
+    them.  `box`: on the card, the kept photons' box that the selection
+    reduced (ops/select.py), which the photon grid's build reads."""
+
+    rec: torch.Tensor          # (C, 24) packed rows
     count: torch.Tensor        # () i32 number of valid vertices
+    box: torch.Tensor = None   # (6,) i32 (ops/select.select_gather_cuda)
 
     @property
     def capacity(self) -> int:
-        return self.pos.shape[0]
+        return self.rec.shape[0]
 
     def packed(self) -> torch.Tensor:
         """Wide-record view (C, 24): [pos(0:3), w_out(3:6), normal(6:9),
         gn(9:12), uv(12:14), mat_id(14, i32 bits), throughput(15:18),
         dVC(18), dVCM(19), dVM(20), path_length(21, i32 bits),
         path_id(22, i32 bits), pad(23)]."""
-        return pack_batch(self.pos, self.w_out, self.normal, self.gn,
-                          self.uv, self.mat_id, self.throughput, self.d_vc,
-                          self.d_vcm, self.d_vm, self.path_length,
-                          self.path_id)
+        return self.rec
+
+    pos = property(lambda self: self.rec[:, 0:3])
+    w_out = property(lambda self: self.rec[:, 3:6])   # toward the previous
+    normal = property(lambda self: self.rec[:, 6:9])
+    gn = property(lambda self: self.rec[:, 9:12])
+    uv = property(lambda self: self.rec[:, 12:14])
+    mat_id = property(lambda self: self.rec[:, 14].view(torch.int32))
+    throughput = property(lambda self: self.rec[:, 15:18])
+    d_vc = property(lambda self: self.rec[:, 18])
+    d_vcm = property(lambda self: self.rec[:, 19])
+    d_vm = property(lambda self: self.rec[:, 20])
+    path_length = property(lambda self: self.rec[:, 21].view(torch.int32))
+    path_id = property(lambda self: self.rec[:, 22].view(torch.int32))
 
 
 def _bits(a):
     return a.to(torch.int32).view(torch.float32)[:, None]
-
-
-def _from_rec(rec, count) -> LightVertexCache:
-    ib = lambda c: rec[:, c].contiguous().view(torch.int32)
-    return LightVertexCache(
-        pos=rec[:, 0:3].contiguous(), w_out=rec[:, 3:6].contiguous(),
-        normal=rec[:, 6:9].contiguous(), gn=rec[:, 9:12].contiguous(),
-        uv=rec[:, 12:14].contiguous(), mat_id=ib(14),
-        throughput=rec[:, 15:18].contiguous(), d_vc=rec[:, 18].contiguous(),
-        d_vcm=rec[:, 19].contiguous(), d_vm=rec[:, 20].contiguous(),
-        path_length=ib(21), path_id=ib(22), count=count)
 
 
 def from_rows(rows: torch.Tensor, capacity: int) -> LightVertexCache:
@@ -87,13 +82,14 @@ def from_rows(rows: torch.Tensor, capacity: int) -> LightVertexCache:
     as an empty cache's are."""
     rec = rows.new_zeros((max(rows.shape[0], capacity), REC_W))
     rec[:rows.shape[0]] = rows
-    return _from_rec(rec, torch.tensor(rows.shape[0], dtype=torch.int32,
-                                       device=rows.device))
+    return LightVertexCache(rec, torch.tensor(
+        rows.shape[0], dtype=torch.int32, device=rows.device))
 
 
 def empty_cache(capacity: int, device) -> LightVertexCache:
     rec = torch.zeros((capacity, REC_W), dtype=torch.float32, device=device)
-    return _from_rec(rec, torch.zeros((), dtype=torch.int32, device=device))
+    return LightVertexCache(rec, torch.zeros((), dtype=torch.int32,
+                                             device=device))
 
 
 def pack_batch(pos, w_out, normal, gn, uv, mat_id, throughput, d_vc, d_vcm,
@@ -132,16 +128,19 @@ class CollectCache(TensorData):
         light_tail.collect_append(self.rec, self.count, self.lost, valid,
                                   rows)
 
-    def check(self):
-        """Raise if rows did not fit (one host read)."""
-        lost = int(self.lost)
+    def check(self) -> int:
+        """Raise if rows did not fit; else return the count of rows (one
+        host read of both)."""
+        lost, count = torch.stack([self.lost, self.count]).tolist()
         if lost:
             raise RuntimeError(
                 f"light vertex cache overflow: {lost} vertices did not fit "
                 f"its capacity of {self.capacity}")
+        return count
 
     def cache(self) -> LightVertexCache:
-        return _from_rec(self.rec[:-1], self.count)
+        """The rows as a cache (a view: row C, the trash row, left out)."""
+        return LightVertexCache(self.rec[:-1], self.count)
 
 
 def empty_collect(capacity: int, device) -> CollectCache:
@@ -174,34 +173,29 @@ def append(cache: LightVertexCache, valid, pos, w_out, normal, gn, uv,
                    d_vcm, d_vm, path_length, path_id))
 
 
-def _sorted_by(cache: LightVertexCache, major, minor, rows: int):
-    """The first `rows` records in (major, minor) order, invalid rows
-    (past the count) last; both keys are non-negative int32 on valid
-    rows, so one int64 key orders them."""
-    idx = torch.arange(cache.capacity, device=cache.pos.device)
-    valid = idx < cache.count
-    key = torch.where(valid, major.to(torch.int64) * (1 << 32)
-                      + minor.to(torch.int64), _I32_MAX * (1 << 32) + _I32_MAX)
-    order = torch.sort(key, stable=True)[1][:rows]
-    return cache.packed()[order]
-
-
 def canonicalize(cache: LightVertexCache) -> LightVertexCache:
     """Sort valid vertices into (path_id, path_length) order, which makes
     the layout, and the RNG-indexed vertex sampling downstream,
-    independent of the band schedule."""
-    rec = _sorted_by(cache, cache.path_id, cache.path_length, cache.capacity)
-    return _from_rec(rec, cache.count)
+    independent of the band schedule (select_shallowest with no cut)."""
+    return select_shallowest(cache, cache.capacity)
 
 
-def select_shallowest(cache: LightVertexCache,
-                      capacity: int) -> LightVertexCache:
+def select_shallowest(cache: LightVertexCache, capacity: int, *,
+                      count: int = None, paths: int = None,
+                      lengths: int = None) -> LightVertexCache:
     """Depth-capped admission: keep the first `capacity` valid vertices in
     (path_length, path_id) order -- the set a single-band append-order
     truncation keeps, under any band schedule -- and return a
-    `capacity`-size cache in canonical order."""
-    if capacity >= cache.capacity:
-        return canonicalize(cache)
-    rec = _sorted_by(cache, cache.path_length, cache.path_id, capacity)
-    kept = _from_rec(rec, torch.clamp(cache.count, max=capacity))
-    return canonicalize(kept)
+    `capacity`-size cache in canonical order (where capacity >= the
+    cache's, every valid vertex in a cache of its size).  The slots past
+    the kept vertices are zero.  `count`: the cache's count if the
+    caller has it on the host (else one host read); `paths` / `lengths`:
+    exclusive bounds of path_id / path_length, for 32-bit sort keys.  On
+    the card the keys and the gather are kernels (ops/select.py) that
+    read the packed rows as they are."""
+    n = int(cache.count) if count is None else count
+    rows, box = select.select_rows(cache.rec, n, capacity, paths=paths,
+                                   lengths=lengths)
+    kept = (cache.count if capacity >= cache.capacity
+            else torch.clamp(cache.count, max=capacity))
+    return LightVertexCache(rows, kept, box)

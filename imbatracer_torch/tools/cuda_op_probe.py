@@ -20,7 +20,12 @@ bit (1.000000: the op is that formula).
     tensor divided by a Python int (the light-path count and the
     connections' normaliser); the light pick `(path_id * num_lights) //
     light_path_count` in int32, against a wrapping product and a
-    flooring division.
+    flooring division;
+  * the photon grid's (csrc/grid_build.cu): a float32 tensor times and
+    minus a Python float (1.01, 1e-6), against the float taken as a
+    float32 operand and the operation in double; `(b.double() -
+    e.double() * eps).float()` against two double operations and one
+    rounding; `1.0 / x` against an IEEE division.
 
 Run: `python -m imbatracer_torch.tools.cuda_op_probe` (a few seconds;
 torch and numpy only).
@@ -89,6 +94,7 @@ def main():
     print(f"rsqrt(x): 1 / sqrt(x) "
           f"{share(torch.rsqrt(xt).cpu().numpy(), f32(1.0) / np.sqrt(x)):.6f}")
     probe_vcm(dev, rs)
+    probe_grid(dev, rs)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
     return 0
@@ -138,6 +144,32 @@ def probe_vcm(dev, rs):
         want = np.floor_divide(prod.astype(np.int64), lpc)
         print(f"light pick (path_id * {lights}) // {lpc} in int32: wrapping "
               f"product, flooring division {float((got == want).mean()):.6f}")
+
+
+
+def probe_grid(dev, rs):
+    """The ops whose CUDA results csrc/grid_build.cu mimics."""
+    f32 = np.float32
+    n = 1 << 16
+    x = (rs.randn(n) * 10.0 ** rs.uniform(-3, 3, n)).astype(f32)
+    xt = torch.from_numpy(x).to(dev)
+    wide = x.astype(np.float64)
+    for what, got, want in (
+            ("x * 1.01", xt * 1.01, (x * f32(1.01), wide * 1.01)),
+            ("x - 1e-6", xt - 1e-6, (x - f32(1e-6), wide - 1e-6))):
+        got = got.cpu().numpy()
+        print(f"{what}: the Python float as a float32 operand "
+              f"{share(got, want[0]):.6f}, in double "
+              f"{share(got, want[1].astype(f32)):.6f}")
+    e = np.abs(rs.randn(n) * 10.0 ** rs.uniform(-3, 3, n)).astype(f32)
+    eps = torch.tensor(1e-3, dtype=torch.float32).item()
+    got = (xt.double() - torch.from_numpy(e).to(dev).double() * eps).float()
+    want = (wide - e.astype(np.float64) * eps).astype(f32)
+    print(f"(b.double() - e.double() * eps).float(): two double operations "
+          f"and one rounding {share(got.cpu().numpy(), want):.6f}")
+    y = np.abs(x) + f32(1e-6)
+    got = (1.0 / torch.from_numpy(y).to(dev)).cpu().numpy()
+    print(f"1.0 / x: IEEE 1 / x {share(got, f32(1.0) / y):.6f}")
 
 
 if __name__ == "__main__":

@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""Where a vcm frame's light-band tail spends device time on a CUDA card.
+"""Where a vcm frame's light-band tail and middle spend device time on a
+CUDA card.
 
-Three traces (torch.profiler) of the still life at 1920x1080 with 2^20
-light paths, max_len 8:
+Traces (torch.profiler) of the still life at 1920x1080 with 2^20 light
+paths, max_len 8, each region marked on the device by a spin kernel
+where it opens and where it closes (its kernels are the device events
+between the marks, the port's ctypes launches included):
 
 * one eager light band of 262,144 paths (render/integrators/vcm.py
-  `_light_pass`), with record_function ranges around its collect append
+  `_light_pass`), regions around its collect append
   (`CollectCache.append`) and its camera splat (`vcm.splat`): each
-  range's device time and the kernels launched inside it, by name;
+  region's device time and kernels, by name;
 * the selection of that band's collect cache (`select_shallowest`),
-  which a frame runs once, outside the graphs, in a range of its own;
+  which a frame runs once, outside the graphs, in a region of its own;
 * one graphed vcm frame through make_frame_fn and the renderer, after a
   warm-up frame: wall and device busy time, the kernels with the most
   device time, by name, and the light tail's kernels and any index or
-  cat kernels; then one graphed PT frame of the same scene (wall, busy,
-  kernels).
+  cat kernels; inside it, the frame's middle as a region, from the end
+  of `CollectCache.check` (the light pass's overflow read) to the end of
+  `vcm.working_cache` (the camera pass's static inputs): the selection,
+  the canonical order and the photon grid, eager once a frame, with
+  their device time, kernels by name and launches, and the middle's
+  peak memory above what the frame held when it began; then one graphed
+  PT frame of the same scene (wall, busy, kernels);
+* the instanced scene (scene/generate.CARD, 1920x1080, default light
+  paths): one graphed vcm frame (busy, the middle, the scalar-add
+  kernels `CUDAFunctorOnSelf_add` by launch shape from its chrome
+  trace), then the adds that a fresh scene's captures record into its
+  graphs, by call site.
 
 `--root DIR` imports the port from DIR (another checkout, for example a
 parent commit unpacked under the git-ignored `out/`), so two trees can be
@@ -24,8 +37,11 @@ traced in one call on one card.  Run from the repository root:
 """
 
 import argparse
+import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 
@@ -42,7 +58,7 @@ ARGS = _args()
 sys.path.insert(0, os.path.abspath(ARGS.root))
 
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile, record_function  # noqa
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from imbatracer_torch.frontend.engine import (estimate_pixel_size,  # noqa
                                               make_frame_fn)
@@ -57,19 +73,51 @@ W, H, LPC, MAX_LEN, BAND = 1920, 1080, 1 << 20, 8, 1 << 18
 ACTS = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
+# Regions: a spin kernel (torch.cuda._sleep) launched where a region
+# opens and where it closes marks it on the device, so that its kernels
+# are the device events between the two marks, those that the port's
+# ctypes wrappers launch included (the profiler ties no host op to
+# them).  REGIONS names the regions in the order they opened.
+MARK = "spin_kernel"
+REGIONS = []
+CUDA = torch.autograd.DeviceType.CUDA
+
+
+def mark():
+    torch.cuda._sleep(1)
+
+
 def ranged(name, fn):
     def wrapped(*a, **k):
-        with record_function(name):
-            return fn(*a, **k)
+        REGIONS.append(name)
+        mark()
+        out = fn(*a, **k)
+        mark()
+        return out
     return wrapped
 
 
-def kernels_under(evt, out):
-    """Append the (name, us) of every kernel launched under a profiler
-    event and its descendants to `out`."""
-    out.extend((k.name, k.duration) for k in evt.kernels)
-    for ch in evt.cpu_children:
-        kernels_under(ch, out)
+def device_events(prof):
+    """(name, start ns, ns) of the trace's device events in time order."""
+    return sorted(((e.name(), e.start_ns(), e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == CUDA), key=lambda e: e[1])
+
+
+def regions(prof):
+    """[(name, {kernel: [us, n]})] of the regions opened in this trace, in
+    order: the device events between each pair of marks."""
+    out, cur, opened = [], None, 0
+    for name, _, ns in device_events(prof):
+        if MARK in name:
+            if cur is None:
+                cur = []
+            else:
+                out.append((REGIONS[opened], by_name(cur)))
+                opened, cur = opened + 1, None
+        elif cur is not None:
+            cur.append((name, ns / 1e3))
+    del REGIONS[:]
     return out
 
 
@@ -108,9 +156,9 @@ def main():
      eta_vm) = vcm.frame_constants(cam, 1, base, algo="vcm",
                                    num_pixels=W * H, light_path_count=LPC,
                                    max_len=MAX_LEN)
-    vcm.splat = ranged("tail.splat", vcm.splat)
-    light_cache.CollectCache.append = ranged(
-        "tail.append", light_cache.CollectCache.append)
+    splat, append = vcm.splat, light_cache.CollectCache.append
+    vcm.splat = ranged("tail.splat", splat)
+    light_cache.CollectCache.append = ranged("tail.append", append)
 
     def band(collect):
         return vcm._light_pass(
@@ -123,24 +171,25 @@ def main():
     band(collect)                                 # builds the kernels
     collect = light_cache.empty_collect(lpc * MAX_LEN, dev)
     torch.cuda.synchronize()
+    del REGIONS[:]
     with profile(activities=ACTS) as prof:
         band(collect)
         torch.cuda.synchronize()
-    for evt in prof.events():
-        if evt.name in ("tail.append", "tail.splat"):
-            show(f"eager light band, range {evt.name}",
-                 by_name(kernels_under(evt, [])), ARGS.top)
+    vcm.splat, light_cache.CollectCache.append = splat, append
+    for name, tot in regions(prof):
+        show(f"eager light band, range {name}", tot, ARGS.top)
+    select = ranged("tail.select", lambda c, cap: (
+        light_cache.select_shallowest(c.cache(), cap)))
     with profile(activities=ACTS) as prof:
-        with record_function("tail.select"):
-            light_cache.select_shallowest(collect.cache(), 2 * lpc)
+        select(collect, 2 * lpc)
         torch.cuda.synchronize()
-    for evt in prof.events():
-        if evt.name == "tail.select":
-            show("the collect cache's selection (eager, once a frame)",
-                 by_name(kernels_under(evt, [])), ARGS.top)
+    for _, tot in regions(prof):
+        show("the collect cache's selection (eager, once a frame)", tot,
+             ARGS.top)
     del collect
 
     settings.light_path_count = LPC
+    middle_ranged()
     tot = graphed_frame(scene, meta, settings, "vcm")
     for part in ("collect_append_kernel", "collect_tail_kernel",
                  "splat_kernel", "index", "CatArrayBatchedCopy"):
@@ -151,28 +200,153 @@ def main():
     settings = RenderSettings(width=W, height=H, spp=1,
                               max_path_len=MAX_LEN, algorithm="pt")
     graphed_frame(scene, meta, settings, "pt")
+    del scene
+    instanced(dev)
 
 
-def graphed_frame(scene, meta, settings, tag):
+MIDDLE = {}
+
+
+def middle_ranged():
+    """Open a "frame.middle" region at the end of CollectCache.check and
+    close it at the end of vcm.working_cache, noting the memory the
+    frame held when it opened and resetting the peak there."""
+    check, working = light_cache.CollectCache.check, vcm.working_cache
+
+    def opened(self, *a, **k):
+        out = check(self, *a, **k)
+        REGIONS.append("frame.middle")
+        mark()
+        MIDDLE["held"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def closed(*a, **k):
+        out = working(*a, **k)
+        mark()
+        MIDDLE["peak"] = torch.cuda.max_memory_allocated() - MIDDLE["held"]
+        return out
+
+    light_cache.CollectCache.check = opened
+    vcm.working_cache = closed
+
+
+def graphed_frame(scene, meta, settings, tag, chrome=None):
     """Trace one graphed frame after a warm-up frame (the captures); log
-    its wall and device busy time and top kernels; {name: [us, n]}."""
+    its wall and device busy time, top kernels and its middle's range;
+    {name: [us, n]}.  With `chrome`, also write the trace there."""
     frame_fn, _ = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
     renderer.step()
     torch.cuda.synchronize()
+    del REGIONS[:]
     with profile(activities=ACTS) as prof:
         t0 = time.time()
         renderer.step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.time() - t0)
-    rows = [(e.name(), e.duration_ns() / 1e3)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA]
-    tot = by_name(rows)
+    tot = by_name((name, ns / 1e3) for name, _, ns in device_events(prof)
+                  if MARK not in name)
     print(f"[lighttrace] graphed {tag} frame: wall {wall:.1f} ms",
           flush=True)
     show(f"graphed {tag} frame", tot, ARGS.top)
+    for _, middle in regions(prof):
+        show(f"graphed {tag} frame: the middle (selection, canonical "
+             f"order, photon grid, static inputs)", middle, ARGS.top)
+        print(f"[lighttrace]   the middle's peak memory above the frame's "
+              f"{MIDDLE['held'] / 2**20:.1f} MiB: "
+              f"{MIDDLE['peak'] / 2**20:.1f} MiB", flush=True)
+    if chrome:
+        prof.export_chrome_trace(chrome)
     return tot
+
+
+ADD = "CUDAFunctorOnSelf_add"
+
+
+def adds_by_shape(path):
+    """{(grid, block): [us, n]} of the scalar-add kernels of a chrome
+    trace."""
+    with open(path) as fh:
+        evts = json.load(fh)["traceEvents"]
+    tot = {}
+    for e in evts:
+        if e.get("cat") == "kernel" and ADD in e.get("name", ""):
+            a = e.get("args", {})
+            t = tot.setdefault((str(a.get("grid")), str(a.get("block"))),
+                               [0.0, 0])
+            t[0] += e.get("dur", 0.0)
+            t[1] += 1
+    return tot
+
+
+def captured_adds(run):
+    """Run `run()` with torch.Tensor.add_ and __iadd__ wrapped: {the
+    port's innermost call site: adds made while a CUDA graph captured}
+    (each is launched once a replay of its graph, once a round inside a
+    WHILE body)."""
+    import traceback
+
+    sites = {}
+    originals = {k: getattr(torch.Tensor, k) for k in ("add_", "__iadd__")}
+
+    def wrap(name, fn):
+        def wrapped(self, *a, **k):
+            if torch.cuda.is_current_stream_capturing():
+                here = [f for f in traceback.extract_stack()[:-1]
+                        if "imbatracer_torch" in f.filename]
+                key = (f"{name} of {tuple(self.shape)} at " + " < ".join(
+                    f"{f.filename.split('imbatracer_torch/')[-1]}:{f.lineno}"
+                    f" {f.name}" for f in reversed(here[-2:])))
+                sites[key] = sites.get(key, 0) + 1
+            return fn(self, *a, **k)
+        return wrapped
+
+    for k, fn in originals.items():
+        setattr(torch.Tensor, k, wrap(k, fn))
+    try:
+        run()
+    finally:
+        for k, fn in originals.items():
+            setattr(torch.Tensor, k, fn)
+    return {k: [0.0, n] for k, n in sites.items()}
+
+
+def show_adds(tag, tot, top=12):
+    n = sum(v[1] for v in tot.values())
+    us = sum(v[0] for v in tot.values())
+    print(f"[addtrace] {tag}: {n} adds, {us / 1e3:.3f} ms", flush=True)
+    for k, (t, c) in sorted(tot.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"[addtrace]   {c:6d}x {t / 1e3:8.3f} ms  {k}", flush=True)
+
+
+def instanced(dev):
+    """The instanced vcm frame: graphed (busy, middle, the scalar adds by
+    launch shape), and the adds a fresh scene's captures record into its
+    graphs, by call site."""
+    from imbatracer_torch.render import graphs
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+
+    tmp = tempfile.mkdtemp(prefix="imba_instanced_")
+    path = write_instanced_scene(tmp, **CARD)
+    scene, meta = build_scene(path, quiet=True, device=dev)
+    settings = RenderSettings(width=W, height=H, spp=1,
+                              max_path_len=MAX_LEN, algorithm="vcm")
+    chrome = os.path.join(tmp, "trace_instanced_vcm.json")
+    graphed_frame(scene, meta, settings, "instanced vcm", chrome=chrome)
+    show_adds("graphed instanced vcm frame, by (grid, block)",
+              {f"grid {g} block {b}": v
+               for (g, b), v in adds_by_shape(chrome).items()})
+    # A fresh scene's captures, their adds by call site.
+    scene, meta = build_scene(path, quiet=True, device=dev)
+    frame_fn, _ = make_frame_fn(scene, meta, settings)
+    show_adds("the instanced vcm frame's captures (adds recorded into a "
+              "graph, by call site)",
+              captured_adds(lambda: (frame_fn(0), torch.cuda.synchronize())),
+              top=20)
+    print(f"[addtrace] graph stats {graphs.GRAPH_STATS}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ route's kernels csrc/pairs_kernel.cu; the photon-merge gather and its
 query preparation csrc/merge_kernel.cu; the PT bounce's shading
 csrc/pt_shade.cu; the VCM family's bounce shading csrc/vcm_shade.cu; the
 dispatch glue and the re-trace's slot kernels csrc/dispatch.cu; the
-light band's collect append and splat csrc/light_tail.cu) against their
-plain PyTorch versions on the same inputs.  Needs an
+light band's collect append and splat csrc/light_tail.cu; the frame's
+middle: the collect selection csrc/select.cu and the photon grid's build
+csrc/grid_build.cu) against their plain PyTorch versions on the same
+inputs.  Needs an
 NVIDIA GPU and nvcc: the kernels have no CPU or interpret mode, so every
 test here is marked `cuda` and skips without a card.  This file imports no jax, so it also runs on
 a machine without it:
@@ -29,8 +31,8 @@ with equal counted work; the card's query rows equal prepare_queries' bit
 for bit.  The shade kernels' flags, RNG state and counts equal the plain
 versions', their float columns within 1e-5 * max(1, |x|) on >= 99.9% of
 the lanes (bit for bit expected: they round each op as torch does).
-The slot kernels and the collect append are bit-equal to their plain
-versions; the splat adds with atomics, as index_add_ does, so a film
+The slot kernels, the collect append and the middle's kernels are
+bit-equal to their plain versions; the splat adds with atomics, as index_add_ does, so a film
 agrees within the rounding of its sums' order.
 """
 
@@ -1895,3 +1897,187 @@ def test_cuda_slot_input_checks(cuda_device):
         dp.slot_finish_cuda(torch.zeros((), dtype=torch.int64,
                                         device=cuda_device), act, s,
                             count.clone())
+
+
+def _select_rows(n, num_c, seed, dev, paths=1 << 14, max_len=8):
+    """A (num_c, 24) collect buffer whose first n rows hold unique
+    (path_id, path_length) pairs in a shuffled order, the rows after them
+    noise (the kernels must not read them)."""
+    rs = np.random.RandomState(seed)
+    rec = rs.randn(num_c, 24).astype(np.float32)
+    pairs = rs.permutation(paths * max_len)[:n]
+    rec[:n, 21] = (pairs % max_len + 2).astype(np.int32).view(np.float32)
+    rec[:n, 22] = (pairs // max_len).astype(np.int32).view(np.float32)
+    return torch.from_numpy(rec).to(dev), dict(paths=paths,
+                                               lengths=max_len + 2)
+
+
+def _bit_equal(a, b):
+    a, b = a.contiguous(), b.contiguous()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", ["keys32", "keys64"])
+@pytest.mark.parametrize("n,cap", [(3000, 5000), (5000, 5000), (7000, 5000),
+                                   (0, 5000), (7000, 8000), (6000, 9000)],
+                         ids=["fewer", "equal", "cut", "empty", "canonical",
+                              "canonical_above"])
+def test_cuda_select_kernels_match_plain(cuda_device, n, cap, keys):
+    """The selection's keys (both modes) and gather against their plain
+    versions on the same CUDA tensors, every element bit-equal; the
+    gather's box against the kept rows' min and max; the whole selection
+    against the plain route on the CPU."""
+    from imbatracer_torch.ops import select as sel
+
+    rec, bounds = _select_rows(n, 8000, n + cap, cuda_device)
+    if keys == "keys64":
+        bounds = {}
+    b1 = sel.key_bits(bounds.get("lengths"), bounds.get("paths"))
+    b2 = sel.key_bits(bounds.get("paths"), bounds.get("lengths"))
+    assert (b1 is None) == (b2 is None) == (keys == "keys64")
+    order1 = None
+    kept = n
+    if cap < 8000:
+        k = sel.select_keys_cuda(rec, n, None, sel.SHALLOW, b1)
+        assert _bit_equal(k, sel.select_keys_plain(rec, n, None, sel.SHALLOW,
+                                                   b1))
+        order1 = torch.sort(k, stable=True)[1][:cap]
+        kept = min(n, cap)
+    k2 = sel.select_keys_cuda(rec, kept, order1, sel.CANONICAL, b2)
+    assert _bit_equal(k2, sel.select_keys_plain(rec, kept, order1,
+                                                sel.CANONICAL, b2))
+    order2 = torch.sort(k2, stable=True)[1]
+    rows = min(cap, 8000)
+    out, box = sel.select_gather_cuda(rec, order1, order2, rows)
+    ref, none = sel.select_gather_plain(rec, order1, order2, rows)
+    assert none is None and _bit_equal(out, ref)
+    assert not out[kept:].any()
+    assert torch.equal(sel.box_floats(box), sel.box_plain(ref, kept))
+    got, _ = sel.select_rows(rec, n, cap, **bounds)
+    want, _ = sel.select_rows(rec.cpu(), n, cap, **bounds)
+    assert _bit_equal(got.cpu(), want)
+
+
+def _grid_case(case, dev):
+    """(working cache (with the card's box), radius): P rows, `count` of
+    them valid, from the selection's kernels."""
+    from imbatracer_torch.render import light_cache
+
+    n, cap, spread, radius = {"partial": (3000, 5000, 4.0, 0.02),
+                              "full": (7000, 5000, 4.0, 0.02),
+                              "empty": (0, 5000, 4.0, 0.02),
+                              "tight": (4000, 4099, 0.01, 0.3),
+                              "fine": (4000, 4096, 40.0, 1e-4)}[case]
+    rec, bounds = _select_rows(n, 8000, 11, dev)
+    rec[:, 0:3] *= spread
+    cache = light_cache.select_shallowest(
+        light_cache.LightVertexCache(rec, torch.tensor(
+            n, dtype=torch.int32, device=dev)), cap, count=n, **bounds)
+    return cache, torch.tensor(radius, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["partial", "full", "empty", "tight",
+                                  "fine"])
+def test_cuda_grid_kernels_match_plain(cuda_device, case):
+    """The grid's keys and tiles kernels against their plain versions on
+    the same CUDA tensors, every element bit-equal (keys, bbox_min,
+    inv_cell, tiles, padded keys), and photon_grid against
+    build_merge_grid on the card."""
+    from imbatracer_torch.ops import merge as mg
+
+    cache, radius = _grid_case(case, cuda_device)
+    rec, count = cache.rec, cache.count
+    valid = torch.arange(rec.shape[0], device=cuda_device) < count
+    key, bmin, inv, r2 = mg.grid_keys_cuda(rec, count, cache.box, radius)
+    pkey, pbmin, pinv = mg.grid_keys_plain(cache.pos, valid, radius)
+    assert _bit_equal(key, pkey) and _bit_equal(bmin, pbmin)
+    assert _bit_equal(inv, pinv) and _bit_equal(r2, radius * radius)
+    ks, order = torch.sort(key, stable=True)
+    tiles, keys = mg.grid_tiles_cuda(rec, count, ks, order)
+    ptiles, pkeys = mg.grid_tiles_plain(ks, order, cache.pos, valid,
+                                        cache.w_out, cache.throughput,
+                                        cache.d_vcm, cache.d_vm)
+    assert _bit_equal(tiles, ptiles) and _bit_equal(keys, pkeys)
+    got = mg.photon_grid(rec, count, radius, cache.box)
+    want = mg.build_merge_grid(cache.pos, valid, radius, cache.w_out,
+                               cache.throughput, cache.d_vcm, cache.d_vm)
+    for name in ("tiles", "keys", "bbox_min", "inv_cell", "radius_sqr"):
+        assert _bit_equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_cuda_middle_follows_the_light_pass(cuda_device):
+    """A light pass on the card, then the frame's middle through the
+    kernels (select_shallowest with the frame's count and bounds,
+    photon_grid) against the plain versions on the same collect buffer:
+    the working cache's rows and count and every grid field bit-equal,
+    each kernel launched."""
+    from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import select as sel
+    from imbatracer_torch.render import light_cache
+    from imbatracer_torch.render.integrators import pt, vcm
+    from imbatracer_torch.scene.procedural import make_still_life_like
+
+    scene, meta = make_still_life_like(num_objects=40, num_cards=16,
+                                       device=cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device)
+    collect = light_cache.empty_collect(VCM_LPC * VCM_MAX_LEN, cuda_device)
+    vcm._light_pass(scene, cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm,
+                    collect, algo="vcm", num_pixels=VCM_SIZE ** 2,
+                    light_path_count=VCM_LPC, max_len=VCM_MAX_LEN,
+                    alpha_fn=pt.alpha_fn_for(scene), has_bump=meta.has_bump)
+    count = collect.check()
+    cap = vcm.auto_cache_capacity(VCM_LPC, VCM_MAX_LEN)
+    sel.reset_launches()
+    mg.reset_launches()
+    cache = light_cache.select_shallowest(
+        collect.cache(), cap, count=count,
+        **vcm.key_bounds(VCM_LPC, VCM_MAX_LEN))
+    grid = vcm.photon_grid(cache, fi.pm_radius)
+    assert sel.LAUNCHES["select_keys"] == 2 and sel.LAUNCHES[
+        "select_gather"] == 1
+    assert mg.LAUNCHES["grid_keys"] == mg.LAUNCHES["grid_tiles"] == 1
+    assert not any(sel.LAUNCHES[k] for k in sel.PLAIN_KEYS)
+    plain = light_cache.select_shallowest(
+        light_cache.LightVertexCache(collect.rec[:-1].cpu(),
+                                     collect.count.cpu()), cap)
+    assert int(cache.count) == int(plain.count) == min(count, cap) > 0
+    assert _bit_equal(cache.packed().cpu(), plain.packed())
+    valid = torch.arange(cap, device=cuda_device) < cache.count
+    want = mg.build_merge_grid(cache.pos, valid, fi.pm_radius, cache.w_out,
+                               cache.throughput, cache.d_vcm, cache.d_vm)
+    for name in ("tiles", "keys", "bbox_min", "inv_cell", "radius_sqr"):
+        assert _bit_equal(getattr(grid, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_cuda_middle_input_checks(cuda_device):
+    """The wrappers raise on tensors off the card, of another type or
+    shape, and the card's grid without the selection's box."""
+    from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import select as sel
+
+    rec, _ = _select_rows(100, 200, 1, cuda_device)
+    order = torch.arange(50, device=cuda_device)
+    count = torch.tensor(100, dtype=torch.int32, device=cuda_device)
+    radius = torch.tensor(0.1, device=cuda_device)
+    with pytest.raises(ValueError):
+        sel.select_keys_cuda(rec.cpu(), 100, None, sel.SHALLOW, None)
+    with pytest.raises(ValueError):
+        sel.select_keys_cuda(rec[:, :20].contiguous(), 100, None,
+                             sel.SHALLOW, None)
+    with pytest.raises(ValueError):
+        sel.select_keys_cuda(rec, 100, order, sel.CANONICAL, None)
+    with pytest.raises(ValueError):
+        sel.select_gather_cuda(rec, None, order.int(), 100)
+    with pytest.raises(ValueError):
+        sel.select_gather_cuda(rec, None, order, 10)
+    with pytest.raises(ValueError):
+        mg.photon_grid(rec, count, radius, None)
+    with pytest.raises(TypeError):
+        mg.grid_keys_cuda(rec, count.long(), torch.zeros(
+            6, dtype=torch.int32, device=cuda_device), radius)
