@@ -84,8 +84,9 @@ failure raises and the script exits non-zero:
    |x|) and the max relative error, at phase 4b's gates (the RNG state,
    the counts and the integer columns equal; the flags and pixel ids on
    >= 99.99% of the lanes; each float column within on >= 99.9%).  Each
-   kernel timed alone beside its plain composite and its bound
-   (vcm_shade_bytes: the columns it reads and writes, the distinct
+   kernel timed alone (the camera bounce, redesigned for Hopper, as
+   graph_ms: 10 launches in one CUDA graph) beside its plain composite
+   and its bound (vcm_shade_bytes: the columns it reads and writes, the distinct
    shade-record, light, cache and material rows; or VCM_LANE_OPS float
    instructions a lane), with its registers, spills and resident blocks.
 4d. Dispatch glue kernels vs plain: the four kernels of csrc/dispatch.cu
@@ -99,8 +100,9 @@ failure raises and the script exits non-zero:
    keys, rows, the khit resolve of the khit kernel's rows (the still
    life), the stream resolve's closest, re-trace (masked scenes) and
    occlusion modes of the stream kernel's rows.  `[dispatch]` lines: the
-   elements not bit-equal, which must be 0.  Each kernel timed alone
-   beside its plain version and its bound (the bytes the function moves:
+   elements not bit-equal, which must be 0.  Each kernel timed alone (the
+   rows, redesigned for Hopper, as graph_ms) beside its plain version and
+   its bound (the bytes the function moves:
    the lane arrays in and out, the rows, the mask-record rows of the hits
    it tests), the library sort's time a dispatch, and the kernels'
    registers, spills and resident blocks.
@@ -1442,11 +1444,16 @@ def hold_vcm_columns(label, cols, alive, stats, key):
     stats[key] = max(stats.get(key, 0.0), err)
 
 
+# Kernels redesigned for Hopper and timed as graph_ms (10 launches in one
+# CUDA graph: the device's time, not the host wrapper's).
+GRAPH_TIMED = ("camera_shade", "dispatch_rows")
+
+
 def time_vcm(name, label, launch, plain, nbytes, ops, detail, card, stats):
-    """`[time]` of one VCM shade kernel alone (CUDA events, 10 launches)
-    beside its plain composite (3 calls) and its bound; the first cell's
-    times go to `stats`."""
-    ms = cuda_ms(launch, 10)
+    """`[time]` of one VCM shade kernel alone (CUDA events, 10 launches;
+    in one CUDA graph for GRAPH_TIMED) beside its plain composite (3
+    calls) and its bound; the first cell's times go to `stats`."""
+    ms = graph_ms(launch) if name in GRAPH_TIMED else cuda_ms(launch, 10)
     plain_ms = cuda_ms(plain, 3)
     bound_ms, bound_by = shade_bound(nbytes, ops)
     log(f"[time] vcm {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
@@ -1770,8 +1777,8 @@ def hold_dispatch(label, scene, c, hit, alpha_fn, card, stats, record):
     hit -- bit for bit: keys, rows, the khit resolve of the khit kernel's
     rows (flat masked scenes), the stream resolve's closest, re-trace
     (masked scenes) and occlusion modes on the stream kernel's rows.  Each
-    kernel timed alone (CUDA events, 10 launches; the resolves in place,
-    idempotent) in the first form beside its plain version (3 calls) and
+    kernel timed alone (CUDA events, 10 launches, in one CUDA graph for
+    GRAPH_TIMED; the resolves in place, idempotent) in the first form beside its plain version (3 calls) and
     its bound; the kernels in `record` go into `stats`."""
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
@@ -1896,7 +1903,7 @@ def hold_dispatch(label, scene, c, hit, alpha_fn, card, stats, record):
         raise AssertionError(f"[dispatch] {label}: the dispatch kernels "
                              f"disagree with their plain versions: {bad}")
     for name, (kernel, plain) in timed.items():
-        ms = cuda_ms(kernel, 10)
+        ms = graph_ms(kernel) if name in GRAPH_TIMED else cuda_ms(kernel, 10)
         plain_ms = cuda_ms(plain, 3)
         bound_ms, bound_by = shade_bound(nbytes[name], 0)
         log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "

@@ -3,7 +3,8 @@
 //
 // No Pallas kernel stands behind this file: it is the card's counterpart
 // of the XLA fusions around JAX's traversal calls, which run inside its
-// compiled band programs.  Four kernels, one thread a lane or a row:
+// compiled band programs.  Four kernels, one thread a lane or a row (two
+// threads a row for the rows, below):
 //
 //   dispatch_keys_kernel   imbatracer_tpu/ops/pallas_stream.py::sort_keys
 //                          (:619): a lane's int32 sort key, direction
@@ -57,7 +58,11 @@
 // a khit resolve reads a 128 B row and up to K mask-record rows (40 B)
 // and texels, and writes up to 21 B at its lane; a stream resolve reads
 // 32 B and writes up to 14.  The design is the plain one: coalesced reads
-// and writes of the sorted rows, scattered reads and writes at the lane.
+// and writes of the sorted rows, scattered reads and writes at the lane;
+// but the rows (redesigned for Hopper): a row's reads sit behind two or
+// three dependent scattered loads (perm -> lanes -> its words), so each
+// thread writes half a row as one float4 and keeps two rows' chains in
+// flight (dispatch_rows_kernel's note).
 // A slot gather reads 8 B of idx and its lane's 16-20 B and writes 18-22
 // B; a merge reads a valid slot's 25 B and writes its lane's 16; the
 // finish reads every active flag and every slot's flag, 16-byte words
@@ -79,6 +84,12 @@ using namespace shade;
 
 constexpr int kBlk = 128;
 constexpr int kK = 4;                  // ops/khit.py K
+// dispatch_rows_kernel's geometry: threads a block (two a row), rows a
+// thread, the rows a block covers in one pass (kRowPass apart) and in all.
+constexpr int kRowThreads = 256;
+constexpr int kRowsPerThread = 2;
+constexpr int kRowPass = kRowThreads / 2;
+constexpr int kRowTile = kRowPass * kRowsPerThread;
 constexpr int kDeadKey = 1 << 30;
 
 // Sorted row / slot -> slot, lane and state index.
@@ -169,30 +180,74 @@ __global__ void dispatch_keys_kernel(Rays r, Map m, const float* bounds,
   keys[i] = (octant << 24) | morton;
 }
 
-__global__ void dispatch_rows_kernel(Rays r, Map m, float* out, int n_pad) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_pad) return;
-  float* row = out + 8 * static_cast<int64_t>(j);
-  if (j >= m.n) {
-    for (int k = 0; k < 7; ++k) row[k] = 0.0f;
-    row[7] = -1.0f;
-    return;
+// dispatch_rows_kernel: two threads a row, each writing one 16-byte half
+// of it as one float4 store -- [o - center, tmin'] or [d, tmax'] -- so a
+// warp stores 16 whole rows, 512 contiguous bytes, and a row is one
+// 32-byte sector.  A thread takes kRowsPerThread rows kRowPass apart and
+// issues each step's loads for all of them before it uses any: the slots
+// (perm, read coalesced), then the lanes, then the row's words, so a
+// thread keeps that many dependent chains in flight.  Both halves of a
+// row read its active flag and tcur; the center is read once a thread.
+__global__ void __launch_bounds__(kRowThreads)
+    dispatch_rows_kernel(Rays r, Map m, float4* __restrict__ out,
+                         int n_pad) {
+  const int h = threadIdx.x & 1;
+  const int first = blockIdx.x * kRowTile + (threadIdx.x >> 1);
+  const float* __restrict__ xyz = h ? r.d : r.org;
+  const float* __restrict__ lim = h ? r.tmax : r.tmin;
+  const int stride = h ? r.tmax_stride : r.tmin_stride;
+  float cx = 0.f, cy = 0.f, cz = 0.f;
+  const bool recentre = !h && r.center;
+  if (recentre) {
+    cx = r.center[0];
+    cy = r.center[1];
+    cz = r.center[2];
   }
-  const Where w = where_row(m, j);
-  const bool act = !r.active || r.active[w.state];
-  float tmin = r.tmin[w.lane * r.tmin_stride];
-  if (r.tcur && act) {
-    const float c = r.tcur[w.state];
-    tmin = r.step ? past(c) : c;
+  int64_t slot[kRowsPerThread], lane[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int j = first + k * kRowPass;
+    slot[k] = j < m.n ? (m.perm ? m.perm[j] : j) : 0;
   }
-  const float* o = r.org + 3 * w.lane;
-  const float* d = r.d + 3 * w.lane;
-  for (int a = 0; a < 3; ++a) {
-    row[a] = r.center ? o[a] - r.center[a] : o[a];
-    row[4 + a] = d[a];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int j = first + k * kRowPass;
+    lane[k] = j < m.n && m.lanes ? m.lanes[slot[k]] : slot[k];
   }
-  row[3] = tmin;
-  row[7] = act ? r.tmax[w.lane * r.tmax_stride] : -1.0f;
+  float v[kRowsPerThread][4];
+  bool act[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int j = first + k * kRowPass;
+    if (j >= m.n) continue;
+    const int64_t state = m.by_lane ? lane[k] : slot[k];
+    const float* p = xyz + 3 * lane[k];
+    v[k][0] = p[0];
+    v[k][1] = p[1];
+    v[k][2] = p[2];
+    v[k][3] = lim[lane[k] * stride];
+    act[k] = !r.active || r.active[state];
+    if (!h && r.tcur) {
+      const float c = r.tcur[state];
+      if (act[k]) v[k][3] = r.step ? past(c) : c;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int j = first + k * kRowPass;
+    if (j >= n_pad) continue;
+    float4 q;
+    if (j >= m.n) {
+      q = make_float4(0.f, 0.f, 0.f, h ? -1.0f : 0.f);
+    } else if (h) {
+      q = make_float4(v[k][0], v[k][1], v[k][2], act[k] ? v[k][3] : -1.0f);
+    } else if (recentre) {
+      q = make_float4(v[k][0] - cx, v[k][1] - cy, v[k][2] - cz, v[k][3]);
+    } else {
+      q = make_float4(v[k][0], v[k][1], v[k][2], v[k][3]);
+    }
+    out[2 * static_cast<int64_t>(j) + h] = q;
+  }
 }
 
 struct HitOut {
@@ -409,15 +464,16 @@ extern "C" int imba_dispatch_keys(void* const* ptrs, const int* ints,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dispatch_rows_kernel on the current stream: out (n_pad, 8) f32.
+// dispatch_rows_kernel on the current stream: out (n_pad, 8) f32, 16-byte
+// aligned.
 extern "C" int imba_dispatch_rows(void* const* ptrs, const int* ints,
                                   void* out, int n_pad, void* stream) {
   const Map m = make_map(ptrs[R_PERM], ptrs[R_LANES], ints[R_BY_LANE],
                          ints[R_N]);
   if (n_pad > 0)
-    dispatch_rows_kernel<<<blocks_for(n_pad), kBlk, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        make_rays(ptrs, ints), m, static_cast<float*>(out), n_pad);
+    dispatch_rows_kernel<<<(n_pad + kRowTile - 1) / kRowTile, kRowThreads,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+        make_rays(ptrs, ints), m, static_cast<float4*>(out), n_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -536,7 +592,8 @@ extern "C" int imba_dispatch_resources(int which, int* out) {
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fns[which], which == 6 ? kFinishThreads : kBlk, 0);
+        &blocks, fns[which],
+        which == 6 ? kFinishThreads : which == 1 ? kRowThreads : kBlk, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);

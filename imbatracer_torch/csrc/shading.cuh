@@ -1066,7 +1066,8 @@ struct LightVertex {
 // _vertex_from_rec for one row: the material row `mat_id` of the (M, 24)
 // material table (kind, kd, ks, tf, ns, ior, kd_tex), kd from its texture
 // at the row's uv where the scene has textures and the id is >= 0.
-__device__ LightVertex vertex_from_rec(const float* rec, const float* mat_rec,
+// Inlined into the camera kernel's connection step.
+__device__ __forceinline__ LightVertex vertex_from_rec(const float* rec, const float* mat_rec,
                                        int num_mats, const Atlas& at,
                                        bool has_textures) {
   LightVertex v;

@@ -48,7 +48,8 @@
 // row, light rows and cache rows, its outputs) against one BSDF sample,
 // one or two BSDF evaluations per NEE sample and connection, and one light
 // sample; the branches by material and light kind diverge within a warp.
-// The design is the plain one: a lane a thread, registers only.
+// The design is the plain one, a lane a thread, registers only, but for
+// the camera bounce, redesigned for Hopper (its note below).
 //
 // Numerics: see shading.cuh.  Built with --fmad=false.
 
@@ -417,7 +418,116 @@ __global__ void __launch_bounds__(kBlk)
 // ---------------------------------------------------------------------------
 // One camera bounce: vcm.py::_camera_bounce without its traversals and
 // its merge.
+//
+// Redesigned for Hopper.  The plain lane-a-thread body held 126 registers
+// (4 resident blocks of 128 an SM), and a warp ran the whole body --
+// NEE, the connections and the bounce, branching by material kind -- for
+// as long as one of its lanes was alive: past the first bounce the lanes
+// are scattered, so every warp paid for the body whatever share of it
+// was dead, and every kind its lanes held.  Here a block works in two
+// phases:
+//   1. a lane a thread: the env-miss and emitter terms, the interaction,
+//      the completed partial weights, the radiance and the merge query.
+//      A lane dead on entry (its carry's active flag false) is finished
+//      here: NEE and the connections cast nothing from it, so its shadow
+//      rows hold the DEAD_SHADOW constants (ops/vcm_shade.py), and its
+//      bounce keeps the carry, its RNG advanced past the body's draws.
+//      A live lane puts its shading point and carry in shared memory;
+//   2. the block's live lanes, compacted and ordered by material kind, a
+//      thread each: the bounce, NEE and the connections.  Threads past
+//      them return, so a block of few live lanes runs few warps, and a
+//      warp's lanes mostly share their BSDF branch.
+// Phase 2 reads the shading point back from shared memory for each of
+// its steps (bounce, NEE, each connection), so that it does not hold it
+// across them: the kernel is built for kCamBlocks resident blocks.  The
+// gathers a lane makes in phase 2 are prefetched at the start of phase
+// 1: its connections' cache rows into L2, NEE's light row into L1.  The
+// bounce runs first, from the RNG word that NEE's and the connections'
+// draws leave (their count is fixed).  Every value is computed by the
+// same operations in the same order as the plain version (shading.cuh):
+// the outputs are its outputs.
 // ---------------------------------------------------------------------------
+
+// Resident blocks an SM the camera kernel is built for: registers capped
+// at 65,536 / (kCamBlocks * kBlk) a thread.
+constexpr int kCamBlocks = 6;
+// Material kinds phase 2 orders its lanes by (shading.cuh MAT_*; another
+// value shares the last bin).
+constexpr int kKindBins = 8;
+
+// A shadow set's row of a lane dead on entry (ops/vcm_shade.py
+// DEAD_SHADOW): no ray and no light.
+constexpr float kDeadPos = 0.0f;
+constexpr float kDeadDir = 0.0f;
+constexpr float kDeadTmin = 0.0f;
+constexpr float kDeadTmax = 0.0f;
+constexpr bool kDeadOk = false;
+constexpr float kDeadContrib = 0.0f;
+
+// A live lane's words between the phases: its shading point and material,
+// and the carry values phase 2 reads.
+enum Word {
+  W_POS = 0, W_NORMAL = 3, W_GN = 6, W_W_OUT = 9, W_KIND = 12, W_KD = 13,
+  W_KS = 16, W_TF = 19, W_NS = 22, W_IOR = 23, W_THR = 24, W_D_VC = 27,
+  W_D_VCM = 28, W_D_VM = 29, W_T = 30, W_ACTIVE = 31, NUM_WORDS = 32
+};
+
+// A block's live lanes between the phases: word w of the lane of thread
+// p at word[w][p] (a warp's accesses to one word are consecutive in phase
+// 1), the thread of phase 2's slot k at order[k], and the slots' bins by
+// material kind.
+struct LiveLanes {
+  float word[NUM_WORDS][kBlk];
+  int order[kBlk];
+  int bin[kKindBins + 1];
+};
+
+__device__ __forceinline__ void put3(LiveLanes& l, int w, int k, V3 v) {
+  l.word[w][k] = v.x;
+  l.word[w + 1][k] = v.y;
+  l.word[w + 2][k] = v.z;
+}
+
+__device__ __forceinline__ V3 get3(const LiveLanes& l, int w, int k) {
+  return {l.word[w][k], l.word[w + 1][k], l.word[w + 2][k]};
+}
+
+// The shading point in column k, read anew: the compiler barrier makes every
+// step of phase 2 load what it uses instead of holding it from the last.
+__device__ __forceinline__ Interaction live_point(const LiveLanes& l, int k) {
+  asm volatile("" ::: "memory");
+  Interaction s;
+  s.pos = get3(l, W_POS, k);
+  s.normal = get3(l, W_NORMAL, k);
+  s.gn = get3(l, W_GN, k);
+  s.w_out = get3(l, W_W_OUT, k);
+  s.m.kind = __float_as_int(l.word[W_KIND][k]);
+  s.m.kd = get3(l, W_KD, k);
+  s.m.ks = get3(l, W_KS, k);
+  s.m.tf = get3(l, W_TF, k);
+  s.m.ns = l.word[W_NS][k];
+  s.m.ior = l.word[W_IOR][k];
+  return s;
+}
+
+// The carry values of the lane in column k, read anew as live_point.
+struct LiveCarry {
+  V3 thr;
+  float d_vc, d_vcm, d_vm, t;
+  bool active;
+};
+
+__device__ __forceinline__ LiveCarry live_carry(const LiveLanes& l, int k) {
+  asm volatile("" ::: "memory");
+  LiveCarry c;
+  c.thr = get3(l, W_THR, k);
+  c.d_vc = l.word[W_D_VC][k];
+  c.d_vcm = l.word[W_D_VCM][k];
+  c.d_vm = l.word[W_D_VM][k];
+  c.t = l.word[W_T][k];
+  c.active = l.word[W_ACTIVE][k] != 0.f;
+  return c;
+}
 
 // A shadow set's row `k * lanes + i`.
 __device__ __forceinline__ void store_shadow(const Args& a, int64_t row, V3 pos,
@@ -431,200 +541,299 @@ __device__ __forceinline__ void store_shadow(const Args& a, int64_t row, V3 pos,
   store3(out<float>(a, P_S_CONTRIB) + 3 * row, contrib);
 }
 
-__global__ void __launch_bounds__(kBlk)
+// `s` advanced past n draws of next_float.
+__device__ __forceinline__ uint32_t skip_draws(uint32_t s, int n) {
+  for (int k = 0; k < n; ++k) s = pcg_step(s);
+  return s;
+}
+
+// _connect's pick of a cache row from its uniform.
+__device__ __forceinline__ const float* cache_row(const Args& a, float uc,
+                                                  int count) {
+  const int last_row = count - 1 > 0 ? count - 1 : 0;
+  int j = static_cast<int>(uc * static_cast<float>(count));
+  j = j < last_row ? j : last_row;
+  j = clampi(j, 0, a.i[I_CACHE_ROWS] - 1);
+  return in<float>(a, P_CACHE_REC) + 24 * static_cast<int64_t>(j);
+}
+
+// _direct_illum's light row, from the first draw after `st`.
+__device__ __forceinline__ const float* nee_light(const Args& a, uint32_t st) {
+  const float ul = next_float(st);
+  const int num_lights = a.i[I_LIGHTS];
+  int light_idx = static_cast<int>(ul * a.f[F_LIGHTS]);
+  light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
+  light_idx = light_idx < 0 ? 0 : light_idx;
+  return in<float>(a, P_LIGHT_REC) + 24 * light_idx;
+}
+
+__global__ void __launch_bounds__(kBlk, kCamBlocks)
     vcm_camera_shade_kernel(const __grid_constant__ Args a) {
+  __shared__ LiveLanes live;
   const int lanes = a.i[I_LANES];
   const int i = blockIdx.x * kBlk + threadIdx.x;
   const bool lane = i < lanes;
   const bool active0 = lane && in<uint8_t>(a, P_ACTIVE)[i] != 0;
   unsigned long long* n_rays = out<unsigned long long>(a, P_O_NRAYS);
   if (n_rays) count_warp(active0 ? 1u : 0u, n_rays);
-  if (!lane) return;
+  if (threadIdx.x <= kKindBins) live.bin[threadIdx.x] = 0;
+  __syncthreads();
 
   const int bounce = a.i[I_BOUNCE];
   const int algo = a.i[I_ALGO];
   const int tech = a.i[I_TECH];
   const bool ppm = algo == ALGO_PPM;
-  const V3 org = load3(in<float>(a, P_ORG) + 3 * i);
-  const V3 d = load3(in<float>(a, P_D) + 3 * i);
-  const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
-  V3 rad = load3(in<float>(a, P_RAD) + 3 * i);
-  uint32_t st = static_cast<uint32_t>(in<int64_t>(a, P_STATE)[i]);
-  const float t = in<float>(a, P_HIT_T)[i];
-  const int prim = in<int>(a, P_HIT_PRIM)[i];
-  const float eta_vc = *in<float>(a, P_MIS_ETA_VC);
-  const float eta_vm = *in<float>(a, P_MIS_ETA_VM);
-  const float inv_lights = a.f[F_INV_LIGHTS];
-  const bool has_env = a.i[I_HAS_ENV] != 0;
-  const Env env = env_of(a);
-  const float inv_r2 = *in<float>(a, P_BS_INV_R2);
-
-  // ---- environment misses ----------------------------------------------
-  const bool miss = active0 && prim < 0;
-  if (has_env && (tech & T_LIGHT_HIT)) {
-    V3 term = zero3();
-    if (miss) {
-      float pdf_w;
-      const V3 li = env_radiance(env, normalize(d), pdf_w);
-      const float pdf_emit = (inv_r2 * F(kInvPi)) * pdf_w;
-      const float w_cam = (pdf_w * inv_lights) * in<float>(a, P_D_VCM)[i] +
-                          (pdf_emit * inv_lights) * in<float>(a, P_D_VC)[i];
-      const float w = (ppm || (algo == ALGO_PT && bounce == 0))
-                          ? 1.0f
-                          : rdiv1(w_cam + 1.0f);
-      term = scale(mul(thr, li), w);
-    }
-    rad = add(rad, term);
-  }
-  bool active = active0 && !miss;
-
-  const Interaction s = interaction(a, i, t, prim, org, d);
-  const float cos_o = fabsf(dot(s.w_out, s.normal));
-  const float inv_cos = rdiv1(clamp_min(cos_o, F(1e-9)));
-  const float d_vcm = (in<float>(a, P_D_VCM)[i] * (t * t)) * inv_cos;
-  const float d_vc = in<float>(a, P_D_VC)[i] * inv_cos;
-  const float d_vm = in<float>(a, P_D_VM)[i] * inv_cos;
-  active = active && cos_o > 0.f;
-
-  // ---- emitter hits ----------------------------------------------------
-  const bool is_emitter = active && s.light_id >= 0;
-  const float area = clamp_min(s.area, F(1e-12));
-  const float cos_geom = dot(s.gn, s.w_out);
-  const bool front = cos_geom > 0.f;
-  if (tech & T_LIGHT_HIT) {
-    V3 term = zero3();
-    if (is_emitter) {
-      const V3 li = front ? s.emit : zero3();
-      const float pdf_direct_a = front ? rdiv1(area) : 1.0f;
-      const float pdf_emit_w =
-          front ? (pos(cos_geom) * div_factor(kPi)) / area : 1.0f;
-      const float w_cam = (pdf_direct_a * inv_lights) * d_vcm +
-                          (pdf_emit_w * inv_lights) * d_vc;
-      const float w = (ppm || bounce == 0) ? 1.0f : rdiv1(w_cam + 1.0f);
-      term = scale(mul(thr, li), w);
-    }
-    rad = add(rad, term);
-  }
-  active = active && !is_emitter;
-  const bool non_spec = !is_specular(s.m);
-
-  // ---- NEE and vertex connections, up to their shadow rays -------------
-  int set = 0;
+  const int num_conn =
+      algo == ALGO_VCM || algo == ALGO_BPT ? a.i[I_NUM_CONN] : 0;
+  const bool cast_nee = !ppm && (tech & T_NEXT_EVENT);
+  const bool cast_conn = num_conn > 0 && (tech & T_CONNECT);
+  const int sets = (cast_nee ? 1 : 0) + ((tech & T_CONNECT) ? num_conn : 0);
   const int64_t n = lanes;
-  if (!ppm) {                                         // _direct_illum
-    const float ul = next_float(st);
+
+  // ---- phase 1: a lane a thread ----------------------------------------
+  int bin = -1;
+  if (lane) {
+    const uint32_t st_nee =
+        static_cast<uint32_t>(in<int64_t>(a, P_STATE)[i]);
+    const uint32_t st_conn = skip_draws(st_nee, ppm ? 0 : 3);
+    if (active0) {                    // phase 2's gathers, issued first
+      if (cast_nee)
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(nee_light(a, st_nee)));
+      if (cast_conn) {
+        const int count = *in<int>(a, P_CACHE_COUNT);
+        uint32_t st = st_conn;
+        for (int k = 0; k < num_conn; ++k) {
+          const float* row = cache_row(a, next_float(st), count);
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(row));
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(row + 23));
+        }
+      }
+    }
+    const V3 org = load3(in<float>(a, P_ORG) + 3 * i);
+    const V3 d = load3(in<float>(a, P_D) + 3 * i);
+    const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
+    V3 rad = load3(in<float>(a, P_RAD) + 3 * i);
+    const float t = in<float>(a, P_HIT_T)[i];
+    const int prim = in<int>(a, P_HIT_PRIM)[i];
+    const float inv_lights = a.f[F_INV_LIGHTS];
+    const float inv_r2 = *in<float>(a, P_BS_INV_R2);
+
+    // ---- environment misses --------------------------------------------
+    const bool miss = active0 && prim < 0;
+    if (a.i[I_HAS_ENV] != 0 && (tech & T_LIGHT_HIT)) {
+      V3 term = zero3();
+      if (miss) {
+        float pdf_w;
+        const V3 li = env_radiance(env_of(a), normalize(d), pdf_w);
+        const float pdf_emit = (inv_r2 * F(kInvPi)) * pdf_w;
+        const float w_cam =
+            (pdf_w * inv_lights) * in<float>(a, P_D_VCM)[i] +
+            (pdf_emit * inv_lights) * in<float>(a, P_D_VC)[i];
+        const float w = (ppm || (algo == ALGO_PT && bounce == 0))
+                            ? 1.0f
+                            : rdiv1(w_cam + 1.0f);
+        term = scale(mul(thr, li), w);
+      }
+      rad = add(rad, term);
+    }
+    bool active = active0 && !miss;
+
+    const Interaction s = interaction(a, i, t, prim, org, d);
+    const float cos_o = fabsf(dot(s.w_out, s.normal));
+    const float inv_cos = rdiv1(clamp_min(cos_o, F(1e-9)));
+    const float d_vcm = (in<float>(a, P_D_VCM)[i] * (t * t)) * inv_cos;
+    const float d_vc = in<float>(a, P_D_VC)[i] * inv_cos;
+    const float d_vm = in<float>(a, P_D_VM)[i] * inv_cos;
+    active = active && cos_o > 0.f;
+
+    // ---- emitter hits --------------------------------------------------
+    const bool is_emitter = active && s.light_id >= 0;
+    if (tech & T_LIGHT_HIT) {
+      V3 term = zero3();
+      if (is_emitter) {
+        const float area = clamp_min(s.area, F(1e-12));
+        const float cos_geom = dot(s.gn, s.w_out);
+        const bool front = cos_geom > 0.f;
+        const V3 li = front ? s.emit : zero3();
+        const float pdf_direct_a = front ? rdiv1(area) : 1.0f;
+        const float pdf_emit_w =
+            front ? (pos(cos_geom) * div_factor(kPi)) / area : 1.0f;
+        const float w_cam = (pdf_direct_a * inv_lights) * d_vcm +
+                            (pdf_emit_w * inv_lights) * d_vc;
+        const float w = (ppm || bounce == 0) ? 1.0f : rdiv1(w_cam + 1.0f);
+        term = scale(mul(thr, li), w);
+      }
+      rad = add(rad, term);
+    }
+    store3(out<float>(a, P_O_RAD) + 3 * i, rad);
+    active = active && !is_emitter;
+
+    // ---- the merge query's columns -------------------------------------
+    if (a.p[P_Q_POS]) {
+      store3(out<float>(a, P_Q_POS) + 3 * i, s.pos);
+      store3(out<float>(a, P_Q_NORMAL) + 3 * i, s.normal);
+      store3(out<float>(a, P_Q_GN) + 3 * i, s.gn);
+      store3(out<float>(a, P_Q_W_OUT) + 3 * i, s.w_out);
+      out<int>(a, P_Q_KIND)[i] = s.m.kind;
+      store3(out<float>(a, P_Q_KD) + 3 * i, s.m.kd);
+      store3(out<float>(a, P_Q_KS) + 3 * i, s.m.ks);
+      out<float>(a, P_Q_NS)[i] = s.m.ns;
+      out<float>(a, P_Q_D_VCM)[i] = d_vcm;
+      out<float>(a, P_Q_D_VM)[i] = d_vm;
+      out<uint8_t>(a, P_Q_ACTIVE)[i] = active && !is_specular(s.m);
+      store3(out<float>(a, P_Q_THR) + 3 * i, thr);
+    }
+
+    if (!active0) {          // ---- dead on entry: the carry kept, no ray
+      Bounce b;
+      b.wi = zero3();
+      b.throughput = thr;
+      b.d_vc = d_vc;
+      b.d_vcm = d_vcm;
+      b.d_vm = d_vm;
+      b.active = false;
+      store_next(a, i, b, s.pos, thr, t, d_vc, d_vcm, d_vm,
+                 skip_draws(st_conn, num_conn + 4));
+      for (int k = 0; k < sets; ++k)
+        store_shadow(a, k * n + i, V3{kDeadPos, kDeadPos, kDeadPos},
+                     V3{kDeadDir, kDeadDir, kDeadDir}, kDeadTmin, kDeadTmax,
+                     kDeadOk, V3{kDeadContrib, kDeadContrib, kDeadContrib});
+    } else {                 // ---- live: its words, its kind's bin
+      const int k = threadIdx.x;
+      put3(live, W_POS, k, s.pos);
+      put3(live, W_NORMAL, k, s.normal);
+      put3(live, W_GN, k, s.gn);
+      put3(live, W_W_OUT, k, s.w_out);
+      live.word[W_KIND][k] = __int_as_float(s.m.kind);
+      put3(live, W_KD, k, s.m.kd);
+      put3(live, W_KS, k, s.m.ks);
+      put3(live, W_TF, k, s.m.tf);
+      live.word[W_NS][k] = s.m.ns;
+      live.word[W_IOR][k] = s.m.ior;
+      put3(live, W_THR, k, thr);
+      live.word[W_D_VC][k] = d_vc;
+      live.word[W_D_VCM][k] = d_vcm;
+      live.word[W_D_VM][k] = d_vm;
+      live.word[W_T][k] = t;
+      live.word[W_ACTIVE][k] = active ? 1.0f : 0.0f;
+      bin = clampi(s.m.kind, 0, kKindBins - 1);
+      atomicAdd(&live.bin[bin], 1);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {                    // the bins' first slots
+    int sum = 0;
+    for (int k = 0; k < kKindBins; ++k) {
+      const int c = live.bin[k];
+      live.bin[k] = sum;
+      sum += c;
+    }
+    live.bin[kKindBins] = sum;
+  }
+  __syncthreads();
+  if (bin >= 0) live.order[atomicAdd(&live.bin[bin], 1)] = threadIdx.x;
+  __syncthreads();
+
+  // ---- phase 2: the live lanes, a thread each --------------------------
+  // Each step reads the lane's words and RNG word anew (live_point).
+  if (static_cast<int>(threadIdx.x) >= live.bin[kKindBins]) return;
+  const int k = live.order[threadIdx.x];
+  const int j = blockIdx.x * kBlk + k;
+  const int nee_draws = ppm ? 0 : 3;
+
+  {                     // ---- bounce (its draws follow NEE's and _connect's)
+    const Interaction s = live_point(live, k);
+    const LiveCarry c = live_carry(live, k);
+    uint32_t st = skip_draws(static_cast<uint32_t>(in<int64_t>(a, P_STATE)[j]),
+                             nee_draws + num_conn);
+    const Bounce b =
+        vcm_bounce(s, c.thr, c.d_vc, c.d_vcm, c.d_vm, c.active, st,
+                   *in<float>(a, P_MIS_ETA_VC), *in<float>(a, P_MIS_ETA_VM),
+                   false, ppm, bounce + 1 >= a.i[I_MAX_LEN]);
+    store_next(a, j, b, s.pos, c.thr, c.t, c.d_vc, c.d_vcm, c.d_vm, st);
+  }
+
+  int set = 0;
+  if (cast_nee) {                                     // ---- NEE
+    const Interaction s = live_point(live, k);
+    const LiveCarry c = live_carry(live, k);
+    const uint32_t st0 = static_cast<uint32_t>(in<int64_t>(a, P_STATE)[j]);
+    uint32_t st = skip_draws(st0, 1);
     const float ua = next_float(st);
     const float ub = next_float(st);
-    const int num_lights = a.i[I_LIGHTS];
-    int light_idx = static_cast<int>(ul * a.f[F_LIGHTS]);
-    light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
-    light_idx = light_idx < 0 ? 0 : light_idx;
     const DirectSample ds =
-        sample_direct(in<float>(a, P_LIGHT_REC) + 24 * light_idx, s.pos, ua,
-                      ub, env, has_env, inv_r2);
+        sample_direct(nee_light(a, st0), s.pos, ua, ub, env_of(a),
+                      a.i[I_HAS_ENV] != 0, *in<float>(a, P_BS_INV_R2));
     const float cos_i = fabsf(dot(s.normal, ds.dir));
     float pdf_dir, pdf_rev;
     const V3 f =
         eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, ds.dir, pdf_dir, pdf_rev);
-    bool ok = active && pdf_dir > 0.f && pdf_rev > 0.f;
+    bool ok = c.active && pdf_dir > 0.f && pdf_rev > 0.f;
     const float pdf_forward = ds.is_delta ? 0.f : pdf_dir;
     const float w_light =
         (pdf_forward * a.f[F_LIGHTS]) / clamp_min(ds.pdf_direct_w, F(1e-20));
     const float w_cam =
         ((ds.pdf_emit_w * cos_i) /
          clamp_min(ds.pdf_direct_w * ds.cos_out, F(1e-20))) *
-        ((eta_vm + d_vcm) + d_vc * pdf_rev);
+        ((*in<float>(a, P_MIS_ETA_VM) + c.d_vcm) + c.d_vc * pdf_rev);
     const float w =
         algo == ALGO_PT ? 1.0f : rdiv1((w_cam + 1.0f) + w_light);
-    const V3 contrib = scale(mul(mul(thr, f), ds.radiance),
+    const V3 contrib = scale(mul(mul(c.thr, f), ds.radiance),
                              (w * cos_i) * a.f[F_LIGHTS]);
     ok = ok && any_positive(contrib);
     const float offset =
         (ds.distance >= F(kBig) ? 1.0f : ds.distance) * F(1e-3);
-    if (tech & T_NEXT_EVENT) {
-      store_shadow(a, i, s.pos, ds.dir, offset, ds.distance - offset, ok,
-                   contrib);
-      set = 1;
-    }
+    store_shadow(a, j, s.pos, ds.dir, offset, ds.distance - offset, ok,
+                 contrib);
+    set = 1;
   }
-  if (algo == ALGO_VCM || algo == ALGO_BPT) {         // _connect
+
+  for (int q = 0; cast_conn && q < num_conn; ++q) {   // ---- _connect
+    const Interaction s = live_point(live, k);
+    const LiveCarry c = live_carry(live, k);
+    uint32_t st = skip_draws(static_cast<uint32_t>(in<int64_t>(a, P_STATE)[j]),
+                             nee_draws + q);
     const int count = *in<int>(a, P_CACHE_COUNT);
-    const float count_f = static_cast<float>(count);
-    const int last_row = count - 1 > 0 ? count - 1 : 0;
-    const float base_radius = *in<float>(a, P_BASE_RADIUS);
-    const Atlas at = atlas_of(a);
-    const bool has_textures = a.i[I_HAS_TEXTURES] != 0;
-    const int cam_path_length = bounce + 1;
-    for (int k = 0; k < a.i[I_NUM_CONN]; ++k) {
-      const float uc = next_float(st);
-      int j = static_cast<int>(uc * count_f);
-      j = j < last_row ? j : last_row;
-      j = clampi(j, 0, a.i[I_CACHE_ROWS] - 1);
-      const LightVertex v = vertex_from_rec(
-          in<float>(a, P_CACHE_REC) + 24 * static_cast<int64_t>(j),
-          in<float>(a, P_MAT_REC), a.i[I_MATS], at, has_textures);
-      bool ok = active && non_spec && count > 0 &&
-                v.path_length + cam_path_length <= a.i[I_MAX_LEN];
-      const V3 to_v = sub(v.pos, s.pos);
-      const float dist_sq = clamp_min(dot(to_v, to_v), F(1e-20));
-      const float dist = sqrtf(dist_sq);
-      const V3 cdir = divs(to_v, dist);
-      ok = ok && dist >= base_radius;
-      float pdf_cam, pdf_cam_rev, pdf_light, pdf_light_rev;
-      const V3 f_cam = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, cdir,
-                                     pdf_cam, pdf_cam_rev);
-      const V3 f_light = eval_pdf_bsdf(v.m, v.normal, v.gn, v.w_out,
-                                       neg(cdir), pdf_light, pdf_light_rev);
-      ok = ok && pdf_cam > 0.f && pdf_cam_rev > 0.f && pdf_light > 0.f &&
-           pdf_light_rev > 0.f;
-      const float cos_cam = fabsf(dot(s.normal, cdir));
-      const float cos_light =
-          fabsf(shading_normal_adjoint(v.normal, v.gn, v.w_out, neg(cdir)));
-      const float geom = (cos_cam * cos_light) / dist_sq;
-      ok = ok && geom > 0.f;
-      const float pdf_cam_a = (pdf_cam * cos_light) / dist_sq;
-      const float pdf_light_a = (pdf_light * cos_cam) / dist_sq;
-      const float w_light =
-          pdf_cam_a * ((eta_vm + v.d_vcm) + v.d_vc * pdf_light_rev);
-      const float w_cam =
-          pdf_light_a * ((eta_vm + d_vcm) + d_vc * pdf_cam_rev);
-      const float w = rdiv1((w_cam + 1.0f) + w_light);
-      const float vc_weight = count_f * a.f[F_VC_NORM];
-      const V3 contrib =
-          scale(mul(mul(mul(thr, v.throughput), f_cam), f_light),
-                (w * geom) * vc_weight);
-      ok = ok && any_positive(contrib);
-      const float offset = dist * F(1e-3);
-      if (tech & T_CONNECT) {
-        store_shadow(a, set * n + i, s.pos, cdir, offset, dist - offset, ok,
-                     contrib);
-        ++set;
-      }
-    }
+    const LightVertex v =
+        vertex_from_rec(cache_row(a, next_float(st), count),
+                        in<float>(a, P_MAT_REC), a.i[I_MATS], atlas_of(a),
+                        a.i[I_HAS_TEXTURES] != 0);
+    bool ok = c.active && !is_specular(s.m) && count > 0 &&
+              v.path_length + (bounce + 1) <= a.i[I_MAX_LEN];
+    const V3 to_v = sub(v.pos, s.pos);
+    const float dist_sq = clamp_min(dot(to_v, to_v), F(1e-20));
+    const float dist = sqrtf(dist_sq);
+    const V3 cdir = divs(to_v, dist);
+    ok = ok && dist >= *in<float>(a, P_BASE_RADIUS);
+    float pdf_cam, pdf_cam_rev, pdf_light, pdf_light_rev;
+    const V3 f_cam = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, cdir,
+                                   pdf_cam, pdf_cam_rev);
+    const V3 f_light = eval_pdf_bsdf(v.m, v.normal, v.gn, v.w_out, neg(cdir),
+                                     pdf_light, pdf_light_rev);
+    ok = ok && pdf_cam > 0.f && pdf_cam_rev > 0.f && pdf_light > 0.f &&
+         pdf_light_rev > 0.f;
+    const float cos_cam = fabsf(dot(s.normal, cdir));
+    const float cos_light =
+        fabsf(shading_normal_adjoint(v.normal, v.gn, v.w_out, neg(cdir)));
+    const float geom = (cos_cam * cos_light) / dist_sq;
+    ok = ok && geom > 0.f;
+    const float eta_vm = *in<float>(a, P_MIS_ETA_VM);
+    const float pdf_cam_a = (pdf_cam * cos_light) / dist_sq;
+    const float pdf_light_a = (pdf_light * cos_cam) / dist_sq;
+    const float w_light =
+        pdf_cam_a * ((eta_vm + v.d_vcm) + v.d_vc * pdf_light_rev);
+    const float w_cam =
+        pdf_light_a * ((eta_vm + c.d_vcm) + c.d_vc * pdf_cam_rev);
+    const float w = rdiv1((w_cam + 1.0f) + w_light);
+    const float vc_weight = static_cast<float>(count) * a.f[F_VC_NORM];
+    const V3 contrib =
+        scale(mul(mul(mul(c.thr, v.throughput), f_cam), f_light),
+              (w * geom) * vc_weight);
+    ok = ok && any_positive(contrib);
+    const float offset = dist * F(1e-3);
+    store_shadow(a, (set + q) * n + j, s.pos, cdir, offset, dist - offset,
+                 ok, contrib);
   }
-
-  // ---- the merge query's columns ---------------------------------------
-  if (a.p[P_Q_POS]) {
-    store3(out<float>(a, P_Q_POS) + 3 * i, s.pos);
-    store3(out<float>(a, P_Q_NORMAL) + 3 * i, s.normal);
-    store3(out<float>(a, P_Q_GN) + 3 * i, s.gn);
-    store3(out<float>(a, P_Q_W_OUT) + 3 * i, s.w_out);
-    out<int>(a, P_Q_KIND)[i] = s.m.kind;
-    store3(out<float>(a, P_Q_KD) + 3 * i, s.m.kd);
-    store3(out<float>(a, P_Q_KS) + 3 * i, s.m.ks);
-    out<float>(a, P_Q_NS)[i] = s.m.ns;
-    out<float>(a, P_Q_D_VCM)[i] = d_vcm;
-    out<float>(a, P_Q_D_VM)[i] = d_vm;
-    out<uint8_t>(a, P_Q_ACTIVE)[i] = active && non_spec;
-    store3(out<float>(a, P_Q_THR) + 3 * i, thr);
-  }
-
-  // ---- bounce ----------------------------------------------------------
-  const Bounce b =
-      vcm_bounce(s, thr, d_vc, d_vcm, d_vm, active, st, eta_vc, eta_vm, false,
-                 ppm, bounce + 1 >= a.i[I_MAX_LEN]);
-  store_next(a, i, b, s.pos, thr, t, d_vc, d_vcm, d_vm, st);
-  store3(out<float>(a, P_O_RAD) + 3 * i, rad);
 }
 
 // ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ around the Pallas calls.  The card's counterpart is one kernel a step
     scene's bounds read from a (6,) tensor made once a BVH
     (DeviceBvh.bounds);
   * `rows`: the (R_pad, 8) ray rows in sorted order (_sorted_dispatch's
-    gathers and _rays8t), padded with dead rows to a BLK multiple;
+    gathers and _rays8t), padded with dead rows to a BLK multiple; on
+    the card two threads a row, each storing a 16-byte half;
   * `khit_resolve`: the khit re-trace's round after its dispatch
     (imbatracer_tpu/render/traverse.py _closest_hit_masked_khit's while
     body): each sorted (R, 32) khit row's K hits alpha-tested, the first

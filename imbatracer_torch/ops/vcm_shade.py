@@ -20,7 +20,8 @@ each traversal:
   * `camera_shade`: one camera bounce between its closest hit and its
     shadow rays' any hit (the env-miss and emitter MIS terms, the
     interaction and partial weights, NEE and the vertex connections up to
-    their shadow rays, the merge query's columns, the bounce);
+    their shadow rays, the merge query's columns, the bounce); a lane
+    dead on entry casts no shadow ray, its rows DEAD_SHADOW;
   * `light_finish` / `camera_finish`: one kernel with two entry points,
     after the any hit: the camera connection's row kept where it was not
     occluded, or each shadow set's contribution added where it was not
@@ -96,6 +97,15 @@ class ShadowSets(NamedTuple):
     tmax: torch.Tensor     # (S R,)
     ok: torch.Tensor       # (S R,) bool: the rays cast
     contrib: torch.Tensor  # (S R, 3) added where the ray is not occluded
+
+
+# A shadow set's row of a lane dead on entry (its carry's active flag
+# false): no ray is cast and no light is added.  The camera kernel returns
+# before NEE and the connections on such a lane and writes these
+# (csrc/vcm_shade.cu kDead*); nothing reads them but the any hit, which
+# skips a row that is not ok.
+DEAD_SHADOW = ShadowSets(pos=0.0, dir=0.0, tmin=0.0, tmax=0.0, ok=False,
+                         contrib=0.0)
 
 
 class MergeQuery(NamedTuple):
@@ -363,8 +373,9 @@ def camera_shade_plain(scene, c, hit, i, *, cache_count, cache_rec,
     MergeQuery).  The next carry's radiance holds the env and emitter
     terms, its n_rays (with "n_rays" in c) the closest-hit rays;
     camera_finish adds the shadow sets and their rays, and the merge adds
-    its term from the query.  `query` asks for the merge query (the plain
-    version makes it either way)."""
+    its term from the query.  A lane dead on entry casts no shadow ray:
+    its rows hold DEAD_SHADOW.  `query` asks for the merge query (the
+    plain version makes it either way)."""
     LAUNCHES["camera_shade_plain"] += 1
     org, d, throughput, active, state = (c["org"], c["d"], c["throughput"],
                                          c["active"], c["state"])
@@ -438,8 +449,11 @@ def camera_shade_plain(scene, c, hit, i, *, cache_count, cache_rec,
                 enabled="connect" in techniques)
     sets = None
     if shadow:
-        sets = ShadowSets(*(torch.cat([s[k] for s in shadow])
-                            for k in range(6)))
+        dead = (~c["active"]).repeat(len(shadow))
+        sets = ShadowSets(*(
+            torch.where(dead.view(-1, *[1] * (x.dim() - 1)), v, x)
+            for x, v in zip((torch.cat([s[k] for s in shadow])
+                             for k in range(6)), DEAD_SHADOW)))
     q = MergeQuery(isect.pos, isect.normal, isect.gn, isect.w_out,
                    isect.params, d_vcm, d_vm, active & non_spec, throughput)
 
@@ -802,8 +816,10 @@ def camera_shade_cuda(scene, c, hit, i, *, cache_count, cache_rec,
                       light_path_count, num_connections, has_bump,
                       techniques, query=True):
     """Launch vcm_camera_shade_kernel (raises on anything but CUDA
-    tensors): camera_shade_plain's outputs, computed a lane a thread (the
-    merge query None unless `query`)."""
+    tensors): camera_shade_plain's outputs (the merge query None unless
+    `query`), a block in two phases: a lane a thread up to the merge
+    query, then the block's live lanes compacted and ordered by material
+    kind for the bounce, NEE and the connections (csrc/vcm_shade.cu)."""
     lanes = c["active"].shape[0]
     dev = c["active"].device
     counted = "n_rays" in c

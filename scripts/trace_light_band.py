@@ -22,7 +22,8 @@ between the marks, the port's ctypes launches included):
   the canonical order and the photon grid, eager once a frame, with
   their device time, kernels by name and launches, and the middle's
   peak memory above what the frame held when it began; then one graphed
-  PT frame of the same scene (wall, busy, kernels);
+  PT frame of the same scene (wall, busy, kernels); every graphed frame
+  also logs the device time and launches of the kernels in NAMED;
 * the instanced scene (scene/generate.CARD, 1920x1080, default light
   paths): one graphed vcm frame (busy, the middle, the scalar-add
   kernels `CUDAFunctorOnSelf_add` by launch shape from its chrome
@@ -231,6 +232,11 @@ def middle_ranged():
     vcm.working_cache = closed
 
 
+# Kernels whose device time and launches every graphed frame logs: the
+# two redesigned for Hopper (csrc/dispatch.cu, csrc/vcm_shade.cu).
+NAMED = ("dispatch_rows_kernel", "vcm_camera_shade_kernel")
+
+
 def graphed_frame(scene, meta, settings, tag, chrome=None):
     """Trace one graphed frame after a warm-up frame (the captures); log
     its wall and device busy time, top kernels and its middle's range;
@@ -250,6 +256,11 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
     print(f"[lighttrace] graphed {tag} frame: wall {wall:.1f} ms",
           flush=True)
     show(f"graphed {tag} frame", tot, ARGS.top)
+    for part in NAMED:
+        us = sum(v[0] for k, v in tot.items() if part in k)
+        n = sum(v[1] for k, v in tot.items() if part in k)
+        print(f"[lighttrace]   graphed {tag} frame, kernels named *{part}*: "
+              f"{us / 1e3:.3f} ms, {n} launches", flush=True)
     for _, middle in regions(prof):
         show(f"graphed {tag} frame: the middle (selection, canonical "
              f"order, photon grid, static inputs)", middle, ARGS.top)

@@ -2,7 +2,7 @@
 the sort keys, the sorted ray rows, the khit and stream resolves; their
 plain PyTorch versions on the CPU) against the JAX package's functions
 they stand for: pallas_stream.sort_keys, _rays8t after the same
-permutation, closest_hit_sorted / any_hit_sorted (the stream kernel in
+permutation (also at the ragged shapes of tests/torch_dispatch_cases.py), closest_hit_sorted / any_hit_sorted (the stream kernel in
 interpret mode), and traverse.closest_hit's masked loops with the
 mask-record alpha_fn of render/integrators/pt.py on the stacked masked
 layers of tests/test_torch_masks.py (a flat BVH: the khit resolve; a
@@ -41,6 +41,7 @@ from imbatracer_torch.scene.textures import MaskTest, TextureAtlas
 from test_torch_graphs import _two_level_layers
 from test_torch_masks import _layers
 from test_torch_traverse import _interp
+from torch_dispatch_cases import RAGGED_ROWS
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -143,6 +144,57 @@ def test_plain_rows_match_jax_rays8t(big, n, case, tcur):
                          a)
     assert got.shape == (m + (-m) % st.BLK, 8)
     # JAX pads to its own block (ps.BLK >= st.BLK) with the same dead rows.
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).T[:got.shape[0]])
+
+
+@pytest.mark.parametrize("n,case,permuted,lims,tcur", RAGGED_ROWS)
+def test_plain_rows_match_jax_at_ragged_shapes(big, n, case, permuted, lims,
+                                               tcur):
+    """rows_plain against JAX's _rays8t of the (permuted) lanes at the
+    shapes the kernel's launch geometry meets (tests/
+    torch_dispatch_cases.py): the row count around the
+    rows a thread and a block, n_pad far above n, perm None, a slot map
+    with its state by slot or by lane, tmin and tmax at a stride of 0 or
+    1, tcur with and without `step`."""
+    org, d, act, tmax = _rays(n, 11 + n, big.bvh)
+    lanes = _lanes_of(case, n, 12 + n)
+    by_lane = case != "slots"
+    sel = np.arange(n) if lanes is None else lanes
+    m = len(sel)
+    rs = np.random.RandomState(13 + n)
+    tmin = rs.uniform(0.0, 1e-2, n).astype(np.float32)
+    tc = rs.uniform(0.0, 3.0, n).astype(np.float32)
+    perm = rs.permutation(m).astype(np.int64) if permuted else None
+    s_act = act if by_lane else act[sel]
+    s_tc = tc if by_lane else tc[sel]
+    stride0 = lims == "stride0"
+    lo = st.full_lanes(1e-3 if stride0 else torch.from_numpy(tmin), n, "cpu")
+    hi = st.full_lanes(7.5 if stride0 else torch.from_numpy(tmax), n, "cpu")
+    if n > 1:                      # one lane's stride is 1 either way
+        assert (lo.stride(0), hi.stride(0)) == ((0, 0) if stride0
+                                                else (1, 1))
+    got = dp.rows_plain(
+        torch.from_numpy(org), torch.from_numpy(d), lo, hi,
+        None if perm is None else torch.from_numpy(perm), m,
+        active=torch.from_numpy(s_act), center=big.bvh.center,
+        lanes=None if lanes is None else torch.from_numpy(lanes),
+        tcur=None if tcur == "none" else torch.from_numpy(s_tc),
+        step=tcur == "step", by_lane=by_lane)
+    slot = np.arange(m) if perm is None else perm
+    lane = sel[slot]
+    state = lane if by_lane else slot
+    a = jnp.asarray(s_act[state])
+    base = (np.full(m, 1e-3, np.float32) if stride0 else tmin[lane])
+    lo_j = jnp.asarray(base)
+    if tcur != "none":
+        t = jnp.asarray(s_tc[state])
+        c = t + 1e-3 * jnp.maximum(t, 1e-3) if tcur == "step" else t
+        lo_j = jnp.where(a, c, lo_j)
+    hi_j = np.full(m, 7.5, np.float32) if stride0 else tmax[lane]
+    want, _ = ps._rays8t(jnp.asarray(org[lane] - big.bvh.center.numpy()),
+                         jnp.asarray(d[lane]), lo_j, jnp.asarray(hi_j), a)
+    assert got.shape == (m + (-m) % st.BLK, 8)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(want).T[:got.shape[0]])
 

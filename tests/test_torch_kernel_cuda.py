@@ -48,6 +48,7 @@ from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.procedural import (make_big_scene,
                                                make_leaf_scene)
+from torch_dispatch_cases import RAGGED_ROWS
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -1238,6 +1239,72 @@ def test_cuda_vcm_shade_camera_kernels_match_plain(cuda_device, name, algo,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("algo,conns", [("vcm", 3), ("bpt", 2)])
+@pytest.mark.parametrize("name", ["cornell", "still_life"])
+@pytest.mark.parametrize("band", ["all_dead", "half_dead"])
+def test_cuda_vcm_camera_kernel_on_dead_bands(cuda_device, band, name, algo,
+                                              conns):
+    """vcm_camera_shade_kernel against camera_shade_plain, at the column
+    gates of test_cuda_vcm_shade_camera_kernels_match_plain, on a band
+    dead on entry (every lane finished in the kernel's first phase) and on
+    one whose half dies at the miss or emitter test
+    (torch_shade_cases.dying_lanes: alive on entry, carried into the
+    second phase); a dead lane's shadow rows hold DEAD_SHADOW.  One
+    launch each."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt
+    from torch_shade_cases import (carry_arrays, dying_lanes, port_scene,
+                                   torch_carry)
+
+    scene, meta = port_scene(name, cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device, algo)
+    fi = _vcm_cache(scene, meta, cam, fi)
+    arrays = carry_arrays(meta, 4096, seed=17, mixed=True)
+    if band == "all_dead":
+        arrays["active"][:] = False
+    else:
+        lt = scene.lights
+        k = int(torch.nonzero(lt.kind == 0)[0, 0])
+        tri = tuple(x[k].cpu().numpy() for x in (lt.p0, lt.p1, lt.p2,
+                                                 lt.normal))
+        arrays = dying_lanes(arrays, tri, scene.bsphere.center.cpu().numpy(),
+                             float(scene.bsphere.radius), 19)
+    c = torch_carry(arrays, cuda_device)
+    g = torch.Generator().manual_seed(5)
+    for key, hi in (("d_vc", 2.0), ("d_vcm", 50.0), ("d_vm", 3.0)):
+        c[key] = (torch.rand(4096, generator=g) * hi).to(cuda_device)
+    c = {key: c[key] for key in vs.CAMERA_CARRY + ("n_rays",)}
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                         alpha_fn=alpha_fn, active=c["active"], sort=True)
+    kw = dict(cache_count=fi.cache_count, cache_rec=fi.cache_rec,
+              base_radius=fi.base_radius, mis_eta_vc=fi.mis_eta_vc,
+              mis_eta_vm=fi.mis_eta_vm, algo=algo, max_len=VCM_MAX_LEN,
+              light_path_count=VCM_LPC, num_connections=conns,
+              has_bump=meta.has_bump, techniques=vs.TECHNIQUES)
+    vs.reset_launches()
+    k_nxt, k_sh, k_q = vs.camera_shade_cuda(scene, c, hit, 2, **kw)
+    p_nxt, p_sh, p_q = vs.camera_shade_plain(scene, c, hit, 2, **kw)
+    _hold_vcm_columns(k_nxt, p_nxt)
+    _hold_vcm_columns(k_sh._asdict(), p_sh._asdict())
+    if k_q is not None:
+        kq, pq = k_q._asdict(), p_q._asdict()
+        for n in ("kind", "kd", "ks", "ns"):
+            kq[n], pq[n] = kq["params"][n], pq["params"][n]
+        del kq["params"], pq["params"]
+        _hold_vcm_columns(kq, pq)
+    dead = (~c["active"]).repeat(vs.shadow_sets(algo, vs.TECHNIQUES, conns))
+    for field, value in zip(vs.ShadowSets._fields, vs.DEAD_SHADOW):
+        assert (getattr(k_sh, field)[dead] == value).all(), field
+    assert int(k_nxt["n_rays"]) == int(c["active"].sum())
+    if band == "half_dead":
+        assert k_sh.ok.any()
+    else:
+        assert not k_nxt["active"].any() and not k_sh.ok.any()
+    assert vs.LAUNCHES["camera_shade"] == 1
+
+
+@pytest.mark.cuda
 def test_cuda_vcm_shade_graphs_follow_the_frame(cuda_device):
     """The light and camera graphs read the frame number, the MIS
     constants, the working cache and the camera through pointers: frames
@@ -1519,6 +1586,47 @@ def test_cuda_dispatch_kernels_match_plain(cuda_device, tmp_path_factory,
               dict(flag=flag), disp, occ, dp.OCCLUSION)
     assert dp.LAUNCHES["dispatch_keys"] == 6          # three here, three
     assert dp.LAUNCHES["dispatch_rows"] == 12         # in prepare()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,case,permuted,lims,tcur", RAGGED_ROWS)
+def test_cuda_dispatch_rows_at_ragged_shapes(cuda_device, n, case, permuted,
+                                             lims, tcur):
+    """dispatch_rows_kernel bit-equal to rows_plain at the shapes its
+    launch geometry meets (tests/torch_dispatch_cases.py: rows around the
+    rows a thread and a block, n_pad far above n, perm None, slot maps
+    with state by slot or by lane, stride-0 tmin and tmax, tcur with and
+    without step), padding rows included.  One launch each."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    rs = np.random.RandomState(n)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
+                                                    device=cuda_device)
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org, d = t(rs.uniform(-3.0, 3.0, (n, 3))), t(d)
+    lanes = None if case == "all" else t(np.sort(rs.choice(
+        n, max(n // 2, 1), replace=False)), torch.int64)
+    m = n if lanes is None else lanes.shape[0]
+    by_lane = case != "slots"
+    size = n if by_lane else m
+    stride0 = lims == "stride0"
+    lo = st.full_lanes(1e-3 if stride0 else t(rs.uniform(0.0, 1e-2, n)), n,
+                       cuda_device)
+    hi = st.full_lanes(7.5 if stride0 else t(rs.uniform(0.5, 12.0, n)), n,
+                       cuda_device)
+    kw = dict(active=t(rs.rand(size) < 0.8, torch.bool),
+              center=t(rs.uniform(-1.0, 1.0, 3)), lanes=lanes,
+              tcur=None if tcur == "none" else t(rs.uniform(0.0, 3.0, size)),
+              step=tcur == "step", by_lane=by_lane)
+    perm = t(rs.permutation(m), torch.int64) if permuted else None
+    dp.reset_launches()
+    got = dp.rows_cuda(org, d, lo, hi, perm, m, **kw)
+    want = dp.rows_plain(org, d, lo, hi, perm, m, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (m + (-m) % st.BLK, 8)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert dp.LAUNCHES["dispatch_rows"] == 1
 
 
 def _need_out_default(fn):

@@ -17,11 +17,15 @@ the CPU.
   technique subset.  JAX's closest hit is replaced by the port's; the
   merge of both sides is replaced by a recorder, and the recorded query
   columns are compared (the merge itself: tests/test_torch_merge.py).
+* The same on bands dead on entry and half dying at the miss or emitter
+  test (what the camera kernel finishes in its first phase), and the
+  shadow rows of lanes dead on entry: DEAD_SHADOW, the carry kept.
 * Tolerance, as tests/test_torch_shade.py's: RNG state, flags, counts and
   pixel ids equal; floats within 1e-5 * max(1, |x|) on all lanes but at
   most 1% of them, those within 1e-3.
 * The binding's argument lists against the enums of csrc/vcm_shade.cu,
-  and CPU tensors never build the kernels' library.
+  its dead-row constants against DEAD_SHADOW, and CPU tensors never build
+  the kernels' library.
 """
 
 import re
@@ -40,14 +44,17 @@ from imbatracer_tpu.render.traverse import Hit as JHit
 from imbatracer_tpu.scene import procedural as jproc
 from imbatracer_torch import libbuild
 from imbatracer_torch.convert import scene_from_numpy, scene_to_numpy
+from imbatracer_torch.core import rng as trng
 from imbatracer_torch.ops import shade as sh
 from imbatracer_torch.ops import vcm_shade as vs
 from imbatracer_torch.render import light_cache as tlc
+from imbatracer_torch.render import materials as mat_mod
 from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.camera import make_camera as tcamera
 from imbatracer_torch.render.integrators import vcm as tvcm
+from imbatracer_torch.render.surface import make_interaction
 from torch_shade_cases import (SCENES, SMALL_STILL_LIFE, carry_arrays,
-                               with_delta_lights)
+                               dying_lanes, with_delta_lights)
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -266,11 +273,66 @@ CAMERA_CASES = [
 @pytest.mark.parametrize("name", SCENES)
 def test_camera_bounce_matches_jax(name, algo, conns, techniques, mixed,
                                    scenes, monkeypatch):
+    _, _, meta = scenes[name]
+    _camera_bounce_vs_jax(
+        scenes, monkeypatch, name, algo, conns,
+        techniques or tvcm.TECHNIQUES, 2 if mixed else 0,
+        _camera_carry(meta, SCENES.index(name) + 10 * mixed, mixed))
+
+
+def _tri_light(ts):
+    """(p0, p1, p2, normal) of the port's scene's first triangle light."""
+    lt = ts.lights
+    k = int(torch.nonzero(lt.kind == 0)[0, 0])
+    return tuple(x[k].numpy() for x in (lt.p0, lt.p1, lt.p2, lt.normal))
+
+
+def _dead_band(ts, meta, band, seed):
+    """A mixed camera carry whose lanes are all dead on entry, or whose
+    half die at the bounce's miss or emitter test (dying_lanes)."""
+    arrays = _camera_carry(meta, seed, True)
+    if band == "all_dead":
+        arrays["active"][:] = False
+        return arrays
+    return dying_lanes(arrays, _tri_light(ts), ts.bsphere.center.numpy(),
+                       float(ts.bsphere.radius), seed)
+
+
+@pytest.mark.parametrize("algo,conns", [("vcm", 3), ("bpt", 1)])
+@pytest.mark.parametrize("name", ["cornell", "still_life"])
+@pytest.mark.parametrize("band", ["all_dead", "half_dead"])
+def test_camera_bounce_on_dead_bands_matches_jax(band, name, algo, conns,
+                                                 scenes, monkeypatch):
+    """The plain camera bounce against JAX's camera body on a band dead
+    on entry and on one whose half dies at the miss or emitter test (the
+    lanes the camera kernel finishes in its first phase): the next carry,
+    its radiance after the shadow sets and the merge query."""
+    _, ts, meta = scenes[name]
+    arrays = _dead_band(ts, meta, band, 41 + SCENES.index(name))
+    if band == "half_dead":
+        hit = tt.closest_hit(ts.bvh, torch.as_tensor(arrays["org"]),
+                             torch.as_tensor(arrays["d"]),
+                             torch.as_tensor(arrays["tmin"]), tvcm.BIG,
+                             alpha_fn=tvcm.alpha_fn_for(ts)
+                             if meta.has_masks else None,
+                             active=torch.as_tensor(arrays["active"]))
+        isect = make_interaction(ts, hit, torch.as_tensor(arrays["org"]),
+                                 torch.as_tensor(arrays["d"]))
+        dies = (hit.prim_id < 0) | (isect.light_id >= 0)
+        assert float(dies.double().mean()) >= 0.45
+    _camera_bounce_vs_jax(scenes, monkeypatch, name, algo, conns,
+                          tvcm.TECHNIQUES, 2, arrays,
+                          lit=band == "half_dead")
+
+
+def _camera_bounce_vs_jax(scenes, monkeypatch, name, algo, conns, techniques,
+                          i, arrays, lit=True):
+    """The port's _camera_bounce (its plain shading) against JAX's
+    _camera_body_fn body at bounce i on the carry `arrays`, JAX's closest
+    hit and both merges replaced (module docstring); with `lit`, some
+    lane's radiance must have grown."""
     js, ts, meta = scenes[name]
-    techniques = techniques or tvcm.TECHNIQUES
-    i = 2 if mixed else 0
     cache = _light_cache(ts, meta, algo) if algo in ("vcm", "bpt") else None
-    arrays = _camera_carry(meta, SCENES.index(name) + 10 * mixed, mixed)
     _, base, pm_radius, eta_vc, eta_vm = _constants(algo)
     alpha = tvcm.alpha_fn_for(ts) if meta.has_masks else None
 
@@ -344,8 +406,56 @@ def test_camera_bounce_matches_jax(name, algo, conns, techniques, mixed,
         for k in set(a) - {"active", "kind"}:
             _close(a[k], b[k], f"merge {k}")
     # The bounce did work: light arrived where the techniques allow it.
-    if algo != "ppm" and techniques == tvcm.TECHNIQUES:
+    if lit and algo != "ppm" and techniques == tvcm.TECHNIQUES:
         assert (got["radiance"].numpy() > arrays["radiance"]).any()
+
+
+@pytest.mark.parametrize("algo,conns", [("vcm", 3), ("bpt", 1), ("ppm", 1),
+                                        ("pt", 1)])
+def test_dead_lanes_write_the_dead_shadow_rows(algo, conns, scenes):
+    """camera_shade_plain on a band whose half is dead on entry: a dead
+    lane's shadow rows hold DEAD_SHADOW (no ray, no light), its merge
+    query is off, and its next carry is its carry kept -- inactive, no
+    ray, its throughput and radiance, tmin from its hit, its RNG word past
+    the body's draws (NEE's 3, one a connection, the bounce's 4).  The
+    camera kernel returns early on such a lane and writes the same
+    (tests/test_torch_kernel_cuda.py)."""
+    _, ts, meta = scenes["cornell"]
+    cache = _light_cache(ts, meta, algo) if algo in ("vcm", "bpt") else None
+    arrays = _camera_carry(meta, 23, True)
+    arrays["active"][::2] = False
+    c = {k: torch.as_tensor(v) for k, v in arrays.items() if k != "state"}
+    c["state"] = torch.as_tensor(arrays["state"].astype(np.int64))
+    hit = tt.closest_hit(ts.bvh, c["org"], c["d"], c["tmin"], tvcm.BIG,
+                         active=c["active"], sort=True)
+    _, base, _, eta_vc, eta_vm = _constants(algo)
+    nxt, sets, q = vs.camera_shade_plain(
+        ts, c, hit, 2, cache_count=None if cache is None else cache.count,
+        cache_rec=None if cache is None else cache.packed(),
+        base_radius=base, mis_eta_vc=eta_vc, mis_eta_vm=eta_vm, algo=algo,
+        max_len=MAX_LEN, light_path_count=LPC, num_connections=conns,
+        has_bump=False, techniques=tvcm.TECHNIQUES)
+    dead = ~c["active"]
+    n_sets = vs.shadow_sets(algo, tvcm.TECHNIQUES, conns)
+    if n_sets:
+        rows = dead.repeat(n_sets)
+        for field, value in zip(vs.ShadowSets._fields, vs.DEAD_SHADOW):
+            assert (getattr(sets, field)[rows] == value).all(), field
+        assert sets.ok[~rows].any()
+    else:
+        assert sets is None
+    assert not q.active[dead].any() and not nxt["active"][dead].any()
+    assert (nxt["org"][dead] == 0).all() and (nxt["d"][dead] == 0).all()
+    for k in ("throughput", "radiance"):
+        np.testing.assert_array_equal(nxt[k][dead].numpy(),
+                                      c[k][dead].numpy(), err_msg=k)
+    np.testing.assert_array_equal(nxt["tmin"][dead].numpy(),
+                                  (hit.t * 1e-4)[dead].numpy())
+    draws = ((0 if algo == "ppm" else 3)
+             + (conns if algo in ("vcm", "bpt") else 0) + 4)
+    state, _ = trng.next_floats(c["state"], draws)
+    np.testing.assert_array_equal(nxt["state"][dead].numpy(),
+                                  state[dead].numpy())
 
 
 def test_camera_finish_adds_the_sets_in_order(scenes):
@@ -461,6 +571,16 @@ def test_binding_matches_the_kernel_source():
                                    "K_CAMERA_SHADE", "NUM_SHADE"]
     assert [vs.WHICH[k] for k in ("light_start", "light_shade",
                                   "camera_shade")] == [0, 1, 2]
+    # The camera kernel's dead-lane shadow row and its kind bins.
+    dead = {k.lower(): v for k, v in re.findall(
+        r"constexpr (?:float|bool) kDead(\w+) = (\w+(?:\.\w+)?)", src)}
+    parse = lambda v: v == "true" if v in ("true", "false") else float(
+        v.rstrip("f"))
+    assert {k: parse(v) for k, v in dead.items()} == dict(
+        zip(vs.ShadowSets._fields, vs.DEAD_SHADOW))
+    bins = int(re.search(r"kKindBins = (\d+);", src).group(1))
+    assert bins > max(getattr(mat_mod, k) for k in dir(mat_mod)
+                      if k.startswith("MAT_"))
     assert tvcm.ALGOS is vs.ALGOS and tvcm.TECHNIQUES is vs.TECHNIQUES
 
 

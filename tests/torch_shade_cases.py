@@ -119,3 +119,30 @@ def torch_carry(arrays, device):
                                  device=device)
     c["n_rays"] = torch.zeros((), dtype=torch.int64, device=device)
     return c
+
+
+def dying_lanes(arrays, tri, center, radius, seed):
+    """carry_arrays' `arrays` with half the lanes alive on entry and made
+    to die at a camera bounce's first tests: every fourth lane from three
+    bounding radii outside the scene pointing away from it (a miss), every
+    fourth from half a unit in front of the triangle light `tri` (its p0,
+    p1, p2 and normal, along which it emits) straight into it (an emitter
+    hit).  `center`, `radius`: the scene's bounding sphere."""
+    a = {k: v.copy() for k, v in arrays.items()}
+    n = len(a["active"])
+    rs = np.random.RandomState(seed)
+    away = rs.normal(size=(n, 3))
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+    lane = np.arange(n)
+    miss, light = lane % 4 == 0, lane % 4 == 1
+    a["org"][miss] = np.asarray(center) + 3.0 * radius * away[miss]
+    a["d"][miss] = away[miss]
+    p0, p1, p2, normal = (np.asarray(x, np.float64) for x in tri)
+    u, v = rs.uniform(0.1, 0.45, n), rs.uniform(0.1, 0.45, n)
+    on = p0 + u[:, None] * (p1 - p0) + v[:, None] * (p2 - p0)
+    a["org"][light] = on[light] + 0.5 * normal
+    a["d"][light] = -normal
+    a["active"][miss | light] = True
+    for k in ("org", "d"):
+        a[k] = a[k].astype(np.float32)
+    return a
