@@ -74,7 +74,8 @@ failure raises and the script exits non-zero:
    csrc/vcm_shade.cu) against their plain versions on the same inputs, run
    on the card: NUM_RAYS-lane bands of the still life at 1920x1080 with
    VCM_LPC light paths -- the light band's start (its padded form, the
-   band end a pointer), light bounces 0 and 3, camera bounces 0 and 3 with
+   band end a pointer), light bounces 0, 3 and 6 (all, 42% and few of
+   the lanes alive on entry, each share printed), camera bounces 0 and 3 with
    the working cache of a light pass and its photon grid -- and of the
    cornell with a point, a spot and a directional light beside its
    triangle light at 1024^2 (sample_emit of every finite and delta kind,
@@ -83,8 +84,9 @@ failure raises and the script exits non-zero:
    per output column the bit-equal share, the share within 1e-5 * max(1,
    |x|) and the max relative error, at phase 4b's gates (the RNG state,
    the counts and the integer columns equal; the flags and pixel ids on
-   >= 99.99% of the lanes; each float column within on >= 99.9%).  Each
-   kernel timed alone (the camera bounce, redesigned for Hopper, as
+   >= 99.99% of the lanes; each float column within on >= 99.9%; the
+   light bounce bit for bit on every column and lane).  Each
+   kernel timed alone (the two bounces, redesigned for Hopper, as
    graph_ms: 10 launches in one CUDA graph) beside its plain composite
    and its bound (vcm_shade_bytes: the columns it reads and writes, the distinct
    shade-record, light, cache and material rows; or VCM_LANE_OPS float
@@ -122,7 +124,8 @@ failure raises and the script exits non-zero:
    re-trace gathers them (phase 8a: the instanced scene's two-level
    re-trace) and on seeded need masks at both slot shares (no lane
    active; past the slots; within them): the slot state, the merged hit
-   and the overflow and device counts bit-equal.  Each kernel timed
+   and the overflow and device counts, the loop body's per-run counts
+   folded in, bit-equal.  Each kernel timed
    alone beside its plain version, its bound and, for the append and
    the splat, one library call (index_copy_, index_add_), and the
    kernels' registers, spills and resident blocks.
@@ -1422,10 +1425,10 @@ def vcm_light_band(scene, meta, cam, fi, lpc, max_len, bounces):
         c, _ = vs.light_shade(scene, cam, c, hit, i, rows, **kw)
 
 
-def hold_vcm_columns(label, cols, alive, stats, key):
+def hold_vcm_columns(label, cols, alive, stats, key, exact=False):
     """`[vcmshade]`: each (kernel, plain) column pair held as hold_column
-    says, at phase 4b's gates; records the largest abs err under
-    `key`."""
+    says, at phase 4b's gates, or with `exact` bit for bit on every lane;
+    records the largest abs err under `key`."""
     bad, parts, err = [], [], 0.0
     for name, (k, p) in cols.items():
         bits, within, rel, abs_err = hold_column(k, p)
@@ -1434,7 +1437,9 @@ def hold_vcm_columns(label, cols, alive, stats, key):
         err = max(err, abs_err)
         need = (SHADE_FLAGS if name in VCM_SHADE_FLAGS else
                 SHADE_FLOATS if k.dtype == torch.float32 else 1.0)
-        if within < need:
+        if exact and bits < 1.0:
+            bad.append(f"{name} {bits:.6f} bit-equal < 1")
+        elif within < need:
             bad.append(f"{name} {within:.6f} < {need}")
     log(f"[vcmshade] {label}: {alive:.4f} active; bit-equal/within "
         f"{SHADE_REL} share a column: " + ", ".join(parts))
@@ -1446,7 +1451,7 @@ def hold_vcm_columns(label, cols, alive, stats, key):
 
 # Kernels redesigned for Hopper and timed as graph_ms (10 launches in one
 # CUDA graph: the device's time, not the host wrapper's).
-GRAPH_TIMED = ("camera_shade", "dispatch_rows")
+GRAPH_TIMED = ("camera_shade", "dispatch_rows", "light_shade")
 
 
 def time_vcm(name, label, launch, plain, nbytes, ops, detail, card, stats):
@@ -1521,8 +1526,11 @@ def hold_vcm_light(label, scene, meta, cam, fi, lpc, max_len, bounce, card,
                  "rows.cc": (rk.cc, rp.cc), "rows.pixel": (rk.pixel,
                                                            rp.pixel)})
     alive = float(c["active"].double().mean())
-    hold_vcm_columns(f"light bounce {bounce}, {label}", cols, alive, stats,
-                     "vcm_light_shade_err")
+    hits = float((c["active"] & (hit.prim_id >= 0)).double().mean())
+    live = float(rp.store.double().mean())
+    hold_vcm_columns(f"light bounce {bounce} ({hits:.4f} hit, {live:.4f} "
+                     f"store a vertex), {label}", cols, alive, stats,
+                     "vcm_light_shade_err", exact=True)
     hold_vcm_columns(f"light finish, bounce {bounce}, {label}",
                      {"finish.cc": (fk[0], fp[0]),
                       "finish.pixel": (fk[1], fp[1])}, alive, stats,
@@ -1533,7 +1541,8 @@ def hold_vcm_light(label, scene, meta, cam, fi, lpc, max_len, bounce, card,
                                "d_vcm", "d_vm", "state", "finite",
                                "path_id")}
     nxt = {n: p_nxt[n] for n in vs.NEXT}
-    time_vcm("light_shade", f"bounce {bounce}, {label}",
+    time_vcm("light_shade", f"bounce {bounce} ({alive:.4f} alive on entry, "
+             f"{hits:.4f} hit), {label}",
              partial(vs.light_shade_cuda, scene, cam, c, hit, bounce, rk,
                      **kw),
              partial(vs.light_shade_plain, scene, cam, c, hit, bounce, rp,
@@ -1693,10 +1702,16 @@ def hold_vcm_camera(label, scene, meta, cam, fi, lpc, max_len, bounce,
                                                    sets=sets), card, stats)
 
 
+# The still life's light bounces phase 4c holds the light kernel at: all
+# alive, 42% alive on entry, and a late one with few lanes alive.
+LIGHT_BOUNCES = (0, 3, 6)
+
+
 def vcm_shade_phase(dev, card, scenes, stats):
     """Phase 4c: the VCM shade kernels against their plain versions on
-    NUM_RAYS bands of the still life (light start, light bounces 0 and 3,
-    camera bounces 0 and 3 over the working cache of a light pass) and of
+    NUM_RAYS bands of the still life (light start, light bounces 0, 3 and
+    6, the last at a low alive share, camera bounces 0 and 3 over the
+    working cache of a light pass) and of
     the cornell with delta lights (light bounce 0, camera bounce 1 with
     VCM_CONNECTIONS connections); the kernels' resources.  The instanced
     scene's cell: phase 8a."""
@@ -1706,7 +1721,7 @@ def vcm_shade_phase(dev, card, scenes, stats):
     scene, meta = scenes["still_life"]
     cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
     label = f"still_life 1920x1080, {lpc} light paths"
-    for bounce in (0, 3):
+    for bounce in LIGHT_BOUNCES:
         hold_vcm_light(label, scene, meta, cam, fi, lpc, 8, bounce, card,
                        stats, start_too=bounce == 0)
     fi = vcm_working_cache(scene, meta, cam, fi, lpc, cap, 8)
@@ -2153,7 +2168,8 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
     of `hit` where the slots are valid; the finish's overflow and device
     counts (a seeded counts vector whose slot 0 is the overflow counter,
     FINISH_KEYS at slots 3-7) with a seeded half of the valid slots left
-    unresolved and seeded rounds.  Each kernel timed alone beside its
+    unresolved, seeded rounds and five seeded per-run counts of the
+    loop's body folded in.  Each kernel timed alone beside its
     plain version and its bound; with `record`, into `stats`."""
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.render import traverse as tt
@@ -2182,12 +2198,16 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
     bad["slot_merge"] = sum(bit_mismatches(x, y) for x, y in zip(mk, mp))
     left = merged._replace(need=k.valid & t(rs.rand(slots) < 0.5))
     rounds = t(np.asarray(rs.randint(1, 9), dtype=np.int32))
-    counts0 = t(rs.randint(0, 100, 9).astype(np.int32))
+    counts0 = t(rs.randint(0, 100, 14).astype(np.int32))
     where = (list(range(3, 3 + len(dp.FINISH_KEYS))),
              [key.startswith("max_") for key in dp.FINISH_KEYS])
+    # The counts a khit re-trace's body ticks a run (keys, rows, khit, its
+    # resolve, the round), folded in as the graphs fold them.
+    deltas = [(int(x), 1) for x in rs.choice([1, 2] + list(range(8, 14)), 5,
+                                             replace=False)]
     ck, cp = counts0.clone(), counts0.clone()
-    dp.slot_finish_cuda(ck[0], act, left, rounds, (ck,) + where)
-    dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where)
+    dp.slot_finish_cuda(ck[0], act, left, rounds, (ck,) + where, deltas)
+    dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where, deltas)
     bad["slot_finish"] = bit_mismatches(ck, cp)
     torch.cuda.synchronize()
     nvalid, ncount = int(k.valid.sum()), int(count)
@@ -2203,7 +2223,7 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
     nbytes = {"slot_gather": slots * (8 + 2 + 16 + tw) + 8
               + lanes * (16 + tw),
               "slot_merge": slots + nvalid * (8 + 16 + 16),
-              "slot_finish": n + slots + 12 + 24}
+              "slot_finish": n + slots + 12 + 24 + 8 * len(deltas)}
     hit_copy = tt.Hit(*(x.clone() for x in hit))
     fns = {"slot_gather": (partial(dp.slot_gather_cuda, idx, count, hit,
                                    tcur),
@@ -2212,9 +2232,9 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
            "slot_merge": (partial(dp.slot_merge_cuda, merged, hit_copy),
                           partial(dp.slot_merge_plain, merged, hit)),
            "slot_finish": (partial(dp.slot_finish_cuda, ck[0], act, left,
-                                   rounds, (ck,) + where),
+                                   rounds, (ck,) + where, deltas),
                            partial(dp.slot_finish_plain, cp[0], act, left,
-                                   rounds, (cp,) + where))}
+                                   rounds, (cp,) + where, deltas))}
     for name, (kernel, plain) in fns.items():
         ms = graph_ms(kernel)
         wrapper_ms = cuda_ms(kernel, 10)

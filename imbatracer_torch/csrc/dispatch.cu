@@ -37,11 +37,13 @@
 //                          hit, and the lanes in need past the slots;
 //   slot_merge_kernel      each valid slot's hit written into its lane of
 //                          the dispatch's hit, in place;
-//   slot_finish_kernel     one block: the lanes still unresolved and
-//                          those past the slots added to the overflow
-//                          counter, and the dispatch's device counts (an
-//                          empty dispatch, its rounds, the lanes carried
-//                          past the first round, dropped, capped).
+//   slot_finish_kernel     a grid over the SMs: the lanes still
+//                          unresolved and those past the slots added to
+//                          the overflow counter, and the dispatch's device
+//                          counts (an empty dispatch, its rounds, the lanes
+//                          carried past the first round, dropped, capped,
+//                          and the counts the loop's body ticks a run,
+//                          times the runs).
 //
 // Indexing (the plain versions' in imbatracer_torch/ops/dispatch.py):
 // sorted row j holds slot s = perm[j] (perm null: s = j) of the dispatch;
@@ -65,9 +67,14 @@
 // flight (dispatch_rows_kernel's note).
 // A slot gather reads 8 B of idx and its lane's 16-20 B and writes 18-22
 // B; a merge reads a valid slot's 25 B and writes its lane's 16; the
-// finish reads every active flag and every slot's flag, 16-byte words
-// summed in one block of 1,024 threads (a second pass or atomics would
-// cost a launch more).
+// finish reads every active flag and every slot's flag.  The finish
+// (redesigned for Hopper) was one block of 1,024 threads on one SM, its
+// 7-8 us latency against a 0.08 us bound; it is now a grid of up to one
+// block an SM, 16-byte words a thread, whose blocks meet in one atomic
+// word and whose last block updates the counts a thread each
+// (slot_finish_kernel's note); and it adds the counts of the re-trace
+// loop's body (n x (rounds - 1) a count) that one-element adds made each
+// round.
 //
 // Numerics: the plain versions' torch ops on the card, as shading.cuh
 // sets out; built with --fmad=false.
@@ -351,56 +358,110 @@ __global__ void slot_merge_kernel(const int64_t* idx, const uint8_t* valid,
   hit.v[lane] = sub.v[s];
 }
 
-constexpr int kFinishThreads = 1024;
+// slot_finish_kernel's geometry: threads a block, and at most one block an
+// SM of the card.
+constexpr int kFinishThreads = 256;
+constexpr int kFinishBlocks = 132;
 constexpr int kFinishKeys = 5;   // ops/dispatch.py FINISH_KEYS
+constexpr int kMaxDeltas = 16;   // ops/dispatch.py MAX_DELTAS
 
-// The device counts' slots of FINISH_KEYS and whether each is a maximum.
+// The device counts' slots of FINISH_KEYS and whether each is a maximum;
+// then the counts a run of the loop's body ticks, (slot, n) each, added
+// (rounds - 1) times.
 struct CountSlots {
   int slot[kFinishKeys];
   int is_max[kFinishKeys];
+  int deltas;
+  int delta_slot[kMaxDeltas];
+  int delta_n[kMaxDeltas];
 };
 
-// The number of set flags of p[0:n] (bools, 0 or 1 a byte), summed over
-// the block; valid in thread 0.  16-byte words where p is aligned.
-__device__ int block_count(const uint8_t* p, int64_t n) {
-  __shared__ int warp_sums[kFinishThreads / 32];
+// The finish's blocks meet in one 64-bit word: the unresolved slots in its
+// low 32 bits, the blocks that saw an active flag in the next 16, the
+// blocks done in the top 16.  Each block adds its share with one atomic,
+// whose old value tells the last block the others' shares.  Zero between
+// launches (the last block of each resets it), one launch at a time a
+// device: a dispatch's finish launches are ordered on its stream, in and
+// out of a graph.
+constexpr int kLiveShift = 32;
+constexpr int kDoneShift = 48;
+__device__ unsigned long long finish_word = 0ull;
+
+// Whether a flag of p[0:n] (bools, 0 or 1 a byte) that this thread reads in
+// a grid-stride walk is set, and how many are: 16-byte words where p is
+// aligned, else bytes.
+template <bool kCount>
+__device__ int grid_flags(const uint8_t* p, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
   const bool aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   const int64_t words = aligned ? n / 16 : 0;
   const uint4* w = reinterpret_cast<const uint4*>(p);
   int c = 0;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < words; i += blockDim.x) {
+  for (int64_t i = first; i < words; i += stride) {
     const uint4 x = w[i];
-    c += __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w);
+    c += kCount ? __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w)
+                : ((x.x | x.y | x.z | x.w) != 0u);
   }
-  for (int64_t i = 16 * words + threadIdx.x; i < n; i += blockDim.x)
-    c += p[i] != 0;
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i)
-      total += warp_sums[i];
-  __syncthreads();
-  return total;
+  for (int64_t i = 16 * words + first; i < n; i += stride) c += p[i] != 0;
+  return c;
 }
 
+// Each block ORs its share of the active flags (only for the device
+// counts, which need whether none is set) and counts its share of the
+// unresolved slots, and adds both to finish_word with one atomic; the
+// last block, which the atomic's old value names and hands every other
+// block's share, updates the counts a thread each, with atomics, so that
+// none waits on another: the loop's per-run counts (rounds - 1) times,
+// the FINISH_KEYS and the overflow counter (no slot is both a maximum and
+// another count's: ops/dispatch.py checks).
 __global__ void __launch_bounds__(kFinishThreads)
     slot_finish_kernel(const uint8_t* active, int64_t num_r,
                        const uint8_t* unresolved, int slots,
                        const int* count, const int* dropped,
                        const int* rounds, int* overflow, int* counts,
                        CountSlots cs) {
-  const int live = block_count(active, num_r);
-  const int left = block_count(unresolved, slots);
-  if (threadIdx.x != 0) return;
-  *overflow += *dropped + left;
-  if (!counts) return;
-  const int vals[kFinishKeys] = {live == 0, *rounds, *count, *dropped, left};
-  for (int k = 0; k < kFinishKeys; ++k) {
+  __shared__ int block_left;
+  __shared__ unsigned long long total;
+  const int t = threadIdx.x;
+  if (t < 32) {                  // what the counts read, in flight early
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(rounds));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(count));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(dropped));
+  }
+  if (t == 0) block_left = 0;
+  const int mine = grid_flags<true>(unresolved, slots);
+  const int any =
+      __syncthreads_or(counts ? grid_flags<false>(active, num_r) : 0);
+  const int w = __reduce_add_sync(0xffffffffu, mine);
+  if ((t & 31) == 0 && w) atomicAdd(&block_left, w);
+  __syncthreads();
+  if (t == 0) {
+    const unsigned long long share =
+        static_cast<unsigned long long>(block_left) |
+        (static_cast<unsigned long long>(any != 0) << kLiveShift) |
+        (1ull << kDoneShift);
+    const unsigned long long old = atomicAdd(&finish_word, share);
+    total = (old >> kDoneShift) == gridDim.x - 1 ? old + share : 0ull;
+  }
+  __syncthreads();
+  if (total == 0ull) return;     // not the last block (its done count > 0)
+  if (t == 0) finish_word = 0ull;
+  const int live = static_cast<int>((total >> kLiveShift) & 0xffffu);
+  const int left = static_cast<int>(total & 0xffffffffu);
+  if (counts && t < cs.deltas) {
+    atomicAdd(counts + cs.delta_slot[t], cs.delta_n[t] * (*rounds - 1));
+  } else if (counts && t < cs.deltas + kFinishKeys) {
+    const int vals[kFinishKeys] = {live == 0, *rounds, *count, *dropped, left};
+    const int k = t - cs.deltas;
     int* c = counts + cs.slot[k];
-    *c = cs.is_max[k] ? max(*c, vals[k]) : *c + vals[k];
+    if (cs.is_max[k])
+      atomicMax(c, vals[k]);
+    else
+      atomicAdd(c, vals[k]);
+  } else if (t == kMaxDeltas + kFinishKeys) {
+    atomicAdd(overflow, *dropped + left);
   }
 }
 
@@ -549,22 +610,38 @@ extern "C" int imba_slot_merge(const void* idx, const void* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// slot_finish_kernel on the current stream, one block: active (num_r,)
-// bool, unresolved (slots,) bool; count,
-// dropped, rounds 0-d i32; overflow 0-d i32, updated in place; counts the
-// device counts or null, with ints = (slot, is_max) of each FINISH_KEYS
-// entry.  Returns a CUDA error.
+// slot_finish_kernel on the current stream, a block a 4,096 bytes of the
+// flags it reads, at most kFinishBlocks: active (num_r,) bool,
+// unresolved (slots,) bool; count, dropped, rounds 0-d i32; overflow 0-d
+// i32, updated in place; counts the device counts or null, with ints =
+// (slot, is_max) of each FINISH_KEYS entry, then the number of per-run
+// counts and their (slot, n) pairs (at most kMaxDeltas).  Returns a CUDA
+// error.
 extern "C" int imba_slot_finish(const void* active, int64_t num_r,
                                 const void* unresolved, int slots,
                                 const void* count, const void* dropped,
                                 const void* rounds, void* overflow,
                                 void* counts, const int* ints, void* stream) {
-  CountSlots cs;
-  for (int k = 0; k < kFinishKeys; ++k) {
-    cs.slot[k] = counts ? ints[k] : 0;
-    cs.is_max[k] = counts ? ints[kFinishKeys + k] : 0;
+  CountSlots cs = {};
+  if (counts) {
+    for (int k = 0; k < kFinishKeys; ++k) {
+      cs.slot[k] = ints[k];
+      cs.is_max[k] = ints[kFinishKeys + k];
+    }
+    cs.deltas = ints[2 * kFinishKeys];
+    if (cs.deltas < 0 || cs.deltas > kMaxDeltas)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int k = 0; k < cs.deltas; ++k) {
+      cs.delta_slot[k] = ints[2 * kFinishKeys + 1 + 2 * k];
+      cs.delta_n[k] = ints[2 * kFinishKeys + 2 + 2 * k];
+    }
   }
-  slot_finish_kernel<<<1, kFinishThreads, 0,
+  const int64_t bytes = counts && num_r > slots ? num_r : slots;
+  const int64_t want =
+      (bytes + 16 * kFinishThreads - 1) / (16 * kFinishThreads);
+  const int blocks = static_cast<int>(
+      want < 1 ? 1 : want > kFinishBlocks ? kFinishBlocks : want);
+  slot_finish_kernel<<<blocks, kFinishThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(active), num_r,
       static_cast<const uint8_t*>(unresolved), slots,

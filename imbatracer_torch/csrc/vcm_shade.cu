@@ -48,8 +48,9 @@
 // row, light rows and cache rows, its outputs) against one BSDF sample,
 // one or two BSDF evaluations per NEE sample and connection, and one light
 // sample; the branches by material and light kind diverge within a warp.
-// The design is the plain one, a lane a thread, registers only, but for
-// the camera bounce, redesigned for Hopper (its note below).
+// The light start and the finish kernels are the plain design, a lane a
+// thread, registers only; the two bounces, redesigned for Hopper, work in
+// two phases a block (the note above the light bounce).
 //
 // Numerics: see shading.cuh.  Built with --fmad=false.
 
@@ -319,150 +320,38 @@ __global__ void __launch_bounds__(kBlk)
 }
 
 // ---------------------------------------------------------------------------
-// One light bounce: vcm.py::_light_pass's body.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kBlk)
-    vcm_light_shade_kernel(const __grid_constant__ Args a) {
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  if (i >= a.i[I_LANES]) return;
-  const int bounce = a.i[I_BOUNCE];
-  const V3 org = load3(in<float>(a, P_ORG) + 3 * i);
-  const V3 d = load3(in<float>(a, P_D) + 3 * i);
-  const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
-  uint32_t st = static_cast<uint32_t>(in<int64_t>(a, P_STATE)[i]);
-  const float t = in<float>(a, P_HIT_T)[i];
-  const int prim = in<int>(a, P_HIT_PRIM)[i];
-  const float eta_vc = *in<float>(a, P_MIS_ETA_VC);
-  const float eta_vm = *in<float>(a, P_MIS_ETA_VM);
-
-  // Light rays ignore the environment, and end at emitter surfaces.
-  bool active = in<uint8_t>(a, P_ACTIVE)[i] != 0 && prim >= 0;
-  const Interaction s = interaction(a, i, t, prim, org, d);
-  const float cos_o = fabsf(dot(s.w_out, s.normal));
-  active = active && cos_o > 0.f && s.light_id < 0;
-
-  // Complete the partial weights.
-  const float t_sqr = t * t;
-  const bool finite = bounce > 0 || in<uint8_t>(a, P_FINITE)[i] != 0;
-  const float inv_cos = rdiv1(clamp_min(cos_o, F(1e-9)));
-  const float d_vcm = (in<float>(a, P_D_VCM)[i] * (finite ? t_sqr : 1.0f)) *
-                      inv_cos;
-  const float d_vc = in<float>(a, P_D_VC)[i] * inv_cos;
-  const float d_vm = in<float>(a, P_D_VM)[i] * inv_cos;
-  const bool stored = active && !is_specular(s.m);
-
-  if (a.i[I_USE_CACHE]) {                               // pack_batch's row
-    float* r = out<float>(a, P_V_REC) + 24 * static_cast<int64_t>(i);
-    store3(r, s.pos);
-    store3(r + 3, s.w_out);
-    store3(r + 6, s.normal);
-    store3(r + 9, s.gn);
-    r[12] = s.uv_x;
-    r[13] = s.uv_y;
-    r[14] = __int_as_float(s.mat_id);
-    store3(r + 15, thr);
-    r[18] = d_vc;
-    r[19] = d_vcm;
-    r[20] = d_vm;
-    r[21] = __int_as_float(bounce + 2);
-    r[22] = __int_as_float(in<int>(a, P_PATH_ID)[i]);
-    r[23] = 0.f;
-    out<uint8_t>(a, P_V_STORE)[i] = stored;
-  }
-
-  if (a.i[I_USE_CC]) {                          // _connect_to_camera
-    const Cam cam = cam_of(a);
-    const V3 to_cam = sub(cam.pos, s.pos);
-    const bool in_front = dot(neg(to_cam), cam.forward) >= 0.f;
-    float rx, ry;
-    world_to_raster(cam, s.pos, rx, ry);
-    const int pixel = raster_to_id(cam, rx, ry);
-    bool valid = stored && in_front && pixel >= 0;
-    const float dist_sqr = clamp_min(dot(to_cam, to_cam), F(1e-12));
-    const float dist = sqrtf(dist_sqr);
-    const V3 dir_c = divs(to_cam, dist);
-    const float cos_cam = fabsf(dot(cam.forward, neg(dir_c)));
-    const float cos_surf =
-        fabsf(shading_normal_adjoint(s.normal, s.gn, s.w_out, dir_c));
-    float pdf_f, pdf_rev;
-    const V3 f = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, dir_c, pdf_f,
-                               pdf_rev);
-    valid = valid && pdf_rev > 0.f;
-    const float img_to_surf =
-        (((cam.ipd * cam.ipd) * cos_surf) /
-         clamp_min(((dist_sqr * cos_cam) * cos_cam) * cos_cam, F(1e-12))) *
-        a.f[F_INV_PIXEL_AREA];
-    const float w_light =
-        (img_to_surf * a.f[F_INV_LPC]) * ((eta_vm + d_vcm) + d_vc * pdf_rev);
-    const float w = a.i[I_ALGO] == ALGO_LT ? 1.0f : rdiv1(w_light + 1.0f);
-    const V3 contrib =
-        scale(mul(thr, f), (w * img_to_surf) * a.f[F_INV_LPC]);
-    valid = valid && any_positive(contrib);
-    const float offset = dist * F(1e-3);
-    store3(out<float>(a, P_CC_CONTRIB) + 3 * i, contrib);
-    out<int>(a, P_CC_PIXEL)[i] = pixel;
-    store3(out<float>(a, P_S_POS) + 3 * i, s.pos);
-    store3(out<float>(a, P_S_DIR) + 3 * i, dir_c);
-    out<float>(a, P_S_TMIN)[i] = offset;
-    out<float>(a, P_S_TMAX)[i] = dist - offset;
-    out<uint8_t>(a, P_S_OK)[i] = valid;
-  }
-
-  const Bounce b =
-      vcm_bounce(s, thr, d_vc, d_vcm, d_vm, active, st, eta_vc, eta_vm, true,
-                 false, bounce + 1 >= a.i[I_MAX_LEN]);
-  store_next(a, i, b, s.pos, thr, t, d_vc, d_vcm, d_vm, st);
-}
-
-// ---------------------------------------------------------------------------
-// One camera bounce: vcm.py::_camera_bounce without its traversals and
-// its merge.
+// The two bounces, redesigned for Hopper.
 //
-// Redesigned for Hopper.  The plain lane-a-thread body held 126 registers
-// (4 resident blocks of 128 an SM), and a warp ran the whole body --
-// NEE, the connections and the bounce, branching by material kind -- for
-// as long as one of its lanes was alive: past the first bounce the lanes
-// are scattered, so every warp paid for the body whatever share of it
-// was dead, and every kind its lanes held.  Here a block works in two
-// phases:
-//   1. a lane a thread: the env-miss and emitter terms, the interaction,
-//      the completed partial weights, the radiance and the merge query.
-//      A lane dead on entry (its carry's active flag false) is finished
-//      here: NEE and the connections cast nothing from it, so its shadow
-//      rows hold the DEAD_SHADOW constants (ops/vcm_shade.py), and its
-//      bounce keeps the carry, its RNG advanced past the body's draws.
-//      A live lane puts its shading point and carry in shared memory;
+// A plain lane-a-thread bounce runs its whole body -- the interaction, the
+// connections and the BSDF sampling, branching by material kind -- in
+// every warp for as long as one of its lanes is alive: past the first
+// bounce the live lanes are scattered, so every warp pays for the body
+// whatever share of it is dead, and for every kind its lanes hold.  The
+// camera bounce held 126 registers that way (4 resident blocks of 128 an
+// SM); the light bounce ran every lane through the body, dead ones too
+// (on an H100, 0.131 ms with 42% of its lanes alive against 0.138 ms
+// with all).  Here a block works in two phases:
+//   1. a lane a thread, up to what every lane writes.  A lane that does
+//      not go on is finished here; a live lane puts its shading point and
+//      the carry values phase 2 reads in shared memory (LiveLanes) and
+//      counts itself into its material kind's bin;
 //   2. the block's live lanes, compacted and ordered by material kind, a
-//      thread each: the bounce, NEE and the connections.  Threads past
-//      them return, so a block of few live lanes runs few warps, and a
-//      warp's lanes mostly share their BSDF branch.
-// Phase 2 reads the shading point back from shared memory for each of
-// its steps (bounce, NEE, each connection), so that it does not hold it
-// across them: the kernel is built for kCamBlocks resident blocks.  The
-// gathers a lane makes in phase 2 are prefetched at the start of phase
-// 1: its connections' cache rows into L2, NEE's light row into L1.  The
-// bounce runs first, from the RNG word that NEE's and the connections'
-// draws leave (their count is fixed).  Every value is computed by the
+//      thread each (order_by_kind).  Threads past them return, so a block
+//      of few live lanes runs few warps, and a warp's lanes mostly share
+//      their BSDF branch.
+// Phase 2 reads the shading point back from shared memory for each of its
+// steps, so that it does not hold it across them: the kernels are built
+// for kTwoPhaseBlocks resident blocks.  Every value is computed by the
 // same operations in the same order as the plain version (shading.cuh):
 // the outputs are its outputs.
 // ---------------------------------------------------------------------------
 
-// Resident blocks an SM the camera kernel is built for: registers capped
-// at 65,536 / (kCamBlocks * kBlk) a thread.
-constexpr int kCamBlocks = 6;
+// Resident blocks an SM the two-phase kernels are built for: registers
+// capped at 65,536 / (kTwoPhaseBlocks * kBlk) a thread.
+constexpr int kTwoPhaseBlocks = 6;
 // Material kinds phase 2 orders its lanes by (shading.cuh MAT_*; another
 // value shares the last bin).
 constexpr int kKindBins = 8;
-
-// A shadow set's row of a lane dead on entry (ops/vcm_shade.py
-// DEAD_SHADOW): no ray and no light.
-constexpr float kDeadPos = 0.0f;
-constexpr float kDeadDir = 0.0f;
-constexpr float kDeadTmin = 0.0f;
-constexpr float kDeadTmax = 0.0f;
-constexpr bool kDeadOk = false;
-constexpr float kDeadContrib = 0.0f;
 
 // A live lane's words between the phases: its shading point and material,
 // and the carry values phase 2 reads.
@@ -529,6 +418,355 @@ __device__ __forceinline__ LiveCarry live_carry(const LiveLanes& l, int k) {
   return c;
 }
 
+// Phase 1's end, called by every thread of the block with its lane's bin
+// (-1 for no live lane) once the live lanes are counted into live.bin:
+// the bins' first slots, then each live lane's thread at its slot of
+// live.order, bin by bin.  Returns the block's live lanes.
+__device__ __forceinline__ int order_by_kind(LiveLanes& live, int bin) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int k = 0; k < kKindBins; ++k) {
+      const int c = live.bin[k];
+      live.bin[k] = sum;
+      sum += c;
+    }
+    live.bin[kKindBins] = sum;
+  }
+  __syncthreads();
+  if (bin >= 0) live.order[atomicAdd(&live.bin[bin], 1)] = threadIdx.x;
+  __syncthreads();
+  return live.bin[kKindBins];
+}
+
+// A live lane's words at column k and its count in its kind's bin, which
+// it returns.
+__device__ __forceinline__ int put_live(LiveLanes& live, int k,
+                                        const Interaction& s, V3 thr,
+                                        float d_vc, float d_vcm, float d_vm,
+                                        float t, bool active) {
+  put3(live, W_POS, k, s.pos);
+  put3(live, W_NORMAL, k, s.normal);
+  put3(live, W_GN, k, s.gn);
+  put3(live, W_W_OUT, k, s.w_out);
+  live.word[W_KIND][k] = __int_as_float(s.m.kind);
+  put3(live, W_KD, k, s.m.kd);
+  put3(live, W_KS, k, s.m.ks);
+  put3(live, W_TF, k, s.m.tf);
+  live.word[W_NS][k] = s.m.ns;
+  live.word[W_IOR][k] = s.m.ior;
+  put3(live, W_THR, k, thr);
+  live.word[W_D_VC][k] = d_vc;
+  live.word[W_D_VCM][k] = d_vcm;
+  live.word[W_D_VM][k] = d_vm;
+  live.word[W_T][k] = t;
+  live.word[W_ACTIVE][k] = active ? 1.0f : 0.0f;
+  const int bin = clampi(s.m.kind, 0, kKindBins - 1);
+  atomicAdd(&live.bin[bin], 1);
+  return bin;
+}
+
+// `s` advanced past n draws of next_float.
+__device__ __forceinline__ uint32_t skip_draws(uint32_t s, int n) {
+  for (int k = 0; k < n; ++k) s = pcg_step(s);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// One light bounce: vcm.py::_light_pass's body, in two phases a block.
+//   1. a lane a thread: the hit test (the carry's active flag, a hit, a
+//      cosine above 0, no emitter), then for a lane that passes the
+//      interaction, the completed partial weights, its vertex row and
+//      store flag, and its words.  A lane dead on entry or missed reads
+//      no shade-record row; a lane that fails the test writes
+//      ops/vcm_shade.py DEAD_LIGHT's rows (kDeadLight*) and keeps its
+//      carry, its RNG word past the bounce's 4 draws;
+//   2. the live lanes: the camera connection up to its shadow ray, then
+//      the adjoint bounce from the lane's RNG word (the connection draws
+//      none).
+// A lane's outputs but its vertex row are staged in shared memory
+// (LightOut) at its column, by phase 1 for a lane that does not go on and
+// by phase 2 for a live one, and the block writes them out together at
+// the end: whole 16-byte words of its lanes' (R, 3) rows, consecutive
+// words of the others.  Written a lane a thread, an (R, 3) column is
+// three 4-byte stores 12 bytes apart, and phase 2's lanes are out of
+// order.  The vertex row, 96 bytes, goes out from phase 1 as six 16-byte
+// stores.
+// ---------------------------------------------------------------------------
+
+// A light bounce's rows of a lane that does not go on (ops/vcm_shade.py
+// DEAD_LIGHT): no vertex stored, no connection, no shadow ray.
+constexpr float kDeadLightRec = 0.0f;
+constexpr bool kDeadLightStore = false;
+constexpr float kDeadLightCc = 0.0f;
+constexpr int kDeadLightPixel = -1;
+constexpr float kDeadLightPos = 0.0f;
+constexpr float kDeadLightDir = 0.0f;
+constexpr float kDeadLightTmin = 0.0f;
+constexpr float kDeadLightTmax = 0.0f;
+constexpr bool kDeadLightOk = false;
+
+// A block's light-bounce outputs, lane k's at column k: the next carry,
+// the camera connection and its shadow ray.  The RNG word is read into
+// `state` in phase 1 and advanced there or in phase 2.
+struct __align__(16) LightOut {
+  float org[3 * kBlk], d[3 * kBlk], thr[3 * kBlk];
+  float cc[3 * kBlk], s_pos[3 * kBlk], s_dir[3 * kBlk];
+  float tmin[kBlk], d_vc[kBlk], d_vcm[kBlk], d_vm[kBlk];
+  float s_tmin[kBlk], s_tmax[kBlk];
+  int pixel[kBlk];
+  uint32_t state[kBlk];
+  uint8_t active[kBlk], s_ok[kBlk];
+};
+
+__device__ __forceinline__ void stage3(float* col, int k, V3 v) {
+  col[3 * k] = v.x;
+  col[3 * k + 1] = v.y;
+  col[3 * k + 2] = v.z;
+}
+
+// store_next into the staged outputs.
+__device__ __forceinline__ void stage_next(LightOut& o, int k,
+                                           const Bounce& b, V3 pos, V3 thr,
+                                           float t, float d_vc, float d_vcm,
+                                           float d_vm, uint32_t st) {
+  const bool on = b.active;
+  stage3(o.org, k, on ? pos : zero3());
+  stage3(o.d, k, on ? b.wi : zero3());
+  o.tmin[k] = t * F(1e-4);
+  stage3(o.thr, k, on ? b.throughput : thr);
+  o.active[k] = on;
+  o.d_vc[k] = on ? b.d_vc : d_vc;
+  o.d_vcm[k] = on ? b.d_vcm : d_vcm;
+  o.d_vm[k] = on ? b.d_vm : d_vm;
+  o.state[k] = st;
+}
+
+// The vertex row of lane i: six 16-byte stores (the rows are 16-byte
+// aligned: ops/vcm_shade.py checks).
+__device__ __forceinline__ void store_row(const Args& a, int i,
+                                          const float4 (&w)[6]) {
+  float4* r = reinterpret_cast<float4*>(out<float>(a, P_V_REC)) +
+              6 * static_cast<int64_t>(i);
+#pragma unroll
+  for (int q = 0; q < 6; ++q) r[q] = w[q];
+}
+
+// Phase 1 of a light lane that does not go on: DEAD_LIGHT's rows and the
+// carry kept (vcm.py::_bounce's select on an inactive lane, the partial
+// weights as they came in).
+__device__ void finish_dead_light(const Args& a, LightOut& o, int i, int k,
+                                  float t) {
+  if (a.i[I_USE_CACHE]) {
+    const float z = kDeadLightRec;
+    const float4 w[6] = {{z, z, z, z}, {z, z, z, z}, {z, z, z, z},
+                         {z, z, z, z}, {z, z, z, z}, {z, z, z, z}};
+    store_row(a, i, w);
+    out<uint8_t>(a, P_V_STORE)[i] = kDeadLightStore;
+  }
+  if (a.i[I_USE_CC]) {
+    stage3(o.cc, k, V3{kDeadLightCc, kDeadLightCc, kDeadLightCc});
+    o.pixel[k] = kDeadLightPixel;
+    stage3(o.s_pos, k, V3{kDeadLightPos, kDeadLightPos, kDeadLightPos});
+    stage3(o.s_dir, k, V3{kDeadLightDir, kDeadLightDir, kDeadLightDir});
+    o.s_tmin[k] = kDeadLightTmin;
+    o.s_tmax[k] = kDeadLightTmax;
+    o.s_ok[k] = kDeadLightOk;
+  }
+  const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
+  const float d_vc = in<float>(a, P_D_VC)[i];
+  const float d_vcm = in<float>(a, P_D_VCM)[i];
+  const float d_vm = in<float>(a, P_D_VM)[i];
+  Bounce b;
+  b.wi = zero3();
+  b.throughput = thr;
+  b.d_vc = d_vc;
+  b.d_vcm = d_vcm;
+  b.d_vm = d_vm;
+  b.active = false;
+  stage_next(o, k, b, zero3(), thr, t, d_vc, d_vcm, d_vm,
+             skip_draws(o.state[k], 4));
+}
+
+// n floats of a staged column out to dst, the block's threads together:
+// 16-byte words where dst is 16-byte aligned and n a multiple of 4.
+__device__ __forceinline__ void copy_out(float* dst, const float* src,
+                                         int n) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (n & 3) == 0) {
+    for (int q = threadIdx.x; q < n / 4; q += kBlk)
+      reinterpret_cast<float4*>(dst)[q] =
+          reinterpret_cast<const float4*>(src)[q];
+  } else {
+    for (int q = threadIdx.x; q < n; q += kBlk) dst[q] = src[q];
+  }
+}
+
+// The block's staged outputs of its n lanes from lane `base` out.
+__device__ void write_light_out(const Args& a, const LightOut& o,
+                                int64_t base, int n) {
+  const int k = threadIdx.x;
+  copy_out(out<float>(a, P_O_ORG) + 3 * base, o.org, 3 * n);
+  copy_out(out<float>(a, P_O_D) + 3 * base, o.d, 3 * n);
+  copy_out(out<float>(a, P_O_THR) + 3 * base, o.thr, 3 * n);
+  if (k < n) {
+    out<float>(a, P_O_TMIN)[base + k] = o.tmin[k];
+    out<uint8_t>(a, P_O_ACTIVE)[base + k] = o.active[k];
+    out<float>(a, P_O_D_VC)[base + k] = o.d_vc[k];
+    out<float>(a, P_O_D_VCM)[base + k] = o.d_vcm[k];
+    out<float>(a, P_O_D_VM)[base + k] = o.d_vm[k];
+    out<int64_t>(a, P_O_STATE)[base + k] = static_cast<int64_t>(o.state[k]);
+  }
+  if (!a.i[I_USE_CC]) return;
+  copy_out(out<float>(a, P_CC_CONTRIB) + 3 * base, o.cc, 3 * n);
+  copy_out(out<float>(a, P_S_POS) + 3 * base, o.s_pos, 3 * n);
+  copy_out(out<float>(a, P_S_DIR) + 3 * base, o.s_dir, 3 * n);
+  if (k < n) {
+    out<int>(a, P_CC_PIXEL)[base + k] = o.pixel[k];
+    out<float>(a, P_S_TMIN)[base + k] = o.s_tmin[k];
+    out<float>(a, P_S_TMAX)[base + k] = o.s_tmax[k];
+    out<uint8_t>(a, P_S_OK)[base + k] = o.s_ok[k];
+  }
+}
+
+__global__ void __launch_bounds__(kBlk, kTwoPhaseBlocks)
+    vcm_light_shade_kernel(const __grid_constant__ Args a) {
+  __shared__ LiveLanes live;
+  __shared__ LightOut o;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlk;
+  const int n = static_cast<int>(
+      a.i[I_LANES] - base < kBlk ? a.i[I_LANES] - base : kBlk);
+  const int i = static_cast<int>(base) + threadIdx.x;
+  if (threadIdx.x <= kKindBins) live.bin[threadIdx.x] = 0;
+  __syncthreads();
+  const int bounce = a.i[I_BOUNCE];
+
+  // ---- phase 1: a lane a thread ----------------------------------------
+  int bin = -1;
+  if (static_cast<int>(threadIdx.x) < n) {
+    const int k = threadIdx.x;
+    o.state[k] = static_cast<uint32_t>(in<int64_t>(a, P_STATE)[i]);
+    const float t = in<float>(a, P_HIT_T)[i];
+    const int prim = in<int>(a, P_HIT_PRIM)[i];
+    // Light rays ignore the environment, and end at emitter surfaces.
+    if (in<uint8_t>(a, P_ACTIVE)[i] != 0 && prim >= 0) {
+      const Interaction s =
+          interaction(a, i, t, prim, load3(in<float>(a, P_ORG) + 3 * i),
+                      load3(in<float>(a, P_D) + 3 * i));
+      const float cos_o = fabsf(dot(s.w_out, s.normal));
+      if (cos_o > 0.f && s.light_id < 0) {
+        // Complete the partial weights.
+        const float t_sqr = t * t;
+        const bool finite = bounce > 0 || in<uint8_t>(a, P_FINITE)[i] != 0;
+        const float inv_cos = rdiv1(clamp_min(cos_o, F(1e-9)));
+        const float d_vcm =
+            (in<float>(a, P_D_VCM)[i] * (finite ? t_sqr : 1.0f)) * inv_cos;
+        const float d_vc = in<float>(a, P_D_VC)[i] * inv_cos;
+        const float d_vm = in<float>(a, P_D_VM)[i] * inv_cos;
+        const V3 thr = load3(in<float>(a, P_THR) + 3 * i);
+        if (a.i[I_USE_CACHE]) {                         // pack_batch's row
+          const float4 w[6] = {
+              {s.pos.x, s.pos.y, s.pos.z, s.w_out.x},
+              {s.w_out.y, s.w_out.z, s.normal.x, s.normal.y},
+              {s.normal.z, s.gn.x, s.gn.y, s.gn.z},
+              {s.uv_x, s.uv_y, __int_as_float(s.mat_id), thr.x},
+              {thr.y, thr.z, d_vc, d_vcm},
+              {d_vm, __int_as_float(bounce + 2),
+               __int_as_float(in<int>(a, P_PATH_ID)[i]), 0.f}};
+          store_row(a, i, w);
+          out<uint8_t>(a, P_V_STORE)[i] = !is_specular(s.m);
+        }
+        bin = put_live(live, k, s, thr, d_vc, d_vcm, d_vm, t, true);
+      }
+    }
+    if (bin < 0) finish_dead_light(a, o, i, k, t);
+  }
+  const int live_lanes = order_by_kind(live, bin);
+
+  // ---- phase 2: the live lanes, a thread each --------------------------
+  // Each step reads the lane's words anew (live_point).
+  if (static_cast<int>(threadIdx.x) < live_lanes) {
+    const int k = live.order[threadIdx.x];
+    if (a.i[I_USE_CC]) {                        // ---- _connect_to_camera
+      const Interaction s = live_point(live, k);
+      const LiveCarry c = live_carry(live, k);
+      const Cam cam = cam_of(a);
+      const V3 to_cam = sub(cam.pos, s.pos);
+      const bool in_front = dot(neg(to_cam), cam.forward) >= 0.f;
+      float rx, ry;
+      world_to_raster(cam, s.pos, rx, ry);
+      const int pixel = raster_to_id(cam, rx, ry);
+      bool valid = !is_specular(s.m) && in_front && pixel >= 0;
+      const float dist_sqr = clamp_min(dot(to_cam, to_cam), F(1e-12));
+      const float dist = sqrtf(dist_sqr);
+      const V3 dir_c = divs(to_cam, dist);
+      const float cos_cam = fabsf(dot(cam.forward, neg(dir_c)));
+      const float cos_surf =
+          fabsf(shading_normal_adjoint(s.normal, s.gn, s.w_out, dir_c));
+      float pdf_f, pdf_rev;
+      const V3 f = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, dir_c, pdf_f,
+                                 pdf_rev);
+      valid = valid && pdf_rev > 0.f;
+      const float img_to_surf =
+          (((cam.ipd * cam.ipd) * cos_surf) /
+           clamp_min(((dist_sqr * cos_cam) * cos_cam) * cos_cam, F(1e-12))) *
+          a.f[F_INV_PIXEL_AREA];
+      const float w_light =
+          (img_to_surf * a.f[F_INV_LPC]) *
+          ((*in<float>(a, P_MIS_ETA_VM) + c.d_vcm) + c.d_vc * pdf_rev);
+      const float w = a.i[I_ALGO] == ALGO_LT ? 1.0f : rdiv1(w_light + 1.0f);
+      const V3 contrib =
+          scale(mul(c.thr, f), (w * img_to_surf) * a.f[F_INV_LPC]);
+      valid = valid && any_positive(contrib);
+      const float offset = dist * F(1e-3);
+      stage3(o.cc, k, contrib);
+      o.pixel[k] = pixel;
+      stage3(o.s_pos, k, s.pos);
+      stage3(o.s_dir, k, dir_c);
+      o.s_tmin[k] = offset;
+      o.s_tmax[k] = dist - offset;
+      o.s_ok[k] = valid;
+    }
+    {                                           // ---- the adjoint bounce
+      const Interaction s = live_point(live, k);
+      const LiveCarry c = live_carry(live, k);
+      uint32_t st = o.state[k];
+      const Bounce b = vcm_bounce(
+          s, c.thr, c.d_vc, c.d_vcm, c.d_vm, c.active, st,
+          *in<float>(a, P_MIS_ETA_VC), *in<float>(a, P_MIS_ETA_VM), true,
+          false, bounce + 1 >= a.i[I_MAX_LEN]);
+      stage_next(o, k, b, s.pos, c.thr, c.t, c.d_vc, c.d_vcm, c.d_vm, st);
+    }
+  }
+  __syncthreads();
+  if (n > 0) write_light_out(a, o, base, n);
+}
+
+// ---------------------------------------------------------------------------
+// One camera bounce: vcm.py::_camera_bounce without its traversals and
+// its merge, in two phases a block.
+//   1. a lane a thread: the env-miss and emitter terms, the interaction,
+//      the completed partial weights, the radiance and the merge query.
+//      A lane dead on entry (its carry's active flag false) is finished
+//      here: NEE and the connections cast nothing from it, so its shadow
+//      rows hold the DEAD_SHADOW constants (ops/vcm_shade.py), and its
+//      bounce keeps the carry, its RNG advanced past the body's draws.
+//      A live lane puts its shading point and carry in shared memory;
+//   2. the live lanes: the bounce, NEE and the connections.
+// The gathers a lane makes in phase 2 are prefetched at the start of phase
+// 1: its connections' cache rows into L2, NEE's light row into L1.  The
+// bounce runs first, from the RNG word that NEE's and the connections'
+// draws leave (their count is fixed).
+// ---------------------------------------------------------------------------
+
+// A shadow set's row of a lane dead on entry (ops/vcm_shade.py
+// DEAD_SHADOW): no ray and no light.
+constexpr float kDeadPos = 0.0f;
+constexpr float kDeadDir = 0.0f;
+constexpr float kDeadTmin = 0.0f;
+constexpr float kDeadTmax = 0.0f;
+constexpr bool kDeadOk = false;
+constexpr float kDeadContrib = 0.0f;
+
 // A shadow set's row `k * lanes + i`.
 __device__ __forceinline__ void store_shadow(const Args& a, int64_t row, V3 pos,
                                              V3 dir, float tmin, float tmax,
@@ -539,12 +777,6 @@ __device__ __forceinline__ void store_shadow(const Args& a, int64_t row, V3 pos,
   out<float>(a, P_S_TMAX)[row] = tmax;
   out<uint8_t>(a, P_S_OK)[row] = ok;
   store3(out<float>(a, P_S_CONTRIB) + 3 * row, contrib);
-}
-
-// `s` advanced past n draws of next_float.
-__device__ __forceinline__ uint32_t skip_draws(uint32_t s, int n) {
-  for (int k = 0; k < n; ++k) s = pcg_step(s);
-  return s;
 }
 
 // _connect's pick of a cache row from its uniform.
@@ -567,7 +799,7 @@ __device__ __forceinline__ const float* nee_light(const Args& a, uint32_t st) {
   return in<float>(a, P_LIGHT_REC) + 24 * light_idx;
 }
 
-__global__ void __launch_bounds__(kBlk, kCamBlocks)
+__global__ void __launch_bounds__(kBlk, kTwoPhaseBlocks)
     vcm_camera_shade_kernel(const __grid_constant__ Args a) {
   __shared__ LiveLanes live;
   const int lanes = a.i[I_LANES];
@@ -699,44 +931,14 @@ __global__ void __launch_bounds__(kBlk, kCamBlocks)
                      V3{kDeadDir, kDeadDir, kDeadDir}, kDeadTmin, kDeadTmax,
                      kDeadOk, V3{kDeadContrib, kDeadContrib, kDeadContrib});
     } else {                 // ---- live: its words, its kind's bin
-      const int k = threadIdx.x;
-      put3(live, W_POS, k, s.pos);
-      put3(live, W_NORMAL, k, s.normal);
-      put3(live, W_GN, k, s.gn);
-      put3(live, W_W_OUT, k, s.w_out);
-      live.word[W_KIND][k] = __int_as_float(s.m.kind);
-      put3(live, W_KD, k, s.m.kd);
-      put3(live, W_KS, k, s.m.ks);
-      put3(live, W_TF, k, s.m.tf);
-      live.word[W_NS][k] = s.m.ns;
-      live.word[W_IOR][k] = s.m.ior;
-      put3(live, W_THR, k, thr);
-      live.word[W_D_VC][k] = d_vc;
-      live.word[W_D_VCM][k] = d_vcm;
-      live.word[W_D_VM][k] = d_vm;
-      live.word[W_T][k] = t;
-      live.word[W_ACTIVE][k] = active ? 1.0f : 0.0f;
-      bin = clampi(s.m.kind, 0, kKindBins - 1);
-      atomicAdd(&live.bin[bin], 1);
+      bin = put_live(live, threadIdx.x, s, thr, d_vc, d_vcm, d_vm, t,
+                     active);
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {                    // the bins' first slots
-    int sum = 0;
-    for (int k = 0; k < kKindBins; ++k) {
-      const int c = live.bin[k];
-      live.bin[k] = sum;
-      sum += c;
-    }
-    live.bin[kKindBins] = sum;
-  }
-  __syncthreads();
-  if (bin >= 0) live.order[atomicAdd(&live.bin[bin], 1)] = threadIdx.x;
-  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= order_by_kind(live, bin)) return;
 
   // ---- phase 2: the live lanes, a thread each --------------------------
   // Each step reads the lane's words and RNG word anew (live_point).
-  if (static_cast<int>(threadIdx.x) >= live.bin[kKindBins]) return;
   const int k = live.order[threadIdx.x];
   const int j = blockIdx.x * kBlk + k;
   const int nee_draws = ppm ? 0 : 3;

@@ -38,7 +38,10 @@ while loop's carry fused by XLA into the loop body), three more:
   * `slot_finish`: the lanes still unresolved and those past the slots
     added to the overflow counter, and, inside a capture, the dispatch's
     device counts (FINISH_KEYS of traverse.MASK_STATS, their slots from
-    render/graphs.count_slots).
+    render/graphs.count_slots) and the counts the loop's body ticks a run
+    (render/graphs.while_loop's deltas), added once a dispatch for all
+    its runs; on the card a grid over the SMs whose blocks meet in one
+    atomic word.
 
 A dispatch covers n slots (class Dispatch): slot s is lane lanes[s] of
 the ray arrays (every lane when `lanes` is None), and the state it reads
@@ -90,6 +93,9 @@ CLOSEST, OCCLUSION, RETRACE = 0, 1, 2
 # rounds it ran, the lanes in need after its first round, those past the
 # slots and those left unresolved at the cap.
 FINISH_KEYS = ("empty", "max_rounds", "max_lanes", "dropped", "capped")
+# The most (slot, n) counts of a loop's body that slot_finish adds
+# (csrc/dispatch.cu kMaxDeltas).
+MAX_DELTAS = 16
 
 
 def reset_launches():
@@ -282,22 +288,43 @@ def slot_merge_plain(slots: Slots, hit):
     return type(hit)(*out)
 
 
-def slot_finish_plain(overflow, active, slots: Slots, rounds, counts=None):
+def slot_finish_plain(overflow, active, slots: Slots, rounds, counts=None,
+                      deltas=()):
     """Add the lanes past the slots and those still in need (left
     unresolved at the cap) to `overflow`; with `counts` = (the device
     counts, the slot of each FINISH_KEYS entry, whether each is a
-    maximum), raise or add to them too: whether no lane was active, the
-    rounds, the lanes in need after the first round, dropped and
-    capped."""
+    maximum), add each (slot, n) of `deltas`, the counts a run of the
+    loop's body ticks, n x (rounds - 1) times, then raise or add to the
+    FINISH_KEYS counts: whether no lane was active, the rounds, the lanes
+    in need after the first round, dropped and capped."""
+    _check_deltas(counts, deltas)
     LAUNCHES["slot_finish_plain"] += 1
     left = slots.need.sum()
     if counts is not None:
         tensor, where, maxes = counts
+        runs = rounds - 1
+        for slot, n in deltas:
+            c = tensor[slot]
+            c.copy_(c + (n * runs).to(tensor.dtype))
         for slot, is_max, n in zip(where, maxes, (
                 ~active.any(), rounds, slots.count, slots.dropped, left)):
             c, n = tensor[slot], n.to(tensor.dtype)
             c.copy_(torch.maximum(c, n) if is_max else c + n)
     overflow.add_((slots.dropped + left).to(overflow.dtype))
+
+
+def _check_deltas(counts, deltas):
+    """Raise unless `deltas` fit slot_finish: at most MAX_DELTAS, only
+    with the device counts and none at a maximum's slot (the kernel adds
+    and raises the counts in no set order)."""
+    if len(deltas) > MAX_DELTAS:
+        raise ValueError(f"dispatch: {len(deltas)} per-run counts, past the "
+                         f"{MAX_DELTAS} slot_finish adds")
+    if deltas and counts is None:
+        raise ValueError("dispatch: per-run counts need the device counts")
+    if counts is not None and {s for s, m in zip(*counts[1:]) if m} & {
+            s for s, _ in deltas}:
+        raise ValueError("dispatch: a per-run count at a maximum's slot")
 
 
 # --------------------------------------------------------------------------
@@ -598,9 +625,11 @@ def slot_merge_cuda(slots: Slots, hit):
     return hit
 
 
-def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None):
+def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None,
+                     deltas=()):
     """Launch slot_finish_kernel on CUDA tensors (raises on anything
     else): slot_finish_plain's overflow and counts, in place."""
+    _check_deltas(counts, deltas)
     for x, what in ((overflow, "overflow"), (slots.count, "count"),
                     (slots.dropped, "dropped"), (rounds, "rounds")):
         _check(x, torch.int32, what, optional=False)
@@ -609,14 +638,19 @@ def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None):
                     optional=False).contiguous()
     need = _input(slots.need, torch.bool, "need")
     _shape(need, slots.idx.shape, "need")
-    ints, cptr = (ctypes.c_int * 10)(), None
+    keys = len(FINISH_KEYS)
+    ints, cptr = (ctypes.c_int * (2 * keys + 1 + 2 * MAX_DELTAS))(), None
     if counts is not None:
         tensor, where, maxes = counts
         _output(tensor, torch.int32, "counts")
-        for k, (slot, is_max) in enumerate(zip(where, maxes)):
+        for slot in list(where) + [slot for slot, _ in deltas]:
             if not 0 <= slot < tensor.shape[0]:
                 raise ValueError(f"dispatch: count slot {slot} out of range")
-            ints[k], ints[len(FINISH_KEYS) + k] = slot, int(is_max)
+        for k, (slot, is_max) in enumerate(zip(where, maxes)):
+            ints[k], ints[keys + k] = slot, int(is_max)
+        ints[2 * keys] = len(deltas)
+        for k, (slot, n) in enumerate(deltas):
+            ints[2 * keys + 1 + 2 * k], ints[2 * keys + 2 + 2 * k] = slot, n
         cptr = tensor.data_ptr()
     lib = _library()
     _launched(lib.imba_slot_finish(
@@ -687,11 +721,14 @@ def slot_merge(slots: Slots, hit):
     return fn(slots, hit)
 
 
-def slot_finish(overflow, active, slots: Slots, rounds, counts=None):
-    """The overflow counter and the device counts of a re-trace: the
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+def slot_finish(overflow, active, slots: Slots, rounds, counts=None,
+                deltas=()):
+    """The overflow counter and the device counts of a re-trace, the
+    counts its loop's body ticks a run (`deltas`, (slot, n) each) added
+    for all its runs: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
     fn = slot_finish_cuda if _on(overflow) == "cuda" else slot_finish_plain
-    fn(overflow, active, slots, rounds, counts)
+    fn(overflow, active, slots, rounds, counts, deltas)
 
 
 def prepare(org, d, tmin, tmax, active=None, *, bounds=None, sbox=None,

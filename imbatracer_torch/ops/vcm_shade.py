@@ -16,7 +16,9 @@ each traversal:
     the vertex row and its store flag, the camera connection up to its
     shadow ray, the adjoint bounce); the rows go to the band's staging
     buffers (`LightRows`) at the bounce's slice, so the band's one
-    collect append and one splat keep their (bounce, path) order;
+    collect append and one splat keep their (bounce, path) order; a lane
+    that does not go on past the hit test stores, connects and casts
+    nothing, its rows DEAD_LIGHT and its carry kept;
   * `camera_shade`: one camera bounce between its closest hit and its
     shadow rays' any hit (the env-miss and emitter MIS terms, the
     interaction and partial weights, NEE and the vertex connections up to
@@ -106,6 +108,39 @@ class ShadowSets(NamedTuple):
 # skips a row that is not ok.
 DEAD_SHADOW = ShadowSets(pos=0.0, dir=0.0, tmin=0.0, tmax=0.0, ok=False,
                          contrib=0.0)
+
+
+class DeadLight(NamedTuple):
+    """A light bounce's rows of a lane that does not go on: its vertex
+    row and store flag, its camera connection and pixel, its shadow
+    ray."""
+
+    rec: float
+    store: bool
+    cc: float
+    pixel: int
+    pos: float
+    dir: float
+    tmin: float
+    tmax: float
+    ok: bool
+
+
+# A light bounce's rows of a lane that does not go on past the hit test
+# (dead on entry, a miss, a grazing hit or an emitter): no vertex is
+# stored, no connection made and no shadow ray cast.  The light kernel
+# finishes such a lane in its first phase and writes these
+# (csrc/vcm_shade.cu kDeadLight*); nothing reads them but the collect
+# append, which drops a row whose store flag is false, the any hit, which
+# skips a ray that is not ok, and the light finish, which keeps a
+# connection only where its ray was ok.
+DEAD_LIGHT = DeadLight(rec=0.0, store=False, cc=0.0, pixel=-1, pos=0.0,
+                       dir=0.0, tmin=0.0, tmax=0.0, ok=False)
+
+
+def _dead_where(dead, x, value):
+    """x with the rows of the `dead` lanes set to `value`."""
+    return torch.where(dead.view(-1, *[1] * (x.dim() - 1)), value, x)
 
 
 class MergeQuery(NamedTuple):
@@ -233,7 +268,10 @@ def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
     """Light bounce `i` of the carry `c` after its closest hit `hit`:
     writes the bounce's vertex rows and store flags and its camera
     connections (before occlusion) into `rows` (LightRows.at(i)); returns
-    (next carry, the connections' shadow ray (shade.ShadowRay) or None)."""
+    (next carry, the connections' shadow ray (shade.ShadowRay) or None).
+    A lane that does not go on past the hit test writes DEAD_LIGHT's rows
+    and keeps its carry: inactive, no ray, its throughput and partial
+    weights, tmin from its hit, its RNG word past the bounce's 4 draws."""
     LAUNCHES["light_shade_plain"] += 1
     lanes = c["active"].shape[0]
     # Light rays ignore the environment.
@@ -242,6 +280,7 @@ def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
     cos_o = torch.abs(dot(isect.w_out, isect.normal))
     # Terminate at emitter surfaces (the camera pass does too).
     active = active & (cos_o > 0.0) & (isect.light_id < 0)
+    dead = ~active
 
     # Complete the partial weights.
     t_sqr = hit.t * hit.t
@@ -254,11 +293,12 @@ def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
     non_spec = ~mat_mod.is_specular(isect.params)
 
     if rows.rec is not None:
-        rows.rec.copy_(pack_batch(
+        rows.rec.copy_(_dead_where(dead, pack_batch(
             isect.pos, isect.w_out, isect.normal, isect.gn, isect.uv,
             isect.mat_id, c["throughput"], d_vc, d_vcm, d_vm,
             torch.full((lanes,), i + 2, dtype=torch.int32,
-                       device=active.device), c["path_id"]))
+                       device=active.device), c["path_id"]),
+            DEAD_LIGHT.rec))
         rows.store.copy_(active & non_spec)
     shadow = None
     if rows.cc is not None:
@@ -267,12 +307,17 @@ def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
             scene, cam, isect, c["throughput"], d_vc, d_vcm,
             active & non_spec, mis_eta_vm, light_path_count, algo,
             pixel_area)
-        rows.cc.copy_(contrib)
-        rows.pixel.copy_(pixel)
+        rows.cc.copy_(_dead_where(dead, contrib, DEAD_LIGHT.cc))
+        rows.pixel.copy_(_dead_where(dead, pixel, DEAD_LIGHT.pixel))
+        shadow = sh.ShadowRay(*(
+            _dead_where(dead, x, getattr(DEAD_LIGHT, k))
+            for k, x in zip(sh.ShadowRay._fields, shadow)))
 
     nxt = _bounce(scene, isect, c["throughput"], d_vc, d_vcm, d_vm, active,
                   c["state"], hit, mis_eta_vc, mis_eta_vm, adjoint=True,
                   algo=algo, last_bounce=(i + 1 >= max_len))
+    for k in ("d_vc", "d_vcm", "d_vm"):
+        nxt[k] = torch.where(dead, c[k], nxt[k])
     return dict(nxt, finite=c["finite"], path_id=c["path_id"]), shadow
 
 
@@ -451,7 +496,7 @@ def camera_shade_plain(scene, c, hit, i, *, cache_count, cache_rec,
     if shadow:
         dead = (~c["active"]).repeat(len(shadow))
         sets = ShadowSets(*(
-            torch.where(dead.view(-1, *[1] * (x.dim() - 1)), v, x)
+            _dead_where(dead, x, v)
             for x, v in zip((torch.cat([s[k] for s in shadow])
                              for k in range(6)), DEAD_SHADOW)))
     q = MergeQuery(isect.pos, isect.normal, isect.gn, isect.w_out,
@@ -748,7 +793,10 @@ def light_shade_cuda(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
                      mis_eta_vm, algo, light_path_count, max_len, has_bump,
                      pixel_area):
     """Launch vcm_light_shade_kernel (raises on anything but CUDA
-    tensors): light_shade_plain's outputs, computed a lane a thread."""
+    tensors): light_shade_plain's outputs, a block in two phases: a lane
+    a thread up to the vertex row, then the block's live lanes compacted
+    and ordered by material kind for the camera connection and the
+    bounce (csrc/vcm_shade.cu)."""
     lanes = c["active"].shape[0]
     dev = c["active"].device
     ptrs = _carry_in(c, LIGHT_CARRY, lanes)
@@ -764,6 +812,10 @@ def light_shade_cuda(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
                                  "rows.rec"),
                     v_store=_check(rows.store, torch.bool, (lanes,),
                                    "rows.store"))
+        if ptrs["v_rec"].data_ptr() % 16:
+            raise ValueError("vcm_shade: rows.rec must be 16-byte aligned "
+                             "(the kernel stores a row as six 16-byte "
+                             "words)")
     shadow = None
     if use_cc:
         ptrs.update(cc_contrib=_check(rows.cc, torch.float32, (lanes, 3),

@@ -50,11 +50,14 @@ The launch counters of the kernel wrappers and MASK_STATS tick in
 Python, so a capture counts one step and a replay none.  A capture's
 counts are therefore taken as the graph's deltas and taken back off the
 counters, and every replay adds the deltas.  The counts ticked inside a
-conditional body are not in the deltas: the body adds them to their
-slots of `counts` on the card each time it runs, and render_frame adds
-the device counts to the counters at the end of the frame, in the one
-host read that also reads the overflow counter.  So the counters count
-the launches a frame really makes, graphed or not.  GRAPH_STATS counts
+conditional body are not in the deltas: they reach their slots of
+`counts` on the card, either from the body each time it runs or, for a
+loop that hands them to its caller with its round counter (the masked
+re-trace's), once after the loop, times the body's runs
+(dispatch.slot_finish).  render_frame adds the device counts to the
+counters at the end of the frame, in the one host read that also reads
+the overflow counter.  So the counters count the launches a frame really
+makes, graphed or not.  GRAPH_STATS counts
 captures, the seconds they took (warm-up included), replays and the
 frames rendered again on the eager route because the overflow counter
 was above 0.
@@ -206,28 +209,39 @@ def _host_flag(flag) -> bool:
     return bool(flag)
 
 
-def while_loop(cond, body):
+def while_loop(cond, body, rounds=None):
     """jax.lax.while_loop over state that body() updates in place: body
     runs while cond(), a 0-d bool tensor, is true.  Inside a capture the
     loop is the graph's (a WHILE node on the card), and the counts body
-    ticks go to the device counts each time it runs; elsewhere it loops
-    on the host."""
+    ticks reach the device counts: each time it runs, or, given
+    `rounds`, the loop's 0-d device round counter (1 + the body's runs,
+    which body counts itself), not from the body: the loop returns them
+    as (slot, n) pairs, n a run, for its caller to add n x (rounds - 1)
+    once after it (dispatch.slot_finish).  Elsewhere it loops on the host
+    and returns ()."""
     if not _ACTIVE:
         while _host_flag(cond()):
             body()
-        return
+        return ()
     graph, counts = _ACTIVE[-1]
+    deltas = []
 
     def counted():
         before = _snapshot()
         body()
-        for slot, (i, k) in enumerate(_slots(), 1):
-            n = _counters()[i][k] - before[i][k]
-            if n and not _is_max(k):
+        ticked = [(slot, _counters()[i][k] - before[i][k])
+                  for slot, (i, k) in enumerate(_slots(), 1)
+                  if not _is_max(k)]
+        ticked = [(slot, n) for slot, n in ticked if n]
+        if rounds is None:
+            for slot, n in ticked:
                 counts[slot].add_(n)
+        elif not deltas:
+            deltas.extend(ticked)
         _restore(before)
 
     graph.while_loop(cond, counted)
+    return tuple(deltas)
 
 
 def count_slots(counter: dict, keys):

@@ -237,7 +237,8 @@ def gather_slots(need, slots: int, hit: Hit, tcur=None) -> dp.Slots:
 def _retrace_loop(cond, body, cap: int, dev):
     """After a dispatch's first round, run body() while cond() and fewer
     than `cap` rounds have run (graphs.while_loop), counting each round;
-    returns the rounds run, a 0-d device int32."""
+    returns (the rounds run, a 0-d device int32; the counts a run of the
+    body ticks, which _finish adds for all its runs)."""
     rounds = torch.ones((), dtype=torch.int32, device=dev)
 
     def counted():
@@ -245,18 +246,22 @@ def _retrace_loop(cond, body, cap: int, dev):
         body()
         rounds.add_(1)
 
-    graphs.while_loop(lambda: cond() & (rounds < cap), counted)
-    return rounds
+    deltas = graphs.while_loop(lambda: cond() & (rounds < cap), counted,
+                               rounds=rounds)
+    return rounds, deltas
 
 
-def _finish(overflow, act, slots: dp.Slots, rounds, hit: Hit) -> Hit:
+def _finish(overflow, act, slots: dp.Slots, loop, hit: Hit) -> Hit:
     """After the loop (dispatch.slot_finish, slot_merge: on the card their
     kernels): the lanes past the slots and those still unresolved at the
     cap added to `overflow`, and inside a capture the dispatch's device
     counts (empty, its rounds, the lanes carried past its first round,
-    dropped, capped); returns `hit` with the slots' hits merged in."""
+    dropped, capped) and the counts of the loop's body (`loop`:
+    _retrace_loop's rounds and per-run counts), times its runs; returns
+    `hit` with the slots' hits merged in."""
+    rounds, deltas = loop
     dp.slot_finish(overflow, act, slots, rounds,
-                   graphs.count_slots(MASK_STATS, dp.FINISH_KEYS))
+                   graphs.count_slots(MASK_STATS, dp.FINISH_KEYS), deltas)
     return dp.slot_merge(slots, hit)
 
 
@@ -290,8 +295,8 @@ def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
                                    lanes=s.idx, tcur=s.tcur)
         dp.khit_resolve(disp, out, s.need, s.need, s.tcur, s.hit, alpha_fn)
 
-    rounds = _retrace_loop(s.need.any, body, KHIT_MAX_ROUNDS, dev)
-    return _finish(overflow, act, s, rounds, hit)
+    loop = _retrace_loop(s.need.any, body, KHIT_MAX_ROUNDS, dev)
+    return _finish(overflow, act, s, loop, hit)
 
 
 def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
@@ -324,8 +329,8 @@ def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
         dp.stream_resolve(disp, out, dp.RETRACE, hit=s.hit, flag=s.need,
                           retrace_in=s.need, select=True, alpha_fn=alpha_fn)
 
-    rounds = _retrace_loop(s.need.any, body, RETRACE_MAX_ROUNDS, dev)
-    return _finish(overflow, act, s, rounds, hit)
+    loop = _retrace_loop(s.need.any, body, RETRACE_MAX_ROUNDS, dev)
+    return _finish(overflow, act, s, loop, hit)
 
 
 def _closest_hit_masked(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The two kernels redesigned for Hopper against their earlier design, on
-one card in one process: dispatch_rows_kernel (csrc/dispatch.cu) and
-vcm_camera_shade_kernel (csrc/vcm_shade.cu).
+"""The kernels redesigned for Hopper against their earlier design, on one
+card in one process: vcm_light_shade_kernel (csrc/vcm_shade.cu) and
+slot_finish_kernel (csrc/dispatch.cu).
 
 The earlier design is another checkout's source (--root, for example the
 parent commit unpacked under the git-ignored out/), built with this
@@ -11,17 +11,21 @@ chip_smoke.graph_ms (10 launches captured in one CUDA graph, after a
 warm-up), earlier, redesigned, redesigned, earlier, on chip_smoke.py's
 inputs:
 
-* the rows: the bounce-1 rays of the still life at 1920x1080, the
-  cornell at 1024^2 and the instanced scene at 1920x1080 (phases 4d and
-  8a), a first round over every lane and a re-trace round over every
-  third active lane (state by slot, tmin' past the slot's hit); the two
-  designs' rows must be equal bit for bit;
-* the camera bounce: the middle 2^18-lane band of a still-life vcm frame
-  at 1920x1080 with 2^20 light paths at camera bounces 0, 1 and 3 with 1
-  and 3 connections (phase 4c's bands), and the cornell with delta lights
-  at 1024^2, bounce 1, 3 connections; the two designs' outputs must be
-  equal bit for bit but in the shadow rows of lanes dead on entry, which
-  the redesign writes as vcm_shade.DEAD_SHADOW.
+* the light bounce: the middle 2^18-lane band of a still-life vcm frame
+  at 1920x1080 with 2^20 light paths at light bounces 0, 3 and 6 (phase
+  4c's), the cornell with delta lights at 1024^2, bounce 0, and the
+  instanced scene at 1920x1080, bounce 1; the two designs' outputs must
+  be equal bit for bit on the lanes that go on past the hit test, and on
+  the others in what both write alike (the flags, the ray, tmin, the
+  throughput and the RNG word): there the redesign writes
+  vcm_shade.DEAD_LIGHT's rows and the carry's partial weights as they
+  came in;
+* the finish: the still life's bounce-1 rays as its graph-ready khit
+  re-trace gathers them and phase 4e's seeded need masks at both slot
+  shares; the earlier kernel adds no per-run counts (the loop's body
+  added them a round, one 0-d add each), so both run without them and
+  must agree bit for bit, and the redesign is timed once more with five
+  (its call in a graphed frame).
 
 Each `[ab]` line names the card and its power limit, with the bound of
 the bytes the function moves (chip_smoke.py's count) and each build's
@@ -42,15 +46,15 @@ from functools import partial
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from imbatracer_torch import libbuild  # noqa: E402
-from imbatracer_torch.core import rng  # noqa: E402
 from imbatracer_torch.device import card_line, get_device  # noqa: E402
 from imbatracer_torch.ops import dispatch as dp  # noqa: E402
-from imbatracer_torch.ops import stream_traverse as st  # noqa: E402
 from imbatracer_torch.ops import vcm_shade as vs  # noqa: E402
+from imbatracer_torch.render import traverse as tt  # noqa: E402
 
 
 class _Built:
@@ -125,136 +129,114 @@ def fmt(ms):
     return " / ".join(f"{x:.4f}" for x in ms)
 
 
-def rows_cases(libs, scenes, card):
-    for label, (scene, meta), (w, h, max_len) in scenes:
-        dev = scene.device
-        c, hit, _ = cs.shade_carry(scene, meta, w, h, max_len, 1, dev)
-        org, d, act = c["org"], c["d"], c["active"]
-        n = org.shape[0]
-        bvh = scene.bvh
-        tmin = st.full_lanes(c["tmin"], n, dev)
-        tmax = st.full_lanes(st.BIG, n, dev)
-        slots = act.nonzero()[:, 0][::3].contiguous()
-        for form in ("first", "re-trace"):
-            first = form == "first"
-            ln = None if first else slots
-            m = n if first else slots.shape[0]
-            a = act if first else torch.ones(m, dtype=torch.bool, device=dev)
-            tc = None if first else hit.t[slots].contiguous()
-            perm = torch.sort(dp.keys_cuda(org, d, a, bvh.bounds, bvh.center,
-                                           ln), stable=True)[1]
-            fn = partial(dp.rows_cuda, org, d, tmin, tmax, perm, m, active=a,
-                         center=bvh.center, lanes=ln, tcur=tc,
-                         step=not first)
-            outs = {}
-            for which in ("earlier", "redesigned"):
-                dp._lib = libs[which]
-                outs[which] = fn()
-            bad = cs.bit_mismatches(outs["earlier"], outs["redesigned"])
-            if bad:
-                raise AssertionError(f"[ab] dispatch_rows {label} {form}: "
-                                     f"{bad} elements differ")
-            earlier, new = turns(dp, libs, fn)
-            nbytes = (m * (8 + 24 + 1 + 32) + cs.lane_bytes(tmin, m)
-                      + cs.lane_bytes(tmax, m) + (0 if first else 12 * m))
-            bound_ms, by = cs.shade_bound(nbytes, 0)
-            cs.log(f"[ab] dispatch_rows_kernel, {label} bounce 1, {form} "
-                   f"round ({m} rows): earlier {fmt(earlier)} ms, "
-                   f"redesigned {fmt(new)} ms, bound {bound_ms:.4f} ms by "
-                   f"{by} ({nbytes} bytes); rows bit-equal [{card}]")
+# What the light bounce writes alike in both designs on a lane that does
+# not go on past the hit test.
+ALIKE = ("org", "d", "tmin", "throughput", "active", "state", "finite",
+         "path_id", "shadow.ok", "rows.store")
 
 
-def camera_carry(scene, meta, cam, fi, lpc, bounce):
-    """The middle NUM_RAYS band of the frame's camera pass at camera
-    bounce `bounce` (phase 4c's), with its closest hit."""
-    from imbatracer_torch.render.integrators import pt, vcm
-    from imbatracer_torch.render.intersect import BIG
-    from imbatracer_torch.render.traverse import closest_hit
-
-    w, h, dev = cam.width, cam.height, cam.pos.device
-    start = (w * h - cs.NUM_RAYS) // 2 // w * w
-    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
-    c = vcm._camera_carry(cam, fi.frame, width=w, height=h, spp=1,
-                          light_path_count=lpc, start_pixel=start,
-                          band_pixels=cs.NUM_RAYS)
-    c["n_rays"] = torch.zeros((), dtype=torch.int64, device=dev)
-    kinds = tuple(sorted(set(scene.materials.kind.tolist())))
-    for i in range(bounce):
-        c = vcm._camera_bounce(
-            scene, c, i, cache_count=fi.cache_count, cache_rec=fi.cache_rec,
-            grid=fi.grid, pm_radius=fi.pm_radius,
-            base_radius=fi.base_radius, mis_eta_vc=fi.mis_eta_vc,
-            mis_eta_vm=fi.mis_eta_vm, algo="vcm", max_len=8,
-            light_path_count=lpc, num_connections=1, has_bump=meta.has_bump,
-            alpha_fn=alpha_fn, techniques=vs.TECHNIQUES, mat_kinds=kinds)
-    hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
-                      alpha_fn=alpha_fn, active=c["active"], sort=True)
-    return c, hit
-
-
-def outputs(got):
-    """{name: tensor} of camera_shade's outputs."""
-    nxt, sh, q = got
+def light_outputs(nxt, sh, rows):
+    """{name: tensor} of light_shade's outputs."""
     cols = dict(nxt)
     cols.update({f"shadow.{k}": v for k, v in sh._asdict().items()})
-    cols.update({f"query.{k}": v for k, v in q._asdict().items()
-                 if k != "params"})
-    cols.update({f"query.{k}": v for k, v in q.params.items()})
+    cols.update({f"rows.{k}": v for k, v in rows._asdict().items()})
     return cols
 
 
-def camera_case(libs, label, scene, meta, cam, fi, lpc, bounce, conns,
-                card):
-    c, hit = camera_carry(scene, meta, cam, fi, lpc, bounce)
-    kw = cs.camera_kw(meta, fi, lpc, 8, conns)
-    fn = partial(vs.camera_shade_cuda, scene, c, hit, bounce, **kw)
-    outs = {}
+def differ(x, y):
+    """Elements of x and y not bit-equal (NaN against NaN equal)."""
+    if x.dim() and x.dtype == torch.float32:
+        nan = torch.isnan(x) & torch.isnan(y)
+        return int(((x.view(torch.int32) != y.view(torch.int32))
+                    & ~nan).sum())
+    return int((x != y).sum())
+
+
+def light_case(libs, label, scene, meta, cam, fi, lpc, bounce, card):
+    c, hit, _ = cs.vcm_light_band(scene, meta, cam, fi, lpc, 8, bounce)
+    kw = cs.light_kw(meta, cam, fi, lpc, 8)
+    dev = cam.pos.device
+    outs, rows = {}, {}
     for which in ("earlier", "redesigned"):
         vs._lib = libs[which]
-        outs[which] = outputs(fn())
-    dead = ~c["active"]
-    sets = outs["redesigned"]["shadow.ok"].shape[0] // dead.shape[0]
-    live_rows = (~dead).repeat(sets)
+        rows[which] = vs.light_rows(cs.NUM_RAYS, 1, True, True, dev)
+        nxt, sh = vs.light_shade_cuda(scene, cam, c, hit, bounce,
+                                      rows[which], **kw)
+        outs[which] = light_outputs(nxt, sh, rows[which])
+    # A lane that goes on writes its path length, bounce + 2, into its
+    # vertex row; DEAD_LIGHT's row holds 0 there.
+    live = rows["redesigned"].rec[:, 21].view(torch.int32) != 0
     bad = {}
     for name, x in outs["redesigned"].items():
         y = outs["earlier"][name]
-        if name.startswith("shadow."):
-            x, y = x[live_rows], y[live_rows]
-        if x.dim() and x.dtype == torch.float32:
-            nan = torch.isnan(x) & torch.isnan(y)
-            k = int(((x.view(torch.int32) != y.view(torch.int32))
-                     & ~nan).sum())
-        else:
-            k = int((x != y).sum())
+        k = differ(x, y) if name in ALIKE else differ(x[live], y[live])
         if k:
             bad[name] = k
     if bad:
-        raise AssertionError(f"[ab] vcm_camera_shade {label}: the designs "
-                             f"differ: {bad}")
+        raise AssertionError(f"[ab] vcm_light_shade {label} bounce {bounce}: "
+                             f"the designs differ: {bad}")
+    fn = partial(vs.light_shade_cuda, scene, cam, c, hit, bounce,
+                 rows["redesigned"], **kw)
     earlier, new = turns(vs, libs, fn)
-    _, (ul,) = rng.next_floats(c["state"], 1)
-    num_lights = scene.lights.kind.shape[0]
-    lights = cs.distinct_rows(torch.clamp((ul * num_lights).to(torch.int32),
-                                          max=num_lights - 1), 24)
     shade = cs.distinct_rows(hit.prim_id.clamp(min=0),
                              scene.attrs.shade_rec.shape[1])
-    cache_b, mat_b = cs.connection_rows(scene, c, fi, conns)
-    reads = {n: c[n] for n in ("org", "d", "throughput", "radiance",
-                               "active", "d_vc", "d_vcm", "d_vm", "state")}
+    reads = {n: c[n] for n in ("org", "d", "throughput", "active", "d_vc",
+                               "d_vcm", "d_vm", "state", "finite",
+                               "path_id")}
     vs._lib = libs["redesigned"]
-    nxt, sh, q = fn()
-    nbytes = (cs.tensor_bytes(reads, hit, nxt, tuple(sh), q) + shade
-              + lights + cache_b + mat_b)
-    bound_ms, by = cs.shade_bound(nbytes, cs.NUM_RAYS * (
-        cs.VCM_LANE_OPS["camera_shade"] + conns
-        * cs.VCM_LANE_OPS["connection"]))
+    nxt, sh = fn()
+    nbytes = (cs.tensor_bytes(reads, hit, {n: nxt[n] for n in vs.NEXT},
+                              tuple(rows["redesigned"]), tuple(sh)) + shade)
+    bound_ms, by = cs.shade_bound(
+        nbytes, cs.NUM_RAYS * cs.VCM_LANE_OPS["light_shade"])
     alive = float(c["active"].double().mean())
-    cs.log(f"[ab] vcm_camera_shade_kernel, {label}, camera bounce {bounce}, "
-           f"{conns} connection{'s' if conns > 1 else ''}, {alive:.4f} "
-           f"alive on entry: earlier {fmt(earlier)} ms, redesigned "
+    cs.log(f"[ab] vcm_light_shade_kernel, {label}, light bounce {bounce}, "
+           f"{alive:.4f} alive on entry, {float(live.double().mean()):.4f} "
+           f"past the hit test: earlier {fmt(earlier)} ms, redesigned "
            f"{fmt(new)} ms, bound {bound_ms:.4f} ms by {by} ({nbytes} "
-           f"bytes); outputs bit-equal but dead lanes' shadow rows "
-           f"[{card}]")
+           f"bytes); outputs bit-equal but the rows and partial weights of "
+           f"lanes that do not go on [{card}]")
+
+
+def finish_case(libs, label, act, need, slots, hit, tcur, seed, card):
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum(dtype=torch.int32)
+    s = dp.slot_gather_cuda(idx, count, hit, tcur)
+    rs = np.random.RandomState(seed)
+    dev = need.device
+    s = s._replace(need=s.valid & torch.from_numpy(
+        rs.rand(slots) < 0.5).to(dev))
+    rounds = torch.tensor(int(rs.randint(1, 9)), dtype=torch.int32,
+                          device=dev)
+    counts0 = torch.from_numpy(rs.randint(0, 100, 14).astype(np.int32)).to(
+        dev)
+    where = (list(range(3, 3 + len(dp.FINISH_KEYS))),
+             [k.startswith("max_") for k in dp.FINISH_KEYS])
+    deltas = [(1, 1), (2, 1), (8, 1), (9, 1), (10, 1)]
+    got = {}
+    for which in ("earlier", "redesigned"):
+        dp._lib = libs[which]
+        got[which] = counts0.clone()
+        dp.slot_finish_cuda(got[which][0], act, s, rounds,
+                            (got[which],) + where)
+    bad = cs.bit_mismatches(got["earlier"], got["redesigned"])
+    if bad:
+        raise AssertionError(f"[ab] slot_finish {label}: {bad} counts "
+                             f"differ")
+    ck = counts0.clone()
+    fn = partial(dp.slot_finish_cuda, ck[0], act, s, rounds, (ck,) + where)
+    earlier, new = turns(dp, libs, fn)
+    dp._lib = libs["redesigned"]
+    folded = cs.graph_ms(partial(dp.slot_finish_cuda, ck[0], act, s, rounds,
+                                 (ck,) + where, deltas))
+    n = act.shape[0]
+    nbytes = n + slots + 12 + 24
+    bound_ms, by = cs.shade_bound(nbytes, 0)
+    cs.log(f"[ab] slot_finish_kernel, {label} ({n} lanes, {slots} slots, "
+           f"{int(count)} in need): earlier {fmt(earlier)} ms, redesigned "
+           f"{fmt(new)} ms, with 5 per-run counts folded in {folded:.4f} ms, "
+           f"bound {bound_ms:.5f} ms by {by} ({nbytes} bytes); counts "
+           f"bit-equal [{card}]")
 
 
 def main():
@@ -264,8 +246,7 @@ def main():
     args = p.parse_args()
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
-    from imbatracer_torch.scene.procedural import (make_cornell_scene,
-                                                   make_still_life_like)
+    from imbatracer_torch.scene.procedural import make_still_life_like
 
     dev = get_device("cuda")
     card = card_line(dev)
@@ -275,38 +256,44 @@ def main():
             vs: libbuild.BUILD_INFO.get(vs.LIB.name, {}).get("log", "")}
     libs = {mod: {"earlier": built[mod][0], "redesigned": new[mod]}
             for mod in (dp, vs)}
-    for mod, kernel in ((dp, "dispatch_rows_kernel"),
-                        (vs, "vcm_camera_shade_kernel")):
+    for mod, kernel in ((vs, "vcm_light_shade_kernel"),
+                        (dp, "slot_finish_kernel")):
         cs.log(f"[ab] {kernel} ptxas: earlier {ptxas(built[mod][1], kernel)}"
                f"; redesigned {ptxas(logs[mod], kernel)} [{card}]")
-    res(dp, libs[dp], "dispatch_rows", card)
-    res(vs, libs[vs], "camera_shade", card)
+    res(vs, libs[vs], "light_shade", card)
+    res(dp, libs[dp], "slot_finish", card)
 
-    still = make_still_life_like(device=dev)
-    cornell = make_cornell_scene(device=dev)
+    scene, meta = make_still_life_like(device=dev)
+    cam, fi, lpc, _ = cs.vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    label = f"still_life 1920x1080, {lpc} light paths"
+    for bounce in cs.LIGHT_BOUNCES:
+        light_case(libs[vs], label, scene, meta, cam, fi, lpc, bounce, card)
+    c, _, alpha_fn = cs.shade_carry(scene, meta, 1920, 1080, 8, 1, dev)
+    need, slots, hit, tcur = cs.recorded_slots(scene, c, alpha_fn)
+    finish_case(libs[dp], "still_life 1920x1080 bounce 1, the khit "
+                "re-trace's", c["active"], need, slots, hit, tcur, 1, card)
+    del c, need, hit, tcur
+    for density, two_level, seed in ((0.0, False, 2), (0.01, False, 3),
+                                     (0.2, True, 4), (0.3, True, 5)):
+        slots = tt.retrace_slots(cs.NUM_RAYS, two_level)
+        act, need, hit, tcur = cs.random_slots_case(
+            cs.NUM_RAYS, density, slots, seed, dev, not two_level)
+        finish_case(libs[dp], f"seeded need {density} of the lanes, "
+                    f"{'two-level' if two_level else 'flat'} share", act,
+                    need, slots, hit, tcur, seed, card)
+    del scene
+    delta = cs.delta_light_cornell(dev)
+    cam, fi, lpc, _ = cs.vcm_frame_inputs(*delta, 1024, 1024, 8, dev)
+    light_case(libs[vs], "cornell with point, spot and dir lights "
+               "1024x1024", *delta, cam, fi, lpc, 0, card)
+    del delta
     tmp = tempfile.mkdtemp(prefix="imba_ab_")
     inst = build_scene(write_instanced_scene(tmp, **CARD), quiet=True,
                        device=dev)
-    rows_cases(libs[dp], (("still_life 1920x1080", still, (1920, 1080, 8)),
-                          ("cornell 1024x1024", cornell, (1024, 1024, 10)),
-                          ("instanced 1920x1080", inst, (1920, 1080, 8))),
-               card)
-    del inst
+    cam, fi, lpc, _ = cs.vcm_frame_inputs(*inst, 1920, 1080, 8, dev)
+    light_case(libs[vs], f"instanced 1920x1080, {lpc} light paths", *inst,
+               cam, fi, lpc, 1, card)
     shutil.rmtree(tmp, ignore_errors=True)
-
-    scene, meta = still
-    cam, fi, lpc, cap = cs.vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
-    fi = cs.vcm_working_cache(scene, meta, cam, fi, lpc, cap, 8)
-    for bounce in (0, 1, 3):
-        for conns in (1, 3):
-            camera_case(libs[vs], f"still_life 1920x1080, {lpc} light paths",
-                        scene, meta, cam, fi, lpc, bounce, conns, card)
-    del fi
-    delta = cs.delta_light_cornell(dev)
-    cam, fi, lpc, cap = cs.vcm_frame_inputs(*delta, 1024, 1024, 8, dev)
-    fi = cs.vcm_working_cache(*delta, cam, fi, lpc, cap, 8)
-    camera_case(libs[vs], "cornell with point, spot and dir lights "
-                "1024x1024", *delta, cam, fi, lpc, 1, 3, card)
     cs.log("[ab] done")
 
 

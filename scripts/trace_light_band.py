@@ -28,7 +28,9 @@ between the marks, the port's ctypes launches included):
   paths): one graphed vcm frame (busy, the middle, the scalar-add
   kernels `CUDAFunctorOnSelf_add` by launch shape from its chrome
   trace), then the adds that a fresh scene's captures record into its
-  graphs, by call site.
+  graphs, by call site, those inside a WHILE node's body (run once a
+  round of the re-trace) marked, and the adds left a round: those
+  recorded into the bodies over the bodies captured.
 
 `--root DIR` imports the port from DIR (another checkout, for example a
 parent commit unpacked under the git-ignored `out/`), so two trees can be
@@ -232,9 +234,10 @@ def middle_ranged():
     vcm.working_cache = closed
 
 
-# Kernels whose device time and launches every graphed frame logs: the
-# two redesigned for Hopper (csrc/dispatch.cu, csrc/vcm_shade.cu).
-NAMED = ("dispatch_rows_kernel", "vcm_camera_shade_kernel")
+# Kernels whose device time and launches every graphed frame logs: those
+# redesigned for Hopper (csrc/dispatch.cu, csrc/vcm_shade.cu).
+NAMED = ("dispatch_rows_kernel", "vcm_camera_shade_kernel",
+         "vcm_light_shade_kernel", "slot_finish_kernel")
 
 
 def graphed_frame(scene, meta, settings, tag, chrome=None):
@@ -292,35 +295,49 @@ def adds_by_shape(path):
 
 
 def captured_adds(run):
-    """Run `run()` with torch.Tensor.add_ and __iadd__ wrapped: {the
+    """Run `run()` with torch.Tensor.add_ and __iadd__ wrapped: ({the
     port's innermost call site: adds made while a CUDA graph captured}
     (each is launched once a replay of its graph, once a round inside a
-    WHILE body)."""
+    WHILE body, those marked "[body]"), the WHILE bodies captured)."""
     import traceback
 
-    sites = {}
+    from imbatracer_torch.render import graphs
+
+    sites, bodies = {}, [0]
     originals = {k: getattr(torch.Tensor, k) for k in ("add_", "__iadd__")}
+    loop = graphs.CudaGraph.while_loop
 
     def wrap(name, fn):
         def wrapped(self, *a, **k):
             if torch.cuda.is_current_stream_capturing():
-                here = [f for f in traceback.extract_stack()[:-1]
-                        if "imbatracer_torch" in f.filename]
-                key = (f"{name} of {tuple(self.shape)} at " + " < ".join(
-                    f"{f.filename.split('imbatracer_torch/')[-1]}:{f.lineno}"
-                    f" {f.name}" for f in reversed(here[-2:])))
+                stack = traceback.extract_stack()[:-1]
+                here = [f for f in stack if "imbatracer_torch" in f.filename]
+                body = any(f.name == "while_loop"
+                           and f.filename.endswith("graphs.py")
+                           for f in stack)
+                key = (("[body] " if body else "")
+                       + f"{name} of {tuple(self.shape)} at " + " < ".join(
+                           f"{f.filename.split('imbatracer_torch/')[-1]}:"
+                           f"{f.lineno} {f.name}"
+                           for f in reversed(here[-2:])))
                 sites[key] = sites.get(key, 0) + 1
             return fn(self, *a, **k)
         return wrapped
 
+    def counted_loop(self, *a, **k):
+        bodies[0] += 1
+        return loop(self, *a, **k)
+
     for k, fn in originals.items():
         setattr(torch.Tensor, k, wrap(k, fn))
+    graphs.CudaGraph.while_loop = counted_loop
     try:
         run()
     finally:
         for k, fn in originals.items():
             setattr(torch.Tensor, k, fn)
-    return {k: [0.0, n] for k, n in sites.items()}
+        graphs.CudaGraph.while_loop = loop
+    return {k: [0.0, n] for k, n in sites.items()}, bodies[0]
 
 
 def show_adds(tag, tot, top=12):
@@ -352,10 +369,15 @@ def instanced(dev):
     # A fresh scene's captures, their adds by call site.
     scene, meta = build_scene(path, quiet=True, device=dev)
     frame_fn, _ = make_frame_fn(scene, meta, settings)
+    sites, bodies = captured_adds(
+        lambda: (frame_fn(0), torch.cuda.synchronize()))
     show_adds("the instanced vcm frame's captures (adds recorded into a "
-              "graph, by call site)",
-              captured_adds(lambda: (frame_fn(0), torch.cuda.synchronize())),
-              top=20)
+              "graph, by call site)", sites, top=20)
+    in_bodies = sum(n for k, (_, n) in sites.items()
+                    if k.startswith("[body]"))
+    print(f"[addtrace] WHILE bodies captured: {bodies}; adds recorded in "
+          f"them: {in_bodies}, {in_bodies / max(bodies, 1):.2f} a round",
+          flush=True)
     print(f"[addtrace] graph stats {graphs.GRAPH_STATS}", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
 

@@ -548,9 +548,51 @@ def test_plain_slots_match_the_composite(case, two_level):
     assert int(got[at["empty"]] - counts0[at["empty"]]) == (case == "empty")
 
 
+@pytest.mark.parametrize("rounds", [1, 2, 5, tt.KHIT_MAX_ROUNDS])
+def test_finish_folds_the_loop_counts(rounds):
+    """slot_finish_plain with the counts a run of the loop's body ticks
+    ((slot, n) pairs, graphs.while_loop's deltas) equals the loop adding
+    them to the device counts each run and slot_finish without them, bit
+    for bit, at 1 round (no run), 2, 5 and the khit cap; past MAX_DELTAS
+    pairs, pairs without the device counts or a pair at a maximum's slot,
+    it raises."""
+    rs = np.random.RandomState(rounds)
+    n, slots = 2048, 64
+    t = torch.from_numpy
+    act = t(rs.rand(n) < 0.5)
+    s = dp.slot_gather_plain(torch.arange(slots), torch.tensor(
+        40, dtype=torch.int32), tt.Hit(*(torch.zeros(n) for _ in range(4))))
+    s = s._replace(need=s.valid & t(rs.rand(slots) < 0.3))
+    at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
+    where = ([at[k] for k in dp.FINISH_KEYS],
+             [k.startswith("max_") for k in dp.FINISH_KEYS])
+    deltas = [(1, 1), (2, 1), (4, 3), (7, 1), (8, 2)]
+    counts0 = t(rs.randint(0, 50, 16).astype(np.int32))
+    r = torch.tensor(rounds, dtype=torch.int32)
+    got, want = counts0.clone(), counts0.clone()
+    dp.slot_finish_plain(got[0], act, s, r, (got,) + where, deltas)
+    for _ in range(rounds - 1):                 # the body's adds a run
+        for slot, k in deltas:
+            want[slot].add_(k)
+    dp.slot_finish_plain(want[0], act, s, r, (want,) + where)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for slot, k in deltas:
+        assert int(got[slot] - counts0[slot]) == k * (rounds - 1)
+    with pytest.raises(ValueError, match="per-run counts"):
+        dp.slot_finish(got[0], act, s, r, (got,) + where,
+                       [(1, 1)] * (dp.MAX_DELTAS + 1))
+    with pytest.raises(ValueError, match="per-run counts"):
+        dp.slot_finish(torch.zeros((), dtype=torch.int32), act, s, r, None,
+                       deltas)
+    with pytest.raises(ValueError, match="maximum's slot"):
+        dp.slot_finish(got[0], act, s, r, (got,) + where,
+                       [(at["max_rounds"], 1)])
+
+
 def test_slot_binding_matches_the_kernel():
     """FINISH_KEYS has the finish kernel's count of keys, in the order of
-    its values, and names MASK_STATS entries."""
+    its values, and names MASK_STATS entries; MAX_DELTAS is the kernel's
+    most per-run counts."""
     with open(f"{libbuild.CSRC}/dispatch.cu") as fh:
         src = fh.read()
     n = re.search(r"constexpr int kFinishKeys = (\d+);", src).group(1)
@@ -559,3 +601,5 @@ def test_slot_binding_matches_the_kernel():
     assert [v.strip() for v in vals.split(",")] == [
         "live == 0", "*rounds", "*count", "*dropped", "left"]
     assert set(dp.FINISH_KEYS) <= set(tt.MASK_STATS)
+    n = re.search(r"constexpr int kMaxDeltas = (\d+);", src).group(1)
+    assert int(n) == dp.MAX_DELTAS

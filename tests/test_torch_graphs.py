@@ -243,6 +243,65 @@ def test_device_counts_hold_the_eager_rounds(layers, two_level, standin,
                                   eager.prim_id.numpy())
 
 
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("layers", [1, 6, 16])
+def test_folded_counts_equal_the_host_loops(layers, two_level, standin,
+                                            monkeypatch):
+    """The re-trace's WHILE body adds no count: its loop hands the counts
+    a run ticks to slot_finish, which adds them times the runs.  A
+    replay's launch counters and MASK_STATS, its deltas and device counts
+    added, equal those of the same route run on the host (its loop a
+    Python loop, every count ticked each round), the FINISH_KEYS that
+    only the device counts hold aside; the loop's body ran past the
+    first round wherever the layers ask it to."""
+    _, flat, _, talpha = _layers(layers)
+    bvh = _two_level_layers(layers) if two_level else flat
+    _, _, org, d = _stack_rays(layers)
+    o, dd = torch.from_numpy(org), torch.from_numpy(d)
+    g, sg, state = _captured_dispatch(bvh, o, dd, talpha)
+    adds = []
+    orig = torch.Tensor.add_
+
+    def add_(self, *a, **k):
+        at = self.data_ptr() - sg.counts.data_ptr()
+        adds.append("count" if self._base is sg.counts and at > 0 else
+                    "overflow" if self._base is sg.counts else
+                    tuple(self.shape))
+        return orig(self, *a, **k)
+
+    def counters():
+        return [dict(c) for c in graphs._counters()]
+
+    def zero():
+        for c in graphs._counters():
+            for k in c:
+                c[k] = 0
+
+    zero()
+    overflow = torch.zeros((), dtype=torch.int32)
+    host = tt.closest_hit(bvh, o, dd, 0.0, BIG, alpha_fn=talpha, sort=True,
+                          overflow=overflow)
+    want = counters()
+    zero()
+    sg.counts.zero_()
+    monkeypatch.setattr(torch.Tensor, "add_", add_)
+    g.replay()
+    monkeypatch.setattr(torch.Tensor, "add_", orig)
+    values = sg.counts.tolist()
+    graphs.add_device_counts(values)
+    got = counters()
+    for c in (want, got):
+        for k in dp.FINISH_KEYS:
+            c[-1].pop(k)
+    assert got == want
+    assert values[0] == int(overflow) == 0
+    runs = _rounds_needed(layers, two_level) - 1
+    assert tt.MASK_STATS["rounds"] == runs + 1
+    # One round counter add a run of the body, no count add.
+    assert adds.count(()) == runs and "count" not in adds
+    np.testing.assert_array_equal(state["t"].numpy(), host.t.numpy())
+
+
 def _loop_graph(nested: bool):
     """A stand-in graph whose step runs graphs.while_loop over a static
     state: each pass doubles `x`, counts one round and takes one off

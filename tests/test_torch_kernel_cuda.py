@@ -31,8 +31,8 @@ with equal counted work; the card's query rows equal prepare_queries' bit
 for bit.  The shade kernels' flags, RNG state and counts equal the plain
 versions', their float columns within 1e-5 * max(1, |x|) on >= 99.9% of
 the lanes (bit for bit expected: they round each op as torch does).
-The slot kernels, the collect append and the middle's kernels are
-bit-equal to their plain versions; the splat adds with atomics, as index_add_ does, so a film
+The slot kernels, the collect append, the middle's kernels and the
+light bounce on dead bands are bit-equal to their plain versions; the splat adds with atomics, as index_add_ does, so a film
 agrees within the rounding of its sums' order.
 """
 
@@ -1302,6 +1302,126 @@ def test_cuda_vcm_camera_kernel_on_dead_bands(cuda_device, band, name, algo,
     else:
         assert not k_nxt["active"].any() and not k_sh.ok.any()
     assert vs.LAUNCHES["camera_shade"] == 1
+
+
+def _same_bits(name, k, p):
+    """k and p equal bit for bit (float NaN against NaN)."""
+    assert k.shape == p.shape and k.dtype == p.dtype, name
+    if k.dtype != torch.float32:
+        assert torch.equal(k, p), name
+        return
+    same = (k.view(torch.int32) == p.view(torch.int32)) | (
+        torch.isnan(k) & torch.isnan(p))
+    assert bool(same.all()), (name, int((~same).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "specular", "still_life"])
+@pytest.mark.parametrize("band", ["all_dead", "half_dead", "live",
+                                  "all_live"])
+def test_cuda_vcm_light_kernel_on_dead_bands(cuda_device, band, name):
+    """vcm_light_shade_kernel against light_shade_plain bit for bit on
+    every output column and lane, at light bounce 1 of a 3,001-lane band
+    (not a whole number of blocks): all lanes dead on entry (every lane
+    finished in the kernel's first phase), every other one, and the band
+    as it comes (its lanes of mixed material kinds, on the specular
+    cornell and the still life, in the second phase); and at bounce 0,
+    where the lanes are alive on entry but those whose emitter sample
+    carries no light.  A lane that does not go on writes DEAD_LIGHT's
+    rows.  One launch each."""
+    from imbatracer_torch.ops import shade as sh
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt, vcm
+    from torch_shade_cases import port_scene
+
+    scene, meta = port_scene(name, cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device)
+    lanes = 3001
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    skw = dict(mis_eta_vc=fi.mis_eta_vc, mis_eta_vm=fi.mis_eta_vm,
+               algo="vcm", light_path_count=VCM_LPC, max_len=VCM_MAX_LEN,
+               has_bump=meta.has_bump, pixel_area=vcm.pixel_area(cam))
+    closest = lambda c: tt.closest_hit(scene.bvh, c["org"], c["d"],
+                                       c["tmin"], BIG, alpha_fn=alpha_fn,
+                                       active=c["active"], sort=True)
+    c = vs.light_start(scene, fi.frame, fi.mis_eta_vc, lanes=lanes,
+                       light_path_count=VCM_LPC, path_start=100)
+    bounce = 0 if band == "all_live" else 1
+    if bounce:
+        c, _ = vs.light_shade(scene, cam, c, closest(c), 0, vs.light_rows(
+            lanes, 1, True, True, cuda_device), **skw)
+    else:
+        assert float(c["active"].double().mean()) >= 0.9
+    if band in ("all_dead", "half_dead"):
+        c["active"] = c["active"].clone()
+        c["active"][::1 if band == "all_dead" else 2] = False
+    hit = closest(c)
+    rk = vs.light_rows(lanes, 1, True, True, cuda_device)
+    rp = vs.light_rows(lanes, 1, True, True, cuda_device)
+    vs.reset_launches()
+    k_nxt, k_sh = vs.light_shade_cuda(scene, cam, c, hit, bounce, rk, **skw)
+    p_nxt, p_sh = vs.light_shade_plain(scene, cam, c, hit, bounce, rp,
+                                       **skw)
+    for n in p_nxt:
+        _same_bits(n, k_nxt[n], p_nxt[n])
+    for n in sh.ShadowRay._fields:
+        _same_bits(f"shadow.{n}", getattr(k_sh, n), getattr(p_sh, n))
+    for n in vs.LightRows._fields:
+        _same_bits(f"rows.{n}", getattr(rk, n), getattr(rp, n))
+    assert vs.LAUNCHES["light_shade"] == 1
+    if band == "all_dead":
+        assert not k_nxt["active"].any() and not k_sh.ok.any()
+        assert bool((rk.pixel == vs.DEAD_LIGHT.pixel).all())
+    else:
+        assert k_sh.ok.any() and rk.store.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "unaligned", "no_slots",
+                                  "no_counts", "wide"])
+def test_cuda_slot_finish_folds_the_loop_counts(cuda_device, case):
+    """slot_finish_kernel, a grid over the SMs, against slot_finish_plain
+    bit for bit with the counts a run of the loop's body ticks: flags of
+    a length that is no multiple of 16 (3,001 lanes, 129 slots), flags
+    that start off a 16-byte boundary, no slot, no device counts (the
+    overflow alone) and 2^20 lanes (more blocks than the card has SMs).
+    The word its blocks meet in is left zero for the next launch: two
+    launches in a row agree too."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    rs = np.random.RandomState(len(case))
+    num_r, slots = {"wide": (1 << 20, 4096), "no_slots": (3001, 0)}.get(
+        case, (3001, 129))
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    off = 1 if case == "unaligned" else 0
+    act = t(rs.rand(num_r + off) < 0.01)[off:]
+    need = t(rs.rand(slots + 3 * off) < 0.4)[3 * off:]
+    if case == "unaligned":
+        assert act.data_ptr() % 16 and need.data_ptr() % 16
+    s = dp.Slots(torch.zeros(slots, dtype=torch.int64, device=cuda_device),
+                 need, need, None, None,
+                 torch.tensor(slots + 7, dtype=torch.int32,
+                              device=cuda_device),
+                 torch.tensor(7, dtype=torch.int32, device=cuda_device))
+    rounds = torch.tensor(4, dtype=torch.int32, device=cuda_device)
+    at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
+    where = ([at[k] for k in dp.FINISH_KEYS],
+             [k.startswith("max_") for k in dp.FINISH_KEYS])
+    deltas = [(1, 1), (2, 1), (4, 3), (7, 1), (8, 2)]
+    counts0 = t(rs.randint(0, 50, 16).astype(np.int32))
+    ck, cp = counts0.clone(), counts0.clone()
+    dp.reset_launches()
+    for _ in range(2):
+        if case == "no_counts":
+            dp.slot_finish(ck[0], act, s, rounds)
+            dp.slot_finish_plain(cp[0], act, s, rounds)
+        else:
+            dp.slot_finish(ck[0], act, s, rounds, (ck,) + where, deltas)
+            dp.slot_finish_plain(cp[0], act, s, rounds, (cp,) + where,
+                                 deltas)
+        assert torch.equal(ck, cp)
+    assert int(ck[0] - counts0[0]) == 2 * (7 + int(need.sum()))
+    assert dp.LAUNCHES["slot_finish"] == 2
 
 
 @pytest.mark.cuda

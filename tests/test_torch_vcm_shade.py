@@ -6,7 +6,9 @@ the CPU.
   band's one append and one splat) and JAX's `_light_pass`
   (imbatracer_tpu/render/integrators/vcm.py, its exact traversal,
   max_steps=0) on the same band, for vcm, bpt and lt, on the five scenes
-  of torch_shade_cases.SCENES.  JAX's closest hit is replaced by the
+  of torch_shade_cases.SCENES and on a band half dead on entry (the
+  cornell with a dark copy of its light: the paths picking it start
+  dead).  JAX's closest hit is replaced by the
   port's hits, bounce by bounce (its `fori_loop` run as a Python loop in
   that module alone, so each bounce takes its own hits).  The film, the
   collected vertex rows and their count are compared.
@@ -19,15 +21,19 @@ the CPU.
   columns are compared (the merge itself: tests/test_torch_merge.py).
 * The same on bands dead on entry and half dying at the miss or emitter
   test (what the camera kernel finishes in its first phase), and the
-  shadow rows of lanes dead on entry: DEAD_SHADOW, the carry kept.
+  shadow rows of lanes dead on entry: DEAD_SHADOW, the carry kept.  A
+  light bounce on light bands all and half dead on entry: a lane that
+  does not go on writes DEAD_LIGHT's rows and keeps its carry, a live
+  lane's outputs are those it has beside live neighbours.
 * Tolerance, as tests/test_torch_shade.py's: RNG state, flags, counts and
   pixel ids equal; floats within 1e-5 * max(1, |x|) on all lanes but at
   most 1% of them, those within 1e-3.
 * The binding's argument lists against the enums of csrc/vcm_shade.cu,
-  its dead-row constants against DEAD_SHADOW, and CPU tensors never build
-  the kernels' library.
+  its dead-row constants against DEAD_SHADOW and DEAD_LIGHT, and CPU
+  tensors never build the kernels' library.
 """
 
+import dataclasses
 import re
 
 import jax
@@ -54,7 +60,7 @@ from imbatracer_torch.render.camera import make_camera as tcamera
 from imbatracer_torch.render.integrators import vcm as tvcm
 from imbatracer_torch.render.surface import make_interaction
 from torch_shade_cases import (SCENES, SMALL_STILL_LIFE, carry_arrays,
-                               dying_lanes, with_delta_lights)
+                               dying_lanes, light_rows, with_delta_lights)
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -94,14 +100,26 @@ def _jax_scene(name):
     if name == "bumped":
         return jproc.make_bumped_scene()
     js, meta = jproc.make_cornell_scene()
+    if name == "half_dark":
+        rows = light_rows(js.lights)
+        dark = [dict(r, intensity=np.zeros(3, np.float32)) for r in rows]
+        return dataclasses.replace(
+            js, lights=jlights.build_light_table(rows + dark)), meta
     return with_delta_lights(js, jlights.build_light_table), meta
+
+
+# The light band's scenes: the shade cases and the cornell with a dark
+# copy of its light appended, whose paths past the first half (the
+# uniform split of the path index over the lights) pick the dark light and
+# start dead.
+LIGHT_SCENES = SCENES + ("half_dark",)
 
 
 @pytest.fixture(scope="module")
 def scenes():
     """name -> (JAX scene, the port's scene from the same arrays, meta)."""
     out = {}
-    for name in SCENES:
+    for name in LIGHT_SCENES:
         js, meta = _jax_scene(name)
         out[name] = (js, scene_from_numpy(scene_to_numpy(js), "cpu"), meta)
     return out
@@ -172,10 +190,16 @@ def _port_light_pass(ts, meta, cam, algo, collect, monkeypatch=None,
 
 
 @pytest.mark.parametrize("algo", ["vcm", "bpt", "lt"])
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", LIGHT_SCENES)
 def test_light_pass_matches_jax(name, algo, scenes, monkeypatch):
     js, ts, meta = scenes[name]
     jcam, tcam = _cams(meta)
+    if name == "half_dark":
+        frame, _, _, eta_vc, _ = _constants(algo)
+        start = vs.light_start_plain(ts, frame, eta_vc, lanes=LPC,
+                                     light_path_count=LPC)
+        assert not start["active"][LPC // 2:].any()
+        assert start["active"][:LPC // 2].all()
     collect = None if algo == "lt" else tlc.empty_collect(LPC * MAX_LEN,
                                                           "cpu")
     before = dict(vs.LAUNCHES)
@@ -458,6 +482,83 @@ def test_dead_lanes_write_the_dead_shadow_rows(algo, conns, scenes):
                                   state[dead].numpy())
 
 
+@pytest.mark.parametrize("algo", ["vcm", "lt", "ppm"])
+@pytest.mark.parametrize("band", ["all_dead", "half_dead"])
+def test_light_shade_on_dead_bands(band, algo, scenes):
+    """light_shade_plain at light bounce 1 of the specular cornell's band
+    with all of its lanes, or every other one, dead on entry: a lane that
+    does not go on past the hit test (dead on entry, a miss, a grazing
+    hit or an emitter) writes DEAD_LIGHT's rows and keeps its carry --
+    inactive, no ray, its throughput and partial weights as they came,
+    tmin from its hit, its RNG word past the bounce's 4 draws; a live
+    lane's rows, connection, shadow ray and next carry are bit for bit
+    those it has in the same band with every lane alive.  The light
+    kernel finishes such a lane in its first phase and writes the same
+    (tests/test_torch_kernel_cuda.py)."""
+    _, ts, meta = scenes["specular"]
+    _, cam = _cams(meta)
+    frame, _, _, eta_vc, eta_vm = _constants(algo)
+    kw = dict(mis_eta_vc=eta_vc, mis_eta_vm=eta_vm, algo=algo,
+              light_path_count=LPC, max_len=MAX_LEN, has_bump=False,
+              pixel_area=tvcm.pixel_area(cam))
+    use_cache, use_cc = algo != "lt", algo != "ppm"
+
+    def closest(c):
+        return tt.closest_hit(ts.bvh, c["org"], c["d"], c["tmin"], tvcm.BIG,
+                              active=c["active"], sort=True)
+
+    def shade(c, hit, i):
+        rows = vs.light_rows(LPC, 1, use_cache, use_cc, "cpu")
+        nxt, shadow = vs.light_shade_plain(ts, cam, c, closest(c) if hit
+                                           is None else hit, i, rows, **kw)
+        return nxt, shadow, rows
+
+    c = vs.light_start_plain(ts, frame, eta_vc, lanes=LPC,
+                             light_path_count=LPC)
+    c, _, _ = shade(c, None, 0)
+    hit = closest(c)
+    dying = dict(c, active=c["active"].clone())
+    dying["active"][::1 if band == "all_dead" else 2] = False
+    nxt, shadow, rows = shade(dying, hit, 1)
+    ref_nxt, ref_shadow, ref_rows = shade(c, hit, 1)
+
+    isect = make_interaction(ts, hit, c["org"], c["d"])
+    cos_o = torch.abs(isect.w_out.mul(isect.normal).sum(-1))
+    live = (dying["active"] & (hit.prim_id >= 0) & (cos_o > 0.0)
+            & (isect.light_id < 0))
+    dead = ~live
+    assert live.any() == (band == "half_dead")
+    assert (dead & c["active"] & (hit.prim_id >= 0)).any() or band == (
+        "all_dead")
+    outs = {}
+    if use_cache:
+        outs.update(rec=(rows.rec, ref_rows.rec),
+                    store=(rows.store, ref_rows.store))
+    if use_cc:
+        outs.update(cc=(rows.cc, ref_rows.cc),
+                    pixel=(rows.pixel, ref_rows.pixel))
+        outs.update({k: (getattr(shadow, k), getattr(ref_shadow, k))
+                     for k in sh.ShadowRay._fields})
+    else:
+        assert shadow is None
+    for k, (x, y) in outs.items():
+        assert (x[dead] == getattr(vs.DEAD_LIGHT, k)).all(), k
+        np.testing.assert_array_equal(x[live].numpy(), y[live].numpy(),
+                                      err_msg=k)
+    assert not nxt["active"][dead].any()
+    assert (nxt["org"][dead] == 0).all() and (nxt["d"][dead] == 0).all()
+    for k in ("throughput", "d_vc", "d_vcm", "d_vm"):
+        np.testing.assert_array_equal(nxt[k][dead].numpy(),
+                                      dying[k][dead].numpy(), err_msg=k)
+    np.testing.assert_array_equal(nxt["tmin"][dead].numpy(),
+                                  (hit.t * 1e-4)[dead].numpy())
+    state, _ = trng.next_floats(dying["state"], 4)
+    np.testing.assert_array_equal(nxt["state"].numpy(), state.numpy())
+    for k, v in nxt.items():
+        np.testing.assert_array_equal(v[live].numpy(),
+                                      ref_nxt[k][live].numpy(), err_msg=k)
+
+
 def test_camera_finish_adds_the_sets_in_order(scenes):
     """camera_shade then camera_finish: each set's contrib is added exactly
     where its ray was cast and not occluded, in set order, and the cast
@@ -571,13 +672,18 @@ def test_binding_matches_the_kernel_source():
                                    "K_CAMERA_SHADE", "NUM_SHADE"]
     assert [vs.WHICH[k] for k in ("light_start", "light_shade",
                                   "camera_shade")] == [0, 1, 2]
-    # The camera kernel's dead-lane shadow row and its kind bins.
-    dead = {k.lower(): v for k, v in re.findall(
-        r"constexpr (?:float|bool) kDead(\w+) = (\w+(?:\.\w+)?)", src)}
+    # The camera kernel's dead-lane shadow row, the light kernel's
+    # dead-lane rows and their kind bins.
     parse = lambda v: v == "true" if v in ("true", "false") else float(
         v.rstrip("f"))
-    assert {k: parse(v) for k, v in dead.items()} == dict(
-        zip(vs.ShadowSets._fields, vs.DEAD_SHADOW))
+    dead = {k.lower(): parse(v) for k, v in re.findall(
+        r"constexpr (?:float|bool) kDead(?!Light)(\w+) = (\w+(?:\.\w+)?)",
+        src)}
+    assert dead == dict(zip(vs.ShadowSets._fields, vs.DEAD_SHADOW))
+    dead = {k.lower(): parse(v) for k, v in re.findall(
+        r"constexpr (?:float|bool|int) kDeadLight(\w+) = (-?\w+(?:\.\w+)?)",
+        src)}
+    assert dead == vs.DEAD_LIGHT._asdict()
     bins = int(re.search(r"kKindBins = (\d+);", src).group(1))
     assert bins > max(getattr(mat_mod, k) for k in dir(mat_mod)
                       if k.startswith("MAT_"))
