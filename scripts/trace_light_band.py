@@ -23,14 +23,18 @@ between the marks, the port's ctypes launches included):
   their device time, kernels by name and launches, and the middle's
   peak memory above what the frame held when it began; then one graphed
   PT frame of the same scene (wall, busy, kernels); every graphed frame
-  also logs the device time and launches of the kernels in NAMED;
+  also logs the device time and launches of the kernels in NAMED, and
+  ranks the kernels of BOUND_BYTES by launches x (us a launch - bound
+  at the traced lanes): each launch's threads (its grid and block, from
+  the frame's chrome trace) times the bytes a thread's lane must move,
+  over 3.35 TB/s;
 * the instanced scene (scene/generate.CARD, 1920x1080, default light
   paths): one graphed vcm frame (busy, the middle, the scalar-add
   kernels `CUDAFunctorOnSelf_add` by launch shape from its chrome
-  trace), then the adds that a fresh scene's captures record into its
-  graphs, by call site, those inside a WHILE node's body (run once a
-  round of the re-trace) marked, and the adds left a round: those
-  recorded into the bodies over the bodies captured.
+  trace) and one graphed PT frame, then the adds that a fresh scene's
+  captures record into its graphs, by call site, those inside a WHILE
+  node's body (run once a round of the re-trace) marked, and the adds
+  left a round: those recorded into the bodies over the bodies captured.
 
 `--root DIR` imports the port from DIR (another checkout, for example a
 parent commit unpacked under the git-ignored `out/`), so two trees can be
@@ -234,16 +238,84 @@ def middle_ranged():
     vcm.working_cache = closed
 
 
-# Kernels whose device time and launches every graphed frame logs: those
-# redesigned for Hopper (csrc/dispatch.cu, csrc/vcm_shade.cu).
-NAMED = ("dispatch_rows_kernel", "vcm_camera_shade_kernel",
-         "vcm_light_shade_kernel", "slot_finish_kernel")
+# Kernels whose device time and launches every graphed frame logs: every
+# hand-written kernel of the port but the traversals.
+NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
+         "vcm_light_start_kernel", "vcm_light_shade_kernel",
+         "vcm_camera_shade_kernel", "vcm_finish_kernel<false>",
+         "vcm_finish_kernel<true>", "dispatch_keys_kernel",
+         "dispatch_rows_kernel", "khit_resolve_kernel",
+         "stream_resolve_kernel", "slot_gather_kernel", "slot_merge_kernel",
+         "slot_finish_kernel", "collect_append_kernel", "collect_tail_kernel",
+         "splat_kernel", "select_keys_kernel", "select_gather_kernel",
+         "grid_keys_kernel", "grid_tiles_kernel", "set_conditional")
+
+# The kernels ranked by the time they lose against their bound, with the
+# bytes a launched thread's lane must move: chip_smoke.py's byte count of
+# each on a 262,144-lane band (PERF.md section 6's bound column) over the
+# band's lanes -- pt_shade its carry and hit in and its outputs out
+# (SHADE_LANE_IN + SHADE_LANE_OUT, the shade-record and light rows left
+# out), the finish its radiance, contrib and two flags in and radiance
+# out, the light start its carry out, the finishes their contrib, pixel or
+# radiance and flags, the resolves their row in and hit out, the keys a
+# ray's origin and flag in and its key out.  The kernels not named here
+# are redesigned (PR 19-21), run once a masked dispatch at the launch
+# floor, or are not a lane a thread.
+BOUND_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
+               "vcm_light_start_kernel": 66, "vcm_finish_kernel<false>": 34,
+               "vcm_finish_kernel<true>": 52, "khit_resolve_kernel": 148,
+               "stream_resolve_kernel": 56, "dispatch_keys_kernel": 29}
+HBM_BYTES_PER_S = 3.35e12
+# Kernels whose every launch's device time a graphed frame logs, in order.
+EACH_LAUNCH = ("pt_shade_kernel",)
+
+
+def chrome_threads(path):
+    """{kernel name: [threads launched, launches]} of a chrome trace's
+    kernels (grid x block)."""
+    with open(path) as fh:
+        evts = json.load(fh)["traceEvents"]
+    tot = {}
+    for e in evts:
+        if e.get("cat") != "kernel":
+            continue
+        a = e.get("args", {})
+        grid, block = a.get("grid", [0]), a.get("block", [0])
+        n = 1
+        for x in list(grid) + list(block):
+            n *= int(x)
+        t = tot.setdefault(e.get("name", ""), [0, 0])
+        t[0] += n
+        t[1] += 1
+    return tot
+
+
+def rank(tag, tot, threads):
+    """`[rank]` lines: the kernels of BOUND_BYTES by launches x (us a
+    launch - bound at the traced threads), the most lost first."""
+    rows = []
+    for part, lane_bytes in BOUND_BYTES.items():
+        names = [k for k in tot if part in k]
+        if not names:
+            continue
+        us = sum(tot[k][0] for k in names)
+        n = sum(tot[k][1] for k in names)
+        lanes = sum(v[0] for k, v in threads.items() if part in k)
+        bound_us = 1e6 * lanes * lane_bytes / HBM_BYTES_PER_S
+        rows.append((us - bound_us, part, us, n, lanes, bound_us))
+    for lost, part, us, n, lanes, bound_us in sorted(rows, reverse=True):
+        print(f"[rank] graphed {tag} frame: {part}: {n} launches, "
+              f"{us / n:.2f} us a launch against a bound of "
+              f"{bound_us / n:.2f} us at {lanes / n:.0f} threads a launch "
+              f"({us / max(bound_us, 1e-9):.1f}x), "
+              f"{lost / 1e3:.3f} ms a frame above it", flush=True)
 
 
 def graphed_frame(scene, meta, settings, tag, chrome=None):
     """Trace one graphed frame after a warm-up frame (the captures); log
-    its wall and device busy time, top kernels and its middle's range;
-    {name: [us, n]}.  With `chrome`, also write the trace there."""
+    its wall and device busy time, top kernels, the NAMED kernels, the
+    ranking and its middle's range; {name: [us, n]}.  The trace goes to
+    `chrome`, or to a temporary file."""
     frame_fn, _ = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
     renderer.step()
@@ -259,19 +331,32 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
     print(f"[lighttrace] graphed {tag} frame: wall {wall:.1f} ms",
           flush=True)
     show(f"graphed {tag} frame", tot, ARGS.top)
+    for part in EACH_LAUNCH:
+        each = [ns / 1e3 for name, _, ns in device_events(prof)
+                if part in name]
+        if each:
+            print(f"[lighttrace]   graphed {tag} frame, {part} a launch, in "
+                  f"order (us): " + " ".join(f"{x:.1f}" for x in each),
+                  flush=True)
     for part in NAMED:
         us = sum(v[0] for k, v in tot.items() if part in k)
         n = sum(v[1] for k, v in tot.items() if part in k)
         print(f"[lighttrace]   graphed {tag} frame, kernels named *{part}*: "
               f"{us / 1e3:.3f} ms, {n} launches", flush=True)
+    keep = chrome is not None
+    if chrome is None:
+        fd, chrome = tempfile.mkstemp(suffix=".json", prefix="imba_trace_")
+        os.close(fd)
+    prof.export_chrome_trace(chrome)
+    rank(tag, tot, chrome_threads(chrome))
+    if not keep:
+        os.remove(chrome)
     for _, middle in regions(prof):
         show(f"graphed {tag} frame: the middle (selection, canonical "
              f"order, photon grid, static inputs)", middle, ARGS.top)
         print(f"[lighttrace]   the middle's peak memory above the frame's "
               f"{MIDDLE['held'] / 2**20:.1f} MiB: "
               f"{MIDDLE['peak'] / 2**20:.1f} MiB", flush=True)
-    if chrome:
-        prof.export_chrome_trace(chrome)
     return tot
 
 
@@ -366,6 +451,9 @@ def instanced(dev):
     show_adds("graphed instanced vcm frame, by (grid, block)",
               {f"grid {g} block {b}": v
                for (g, b), v in adds_by_shape(chrome).items()})
+    graphed_frame(scene, meta, RenderSettings(
+        width=W, height=H, spp=1, max_path_len=MAX_LEN, algorithm="pt"),
+        "instanced pt")
     # A fresh scene's captures, their adds by call site.
     scene, meta = build_scene(path, quiet=True, device=dev)
     frame_fn, _ = make_frame_fn(scene, meta, settings)

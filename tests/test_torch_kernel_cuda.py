@@ -1072,6 +1072,65 @@ def test_cuda_pt_shade_input_checks(cuda_device):
     assert contrib.shape == (0, 3) and int(nxt["n_rays"]) == 0
 
 
+def _unaligned(x):
+    """x copied into a view one element past the start of its storage, so
+    that its rows are not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "specular", "still_life"])
+@pytest.mark.parametrize("band", ["all_dead", "half_dead", "emitters",
+                                  "mixed", "all_live", "unaligned"])
+def test_cuda_pt_shade_kernel_on_dead_bands(cuda_device, band, name):
+    """pt_shade_kernel against pt_shade_plain bit for bit on every output
+    column and lane of a 3,001-lane band (not a whole number of blocks:
+    its last warps past the band): all lanes dead on entry (every warp
+    skips the body), every other one, half dying at the miss and emitter
+    tests, a mixed-depth carry (warps of mixed material kinds and of live
+    and dead lanes; the still life holds all six kinds), the camera's
+    bounce-0 carry with every lane alive, and the mixed carry read
+    through views 4 bytes off 16-byte alignment.  A lane that does not
+    go on writes DEAD_PT_SHADOW.  One launch each."""
+    from imbatracer_torch.ops import shade as sh
+    from imbatracer_torch.render.integrators import pt
+    from torch_shade_cases import (MAX_LEN, SCENES, carry_arrays, dead_band,
+                                   port_scene, torch_carry)
+
+    scene, meta = port_scene(name, cuda_device)
+    lanes, seed = 3001, 71 + SCENES.index(name)
+    if band in ("all_dead", "half_dead", "emitters"):
+        arrays = dead_band(scene, meta, band, lanes, seed)
+    else:
+        arrays = carry_arrays(meta, lanes, seed=seed,
+                              mixed=band != "all_live")
+    c = torch_carry(arrays, cuda_device)
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    hit = tt.closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
+                         alpha_fn=alpha_fn,
+                         active=torch.ones_like(c["active"]), sort=True)
+    if band == "unaligned":
+        c = {k: _unaligned(v) if v.dim() else v for k, v in c.items()}
+        hit = type(hit)(*(_unaligned(x) for x in hit))
+        assert c["org"].data_ptr() % 16 and hit.t.data_ptr() % 16
+    kw = dict(has_bump=meta.has_bump, max_len=MAX_LEN)
+    sh.reset_launches()
+    got = _shade_columns(*sh.pt_shade_cuda(scene, c, hit, **kw))
+    want = _shade_columns(*sh.pt_shade_plain(scene, c, hit, **kw))
+    assert sh.LAUNCHES["pt_shade"] == 1
+    assert set(got) == set(want)
+    for k in want:
+        _same_bits(k, got[k], want[k])
+    if band == "all_dead":
+        assert not got["active"].any() and not got["shadow.ok"].any()
+        assert bool((got["contrib"] == sh.DEAD_PT_SHADOW.contrib).all())
+    else:
+        assert got["shadow.ok"].any() and got["active"].any()
+
+
 # --------------------------------------------------------------------------
 # The VCM family's bounce shading (csrc/vcm_shade.cu)
 # --------------------------------------------------------------------------

@@ -15,9 +15,16 @@
   all lanes but at most 1% of them, those within 1e-3 (_close: a Phong
   lobe's power grows the last-ulp difference of XLA's and ATen's
   normals).
+  The same on a band half dead on entry.
+* Bands all dead on entry, half dead, or half dying at the miss and
+  emitter tests: a lane that does not go on writes DEAD_PT_SHADOW's
+  shadow ray and contrib and keeps the plain select's carry, its RNG
+  word past the bounce's 7 draws; a live lane's outputs are those it
+  has with every lane alive.
 * The scene tables: the column map of pruned and full shade records,
   the host facts and float32 constants the kernel is given, and the
-  argument lists of the binding against the enums of csrc/pt_shade.cu.
+  argument lists of the binding and the dead-lane constants against
+  csrc/pt_shade.cu.
 * On CPU tensors the shading runs the plain versions and never builds
   or loads the kernels' library.
 """
@@ -40,7 +47,8 @@ from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.integrators import pt as tpt
 from imbatracer_torch.scene.types import shade_columns
 from torch_shade_cases import (MAX_LEN, SCENES, SMALL_STILL_LIFE,
-                               carry_arrays, torch_carry, with_delta_lights)
+                               carry_arrays, dead_band, torch_carry,
+                               with_delta_lights)
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -118,12 +126,17 @@ def _port_bounce(ts, meta, arrays, monkeypatch=None):
         out, tuple(x.numpy() for x in hits[0]))
 
 
-@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("mixed", [False, True, "half_dead"])
 @pytest.mark.parametrize("name", SCENES)
 def test_bounce_matches_jax(name, mixed, scenes, monkeypatch):
+    """`mixed` False: the camera's bounce-0 carry; True: lanes at mixed
+    depths; "half_dead": those with every other lane dead on entry."""
     js, ts, meta = scenes[name]
-    arrays = carry_arrays(meta, LANES, seed=SCENES.index(name) + 10 * mixed,
-                          mixed=mixed)
+    half_dead = mixed == "half_dead"
+    arrays = carry_arrays(meta, LANES, seed=SCENES.index(name) + 10 * (
+        1 + half_dead if mixed else 0), mixed=bool(mixed))
+    if half_dead:
+        arrays["active"][::2] = False
     before = dict(sh.LAUNCHES)
     got, hit = _port_bounce(ts, meta, arrays, monkeypatch)
     assert sh.LAUNCHES["plain"] == before["plain"] + 1
@@ -140,6 +153,64 @@ def test_bounce_matches_jax(name, mixed, scenes, monkeypatch):
     assert got["n_rays"] > arrays["active"].sum()
     assert got["active"].any() and (got["radiance"] > arrays["radiance"]
                                      ).any()
+
+
+@pytest.mark.parametrize("name", ["cornell", "still_life"])
+@pytest.mark.parametrize("band", ["all_dead", "half_dead", "emitters"])
+def test_dead_lanes_write_the_dead_shadow_rows(band, name, scenes):
+    """pt_shade_plain on a band all dead on entry, half dead, or half dying
+    at the miss and emitter tests: a lane that does not go on past the
+    hit test writes DEAD_PT_SHADOW's shadow ray and contrib, and keeps
+    the plain select's carry (inactive, org, d, tmin, throughput, depth,
+    last_pdf and last_specular as they came, its radiance with the env or
+    emitter term), its RNG word past the bounce's 7 draws; a live lane's
+    outputs are bit for bit those it has in the same band with every
+    lane alive.  The kernel writes the same
+    (tests/test_torch_kernel_cuda.py)."""
+    from imbatracer_torch.core import rng as trng
+    from imbatracer_torch.render.surface import make_interaction
+
+    _, ts, meta = scenes[name]
+    arrays = dead_band(ts, meta, band, LANES, 61 + SCENES.index(name))
+    c = torch_carry(arrays, "cpu")
+    alive = dict(c, active=torch.ones_like(c["active"]))
+    alpha_fn = tpt.alpha_fn_for(ts) if meta.has_masks else None
+    hit = tt.closest_hit(ts.bvh, c["org"], c["d"], c["tmin"], tpt.BIG,
+                         alpha_fn=alpha_fn, active=alive["active"],
+                         sort=True)
+    kw = dict(has_bump=meta.has_bump, max_len=MAX_LEN)
+    nxt, shadow, contrib = sh.pt_shade_plain(ts, c, hit, **kw)
+    ref_nxt, ref_shadow, ref_contrib = sh.pt_shade_plain(ts, alive, hit,
+                                                         **kw)
+    isect = make_interaction(ts, hit, c["org"], c["d"],
+                             has_bump=meta.has_bump)
+    live = c["active"] & (hit.prim_id >= 0) & (isect.light_id < 0)
+    dead = ~live
+    assert live.any() == (band != "all_dead")
+    if band == "emitters":
+        hit_light = c["active"] & (hit.prim_id >= 0) & (isect.light_id >= 0)
+        assert hit_light.any() and (c["active"] & (hit.prim_id < 0)).any()
+        assert (nxt["radiance"][hit_light] > c["radiance"][hit_light]).any()
+    outs = dict(zip(sh.ShadowRay._fields, shadow), contrib=contrib)
+    for k, x in outs.items():
+        assert (x[dead] == getattr(sh.DEAD_PT_SHADOW, k)).all(), k
+        np.testing.assert_array_equal(
+            x[live].numpy(), dict(zip(sh.ShadowRay._fields, ref_shadow),
+                                  contrib=ref_contrib)[k][live].numpy(),
+            err_msg=k)
+    assert not nxt["active"][dead].any()
+    for k in ("org", "d", "tmin", "throughput", "depth", "last_pdf",
+              "last_specular"):
+        np.testing.assert_array_equal(nxt[k][dead].numpy(),
+                                      c[k][dead].numpy(), err_msg=k)
+    state, _ = trng.next_floats(c["state"], 7)
+    np.testing.assert_array_equal(nxt["state"].numpy(), state.numpy())
+    for k, v in nxt.items():
+        if k != "n_rays":
+            np.testing.assert_array_equal(v[live].numpy(),
+                                          ref_nxt[k][live].numpy(),
+                                          err_msg=k)
+    assert int(nxt["n_rays"]) == int(c["active"].sum())
 
 
 def test_delta_light_scene_covers_every_kind(scenes):
@@ -239,6 +310,12 @@ def test_binding_matches_the_kernel_source():
          "F_IMG_HM1", "F_TAB_W", "F_TAB_H", "F_INV_TAB_W", "F_INV_TAB_H",
          "NUM_FLOATS"])
     assert len(sh.TABLE_FLOATS) == 10
+    # The dead-lane shadow row and contrib.
+    parse = lambda v: v == "true" if v in ("true", "false") else float(
+        v.rstrip("f"))
+    dead = {k.lower(): parse(v) for k, v in re.findall(
+        r"constexpr (?:float|bool) kDeadPt(\w+) = (\w+(?:\.\w+)?)", src)}
+    assert dead == sh.DEAD_PT_SHADOW._asdict()
 
 
 class _NoBuild:

@@ -146,3 +146,31 @@ def dying_lanes(arrays, tri, center, radius, seed):
     for k in ("org", "d"):
         a[k] = a[k].astype(np.float32)
     return a
+
+
+def tri_light(scene):
+    """(p0, p1, p2, normal) of a port scene's first triangle light, as
+    numpy arrays."""
+    import torch
+
+    lt = scene.lights
+    k = int(torch.nonzero(lt.kind == 0)[0, 0])
+    return tuple(x[k].cpu().numpy() for x in (lt.p0, lt.p1, lt.p2,
+                                              lt.normal))
+
+
+def dead_band(scene, meta, band, lanes, seed):
+    """A mixed-depth carry of a port scene with all of its lanes dead on
+    entry ("all_dead"), every other one ("half_dead"), or half of them
+    made to die at the bounce's miss or emitter test ("emitters":
+    dying_lanes, every fourth a miss, every fourth an emitter)."""
+    arrays = carry_arrays(meta, lanes, seed=seed, mixed=True)
+    if band == "all_dead":
+        arrays["active"][:] = False
+    elif band == "half_dead":
+        arrays["active"][::2] = False
+    else:
+        arrays = dying_lanes(arrays, tri_light(scene),
+                             scene.bsphere.center.cpu().numpy(),
+                             float(scene.bsphere.radius), seed)
+    return arrays
