@@ -64,10 +64,8 @@ failure raises and the script exits non-zero:
    max(1, |x|) and the max relative error; the RNG state and the counts
    must be equal on every lane, active, depth, last_specular and the
    shadow flag on >= 99.99% of the lanes, each float column within on >=
-   99.9%; a lane that does not go on past the hit test writes
-   shade.DEAD_PT_SHADOW in both.  Each kernel timed alone as graph_ms (10
-   launches in one CUDA graph, the device's time) beside the wrapper's
-   time (CUDA events around 10 calls), the plain composite (3 calls) and
+   99.9%.  Each kernel timed alone as graph_ms (10 launches in one CUDA
+   graph, the device's time) beside the plain composite (3 calls) and
    its bound (shade_bytes: the lanes' columns in and out, the distinct
    shade-record and light rows; or SHADE_LANE_OPS float instructions a
    lane, whichever is larger), with the cell's alive share, and the
@@ -91,7 +89,7 @@ failure raises and the script exits non-zero:
    >= 99.99% of the lanes; each float column within on >= 99.9%; the
    light bounce bit for bit on every column and lane).  Each
    kernel timed alone as graph_ms (10 launches in one CUDA graph) beside
-   the wrapper's time (CUDA events around 10 calls), its plain composite
+   its plain composite
    and its bound (vcm_shade_bytes: the columns it reads and writes, the distinct
    shade-record, light, cache and material rows; or VCM_LANE_OPS float
    instructions a lane), with its registers, spills and resident blocks.
@@ -107,7 +105,7 @@ failure raises and the script exits non-zero:
    life), the stream resolve's closest, re-trace (masked scenes) and
    occlusion modes of the stream kernel's rows.  `[dispatch]` lines: the
    elements not bit-equal, which must be 0.  Each kernel timed alone as
-   graph_ms beside the wrapper's time, its plain version and its bound
+   graph_ms beside its plain version and its bound
    (the bytes the function moves:
    the lane arrays in and out, the rows, the mask-record rows of the hits
    it tests), the library sort's time a dispatch, and the kernels'
@@ -1164,12 +1162,11 @@ SHADE_LANE_OUT = 12 + 12 + 4 + 12 + 12 + 1 + 4 + 4 + 1 + 8 + 33 + 12
 FINISH_LANE_BYTES = 12 + 12 + 1 + 1 + 12
 
 
-def shade_carry(scene, meta, width, height, max_len, bounces, dev,
-                top=False):
-    """The middle band (up to NUM_RAYS lanes, whole rows; with `top`, the
-    first) of PT frame 1 at width x height after `bounces` bounces (the
-    bounce as the renderer runs it, through the shade kernels), with its
-    closest hit: (carry, hit, alpha_fn)."""
+def shade_carry(scene, meta, width, height, max_len, bounces, dev):
+    """The middle band (up to NUM_RAYS lanes, whole rows) of PT frame 1
+    at width x height after `bounces` bounces (the bounce as the renderer
+    runs it, through the shade kernels), with its closest hit: (carry,
+    hit, alpha_fn)."""
     from imbatracer_torch.frontend.renderer import (RenderSettings,
                                                     camera_for_scene)
     from imbatracer_torch.render.integrators import pt
@@ -1179,7 +1176,7 @@ def shade_carry(scene, meta, width, height, max_len, bounces, dev,
     cam = camera_for_scene(meta, RenderSettings(width=width, height=height),
                            dev)
     n = min(NUM_RAYS, width * height)
-    start = 0 if top else (width * height - n) // 2 // width * width
+    start = (width * height - n) // 2 // width * width
     org, d, state, _ = pt.camera_rays(cam, width, height, 1, 1,
                                       start_pixel=start, count=n)
     c = pt._init_carry(org, d, state)
@@ -1248,10 +1245,9 @@ def hold_shade(label, scene, meta, c, hit, alpha_fn, max_len, card, stats):
     plain versions on the same carry and hit on the card, column by
     column (bit-equal share, share within SHADE_REL, max rel and abs
     err), gated as SHADE_FLAGS and SHADE_FLOATS say; each kernel timed
-    alone (graph_ms: 10 launches in one CUDA graph, the device's time;
-    beside it the wrapper's, CUDA events around 10 calls) beside its
-    plain composite and its bound.  Records the largest abs err and the
-    first cell's times in `stats`."""
+    alone (graph_ms: 10 launches in one CUDA graph, the device's time)
+    beside its plain composite and its bound.  Records the largest abs
+    err and the first cell's times in `stats`."""
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.render.traverse import any_hit
 
@@ -1291,28 +1287,27 @@ def hold_shade(label, scene, meta, c, hit, alpha_fn, max_len, card, stats):
                              f"with the plain versions: {bad}")
     launch = partial(sh.pt_shade_cuda, scene, c, hit, **kw)
     fin_launch = partial(sh.pt_shade_finish_cuda, *fin_args)
-    ms, wrapper_ms = graph_ms(launch), cuda_ms(launch, 10)
+    ms = graph_ms(launch)
     plain_ms = cuda_ms(partial(sh.pt_shade_plain, scene, c, hit, **kw), 3)
-    fin_ms, fin_wrapper_ms = graph_ms(fin_launch), cuda_ms(fin_launch, 10)
+    fin_ms = graph_ms(fin_launch)
     fin_plain_ms = cuda_ms(partial(sh.pt_shade_finish_plain, *fin_args), 3)
     lanes = c["active"].shape[0]
     nbytes, detail = shade_bytes(scene, c, hit)
     bound_ms, bound_by = shade_bound(nbytes, lanes * SHADE_LANE_OPS)
     fin_bound = shade_bound(lanes * FINISH_LANE_BYTES, 0)
     log(f"[time] pt_shade kernel, {label}, {alive:.4f} alive [{card}]: "
-        f"kernel {ms:.4f} ms (graph_ms; the wrapper {wrapper_ms:.4f} ms; "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+        f"kernel {ms:.4f} ms (graph_ms; plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, "
         f"{nbytes} bytes {detail}); pt_shade_finish kernel {fin_ms:.4f} ms "
-        f"(graph_ms; the wrapper {fin_wrapper_ms:.4f} ms; plain "
-        f"{fin_plain_ms:.3f} ms, bound {fin_bound[0]:.4f} ms by bytes)")
+        f"(graph_ms; plain {fin_plain_ms:.3f} ms, bound "
+        f"{fin_bound[0]:.4f} ms by bytes)")
     stats["shade_err"] = max(stats.get("shade_err", 0.0), max(
         v for k, v in err.items() if not k.startswith("finish.")))
     stats["shade_finish_err"] = max(stats.get("shade_finish_err", 0.0),
                                     err["finish.radiance"])
-    stats.setdefault("shade", (ms, wrapper_ms, (bound_ms, bound_by, detail)))
+    stats.setdefault("shade", (ms, None, (bound_ms, bound_by, detail)))
     stats.setdefault("shade_plain_ms", plain_ms)
-    stats.setdefault("shade_finish", (fin_ms, fin_wrapper_ms,
-                                      (*fin_bound, {})))
+    stats.setdefault("shade_finish", (fin_ms, None, (*fin_bound, {})))
     stats.setdefault("shade_finish_plain_ms", fin_plain_ms)
 
 
@@ -1467,19 +1462,15 @@ def hold_vcm_columns(label, cols, alive, stats, key, exact=False):
 
 def time_vcm(name, label, launch, plain, nbytes, ops, detail, card, stats):
     """`[time]` of one VCM shade kernel alone (graph_ms: 10 launches in
-    one CUDA graph, the device's time; beside it the wrapper's, CUDA
-    events around 10 calls) beside its plain composite (3 calls) and its
-    bound; the first cell's times go to `stats`."""
+    one CUDA graph, the device's time) beside its plain composite (3
+    calls) and its bound; the first cell's times go to `stats`."""
     ms = graph_ms(launch)
-    wrapper_ms = cuda_ms(launch, 10)
     plain_ms = cuda_ms(plain, 3)
     bound_ms, bound_by = shade_bound(nbytes, ops)
     log(f"[time] vcm {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
-        f"(graph_ms; the wrapper {wrapper_ms:.4f} ms; plain {plain_ms:.3f} "
-        f"ms, bound {bound_ms:.4f} ms by {bound_by}, {nbytes} bytes, {ops} "
-        f"float instructions, {detail})")
-    stats.setdefault(f"vcm_{name}", (ms, wrapper_ms,
-                                     (bound_ms, bound_by, detail)))
+        f"(graph_ms; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {nbytes} bytes, {ops} float instructions, {detail})")
+    stats.setdefault(f"vcm_{name}", (ms, None, (bound_ms, bound_by, detail)))
     stats.setdefault(f"vcm_{name}_plain_ms", plain_ms)
 
 
@@ -1808,10 +1799,9 @@ def hold_dispatch(label, scene, c, hit, alpha_fn, card, stats, record):
     rows (flat masked scenes), the stream resolve's closest, re-trace
     (masked scenes) and occlusion modes on the stream kernel's rows.  Each
     kernel timed alone (graph_ms: 10 launches in one CUDA graph, the
-    device's time; beside it the wrapper's, CUDA events around 10 calls;
-    the resolves in place, idempotent) in the first form beside its plain
-    version (3 calls) and its bound; the kernels in `record` go into
-    `stats`."""
+    device's time; the resolves in place, idempotent) in the first form
+    beside its plain version (3 calls) and its bound; the kernels in
+    `record` go into `stats`."""
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import khit as kh
     from imbatracer_torch.ops import stream_traverse as st
@@ -1936,15 +1926,13 @@ def hold_dispatch(label, scene, c, hit, alpha_fn, card, stats, record):
                              f"disagree with their plain versions: {bad}")
     for name, (kernel, plain) in timed.items():
         ms = graph_ms(kernel)
-        wrapper_ms = cuda_ms(kernel, 10)
         plain_ms = cuda_ms(plain, 3)
         bound_ms, bound_by = shade_bound(nbytes[name], 0)
         log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
-            f"(graph_ms; the wrapper {wrapper_ms:.4f} ms; plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
-            f"{nbytes[name]} bytes)")
+            f"(graph_ms; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"by {bound_by}, {nbytes[name]} bytes)")
         if name in record:
-            stats[name] = (ms, wrapper_ms, (bound_ms, bound_by,
+            stats[name] = (ms, None, (bound_ms, bound_by,
                                       dict(bytes=nbytes[name], lanes=n)))
             stats[f"{name}_plain_ms"] = plain_ms
             stats[f"{name}_err"] = 0.0

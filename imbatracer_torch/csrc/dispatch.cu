@@ -61,10 +61,14 @@
 // and texels, and writes up to 21 B at its lane; a stream resolve reads
 // 32 B and writes up to 14.  The design is the plain one: coalesced reads
 // and writes of the sorted rows, scattered reads and writes at the lane;
-// but the rows (redesigned for Hopper): a row's reads sit behind two or
-// three dependent scattered loads (perm -> lanes -> its words), so each
-// thread writes half a row as one float4 and keeps two rows' chains in
-// flight (dispatch_rows_kernel's note).
+// but the rows and the keys (redesigned for Hopper).  A row's reads sit
+// behind two or three dependent scattered loads (perm -> lanes -> its
+// words), so each thread writes half a row as one float4 and keeps two
+// rows' chains in flight (dispatch_rows_kernel's note).  A slot map's
+// key read its flag by slot only once the slot's lane had come (the
+// flag's index was selected from it); flag and lane now load side by
+// side, one round trip to memory less a launch (dispatch_keys_kernel's
+// note).
 // A slot gather reads 8 B of idx and its lane's 16-20 B and writes 18-22
 // B; a merge reads a valid slot's 25 B and writes its lane's 16; the
 // finish reads every active flag and every slot's flag.  The finish
@@ -162,29 +166,38 @@ __device__ __forceinline__ int part1by2(int x) {
   return x;
 }
 
-__global__ void dispatch_keys_kernel(Rays r, Map m, const float* bounds,
-                                     int* keys) {
+// dispatch_keys_kernel: a lane's key is a few operations on 24 bytes,
+// so its time is the chain of loads in front of them.  Every load a
+// thread makes is issued before any value is used: the slot's active
+// flag (state by slot) beside its lane, then the lane's six words beside
+// its active flag (state by lane); the flags select the key at the store
+// and guard no load.  A lane is a valid index of the ray arrays whether
+// its slot is active or not (the slots' fill is lane 0), as the rows
+// read it.
+__global__ void __launch_bounds__(kBlk)
+    dispatch_keys_kernel(Rays r, Map m, const float* __restrict__ bounds,
+                         int* __restrict__ keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m.n) return;
-  const Where w = where_slot(m, i);
-  if (r.active && !r.active[w.state]) {
-    keys[i] = kDeadKey;
-    return;
-  }
+  const bool slot_on = !r.active || m.by_lane || r.active[i];
+  const int64_t lane = m.lanes ? m.lanes[i] : i;
+  const float* __restrict__ org = r.org + 3 * lane;
+  const float* __restrict__ d = r.d + 3 * lane;
+  const float o[3] = {org[0], org[1], org[2]};
+  const float dx = d[0], dy = d[1], dz = d[2];
+  const bool lane_on = !r.active || !m.by_lane || r.active[lane];
   int q[3];
   for (int a = 0; a < 3; ++a) {
-    float o = r.org[3 * w.lane + a];
-    if (r.center) o = o - r.center[a];
+    const float x0 = r.center ? o[a] - r.center[a] : o[a];
     const float lo = bounds[a];
     const float span = clamp_min(bounds[3 + a] - lo, F(1e-6));
-    const float x = clamp(((o - lo) / span) * 256.0f, 0.0f, 255.0f);
+    const float x = clamp(((x0 - lo) / span) * 256.0f, 0.0f, 255.0f);
     q[a] = static_cast<int>(x);
   }
   const int morton = (part1by2(q[0]) << 2) | (part1by2(q[1]) << 1) |
                      part1by2(q[2]);
-  const float* d = r.d + 3 * w.lane;
-  const int octant = (d[0] < 0.0f) + 2 * (d[1] < 0.0f) + 4 * (d[2] < 0.0f);
-  keys[i] = (octant << 24) | morton;
+  const int octant = (dx < 0.0f) + 2 * (dy < 0.0f) + 4 * (dz < 0.0f);
+  keys[i] = slot_on && lane_on ? (octant << 24) | morton : kDeadKey;
 }
 
 // dispatch_rows_kernel: two threads a row, each writing one 16-byte half

@@ -29,10 +29,8 @@
 // shade-record row, one light row, texels and env-table entries, the
 // outputs) against the arithmetic of one BSDF sample, one BSDF eval and
 // one light sample a lane; the per-lane branches by material and light
-// kind diverge within a warp.  Both kernels are a lane a thread, registers
-// only: on an H100 the two-phase block of the VCM bounces (two_phase.cuh)
-// ran this bounce slower, and so did staging its outputs in shared memory
-// (PERF.md, PR 21; the design is scripts/pt_shade_two_phase.cu).
+// kind diverge within a warp.  The design is the plain one: a lane a
+// thread, registers only, no shared memory.
 //
 // Numerics: see shading.cuh.  Built with --fmad=false.
 
@@ -105,41 +103,13 @@ __device__ __forceinline__ void count_warp(bool c, unsigned long long* count) {
     atomicAdd(count, static_cast<unsigned long long>(__popc(m)));
 }
 
-// Resident blocks an SM pt_shade_kernel is built for: its registers capped
-// at 80 a thread.  Left to itself the compiler takes 85, for 5 blocks, and
-// the kernel runs slower (PERF.md, PR 21).
-constexpr int kShadeBlocks = 6;
-
-// The shadow row and contrib of a lane that does not go on past the hit
-// test (ops/shade.py DEAD_PT_SHADOW): no ray and no light.
-constexpr float kDeadPtPos = 0.0f;
-constexpr float kDeadPtDir = 0.0f;
-constexpr float kDeadPtTmin = 0.0f;
-constexpr float kDeadPtTmax = 0.0f;
-constexpr bool kDeadPtOk = false;
-constexpr float kDeadPtContrib = 0.0f;
-
-// One PT bounce, a lane a thread.  A lane that does not go on past the hit
-// test -- dead on entry, a miss or an emitter -- keeps its carry but its
-// radiance (the env or emitter term added), advances its RNG word past the
-// bounce's 7 draws (3 for NEE, 4 for the bounce) and writes
-// DEAD_PT_SHADOW's shadow row and contrib.  A warp none of whose lanes hit
-// (the sky, a compacted band's tail, the late bounces' dead lanes) skips
-// the interaction, NEE and the bounce; a warp with a lane that hit runs
-// them on every lane as one straight run of code, its other lanes'
-// results dropped (PERF.md, PR 21: skipping lane by lane was slower on
-// the bands where live and dead lanes mix).
-__global__ void __launch_bounds__(kBlk, kShadeBlocks)
+__global__ void __launch_bounds__(kBlk)
     pt_shade_kernel(const __grid_constant__ Args a) {
   const int lanes = a.i[I_LANES];
   const int i = blockIdx.x * kBlk + threadIdx.x;
   const bool lane = i < lanes;
   const bool active0 = lane && in<uint8_t>(a, P_ACTIVE)[i] != 0;
   count_warp(active0, out<unsigned long long>(a, P_O_NRAYS));
-  // Whether a lane of the warp hit: the warp then runs the body on every
-  // lane, its other lanes' results dropped.
-  const bool warp_hit =
-      __any_sync(0xffffffffu, active0 && in<int>(a, P_HIT_PRIM)[i] >= 0);
   if (!lane) return;
 
   const V3 org = load3(in<float>(a, P_ORG) + 3 * i);
@@ -185,119 +155,86 @@ __global__ void __launch_bounds__(kBlk, kShadeBlocks)
     }
     rad = add(rad, term);
   }
-  const bool hit = active0 && !miss;
+  bool active = active0 && !miss;
 
-  // Each output is stored as soon as it is known, so that the registers
-  // hold little across the bounce.
-  bool live = false, on = false;
-  V3 wi, new_thr;
-  float pdf;
-  bool spec;
-  if (warp_hit) {
-    Atlas at;
-    at.texels = in<float>(a, P_TEXELS);
-    at.offset = in<int>(a, P_TEX_OFFSET);
-    at.width = in<int>(a, P_TEX_WIDTH);
-    at.height = in<int>(a, P_TEX_HEIGHT);
-    at.num_tex = a.i[I_TEXTURES];
-    at.num_texels = a.i[I_TEXELS];
-    const Interaction s = make_interaction(
-        in<float>(a, P_SHADE_REC), a.i[I_ROWS], a.i[I_COLS], a.i + I_COLMAP,
-        at, a.i[I_HAS_TEXTURES] != 0, a.i[I_HAS_BUMP] != 0, t, prim,
-        in<float>(a, P_HIT_U)[i], in<float>(a, P_HIT_V)[i], org, d);
+  Atlas at;
+  at.texels = in<float>(a, P_TEXELS);
+  at.offset = in<int>(a, P_TEX_OFFSET);
+  at.width = in<int>(a, P_TEX_WIDTH);
+  at.height = in<int>(a, P_TEX_HEIGHT);
+  at.num_tex = a.i[I_TEXTURES];
+  at.num_texels = a.i[I_TEXELS];
+  const Interaction s = make_interaction(
+      in<float>(a, P_SHADE_REC), a.i[I_ROWS], a.i[I_COLS], a.i + I_COLMAP, at,
+      a.i[I_HAS_TEXTURES] != 0, a.i[I_HAS_BUMP] != 0, t, prim,
+      in<float>(a, P_HIT_U)[i], in<float>(a, P_HIT_V)[i], org, d);
 
-    // ---- emitter hits --------------------------------------------------
-    const bool is_emitter = s.light_id >= 0;
-    const float cos_geom = dot(s.gn, s.w_out);
-    const float cos_shade = dot(s.normal, s.w_out);
-    const float area = clamp_min(s.area, F(1e-12));
-    const float pdf_di_emit = ((rdiv1(area) * a.f[F_INV_LIGHTS]) * (t * t)) /
-                              (cos_shade <= 0.f ? 1.0f : cos_shade);
-    const float w_emit =
-        mis_off ? 1.0f : mis_power_heuristic(last_pdf, pdf_di_emit);
-    const bool emit_ok =
-        hit && is_emitter && cos_geom > 0.f && cos_shade > 0.f;
-    store3(out<float>(a, P_O_RAD) + 3 * i,
-           add(rad, emit_ok ? scale(mul(thr, s.emit), w_emit) : zero3()));
-    live = hit && !is_emitter;
+  // ---- emitter hits ----------------------------------------------------
+  const bool is_emitter = active && s.light_id >= 0;
+  const float cos_geom = dot(s.gn, s.w_out);
+  const float cos_shade = dot(s.normal, s.w_out);
+  const float area = clamp_min(s.area, F(1e-12));
+  const float pdf_di_emit = ((rdiv1(area) * a.f[F_INV_LIGHTS]) * (t * t)) /
+                            (cos_shade <= 0.f ? 1.0f : cos_shade);
+  const float w_emit =
+      mis_off ? 1.0f : mis_power_heuristic(last_pdf, pdf_di_emit);
+  const bool emit_ok = is_emitter && cos_geom > 0.f && cos_shade > 0.f;
+  rad = add(rad, emit_ok ? scale(mul(thr, s.emit), w_emit) : zero3());
+  active = active && !is_emitter;
 
-    // ---- next-event estimation -----------------------------------------
-    const float ul = next_float(st);
-    const float ua = next_float(st);
-    const float ub = next_float(st);
-    int light_idx = static_cast<int>(ul * a.f[F_LIGHTS]);
-    light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
-    light_idx = light_idx < 0 ? 0 : light_idx;
-    const DirectSample ds =
-        sample_direct(in<float>(a, P_LIGHT_REC) + 24 * light_idx, s.pos, ua,
-                      ub, env, has_env);
-    float pdf_hit;
-    const V3 f_nee =
-        eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, ds.dir, pdf_hit);
-    const float pdf_di = ds.pdf_direct_w * a.f[F_PICK];
-    const float w_nee =
-        ds.is_delta ? 1.0f : pdf_di / clamp_min(pdf_di + pdf_hit, F(1e-20));
-    if (live) {
-      const V3 contrib =
-          scale(mul(mul(thr, f_nee), ds.radiance),
-                (fabsf(dot(s.normal, ds.dir)) * w_nee) * a.f[F_INV_PICK]);
-      const float offset =
-          (ds.distance >= F(kBig) ? 1.0f : ds.distance) * F(1e-3);
-      store3(out<float>(a, P_S_POS) + 3 * i, s.pos);
-      store3(out<float>(a, P_S_DIR) + 3 * i, ds.dir);
-      out<float>(a, P_S_TMIN)[i] = offset;
-      out<float>(a, P_S_TMAX)[i] = ds.distance - offset;
-      out<uint8_t>(a, P_S_OK)[i] =
-          pdf_hit > 0.f && pdf_di > 0.f && any_positive(contrib);
-      store3(out<float>(a, P_CONTRIB) + 3 * i, contrib);
-    }
+  // ---- next-event estimation -------------------------------------------
+  const float ul = next_float(st);
+  const float ua = next_float(st);
+  const float ub = next_float(st);
+  int light_idx = static_cast<int>(ul * a.f[F_LIGHTS]);
+  light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
+  light_idx = light_idx < 0 ? 0 : light_idx;
+  const DirectSample ds =
+      sample_direct(in<float>(a, P_LIGHT_REC) + 24 * light_idx, s.pos, ua, ub,
+                    env, has_env);
+  float pdf_hit;
+  const V3 f_nee = eval_pdf_bsdf(s.m, s.normal, s.gn, s.w_out, ds.dir, pdf_hit);
+  const float pdf_di = ds.pdf_direct_w * a.f[F_PICK];
+  const float w_nee =
+      ds.is_delta ? 1.0f : pdf_di / clamp_min(pdf_di + pdf_hit, F(1e-20));
+  const V3 contrib =
+      scale(mul(mul(thr, f_nee), ds.radiance),
+            (fabsf(dot(s.normal, ds.dir)) * w_nee) * a.f[F_INV_PICK]);
+  const bool shadow_ok =
+      active && pdf_hit > 0.f && pdf_di > 0.f && any_positive(contrib);
+  const float offset =
+      (ds.distance >= F(kBig) ? 1.0f : ds.distance) * F(1e-3);
 
-    // ---- bounce --------------------------------------------------------
-    const float urr = next_float(st);
-    const float u1 = next_float(st);
-    const float u2 = next_float(st);
-    const float u3 = next_float(st);
-    const bool survive = urr < russian_roulette_prob(thr);
-    const BsdfSample bs =
-        sample_bsdf(s.m, s.normal, s.gn, s.w_out, u1, u2, u3);
-    const float cos_term = fabsf(dot(s.normal, bs.wi));
-    new_thr = scale(mul(thr, bs.f),
-                    cos_term / clamp_min(bs.pdf * russian_roulette_prob(thr),
-                                         F(1e-20)));
-    wi = bs.wi;
-    pdf = bs.pdf;
-    spec = bs.specular;
-    on = live && survive && bs.valid && depth + 1 < a.i[I_MAX_LEN];
-    if (on) {
-      store3(out<float>(a, P_O_ORG) + 3 * i, s.pos);
-      out<float>(a, P_O_TMIN)[i] = t * F(1e-3);
-    }
-  } else {
-    store3(out<float>(a, P_O_RAD) + 3 * i, add(rad, zero3()));
-    st = skip_draws(st, 7);
-  }
-  if (!live) {           // ---- a lane that does not go on past the hit test
-    store3(out<float>(a, P_S_POS) + 3 * i,
-           V3{kDeadPtPos, kDeadPtPos, kDeadPtPos});
-    store3(out<float>(a, P_S_DIR) + 3 * i,
-           V3{kDeadPtDir, kDeadPtDir, kDeadPtDir});
-    out<float>(a, P_S_TMIN)[i] = kDeadPtTmin;
-    out<float>(a, P_S_TMAX)[i] = kDeadPtTmax;
-    out<uint8_t>(a, P_S_OK)[i] = kDeadPtOk;
-    store3(out<float>(a, P_CONTRIB) + 3 * i,
-           V3{kDeadPtContrib, kDeadPtContrib, kDeadPtContrib});
-  }
-  if (!on) {
-    store3(out<float>(a, P_O_ORG) + 3 * i, org);
-    out<float>(a, P_O_TMIN)[i] = in<float>(a, P_TMIN)[i];
-  }
-  store3(out<float>(a, P_O_D) + 3 * i, on ? wi : d);
-  store3(out<float>(a, P_O_THR) + 3 * i, on ? new_thr : thr);
-  out<uint8_t>(a, P_O_ACTIVE)[i] = on;
-  out<int>(a, P_O_DEPTH)[i] = on ? depth + 1 : depth;
-  out<float>(a, P_O_LAST_PDF)[i] = on ? pdf : last_pdf;
-  out<uint8_t>(a, P_O_LAST_SPEC)[i] = on ? spec : last_spec;
+  // ---- bounce ----------------------------------------------------------
+  const float urr = next_float(st);
+  const float u1 = next_float(st);
+  const float u2 = next_float(st);
+  const float u3 = next_float(st);
+  const bool survive = urr < russian_roulette_prob(thr);
+  const BsdfSample bs = sample_bsdf(s.m, s.normal, s.gn, s.w_out, u1, u2, u3);
+  const float cos_term = fabsf(dot(s.normal, bs.wi));
+  const V3 new_thr =
+      scale(mul(thr, bs.f),
+            cos_term / clamp_min(bs.pdf * russian_roulette_prob(thr), F(1e-20)));
+  active = active && survive && bs.valid && depth + 1 < a.i[I_MAX_LEN];
+
+  store3(out<float>(a, P_O_ORG) + 3 * i, active ? s.pos : org);
+  store3(out<float>(a, P_O_D) + 3 * i, active ? bs.wi : d);
+  out<float>(a, P_O_TMIN)[i] =
+      active ? t * F(1e-3) : in<float>(a, P_TMIN)[i];
+  store3(out<float>(a, P_O_THR) + 3 * i, active ? new_thr : thr);
+  store3(out<float>(a, P_O_RAD) + 3 * i, rad);
+  out<uint8_t>(a, P_O_ACTIVE)[i] = active;
+  out<int>(a, P_O_DEPTH)[i] = active ? depth + 1 : depth;
+  out<float>(a, P_O_LAST_PDF)[i] = active ? bs.pdf : last_pdf;
+  out<uint8_t>(a, P_O_LAST_SPEC)[i] = active ? bs.specular : last_spec;
   out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(st);
+  store3(out<float>(a, P_S_POS) + 3 * i, s.pos);
+  store3(out<float>(a, P_S_DIR) + 3 * i, ds.dir);
+  out<float>(a, P_S_TMIN)[i] = offset;
+  out<float>(a, P_S_TMAX)[i] = ds.distance - offset;
+  out<uint8_t>(a, P_S_OK)[i] = shadow_ok;
+  store3(out<float>(a, P_CONTRIB) + 3 * i, contrib);
 }
 
 __global__ void __launch_bounds__(kBlk)

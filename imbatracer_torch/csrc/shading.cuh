@@ -182,11 +182,6 @@ __device__ __forceinline__ float next_float(uint32_t& s) {
   s = pcg_step(s);
   return static_cast<float>(pcg_output(s) >> 8) * F(1.0 / (1 << 24));
 }
-// `s` advanced past n draws of next_float.
-__device__ __forceinline__ uint32_t skip_draws(uint32_t s, int n) {
-  for (int k = 0; k < n; ++k) s = pcg_step(s);
-  return s;
-}
 
 // int32 tensor arithmetic as torch does it: a product that wraps, and
 // `//` by a positive Python int, which floors.

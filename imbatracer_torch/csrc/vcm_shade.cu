@@ -50,8 +50,7 @@
 // sample; the branches by material and light kind diverge within a warp.
 // The light start and the finish kernels are the plain design, a lane a
 // thread, registers only; the two bounces, redesigned for Hopper, work in
-// two phases a block (csrc/two_phase.cuh, shared with the PT bounce's
-// set-aside design in scripts/pt_shade_two_phase.cu).
+// two phases a block (the note above the light bounce).
 //
 // Numerics: see shading.cuh.  Built with --fmad=false.
 
@@ -60,13 +59,12 @@
 #include <cstdint>
 
 #include "shading.cuh"
-#include "two_phase.cuh"
 
 namespace {
 
 using namespace shade;
-using namespace two_phase;
 
+constexpr int kBlk = 128;
 constexpr int kShadeColumns = 48;
 
 // Algorithms (render/integrators/vcm.py ALGOS) and technique bits
@@ -322,20 +320,84 @@ __global__ void __launch_bounds__(kBlk)
 }
 
 // ---------------------------------------------------------------------------
-// The two bounces, redesigned for Hopper: two phases a block
-// (csrc/two_phase.cuh).  The camera bounce held 126 registers as a lane a
-// thread (4 resident blocks of 128 an SM); the light bounce ran every lane
-// through the body, dead ones too (on an H100, 0.131 ms with 42% of its
-// lanes alive against 0.138 ms with all).
+// The two bounces, redesigned for Hopper.
+//
+// A plain lane-a-thread bounce runs its whole body -- the interaction, the
+// connections and the BSDF sampling, branching by material kind -- in
+// every warp for as long as one of its lanes is alive: past the first
+// bounce the live lanes are scattered, so every warp pays for the body
+// whatever share of it is dead, and for every kind its lanes hold.  The
+// camera bounce held 126 registers that way (4 resident blocks of 128 an
+// SM); the light bounce ran every lane through the body, dead ones too
+// (on an H100, 0.131 ms with 42% of its lanes alive against 0.138 ms
+// with all).  Here a block works in two phases:
+//   1. a lane a thread, up to what every lane writes.  A lane that does
+//      not go on is finished here; a live lane puts its shading point and
+//      the carry values phase 2 reads in shared memory (LiveLanes) and
+//      counts itself into its material kind's bin;
+//   2. the block's live lanes, compacted and ordered by material kind, a
+//      thread each (order_by_kind).  Threads past them return, so a block
+//      of few live lanes runs few warps, and a warp's lanes mostly share
+//      their BSDF branch.
+// Phase 2 reads the shading point back from shared memory for each of its
+// steps, so that it does not hold it across them: the kernels are built
+// for kTwoPhaseBlocks resident blocks.  Every value is computed by the
+// same operations in the same order as the plain version (shading.cuh):
+// the outputs are its outputs.
 // ---------------------------------------------------------------------------
 
-// A VCM lane's words between the phases: two_phase's shading point and
-// material, then the carry values phase 2 reads.
+// Resident blocks an SM the two-phase kernels are built for: registers
+// capped at 65,536 / (kTwoPhaseBlocks * kBlk) a thread.
+constexpr int kTwoPhaseBlocks = 6;
+// Material kinds phase 2 orders its lanes by (shading.cuh MAT_*; another
+// value shares the last bin).
+constexpr int kKindBins = 8;
+
+// A live lane's words between the phases: its shading point and material,
+// and the carry values phase 2 reads.
 enum Word {
-  W_THR = NUM_POINT_WORDS, W_D_VC = W_THR + 3, W_D_VCM, W_D_VM, W_T,
-  W_ACTIVE, NUM_WORDS
+  W_POS = 0, W_NORMAL = 3, W_GN = 6, W_W_OUT = 9, W_KIND = 12, W_KD = 13,
+  W_KS = 16, W_TF = 19, W_NS = 22, W_IOR = 23, W_THR = 24, W_D_VC = 27,
+  W_D_VCM = 28, W_D_VM = 29, W_T = 30, W_ACTIVE = 31, NUM_WORDS = 32
 };
-using VcmLanes = LiveLanes<NUM_WORDS>;
+
+// A block's live lanes between the phases: word w of the lane of thread
+// p at word[w][p] (a warp's accesses to one word are consecutive in phase
+// 1), the thread of phase 2's slot k at order[k], and the slots' bins by
+// material kind.
+struct LiveLanes {
+  float word[NUM_WORDS][kBlk];
+  int order[kBlk];
+  int bin[kKindBins + 1];
+};
+
+__device__ __forceinline__ void put3(LiveLanes& l, int w, int k, V3 v) {
+  l.word[w][k] = v.x;
+  l.word[w + 1][k] = v.y;
+  l.word[w + 2][k] = v.z;
+}
+
+__device__ __forceinline__ V3 get3(const LiveLanes& l, int w, int k) {
+  return {l.word[w][k], l.word[w + 1][k], l.word[w + 2][k]};
+}
+
+// The shading point in column k, read anew: the compiler barrier makes every
+// step of phase 2 load what it uses instead of holding it from the last.
+__device__ __forceinline__ Interaction live_point(const LiveLanes& l, int k) {
+  asm volatile("" ::: "memory");
+  Interaction s;
+  s.pos = get3(l, W_POS, k);
+  s.normal = get3(l, W_NORMAL, k);
+  s.gn = get3(l, W_GN, k);
+  s.w_out = get3(l, W_W_OUT, k);
+  s.m.kind = __float_as_int(l.word[W_KIND][k]);
+  s.m.kd = get3(l, W_KD, k);
+  s.m.ks = get3(l, W_KS, k);
+  s.m.tf = get3(l, W_TF, k);
+  s.m.ns = l.word[W_NS][k];
+  s.m.ior = l.word[W_IOR][k];
+  return s;
+}
 
 // The carry values of the lane in column k, read anew as live_point.
 struct LiveCarry {
@@ -344,7 +406,7 @@ struct LiveCarry {
   bool active;
 };
 
-__device__ __forceinline__ LiveCarry live_carry(const VcmLanes& l, int k) {
+__device__ __forceinline__ LiveCarry live_carry(const LiveLanes& l, int k) {
   asm volatile("" ::: "memory");
   LiveCarry c;
   c.thr = get3(l, W_THR, k);
@@ -356,20 +418,58 @@ __device__ __forceinline__ LiveCarry live_carry(const VcmLanes& l, int k) {
   return c;
 }
 
+// Phase 1's end, called by every thread of the block with its lane's bin
+// (-1 for no live lane) once the live lanes are counted into live.bin:
+// the bins' first slots, then each live lane's thread at its slot of
+// live.order, bin by bin.  Returns the block's live lanes.
+__device__ __forceinline__ int order_by_kind(LiveLanes& live, int bin) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int k = 0; k < kKindBins; ++k) {
+      const int c = live.bin[k];
+      live.bin[k] = sum;
+      sum += c;
+    }
+    live.bin[kKindBins] = sum;
+  }
+  __syncthreads();
+  if (bin >= 0) live.order[atomicAdd(&live.bin[bin], 1)] = threadIdx.x;
+  __syncthreads();
+  return live.bin[kKindBins];
+}
+
 // A live lane's words at column k and its count in its kind's bin, which
 // it returns.
-__device__ __forceinline__ int put_live(VcmLanes& live, int k,
+__device__ __forceinline__ int put_live(LiveLanes& live, int k,
                                         const Interaction& s, V3 thr,
                                         float d_vc, float d_vcm, float d_vm,
                                         float t, bool active) {
-  put_point(live, k, s);
+  put3(live, W_POS, k, s.pos);
+  put3(live, W_NORMAL, k, s.normal);
+  put3(live, W_GN, k, s.gn);
+  put3(live, W_W_OUT, k, s.w_out);
+  live.word[W_KIND][k] = __int_as_float(s.m.kind);
+  put3(live, W_KD, k, s.m.kd);
+  put3(live, W_KS, k, s.m.ks);
+  put3(live, W_TF, k, s.m.tf);
+  live.word[W_NS][k] = s.m.ns;
+  live.word[W_IOR][k] = s.m.ior;
   put3(live, W_THR, k, thr);
   live.word[W_D_VC][k] = d_vc;
   live.word[W_D_VCM][k] = d_vcm;
   live.word[W_D_VM][k] = d_vm;
   live.word[W_T][k] = t;
   live.word[W_ACTIVE][k] = active ? 1.0f : 0.0f;
-  return count_kind(live, s.m.kind);
+  const int bin = clampi(s.m.kind, 0, kKindBins - 1);
+  atomicAdd(&live.bin[bin], 1);
+  return bin;
+}
+
+// `s` advanced past n draws of next_float.
+__device__ __forceinline__ uint32_t skip_draws(uint32_t s, int n) {
+  for (int k = 0; k < n; ++k) s = pcg_step(s);
+  return s;
 }
 
 // ---------------------------------------------------------------------------
@@ -418,6 +518,12 @@ struct __align__(16) LightOut {
   uint32_t state[kBlk];
   uint8_t active[kBlk], s_ok[kBlk];
 };
+
+__device__ __forceinline__ void stage3(float* col, int k, V3 v) {
+  col[3 * k] = v.x;
+  col[3 * k + 1] = v.y;
+  col[3 * k + 2] = v.z;
+}
 
 // store_next into the staged outputs.
 __device__ __forceinline__ void stage_next(LightOut& o, int k,
@@ -482,6 +588,19 @@ __device__ void finish_dead_light(const Args& a, LightOut& o, int i, int k,
              skip_draws(o.state[k], 4));
 }
 
+// n floats of a staged column out to dst, the block's threads together:
+// 16-byte words where dst is 16-byte aligned and n a multiple of 4.
+__device__ __forceinline__ void copy_out(float* dst, const float* src,
+                                         int n) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (n & 3) == 0) {
+    for (int q = threadIdx.x; q < n / 4; q += kBlk)
+      reinterpret_cast<float4*>(dst)[q] =
+          reinterpret_cast<const float4*>(src)[q];
+  } else {
+    for (int q = threadIdx.x; q < n; q += kBlk) dst[q] = src[q];
+  }
+}
+
 // The block's staged outputs of its n lanes from lane `base` out.
 __device__ void write_light_out(const Args& a, const LightOut& o,
                                 int64_t base, int n) {
@@ -511,13 +630,13 @@ __device__ void write_light_out(const Args& a, const LightOut& o,
 
 __global__ void __launch_bounds__(kBlk, kTwoPhaseBlocks)
     vcm_light_shade_kernel(const __grid_constant__ Args a) {
-  __shared__ VcmLanes live;
+  __shared__ LiveLanes live;
   __shared__ LightOut o;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlk;
   const int n = static_cast<int>(
       a.i[I_LANES] - base < kBlk ? a.i[I_LANES] - base : kBlk);
   const int i = static_cast<int>(base) + threadIdx.x;
-  clear_bins(live);
+  if (threadIdx.x <= kKindBins) live.bin[threadIdx.x] = 0;
   __syncthreads();
   const int bounce = a.i[I_BOUNCE];
 
@@ -682,14 +801,14 @@ __device__ __forceinline__ const float* nee_light(const Args& a, uint32_t st) {
 
 __global__ void __launch_bounds__(kBlk, kTwoPhaseBlocks)
     vcm_camera_shade_kernel(const __grid_constant__ Args a) {
-  __shared__ VcmLanes live;
+  __shared__ LiveLanes live;
   const int lanes = a.i[I_LANES];
   const int i = blockIdx.x * kBlk + threadIdx.x;
   const bool lane = i < lanes;
   const bool active0 = lane && in<uint8_t>(a, P_ACTIVE)[i] != 0;
   unsigned long long* n_rays = out<unsigned long long>(a, P_O_NRAYS);
   if (n_rays) count_warp(active0 ? 1u : 0u, n_rays);
-  clear_bins(live);
+  if (threadIdx.x <= kKindBins) live.bin[threadIdx.x] = 0;
   __syncthreads();
 
   const int bounce = a.i[I_BOUNCE];

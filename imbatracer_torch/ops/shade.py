@@ -72,33 +72,6 @@ class ShadowRay(NamedTuple):
     ok: torch.Tensor     # (R,) bool: the lanes that cast it
 
 
-class DeadShadow(NamedTuple):
-    """The shadow ray's fields and contrib of a lane that casts none."""
-
-    pos: float
-    dir: float
-    tmin: float
-    tmax: float
-    ok: bool
-    contrib: float
-
-
-# The shadow ray and contrib of a lane that does not go on past the hit
-# test (dead on entry, a miss or an emitter): no ray is cast and no light
-# is added.  The kernel writes these too (csrc/pt_shade.cu kDeadPt*), and
-# a warp none of whose lanes hit skips NEE and the bounce; nothing reads
-# them but the any hit,
-# which skips a ray that is not ok, and pt_shade_finish, which adds contrib
-# only where the ray was ok.
-DEAD_PT_SHADOW = DeadShadow(pos=0.0, dir=0.0, tmin=0.0, tmax=0.0, ok=False,
-                            contrib=0.0)
-
-
-def dead_where(dead, x, value):
-    """x with the rows of the `dead` lanes set to `value`."""
-    return torch.where(dead.view(-1, *[1] * (x.dim() - 1)), value, x)
-
-
 # --------------------------------------------------------------------------
 # The plain PyTorch versions
 # --------------------------------------------------------------------------
@@ -107,11 +80,7 @@ def pt_shade_plain(scene, c, hit, *, has_bump: bool, max_len: int):
     """The bounce's shading on the carry `c` and its closest hit `hit`:
     (next carry, ShadowRay, contrib (R, 3)).  The next carry's radiance
     holds the env and emitter terms, its n_rays the closest-hit rays;
-    pt_shade_finish adds the NEE term and the shadow rays.  A lane that
-    does not go on past the hit test (dead on entry, a miss or an
-    emitter) keeps its carry but its radiance, its RNG word past the
-    bounce's 7 draws, and writes DEAD_PT_SHADOW's shadow ray and
-    contrib."""
+    pt_shade_finish adds the NEE term and the shadow rays."""
     LAUNCHES["plain"] += 1
     num_lights = scene.lights.kind.shape[0]
     first = c["depth"] == 0
@@ -147,7 +116,6 @@ def pt_shade_plain(scene, c, hit, *, has_bump: bool, max_len: int):
         emit_ok[..., None], c["throughput"] * isect.emit * w_emit[..., None],
         0.0)
     active = active & ~is_emitter
-    dead = ~active
 
     # ---- next-event estimation -------------------------------------------
     st, (ul, ua, ub) = rng_mod.next_floats(c["state"], 3)
@@ -169,10 +137,8 @@ def pt_shade_plain(scene, c, hit, *, has_bump: bool, max_len: int):
     shadow_ok = (active & (pdf_hit > 0.0) & (pdf_di > 0.0)
                  & torch.any(contrib > 0.0, dim=-1))
     offset = 1e-3 * torch.where(ds.distance >= BIG, 1.0, ds.distance)
-    shadow = ShadowRay(*(dead_where(dead, x, v) for x, v in zip(
-        (isect.pos, ds.dir, offset, ds.distance - offset, shadow_ok),
-        DEAD_PT_SHADOW)))
-    contrib = dead_where(dead, contrib, DEAD_PT_SHADOW.contrib)
+    shadow = ShadowRay(isect.pos, ds.dir, offset, ds.distance - offset,
+                       shadow_ok)
 
     # ---- bounce ----------------------------------------------------------
     st, (urr, u1, u2, u3) = rng_mod.next_floats(st, 4)

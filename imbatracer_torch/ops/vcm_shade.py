@@ -138,6 +138,11 @@ DEAD_LIGHT = DeadLight(rec=0.0, store=False, cc=0.0, pixel=-1, pos=0.0,
                        dir=0.0, tmin=0.0, tmax=0.0, ok=False)
 
 
+def _dead_where(dead, x, value):
+    """x with the rows of the `dead` lanes set to `value`."""
+    return torch.where(dead.view(-1, *[1] * (x.dim() - 1)), value, x)
+
+
 class MergeQuery(NamedTuple):
     """What a camera bounce's merge reads: the shading point (with the
     material's kind, kd, ks and ns in `params`), the completed partial
@@ -288,7 +293,7 @@ def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
     non_spec = ~mat_mod.is_specular(isect.params)
 
     if rows.rec is not None:
-        rows.rec.copy_(sh.dead_where(dead, pack_batch(
+        rows.rec.copy_(_dead_where(dead, pack_batch(
             isect.pos, isect.w_out, isect.normal, isect.gn, isect.uv,
             isect.mat_id, c["throughput"], d_vc, d_vcm, d_vm,
             torch.full((lanes,), i + 2, dtype=torch.int32,
@@ -302,10 +307,10 @@ def light_shade_plain(scene, cam, c, hit, i, rows: LightRows, *, mis_eta_vc,
             scene, cam, isect, c["throughput"], d_vc, d_vcm,
             active & non_spec, mis_eta_vm, light_path_count, algo,
             pixel_area)
-        rows.cc.copy_(sh.dead_where(dead, contrib, DEAD_LIGHT.cc))
-        rows.pixel.copy_(sh.dead_where(dead, pixel, DEAD_LIGHT.pixel))
+        rows.cc.copy_(_dead_where(dead, contrib, DEAD_LIGHT.cc))
+        rows.pixel.copy_(_dead_where(dead, pixel, DEAD_LIGHT.pixel))
         shadow = sh.ShadowRay(*(
-            sh.dead_where(dead, x, getattr(DEAD_LIGHT, k))
+            _dead_where(dead, x, getattr(DEAD_LIGHT, k))
             for k, x in zip(sh.ShadowRay._fields, shadow)))
 
     nxt = _bounce(scene, isect, c["throughput"], d_vc, d_vcm, d_vm, active,
@@ -491,7 +496,7 @@ def camera_shade_plain(scene, c, hit, i, *, cache_count, cache_rec,
     if shadow:
         dead = (~c["active"]).repeat(len(shadow))
         sets = ShadowSets(*(
-            sh.dead_where(dead, x, v)
+            _dead_where(dead, x, v)
             for x, v in zip((torch.cat([s[k] for s in shadow])
                              for k in range(6)), DEAD_SHADOW)))
     q = MergeQuery(isect.pos, isect.normal, isect.gn, isect.w_out,
@@ -601,8 +606,7 @@ def camera_finish_plain(radiance, contrib, ok, occluded, n_rays):
 # The CUDA kernels
 # --------------------------------------------------------------------------
 
-LIB = NativeLib("vcm_shade", "vcm_shade.cu",
-                headers=("shading.cuh", "two_phase.cuh"))
+LIB = NativeLib("vcm_shade", "vcm_shade.cu", headers=("shading.cuh",))
 
 _lib = None
 

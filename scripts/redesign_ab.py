@@ -1,28 +1,27 @@
 #!/usr/bin/env python3
 """The kernels redesigned for Hopper against their earlier design, on one
-card in one process: pt_shade_kernel (csrc/pt_shade.cu).
+card in one process: dispatch_keys_kernel (csrc/dispatch.cu).
 
 The earlier design is another checkout's source (--root, for example the
 parent commit unpacked under the git-ignored out/), built with this
 tree's nvcc flags into build/imbatracer_torch/ and launched through this
 tree's wrappers, whose C interface both share.  Each kernel is timed as
 chip_smoke.graph_ms (10 launches captured in one CUDA graph, after a
-warm-up), earlier, redesigned, redesigned, earlier, on chip_smoke.py's
-inputs:
+warm-up), earlier, redesigned, redesigned, earlier, on the rays a PT
+frame sorts: the middle 2^18-lane band of a still-life PT frame at
+1920x1080 at bounces 0, 1 and chip_smoke.LATE_BOUNCE (chip_smoke's
+shade_carry), the cornell at 1024^2 after 1 and the instanced scene at
+1920x1080 after 1, each in the forms a dispatch takes: every lane with
+its active flags; the graph-ready re-trace's slots at both shares
+(traverse.retrace_slots: the first lanes of the active ones,
+torch.nonzero_static, their flags by slot); and the eager re-trace's
+slot map of every active lane with its flags by lane.  The two designs'
+keys must be equal bit for bit on every slot.
 
-* the PT bounce's shading: the middle 2^18-lane band of a still-life PT
-  frame at 1920x1080 at bounces 0, 3 and chip_smoke.LATE_BOUNCE (phase
-  4b's), the cornell and the bumped scene at 1024^2, and the instanced
-  scene at 1920x1080, bounce 1; the two designs' outputs must be equal
-  bit for bit on the lanes that go on past the hit test (alive on entry,
-  a hit, no emitter), and on the others in what both write alike (the
-  next carry, the ray count and the shadow ray's flag): there the
-  redesign writes shade.DEAD_PT_SHADOW's shadow ray and contrib.
-
-Each `[ab]` line names the card and its power limit, with the share of
-lanes alive on entry and past the hit test, the bound of the bytes the
-function moves (chip_smoke.py's count) and each build's registers, local
-bytes and resident blocks.  Run from the repository root:
+Each `[ab]` line names the card and its power limit, with the active
+share, the bound of the bytes the function moves (chip_smoke.py's count,
+and a slot's 8-byte lane) and each build's registers, local bytes and
+resident blocks.  Run from the repository root:
 
     python3 scripts/redesign_ab.py --root out/parent
 """
@@ -43,10 +42,11 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from imbatracer_torch import libbuild  # noqa: E402
 from imbatracer_torch.device import card_line, get_device  # noqa: E402
-from imbatracer_torch.ops import shade as sh  # noqa: E402
+from imbatracer_torch.ops import dispatch as dp  # noqa: E402
+from imbatracer_torch.render import traverse as tt  # noqa: E402
 
 # The redesigned kernels: (module, kernel, resources() argument).
-KERNELS = ((sh, "pt_shade_kernel", False),)
+KERNELS = ((dp, "dispatch_keys_kernel", "dispatch_keys"),)
 
 
 class _Built:
@@ -114,70 +114,46 @@ def fmt(ms):
     return " / ".join(f"{x:.4f}" for x in ms)
 
 
-def differ(x, y):
-    """Elements of x and y not bit-equal (NaN against NaN equal)."""
-    if x.dim() and x.dtype == torch.float32:
-        nan = torch.isnan(x) & torch.isnan(y)
-        return int(((x.view(torch.int32) != y.view(torch.int32))
-                    & ~nan).sum())
-    return int((x != y).sum())
+def keys_forms(act):
+    """{form: (lanes, flags, by_lane)} of the dispatches a bounce's rays
+    meet: every lane, the graph-ready re-trace's slots at both shares,
+    and the eager re-trace's slot map of every active lane."""
+    n = act.shape[0]
+    out = {"every lane": (None, act, False)}
+    for two_level in (True, False):
+        slots = tt.retrace_slots(n, two_level)
+        idx = torch.nonzero_static(act, size=slots, fill_value=0)[:, 0]
+        valid = torch.arange(slots, device=act.device) < act.sum()
+        out[f"{slots} slots"] = (idx, valid, False)
+    out["eager slot map"] = (act.nonzero()[:, 0], None, True)
+    return out
 
 
-def hold(kernel, label, outs, alike, live):
-    """Raise unless the designs' outputs {name: (earlier, redesigned)} are
-    bit-equal on every lane of the columns in `alike` and on the `live`
-    lanes of the others."""
-    bad = {}
-    for name, (x, y) in outs.items():
-        k = differ(x, y) if name in alike else differ(x[live], y[live])
-        if k:
-            bad[name] = k
-    if bad:
-        raise AssertionError(f"[ab] {kernel} {label}: the designs differ: "
-                             f"{bad}")
-
-
-# What the PT bounce writes alike in both designs on a lane that does not
-# go on past the hit test.
-PT_ALIKE = ("org", "d", "tmin", "throughput", "radiance", "active", "depth",
-            "last_pdf", "last_specular", "state", "n_rays", "shadow.ok")
-
-
-def pt_outputs(nxt, shadow, contrib):
-    cols = dict(nxt)
-    cols.update({f"shadow.{k}": v for k, v in shadow._asdict().items()})
-    cols["contrib"] = contrib
-    return cols
-
-
-def pt_case(libs, label, scene, meta, size, max_len, bounces, card):
-    from imbatracer_torch.render.surface import make_interaction
-
+def keys_case(libs, label, scene, meta, size, max_len, bounces, card):
     dev = scene.device
-    c, hit, _ = cs.shade_carry(scene, meta, *size, max_len, bounces, dev)
-    kw = dict(has_bump=meta.has_bump, max_len=max_len)
-    outs = {}
-    for which in ("earlier", "redesigned"):
-        sh._lib = libs[which]
-        outs[which] = pt_outputs(*sh.pt_shade_cuda(scene, c, hit, **kw))
-    isect = make_interaction(scene, hit, c["org"], c["d"],
-                             has_bump=meta.has_bump)
-    live = c["active"] & (hit.prim_id >= 0) & (isect.light_id < 0)
-    hold("pt_shade", label, {k: (outs["earlier"][k], v)
-                             for k, v in outs["redesigned"].items()},
-         PT_ALIKE, live)
-    earlier, new = turns(sh, libs, partial(sh.pt_shade_cuda, scene, c, hit,
-                                           **kw))
-    lanes = c["active"].shape[0]
-    nbytes, _ = cs.shade_bytes(scene, c, hit)
-    bound_ms, by = cs.shade_bound(nbytes, lanes * cs.SHADE_LANE_OPS)
-    cs.log(f"[ab] pt_shade_kernel, {label}: {lanes} lanes, "
-           f"{float(c['active'].double().mean()):.4f} alive on entry, "
-           f"{float(live.double().mean()):.4f} past the hit test: earlier "
-           f"{fmt(earlier)} ms, redesigned {fmt(new)} ms, bound "
-           f"{bound_ms:.4f} ms by {by} ({nbytes} bytes); outputs bit-equal "
-           f"but the shadow rows and contrib of lanes that do not go on "
-           f"[{card}]")
+    c, _, _ = cs.shade_carry(scene, meta, *size, max_len, bounces, dev)
+    bvh = scene.bvh
+    org, d, act = c["org"], c["d"], c["active"]
+    for form, (lanes, flags, by_lane) in keys_forms(act).items():
+        fn = partial(dp.keys_cuda, org, d, flags, bvh.bounds, bvh.center,
+                     lanes, by_lane)
+        got = {}
+        for which in ("earlier", "redesigned"):
+            dp._lib = libs[which]
+            got[which] = fn()
+        bad = cs.bit_mismatches(got["earlier"], got["redesigned"])
+        if bad:
+            raise AssertionError(f"[ab] dispatch_keys {label}, {form}: "
+                                 f"{bad} keys differ")
+        earlier, new = turns(dp, libs, fn)
+        m = org.shape[0] if lanes is None else lanes.shape[0]
+        nbytes = m * (24 + 4 + (flags is not None) + 8 * (lanes is not None))
+        bound_ms, by = cs.shade_bound(nbytes, 0)
+        live = float((got["redesigned"] < 2 ** 30).double().mean())
+        cs.log(f"[ab] dispatch_keys_kernel, {label}, {form}: {m} slots, "
+               f"{live:.4f} active: earlier {fmt(earlier)} ms, redesigned "
+               f"{fmt(new)} ms, bound {bound_ms:.5f} ms by {by} ({nbytes} "
+               f"bytes); keys bit-equal [{card}]")
 
 
 def main():
@@ -187,8 +163,7 @@ def main():
     args = p.parse_args()
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
-    from imbatracer_torch.scene.procedural import (make_bumped_scene,
-                                                   make_cornell_scene,
+    from imbatracer_torch.scene.procedural import (make_cornell_scene,
                                                    make_still_life_like)
 
     dev = get_device("cuda")
@@ -208,19 +183,17 @@ def main():
         mod._lib = libs[mod]["redesigned"]
 
     still = make_still_life_like(device=dev)
-    for bounce in (0, 3, cs.LATE_BOUNCE):
-        pt_case(libs[sh], f"still_life 1920x1080 bounce {bounce}", *still,
-                (1920, 1080), 8, bounce, card)
+    for bounce in (0, 1, cs.LATE_BOUNCE):
+        keys_case(libs[dp], f"still_life 1920x1080 bounce {bounce}", *still,
+                  (1920, 1080), 8, bounce, card)
     del still
-    pt_case(libs[sh], "cornell 1024x1024 bounce 1",
-            *make_cornell_scene(device=dev), (1024, 1024), 10, 1, card)
-    pt_case(libs[sh], "bumped 1024x1024 bounce 0",
-            *make_bumped_scene(device=dev), (1024, 1024), 10, 0, card)
+    keys_case(libs[dp], "cornell 1024x1024 bounce 1",
+              *make_cornell_scene(device=dev), (1024, 1024), 10, 1, card)
     tmp = tempfile.mkdtemp(prefix="imba_ab_")
     inst = build_scene(write_instanced_scene(tmp, **CARD), quiet=True,
                        device=dev)
-    pt_case(libs[sh], "instanced 1920x1080 bounce 1", *inst, (1920, 1080),
-            8, 1, card)
+    keys_case(libs[dp], "instanced 1920x1080 bounce 1", *inst, (1920, 1080),
+              8, 1, card)
     shutil.rmtree(tmp, ignore_errors=True)
     cs.log("[ab] done")
 

@@ -259,15 +259,13 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # out, the light start its carry out, the finishes their contrib, pixel or
 # radiance and flags, the resolves their row in and hit out, the keys a
 # ray's origin and flag in and its key out.  The kernels not named here
-# are redesigned (PR 19-21), run once a masked dispatch at the launch
-# floor, or are not a lane a thread.
+# were redesigned for Hopper before this ranking was made, take one
+# launch at the floor a masked dispatch, or are not a lane a thread.
 BOUND_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
                "vcm_light_start_kernel": 66, "vcm_finish_kernel<false>": 34,
                "vcm_finish_kernel<true>": 52, "khit_resolve_kernel": 148,
                "stream_resolve_kernel": 56, "dispatch_keys_kernel": 29}
 HBM_BYTES_PER_S = 3.35e12
-# Kernels whose every launch's device time a graphed frame logs, in order.
-EACH_LAUNCH = ("pt_shade_kernel",)
 
 
 def chrome_threads(path):
@@ -331,13 +329,6 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
     print(f"[lighttrace] graphed {tag} frame: wall {wall:.1f} ms",
           flush=True)
     show(f"graphed {tag} frame", tot, ARGS.top)
-    for part in EACH_LAUNCH:
-        each = [ns / 1e3 for name, _, ns in device_events(prof)
-                if part in name]
-        if each:
-            print(f"[lighttrace]   graphed {tag} frame, {part} a launch, in "
-                  f"order (us): " + " ".join(f"{x:.1f}" for x in each),
-                  flush=True)
     for part in NAMED:
         us = sum(v[0] for k, v in tot.items() if part in k)
         n = sum(v[1] for k, v in tot.items() if part in k)

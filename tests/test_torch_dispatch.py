@@ -41,7 +41,7 @@ from imbatracer_torch.scene.textures import MaskTest, TextureAtlas
 from test_torch_graphs import _two_level_layers
 from test_torch_masks import _layers
 from test_torch_traverse import _interp
-from torch_dispatch_cases import RAGGED_ROWS
+from torch_dispatch_cases import RAGGED_KEYS, RAGGED_ROWS
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -105,6 +105,48 @@ def test_plain_keys_match_jax(big, case):
     want = np.asarray(want)
     assert (want[~act[sel]] == 2 ** 30).all()
     assert len(np.unique(want >> 24)) == 9       # 8 octants and the dead key
+
+
+def _key_flags(flags, act):
+    """The active flags of a RAGGED_KEYS case: act as it is ("mixed"),
+    every one set or none, or None ("none": every slot active)."""
+    if flags == "mixed":
+        return act
+    if flags == "none":
+        return None
+    return np.full_like(act, flags == "live")
+
+
+@pytest.mark.parametrize("n,case,flags,recentre", RAGGED_KEYS)
+def test_plain_keys_match_jax_at_ragged_shapes(big, n, case, flags,
+                                               recentre):
+    """keys_plain against JAX's sort_keys at the shapes and flags the
+    keys kernel treats apart (tests/torch_dispatch_cases.py): lane counts
+    on either side of a block, a slot map with its state by slot or by
+    lane, the flags all set, none, some or absent, the origins recentred
+    or not.  Every dead slot takes the dead key 2^30."""
+    org, d, act, _ = _rays(n, 5 + n, big.bvh)
+    lanes = None if case == "all" else np.sort(np.random.RandomState(
+        n).choice(n, max(n // 2, 1), replace=False)).astype(np.int64)
+    by_lane = case == "by_lane"
+    sel = slice(None) if lanes is None else lanes
+    flag = _key_flags(flags, act)
+    s_flag = (flag if flag is None or lanes is None or by_lane
+              else flag[sel])
+    center = big.bvh.center if recentre else None
+    got = dp.keys_plain(torch.from_numpy(org), torch.from_numpy(d),
+                        None if s_flag is None else torch.from_numpy(s_flag),
+                        big.bvh.bounds, center,
+                        None if lanes is None else torch.from_numpy(lanes),
+                        by_lane)
+    live = (np.ones(n, bool) if flag is None else flag)[sel]
+    o = org[sel] - (big.bvh.center.numpy() if recentre else 0.0)
+    jlo, jhi = ps._scene_bounds(jnp.asarray(big.bvh.sbox.numpy()))
+    want = np.asarray(ps.sort_keys(jnp.asarray(o), jnp.asarray(d[sel]),
+                                   jnp.asarray(live), jlo, jhi))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[~live] == 2 ** 30).all() and (want[live] < 2 ** 30).all()
+    assert (flags == "dead") == (not live.any())
 
 
 @pytest.mark.parametrize("tcur", ["none", "tcur", "step"])

@@ -48,7 +48,7 @@ from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.procedural import (make_big_scene,
                                                make_leaf_scene)
-from torch_dispatch_cases import RAGGED_ROWS
+from torch_dispatch_cases import RAGGED_KEYS, RAGGED_ROWS
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -1088,13 +1088,12 @@ def _unaligned(x):
 def test_cuda_pt_shade_kernel_on_dead_bands(cuda_device, band, name):
     """pt_shade_kernel against pt_shade_plain bit for bit on every output
     column and lane of a 3,001-lane band (not a whole number of blocks:
-    its last warps past the band): all lanes dead on entry (every warp
-    skips the body), every other one, half dying at the miss and emitter
-    tests, a mixed-depth carry (warps of mixed material kinds and of live
-    and dead lanes; the still life holds all six kinds), the camera's
-    bounce-0 carry with every lane alive, and the mixed carry read
-    through views 4 bytes off 16-byte alignment.  A lane that does not
-    go on writes DEAD_PT_SHADOW.  One launch each."""
+    its last warps past the band): all lanes dead on entry, every other
+    one, half dying at the miss and emitter tests, a mixed-depth carry
+    (warps of mixed material kinds and of live and dead lanes; the still
+    life holds all six kinds), the camera's bounce-0 carry with every
+    lane alive, and the mixed carry read through views 4 bytes off
+    16-byte alignment.  One launch each."""
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.render.integrators import pt
     from torch_shade_cases import (MAX_LEN, SCENES, carry_arrays, dead_band,
@@ -1126,7 +1125,6 @@ def test_cuda_pt_shade_kernel_on_dead_bands(cuda_device, band, name):
         _same_bits(k, got[k], want[k])
     if band == "all_dead":
         assert not got["active"].any() and not got["shadow.ok"].any()
-        assert bool((got["contrib"] == sh.DEAD_PT_SHADOW.contrib).all())
     else:
         assert got["shadow.ok"].any() and got["active"].any()
 
@@ -1765,6 +1763,41 @@ def test_cuda_dispatch_kernels_match_plain(cuda_device, tmp_path_factory,
               dict(flag=flag), disp, occ, dp.OCCLUSION)
     assert dp.LAUNCHES["dispatch_keys"] == 6          # three here, three
     assert dp.LAUNCHES["dispatch_rows"] == 12         # in prepare()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,case,flags,recentre", RAGGED_KEYS)
+def test_cuda_dispatch_keys_at_ragged_shapes(cuda_device, n, case, flags,
+                                             recentre):
+    """dispatch_keys_kernel bit-equal to keys_plain at the shapes and
+    flags it treats apart (tests/torch_dispatch_cases.py: lane counts
+    around a block, slot maps with state by slot or by lane, the flags all
+    set, none, some or absent, recentred or not), with the lane arrays
+    read through views 4 bytes off 16-byte alignment.  One launch each."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    rs = np.random.RandomState(n)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
+                                                    device=cuda_device)
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::7, rs.randint(3)] = -0.0
+    org, d = _unaligned(t(rs.uniform(-3.0, 3.0, (n, 3)))), _unaligned(t(d))
+    lanes = None if case == "all" else t(np.sort(rs.choice(
+        n, max(n // 2, 1), replace=False)), torch.int64)
+    by_lane = case == "by_lane"
+    size = n if lanes is None or by_lane else lanes.shape[0]
+    act = {"live": np.ones(size, bool), "dead": np.zeros(size, bool),
+           "mixed": rs.rand(size) < 0.6, "none": None}[flags]
+    act = None if act is None else t(act, torch.bool)
+    bounds = t([-2.5, -2.0, -3.0, 2.0, 2.5, 1.5])
+    center = t([0.25, -0.5, 0.125]) if recentre else None
+    dp.reset_launches()
+    got = dp.keys_cuda(org, d, act, bounds, center, lanes, by_lane)
+    assert dp.LAUNCHES["dispatch_keys"] == 1
+    want = dp.keys_plain(org, d, act, bounds, center, lanes, by_lane)
+    assert torch.equal(got, want)
+    assert bool((got == 2 ** 30).all()) == (flags == "dead")
 
 
 @pytest.mark.cuda

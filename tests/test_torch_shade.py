@@ -17,14 +17,12 @@
   normals).
   The same on a band half dead on entry.
 * Bands all dead on entry, half dead, or half dying at the miss and
-  emitter tests: a lane that does not go on writes DEAD_PT_SHADOW's
-  shadow ray and contrib and keeps the plain select's carry, its RNG
-  word past the bounce's 7 draws; a live lane's outputs are those it
-  has with every lane alive.
+  emitter tests: a lane that does not go on casts no shadow ray and
+  keeps the plain select's carry, its RNG word past the bounce's 7
+  draws; a live lane's outputs are those it has with every lane alive.
 * The scene tables: the column map of pruned and full shade records,
   the host facts and float32 constants the kernel is given, and the
-  argument lists of the binding and the dead-lane constants against
-  csrc/pt_shade.cu.
+  argument lists of the binding against the enums of csrc/pt_shade.cu.
 * On CPU tensors the shading runs the plain versions and never builds
   or loads the kernels' library.
 """
@@ -157,11 +155,10 @@ def test_bounce_matches_jax(name, mixed, scenes, monkeypatch):
 
 @pytest.mark.parametrize("name", ["cornell", "still_life"])
 @pytest.mark.parametrize("band", ["all_dead", "half_dead", "emitters"])
-def test_dead_lanes_write_the_dead_shadow_rows(band, name, scenes):
+def test_dead_lanes_keep_the_plain_select(band, name, scenes):
     """pt_shade_plain on a band all dead on entry, half dead, or half dying
     at the miss and emitter tests: a lane that does not go on past the
-    hit test writes DEAD_PT_SHADOW's shadow ray and contrib, and keeps
-    the plain select's carry (inactive, org, d, tmin, throughput, depth,
+    hit test casts no shadow ray, and keeps the plain select's carry (inactive, org, d, tmin, throughput, depth,
     last_pdf and last_specular as they came, its radiance with the env or
     emitter term), its RNG word past the bounce's 7 draws; a live lane's
     outputs are bit for bit those it has in the same band with every
@@ -191,9 +188,9 @@ def test_dead_lanes_write_the_dead_shadow_rows(band, name, scenes):
         hit_light = c["active"] & (hit.prim_id >= 0) & (isect.light_id >= 0)
         assert hit_light.any() and (c["active"] & (hit.prim_id < 0)).any()
         assert (nxt["radiance"][hit_light] > c["radiance"][hit_light]).any()
+    assert not shadow.ok[dead].any()
     outs = dict(zip(sh.ShadowRay._fields, shadow), contrib=contrib)
     for k, x in outs.items():
-        assert (x[dead] == getattr(sh.DEAD_PT_SHADOW, k)).all(), k
         np.testing.assert_array_equal(
             x[live].numpy(), dict(zip(sh.ShadowRay._fields, ref_shadow),
                                   contrib=ref_contrib)[k][live].numpy(),
@@ -310,12 +307,6 @@ def test_binding_matches_the_kernel_source():
          "F_IMG_HM1", "F_TAB_W", "F_TAB_H", "F_INV_TAB_W", "F_INV_TAB_H",
          "NUM_FLOATS"])
     assert len(sh.TABLE_FLOATS) == 10
-    # The dead-lane shadow row and contrib.
-    parse = lambda v: v == "true" if v in ("true", "false") else float(
-        v.rstrip("f"))
-    dead = {k.lower(): parse(v) for k, v in re.findall(
-        r"constexpr (?:float|bool) kDeadPt(\w+) = (\w+(?:\.\w+)?)", src)}
-    assert dead == sh.DEAD_PT_SHADOW._asdict()
 
 
 class _NoBuild:

@@ -684,8 +684,7 @@ def test_binding_matches_the_kernel_source():
         r"constexpr (?:float|bool|int) kDeadLight(\w+) = (-?\w+(?:\.\w+)?)",
         src)}
     assert dead == vs.DEAD_LIGHT._asdict()
-    with open(f"{libbuild.CSRC}/two_phase.cuh") as fh:
-        bins = int(re.search(r"kKindBins = (\d+);", fh.read()).group(1))
+    bins = int(re.search(r"kKindBins = (\d+);", src).group(1))
     assert bins > max(getattr(mat_mod, k) for k in dir(mat_mod)
                       if k.startswith("MAT_"))
     assert tvcm.ALGOS is vs.ALGOS and tvcm.TECHNIQUES is vs.TECHNIQUES
