@@ -166,38 +166,47 @@ __device__ __forceinline__ int part1by2(int x) {
   return x;
 }
 
-// dispatch_keys_kernel: a lane's key is a few operations on 24 bytes,
-// so its time is the chain of loads in front of them.  Every load a
-// thread makes is issued before any value is used: the slot's active
-// flag (state by slot) beside its lane, then the lane's six words beside
-// its active flag (state by lane); the flags select the key at the store
-// and guard no load.  A lane is a valid index of the ray arrays whether
-// its slot is active or not (the slots' fill is lane 0), as the rows
-// read it.
+// A slot's lane, loaded where the load stands: a volatile load is not
+// moved past the flag test that follows it.
+__device__ __forceinline__ int64_t load_lane(const int64_t* p) {
+  int64_t v;
+  asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+// dispatch_keys_kernel: a key is ~20 operations on a lane's 24 bytes, so
+// its time is the chain of loads in front of them.  A dead slot reads no
+// words (loading them anyway cost more than it saved), so the words wait
+// for the flag; but a slot's flag by slot does not wait for its lane: the
+// two load side by side, and a slot map costs two round trips to memory
+// where it cost three (the flag's index was selected from the lane).  A
+// flag by lane still waits for the lane.
 __global__ void __launch_bounds__(kBlk)
     dispatch_keys_kernel(Rays r, Map m, const float* __restrict__ bounds,
                          int* __restrict__ keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m.n) return;
+  const int64_t lane = m.lanes ? load_lane(m.lanes + i) : i;
   const bool slot_on = !r.active || m.by_lane || r.active[i];
-  const int64_t lane = m.lanes ? m.lanes[i] : i;
-  const float* __restrict__ org = r.org + 3 * lane;
-  const float* __restrict__ d = r.d + 3 * lane;
-  const float o[3] = {org[0], org[1], org[2]};
-  const float dx = d[0], dy = d[1], dz = d[2];
   const bool lane_on = !r.active || !m.by_lane || r.active[lane];
+  if (!slot_on || !lane_on) {
+    keys[i] = kDeadKey;
+    return;
+  }
   int q[3];
   for (int a = 0; a < 3; ++a) {
-    const float x0 = r.center ? o[a] - r.center[a] : o[a];
+    float o = r.org[3 * lane + a];
+    if (r.center) o = o - r.center[a];
     const float lo = bounds[a];
     const float span = clamp_min(bounds[3 + a] - lo, F(1e-6));
-    const float x = clamp(((x0 - lo) / span) * 256.0f, 0.0f, 255.0f);
+    const float x = clamp(((o - lo) / span) * 256.0f, 0.0f, 255.0f);
     q[a] = static_cast<int>(x);
   }
   const int morton = (part1by2(q[0]) << 2) | (part1by2(q[1]) << 1) |
                      part1by2(q[2]);
-  const int octant = (dx < 0.0f) + 2 * (dy < 0.0f) + 4 * (dz < 0.0f);
-  keys[i] = slot_on && lane_on ? (octant << 24) | morton : kDeadKey;
+  const float* d = r.d + 3 * lane;
+  const int octant = (d[0] < 0.0f) + 2 * (d[1] < 0.0f) + 4 * (d[2] < 0.0f);
+  keys[i] = (octant << 24) | morton;
 }
 
 // dispatch_rows_kernel: two threads a row, each writing one 16-byte half
