@@ -61,14 +61,10 @@
 // and texels, and writes up to 21 B at its lane; a stream resolve reads
 // 32 B and writes up to 14.  The design is the plain one: coalesced reads
 // and writes of the sorted rows, scattered reads and writes at the lane;
-// but the rows and the keys (redesigned for Hopper).  A row's reads sit
-// behind two or three dependent scattered loads (perm -> lanes -> its
-// words), so each thread writes half a row as one float4 and keeps two
-// rows' chains in flight (dispatch_rows_kernel's note).  A slot map's
-// key read its flag by slot only once the slot's lane had come (the
-// flag's index was selected from it); flag and lane now load side by
-// side, one round trip to memory less a launch (dispatch_keys_kernel's
-// note).
+// but the rows (redesigned for Hopper): a row's reads sit behind two or
+// three dependent scattered loads (perm -> lanes -> its words), so each
+// thread writes half a row as one float4 and keeps two rows' chains in
+// flight (dispatch_rows_kernel's note).
 // A slot gather reads 8 B of idx and its lane's 16-20 B and writes 18-22
 // B; a merge reads a valid slot's 25 B and writes its lane's 16; the
 // finish reads every active flag and every slot's flag.  The finish
@@ -166,36 +162,18 @@ __device__ __forceinline__ int part1by2(int x) {
   return x;
 }
 
-// A slot's lane, loaded where the load stands: a volatile load is not
-// moved past the flag test that follows it.
-__device__ __forceinline__ int64_t load_lane(const int64_t* p) {
-  int64_t v;
-  asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
-  return v;
-}
-
-// dispatch_keys_kernel: a key is ~20 operations on a lane's 24 bytes, so
-// its time is the chain of loads in front of them.  A dead slot reads no
-// words (loading them anyway cost more than it saved), so the words wait
-// for the flag; but a slot's flag by slot does not wait for its lane: the
-// two load side by side, and a slot map costs two round trips to memory
-// where it cost three (the flag's index was selected from the lane).  A
-// flag by lane still waits for the lane.
-__global__ void __launch_bounds__(kBlk)
-    dispatch_keys_kernel(Rays r, Map m, const float* __restrict__ bounds,
-                         int* __restrict__ keys) {
+__global__ void dispatch_keys_kernel(Rays r, Map m, const float* bounds,
+                                     int* keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m.n) return;
-  const int64_t lane = m.lanes ? load_lane(m.lanes + i) : i;
-  const bool slot_on = !r.active || m.by_lane || r.active[i];
-  const bool lane_on = !r.active || !m.by_lane || r.active[lane];
-  if (!slot_on || !lane_on) {
+  const Where w = where_slot(m, i);
+  if (r.active && !r.active[w.state]) {
     keys[i] = kDeadKey;
     return;
   }
   int q[3];
   for (int a = 0; a < 3; ++a) {
-    float o = r.org[3 * lane + a];
+    float o = r.org[3 * w.lane + a];
     if (r.center) o = o - r.center[a];
     const float lo = bounds[a];
     const float span = clamp_min(bounds[3 + a] - lo, F(1e-6));
@@ -204,7 +182,7 @@ __global__ void __launch_bounds__(kBlk)
   }
   const int morton = (part1by2(q[0]) << 2) | (part1by2(q[1]) << 1) |
                      part1by2(q[2]);
-  const float* d = r.d + 3 * lane;
+  const float* d = r.d + 3 * w.lane;
   const int octant = (d[0] < 0.0f) + 2 * (d[1] < 0.0f) + 4 * (d[2] < 0.0f);
   keys[i] = (octant << 24) | morton;
 }

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The kernels redesigned for Hopper against their earlier design, on one
-card in one process: dispatch_keys_kernel (csrc/dispatch.cu).
+"""A kernel redesigned for Hopper against its earlier design, on one card
+in one process: dispatch_keys_kernel (csrc/dispatch.cu), this tree's
+source as the redesign.
 
 The earlier design is another checkout's source (--root, for example the
 parent commit unpacked under the git-ignored out/), built with this
