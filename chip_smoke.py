@@ -2167,11 +2167,151 @@ def random_slots_case(n, density, slots, seed, dev, tcur=True):
             t(rs.uniform(0, 9, n).astype(np.float32)) if tcur else None)
 
 
+def slot_mismatches(k, p):
+    """Elements of two slot selections (dispatch.Slots) not bit-equal: the
+    slots' lanes, flags, tcur and hits, the count and the dropped lanes
+    (an output one has and the other lacks: 1)."""
+    bad = 0
+    for x, y in zip(k[:4] + tuple(k.hit) + k[5:],
+                    p[:4] + tuple(p.hit) + p[5:]):
+        if (x is None) != (y is None):
+            bad += 1
+        elif x is not None:
+            bad += bit_mismatches(x, y)
+    return bad
+
+
+# The selection cells of phase 4e over a NUM_RAYS-lane band: the lanes in
+# need given the slots (none, every lane, as many as the slots, 77 past
+# them, only the last lane), and half the slots over NUM_RAYS + 4,133
+# lanes, no multiple of the kernel's 16-lane words or 4,096-lane tiles
+# (csrc/dispatch.cu kSelTile); tests/torch_dispatch_cases.py SELECT_CASES.
+SELECT_CELLS = {"none": lambda s: 0, "all": None, "equal": lambda s: s,
+                "past": lambda s: s + 77, "last": "last",
+                "ragged": lambda s: s // 2}
+
+
+def hold_selections(dev, card):
+    """`[slots]` selection cells: slot_gather_kernel, which selects the
+    slots from the need flags in one launch, against its plain version
+    (nonzero_static, the sum, the gathers) bit for bit in every cell of
+    SELECT_CELLS at the flat (1,024) and two-level (65,536) slot shares
+    of a NUM_RAYS-lane band, each cell launched twice (the status words
+    are back at 0 after a launch)."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.render import traverse as tt
+
+    for two_level in (False, True):
+        for seed, (case, want) in enumerate(SELECT_CELLS.items()):
+            n = NUM_RAYS + (4133 if case == "ragged" else 0)
+            slots = tt.retrace_slots(n, two_level)
+            rs = np.random.RandomState(40 + seed)
+            need = np.zeros(n, dtype=bool)
+            if want is None:
+                need[:] = True
+            elif want == "last":
+                need[-1] = True
+            else:
+                need[rs.permutation(n)[:want(slots)]] = True
+            _, _, hit, tcur = random_slots_case(n, 0.1, slots, seed, dev,
+                                                not two_level)
+            need = torch.from_numpy(need).to(dev)
+            p = dp.slot_gather_plain(need, slots, hit, tcur)
+            bad = [slot_mismatches(dp.slot_gather_cuda(need, slots, hit,
+                                                       tcur), p)
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            label = (f"selection {case}, {'two-level' if two_level else 'flat'}"
+                     f" share")
+            log(f"[slots] {label}: {n} lanes, {int(p.count)} in need, "
+                f"{slots} slots ({int(p.valid.sum())} valid, "
+                f"{int(p.dropped)} dropped); elements not bit-equal to the "
+                f"plain version, two launches: {bad} [{card}]")
+            if any(bad):
+                raise AssertionError(f"[slots] {label}: the selection "
+                                     f"disagrees with its plain version: "
+                                     f"{bad}")
+
+
+def time_loop_test(dev, card):
+    """`[time]` lines of the WHILE nodes' flag kernel (csrc/graph_cond.cu
+    set_conditional) at the flat (1,024) and two-level (65,536) slot
+    shares of a NUM_RAYS-lane band: a captured step that runs one
+    re-trace loop over the slots' need flags (the last one set) with a
+    one-kernel body (a scalar add), its condition a graphs.LoopTest (the
+    flag kernel tests the flags and the cap and counts the rounds: one
+    launch at the entry, one a pass) and the composite it replaced (a
+    ones fill, need.any() & (rounds < cap) and the flag kernel on that
+    flag before the node; the round's add, the same test and the flag
+    kernel at the end of each pass); cap 1 (the entry alone) and 33 (32
+    passes).  Each replay checked for its passes and rounds first; device
+    ms a replay (CUDA events), the entry and a pass apart."""
+    from imbatracer_torch.render import graphs
+    from imbatracer_torch.render import traverse as tt
+
+    sg = graphs.SceneGraphs(dev)
+    for two_level in (False, True):
+        slots = tt.retrace_slots(NUM_RAYS, two_level)
+        ms = {}
+        for passes in (0, 32):
+            cap = passes + 1
+            for form in ("kernel", "composite"):
+                state = {"need": torch.zeros(slots, dtype=torch.bool,
+                                             device=dev),
+                         "x": torch.zeros((), device=dev),
+                         "count": torch.ones((), dtype=torch.int32,
+                                             device=dev),
+                         "rounds": torch.zeros((), dtype=torch.int32,
+                                               device=dev)}
+                state["need"][-1] = True
+
+                def step(s_, overflow, form=form, cap=cap):
+                    def body():
+                        s_["x"].add_(1.0)
+
+                    if form == "kernel":
+                        graphs.while_loop(graphs.LoopTest(
+                            s_["need"], s_["count"], s_["rounds"], cap),
+                            body)
+                        return
+                    s_["rounds"].fill_(1)
+
+                    def counted():
+                        body()
+                        s_["rounds"].add_(1)
+
+                    graphs.while_loop(
+                        lambda: s_["need"].any() & (s_["rounds"] < cap),
+                        counted)
+
+                g = sg.phase(("loop_test", form, two_level, passes), step,
+                             state)
+                state["x"].zero_()
+                g.replay()
+                got = (float(state["x"]), int(state["rounds"]))
+                if got != (passes, passes + 1):
+                    raise AssertionError(
+                        f"[time] loop test ({form}, {slots} slots): "
+                        f"(passes, rounds) {got}, not {(passes, cap)}")
+                ms[form, passes] = cuda_ms(g.replay, 20)
+        a_pass = {f: (ms[f, 32] - ms[f, 0]) / 32
+                  for f in ("kernel", "composite")}
+        log(f"[time] set_conditional, the WHILE node's loop test over "
+            f"{slots} slots [{card}]: the entry with the node {ms['kernel', 0]:.4f} "
+            f"ms (the composite {ms['composite', 0]:.4f}), a pass with its "
+            f"one-kernel body {a_pass['kernel']:.4f} ms (the composite "
+            f"{a_pass['composite']:.4f}); replays of 32 passes "
+            f"{ms['kernel', 32]:.4f} / {ms['composite', 32]:.4f} ms; bound "
+            f"{(slots + 8) / HBM_BYTES_PER_S * 1e3:.6f} ms by bytes (the "
+            f"slots' flags)")
+
+
 def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
                record):
     """`[slots]`: the three slot kernels against their plain versions, bit
-    for bit: the gather (the slot state and the dropped count) from
-    nonzero_static's indices; the merge of seeded slot hits into a copy
+    for bit: the gather (the slots selected from the need flags, their
+    state, the count and the dropped lanes); the merge of seeded slot
+    hits into a copy
     of `hit` where the slots are valid; the finish's overflow and device
     counts (a seeded counts vector whose slot 0 is the overflow counter,
     FINISH_KEYS at slots 3-7) with a seeded half of the valid slots left
@@ -2182,17 +2322,10 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
     from imbatracer_torch.render import traverse as tt
 
     dev, n = need.device, need.shape[0]
-    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
-    count = need.sum(dtype=torch.int32)
     bad = dict.fromkeys(SLOT_KERNELS, 0)
-    k = dp.slot_gather_cuda(idx, count, hit, tcur)
-    p = dp.slot_gather_plain(idx, count, hit, tcur)
-    for x, y in zip(k[1:4] + tuple(k.hit) + k[5:],
-                    p[1:4] + tuple(p.hit) + p[5:]):
-        if (x is None) != (y is None):
-            bad["slot_gather"] += 1
-        elif x is not None:
-            bad["slot_gather"] += bit_mismatches(x, y)
+    k = dp.slot_gather_cuda(need, slots, hit, tcur)
+    p = dp.slot_gather_plain(need, slots, hit, tcur)
+    bad["slot_gather"] = slot_mismatches(k, p)
     rs = np.random.RandomState(seed)
     t = lambda a: torch.from_numpy(a).to(dev)
     sub = tt.Hit(t(rs.uniform(0, 9, slots).astype(np.float32)),
@@ -2217,7 +2350,7 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
     dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where, deltas)
     bad["slot_finish"] = bit_mismatches(ck, cp)
     torch.cuda.synchronize()
-    nvalid, ncount = int(k.valid.sum()), int(count)
+    nvalid, ncount = int(k.valid.sum()), int(k.count)
     log(f"[slots] {label}: {n} lanes, {int(act.sum())} active, {ncount} "
         f"in need, {slots} slots ({nvalid} valid, {int(k.dropped)} "
         f"dropped); elements not bit-equal to the plain version: {bad} "
@@ -2227,14 +2360,14 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
                              f"with their plain versions: {bad}")
     lanes = nvalid + int(nvalid < slots)
     tw = 4 if tcur is not None else 0
-    nbytes = {"slot_gather": slots * (8 + 2 + 16 + tw) + 8
+    nbytes = {"slot_gather": n + slots * (8 + 2 + 16 + tw) + 8
               + lanes * (16 + tw),
               "slot_merge": slots + nvalid * (8 + 16 + 16),
               "slot_finish": n + slots + 12 + 24 + 8 * len(deltas)}
     hit_copy = tt.Hit(*(x.clone() for x in hit))
-    fns = {"slot_gather": (partial(dp.slot_gather_cuda, idx, count, hit,
+    fns = {"slot_gather": (partial(dp.slot_gather_cuda, need, slots, hit,
                                    tcur),
-                           partial(dp.slot_gather_plain, idx, count, hit,
+                           partial(dp.slot_gather_plain, need, slots, hit,
                                    tcur)),
            "slot_merge": (partial(dp.slot_merge_cuda, merged, hit_copy),
                           partial(dp.slot_merge_plain, merged, hit)),
@@ -2247,10 +2380,14 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
         wrapper_ms = cuda_ms(kernel, 10)
         plain_ms = cuda_ms(plain, 3)
         bound_ms, bound_by = shade_bound(nbytes[name], 0)
+        # The selection's composite (nonzero_static, the sum, the gathers)
+        # graphed, as the graph routes ran it: the yardstick.
+        also = (f"; the plain composite graphed {graph_ms(plain):.4f} ms"
+                if name == "slot_gather" else "")
         log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
             f"(device, graphed launches; the wrapper {wrapper_ms:.4f} ms; "
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by "
-            f"{bound_by}, {nbytes[name]} bytes)")
+            f"{bound_by}, {nbytes[name]} bytes{also})")
         if record:
             stats[name] = (ms, None, (bound_ms, bound_by,
                                       dict(bytes=nbytes[name], lanes=n,
@@ -2268,7 +2405,8 @@ def tail_phase(dev, card, scenes, stats):
     band's camera connections.  Then the slot kernels on the still life's
     bounce-1 rays as its graph-ready khit re-trace gathers them, and on
     seeded need masks at both slot shares: no lane active, past the
-    slots, within them.  The kernels' resources."""
+    slots, within them; the selection's cells (hold_selections).  The
+    kernels' resources."""
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.render import traverse as tt
@@ -2302,6 +2440,8 @@ def tail_phase(dev, card, scenes, stats):
                    f"{'two-level' if two_level else 'flat'} share",
                    act, need, slots, hit, tcur, seed, card, stats,
                    record=False)
+    hold_selections(dev, card)
+    time_loop_test(dev, card)
     for k in ("collect_append", "collect_tail", "splat"):
         log_resources(f"{k} kernel", lt.resources(k), card)
     for k in SLOT_KERNELS:

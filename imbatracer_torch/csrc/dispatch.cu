@@ -29,12 +29,15 @@
 // (imbatracer_torch/render/traverse.py), the counterpart of the while
 // loop's carry in JAX (traverse.py:276-297, :360-384), which XLA fuses
 // into the loop body: JAX's rounds run at full width, the port's past
-// the first on `slots` lanes gathered with torch.nonzero_static:
+// the first on `slots` lanes, the first lanes in need in lane order:
 //
-//   slot_gather_kernel     the slots' state after the first round: the
+//   slot_gather_kernel     the slots selected and their state after the
+//                          first round, in one launch: each slot's lane
+//                          (torch.nonzero_static's, 0 past the count), the
 //                          valid flags (slot < the lanes in need), the
 //                          loop's need flags, each slot's lane's tcur and
-//                          hit, and the lanes in need past the slots;
+//                          hit, the lanes in need and those past the
+//                          slots;
 //   slot_merge_kernel      each valid slot's hit written into its lane of
 //                          the dispatch's hit, in place;
 //   slot_finish_kernel     a grid over the SMs: the lanes still
@@ -65,13 +68,18 @@
 // three dependent scattered loads (perm -> lanes -> its words), so each
 // thread writes half a row as one float4 and keeps two rows' chains in
 // flight (dispatch_rows_kernel's note).
-// A slot gather reads 8 B of idx and its lane's 16-20 B and writes 18-22
-// B; a merge reads a valid slot's 25 B and writes its lane's 16; the
-// finish reads every active flag and every slot's flag.  The finish
-// (redesigned for Hopper) was one block of 1,024 threads on one SM, its
-// 7-8 us latency against a 0.08 us bound; it is now a grid of up to one
-// block an SM, 16-byte words a thread, whose blocks meet in one atomic
-// word and whose last block updates the counts a thread each
+// A slot gather reads every lane's need flag and a valid slot's lane's
+// 16-20 B, and writes 26-30 B a slot; a merge reads a valid slot's 25 B
+// and writes its lane's 16; the finish reads every active flag and every
+// slot's flag.  The slot gather (redesigned for Hopper) was the last of
+// a chain of launches: torch.nonzero_static's, a sum of the flags, then
+// a slot a thread, each ~1-5 us of launch against a bound of ~0.1 us; it
+// is now one launch, an ordered compaction in a single pass whose tiles
+// find their offsets by decoupled look-back (slot_gather_kernel's note).
+// The finish (redesigned for Hopper) was one block of 1,024 threads on
+// one SM, its 7-8 us latency against a 0.08 us bound; it is now a grid of
+// up to one block an SM, 16-byte words a thread, whose blocks meet in one
+// atomic word and whose last block updates the counts a thread each
 // (slot_finish_kernel's note); and it adds the counts of the re-trace
 // loop's body (n x (rounds - 1) a count) that one-element adds made each
 // round.
@@ -327,24 +335,204 @@ struct HitIn {
   const float* v;
 };
 
-__global__ void slot_gather_kernel(const int64_t* idx, const int* count,
-                                   int slots, const float* tcur, HitIn hit,
-                                   uint8_t* valid, uint8_t* need,
-                                   float* s_tcur, HitOut s_hit,
-                                   int* dropped) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= slots) return;
-  const int c = *count;
-  if (s == 0) *dropped = max(c - slots, 0);
-  const uint8_t v = s < c;
-  valid[s] = v;
-  need[s] = v;
-  const int64_t lane = idx[s];
-  if (tcur) s_tcur[s] = tcur[lane];
-  s_hit.t[s] = hit.t[lane];
-  s_hit.id[s] = hit.id[lane];
-  s_hit.u[s] = hit.u[lane];
-  s_hit.v[s] = hit.v[lane];
+// slot_gather_kernel's geometry: threads a block, the lanes a thread
+// tests (one 16-byte word of need flags), the lanes a tile, the slots a
+// fill block writes, and the most tiles (2^25 lanes).
+constexpr int kSelThreads = 256;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelLanes = 16;
+constexpr int kSelTile = kSelThreads * kSelLanes;
+constexpr int kFillSlots = 4096;
+constexpr int kSelMaxTiles = 8192;   // ops/dispatch.py SLOT_MAX_LANES / 4096
+
+// The selection's tiles meet in status words, one a tile: 0 until the
+// tile has counted its lanes in need, then kAggregate | its count, then
+// kPrefix | the lanes in need up to its end.  sel_total is kPrefix | the
+// lanes in need once the last tile knows them; sel_ticket hands out the
+// blocks' tickets in the order they start; sel_done counts the blocks
+// done.  The last block done puts all of it back to 0, so no launch
+// clears them: a selection's launches are ordered on its stream, in and
+// out of a graph, one at a time a device.
+constexpr unsigned long long kPrefix = 1ull << 63;
+constexpr unsigned long long kAggregate = 1ull << 62;
+__device__ unsigned long long sel_status[kSelMaxTiles];
+__device__ unsigned long long sel_total = 0ull;
+__device__ unsigned int sel_ticket = 0u;
+__device__ unsigned int sel_done = 0u;
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// The set flags of a 4-byte word of bools, one bit a byte.
+__device__ __forceinline__ unsigned flag_bits(unsigned x) {
+  const unsigned m = __vcmpne4(x, 0u) & 0x01010101u;
+  return (m | m >> 7 | m >> 14 | m >> 21) & 0xfu;
+}
+
+struct SlotOut {
+  int64_t* idx;
+  uint8_t* valid;
+  uint8_t* need;
+  float* tcur;        // or null
+  HitOut hit;
+  int* count;
+  int* dropped;
+};
+
+// The slots of the lanes in need (torch.nonzero_static(need, size=slots,
+// fill_value=0)) and their state, in one launch: an ordered compaction in
+// a single pass.  Each block takes a ticket as it starts.  The first
+// `tiles` tickets are tiles of kSelTile lanes: a thread tests 16 lanes
+// (one 16-byte load), the block scans the counts (warp shuffles, then one
+// warp over the warps' sums), publishes its count at once, and its first
+// warp finds the lanes in need before the tile by decoupled look-back:
+// 32 earlier tiles' words a step, adding counts back to the nearest tile
+// whose word holds a prefix, then publishing its own prefix; its lanes in
+// need then write their slots, those below `slots`, with the lane's tcur
+// and hit.  A tile waits only on tiles of lower tickets, which have
+// started, so no order of the blocks on the SMs can deadlock it.  The
+// last tile writes the count and the dropped lanes.  The tickets past the
+// tiles are fill blocks of kFillSlots slots, which wait for the count
+// (every tile has started by then) and write the empty slots: lane 0 and
+// its state, flags 0.  What bounds it is the launch: the bytes (the flags
+// and the slots) take ~0.1-0.6 us on the card.
+__global__ void __launch_bounds__(kSelThreads)
+    slot_gather_kernel(const uint8_t* need, int64_t num_r, int tiles,
+                       int slots, const float* tcur, HitIn hit,
+                       SlotOut out) {
+  __shared__ int ticket_s, prefix_s, last_s;
+  __shared__ int warp_s[kSelWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) ticket_s = static_cast<int>(atomicAdd(&sel_ticket, 1u));
+  __syncthreads();
+  const int ticket = ticket_s;
+  if (ticket < tiles) {
+    const int64_t first = static_cast<int64_t>(ticket) * kSelTile +
+                          static_cast<int64_t>(t) * kSelLanes;
+    unsigned bits = 0u;
+    if (first + kSelLanes <= num_r &&
+        (reinterpret_cast<uintptr_t>(need + first) & 15) == 0) {
+      const uint4 w = *reinterpret_cast<const uint4*>(need + first);
+      bits = flag_bits(w.x) | flag_bits(w.y) << 4 | flag_bits(w.z) << 8 |
+             flag_bits(w.w) << 12;
+    } else {
+      for (int j = 0; j < kSelLanes; ++j)
+        if (first + j < num_r && need[first + j]) bits |= 1u << j;
+    }
+    const int c = __popc(bits);
+    int x = c;                   // inclusive scan over the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_s[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      const int v = lane < kSelWarps ? warp_s[lane] : 0;
+      int inc = v;
+      for (int o = 1; o < kSelWarps; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += y;
+      }
+      const int agg = __shfl_sync(0xffffffffu, inc, kSelWarps - 1);
+      if (lane < kSelWarps) warp_s[lane] = inc - v;
+      int before = 0;
+      if (ticket == 0) {
+        if (lane == 0) store_word(&sel_status[0], kPrefix | agg);
+      } else {
+        if (lane == 0) store_word(&sel_status[ticket], kAggregate | agg);
+        for (int k = ticket - 1;; k -= 32) {
+          const int j = k - lane;
+          unsigned long long s;
+          do {
+            s = j >= 0 ? load_word(&sel_status[j]) : kPrefix;
+          } while (__any_sync(0xffffffffu, s == 0ull));
+          const unsigned p = __ballot_sync(0xffffffffu, (s & kPrefix) != 0);
+          const int stop = p ? __ffs(p) - 1 : 31;
+          before += __reduce_add_sync(
+              0xffffffffu,
+              lane <= stop ? static_cast<int>(s & 0xffffffffull) : 0);
+          if (p) break;
+        }
+        if (lane == 0)
+          store_word(&sel_status[ticket],
+                     kPrefix | static_cast<unsigned>(before + agg));
+      }
+      if (lane == 0) {
+        prefix_s = before;
+        if (ticket == tiles - 1) {
+          const int total = before + agg;
+          *out.count = total;
+          *out.dropped = max(total - slots, 0);
+          store_word(&sel_total, kPrefix | static_cast<unsigned>(total));
+        }
+      }
+    }
+    __syncthreads();
+    int slot = prefix_s + warp_s[warp] + x - c;
+    while (bits && slot < slots) {
+      const int j = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const int64_t l = first + j;
+      out.idx[slot] = l;
+      out.valid[slot] = 1;
+      out.need[slot] = 1;
+      if (tcur) out.tcur[slot] = tcur[l];
+      out.hit.t[slot] = hit.t[l];
+      out.hit.id[slot] = hit.id[l];
+      out.hit.u[slot] = hit.u[l];
+      out.hit.v[slot] = hit.v[l];
+      ++slot;
+    }
+  } else {
+    if (t == 0) {
+      unsigned long long w;
+      do {
+        w = load_word(&sel_total);
+      } while (w == 0ull);
+      prefix_s = static_cast<int>(w & 0xffffffffull);
+    }
+    __syncthreads();
+    const int f = ticket - tiles;
+    const int end = min(slots, (f + 1) * kFillSlots);
+    const int begin = max(prefix_s, f * kFillSlots);
+    if (begin < end) {
+      const float t0 = tcur ? tcur[0] : 0.0f;
+      const float ht = hit.t[0], hu = hit.u[0], hv = hit.v[0];
+      const int hid = hit.id[0];
+      for (int s = begin + t; s < end; s += kSelThreads) {
+        out.idx[s] = 0;
+        out.valid[s] = 0;
+        out.need[s] = 0;
+        if (tcur) out.tcur[s] = t0;
+        out.hit.t[s] = ht;
+        out.hit.id[s] = hid;
+        out.hit.u[s] = hu;
+        out.hit.v[s] = hv;
+      }
+    }
+  }
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    last_s = atomicAdd(&sel_done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last_s) {
+    for (int i = t; i < tiles; i += kSelThreads) sel_status[i] = 0ull;
+    if (t == 0) {
+      sel_total = 0ull;
+      sel_ticket = 0u;
+      sel_done = 0u;
+    }
+  }
 }
 
 __global__ void slot_merge_kernel(const int64_t* idx, const uint8_t* valid,
@@ -577,23 +765,31 @@ extern "C" int imba_stream_resolve(const void* rows, const void* perm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// slot_gather_kernel on the current stream: idx (slots,) i64, count 0-d
-// i32 (the lanes in need), tcur (R,) f32 or null, hit = (t, id, u, v) of
-// the R lanes; out: valid, need (slots,) bool, s_tcur (slots,) f32 (when
-// tcur), s_hit (slots,) each, dropped 0-d i32.  Returns a CUDA error.
-extern "C" int imba_slot_gather(const void* idx, const void* count,
-                                int slots, const void* tcur,
-                                void* const* hit, void* valid, void* need,
+// slot_gather_kernel on the current stream: need (R,) bool, the lanes
+// in need; tcur (R,) f32 or null, hit = (t, id, u, v) of the R lanes
+// (R > 0 where slots > 0); out: idx (slots,) i64, valid, s_need
+// (slots,) bool, s_tcur (slots,) f32 (when tcur), s_hit (slots,) each,
+// count and dropped 0-d i32.  A grid of the tiles of R, then the fill
+// blocks of the slots.  Returns a CUDA error (cudaErrorInvalidValue past
+// kSelMaxTiles tiles).
+extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
+                                const void* tcur, void* const* hit,
+                                void* idx, void* valid, void* s_need,
                                 void* s_tcur, void* const* s_hit,
-                                void* dropped, void* stream) {
-  if (slots > 0)
-    slot_gather_kernel<<<blocks_for(slots), kBlk, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(idx), static_cast<const int*>(count),
-        slots, static_cast<const float*>(tcur), make_hit_in(hit),
-        static_cast<uint8_t*>(valid), static_cast<uint8_t*>(need),
-        static_cast<float*>(s_tcur), make_hit(s_hit),
-        static_cast<int*>(dropped));
+                                void* count, void* dropped, void* stream) {
+  const int64_t tiles = num_r > 0 ? (num_r + kSelTile - 1) / kSelTile : 1;
+  if (tiles > kSelMaxTiles || slots < 0 || (slots > 0 && num_r <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int fills = (slots + kFillSlots - 1) / kFillSlots;
+  const SlotOut out = {static_cast<int64_t*>(idx),
+                       static_cast<uint8_t*>(valid),
+                       static_cast<uint8_t*>(s_need),
+                       static_cast<float*>(s_tcur), make_hit(s_hit),
+                       static_cast<int*>(count), static_cast<int*>(dropped)};
+  slot_gather_kernel<<<static_cast<unsigned>(tiles) + fills, kSelThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(need), num_r, static_cast<int>(tiles),
+      slots, static_cast<const float*>(tcur), make_hit_in(hit), out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,7 +866,11 @@ extern "C" int imba_dispatch_resources(int which, int* out) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, fns[which],
-        which == 6 ? kFinishThreads : which == 1 ? kRowThreads : kBlk, 0);
+        which == 6   ? kFinishThreads
+        : which == 4 ? kSelThreads
+        : which == 1 ? kRowThreads
+                     : kBlk,
+        0);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);

@@ -2,29 +2,111 @@
 // card's counterpart of a device-side loop (jax.lax.while_loop) inside
 // one compiled program.
 //
-// imba_cond_begin adds, after the work captured so far on `stream`, a
-// one-thread kernel that sets a new conditional handle from the device
-// flag `*flag`, then a WHILE node that depends on it, and begins
+// imba_cond_begin adds, after the work captured so far on `stream`, the
+// flag kernel set_conditional, which sets a new conditional handle from
+// the loop's condition, then a WHILE node that depends on it, and begins
 // capturing `body` into the node's body graph.  Later work captured on
 // `stream` runs after the node.  imba_cond_end closes the body: it
-// launches the kernel that sets the handle again from `*flag` (which the
-// body has just written), so the body runs again while the flag is true,
-// and ends the capture; with a null `flag` (a body abandoned on an
-// error) it only ends the capture.
+// launches the flag kernel again (on what the body has just written), so
+// the body runs again while the condition holds, and ends the capture;
+// with `set` 0 (a body abandoned on an error) it only ends the capture.
 //
-// No host read is needed: the flag is read on the card at each replay.
-// A body is captured on a stream of its own (imba_stream_create): not one
-// of PyTorch's pooled streams, one of which may be the stream being
-// captured.  Plain C interface, bound with ctypes (render/graphs.py).
-// Returns 0 or a CUDA error code; -1 when `stream` is not capturing.
+// The condition (struct Test) is a 0-d device flag, or the masked
+// re-trace's (imbatracer_torch/render/traverse.py; JAX's lax.while_loop
+// condition, imbatracer_tpu/render/traverse.py:281-300, :356-411): some
+// slot still needs a round and fewer than `cap` rounds have run.  At the
+// loop's entry the flag kernel sets the round counter to 1 and reads the
+// lanes in need that the slot gather counted (round 1 is under any cap of
+// 2 or more); at the end of a pass it adds the round and ORs the slots'
+// need flags, one block of kTestThreads threads, 16-byte words a thread,
+// kTestUnroll of them in flight.  So a pass ends in one launch, where the
+// round's add, the flags' any, the compare, the and and the flag kernel
+// were five, and the loop's entry takes the gather and this kernel, where
+// nonzero_static, a sum, a fill, an any, a compare and an and came before
+// the gather and the flag kernel.  What bounds it is its launch (~1 us
+// in a graph); the bytes, at most the slots' flags, take ~0.02 us.
+//
+// No host read is needed: the condition is read on the card at each
+// replay.  A body is captured on a stream of its own (imba_stream_create):
+// not one of PyTorch's pooled streams, one of which may be the stream
+// being captured.  Plain C interface, bound with ctypes
+// (render/graphs.py).  Returns 0 or a CUDA error code; -1 when `stream`
+// is not capturing.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-__global__ void set_conditional(cudaGraphConditionalHandle handle,
-                                const bool* flag) {
-  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+constexpr int kTestThreads = 512;
+constexpr int kTestUnroll = 8;
+
+// The loop's condition: `flag` (a 0-d bool) when set; else the masked
+// re-trace's, at the entry with `count` (0-d i32, the lanes in need) and
+// at the end of a pass with `need` (n bools, the slots' flags); `rounds`
+// a 0-d i32 round counter, `cap` the most rounds.
+struct Test {
+  const bool* flag;
+  const uint8_t* need;
+  long long n;
+  const int* count;
+  int* rounds;
+  int cap;
+};
+
+// Whether a flag of p[0:n] that this thread reads is set: 16-byte words
+// where p is aligned, kTestUnroll loads in flight, then the bytes left.
+__device__ bool any_flag(const uint8_t* p, long long n) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  const long long words = aligned ? n / 16 : 0;
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+  unsigned acc = 0u;
+  for (long long base = threadIdx.x; base < words;
+       base += static_cast<long long>(kTestThreads) * kTestUnroll) {
+    uint4 x[kTestUnroll];
+#pragma unroll
+    for (int k = 0; k < kTestUnroll; ++k) {
+      const long long i = base + static_cast<long long>(k) * kTestThreads;
+      x[k] = i < words ? w[i] : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < kTestUnroll; ++k)
+      acc |= x[k].x | x[k].y | x[k].z | x[k].w;
+  }
+  for (long long i = 16 * words + threadIdx.x; i < n; i += kTestThreads)
+    acc |= p[i];
+  return acc != 0u;
+}
+
+// Set the WHILE node's handle from the condition: one thread for a flag
+// and at the entry, kTestThreads at the end of a pass.
+__global__ void __launch_bounds__(kTestThreads)
+    set_conditional(cudaGraphConditionalHandle handle, Test c) {
+  if (c.flag) {
+    cudaGraphSetConditional(handle, *c.flag ? 1u : 0u);
+    return;
+  }
+  if (c.count) {
+    *c.rounds = 1;
+    cudaGraphSetConditional(handle, *c.count > 0 && 1 < c.cap ? 1u : 0u);
+    return;
+  }
+  const int r = *c.rounds + 1;
+  const int any = __syncthreads_or(any_flag(c.need, c.n));
+  if (threadIdx.x == 0) {
+    *c.rounds = r;
+    cudaGraphSetConditional(handle, any && r < c.cap ? 1u : 0u);
+  }
+}
+
+cudaError_t launch_test(cudaStream_t s, cudaGraphConditionalHandle handle,
+                        const Test& c) {
+  if (!c.flag && !(c.rounds && (c.count || c.need)))
+    return cudaErrorInvalidValue;
+  set_conditional<<<1, c.flag || c.count ? 1 : kTestThreads, 0, s>>>(handle,
+                                                                      c);
+  return cudaGetLastError();
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaStreamCaptureStatus* status,
@@ -40,7 +122,10 @@ cudaError_t capture_info(cudaStream_t s, cudaStreamCaptureStatus* status,
 
 }  // namespace
 
+// imba_cond_begin: the condition at the loop's entry is `flag`, or, with
+// `flag` null, the re-trace's: `count`, `rounds`, `cap`.
 extern "C" int imba_cond_begin(void* stream, void* body, const bool* flag,
+                               const int* count, int* rounds, int cap,
                                unsigned long long* handle_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStream_t b = static_cast<cudaStream_t>(body);
@@ -60,8 +145,7 @@ extern "C" int imba_cond_begin(void* stream, void* body, const bool* flag,
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (err != cudaSuccess) return err;
-  set_conditional<<<1, 1, 0, s>>>(handle, flag);
-  err = cudaGetLastError();
+  err = launch_test(s, handle, {flag, nullptr, 0, count, rounds, cap});
   if (err != cudaSuccess) return err;
   err = capture_info(s, &status, &graph, &deps, &ndeps);
   if (err != cudaSuccess) return err;
@@ -92,12 +176,16 @@ extern "C" int imba_cond_begin(void* stream, void* body, const bool* flag,
   return 0;
 }
 
-extern "C" int imba_cond_end(void* body, unsigned long long handle,
-                             const bool* flag) {
+// imba_cond_end: with `set`, the condition at the end of a pass is `flag`,
+// or, with `flag` null, the re-trace's: `need` (n flags), `rounds`, `cap`.
+extern "C" int imba_cond_end(void* body, unsigned long long handle, int set,
+                             const bool* flag, const void* need,
+                             long long n, int* rounds, int cap) {
   cudaStream_t b = static_cast<cudaStream_t>(body);
-  if (flag != nullptr) {
-    set_conditional<<<1, 1, 0, b>>>(handle, flag);
-    cudaError_t err = cudaGetLastError();
+  if (set) {
+    cudaError_t err = launch_test(
+        b, handle,
+        {flag, static_cast<const uint8_t*>(need), n, nullptr, rounds, cap});
     if (err != cudaSuccess) return err;
   }
   cudaGraph_t graph;

@@ -26,13 +26,16 @@ around the Pallas calls.  The card's counterpart is one kernel a step
     flag set again where the new hit is transparent.
 
 Around the WHILE node of the graph-ready masked re-trace
-(render/traverse.py), whose rounds past the first run on `slots` lanes
-gathered with torch.nonzero_static (JAX's rounds run at full width, its
-while loop's carry fused by XLA into the loop body), three more:
+(render/traverse.py), whose rounds past the first run on `slots` lanes,
+the first lanes in need in lane order (JAX's rounds run at full width,
+its while loop's carry fused by XLA into the loop body), three more:
 
-  * `slot_gather`: the slots' state after the first round (class Slots:
-    valid and need flags, each slot's lane's tcur and hit, the lanes in
-    need past the slots);
+  * `slot_gather`: the slots selected and their state after the first
+    round, in one launch (class Slots: each slot's lane, as
+    torch.nonzero_static gives them, valid and need flags, each slot's
+    lane's tcur and hit, the lanes in need and those past the slots); on
+    the card a single-pass ordered compaction whose tiles find their
+    offsets by decoupled look-back;
   * `slot_merge`: each valid slot's hit written into its lane of the
     dispatch's hit (the kernel in place);
   * `slot_finish`: the lanes still unresolved and those past the slots
@@ -87,6 +90,10 @@ LAUNCHES = dict.fromkeys(KERNELS + ("khit_resolve_flags",
 
 # stream_resolve's modes (csrc/dispatch.cu).
 CLOSEST, OCCLUSION, RETRACE = 0, 1, 2
+
+# The most lanes slot_gather's kernel selects from (csrc/dispatch.cu
+# kSelMaxTiles tiles of kSelTile lanes).
+SLOT_MAX_LANES = 1 << 25
 
 # The device counts slot_finish adds to, in the kernel's order
 # (csrc/dispatch.cu kFinishKeys): an empty dispatch (no active lane), the
@@ -260,12 +267,14 @@ def stream_resolve_plain(disp: Dispatch, out, mode: int, hit=None,
     hit.t[si], hit.prim_id[si], hit.u[si], hit.v[si] = new
 
 
-def slot_gather_plain(idx, count, hit, tcur=None) -> Slots:
-    """The slots' state: slot s holds lane idx[s] when s < count (the
-    lanes in need, a 0-d int32), its need flag set; its tcur and hit
-    are its lane's (lane 0's for an empty slot)."""
+def slot_gather_plain(need, slots: int, hit, tcur=None) -> Slots:
+    """The slots of the lanes set in `need` and their state: slot s holds
+    the s-th lane in need (torch.nonzero_static, 0 past them) when s <
+    count (the lanes in need, a 0-d int32), its need flag set; its tcur
+    and hit are its lane's (lane 0's for an empty slot)."""
     LAUNCHES["slot_gather_plain"] += 1
-    slots = idx.shape[0]
+    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
+    count = need.sum(dtype=torch.int32)
     valid = torch.arange(slots, device=idx.device) < count
     return Slots(idx, valid, valid.clone(),
                  None if tcur is None else tcur[idx],
@@ -345,7 +354,8 @@ def _library():
                            ("imba_dispatch_rows", [vp] * 3 + [i, vp]),
                            ("imba_khit_resolve", [vp] * 10),
                            ("imba_stream_resolve", [vp] * 9),
-                           ("imba_slot_gather", [vp, vp, i] + [vp] * 8),
+                           ("imba_slot_gather",
+                            [vp, ctypes.c_int64, i] + [vp] * 10),
                            ("imba_slot_merge", [vp, vp, i, vp, vp, vp]),
                            ("imba_slot_finish",
                             [vp, ctypes.c_int64, vp, i] + [vp] * 7),
@@ -582,30 +592,34 @@ def _hit_in(hit, size, what):
     return (ctypes.c_void_p * 4)(*[x.data_ptr() for x in cols]), cols
 
 
-def slot_gather_cuda(idx, count, hit, tcur=None) -> Slots:
+def slot_gather_cuda(need, slots: int, hit, tcur=None) -> Slots:
     """Launch slot_gather_kernel on CUDA tensors (raises on anything
     else): slot_gather_plain's state."""
-    idx = _input(idx, torch.int64, "idx")
-    count = _input(count, torch.int32, "count")
-    _shape(count, (), "count")
-    slots, num_r, dev = idx.shape[0], hit.t.shape[0], idx.device
+    need = _input(need, torch.bool, "need")
+    num_r, dev = hit.t.shape[0], need.device
+    _shape(need, (num_r,), "need")
+    if slots < 0 or num_r > SLOT_MAX_LANES or (slots and not num_r):
+        raise ValueError(f"dispatch: slot_gather selects {slots} slots from "
+                         f"1 to {SLOT_MAX_LANES} lanes, got {num_r}")
     tcur = _input(tcur, torch.float32, "tcur")
     _shape(tcur, (num_r,), "tcur")
     hptrs, keep = _hit_in(hit, num_r, "hit")
     lib = _library()
+    idx = torch.empty(slots, dtype=torch.int64, device=dev)
     valid = torch.empty(slots, dtype=torch.bool, device=dev)
-    need = torch.empty_like(valid)
+    s_need = torch.empty_like(valid)
     s_tcur = None if tcur is None else torch.empty(slots, device=dev)
     s_hit = type(hit)(*(torch.empty(slots, dtype=x.dtype, device=dev)
                         for x in keep))
-    dropped = torch.empty((), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    dropped = torch.empty_like(count)
     _launched(lib.imba_slot_gather(
-        idx.data_ptr(), count.data_ptr(), slots, _ptr(tcur), hptrs,
-        valid.data_ptr(), need.data_ptr(), _ptr(s_tcur),
-        _hit_args(s_hit, slots), dropped.data_ptr(), _stream(idx)),
-        "slot_gather")
+        need.data_ptr(), num_r, slots, _ptr(tcur), hptrs, idx.data_ptr(),
+        valid.data_ptr(), s_need.data_ptr(), _ptr(s_tcur),
+        _hit_args(s_hit, slots), count.data_ptr(), dropped.data_ptr(),
+        _stream(need)), "slot_gather")
     LAUNCHES["slot_gather"] += 1
-    return Slots(idx, valid, need, s_tcur, s_hit, count, dropped)
+    return Slots(idx, valid, s_need, s_tcur, s_hit, count, dropped)
 
 
 def slot_merge_cuda(slots: Slots, hit):
@@ -707,11 +721,12 @@ def stream_resolve(disp: Dispatch, out, mode: int, **kw):
     fn(disp, out, mode, **kw)
 
 
-def slot_gather(idx, count, hit, tcur=None) -> Slots:
-    """The slots' state after a re-trace's first round: the kernel on
-    CUDA tensors, the plain version on CPU tensors."""
-    fn = slot_gather_cuda if _on(idx) == "cuda" else slot_gather_plain
-    return fn(idx, count, hit, tcur)
+def slot_gather(need, slots: int, hit, tcur=None) -> Slots:
+    """The slots of a re-trace's lanes in need and their state after its
+    first round: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    fn = slot_gather_cuda if _on(need) == "cuda" else slot_gather_plain
+    return fn(need, slots, hit, tcur)
 
 
 def slot_merge(slots: Slots, hit):

@@ -37,14 +37,16 @@ the replays.  They replay one after another on the current stream.
 
 while_loop(cond, body) is jax.lax.while_loop over state that `body`
 updates in place, the masked re-trace's rounds past its first.  Inside
-a capture it is a WHILE conditional node (csrc/graph_cond.cu: a
-one-thread kernel sets the node's handle from the 0-d bool tensor
-cond() returns, before the node and again at the end of each pass of
-the body), so a replay runs the body exactly as often as the data asks,
-with no host read; the body is captured on a stream of its own, its
-temporaries allocated from a body pool of the scene (one a nesting
-depth).  Outside a capture it loops on the host, reading cond() each
-time.
+a capture it is a WHILE conditional node (csrc/graph_cond.cu: a flag
+kernel sets the node's handle before the node and again at the end of
+each pass of the body), so a replay runs the body exactly as often as
+the data asks, with no host read; the body is captured on a stream of
+its own, its temporaries allocated from a body pool of the scene (one a
+nesting depth).  Its condition is the 0-d bool tensor a callable
+returns, which the flag kernel reads, or a LoopTest, the masked
+re-trace's, which the flag kernel tests itself, counting the rounds.
+Outside a capture it loops on the host, reading cond() each time (a
+LoopTest's plain version).
 
 The launch counters of the kernel wrappers and MASK_STATS tick in
 Python, so a capture counts one step and a replay none.  A capture's
@@ -147,12 +149,14 @@ def _cond_library():
     if _cond_lib is None:
         lib = ctypes.CDLL(COND_LIB.build())
         lib.imba_cond_begin.restype = ctypes.c_int
+        vp = ctypes.c_void_p
         lib.imba_cond_begin.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            vp, vp, vp, vp, vp, ctypes.c_int,
             ctypes.POINTER(ctypes.c_ulonglong)]
         lib.imba_cond_end.restype = ctypes.c_int
-        lib.imba_cond_end.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong,
-                                      ctypes.c_void_p]
+        lib.imba_cond_end.argtypes = [vp, ctypes.c_ulonglong, ctypes.c_int,
+                                      vp, vp, ctypes.c_longlong, vp,
+                                      ctypes.c_int]
         lib.imba_stream_create.restype = ctypes.c_int
         lib.imba_stream_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
         _cond_lib = lib
@@ -209,21 +213,84 @@ def _host_flag(flag) -> bool:
     return bool(flag)
 
 
-def while_loop(cond, body, rounds=None):
+class LoopTest:
+    """The masked re-trace's loop condition (JAX's lax.while_loop
+    condition, imbatracer_tpu/render/traverse.py:281-300, :356-411): some
+    slot still needs a round and fewer than `cap` rounds have run.
+    `need`: the slots' need flags (dispatch.Slots.need), which each pass
+    of the body writes; `count`: the lanes in need after the first round
+    (Slots.count); `rounds`: a 0-d int32 round counter, which the test
+    sets to 1 at the loop's entry and adds one to at the end of each
+    pass, so that it holds the rounds run when the loop ends.
+
+    Inside a capture the WHILE node's flag kernel tests it on the card
+    (csrc/graph_cond.cu set_conditional).  Called, it is the plain
+    version, which a loop on the host reads: the first call (the entry)
+    sets `rounds` to 1 and returns count > 0 and 1 < cap, each later call
+    (the end of a pass) adds the round and returns any(need) and rounds <
+    cap, each a 0-d bool tensor."""
+
+    def __init__(self, need, count, rounds, cap: int):
+        self.need, self.count, self.rounds, self.cap = need, count, rounds, cap
+        self.entered = False
+
+    def __call__(self):
+        if not self.entered:
+            self.entered = True
+            return loop_entry_plain(self.count, self.rounds, self.cap)
+        return loop_test_plain(self.need, self.rounds, self.cap)
+
+    def pointers(self):
+        """(count, rounds, need) pointers for the flag kernel, the tensors
+        checked (raises on anything it does not take)."""
+        for x, dt, what in ((self.need, torch.bool, "need"),
+                            (self.count, torch.int32, "count"),
+                            (self.rounds, torch.int32, "rounds")):
+            if (x.device.type != "cuda" or x.dtype != dt
+                    or x.device != self.need.device):
+                raise ValueError(f"LoopTest: {what} must be a CUDA {dt} "
+                                 f"tensor on the need flags' device, got "
+                                 f"{x.dtype} on {x.device}")
+        if (self.need.dim() != 1 or not self.need.is_contiguous()
+                or self.count.dim() or self.rounds.dim()):
+            raise ValueError("LoopTest: need must be a contiguous vector, "
+                             "count and rounds 0-d")
+        if not 1 <= self.cap < 2 ** 31:
+            raise ValueError(f"LoopTest: cap {self.cap} out of range")
+        return (self.count.data_ptr(), self.rounds.data_ptr(),
+                self.need.data_ptr())
+
+
+def loop_entry_plain(count, rounds, cap: int):
+    """The re-trace loop's condition at its entry: rounds set to 1; some
+    lane in need (count > 0) and 1 < cap."""
+    rounds.fill_(1)
+    return (count > 0) & (rounds < cap)
+
+
+def loop_test_plain(need, rounds, cap: int):
+    """The re-trace loop's condition at the end of a pass of its body:
+    rounds added to; some slot in need and rounds < cap."""
+    rounds.add_(1)
+    return need.any() & (rounds < cap)
+
+
+def while_loop(cond, body):
     """jax.lax.while_loop over state that body() updates in place: body
-    runs while cond(), a 0-d bool tensor, is true.  Inside a capture the
-    loop is the graph's (a WHILE node on the card), and the counts body
-    ticks reach the device counts: each time it runs, or, given
-    `rounds`, the loop's 0-d device round counter (1 + the body's runs,
-    which body counts itself), not from the body: the loop returns them
+    runs while cond() is true, `cond` a callable that returns a 0-d bool
+    tensor or a LoopTest.  Inside a capture the loop is the graph's (a
+    WHILE node on the card), and the counts body ticks reach the device
+    counts: each time it runs, or, for a LoopTest, whose round counter
+    holds 1 + the body's runs, not from the body: the loop returns them
     as (slot, n) pairs, n a run, for its caller to add n x (rounds - 1)
-    once after it (dispatch.slot_finish).  Elsewhere it loops on the host
-    and returns ()."""
+    once after it (dispatch.slot_finish).  Elsewhere it loops on the
+    host and returns ()."""
     if not _ACTIVE:
         while _host_flag(cond()):
             body()
         return ()
     graph, counts = _ACTIVE[-1]
+    folded = isinstance(cond, LoopTest)
     deltas = []
 
     def counted():
@@ -233,7 +300,7 @@ def while_loop(cond, body, rounds=None):
                   for slot, (i, k) in enumerate(_slots(), 1)
                   if not _is_max(k)]
         ticked = [(slot, n) for slot, n in ticked if n]
-        if rounds is None:
+        if not folded:
             for slot, n in ticked:
                 counts[slot].add_(n)
         elif not deltas:
@@ -292,32 +359,42 @@ class CudaGraph:
     def while_loop(self, cond, body):
         lib = _cond_library()
         stream, pool = _body(self.bodies, self.device, self.depth)
-        flag = cond()
+        test = isinstance(cond, LoopTest)
+        if test:
+            count, rounds, need = cond.pointers()
+            dev, entry = cond.need.device, (None, count, rounds, cond.cap)
+            at_end = (None, need, cond.need.numel(), rounds, cond.cap)
+        else:
+            flag = cond()
+            dev, entry = flag.device, (flag.data_ptr(), None, None, 0)
         handle = ctypes.c_ulonglong()
         err = lib.imba_cond_begin(
-            torch.cuda.current_stream(flag.device).cuda_stream,
-            stream.cuda_stream, flag.data_ptr(), ctypes.byref(handle))
+            torch.cuda.current_stream(dev).cuda_stream, stream.cuda_stream,
+            *entry, ctypes.byref(handle))
         if err != 0:
             raise RuntimeError(f"adding a WHILE conditional node to the "
                                f"captured graph failed: CUDA error {err}")
-        dev = flag.device.index
         self.depth += 1
         try:
             with torch.cuda.stream(stream):
                 # The body's allocations come from `pool`, as a capture's
                 # come from its graph's pool.
-                torch._C._cuda_beginAllocateCurrentStreamToPool(dev, pool)
+                torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index,
+                                                                pool)
                 self.held.append(pool)
                 try:
                     body()
-                    flag = cond()
+                    if not test:
+                        flag = cond()
+                        at_end = (flag.data_ptr(), None, 0, None, 0)
                 except BaseException:
-                    lib.imba_cond_end(stream.cuda_stream, handle.value, None)
+                    lib.imba_cond_end(stream.cuda_stream, handle.value, 0,
+                                      None, None, 0, None, 0)
                     raise
                 finally:
-                    torch._C._cuda_endAllocateToPool(dev, pool)
-                err = lib.imba_cond_end(stream.cuda_stream, handle.value,
-                                        flag.data_ptr())
+                    torch._C._cuda_endAllocateToPool(dev.index, pool)
+                err = lib.imba_cond_end(stream.cuda_stream, handle.value, 1,
+                                        *at_end)
         finally:
             self.depth -= 1
         if err != 0:

@@ -25,12 +25,14 @@ lane, as the eager one does; the rounds past it run in
 graphs.while_loop (a WHILE conditional node under CUDA graphs) while
 some lane still needs one, up to KHIT_MAX_ROUNDS khit rounds on a flat
 BVH or RETRACE_MAX_ROUNDS stream dispatches on a two-level one (the
-first included), on `retrace_slots` lanes gathered without a host read
-(`gather_slots`: torch.nonzero_static, so the lanes keep their order
-and each dispatch sorts its live lanes as the eager loop's subset
-does).  The loop's state (the slots' need flags, tcur and hits, and the
-round count) lives in tensors made before it, which each pass updates
-in place, so a skipped pass leaves them as they were.  Lanes still
+first included), on `retrace_slots` lanes selected without a host read
+(`gather_slots`: the first lanes in need, in lane order, as
+torch.nonzero_static gives them, so each dispatch sorts its live lanes
+as the eager loop's subset does).  The loop's state (the slots' need
+flags, tcur and hits, and the round count) lives in tensors made before
+it, which each pass updates in place, so a skipped pass leaves them as
+they were; its condition is a graphs.LoopTest, which the WHILE node's
+flag kernel tests on the card, counting the rounds.  Lanes still
 unresolved at the cap, and lanes past the slots, are added to
 `overflow`, a device int32 counter that the caller reads once a frame;
 a frame that overflowed is rendered again on the eager route
@@ -44,10 +46,10 @@ through the round's slot map, and a resolve that reads the traversal's
 sorted rows and writes each lane's hit, flags and tcur in place (the
 khit round's alpha test and K-hit pick, the re-trace's select and alpha
 test), as XLA fuses JAX's glue around its traversal calls.  Around the
-graph-ready form's while loop, its slot state, merge, overflow and
-device counts are ops/dispatch.py's too (slot_gather, slot_merge,
-slot_finish); the slot indices (torch.nonzero_static) and the count of
-lanes in need, like the library sort, stay torch ops.
+graph-ready form's while loop, its slot selection and state, merge,
+overflow and device counts are ops/dispatch.py's too (slot_gather, one
+launch from the need flags to the slots, slot_merge, slot_finish); the
+library sort stays a torch op.
 """
 
 from __future__ import annotations
@@ -226,29 +228,28 @@ def retrace_slots(num_r: int, two_level: bool) -> int:
 
 
 def gather_slots(need, slots: int, hit: Hit, tcur=None) -> dp.Slots:
-    """The first `slots` lanes of `need`, in lane order, with no host
-    read (torch.nonzero_static and the count of `need` stay library
-    calls), and their state (dispatch.slot_gather: on the card its
-    kernel)."""
-    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
-    return dp.slot_gather(idx, need.sum(dtype=torch.int32), hit, tcur)
+    """The first `slots` lanes of `need`, in lane order, and their state,
+    with no host read (dispatch.slot_gather: on the card one launch of
+    its kernel)."""
+    return dp.slot_gather(need, slots, hit, tcur)
 
 
-def _retrace_loop(cond, body, cap: int, dev):
-    """After a dispatch's first round, run body() while cond() and fewer
-    than `cap` rounds have run (graphs.while_loop), counting each round;
-    returns (the rounds run, a 0-d device int32; the counts a run of the
-    body ticks, which _finish adds for all its runs)."""
-    rounds = torch.ones((), dtype=torch.int32, device=dev)
+def _retrace_loop(s: dp.Slots, body, cap: int, dev):
+    """After a dispatch's first round, run body() while a slot needs a
+    round and fewer than `cap` rounds have run (graphs.while_loop over a
+    graphs.LoopTest: under a capture the WHILE node's flag kernel tests
+    it and counts the rounds), counting each round; returns (the rounds
+    run, a 0-d device int32; the counts a run of the body ticks, which
+    _finish adds for all its runs)."""
+    test = graphs.LoopTest(s.need, s.count,
+                           torch.empty((), dtype=torch.int32, device=dev),
+                           cap)
 
     def counted():
         MASK_STATS["rounds"] += 1
         body()
-        rounds.add_(1)
 
-    deltas = graphs.while_loop(lambda: cond() & (rounds < cap), counted,
-                               rounds=rounds)
-    return rounds, deltas
+    return test.rounds, graphs.while_loop(test, counted)
 
 
 def _finish(overflow, act, slots: dp.Slots, loop, hit: Hit) -> Hit:
@@ -295,7 +296,7 @@ def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
                                    lanes=s.idx, tcur=s.tcur)
         dp.khit_resolve(disp, out, s.need, s.need, s.tcur, s.hit, alpha_fn)
 
-    loop = _retrace_loop(s.need.any, body, KHIT_MAX_ROUNDS, dev)
+    loop = _retrace_loop(s, body, KHIT_MAX_ROUNDS, dev)
     return _finish(overflow, act, s, loop, hit)
 
 
@@ -329,7 +330,7 @@ def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
         dp.stream_resolve(disp, out, dp.RETRACE, hit=s.hit, flag=s.need,
                           retrace_in=s.need, select=True, alpha_fn=alpha_fn)
 
-    loop = _retrace_loop(s.need.any, body, RETRACE_MAX_ROUNDS, dev)
+    loop = _retrace_loop(s, body, RETRACE_MAX_ROUNDS, dev)
     return _finish(overflow, act, s, loop, hit)
 
 

@@ -23,11 +23,15 @@ between the marks, the port's ctypes launches included):
   their device time, kernels by name and launches, and the middle's
   peak memory above what the frame held when it began; then one graphed
   PT frame of the same scene (wall, busy, kernels); every graphed frame
-  also logs the device time and launches of the kernels in NAMED, and
-  ranks the kernels of BOUND_BYTES by launches x (us a launch - bound
-  at the traced lanes): each launch's threads (its grid and block, from
-  the frame's chrome trace) times the bytes a thread's lane must move,
-  over 3.35 TB/s;
+  also logs the device time and launches of the kernels in NAMED,
+  ranks every hand-written kernel by launches x (us a launch - bound at
+  the traced threads): each launch's threads (its grid and block, from
+  the frame's chrome trace) times a thread's share of the bound, plus
+  the bytes a launch moves whatever its threads (THREAD_BYTES,
+  THREAD_US, LAUNCH_BYTES), beside the traced time of a launch that
+  reads a flag and stops; and counts the launches from each masked
+  dispatch's first-round resolve to its WHILE node, and from a pass's
+  resolve to the node's next test (`[loop]` lines);
 * the instanced scene (scene/generate.CARD, 1920x1080, default light
   paths): one graphed vcm frame (busy, the middle, the scalar-add
   kernels `CUDAFunctorOnSelf_add` by launch shape from its chrome
@@ -72,7 +76,7 @@ from imbatracer_torch.frontend.engine import (estimate_pixel_size,  # noqa
 from imbatracer_torch.frontend.renderer import (ProgressiveRenderer,  # noqa
                                                 RenderSettings,
                                                 camera_for_scene)
-from imbatracer_torch.render import light_cache  # noqa: E402
+from imbatracer_torch.render import light_cache, traverse  # noqa: E402
 from imbatracer_torch.render.integrators import pt, vcm  # noqa: E402
 from imbatracer_torch.scene.procedural import make_still_life_like  # noqa
 
@@ -250,22 +254,65 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
          "splat_kernel", "select_keys_kernel", "select_gather_kernel",
          "grid_keys_kernel", "grid_tiles_kernel", "set_conditional")
 
-# The kernels ranked by the time they lose against their bound, with the
-# bytes a launched thread's lane must move: chip_smoke.py's byte count of
-# each on a 262,144-lane band (PERF.md section 6's bound column) over the
-# band's lanes -- pt_shade its carry and hit in and its outputs out
-# (SHADE_LANE_IN + SHADE_LANE_OUT, the shade-record and light rows left
-# out), the finish its radiance, contrib and two flags in and radiance
-# out, the light start its carry out, the finishes their contrib, pixel or
-# radiance and flags, the resolves their row in and hit out, the keys a
-# ray's origin and flag in and its key out.  The kernels not named here
-# were redesigned for Hopper before this ranking was made, take one
-# launch at the floor a masked dispatch, or are not a lane a thread.
-BOUND_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
-               "vcm_light_start_kernel": 66, "vcm_finish_kernel<false>": 34,
-               "vcm_finish_kernel<true>": 52, "khit_resolve_kernel": 148,
-               "stream_resolve_kernel": 56, "dispatch_keys_kernel": 29}
+# Every hand-written kernel of PERF.md section 6 is ranked by the time it
+# loses against its bound, a launch's bound being the bytes its threads
+# must move over 3.35 TB/s (a traversal's: its float instructions over
+# 33.5e12/s), counted as threads x a thread's share (THREAD_BYTES,
+# THREAD_US) plus what does not grow with the threads (LAUNCH_BYTES).
+# A lane-a-thread kernel's share is chip_smoke.py's byte count of it on a
+# 262,144-lane band (section 6's bound column) over the band's lanes --
+# pt_shade its carry and hit in and its outputs out (SHADE_LANE_IN +
+# SHADE_LANE_OUT, the shade-record and light rows left out), the finish
+# its radiance, contrib and two flags in and radiance out, the light
+# start its carry out, the finishes their contrib, pixel or radiance and
+# flags, the resolves their row in and hit out, the keys a ray's origin
+# and flag in and its key out.  The kernels that are not a lane a thread
+# take chip_smoke.py's bytes of one launch on the still-life band over
+# that launch's threads: the collect append a 16-byte word of staged rows
+# a thread (at the band's 31.4% valid rows), the splat a row (its pixel
+# and contribution; the film a launch), the selection's keys a row (the
+# admission keys'; the canonical keys move 20), its gather and the grid's
+# tiles a word or a photon slot, the grid's keys a photon.  The slot
+# kernels and the WHILE nodes' flag kernel move what the function needs
+# a launch, whatever the kernel: the need flags of the band and the
+# slots' state out (26 B a slot, 30 with tcur), the slots' valid flags,
+# every active and slot flag, and at most the slots' flags.
+THREAD_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
+                "vcm_light_start_kernel": 66,
+                "vcm_finish_kernel<false>": 34,
+                "vcm_finish_kernel<true>": 52, "khit_resolve_kernel": 148,
+                "stream_resolve_kernel": 56, "dispatch_keys_kernel": 29,
+                "dispatch_rows_kernel": 18.1e6 / 262144,
+                "vcm_light_shade_kernel": 74.7e6 / 262144,
+                "vcm_camera_shade_kernel": 115e6 / 262144,
+                "collect_append_kernel": 136.9e6 / (8 * 262144 * 6),
+                "collect_tail_kernel": 12, "splat_kernel": 16,
+                "select_keys_kernel": 12,
+                "select_gather_kernel": 429.2e6 / (2097152 * 6),
+                "grid_keys_kernel": 32.8e6 / 2034225,
+                "grid_tiles_kernel": 268.4e6 / 2034225}
+# The traversals' operations bound of section 6 on a 262,144-ray band, a
+# ray a thread: khit on the still life (S = 140), the instanced stream
+# kernel's closest and any hit (S = 1,404), the flat one's (S = 68), the
+# merge's gather and its query rows on the still-life band.
+THREAD_US = {"khit_kernel": 35.9 / 262144,
+             "stream_traverse_kernel<false, true": 58.5 / 262144,
+             "stream_traverse_kernel<true, true": 54.0 / 262144,
+             "stream_traverse_kernel<false, false": 19.1 / 262144,
+             "stream_traverse_kernel<true, false": 12.5 / 262144,
+             "merge_kernel<": 12.3 / 262144,
+             "merge_query_rows_kernel": 20.1 / 262144}
+LAUNCH_BYTES = {
+    "splat_kernel": lambda f: f["pixels"] * 12,
+    "slot_gather_kernel": lambda f: f["lanes"] + f["slots"] * f["slot_b"],
+    "slot_merge_kernel": lambda f: f["slots"],
+    "slot_finish_kernel": lambda f: f["lanes"] + f["slots"],
+    "set_conditional": lambda f: f["slots"] + 8}
 HBM_BYTES_PER_S = 3.35e12
+# The kernel whose traced launch is the floor a launch in a graph: it
+# reads its slots' valid flags and stops where none is set (the still
+# life's re-trace carries almost no lane past its first round).
+FLOOR = "slot_merge_kernel"
 
 
 def chrome_threads(path):
@@ -288,25 +335,74 @@ def chrome_threads(path):
     return tot
 
 
-def rank(tag, tot, threads):
-    """`[rank]` lines: the kernels of BOUND_BYTES by launches x (us a
-    launch - bound at the traced threads), the most lost first."""
+def rank(tag, tot, threads, frame):
+    """`[rank]` lines: every kernel of THREAD_BYTES, THREAD_US and
+    LAUNCH_BYTES that the frame launched, by launches x (us a launch -
+    bound at the traced threads), the most lost first; then the floor:
+    FLOOR's traced us a launch.  `frame`: the band's lanes and slots, a
+    slot's bytes and the pixels."""
     rows = []
-    for part, lane_bytes in BOUND_BYTES.items():
+    for part in dict.fromkeys([*THREAD_BYTES, *THREAD_US, *LAUNCH_BYTES]):
         names = [k for k in tot if part in k]
         if not names:
             continue
         us = sum(tot[k][0] for k in names)
         n = sum(tot[k][1] for k in names)
         lanes = sum(v[0] for k, v in threads.items() if part in k)
-        bound_us = 1e6 * lanes * lane_bytes / HBM_BYTES_PER_S
+        bound_us = (lanes * (THREAD_BYTES.get(part, 0.0) / HBM_BYTES_PER_S
+                             * 1e6 + THREAD_US.get(part, 0.0))
+                    + n * 1e6 * LAUNCH_BYTES.get(part, lambda f: 0)(frame)
+                    / HBM_BYTES_PER_S)
         rows.append((us - bound_us, part, us, n, lanes, bound_us))
     for lost, part, us, n, lanes, bound_us in sorted(rows, reverse=True):
         print(f"[rank] graphed {tag} frame: {part}: {n} launches, "
               f"{us / n:.2f} us a launch against a bound of "
-              f"{bound_us / n:.2f} us at {lanes / n:.0f} threads a launch "
+              f"{bound_us / n:.3f} us at {lanes / n:.0f} threads a launch "
               f"({us / max(bound_us, 1e-9):.1f}x), "
               f"{lost / 1e3:.3f} ms a frame above it", flush=True)
+    floor = [v for k, v in tot.items() if FLOOR in k]
+    if floor:
+        us, n = sum(v[0] for v in floor), sum(v[1] for v in floor)
+        print(f"[rank] graphed {tag} frame: the floor, {FLOOR} (reads its "
+              f"slots' valid flags, stops where none is set): "
+              f"{us / n:.2f} us a launch over {n} launches", flush=True)
+
+
+RESOLVES = ("khit_resolve_kernel", "stream_resolve_kernel")
+WHILE_FLAG = "set_conditional"
+
+
+def loop_launches(tag, events):
+    """`[loop]` lines: the device launches (kernels, memsets, copies) from
+    each re-trace resolve to the next WHILE flag kernel, which ends a
+    dispatch's loop entry where the slot gather ran between them, else a
+    pass of the body: their count and device time, on average, and the
+    names of one entry's and one pass's launches."""
+    since, found = None, {"entry": [], "pass": []}
+    for name, _, ns in events:
+        if MARK in name:
+            continue
+        if any(r in name for r in RESOLVES):
+            since = []
+        elif since is not None:
+            since.append((name, ns))
+            if WHILE_FLAG in name:
+                kind = ("entry" if any("slot_gather" in k for k, _ in since)
+                        else "pass")
+                found[kind].append(since)
+                since = None
+    for kind, runs in found.items():
+        if not runs:
+            continue
+        n = sum(len(r) for r in runs) / len(runs)
+        us = sum(ns for r in runs for _, ns in r) / 1e3 / len(runs)
+        names = ", ".join(k.split("(")[0].split("<")[0][-40:]
+                          for k, _ in runs[0])
+        print(f"[loop] graphed {tag} frame: {len(runs)} loop "
+              f"{'entries' if kind == 'entry' else 'pass ends'}, "
+              f"{n:.2f} launches each from the resolve to the WHILE node "
+              f"({'the loop test' if kind == 'pass' else 'with the slots'}"
+              f"), {us:.2f} us device; one: {names}", flush=True)
 
 
 def graphed_frame(scene, meta, settings, tag, chrome=None):
@@ -339,7 +435,12 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
         fd, chrome = tempfile.mkstemp(suffix=".json", prefix="imba_trace_")
         os.close(fd)
     prof.export_chrome_trace(chrome)
-    rank(tag, tot, chrome_threads(chrome))
+    two_level = scene.bvh.two_level
+    rank(tag, tot, chrome_threads(chrome),
+         dict(lanes=BAND, slots=traverse.retrace_slots(BAND, two_level),
+              slot_b=26 if two_level else 30,
+              pixels=settings.width * settings.height))
+    loop_launches(tag, device_events(prof))
     if not keep:
         os.remove(chrome)
     for _, middle in regions(prof):

@@ -41,7 +41,8 @@ from imbatracer_torch.scene.textures import MaskTest, TextureAtlas
 from test_torch_graphs import _two_level_layers
 from test_torch_masks import _layers
 from test_torch_traverse import _interp
-from torch_dispatch_cases import RAGGED_KEYS, RAGGED_ROWS
+from torch_dispatch_cases import (RAGGED_KEYS, RAGGED_ROWS, SELECT_CASES,
+                                  select_case)
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -590,6 +591,64 @@ def test_plain_slots_match_the_composite(case, two_level):
     assert int(got[at["empty"]] - counts0[at["empty"]]) == (case == "empty")
 
 
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_plain_slot_selection_matches_the_composite_and_jax(case,
+                                                           two_level):
+    """dispatch.slot_gather_plain, which selects the slots from the need
+    flags, against the torch composite the graph routes ran before it
+    (nonzero_static, the sum of the flags, the gathers) and against JAX's
+    static-size selection of the same lanes (jnp.nonzero with a size and
+    a fill value, jnp.sum, the carry's values at those lanes): every
+    output bit for bit, the count and the dropped lanes included, with no
+    lane in need, every lane, as many as the slots, more (dropped), only
+    the last lane, and lanes that fill no whole word or tile of the
+    kernel."""
+    need, slots, hit, tcur = select_case(
+        case, 8192, len(case), lambda n: tt.retrace_slots(n, two_level),
+        not two_level)
+    t = torch.from_numpy
+    s = dp.slot_gather_plain(t(need), slots, tt.Hit(*map(t, hit)),
+                             None if tcur is None else t(tcur))
+    idx, valid, dropped, flags, c_tcur, c_hit = _composite_slots(
+        t(need), slots, tt.Hit(*map(t, hit)),
+        None if tcur is None else t(tcur))
+    j_idx = np.asarray(jnp.nonzero(jnp.asarray(need), size=slots,
+                                   fill_value=0)[0])
+    j_count = int(jnp.sum(jnp.asarray(need), dtype=jnp.int32))
+    j_valid = np.arange(slots) < j_count
+    want = {"idx": (idx, j_idx), "valid": (valid, j_valid),
+            "need": (flags, j_valid),
+            "dropped": (dropped, max(j_count - slots, 0)),
+            "count": (need.sum(), j_count)}
+    got = {"idx": s.idx, "valid": s.valid, "need": s.need,
+           "dropped": s.dropped, "count": s.count}
+    for k, (comp, jax_) in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(comp), k)
+        np.testing.assert_array_equal(got[k].numpy(), jax_, k)
+    assert s.idx.dtype == torch.int64 and s.count.dtype == torch.int32
+    assert s.dropped.dtype == torch.int32
+    for a, b, c in zip(s.hit, c_hit, hit):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(
+            a.numpy(), np.asarray(jnp.take(jnp.asarray(c), j_idx)))
+    assert (s.tcur is None) == two_level
+    if not two_level:
+        np.testing.assert_array_equal(s.tcur.numpy().view(np.uint32),
+                                      c_tcur.numpy().view(np.uint32))
+        np.testing.assert_array_equal(
+            s.tcur.numpy(), np.asarray(jnp.take(jnp.asarray(tcur), j_idx)))
+    lanes = {"none": 0, "all": len(need), "last": 1}.get(case)
+    if lanes is not None:
+        assert int(s.count) == lanes
+    if case == "equal":
+        assert int(s.count) == slots and bool(s.valid.all())
+    if case == "past":
+        assert int(s.dropped) == 77
+    if case == "last":
+        assert int(s.idx[0]) == len(need) - 1 and int(s.valid.sum()) == 1
+
+
 @pytest.mark.parametrize("rounds", [1, 2, 5, tt.KHIT_MAX_ROUNDS])
 def test_finish_folds_the_loop_counts(rounds):
     """slot_finish_plain with the counts a run of the loop's body ticks
@@ -602,8 +661,8 @@ def test_finish_folds_the_loop_counts(rounds):
     n, slots = 2048, 64
     t = torch.from_numpy
     act = t(rs.rand(n) < 0.5)
-    s = dp.slot_gather_plain(torch.arange(slots), torch.tensor(
-        40, dtype=torch.int32), tt.Hit(*(torch.zeros(n) for _ in range(4))))
+    s = dp.slot_gather_plain(torch.arange(n) < 40, slots,
+                             tt.Hit(*(torch.zeros(n) for _ in range(4))))
     s = s._replace(need=s.valid & t(rs.rand(slots) < 0.3))
     at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
     where = ([at[k] for k in dp.FINISH_KEYS],

@@ -355,6 +355,73 @@ def test_while_loop_runs_while_its_flag_is_set(nested, standin):
                 assert torch.equal(state[k], before[k]), k
 
 
+@pytest.mark.parametrize("cap", [2, 7, tt.KHIT_MAX_ROUNDS])
+@pytest.mark.parametrize("lanes", [0, 1, 5])
+def test_plain_loop_test_matches_the_host_condition(lanes, cap):
+    """graphs.LoopTest's plain version against the condition the
+    re-trace's host loop tested before it, cond() & (rounds < cap) with
+    cond the slots' need.any() and the round added by the body: at the
+    entry (rounds 1, the lanes in need counted by the slot gather), and
+    at the end of a pass that leaves rounds at cap - 1 and at cap; the
+    round counter as the host loop leaves it."""
+    slots = 64
+    need = torch.zeros(slots, dtype=torch.bool)
+    need[torch.randperm(slots, generator=torch.Generator().manual_seed(
+        lanes))[:lanes]] = True
+    count = need.sum(dtype=torch.int32)
+    rounds = torch.full((), 99, dtype=torch.int32)
+    test = graphs.LoopTest(need, count, rounds, cap)
+    assert bool(test()) == (bool(need.any()) and 1 < cap)    # the entry
+    assert int(rounds) == 1
+    for at in (cap - 1, cap):
+        old = torch.tensor(at - 1, dtype=torch.int32)
+        old.add_(1)                           # the old body's round add
+        want = need.any() & (old < cap)
+        rounds.fill_(at - 1)
+        got = test()                          # the end of a pass
+        assert got.dtype == torch.bool and got.dim() == 0
+        assert bool(got) == bool(want) == (lanes > 0 and at < cap)
+        assert int(rounds) == int(old) == at
+    # The same flags through the plain functions the test calls.
+    rounds.fill_(cap - 2)
+    assert bool(graphs.loop_test_plain(need, rounds, cap)) == (lanes > 0)
+    assert bool(graphs.loop_entry_plain(count, rounds, cap)) == (lanes > 0)
+    assert int(rounds) == 1
+
+
+def test_loop_test_loops_as_the_host_condition():
+    """A host loop over a LoopTest runs the body as often as the loop it
+    replaced (while cond() & (rounds < cap): body, rounds += 1), with the
+    slots' flags cleared a pass at a time or never, under and at the cap;
+    its round counter ends where the old one did."""
+    for flags, cap in ((3, 10), (3, 2), (12, 5), (0, 4), (12, 1)):
+        runs = []
+        for form in ("old", "new"):
+            need = torch.zeros(16, dtype=torch.bool)
+            need[:flags] = True
+            n = [0]
+
+            def body():
+                n[0] += 1
+                need[n[0] - 1] = False        # one slot resolved a pass
+
+            if form == "old":
+                rounds = torch.ones((), dtype=torch.int32)
+
+                def counted():
+                    body()
+                    rounds.add_(1)
+
+                graphs.while_loop(lambda: need.any() & (rounds < cap),
+                                  counted)
+            else:
+                rounds = torch.empty((), dtype=torch.int32)
+                graphs.while_loop(graphs.LoopTest(
+                    need, need.sum(dtype=torch.int32), rounds, cap), body)
+            runs.append((n[0], int(rounds)))
+        assert runs[0] == runs[1], (flags, cap, runs)
+
+
 @pytest.mark.parametrize("two_level", [False, True])
 def test_resolved_dispatch_runs_no_round_past_its_first(two_level,
                                                         standin):

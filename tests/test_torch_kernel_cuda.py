@@ -48,7 +48,8 @@ from imbatracer_torch.render import traverse as tt
 from imbatracer_torch.render.intersect import BIG
 from imbatracer_torch.scene.procedural import (make_big_scene,
                                                make_leaf_scene)
-from torch_dispatch_cases import RAGGED_KEYS, RAGGED_ROWS
+from torch_dispatch_cases import (RAGGED_KEYS, RAGGED_ROWS, SELECT_CASES,
+                                  select_case)
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -2094,20 +2095,20 @@ def _slot_case(case, dev):
                                   "two_level_past"])
 def test_cuda_slot_kernels_match_plain(cuda_device, case):
     """slot_gather, slot_merge and slot_finish against their plain versions
-    bit for bit: the slot state and dropped count from nonzero_static's
-    indices, seeded slot hits merged into a copy of the lanes' hits, the
-    overflow (slot 0 of a seeded counts vector) and the device counts of
-    FINISH_KEYS with a seeded share of the slots left unresolved."""
+    bit for bit: the slots selected from the need flags, their state, the
+    count and the dropped lanes, seeded slot hits merged into a copy of
+    the lanes' hits, the overflow (slot 0 of a seeded counts vector) and
+    the device counts of FINISH_KEYS with a seeded share of the slots
+    left unresolved."""
     from imbatracer_torch.ops import dispatch as dp
 
     act, need, slots, hit, tcur = _slot_case(case, cuda_device)
-    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
     count = need.sum(dtype=torch.int32)
     dp.reset_launches()
-    k = dp.slot_gather(idx, count, hit, tcur)
-    p = dp.slot_gather_plain(idx, count, hit, tcur)
-    for x, y in zip(k[1:4] + tuple(k.hit) + k[5:],
-                    p[1:4] + tuple(p.hit) + p[5:]):
+    k = dp.slot_gather(need, slots, hit, tcur)
+    p = dp.slot_gather_plain(need, slots, hit, tcur)
+    for x, y in zip(k[:4] + tuple(k.hit) + k[5:],
+                    p[:4] + tuple(p.hit) + p[5:]):
         assert (x is None and y is None) or torch.equal(x, y)
     assert int(k.dropped) == max(int(count) - slots, 0)
     rs = np.random.RandomState(7)
@@ -2144,6 +2145,152 @@ def test_cuda_slot_kernels_match_plain(cuda_device, case):
     assert dp.LAUNCHES["slot_gather_plain"] == 1
     assert dp.LAUNCHES["slot_merge_plain"] == 1
     assert dp.LAUNCHES["slot_finish_plain"] == 2
+
+
+def _selection(case, two_level, seed, dev):
+    """A selection case on a 262,144-lane band, at the band's flat
+    (1,024) or two-level (65,536) slots, as CUDA tensors."""
+    need, slots, hit, tcur = select_case(
+        case, 1 << 18, seed, lambda n: tt.retrace_slots(n, two_level),
+        not two_level)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(need), slots, tt.Hit(*map(t, hit)),
+            None if tcur is None else t(tcur))
+
+
+def _same_slots(k, p):
+    """Every output of two slot selections bit for bit."""
+    for x, y in zip(k[:4] + tuple(k.hit) + k[5:],
+                    p[:4] + tuple(p.hit) + p[5:]):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_cuda_slot_selection_matches_plain(cuda_device, case, two_level):
+    """slot_gather_kernel, which selects the slots from the need flags in
+    one launch, against its plain version (nonzero_static, the sum, the
+    gathers) bit for bit, at 1,024 and 65,536 slots of a 262,144-lane
+    band: no lane in need, every lane, as many as the slots, more
+    (dropped), only the last lane, and 266,277 lanes, no multiple of the
+    kernel's words or tiles; then again, as its status words must be
+    back at 0 after each launch."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    need, slots, hit, tcur = _selection(case, two_level, len(case),
+                                        cuda_device)
+    if case != "ragged":
+        assert slots == (65536 if two_level else 1024)
+    p = dp.slot_gather_plain(need, slots, hit, tcur)
+    for _ in range(3):
+        k = dp.slot_gather_cuda(need, slots, hit, tcur)
+        torch.cuda.synchronize()
+        _same_slots(k, p)
+    assert int(k.count) == int(need.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True])
+def test_cuda_slot_selection_in_a_replayed_graph(cuda_device, two_level):
+    """The selection captured in a CUDA graph and replayed over new need
+    flags, hits and tcur each time (every case in turn, eager launches in
+    between): each replay equals the plain version bit for bit, so the
+    status words, the ticket and the done count are back at 0 after every
+    launch, in a graph or not."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    need, slots, hit, tcur = _selection("past", two_level, 1, cuda_device)
+    static = (need.clone(), tt.Hit(*(x.clone() for x in hit)),
+              None if tcur is None else tcur.clone())
+    dp.slot_gather_cuda(*static[:1], slots, *static[1:])      # built
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = dp.slot_gather_cuda(static[0], slots, static[1], static[2])
+    for seed, case in enumerate(list(SELECT_CASES) * 2):
+        if case == "ragged":
+            continue                          # another band's lanes
+        need, _, hit, tcur = _selection(case, two_level, seed, cuda_device)
+        static[0].copy_(need)
+        for x, y in zip(static[1], hit):
+            x.copy_(y)
+        if tcur is not None:
+            static[2].copy_(tcur)
+        g.replay()
+        between = dp.slot_gather_cuda(need, slots, hit, tcur)
+        torch.cuda.synchronize()
+        p = dp.slot_gather_plain(need, slots, hit, tcur)
+        _same_slots(out, p)
+        _same_slots(between, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nested", [False, True])
+def test_cuda_loop_test_runs_the_host_loops_rounds(cuda_device, nested):
+    """graphs.while_loop over a LoopTest captured as a WHILE node whose
+    flag kernel tests the slots' need flags and the cap and counts the
+    rounds, alone and nested in a loop on a flag: a replay runs the body
+    as often as the same step run on the host (the plain test), and
+    leaves the round counter, the flags and the state where it does, for
+    flags that clear a pass at a time (one a slot shifted out each pass),
+    none set, and more passes than the cap allows."""
+    from imbatracer_torch.render import graphs
+
+    cap, n = 6, 4096 + 37
+
+    def make(dev):
+        z = lambda dt: torch.zeros((), dtype=dt, device=dev)
+        return {"pattern": torch.zeros(n, dtype=torch.bool, device=dev),
+                "need": torch.zeros(n, dtype=torch.bool, device=dev),
+                "rounds": z(torch.int32), "left": z(torch.int32),
+                "x": z(torch.float32) + 1.0}
+
+    def step(s_, overflow):
+        def inner():
+            s_["need"].copy_(s_["pattern"])
+            test = graphs.LoopTest(s_["need"],
+                                   s_["pattern"].sum(dtype=torch.int32),
+                                   s_["rounds"], cap)
+
+            def body():
+                s_["x"].copy_(s_["x"] * 2.0)
+                shifted = torch.zeros_like(s_["need"])
+                shifted[:-1] = s_["need"][1:]
+                s_["need"].copy_(shifted)
+
+            assert graphs.while_loop(test, body) == ()
+
+        def outer():
+            inner()
+            s_["left"].sub_(1)
+
+        if nested:
+            graphs.while_loop(lambda: s_["left"] > 0, outer)
+        else:
+            inner()
+
+    sg = graphs.SceneGraphs(cuda_device)
+    state = make(cuda_device)
+    g = sg.phase("loop_test", step, state)
+    for flags, left in (((), 2), ((0,), 1), ((3, 100), 3), ((n - 1,), 2),
+                        ((2,), 0), ((4,), 2)):
+        host = make("cpu")
+        for s_ in (state, host):
+            s_["pattern"].zero_()
+            s_["need"].zero_()
+            s_["pattern"][list(flags)] = True
+            s_["left"].fill_(left)
+            s_["x"].fill_(1.0)
+            s_["rounds"].fill_(-7)
+        g.replay()
+        step(host, None)
+        torch.cuda.synchronize()
+        for k, v in host.items():
+            assert torch.equal(state[k].cpu(), v), (flags, left, k)
+        passes = min(max(flags) + 1, cap - 1) if flags else 0
+        runs = (left if nested else 1)
+        assert float(state["x"]) == 2.0 ** (passes * runs)
 
 
 @pytest.mark.cuda
@@ -2201,15 +2348,16 @@ def test_cuda_slot_input_checks(cuda_device):
     from imbatracer_torch.ops import dispatch as dp
 
     act, need, slots, hit, tcur = _slot_case("within", cuda_device)
-    idx = torch.nonzero_static(need, size=slots, fill_value=0)[:, 0]
     count = need.sum(dtype=torch.int32)
     with pytest.raises(ValueError):
-        dp.slot_gather_cuda(idx.int(), count, hit, tcur)
+        dp.slot_gather_cuda(need.int(), slots, hit, tcur)
     with pytest.raises(ValueError):
-        dp.slot_gather_cuda(idx, count.long(), hit, tcur)
+        dp.slot_gather_cuda(need[:-1], slots, hit, tcur)
     with pytest.raises(ValueError):
-        dp.slot_gather_cuda(idx, count, hit, tcur.cpu())
-    s = dp.slot_gather_cuda(idx, count, hit, tcur)
+        dp.slot_gather_cuda(need, slots, hit, tcur.cpu())
+    with pytest.raises(ValueError):
+        dp.slot_gather_cuda(need, -1, hit, tcur)
+    s = dp.slot_gather_cuda(need, slots, hit, tcur)
     with pytest.raises(ValueError):
         dp.slot_merge_cuda(s, tt.Hit(hit.t, hit.prim_id.long(), hit.u,
                                      hit.v))
