@@ -2191,6 +2191,27 @@ SELECT_CELLS = {"none": lambda s: 0, "all": None, "equal": lambda s: s,
                 "ragged": lambda s: s // 2}
 
 
+def selection_inputs(case, two_level, seed, dev):
+    """Seeded inputs of the SELECT_CELLS cell `case` at the flat or
+    two-level slot share: (need, slots, hit, tcur or None)."""
+    from imbatracer_torch.render import traverse as tt
+
+    n = NUM_RAYS + (4133 if case == "ragged" else 0)
+    slots = tt.retrace_slots(n, two_level)
+    want = SELECT_CELLS[case]
+    rs = np.random.RandomState(40 + seed)
+    need = np.zeros(n, dtype=bool)
+    if want is None:
+        need[:] = True
+    elif want == "last":
+        need[-1] = True
+    else:
+        need[rs.permutation(n)[:want(slots)]] = True
+    _, _, hit, tcur = random_slots_case(n, 0.1, slots, seed, dev,
+                                        not two_level)
+    return torch.from_numpy(need).to(dev), slots, hit, tcur
+
+
 def hold_selections(dev, card):
     """`[slots]` selection cells: slot_gather_kernel, which selects the
     slots from the need flags in one launch, against its plain version
@@ -2202,20 +2223,10 @@ def hold_selections(dev, card):
     from imbatracer_torch.render import traverse as tt
 
     for two_level in (False, True):
-        for seed, (case, want) in enumerate(SELECT_CELLS.items()):
-            n = NUM_RAYS + (4133 if case == "ragged" else 0)
-            slots = tt.retrace_slots(n, two_level)
-            rs = np.random.RandomState(40 + seed)
-            need = np.zeros(n, dtype=bool)
-            if want is None:
-                need[:] = True
-            elif want == "last":
-                need[-1] = True
-            else:
-                need[rs.permutation(n)[:want(slots)]] = True
-            _, _, hit, tcur = random_slots_case(n, 0.1, slots, seed, dev,
-                                                not two_level)
-            need = torch.from_numpy(need).to(dev)
+        for seed, case in enumerate(SELECT_CELLS):
+            need, slots, hit, tcur = selection_inputs(case, two_level, seed,
+                                                      dev)
+            n = need.shape[0]
             p = dp.slot_gather_plain(need, slots, hit, tcur)
             bad = [slot_mismatches(dp.slot_gather_cuda(need, slots, hit,
                                                        tcur), p)

@@ -1,30 +1,28 @@
 #!/usr/bin/env python3
 """A kernel redesigned for Hopper against its earlier design, on one card
-in one process: dispatch_keys_kernel (csrc/dispatch.cu), this tree's
-source as the redesign.
+in one process: slot_gather_kernel (csrc/dispatch.cu), the masked
+re-trace's slot selection, this tree's source as the redesign.
 
-The earlier design is another checkout's source (--root, for example the
-parent commit unpacked under the git-ignored out/), built with this
+The earlier design is another checkout's source (--root, for example an
+earlier commit unpacked under the git-ignored out/), built with this
 tree's nvcc flags into build/imbatracer_torch/ and launched through this
 tree's wrappers, whose C interface both share.  Each kernel is timed as
 chip_smoke.graph_ms (10 launches captured in one CUDA graph, after a
-warm-up), earlier, redesigned, redesigned, earlier, on the rays a PT
-frame sorts: the middle 2^18-lane band of a still-life PT frame at
-1920x1080 at bounces 0, 1 and chip_smoke.LATE_BOUNCE (chip_smoke's
-shade_carry), the cornell at 1024^2 after 1 and the instanced scene at
-1920x1080 after 1, each in the forms a dispatch takes: every lane with
-its active flags; the graph-ready re-trace's slots at both shares
-(traverse.retrace_slots: the first lanes of the active ones,
-torch.nonzero_static, their flags by slot); and the eager re-trace's
-slot map of every active lane with its flags by lane.  The two designs'
-keys must be equal bit for bit on every slot.
+warm-up), earlier, redesigned, redesigned, earlier, on chip_smoke.py's
+selection cells (chip_smoke.SELECT_CELLS over a 2^18-lane band at the
+flat and two-level slot shares) and on the slots the graph-ready
+re-trace gathers from a bounce's rays (chip_smoke.recorded_slots): the
+middle 2^18-lane band of a still-life PT frame at 1920x1080 after bounce
+1 (flat) and the instanced scene at 1920x1080 after bounce 1 (two-level).
+The two designs' slots must be equal to each other and to the plain
+version bit for bit.
 
-Each `[ab]` line names the card and its power limit, with the active
-share, the bound of the bytes the function moves (chip_smoke.py's count,
-and a slot's 8-byte lane) and each build's registers, local bytes and
-resident blocks.  Run from the repository root:
+Each `[ab]` line names the card and its power limit, with the lanes in
+need, the bound of the bytes the function moves (chip_smoke.py's count)
+and each build's registers, local bytes and resident blocks.  Run from
+the repository root:
 
-    python3 scripts/redesign_ab.py --root out/parent
+    python3 scripts/redesign_ab.py --root out/earlier
 """
 
 import argparse
@@ -44,10 +42,9 @@ import chip_smoke as cs  # noqa: E402
 from imbatracer_torch import libbuild  # noqa: E402
 from imbatracer_torch.device import card_line, get_device  # noqa: E402
 from imbatracer_torch.ops import dispatch as dp  # noqa: E402
-from imbatracer_torch.render import traverse as tt  # noqa: E402
 
 # The redesigned kernels: (module, kernel, resources() argument).
-KERNELS = ((dp, "dispatch_keys_kernel", "dispatch_keys"),)
+KERNELS = ((dp, "slot_gather_kernel", "slot_gather"),)
 
 
 class _Built:
@@ -115,46 +112,40 @@ def fmt(ms):
     return " / ".join(f"{x:.4f}" for x in ms)
 
 
-def keys_forms(act):
-    """{form: (lanes, flags, by_lane)} of the dispatches a bounce's rays
-    meet: every lane, the graph-ready re-trace's slots at both shares,
-    and the eager re-trace's slot map of every active lane."""
-    n = act.shape[0]
-    out = {"every lane": (None, act, False)}
-    for two_level in (True, False):
-        slots = tt.retrace_slots(n, two_level)
-        idx = torch.nonzero_static(act, size=slots, fill_value=0)[:, 0]
-        valid = torch.arange(slots, device=act.device) < act.sum()
-        out[f"{slots} slots"] = (idx, valid, False)
-    out["eager slot map"] = (act.nonzero()[:, 0], None, True)
-    return out
+def selection_case(libs, label, need, slots, hit, tcur, card):
+    """One `[ab]` line: the selection of `slots` slots from `need` by
+    each design in turns, both held bit for bit against each other and
+    the plain version first."""
+    fn = partial(dp.slot_gather_cuda, need, slots, hit, tcur)
+    got = {}
+    for which in ("earlier", "redesigned"):
+        dp._lib = libs[which]
+        got[which] = fn()
+    torch.cuda.synchronize()
+    plain = dp.slot_gather_plain(need, slots, hit, tcur)
+    bad = [cs.slot_mismatches(got[w], plain) for w in got]
+    if any(bad):
+        raise AssertionError(f"[ab] slot_gather {label}: {bad} elements of "
+                             f"the earlier and the redesigned slots differ "
+                             f"from the plain version's")
+    earlier, new = turns(dp, libs, fn)
+    nvalid, count = int(plain.valid.sum()), int(plain.count)
+    tw = 0 if tcur is None else 4
+    n = need.shape[0]
+    nbytes = (n + slots * (8 + 2 + 16 + tw) + 8
+              + (nvalid + int(nvalid < slots)) * (16 + tw))
+    bound_ms, by = cs.shade_bound(nbytes, 0)
+    cs.log(f"[ab] slot_gather_kernel, {label}: {n} lanes, {count} in need, "
+           f"{slots} slots: earlier {fmt(earlier)} ms, redesigned "
+           f"{fmt(new)} ms, bound {bound_ms:.5f} ms by {by} ({nbytes} "
+           f"bytes); slots bit-equal [{card}]")
 
 
-def keys_case(libs, label, scene, meta, size, max_len, bounces, card):
-    dev = scene.device
-    c, _, _ = cs.shade_carry(scene, meta, *size, max_len, bounces, dev)
-    bvh = scene.bvh
-    org, d, act = c["org"], c["d"], c["active"]
-    for form, (lanes, flags, by_lane) in keys_forms(act).items():
-        fn = partial(dp.keys_cuda, org, d, flags, bvh.bounds, bvh.center,
-                     lanes, by_lane)
-        got = {}
-        for which in ("earlier", "redesigned"):
-            dp._lib = libs[which]
-            got[which] = fn()
-        bad = cs.bit_mismatches(got["earlier"], got["redesigned"])
-        if bad:
-            raise AssertionError(f"[ab] dispatch_keys {label}, {form}: "
-                                 f"{bad} keys differ")
-        earlier, new = turns(dp, libs, fn)
-        m = org.shape[0] if lanes is None else lanes.shape[0]
-        nbytes = m * (24 + 4 + (flags is not None) + 8 * (lanes is not None))
-        bound_ms, by = cs.shade_bound(nbytes, 0)
-        live = float((got["redesigned"] < 2 ** 30).double().mean())
-        cs.log(f"[ab] dispatch_keys_kernel, {label}, {form}: {m} slots, "
-               f"{live:.4f} active: earlier {fmt(earlier)} ms, redesigned "
-               f"{fmt(new)} ms, bound {bound_ms:.5f} ms by {by} ({nbytes} "
-               f"bytes); keys bit-equal [{card}]")
+def bounce_case(libs, label, scene, meta, size, bounce, card):
+    c, _, alpha_fn = cs.shade_carry(scene, meta, *size, 8, bounce,
+                                    scene.device)
+    need, slots, hit, tcur = cs.recorded_slots(scene, c, alpha_fn)
+    selection_case(libs, label, need, slots, hit, tcur, card)
 
 
 def main():
@@ -164,8 +155,7 @@ def main():
     args = p.parse_args()
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
-    from imbatracer_torch.scene.procedural import (make_cornell_scene,
-                                                   make_still_life_like)
+    from imbatracer_torch.scene.procedural import make_still_life_like
 
     dev = get_device("cuda")
     card = card_line(dev)
@@ -183,18 +173,21 @@ def main():
             cs.log_resources(f"{lib} {kernel}", mod.resources(which), card)
         mod._lib = libs[mod]["redesigned"]
 
+    for two_level in (False, True):
+        for seed, case in enumerate(cs.SELECT_CELLS):
+            selection_case(
+                libs[dp], f"{case}, {'two-level' if two_level else 'flat'}"
+                f" share", *cs.selection_inputs(case, two_level, seed, dev),
+                card)
     still = make_still_life_like(device=dev)
-    for bounce in (0, 1, cs.LATE_BOUNCE):
-        keys_case(libs[dp], f"still_life 1920x1080 bounce {bounce}", *still,
-                  (1920, 1080), 8, bounce, card)
+    bounce_case(libs[dp], "still_life 1920x1080 bounce 1, the khit "
+                "re-trace's", *still, (1920, 1080), 1, card)
     del still
-    keys_case(libs[dp], "cornell 1024x1024 bounce 1",
-              *make_cornell_scene(device=dev), (1024, 1024), 10, 1, card)
     tmp = tempfile.mkdtemp(prefix="imba_ab_")
     inst = build_scene(write_instanced_scene(tmp, **CARD), quiet=True,
                        device=dev)
-    keys_case(libs[dp], "instanced 1920x1080 bounce 1", *inst, (1920, 1080),
-              8, 1, card)
+    bounce_case(libs[dp], "instanced 1920x1080 bounce 1, the two-level "
+                "re-trace's", *inst, (1920, 1080), 1, card)
     shutil.rmtree(tmp, ignore_errors=True)
     cs.log("[ab] done")
 
