@@ -337,14 +337,12 @@ struct HitIn {
 
 // slot_gather_kernel's geometry: threads a block, the lanes a thread
 // tests (one 16-byte word of need flags), the lanes a tile, the slots a
-// fill block writes (at most this many: the last tile writes them), the
-// lanes a thread gathers at once, and the most tiles (2^25 lanes).
+// fill block writes, and the most tiles (2^25 lanes).
 constexpr int kSelThreads = 256;
 constexpr int kSelWarps = kSelThreads / 32;
 constexpr int kSelLanes = 16;
 constexpr int kSelTile = kSelThreads * kSelLanes;
 constexpr int kFillSlots = 4096;
-constexpr int kGatherChunk = 8;
 constexpr int kSelMaxTiles = 8192;   // ops/dispatch.py SLOT_MAX_LANES / 4096
 
 // The selection's tiles meet in status words, one a tile: 0 until the
@@ -388,26 +386,6 @@ struct SlotOut {
   int* dropped;
 };
 
-// Slots [begin, end) empty: lane 0 and its state, flags 0; a block's
-// threads a slot each.
-__device__ void fill_empty(const SlotOut& out, int begin, int end,
-                           const float* tcur, const HitIn& hit) {
-  if (begin >= end) return;
-  const float t0 = tcur ? tcur[0] : 0.0f;
-  const float ht = hit.t[0], hu = hit.u[0], hv = hit.v[0];
-  const int hid = hit.id[0];
-  for (int s = begin + threadIdx.x; s < end; s += kSelThreads) {
-    out.idx[s] = 0;
-    out.valid[s] = 0;
-    out.need[s] = 0;
-    if (tcur) out.tcur[s] = t0;
-    out.hit.t[s] = ht;
-    out.hit.id[s] = hid;
-    out.hit.u[s] = hu;
-    out.hit.v[s] = hv;
-  }
-}
-
 // The slots of the lanes in need (torch.nonzero_static(need, size=slots,
 // fill_value=0)) and their state, in one launch: an ordered compaction in
 // a single pass.  Each block takes a ticket as it starts.  The first
@@ -418,22 +396,18 @@ __device__ void fill_empty(const SlotOut& out, int begin, int end,
 // 32 earlier tiles' words a step, adding counts back to the nearest tile
 // whose word holds a prefix, then publishing its own prefix; its lanes in
 // need then write their slots, those below `slots`, with the lane's tcur
-// and hit, kGatherChunk lanes' loads in flight before their stores.  A
-// tile waits only on tiles of lower tickets, which have started, so no
-// order of the blocks on the SMs can deadlock it.  The last tile writes
-// the count and the dropped lanes, and, with no fill block (at most
-// kFillSlots slots), the empty slots: lane 0 and its state, flags 0.
-// Past kFillSlots slots the tickets past the tiles are fill blocks of
-// kFillSlots slots, which wait for the count (every tile has started by
-// then) and write the empty slots.  What bounds it is its chain of
-// dependent round trips to L2 (the ticket, the flags, the look-back, the
-// count for the fill blocks, the done count), not its bytes (the flags
-// and the slots: ~0.1-0.9 us on the card).
+// and hit.  A tile waits only on tiles of lower tickets, which have
+// started, so no order of the blocks on the SMs can deadlock it.  The
+// last tile writes the count and the dropped lanes.  The tickets past the
+// tiles are fill blocks of kFillSlots slots, which wait for the count
+// (every tile has started by then) and write the empty slots: lane 0 and
+// its state, flags 0.  What bounds it is the launch: the bytes (the flags
+// and the slots) take ~0.1-0.6 us on the card.
 __global__ void __launch_bounds__(kSelThreads)
     slot_gather_kernel(const uint8_t* need, int64_t num_r, int tiles,
-                       int slots, int fills, const float* tcur, HitIn hit,
+                       int slots, const float* tcur, HitIn hit,
                        SlotOut out) {
-  __shared__ int ticket_s, prefix_s, total_s, last_s;
+  __shared__ int ticket_s, prefix_s, last_s;
   __shared__ int warp_s[kSelWarps];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   if (t == 0) ticket_s = static_cast<int>(atomicAdd(&sel_ticket, 1u));
@@ -493,7 +467,6 @@ __global__ void __launch_bounds__(kSelThreads)
       }
       if (lane == 0) {
         prefix_s = before;
-        total_s = before + agg;
         if (ticket == tiles - 1) {
           const int total = before + agg;
           *out.count = total;
@@ -505,42 +478,19 @@ __global__ void __launch_bounds__(kSelThreads)
     __syncthreads();
     int slot = prefix_s + warp_s[warp] + x - c;
     while (bits && slot < slots) {
-      int64_t l[kGatherChunk];
-      float tv[kGatherChunk], ht[kGatherChunk], hu[kGatherChunk],
-          hv[kGatherChunk];
-      int hid[kGatherChunk];
-#pragma unroll
-      for (int q = 0; q < kGatherChunk; ++q) {
-        const bool on = bits != 0u && slot + q < slots;
-        l[q] = on ? first + (__ffs(bits) - 1) : -1;
-        if (on) bits &= bits - 1;
-      }
-#pragma unroll
-      for (int q = 0; q < kGatherChunk; ++q) {
-        if (l[q] < 0) continue;
-        tv[q] = tcur ? __ldg(tcur + l[q]) : 0.0f;
-        ht[q] = __ldg(hit.t + l[q]);
-        hid[q] = __ldg(hit.id + l[q]);
-        hu[q] = __ldg(hit.u + l[q]);
-        hv[q] = __ldg(hit.v + l[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < kGatherChunk; ++q) {
-        if (l[q] < 0) continue;
-        const int s = slot + q;
-        out.idx[s] = l[q];
-        out.valid[s] = 1;
-        out.need[s] = 1;
-        if (tcur) out.tcur[s] = tv[q];
-        out.hit.t[s] = ht[q];
-        out.hit.id[s] = hid[q];
-        out.hit.u[s] = hu[q];
-        out.hit.v[s] = hv[q];
-      }
-      slot += kGatherChunk;
+      const int j = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const int64_t l = first + j;
+      out.idx[slot] = l;
+      out.valid[slot] = 1;
+      out.need[slot] = 1;
+      if (tcur) out.tcur[slot] = tcur[l];
+      out.hit.t[slot] = hit.t[l];
+      out.hit.id[slot] = hit.id[l];
+      out.hit.u[slot] = hit.u[l];
+      out.hit.v[slot] = hit.v[l];
+      ++slot;
     }
-    if (!fills && ticket == tiles - 1)
-      fill_empty(out, max(total_s, 0), slots, tcur, hit);
   } else {
     if (t == 0) {
       unsigned long long w;
@@ -551,8 +501,23 @@ __global__ void __launch_bounds__(kSelThreads)
     }
     __syncthreads();
     const int f = ticket - tiles;
-    fill_empty(out, max(prefix_s, f * kFillSlots),
-               min(slots, (f + 1) * kFillSlots), tcur, hit);
+    const int end = min(slots, (f + 1) * kFillSlots);
+    const int begin = max(prefix_s, f * kFillSlots);
+    if (begin < end) {
+      const float t0 = tcur ? tcur[0] : 0.0f;
+      const float ht = hit.t[0], hu = hit.u[0], hv = hit.v[0];
+      const int hid = hit.id[0];
+      for (int s = begin + t; s < end; s += kSelThreads) {
+        out.idx[s] = 0;
+        out.valid[s] = 0;
+        out.need[s] = 0;
+        if (tcur) out.tcur[s] = t0;
+        out.hit.t[s] = ht;
+        out.hit.id[s] = hid;
+        out.hit.u[s] = hu;
+        out.hit.v[s] = hv;
+      }
+    }
   }
   __syncthreads();
   if (t == 0) {
@@ -804,8 +769,8 @@ extern "C" int imba_stream_resolve(const void* rows, const void* perm,
 // in need; tcur (R,) f32 or null, hit = (t, id, u, v) of the R lanes
 // (R > 0 where slots > 0); out: idx (slots,) i64, valid, s_need
 // (slots,) bool, s_tcur (slots,) f32 (when tcur), s_hit (slots,) each,
-// count and dropped 0-d i32.  A grid of the tiles of R, then, past
-// kFillSlots slots, the fill blocks of the slots.  Returns a CUDA error (cudaErrorInvalidValue past
+// count and dropped 0-d i32.  A grid of the tiles of R, then the fill
+// blocks of the slots.  Returns a CUDA error (cudaErrorInvalidValue past
 // kSelMaxTiles tiles).
 extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
                                 const void* tcur, void* const* hit,
@@ -815,8 +780,7 @@ extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
   const int64_t tiles = num_r > 0 ? (num_r + kSelTile - 1) / kSelTile : 1;
   if (tiles > kSelMaxTiles || slots < 0 || (slots > 0 && num_r <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int fills =
-      slots > kFillSlots ? (slots + kFillSlots - 1) / kFillSlots : 0;
+  const int fills = (slots + kFillSlots - 1) / kFillSlots;
   const SlotOut out = {static_cast<int64_t*>(idx),
                        static_cast<uint8_t*>(valid),
                        static_cast<uint8_t*>(s_need),
@@ -825,7 +789,7 @@ extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
   slot_gather_kernel<<<static_cast<unsigned>(tiles) + fills, kSelThreads,
                        0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(need), num_r, static_cast<int>(tiles),
-      slots, fills, static_cast<const float*>(tcur), make_hit_in(hit), out);
+      slots, static_cast<const float*>(tcur), make_hit_in(hit), out);
   return static_cast<int>(cudaGetLastError());
 }
 
