@@ -2181,49 +2181,44 @@ def slot_mismatches(k, p):
     return bad
 
 
-# The selection cells of phase 4e over a NUM_RAYS-lane band: the lanes in
-# need given the slots (none, every lane, as many as the slots, 77 past
-# them, only the last lane), and half the slots over NUM_RAYS + 4,133
-# lanes, no multiple of the kernel's 16-lane words or 4,096-lane tiles
-# (csrc/dispatch.cu kSelTile); tests/torch_dispatch_cases.py SELECT_CASES.
-SELECT_CELLS = {"none": lambda s: 0, "all": None, "equal": lambda s: s,
-                "past": lambda s: s + 77, "last": "last",
-                "ragged": lambda s: s // 2}
+def dispatch_cases():
+    """tests/torch_dispatch_cases.py, the shapes and cases the dispatch
+    tests share (numpy only)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(1, tests)
+    import torch_dispatch_cases
+    return torch_dispatch_cases
 
 
 def selection_inputs(case, two_level, seed, dev):
-    """Seeded inputs of the SELECT_CELLS cell `case` at the flat or
-    two-level slot share: (need, slots, hit, tcur or None)."""
+    """Seeded inputs of the slot selection case `case` (SELECT_CASES of
+    dispatch_cases()) over a NUM_RAYS-lane band at the flat or two-level
+    slot share, on `dev`: (need, slots, hit, tcur or None)."""
     from imbatracer_torch.render import traverse as tt
 
-    n = NUM_RAYS + (4133 if case == "ragged" else 0)
-    slots = tt.retrace_slots(n, two_level)
-    want = SELECT_CELLS[case]
-    rs = np.random.RandomState(40 + seed)
-    need = np.zeros(n, dtype=bool)
-    if want is None:
-        need[:] = True
-    elif want == "last":
-        need[-1] = True
-    else:
-        need[rs.permutation(n)[:want(slots)]] = True
-    _, _, hit, tcur = random_slots_case(n, 0.1, slots, seed, dev,
-                                        not two_level)
-    return torch.from_numpy(need).to(dev), slots, hit, tcur
+    need, slots, hit, tcur = dispatch_cases().select_case(
+        case, NUM_RAYS, 40 + seed, lambda n: tt.retrace_slots(n, two_level),
+        not two_level)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(need), slots, tt.Hit(*map(t, hit)),
+            None if tcur is None else t(tcur))
 
 
 def hold_selections(dev, card):
     """`[slots]` selection cells: slot_gather_kernel, which selects the
     slots from the need flags in one launch, against its plain version
-    (nonzero_static, the sum, the gathers) bit for bit in every cell of
-    SELECT_CELLS at the flat (1,024) and two-level (65,536) slot shares
-    of a NUM_RAYS-lane band, each cell launched twice (the status words
-    are back at 0 after a launch)."""
+    (nonzero_static, the sum, the gathers) bit for bit in every case of
+    the dispatch tests' SELECT_CASES (no lane in need, every lane, as
+    many as the slots, more, only the last lane, lanes that fill no whole
+    word or tile of the kernel) at the flat (1,024) and two-level
+    (65,536) slot shares of a NUM_RAYS-lane band, each launched twice
+    (the status words are back at 0 after a launch)."""
     from imbatracer_torch.ops import dispatch as dp
-    from imbatracer_torch.render import traverse as tt
 
     for two_level in (False, True):
-        for seed, case in enumerate(SELECT_CELLS):
+        for seed, case in enumerate(dispatch_cases().SELECT_CASES):
             need, slots, hit, tcur = selection_inputs(case, two_level, seed,
                                                       dev)
             n = need.shape[0]

@@ -234,22 +234,21 @@ def gather_slots(need, slots: int, hit: Hit, tcur=None) -> dp.Slots:
     return dp.slot_gather(need, slots, hit, tcur)
 
 
-def _retrace_loop(s: dp.Slots, body, cap: int, dev):
+def _retrace_loop(s: dp.Slots, body, cap: int):
     """After a dispatch's first round, run body() while a slot needs a
     round and fewer than `cap` rounds have run (graphs.while_loop over a
     graphs.LoopTest: under a capture the WHILE node's flag kernel tests
     it and counts the rounds), counting each round; returns (the rounds
     run, a 0-d device int32; the counts a run of the body ticks, which
     _finish adds for all its runs)."""
-    test = graphs.LoopTest(s.need, s.count,
-                           torch.empty((), dtype=torch.int32, device=dev),
-                           cap)
+    rounds = torch.empty((), dtype=torch.int32, device=s.need.device)
+    test = graphs.LoopTest(s.need, s.count, rounds, cap)
 
     def counted():
         MASK_STATS["rounds"] += 1
         body()
 
-    return test.rounds, graphs.while_loop(test, counted)
+    return rounds, graphs.while_loop(test, counted)
 
 
 def _finish(overflow, act, slots: dp.Slots, loop, hit: Hit) -> Hit:
@@ -296,7 +295,7 @@ def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,
                                    lanes=s.idx, tcur=s.tcur)
         dp.khit_resolve(disp, out, s.need, s.need, s.tcur, s.hit, alpha_fn)
 
-    loop = _retrace_loop(s, body, KHIT_MAX_ROUNDS, dev)
+    loop = _retrace_loop(s, body, KHIT_MAX_ROUNDS)
     return _finish(overflow, act, s, loop, hit)
 
 
@@ -330,7 +329,7 @@ def _closest_hit_masked_graph(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn,
         dp.stream_resolve(disp, out, dp.RETRACE, hit=s.hit, flag=s.need,
                           retrace_in=s.need, select=True, alpha_fn=alpha_fn)
 
-    loop = _retrace_loop(s, body, RETRACE_MAX_ROUNDS, dev)
+    loop = _retrace_loop(s, body, RETRACE_MAX_ROUNDS)
     return _finish(overflow, act, s, loop, hit)
 
 

@@ -9,8 +9,8 @@ tree's nvcc flags into build/imbatracer_torch/ and launched through this
 tree's wrappers, whose C interface both share.  Each kernel is timed as
 chip_smoke.graph_ms (10 launches captured in one CUDA graph, after a
 warm-up), earlier, redesigned, redesigned, earlier, on chip_smoke.py's
-selection cells (chip_smoke.SELECT_CELLS over a 2^18-lane band at the
-flat and two-level slot shares) and on the slots the graph-ready
+selection cells (the dispatch tests' SELECT_CASES over a 2^18-lane band
+at the flat and two-level slot shares) and on the slots the graph-ready
 re-trace gathers from a bounce's rays (chip_smoke.recorded_slots): the
 middle 2^18-lane band of a still-life PT frame at 1920x1080 after bounce
 1 (flat) and the instanced scene at 1920x1080 after bounce 1 (two-level).
@@ -174,7 +174,7 @@ def main():
         mod._lib = libs[mod]["redesigned"]
 
     for two_level in (False, True):
-        for seed, case in enumerate(cs.SELECT_CELLS):
+        for seed, case in enumerate(cs.dispatch_cases().SELECT_CASES):
             selection_case(
                 libs[dp], f"{case}, {'two-level' if two_level else 'flat'}"
                 f" share", *cs.selection_inputs(case, two_level, seed, dev),

@@ -269,10 +269,11 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # and flag in and its key out.  The kernels that are not a lane a thread
 # take chip_smoke.py's bytes of one launch on the still-life band over
 # that launch's threads: the collect append a 16-byte word of staged rows
-# a thread (at the band's 31.4% valid rows), the splat a row (its pixel
-# and contribution; the film a launch), the selection's keys a row (the
-# admission keys'; the canonical keys move 20), its gather and the grid's
-# tiles a word or a photon slot, the grid's keys a photon.  The slot
+# a thread (at the band's 31.4% valid rows), the splat a row (its pixel,
+# and a contribution where it has one; the film a launch), the
+# selection's keys a row (the admission keys'; the canonical keys move
+# 20), its gather and the grid's tiles a word or a photon slot, the
+# grid's keys a photon.  The slot
 # kernels and the WHILE nodes' flag kernel move what the function needs
 # a launch, whatever the kernel: the need flags of the band and the
 # slots' state out (26 B a slot, 30 with tcur), the slots' valid flags,
@@ -286,7 +287,8 @@ THREAD_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
                 "vcm_light_shade_kernel": 74.7e6 / 262144,
                 "vcm_camera_shade_kernel": 115e6 / 262144,
                 "collect_append_kernel": 136.9e6 / (8 * 262144 * 6),
-                "collect_tail_kernel": 12, "splat_kernel": 16,
+                "collect_tail_kernel": 12,
+                "splat_kernel": (33.6e6 - 1920 * 1080 * 12) / (8 * 262144),
                 "select_keys_kernel": 12,
                 "select_gather_kernel": 429.2e6 / (2097152 * 6),
                 "grid_keys_kernel": 32.8e6 / 2034225,
@@ -396,8 +398,9 @@ def loop_launches(tag, events):
             continue
         n = sum(len(r) for r in runs) / len(runs)
         us = sum(ns for r in runs for _, ns in r) / 1e3 / len(runs)
-        names = ", ".join(k.split("(")[0].split("<")[0][-40:]
-                          for k, _ in runs[0])
+        names = ", ".join(
+            k.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0].split("<")[0][-40:] for k, _ in runs[0])
         print(f"[loop] graphed {tag} frame: {len(runs)} loop "
               f"{'entries' if kind == 'entry' else 'pass ends'}, "
               f"{n:.2f} launches each from the resolve to the WHILE node "
