@@ -64,7 +64,10 @@ failure raises and the script exits non-zero:
    max(1, |x|) and the max relative error; the RNG state and the counts
    must be equal on every lane, active, depth, last_specular and the
    shadow flag on >= 99.99% of the lanes, each float column within on >=
-   99.9%.  Each kernel timed alone as graph_ms (10 launches in one CUDA
+   99.9%.  The finish also on seeded ragged bands (FINISH_LANES, from an
+   aligned base and one an element past it, a carried count near 2^40),
+   its radiance and count bit-equal.  Each kernel timed alone as
+   graph_ms (10 launches in one CUDA
    graph, the device's time) beside the plain composite (3 calls) and
    its bound (shade_bytes: the lanes' columns in and out, the distinct
    shade-record and light rows; or SHADE_LANE_OPS float instructions a
@@ -121,8 +124,9 @@ failure raises and the script exits non-zero:
    exactly on an overflow; the splat's film within phase 14's rule (mean
    1e-6 relative, >= 99.9% of pixels within 1e-5: both add with
    atomics).  The slot kernels of csrc/dispatch.cu (ops/dispatch.py:
-   slot_gather_kernel, slot_merge_kernel, slot_finish_kernel; `[slots]`
-   lines) on the still life's bounce-1 rays as its graph-ready khit
+   slot_gather_kernel, slot_finish_kernel; `[slots]`
+   lines; the merge of the slots' hits runs in slot_finish_kernel's
+   launch) on the still life's bounce-1 rays as its graph-ready khit
    re-trace gathers them (phase 8a: the instanced scene's two-level
    re-trace) and on seeded need masks at both slot shares (no lane
    active; past the slots; within them): the slot state, the merged hit
@@ -518,12 +522,10 @@ REPLACES = {
     "slot_gather": "imbatracer_tpu/render/traverse.py:296-299, :407-409 "
                    "(the masked while loops' carry into their bodies, "
                    "full-width in JAX); XLA-fused; no pallas_call",
-    "slot_merge": "imbatracer_tpu/render/traverse.py:288-293, :371-376 "
-                  "(the while bodies' carry select of the hits); "
-                  "XLA-fused; no pallas_call",
     "slot_finish": "imbatracer_tpu/render/traverse.py:281-283, :356-358 "
-                   "(the while loops' exit under MASK_MAX_ROUNDS); "
-                   "XLA-fused; no pallas_call",
+                   "(the while loops' exit under MASK_MAX_ROUNDS) and "
+                   ":288-293, :371-376 (the while bodies' carry select of "
+                   "the hits); XLA-fused; no pallas_call",
     "select_keys": "imbatracer_tpu/render/light_cache.py:179-184, "
                    ":209-218 (select_shallowest's and canonicalize's sort "
                    "keys, jitted :165, :197, called at render/integrators/"
@@ -794,7 +796,7 @@ def hold_dispatch_launches(label, got, resolve, slots=False):
     """A main path's dispatch glue: the keys and rows kernels and
     `resolve` (khit_resolve or stream_resolve) launched, every alpha test
     by the mask record (no flags variant), no plain version; with
-    `slots` (a graphed masked path), the re-trace's three slot kernels
+    `slots` (a graphed masked path), the re-trace's two slot kernels
     too, once each a graph-ready masked dispatch."""
     need = ("dispatch_keys", "dispatch_rows", resolve)
     if slots:
@@ -809,13 +811,15 @@ def hold_dispatch_launches(label, got, resolve, slots=False):
 
 
 def hold_slot_launches(label, got):
-    """A graphed masked path's slot kernels: slot_gather, slot_merge and
-    slot_finish each launched once a masked dispatch."""
-    n = [got[k] for k in SLOT_KERNELS]
-    if not (n[0] == n[1] == n[2] == got["dispatches"] > 0):
-        raise AssertionError(f"{label}: the slot kernels launched "
-                             f"{dict(zip(SLOT_KERNELS, n))} times over "
-                             f"{got['dispatches']} masked dispatches")
+    """A graphed masked path's slot kernels: slot_gather and slot_finish
+    each launched once a masked dispatch, and slot_merge never (the merge
+    runs in slot_finish's launch)."""
+    n = {k: got[k] for k in SLOT_COUNTS}
+    if not (n["slot_gather"] == n["slot_finish"] == got["dispatches"] > 0
+            and n["slot_merge"] == 0):
+        raise AssertionError(f"{label}: the slot kernels launched {n} "
+                             f"times over {got['dispatches']} masked "
+                             f"dispatches")
 
 
 def hold_vcm_shade_launches(label, got, algo):
@@ -1314,13 +1318,61 @@ def hold_shade(label, scene, meta, c, hit, alpha_fn, max_len, card, stats):
 # Phase 4b's late still-life bounce: max_len 8, so its lanes at depth 6
 # may still go on once.
 LATE_BOUNCE = 6
+# Phase 4b's ragged bands of the NEE add (pt_shade_finish_kernel: four
+# lanes a thread, a scalar tail, a grid of at most four blocks an SM).
+FINISH_LANES = (1, 3, 127, 129, 262143, 262144, 266277)
+
+
+def unaligned(x):
+    """x copied into a view one element past the start of its storage."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def hold_finish_ragged(dev, card):
+    """`[shade]` ragged cells: pt_shade_finish_kernel against its plain
+    version, bit for bit, on seeded radiance (signed zeros among it),
+    contrib and shadow flags over FINISH_LANES lanes, from an aligned
+    base and from one an element past it (the scalar route), with a
+    carried count near 2^40: the radiance and the count, the carried
+    count left as it was."""
+    from imbatracer_torch.ops import shade as sh
+
+    for lanes in FINISH_LANES:
+        for base in ("aligned", "unaligned"):
+            rs = np.random.RandomState(lanes % 97)
+            rad = rs.randn(lanes, 3).astype(np.float32)
+            rad[rs.rand(lanes) < 0.1] = -0.0
+            args = [torch.from_numpy(a).to(dev) for a in (
+                rad, rs.rand(lanes, 3).astype(np.float32),
+                rs.rand(lanes) < 0.5, rs.rand(lanes) < 0.5)]
+            if base == "unaligned":
+                args = [unaligned(x) for x in args]
+            n0 = torch.tensor((1 << 40) - 1000 + lanes % 97,
+                              dtype=torch.int64, device=dev)
+            k = sh.pt_shade_finish_cuda(*args, n0)
+            p = sh.pt_shade_finish_plain(*args, n0)
+            bad = bit_mismatches(k[0], p[0]) + int(
+                int(k[1]) != int(p[1]) or int(n0) != (1 << 40) - 1000
+                + lanes % 97)
+            log(f"[shade] pt_shade_finish, {lanes} lanes from an {base} "
+                f"base, {int(args[2].sum())} shadow rays, carried count "
+                f"{int(n0)}: elements not bit-equal to the plain version "
+                f"(radiance, count): {bad} [{card}]")
+            if bad:
+                raise AssertionError(f"[shade] pt_shade_finish at {lanes} "
+                                     f"lanes ({base}): {bad} elements "
+                                     f"differ from the plain version")
 
 
 def shade_phase(dev, card, scenes, stats):
     """Phase 4b: the shade kernels against their plain versions on one
     NUM_RAYS band of the still life at bounces 0, 3 and LATE_BOUNCE (few
     of its lanes alive), of the cornell and of the bumped scene (the
-    instanced scene's band: phase 8a), with the kernels' resources."""
+    instanced scene's band: phase 8a), the NEE add on ragged bands
+    (hold_finish_ragged), with the kernels' resources."""
     from imbatracer_torch.ops import shade as sh
     from imbatracer_torch.scene.procedural import make_bumped_scene
 
@@ -1340,6 +1392,7 @@ def shade_phase(dev, card, scenes, stats):
                                        dev)
         hold_shade(label, scene, meta, c, hit, alpha_fn, max_len, card,
                    stats)
+    hold_finish_ragged(dev, card)
     for finish in (False, True):
         log_resources("pt_shade_finish kernel" if finish else
                       "pt_shade kernel", sh.resources(finish), card)
@@ -1971,12 +2024,16 @@ def dispatch_phase(dev, card, scenes, stats):
 # with one (12 B) and writes the fresh film (12 B a pixel); the slot
 # gather reads a slot's lane index (8 B), the count and its distinct
 # lanes' tcur and hit (16-20 B) and writes the slot's two flags, tcur and
-# hit and the dropped count; the merge reads a slot's flag and, where
-# valid, its lane index and hit (24 B) and writes its lane's hit (16 B);
-# the finish reads every active and unresolved flag (1 B each) and three
-# counts and writes the overflow and five counts.
+# hit and the dropped count; the finish reads every active flag and
+# every slot's unresolved and valid flags (1 B each) and three counts and
+# writes the overflow and five counts, and merges the hits: reads a
+# valid slot's lane index and hit (24 B) and writes its lane's hit (16
+# B).
 INT_COLS = (14, 21, 22)       # mat_id, path_length, path_id of a cache row
-SLOT_KERNELS = ("slot_gather", "slot_merge", "slot_finish")
+SLOT_KERNELS = ("slot_gather", "slot_finish")
+# The launch counts of the slots that the counter lines print: the merge's
+# reads 0, its work done in slot_finish's launch.
+SLOT_COUNTS = ("slot_gather", "slot_merge", "slot_finish")
 TAIL_KERNELS = ("collect_append", "splat")
 
 
@@ -2312,49 +2369,75 @@ def time_loop_test(dev, card):
             f"slots' flags)")
 
 
-def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
-               record):
-    """`[slots]`: the three slot kernels against their plain versions, bit
-    for bit: the gather (the slots selected from the need flags, their
-    state, the count and the dropped lanes); the merge of seeded slot
-    hits into a copy
-    of `hit` where the slots are valid; the finish's overflow and device
-    counts (a seeded counts vector whose slot 0 is the overflow counter,
-    FINISH_KEYS at slots 3-7) with a seeded half of the valid slots left
-    unresolved, seeded rounds and five seeded per-run counts of the
-    loop's body folded in.  Each kernel timed alone beside its
-    plain version and its bound; with `record`, into `stats`."""
+def finish_case(k, act, seed):
+    """Seeded inputs of the finish after the slot gather `k` (dispatch.Slots
+    on the card): (slots, rounds, counts, where, deltas): `k` with seeded
+    slot hits and a seeded half of its valid slots left unresolved,
+    seeded rounds, a seeded counts vector whose slot 0 is the overflow
+    counter (FINISH_KEYS at slots 3-7), and five seeded per-run counts of
+    the loop's body (keys, rows, khit, its resolve, the round, as the
+    graphs fold them)."""
     from imbatracer_torch.ops import dispatch as dp
     from imbatracer_torch.render import traverse as tt
 
-    dev, n = need.device, need.shape[0]
+    n = k.idx.shape[0]
+    rs = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a).to(act.device)
+    sub = tt.Hit(t(rs.uniform(0, 9, n).astype(np.float32)),
+                 t(rs.randint(-1, 5000, n).astype(np.int32)),
+                 t(rs.rand(n).astype(np.float32)),
+                 t(rs.rand(n).astype(np.float32)))
+    left = k._replace(hit=sub, need=k.valid & t(rs.rand(n) < 0.5))
+    rounds = t(np.asarray(rs.randint(1, 9), dtype=np.int32))
+    counts = t(rs.randint(0, 100, 14).astype(np.int32))
+    where = (list(range(3, 3 + len(dp.FINISH_KEYS))),
+             [key.startswith("max_") for key in dp.FINISH_KEYS])
+    deltas = [(int(x), 1) for x in rs.choice([1, 2] + list(range(8, 14)), 5,
+                                             replace=False)]
+    return left, rounds, counts, where, deltas
+
+
+def finish_mismatches(act, left, rounds, counts0, where, deltas, hit):
+    """Elements not bit-equal between slot_finish_kernel, one launch that
+    merges the slots' hits into a copy of `hit` in place and updates a
+    copy of `counts0`, and its plain version, slot_finish_plain then
+    slot_merge_plain: the merged hit and the counts (the overflow their
+    slot 0)."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.render import traverse as tt
+
+    ck, cp = counts0.clone(), counts0.clone()
+    own = tt.Hit(*(x.clone() for x in hit))
+    got = dp.slot_finish_cuda(ck[0], act, left, rounds, (ck,) + where,
+                              deltas, hit=own)
+    want = dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where,
+                                deltas, hit=hit)
+    bad = bit_mismatches(ck, cp) + sum(bit_mismatches(x, y)
+                                       for x, y in zip(got, want))
+    return bad + sum(x is not y for x, y in zip(got, own))
+
+
+def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
+               record):
+    """`[slots]`: the two slot kernels against their plain versions, bit
+    for bit: the gather (the slots selected from the need flags, their
+    state, the count and the dropped lanes); the finish (finish_case's
+    inputs) in one launch against slot_finish_plain then slot_merge_plain:
+    the slots' hits merged into a copy of `hit` where the slots are
+    valid, and the overflow and device counts with the loop body's
+    per-run counts folded in.  Each kernel timed alone beside its plain
+    version and its bound; with `record`, into `stats`."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.render import traverse as tt
+
+    n = need.shape[0]
     bad = dict.fromkeys(SLOT_KERNELS, 0)
     k = dp.slot_gather_cuda(need, slots, hit, tcur)
     p = dp.slot_gather_plain(need, slots, hit, tcur)
     bad["slot_gather"] = slot_mismatches(k, p)
-    rs = np.random.RandomState(seed)
-    t = lambda a: torch.from_numpy(a).to(dev)
-    sub = tt.Hit(t(rs.uniform(0, 9, slots).astype(np.float32)),
-                 t(rs.randint(-1, 5000, slots).astype(np.int32)),
-                 t(rs.rand(slots).astype(np.float32)),
-                 t(rs.rand(slots).astype(np.float32)))
-    merged = k._replace(hit=sub)
-    mk = dp.slot_merge_cuda(merged, tt.Hit(*(x.clone() for x in hit)))
-    mp = dp.slot_merge_plain(merged, hit)
-    bad["slot_merge"] = sum(bit_mismatches(x, y) for x, y in zip(mk, mp))
-    left = merged._replace(need=k.valid & t(rs.rand(slots) < 0.5))
-    rounds = t(np.asarray(rs.randint(1, 9), dtype=np.int32))
-    counts0 = t(rs.randint(0, 100, 14).astype(np.int32))
-    where = (list(range(3, 3 + len(dp.FINISH_KEYS))),
-             [key.startswith("max_") for key in dp.FINISH_KEYS])
-    # The counts a khit re-trace's body ticks a run (keys, rows, khit, its
-    # resolve, the round), folded in as the graphs fold them.
-    deltas = [(int(x), 1) for x in rs.choice([1, 2] + list(range(8, 14)), 5,
-                                             replace=False)]
-    ck, cp = counts0.clone(), counts0.clone()
-    dp.slot_finish_cuda(ck[0], act, left, rounds, (ck,) + where, deltas)
-    dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where, deltas)
-    bad["slot_finish"] = bit_mismatches(ck, cp)
+    left, rounds, counts0, where, deltas = finish_case(k, act, seed)
+    bad["slot_finish"] = finish_mismatches(act, left, rounds, counts0, where,
+                                           deltas, hit)
     torch.cuda.synchronize()
     nvalid, ncount = int(k.valid.sum()), int(k.count)
     log(f"[slots] {label}: {n} lanes, {int(act.sum())} active, {ncount} "
@@ -2368,19 +2451,22 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
     tw = 4 if tcur is not None else 0
     nbytes = {"slot_gather": n + slots * (8 + 2 + 16 + tw) + 8
               + lanes * (16 + tw),
-              "slot_merge": slots + nvalid * (8 + 16 + 16),
-              "slot_finish": n + slots + 12 + 24 + 8 * len(deltas)}
+              "slot_finish": n + 2 * slots + 12 + 24 + 8 * len(deltas)
+              + nvalid * (8 + 16 + 16)}
+    ck, cp = counts0.clone(), counts0.clone()
     hit_copy = tt.Hit(*(x.clone() for x in hit))
+
+    def finish_plain():
+        dp.slot_finish_plain(cp[0], act, left, rounds, (cp,) + where, deltas,
+                             hit=hit)
+
     fns = {"slot_gather": (partial(dp.slot_gather_cuda, need, slots, hit,
                                    tcur),
                            partial(dp.slot_gather_plain, need, slots, hit,
                                    tcur)),
-           "slot_merge": (partial(dp.slot_merge_cuda, merged, hit_copy),
-                          partial(dp.slot_merge_plain, merged, hit)),
            "slot_finish": (partial(dp.slot_finish_cuda, ck[0], act, left,
-                                   rounds, (ck,) + where, deltas),
-                           partial(dp.slot_finish_plain, cp[0], act, left,
-                                   rounds, (cp,) + where, deltas))}
+                                   rounds, (ck,) + where, deltas,
+                                   hit=hit_copy), finish_plain)}
     for name, (kernel, plain) in fns.items():
         ms = graph_ms(kernel)
         wrapper_ms = cuda_ms(kernel, 10)
@@ -2389,7 +2475,8 @@ def hold_slots(label, act, need, slots, hit, tcur, seed, card, stats,
         # The selection's composite (nonzero_static, the sum, the gathers)
         # graphed, as the graph routes ran it: the yardstick.
         also = (f"; the plain composite graphed {graph_ms(plain):.4f} ms"
-                if name == "slot_gather" else "")
+                if name == "slot_gather" else
+                f"; the hits of {nvalid} valid slots merged")
         log(f"[time] {name} kernel, {label} [{card}]: kernel {ms:.4f} ms "
             f"(device, graphed launches; the wrapper {wrapper_ms:.4f} ms; "
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by "
@@ -2799,7 +2886,7 @@ def trace_totals(events):
 TRACED_KERNELS = ("set_conditional", "dispatch_keys_kernel",
                   "dispatch_rows_kernel", "khit_resolve_kernel",
                   "stream_resolve_kernel", "slot_gather_kernel",
-                  "slot_merge_kernel", "slot_finish_kernel",
+                  "slot_finish_kernel",
                   "collect_append_kernel", "collect_tail_kernel",
                   "splat_kernel", "select_keys_kernel",
                   "select_gather_kernel", "grid_keys_kernel",
@@ -4561,7 +4648,7 @@ def hold_route_slots(cell, graphed, eager):
     for r in graphed:
         if r["launches"]["dispatches"]:
             hold_slot_launches(cell, r["launches"])
-    if any(r["launches"][k] for r in eager for k in SLOT_KERNELS):
+    if any(r["launches"][k] for r in eager for k in SLOT_COUNTS):
         raise AssertionError(f"{cell}: the eager route launched the slot "
                              f"kernels")
 
@@ -4604,8 +4691,8 @@ def hold_graph_cell(cell, runs, traced, card):
     mean_ms = lambda rs: sum(r["ms"] for r in rs) / n
     each = lambda rs: ", ".join(f"{r['ms']:.1f}" for r in rs)
     keys = ROUTE_KEYS[:5] + ("pt_shade", "pt_shade_finish") + \
-        DISPATCH_KERNELS + SLOT_KERNELS + ("graph_captures",
-                                           "graph_replays", "graph_reruns")
+        DISPATCH_KERNELS + SLOT_COUNTS + ("graph_captures",
+                                          "graph_replays", "graph_reruns")
     per = lambda rs: {k: sum(r["launches"][k] for r in rs) / n
                       for k in keys}
     peak = lambda rs: max(r["peak"] for r in rs) / 2**20
@@ -4687,7 +4774,7 @@ VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
                    "any_hit_instanced", "khit", "merge", "merge_prep",
                    "vcm_light_start", "vcm_light_shade", "vcm_light_finish",
                    "vcm_camera_shade", "vcm_camera_finish",
-                   *DISPATCH_KERNELS, *SLOT_KERNELS, *TAIL_KERNELS,
+                   *DISPATCH_KERNELS, *SLOT_COUNTS, *TAIL_KERNELS,
                    *MIDDLE_KERNELS, "graph_captures", "graph_replays",
                    "graph_reruns")
 
@@ -5281,7 +5368,7 @@ def run():
     for name, got in (("dispatch_keys", sl_got), ("dispatch_rows", sl_got),
                       ("khit_resolve", sl_got),
                       ("stream_resolve", inst_got), ("slot_gather", sl_got),
-                      ("slot_merge", sl_got), ("slot_finish", sl_got)):
+                      ("slot_finish", sl_got)):
         kernels.append(kernel_entry(
             name, src + "dispatch.cu", REPLACES[name], got[name],
             stats[f"{name}_err"], stats[name], stats[f"{name}_plain_ms"]))

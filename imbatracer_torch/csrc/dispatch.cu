@@ -25,7 +25,7 @@
 //                          occlusion flag, in re-trace mode selected by the
 //                          lane's re-trace flag and alpha-tested.
 //
-// and three more around the WHILE node of the graph-ready re-trace
+// and two more around the WHILE node of the graph-ready re-trace
 // (imbatracer_torch/render/traverse.py), the counterpart of the while
 // loop's carry in JAX (traverse.py:276-297, :360-384), which XLA fuses
 // into the loop body: JAX's rounds run at full width, the port's past
@@ -38,15 +38,16 @@
 //                          loop's need flags, each slot's lane's tcur and
 //                          hit, the lanes in need and those past the
 //                          slots;
-//   slot_merge_kernel      each valid slot's hit written into its lane of
-//                          the dispatch's hit, in place;
-//   slot_finish_kernel     a grid over the SMs: the lanes still
-//                          unresolved and those past the slots added to
-//                          the overflow counter, and the dispatch's device
-//                          counts (an empty dispatch, its rounds, the lanes
-//                          carried past the first round, dropped, capped,
-//                          and the counts the loop's body ticks a run,
-//                          times the runs).
+//   slot_finish_kernel     a grid over the SMs, after the loop: each valid
+//                          slot's hit written into its lane of the
+//                          dispatch's hit, in place (the bodies' carry
+//                          select of the hits, :288-293, :371-376); the
+//                          lanes still unresolved and those past the slots
+//                          added to the overflow counter, and the
+//                          dispatch's device counts (an empty dispatch,
+//                          its rounds, the lanes carried past the first
+//                          round, dropped, capped, and the counts the
+//                          loop's body ticks a run, times the runs).
 //
 // Indexing (the plain versions' in imbatracer_torch/ops/dispatch.py):
 // sorted row j holds slot s = perm[j] (perm null: s = j) of the dispatch;
@@ -69,9 +70,9 @@
 // thread writes half a row as one float4 and keeps two rows' chains in
 // flight (dispatch_rows_kernel's note).
 // A slot gather reads every lane's need flag and a valid slot's lane's
-// 16-20 B, and writes 26-30 B a slot; a merge reads a valid slot's 25 B
-// and writes its lane's 16; the finish reads every active flag and every
-// slot's flag.  The slot gather (redesigned for Hopper) was the last of
+// 16-20 B, and writes 26-30 B a slot; the finish reads every active flag
+// and every slot's two flags, and a valid slot's 24 B (its lane and hit),
+// and writes its lane's 16.  The slot gather (redesigned for Hopper) was the last of
 // a chain of launches: torch.nonzero_static's, a sum of the flags, then
 // a slot a thread, each ~1-5 us of launch against a bound of ~0.1 us; it
 // is now one launch, an ordered compaction in a single pass whose tiles
@@ -80,9 +81,11 @@
 // one SM, its 7-8 us latency against a 0.08 us bound; it is now a grid of
 // up to one block an SM, 16-byte words a thread, whose blocks meet in one
 // atomic word and whose last block updates the counts a thread each
-// (slot_finish_kernel's note); and it adds the counts of the re-trace
-// loop's body (n x (rounds - 1) a count) that one-element adds made each
-// round.
+// (slot_finish_kernel's note); it adds the counts of the re-trace loop's
+// body (n x (rounds - 1) a count) that one-element adds made each round;
+// and its walk over the slots also merges their hits, which a kernel of
+// its own did after it in one more launch at the floor of a launch in a
+// graph (~1-2 us for a body that mostly writes nothing).
 //
 // Numerics: the plain versions' torch ops on the card, as shading.cuh
 // sets out; built with --fmad=false.
@@ -535,17 +538,6 @@ __global__ void __launch_bounds__(kSelThreads)
   }
 }
 
-__global__ void slot_merge_kernel(const int64_t* idx, const uint8_t* valid,
-                                  int slots, HitIn sub, HitOut hit) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= slots || !valid[s]) return;
-  const int64_t lane = idx[s];
-  hit.t[lane] = sub.t[s];
-  hit.id[lane] = sub.id[s];
-  hit.u[lane] = sub.u[s];
-  hit.v[lane] = sub.v[s];
-}
-
 // slot_finish_kernel's geometry: threads a block, and at most one block an
 // SM of the card.
 constexpr int kFinishThreads = 256;
@@ -596,20 +588,42 @@ __device__ int grid_flags(const uint8_t* p, int64_t n) {
   return c;
 }
 
-// Each block ORs its share of the active flags (only for the device
-// counts, which need whether none is set) and counts its share of the
-// unresolved slots, and adds both to finish_word with one atomic; the
-// last block, which the atomic's old value names and hands every other
-// block's share, updates the counts a thread each, with atomics, so that
-// none waits on another: the loop's per-run counts (rounds - 1) times,
-// the FINISH_KEYS and the overflow counter (no slot is both a maximum and
-// another count's: ops/dispatch.py checks).
+// Write each valid slot's hit into its lane (valid[s]: sub's row s into
+// hit's row idx[s]), a slot a thread in a grid-stride walk, so that a
+// grid of a thread a slot keeps every valid slot's scattered chain in
+// flight at once.  The valid slots' lanes are distinct, so no two threads
+// write one lane.
+__device__ void merge_slots(const uint8_t* valid, const int64_t* idx,
+                            int slots, HitIn sub, HitOut hit) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < slots;
+       s += stride) {
+    if (!valid[s]) continue;
+    const int64_t lane = idx[s];
+    hit.t[lane] = sub.t[s];
+    hit.id[lane] = sub.id[s];
+    hit.u[lane] = sub.u[s];
+    hit.v[lane] = sub.v[s];
+  }
+}
+
+// Each block merges its share of the slots' hits where `hit.t` is set
+// (merge_slots: it writes neither a flag nor the word, so the merge needs
+// no ordering against the rest), ORs its share of the active flags (only
+// for the device counts, which need whether none is set) and counts its
+// share of the unresolved slots, and adds both to finish_word with one
+// atomic; the last block, which the atomic's old value names and hands
+// every other block's share, updates the counts a thread each, with
+// atomics, so that none waits on another: the loop's per-run counts
+// (rounds - 1) times, the FINISH_KEYS and the overflow counter (no slot is
+// both a maximum and another count's: ops/dispatch.py checks).
 __global__ void __launch_bounds__(kFinishThreads)
     slot_finish_kernel(const uint8_t* active, int64_t num_r,
                        const uint8_t* unresolved, int slots,
                        const int* count, const int* dropped,
                        const int* rounds, int* overflow, int* counts,
-                       CountSlots cs) {
+                       CountSlots cs, const uint8_t* valid,
+                       const int64_t* idx, HitIn sub, HitOut hit) {
   __shared__ int block_left;
   __shared__ unsigned long long total;
   const int t = threadIdx.x;
@@ -619,6 +633,7 @@ __global__ void __launch_bounds__(kFinishThreads)
     asm volatile("prefetch.global.L1 [%0];" ::"l"(dropped));
   }
   if (t == 0) block_left = 0;
+  if (hit.t) merge_slots(valid, idx, slots, sub, hit);
   const int mine = grid_flags<true>(unresolved, slots);
   const int any =
       __syncthreads_or(counts ? grid_flags<false>(active, num_r) : 0);
@@ -793,31 +808,22 @@ extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// slot_merge_kernel on the current stream: sub (slots,) each into hit at
-// idx[s] where valid[s], in place.  Returns a CUDA error.
-extern "C" int imba_slot_merge(const void* idx, const void* valid,
-                               int slots, void* const* sub, void* const* hit,
-                               void* stream) {
-  if (slots > 0)
-    slot_merge_kernel<<<blocks_for(slots), kBlk, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(idx), static_cast<const uint8_t*>(valid),
-        slots, make_hit_in(sub), make_hit(hit));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // slot_finish_kernel on the current stream, a block a 4,096 bytes of the
-// flags it reads, at most kFinishBlocks: active (num_r,) bool,
+// flags it reads or a 256 slots it merges, at most kFinishBlocks: active (num_r,) bool,
 // unresolved (slots,) bool; count, dropped, rounds 0-d i32; overflow 0-d
 // i32, updated in place; counts the device counts or null, with ints =
 // (slot, is_max) of each FINISH_KEYS entry, then the number of per-run
-// counts and their (slot, n) pairs (at most kMaxDeltas).  Returns a CUDA
-// error.
+// counts and their (slot, n) pairs (at most kMaxDeltas); valid (slots,)
+// bool, idx (slots,) i64 and sub (slots,) each, merged into hit (R,) each
+// in place, or hit null (no merge).  Returns a CUDA error.
 extern "C" int imba_slot_finish(const void* active, int64_t num_r,
                                 const void* unresolved, int slots,
                                 const void* count, const void* dropped,
                                 const void* rounds, void* overflow,
-                                void* counts, const int* ints, void* stream) {
+                                void* counts, const int* ints,
+                                const void* valid, const void* idx,
+                                void* const* sub, void* const* hit,
+                                void* stream) {
   CountSlots cs = {};
   if (counts) {
     for (int k = 0; k < kFinishKeys; ++k) {
@@ -832,9 +838,13 @@ extern "C" int imba_slot_finish(const void* active, int64_t num_r,
       cs.delta_n[k] = ints[2 * kFinishKeys + 2 + 2 * k];
     }
   }
+  // A thread reads 16 flag bytes a word, and merges a slot.
   const int64_t bytes = counts && num_r > slots ? num_r : slots;
-  const int64_t want =
+  const int64_t flag_blocks =
       (bytes + 16 * kFinishThreads - 1) / (16 * kFinishThreads);
+  const int64_t merge_blocks =
+      hit ? (slots + kFinishThreads - 1) / kFinishThreads : 0;
+  const int64_t want = flag_blocks > merge_blocks ? flag_blocks : merge_blocks;
   const int blocks = static_cast<int>(
       want < 1 ? 1 : want > kFinishBlocks ? kFinishBlocks : want);
   slot_finish_kernel<<<blocks, kFinishThreads, 0,
@@ -843,12 +853,16 @@ extern "C" int imba_slot_finish(const void* active, int64_t num_r,
       static_cast<const uint8_t*>(unresolved), slots,
       static_cast<const int*>(count), static_cast<const int*>(dropped),
       static_cast<const int*>(rounds), static_cast<int*>(overflow),
-      static_cast<int*>(counts), cs);
+      static_cast<int*>(counts), cs, static_cast<const uint8_t*>(valid),
+      static_cast<const int64_t*>(idx),
+      hit ? make_hit_in(sub) : HitIn{nullptr, nullptr, nullptr, nullptr},
+      hit ? make_hit(hit) : HitOut{nullptr, nullptr, nullptr, nullptr});
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resources of kernel `which` (0 keys, 1 rows, 2 khit resolve, 3 stream
-// resolve, 4 slot gather, 5 slot merge, 6 slot finish): out[0] registers, out[1] static shared bytes, out[2] dynamic
+// resolve, 4 slot gather, 5 slot finish): out[0] registers, out[1] static
+// shared bytes, out[2] dynamic
 // shared bytes, out[3] local (spill) bytes a thread, out[4] resident
 // blocks an SM.  Returns a CUDA error code.
 extern "C" int imba_dispatch_resources(int which, int* out) {
@@ -857,16 +871,15 @@ extern "C" int imba_dispatch_resources(int which, int* out) {
                        reinterpret_cast<const void*>(khit_resolve_kernel),
                        reinterpret_cast<const void*>(stream_resolve_kernel),
                        reinterpret_cast<const void*>(slot_gather_kernel),
-                       reinterpret_cast<const void*>(slot_merge_kernel),
                        reinterpret_cast<const void*>(slot_finish_kernel)};
-  if (which < 0 || which > 6) return static_cast<int>(cudaErrorInvalidValue);
+  if (which < 0 || which > 5) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fns[which]);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, fns[which],
-        which == 6   ? kFinishThreads
+        which == 5   ? kFinishThreads
         : which == 4 ? kSelThreads
         : which == 1 ? kRowThreads
                      : kBlk,

@@ -20,10 +20,12 @@
 // scene's shade record (F, cols) f32 read through the column map, light
 // rows (L, 24) f32, texture atlas and environment tables; out the next
 // carry, the shadow ray (pos, dir (R, 3), tmin, tmax (R,), ok (R,) bool)
-// and contrib (R, 3).  Each kernel adds its lanes' count (the active
-// lanes, the shadow rays) to a copy of the carried count n_rays: a warp
-// ballot, then one atomicAdd a warp.  Nothing is read on the host and
-// nothing is allocated, so both run inside the captured bounce.
+// and contrib (R, 3).  pt_shade_kernel adds the active lanes to a copy of
+// the carried count n_rays (a warp ballot, then one atomicAdd a warp);
+// pt_shade_finish_kernel writes n_rays plus the shadow rays into a count
+// of its own (a block's count, one atomic a block into a meeting word,
+// the last block's write).  Nothing is read on the host and nothing is
+// allocated, so both run inside the captured bounce.
 //
 // What bounds it: the bytes a live lane moves (the carry, its hit, one
 // shade-record row, one light row, texels and env-table entries, the
@@ -31,6 +33,16 @@
 // one light sample a lane; the per-lane branches by material and light
 // kind diverge within a warp.  The design is the plain one: a lane a
 // thread, registers only, no shared memory.
+//
+// The finish (redesigned for Hopper) moves 38 B a lane, ~3 us of bytes
+// on a 262,144-lane band, and took ~6-7 us traced: its warps made 8,192
+// same-address 64-bit atomics a band, serialised at one L2 slice, its
+// loads were 4-byte scalars at a stride of 3, and its wrapper copied the
+// count first (one more graph node).  It is now a grid of up to
+// kFinBlocksPerSM blocks an SM striding over the band, four lanes a
+// thread read and written as three 16-byte words of each (R, 3) array
+// and one 4-byte word of each flag array, one atomic a block, and the
+// count written by the last block (pt_shade_finish_kernel's note).
 //
 // Numerics: see shading.cuh.  Built with --fmad=false.
 
@@ -237,21 +249,84 @@ __global__ void __launch_bounds__(kBlk)
   store3(out<float>(a, P_CONTRIB) + 3 * i, contrib);
 }
 
-__global__ void __launch_bounds__(kBlk)
+// pt_shade_finish_kernel's geometry: threads a block, and the most
+// blocks an SM its grid holds (half an SM's 2,048 threads).
+constexpr int kFinThreads = 256;
+constexpr int kFinBlocksPerSM = 4;
+
+// The finish's blocks meet in one 64-bit word: the shadow rays counted in
+// its low 32 bits, the blocks done in the high 32.  Each block adds its
+// share with one atomic, whose old value tells the last block the
+// others' shares.  Zero between launches (the last block of each resets
+// it), one launch at a time a device: a band's bounces are ordered on its
+// stream, in and out of a graph.
+constexpr int kFinDoneShift = 32;
+__device__ unsigned long long finish_count_word = 0ull;
+
+// Float j of an (R, 3) array belongs to lane j / 3: a thread takes four
+// lanes, twelve floats, as three 16-byte words of radiance, contrib and
+// out and one 4-byte word of each flag array (`vec`: every base aligned
+// for that), a scalar lane a thread past the last whole four, or every
+// lane where a base is not aligned.  out = radiance + (lit ? contrib :
+// 0), as the plain version's torch.where and add round it.  The shadow
+// rays are counted a block (a warp's sum, then one shared add a warp) and
+// added to finish_count_word with one atomic a block; the last block
+// writes count_out = count_in + the total and resets the word.  Both
+// counts are int64; a band's total fits the word's 32 bits.
+__global__ void __launch_bounds__(kFinThreads)
     pt_shade_finish_kernel(const float* __restrict__ radiance,
                            const float* __restrict__ contrib,
                            const uint8_t* __restrict__ shadow_ok,
                            const uint8_t* __restrict__ occluded,
                            float* __restrict__ out,
-                           unsigned long long* count, int lanes) {
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  const bool lane = i < lanes;
-  const bool cast = lane && shadow_ok[i] != 0;
-  count_warp(cast, count);
-  if (!lane) return;
-  const bool lit = cast && occluded[i] == 0;
-  for (int k = 0; k < 3; ++k)
-    out[3 * i + k] = radiance[3 * i + k] + (lit ? contrib[3 * i + k] : 0.0f);
+                           const long long* __restrict__ count_in,
+                           long long* __restrict__ count_out, int lanes,
+                           int vec) {
+  __shared__ int block_cast;
+  const int t = threadIdx.x;
+  if (t == 0) block_cast = 0;
+  const int stride = gridDim.x * kFinThreads;
+  const int first = blockIdx.x * kFinThreads + t;
+  const int quads = vec ? lanes / 4 : 0;
+  int cast = 0;
+  for (int q = first; q < quads; q += stride) {
+    const unsigned ok = reinterpret_cast<const unsigned*>(shadow_ok)[q];
+    const unsigned occ = reinterpret_cast<const unsigned*>(occluded)[q];
+    const float4* r4 = reinterpret_cast<const float4*>(radiance) + 3 * q;
+    const float4* c4 = reinterpret_cast<const float4*>(contrib) + 3 * q;
+    float4 r[3] = {r4[0], r4[1], r4[2]};
+    const float4 c[3] = {c4[0], c4[1], c4[2]};
+    const unsigned lit = ok & ~occ;        // bools: a byte each, 0 or 1
+    float* rf = reinterpret_cast<float*>(r);
+    const float* cf = reinterpret_cast<const float*>(c);
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+      rf[j] = rf[j] + (((lit >> (8 * (j / 3))) & 0xffu) ? cf[j] : 0.0f);
+    float4* o4 = reinterpret_cast<float4*>(out) + 3 * q;
+    o4[0] = r[0];
+    o4[1] = r[1];
+    o4[2] = r[2];
+    cast += __popc(ok);
+  }
+  for (int i = 4 * quads + first; i < lanes; i += stride) {
+    const bool ok = shadow_ok[i] != 0;
+    const bool lit = ok && occluded[i] == 0;
+    for (int k = 0; k < 3; ++k)
+      out[3 * i + k] = radiance[3 * i + k] + (lit ? contrib[3 * i + k] : 0.0f);
+    cast += ok;
+  }
+  const int w = __reduce_add_sync(0xffffffffu, cast);
+  __syncthreads();                       // block_cast zeroed
+  if ((t & 31) == 0 && w) atomicAdd(&block_cast, w);
+  __syncthreads();
+  if (t != 0) return;
+  const unsigned long long share =
+      static_cast<unsigned long long>(block_cast) | (1ull << kFinDoneShift);
+  const unsigned long long old = atomicAdd(&finish_count_word, share);
+  if ((old >> kFinDoneShift) != gridDim.x - 1u) return;
+  finish_count_word = 0ull;
+  *count_out = *count_in +
+               static_cast<long long>((old + share) & 0xffffffffull);
 }
 
 int blocks_for(int lanes) { return (lanes + kBlk - 1) / kBlk; }
@@ -279,19 +354,37 @@ extern "C" int imba_pt_shade(void* const* ptrs, int nptrs, const int* ints,
 }
 
 // pt_shade_finish_kernel on the current stream: out (R, 3) = radiance +
-// contrib where shadow_ok & ~occluded, and the shadow rays added to
-// *count (int64).  Returns a CUDA error code.
+// contrib where shadow_ok & ~occluded, and count_out (int64) = count_in
+// plus the shadow rays (one launch, also for R = 0).  A grid of up to
+// kFinBlocksPerSM blocks an SM, a thread four lanes.  Returns a CUDA
+// error code.
 extern "C" int imba_pt_shade_finish(const void* radiance, const void* contrib,
                                     const void* shadow_ok, const void* occluded,
-                                    void* out, void* count, int lanes,
-                                    void* stream) {
-  if (lanes > 0)
-    pt_shade_finish_kernel<<<blocks_for(lanes), kBlk, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(radiance), static_cast<const float*>(contrib),
-        static_cast<const uint8_t*>(shadow_ok),
-        static_cast<const uint8_t*>(occluded), static_cast<float*>(out),
-        static_cast<unsigned long long*>(count), lanes);
+                                    void* out, const void* count_in,
+                                    void* count_out, int lanes, void* stream) {
+  if (lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto aligned = [](const void* p, uintptr_t a) {
+    return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
+  };
+  const int vec = aligned(radiance, 16) && aligned(contrib, 16) &&
+                  aligned(out, 16) && aligned(shadow_ok, 4) &&
+                  aligned(occluded, 4);
+  const int items = vec ? lanes / 4 : lanes;
+  const int want = (items + kFinThreads - 1) / kFinThreads;
+  const int most = sms * kFinBlocksPerSM;
+  const int blocks = want < 1 ? 1 : want > most ? most : want;
+  pt_shade_finish_kernel<<<blocks, kFinThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(radiance), static_cast<const float*>(contrib),
+      static_cast<const uint8_t*>(shadow_ok),
+      static_cast<const uint8_t*>(occluded), static_cast<float*>(out),
+      static_cast<const long long*>(count_in),
+      static_cast<long long*>(count_out), lanes, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,7 +399,8 @@ extern "C" int imba_pt_shade_resources(int finish, int* out) {
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlk, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, finish ? kFinThreads : kBlk, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);

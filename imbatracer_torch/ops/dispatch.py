@@ -1,5 +1,5 @@
 """The traversal dispatch glue and the masked re-trace's slot bookkeeping:
-seven hand-written CUDA kernels, their plain PyTorch versions, and the
+six hand-written CUDA kernels, their plain PyTorch versions, and the
 sorted dispatch built on them.
 
 No Pallas kernel stands behind these: JAX runs the glue around each
@@ -28,7 +28,7 @@ around the Pallas calls.  The card's counterpart is one kernel a step
 Around the WHILE node of the graph-ready masked re-trace
 (render/traverse.py), whose rounds past the first run on `slots` lanes,
 the first lanes in need in lane order (JAX's rounds run at full width,
-its while loop's carry fused by XLA into the loop body), three more:
+its while loop's carry fused by XLA into the loop body), two more:
 
   * `slot_gather`: the slots selected and their state after the first
     round, in one launch (class Slots: each slot's lane, as
@@ -36,15 +36,15 @@ its while loop's carry fused by XLA into the loop body), three more:
     lane's tcur and hit, the lanes in need and those past the slots); on
     the card a single-pass ordered compaction whose tiles find their
     offsets by decoupled look-back;
-  * `slot_merge`: each valid slot's hit written into its lane of the
-    dispatch's hit (the kernel in place);
-  * `slot_finish`: the lanes still unresolved and those past the slots
-    added to the overflow counter, and, inside a capture, the dispatch's
-    device counts (FINISH_KEYS of traverse.MASK_STATS, their slots from
-    render/graphs.count_slots) and the counts the loop's body ticks a run
-    (render/graphs.while_loop's deltas), added once a dispatch for all
-    its runs; on the card a grid over the SMs whose blocks meet in one
-    atomic word.
+  * `slot_finish`: after the loop, each valid slot's hit written into its
+    lane of the dispatch's hit (the kernel in place; slot_merge_plain in
+    the plain version), the lanes still unresolved and those past the
+    slots added to the overflow counter, and, inside a capture, the
+    dispatch's device counts (FINISH_KEYS of traverse.MASK_STATS, their
+    slots from render/graphs.count_slots) and the counts the loop's body
+    ticks a run (render/graphs.while_loop's deltas), added once a
+    dispatch for all its runs; on the card one launch, a grid over the
+    SMs whose blocks meet in one atomic word.
 
 A dispatch covers n slots (class Dispatch): slot s is lane lanes[s] of
 the ray arrays (every lane when `lanes` is None), and the state it reads
@@ -79,13 +79,14 @@ BIG = st.BIG
 # Launch counts: one per kernel launch on the CUDA route (the resolves'
 # flags variants under keys of their own), one per call of a plain
 # version.  chip_smoke.py reads them to show the main paths ran through
-# the kernels.
+# the kernels.  "slot_merge" stays a key and reads 0: the merge runs in
+# slot_finish's launch.
 KERNELS = ("dispatch_keys", "dispatch_rows", "khit_resolve",
-           "stream_resolve", "slot_gather", "slot_merge", "slot_finish")
+           "stream_resolve", "slot_gather", "slot_finish")
 PLAIN_KEYS = ("keys_plain", "rows_plain", "khit_resolve_plain",
               "stream_resolve_plain", "slot_gather_plain",
               "slot_merge_plain", "slot_finish_plain")
-LAUNCHES = dict.fromkeys(KERNELS + ("khit_resolve_flags",
+LAUNCHES = dict.fromkeys(KERNELS + ("slot_merge", "khit_resolve_flags",
                                     "stream_resolve_flags") + PLAIN_KEYS, 0)
 
 # stream_resolve's modes (csrc/dispatch.cu).
@@ -285,7 +286,7 @@ def slot_gather_plain(need, slots: int, hit, tcur=None) -> Slots:
 def slot_merge_plain(slots: Slots, hit):
     """`hit` with the lane of each valid slot taken from the slots' hit:
     one scatter a field, the empty slots writing a spare row past the
-    lanes (a new Hit)."""
+    lanes (a new Hit).  The plain half of slot_finish's merge."""
     LAUNCHES["slot_merge_plain"] += 1
     num_r = hit.t.shape[0]
     to = torch.where(slots.valid, slots.idx, num_r)
@@ -298,14 +299,16 @@ def slot_merge_plain(slots: Slots, hit):
 
 
 def slot_finish_plain(overflow, active, slots: Slots, rounds, counts=None,
-                      deltas=()):
+                      deltas=(), hit=None):
     """Add the lanes past the slots and those still in need (left
     unresolved at the cap) to `overflow`; with `counts` = (the device
     counts, the slot of each FINISH_KEYS entry, whether each is a
     maximum), add each (slot, n) of `deltas`, the counts a run of the
     loop's body ticks, n x (rounds - 1) times, then raise or add to the
     FINISH_KEYS counts: whether no lane was active, the rounds, the lanes
-    in need after the first round, dropped and capped."""
+    in need after the first round, dropped and capped.  With `hit`, the
+    dispatch's, returns it with the slots' hits merged in
+    (slot_merge_plain), else None."""
     _check_deltas(counts, deltas)
     LAUNCHES["slot_finish_plain"] += 1
     left = slots.need.sum()
@@ -320,6 +323,7 @@ def slot_finish_plain(overflow, active, slots: Slots, rounds, counts=None,
             c, n = tensor[slot], n.to(tensor.dtype)
             c.copy_(torch.maximum(c, n) if is_max else c + n)
     overflow.add_((slots.dropped + left).to(overflow.dtype))
+    return None if hit is None else slot_merge_plain(slots, hit)
 
 
 def _check_deltas(counts, deltas):
@@ -356,9 +360,8 @@ def _library():
                            ("imba_stream_resolve", [vp] * 9),
                            ("imba_slot_gather",
                             [vp, ctypes.c_int64, i] + [vp] * 10),
-                           ("imba_slot_merge", [vp, vp, i, vp, vp, vp]),
                            ("imba_slot_finish",
-                            [vp, ctypes.c_int64, vp, i] + [vp] * 7),
+                            [vp, ctypes.c_int64, vp, i] + [vp] * 11),
                            ("imba_dispatch_resources", [i, vp])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -622,27 +625,12 @@ def slot_gather_cuda(need, slots: int, hit, tcur=None) -> Slots:
     return Slots(idx, valid, s_need, s_tcur, s_hit, count, dropped)
 
 
-def slot_merge_cuda(slots: Slots, hit):
-    """Launch slot_merge_kernel on CUDA tensors (raises on anything
-    else): slot_merge_plain's hit, written into `hit` in place and
-    returned."""
-    n = slots.idx.shape[0]
-    idx = _input(slots.idx, torch.int64, "idx")
-    valid = _input(slots.valid, torch.bool, "valid")
-    _shape(valid, (n,), "valid")
-    sub, keep = _hit_in(slots.hit, n, "slots.hit")
-    lib = _library()
-    _launched(lib.imba_slot_merge(idx.data_ptr(), valid.data_ptr(), n, sub,
-                                  _hit_args(hit, hit.t.shape[0]),
-                                  _stream(idx)), "slot_merge")
-    LAUNCHES["slot_merge"] += 1
-    return hit
-
-
 def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None,
-                     deltas=()):
+                     deltas=(), hit=None):
     """Launch slot_finish_kernel on CUDA tensors (raises on anything
-    else): slot_finish_plain's overflow and counts, in place."""
+    else): slot_finish_plain's overflow and counts, in place, and with
+    `hit` (a Hit over the lanes of `active`) its merged hit, written into
+    `hit` in place and returned (one launch either way)."""
     _check_deltas(counts, deltas)
     for x, what in ((overflow, "overflow"), (slots.count, "count"),
                     (slots.dropped, "dropped"), (rounds, "rounds")):
@@ -666,18 +654,29 @@ def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None,
         for k, (slot, n) in enumerate(deltas):
             ints[2 * keys + 1 + 2 * k], ints[2 * keys + 2 + 2 * k] = slot, n
         cptr = tensor.data_ptr()
+    merge = (None, None, None, None)
+    if hit is not None:
+        n = need.shape[0]
+        idx = _input(slots.idx, torch.int64, "idx")
+        valid = _input(slots.valid, torch.bool, "valid")
+        _shape(idx, (n,), "idx")
+        _shape(valid, (n,), "valid")
+        sub, keep = _hit_in(slots.hit, n, "slots.hit")
+        merge = (valid.data_ptr(), idx.data_ptr(), sub,
+                 _hit_args(hit, active.shape[0]))
     lib = _library()
     _launched(lib.imba_slot_finish(
         active.data_ptr(), active.shape[0],
         need.data_ptr(), need.shape[0], slots.count.data_ptr(),
         slots.dropped.data_ptr(), rounds.data_ptr(), overflow.data_ptr(),
-        cptr, ints, _stream(need)), "slot_finish")
+        cptr, ints, *merge, _stream(need)), "slot_finish")
     LAUNCHES["slot_finish"] += 1
+    return hit
 
 
 def resources(which: str):
     """Registers, shared memory, spills and resident blocks an SM of one
-    of the seven kernels (KERNELS; needs the card)."""
+    of the six kernels (KERNELS; needs the card)."""
     return st._resources(_library().imba_dispatch_resources,
                          KERNELS.index(which))
 
@@ -729,21 +728,15 @@ def slot_gather(need, slots: int, hit, tcur=None) -> Slots:
     return fn(need, slots, hit, tcur)
 
 
-def slot_merge(slots: Slots, hit):
-    """The dispatch's hit with the slots' hits merged in: the kernel (in
-    place) on CUDA tensors, the plain version on CPU tensors."""
-    fn = slot_merge_cuda if _on(hit.t) == "cuda" else slot_merge_plain
-    return fn(slots, hit)
-
-
 def slot_finish(overflow, active, slots: Slots, rounds, counts=None,
-                deltas=()):
+                deltas=(), hit=None):
     """The overflow counter and the device counts of a re-trace, the
     counts its loop's body ticks a run (`deltas`, (slot, n) each) added
-    for all its runs: the kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    for all its runs, and with `hit` the dispatch's hit with the slots'
+    hits merged in, returned: the kernel (one launch, the hit in place)
+    on CUDA tensors, the plain version on CPU tensors."""
     fn = slot_finish_cuda if _on(overflow) == "cuda" else slot_finish_plain
-    fn(overflow, active, slots, rounds, counts, deltas)
+    return fn(overflow, active, slots, rounds, counts, deltas, hit)
 
 
 def prepare(org, d, tmin, tmax, active=None, *, bounds=None, sbox=None,

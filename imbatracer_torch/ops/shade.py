@@ -18,9 +18,12 @@ those fusions is one kernel a side of the shadow ray:
 
 The radiance sums keep the plain version's order (env term, emitter
 term, NEE), so the films stay as they were.  Both kernels count traced
-rays on the card (one atomicAdd a warp onto a copy of the carried
-count) and read nothing on the host, so they run inside the captured
-bounce (render/graphs.py).
+rays on the card and read nothing on the host, so they run inside the
+captured bounce (render/graphs.py): pt_shade one atomicAdd a warp onto
+a copy of the carried count, the finish (a grid over the SMs, four
+lanes a thread in 16-byte words) one atomic a block into a meeting
+word, its last block writing the carried count plus the shadow rays
+into a count of its own (one launch, no copy).
 
 Dispatch: `pt_shade` and `pt_shade_finish` launch the kernels
 (csrc/pt_shade.cu, device functions in csrc/shading.cuh) for CUDA
@@ -304,7 +307,7 @@ def _library():
             ctypes.c_void_p]
         fn = lib.imba_pt_shade_finish
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                                 ctypes.c_void_p]
         fn = lib.imba_pt_shade_resources
         fn.restype = ctypes.c_int
@@ -370,7 +373,7 @@ def pt_shade_cuda(scene, c, hit, *, has_bump: bool, max_len: int):
 
 def pt_shade_finish_cuda(radiance, contrib, shadow_ok, occluded, n_rays):
     """Launch pt_shade_finish_kernel on CUDA tensors (raises on anything
-    else)."""
+    else): pt_shade_finish_plain's radiance and count, in one launch."""
     lanes = radiance.shape[0]
     radiance = _column(radiance, torch.float32, (lanes, 3), "radiance")
     contrib = _column(contrib, torch.float32, (lanes, 3), "contrib")
@@ -378,11 +381,12 @@ def pt_shade_finish_cuda(radiance, contrib, shadow_ok, occluded, n_rays):
     occluded = _column(occluded, torch.bool, (lanes,), "occluded")
     n_rays = _column(n_rays, torch.int64, (), "n_rays")
     lib = _library()
-    out, count = torch.empty_like(radiance), n_rays.clone()
+    out, count = torch.empty_like(radiance), torch.empty_like(n_rays)
     stream = torch.cuda.current_stream(radiance.device).cuda_stream
     err = lib.imba_pt_shade_finish(
         radiance.data_ptr(), contrib.data_ptr(), shadow_ok.data_ptr(),
-        occluded.data_ptr(), out.data_ptr(), count.data_ptr(), lanes, stream)
+        occluded.data_ptr(), out.data_ptr(), n_rays.data_ptr(),
+        count.data_ptr(), lanes, stream)
     if err != 0:
         raise RuntimeError(f"pt_shade_finish kernel launch failed: CUDA "
                            f"error {err}")

@@ -48,8 +48,9 @@ khit round's alpha test and K-hit pick, the re-trace's select and alpha
 test), as XLA fuses JAX's glue around its traversal calls.  Around the
 graph-ready form's while loop, its slot selection and state, merge,
 overflow and device counts are ops/dispatch.py's too (slot_gather, one
-launch from the need flags to the slots, slot_merge, slot_finish); the
-library sort stays a torch op.
+launch from the need flags to the slots; slot_finish, one launch from the
+loop's exit to the merged hit and the counts); the library sort stays a
+torch op.
 """
 
 from __future__ import annotations
@@ -252,17 +253,17 @@ def _retrace_loop(s: dp.Slots, body, cap: int):
 
 
 def _finish(overflow, act, slots: dp.Slots, loop, hit: Hit) -> Hit:
-    """After the loop (dispatch.slot_finish, slot_merge: on the card their
-    kernels): the lanes past the slots and those still unresolved at the
+    """After the loop (dispatch.slot_finish: on the card one launch of its
+    kernel): the lanes past the slots and those still unresolved at the
     cap added to `overflow`, and inside a capture the dispatch's device
     counts (empty, its rounds, the lanes carried past its first round,
     dropped, capped) and the counts of the loop's body (`loop`:
     _retrace_loop's rounds and per-run counts), times its runs; returns
     `hit` with the slots' hits merged in."""
     rounds, deltas = loop
-    dp.slot_finish(overflow, act, slots, rounds,
-                   graphs.count_slots(MASK_STATS, dp.FINISH_KEYS), deltas)
-    return dp.slot_merge(slots, hit)
+    return dp.slot_finish(overflow, act, slots, rounds,
+                          graphs.count_slots(MASK_STATS, dp.FINISH_KEYS),
+                          deltas, hit)
 
 
 def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,

@@ -28,10 +28,12 @@ between the marks, the port's ctypes launches included):
   the traced threads): each launch's threads (its grid and block, from
   the frame's chrome trace) times a thread's share of the bound, plus
   the bytes a launch moves whatever its threads (THREAD_BYTES,
-  THREAD_US, LAUNCH_BYTES), beside the traced time of a launch that
-  reads a flag and stops; and counts the launches from each masked
-  dispatch's first-round resolve to its WHILE node, and from a pass's
-  resolve to the node's next test (`[loop]` lines);
+  THREAD_US, LAUNCH_BYTES; the re-trace's valid slots a dispatch
+  counted on the card in one more frame of fresh captures), beside the
+  traced time of an empty kernel replayed in a graph; and counts the
+  launches from each masked dispatch's first-round resolve to its WHILE
+  node, from a pass's resolve to the node's next test, and from the
+  node to the merged hit (`[loop]` lines);
 * the instanced scene (scene/generate.CARD, 1920x1080, default light
   paths): one graphed vcm frame (busy, the middle, the scalar-add
   kernels `CUDAFunctorOnSelf_add` by launch shape from its chrome
@@ -158,6 +160,7 @@ def main():
                     "--format=csv,noheader").read().strip()
     print(f"[lighttrace] root {os.path.abspath(ARGS.root)}; {card}; torch "
           f"{torch.__version__}", flush=True)
+    FLOOR["us"] = floor_us()
     scene, meta = make_still_life_like(device=dev)
     settings = RenderSettings(width=W, height=H, spp=1,
                               max_path_len=MAX_LEN, algorithm="vcm")
@@ -249,8 +252,7 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
          "vcm_camera_shade_kernel", "vcm_finish_kernel<false>",
          "vcm_finish_kernel<true>", "dispatch_keys_kernel",
          "dispatch_rows_kernel", "khit_resolve_kernel",
-         "stream_resolve_kernel", "slot_gather_kernel", "slot_merge_kernel",
-         "slot_finish_kernel", "collect_append_kernel", "collect_tail_kernel",
+         "stream_resolve_kernel", "slot_gather_kernel", "slot_finish_kernel", "collect_append_kernel", "collect_tail_kernel",
          "splat_kernel", "select_keys_kernel", "select_gather_kernel",
          "grid_keys_kernel", "grid_tiles_kernel", "set_conditional")
 
@@ -276,8 +278,10 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # grid's keys a photon.  The slot
 # kernels and the WHILE nodes' flag kernel move what the function needs
 # a launch, whatever the kernel: the need flags of the band and the
-# slots' state out (26 B a slot, 30 with tcur), the slots' valid flags,
-# every active and slot flag, and at most the slots' flags.
+# slots' state out (26 B a slot, 30 with tcur); every active flag and
+# every slot's two flags, and a valid slot's lane index, its hit and its
+# lane's hit (8 + 16 + 16 B: the merge, folded into the finish); and at
+# most the slots' flags.
 THREAD_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
                 "vcm_light_start_kernel": 66,
                 "vcm_finish_kernel<false>": 34,
@@ -307,14 +311,30 @@ THREAD_US = {"khit_kernel": 35.9 / 262144,
 LAUNCH_BYTES = {
     "splat_kernel": lambda f: f["pixels"] * 12,
     "slot_gather_kernel": lambda f: f["lanes"] + f["slots"] * f["slot_b"],
-    "slot_merge_kernel": lambda f: f["slots"],
-    "slot_finish_kernel": lambda f: f["lanes"] + f["slots"],
+    "slot_finish_kernel": lambda f: (f["lanes"] + 2 * f["slots"]
+                                     + 40 * f["valid"]),
     "set_conditional": lambda f: f["slots"] + 8}
 HBM_BYTES_PER_S = 3.35e12
-# The kernel whose traced launch is the floor a launch in a graph: it
-# reads its slots' valid flags and stops where none is set (the still
-# life's re-trace carries almost no lane past its first round).
-FLOOR = "slot_merge_kernel"
+# The floor of a launch in a graph: an empty kernel (torch.cuda._sleep(0),
+# which returns at once) launched FLOOR_LAUNCHES times in one graph and
+# traced over a replay, once a call (floor_us).
+FLOOR_LAUNCHES = 200
+
+
+def floor_us():
+    """The traced us a launch of an empty kernel replayed in a graph."""
+    torch.cuda._sleep(0)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(FLOOR_LAUNCHES):
+            torch.cuda._sleep(0)
+    g.replay()
+    torch.cuda.synchronize()
+    with profile(activities=ACTS) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+    ns = [n for name, _, n in device_events(prof) if MARK in name]
+    return sum(ns) / 1e3 / max(len(ns), 1)
 
 
 def chrome_threads(path):
@@ -340,9 +360,9 @@ def chrome_threads(path):
 def rank(tag, tot, threads, frame):
     """`[rank]` lines: every kernel of THREAD_BYTES, THREAD_US and
     LAUNCH_BYTES that the frame launched, by launches x (us a launch -
-    bound at the traced threads), the most lost first; then the floor:
-    FLOOR's traced us a launch.  `frame`: the band's lanes and slots, a
-    slot's bytes and the pixels."""
+    bound at the traced threads), the most lost first; then the floor,
+    FLOOR["us"].  `frame`: the band's lanes and slots, a slot's bytes, the
+    valid slots a dispatch and the pixels."""
     rows = []
     for part in dict.fromkeys([*THREAD_BYTES, *THREAD_US, *LAUNCH_BYTES]):
         names = [k for k in tot if part in k]
@@ -362,28 +382,47 @@ def rank(tag, tot, threads, frame):
               f"{bound_us / n:.3f} us at {lanes / n:.0f} threads a launch "
               f"({us / max(bound_us, 1e-9):.1f}x), "
               f"{lost / 1e3:.3f} ms a frame above it", flush=True)
-    floor = [v for k, v in tot.items() if FLOOR in k]
-    if floor:
-        us, n = sum(v[0] for v in floor), sum(v[1] for v in floor)
-        print(f"[rank] graphed {tag} frame: the floor, {FLOOR} (reads its "
-              f"slots' valid flags, stops where none is set): "
-              f"{us / n:.2f} us a launch over {n} launches", flush=True)
+    print(f"[rank] graphed {tag} frame: the floor, an empty kernel "
+          f"replayed in a graph: {FLOOR['us']:.2f} us a launch over "
+          f"{FLOOR_LAUNCHES} launches", flush=True)
+
+
+FLOOR = {"us": 0.0}
 
 
 RESOLVES = ("khit_resolve_kernel", "stream_resolve_kernel")
 WHILE_FLAG = "set_conditional"
 
 
+# The kernels that write a dispatch's merged hit after its WHILE node: the
+# finish, which merges the slots' hits, or in an earlier tree the finish
+# and then a merge kernel of its own.
+FINISH, MERGE = "slot_finish_kernel", "slot_merge_kernel"
+LOOP_KINDS = {"entry": "loop entries, {n:.2f} launches each from the "
+                       "resolve to the WHILE node (with the slots)",
+              "pass": "loop pass ends, {n:.2f} launches each from the "
+                      "resolve to the WHILE node (the loop test)",
+              "exit": "loop exits, {n:.2f} launches each from the WHILE "
+                      "node to the merged hit"}
+
+
 def loop_launches(tag, events):
     """`[loop]` lines: the device launches (kernels, memsets, copies) from
     each re-trace resolve to the next WHILE flag kernel, which ends a
     dispatch's loop entry where the slot gather ran between them, else a
-    pass of the body: their count and device time, on average, and the
-    names of one entry's and one pass's launches."""
-    since, found = None, {"entry": [], "pass": []}
-    for name, _, ns in events:
-        if MARK in name:
-            continue
+    pass of the body; and from a loop's last WHILE flag kernel to the
+    launch that writes its merged hit (FINISH, or MERGE right after it):
+    their count and device time, on average, and the names of one
+    entry's, one pass's and one exit's launches."""
+    events = [(name, ns) for name, _, ns in events if MARK not in name]
+    since, after, found = None, None, {k: [] for k in LOOP_KINDS}
+    for i, (name, ns) in enumerate(events):
+        if after is not None:
+            after.append((name, ns))
+            nxt = events[i + 1][0] if i + 1 < len(events) else ""
+            if MERGE in name or (FINISH in name and MERGE not in nxt):
+                found["exit"].append(after)
+                after = None
         if any(r in name for r in RESOLVES):
             since = []
         elif since is not None:
@@ -393,6 +432,8 @@ def loop_launches(tag, events):
                         else "pass")
                 found[kind].append(since)
                 since = None
+        if WHILE_FLAG in name:
+            after = []
     for kind, runs in found.items():
         if not runs:
             continue
@@ -401,11 +442,42 @@ def loop_launches(tag, events):
         names = ", ".join(
             k.replace("(anonymous namespace)::", "").replace("void ", "")
             .split("(")[0].split("<")[0][-40:] for k, _ in runs[0])
-        print(f"[loop] graphed {tag} frame: {len(runs)} loop "
-              f"{'entries' if kind == 'entry' else 'pass ends'}, "
-              f"{n:.2f} launches each from the resolve to the WHILE node "
-              f"({'the loop test' if kind == 'pass' else 'with the slots'}"
-              f"), {us:.2f} us device; one: {names}", flush=True)
+        print(f"[loop] graphed {tag} frame: {len(runs)} "
+              f"{LOOP_KINDS[kind].format(n=n)}, {us:.2f} us device; one: "
+              f"{names}", flush=True)
+
+
+def valid_slots(scene, meta, settings):
+    """The re-trace's valid slots a masked dispatch of one frame: the
+    scene's graphs captured afresh with dispatch.slot_finish counting its
+    slots' valid flags and its calls on the card, a frame to capture, the
+    counts of one more frame read, and the captures dropped again (the
+    next frame_fn captures without the counting)."""
+    from imbatracer_torch.ops import dispatch as dp
+    from imbatracer_torch.render import graphs
+
+    acc = torch.zeros(2, dtype=torch.int64, device=scene.device)
+    finish = dp.slot_finish
+
+    def counted(overflow, act, slots, *a, **k):
+        acc[0] += slots.valid.sum()
+        acc[1] += 1
+        return finish(overflow, act, slots, *a, **k)
+
+    graphs._SCENES.pop(id(scene), None)
+    dp.slot_finish = counted
+    try:
+        frame_fn, _ = make_frame_fn(scene, meta, settings)
+        renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
+        renderer.step()
+        before = acc.tolist()
+        renderer.step()
+        after = acc.tolist()
+    finally:
+        dp.slot_finish = finish
+        graphs._SCENES.pop(id(scene), None)
+    n = after[1] - before[1]
+    return (after[0] - before[0]) / n if n else 0.0
 
 
 def graphed_frame(scene, meta, settings, tag, chrome=None):
@@ -439,9 +511,12 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
         os.close(fd)
     prof.export_chrome_trace(chrome)
     two_level = scene.bvh.two_level
+    valid = valid_slots(scene, meta, settings)
+    print(f"[lighttrace] graphed {tag} frame: {valid:.1f} valid slots a "
+          f"masked dispatch (a frame of fresh captures)", flush=True)
     rank(tag, tot, chrome_threads(chrome),
          dict(lanes=BAND, slots=traverse.retrace_slots(BAND, two_level),
-              slot_b=26 if two_level else 30,
+              slot_b=26 if two_level else 30, valid=valid,
               pixels=settings.width * settings.height))
     loop_launches(tag, device_events(prof))
     if not keep:

@@ -535,7 +535,8 @@ def _composite_finish(counts, at, overflow, act, need, dropped, unresolved,
 @pytest.mark.parametrize("two_level", [False, True])
 @pytest.mark.parametrize("case", ["empty", "within", "capped", "past"])
 def test_plain_slots_match_the_composite(case, two_level):
-    """dispatch.slot_gather / slot_merge / slot_finish's plain versions
+    """dispatch.slot_gather / slot_merge_plain / slot_finish's plain
+    versions
     against the torch composite they replace, bit for bit, on seeded need
     masks over 2048 lanes at the flat and two-level slot shares: no lane
     active, the lanes in need within the slots, some of them left
@@ -570,7 +571,7 @@ def test_plain_slots_match_the_composite(case, two_level):
                  t(rs.randint(-1, 500, slots).astype(np.int32)),
                  t(rs.rand(slots).astype(np.float32)),
                  t(rs.rand(slots).astype(np.float32)))
-    merged = dp.slot_merge(s._replace(hit=sub), hit)
+    merged = dp.slot_merge_plain(s._replace(hit=sub), hit)
     for a, b in zip(merged, _composite_merge(idx, valid, hit, sub)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     unresolved = valid & (t(rs.rand(slots) < 0.3) if case == "capped"
@@ -704,3 +705,98 @@ def test_slot_binding_matches_the_kernel():
     assert set(dp.FINISH_KEYS) <= set(tt.MASK_STATS)
     n = re.search(r"constexpr int kMaxDeltas = (\d+);", src).group(1)
     assert int(n) == dp.MAX_DELTAS
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_fused_finish_matches_the_composite_and_jax(case, two_level):
+    """dispatch.slot_finish with the dispatch's hit, which on the card is
+    one launch of slot_finish_kernel merging the slots' hits as it
+    counts, on the CPU: its plain version against slot_finish_plain then
+    slot_merge_plain (the two launches it replaces) bit for bit, the
+    overflow, the device counts with five per-run counts folded in and
+    the merged hit; the merged hit against JAX's carry select of the
+    while bodies (imbatracer_tpu/render/traverse.py:288-293, :371-376:
+    jnp.where of the loop's flag over the full-width hits), the slots'
+    lanes taking the slots' new hits.  Over the selection cases of
+    tests/torch_dispatch_cases.py at the flat and two-level slot
+    shares."""
+    need, slots, hit, tcur = select_case(
+        case, 8192, 3 + len(case), lambda n: tt.retrace_slots(n, two_level),
+        not two_level)
+    n = len(need)
+    t = torch.from_numpy
+    rs = np.random.RandomState(len(case) + 20 * two_level)
+    s = dp.slot_gather_plain(t(need), slots, tt.Hit(*map(t, hit)),
+                             None if tcur is None else t(tcur))
+    sub = (rs.uniform(0, 9, slots).astype(np.float32),
+           rs.randint(-1, 500, slots).astype(np.int32),
+           rs.rand(slots).astype(np.float32),
+           rs.rand(slots).astype(np.float32))
+    s = s._replace(hit=tt.Hit(*map(t, sub)),
+                   need=s.valid & t(rs.rand(slots) < 0.3))
+    act = t(need | (rs.rand(n) < 0.5))
+    rounds = torch.tensor(4, dtype=torch.int32)
+    at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
+    where = ([at[k] for k in dp.FINISH_KEYS],
+             [k.startswith("max_") for k in dp.FINISH_KEYS])
+    deltas = [(1, 1), (2, 1), (4, 3), (7, 1), (8, 2)]
+    counts0 = t(rs.randint(0, 50, 16).astype(np.int32))
+    lanes = tt.Hit(*map(t, hit))
+    dp.reset_launches()
+    got_c, want_c = counts0.clone(), counts0.clone()
+    got = dp.slot_finish(got_c[0], act, s, rounds, (got_c,) + where, deltas,
+                         lanes)
+    assert dp.slot_finish_plain(want_c[0], act, s, rounds, (want_c,) + where,
+                                deltas) is None
+    want = dp.slot_merge_plain(s, lanes)
+    np.testing.assert_array_equal(got_c.numpy(), want_c.numpy())
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert dp.LAUNCHES["slot_finish_plain"] == 2
+    assert dp.LAUNCHES["slot_merge_plain"] == 2
+    assert dp.LAUNCHES["slot_finish"] == dp.LAUNCHES["slot_merge"] == 0
+    # JAX's select at full width: the loop's lanes (the valid slots')
+    # take the round's hits, every other lane keeps its own.
+    valid = s.valid.numpy()
+    idx = s.idx.numpy()[valid]
+    flag = np.zeros(n, dtype=bool)
+    flag[idx] = True
+    for a, h, new in zip(got, hit, sub):
+        h2 = rs.rand(n).astype(h.dtype) if h.dtype == np.float32 else \
+            rs.randint(-1, 500, n).astype(h.dtype)
+        h2[idx] = new[valid]
+        j = np.asarray(jnp.where(jnp.asarray(flag), jnp.asarray(h2),
+                                 jnp.asarray(h)))
+        np.testing.assert_array_equal(a.numpy(), j)
+    assert int(s.valid.sum()) == min(int(need.sum()), slots)
+
+
+class _Binding:
+    """A ctypes.CDLL stand-in that records the functions bound."""
+
+    def __init__(self, path):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, SimpleNamespace())
+
+
+def test_binding_argument_counts_match_the_c_entry_points(monkeypatch):
+    """Every entry point _library binds takes as many arguments as its
+    extern "C" definition in csrc/dispatch.cu declares (the finish's with
+    the merge's valid flags, lanes and hits), and the merge has no entry
+    point of its own."""
+    monkeypatch.setattr(dp.ctypes, "CDLL", _Binding)
+    monkeypatch.setattr(dp, "LIB", SimpleNamespace(build=lambda: "x"))
+    monkeypatch.setattr(dp, "_lib", None)
+    lib = dp._library()
+    with open(f"{libbuild.CSRC}/dispatch.cu") as fh:
+        src = fh.read()
+    for name, fn in lib.fns.items():
+        params = re.search(r'extern "C" int %s\(([^)]*)\)' % name,
+                           src).group(1)
+        assert len(fn.argtypes) == len(params.split(",")), name
+    assert "imba_slot_finish" in lib.fns
+    assert "slot_merge" not in src.split("extern \"C\"", 1)[1]

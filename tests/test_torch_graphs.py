@@ -484,7 +484,7 @@ def test_gather_and_merge_slots(fill):
     assert int(dropped) == len(lanes) - k
     sub = tt.Hit(*(torch.from_numpy(rs.rand(64).astype(np.float32))
                    for _ in range(4)))
-    got = dp.slot_merge(slots._replace(hit=sub), hit)
+    got = dp.slot_merge_plain(slots._replace(hit=sub), hit)
     for g, h, s in zip(got, hit, sub):
         want = h.numpy().copy()
         want[lanes[:k]] = s.numpy()[:k]

@@ -1073,6 +1073,88 @@ def test_cuda_pt_shade_input_checks(cuda_device):
     assert contrib.shape == (0, 3) and int(nxt["n_rays"]) == 0
 
 
+def _finish_inputs(lanes, seed, dev, base):
+    """Seeded inputs of pt_shade_finish over `lanes` lanes on the card:
+    radiance (signed zeros among them), contrib, the shadow rays' cast
+    and occluded flags (about half each) and a carried count near 2^40;
+    `base` "unaligned": the float arrays 4 bytes and the flags 1 byte past
+    an aligned start (the kernel's scalar route)."""
+    rs = np.random.RandomState(seed)
+    rad = rs.randn(lanes, 3).astype(np.float32)
+    rad[rs.rand(lanes) < 0.1] = -0.0
+    con = rs.rand(lanes, 3).astype(np.float32)
+    ok = rs.rand(lanes) < 0.5
+    occ = rs.rand(lanes) < 0.5
+    t = lambda a: torch.from_numpy(a).to(dev)
+    args = [t(rad), t(con), t(ok), t(occ)]
+    if base == "unaligned":
+        args = [_unaligned(x) for x in args]
+        assert args[0].data_ptr() % 16 and args[2].data_ptr() % 4
+    n0 = torch.tensor((1 << 40) - 1000 + seed, dtype=torch.int64, device=dev)
+    return (*args, n0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", ["aligned", "unaligned"])
+@pytest.mark.parametrize("lanes", [1, 3, 127, 129, 262143, 262144, 266277])
+def test_cuda_pt_shade_finish_at_ragged_lanes(cuda_device, lanes, base):
+    """pt_shade_finish_kernel against pt_shade_finish_plain bit for bit:
+    the radiance (four lanes a thread in 16-byte words, a scalar tail past
+    the last whole four, the scalar route from an unaligned base) and the
+    count (the carried count near 2^40 plus the shadow rays, counted a
+    block and met in one word), at lane counts on either side of 4, a
+    block and the band, and past the grid's most threads; one launch, the
+    carried count left as it was."""
+    from imbatracer_torch.ops import shade as sh
+
+    args = _finish_inputs(lanes, lanes % 97, cuda_device, base)
+    n0 = args[-1].clone()
+    sh.reset_launches()
+    kr, kn = sh.pt_shade_finish_cuda(*args)
+    pr, pn = sh.pt_shade_finish_plain(*args)
+    assert sh.LAUNCHES["pt_shade_finish"] == 1
+    assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
+    assert kn.dtype == torch.int64 and int(kn) == int(pn)
+    assert int(kn) == int(n0) + int(args[2].sum())
+    assert torch.equal(args[-1], n0)
+
+
+@pytest.mark.cuda
+def test_cuda_pt_shade_finish_in_a_replayed_graph(cuda_device):
+    """Three finishes chained in one CUDA graph (each adds to the count the
+    last one wrote), the graph replayed five times after new inputs are
+    copied in: every replay's radiance and count equal the plain
+    version's chain, so the word the blocks meet in is zero again after
+    each launch."""
+    from imbatracer_torch.ops import shade as sh
+
+    lanes = 262144 + 5
+    state = dict(zip(("rad", "con", "ok", "occ", "n"),
+                     _finish_inputs(lanes, 3, cuda_device, "aligned")))
+
+    def chain(fn, st):
+        rad, n = st["rad"], st["n"]
+        for _ in range(3):
+            rad, n = fn(rad, st["con"], st["ok"], st["occ"], n)
+        return rad, n
+
+    chain(sh.pt_shade_finish_cuda, state)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = chain(sh.pt_shade_finish_cuda, state)
+    for seed in range(5):
+        new = _finish_inputs(lanes, 40 + seed, cuda_device, "aligned")
+        for k, v in zip(("rad", "con", "ok", "occ", "n"), new):
+            state[k].copy_(v)
+        g.replay()
+        want = chain(sh.pt_shade_finish_plain, state)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert int(out[1]) == int(want[1])
+
+
 def _unaligned(x):
     """x copied into a view one element past the start of its storage, so
     that its rows are not 16-byte aligned."""
@@ -1480,6 +1562,76 @@ def test_cuda_slot_finish_folds_the_loop_counts(cuda_device, case):
         assert torch.equal(ck, cp)
     assert int(ck[0] - counts0[0]) == 2 * (7 + int(need.sum()))
     assert dp.LAUNCHES["slot_finish"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "unaligned", "no_slots",
+                                  "no_counts", "wide"])
+def test_cuda_fused_finish_merges_the_hits(cuda_device, case):
+    """slot_finish_kernel with the dispatch's hit, one launch, against
+    slot_finish_plain then slot_merge_plain bit for bit, in the cases of
+    test_cuda_slot_finish_folds_the_loop_counts: 3,001 lanes and 129
+    slots (no multiple of 16 or of a block), flags that start off a
+    16-byte boundary, no slot, no device counts, and 2^20 lanes with
+    4,096 slots (more blocks than the card has SMs); the valid slots at
+    random and holding distinct lanes at random, seeded slot hits.  The
+    merged hit is written in place and the overflow and counts are as
+    without the merge; two launches in a row agree too (the word the
+    blocks meet in is left zero)."""
+    from imbatracer_torch.ops import dispatch as dp
+
+    rs = np.random.RandomState(10 + len(case))
+    num_r, slots = {"wide": (1 << 20, 4096), "no_slots": (3001, 0)}.get(
+        case, (3001, 129))
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    off = 1 if case == "unaligned" else 0
+    act = t(rs.rand(num_r + off) < 0.01)[off:]
+    valid = t(rs.rand(slots + 5 * off) < 0.7)[5 * off:]
+    need = valid & t(rs.rand(slots) < 0.4)
+    if case == "unaligned":
+        assert act.data_ptr() % 16 and valid.data_ptr() % 16
+    idx = t(rs.permutation(num_r)[:slots].astype(np.int64))
+    sub = tt.Hit(t(rs.uniform(0, 9, slots).astype(np.float32)),
+                 t(rs.randint(-1, 500, slots).astype(np.int32)),
+                 t(rs.rand(slots).astype(np.float32)),
+                 t(rs.rand(slots).astype(np.float32)))
+    hit = tt.Hit(t(rs.uniform(0, 9, num_r).astype(np.float32)),
+                 t(rs.randint(-1, 500, num_r).astype(np.int32)),
+                 t(rs.rand(num_r).astype(np.float32)),
+                 t(rs.rand(num_r).astype(np.float32)))
+    s = dp.Slots(idx, valid, need, None, sub,
+                 torch.tensor(slots + 7, dtype=torch.int32,
+                              device=cuda_device),
+                 torch.tensor(7, dtype=torch.int32, device=cuda_device))
+    rounds = torch.tensor(4, dtype=torch.int32, device=cuda_device)
+    at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
+    counts = None if case == "no_counts" else (
+        [at[k] for k in dp.FINISH_KEYS],
+        [k.startswith("max_") for k in dp.FINISH_KEYS])
+    deltas = [] if counts is None else [(1, 1), (2, 1), (4, 3), (7, 1),
+                                        (8, 2)]
+    counts0 = t(rs.randint(0, 50, 16).astype(np.int32))
+    ck, cp = counts0.clone(), counts0.clone()
+    dp.reset_launches()
+    for _ in range(2):
+        own = tt.Hit(*(x.clone() for x in hit))
+        got = dp.slot_finish(ck[0], act, s, rounds,
+                             None if counts is None else (ck,) + counts,
+                             deltas, hit=own)
+        assert all(x is y for x, y in zip(got, own))
+        dp.slot_finish_plain(cp[0], act, s, rounds,
+                             None if counts is None else (cp,) + counts,
+                             deltas)
+        want = dp.slot_merge_plain(s, hit)
+        assert torch.equal(ck, cp)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    merged = int(valid.sum())
+    if merged:
+        lanes = idx[valid]
+        assert torch.equal(got.t[lanes], sub.t[valid])
+    assert dp.LAUNCHES["slot_finish"] == 2
+    assert dp.LAUNCHES["slot_merge"] == 0
 
 
 @pytest.mark.cuda
@@ -2094,12 +2246,13 @@ def _slot_case(case, dev):
 @pytest.mark.parametrize("case", ["empty", "within", "past", "two_level",
                                   "two_level_past"])
 def test_cuda_slot_kernels_match_plain(cuda_device, case):
-    """slot_gather, slot_merge and slot_finish against their plain versions
-    bit for bit: the slots selected from the need flags, their state, the
-    count and the dropped lanes, seeded slot hits merged into a copy of
-    the lanes' hits, the overflow (slot 0 of a seeded counts vector) and
-    the device counts of FINISH_KEYS with a seeded share of the slots
-    left unresolved."""
+    """slot_gather and slot_finish against their plain versions bit for
+    bit: the slots selected from the need flags, their state, the count
+    and the dropped lanes; then the finish, one launch, against
+    slot_finish_plain and slot_merge_plain: seeded slot hits merged into a
+    copy of the lanes' hits in place, the overflow (slot 0 of a seeded
+    counts vector) and the device counts of FINISH_KEYS with a seeded
+    share of the slots left unresolved."""
     from imbatracer_torch.ops import dispatch as dp
 
     act, need, slots, hit, tcur = _slot_case(case, cuda_device)
@@ -2118,11 +2271,6 @@ def test_cuda_slot_kernels_match_plain(cuda_device, case):
         rs.rand(slots).astype(np.float32),
         rs.rand(slots).astype(np.float32))))
     s = k._replace(hit=sub)
-    own = tt.Hit(*(x.clone() for x in hit))
-    got = dp.slot_merge(s, own)
-    assert all(x is y for x, y in zip(got, own))        # in place
-    for x, y in zip(got, dp.slot_merge_plain(s, hit)):
-        assert torch.equal(x, y)
     left = s._replace(need=k.valid & torch.from_numpy(
         rs.rand(slots) < 0.5).to(cuda_device))
     rounds = torch.tensor(5, dtype=torch.int32, device=cuda_device)
@@ -2132,18 +2280,25 @@ def test_cuda_slot_kernels_match_plain(cuda_device, case):
              [key.startswith("max_") for key in dp.FINISH_KEYS])
     for with_counts in (True, False):
         ck, cp = counts0.clone(), counts0.clone()
-        dp.slot_finish(ck[0], act, left, rounds,
-                       (ck,) + where if with_counts else None)
-        dp.slot_finish_plain(cp[0], act, left, rounds,
-                             (cp,) + where if with_counts else None)
+        own = tt.Hit(*(x.clone() for x in hit))
+        got = dp.slot_finish(ck[0], act, left, rounds,
+                             (ck,) + where if with_counts else None,
+                             hit=own)
+        assert all(x is y for x, y in zip(got, own))    # in place
+        want = dp.slot_finish_plain(cp[0], act, left, rounds,
+                                    (cp,) + where if with_counts else None,
+                                    hit=hit)
         assert torch.equal(ck, cp)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
     assert int(ck[0]) == int(counts0[0]) + int(k.dropped) + int(
         left.need.sum())
-    assert dp.LAUNCHES["slot_gather"] == dp.LAUNCHES["slot_merge"] == 1
+    assert dp.LAUNCHES["slot_gather"] == 1
     assert dp.LAUNCHES["slot_finish"] == 2
+    assert dp.LAUNCHES["slot_merge"] == 0               # in the finish
     # The plain versions ran only where this test called them.
     assert dp.LAUNCHES["slot_gather_plain"] == 1
-    assert dp.LAUNCHES["slot_merge_plain"] == 1
+    assert dp.LAUNCHES["slot_merge_plain"] == 2
     assert dp.LAUNCHES["slot_finish_plain"] == 2
 
 
@@ -2359,8 +2514,12 @@ def test_cuda_slot_input_checks(cuda_device):
         dp.slot_gather_cuda(need, -1, hit, tcur)
     s = dp.slot_gather_cuda(need, slots, hit, tcur)
     with pytest.raises(ValueError):
-        dp.slot_merge_cuda(s, tt.Hit(hit.t, hit.prim_id.long(), hit.u,
-                                     hit.v))
+        dp.slot_finish_cuda(count.clone(), act, s, count.clone(),
+                            hit=tt.Hit(hit.t, hit.prim_id.long(), hit.u,
+                                       hit.v))
+    with pytest.raises(ValueError):
+        dp.slot_finish_cuda(count.clone(), act, s, count.clone(),
+                            hit=tt.Hit(*(x[:-1] for x in hit)))
     with pytest.raises(ValueError):
         dp.slot_finish_cuda(torch.zeros((), dtype=torch.int64,
                                         device=cuda_device), act, s,

@@ -309,6 +309,37 @@ def test_binding_matches_the_kernel_source():
     assert len(sh.TABLE_FLOATS) == 10
 
 
+class _Binding:
+    """A ctypes.CDLL stand-in that records the functions bound."""
+
+    def __init__(self, path):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+def test_binding_argument_counts_match_the_c_entry_points(monkeypatch):
+    """Each entry point _library binds takes as many arguments as its
+    extern "C" definition in csrc/pt_shade.cu declares: the finish reads
+    the carried count and writes a count of its own."""
+    monkeypatch.setattr(sh.ctypes, "CDLL", _Binding)
+    monkeypatch.setattr(sh, "LIB", type("Lib", (), {"build": lambda s: "x"})())
+    monkeypatch.setattr(sh, "_lib", None)
+    lib = sh._library()
+    with open(f"{libbuild.CSRC}/pt_shade.cu") as fh:
+        src = fh.read()
+    assert set(lib.fns) == {"imba_pt_shade", "imba_pt_shade_finish",
+                            "imba_pt_shade_resources"}
+    for name, fn in lib.fns.items():
+        params = re.search(r'extern "C" int %s\(([^)]*)\)' % name,
+                           src).group(1)
+        assert len(fn.argtypes) == len(params.split(",")), name
+    params = re.search(r'extern "C" int imba_pt_shade_finish\(([^)]*)\)',
+                       src).group(1)
+    assert "count_in" in params and "count_out" in params
+
+
 class _NoBuild:
     def build(self):
         raise AssertionError("the shade kernels' library was built")
@@ -356,6 +387,44 @@ def test_shade_then_finish_is_the_bounce(scenes):
                           max_len=MAX_LEN)
     np.testing.assert_array_equal(want["state"].numpy(),
                                   nxt["state"].numpy())
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 130, 1027])
+@pytest.mark.parametrize("cast", ["none", "all", "some"])
+def test_finish_matches_the_jax_nee_add(cast, lanes):
+    """pt_shade_finish on CPU tensors (its plain version, the card kernel's
+    yardstick) against the NEE add of JAX's `_pt_bounce`
+    (imbatracer_tpu/render/integrators/pt.py:406-408: radiance plus
+    contrib where the shadow ray was cast and not occluded, the shadow
+    rays counted), its expression run in jnp on the same inputs: the
+    radiance bit for bit, signed zeros included, with no shadow ray cast,
+    every one cast and some, at lane counts that are no multiple of 4 or
+    of 128 (the kernel's four lanes a thread and its scalar tail).  The
+    count is the carried int64 count, above 2^32, plus the int64 sum of
+    the shadow flags; the band's part equals JAX's int32 sum."""
+    rs = np.random.RandomState(lanes + len(cast))
+    rad = rs.randn(lanes, 3).astype(np.float32)
+    rad[rs.rand(lanes) < 0.2] = -0.0
+    con = rs.rand(lanes, 3).astype(np.float32)
+    con[rs.rand(lanes) < 0.1] = -0.0
+    ok = {"none": np.zeros(lanes, bool), "all": np.ones(lanes, bool),
+          "some": rs.rand(lanes) < 0.5}[cast]
+    occ = rs.rand(lanes) < 0.4
+    n0 = (1 << 33) + 12345
+    t = torch.from_numpy
+    got, n = sh.pt_shade_finish(t(rad), t(con), t(ok), t(occ),
+                                torch.tensor(n0, dtype=torch.int64))
+    want = np.asarray(jnp.asarray(rad) + jnp.where(
+        (jnp.asarray(ok) & ~jnp.asarray(occ))[..., None], jnp.asarray(con),
+        0.0))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert n.dtype == torch.int64 and n.shape == ()
+    assert int(n) == n0 + int(ok.sum(dtype=np.int64))
+    assert int(n) - n0 == int(jnp.sum(jnp.asarray(ok).astype(jnp.int32)))
+    if cast == "none":
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      (rad + np.float32(0.0)).view(np.uint32))
 
 
 def test_unsupported_device_raises(scenes):
