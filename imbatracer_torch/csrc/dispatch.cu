@@ -591,14 +591,16 @@ __device__ int grid_flags(const uint8_t* p, int64_t n) {
 // Write each valid slot's hit into its lane (valid[s]: sub's row s into
 // hit's row idx[s]), a slot a thread in a grid-stride walk, so that a
 // grid of a thread a slot keeps every valid slot's scattered chain in
-// flight at once.  The valid slots' lanes are distinct, so no two threads
-// write one lane.
-__device__ void merge_slots(const uint8_t* valid, const int64_t* idx,
-                            int slots, HitIn sub, HitOut hit) {
+// flight at once; `v0` is the flag of the thread's first slot, loaded
+// early.  The valid slots' lanes are distinct, so no two threads write
+// one lane.
+__device__ void merge_slots(uint8_t v0, const uint8_t* valid,
+                            const int64_t* idx, int slots, HitIn sub,
+                            HitOut hit) {
   const int stride = gridDim.x * blockDim.x;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < slots;
        s += stride) {
-    if (!valid[s]) continue;
+    if (!(s < stride ? v0 : valid[s])) continue;
     const int64_t lane = idx[s];
     hit.t[lane] = sub.t[s];
     hit.id[lane] = sub.id[s];
@@ -607,16 +609,18 @@ __device__ void merge_slots(const uint8_t* valid, const int64_t* idx,
   }
 }
 
-// Each block merges its share of the slots' hits where `hit.t` is set
-// (merge_slots: it writes neither a flag nor the word, so the merge needs
-// no ordering against the rest), ORs its share of the active flags (only
-// for the device counts, which need whether none is set) and counts its
-// share of the unresolved slots, and adds both to finish_word with one
-// atomic; the last block, which the atomic's old value names and hands
-// every other block's share, updates the counts a thread each, with
-// atomics, so that none waits on another: the loop's per-run counts
-// (rounds - 1) times, the FINISH_KEYS and the overflow counter (no slot is
-// both a maximum and another count's: ops/dispatch.py checks).
+// Each block ORs its share of the active flags (only for the device
+// counts, which need whether none is set) and counts its share of the
+// unresolved slots, and adds both to finish_word with one atomic; while
+// that atomic is in flight, it merges its share of the slots' hits where
+// `hit.t` is set (merge_slots, the first slot's flag loaded with the
+// flags: the merge writes neither a flag nor the word, so it needs no
+// ordering against the rest).  The last block, which the atomic's old
+// value names and hands every other block's share, updates the counts a
+// thread each, with atomics, so that none waits on another: the loop's
+// per-run counts (rounds - 1) times, the FINISH_KEYS and the overflow
+// counter (no slot is both a maximum and another count's:
+// ops/dispatch.py checks).
 __global__ void __launch_bounds__(kFinishThreads)
     slot_finish_kernel(const uint8_t* active, int64_t num_r,
                        const uint8_t* unresolved, int slots,
@@ -633,21 +637,24 @@ __global__ void __launch_bounds__(kFinishThreads)
     asm volatile("prefetch.global.L1 [%0];" ::"l"(dropped));
   }
   if (t == 0) block_left = 0;
-  if (hit.t) merge_slots(valid, idx, slots, sub, hit);
+  const int first = blockIdx.x * blockDim.x + t;
+  const uint8_t v0 = hit.t && first < slots ? valid[first] : 0;
   const int mine = grid_flags<true>(unresolved, slots);
   const int any =
       __syncthreads_or(counts ? grid_flags<false>(active, num_r) : 0);
   const int w = __reduce_add_sync(0xffffffffu, mine);
   if ((t & 31) == 0 && w) atomicAdd(&block_left, w);
   __syncthreads();
+  unsigned long long share = 0ull, old = 0ull;
   if (t == 0) {
-    const unsigned long long share =
-        static_cast<unsigned long long>(block_left) |
-        (static_cast<unsigned long long>(any != 0) << kLiveShift) |
-        (1ull << kDoneShift);
-    const unsigned long long old = atomicAdd(&finish_word, share);
-    total = (old >> kDoneShift) == gridDim.x - 1 ? old + share : 0ull;
+    share = static_cast<unsigned long long>(block_left) |
+            (static_cast<unsigned long long>(any != 0) << kLiveShift) |
+            (1ull << kDoneShift);
+    old = atomicAdd(&finish_word, share);
   }
+  if (hit.t) merge_slots(v0, valid, idx, slots, sub, hit);
+  if (t == 0)
+    total = (old >> kDoneShift) == gridDim.x - 1 ? old + share : 0ull;
   __syncthreads();
   if (total == 0ull) return;     // not the last block (its done count > 0)
   if (t == 0) finish_word = 0ull;
@@ -658,11 +665,15 @@ __global__ void __launch_bounds__(kFinishThreads)
   } else if (counts && t < cs.deltas + kFinishKeys) {
     const int vals[kFinishKeys] = {live == 0, *rounds, *count, *dropped, left};
     const int k = t - cs.deltas;
+    int val = vals[0];             // selected, not indexed: no local memory
+#pragma unroll
+    for (int j = 1; j < kFinishKeys; ++j)
+      if (k == j) val = vals[j];
     int* c = counts + cs.slot[k];
     if (cs.is_max[k])
-      atomicMax(c, vals[k]);
+      atomicMax(c, val);
     else
-      atomicAdd(c, vals[k]);
+      atomicAdd(c, val);
   } else if (t == kMaxDeltas + kFinishKeys) {
     atomicAdd(overflow, *dropped + left);
   }

@@ -271,8 +271,10 @@ __device__ unsigned long long finish_count_word = 0ull;
 // 0), as the plain version's torch.where and add round it.  The shadow
 // rays are counted a block (a warp's sum, then one shared add a warp) and
 // added to finish_count_word with one atomic a block; the last block
-// writes count_out = count_in + the total and resets the word.  Both
-// counts are int64; a band's total fits the word's 32 bits.
+// writes count_out = count_in + the total and resets the word, count_in
+// read by each block's first thread as it starts, so that the last
+// block's chain is the atomic and the write.  Both counts are int64; a
+// band's total fits the word's 32 bits.
 __global__ void __launch_bounds__(kFinThreads)
     pt_shade_finish_kernel(const float* __restrict__ radiance,
                            const float* __restrict__ contrib,
@@ -284,6 +286,7 @@ __global__ void __launch_bounds__(kFinThreads)
                            int vec) {
   __shared__ int block_cast;
   const int t = threadIdx.x;
+  const long long base = t == 0 ? *count_in : 0ll;
   if (t == 0) block_cast = 0;
   const int stride = gridDim.x * kFinThreads;
   const int first = blockIdx.x * kFinThreads + t;
@@ -325,8 +328,7 @@ __global__ void __launch_bounds__(kFinThreads)
   const unsigned long long old = atomicAdd(&finish_count_word, share);
   if ((old >> kFinDoneShift) != gridDim.x - 1u) return;
   finish_count_word = 0ull;
-  *count_out = *count_in +
-               static_cast<long long>((old + share) & 0xffffffffull);
+  *count_out = base + static_cast<long long>((old + share) & 0xffffffffull);
 }
 
 int blocks_for(int lanes) { return (lanes + kBlk - 1) / kBlk; }

@@ -17,7 +17,9 @@ arguments on to the earlier merge kernel, the earlier NEE add by a copy
 of its wrapper (the count cloned, then added to on the card).  A third
 build, of the earlier NEE add with its count taken out (the warps'
 same-address atomicAdd dropped from the source before the build), is a
-measurement only: what the atomics cost.  Each design is timed as
+measurement only: what the atomics cost.  An earlier tree with this
+tree's C interfaces (a design set aside, say) is launched through this
+tree's wrappers instead, with no variant.  Each design is timed as
 chip_smoke.graph_ms (10 calls captured in one CUDA graph, after a
 warm-up), earlier, redesigned, redesigned, earlier, the variant twice
 after them, with the count's copy alone beside them.
@@ -113,15 +115,15 @@ def build(src, so, inc):
     return subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)
 
 
-def load(mod, path):
-    """The library at `path`, bound by mod._library() and then with the
-    earlier argument types of EARLIER_ARGS."""
+def load(mod, path, same):
+    """The library at `path`, bound by mod._library() and then, unless
+    `same`, with the earlier argument types of EARLIER_ARGS."""
     keep, mod.LIB, mod._lib = mod.LIB, _Built(path), None
     try:
         lib = mod._library()
     finally:
         mod.LIB, mod._lib = keep, None
-    for name, args in EARLIER_ARGS.items():
+    for name, args in ({} if same else EARLIER_ARGS).items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = ctypes.c_int, args
@@ -129,21 +131,25 @@ def load(mod, path):
 
 
 def earlier_builds(root):
-    """{"dispatch", "shade", "shade_no_count": (library, ptxas log)} of the
-    earlier sources, built in parallel."""
+    """({"dispatch", "shade"[, "shade_no_count"]: (library, ptxas log)} of
+    the earlier sources, built in parallel; whether they have this tree's
+    C interfaces, and then no variant)."""
     os.makedirs(libbuild.BUILD_DIR, exist_ok=True)
     inc = os.path.join(os.path.abspath(root), "imbatracer_torch", "csrc")
+    with open(os.path.join(inc, dp.LIB.source)) as fh:
+        same = "imba_slot_merge" not in fh.read()
     with open(os.path.join(inc, sh.LIB.source)) as fh:
         text = fh.read()
-    if text.count(COUNT_LINE) != 1:
-        raise RuntimeError("the earlier NEE add's count is not one "
-                           f"{COUNT_LINE.strip()!r} line")
-    variant = os.path.join(libbuild.BUILD_DIR, "pt_shade_no_count.cu")
-    with open(variant, "w") as fh:
-        fh.write(text.replace(COUNT_LINE, ""))
     jobs = {"dispatch": (dp, os.path.join(inc, dp.LIB.source)),
-            "shade": (sh, os.path.join(inc, sh.LIB.source)),
-            "shade_no_count": (sh, variant)}
+            "shade": (sh, os.path.join(inc, sh.LIB.source))}
+    if not same:
+        if text.count(COUNT_LINE) != 1:
+            raise RuntimeError("the earlier NEE add's count is not one "
+                               f"{COUNT_LINE.strip()!r} line")
+        variant = os.path.join(libbuild.BUILD_DIR, "pt_shade_no_count.cu")
+        with open(variant, "w") as fh:
+            fh.write(text.replace(COUNT_LINE, ""))
+        jobs["shade_no_count"] = (sh, variant)
     procs = {}
     for key, (mod, src) in jobs.items():
         so = os.path.join(libbuild.BUILD_DIR, f"lib{key}_earlier.so")
@@ -153,8 +159,8 @@ def earlier_builds(root):
         err = p.communicate()[1]
         if p.returncode != 0:
             raise RuntimeError(f"building the earlier {key} failed:\n{err}")
-        out[key] = (load(mod, so), err)
-    return out
+        out[key] = (load(mod, so, same), err)
+    return out, same
 
 
 def ptxas(log, kernel):
@@ -185,14 +191,27 @@ def earlier_finish(lib, radiance, contrib, ok, occ, n_rays):
     return out, count
 
 
+def with_lib(mod, lib, fn, *args):
+    """fn(*args) with `lib` as mod's library."""
+    keep, mod._lib = mod._lib, lib
+    try:
+        return fn(*args)
+    finally:
+        mod._lib = keep
+
+
 def nee_case(libs, label, args, card):
     """One `[ab]` line of the NEE add on `args` (radiance, contrib,
     shadow_ok, occluded, n_rays): each design held against the plain
     version bit for bit, then timed in turns."""
-    fns = {"earlier": partial(earlier_finish, libs["shade"], *args),
-           "redesigned": partial(sh.pt_shade_finish_cuda, *args),
-           "no_count": partial(earlier_finish, libs["shade_no_count"],
-                               *args)}
+    if "shade_no_count" in libs:
+        fns = {"earlier": partial(earlier_finish, libs["shade"], *args),
+               "no_count": partial(earlier_finish, libs["shade_no_count"],
+                                   *args)}
+    else:
+        fns = {"earlier": partial(with_lib, sh, libs["shade"],
+                                  sh.pt_shade_finish_cuda, *args)}
+    fns["redesigned"] = partial(sh.pt_shade_finish_cuda, *args)
     plain = sh.pt_shade_finish_plain(*args)
     bad = {}
     for which, fn in fns.items():
@@ -203,19 +222,21 @@ def nee_case(libs, label, args, card):
     if any(bad.values()):
         raise AssertionError(f"[ab] pt_shade_finish {label}: elements not "
                              f"bit-equal to the plain version {bad}")
-    ms = {"earlier": [], "redesigned": [], "no_count": []}
+    ms = {which: [] for which in fns}
     for which in ("earlier", "redesigned", "redesigned", "earlier",
                   "no_count", "no_count"):
-        ms[which].append(cs.graph_ms(fns[which]))
+        if which in fns:
+            ms[which].append(cs.graph_ms(fns[which]))
     copy_ms = cs.graph_ms(partial(torch.clone, args[4]))
     lanes = args[0].shape[0]
     bound_ms, by = cs.shade_bound(lanes * cs.FINISH_LANE_BYTES, 0)
+    variant = (f"the earlier with its count taken out "
+               f"{fmt(ms['no_count'])} ms, " if "no_count" in ms else "")
     cs.log(f"[ab] pt_shade_finish_kernel, {label}: {lanes} lanes, "
-           f"{int(args[2].sum())} shadow rays: earlier (the count's copy "
-           f"and the kernel) {fmt(ms['earlier'])} ms, redesigned "
-           f"{fmt(ms['redesigned'])} ms; the earlier with its count taken "
-           f"out {fmt(ms['no_count'])} ms, the copy alone {copy_ms:.4f} "
-           f"ms; bound {bound_ms:.5f} ms by {by}; bit-equal [{card}]")
+           f"{int(args[2].sum())} shadow rays: earlier "
+           f"{fmt(ms['earlier'])} ms, redesigned {fmt(ms['redesigned'])} "
+           f"ms; {variant}the count's copy alone {copy_ms:.4f} ms; bound "
+           f"{bound_ms:.5f} ms by {by}; bit-equal [{card}]")
 
 
 def shade_args(scene, meta, size, max_len, bounce, dev):
@@ -251,7 +272,8 @@ def seeded_args(lanes, base, dev):
 def finish_case(libs, label, act, need, slots, hit, tcur, seed, card):
     """One `[ab]` line of the finish with its merge on the slots gathered
     from `need`: both designs held against the plain versions bit for bit
-    (chip_smoke.finish_mismatches), then timed in turns."""
+    (chip_smoke.finish_mismatches), then timed in turns (the parent's
+    earlier design: the finish, then the merge)."""
     dp._lib = libs["redesigned"]
     k = dp.slot_gather_cuda(need, slots, hit, tcur)
     left, rounds, counts0, where, deltas = cs.finish_case(k, act, seed)
@@ -278,7 +300,7 @@ def finish_case(libs, label, act, need, slots, hit, tcur, seed, card):
               + nvalid * (8 + 16 + 16))
     bound_ms, by = cs.shade_bound(nbytes, 0)
     cs.log(f"[ab] slot_finish_kernel with the merge, {label}: {n} lanes, "
-           f"{slots} slots, {nvalid} valid: earlier (finish, then merge) "
+           f"{slots} slots, {nvalid} valid: earlier "
            f"{fmt(ms['earlier'])} ms, redesigned (one launch) "
            f"{fmt(ms['redesigned'])} ms; bound {bound_ms:.5f} ms by {by} "
            f"({nbytes} bytes); bit-equal [{card}]")
@@ -290,7 +312,7 @@ def bounce_finish(libs, label, scene, meta, size, card):
     finish_case(libs, label, c["active"], need, slots, hit, tcur, 1, card)
 
 
-def log_builds(built, card):
+def log_builds(built, same, card):
     """ptxas and `[res]` lines of each earlier and redesigned kernel."""
     new_log = {m: libbuild.BUILD_INFO.get(m.LIB.name, {}).get("log", "")
                for m in (dp, sh)}
@@ -299,11 +321,15 @@ def log_builds(built, card):
                              ("pt_shade_finish_kernel", "shade", sh),
                              ("pt_shade_finish_kernel", "shade_no_count",
                               sh)):
+        if key not in built or (same and kernel == "slot_merge_kernel"):
+            continue
         lib, log = built[key]
         cs.log(f"[ab] {kernel} ptxas: earlier ({key}) {ptxas(log, kernel)};"
                f" redesigned {ptxas(new_log[mod], kernel)} [{card}]")
         if mod is dp:
             old, new = DISPATCH_INDEX[kernel]
+            if same:
+                old = new
             res = {"earlier": st._resources(lib.imba_dispatch_resources,
                                             old)}
             if new is not None:
@@ -328,10 +354,11 @@ def main():
     dev = get_device("cuda")
     card = card_line(dev)
     new = {"dispatch": dp._library(), "shade": sh._library()}
-    built = earlier_builds(args.root)
-    log_builds(built, card)
-    shade_libs = {k: built[k][0] for k in ("shade", "shade_no_count")}
-    slot_libs = {"earlier": EarlierDispatch(built["dispatch"][0]),
+    built, same = earlier_builds(args.root)
+    log_builds(built, same, card)
+    shade_libs = {k: lib for k, (lib, _) in built.items() if k != "dispatch"}
+    earlier = built["dispatch"][0]
+    slot_libs = {"earlier": earlier if same else EarlierDispatch(earlier),
                  "redesigned": new["dispatch"]}
 
     still = make_still_life_like(device=dev)

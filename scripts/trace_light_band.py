@@ -29,8 +29,9 @@ between the marks, the port's ctypes launches included):
   the frame's chrome trace) times a thread's share of the bound, plus
   the bytes a launch moves whatever its threads (THREAD_BYTES,
   THREAD_US, LAUNCH_BYTES; the re-trace's valid slots a dispatch
-  counted on the card in one more frame of fresh captures), beside the
-  traced time of an empty kernel replayed in a graph; and counts the
+  counted on the card in one more frame of fresh captures, after every
+  trace is taken), beside the traced time of an empty kernel replayed
+  in a graph; and counts the
   launches from each masked dispatch's first-round resolve to its WHILE
   node, from a pass's resolve to the node's next test, and from the
   node to the merged hit (`[loop]` lines);
@@ -216,6 +217,7 @@ def main():
     graphed_frame(scene, meta, settings, "pt")
     del scene
     instanced(dev)
+    ranked()
 
 
 MIDDLE = {}
@@ -480,11 +482,29 @@ def valid_slots(scene, meta, settings):
     return (after[0] - before[0]) / n if n else 0.0
 
 
+# The graphed frames traced, ranked once every trace is taken (ranked()):
+# (tag, {kernel: [us, n]}, chrome_threads, scene, meta, settings, the
+# band's shapes).
+RANKED = []
+
+
+def ranked():
+    """`[rank]` lines of every graphed frame traced, each with the valid
+    slots a masked dispatch of its scene and settings (valid_slots), after
+    the traces: the counting frames capture afresh."""
+    for tag, tot, threads, scene, meta, settings, frame in RANKED:
+        valid = valid_slots(scene, meta, settings)
+        print(f"[lighttrace] graphed {tag} frame: {valid:.1f} valid slots "
+              f"a masked dispatch (a frame of fresh captures)", flush=True)
+        rank(tag, tot, threads, dict(frame, valid=valid))
+    del RANKED[:]
+
+
 def graphed_frame(scene, meta, settings, tag, chrome=None):
     """Trace one graphed frame after a warm-up frame (the captures); log
-    its wall and device busy time, top kernels, the NAMED kernels, the
-    ranking and its middle's range; {name: [us, n]}.  The trace goes to
-    `chrome`, or to a temporary file."""
+    its wall and device busy time, top kernels, the NAMED kernels and its
+    middle's range, and keep what ranked() ranks; {name: [us, n]}.  The
+    trace goes to `chrome`, or to a temporary file."""
     frame_fn, _ = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
     renderer.step()
@@ -497,8 +517,11 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
         wall = 1e3 * (time.time() - t0)
     tot = by_name((name, ns / 1e3) for name, _, ns in device_events(prof)
                   if MARK not in name)
-    print(f"[lighttrace] graphed {tag} frame: wall {wall:.1f} ms",
-          flush=True)
+    streams = {e.device_resource_id()
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == CUDA}
+    print(f"[lighttrace] graphed {tag} frame: wall {wall:.1f} ms, device "
+          f"events on {len(streams)} streams", flush=True)
     show(f"graphed {tag} frame", tot, ARGS.top)
     for part in NAMED:
         us = sum(v[0] for k, v in tot.items() if part in k)
@@ -511,13 +534,11 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
         os.close(fd)
     prof.export_chrome_trace(chrome)
     two_level = scene.bvh.two_level
-    valid = valid_slots(scene, meta, settings)
-    print(f"[lighttrace] graphed {tag} frame: {valid:.1f} valid slots a "
-          f"masked dispatch (a frame of fresh captures)", flush=True)
-    rank(tag, tot, chrome_threads(chrome),
-         dict(lanes=BAND, slots=traverse.retrace_slots(BAND, two_level),
-              slot_b=26 if two_level else 30, valid=valid,
-              pixels=settings.width * settings.height))
+    RANKED.append((tag, tot, chrome_threads(chrome), scene, meta, settings,
+                   dict(lanes=BAND,
+                        slots=traverse.retrace_slots(BAND, two_level),
+                        slot_b=26 if two_level else 30,
+                        pixels=settings.width * settings.height)))
     loop_launches(tag, device_events(prof))
     if not keep:
         os.remove(chrome)
