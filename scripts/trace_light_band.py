@@ -266,8 +266,7 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # A lane-a-thread kernel's share is chip_smoke.py's byte count of it on a
 # 262,144-lane band (section 6's bound column) over the band's lanes --
 # pt_shade its carry and hit in and its outputs out (SHADE_LANE_IN +
-# SHADE_LANE_OUT, the shade-record and light rows left out), the finish
-# its radiance, contrib and two flags in and radiance out, the light
+# SHADE_LANE_OUT, the shade-record and light rows left out), the light
 # start its carry out, the finishes their contrib, pixel or radiance and
 # flags, the resolves their row in and hit out, the keys a ray's origin
 # and flag in and its key out.  The kernels that are not a lane a thread
@@ -277,14 +276,17 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # and a contribution where it has one; the film a launch), the
 # selection's keys a row (the admission keys'; the canonical keys move
 # 20), its gather and the grid's tiles a word or a photon slot, the
-# grid's keys a photon.  The slot
+# grid's keys a photon.  The PT bounce's NEE add (pt_shade_finish_kernel,
+# four lanes a thread in one tree, one in another) moves 38 B a lane of
+# its band -- radiance, contrib and two flags in, radiance out -- over
+# the frame's mean band (its pixels over its bands).  The slot
 # kernels and the WHILE nodes' flag kernel move what the function needs
 # a launch, whatever the kernel: the need flags of the band and the
 # slots' state out (26 B a slot, 30 with tcur); every active flag and
 # every slot's two flags, and a valid slot's lane index, its hit and its
 # lane's hit (8 + 16 + 16 B: the merge, folded into the finish); and at
 # most the slots' flags.
-THREAD_BYTES = {"pt_shade_kernel": 86 + 115, "pt_shade_finish_kernel": 38,
+THREAD_BYTES = {"pt_shade_kernel": 86 + 115,
                 "vcm_light_start_kernel": 66,
                 "vcm_finish_kernel<false>": 34,
                 "vcm_finish_kernel<true>": 52, "khit_resolve_kernel": 148,
@@ -311,6 +313,8 @@ THREAD_US = {"khit_kernel": 35.9 / 262144,
              "merge_kernel<": 12.3 / 262144,
              "merge_query_rows_kernel": 20.1 / 262144}
 LAUNCH_BYTES = {
+    "pt_shade_finish_kernel": lambda f: 38 * f["pixels"] / -(-f["pixels"]
+                                                             // BAND),
     "splat_kernel": lambda f: f["pixels"] * 12,
     "slot_gather_kernel": lambda f: f["lanes"] + f["slots"] * f["slot_b"],
     "slot_finish_kernel": lambda f: (f["lanes"] + 2 * f["slots"]
