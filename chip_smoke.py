@@ -4486,27 +4486,73 @@ GRAPH_PT_EQUAL = 0.9999       # pixels bit-equal across the two routes
 COST_FRAMES = 3               # replayed frames timed a re-trace variant
 
 
+# Kernels that a launch counter counts, for holding a trace against the
+# counters: (the counter keys, the kernel's name as a whole word).
+COUNTED_TRACED = ((("khit",), "khit_kernel"), (("merge",), "merge_kernel"),
+                  (("dispatch_keys",), "dispatch_keys_kernel"),
+                  (("dispatch_rows",), "dispatch_rows_kernel"),
+                  (("khit_resolve", "khit_resolve_flags"),
+                   "khit_resolve_kernel"),
+                  (("slot_gather",), "slot_gather_kernel"),
+                  (("slot_finish",), "slot_finish_kernel"),
+                  (("pt_shade",), "pt_shade_kernel"),
+                  (("pt_shade_finish",), "pt_shade_finish_kernel"),
+                  (("vcm_light_shade",), "vcm_light_shade_kernel"),
+                  (("vcm_camera_shade",), "vcm_camera_shade_kernel"))
+
+
 def trace_route(fn, frame, graph):
     """One frame of fn traced with torch.profiler: (wall ms, device busy
-    ms, kernels, cudaLaunchKernel calls, cudaGraphLaunch calls)."""
+    ms, kernels, cudaLaunchKernel calls, cudaGraphLaunch calls), and for
+    each kernel of COUNTED_TRACED its launches in the trace and by the
+    launch counters, set to 0 just before the frame and read just after
+    (`counted`: {kernel: (traced, counted)})."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    reset_counters()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.time()
         fn(frame, graph)
         torch.cuda.synchronize()
         wall = 1e3 * (time.time() - t0)
+    got = counters()
     dev, host = trace_totals(prof.profiler.kineto_results.events())
     calls = lambda pre: sum(n for name, (_, n) in host.items()
                             if name.startswith(pre))
     tail = [v for k, v in dev.items() if any(p in k for p in TAIL_TRACED)]
+    counted = {}
+    for keys, kernel in COUNTED_TRACED:
+        word = re.compile(rf"\b{kernel}\b")
+        n = sum(c for name, (_, c) in dev.items() if word.search(name))
+        if n or any(got.get(k) for k in keys):
+            counted[kernel] = (n, sum(got.get(k, 0) for k in keys))
     return dict(wall=wall, busy=sum(ns for ns, _ in dev.values()) / 1e6,
                 kernels=sum(n for _, n in dev.values()),
                 launch_kernel=calls("cudaLaunchKernel"),
                 graph_launch=calls("cudaGraphLaunch"),
                 tail_ms=sum(ns for ns, _ in tail) / 1e6,
-                tail_n=sum(n for _, n in tail))
+                tail_n=sum(n for _, n in tail), counted=counted)
+
+
+def log_traced_counts(tag, cell, name, t, card):
+    """`[traced]`: a traced frame's launches of each counted kernel
+    against the launch counters.  Where they differ, the profiler dropped
+    events (counted, not traced) or gave them other kernels' names
+    (traced beyond the count, seen in a long process's later traces), and
+    the line says that the trace's busy time and kernel times are not a
+    measurement of the frame.  A profiler fault fails no phase: the
+    frame's work is held by its films and counters."""
+    c = t["counted"]
+    missing = sum(max(m - n, 0) for n, m in c.values())
+    extra = sum(max(n - m, 0) for n, m in c.values())
+    log(f"[traced] {tag} {cell}: one traced frame {name}: launches traced "
+        f"/ counted " + ", ".join(f"{k} {n}/{m}" for k, (n, m) in c.items())
+        + ("; every counted launch traced, none beyond"
+           if not missing and not extra else
+           f"; {missing} counted launches not traced, {extra} traced beyond "
+           f"the count: the profiler dropped or misnamed events, so this "
+           f"trace is not a measurement of the frame") + f" [{card}]")
 
 
 def loop_cost(cell, scene, meta, fn, size, max_len, frame, busy_ms, card):
@@ -4712,6 +4758,7 @@ def hold_graph_cell(cell, runs, traced, card):
             f"{100.0 * (1.0 - t['busy'] / t['wall']):.1f}%), "
             f"{t['kernels']} kernels, {t['launch_kernel']} cudaLaunchKernel"
             f", {t['graph_launch']} cudaGraphLaunch [{card}]")
+        log_traced_counts("graphs", cell, name, t, card)
     band_kernels(cell, traced[None], card)
     if not ok:
         raise AssertionError(f"{cell}: the graphed and eager routes "
@@ -4829,6 +4876,7 @@ def hold_vcm_graph_cell(cell, algo, runs, traced, card):
                 f"{t['kernels']} kernels, {t['launch_kernel']} "
                 f"cudaLaunchKernel, {t['graph_launch']} cudaGraphLaunch "
                 f"[{card}]")
+            log_traced_counts("vcmgraphs", cell, name, t, card)
     if traced.get(None) is not None:
         band_kernels(cell, traced[None], card)
         t = traced[None]

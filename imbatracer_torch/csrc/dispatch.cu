@@ -612,10 +612,10 @@ __device__ void merge_slots(uint8_t v0, const uint8_t* valid,
 // Each block ORs its share of the active flags (only for the device
 // counts, which need whether none is set) and counts its share of the
 // unresolved slots, and adds both to finish_word with one atomic; while
-// that atomic is in flight, it merges its share of the slots' hits where
-// `hit.t` is set (merge_slots, the first slot's flag loaded with the
-// flags: the merge writes neither a flag nor the word, so it needs no
-// ordering against the rest).  The last block, which the atomic's old
+// that atomic is in flight, it merges its share of the slots' hits
+// (merge_slots, the first slot's flag loaded with the flags: the merge
+// writes neither a flag nor the word, so it needs no ordering against
+// the rest).  The last block, which the atomic's old
 // value names and hands every other block's share, updates the counts a
 // thread each, with atomics, so that none waits on another: the loop's
 // per-run counts (rounds - 1) times, the FINISH_KEYS and the overflow
@@ -638,7 +638,7 @@ __global__ void __launch_bounds__(kFinishThreads)
   }
   if (t == 0) block_left = 0;
   const int first = blockIdx.x * blockDim.x + t;
-  const uint8_t v0 = hit.t && first < slots ? valid[first] : 0;
+  const uint8_t v0 = first < slots ? valid[first] : 0;
   const int mine = grid_flags<true>(unresolved, slots);
   const int any =
       __syncthreads_or(counts ? grid_flags<false>(active, num_r) : 0);
@@ -652,7 +652,7 @@ __global__ void __launch_bounds__(kFinishThreads)
             (1ull << kDoneShift);
     old = atomicAdd(&finish_word, share);
   }
-  if (hit.t) merge_slots(v0, valid, idx, slots, sub, hit);
+  merge_slots(v0, valid, idx, slots, sub, hit);
   if (t == 0)
     total = (old >> kDoneShift) == gridDim.x - 1 ? old + share : 0ull;
   __syncthreads();
@@ -826,7 +826,7 @@ extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
 // (slot, is_max) of each FINISH_KEYS entry, then the number of per-run
 // counts and their (slot, n) pairs (at most kMaxDeltas); valid (slots,)
 // bool, idx (slots,) i64 and sub (slots,) each, merged into hit (R,) each
-// in place, or hit null (no merge).  Returns a CUDA error.
+// in place.  Returns a CUDA error.
 extern "C" int imba_slot_finish(const void* active, int64_t num_r,
                                 const void* unresolved, int slots,
                                 const void* count, const void* dropped,
@@ -853,8 +853,7 @@ extern "C" int imba_slot_finish(const void* active, int64_t num_r,
   const int64_t bytes = counts && num_r > slots ? num_r : slots;
   const int64_t flag_blocks =
       (bytes + 16 * kFinishThreads - 1) / (16 * kFinishThreads);
-  const int64_t merge_blocks =
-      hit ? (slots + kFinishThreads - 1) / kFinishThreads : 0;
+  const int64_t merge_blocks = (slots + kFinishThreads - 1) / kFinishThreads;
   const int64_t want = flag_blocks > merge_blocks ? flag_blocks : merge_blocks;
   const int blocks = static_cast<int>(
       want < 1 ? 1 : want > kFinishBlocks ? kFinishBlocks : want);
@@ -866,8 +865,7 @@ extern "C" int imba_slot_finish(const void* active, int64_t num_r,
       static_cast<const int*>(rounds), static_cast<int*>(overflow),
       static_cast<int*>(counts), cs, static_cast<const uint8_t*>(valid),
       static_cast<const int64_t*>(idx),
-      hit ? make_hit_in(sub) : HitIn{nullptr, nullptr, nullptr, nullptr},
-      hit ? make_hit(hit) : HitOut{nullptr, nullptr, nullptr, nullptr});
+      make_hit_in(sub), make_hit(hit));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,7 @@
 // same-address 64-bit atomics a band, serialised at one L2 slice, its
 // loads were 4-byte scalars at a stride of 3, and its wrapper copied the
 // count first (one more graph node).  It is now a grid of up to
-// kFinBlocksPerSM blocks an SM striding over the band, four lanes a
+// 4 blocks an SM (kFinBlocks) striding over the band, four lanes a
 // thread read and written as three 16-byte words of each (R, 3) array
 // and one 4-byte word of each flag array, one atomic a block, and the
 // count written by the last block (pt_shade_finish_kernel's note).
@@ -250,9 +250,10 @@ __global__ void __launch_bounds__(kBlk)
 }
 
 // pt_shade_finish_kernel's geometry: threads a block, and the most
-// blocks an SM its grid holds (half an SM's 2,048 threads).
+// blocks its grid holds: 4 blocks (half of 2,048 threads) on each of the
+// H100's 132 SMs, sized once as slot_finish_kernel's kFinishBlocks is.
 constexpr int kFinThreads = 256;
-constexpr int kFinBlocksPerSM = 4;
+constexpr int kFinBlocks = 4 * 132;
 
 // The finish's blocks meet in one 64-bit word: the shadow rays counted in
 // its low 32 bits, the blocks done in the high 32.  Each block adds its
@@ -262,6 +263,13 @@ constexpr int kFinBlocksPerSM = 4;
 // stream, in and out of a graph.
 constexpr int kFinDoneShift = 32;
 __device__ unsigned long long finish_count_word = 0ull;
+
+// r + (lit ? c : 0) a float, as pt_shade_finish_plain rounds it.
+__device__ __forceinline__ float4 nee_add(float4 r, float4 c, bool a,
+                                          bool b, bool d, bool e) {
+  return make_float4(r.x + (a ? c.x : 0.0f), r.y + (b ? c.y : 0.0f),
+                     r.z + (d ? c.z : 0.0f), r.w + (e ? c.w : 0.0f));
+}
 
 // Float j of an (R, 3) array belongs to lane j / 3: a thread takes four
 // lanes, twelve floats, as three 16-byte words of radiance, contrib and
@@ -297,18 +305,15 @@ __global__ void __launch_bounds__(kFinThreads)
     const unsigned occ = reinterpret_cast<const unsigned*>(occluded)[q];
     const float4* r4 = reinterpret_cast<const float4*>(radiance) + 3 * q;
     const float4* c4 = reinterpret_cast<const float4*>(contrib) + 3 * q;
-    float4 r[3] = {r4[0], r4[1], r4[2]};
-    const float4 c[3] = {c4[0], c4[1], c4[2]};
     const unsigned lit = ok & ~occ;        // bools: a byte each, 0 or 1
-    float* rf = reinterpret_cast<float*>(r);
-    const float* cf = reinterpret_cast<const float*>(c);
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-      rf[j] = rf[j] + (((lit >> (8 * (j / 3))) & 0xffu) ? cf[j] : 0.0f);
+    const bool l0 = lit & 0xffu, l1 = lit & 0xff00u, l2 = lit & 0xff0000u,
+               l3 = lit & 0xff000000u;
     float4* o4 = reinterpret_cast<float4*>(out) + 3 * q;
-    o4[0] = r[0];
-    o4[1] = r[1];
-    o4[2] = r[2];
+    // Floats 0-3 are lanes 0, 0, 0, 1; 4-7 lanes 1, 1, 2, 2; 8-11 lanes
+    // 2, 3, 3, 3.
+    o4[0] = nee_add(r4[0], c4[0], l0, l0, l0, l1);
+    o4[1] = nee_add(r4[1], c4[1], l1, l1, l2, l2);
+    o4[2] = nee_add(r4[2], c4[2], l2, l3, l3, l3);
     cast += __popc(ok);
   }
   for (int i = 4 * quads + first; i < lanes; i += stride) {
@@ -358,18 +363,13 @@ extern "C" int imba_pt_shade(void* const* ptrs, int nptrs, const int* ints,
 // pt_shade_finish_kernel on the current stream: out (R, 3) = radiance +
 // contrib where shadow_ok & ~occluded, and count_out (int64) = count_in
 // plus the shadow rays (one launch, also for R = 0).  A grid of up to
-// kFinBlocksPerSM blocks an SM, a thread four lanes.  Returns a CUDA
+// kFinBlocks blocks (4 an SM), a thread four lanes.  Returns a CUDA
 // error code.
 extern "C" int imba_pt_shade_finish(const void* radiance, const void* contrib,
                                     const void* shadow_ok, const void* occluded,
                                     void* out, const void* count_in,
                                     void* count_out, int lanes, void* stream) {
   if (lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const auto aligned = [](const void* p, uintptr_t a) {
     return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
   };
@@ -378,8 +378,7 @@ extern "C" int imba_pt_shade_finish(const void* radiance, const void* contrib,
                   aligned(occluded, 4);
   const int items = vec ? lanes / 4 : lanes;
   const int want = (items + kFinThreads - 1) / kFinThreads;
-  const int most = sms * kFinBlocksPerSM;
-  const int blocks = want < 1 ? 1 : want > most ? most : want;
+  const int blocks = want < 1 ? 1 : want > kFinBlocks ? kFinBlocks : want;
   pt_shade_finish_kernel<<<blocks, kFinThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(radiance), static_cast<const float*>(contrib),

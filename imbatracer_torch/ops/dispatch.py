@@ -626,11 +626,11 @@ def slot_gather_cuda(need, slots: int, hit, tcur=None) -> Slots:
 
 
 def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None,
-                     deltas=(), hit=None):
+                     deltas=(), *, hit):
     """Launch slot_finish_kernel on CUDA tensors (raises on anything
-    else): slot_finish_plain's overflow and counts, in place, and with
-    `hit` (a Hit over the lanes of `active`) its merged hit, written into
-    `hit` in place and returned (one launch either way)."""
+    else): slot_finish_plain's overflow and counts, in place, and its
+    merged hit (`hit`, a Hit over the lanes of `active`), written into
+    `hit` in place and returned, in one launch."""
     _check_deltas(counts, deltas)
     for x, what in ((overflow, "overflow"), (slots.count, "count"),
                     (slots.dropped, "dropped"), (rounds, "rounds")):
@@ -654,22 +654,19 @@ def slot_finish_cuda(overflow, active, slots: Slots, rounds, counts=None,
         for k, (slot, n) in enumerate(deltas):
             ints[2 * keys + 1 + 2 * k], ints[2 * keys + 2 + 2 * k] = slot, n
         cptr = tensor.data_ptr()
-    merge = (None, None, None, None)
-    if hit is not None:
-        n = need.shape[0]
-        idx = _input(slots.idx, torch.int64, "idx")
-        valid = _input(slots.valid, torch.bool, "valid")
-        _shape(idx, (n,), "idx")
-        _shape(valid, (n,), "valid")
-        sub, keep = _hit_in(slots.hit, n, "slots.hit")
-        merge = (valid.data_ptr(), idx.data_ptr(), sub,
-                 _hit_args(hit, active.shape[0]))
+    n = need.shape[0]
+    idx = _input(slots.idx, torch.int64, "idx")
+    valid = _input(slots.valid, torch.bool, "valid")
+    _shape(idx, (n,), "idx")
+    _shape(valid, (n,), "valid")
+    sub, keep = _hit_in(slots.hit, n, "slots.hit")
     lib = _library()
     _launched(lib.imba_slot_finish(
         active.data_ptr(), active.shape[0],
-        need.data_ptr(), need.shape[0], slots.count.data_ptr(),
+        need.data_ptr(), n, slots.count.data_ptr(),
         slots.dropped.data_ptr(), rounds.data_ptr(), overflow.data_ptr(),
-        cptr, ints, *merge, _stream(need)), "slot_finish")
+        cptr, ints, valid.data_ptr(), idx.data_ptr(), sub,
+        _hit_args(hit, active.shape[0]), _stream(need)), "slot_finish")
     LAUNCHES["slot_finish"] += 1
     return hit
 
@@ -729,14 +726,14 @@ def slot_gather(need, slots: int, hit, tcur=None) -> Slots:
 
 
 def slot_finish(overflow, active, slots: Slots, rounds, counts=None,
-                deltas=(), hit=None):
+                deltas=(), *, hit):
     """The overflow counter and the device counts of a re-trace, the
     counts its loop's body ticks a run (`deltas`, (slot, n) each) added
-    for all its runs, and with `hit` the dispatch's hit with the slots'
-    hits merged in, returned: the kernel (one launch, the hit in place)
-    on CUDA tensors, the plain version on CPU tensors."""
+    for all its runs, and the dispatch's hit `hit` with the slots' hits
+    merged in, returned: the kernel (one launch, the hit in place) on
+    CUDA tensors, the plain version on CPU tensors."""
     fn = slot_finish_cuda if _on(overflow) == "cuda" else slot_finish_plain
-    return fn(overflow, active, slots, rounds, counts, deltas, hit)
+    return fn(overflow, active, slots, rounds, counts, deltas, hit=hit)
 
 
 def prepare(org, d, tmin, tmax, active=None, *, bounds=None, sbox=None,

@@ -263,7 +263,7 @@ def _finish(overflow, act, slots: dp.Slots, loop, hit: Hit) -> Hit:
     rounds, deltas = loop
     return dp.slot_finish(overflow, act, slots, rounds,
                           graphs.count_slots(MASK_STATS, dp.FINISH_KEYS),
-                          deltas, hit)
+                          deltas, hit=hit)
 
 
 def _closest_hit_masked_khit_graph(bvh: DeviceBvh, org, d, tmin, tmax,

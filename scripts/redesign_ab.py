@@ -87,9 +87,9 @@ class _Built:
 
 
 class EarlierDispatch:
-    """The earlier dispatch library behind this tree's interface: a finish
-    with the merge's arguments is the earlier finish, then the earlier
-    merge, on the same stream."""
+    """The earlier dispatch library behind this tree's interface: the
+    finish, which takes the merge's arguments, is the earlier finish, then
+    the earlier merge, on the same stream."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -100,7 +100,7 @@ class EarlierDispatch:
         err = self.lib.imba_slot_finish(active, num_r, need, slots, count,
                                         dropped, rounds, overflow, counts,
                                         ints, stream)
-        if err == 0 and hit is not None:
+        if err == 0:
             err = self.lib.imba_slot_merge(idx, valid, slots, sub, hit,
                                            stream)
         return err

@@ -22,8 +22,9 @@ between the marks, the port's ctypes launches included):
   the canonical order and the photon grid, eager once a frame, with
   their device time, kernels by name and launches, and the middle's
   peak memory above what the frame held when it began; then one graphed
-  PT frame of the same scene (wall, busy, kernels); every graphed frame
-  also logs the device time and launches of the kernels in NAMED,
+  PT frame of the same scene (wall, busy, kernels), and one of the
+  cornell box at the headline's 1024x1024 and max_len 10; every graphed
+  frame also logs the device time and launches of the kernels in NAMED,
   ranks every hand-written kernel by launches x (us a launch - bound at
   the traced threads): each launch's threads (its grid and block, from
   the frame's chrome trace) times a thread's share of the bound, plus
@@ -81,9 +82,11 @@ from imbatracer_torch.frontend.renderer import (ProgressiveRenderer,  # noqa
                                                 camera_for_scene)
 from imbatracer_torch.render import light_cache, traverse  # noqa: E402
 from imbatracer_torch.render.integrators import pt, vcm  # noqa: E402
-from imbatracer_torch.scene.procedural import make_still_life_like  # noqa
+from imbatracer_torch.scene.procedural import (make_cornell_scene,  # noqa
+                                               make_still_life_like)
 
 W, H, LPC, MAX_LEN, BAND = 1920, 1080, 1 << 20, 8, 1 << 18
+CORNELL, CORNELL_LEN = 1024, 10       # the headline's frame (bench.py)
 ACTS = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
@@ -215,6 +218,11 @@ def main():
     settings = RenderSettings(width=W, height=H, spp=1,
                               max_path_len=MAX_LEN, algorithm="pt")
     graphed_frame(scene, meta, settings, "pt")
+    del scene
+    scene, meta = make_cornell_scene(device=dev)
+    graphed_frame(scene, meta, RenderSettings(
+        width=CORNELL, height=CORNELL, spp=1, max_path_len=CORNELL_LEN,
+        algorithm="pt"), "cornell pt")
     del scene
     instanced(dev)
     ranked()

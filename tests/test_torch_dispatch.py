@@ -582,12 +582,13 @@ def test_plain_slots_match_the_composite(case, two_level):
     got, want = counts0.clone(), counts0.clone()
     dp.slot_finish(got[0], act, s._replace(need=unresolved), rounds,
                    (got, [at[k] for k in dp.FINISH_KEYS],
-                    [k.startswith("max_") for k in dp.FINISH_KEYS]))
+                    [k.startswith("max_") for k in dp.FINISH_KEYS]),
+                   hit=hit)
     _composite_finish(want, at, want[0], act, need, dropped, unresolved,
                       rounds)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     ovf = torch.zeros((), dtype=torch.int32)
-    dp.slot_finish(ovf, act, s._replace(need=unresolved), rounds)
+    dp.slot_finish(ovf, act, s._replace(need=unresolved), rounds, hit=hit)
     assert int(ovf) == int(dropped) + int(unresolved.sum())
     assert int(got[at["empty"]] - counts0[at["empty"]]) == (case == "empty")
 
@@ -662,8 +663,8 @@ def test_finish_folds_the_loop_counts(rounds):
     n, slots = 2048, 64
     t = torch.from_numpy
     act = t(rs.rand(n) < 0.5)
-    s = dp.slot_gather_plain(torch.arange(n) < 40, slots,
-                             tt.Hit(*(torch.zeros(n) for _ in range(4))))
+    lanes = tt.Hit(*(torch.zeros(n) for _ in range(4)))
+    s = dp.slot_gather_plain(torch.arange(n) < 40, slots, lanes)
     s = s._replace(need=s.valid & t(rs.rand(slots) < 0.3))
     at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
     where = ([at[k] for k in dp.FINISH_KEYS],
@@ -682,13 +683,13 @@ def test_finish_folds_the_loop_counts(rounds):
         assert int(got[slot] - counts0[slot]) == k * (rounds - 1)
     with pytest.raises(ValueError, match="per-run counts"):
         dp.slot_finish(got[0], act, s, r, (got,) + where,
-                       [(1, 1)] * (dp.MAX_DELTAS + 1))
+                       [(1, 1)] * (dp.MAX_DELTAS + 1), hit=lanes)
     with pytest.raises(ValueError, match="per-run counts"):
         dp.slot_finish(torch.zeros((), dtype=torch.int32), act, s, r, None,
-                       deltas)
+                       deltas, hit=lanes)
     with pytest.raises(ValueError, match="maximum's slot"):
         dp.slot_finish(got[0], act, s, r, (got,) + where,
-                       [(at["max_rounds"], 1)])
+                       [(at["max_rounds"], 1)], hit=lanes)
 
 
 def test_slot_binding_matches_the_kernel():
@@ -707,6 +708,35 @@ def test_slot_binding_matches_the_kernel():
     assert int(n) == dp.MAX_DELTAS
 
 
+def _jax_retrace_select(need, act, first, second):
+    """JAX's masked re-trace loop (imbatracer_tpu/render/traverse.py
+    _closest_hit_masked, its hit_fn route) run once over stand-ins: the
+    first dispatch returns `first`, the re-trace `second` (full width,
+    (t, prim_id, u, v) each); the alpha test leaves the lanes in `need`
+    to re-trace after the first dispatch and takes every hit of the
+    re-trace, so one pass of the body runs.  Returns the loop's hit, the
+    body's carry select (:288-293) of `second` over `first`."""
+    n = len(need)
+    calls = {"hit": 0, "alpha": 0}
+
+    def hit_fn(sbox, tiles, org, d, tmin, tmax, *, active, inst):
+        calls["hit"] += 1
+        return jtr.Hit(*map(jnp.asarray, first if calls["hit"] == 1
+                            else second))
+
+    def alpha_fn(prim, u, v):
+        calls["alpha"] += 1
+        return (jnp.asarray(~need) if calls["alpha"] == 1
+                else jnp.ones(prim.shape, jnp.bool_))
+
+    bvh = SimpleNamespace(mode="stream", center=None, sbox=None, tiles=None)
+    zeros = jnp.zeros((n, 3), jnp.float32)
+    got = jtr._closest_hit_masked(bvh, zeros, zeros, 0.0, BIG, alpha_fn,
+                                  jnp.asarray(act), hit_fn=hit_fn)
+    assert calls["hit"] == 2
+    return [np.asarray(x) for x in got]
+
+
 @pytest.mark.parametrize("two_level", [False, True])
 @pytest.mark.parametrize("case", list(SELECT_CASES))
 def test_fused_finish_matches_the_composite_and_jax(case, two_level):
@@ -715,11 +745,13 @@ def test_fused_finish_matches_the_composite_and_jax(case, two_level):
     counts, on the CPU: its plain version against slot_finish_plain then
     slot_merge_plain (the two launches it replaces) bit for bit, the
     overflow, the device counts with five per-run counts folded in and
-    the merged hit; the merged hit against JAX's carry select of the
-    while bodies (imbatracer_tpu/render/traverse.py:288-293, :371-376:
-    jnp.where of the loop's flag over the full-width hits), the slots'
-    lanes taking the slots' new hits.  Over the selection cases of
-    tests/torch_dispatch_cases.py at the flat and two-level slot
+    the merged hit; the merged hit against JAX's masked re-trace loop
+    (_jax_retrace_select: the while body's carry select of the hits at
+    full width), whose re-trace returns the slots' new hits at the first
+    lanes in need, each slot its lane in lane order (np.flatnonzero, not
+    the port's slots), and at the lanes in need past the slots, which the
+    port drops to the overflow, their own hits.  Over the selection cases
+    of tests/torch_dispatch_cases.py at the flat and two-level slot
     shares."""
     need, slots, hit, tcur = select_case(
         case, 8192, 3 + len(case), lambda n: tt.retrace_slots(n, two_level),
@@ -735,7 +767,7 @@ def test_fused_finish_matches_the_composite_and_jax(case, two_level):
            rs.rand(slots).astype(np.float32))
     s = s._replace(hit=tt.Hit(*map(t, sub)),
                    need=s.valid & t(rs.rand(slots) < 0.3))
-    act = t(need | (rs.rand(n) < 0.5))
+    act = need | (rs.rand(n) < 0.5)
     rounds = torch.tensor(4, dtype=torch.int32)
     at = {k: 9 + i for i, k in enumerate(dp.FINISH_KEYS)}
     where = ([at[k] for k in dp.FINISH_KEYS],
@@ -745,10 +777,10 @@ def test_fused_finish_matches_the_composite_and_jax(case, two_level):
     lanes = tt.Hit(*map(t, hit))
     dp.reset_launches()
     got_c, want_c = counts0.clone(), counts0.clone()
-    got = dp.slot_finish(got_c[0], act, s, rounds, (got_c,) + where, deltas,
-                         lanes)
-    assert dp.slot_finish_plain(want_c[0], act, s, rounds, (want_c,) + where,
-                                deltas) is None
+    got = dp.slot_finish(got_c[0], t(act), s, rounds, (got_c,) + where,
+                         deltas, hit=lanes)
+    assert dp.slot_finish_plain(want_c[0], t(act), s, rounds,
+                                (want_c,) + where, deltas) is None
     want = dp.slot_merge_plain(s, lanes)
     np.testing.assert_array_equal(got_c.numpy(), want_c.numpy())
     for a, b in zip(got, want):
@@ -757,20 +789,23 @@ def test_fused_finish_matches_the_composite_and_jax(case, two_level):
     assert dp.LAUNCHES["slot_finish_plain"] == 2
     assert dp.LAUNCHES["slot_merge_plain"] == 2
     assert dp.LAUNCHES["slot_finish"] == dp.LAUNCHES["slot_merge"] == 0
-    # JAX's select at full width: the loop's lanes (the valid slots')
-    # take the round's hits, every other lane keeps its own.
-    valid = s.valid.numpy()
-    idx = s.idx.numpy()[valid]
-    flag = np.zeros(n, dtype=bool)
-    flag[idx] = True
-    for a, h, new in zip(got, hit, sub):
-        h2 = rs.rand(n).astype(h.dtype) if h.dtype == np.float32 else \
-            rs.randint(-1, 500, n).astype(h.dtype)
-        h2[idx] = new[valid]
-        j = np.asarray(jnp.where(jnp.asarray(flag), jnp.asarray(h2),
-                                 jnp.asarray(h)))
+    # JAX's loop: a prim id >= 0 where a lane re-traces (it hit
+    # something), the re-trace's hits at random but for the slots' lanes
+    # and the dropped ones.
+    in_need = np.flatnonzero(need)
+    taken, dropped = in_need[:slots], in_need[slots:]
+    first = [h.copy() for h in hit]
+    first[1][need] = np.abs(first[1][need])
+    second = []
+    for h, new in zip(hit, sub):
+        h2 = (rs.rand(n).astype(h.dtype) if h.dtype == np.float32
+              else rs.randint(-1, 500, n).astype(h.dtype))
+        h2[taken] = new[:len(taken)]
+        h2[dropped] = h[dropped]
+        second.append(h2)
+    for a, j in zip(got, _jax_retrace_select(need, act, first, second)):
         np.testing.assert_array_equal(a.numpy(), j)
-    assert int(s.valid.sum()) == min(int(need.sum()), slots)
+    assert int(s.valid.sum()) == len(taken)
 
 
 class _Binding:

@@ -1516,12 +1516,22 @@ def test_cuda_vcm_light_kernel_on_dead_bands(cuda_device, band, name):
         assert k_sh.ok.any() and rk.store.any()
 
 
+def _seeded_hit(rs, t, n):
+    """A Hit of n lanes drawn from `rs`, each field put on the card by
+    `t`."""
+    return tt.Hit(t(rs.uniform(0, 9, n).astype(np.float32)),
+                  t(rs.randint(-1, 500, n).astype(np.int32)),
+                  t(rs.rand(n).astype(np.float32)),
+                  t(rs.rand(n).astype(np.float32)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ragged", "unaligned", "no_slots",
                                   "no_counts", "wide"])
 def test_cuda_slot_finish_folds_the_loop_counts(cuda_device, case):
     """slot_finish_kernel, a grid over the SMs, against slot_finish_plain
-    bit for bit with the counts a run of the loop's body ticks: flags of
+    bit for bit (the counts and the merged hit) with the counts a run of
+    the loop's body ticks: flags of
     a length that is no multiple of 16 (3,001 lanes, 129 slots), flags
     that start off a 16-byte boundary, no slot, no device counts (the
     overflow alone) and 2^20 lanes (more blocks than the card has SMs).
@@ -1538,8 +1548,9 @@ def test_cuda_slot_finish_folds_the_loop_counts(cuda_device, case):
     need = t(rs.rand(slots + 3 * off) < 0.4)[3 * off:]
     if case == "unaligned":
         assert act.data_ptr() % 16 and need.data_ptr() % 16
-    s = dp.Slots(torch.zeros(slots, dtype=torch.int64, device=cuda_device),
-                 need, need, None, None,
+    idx = t(rs.permutation(num_r)[:slots].astype(np.int64))
+    sub, hit = _seeded_hit(rs, t, slots), _seeded_hit(rs, t, num_r)
+    s = dp.Slots(idx, need, need, None, sub,
                  torch.tensor(slots + 7, dtype=torch.int32,
                               device=cuda_device),
                  torch.tensor(7, dtype=torch.int32, device=cuda_device))
@@ -1553,13 +1564,16 @@ def test_cuda_slot_finish_folds_the_loop_counts(cuda_device, case):
     dp.reset_launches()
     for _ in range(2):
         if case == "no_counts":
-            dp.slot_finish(ck[0], act, s, rounds)
-            dp.slot_finish_plain(cp[0], act, s, rounds)
+            got = dp.slot_finish(ck[0], act, s, rounds, hit=hit)
+            want = dp.slot_finish_plain(cp[0], act, s, rounds, hit=hit)
         else:
-            dp.slot_finish(ck[0], act, s, rounds, (ck,) + where, deltas)
-            dp.slot_finish_plain(cp[0], act, s, rounds, (cp,) + where,
-                                 deltas)
+            got = dp.slot_finish(ck[0], act, s, rounds, (ck,) + where,
+                                 deltas, hit=hit)
+            want = dp.slot_finish_plain(cp[0], act, s, rounds,
+                                        (cp,) + where, deltas, hit=hit)
         assert torch.equal(ck, cp)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
     assert int(ck[0] - counts0[0]) == 2 * (7 + int(need.sum()))
     assert dp.LAUNCHES["slot_finish"] == 2
 
@@ -1591,14 +1605,7 @@ def test_cuda_fused_finish_merges_the_hits(cuda_device, case):
     if case == "unaligned":
         assert act.data_ptr() % 16 and valid.data_ptr() % 16
     idx = t(rs.permutation(num_r)[:slots].astype(np.int64))
-    sub = tt.Hit(t(rs.uniform(0, 9, slots).astype(np.float32)),
-                 t(rs.randint(-1, 500, slots).astype(np.int32)),
-                 t(rs.rand(slots).astype(np.float32)),
-                 t(rs.rand(slots).astype(np.float32)))
-    hit = tt.Hit(t(rs.uniform(0, 9, num_r).astype(np.float32)),
-                 t(rs.randint(-1, 500, num_r).astype(np.int32)),
-                 t(rs.rand(num_r).astype(np.float32)),
-                 t(rs.rand(num_r).astype(np.float32)))
+    sub, hit = _seeded_hit(rs, t, slots), _seeded_hit(rs, t, num_r)
     s = dp.Slots(idx, valid, need, None, sub,
                  torch.tensor(slots + 7, dtype=torch.int32,
                               device=cuda_device),
@@ -2523,7 +2530,7 @@ def test_cuda_slot_input_checks(cuda_device):
     with pytest.raises(ValueError):
         dp.slot_finish_cuda(torch.zeros((), dtype=torch.int64,
                                         device=cuda_device), act, s,
-                            count.clone())
+                            count.clone(), hit=hit)
 
 
 def _select_rows(n, num_c, seed, dev, paths=1 << 14, max_len=8):

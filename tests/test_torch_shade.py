@@ -391,17 +391,19 @@ def test_shade_then_finish_is_the_bounce(scenes):
 
 @pytest.mark.parametrize("lanes", [1, 3, 130, 1027])
 @pytest.mark.parametrize("cast", ["none", "all", "some"])
-def test_finish_matches_the_jax_nee_add(cast, lanes):
+def test_finish_matches_the_nee_add_expression(cast, lanes):
     """pt_shade_finish on CPU tensors (its plain version, the card kernel's
-    yardstick) against the NEE add of JAX's `_pt_bounce`
-    (imbatracer_tpu/render/integrators/pt.py:406-408: radiance plus
-    contrib where the shadow ray was cast and not occluded, the shadow
-    rays counted), its expression run in jnp on the same inputs: the
-    radiance bit for bit, signed zeros included, with no shadow ray cast,
-    every one cast and some, at lane counts that are no multiple of 4 or
-    of 128 (the kernel's four lanes a thread and its scalar tail).  The
-    count is the carried int64 count, above 2^32, plus the int64 sum of
-    the shadow flags; the band's part equals JAX's int32 sum."""
+    yardstick) against the expression of the NEE add in JAX's
+    `_pt_bounce` (imbatracer_tpu/render/integrators/pt.py:406-408:
+    radiance plus contrib where the shadow ray was cast and not occluded,
+    the shadow rays counted), copied into this test and run in jnp on the
+    same inputs: the radiance bit for bit, signed zeros included, with no
+    shadow ray cast, every one cast and some, at lane counts that are no
+    multiple of 4 or of 128 (the kernel's four lanes a thread and its
+    scalar tail).  The count is the carried int64 count, above 2^32, plus
+    the int64 sum of the shadow flags; the band's part equals JAX's int32
+    sum.  test_bounce_matches_jax holds the NEE add, inside the whole
+    bounce, against JAX's `_pt_bounce` itself."""
     rs = np.random.RandomState(lanes + len(cast))
     rad = rs.randn(lanes, 3).astype(np.float32)
     rad[rs.rand(lanes) < 0.2] = -0.0
