@@ -114,13 +114,14 @@ failure raises and the script exits non-zero:
    it tests), the library sort's time a dispatch, and the kernels'
    registers, spills and resident blocks.
 4e. Light-band tail and slot kernels vs plain: csrc/light_tail.cu
-   (ops/light_tail.py: collect_append_kernel with its one-thread tail,
+   (ops/light_tail.py: collect_append_kernel, one launch an append,
    splat_kernel) on the 8 x NUM_RAYS staged rows of the middle light band
    of a still-life vcm frame at 1920x1080 with VCM_LPC light paths
    (`[tail]` lines): the append into an empty collect buffer of the
    frame's capacity, into one that overflows and into a full one, from a
-   seeded buffer -- rec[:C], count and lost bit-equal to the plain
-   version, lost the rows past the capacity, CollectCache.check raising
+   seeded buffer -- rec[:C], the key columns keys[:C], count and lost
+   bit-equal to the plain version, lost the rows past the capacity,
+   CollectCache.check raising
    exactly on an overflow; the splat's film within phase 14's rule (mean
    1e-6 relative, >= 99.9% of pixels within 1e-5: both add with
    atomics).  The slot kernels of csrc/dispatch.cu (ops/dispatch.py:
@@ -136,8 +137,9 @@ failure raises and the script exits non-zero:
    the splat, one library call (index_copy_, index_add_), and the
    kernels' registers, spills and resident blocks.
 4f. The frame's middle vs plain: csrc/select.cu (ops/select.py:
-   select_keys_kernel in both modes and widths, select_gather_kernel with
-   its box) and csrc/grid_build.cu (ops/merge.py: grid_keys_kernel,
+   select_keys_kernel in both modes and widths, from the collect cache's
+   key columns and from the packed rows, select_gather_kernel with its
+   box) and csrc/grid_build.cu (ops/merge.py: grid_keys_kernel,
    grid_tiles_kernel) against their plain versions on the same CUDA
    tensors, on the still life's collect cache from a real light pass at
    1920x1080 with VCM_LPC light paths (`[middle]` lines): the admission
@@ -827,8 +829,8 @@ def hold_vcm_shade_launches(label, got, algo):
     its algorithm runs (the light band's start, bounce and connection
     finish, its tail's collect append and splat, the frame's middle --
     the selection's keys and gather, the photon grid's keys and tiles --
-    the camera bounce and its shadow sets' finish) launched, and no plain
-    version."""
+    the camera bounce and its shadow sets' finish) launched, the collect
+    append once a light band (its one launch), and no plain version."""
     need = []
     if algo != "pt":
         need += ["vcm_light_start", "vcm_light_shade"]
@@ -848,6 +850,11 @@ def hold_vcm_shade_launches(label, got, algo):
         raise AssertionError(f"{label}: the VCM shade and middle kernels "
                              f"{missing} did not launch, or {plain} plain "
                              f"versions ran")
+    if algo not in ("pt", "lt") and (got["collect_append"]
+                                     != got["vcm_light_start"]):
+        raise AssertionError(f"{label}: {got['collect_append']} collect "
+                             f"appends over {got['vcm_light_start']} light "
+                             f"bands (one launch a band)")
 
 
 def hold_shade_launches(label, got):
@@ -2018,8 +2025,9 @@ def dispatch_phase(dev, card, scenes, stats):
 # Phase 4e: the light band's tail (ops/light_tail.py, csrc/light_tail.cu)
 # and the graph-ready re-trace's slot kernels (ops/dispatch.py,
 # csrc/dispatch.cu).  Bytes behind bound_ms, each word once: the append
-# reads each staged row's flag and prefix (5 B) and the count, copies the
-# rows that fit (96 B in, 96 B out) and writes the count and lost; the
+# reads each staged row's flag (1 B), the count and lost, copies the rows
+# that fit (96 B in, 96 B out), writes each one's key pair (8 B) and the
+# count and lost; the
 # splat reads each row's pixel id (4 B) and the contributions of the rows
 # with one (12 B) and writes the fresh film (12 B a pixel); the slot
 # gather reads a slot's lane index (8 B), the count and its distinct
@@ -2071,11 +2079,11 @@ def light_band_tail(scene, meta, cam, fi, lpc, max_len):
 
 def hold_append(label, valid, rows, cap, count0, card, stats, timed):
     """`[tail]`: collect_append_cuda against collect_append_plain from the
-    same seeded buffer of cap + 1 rows holding `count0` rows: rec[:cap],
-    count and lost bit-equal, lost the rows past the capacity, and
-    CollectCache.check raising exactly when one did not fit.  With
-    `timed`, the wrapper (the library prefix, the copy and the tail; the
-    count's reset taken off) beside the plain version, one index_copy_
+    same seeded buffer of cap + 1 rows holding `count0` rows, with seeded
+    key columns: rec[:cap], keys[:cap], count and lost bit-equal, lost the
+    rows past the capacity, and CollectCache.check raising exactly when
+    one did not fit.  With `timed`, its one launch (the count's reset
+    taken off) and the wrapper beside the plain version, one index_copy_
     of the plain version's targets, and the bound."""
     from imbatracer_torch.ops import light_tail as lt
     from imbatracer_torch.render.light_cache import CollectCache
@@ -2083,18 +2091,22 @@ def hold_append(label, valid, rows, cap, count0, card, stats, timed):
     dev = rows.device
     gen = torch.Generator(device=dev).manual_seed(cap)
     rec0 = torch.randn((cap + 1, rows.shape[1]), generator=gen, device=dev)
+    keys0 = torch.randint(0, 1 << 20, (cap + 1, 2), generator=gen,
+                          device=dev, dtype=torch.int32)
     c0 = torch.full((), count0, dtype=torch.int32, device=dev)
 
     def state():
-        return CollectCache(rec0.clone(), c0.clone(), torch.zeros_like(c0))
+        return CollectCache(rec0.clone(), c0.clone(), torch.zeros_like(c0),
+                            keys0.clone())
 
     a, b = state(), state()
-    lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows)
-    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows)
+    lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows, a.keys)
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
     torch.cuda.synchronize()
     nvalid = int(valid.sum())
     fit = max(min(nvalid, cap - count0), 0)
     bad = (bit_mismatches(a.rec[:cap], b.rec[:cap])
+           + bit_mismatches(a.keys[:cap], b.keys[:cap])
            + bit_mismatches(a.count, b.count) + bit_mismatches(a.lost, b.lost))
     lost = count0 + nvalid - cap
     try:
@@ -2105,7 +2117,8 @@ def hold_append(label, valid, rows, cap, count0, card, stats, timed):
     log(f"[tail] collect append, {label}: {rows.shape[0]} staged rows, "
         f"{nvalid} valid, capacity {cap}, {count0} rows before; count "
         f"{int(a.count)}, lost {int(a.lost)}, check raised {raised}; "
-        f"elements not bit-equal to the plain version: {bad} [{card}]")
+        f"elements of the rows, key columns, count and lost not bit-equal "
+        f"to the plain version: {bad} [{card}]")
     if (bad or int(a.lost) != max(lost, 0) or raised != (lost > 0)
             or int(a.count) != min(count0 + nvalid, cap)):
         raise AssertionError(f"[tail] collect append, {label}: the kernel "
@@ -2113,26 +2126,26 @@ def hold_append(label, valid, rows, cap, count0, card, stats, timed):
                              f"the wrong rows")
     if not timed:
         return
-    rec, cnt, lost_t = a.rec, a.count, a.lost
+    rec, keys, cnt, lost_t = a.rec, a.keys, a.count, a.lost
     reset = lambda: cnt.copy_(c0)
     v = valid.to(torch.int32)
     slot = c0 + (torch.cumsum(v, 0, dtype=torch.int32) - v)
     target = torch.where(valid & (slot < cap), slot, cap).long()
     reset_ms = graph_ms(reset)
     ms = graph_ms(lambda: (reset(), lt.collect_append_cuda(
-        rec, cnt, lost_t, valid, rows))) - reset_ms
+        rec, cnt, lost_t, valid, rows, keys))) - reset_ms
     wrapper_ms = cuda_ms(lambda: (reset(), lt.collect_append_cuda(
-        rec, cnt, lost_t, valid, rows)), 10) - cuda_ms(reset, 10)
+        rec, cnt, lost_t, valid, rows, keys)), 10) - cuda_ms(reset, 10)
     plain_ms = cuda_ms(lambda: (reset(), lt.collect_append_plain(
-        rec, cnt, lost_t, valid, rows)), 3) - cuda_ms(reset, 3)
+        rec, cnt, lost_t, valid, rows, keys)), 3) - cuda_ms(reset, 3)
     library_ms = cuda_ms(lambda: rec.index_copy_(0, target, rows), 3)
-    nbytes = rows.shape[0] * 5 + 4 + fit * 96 * 2 + 8
+    nbytes = rows.shape[0] + 8 + fit * (96 * 2 + 8) + 8
     bound_ms, bound_by = shade_bound(nbytes, 0)
     log(f"[time] collect_append kernel, {label} [{card}]: kernel {ms:.4f} "
-        f"ms (device, graphed launches: library prefix, copy, tail; the "
+        f"ms (device, one graphed launch with the key columns; the "
         f"wrapper {wrapper_ms:.4f} ms; plain {plain_ms:.3f} ms, library "
-        f"index_copy_ {library_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-        f"{bound_by}, {nbytes} bytes)")
+        f"index_copy_ of the rows {library_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {nbytes} bytes)")
     stats["collect_append"] = (ms, None, (bound_ms, bound_by,
                                           dict(bytes=nbytes, rows=fit)))
     stats.update(collect_append_plain_ms=plain_ms, collect_append_err=0.0,
@@ -2535,7 +2548,7 @@ def tail_phase(dev, card, scenes, stats):
                    record=False)
     hold_selections(dev, card)
     time_loop_test(dev, card)
-    for k in ("collect_append", "collect_tail", "splat"):
+    for k in ("collect_append", "splat"):
         log_resources(f"{k} kernel", lt.resources(k), card)
     for k in SLOT_KERNELS:
         log_resources(f"{k} kernel", dp.resources(k), card)
@@ -2579,30 +2592,37 @@ def time_middle(name, label, launch, plain, nbytes, card, stats,
     stats.setdefault(f"{name}_err", 0.0)
 
 
-def hold_selection(label, rec, n, cap, bounds, card, stats, timed):
+def hold_selection(label, rec, keys, n, cap, bounds, card, stats, timed):
     """The selection's kernels against their plain versions on the first
-    n (valid) rows of the packed collect rows `rec`: the admission keys
-    in both widths, the canonical keys of the kept rows, the gather's
-    rows (zero past the kept ones) and its box; returns the working
-    cache (LightVertexCache, with the card's box).  With `timed`, each
-    kernel's `[time]` line."""
+    n (valid) rows of the packed collect rows `rec` and their key columns
+    `keys`: the admission keys and the canonical keys of the kept rows in
+    both widths, each kernel from the key columns (stride 2) and from the
+    rows (stride 24) against the plain version from the rows, the
+    gather's rows (zero past the kept ones) and its box; returns the
+    working cache (LightVertexCache, with the card's box).  With `timed`,
+    each kernel's `[time]` line, the keys' from the key columns."""
     from imbatracer_torch.ops import select as sel
     from imbatracer_torch.render.light_cache import LightVertexCache
 
     b1 = sel.key_bits(bounds["lengths"], bounds["paths"])
     b2 = sel.key_bits(bounds["paths"], bounds["lengths"])
+
+    def held(what, m, order, count, bits):
+        want = [sel.select_keys_plain(rec, count, order, m, b) for b in bits]
+        hold_middle(label, f"{what} ({bits[0]}-bit minor and 64-bit), from "
+                    f"the key columns and from the rows",
+                    [(sel.select_keys_cuda(src, count, order, m, b), w)
+                     for src in (keys, rec) for b, w in zip(bits, want)],
+                    card)
+        return want[0]
+
     order1, kept, rows = None, n, rec.shape[0]
     if cap < rec.shape[0]:
-        pairs = [(sel.select_keys_cuda(rec, n, None, sel.SHALLOW, b),
-                  sel.select_keys_plain(rec, n, None, sel.SHALLOW, b))
-                 for b in (b1, None)]
-        hold_middle(label, f"admission keys ({b1}-bit minor and 64-bit)",
-                    pairs, card)
-        order1 = torch.sort(pairs[0][0], stable=True)[1][:cap]
+        k1 = held("admission keys", sel.SHALLOW, None, n, (b1, None))
+        order1 = torch.sort(k1, stable=True)[1][:cap]
         kept, rows = min(n, cap), cap
-    k2 = sel.select_keys_cuda(rec, kept, order1, sel.CANONICAL, b2)
-    hold_middle(label, "canonical keys of the kept rows", [(k2, (
-        sel.select_keys_plain(rec, kept, order1, sel.CANONICAL, b2)))], card)
+    k2 = held("canonical keys of the kept rows", sel.CANONICAL, order1, kept,
+              (b2, None))
     order2 = torch.sort(k2, stable=True)[1]
     out, box = sel.select_gather_cuda(rec, order1, order2, rows)
     ref, _ = sel.select_gather_plain(rec, order1, order2, rows)
@@ -2616,16 +2636,18 @@ def hold_selection(label, rec, n, cap, bounds, card, stats, timed):
                              f"its rows past the kept ones are wrong")
     if timed:
         nk, i64 = 4 if b1 is not None else 8, 8
-        time_middle("select_keys", f"{label}, admission keys of {n} rows",
-                    lambda: sel.select_keys_cuda(rec, n, None, sel.SHALLOW,
+        time_middle("select_keys", f"{label}, admission keys of {n} rows "
+                    f"from the key columns",
+                    lambda: sel.select_keys_cuda(keys, n, None, sel.SHALLOW,
                                                  b1),
-                    lambda: sel.select_keys_plain(rec, n, None, sel.SHALLOW,
+                    lambda: sel.select_keys_plain(keys, n, None, sel.SHALLOW,
                                                   b1),
                     n * (8 + nk), card, stats)
         time_middle("select_keys", f"{label}, canonical keys of {kept} "
-                    f"kept rows", lambda: sel.select_keys_cuda(
-                        rec, kept, order1, sel.CANONICAL, b2),
-                    lambda: sel.select_keys_plain(rec, kept, order1,
+                    f"kept rows from the key columns",
+                    lambda: sel.select_keys_cuda(keys, kept, order1,
+                                                 sel.CANONICAL, b2),
+                    lambda: sel.select_keys_plain(keys, kept, order1,
                                                   sel.CANONICAL, b2),
                     kept * (i64 + 8 + nk), card, {})
         src = order2 if order1 is None else order1[order2]
@@ -2693,22 +2715,22 @@ def middle_phase(dev, card, scenes, stats):
     scene, meta = scenes["still_life"]
     cam, fi, lpc, cap = vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
     collect, n = vcm_collect(scene, meta, cam, fi, lpc, 8)
-    rec = collect.cache().rec
+    rec, keys = collect.cache().rec, collect.cache().keys
     bounds = vcm.key_bounds(lpc, 8)
     label = (f"still_life 1920x1080, {n} collected of {rec.shape[0]} rows, "
              f"capacity {cap}")
-    cache = hold_selection(label, rec, n, cap, bounds, card, stats,
+    cache = hold_selection(label, rec, keys, n, cap, bounds, card, stats,
                            timed=True)
     hold_grid(label, cache, fi.pm_radius, card, stats, timed=True)
-    half = hold_selection(f"{label}, cut to {n // 2}", rec, n, n // 2,
+    half = hold_selection(f"{label}, cut to {n // 2}", rec, keys, n, n // 2,
                           bounds, card, stats, timed=False)
     hold_grid(f"{label}, cut to {n // 2}", half, fi.pm_radius, card, stats,
               timed=False)
-    whole = hold_selection(f"{label}, canonical order alone", rec, n,
+    whole = hold_selection(f"{label}, canonical order alone", rec, keys, n,
                            rec.shape[0], bounds, card, stats, timed=False)
     del half, whole
-    empty = hold_selection("an empty cache", rec, 0, cap, bounds, card, stats,
-                           timed=False)
+    empty = hold_selection("an empty cache", rec, keys, 0, cap, bounds, card,
+                           stats, timed=False)
     hold_grid("an empty cache", empty, fi.pm_radius, card, stats,
               timed=False)
 
@@ -2755,7 +2777,7 @@ def middle_phase(dev, card, scenes, stats):
         log_resources(f"select {k} kernel", sel.resources(k), card)
     for k in ("keys", "tiles"):
         log_resources(f"grid {k} kernel", mg.grid_resources(k), card)
-    del collect, rec, cache, empty
+    del collect, rec, keys, cache, empty
     torch.cuda.empty_cache()
 
 
@@ -2887,15 +2909,14 @@ TRACED_KERNELS = ("set_conditional", "dispatch_keys_kernel",
                   "dispatch_rows_kernel", "khit_resolve_kernel",
                   "stream_resolve_kernel", "slot_gather_kernel",
                   "slot_finish_kernel",
-                  "collect_append_kernel", "collect_tail_kernel",
+                  "collect_append_kernel",
                   "splat_kernel", "select_keys_kernel",
                   "select_gather_kernel", "grid_keys_kernel",
                   "grid_tiles_kernel", "DeviceRadixSort",
                   "CatArrayBatchedCopy",
                   "index_elementwise_kernel", "indexFunc")
 # The light band's tail: the kernels of csrc/light_tail.cu.
-TAIL_TRACED = ("collect_append_kernel", "collect_tail_kernel",
-               "splat_kernel")
+TAIL_TRACED = ("collect_append_kernel", "splat_kernel")
 
 
 def profile_frame(renderer, label, card, top=8):

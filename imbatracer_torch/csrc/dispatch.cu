@@ -94,6 +94,7 @@
 
 #include <cstdint>
 
+#include "lookback.cuh"
 #include "shading.cuh"
 
 namespace {
@@ -338,46 +339,24 @@ struct HitIn {
   const float* v;
 };
 
-// slot_gather_kernel's geometry: threads a block, the lanes a thread
-// tests (one 16-byte word of need flags), the lanes a tile, the slots a
-// fill block writes, and the most tiles (2^25 lanes).
-constexpr int kSelThreads = 256;
-constexpr int kSelWarps = kSelThreads / 32;
-constexpr int kSelLanes = 16;
-constexpr int kSelTile = kSelThreads * kSelLanes;
+// slot_gather_kernel's geometry: the tiles of csrc/lookback.cuh (256
+// threads, 16 lanes a thread, 4,096 lanes a tile), the slots a fill block
+// writes, and the most tiles (2^25 lanes).
+constexpr int kSelThreads = lookback::kThreads;
 constexpr int kFillSlots = 4096;
 constexpr int kSelMaxTiles = 8192;   // ops/dispatch.py SLOT_MAX_LANES / 4096
 
-// The selection's tiles meet in status words, one a tile: 0 until the
-// tile has counted its lanes in need, then kAggregate | its count, then
-// kPrefix | the lanes in need up to its end.  sel_total is kPrefix | the
-// lanes in need once the last tile knows them; sel_ticket hands out the
-// blocks' tickets in the order they start; sel_done counts the blocks
-// done.  The last block done puts all of it back to 0, so no launch
-// clears them: a selection's launches are ordered on its stream, in and
-// out of a graph, one at a time a device.
-constexpr unsigned long long kPrefix = 1ull << 63;
-constexpr unsigned long long kAggregate = 1ull << 62;
+// The selection's tiles meet in status words, one a tile
+// (lookback.cuh's protocol).  sel_total is kPrefix | the lanes in need
+// once the last tile knows them; sel_ticket hands out the blocks'
+// tickets in the order they start; sel_done counts the blocks done.  The
+// last block done puts all of it back to 0, so no launch clears them: a
+// selection's launches are ordered on its stream, in and out of a graph,
+// one at a time a device.
 __device__ unsigned long long sel_status[kSelMaxTiles];
 __device__ unsigned long long sel_total = 0ull;
 __device__ unsigned int sel_ticket = 0u;
 __device__ unsigned int sel_done = 0u;
-
-__device__ __forceinline__ unsigned long long load_word(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void store_word(unsigned long long* p,
-                                           unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = v;
-}
-
-// The set flags of a 4-byte word of bools, one bit a byte.
-__device__ __forceinline__ unsigned flag_bits(unsigned x) {
-  const unsigned m = __vcmpne4(x, 0u) & 0x01010101u;
-  return (m | m >> 7 | m >> 14 | m >> 21) & 0xfu;
-}
 
 struct SlotOut {
   int64_t* idx;
@@ -391,17 +370,12 @@ struct SlotOut {
 
 // The slots of the lanes in need (torch.nonzero_static(need, size=slots,
 // fill_value=0)) and their state, in one launch: an ordered compaction in
-// a single pass.  Each block takes a ticket as it starts.  The first
-// `tiles` tickets are tiles of kSelTile lanes: a thread tests 16 lanes
-// (one 16-byte load), the block scans the counts (warp shuffles, then one
-// warp over the warps' sums), publishes its count at once, and its first
-// warp finds the lanes in need before the tile by decoupled look-back:
-// 32 earlier tiles' words a step, adding counts back to the nearest tile
-// whose word holds a prefix, then publishing its own prefix; its lanes in
-// need then write their slots, those below `slots`, with the lane's tcur
-// and hit.  A tile waits only on tiles of lower tickets, which have
-// started, so no order of the blocks on the SMs can deadlock it.  The
-// last tile writes the count and the dropped lanes.  The tickets past the
+// a single pass (csrc/lookback.cuh).  Each block takes a ticket as it
+// starts.  The first `tiles` tickets are tiles of 4,096 lanes, which scan
+// their need flags and find the lanes in need before them by decoupled
+// look-back (lookback::scan_tile); a tile's lanes in need then write their
+// slots, those below `slots`, with the lane's tcur and hit.  The last
+// tile writes the count and the dropped lanes.  The tickets past the
 // tiles are fill blocks of kFillSlots slots, which wait for the count
 // (every tile has started by then) and write the empty slots: lane 0 and
 // its state, flags 0.  What bounds it is the launch: the bytes (the flags
@@ -410,76 +384,29 @@ __global__ void __launch_bounds__(kSelThreads)
     slot_gather_kernel(const uint8_t* need, int64_t num_r, int tiles,
                        int slots, const float* tcur, HitIn hit,
                        SlotOut out) {
+  using lookback::kFlags;
+  using lookback::kPrefix;
   __shared__ int ticket_s, prefix_s, last_s;
-  __shared__ int warp_s[kSelWarps];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ int scratch[lookback::kWarps + 2];
+  const int t = threadIdx.x;
   if (t == 0) ticket_s = static_cast<int>(atomicAdd(&sel_ticket, 1u));
   __syncthreads();
   const int ticket = ticket_s;
   if (ticket < tiles) {
-    const int64_t first = static_cast<int64_t>(ticket) * kSelTile +
-                          static_cast<int64_t>(t) * kSelLanes;
-    unsigned bits = 0u;
-    if (first + kSelLanes <= num_r &&
-        (reinterpret_cast<uintptr_t>(need + first) & 15) == 0) {
-      const uint4 w = *reinterpret_cast<const uint4*>(need + first);
-      bits = flag_bits(w.x) | flag_bits(w.y) << 4 | flag_bits(w.z) << 8 |
-             flag_bits(w.w) << 12;
-    } else {
-      for (int j = 0; j < kSelLanes; ++j)
-        if (first + j < num_r && need[first + j]) bits |= 1u << j;
-    }
-    const int c = __popc(bits);
-    int x = c;                   // inclusive scan over the warp
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_s[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      const int v = lane < kSelWarps ? warp_s[lane] : 0;
-      int inc = v;
-      for (int o = 1; o < kSelWarps; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, inc, o);
-        if (lane >= o) inc += y;
-      }
-      const int agg = __shfl_sync(0xffffffffu, inc, kSelWarps - 1);
-      if (lane < kSelWarps) warp_s[lane] = inc - v;
-      int before = 0;
-      if (ticket == 0) {
-        if (lane == 0) store_word(&sel_status[0], kPrefix | agg);
-      } else {
-        if (lane == 0) store_word(&sel_status[ticket], kAggregate | agg);
-        for (int k = ticket - 1;; k -= 32) {
-          const int j = k - lane;
-          unsigned long long s;
-          do {
-            s = j >= 0 ? load_word(&sel_status[j]) : kPrefix;
-          } while (__any_sync(0xffffffffu, s == 0ull));
-          const unsigned p = __ballot_sync(0xffffffffu, (s & kPrefix) != 0);
-          const int stop = p ? __ffs(p) - 1 : 31;
-          before += __reduce_add_sync(
-              0xffffffffu,
-              lane <= stop ? static_cast<int>(s & 0xffffffffull) : 0);
-          if (p) break;
-        }
-        if (lane == 0)
-          store_word(&sel_status[ticket],
-                     kPrefix | static_cast<unsigned>(before + agg));
-      }
-      if (lane == 0) {
-        prefix_s = before;
-        if (ticket == tiles - 1) {
+    const int64_t first = static_cast<int64_t>(ticket) * lookback::kTile +
+                          static_cast<int64_t>(t) * kFlags;
+    unsigned bits = lookback::load_flags(need, first, num_r);
+    const lookback::TileScan scan = lookback::scan_tile(
+        sel_status, ticket, __popc(bits), scratch,
+        [&](int before, int agg) {
+          if (ticket != tiles - 1) return;
           const int total = before + agg;
           *out.count = total;
           *out.dropped = max(total - slots, 0);
-          store_word(&sel_total, kPrefix | static_cast<unsigned>(total));
-        }
-      }
-    }
-    __syncthreads();
-    int slot = prefix_s + warp_s[warp] + x - c;
+          lookback::store_word(&sel_total,
+                               kPrefix | static_cast<unsigned>(total));
+        });
+    int slot = scan.before + scan.offset;
     while (bits && slot < slots) {
       const int j = __ffs(bits) - 1;
       bits &= bits - 1;
@@ -498,7 +425,7 @@ __global__ void __launch_bounds__(kSelThreads)
     if (t == 0) {
       unsigned long long w;
       do {
-        w = load_word(&sel_total);
+        w = lookback::load_word(&sel_total);
       } while (w == 0ull);
       prefix_s = static_cast<int>(w & 0xffffffffull);
     }
@@ -803,7 +730,8 @@ extern "C" int imba_slot_gather(const void* need, int64_t num_r, int slots,
                                 void* idx, void* valid, void* s_need,
                                 void* s_tcur, void* const* s_hit,
                                 void* count, void* dropped, void* stream) {
-  const int64_t tiles = num_r > 0 ? (num_r + kSelTile - 1) / kSelTile : 1;
+  const int64_t tiles =
+      num_r > 0 ? (num_r + lookback::kTile - 1) / lookback::kTile : 1;
   if (tiles > kSelMaxTiles || slots < 0 || (slots > 0 && num_r <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int fills = (slots + kFillSlots - 1) / kFillSlots;

@@ -10,9 +10,14 @@
 //                         light_cache.py select_shallowest (:165, the
 //                         (path_length, path_id) admission key) and
 //                         canonicalize (:197, the (path_id, path_length)
-//                         layout key), read straight from the packed
-//                         (C, 24) rows, over the valid rows only (the
-//                         first `n`, or the rows an order names);
+//                         layout key), read from (path_length, path_id)
+//                         int32 pairs `stride` ints apart: the collect
+//                         cache's (C + 1, 2) key columns (stride 2), as
+//                         JAX keeps both as columns of their own
+//                         (:38-39), or the packed (C, 24) rows at column
+//                         21 (stride 24) for a cache without them; over
+//                         the valid rows only (the first `n`, or the rows
+//                         an order names);
 //   select_gather_kernel  their gathers of the kept rows
 //                         (`cache.packed()[order]`), both sorts'
 //                         permutations composed into one pass: row i <
@@ -29,8 +34,14 @@
 // (major << 32) + minor for any non-negative int32 pair, 32 bits hold
 // (major << bits) | minor when the caller's bounds say both fit.
 //
-// What bounds them: bytes.  The keys read 8 B of each valid row's 96 B
-// (two int32 columns; a 32-byte sector a row) and write 4 or 8 B.  The
+// What bounds them: bytes.  The keys read a valid row's 8 B pair and
+// write 4 or 8 B.  The keys (redesigned for Hopper) read the pair from
+// the packed rows, where those 8 B sat alone in a 32-byte sector a row,
+// so the card read at least 4x the bytes the bound counts; they now read
+// the key columns that the collect append writes beside the rows: two
+// rows a thread, their pairs one 16-byte load in the admission pass over
+// the first n, two 8-byte gathers through the order in the canonical
+// pass (select_keys_kernel's note).  The
 // gather reads the order entries and the kept rows, 96 B each as six
 // 16-byte words, one thread a word, neighbouring threads on neighbouring
 // words of one row, and writes the output rows the same way.  The box
@@ -50,8 +61,6 @@ namespace {
 constexpr int kBlk = 256;
 constexpr int kRecW = 24;                 // render/light_cache.py REC_W
 constexpr int kWords = kRecW / 4;         // float4 words a row
-constexpr int kColLength = 21;            // path_length (int32 bits)
-constexpr int kColId = 22;                // path_id (int32 bits)
 
 // Key modes (ops/select.py SHALLOW, CANONICAL).
 constexpr int kShallow = 1;               // (path_length, path_id)
@@ -64,23 +73,54 @@ __device__ __forceinline__ unsigned ordered(float x) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// The (path_length, path_id) pair at p: one 8-byte load where p is
+// aligned (the key columns), else two 4-byte loads (a packed row's
+// columns 21-22, 4-byte aligned).
+__device__ __forceinline__ int2 load_pair(const int* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 7) == 0)
+    return *reinterpret_cast<const int2*>(p);
+  return make_int2(p[0], p[1]);
+}
+
 template <bool Wide>
-__global__ void select_keys_kernel(const int* rec, const int64_t* order,
-                                   int64_t n, int mode, int bits,
-                                   void* keys) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const int64_t r = order ? order[i] : i;
-  const int length = rec[r * kRecW + kColLength];
-  const int id = rec[r * kRecW + kColId];
-  const int major = mode == kShallow ? length : id;
-  const int minor = mode == kShallow ? id : length;
+__device__ __forceinline__ void put_key(void* keys, int64_t i, int2 pair,
+                                        int mode, int bits) {
+  const int major = mode == kShallow ? pair.x : pair.y;
+  const int minor = mode == kShallow ? pair.y : pair.x;
   if (Wide)
     static_cast<int64_t*>(keys)[i] =
         static_cast<int64_t>(major) * (int64_t{1} << 32) + minor;
   else
     static_cast<int*>(keys)[i] = (major << bits) | minor;
+}
+
+// Keys i and i + 1 a thread (i even): row i's pair at pairs + r * stride,
+// r = order[i] (r = i without an order).  Over the first n rows of key
+// columns (stride 2, a 16-byte aligned base) both pairs are one 16-byte
+// load; else each pair is loaded alone (load_pair), through the order
+// where one is given.
+template <bool Wide>
+__global__ void select_keys_kernel(const int* pairs, int64_t stride,
+                                   const int64_t* order, int64_t n, int mode,
+                                   int bits, void* keys) {
+  const int64_t i = 2 * (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                         threadIdx.x);
+  if (i >= n) return;
+  const bool two = i + 1 < n;
+  int2 a, b = make_int2(0, 0);
+  if (!order && stride == 2 && two &&
+      (reinterpret_cast<uintptr_t>(pairs) & 15) == 0) {
+    const int4 w = *reinterpret_cast<const int4*>(pairs + 2 * i);
+    a = make_int2(w.x, w.y);
+    b = make_int2(w.z, w.w);
+  } else {
+    const int64_t r0 = order ? order[i] : i;
+    const int64_t r1 = !two ? 0 : order ? order[i + 1] : i + 1;
+    a = load_pair(pairs + r0 * stride);
+    if (two) b = load_pair(pairs + r1 * stride);
+  }
+  put_key<Wide>(keys, i, a, mode, bits);
+  if (two) put_key<Wide>(keys, i + 1, b, mode, bits);
 }
 
 __global__ void select_gather_kernel(const float4* rec, const int64_t* order1,
@@ -137,25 +177,29 @@ unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// select_keys_kernel on the current stream: rec (C, 24) f32, read as
-// int32 bits; order (n,) i64 or null (row i itself); mode kShallow or
-// kCanonical; wide != 0: keys (n,) i64, else keys (n,) i32 with the
-// minor key in the low `bits` bits.  Returns a CUDA error.
-extern "C" int imba_select_keys(const void* rec, const void* order,
-                                int64_t n, int mode, int wide, int bits,
-                                void* keys, void* stream) {
-  if (mode != kShallow && mode != kCanonical)
+// select_keys_kernel on the current stream: pairs, (path_length,
+// path_id) int32 pairs `stride` ints apart, 4-byte aligned (the key
+// columns, stride 2; or a packed (C, 24) row's columns 21-22, stride 24);
+// order (n,) i64 or null (row i itself); mode kShallow or kCanonical;
+// wide != 0: keys (n,) i64, else keys (n,) i32 with the minor key in the
+// low `bits` bits, 16-byte aligned.  Returns a CUDA error.
+extern "C" int imba_select_keys(const void* pairs, int64_t stride,
+                                const void* order, int64_t n, int mode,
+                                int wide, int bits, void* keys,
+                                void* stream) {
+  if ((mode != kShallow && mode != kCanonical) || stride < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* r = static_cast<const int*>(rec);
+  const int* p = static_cast<const int*>(pairs);
   const int64_t* o = static_cast<const int64_t*>(order);
   if (n > 0) {
+    const unsigned blocks = blocks_for((n + 1) / 2);
     if (wide)
-      select_keys_kernel<true><<<blocks_for(n), kBlk, 0, s>>>(
-          r, o, n, mode, bits, keys);
+      select_keys_kernel<true><<<blocks, kBlk, 0, s>>>(p, stride, o, n, mode,
+                                                       bits, keys);
     else
-      select_keys_kernel<false><<<blocks_for(n), kBlk, 0, s>>>(
-          r, o, n, mode, bits, keys);
+      select_keys_kernel<false><<<blocks, kBlk, 0, s>>>(p, stride, o, n,
+                                                        mode, bits, keys);
   }
   return static_cast<int>(cudaGetLastError());
 }

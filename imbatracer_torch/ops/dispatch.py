@@ -344,7 +344,8 @@ def _check_deltas(counts, deltas):
 # The CUDA kernels
 # --------------------------------------------------------------------------
 
-LIB = NativeLib("dispatch", "dispatch.cu", headers=("shading.cuh",))
+LIB = NativeLib("dispatch", "dispatch.cu",
+                headers=("shading.cuh", "lookback.cuh"))
 
 _lib = None
 

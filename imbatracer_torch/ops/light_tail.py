@@ -10,7 +10,10 @@ where XLA compiles them as one scatter and one segment sum:
     staged vertex rows after the cache's rows, each valid row to slot
     count + (valid rows before it), the rows past the capacity dropped
     (`mode="drop"`); here the rows that do not fit are counted in `lost`
-    (render/light_cache.py says why);
+    (render/light_cache.py says why), and each row's (path_length,
+    path_id) pair is also written into the cache's (C + 1, 2) int32 key
+    columns, as JAX's cache keeps both as columns of their own, for the
+    selection's sort keys (ops/select.py);
   * `splat`: film.splat's segment_sum of the camera connections into a
     fresh film, rows with a pixel id below 0 dropped.
 
@@ -19,7 +22,9 @@ render/film.py as it was, moved here: every row goes somewhere, the
 invalid ones and those past the capacity to the collect buffer's trash
 row C, the splats with no pixel to a trash pixel.  The kernels
 (csrc/light_tail.cu) write only the valid rows; row C stays as it was,
-and nothing reads it (CollectCache.cache slices it off).
+and nothing reads it (CollectCache.cache slices it off).  The append is
+one launch: its offsets come from a single-pass scan inside it, not from
+the library's prefix sum.
 
 Dispatch: each function launches its kernel on CUDA tensors and runs its
 plain version on CPU tensors; nothing falls back from one to the other.
@@ -33,16 +38,19 @@ import torch
 
 from ..libbuild import NativeLib
 from . import stream_traverse as st
+from .select import key_pairs
 
-# Launch counts: one per call of a kernel wrapper on the CUDA route (the
-# append's call launches its copy and its one-thread tail), one per call
-# of a plain version.  chip_smoke.py reads them to show the main paths
-# ran through the kernels.
+# Launch counts: one per call of a kernel wrapper on the CUDA route (one
+# launch each), one per call of a plain version.  chip_smoke.py reads
+# them to show the main paths ran through the kernels.
 KERNELS = ("collect_append", "splat")
 PLAIN_KEYS = tuple(f"{k}_plain" for k in KERNELS)
 LAUNCHES = dict.fromkeys(KERNELS + PLAIN_KEYS, 0)
 
 REC_W = 24                   # render/light_cache.py REC_W (csrc kRecW)
+# The most staged rows one append takes: 8,192 tiles of 4,096 rows (csrc
+# kMaxTiles, lookback.cuh kTile), the size of its status words.
+APPEND_MAX_ROWS = 8192 * 4096
 
 
 def reset_launches():
@@ -54,18 +62,21 @@ def reset_launches():
 # The plain PyTorch versions
 # --------------------------------------------------------------------------
 
-def collect_append_plain(rec, count, lost, valid, rows):
+def collect_append_plain(rec, count, lost, valid, rows, keys):
     """Append the `valid` rows of a packed (N, 24) batch after the first
     `count` rows of `rec` ((C + 1, 24), row C the trash row), in batch
     order, in place and with no host read: each valid row goes to slot
     count + (valid rows before it), a row past the capacity C to the
-    trash row, where it adds to `lost`; count becomes min(total, C)."""
+    trash row, where it adds to `lost`; count becomes min(total, C).
+    `keys`, the (C + 1, 2) int32 key columns, take each row's
+    (path_length, path_id) at the same slot."""
     LAUNCHES["collect_append_plain"] += 1
     cap = rec.shape[0] - 1
     v = valid.to(torch.int32)
     slot = count + (torch.cumsum(v, 0, dtype=torch.int32) - v)
-    target = torch.where(valid & (slot < cap), slot, cap)
-    rec.index_copy_(0, target.long(), rows)
+    target = torch.where(valid & (slot < cap), slot, cap).long()
+    rec.index_copy_(0, target, rows)
+    keys.index_copy_(0, target, key_pairs(rows))
     total = count + v.sum(dtype=torch.int32)
     lost.add_(torch.clamp(total - cap, min=0))
     count.copy_(torch.clamp(total, max=cap))
@@ -86,7 +97,7 @@ def splat_plain(contrib, pixel_id, num_pixels: int):
 # The CUDA kernels
 # --------------------------------------------------------------------------
 
-LIB = NativeLib("light_tail", "light_tail.cu")
+LIB = NativeLib("light_tail", "light_tail.cu", headers=("lookback.cuh",))
 
 _lib = None
 
@@ -97,7 +108,7 @@ def _library():
         lib = ctypes.CDLL(LIB.build())
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for name, args in (("imba_collect_append",
-                            [vp] * 5 + [i, i64, vp, vp]),
+                            [vp, vp, i64, vp, vp, i, vp, vp, vp]),
                            ("imba_splat", [vp, vp, i64, i, vp, vp]),
                            ("imba_light_tail_resources", [i, vp])):
             fn = getattr(lib, name)
@@ -129,23 +140,28 @@ def _check(x, dtype, shape, what, aligned=False):
     return x
 
 
-def collect_append_cuda(rec, count, lost, valid, rows):
-    """Launch collect_append_kernel and its tail on CUDA tensors (raises
-    on anything else): collect_append_plain's rows `rec[:C]`, count and
-    lost; row C is not written.  The prefix of the valid flags is the
-    library's (torch.cumsum), as jnp.cumsum is JAX's."""
+def collect_append_cuda(rec, count, lost, valid, rows, keys):
+    """Launch collect_append_kernel on CUDA tensors, one launch (raises on
+    anything else, and above APPEND_MAX_ROWS staged rows):
+    collect_append_plain's rows `rec[:C]`, count, lost and key columns
+    `keys[:C]`; row C is not written."""
     n = rows.shape[0]
     _check(rec, torch.float32, (rec.shape[0], REC_W), "rec", aligned=True)
     _check(rows, torch.float32, (n, REC_W), "rows", aligned=True)
     _check(valid, torch.bool, (n,), "valid")
     for x, what in ((count, "count"), (lost, "lost")):
         _check(x, torch.int32, (), what)
-    lib = _library()
-    incl = torch.cumsum(valid, 0, dtype=torch.int32)
-    _launched(lib.imba_collect_append(
-        rows.data_ptr(), valid.data_ptr(), incl.data_ptr(),
-        count.data_ptr(), lost.data_ptr(), rec.shape[0] - 1, n,
-        rec.data_ptr(), _stream(rows)), "collect_append")
+    _check(keys, torch.int32, (rec.shape[0], 2), "keys")
+    if keys.data_ptr() % 8:
+        raise ValueError("light_tail: keys must be 8-byte aligned")
+    if n > APPEND_MAX_ROWS:
+        raise ValueError(f"light_tail: an append takes at most "
+                         f"{APPEND_MAX_ROWS} staged rows, got {n}")
+    _launched(_library().imba_collect_append(
+        rows.data_ptr(), valid.data_ptr(), n, count.data_ptr(),
+        lost.data_ptr(), rec.shape[0] - 1, rec.data_ptr(), keys.data_ptr(),
+        _stream(rows)),
+        "collect_append")
     LAUNCHES["collect_append"] += 1
 
 
@@ -168,10 +184,9 @@ def splat_cuda(contrib, pixel_id, num_pixels: int):
 
 def resources(which: str):
     """Registers, shared memory, spills and resident blocks an SM of
-    "collect_append", "collect_tail" or "splat" (needs the card)."""
+    "collect_append" or "splat" (needs the card)."""
     return st._resources(_library().imba_light_tail_resources,
-                         ("collect_append", "collect_tail",
-                          "splat").index(which))
+                         ("collect_append", "splat").index(which))
 
 
 # --------------------------------------------------------------------------
@@ -184,11 +199,11 @@ def _on(x):
     raise ValueError(f"unsupported device {x.device}")
 
 
-def collect_append(rec, count, lost, valid, rows):
-    """The collect append in place: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+def collect_append(rec, count, lost, valid, rows, keys):
+    """The collect append in place, its key columns `keys` too: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
     fn = collect_append_cuda if _on(rows) == "cuda" else collect_append_plain
-    fn(rec, count, lost, valid, rows)
+    fn(rec, count, lost, valid, rows, keys)
 
 
 def splat(contrib, pixel_id, num_pixels: int):

@@ -7,11 +7,15 @@ jitted programs once a frame, between the light bands and the camera
 bands (imbatracer_tpu/render/light_cache.py `select_shallowest` :165 and
 `canonicalize` :197):
 
-  * `select_keys`: the sort key of each valid row of the packed (C, 24)
-    rows, read from its path_length and path_id columns -- SHALLOW, the
-    admission key (path_length, path_id), over the first `n` rows;
-    CANONICAL, the layout key (path_id, path_length), over the rows an
-    order names (the kept rows) or the first `n`;
+  * `select_keys`: the sort key of each valid row, read from its
+    (path_length, path_id) pair -- in the collect cache's (C + 1, 2)
+    int32 key columns, which the collect append writes beside the rows
+    (ops/light_tail.py), or for a cache without them in columns 21-22 of
+    the packed (C, 24) rows (`key_pairs`: one kernel, the pairs' stride
+    its argument) -- SHALLOW, the admission key (path_length, path_id),
+    over the first `n` rows; CANONICAL, the layout key (path_id,
+    path_length), over the rows an order names (the kept rows) or the
+    first `n`;
   * `select_gather`: the working cache's rows in canonical order in one
     pass, both sorts' permutations composed (row i < kept is
     rec[order1[order2[i]]], the rows after it zero), and on the card the
@@ -72,16 +76,24 @@ def key_bits(major_bound, minor_bound):
 # The plain PyTorch versions
 # --------------------------------------------------------------------------
 
-def select_keys_plain(rec, n: int, order, mode: int, bits):
+def key_pairs(src):
+    """The (C, 2) int32 (path_length, path_id) pairs of `src`: the key
+    columns themselves ((C, 2) int32), or a view of columns 21-22 of the
+    packed (C, 24) f32 rows (their stride 24 ints)."""
+    if src.dtype == torch.int32:
+        return src
+    return src.view(torch.int32)[:, COL_LENGTH:COL_ID + 1]
+
+
+def select_keys_plain(src, n: int, order, mode: int, bits):
     """(n,) sort keys of rows order[:n] (rows 0..n-1 without `order`) of
-    the packed (C, 24) `rec`: int64 (major << 32) + minor with `bits`
-    None, else int32 (major << bits) | minor; (major, minor) is
-    (path_length, path_id) for SHALLOW, (path_id, path_length) for
-    CANONICAL."""
+    `src`, the (C, 2) int32 key columns or the packed (C, 24) rows
+    (`key_pairs`): int64 (major << 32) + minor with `bits` None, else
+    int32 (major << bits) | minor; (major, minor) is (path_length,
+    path_id) for SHALLOW, (path_id, path_length) for CANONICAL."""
     LAUNCHES["select_keys_plain"] += 1
-    cols = rec[:n, COL_LENGTH:COL_ID + 1] if order is None else \
-        rec[order[:n], COL_LENGTH:COL_ID + 1]
-    ints = cols.contiguous().view(torch.int32)
+    pairs = key_pairs(src)
+    ints = pairs[:n] if order is None else pairs[order[:n]]
     length, pid = ints[:, 0], ints[:, 1]
     major, minor = (length, pid) if mode == SHALLOW else (pid, length)
     if bits is None:
@@ -140,7 +152,7 @@ def _library():
         lib = ctypes.CDLL(LIB.build())
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for name, args in (("imba_select_keys",
-                            [vp, vp, i64, i, i, i, vp, vp]),
+                            [vp, i64, vp, i64, i, i, i, vp, vp]),
                            ("imba_select_gather",
                             [vp, vp, vp, i64, i64, vp, vp, vp]),
                            ("imba_select_resources", [i, vp])):
@@ -175,10 +187,16 @@ def _check(x, dtype, shape, what, aligned=False):
     return x
 
 
-def select_keys_cuda(rec, n: int, order, mode: int, bits):
+def select_keys_cuda(src, n: int, order, mode: int, bits):
     """Launch select_keys_kernel on CUDA tensors (raises on anything
-    else): select_keys_plain's keys."""
-    _check(rec, torch.float32, (None, REC_W), "rec")
+    else): select_keys_plain's keys, from the key columns (stride 2) or
+    the packed rows (stride 24)."""
+    if src.dtype == torch.int32:
+        _check(src, torch.int32, (None, 2), "keys")
+    else:
+        _check(src, torch.float32, (None, REC_W), "rec")
+    if src.shape[0] < n:
+        raise ValueError("select: fewer key rows than n")
     if order is not None:
         _check(order, torch.int64, (None,), "order")
         if order.shape[0] < n:
@@ -186,12 +204,14 @@ def select_keys_cuda(rec, n: int, order, mode: int, bits):
     if mode not in (SHALLOW, CANONICAL):
         raise ValueError(f"select: unknown key mode {mode}")
     keys = torch.empty((n,), dtype=torch.int64 if bits is None
-                       else torch.int32, device=rec.device)
+                       else torch.int32, device=src.device)
     if n == 0:
         return keys
+    pairs = key_pairs(src)
     _launched(_library().imba_select_keys(
-        rec.data_ptr(), None if order is None else order.data_ptr(), n,
-        mode, int(bits is None), bits or 0, keys.data_ptr(), _stream(rec)),
+        pairs.data_ptr(), pairs.stride(0),
+        None if order is None else order.data_ptr(), n, mode,
+        int(bits is None), bits or 0, keys.data_ptr(), _stream(src)),
         "select_keys")
     LAUNCHES["select_keys"] += 1
     return keys
@@ -235,11 +255,11 @@ def _cuda(x) -> bool:
     raise ValueError(f"unsupported device {x.device}")
 
 
-def select_keys(rec, n: int, order, mode: int, bits):
-    """The sort keys: the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    fn = select_keys_cuda if _cuda(rec) else select_keys_plain
-    return fn(rec, n, order, mode, bits)
+def select_keys(src, n: int, order, mode: int, bits):
+    """The sort keys from the key columns or the packed rows (`src`): the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    fn = select_keys_cuda if _cuda(src) else select_keys_plain
+    return fn(src, n, order, mode, bits)
 
 
 def select_gather(rec, order1, order2, rows: int):
@@ -249,23 +269,27 @@ def select_gather(rec, order1, order2, rows: int):
     return fn(rec, order1, order2, rows)
 
 
-def select_rows(rec, n: int, capacity: int, *, paths=None, lengths=None):
+def select_rows(rec, n: int, capacity: int, *, keys=None, paths=None,
+                lengths=None):
     """The working cache's packed rows from the first `n` (valid) rows of
     the packed (C, 24) `rec`: the `capacity` shallowest by (path_length,
     path_id), in (path_id, path_length) order, as (capacity, 24) rows;
     with capacity >= C every valid row in that order, as (C, 24) rows
-    (canonicalize).  Rows past the kept count are zero.  `paths` and
-    `lengths` bound path_id and path_length from above (exclusive), which
-    lets the keys take 32 bits.  Returns (rows, box): box the kept
-    photons' box on the card, None on the CPU."""
+    (canonicalize).  Rows past the kept count are zero.  `keys`: the
+    rows' (C, 2) int32 key columns, which the sort keys read where given
+    (else the rows' own columns).  `paths` and `lengths` bound path_id
+    and path_length from above (exclusive), which lets the keys take 32
+    bits.  Returns (rows, box): box the kept photons' box on the card,
+    None on the CPU."""
     num_c = rec.shape[0]
+    src = rec if keys is None else keys
     order1 = None
     if capacity < num_c:
-        keys = select_keys(rec, n, None, SHALLOW, key_bits(lengths, paths))
-        order1 = torch.sort(keys, stable=True)[1][:capacity]
+        sk = select_keys(src, n, None, SHALLOW, key_bits(lengths, paths))
+        order1 = torch.sort(sk, stable=True)[1][:capacity]
         n, rows = min(n, capacity), capacity
     else:
         rows = num_c
-    keys = select_keys(rec, n, order1, CANONICAL, key_bits(paths, lengths))
-    order2 = torch.sort(keys, stable=True)[1]
+    sk = select_keys(src, n, order1, CANONICAL, key_bits(paths, lengths))
+    order2 = torch.sort(sk, stable=True)[1]
     return select_gather(rec, order1, order2, rows)

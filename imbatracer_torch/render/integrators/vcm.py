@@ -352,16 +352,17 @@ def statics_key(width, height, light_path_count, max_len, collect_capacity,
 
 def frame_collect(sg, key, capacity: int, device) -> CollectCache:
     """An empty collect cache of `capacity` rows: a new one, or with `sg`
-    (the scene's SceneGraphs) the static one of `key`, emptied."""
+    (the scene's SceneGraphs) the static one of `key`, emptied (its key
+    columns left as they are: nothing reads one past the count)."""
     if sg is None:
         return empty_collect(capacity, device)
     ins = sg.inputs(key)
     if "collect_rec" not in ins:
         c = empty_collect(capacity, device)
         ins.update(collect_rec=c.rec, collect_count=c.count,
-                   collect_lost=c.lost)
+                   collect_lost=c.lost, collect_keys=c.keys)
     c = CollectCache(ins["collect_rec"], ins["collect_count"],
-                     ins["collect_lost"])
+                     ins["collect_lost"], ins["collect_keys"])
     for t in (c.rec, c.count, c.lost):
         t.zero_()
     return c
@@ -396,10 +397,11 @@ def light_bands(scene, fi: FrameInputs, collect, *, sg, key, lanes: int,
                    path_end=torch.zeros((), dtype=torch.int32, device=dev))
     state = {"film": ins["light_film"]}
     if collect is not None:
-        state.update(rec=collect.rec, count=collect.count, lost=collect.lost)
+        state.update(rec=collect.rec, count=collect.count, lost=collect.lost,
+                     keys=collect.keys)
 
     def step(st, overflow):
-        col = (CollectCache(st["rec"], st["count"], st["lost"])
+        col = (CollectCache(st["rec"], st["count"], st["lost"], st["keys"])
                if "rec" in st else None)
         st["film"].copy_(_light_pass(
             scene, fi.cam, fi.frame, fi.mis_eta_vc, fi.mis_eta_vm, col,

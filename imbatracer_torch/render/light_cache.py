@@ -18,9 +18,12 @@ counted on the device (`lost`), and the frame reads
 that count once, after its light pass (`CollectCache.check`).  The
 renderer sizes its collect cache to hold every vertex a frame can store
 (vcm.py) and selects the working set with `select_shallowest`, so
-nothing is lost.  The selection reads the collect buffer's rows as they
-are (on the card two hand-written kernels and the library sort,
-ops/select.py) and writes the working cache's packed rows once.
+nothing is lost.  The append also writes each vertex's (path_length,
+path_id) pair into the collect cache's (C + 1, 2) int32 key columns (as
+the JAX cache keeps both as columns of their own), and the selection's
+sort keys read those (on the card two hand-written kernels and the
+library sort, ops/select.py); it writes the working cache's packed rows
+once.
 """
 
 from __future__ import annotations
@@ -41,11 +44,14 @@ class LightVertexCache(TensorData):
     """A cache's packed rows and count; its columns are views of the rows
     (LightVertexCache.packed's layout), so nothing is copied to read
     them.  `box`: on the card, the kept photons' box that the selection
-    reduced (ops/select.py), which the photon grid's build reads."""
+    reduced (ops/select.py), which the photon grid's build reads.
+    `keys`: a collect cache's key columns (CollectCache.cache), whose
+    first `count` rows hold the rows' (path_length, path_id), or None."""
 
     rec: torch.Tensor          # (C, 24) packed rows
     count: torch.Tensor        # () i32 number of valid vertices
     box: torch.Tensor = None   # (6,) i32 (ops/select.select_gather_cuda)
+    keys: torch.Tensor = None  # (C, 2) i32 (path_length, path_id)
 
     @property
     def capacity(self) -> int:
@@ -106,13 +112,17 @@ def pack_batch(pos, w_out, normal, gn, uv, mat_id, throughput, d_vc, d_vcm,
 
 @dataclass
 class CollectCache(TensorData):
-    """A cache appended in place: packed rows, a row count and a count of
-    the rows that did not fit, all on the device."""
+    """A cache appended in place: packed rows, a row count, a count of the
+    rows that did not fit and the rows' key columns, all on the device.
+    Nothing reads a key column past the count, so emptying the cache
+    leaves them as they are."""
 
     rec: torch.Tensor     # (C + 1, 24) packed rows; row C, the plain
                           # append's trash row, is read by no one
     count: torch.Tensor   # () i32 rows appended
     lost: torch.Tensor    # () i32 rows that did not fit
+    keys: torch.Tensor    # (C + 1, 2) i32 (path_length, path_id) of
+                          # each row, row C the trash row
 
     @property
     def capacity(self) -> int:
@@ -121,12 +131,13 @@ class CollectCache(TensorData):
     def append(self, valid, rows: torch.Tensor):
         """Append the `valid` rows of a packed (N, 24) batch in batch
         order after the current rows, with no host read: each valid row
-        goes to slot count + (valid rows before it), and a row past the
+        goes to slot count + (valid rows before it), its (path_length,
+        path_id) to the same row of the key columns, and a row past the
         capacity adds to `lost` (ops/light_tail.py: on the card its
         kernel, which writes only the rows that fit; on the CPU its plain
         version, which sends the others to the trash row)."""
         light_tail.collect_append(self.rec, self.count, self.lost, valid,
-                                  rows)
+                                  rows, self.keys)
 
     def check(self) -> int:
         """Raise if rows did not fit; else return the count of rows (one
@@ -139,25 +150,32 @@ class CollectCache(TensorData):
         return count
 
     def cache(self) -> LightVertexCache:
-        """The rows as a cache (a view: row C, the trash row, left out)."""
-        return LightVertexCache(self.rec[:-1], self.count)
+        """The rows as a cache (a view: row C, the trash row, left out),
+        with their key columns."""
+        return LightVertexCache(self.rec[:-1], self.count,
+                                keys=self.keys[:-1])
 
 
 def empty_collect(capacity: int, device) -> CollectCache:
     z = lambda: torch.zeros((), dtype=torch.int32, device=device)
     return CollectCache(torch.zeros((capacity + 1, REC_W),
                                     dtype=torch.float32, device=device),
-                        z(), z())
+                        z(), z(), torch.zeros((capacity + 1, 2),
+                                              dtype=torch.int32,
+                                              device=device))
 
 
 def append_packed(cache: LightVertexCache, valid,
                   rec: torch.Tensor) -> LightVertexCache:
     """Append the `valid` rows of a packed (N, 24) record batch in batch
     order after the cache's current rows (CollectCache.append on a copy
-    of the cache).  Raises if they do not fit (one host read)."""
+    of the cache and of its key columns, or of its rows' own).  Raises if
+    they do not fit (one host read)."""
     full = cache.packed()
+    keys = select.key_pairs(full) if cache.keys is None else cache.keys
     collect = CollectCache(torch.cat([full, full[:1]]), cache.count.clone(),
-                           torch.zeros_like(cache.count))
+                           torch.zeros_like(cache.count),
+                           torch.cat([keys, keys[:1]]))
     collect.append(valid, rec)
     collect.check()
     return collect.cache()
@@ -191,11 +209,12 @@ def select_shallowest(cache: LightVertexCache, capacity: int, *,
     the kept vertices are zero.  `count`: the cache's count if the
     caller has it on the host (else one host read); `paths` / `lengths`:
     exclusive bounds of path_id / path_length, for 32-bit sort keys.  On
-    the card the keys and the gather are kernels (ops/select.py) that
-    read the packed rows as they are."""
+    the card the keys and the gather are kernels (ops/select.py): the
+    keys read the cache's key columns where it has them, else its rows'
+    own, and the gather the packed rows as they are."""
     n = int(cache.count) if count is None else count
-    rows, box = select.select_rows(cache.rec, n, capacity, paths=paths,
-                                   lengths=lengths)
+    rows, box = select.select_rows(cache.rec, n, capacity, keys=cache.keys,
+                                   paths=paths, lengths=lengths)
     kept = (cache.count if capacity >= cache.capacity
             else torch.clamp(cache.count, max=capacity))
     return LightVertexCache(rows, kept, box)

@@ -1,53 +1,49 @@
 #!/usr/bin/env python3
 """Two kernels redesigned for Hopper against their earlier designs, on one
-card in one process, this tree's sources as the redesigns: the masked
-re-trace's finish (slot_finish_kernel, csrc/dispatch.cu, which merges the
-slots' hits in its own launch) against the earlier finish followed by the
-earlier slot_merge_kernel; and the PT bounce's NEE add
-(pt_shade_finish_kernel, csrc/pt_shade.cu: a grid over the SMs, 16-byte
-words, one count atomic a block, no copy of the count) against the
-earlier kernel behind its wrapper's copy of the count.
+card in one process, this tree's sources as the redesigns: the light
+band's collect append (collect_append_kernel, csrc/light_tail.cu: one
+launch, its offsets from a single-pass scan, each row's key pair written
+beside it) against the earlier wrapper (the library's prefix sum, a copy
+a thread a 16-byte word of every staged row, a one-thread tail); and the
+selection's sort keys (select_keys_kernel, csrc/select.cu) from the
+collect cache's key columns against the earlier kernel, which read them
+from the packed rows.  Beside them, the re-trace's slot gather
+(slot_gather_kernel, csrc/dispatch.cu, whose tile look-back now comes
+from csrc/lookback.cuh) against the earlier one, through the same C
+interface.
 
 The earlier designs are another checkout's sources (--root, for example
 the parent commit unpacked under the git-ignored out/), built with this
 tree's nvcc flags into build/imbatracer_torch/ and called through their
-own C interfaces: the earlier finish and merge by this tree's
-slot_finish_cuda through a stand-in library that hands the merge's
-arguments on to the earlier merge kernel, the earlier NEE add by a copy
-of its wrapper (the count cloned, then added to on the card).  A third
-build, of the earlier NEE add with its count taken out (the warps'
-same-address atomicAdd dropped from the source before the build), is a
-measurement only: what the atomics cost.  An earlier tree with this
-tree's C interfaces (a design set aside, say) is launched through this
-tree's wrappers instead, with no variant.  Each design is timed as
-chip_smoke.graph_ms (10 calls captured in one CUDA graph, after a
-warm-up), earlier, redesigned, redesigned, earlier, the variant twice
-after them, with the count's copy alone beside them.
+own C interfaces (the append behind its wrapper's torch.cumsum); a tree
+with this tree's interfaces is launched through this tree's wrappers.
+Each design is timed as chip_smoke.graph_ms (10 calls captured in one
+CUDA graph, after a warm-up), earlier, redesigned, redesigned, earlier.
 
-Cells: the NEE add on phase 4b's bands (the still life at 1920x1080 at
-bounces 0, 3 and 6, the cornell at 1024^2 after bounce 1, the instanced
-scene at 1920x1080 after bounce 1) and on seeded full and ragged bands;
-the finish on the slots that the graph-ready re-trace gathers from the
-still life's and the instanced scene's bounce-1 rays and on phase 4e's
-seeded need masks at both slot shares, with phase 4e's seeded finish
-inputs (chip_smoke.finish_case).  Every design's outputs must equal the
-plain version's bit for bit (the variant's radiance only).
+Cells: the append on phase 4e's still-life band (8 x 262,144 staged rows
+of the middle light band of a 1920x1080 vcm frame with 2^20 light paths)
+into an empty cache of the frame's capacity, and on seeded bands of the
+same size with 0, 31 and 100% of the rows valid; the keys on phase 4f's
+collect cache (the admission keys of the collected rows, the canonical
+keys of the kept rows through the first sort's order; 32-bit, the
+frame's width, and 64-bit), the redesign from the key columns and from
+the rows; the slot gather on phase 4e's seeded need masks at both slot
+shares and on the still life's bounce-1 re-trace.  Every design's
+outputs must equal the plain version's bit for bit.
 
 Each `[ab]` line names the card and its power limit, with the bound of
 the bytes the function moves (chip_smoke.py's count) and each build's
-registers, local bytes and resident blocks.  Run from the repository
-root:
+registers, spills and resident blocks.  Run from the repository root
+(`--only append` and so on: those cells alone):
 
-    python3 scripts/redesign_ab.py --root out/earlier
+    python3 scripts/redesign_ab.py --root out/earlier [--only CELLS]
 """
 
 import argparse
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
-import tempfile
 from functools import partial
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,20 +56,19 @@ import chip_smoke as cs  # noqa: E402
 from imbatracer_torch import libbuild  # noqa: E402
 from imbatracer_torch.device import card_line, get_device  # noqa: E402
 from imbatracer_torch.ops import dispatch as dp  # noqa: E402
-from imbatracer_torch.ops import shade as sh  # noqa: E402
+from imbatracer_torch.ops import light_tail as lt  # noqa: E402
+from imbatracer_torch.ops import select as sel  # noqa: E402
 from imbatracer_torch.ops import stream_traverse as st  # noqa: E402
 from imbatracer_torch.render import traverse as tt  # noqa: E402
+from imbatracer_torch.render.light_cache import CollectCache  # noqa: E402
 
-vp, i32 = ctypes.c_void_p, ctypes.c_int
+vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The earlier entry points' argument types, where this tree's differ.
-EARLIER_ARGS = {"imba_slot_finish": [vp, ctypes.c_int64, vp, i32] + [vp] * 7,
-                "imba_slot_merge": [vp, vp, i32, vp, vp, vp],
-                "imba_pt_shade_finish": [vp] * 6 + [i32, vp]}
-# The earlier NEE add's count, taken out of the variant's source.
-COUNT_LINE = "  count_warp(cast, count);\n"
-# imba_dispatch_resources' index of a kernel: (earlier, redesigned).
-DISPATCH_INDEX = {"slot_merge_kernel": (5, None),
-                  "slot_finish_kernel": (6, dp.KERNELS.index("slot_finish"))}
+EARLIER_ARGS = {"imba_collect_append": [vp] * 5 + [i32, i64, vp, vp],
+                "imba_select_keys": [vp, vp, i64, i32, i32, i32, vp, vp]}
+# The earlier append's one-thread tail, which names its interface.
+EARLIER_TAIL = "collect_tail_kernel"
+CELLS = ("append", "keys", "gather")
 
 
 class _Built:
@@ -84,29 +79,6 @@ class _Built:
 
     def build(self):
         return self.path
-
-
-class EarlierDispatch:
-    """The earlier dispatch library behind this tree's interface: the
-    finish, which takes the merge's arguments, is the earlier finish, then
-    the earlier merge, on the same stream."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def imba_slot_finish(self, active, num_r, need, slots, count, dropped,
-                         rounds, overflow, counts, ints, valid, idx, sub,
-                         hit, stream):
-        err = self.lib.imba_slot_finish(active, num_r, need, slots, count,
-                                        dropped, rounds, overflow, counts,
-                                        ints, stream)
-        if err == 0:
-            err = self.lib.imba_slot_merge(idx, valid, slots, sub, hit,
-                                           stream)
-        return err
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
 
 
 def build(src, so, inc):
@@ -131,35 +103,24 @@ def load(mod, path, same):
 
 
 def earlier_builds(root):
-    """({"dispatch", "shade"[, "shade_no_count"]: (library, ptxas log)} of
-    the earlier sources, built in parallel; whether they have this tree's
-    C interfaces, and then no variant)."""
+    """({"light_tail", "select", "dispatch": (library, ptxas log)} of the
+    earlier sources, built in parallel; whether they have this tree's C
+    interfaces)."""
     os.makedirs(libbuild.BUILD_DIR, exist_ok=True)
     inc = os.path.join(os.path.abspath(root), "imbatracer_torch", "csrc")
-    with open(os.path.join(inc, dp.LIB.source)) as fh:
-        same = "imba_slot_merge" not in fh.read()
-    with open(os.path.join(inc, sh.LIB.source)) as fh:
-        text = fh.read()
-    jobs = {"dispatch": (dp, os.path.join(inc, dp.LIB.source)),
-            "shade": (sh, os.path.join(inc, sh.LIB.source))}
-    if not same:
-        if text.count(COUNT_LINE) != 1:
-            raise RuntimeError("the earlier NEE add's count is not one "
-                               f"{COUNT_LINE.strip()!r} line")
-        variant = os.path.join(libbuild.BUILD_DIR, "pt_shade_no_count.cu")
-        with open(variant, "w") as fh:
-            fh.write(text.replace(COUNT_LINE, ""))
-        jobs["shade_no_count"] = (sh, variant)
+    with open(os.path.join(inc, lt.LIB.source)) as fh:
+        same = EARLIER_TAIL not in fh.read()
     procs = {}
-    for key, (mod, src) in jobs.items():
-        so = os.path.join(libbuild.BUILD_DIR, f"lib{key}_earlier.so")
-        procs[key] = (mod, so, build(src, so, inc))
+    for mod in (lt, sel, dp):
+        so = os.path.join(libbuild.BUILD_DIR, f"lib{mod.LIB.name}_earlier.so")
+        procs[mod.LIB.name] = (mod, so, build(
+            os.path.join(inc, mod.LIB.source), so, inc))
     out = {}
     for key, (mod, so, p) in procs.items():
         err = p.communicate()[1]
         if p.returncode != 0:
             raise RuntimeError(f"building the earlier {key} failed:\n{err}")
-        out[key] = (load(mod, so, same), err)
+        out[key] = (load(mod, so, same or mod is dp), err)
     return out, same
 
 
@@ -178,17 +139,33 @@ def fmt(ms):
     return " / ".join(f"{x:.4f}" for x in ms)
 
 
-def earlier_finish(lib, radiance, contrib, ok, occ, n_rays):
-    """The earlier NEE add's wrapper: the count cloned, then the kernel
-    adds the shadow rays to the clone."""
-    out, count = torch.empty_like(radiance), n_rays.clone()
-    err = lib.imba_pt_shade_finish(
-        radiance.data_ptr(), contrib.data_ptr(), ok.data_ptr(),
-        occ.data_ptr(), out.data_ptr(), count.data_ptr(),
-        radiance.shape[0], torch.cuda.current_stream().cuda_stream)
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ok(err, what):
     if err != 0:
-        raise RuntimeError(f"the earlier NEE add failed: CUDA error {err}")
-    return out, count
+        raise RuntimeError(f"the earlier {what} failed: CUDA error {err}")
+
+
+def earlier_append(lib, c, valid, rows):
+    """The earlier append's wrapper: the library's inclusive prefix of
+    the flags, then the copy and its one-thread tail."""
+    incl = torch.cumsum(valid, 0, dtype=torch.int32)
+    _ok(lib.imba_collect_append(
+        rows.data_ptr(), valid.data_ptr(), incl.data_ptr(),
+        c.count.data_ptr(), c.lost.data_ptr(), c.rec.shape[0] - 1,
+        rows.shape[0], c.rec.data_ptr(), _stream()), "append")
+
+
+def earlier_keys(lib, rec, n, order, mode, bits):
+    """The earlier keys' wrapper: the kernel over the packed rows."""
+    keys = torch.empty((n,), dtype=torch.int64 if bits is None
+                       else torch.int32, device=rec.device)
+    _ok(lib.imba_select_keys(
+        rec.data_ptr(), None if order is None else order.data_ptr(), n, mode,
+        int(bits is None), bits or 0, keys.data_ptr(), _stream()), "keys")
+    return keys
 
 
 def with_lib(mod, lib, fn, *args):
@@ -200,198 +177,214 @@ def with_lib(mod, lib, fn, *args):
         mod._lib = keep
 
 
-def nee_case(libs, label, args, card):
-    """One `[ab]` line of the NEE add on `args` (radiance, contrib,
-    shadow_ok, occluded, n_rays): each design held against the plain
-    version bit for bit, then timed in turns."""
-    if "shade_no_count" in libs:
-        fns = {"earlier": partial(earlier_finish, libs["shade"], *args),
-               "no_count": partial(earlier_finish, libs["shade_no_count"],
-                                   *args)}
-    else:
-        fns = {"earlier": partial(with_lib, sh, libs["shade"],
-                                  sh.pt_shade_finish_cuda, *args)}
-    fns["redesigned"] = partial(sh.pt_shade_finish_cuda, *args)
-    plain = sh.pt_shade_finish_plain(*args)
+def append_case(libs, same, label, valid, rows, cap, card):
+    """One `[ab]` line of the append of `rows` into a seeded empty cache of
+    `cap` rows: each design held against the plain version bit for bit
+    (rec[:cap], count and lost; the redesign's key columns too), then
+    timed in turns, the count's reset taken off."""
+    dev = rows.device
+    gen = torch.Generator(device=dev).manual_seed(cap)
+    rec0 = torch.randn((cap + 1, 24), generator=gen, device=dev)
+    keys0 = torch.zeros((cap + 1, 2), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    state = lambda: CollectCache(rec0.clone(), zero.clone(), zero.clone(),
+                                 keys0.clone())
+    new = lambda c: lt.collect_append_cuda(c.rec, c.count, c.lost, valid,
+                                           rows, c.keys)
+    old = (partial(with_lib, lt, libs["earlier"], new) if same
+           else lambda c: earlier_append(libs["earlier"], c, valid, rows))
+    p = state()
+    lt.collect_append_plain(p.rec, p.count, p.lost, valid, rows, p.keys)
     bad = {}
-    for which, fn in fns.items():
-        got = fn()
+    for which, fn in (("earlier", old), ("redesigned", new)):
+        c = state()
+        fn(c)
         torch.cuda.synchronize()
-        bad[which] = cs.bit_mismatches(got[0], plain[0]) + (
-            which != "no_count" and int(got[1]) != int(plain[1]))
+        bad[which] = (cs.bit_mismatches(c.rec[:cap], p.rec[:cap])
+                      + cs.bit_mismatches(c.count, p.count)
+                      + cs.bit_mismatches(c.lost, p.lost))
+        if which == "redesigned" or same:
+            bad[which] += cs.bit_mismatches(c.keys[:cap], p.keys[:cap])
     if any(bad.values()):
-        raise AssertionError(f"[ab] pt_shade_finish {label}: elements not "
+        raise AssertionError(f"[ab] collect_append {label}: elements not "
                              f"bit-equal to the plain version {bad}")
-    ms = {which: [] for which in fns}
-    for which in ("earlier", "redesigned", "redesigned", "earlier",
-                  "no_count", "no_count"):
-        if which in fns:
-            ms[which].append(cs.graph_ms(fns[which]))
-    copy_ms = cs.graph_ms(partial(torch.clone, args[4]))
-    lanes = args[0].shape[0]
-    bound_ms, by = cs.shade_bound(lanes * cs.FINISH_LANE_BYTES, 0)
-    variant = (f"the earlier with its count taken out "
-               f"{fmt(ms['no_count'])} ms, " if "no_count" in ms else "")
-    cs.log(f"[ab] pt_shade_finish_kernel, {label}: {lanes} lanes, "
-           f"{int(args[2].sum())} shadow rays: earlier "
-           f"{fmt(ms['earlier'])} ms, redesigned {fmt(ms['redesigned'])} "
-           f"ms; {variant}the count's copy alone {copy_ms:.4f} ms; bound "
-           f"{bound_ms:.5f} ms by {by}; bit-equal [{card}]")
-
-
-def shade_args(scene, meta, size, max_len, bounce, dev):
-    """Phase 4b's NEE-add inputs on a band of `scene` after `bounce`
-    bounces (chip_smoke.hold_shade's)."""
-    from imbatracer_torch.render.traverse import any_hit
-
-    c, hit, alpha_fn = cs.shade_carry(scene, meta, *size, max_len, bounce,
-                                      dev)
-    nxt, shadow, con = sh.pt_shade_plain(scene, c, hit,
-                                         has_bump=meta.has_bump,
-                                         max_len=max_len)
-    occ = any_hit(scene.bvh, shadow.pos, shadow.dir, shadow.tmin,
-                  shadow.tmax, alpha_fn=alpha_fn, active=shadow.ok,
-                  sort=True)
-    return (nxt["radiance"], con, shadow.ok, occ, nxt["n_rays"])
-
-
-def seeded_args(lanes, base, dev):
-    """Seeded NEE-add inputs over `lanes` lanes, from an aligned base or
-    one an element past it, with a carried count near 2^40."""
-    rs = np.random.RandomState(lanes % 97)
-    args = [torch.from_numpy(a).to(dev) for a in (
-        rs.randn(lanes, 3).astype(np.float32),
-        rs.rand(lanes, 3).astype(np.float32), rs.rand(lanes) < 0.5,
-        rs.rand(lanes) < 0.5)]
-    if base == "unaligned":
-        args = [cs.unaligned(x) for x in args]
-    return (*args, torch.tensor((1 << 40) - 1000, dtype=torch.int64,
-                                device=dev))
-
-
-def finish_case(libs, label, act, need, slots, hit, tcur, seed, card):
-    """One `[ab]` line of the finish with its merge on the slots gathered
-    from `need`: both designs held against the plain versions bit for bit
-    (chip_smoke.finish_mismatches), then timed in turns (the parent's
-    earlier design: the finish, then the merge)."""
-    dp._lib = libs["redesigned"]
-    k = dp.slot_gather_cuda(need, slots, hit, tcur)
-    left, rounds, counts0, where, deltas = cs.finish_case(k, act, seed)
-    bad = {}
-    for which in ("earlier", "redesigned"):
-        dp._lib = libs[which]
-        bad[which] = cs.finish_mismatches(act, left, rounds, counts0, where,
-                                          deltas, hit)
-    torch.cuda.synchronize()
-    if any(bad.values()):
-        raise AssertionError(f"[ab] slot_finish {label}: elements not "
-                             f"bit-equal to the plain versions {bad}")
-    ck = counts0.clone()
-    own = tt.Hit(*(x.clone() for x in hit))
-    fn = partial(dp.slot_finish_cuda, ck[0], act, left, rounds,
-                 (ck,) + where, deltas, hit=own)
+    c = state()
+    reset = partial(c.count.zero_)
+    reset_ms = cs.graph_ms(reset)
     ms = {"earlier": [], "redesigned": []}
     for which in ("earlier", "redesigned", "redesigned", "earlier"):
-        dp._lib = libs[which]
-        ms[which].append(cs.graph_ms(fn))
-    dp._lib = libs["redesigned"]
-    n, nvalid = need.shape[0], int(k.valid.sum())
-    nbytes = (n + 2 * slots + 12 + 24 + 8 * len(deltas)
-              + nvalid * (8 + 16 + 16))
+        fn = old if which == "earlier" else new
+        ms[which].append(cs.graph_ms(lambda: (reset(), fn(c))) - reset_ms)
+    n, fit = rows.shape[0], int(p.count)
+    nbytes = n + 8 + fit * (96 * 2 + 8) + 8
     bound_ms, by = cs.shade_bound(nbytes, 0)
-    cs.log(f"[ab] slot_finish_kernel with the merge, {label}: {n} lanes, "
-           f"{slots} slots, {nvalid} valid: earlier "
-           f"{fmt(ms['earlier'])} ms, redesigned (one launch) "
-           f"{fmt(ms['redesigned'])} ms; bound {bound_ms:.5f} ms by {by} "
+    cs.log(f"[ab] collect_append_kernel, {label}: {n} staged rows, {fit} "
+           f"valid: earlier (library prefix, copy, tail) "
+           f"{fmt(ms['earlier'])} ms, redesigned (one launch, key columns) "
+           f"{fmt(ms['redesigned'])} ms; bound {bound_ms:.4f} ms by {by} "
            f"({nbytes} bytes); bit-equal [{card}]")
 
 
-def bounce_finish(libs, label, scene, meta, size, card):
-    c, _, alpha_fn = cs.shade_carry(scene, meta, *size, 8, 1, scene.device)
-    need, slots, hit, tcur = cs.recorded_slots(scene, c, alpha_fn)
-    finish_case(libs, label, c["active"], need, slots, hit, tcur, 1, card)
+def keys_case(libs, same, label, rec, keys, n, order, mode, bits, card):
+    """One `[ab]` line of the sort keys of n rows (through `order`): the
+    earlier kernel from the rows, the redesign from the key columns and
+    from the rows, each held against the plain version bit for bit, then
+    timed in turns."""
+    new = partial(sel.select_keys_cuda, keys, n, order, mode, bits)
+    rows24 = partial(sel.select_keys_cuda, rec, n, order, mode, bits)
+    old = (partial(with_lib, sel, libs["earlier"], sel.select_keys_cuda, rec,
+                   n, order, mode, bits) if same
+           else partial(earlier_keys, libs["earlier"], rec, n, order, mode,
+                        bits))
+    want = sel.select_keys_plain(rec, n, order, mode, bits)
+    bad = {which: cs.bit_mismatches(fn(), want) for which, fn in
+           (("earlier", old), ("columns", new), ("rows", rows24))}
+    torch.cuda.synchronize()
+    if any(bad.values()):
+        raise AssertionError(f"[ab] select_keys {label}: elements not "
+                             f"bit-equal to the plain version {bad}")
+    ms = {"earlier": [], "columns": [], "rows": []}
+    for which in ("earlier", "columns", "columns", "earlier", "rows"):
+        fn = {"earlier": old, "columns": new, "rows": rows24}[which]
+        ms[which].append(cs.graph_ms(fn))
+    nk = 8 if bits is None else 4
+    nbytes = n * (8 + nk) + (0 if order is None else 8 * n)
+    bound_ms, by = cs.shade_bound(nbytes, 0)
+    cs.log(f"[ab] select_keys_kernel, {label}: {n} rows, "
+           f"{'64' if bits is None else 32}-bit keys: earlier (from the "
+           f"rows) {fmt(ms['earlier'])} ms, redesigned from the key columns "
+           f"{fmt(ms['columns'])} ms, from the rows {fmt(ms['rows'])} ms; "
+           f"bound {bound_ms:.4f} ms by {by} ({nbytes} bytes); bit-equal "
+           f"[{card}]")
+
+
+def gather_case(libs, label, need, slots, hit, tcur, card):
+    """One `[ab]` line of the slot gather: both designs (one C interface)
+    held against the plain version bit for bit, then timed in turns."""
+    want = dp.slot_gather_plain(need, slots, hit, tcur)
+    fns = {which: partial(with_lib, dp, lib, dp.slot_gather_cuda, need,
+                          slots, hit, tcur) for which, lib in libs.items()}
+    bad = {which: cs.slot_mismatches(fn(), want) for which, fn in
+           fns.items()}
+    torch.cuda.synchronize()
+    if any(bad.values()):
+        raise AssertionError(f"[ab] slot_gather {label}: elements not "
+                             f"bit-equal to the plain version {bad}")
+    ms = {"earlier": [], "redesigned": []}
+    for which in ("earlier", "redesigned", "redesigned", "earlier"):
+        ms[which].append(cs.graph_ms(fns[which]))
+    cs.log(f"[ab] slot_gather_kernel, {label}: {need.shape[0]} lanes, "
+           f"{int(want.count)} in need, {slots} slots: earlier "
+           f"{fmt(ms['earlier'])} ms, redesigned (the shared look-back) "
+           f"{fmt(ms['redesigned'])} ms; bit-equal [{card}]")
 
 
 def log_builds(built, same, card):
     """ptxas and `[res]` lines of each earlier and redesigned kernel."""
-    new_log = {m: libbuild.BUILD_INFO.get(m.LIB.name, {}).get("log", "")
-               for m in (dp, sh)}
-    for kernel, key, mod in (("slot_finish_kernel", "dispatch", dp),
-                             ("slot_merge_kernel", "dispatch", dp),
-                             ("pt_shade_finish_kernel", "shade", sh),
-                             ("pt_shade_finish_kernel", "shade_no_count",
-                              sh)):
-        if key not in built or (same and kernel == "slot_merge_kernel"):
+    new_log = {m.LIB.name: libbuild.BUILD_INFO.get(m.LIB.name, {}).get(
+        "log", "") for m in (lt, sel, dp)}
+    for kernel, key in (("collect_append_kernel", "light_tail"),
+                        (EARLIER_TAIL, "light_tail"),
+                        ("select_keys_kernel", "select"),
+                        ("slot_gather_kernel", "dispatch")):
+        if same and kernel == EARLIER_TAIL:
             continue
-        lib, log = built[key]
-        cs.log(f"[ab] {kernel} ptxas: earlier ({key}) {ptxas(log, kernel)};"
-               f" redesigned {ptxas(new_log[mod], kernel)} [{card}]")
-        if mod is dp:
-            old, new = DISPATCH_INDEX[kernel]
-            if same:
-                old = new
-            res = {"earlier": st._resources(lib.imba_dispatch_resources,
-                                            old)}
-            if new is not None:
-                res["redesigned"] = dp.resources("slot_finish")
-        else:
-            res = {"earlier": st._resources(lib.imba_pt_shade_resources, 1),
-                   "redesigned": sh.resources(True)}
-        for which, r in res.items():
-            cs.log_resources(f"{which} ({key}) {kernel}", r, card)
+        cs.log(f"[ab] {kernel} ptxas: earlier {ptxas(built[key][1], kernel)};"
+               f" redesigned {ptxas(new_log[key], kernel)} [{card}]")
+    res = {"collect_append_kernel": (
+        st._resources(built["light_tail"][0].imba_light_tail_resources, 0),
+        lt.resources("collect_append")),
+           "select_keys_kernel<false>": (
+        st._resources(built["select"][0].imba_select_resources, 0),
+        sel.resources("keys32")),
+           "slot_gather_kernel": (
+        st._resources(built["dispatch"][0].imba_dispatch_resources,
+                      dp.KERNELS.index("slot_gather")),
+        dp.resources("slot_gather"))}
+    for kernel, (old, new) in res.items():
+        cs.log_resources(f"earlier {kernel}", old, card)
+        cs.log_resources(f"redesigned {kernel}", new, card)
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", required=True,
                    help="checkout holding the earlier designs")
+    p.add_argument("--only", nargs="+", default=CELLS, choices=CELLS,
+                   help="the kernels whose cells run")
     args = p.parse_args()
-    from imbatracer_torch.scene.build import build_scene
-    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
-    from imbatracer_torch.scene.procedural import (make_cornell_scene,
-                                                   make_still_life_like)
+    from imbatracer_torch.scene.procedural import make_still_life_like
 
     dev = get_device("cuda")
     card = card_line(dev)
-    new = {"dispatch": dp._library(), "shade": sh._library()}
+    new = {m.LIB.name: m._library() for m in (lt, sel, dp)}
     built, same = earlier_builds(args.root)
     log_builds(built, same, card)
-    shade_libs = {k: lib for k, (lib, _) in built.items() if k != "dispatch"}
-    earlier = built["dispatch"][0]
-    slot_libs = {"earlier": earlier if same else EarlierDispatch(earlier),
-                 "redesigned": new["dispatch"]}
+    libs = {k: {"earlier": built[k][0], "redesigned": new[k]} for k in new}
 
-    still = make_still_life_like(device=dev)
-    for bounce in (0, 3, cs.LATE_BOUNCE):
-        nee_case(shade_libs, f"still_life 1920x1080 bounce {bounce}",
-                 shade_args(*still, (1920, 1080), 8, bounce, dev), card)
-    nee_case(shade_libs, "cornell 1024x1024 bounce 1",
-             shade_args(*make_cornell_scene(device=dev), (1024, 1024), 10, 1,
-                        dev), card)
-    for lanes, base in ((262144, "aligned"), (266277, "aligned"),
-                        (266277, "unaligned"), (129, "aligned")):
-        nee_case(shade_libs, f"seeded, {lanes} lanes from an {base} base",
-                 seeded_args(lanes, base, dev), card)
-    bounce_finish(slot_libs, "still_life 1920x1080 bounce 1, the khit "
-                  "re-trace's", *still, (1920, 1080), card)
+    scene, meta = make_still_life_like(device=dev)
+    cam, fi, lpc, cap = cs.vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    if "append" in args.only:
+        append_cells(libs, same, scene, meta, cam, fi, lpc, card)
+    if "keys" in args.only:
+        keys_cells(libs, same, scene, meta, cam, fi, lpc, cap, card)
+    if "gather" in args.only:
+        gather_cells(libs, scene, meta, card)
+    cs.log("[ab] done")
+
+
+def append_cells(libs, same, scene, meta, cam, fi, lpc, card):
+    dev = scene.device
+    valid, rows, _, _ = cs.light_band_tail(scene, meta, cam, fi, lpc, 8)
+    append_case(libs["light_tail"], same, "still_life 1920x1080 band of "
+                f"{cs.NUM_RAYS} of {lpc} light paths, empty cache",
+                valid, rows, lpc * 8, card)
+    n = rows.shape[0]
+    for share in (0.0, 0.31, 1.0):
+        rs = np.random.RandomState(int(share * 100))
+        v = torch.from_numpy(rs.rand(n) < share).to(dev)
+        append_case(libs["light_tail"], same, f"seeded, {share:.0%} of the "
+                    f"rows valid", v, rows, lpc * 8, card)
+    del valid, rows, v
+
+
+def keys_cells(libs, same, scene, meta, cam, fi, lpc, cap, card):
+    from imbatracer_torch.render.integrators import vcm
+
+    collect, count = cs.vcm_collect(scene, meta, cam, fi, lpc, 8)
+    c = collect.cache()
+    bounds = vcm.key_bounds(lpc, 8)
+    b1 = sel.key_bits(bounds["lengths"], bounds["paths"])
+    b2 = sel.key_bits(bounds["paths"], bounds["lengths"])
+    label = f"still_life 1920x1080, {count} collected rows"
+    for bits in (b1, None):
+        keys_case(libs["select"], same, f"{label}, admission keys", c.rec,
+                  c.keys, count, None, sel.SHALLOW, bits, card)
+    k1 = sel.select_keys_cuda(c.keys, count, None, sel.SHALLOW, b1)
+    order1 = torch.sort(k1, stable=True)[1][:cap]
+    kept = min(count, cap)
+    for bits in (b2, None):
+        keys_case(libs["select"], same, f"{label}, canonical keys of the "
+                  f"{kept} kept rows", c.rec, c.keys, kept, order1,
+                  sel.CANONICAL, bits, card)
+    del collect, c, k1, order1
+    torch.cuda.empty_cache()
+
+
+def gather_cells(libs, scene, meta, card):
+    dev = scene.device
     for density, two_level, seed in ((0.0, False, 2), (0.01, False, 3),
                                      (0.2, True, 4), (0.3, True, 5)):
         slots = tt.retrace_slots(cs.NUM_RAYS, two_level)
-        act, need, hit, tcur = cs.random_slots_case(
+        _, need, hit, tcur = cs.random_slots_case(
             cs.NUM_RAYS, density, slots, seed, dev, not two_level)
-        finish_case(slot_libs, f"seeded need {density} of the lanes, "
-                    f"{'two-level' if two_level else 'flat'} share", act,
-                    need, slots, hit, tcur, seed, card)
-    del still
-    tmp = tempfile.mkdtemp(prefix="imba_ab_")
-    inst = build_scene(write_instanced_scene(tmp, **CARD), quiet=True,
-                       device=dev)
-    nee_case(shade_libs, "instanced 1920x1080 bounce 1",
-             shade_args(*inst, (1920, 1080), 8, 1, dev), card)
-    bounce_finish(slot_libs, "instanced 1920x1080 bounce 1, the two-level "
-                  "re-trace's", *inst, (1920, 1080), card)
-    shutil.rmtree(tmp, ignore_errors=True)
-    cs.log("[ab] done")
+        gather_case(libs["dispatch"], f"seeded need {density} of the lanes, "
+                    f"{'two-level' if two_level else 'flat'} share", need,
+                    slots, hit, tcur, card)
+    carry, _, alpha_fn = cs.shade_carry(scene, meta, 1920, 1080, 8, 1, dev)
+    need, slots, hit, tcur = cs.recorded_slots(scene, carry, alpha_fn)
+    gather_case(libs["dispatch"], "still_life 1920x1080 bounce 1, the khit "
+                "re-trace's", need, slots, hit, tcur, card)
 
 
 if __name__ == "__main__":

@@ -196,6 +196,11 @@ def main():
     vcm.splat, light_cache.CollectCache.append = splat, append
     for name, tot in regions(prof):
         show(f"eager light band, range {name}", tot, ARGS.top)
+        if name == "tail.append":
+            print(f"[lighttrace] eager light band: the collect append's "
+                  f"launches a band: {sum(v[1] for v in tot.values())} "
+                  f"(every kernel in its range, the library's scan "
+                  f"kernels included)", flush=True)
     select = ranged("tail.select", lambda c, cap: (
         light_cache.select_shallowest(c.cache(), cap)))
     with profile(activities=ACTS) as prof:
@@ -209,8 +214,8 @@ def main():
     settings.light_path_count = LPC
     middle_ranged()
     tot = graphed_frame(scene, meta, settings, "vcm")
-    for part in ("collect_append_kernel", "collect_tail_kernel",
-                 "splat_kernel", "index", "CatArrayBatchedCopy"):
+    for part in ("collect_append_kernel", "DeviceScan", "splat_kernel",
+                 "index", "CatArrayBatchedCopy"):
         us = sum(v[0] for k, v in tot.items() if part in k)
         n = sum(v[1] for k, v in tot.items() if part in k)
         print(f"[lighttrace]   kernels named *{part}*: {us / 1e3:.3f} ms, "
@@ -239,6 +244,7 @@ def middle_ranged():
 
     def opened(self, *a, **k):
         out = check(self, *a, **k)
+        MIDDLE["collected"] = out
         REGIONS.append("frame.middle")
         mark()
         MIDDLE["held"] = torch.cuda.memory_allocated()
@@ -262,8 +268,9 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
          "vcm_camera_shade_kernel", "vcm_finish_kernel<false>",
          "vcm_finish_kernel<true>", "dispatch_keys_kernel",
          "dispatch_rows_kernel", "khit_resolve_kernel",
-         "stream_resolve_kernel", "slot_gather_kernel", "slot_finish_kernel", "collect_append_kernel", "collect_tail_kernel",
-         "splat_kernel", "select_keys_kernel", "select_gather_kernel",
+         "stream_resolve_kernel", "slot_gather_kernel",
+         "slot_finish_kernel", "collect_append_kernel", "splat_kernel",
+         "select_keys_kernel", "select_gather_kernel",
          "grid_keys_kernel", "grid_tiles_kernel", "set_conditional")
 
 # Every hand-written kernel of PERF.md section 6 is ranked by the time it
@@ -279,12 +286,9 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # flags, the resolves their row in and hit out, the keys a ray's origin
 # and flag in and its key out.  The kernels that are not a lane a thread
 # take chip_smoke.py's bytes of one launch on the still-life band over
-# that launch's threads: the collect append a 16-byte word of staged rows
-# a thread (at the band's 31.4% valid rows), the splat a row (its pixel,
-# and a contribution where it has one; the film a launch), the
-# selection's keys a row (the admission keys'; the canonical keys move
-# 20), its gather and the grid's tiles a word or a photon slot, the
-# grid's keys a photon.  The PT bounce's NEE add (pt_shade_finish_kernel,
+# that launch's threads: the splat a row (its pixel, and a contribution
+# where it has one; the film a launch), the selection's gather and the
+# grid's tiles a word or a photon slot, the grid's keys a photon.  The PT bounce's NEE add (pt_shade_finish_kernel,
 # four lanes a thread in one tree, one in another) moves 38 B a lane of
 # its band -- radiance, contrib and two flags in, radiance out -- over
 # the frame's mean band (its pixels over its bands).  The slot
@@ -293,7 +297,11 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # slots' state out (26 B a slot, 30 with tcur); every active flag and
 # every slot's two flags, and a valid slot's lane index, its hit and its
 # lane's hit (8 + 16 + 16 B: the merge, folded into the finish); and at
-# most the slots' flags.
+# most the slots' flags.  The collect append moves a light band's staged
+# flags and, for each valid row that fits, 96 B in, 96 B out and its 8 B
+# key pair (the frame's collected rows over its bands), the selection's
+# keys 12 B a collected row a launch (the admission keys'; the canonical
+# keys move 20): threads do not map to rows in either.
 THREAD_BYTES = {"pt_shade_kernel": 86 + 115,
                 "vcm_light_start_kernel": 66,
                 "vcm_finish_kernel<false>": 34,
@@ -302,10 +310,7 @@ THREAD_BYTES = {"pt_shade_kernel": 86 + 115,
                 "dispatch_rows_kernel": 18.1e6 / 262144,
                 "vcm_light_shade_kernel": 74.7e6 / 262144,
                 "vcm_camera_shade_kernel": 115e6 / 262144,
-                "collect_append_kernel": 136.9e6 / (8 * 262144 * 6),
-                "collect_tail_kernel": 12,
                 "splat_kernel": (33.6e6 - 1920 * 1080 * 12) / (8 * 262144),
-                "select_keys_kernel": 12,
                 "select_gather_kernel": 429.2e6 / (2097152 * 6),
                 "grid_keys_kernel": 32.8e6 / 2034225,
                 "grid_tiles_kernel": 268.4e6 / 2034225}
@@ -327,7 +332,10 @@ LAUNCH_BYTES = {
     "slot_gather_kernel": lambda f: f["lanes"] + f["slots"] * f["slot_b"],
     "slot_finish_kernel": lambda f: (f["lanes"] + 2 * f["slots"]
                                      + 40 * f["valid"]),
-    "set_conditional": lambda f: f["slots"] + 8}
+    "set_conditional": lambda f: f["slots"] + 8,
+    "collect_append_kernel": lambda f: (f["staged"]
+                                        + (96 * 2 + 8) * f["appended"]),
+    "select_keys_kernel": lambda f: 12 * f["collected"]}
 HBM_BYTES_PER_S = 3.35e12
 # The floor of a launch in a graph: an empty kernel (torch.cuda._sleep(0),
 # which returns at once) launched FLOOR_LAUNCHES times in one graph and
@@ -519,6 +527,7 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
     trace goes to `chrome`, or to a temporary file."""
     frame_fn, _ = make_frame_fn(scene, meta, settings)
     renderer = ProgressiveRenderer(frame_fn, settings, scene.device)
+    MIDDLE.pop("collected", None)
     renderer.step()
     torch.cuda.synchronize()
     del REGIONS[:]
@@ -546,11 +555,19 @@ def graphed_frame(scene, meta, settings, tag, chrome=None):
         os.close(fd)
     prof.export_chrome_trace(chrome)
     two_level = scene.bvh.two_level
+    # A light band's staged rows and the valid rows it appends (the
+    # frame's collected rows, read by its check, over its bands).
+    lpc = settings.resolved_light_path_count()
+    light_lanes = min(BAND, lpc)
     RANKED.append((tag, tot, chrome_threads(chrome), scene, meta, settings,
                    dict(lanes=BAND,
                         slots=traverse.retrace_slots(BAND, two_level),
                         slot_b=26 if two_level else 30,
-                        pixels=settings.width * settings.height)))
+                        pixels=settings.width * settings.height,
+                        staged=light_lanes * settings.max_path_len,
+                        collected=MIDDLE.get("collected", 0),
+                        appended=MIDDLE.get("collected", 0)
+                        / -(-lpc // light_lanes))))
     loop_launches(tag, device_events(prof))
     if not keep:
         os.remove(chrome)

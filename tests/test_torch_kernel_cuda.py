@@ -2132,13 +2132,14 @@ def test_cuda_light_tail_append_matches_plain(cuda_device, case):
     def state():
         return CollectCache(rec0.clone(), torch.full(
             (), count0, dtype=torch.int32, device=cuda_device),
-            torch.zeros((), dtype=torch.int32, device=cuda_device))
+            torch.zeros((), dtype=torch.int32, device=cuda_device),
+            torch.zeros((cap + 1, 2), dtype=torch.int32, device=cuda_device))
 
     a, b = state(), state()
     before = lt.LAUNCHES["collect_append"]
-    lt.collect_append(a.rec, a.count, a.lost, valid, rows)
+    lt.collect_append(a.rec, a.count, a.lost, valid, rows, a.keys)
     assert lt.LAUNCHES["collect_append"] == before + 1
-    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows)
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
     assert torch.equal(a.rec[:cap], b.rec[:cap])
     assert torch.equal(a.rec[cap], rec0[cap])
     assert int(a.count) == int(b.count) == min(count0 + nvalid, cap)
@@ -2216,17 +2217,185 @@ def test_cuda_light_tail_input_checks(cuda_device):
 
     valid, rows, contrib, pixel = _staged_rows(64, 3, cuda_device)
     rec = torch.zeros((101, 24), device=cuda_device)
+    keys = torch.zeros((101, 2), dtype=torch.int32, device=cuda_device)
     count = torch.zeros((), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        lt.collect_append_cuda(rec, count, count.clone(), valid.cpu(), rows)
+        lt.collect_append_cuda(rec, count, count.clone(), valid.cpu(), rows,
+                               keys)
     with pytest.raises(ValueError):
-        lt.collect_append_cuda(rec, count.long(), count.clone(), valid, rows)
+        lt.collect_append_cuda(rec, count.long(), count.clone(), valid, rows,
+                               keys)
     with pytest.raises(ValueError):
-        lt.collect_append_cuda(rec, count, count.clone(), valid, rows[:, :20])
+        lt.collect_append_cuda(rec, count, count.clone(), valid, rows[:, :20],
+                               keys)
     with pytest.raises(ValueError):
         lt.splat_cuda(contrib, pixel.long(), 500)
     with pytest.raises(ValueError):
         lt.splat_cuda(contrib.double(), pixel, 500)
+
+
+def _append_state(cap, count0, dev, seed=3):
+    """A seeded collect cache of cap + 1 rows holding count0 rows, with its
+    key columns: a factory of equal copies."""
+    from imbatracer_torch.render.light_cache import CollectCache
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rec0 = torch.randn((cap + 1, 24), generator=gen, device=dev)
+    keys0 = torch.randint(0, 1 << 20, (cap + 1, 2), generator=gen,
+                          device=dev, dtype=torch.int32)
+    c0 = torch.full((), count0, dtype=torch.int32, device=dev)
+    return lambda: CollectCache(rec0.clone(), c0.clone(),
+                                torch.zeros_like(c0), keys0.clone())
+
+
+def _same_append(a, b, cap):
+    """Two collect caches' rec[:C], keys[:C], count and lost bit-equal."""
+    assert _bit_equal(a.rec[:cap], b.rec[:cap])
+    assert torch.equal(a.keys[:cap], b.keys[:cap])
+    assert int(a.count) == int(b.count) and int(a.lost) == int(b.lost)
+
+
+def _staged_valid(n, share, seed, dev, unaligned=False):
+    """(valid (n,), rows (n, 24)): ~share of the rows valid (0 and 1
+    exact), from a flag array one byte past an aligned base with
+    `unaligned`; int columns 21-22 as the light pass stages them."""
+    rs = np.random.RandomState(seed)
+    valid = torch.from_numpy(rs.rand(n) < share).to(dev)
+    if unaligned:
+        buf = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        buf[1:] = valid
+        valid = buf[1:]
+    rows = torch.from_numpy(rs.randn(n, 24).astype(np.float32)).to(dev)
+    ints = torch.from_numpy(rs.randint(0, 1 << 20, (n, 2)).astype(
+        np.int32)).to(dev)
+    rows.view(torch.int32)[:, 21:23] = ints
+    return valid, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.31, 1.0])
+@pytest.mark.parametrize("n", [1, 15, 16, 4095, 4096, 4097, 2097152,
+                               2097153])
+def test_cuda_collect_append_one_pass_matches_plain(cuda_device, n, share):
+    """The one-pass append against collect_append_plain from the same
+    seeded cache with a carried count: rec[:C], keys[:C], count and lost
+    bit-equal, one launch, row C of the rows and the keys untouched."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    valid, rows = _staged_valid(n, share, n, cuda_device)
+    cap, count0 = n + 1000, 37
+    state = _append_state(cap, count0, cuda_device)
+    a, b = state(), state()
+    before = lt.LAUNCHES["collect_append"]
+    a.append(valid, rows)
+    assert lt.LAUNCHES["collect_append"] == before + 1
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
+    torch.cuda.synchronize()
+    _same_append(a, b, cap)
+    fresh = state()
+    assert _bit_equal(a.rec[cap], fresh.rec[cap])
+    assert torch.equal(a.keys[cap], fresh.keys[cap])
+    assert int(a.count) == count0 + int(valid.sum()) and int(a.lost) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [15, 4097, 2097153])
+def test_cuda_collect_append_from_an_unaligned_flag_base(cuda_device, n):
+    """Flags one byte past an aligned base (the scalar flag path): the
+    append equals the plain version bit for bit."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    valid, rows = _staged_valid(n, 0.31, n + 1, cuda_device, unaligned=True)
+    assert valid.data_ptr() % 16
+    cap = n + 50
+    state = _append_state(cap, 5, cuda_device)
+    a, b = state(), state()
+    lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows, a.keys)
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
+    torch.cuda.synchronize()
+    _same_append(a, b, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inside_a_tile", "exactly_full",
+                                  "carried_near_full", "already_full"])
+def test_cuda_collect_append_overflow(cuda_device, case):
+    """Rows past the capacity: cut inside a tile, filling it exactly, a
+    carried count 3 below it, and a full cache: the kernel writes only the
+    rows that fit, lost counts the others, all bit-equal to the plain
+    version."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    n = 3 * 4096 + 100
+    valid, rows = _staged_valid(n, 0.31, 9, cuda_device)
+    nvalid = int(valid.sum())
+    cap, count0 = {"inside_a_tile": (2000, 700),
+                   "exactly_full": (nvalid + 500, 500),
+                   "carried_near_full": (nvalid + 500, nvalid + 497),
+                   "already_full": (900, 900)}[case]
+    state = _append_state(cap, count0, cuda_device)
+    a, b = state(), state()
+    lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows, a.keys)
+    lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
+    torch.cuda.synchronize()
+    _same_append(a, b, cap)
+    assert int(a.count) == min(count0 + nvalid, cap)
+    assert int(a.lost) == max(count0 + nvalid - cap, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_collect_append_replayed_in_a_graph(cuda_device):
+    """The append captured in a CUDA graph and replayed three times, each
+    onto the count the last left, then two eager appends in sequence:
+    every result equals the plain version's bit for bit, so the status
+    words, the ticket and the done count are back at 0 after each
+    launch."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    n = 2 * 4096 + 333
+    valid, rows = _staged_valid(n, 0.31, 4, cuda_device)
+    nvalid = int(valid.sum())
+    cap = 4 * nvalid + 10
+    state = _append_state(cap, 0, cuda_device)
+    a, b = state(), state()
+    lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows, a.keys)
+    torch.cuda.synchronize()
+    a = state()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows, a.keys)
+    for _ in range(3):
+        g.replay()
+        lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
+        torch.cuda.synchronize()
+        _same_append(a, b, cap)
+    for _ in range(2):
+        lt.collect_append_cuda(a.rec, a.count, a.lost, valid, rows, a.keys)
+        lt.collect_append_plain(b.rec, b.count, b.lost, valid, rows, b.keys)
+    torch.cuda.synchronize()
+    _same_append(a, b, cap)
+    assert int(a.count) == cap and int(a.lost) == 5 * nvalid - cap
+
+
+@pytest.mark.cuda
+def test_cuda_collect_append_key_and_size_checks(cuda_device):
+    """The append's wrapper raises on key columns of another type or
+    shape, and on more staged rows than its status words cover."""
+    from imbatracer_torch.ops import light_tail as lt
+
+    valid, rows = _staged_valid(64, 0.5, 1, cuda_device)
+    c = _append_state(100, 0, cuda_device)()
+    with pytest.raises(ValueError):
+        lt.collect_append_cuda(c.rec, c.count, c.lost, valid, rows,
+                               c.keys.long())
+    with pytest.raises(ValueError):
+        lt.collect_append_cuda(c.rec, c.count, c.lost, valid, rows,
+                               c.keys[:-1])
+    n = lt.APPEND_MAX_ROWS + 1
+    big = torch.empty((n, 24), device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        lt.collect_append_cuda(c.rec, c.count, c.lost, torch.zeros(
+            n, dtype=torch.bool, device=cuda_device), big, c.keys)
 
 
 def _slot_case(case, dev):
@@ -2593,6 +2762,40 @@ def test_cuda_select_kernels_match_plain(cuda_device, n, cap, keys):
     got, _ = sel.select_rows(rec, n, cap, **bounds)
     want, _ = sel.select_rows(rec.cpu(), n, cap, **bounds)
     assert _bit_equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 7000])
+@pytest.mark.parametrize("ordered", [False, True], ids=["first_n", "order"])
+@pytest.mark.parametrize("keys", ["keys32", "keys64"])
+@pytest.mark.parametrize("mode", ["shallow", "canonical"])
+def test_cuda_select_keys_at_both_strides(cuda_device, mode, keys, ordered,
+                                          n):
+    """select_keys_cuda from the key columns (stride 2, as the collect
+    append writes them) and from the packed rows (stride 24) against
+    select_keys_plain, bit for bit, over the first n rows (n odd or even)
+    and through an order."""
+    from imbatracer_torch.ops import select as sel
+
+    rec, bounds = _select_rows(n, 8000, n + len(mode), cuda_device)
+    cols = sel.key_pairs(rec).contiguous()
+    assert cols.stride() == (2, 1) and sel.key_pairs(rec).stride(0) == 24
+    m = sel.SHALLOW if mode == "shallow" else sel.CANONICAL
+    bits = None
+    if keys == "keys32":
+        major, minor = (bounds["lengths"], bounds["paths"])
+        bits = sel.key_bits(*((major, minor) if m == sel.SHALLOW
+                              else (minor, major)))
+        assert bits is not None
+    order = None
+    if ordered:
+        g = torch.Generator(device=cuda_device).manual_seed(n)
+        order = torch.randperm(n, generator=g, device=cuda_device)
+    want = sel.select_keys_plain(rec, n, order, m, bits)
+    for src in (cols, rec):
+        got = sel.select_keys_cuda(src, n, order, m, bits)
+        assert _bit_equal(got, want)
+    assert _bit_equal(sel.select_keys_plain(cols, n, order, m, bits), want)
 
 
 def _grid_case(case, dev):

@@ -71,6 +71,37 @@ def test_append_canonicalize_select_bit_equal(packed):
                      jlc.select_shallowest(j, cap))
 
 
+@pytest.mark.parametrize("cut", [False, True], ids=["canonical", "cut"])
+def test_collect_selected_through_its_key_columns_matches_jax(cut):
+    """A collect cache appended band by band (a seeded valid mask a band),
+    then selected through its key columns (collect.cache() carries them):
+    the working cache equals JAX's select_shallowest of the same appends
+    (and canonicalize without a cut) bit for bit, and the selection
+    through the rows' own columns."""
+    rs = np.random.RandomState(7)
+    bands = [(rs.rand(300) < 0.55, _batch(rs, 300, b)) for b in range(5)]
+    total = sum(int(v.sum()) for v, _ in bands)
+    cap = total + 40
+    j = jlc.empty_cache(cap)
+    collect = tlc.empty_collect(cap, "cpu")
+    for valid, arrays in bands:
+        packed = [jnp.asarray(a) for a in arrays]
+        j = jlc.append_packed(j, jnp.asarray(valid), jlc.pack_batch(*packed))
+        collect.append(torch.from_numpy(valid), tlc.pack_batch(
+            *(torch.from_numpy(a) for a in arrays)))
+    assert collect.check() == total
+    cache = collect.cache()
+    assert cache.keys is not None
+    work = total // 2 if cut else cap
+    got = tlc.select_shallowest(cache, work, count=total)
+    _assert_same(got, jlc.select_shallowest(j, work))
+    rows_only = tlc.LightVertexCache(cache.rec, cache.count)
+    ref = tlc.select_shallowest(rows_only, work, count=total)
+    assert torch.equal(got.packed(), ref.packed())
+    if not cut:
+        _assert_same(tlc.canonicalize(cache), jlc.canonicalize(j))
+
+
 def test_append_past_capacity_raises():
     rs = np.random.RandomState(2)
     cache = tlc.empty_cache(100, "cpu")

@@ -79,6 +79,41 @@ def test_plain_append_matches_jax(case):
         collect.check()
 
 
+@pytest.mark.parametrize("case", ["empty", "partial", "overflow", "full",
+                                  "none_valid"])
+def test_plain_append_key_columns_match_jax(case):
+    """The cases of test_plain_append_matches_jax: the port's key columns
+    [:C] equal JAX's path_length and path_id columns slot for slot, bit
+    for bit (the slots no row reached zero in both), and equal the
+    appended rows' own columns 21-22."""
+    cap, count0, share = {"empty": (3000, 0, 0.4),
+                          "partial": (2000, 300, 0.4),
+                          "overflow": (1000, 900, 0.4),
+                          "full": (700, 700, 0.4),
+                          "none_valid": (500, 20, 0.0)}[case]
+    rs = np.random.RandomState(len(case) + 50)
+    first, band = _rows(rs, max(count0, 1)), _rows(rs, 1000)
+    valid = rs.rand(1000) < share
+    j = jlc.empty_cache(cap)
+    collect = tlc.empty_collect(cap, "cpu")
+    assert collect.keys.shape == (cap + 1, 2)
+    assert collect.keys.dtype == torch.int32
+    if count0:
+        j = jlc.append_packed(j, jnp.ones(count0, bool), jnp.asarray(first))
+        collect.append(torch.ones(count0, dtype=torch.bool),
+                       torch.from_numpy(first))
+    j = jlc.append_packed(j, jnp.asarray(valid), jnp.asarray(band))
+    collect.append(torch.from_numpy(valid), torch.from_numpy(band))
+    keys = collect.keys[:cap].numpy()
+    np.testing.assert_array_equal(keys[:, 0], np.asarray(j.path_length))
+    np.testing.assert_array_equal(keys[:, 1], np.asarray(j.path_id))
+    rows = collect.rec[:cap].numpy().view(np.int32)
+    np.testing.assert_array_equal(keys, rows[:, 21:23])
+    cache = collect.cache()
+    assert cache.keys.shape == (cap, 2)
+    assert cache.keys.data_ptr() == collect.keys.data_ptr()
+
+
 @pytest.mark.parametrize("num_pixels,n", [(4096, 6000), (300, 200)])
 def test_plain_splat_matches_jax(num_pixels, n):
     """A band's camera connections, about a third without a pixel: the
@@ -99,11 +134,16 @@ def test_plain_splat_matches_jax(num_pixels, n):
 
 def test_binding_matches_the_kernel():
     """The row width the kernel copies (csrc/light_tail.cu kRecW) is the
-    cache's."""
-    with open(f"{libbuild.CSRC}/light_tail.cu") as fh:
-        src = fh.read()
-    width = re.search(r"constexpr int kRecW = (\d+);", src).group(1)
-    assert int(width) == lt.REC_W == tlc.REC_W
+    cache's, and the most staged rows the wrapper takes are the kernel's
+    status words' tiles (kMaxTiles) of csrc/lookback.cuh's kTile rows."""
+    def consts(name):
+        with open(f"{libbuild.CSRC}/{name}") as fh:
+            return {k: int(v) for k, v in re.findall(
+                r"constexpr int (k\w+) = ([0-9]+)", fh.read())}
+    tail, tile = consts("light_tail.cu"), consts("lookback.cuh")
+    assert tail["kRecW"] == lt.REC_W == tlc.REC_W
+    assert tail["kMaxTiles"] * tile["kThreads"] * tile["kFlags"] == (
+        lt.APPEND_MAX_ROWS)
 
 
 def test_cpu_tensors_never_build_the_kernels(monkeypatch):

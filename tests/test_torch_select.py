@@ -126,6 +126,32 @@ def test_key_width_follows_the_bounds():
     assert tsel.key_bits(10, 1 << 28) is None
 
 
+@pytest.mark.parametrize("ordered", [False, True], ids=["first_n", "order"])
+@pytest.mark.parametrize("mode", [tsel.SHALLOW, tsel.CANONICAL],
+                         ids=["shallow", "canonical"])
+@pytest.mark.parametrize("wide", [False, True], ids=["keys32", "keys64"])
+def test_keys_from_the_columns_equal_the_rows(mode, wide, ordered):
+    """The sort keys from the (C, 2) int32 key columns (stride 2) equal
+    those from the packed rows' columns 21-22 (stride 24), bit for bit, in
+    both modes and widths, over the first n rows and through an order."""
+    rs = np.random.RandomState(11 + mode + 2 * wide + 4 * ordered)
+    rec = torch.from_numpy(_rows(rs, NUM_C))
+    cols = tsel.key_pairs(rec)
+    assert cols.shape == (NUM_C, 2) and cols.stride() == (tlc.REC_W, 1)
+    keys = cols.contiguous()
+    assert tsel.key_pairs(keys) is keys and keys.stride() == (2, 1)
+    major, minor = ((MAX_LEN + 2, PATHS) if mode == tsel.SHALLOW
+                    else (PATHS, MAX_LEN + 2))
+    bits = None if wide else tsel.key_bits(major, minor)
+    n = 450
+    order = (torch.from_numpy(rs.permutation(NUM_C)[:n]).long() if ordered
+             else None)
+    a = tsel.select_keys(keys, n, order, mode, bits)
+    b = tsel.select_keys(rec, n, order, mode, bits)
+    assert a.dtype == (torch.int64 if wide else torch.int32)
+    assert a.shape == (n,) and torch.equal(a, b)
+
+
 def test_rows_past_the_kept_ones_are_zero():
     """Rows of the source past its count are not copied: the output's
     rows past the kept count are zero (the gather of a zeroed cache's
@@ -190,13 +216,14 @@ def test_box_floats_decodes_the_kernel_bits():
 
 def test_binding_matches_the_kernels():
     """The row layout, key modes and grid constants of csrc/select.cu and
-    csrc/grid_build.cu are the Python side's."""
+    csrc/grid_build.cu are the Python side's, and the key columns that
+    csrc/light_tail.cu writes are the columns the keys read from a row."""
     def consts(name):
         with open(f"{libbuild.CSRC}/{name}") as fh:
             return {k: int(v) for k, v in re.findall(
                 r"constexpr int (k\w+) = ([0-9]+)", fh.read())}
-    sel = consts("select.cu")
-    assert (sel["kRecW"], sel["kColLength"], sel["kColId"]) == (
+    sel, tail = consts("select.cu"), consts("light_tail.cu")
+    assert (sel["kRecW"], tail["kColLength"], tail["kColId"]) == (
         tsel.REC_W, tsel.COL_LENGTH, tsel.COL_ID) == (tlc.REC_W, 21, 22)
     assert (sel["kShallow"], sel["kCanonical"]) == (tsel.SHALLOW,
                                                     tsel.CANONICAL)

@@ -17,9 +17,9 @@ the flags all set ("live"), none set ("dead"), some ("mixed") or absent
 
 The slot selection's kernel tests 16 lanes a thread, 4,096 a tile, and
 writes the slots past the lanes in need in blocks of 4,096
-(csrc/dispatch.cu kSelTile, kFillSlots): SELECT_CASES over `base` lanes
-(8,192 on the CPU, a 262,144-lane band on the card), select_case the
-seeded inputs of one.
+(csrc/lookback.cuh kTile, csrc/dispatch.cu kFillSlots): SELECT_CASES
+over `base` lanes (8,192 on the CPU, a 262,144-lane band on the card),
+select_case the seeded inputs of one.
 """
 
 import numpy as np
