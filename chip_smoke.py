@@ -139,13 +139,15 @@ failure raises and the script exits non-zero:
 4f. The frame's middle vs plain: csrc/select.cu (ops/select.py:
    select_keys_kernel in both modes and widths, from the collect cache's
    key columns and from the packed rows, select_gather_kernel with its
-   box) and csrc/grid_build.cu (ops/merge.py: grid_keys_kernel,
-   grid_tiles_kernel) against their plain versions on the same CUDA
+   box and position column) and csrc/grid_build.cu (ops/merge.py:
+   grid_keys_kernel from that column, grid_tiles_kernel) against their
+   plain versions on the same CUDA
    tensors, on the still life's collect cache from a real light pass at
    1920x1080 with VCM_LPC light paths (`[middle]` lines): the admission
    keys of the valid rows (32- and 64-bit), the canonical keys of the
    kept rows through the first sort's order, the working cache's rows
-   (zero past the kept ones), the photon grid's keys, bbox_min,
+   (zero past the kept ones) and position column, the photon grid's
+   keys, bbox_min,
    inv_cell, tiles and padded keys -- elements not bit-equal, which must
    be 0 -- and the box against the kept rows' min and max; the same rows
    cut to half their count, a canonical order alone (no cut) and an
@@ -2598,8 +2600,9 @@ def hold_selection(label, rec, keys, n, cap, bounds, card, stats, timed):
     `keys`: the admission keys and the canonical keys of the kept rows in
     both widths, each kernel from the key columns (stride 2) and from the
     rows (stride 24) against the plain version from the rows, the
-    gather's rows (zero past the kept ones) and its box; returns the
-    working cache (LightVertexCache, with the card's box).  With `timed`,
+    gather's rows (zero past the kept ones), its position column and its
+    box; returns the working cache (LightVertexCache, with the card's
+    box and position column).  With `timed`,
     each kernel's `[time]` line, the keys' from the key columns."""
     from imbatracer_torch.ops import select as sel
     from imbatracer_torch.render.light_cache import LightVertexCache
@@ -2624,9 +2627,10 @@ def hold_selection(label, rec, keys, n, cap, bounds, card, stats, timed):
     k2 = held("canonical keys of the kept rows", sel.CANONICAL, order1, kept,
               (b2, None))
     order2 = torch.sort(k2, stable=True)[1]
-    out, box = sel.select_gather_cuda(rec, order1, order2, rows)
-    ref, _ = sel.select_gather_plain(rec, order1, order2, rows)
-    hold_middle(label, "gathered rows", [(out, ref)], card)
+    out, box, pos4 = sel.select_gather_cuda(rec, order1, order2, rows)
+    ref, _, ref_pos4 = sel.select_gather_plain(rec, order1, order2, rows)
+    hold_middle(label, "gathered rows and position column",
+                [(out, ref), (pos4, ref_pos4)], card)
     got, want = sel.box_floats(box), sel.box_plain(ref, kept)
     log(f"[middle] box, {label}: {got.tolist()} (plain min and max "
         f"{want.tolist()}); rows past the kept {kept} all zero "
@@ -2655,11 +2659,12 @@ def hold_selection(label, rec, keys, n, cap, bounds, card, stats, timed):
                     lambda: sel.select_gather_cuda(rec, order1, order2, rows),
                     lambda: sel.select_gather_plain(rec, order1, order2,
                                                     rows),
-                    kept * (2 * i64 + 96) + rows * 96 + 24, card, stats,
-                    library=lambda: torch.index_select(rec, 0, src),
-                    detail="; library: index_select of the composed order")
+                    kept * (2 * i64 + 96) + rows * (96 + 16) + 24, card,
+                    stats, library=lambda: torch.index_select(rec, 0, src),
+                    detail="; the position column 16 B a row; library: "
+                    "index_select of the composed order")
     count = torch.tensor(kept, dtype=torch.int32, device=rec.device)
-    return LightVertexCache(out, count, box)
+    return LightVertexCache(out, count, box, pos4=pos4)
 
 
 def hold_grid(label, cache, radius, card, stats, timed):
@@ -2671,8 +2676,9 @@ def hold_grid(label, cache, radius, card, stats, timed):
     rec, count = cache.rec, cache.count
     rows = rec.shape[0]
     valid = torch.arange(rows, device=rec.device) < count
-    key, bmin, inv, r2 = mg.grid_keys_cuda(rec, count, cache.box, radius)
-    pkey, pbmin, pinv = mg.grid_keys_plain(cache.pos, valid, radius)
+    key, bmin, inv, r2 = mg.grid_keys_cuda(cache.pos4, count, cache.box,
+                                           radius)
+    pkey, pbmin, pinv = mg.grid_keys_plain(cache.pos4[:, 0:3], valid, radius)
     hold_middle(label, "grid keys, bbox_min, inv_cell, radius_sqr",
                 [(key, pkey), (bmin, pbmin), (inv, pinv),
                  (r2, radius * radius)], card)
@@ -2687,9 +2693,11 @@ def hold_grid(label, cache, radius, card, stats, timed):
         return
     n = int(count)
     time_middle("grid_keys", f"{label}, {n} photons of {rows}",
-                lambda: mg.grid_keys_cuda(rec, count, cache.box, radius),
-                lambda: mg.grid_keys_plain(cache.pos, valid, radius),
-                n * 12 + rows * 4 + 24 + 20, card, stats)
+                lambda: mg.grid_keys_cuda(cache.pos4, count, cache.box,
+                                          radius),
+                lambda: mg.grid_keys_plain(cache.pos4[:, 0:3], valid, radius),
+                n * 16 + rows * 4 + 24 + 20, card, stats,
+                detail="; from the position column, 16 B a photon")
     time_middle("grid_tiles", f"{label}, {tiles.shape[0]} tiles",
                 lambda: mg.grid_tiles_cuda(rec, count, ks, order),
                 lambda: mg.grid_tiles_plain(ks, order, *cols),
@@ -2747,7 +2755,7 @@ def middle_phase(dev, card, scenes, stats):
         kept = min(n, cap)
         o2 = torch.sort(sel.select_keys_plain(rec, kept, o1, sel.CANONICAL,
                                               b2), stable=True)[1]
-        rows, _ = sel.select_gather_plain(rec, o1, o2, cap)
+        rows, _, _ = sel.select_gather_plain(rec, o1, o2, cap)
         valid = torch.arange(cap, device=dev) < kept
         return mg.build_merge_grid(rows[:, 0:3], valid, fi.pm_radius,
                                    rows[:, 3:6], rows[:, 15:18], rows[:, 19],

@@ -9,19 +9,27 @@
 //
 //   grid_keys_kernel   the head (:143-166): the grid's bbox_min and
 //                      inv_cell from the kept photons' box that the
-//                      selection's gather reduced (csrc/select.cu), each
-//                      thread recomputing them with the plain version's
-//                      roundings (ops/merge.py grid_keys_plain), and each
-//                      photon's linear cell key, PAD_KEY for an invalid
-//                      one; thread 0 writes the scalars;
+//                      selection's gather reduced (csrc/select.cu), with
+//                      the plain version's roundings (ops/merge.py
+//                      grid_keys_plain), and each photon's linear cell
+//                      key from the position column that the gather
+//                      writes, PAD_KEY for an invalid one; block 0
+//                      writes the scalars;
 //   grid_tiles_kernel  the tail (:171-198): after the library's stable
 //                      sort of the keys, the (T, 16, PT) component-major
 //                      tiles and the padded keys in one pass, straight
 //                      from the sorted order (no concatenation, gathers
 //                      or transposition).
 //
-// What bounds them: bytes.  The keys read each photon's pos (12 B of its
-// 96-B row) and write 4 B.  The tiles read each photon's order entry,
+// What bounds them: bytes.  The keys read each photon's pos and write
+// 4 B.  Redesigned for Hopper: pos comes from the gather's (rows, 4)
+// position column, one coalesced 16-byte load a photon, issued before
+// anything else; read from the 96-byte rows, its 12 B cost at least a
+// 64-byte DRAM read a photon, ~3x the bytes the function needs.  The grid's
+// scalars, the same for every photon (six loads of the box, three
+// float64 multiply-subtracts, an IEEE division), are computed once a
+// block by its thread 0 into shared memory while the block's loads are
+// in flight, not once a thread.  The tiles read each photon's order entry,
 // key and 12 of its row's floats (five 16-byte words of six) and write
 // 64 B of tiles and 4 B of keys; one thread a photon, a block a tile, so
 // each of the 16 writes of a warp covers 32 neighbouring floats.
@@ -108,27 +116,37 @@ __device__ __forceinline__ int cell_of(float p, float bmin, float inv) {
   return min(max(c, 0), kGrid - 1);
 }
 
-__global__ void grid_keys_kernel(const float* rec, const int* count,
-                                 const unsigned* box, const float* radius,
-                                 int64_t rows, int* keys, float* scal) {
+__global__ void __launch_bounds__(kBlk)
+    grid_keys_kernel(const float4* pos, const int* count,
+                     const unsigned* box, const float* radius, int64_t rows,
+                     int* keys, float* scal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  const int cnt = *count;
-  const Scalars s = grid_scalars(box, cnt, rows, *radius);
-  if (i == 0) {
-    for (int k = 0; k < 3; ++k) scal[k] = s.bmin[k];
-    scal[3] = s.inv_cell;
-    scal[4] = s.r2;
+  // The photon's load first: it waits for nothing.  Rows past the count
+  // are zero in the column, and their keys PAD_KEY.
+  float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < rows) p = pos[i];
+  __shared__ Scalars sh;
+  __shared__ int sh_count;
+  if (threadIdx.x == 0) {
+    const int cnt = *count;
+    sh = grid_scalars(box, cnt, rows, *radius);
+    sh_count = cnt;
+    if (blockIdx.x == 0) {
+      for (int k = 0; k < 3; ++k) scal[k] = sh.bmin[k];
+      scal[3] = sh.inv_cell;
+      scal[4] = sh.r2;
+    }
   }
+  __syncthreads();
   if (i >= rows) return;
-  if (i >= cnt) {
+  if (i >= sh_count) {
     keys[i] = kPadKey;
     return;
   }
-  const float* p = rec + i * kRecW;
-  const int cx = cell_of(p[0], s.bmin[0], s.inv_cell);
-  const int cy = cell_of(p[1], s.bmin[1], s.inv_cell);
-  const int cz = cell_of(p[2], s.bmin[2], s.inv_cell);
+  const int cx = cell_of(p.x, sh.bmin[0], sh.inv_cell);
+  const int cy = cell_of(p.y, sh.bmin[1], sh.inv_cell);
+  const int cz = cell_of(p.z, sh.bmin[2], sh.inv_cell);
   keys[i] = (cx * kGrid + cy) * kGrid + cz;
 }
 
@@ -171,17 +189,19 @@ __global__ void grid_tiles_kernel(const float4* rec, const int* count,
 
 }  // namespace
 
-// grid_keys_kernel on the current stream: rec (rows, 24) f32; count 0-d
-// i32; box (6,) u32 (csrc/select.cu); radius 0-d f32; keys (rows,) i32;
-// scal (5,) f32: bbox_min[3], inv_cell, radius_sqr.  Returns a CUDA error.
-extern "C" int imba_grid_keys(const void* rec, const void* count,
+// grid_keys_kernel on the current stream: pos (rows, 4) f32, 16-byte
+// aligned, the selection's position column (csrc/select.cu), zero past
+// the count; count 0-d i32; box (6,) u32 (csrc/select.cu); radius 0-d
+// f32; keys (rows,) i32; scal (5,) f32: bbox_min[3], inv_cell,
+// radius_sqr.  Returns a CUDA error.
+extern "C" int imba_grid_keys(const void* pos, const void* count,
                               const void* box, const void* radius,
                               int64_t rows, void* keys, void* scal,
                               void* stream) {
-  const int64_t n = rows > 0 ? rows : 1;     // thread 0 writes the scalars
+  const int64_t n = rows > 0 ? rows : 1;     // block 0 writes the scalars
   grid_keys_kernel<<<static_cast<unsigned>((n + kBlk - 1) / kBlk), kBlk, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rec), static_cast<const int*>(count),
+      static_cast<const float4*>(pos), static_cast<const int*>(count),
       static_cast<const unsigned*>(box), static_cast<const float*>(radius),
       rows, static_cast<int*>(keys), static_cast<float*>(scal));
   return static_cast<int>(cudaGetLastError());

@@ -26,7 +26,9 @@
 //                         past it zero, as the gather of a zeroed
 //                         cache's invalid rows gives them.  While the
 //                         rows pass through, it reduces the kept photons'
-//                         box (min and max of pos) for the photon grid's
+//                         box (min and max of pos) and writes their
+//                         position column, (rows, 4) f32 (x, y, z, 0;
+//                         zero past the kept rows), for the photon grid's
 //                         build (csrc/grid_build.cu).
 //
 // The sorts between them are the library's (torch.sort, stable), as
@@ -45,7 +47,11 @@
 // gather reads the order entries and the kept rows, 96 B each as six
 // 16-byte words, one thread a word, neighbouring threads on neighbouring
 // words of one row, and writes the output rows the same way.  The box
-// adds a block reduction and six atomics a block.
+// adds a block reduction and six atomics a block.  The thread of a row's
+// word 0, which holds pos, also writes the row's 16-byte word of the
+// position column: the grid's keys then read 16 B a photon in one
+// coalesced load, where from the 96-byte rows each photon's 12 B of pos
+// cost two 64-byte DRAM reads (csrc/grid_build.cu).
 //
 // Numerics: the keys are integers and the gather copies bits.  The box
 // is a min and a max, exact in any order; it is kept as order-preserving
@@ -126,7 +132,7 @@ __global__ void select_keys_kernel(const int* pairs, int64_t stride,
 __global__ void select_gather_kernel(const float4* rec, const int64_t* order1,
                                      const int64_t* order2, int64_t kept,
                                      int64_t rows, float4* out,
-                                     unsigned* box) {
+                                     unsigned* box, float4* pos) {
   const int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   const int64_t i = w / kWords;
@@ -148,6 +154,7 @@ __global__ void select_gather_kernel(const float4* rec, const int64_t* order1,
       }
     }
     out[w] = v;
+    if (w % kWords == 0) pos[i] = make_float4(v.x, v.y, v.z, 0.f);
   }
   // Block reduction: warps by shuffles, then the warps' results in
   // shared memory, then one atomic a slot a block.
@@ -208,11 +215,13 @@ extern "C" int imba_select_keys(const void* pairs, int64_t stride,
 // (rows, 24) f32, both 16-byte aligned; order1 (>= kept,) i64 or null;
 // order2 (kept,) i64; box (6,) u32, zeroed here first: slots 0-2 the
 // complement of the least ordered bits of pos x, y, z over the kept
-// rows, 3-5 the greatest; 0 where no row is kept.  Returns a CUDA error.
+// rows, 3-5 the greatest; 0 where no row is kept; pos (rows, 4) f32,
+// 16-byte aligned: out's pos and a zero, (0, 0, 0, 0) past the kept
+// rows.  Returns a CUDA error.
 extern "C" int imba_select_gather(const void* rec, const void* order1,
                                   const void* order2, int64_t kept,
                                   int64_t rows, void* out, void* box,
-                                  void* stream) {
+                                  void* pos, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(box, 0, 6 * sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -220,7 +229,8 @@ extern "C" int imba_select_gather(const void* rec, const void* order1,
     select_gather_kernel<<<blocks_for(rows * kWords), kBlk, 0, s>>>(
         static_cast<const float4*>(rec), static_cast<const int64_t*>(order1),
         static_cast<const int64_t*>(order2), kept, rows,
-        static_cast<float4*>(out), static_cast<unsigned*>(box));
+        static_cast<float4*>(out), static_cast<unsigned*>(box),
+        static_cast<float4*>(pos));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,9 +33,9 @@ Photon grid on the card (`photon_grid` of a working cache's packed
 rows): two hand-written kernels around the library's stable sort
 (csrc/grid_build.cu), the counterpart of JAX's jitted build_merge_grid
 (imbatracer_tpu/ops/pallas_merge.py:135): grid_keys_kernel writes the
-cell keys and the scalars from the box the selection reduced
-(ops/select.py), grid_tiles_kernel the tiles and padded keys straight
-from the sorted order.  Their plain versions are grid_keys_plain and
+cell keys from the position column the selection's gather writes and
+the scalars from the box it reduced (ops/select.py), grid_tiles_kernel
+the tiles and padded keys straight from the sorted order.  Their plain versions are grid_keys_plain and
 grid_tiles_plain, build_merge_grid's head and tail.
 
 Dispatch: `merge_contrib` (query preparation, gather), `merge_rows`
@@ -64,6 +64,7 @@ PT = 256              # photons per tile
 PREC_ROWS = 16
 QREC_W = 40
 REC_W = 24            # a light-cache row (render/light_cache.py REC_W)
+POS_W = 4             # the selection's position column (ops/select.py)
 BIG = 1e30
 INV_PI = 1.0 / math.pi
 INVALID = -2
@@ -606,22 +607,25 @@ def _grid_library():
     return _grid_lib
 
 
-def grid_keys_cuda(rec, count, box, radius):
+def grid_keys_cuda(pos4, count, box, radius):
     """Launch grid_keys_kernel on CUDA tensors (raises on anything else):
     grid_keys_plain's (key, bbox_min, inv_cell) of the first `count`
-    (0-d i32) rows of the packed (P, 24) `rec`, from `box` (6,) i32, the
-    selection's (ops/select.select_gather_cuda); radius a 0-d f32 tensor.
-    Also returns radius_sqr; the scalars are views of one (5,) tensor."""
-    dev = rec.device
-    rows = rec.shape[0]
-    _check("rec", rec, torch.float32, (rows, REC_W), dev)
+    (0-d i32) photons of the (P, 4) position column `pos4` (zero past the
+    count), from `box` (6,) i32, both the selection's
+    (ops/select.select_gather_cuda); radius a 0-d f32 tensor.  Also
+    returns radius_sqr; the scalars are views of one (5,) tensor."""
+    dev = pos4.device
+    rows = pos4.shape[0]
+    _check("pos4", pos4, torch.float32, (rows, POS_W), dev)
+    if pos4.data_ptr() % 16:
+        raise ValueError("pos4: must be 16-byte aligned")
     _check("count", count, torch.int32, (), dev)
     _check("box", box, torch.int32, (6,), dev)
     _check("radius", radius, torch.float32, (), dev)
     key = torch.empty((rows,), dtype=torch.int32, device=dev)
     scal = torch.empty((5,), dtype=torch.float32, device=dev)
     _launched(_grid_library().imba_grid_keys(
-        rec.data_ptr(), count.data_ptr(), box.data_ptr(), radius.data_ptr(),
+        pos4.data_ptr(), count.data_ptr(), box.data_ptr(), radius.data_ptr(),
         rows, key.data_ptr(), scal.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "grid keys kernel")
     LAUNCHES["grid_keys"] += 1
@@ -660,13 +664,14 @@ def grid_resources(which: str):
                          ("keys", "tiles").index(which))
 
 
-def photon_grid(rec, count, radius, box=None) -> MergeGrid:
+def photon_grid(rec, count, radius, box=None, pos4=None) -> MergeGrid:
     """The merge grid of a working cache: the first `count` (0-d i32) of
     its packed (P, 24) rows `rec` are the photons (pos 0:3, w_in 3:6,
     throughput 15:18, d_vcm 19, d_vm 20).  On CUDA tensors the two
-    kernels around the library sort, with `box`, the selection's
-    (render/light_cache.py LightVertexCache.box); on CPU tensors
-    build_merge_grid on the rows' columns."""
+    kernels around the library sort, with `box` and the (P, 4) position
+    column `pos4`, the selection's (render/light_cache.py
+    LightVertexCache.box, .pos4); on CPU tensors build_merge_grid on the
+    rows' columns."""
     radius = torch.as_tensor(radius, dtype=torch.float32, device=rec.device)
     if rec.device.type == "cpu":
         valid = torch.arange(rec.shape[0]) < count
@@ -674,10 +679,11 @@ def photon_grid(rec, count, radius, box=None) -> MergeGrid:
                                 rec[:, 15:18], rec[:, 19], rec[:, 20])
     if rec.device.type != "cuda":
         raise ValueError(f"unsupported device {rec.device}")
-    if box is None:
-        raise ValueError("photon_grid: the card's grid reads the box that "
-                         "the selection's gather reduced (box=None)")
-    key, bbox_min, inv_cell, radius_sqr = grid_keys_cuda(rec, count, box,
+    if box is None or pos4 is None:
+        raise ValueError("photon_grid: the card's grid reads the box and "
+                         "the position column that the selection's gather "
+                         "writes (box or pos4 None)")
+    key, bbox_min, inv_cell, radius_sqr = grid_keys_cuda(pos4, count, box,
                                                          radius)
     keys_sorted, order = torch.sort(key, stable=True)
     tiles, keys = grid_tiles_cuda(rec, count, keys_sorted, order)

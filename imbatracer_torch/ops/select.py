@@ -18,8 +18,10 @@ bands (imbatracer_tpu/render/light_cache.py `select_shallowest` :165 and
     first `n`;
   * `select_gather`: the working cache's rows in canonical order in one
     pass, both sorts' permutations composed (row i < kept is
-    rec[order1[order2[i]]], the rows after it zero), and on the card the
-    kept photons' box for the photon grid's build (ops/merge.py).
+    rec[order1[order2[i]]], the rows after it zero), their (rows, 4)
+    position column (pos and a zero; zero past the kept rows), which the
+    photon grid's keys read (ops/merge.py), and on the card the kept
+    photons' box for the grid's scalars.
 
 The sorts between them are the library's (torch.sort, stable), as
 lax.sort is JAX's.  A key is exact in either width: int64 (major << 32)
@@ -50,6 +52,7 @@ PLAIN_KEYS = tuple(f"{k}_plain" for k in KERNELS)
 LAUNCHES = dict.fromkeys(KERNELS + PLAIN_KEYS, 0)
 
 REC_W = 24                   # render/light_cache.py REC_W (csrc kRecW)
+POS_W = 4                    # the position column's width (x, y, z, 0)
 COL_LENGTH, COL_ID = 21, 22  # path_length, path_id (int32 bits)
 SHALLOW, CANONICAL = 1, 2    # key modes (csrc kShallow, kCanonical)
 
@@ -102,14 +105,22 @@ def select_keys_plain(src, n: int, order, mode: int, bits):
 
 
 def select_gather_plain(rec, order1, order2, rows: int):
-    """(rows, 24) packed rows: row i < kept = len(order2) is
-    rec[order1[order2[i]]] (rec[order2[i]] without `order1`), the rows
-    after it zero; and no box (the plain grid takes its own)."""
+    """(out, box, pos): out the (rows, 24) packed rows, row i < kept =
+    len(order2) rec[order1[order2[i]]] (rec[order2[i]] without
+    `order1`), the rows after it zero; no box (the plain grid takes its
+    own); pos the (rows, 4) position column, out[:, 0:3] and a zero
+    column."""
     LAUNCHES["select_gather_plain"] += 1
     src = order2 if order1 is None else order1[order2]
     out = rec.new_zeros((rows, rec.shape[1]))
     out[:src.shape[0]] = rec[src]
-    return out, None
+    return out, None, pos_column(out)
+
+
+def pos_column(rows):
+    """The (N, 4) position column of packed (N, 24) rows: pos and a
+    zero."""
+    return torch.nn.functional.pad(rows[:, 0:3], (0, POS_W - 3))
 
 
 def box_plain(rows, kept: int):
@@ -154,7 +165,7 @@ def _library():
         for name, args in (("imba_select_keys",
                             [vp, i64, vp, i64, i, i, i, vp, vp]),
                            ("imba_select_gather",
-                            [vp, vp, vp, i64, i64, vp, vp, vp]),
+                            [vp, vp, vp, i64, i64, vp, vp, vp, vp]),
                            ("imba_select_resources", [i, vp])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -219,8 +230,9 @@ def select_keys_cuda(src, n: int, order, mode: int, bits):
 
 def select_gather_cuda(rec, order1, order2, rows: int):
     """Launch select_gather_kernel on CUDA tensors (raises on anything
-    else): select_gather_plain's rows, and the kept photons' box, (6,)
-    int32 order-preserving bits (`box_floats` decodes them)."""
+    else): select_gather_plain's rows and position column, and the kept
+    photons' box, (6,) int32 order-preserving bits (`box_floats` decodes
+    them)."""
     _check(rec, torch.float32, (None, REC_W), "rec", aligned=True)
     _check(order2, torch.int64, (None,), "order2")
     if order1 is not None:
@@ -230,12 +242,13 @@ def select_gather_cuda(rec, order1, order2, rows: int):
         raise ValueError("select: more kept rows than output rows")
     out = torch.empty((rows, REC_W), dtype=torch.float32, device=rec.device)
     box = torch.empty((6,), dtype=torch.int32, device=rec.device)
+    pos = torch.empty((rows, POS_W), dtype=torch.float32, device=rec.device)
     _launched(_library().imba_select_gather(
         rec.data_ptr(), None if order1 is None else order1.data_ptr(),
         order2.data_ptr(), kept, rows, out.data_ptr(), box.data_ptr(),
-        _stream(rec)), "select_gather")
+        pos.data_ptr(), _stream(rec)), "select_gather")
     LAUNCHES["select_gather"] += 1
-    return out, box
+    return out, box, pos
 
 
 def resources(which: str):
@@ -263,8 +276,8 @@ def select_keys(src, n: int, order, mode: int, bits):
 
 
 def select_gather(rec, order1, order2, rows: int):
-    """(rows, box): the kernel on CUDA tensors (with the box), the plain
-    version on CPU tensors (box None)."""
+    """(rows, box, pos): the kernel on CUDA tensors (with the box), the
+    plain version on CPU tensors (box None)."""
     fn = select_gather_cuda if _cuda(rec) else select_gather_plain
     return fn(rec, order1, order2, rows)
 
@@ -279,8 +292,8 @@ def select_rows(rec, n: int, capacity: int, *, keys=None, paths=None,
     rows' (C, 2) int32 key columns, which the sort keys read where given
     (else the rows' own columns).  `paths` and `lengths` bound path_id
     and path_length from above (exclusive), which lets the keys take 32
-    bits.  Returns (rows, box): box the kept photons' box on the card,
-    None on the CPU."""
+    bits.  Returns (rows, box, pos): box the kept photons' box on the
+    card, None on the CPU; pos the rows' (rows, 4) position column."""
     num_c = rec.shape[0]
     src = rec if keys is None else keys
     order1 = None

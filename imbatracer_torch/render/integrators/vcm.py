@@ -536,10 +536,10 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
 
 def photon_grid(cache, pm_radius, stats=None):
     """The merge kernel's photon grid over the cache's valid vertices (on
-    the card from the box its selection reduced); records the photon
-    count in `stats` ("photons")."""
+    the card from the box and the position column its selection wrote);
+    records the photon count in `stats` ("photons")."""
     grid = merge_mod.photon_grid(cache.rec, cache.count, pm_radius,
-                                 cache.box)
+                                 cache.box, cache.pos4)
     if stats is not None:
         stats["photons"] = cache.count.to(torch.int64)
     return grid

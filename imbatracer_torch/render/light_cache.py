@@ -45,13 +45,16 @@ class LightVertexCache(TensorData):
     (LightVertexCache.packed's layout), so nothing is copied to read
     them.  `box`: on the card, the kept photons' box that the selection
     reduced (ops/select.py), which the photon grid's build reads.
-    `keys`: a collect cache's key columns (CollectCache.cache), whose
-    first `count` rows hold the rows' (path_length, path_id), or None."""
+    `pos4`: a selected cache's (C, 4) position column (pos and a zero,
+    zero past the count), which the photon grid's keys read.  `keys`: a
+    collect cache's key columns (CollectCache.cache), whose first `count`
+    rows hold the rows' (path_length, path_id), or None."""
 
     rec: torch.Tensor          # (C, 24) packed rows
     count: torch.Tensor        # () i32 number of valid vertices
     box: torch.Tensor = None   # (6,) i32 (ops/select.select_gather_cuda)
     keys: torch.Tensor = None  # (C, 2) i32 (path_length, path_id)
+    pos4: torch.Tensor = None  # (C, 4) f32 (ops/select.select_gather)
 
     @property
     def capacity(self) -> int:
@@ -211,10 +214,12 @@ def select_shallowest(cache: LightVertexCache, capacity: int, *,
     exclusive bounds of path_id / path_length, for 32-bit sort keys.  On
     the card the keys and the gather are kernels (ops/select.py): the
     keys read the cache's key columns where it has them, else its rows'
-    own, and the gather the packed rows as they are."""
+    own, and the gather the packed rows as they are, writing the kept
+    rows' position column beside them."""
     n = int(cache.count) if count is None else count
-    rows, box = select.select_rows(cache.rec, n, capacity, keys=cache.keys,
-                                   paths=paths, lengths=lengths)
+    rows, box, pos4 = select.select_rows(cache.rec, n, capacity,
+                                         keys=cache.keys, paths=paths,
+                                         lengths=lengths)
     kept = (cache.count if capacity >= cache.capacity
             else torch.clamp(cache.count, max=capacity))
-    return LightVertexCache(rows, kept, box)
+    return LightVertexCache(rows, kept, box, pos4=pos4)

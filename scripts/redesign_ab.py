@@ -1,42 +1,66 @@
 #!/usr/bin/env python3
-"""Two kernels redesigned for Hopper against their earlier designs, on one
-card in one process, this tree's sources as the redesigns: the light
-band's collect append (collect_append_kernel, csrc/light_tail.cu: one
-launch, its offsets from a single-pass scan, each row's key pair written
-beside it) against the earlier wrapper (the library's prefix sum, a copy
-a thread a 16-byte word of every staged row, a one-thread tail); and the
-selection's sort keys (select_keys_kernel, csrc/select.cu) from the
-collect cache's key columns against the earlier kernel, which read them
-from the packed rows.  Beside them, the re-trace's slot gather
-(slot_gather_kernel, csrc/dispatch.cu, whose tile look-back now comes
-from csrc/lookback.cuh) against the earlier one, through the same C
-interface.
+"""Hand-written kernels redesigned for Hopper against their earlier designs,
+on one card in one process, this tree's sources as the redesigns: the
+VCM light band's start (vcm_light_start_kernel, csrc/vcm_shade.cu) and
+the photon grid's keys (grid_keys_kernel, csrc/grid_build.cu, from the
+position column that the selection's gather now writes,
+select_gather_kernel in csrc/select.cu) against the earlier kernels;
+the light band's collect append (collect_append_kernel,
+csrc/light_tail.cu) against the earlier wrapper where the earlier tree
+has one (the library's prefix sum, a copy, a one-thread tail); the
+selection's sort keys (select_keys_kernel) from the key columns against
+the earlier kernel; the re-trace's slot gather (slot_gather_kernel,
+csrc/dispatch.cu) through the same C interface.
 
 The earlier designs are another checkout's sources (--root, for example
 the parent commit unpacked under the git-ignored out/), built with this
 tree's nvcc flags into build/imbatracer_torch/ and called through their
-own C interfaces (the append behind its wrapper's torch.cumsum); a tree
-with this tree's interfaces is launched through this tree's wrappers.
-Each design is timed as chip_smoke.graph_ms (10 calls captured in one
-CUDA graph, after a warm-up), earlier, redesigned, redesigned, earlier.
+own C interfaces (the append behind its wrapper's torch.cumsum; the
+earlier gather without the position column, the earlier keys from the
+packed rows); a library with this tree's interface is launched through
+this tree's wrappers.  Each design is timed as chip_smoke.graph_ms (10
+calls captured in one CUDA graph, after a warm-up), earlier,
+redesigned, redesigned, earlier.
 
-Cells: the append on phase 4e's still-life band (8 x 262,144 staged rows
-of the middle light band of a 1920x1080 vcm frame with 2^20 light paths)
-into an empty cache of the frame's capacity, and on seeded bands of the
-same size with 0, 31 and 100% of the rows valid; the keys on phase 4f's
-collect cache (the admission keys of the collected rows, the canonical
-keys of the kept rows through the first sort's order; 32-bit, the
-frame's width, and 64-bit), the redesign from the key columns and from
-the rows; the slot gather on phase 4e's seeded need masks at both slot
-shares and on the still life's bounce-1 re-trace.  Every design's
-outputs must equal the plain version's bit for bit.
+Cells: `light_start` the light band's start on the four bands of a
+1920x1080 still-life vcm frame with 2^20 light paths (the first of its
+area light alone, two straddling two lights, the last of its
+environment alone; path start and end as pointers, as the graphed band
+passes them), phase 4c's padded middle band, a band of half the lanes,
+and the delta-light cornell's middle band (point, spot and directional
+lights); each design's columns held against the plain version at phase
+4b's gates and against each other bit for bit.  `grid` the selection's
+gather and the grid's keys on phase 4f's collect cache (the frame's
+selection to its working capacity), each design's rows, box, keys and
+scalars (and the redesign's position column) bit-equal to the plain
+versions, timed as a pair and alone.  `append` the append on phase 4e's
+still-life band (8 x 262,144 staged rows of the middle light band) into
+an empty cache of the frame's capacity, and on seeded bands of the same
+size with 0, 31 and 100% of the rows valid; `keys` the sort keys on
+phase 4f's collect cache (the admission keys of the collected rows, the
+canonical keys of the kept rows through the first sort's order; 32-bit,
+the frame's width, and 64-bit), the redesign from the key columns and
+from the rows; `gather` the slot gather on phase 4e's seeded need masks
+at both slot shares and on the still life's bounce-1 re-trace.  Every
+design's outputs must equal the plain version's bit for bit (the light
+start's: phase 4b's gates, and the two designs' bit for bit).
+
+`--split`: the --root tree is a measuring build whose light-start entry
+launches the kernel that the launch's `bounce` int names (0 its kept
+kernel); the light_start cells then time each of `--variants` against
+this tree's kernel in turns, passing the plain version's emission sample
+in the carry-in slots (org, d, throughput, d_vc, d_vcm, d_vm, finite,
+active) for a variant that loads it instead of sampling, and hold a
+variant's columns bit-equal to this tree's only for `--equal` variants.
 
 Each `[ab]` line names the card and its power limit, with the bound of
 the bytes the function moves (chip_smoke.py's count) and each build's
 registers, spills and resident blocks.  Run from the repository root
-(`--only append` and so on: those cells alone):
+(`--only light_start grid` and so on: those cells alone):
 
     python3 scripts/redesign_ab.py --root out/earlier [--only CELLS]
+    python3 scripts/redesign_ab.py --root out/split --split --only \
+        light_start --variants 1 2 3 4 --equal 4
 """
 
 import argparse
@@ -57,8 +81,10 @@ from imbatracer_torch import libbuild  # noqa: E402
 from imbatracer_torch.device import card_line, get_device  # noqa: E402
 from imbatracer_torch.ops import dispatch as dp  # noqa: E402
 from imbatracer_torch.ops import light_tail as lt  # noqa: E402
+from imbatracer_torch.ops import merge as mg  # noqa: E402
 from imbatracer_torch.ops import select as sel  # noqa: E402
 from imbatracer_torch.ops import stream_traverse as st  # noqa: E402
+from imbatracer_torch.ops import vcm_shade as vs  # noqa: E402
 from imbatracer_torch.render import traverse as tt  # noqa: E402
 from imbatracer_torch.render.light_cache import CollectCache  # noqa: E402
 
@@ -66,9 +92,20 @@ vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The earlier entry points' argument types, where this tree's differ.
 EARLIER_ARGS = {"imba_collect_append": [vp] * 5 + [i32, i64, vp, vp],
                 "imba_select_keys": [vp, vp, i64, i32, i32, i32, vp, vp]}
+# The earlier gather's, without the position column.
+EARLIER_GATHER_ARGS = [vp, vp, vp, i64, i64, vp, vp, vp]
 # The earlier append's one-thread tail, which names its interface.
 EARLIER_TAIL = "collect_tail_kernel"
-CELLS = ("append", "keys", "gather")
+# This tree's gather, which names its interface.
+POS_GATHER = "void* pos, void* stream"
+CELLS = ("light_start", "grid", "append", "keys", "gather")
+# Each earlier library: (module, its NativeLib's attribute, its cached
+# library's attribute, its binding function's name).
+LIBS = {"light_tail": (lt, "LIB", "_lib", "_library"),
+        "select": (sel, "LIB", "_lib", "_library"),
+        "dispatch": (dp, "LIB", "_lib", "_library"),
+        "vcm_shade": (vs, "LIB", "_lib", "_library"),
+        "grid_build": (mg, "GRID_LIB", "_grid_lib", "_grid_library")}
 
 
 class _Built:
@@ -87,41 +124,62 @@ def build(src, so, inc):
     return subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)
 
 
-def load(mod, path, same):
-    """The library at `path`, bound by mod._library() and then, unless
-    `same`, with the earlier argument types of EARLIER_ARGS."""
-    keep, mod.LIB, mod._lib = mod.LIB, _Built(path), None
+def load(key, path, args):
+    """The library at `path`, bound by its module's binding function and
+    then with the argument types `args` ({entry point: types}) where it
+    has those entry points."""
+    mod, lib_attr, cache_attr, bind = LIBS[key]
+    keep = getattr(mod, lib_attr), getattr(mod, cache_attr)
+    setattr(mod, lib_attr, _Built(path))
+    setattr(mod, cache_attr, None)
     try:
-        lib = mod._library()
+        lib = getattr(mod, bind)()
     finally:
-        mod.LIB, mod._lib = keep, None
-    for name, args in ({} if same else EARLIER_ARGS).items():
+        setattr(mod, lib_attr, keep[0])
+        setattr(mod, cache_attr, keep[1])
+    for name, types in args.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
-            fn.restype, fn.argtypes = ctypes.c_int, args
+            fn.restype, fn.argtypes = ctypes.c_int, types
     return lib
 
 
+def this_library(key):
+    """This tree's library of LIBS[key], built and bound."""
+    mod, _, _, bind = LIBS[key]
+    return getattr(mod, bind)()
+
+
 def earlier_builds(root):
-    """({"light_tail", "select", "dispatch": (library, ptxas log)} of the
-    earlier sources, built in parallel; whether they have this tree's C
-    interfaces)."""
+    """({LIBS key: (library, ptxas log)} of the earlier sources, built in
+    parallel; whether the append and keys have this tree's C interfaces;
+    whether the gather has).  A library that fails to build is left out
+    (its log printed)."""
     os.makedirs(libbuild.BUILD_DIR, exist_ok=True)
     inc = os.path.join(os.path.abspath(root), "imbatracer_torch", "csrc")
-    with open(os.path.join(inc, lt.LIB.source)) as fh:
-        same = EARLIER_TAIL not in fh.read()
+    src = {}
+    for key, (mod, lib_attr, _, _) in LIBS.items():
+        with open(os.path.join(inc, getattr(mod, lib_attr).source)) as fh:
+            src[key] = fh.read()
+    same = EARLIER_TAIL not in src["light_tail"]
+    same_gather = POS_GATHER in src["select"]
     procs = {}
-    for mod in (lt, sel, dp):
-        so = os.path.join(libbuild.BUILD_DIR, f"lib{mod.LIB.name}_earlier.so")
-        procs[mod.LIB.name] = (mod, so, build(
-            os.path.join(inc, mod.LIB.source), so, inc))
+    for key, (mod, lib_attr, _, _) in LIBS.items():
+        name = getattr(mod, lib_attr).name
+        so = os.path.join(libbuild.BUILD_DIR, f"lib{name}_earlier.so")
+        procs[key] = (so, build(os.path.join(inc, getattr(
+            mod, lib_attr).source), so, inc))
     out = {}
-    for key, (mod, so, p) in procs.items():
+    for key, (so, p) in procs.items():
         err = p.communicate()[1]
         if p.returncode != 0:
-            raise RuntimeError(f"building the earlier {key} failed:\n{err}")
-        out[key] = (load(mod, so, same or mod is dp), err)
-    return out, same
+            cs.log(f"[ab] building the earlier {key} failed:\n{err}")
+            continue
+        args = {} if same or key == "dispatch" else dict(EARLIER_ARGS)
+        if key == "select" and not same_gather:
+            args["imba_select_gather"] = EARLIER_GATHER_ARGS
+        out[key] = (load(key, so, args), err)
+    return out, same, same_gather
 
 
 def ptxas(log, kernel):
@@ -133,6 +191,13 @@ def ptxas(log, kernel):
                              for x in lines[k + 1:k + 4]
                              if "stack frame" in x or "registers" in x)
     return "built before this process (its log: the build's)"
+
+
+def entry_names(log, part):
+    """The entry functions of a build log whose names hold `part`."""
+    return [ln.split("'")[1] for ln in log.splitlines()
+            if "Compiling entry function" in ln and part in ln
+            and ln.count("'") >= 2]
 
 
 def fmt(ms):
@@ -168,13 +233,15 @@ def earlier_keys(lib, rec, n, order, mode, bits):
     return keys
 
 
-def with_lib(mod, lib, fn, *args):
-    """fn(*args) with `lib` as mod's library."""
-    keep, mod._lib = mod._lib, lib
+def with_lib(key, lib, fn, *args, **kw):
+    """fn(*args, **kw) with `lib` as the library of LIBS[key]."""
+    mod, _, cache_attr, _ = LIBS[key]
+    keep = getattr(mod, cache_attr)
+    setattr(mod, cache_attr, lib)
     try:
-        return fn(*args)
+        return fn(*args, **kw)
     finally:
-        mod._lib = keep
+        setattr(mod, cache_attr, keep)
 
 
 def append_case(libs, same, label, valid, rows, cap, card):
@@ -191,7 +258,7 @@ def append_case(libs, same, label, valid, rows, cap, card):
                                  keys0.clone())
     new = lambda c: lt.collect_append_cuda(c.rec, c.count, c.lost, valid,
                                            rows, c.keys)
-    old = (partial(with_lib, lt, libs["earlier"], new) if same
+    old = (partial(with_lib, "light_tail", libs["earlier"], new) if same
            else lambda c: earlier_append(libs["earlier"], c, valid, rows))
     p = state()
     lt.collect_append_plain(p.rec, p.count, p.lost, valid, rows, p.keys)
@@ -232,8 +299,8 @@ def keys_case(libs, same, label, rec, keys, n, order, mode, bits, card):
     timed in turns."""
     new = partial(sel.select_keys_cuda, keys, n, order, mode, bits)
     rows24 = partial(sel.select_keys_cuda, rec, n, order, mode, bits)
-    old = (partial(with_lib, sel, libs["earlier"], sel.select_keys_cuda, rec,
-                   n, order, mode, bits) if same
+    old = (partial(with_lib, "select", libs["earlier"], sel.select_keys_cuda,
+                   rec, n, order, mode, bits) if same
            else partial(earlier_keys, libs["earlier"], rec, n, order, mode,
                         bits))
     want = sel.select_keys_plain(rec, n, order, mode, bits)
@@ -262,8 +329,9 @@ def gather_case(libs, label, need, slots, hit, tcur, card):
     """One `[ab]` line of the slot gather: both designs (one C interface)
     held against the plain version bit for bit, then timed in turns."""
     want = dp.slot_gather_plain(need, slots, hit, tcur)
-    fns = {which: partial(with_lib, dp, lib, dp.slot_gather_cuda, need,
-                          slots, hit, tcur) for which, lib in libs.items()}
+    fns = {which: partial(with_lib, "dispatch", lib, dp.slot_gather_cuda,
+                          need, slots, hit, tcur)
+           for which, lib in libs.items()}
     bad = {which: cs.slot_mismatches(fn(), want) for which, fn in
            fns.items()}
     torch.cuda.synchronize()
@@ -281,29 +349,41 @@ def gather_case(libs, label, need, slots, hit, tcur, card):
 
 def log_builds(built, same, card):
     """ptxas and `[res]` lines of each earlier and redesigned kernel."""
-    new_log = {m.LIB.name: libbuild.BUILD_INFO.get(m.LIB.name, {}).get(
-        "log", "") for m in (lt, sel, dp)}
-    for kernel, key in (("collect_append_kernel", "light_tail"),
+    new_log = {key: libbuild.BUILD_INFO.get(getattr(m, a).name, {}).get(
+        "log", "") for key, (m, a, _, _) in LIBS.items()}
+    for kernel, key in (("vcm_light_start_kernel", "vcm_shade"),
+                        ("select_gather_kernel", "select"),
+                        ("grid_keys_kernel", "grid_build"),
+                        ("collect_append_kernel", "light_tail"),
                         (EARLIER_TAIL, "light_tail"),
                         ("select_keys_kernel", "select"),
                         ("slot_gather_kernel", "dispatch")):
-        if same and kernel == EARLIER_TAIL:
+        if (same and kernel == EARLIER_TAIL) or key not in built:
             continue
         cs.log(f"[ab] {kernel} ptxas: earlier {ptxas(built[key][1], kernel)};"
                f" redesigned {ptxas(new_log[key], kernel)} [{card}]")
-    res = {"collect_append_kernel": (
-        st._resources(built["light_tail"][0].imba_light_tail_resources, 0),
-        lt.resources("collect_append")),
-           "select_keys_kernel<false>": (
-        st._resources(built["select"][0].imba_select_resources, 0),
-        sel.resources("keys32")),
-           "slot_gather_kernel": (
-        st._resources(built["dispatch"][0].imba_dispatch_resources,
-                      dp.KERNELS.index("slot_gather")),
-        dp.resources("slot_gather"))}
-    for kernel, (old, new) in res.items():
-        cs.log_resources(f"earlier {kernel}", old, card)
-        cs.log_resources(f"redesigned {kernel}", new, card)
+    res = {"vcm_light_start_kernel": ("vcm_shade", "imba_vcm_resources",
+                                      vs.RESOURCE_KERNELS.index(
+                                          "light_start"),
+                                      lambda: vs.resources("light_start")),
+           "select_gather_kernel": ("select", "imba_select_resources", 2,
+                                    lambda: sel.resources("gather")),
+           "grid_keys_kernel": ("grid_build", "imba_grid_resources", 0,
+                                lambda: mg.grid_resources("keys")),
+           "collect_append_kernel": ("light_tail",
+                                     "imba_light_tail_resources", 0,
+                                     lambda: lt.resources("collect_append")),
+           "select_keys_kernel<false>": ("select", "imba_select_resources", 0,
+                                         lambda: sel.resources("keys32")),
+           "slot_gather_kernel": ("dispatch", "imba_dispatch_resources",
+                                  dp.KERNELS.index("slot_gather"),
+                                  lambda: dp.resources("slot_gather"))}
+    for kernel, (key, entry, which, new) in res.items():
+        if key not in built:
+            continue
+        cs.log_resources(f"earlier {kernel}", st._resources(
+            getattr(built[key][0], entry), which), card)
+        cs.log_resources(f"redesigned {kernel}", new(), card)
 
 
 def main():
@@ -312,18 +392,44 @@ def main():
                    help="checkout holding the earlier designs")
     p.add_argument("--only", nargs="+", default=CELLS, choices=CELLS,
                    help="the kernels whose cells run")
+    p.add_argument("--split", action="store_true",
+                   help="--root is a measuring build of light-start "
+                        "variants, picked by the launch's bounce int")
+    p.add_argument("--variants", nargs="+", type=int, default=[0],
+                   help="with --split, the variants timed")
+    p.add_argument("--equal", nargs="*", type=int, default=[],
+                   help="with --split, the variants held bit-equal to "
+                        "this tree's kernel")
     args = p.parse_args()
     from imbatracer_torch.scene.procedural import make_still_life_like
 
     dev = get_device("cuda")
     card = card_line(dev)
-    new = {m.LIB.name: m._library() for m in (lt, sel, dp)}
-    built, same = earlier_builds(args.root)
+    new = {key: this_library(key) for key in LIBS}
+    built, same, same_gather = earlier_builds(args.root)
     log_builds(built, same, card)
-    libs = {k: {"earlier": built[k][0], "redesigned": new[k]} for k in new}
+    if args.split and "vcm_shade" in built:
+        for name in entry_names(built["vcm_shade"][1], "start"):
+            cs.log(f"[ab] {name} ptxas: {ptxas(built['vcm_shade'][1], name)} "
+                   f"[{card}]")
+    libs = {k: {"earlier": built[k][0], "redesigned": new[k]}
+            for k in new if k in built}
 
     scene, meta = make_still_life_like(device=dev)
     cam, fi, lpc, cap = cs.vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    for cell, key in (("light_start", "vcm_shade"), ("grid", "select"),
+                      ("grid", "grid_build"), ("append", "light_tail"),
+                      ("keys", "select"), ("gather", "dispatch")):
+        if cell in args.only and key not in libs:
+            cs.log(f"[ab] {cell}: no earlier {key} library; not run")
+            args.only = [c for c in args.only if c != cell]
+    if "light_start" in args.only:
+        variants = args.variants if args.split else [0]
+        start_cells(libs["vcm_shade"], scene, meta, fi, lpc, dev, card,
+                    variants, set(args.equal) if args.split else {0},
+                    args.split)
+    if "grid" in args.only:
+        grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card)
     if "append" in args.only:
         append_cells(libs, same, scene, meta, cam, fi, lpc, card)
     if "keys" in args.only:
@@ -331,6 +437,208 @@ def main():
     if "gather" in args.only:
         gather_cells(libs, scene, meta, card)
     cs.log("[ab] done")
+
+
+# The emission sample's columns, in the carry-in slots a split build's
+# stores-only variant loads them from (see --split).
+EMIT_SLOTS = ("org", "d", "throughput", "d_vc", "d_vcm", "d_vm", "finite",
+              "active")
+
+
+def start_call(scene, fi, lanes, lpc, start, end, variant=0, emit=None):
+    """vcm_light_start_kernel's launch as light_start_cuda makes it (the
+    path start and end as pointers), with `variant` as its bounce int and
+    `emit` ({carry-in slot: column}) in the carry-in slots."""
+    dev = scene.lights.rec.device
+    out = vs._empty_carry(vs.LIGHT_CARRY, lanes, dev)
+    ptrs = {"o_" + k: v for k, v in out.items()}
+    ptrs.update(frame=vs._scalar(fi.frame, torch.int64, dev, "frame"),
+                mis_eta_vc=vs._scalar(fi.mis_eta_vc, torch.float32, dev,
+                                      "mis_eta_vc"),
+                path_start=start, path_end=end)
+    ptrs.update(emit or {})
+    vs._launch("light_start", scene, lanes, ptrs,
+               dict(lpc=lpc, bounce=variant), {}, dev)
+    return out
+
+
+def start_case(libs, label, scene, fi, lpc, first, lanes, valid, card,
+               variants, equal, split):
+    """`[ab]` lines of the light band's start on `lanes` paths from
+    `first` (those from first + valid on padding): this tree's kernel
+    held against the plain version at phase 4b's gates, then each
+    variant of the earlier build (its kept kernel, 0, where not --split)
+    held bit-equal to this tree's where `equal` names it, and the two
+    timed in turns."""
+    dev = scene.lights.rec.device
+    start = torch.tensor(first, dtype=torch.int32, device=dev)
+    end = start + valid
+    want = vs.light_start_plain(scene, fi.frame, fi.mis_eta_vc, lanes=lanes,
+                                light_path_count=lpc, path_start=start,
+                                path_end=end)
+    num = scene.lights.kind.shape[0]
+    idx = torch.clamp((want["path_id"] * num) // lpc, max=num - 1)
+    kinds = sorted(set(scene.lights.kind[idx].tolist()))
+    alive = float(want["active"].double().mean())
+    new = partial(start_call, scene, fi, lanes, lpc, start, end)
+    got = new()
+    cs.hold_vcm_columns(f"light start, {label}, this tree",
+                        {k: (got[k], want[k]) for k in want}, alive, {},
+                        "err")
+    emit = {k: want[k] for k in EMIT_SLOTS} if split else None
+    nbytes = cs.tensor_bytes(want) + cs.distinct_rows(idx, 24)
+    bound_ms, by = cs.shade_bound(nbytes,
+                                  lanes * cs.VCM_LANE_OPS["light_start"])
+    for v in variants:
+        old = partial(with_lib, "vcm_shade", libs["earlier"], start_call,
+                      scene, fi, lanes, lpc, start, end, v, emit)
+        held = "not held (a split variant)"
+        if v in equal:
+            o = old()
+            torch.cuda.synchronize()
+            bad = {k: cs.bit_mismatches(o[k], got[k]) for k in got}
+            if any(bad.values()):
+                raise AssertionError(f"[ab] light start {label}: the earlier "
+                                     f"kernel (variant {v}) is not bit-equal "
+                                     f"to this tree's: {bad}")
+            held = "bit-equal"
+        ms = {"earlier": [], "this": []}
+        for which in ("earlier", "this", "this", "earlier"):
+            ms[which].append(cs.graph_ms(old if which == "earlier" else new))
+        cs.log(f"[ab] vcm_light_start_kernel, {label}: {lanes} lanes, "
+               f"{alive:.4f} active, light kinds {kinds}: earlier"
+               f"{f' variant {v}' if split else ''} {fmt(ms['earlier'])} "
+               f"ms, this tree {fmt(ms['this'])} ms; bound {bound_ms:.4f} "
+               f"ms by {by} ({nbytes} bytes); {held} [{card}]")
+
+
+def start_cells(libs, scene, meta, fi, lpc, dev, card, variants, equal,
+                split):
+    n = cs.NUM_RAYS
+    for b in range(lpc // n):
+        start_case(libs, f"still_life 1920x1080, band {b} of {lpc // n}",
+                   scene, fi, lpc, b * n, n, n, card, variants, equal, split)
+    mid = (lpc - n) // 2
+    start_case(libs, "still_life 1920x1080, phase 4c's padded middle band",
+               scene, fi, lpc, mid, n, n - 1000, card, variants, equal,
+               split)
+    start_case(libs, "still_life 1920x1080, half a band", scene, fi, lpc,
+               mid, n // 2, n // 2, card, variants, equal, split)
+    delta = cs.delta_light_cornell(dev)
+    _, fi_c, lpc_c, _ = cs.vcm_frame_inputs(*delta, 1024, 1024, 8, dev)
+    start_case(libs, "cornell with point, spot and dir lights 1024x1024, "
+               "middle band", delta[0], fi_c, lpc_c, (lpc_c - n) // 2, n, n,
+               card, variants, equal, split)
+
+
+def earlier_gather(lib, rec, order1, order2, rows):
+    """The earlier gather: its rows and box, no position column."""
+    out = torch.empty((rows, 24), dtype=torch.float32, device=rec.device)
+    box = torch.empty((6,), dtype=torch.int32, device=rec.device)
+    _ok(lib.imba_select_gather(
+        rec.data_ptr(), None if order1 is None else order1.data_ptr(),
+        order2.data_ptr(), order2.shape[0], rows, out.data_ptr(),
+        box.data_ptr(), _stream()), "gather")
+    return out, box
+
+
+def earlier_grid_keys(lib, rows_rec, count, box, radius):
+    """The earlier grid keys, from the packed rows: key and the (5,)
+    scalars."""
+    rows = rows_rec.shape[0]
+    key = torch.empty((rows,), dtype=torch.int32, device=rows_rec.device)
+    scal = torch.empty((5,), dtype=torch.float32, device=rows_rec.device)
+    _ok(lib.imba_grid_keys(rows_rec.data_ptr(), count.data_ptr(),
+                           box.data_ptr(), radius.data_ptr(), rows,
+                           key.data_ptr(), scal.data_ptr(), _stream()),
+        "grid keys")
+    return key, scal
+
+
+def grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card):
+    """`[ab]` lines of the selection's gather and the grid's keys on the
+    still life's collect cache, the frame's selection to its working
+    capacity: each design's outputs bit-equal to the plain versions', then
+    the pair and each kernel timed in turns."""
+    from imbatracer_torch.render.integrators import vcm
+
+    collect, count = cs.vcm_collect(scene, meta, cam, fi, lpc, 8)
+    c = collect.cache()
+    bounds = vcm.key_bounds(lpc, 8)
+    b1 = sel.key_bits(bounds["lengths"], bounds["paths"])
+    b2 = sel.key_bits(bounds["paths"], bounds["lengths"])
+    k1 = sel.select_keys_cuda(c.keys, count, None, sel.SHALLOW, b1)
+    order1 = torch.sort(k1, stable=True)[1][:cap]
+    kept = min(count, cap)
+    k2 = sel.select_keys_cuda(c.keys, kept, order1, sel.CANONICAL, b2)
+    order2 = torch.sort(k2, stable=True)[1]
+    rec, rows = c.rec, cap
+    radius = torch.as_tensor(fi.pm_radius, dtype=torch.float32,
+                             device=rec.device).reshape(())
+    n = torch.tensor(kept, dtype=torch.int32, device=rec.device)
+    elib, glib = libs["select"]["earlier"], libs["grid_build"]["earlier"]
+    if same_gather:
+        old_gather = partial(with_lib, "select", elib, sel.select_gather_cuda,
+                             rec, order1, order2, rows)
+        old_keys = lambda g: with_lib("grid_build", glib, mg.grid_keys_cuda,
+                                      g[2], n, g[1], radius)
+    else:
+        old_gather = partial(earlier_gather, elib, rec, order1, order2, rows)
+        old_keys = lambda g: earlier_grid_keys(glib, g[0], n, g[1], radius)
+    new_gather = partial(sel.select_gather_cuda, rec, order1, order2, rows)
+    new_keys = lambda g: mg.grid_keys_cuda(g[2], n, g[1], radius)
+    ref, _, ref_pos = sel.select_gather_plain(rec, order1, order2, rows)
+    valid = torch.arange(rows, device=rec.device) < n
+    pkey, pbmin, pinv = mg.grid_keys_plain(ref[:, 0:3], valid, radius)
+    want_box = sel.box_plain(ref, kept)
+    g_old, g_new = old_gather(), new_gather()
+    k_old, k_new = old_keys(g_old), new_keys(g_new)
+    torch.cuda.synchronize()
+    bad = {"earlier rows": cs.bit_mismatches(g_old[0], ref),
+           "redesigned rows": cs.bit_mismatches(g_new[0], ref),
+           "redesigned position column": cs.bit_mismatches(g_new[2],
+                                                           ref_pos),
+           "earlier box": int(not torch.equal(sel.box_floats(g_old[1]),
+                                              want_box)),
+           "redesigned box": int(not torch.equal(sel.box_floats(g_new[1]),
+                                                 want_box)),
+           "earlier keys": cs.bit_mismatches(k_old[0], pkey),
+           "redesigned keys": cs.bit_mismatches(k_new[0], pkey),
+           "earlier scalars": cs.bit_mismatches(
+               k_old[1], torch.cat([pbmin, pinv.reshape(1),
+                                    (radius * radius).reshape(1)])),
+           "redesigned scalars": cs.bit_mismatches(
+               torch.cat([k_new[1], k_new[2].reshape(1),
+                          k_new[3].reshape(1)]),
+               torch.cat([pbmin, pinv.reshape(1),
+                          (radius * radius).reshape(1)]))}
+    if any(bad.values()):
+        raise AssertionError(f"[ab] gather and grid keys: elements not "
+                             f"bit-equal to the plain versions {bad}")
+    fns = {"pair": (lambda: old_keys(old_gather()),
+                    lambda: new_keys(new_gather())),
+           "gather": (old_gather, new_gather),
+           "keys": (partial(old_keys, g_old), partial(new_keys, g_new))}
+    i64 = 8
+    gather_bytes = kept * (2 * i64 + 96) + rows * 96 + 24
+    nbytes = {"pair": (gather_bytes + kept * 12 + rows * 4 + 44,
+                       gather_bytes + rows * 16 + kept * 16 + rows * 4 + 44),
+              "gather": (gather_bytes, gather_bytes + rows * 16),
+              "keys": (kept * 12 + rows * 4 + 44, kept * 16 + rows * 4 + 44)}
+    for what, (old, new) in fns.items():
+        ms = {"earlier": [], "redesigned": []}
+        for which in ("earlier", "redesigned", "redesigned", "earlier"):
+            ms[which].append(cs.graph_ms(old if which == "earlier" else new))
+        bounds_ms = [cs.shade_bound(b, 0)[0] for b in nbytes[what]]
+        cs.log(f"[ab] select_gather_kernel + grid_keys_kernel, {what}, "
+               f"still_life 1920x1080, {kept} kept rows of {rows}: earlier "
+               f"(keys from the rows) {fmt(ms['earlier'])} ms, redesigned "
+               f"(keys from the position column) {fmt(ms['redesigned'])} "
+               f"ms; bound {bounds_ms[0]:.4f} / {bounds_ms[1]:.4f} ms by "
+               f"bytes ({nbytes[what][0]} / {nbytes[what][1]} bytes); "
+               f"bit-equal [{card}]")
+    del collect, c, k1, order1, order2, ref, g_old, g_new
+    torch.cuda.empty_cache()
 
 
 def append_cells(libs, same, scene, meta, cam, fi, lpc, card):

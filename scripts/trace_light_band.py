@@ -287,8 +287,10 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # and flag in and its key out.  The kernels that are not a lane a thread
 # take chip_smoke.py's bytes of one launch on the still-life band over
 # that launch's threads: the splat a row (its pixel, and a contribution
-# where it has one; the film a launch), the selection's gather and the
-# grid's tiles a word or a photon slot, the grid's keys a photon.  The PT bounce's NEE add (pt_shade_finish_kernel,
+# where it has one; the film a launch), the selection's gather a word
+# (with the position column it writes, 16 B an output row) and the
+# grid's tiles a photon slot, the grid's keys a row (a 16-byte read of
+# the column a kept photon, and the 4-byte key of every row).  The PT bounce's NEE add (pt_shade_finish_kernel,
 # four lanes a thread in one tree, one in another) moves 38 B a lane of
 # its band -- radiance, contrib and two flags in, radiance out -- over
 # the frame's mean band (its pixels over its bands).  The slot
@@ -311,8 +313,9 @@ THREAD_BYTES = {"pt_shade_kernel": 86 + 115,
                 "vcm_light_shade_kernel": 74.7e6 / 262144,
                 "vcm_camera_shade_kernel": 115e6 / 262144,
                 "splat_kernel": (33.6e6 - 1920 * 1080 * 12) / (8 * 262144),
-                "select_gather_kernel": 429.2e6 / (2097152 * 6),
-                "grid_keys_kernel": 32.8e6 / 2034225,
+                "select_gather_kernel": (429.2e6 + 16 * 2097152)
+                / (2097152 * 6),
+                "grid_keys_kernel": (16 * 2034225 + 4 * 2097152) / 2097152,
                 "grid_tiles_kernel": 268.4e6 / 2034225}
 # The traversals' operations bound of section 6 on a 262,144-ray band, a
 # ray a thread: khit on the still life (S = 140), the instanced stream
@@ -404,12 +407,21 @@ def rank(tag, tot, threads, frame):
               f"{bound_us / n:.3f} us at {lanes / n:.0f} threads a launch "
               f"({us / max(bound_us, 1e-9):.1f}x), "
               f"{lost / 1e3:.3f} ms a frame above it", flush=True)
+    pair = [r for r in rows if r[1] in PAIR]
+    if len(pair) == len(PAIR):
+        us, bound_us = sum(r[2] for r in pair), sum(r[5] for r in pair)
+        print(f"[rank] graphed {tag} frame: {' + '.join(PAIR)}: "
+              f"{us:.2f} us a frame against a bound of {bound_us:.3f} us "
+              f"({us / max(bound_us, 1e-9):.1f}x)", flush=True)
     print(f"[rank] graphed {tag} frame: the floor, an empty kernel "
           f"replayed in a graph: {FLOOR['us']:.2f} us a launch over "
           f"{FLOOR_LAUNCHES} launches", flush=True)
 
 
 FLOOR = {"us": 0.0}
+# The selection's gather and the grid's keys, ranked together too: the
+# position column moves bytes from the keys to the gather.
+PAIR = ("select_gather_kernel", "grid_keys_kernel")
 
 
 RESOLVES = ("khit_resolve_kernel", "stream_resolve_kernel")

@@ -2754,14 +2754,16 @@ def test_cuda_select_kernels_match_plain(cuda_device, n, cap, keys):
                                                 sel.CANONICAL, b2))
     order2 = torch.sort(k2, stable=True)[1]
     rows = min(cap, 8000)
-    out, box = sel.select_gather_cuda(rec, order1, order2, rows)
-    ref, none = sel.select_gather_plain(rec, order1, order2, rows)
+    out, box, pos4 = sel.select_gather_cuda(rec, order1, order2, rows)
+    ref, none, ref_pos4 = sel.select_gather_plain(rec, order1, order2, rows)
     assert none is None and _bit_equal(out, ref)
-    assert not out[kept:].any()
+    assert _bit_equal(pos4, ref_pos4)
+    assert not out[kept:].any() and not pos4[kept:].any()
     assert torch.equal(sel.box_floats(box), sel.box_plain(ref, kept))
-    got, _ = sel.select_rows(rec, n, cap, **bounds)
-    want, _ = sel.select_rows(rec.cpu(), n, cap, **bounds)
-    assert _bit_equal(got.cpu(), want)
+    got, _, got_pos4 = sel.select_rows(rec, n, cap, **bounds)
+    want, _, want_pos4 = sel.select_rows(rec.cpu(), n, cap, **bounds)
+    assert _bit_equal(got.cpu(), want) and _bit_equal(got_pos4.cpu(),
+                                                      want_pos4)
 
 
 @pytest.mark.cuda
@@ -2829,8 +2831,9 @@ def test_cuda_grid_kernels_match_plain(cuda_device, case):
     cache, radius = _grid_case(case, cuda_device)
     rec, count = cache.rec, cache.count
     valid = torch.arange(rec.shape[0], device=cuda_device) < count
-    key, bmin, inv, r2 = mg.grid_keys_cuda(rec, count, cache.box, radius)
-    pkey, pbmin, pinv = mg.grid_keys_plain(cache.pos, valid, radius)
+    key, bmin, inv, r2 = mg.grid_keys_cuda(cache.pos4, count, cache.box,
+                                           radius)
+    pkey, pbmin, pinv = mg.grid_keys_plain(cache.pos4[:, 0:3], valid, radius)
     assert _bit_equal(key, pkey) and _bit_equal(bmin, pbmin)
     assert _bit_equal(inv, pinv) and _bit_equal(r2, radius * radius)
     ks, order = torch.sort(key, stable=True)
@@ -2839,7 +2842,7 @@ def test_cuda_grid_kernels_match_plain(cuda_device, case):
                                         cache.w_out, cache.throughput,
                                         cache.d_vcm, cache.d_vm)
     assert _bit_equal(tiles, ptiles) and _bit_equal(keys, pkeys)
-    got = mg.photon_grid(rec, count, radius, cache.box)
+    got = mg.photon_grid(rec, count, radius, cache.box, cache.pos4)
     want = mg.build_merge_grid(cache.pos, valid, radius, cache.w_out,
                                cache.throughput, cache.d_vcm, cache.d_vm)
     for name in ("tiles", "keys", "bbox_min", "inv_cell", "radius_sqr"):
@@ -2913,8 +2916,104 @@ def test_cuda_middle_input_checks(cuda_device):
         sel.select_gather_cuda(rec, None, order.int(), 100)
     with pytest.raises(ValueError):
         sel.select_gather_cuda(rec, None, order, 10)
+    pos4 = torch.zeros((200, 4), device=cuda_device)
+    box = torch.zeros(6, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        mg.photon_grid(rec, count, radius, None)
+        mg.photon_grid(rec, count, radius, None, pos4)
+    with pytest.raises(ValueError):
+        mg.photon_grid(rec, count, radius, box, None)
+    with pytest.raises(ValueError):
+        mg.grid_keys_cuda(rec, count, box, radius)
+    with pytest.raises(ValueError):
+        mg.grid_keys_cuda(pos4.view(-1)[1:797].view(199, 4), count, box,
+                          radius)
     with pytest.raises(TypeError):
-        mg.grid_keys_cuda(rec, count.long(), torch.zeros(
-            6, dtype=torch.int32, device=cuda_device), radius)
+        mg.grid_keys_cuda(pos4, count.long(), box, radius)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap", [(0, 4099), (5000, 4099), (3001, 4099),
+                                   (1, 1), (300, 257)],
+                         ids=["kept_0", "kept_rows", "ragged", "one_row",
+                              "ragged_small"])
+def test_cuda_gather_column_feeds_the_keys(cuda_device, n, cap):
+    """The gather's position column and the grid's keys read from it,
+    against their plain versions bit for bit, at row counts that are not
+    a multiple of the blocks (the gather's 256 words, the keys' 256
+    photons), with no kept row and every row kept: the column is the
+    rows' pos and a zero, zero past the kept rows, and the keys, bbox_min,
+    inv_cell and radius_sqr equal grid_keys_plain's fed from it and from
+    the rows."""
+    from imbatracer_torch.ops import merge as mg
+    from imbatracer_torch.ops import select as sel
+
+    rec, bounds = _select_rows(n, 8000, 3 * n + cap, cuda_device)
+    rec[:, 0:3] *= 3.0
+    b = sel.key_bits(bounds["paths"], bounds["lengths"])
+    b1 = sel.key_bits(bounds["lengths"], bounds["paths"])
+    k1 = sel.select_keys_cuda(rec, n, None, sel.SHALLOW, b1)
+    order1 = torch.sort(k1, stable=True)[1][:cap]
+    kept = min(n, cap)
+    k2 = sel.select_keys_cuda(rec, kept, order1, sel.CANONICAL, b)
+    order2 = torch.sort(k2, stable=True)[1]
+    out, box, pos4 = sel.select_gather_cuda(rec, order1, order2, cap)
+    ref, _, ref_pos4 = sel.select_gather_plain(rec, order1, order2, cap)
+    assert pos4.shape == (cap, 4) and _bit_equal(pos4, ref_pos4)
+    assert _bit_equal(pos4[:, 0:3], out[:, 0:3]) and not pos4[:, 3].any()
+    assert not pos4[kept:].any()
+    count = torch.tensor(kept, dtype=torch.int32, device=cuda_device)
+    valid = torch.arange(cap, device=cuda_device) < count
+    radius = torch.tensor(0.02, device=cuda_device)
+    got = mg.grid_keys_cuda(pos4, count, box, radius)
+    for pos in (ref_pos4[:, 0:3], ref[:, 0:3]):
+        want = mg.grid_keys_plain(pos, valid, radius)
+        for g, w in zip(got, want + (radius * radius,)):
+            assert _bit_equal(g, w)
+
+
+def _light_band(scene, kind, lanes, lpc):
+    """The first path of a band of `lanes` paths of one light kind
+    ("area", "env"), or of one straddling the last two lights ("mixed"):
+    the light pick splits path ids uniformly over the lights."""
+    from imbatracer_torch.render import lights as tl
+
+    kinds = scene.lights.kind.tolist()
+    num = len(kinds)
+    if kind == "mixed":
+        return -(-(num - 1) * lpc // num) - lanes // 2
+    j = kinds.index(tl.LIGHT_ENV if kind == "env" else tl.LIGHT_TRI)
+    first, last = -(-j * lpc // num), -(-(j + 1) * lpc // num)
+    assert last - first >= lanes
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 127, 129, 3001, 70001])
+@pytest.mark.parametrize("band", ["area", "env", "mixed", "empty"])
+def test_cuda_light_start_on_seeded_bands(cuda_device, band, lanes):
+    """vcm_light_start_kernel against light_start_plain at phase 4b's
+    gates on bands of the still life's area light alone, its environment
+    alone, one straddling two lights, and an empty one (every lane past
+    the band's end), at lane counts that are not a multiple of the block
+    or of the lanes a thread; the path start and end as pointers, as the
+    graphed light band passes them."""
+    from imbatracer_torch.ops import vcm_shade as vs
+    from torch_shade_cases import port_scene
+
+    scene, meta = port_scene("still_life", cuda_device)
+    cam, fi = _vcm_inputs(scene, meta, cuda_device)
+    lpc = 1 << 20
+    first = _light_band(scene, "area" if band == "empty" else band, lanes,
+                        lpc)
+    start = torch.tensor(first, dtype=torch.int32, device=cuda_device)
+    end = start + (0 if band == "empty" else lanes)
+    kw = dict(lanes=lanes, light_path_count=lpc, path_start=start,
+              path_end=end)
+    vs.reset_launches()
+    k = vs.light_start_cuda(scene, fi.frame, fi.mis_eta_vc, **kw)
+    p = vs.light_start_plain(scene, fi.frame, fi.mis_eta_vc, **kw)
+    _hold_vcm_columns(k, p)
+    assert vs.LAUNCHES["light_start"] == 1
+    assert bool(k["active"].any()) == (band != "empty")
+    if band == "mixed" and lanes > 1:
+        assert len(set(k["finite"].tolist())) == 2

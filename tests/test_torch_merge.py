@@ -121,6 +121,43 @@ def test_build_merge_grid_bit_equal(radius, spread):
     assert p.tiles.shape == (4, tmerge.PREC_ROWS, tmerge.PT)
 
 
+@pytest.mark.parametrize("count", [0, 900, 437, -1],
+                         ids=["none", "all", "some", "max_face"])
+def test_grid_keys_from_a_position_column(count):
+    """grid_keys_plain fed from a (P, 4) position column as the card's
+    selection writes it (pos and a zero, zero past the count): keys
+    (stably sorted and padded to whole tiles), bbox_min and inv_cell
+    equal JAX's build_merge_grid of the photons bit for bit, with no
+    photon valid, all, some, and (-1) half of them with a tenth on the
+    box's maximum face."""
+    rs = np.random.RandomState(17)
+    pos = (2.0 * rs.rand(900, 3) - 0.5).astype(np.float32)
+    if count < 0:
+        count = 450
+        pos[:45] = pos[:count].max(axis=0)
+    valid = np.arange(900) < count
+    col = np.zeros((900, 4), np.float32)
+    col[:count, 0:3] = pos[:count]
+    one = np.ones((900, 3), np.float32)
+    for radius in (0.07, 1.5):
+        j = jmerge.build_merge_grid(
+            jnp.asarray(pos), jnp.asarray(valid), jnp.float32(radius),
+            jnp.asarray(one), jnp.asarray(one), jnp.asarray(one[:, 0]),
+            jnp.asarray(one[:, 0]))
+        key, bbox_min, inv_cell = tmerge.grid_keys_plain(
+            torch.from_numpy(col)[:, 0:3], torch.from_numpy(valid),
+            torch.tensor(radius, dtype=torch.float32))
+        pad = torch.full((-900 % tmerge.PT,), tmerge.PAD_KEY,
+                         dtype=torch.int32)
+        keys = torch.cat([torch.sort(key, stable=True)[0], pad])
+        for name, a in (("keys", keys), ("bbox_min", bbox_min),
+                        ("inv_cell", inv_cell)):
+            b = np.array(getattr(j, name))
+            assert a.numpy().dtype == b.dtype and a.shape == b.shape, name
+            np.testing.assert_array_equal(a.numpy().view(np.uint32),
+                                          b.view(np.uint32), err_msg=name)
+
+
 @pytest.mark.parametrize("kinds,ppm", [((0,), False), ((0, 3, 4, 5), False),
                                        ((0,), True), ((0, 3, 4, 5), True)])
 def test_merge_contrib_matches_pallas(kinds, ppm):

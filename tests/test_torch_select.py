@@ -79,6 +79,17 @@ def _assert_grid(port, ref):
         np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=name)
 
 
+def _assert_column(cache):
+    """The plain gather's (rows, 4) position column: the kept rows' pos
+    and a zero, zero past the count."""
+    kept = int(cache.count)
+    col = cache.pos4.numpy()
+    assert col.shape == (cache.capacity, tsel.POS_W)
+    np.testing.assert_array_equal(_bits(col[:kept, 0:3]),
+                                  _bits(cache.packed().numpy()[:kept, 0:3]))
+    assert not col[:, 3].any() and not col[kept:].any()
+
+
 def _jax_grid(cache, radius):
     valid = jnp.arange(cache.capacity) < cache.count
     return jmerge.build_merge_grid(cache.pos, valid, jnp.float32(radius),
@@ -101,9 +112,46 @@ def test_plain_selection_and_grid_match_jax(n, cap, bounds):
         got = tlc.select_shallowest(t, cap, count=count, **bounds)
         _assert_rows(got, jsel)
         assert got.box is None                 # the plain gather's
+        _assert_column(got)
     _assert_grid(tvcm.photon_grid(got, 0.07), _jax_grid(jsel, 0.07))
     if cap >= NUM_C:
         _assert_rows(tlc.canonicalize(t), jlc.canonicalize(j))
+
+
+@pytest.mark.parametrize("n,cap,face", [(0, 400, False), (400, 400, False),
+                                        (550, 400, False), (250, 400, False),
+                                        (250, 400, True)],
+                         ids=["count_0", "count_rows", "cut_to_rows",
+                              "count_below_rows", "max_face"])
+def test_grid_keys_from_the_column_match_jax(n, cap, face):
+    """grid_keys_plain fed from the selection's position column: its
+    keys (after the stable sort, padded to whole tiles), bbox_min and
+    inv_cell equal JAX's build_merge_grid of the selected cache bit for
+    bit, with no photon, every row a photon, fewer photons than rows,
+    and (`face`) a tenth of the photons on the box's maximum face, where
+    the cell of the maximum coordinate is clamped."""
+    rows = _rows(np.random.RandomState(20 + n + face), n)
+    if face:
+        rows[: n // 10, 0:3] = rows[:, 0:3].max(axis=0)
+    j = jlc.append_packed(jlc.empty_cache(NUM_C), jnp.ones(n, bool),
+                          jnp.asarray(rows))
+    t = tlc.from_rows(torch.from_numpy(rows), NUM_C)
+    got = tlc.select_shallowest(t, cap, count=n, **BOUNDS)
+    _assert_column(got)
+    for radius in (0.07, 2.0):
+        ref = _jax_grid(jlc.select_shallowest(j, cap), radius)
+        valid = torch.arange(cap) < got.count
+        key, bbox_min, inv_cell = tmerge.grid_keys_plain(
+            got.pos4[:, 0:3], valid, torch.tensor(radius))
+        pad = torch.full((-cap % tmerge.PT,), tmerge.PAD_KEY,
+                         dtype=torch.int32)
+        keys = torch.cat([torch.sort(key, stable=True)[0], pad])
+        for name, a in (("keys", keys), ("bbox_min", bbox_min),
+                        ("inv_cell", inv_cell)):
+            b = np.array(getattr(ref, name))
+            assert a.numpy().dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(b),
+                                          err_msg=name)
 
 
 def test_key_width_follows_the_bounds():
@@ -231,7 +279,14 @@ def test_binding_matches_the_kernels():
     assert (grid["kRecW"], grid["kGrid"], grid["kPT"], grid["kRows"]) == (
         tmerge.REC_W, tmerge.GRID, tmerge.PT, tmerge.PREC_ROWS)
     with open(f"{libbuild.CSRC}/grid_build.cu") as fh:
-        assert "kPadKey = 1 << 25;" in fh.read() and tmerge.PAD_KEY == 1 << 25
+        src = fh.read()
+    assert "kPadKey = 1 << 25;" in src and tmerge.PAD_KEY == 1 << 25
+    # The position column: (rows, 4) float4 words, written by the gather
+    # and read by the grid's keys.
+    assert tsel.POS_W == tmerge.POS_W == 4
+    assert "grid_keys_kernel(const float4* pos," in src
+    with open(f"{libbuild.CSRC}/select.cu") as fh:
+        assert "unsigned* box, float4* pos)" in fh.read()
 
 
 def test_cpu_tensors_never_build_the_kernels(monkeypatch):

@@ -630,6 +630,77 @@ def test_light_start_pads_past_the_band_end(scenes):
     assert len(set(full["d_vc"].numpy()[full["active"].numpy()] == 0.0)) == 2
 
 
+def _jax_light_head(js, frame, eta_vc, lanes, start, lpc):
+    """The carry JAX's `_light_pass` builds before its loop (vcm.py
+    :147-174, with its own rng, sample_emit and mis_pow), for `lanes`
+    paths from `start` of `lpc`."""
+    num_lights = js.lights.kind.shape[0]
+    pick = 1.0 / num_lights
+    path_id = start + jnp.arange(lanes, dtype=jnp.int32)
+    state = jvcm.rng_mod.seed(path_id, frame, jnp.uint32(0x1157A9))
+    light_idx = (path_id * num_lights) // lpc
+    state, (u1, u2, u3, u4) = jvcm.rng_mod.next_floats(state, 4)
+    es = jvcm.light_mod.sample_emit(js.lights, light_idx, u1, u2, u3, u4,
+                                    js.bsphere, js.env, kinds=js.light_kinds)
+    d_vc = jnp.where(es.is_delta, 0.0, jvcm.mis_pow(
+        es.cos_out / jnp.maximum(es.pdf_emit_w * pick, 1e-20)))
+    return dict(
+        org=es.pos, d=es.dir, throughput=es.radiance / pick,
+        active=(es.pdf_emit_w > 0.0) & jnp.any(es.radiance != 0.0, axis=-1),
+        finite=es.is_finite, d_vc=d_vc, d_vm=d_vc * eta_vc,
+        d_vcm=jvcm.mis_pow(es.pdf_direct_a / jnp.maximum(es.pdf_emit_w,
+                                                         1e-20)),
+        state=state, path_id=path_id)
+
+
+# (scene, light kind or a pair of lights the band straddles, lanes): a
+# band of each light kind, and one across two lights of other kinds at a
+# ragged lane count.
+LIGHT_HEADS = [("cornell", 0, 100), ("delta_lights", 1, 100),
+               ("delta_lights", 3, 100), ("delta_lights", 2, 100),
+               ("still_life", 4, 100), ("delta_lights", (1, 2), 77),
+               ("still_life", (1, 2), 131)]
+
+
+@pytest.mark.parametrize("name,kind,lanes", LIGHT_HEADS,
+                         ids=["tri", "point", "spot", "dir", "env",
+                              "tri_point", "tri_env"])
+def test_light_start_matches_jax_head(name, kind, lanes, scenes):
+    """light_start_plain (the kernel's plain version) against the head
+    of JAX's `_light_pass` on a band of one light kind, or straddling two
+    lights: the integer columns, the flags and the RNG state equal, the
+    floats within REL."""
+    js, ts, _ = scenes[name]
+    kinds = ts.lights.kind.tolist()
+    lpc = 1 << 12
+    num = len(kinds)
+    if isinstance(kind, tuple):
+        j = kind[1]
+        assert kinds[kind[0]] != kinds[j] and j == kind[0] + 1
+        start = -(-j * lpc // num) - lanes // 2
+    else:
+        j = kinds.index(kind)
+        start = -(-j * lpc // num)
+        assert -(-(j + 1) * lpc // num) - start >= lanes
+    _, _, _, eta_vc, _ = _constants("vcm")
+    got = vs.light_start_plain(ts, torch.tensor(FRAME), eta_vc, lanes=lanes,
+                               light_path_count=lpc, path_start=start)
+    want = _jax_light_head(js, jnp.uint32(FRAME), float(eta_vc), lanes,
+                           start, lpc)
+    for k in ("active", "finite", "path_id"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    np.testing.assert_array_equal(
+        got["state"].numpy(),
+        np.asarray(want["state"]).astype(np.int64), err_msg="state")
+    for k in ("org", "d", "throughput", "d_vc", "d_vcm", "d_vm"):
+        _close(got[k].numpy(), np.asarray(want[k]), k)
+    np.testing.assert_array_equal(got["tmin"].numpy(), np.float32(1e-3))
+    picked = set((got["path_id"] * num // lpc).tolist())
+    assert picked == ({j - 1, j} if isinstance(kind, tuple) else {j})
+    assert got["active"].any()
+
+
 def _enum(src, name):
     body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
