@@ -48,9 +48,10 @@
 // row, light rows and cache rows, its outputs) against one BSDF sample,
 // one or two BSDF evaluations per NEE sample and connection, and one light
 // sample; the branches by material and light kind diverge within a warp.
-// The light start and the finish kernels are the plain design, a lane a
-// thread, registers only; the two bounces, redesigned for Hopper, work in
-// two phases a block (the note above the light bounce).
+// The finish kernels are the plain design, a lane a thread, registers
+// only; the two bounces, redesigned for Hopper, work in two phases a block
+// (the note above the light bounce); the light start, redesigned for
+// Hopper, writes its (R, 3) columns as 16-byte words (the note above it).
 //
 // Numerics: see shading.cuh.  Built with --fmad=false.
 
@@ -274,19 +275,62 @@ __device__ __forceinline__ void store_next(const Args& a, int i,
 }
 
 // ---------------------------------------------------------------------------
-// The light band's start: vcm.py::_light_pass before its loop.
+// The light band's start: vcm.py::_light_pass before its loop (imbatracer_tpu/
+// render/integrators/vcm.py:142-170), redesigned for Hopper.
+//
+// A lane's work is a chain of arithmetic with few loads: the seed hash and
+// four draws, the light pick (an int32 product and floor division), the
+// light's row (uniform across most warps), sample_emit (for the
+// environment two binary searches over its CDFs and its texel and pdf
+// reads), then 66 B of outputs.  Measured alone (scripts/redesign_ab.py
+// --split, 262,144-lane still-life bands; NVIDIA H100 80GB HBM3, 700.00
+// W): an empty launch of the same grid takes ~3 us, the loads and
+// sample_emit with one 4-byte store a lane ~6.5 us on the area light's
+// bands and ~13.5 on the environment's, against 9.8 and 15.4 for the plain
+// lane-a-thread kernel.  So the body bounds the environment's bands, and
+// the stores a third of the area light's: written a lane a thread, each of
+// the three (R, 3) columns is three 4-byte stores 12 bytes apart, nine
+// store instructions a warp that touch 12 sectors each.
+//
+// Here a full warp moves its lanes' (x, y, z) by shuffles so that lanes
+// 0-23 each write one 16-byte word of the warp's 96-float slab of a
+// column: three store instructions a warp instead of nine.  Shuffles, not
+// shared memory: staging in shared memory (a block's columns or a warp's,
+// with or without a barrier) lost 3-7% on the environment's bands, whose
+// tables the plain kernel's L1 holds (an inference: not traced, the
+// carve-out the shared memory takes).  The other columns are one
+// coalesced store a lane, as before; a warp at the band's ragged end (or
+// an unaligned column) writes a lane a thread.  Built for 12 resident
+// blocks of 128 (40 registers, as the plain kernel): every value is
+// computed by the same operations in the same order, so the outputs are
+// the plain kernel's bit for bit.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kBlk)
-    vcm_light_start_kernel(const __grid_constant__ Args a) {
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  if (i >= a.i[I_LANES]) return;
-  const int* start_p = in<int>(a, P_PATH_START);
-  const int start = start_p ? *start_p : a.i[I_PATH_START];
+// The environment's CDF search in the light start (shading.cuh
+// cdf_search): kStartRounds rounds of kStartProbes loads issued together,
+// then upper_bound.
+constexpr int kStartProbes = 7;
+constexpr int kStartRounds = 1;
+
+// A light lane's start: the next carry's values.
+struct StartOut {
+  V3 pos, dir, thr;
+  float d_vc, d_vcm, d_vm;
+  uint32_t st;
+  int path_id;
+  bool active, finite;
+};
+
+// The start of lane i of the band from path `start`: the seed, the light
+// pick, sample_emit and the initial partial weights; `end` the band's end
+// (INT_MAX for none), `eta_vc` the frame's MIS constant.
+template <int Probes, int Rounds>
+__device__ __forceinline__ StartOut start_lane(const Args& a, int i,
+                                               int start, uint32_t frame,
+                                               int end, float eta_vc) {
+  StartOut o;
   const int path_id = start + i;
   const int num_lights = a.i[I_LIGHTS];
-  const uint32_t frame =
-      static_cast<uint32_t>(*in<int64_t>(a, P_FRAME));
   uint32_t st = seed(static_cast<uint32_t>(path_id), frame, 0x1157A9u);
   // The uniform split of the global path index over the lights, in int32.
   int light_idx = floor_div(int32_mul(path_id, num_lights), a.i[I_LPC]);
@@ -296,27 +340,101 @@ __global__ void __launch_bounds__(kBlk)
   const float u2 = next_float(st);
   const float u3 = next_float(st);
   const float u4 = next_float(st);
-  const EmitSample es =
-      sample_emit(in<float>(a, P_LIGHT_REC) + 24 * light_idx, u1, u2, u3, u4,
-                  env_of(a), a.i[I_HAS_ENV] != 0, bsphere_of(a));
-  const float d_vc =
-      es.is_delta ? 0.f
-                  : es.cos_out / clamp_min(es.pdf_emit_w * a.f[F_PICK], F(1e-20));
-  bool active = es.pdf_emit_w > 0.f && any_nonzero(es.radiance);
-  const int* end_p = in<int>(a, P_PATH_END);
-  if (end_p) active = active && path_id < *end_p;
-  store3(out<float>(a, P_O_ORG) + 3 * i, es.pos);
-  store3(out<float>(a, P_O_D) + 3 * i, es.dir);
+  const EmitSample es = sample_emit<Probes, Rounds>(
+      in<float>(a, P_LIGHT_REC) + 24 * light_idx, u1, u2, u3, u4, env_of(a),
+      a.i[I_HAS_ENV] != 0, bsphere_of(a));
+  o.d_vc = es.is_delta ? 0.f
+                       : es.cos_out /
+                             clamp_min(es.pdf_emit_w * a.f[F_PICK], F(1e-20));
+  o.active = es.pdf_emit_w > 0.f && any_nonzero(es.radiance) &&
+             path_id < end;
+  o.pos = es.pos;
+  o.dir = es.dir;
+  o.thr = scale(es.radiance, a.f[F_INV_PICK]);
+  o.d_vcm = es.pdf_direct_a / clamp_min(es.pdf_emit_w, F(1e-20));
+  o.d_vm = o.d_vc * eta_vc;
+  o.st = st;
+  o.path_id = path_id;
+  o.finite = es.is_finite;
+  return o;
+}
+
+// Lane i's columns but the (R, 3) ones.
+__device__ __forceinline__ void store_start_scalars(const Args& a, int i,
+                                                    const StartOut& o) {
   out<float>(a, P_O_TMIN)[i] = F(1e-3);
-  store3(out<float>(a, P_O_THR) + 3 * i, scale(es.radiance, a.f[F_INV_PICK]));
-  out<uint8_t>(a, P_O_ACTIVE)[i] = active;
-  out<float>(a, P_O_D_VC)[i] = d_vc;
-  out<float>(a, P_O_D_VCM)[i] =
-      es.pdf_direct_a / clamp_min(es.pdf_emit_w, F(1e-20));
-  out<float>(a, P_O_D_VM)[i] = d_vc * *in<float>(a, P_MIS_ETA_VC);
-  out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(st);
-  out<uint8_t>(a, P_O_FINITE)[i] = es.is_finite;
-  out<int>(a, P_O_PATH_ID)[i] = path_id;
+  out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
+  out<float>(a, P_O_D_VC)[i] = o.d_vc;
+  out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
+  out<float>(a, P_O_D_VM)[i] = o.d_vm;
+  out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
+  out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
+  out<int>(a, P_O_PATH_ID)[i] = o.path_id;
+}
+
+// The component of its (x, y, z) that lane s sends for slot j of the
+// 16-byte words of a warp's 96-float (R, 3) slab: word q holds floats
+// 4q .. 4q + 3, float e is lane e / 3's component e % 3, and for a fixed j
+// at most one word takes a float of lane s (any component where none does).
+__device__ __forceinline__ int slab_comp(int s, int j) {
+  const int q = (3 * s + 2 - j) >> 2;
+  const int c = 4 * q + j - 3 * s;
+  return c >= 0 && c <= 2 ? c : 0;
+}
+
+// A full warp's (R, 3) column out to dst, its 96 floats 16-byte aligned,
+// as 24 16-byte words: every lane calls it with its own (x, y, z).
+__device__ __forceinline__ void warp_store3(float* dst, V3 v, int lane) {
+  float w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = slab_comp(lane, j);
+    const float mine = c == 0 ? v.x : c == 1 ? v.y : v.z;
+    w[j] = __shfl_sync(0xffffffffu, mine, (4 * lane + j) / 3);
+  }
+  if (lane < 24)
+    reinterpret_cast<float4*>(dst)[lane] = make_float4(w[0], w[1], w[2], w[3]);
+}
+
+template <int Probes, int Rounds>
+__global__ void __launch_bounds__(kBlk, 12)
+    vcm_light_start_kernel(const __grid_constant__ Args a) {
+  const int i = blockIdx.x * kBlk + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int lanes = a.i[I_LANES];
+  const int wbase = i - lane;
+  if (wbase >= lanes) return;
+  const int* start_p = in<int>(a, P_PATH_START);
+  const int start = start_p ? *start_p : a.i[I_PATH_START];
+  const int* end_p = in<int>(a, P_PATH_END);
+  const int end = end_p ? *end_p : 0x7fffffff;
+  const uint32_t frame = static_cast<uint32_t>(*in<int64_t>(a, P_FRAME));
+  const float eta_vc = *in<float>(a, P_MIS_ETA_VC);
+  float* org = out<float>(a, P_O_ORG);
+  float* dir = out<float>(a, P_O_D);
+  float* thr = out<float>(a, P_O_THR);
+  // Warp-uniform: a full warp whose columns take 16-byte words.
+  const bool words = lanes - wbase >= 32 &&
+                     ((reinterpret_cast<uintptr_t>(org) |
+                       reinterpret_cast<uintptr_t>(dir) |
+                       reinterpret_cast<uintptr_t>(thr)) & 15) == 0;
+  if (!words) {
+    if (i >= lanes) return;
+    const StartOut o =
+        start_lane<Probes, Rounds>(a, i, start, frame, end, eta_vc);
+    store3(org + 3 * i, o.pos);
+    store3(dir + 3 * i, o.dir);
+    store3(thr + 3 * i, o.thr);
+    store_start_scalars(a, i, o);
+    return;
+  }
+  const StartOut o =
+      start_lane<Probes, Rounds>(a, i, start, frame, end, eta_vc);
+  store_start_scalars(a, i, o);
+  const int64_t b3 = 3 * static_cast<int64_t>(wbase);
+  warp_store3(org + b3, o.pos, lane);
+  warp_store3(dir + b3, o.dir, lane);
+  warp_store3(thr + b3, o.thr, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -625,560 +743,6 @@ __device__ void write_light_out(const Args& a, const LightOut& o,
     out<float>(a, P_S_TMIN)[base + k] = o.s_tmin[k];
     out<float>(a, P_S_TMAX)[base + k] = o.s_tmax[k];
     out<uint8_t>(a, P_S_OK)[base + k] = o.s_ok[k];
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// Split variants of the light band's start (measuring only; the launch's
-// `bounce` int picks one: 1 stores only, 2 loads and sample_emit only,
-// 3 empty, 4 staged, 5 staged with the block's scalars, 6 one wave of
-// two lanes a thread, 7 staged one wave of two lanes a thread).
-// ---------------------------------------------------------------------------
-
-struct StartOut {
-  V3 pos, dir, thr;
-  float d_vc, d_vcm, d_vm;
-  uint32_t st;
-  int path_id;
-  bool active, finite;
-};
-
-// The start's values of lane i, the kept kernel's operations in its
-// order; `end` INT_MAX without a band end.
-__device__ __forceinline__ StartOut start_lane(const Args& a, int i,
-                                               int start, uint32_t frame,
-                                               int end, float eta_vc) {
-  StartOut o;
-  const int path_id = start + i;
-  const int num_lights = a.i[I_LIGHTS];
-  uint32_t st = seed(static_cast<uint32_t>(path_id), frame, 0x1157A9u);
-  int light_idx = floor_div(int32_mul(path_id, num_lights), a.i[I_LPC]);
-  light_idx = light_idx > num_lights - 1 ? num_lights - 1 : light_idx;
-  light_idx = light_idx < 0 ? 0 : light_idx;
-  const float u1 = next_float(st);
-  const float u2 = next_float(st);
-  const float u3 = next_float(st);
-  const float u4 = next_float(st);
-  const EmitSample es =
-      sample_emit(in<float>(a, P_LIGHT_REC) + 24 * light_idx, u1, u2, u3, u4,
-                  env_of(a), a.i[I_HAS_ENV] != 0, bsphere_of(a));
-  o.d_vc = es.is_delta ? 0.f
-                       : es.cos_out /
-                             clamp_min(es.pdf_emit_w * a.f[F_PICK], F(1e-20));
-  o.active = es.pdf_emit_w > 0.f && any_nonzero(es.radiance) &&
-             path_id < end;
-  o.pos = es.pos;
-  o.dir = es.dir;
-  o.thr = scale(es.radiance, a.f[F_INV_PICK]);
-  o.d_vcm = es.pdf_direct_a / clamp_min(es.pdf_emit_w, F(1e-20));
-  o.d_vm = o.d_vc * eta_vc;
-  o.st = st;
-  o.path_id = path_id;
-  o.finite = es.is_finite;
-  return o;
-}
-
-__device__ __forceinline__ void store_start(const Args& a, int i,
-                                            const StartOut& o) {
-  store3(out<float>(a, P_O_ORG) + 3 * i, o.pos);
-  store3(out<float>(a, P_O_D) + 3 * i, o.dir);
-  out<float>(a, P_O_TMIN)[i] = F(1e-3);
-  store3(out<float>(a, P_O_THR) + 3 * i, o.thr);
-  out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
-  out<float>(a, P_O_D_VC)[i] = o.d_vc;
-  out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
-  out<float>(a, P_O_D_VM)[i] = o.d_vm;
-  out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
-  out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
-  out<int>(a, P_O_PATH_ID)[i] = o.path_id;
-}
-
-__device__ __forceinline__ int start_of(const Args& a) {
-  const int* p = in<int>(a, P_PATH_START);
-  return p ? *p : a.i[I_PATH_START];
-}
-__device__ __forceinline__ int end_of(const Args& a) {
-  const int* p = in<int>(a, P_PATH_END);
-  return p ? *p : 0x7fffffff;
-}
-__device__ __forceinline__ uint32_t frame_of(const Args& a) {
-  return static_cast<uint32_t>(*in<int64_t>(a, P_FRAME));
-}
-
-// 1: the emission sample's columns loaded from the carry-in slots (pos
-// org, dir d, radiance throughput, cos_out d_vc, pdf_emit_w d_vcm,
-// pdf_direct_a d_vm, is_finite finite, is_delta active), the rest as kept.
-__global__ void __launch_bounds__(kBlk)
-    start_stores_kernel(const __grid_constant__ Args a) {
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  if (i >= a.i[I_LANES]) return;
-  const int path_id = start_of(a) + i;
-  uint32_t st = seed(static_cast<uint32_t>(path_id), frame_of(a), 0x1157A9u);
-  for (int k = 0; k < 4; ++k) next_float(st);
-  EmitSample es;
-  es.pos = load3(in<float>(a, P_ORG) + 3 * i);
-  es.dir = load3(in<float>(a, P_D) + 3 * i);
-  es.radiance = load3(in<float>(a, P_THR) + 3 * i);
-  es.cos_out = in<float>(a, P_D_VC)[i];
-  es.pdf_emit_w = in<float>(a, P_D_VCM)[i];
-  es.pdf_direct_a = in<float>(a, P_D_VM)[i];
-  es.is_finite = in<uint8_t>(a, P_FINITE)[i] != 0;
-  es.is_delta = in<uint8_t>(a, P_ACTIVE)[i] != 0;
-  StartOut o;
-  o.d_vc = es.is_delta ? 0.f
-                       : es.cos_out /
-                             clamp_min(es.pdf_emit_w * a.f[F_PICK], F(1e-20));
-  o.active = es.pdf_emit_w > 0.f && any_nonzero(es.radiance) &&
-             path_id < end_of(a);
-  o.pos = es.pos;
-  o.dir = es.dir;
-  o.thr = scale(es.radiance, a.f[F_INV_PICK]);
-  o.d_vcm = es.pdf_direct_a / clamp_min(es.pdf_emit_w, F(1e-20));
-  o.d_vm = o.d_vc * *in<float>(a, P_MIS_ETA_VC);
-  o.st = st;
-  o.path_id = path_id;
-  o.finite = es.is_finite;
-  store_start(a, i, o);
-}
-
-// 2: every load and sample_emit, one coalesced 4-byte store a lane (a sum
-// of the outputs, so that nothing is left out).
-__global__ void __launch_bounds__(kBlk)
-    start_compute_kernel(const __grid_constant__ Args a) {
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  if (i >= a.i[I_LANES]) return;
-  const StartOut o = start_lane(a, i, start_of(a), frame_of(a), end_of(a),
-                                *in<float>(a, P_MIS_ETA_VC));
-  const float sum = ((((o.pos.x + o.pos.y) + (o.pos.z + o.dir.x)) +
-                      ((o.dir.y + o.dir.z) + (o.thr.x + o.thr.y))) +
-                     ((o.thr.z + o.d_vc) + (o.d_vcm + o.d_vm))) +
-                    __uint_as_float(o.st ^ (o.active ? 1u : 0u) ^
-                                    (o.finite ? 2u : 0u) ^
-                                    static_cast<uint32_t>(o.path_id));
-  out<float>(a, P_O_TMIN)[i] = sum;
-}
-
-// 3: nothing.
-__global__ void __launch_bounds__(kBlk)
-    start_empty_kernel(const __grid_constant__ Args a) {}
-
-// The staged (R, 3) columns of a block's lanes.
-struct __align__(16) StartStage {
-  float org[3 * kBlk], d[3 * kBlk], thr[3 * kBlk];
-};
-
-// 4 / 5: the (R, 3) columns staged in shared memory and written by the
-// block as 16-byte words; the others a lane a thread.  BlockScalars: the
-// path start and end, the frame and the MIS constant read by thread 0
-// into shared memory.
-template <bool BlockScalars>
-__global__ void __launch_bounds__(kBlk)
-    start_staged_kernel(const __grid_constant__ Args a) {
-  __shared__ StartStage sg;
-  __shared__ int sh_i[2];
-  __shared__ uint32_t sh_frame;
-  __shared__ float sh_eta;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlk;
-  const int lanes = a.i[I_LANES];
-  const int n = static_cast<int>(lanes - base < kBlk ? lanes - base : kBlk);
-  const int k = threadIdx.x;
-  const int i = static_cast<int>(base) + k;
-  int start, end;
-  uint32_t frame;
-  float eta;
-  if (BlockScalars) {
-    if (k == 0) {
-      sh_i[0] = start_of(a);
-      sh_i[1] = end_of(a);
-      sh_frame = frame_of(a);
-      sh_eta = *in<float>(a, P_MIS_ETA_VC);
-    }
-    __syncthreads();
-    start = sh_i[0];
-    end = sh_i[1];
-    frame = sh_frame;
-    eta = sh_eta;
-  } else {
-    start = start_of(a);
-    end = end_of(a);
-    frame = frame_of(a);
-    eta = *in<float>(a, P_MIS_ETA_VC);
-  }
-  if (k < n) {
-    const StartOut o = start_lane(a, i, start, frame, end, eta);
-    stage3(sg.org, k, o.pos);
-    stage3(sg.d, k, o.dir);
-    stage3(sg.thr, k, o.thr);
-    out<float>(a, P_O_TMIN)[i] = F(1e-3);
-    out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
-    out<float>(a, P_O_D_VC)[i] = o.d_vc;
-    out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
-    out<float>(a, P_O_D_VM)[i] = o.d_vm;
-    out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
-    out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
-    out<int>(a, P_O_PATH_ID)[i] = o.path_id;
-  }
-  __syncthreads();
-  copy_out(out<float>(a, P_O_ORG) + 3 * base, sg.org, 3 * n);
-  copy_out(out<float>(a, P_O_D) + 3 * base, sg.d, 3 * n);
-  copy_out(out<float>(a, P_O_THR) + 3 * base, sg.thr, 3 * n);
-}
-
-// 6: a grid of one wave, two lanes a thread (i and i + the grid's
-// threads), computed together; direct stores.
-__global__ void __launch_bounds__(kBlk)
-    start_wave_kernel(const __grid_constant__ Args a) {
-  const int lanes = a.i[I_LANES];
-  const int stride = gridDim.x * kBlk;
-  const int start = start_of(a), end = end_of(a);
-  const uint32_t frame = frame_of(a);
-  const float eta = *in<float>(a, P_MIS_ETA_VC);
-  for (int i = blockIdx.x * kBlk + threadIdx.x; i < lanes; i += 2 * stride) {
-    const int j = i + stride;
-    const StartOut o0 = start_lane(a, i, start, frame, end, eta);
-    if (j < lanes) {
-      const StartOut o1 = start_lane(a, j, start, frame, end, eta);
-      store_start(a, i, o0);
-      store_start(a, j, o1);
-    } else {
-      store_start(a, i, o0);
-    }
-  }
-}
-
-// 7: one wave, a block two tiles of kBlk lanes at a time, staged.
-__global__ void __launch_bounds__(kBlk)
-    start_wave_staged_kernel(const __grid_constant__ Args a) {
-  __shared__ StartStage sg[2];
-  const int lanes = a.i[I_LANES];
-  const int start = start_of(a), end = end_of(a);
-  const uint32_t frame = frame_of(a);
-  const float eta = *in<float>(a, P_MIS_ETA_VC);
-  const int k = threadIdx.x;
-  for (int64_t t = 2 * static_cast<int64_t>(blockIdx.x); t * kBlk < lanes;
-       t += 2 * gridDim.x) {
-    int n[2];
-    for (int h = 0; h < 2; ++h) {
-      const int64_t base = (t + h) * kBlk;
-      n[h] = base >= lanes ? 0
-                           : static_cast<int>(lanes - base < kBlk
-                                                  ? lanes - base : kBlk);
-    }
-    StartOut o[2];
-    for (int h = 0; h < 2; ++h)
-      if (k < n[h])
-        o[h] = start_lane(a, static_cast<int>((t + h) * kBlk) + k, start,
-                          frame, end, eta);
-    for (int h = 0; h < 2; ++h) {
-      if (k >= n[h]) continue;
-      const int i = static_cast<int>((t + h) * kBlk) + k;
-      stage3(sg[h].org, k, o[h].pos);
-      stage3(sg[h].d, k, o[h].dir);
-      stage3(sg[h].thr, k, o[h].thr);
-      out<float>(a, P_O_TMIN)[i] = F(1e-3);
-      out<uint8_t>(a, P_O_ACTIVE)[i] = o[h].active;
-      out<float>(a, P_O_D_VC)[i] = o[h].d_vc;
-      out<float>(a, P_O_D_VCM)[i] = o[h].d_vcm;
-      out<float>(a, P_O_D_VM)[i] = o[h].d_vm;
-      out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o[h].st);
-      out<uint8_t>(a, P_O_FINITE)[i] = o[h].finite;
-      out<int>(a, P_O_PATH_ID)[i] = o[h].path_id;
-    }
-    __syncthreads();
-    for (int h = 0; h < 2; ++h) {
-      const int64_t base = (t + h) * kBlk;
-      copy_out(out<float>(a, P_O_ORG) + 3 * base, sg[h].org, 3 * n[h]);
-      copy_out(out<float>(a, P_O_D) + 3 * base, sg[h].d, 3 * n[h]);
-      copy_out(out<float>(a, P_O_THR) + 3 * base, sg[h].thr, 3 * n[h]);
-    }
-    __syncthreads();
-  }
-}
-
-// Blocks of one wave of `fn` (kBlk threads, no dynamic shared memory).
-int wave_blocks(const void* fn, int lanes, int per_block) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlk, 0);
-  const int need = (lanes + per_block - 1) / per_block;
-  const int wave = sms * (per_sm > 0 ? per_sm : 1);
-  return need < wave ? need : wave;
-}
-
-
-// 8: the kept kernel's body (start_lane, store_start) built for
-// MinBlocks resident blocks of Threads threads.
-template <int Threads, int MinBlocks>
-__global__ void __launch_bounds__(Threads, MinBlocks)
-    start_bounded_kernel(const __grid_constant__ Args a) {
-  const int i = blockIdx.x * Threads + threadIdx.x;
-  if (i >= a.i[I_LANES]) return;
-  store_start(a, i, start_lane(a, i, start_of(a), frame_of(a), end_of(a),
-                               *in<float>(a, P_MIS_ETA_VC)));
-}
-
-// n floats of a warp's staged column out to dst, its lanes together:
-// 16-byte words where dst is 16-byte aligned and n a multiple of 4.
-__device__ __forceinline__ void warp_copy_out(float* dst, const float* src,
-                                              int n, int lane) {
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (n & 3) == 0) {
-    for (int q = lane; q < n / 4; q += 32)
-      reinterpret_cast<float4*>(dst)[q] =
-          reinterpret_cast<const float4*>(src)[q];
-  } else {
-    for (int q = lane; q < n; q += 32) dst[q] = src[q];
-  }
-}
-
-// 9 / 10 / 12: each warp stages its lanes' (R, 3) columns in its own
-// shared memory and writes them as 16-byte words after a __syncwarp (no
-// block barrier); the others a lane a thread.
-template <int Threads, int MinBlocks>
-__global__ void __launch_bounds__(Threads, MinBlocks)
-    start_warp_kernel(const __grid_constant__ Args a) {
-  __shared__ __align__(16) float sg[Threads / 32][3][96];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * Threads + threadIdx.x;
-  const int lanes = a.i[I_LANES];
-  const int wbase = i - lane;
-  if (wbase >= lanes) return;
-  const int n = lanes - wbase < 32 ? lanes - wbase : 32;
-  if (lane < n) {
-    const StartOut o = start_lane(a, i, start_of(a), frame_of(a), end_of(a),
-                                  *in<float>(a, P_MIS_ETA_VC));
-    stage3(sg[warp][0], lane, o.pos);
-    stage3(sg[warp][1], lane, o.dir);
-    stage3(sg[warp][2], lane, o.thr);
-    out<float>(a, P_O_TMIN)[i] = F(1e-3);
-    out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
-    out<float>(a, P_O_D_VC)[i] = o.d_vc;
-    out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
-    out<float>(a, P_O_D_VM)[i] = o.d_vm;
-    out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
-    out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
-    out<int>(a, P_O_PATH_ID)[i] = o.path_id;
-  }
-  __syncwarp();
-  const int64_t b3 = 3 * static_cast<int64_t>(wbase);
-  warp_copy_out(out<float>(a, P_O_ORG) + b3, sg[warp][0], 3 * n, lane);
-  warp_copy_out(out<float>(a, P_O_D) + b3, sg[warp][1], 3 * n, lane);
-  warp_copy_out(out<float>(a, P_O_THR) + b3, sg[warp][2], 3 * n, lane);
-}
-
-// 11: nothing, with a 256-byte argument.
-struct SmallArgs {
-  void* p[32];
-};
-__global__ void start_empty_small_kernel(const __grid_constant__ SmallArgs a) {}
-
-// 13 / 14: nothing, in blocks of Threads.
-template <int Threads>
-__global__ void __launch_bounds__(Threads)
-    start_empty_wide_kernel(const __grid_constant__ Args a) {}
-
-
-// 19: block-staged through one (3 * kBlk)-float buffer that the three
-// columns take in turn (a smaller carve-out: more L1 for the env tables).
-template <int MinBlocks>
-__global__ void __launch_bounds__(kBlk, MinBlocks)
-    start_staged1_kernel(const __grid_constant__ Args a) {
-  __shared__ __align__(16) float buf[3 * kBlk];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlk;
-  const int lanes = a.i[I_LANES];
-  const int n = static_cast<int>(lanes - base < kBlk ? lanes - base : kBlk);
-  const int k = threadIdx.x;
-  const int i = static_cast<int>(base) + k;
-  StartOut o;
-  if (k < n) {
-    o = start_lane(a, i, start_of(a), frame_of(a), end_of(a),
-                   *in<float>(a, P_MIS_ETA_VC));
-    out<float>(a, P_O_TMIN)[i] = F(1e-3);
-    out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
-    out<float>(a, P_O_D_VC)[i] = o.d_vc;
-    out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
-    out<float>(a, P_O_D_VM)[i] = o.d_vm;
-    out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
-    out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
-    out<int>(a, P_O_PATH_ID)[i] = o.path_id;
-  }
-  const int cols[3] = {P_O_ORG, P_O_D, P_O_THR};
-  for (int c = 0; c < 3; ++c) {
-    if (c) __syncthreads();
-    if (k < n) stage3(buf, k, c == 0 ? o.pos : c == 1 ? o.dir : o.thr);
-    __syncthreads();
-    copy_out(out<float>(a, cols[c]) + 3 * base, buf, 3 * n);
-  }
-}
-
-// 20 / 21: warp-staged through one 96-float buffer a warp that the three
-// columns take in turn.
-template <int MinBlocks>
-__global__ void __launch_bounds__(kBlk, MinBlocks)
-    start_warp1_kernel(const __grid_constant__ Args a) {
-  __shared__ __align__(16) float buf[kBlk / 32][96];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  const int lanes = a.i[I_LANES];
-  const int wbase = i - lane;
-  if (wbase >= lanes) return;
-  const int n = lanes - wbase < 32 ? lanes - wbase : 32;
-  StartOut o;
-  if (lane < n) {
-    o = start_lane(a, i, start_of(a), frame_of(a), end_of(a),
-                   *in<float>(a, P_MIS_ETA_VC));
-    out<float>(a, P_O_TMIN)[i] = F(1e-3);
-    out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
-    out<float>(a, P_O_D_VC)[i] = o.d_vc;
-    out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
-    out<float>(a, P_O_D_VM)[i] = o.d_vm;
-    out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
-    out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
-    out<int>(a, P_O_PATH_ID)[i] = o.path_id;
-  }
-  const int64_t b3 = 3 * static_cast<int64_t>(wbase);
-  const int cols[3] = {P_O_ORG, P_O_D, P_O_THR};
-  for (int c = 0; c < 3; ++c) {
-    __syncwarp();
-    if (lane < n) stage3(buf[warp], lane, c == 0 ? o.pos : c == 1 ? o.dir
-                                                              : o.thr);
-    __syncwarp();
-    warp_copy_out(out<float>(a, cols[c]) + b3, buf[warp], 3 * n, lane);
-  }
-}
-
-
-// The component of its (x, y, z) that lane `s` sends for slot j of the
-// 16-byte words of a warp's 96-float (R, 3) slab: word q holds floats
-// 4q .. 4q + 3, float e is lane e / 3's component e % 3, and for a fixed
-// j at most one word takes a float of lane s.
-__device__ __forceinline__ int slab_comp(int s, int j) {
-  const int q = (3 * s + 2 - j) >> 2;
-  const int c = 4 * q + j - 3 * s;
-  return c >= 0 && c <= 2 ? c : 0;
-}
-
-// A full warp's (R, 3) column out to dst (its 96 floats, 16-byte aligned)
-// as 24 16-byte words, the values moved between lanes by shuffles.
-__device__ __forceinline__ void warp_store3(float* dst, V3 v, int lane) {
-  float w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = slab_comp(lane, j);
-    const float mine = c == 0 ? v.x : c == 1 ? v.y : v.z;
-    w[j] = __shfl_sync(0xffffffffu, mine, (4 * lane + j) / 3);
-  }
-  if (lane < 24)
-    reinterpret_cast<float4*>(dst)[lane] = make_float4(w[0], w[1], w[2], w[3]);
-}
-
-// 22: 19 built for 12 resident blocks.
-// 24 / 25: the (R, 3) columns moved by shuffles and written as 16-byte
-// words by full warps; no shared memory, no barrier.
-template <int MinBlocks>
-__global__ void __launch_bounds__(kBlk, MinBlocks)
-    start_shfl_kernel(const __grid_constant__ Args a) {
-  const int i = blockIdx.x * kBlk + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int lanes = a.i[I_LANES];
-  const int wbase = i - lane;
-  if (wbase >= lanes) return;
-  const int start = start_of(a), end = end_of(a);
-  const uint32_t frame = frame_of(a);
-  const float eta = *in<float>(a, P_MIS_ETA_VC);
-  float* org = out<float>(a, P_O_ORG);
-  float* dir = out<float>(a, P_O_D);
-  float* thr = out<float>(a, P_O_THR);
-  const bool words = lanes - wbase >= 32 &&
-                     ((reinterpret_cast<uintptr_t>(org) |
-                       reinterpret_cast<uintptr_t>(dir) |
-                       reinterpret_cast<uintptr_t>(thr)) & 15) == 0;
-  if (!words) {
-    if (i < lanes) store_start(a, i, start_lane(a, i, start, frame, end, eta));
-    return;
-  }
-  const StartOut o = start_lane(a, i, start, frame, end, eta);
-  out<float>(a, P_O_TMIN)[i] = F(1e-3);
-  out<uint8_t>(a, P_O_ACTIVE)[i] = o.active;
-  out<float>(a, P_O_D_VC)[i] = o.d_vc;
-  out<float>(a, P_O_D_VCM)[i] = o.d_vcm;
-  out<float>(a, P_O_D_VM)[i] = o.d_vm;
-  out<int64_t>(a, P_O_STATE)[i] = static_cast<int64_t>(o.st);
-  out<uint8_t>(a, P_O_FINITE)[i] = o.finite;
-  out<int>(a, P_O_PATH_ID)[i] = o.path_id;
-  const int64_t b3 = 3 * static_cast<int64_t>(wbase);
-  warp_store3(org + b3, o.pos, lane);
-  warp_store3(dir + b3, o.dir, lane);
-  warp_store3(thr + b3, o.thr, lane);
-}
-
-void launch_start_more(int v, const Args& a, int lanes, cudaStream_t s) {
-  auto blocks = [lanes](int t) { return (lanes + t - 1) / t; };
-  switch (v) {
-    case 8: start_bounded_kernel<kBlk, 16><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 9: start_warp_kernel<kBlk, 1><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 10: start_warp_kernel<kBlk, 16><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 11: {
-      SmallArgs sa;
-      for (int k = 0; k < 32; ++k) sa.p[k] = a.p[k];
-      start_empty_small_kernel<<<blocks(kBlk), kBlk, 0, s>>>(sa);
-      break;
-    }
-    case 12: start_warp_kernel<256, 8><<<blocks(256), 256, 0, s>>>(a);
-      break;
-    case 13: start_empty_wide_kernel<256><<<blocks(256), 256, 0, s>>>(a);
-      break;
-    case 14: start_empty_wide_kernel<512><<<blocks(512), 512, 0, s>>>(a);
-      break;
-    case 15: start_bounded_kernel<256, 1><<<blocks(256), 256, 0, s>>>(a);
-      break;
-    case 16: start_warp_kernel<256, 1><<<blocks(256), 256, 0, s>>>(a);
-      break;
-    case 17: start_warp_kernel<kBlk, 12><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 18: start_warp_kernel<256, 6><<<blocks(256), 256, 0, s>>>(a);
-      break;
-    case 19: start_staged1_kernel<1><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 22: start_staged1_kernel<12><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 24: start_shfl_kernel<1><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 25: start_shfl_kernel<12><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 20: start_warp1_kernel<12><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    case 21: start_warp1_kernel<1><<<blocks(kBlk), kBlk, 0, s>>>(a);
-      break;
-    default: vcm_light_start_kernel<<<blocks(kBlk), kBlk, 0, s>>>(a);
-  }
-}
-
-void launch_start_variant(int v, const Args& a, int lanes, cudaStream_t s) {
-  const int blocks = (lanes + kBlk - 1) / kBlk;
-  switch (v) {
-    case 1: start_stores_kernel<<<blocks, kBlk, 0, s>>>(a); break;
-    case 2: start_compute_kernel<<<blocks, kBlk, 0, s>>>(a); break;
-    case 3: start_empty_kernel<<<blocks, kBlk, 0, s>>>(a); break;
-    case 4: start_staged_kernel<false><<<blocks, kBlk, 0, s>>>(a); break;
-    case 5: start_staged_kernel<true><<<blocks, kBlk, 0, s>>>(a); break;
-    case 6: {
-      const void* fn = reinterpret_cast<const void*>(start_wave_kernel);
-      start_wave_kernel<<<wave_blocks(fn, lanes, 2 * kBlk), kBlk, 0, s>>>(a);
-      break;
-    }
-    case 7: {
-      const void* fn =
-          reinterpret_cast<const void*>(start_wave_staged_kernel);
-      start_wave_staged_kernel<<<wave_blocks(fn, lanes, 2 * kBlk), kBlk, 0,
-                                 s>>>(a);
-      break;
-    }
-    default: launch_start_more(v, a, lanes, s);
   }
 }
 
@@ -1636,7 +1200,7 @@ int blocks_for(int lanes) { return (lanes + kBlk - 1) / kBlk; }
 const void* kernel_of(int which) {
   switch (which) {
     case K_LIGHT_START:
-      return reinterpret_cast<const void*>(vcm_light_start_kernel);
+      return reinterpret_cast<const void*>(vcm_light_start_kernel<1, 0>);
     case K_LIGHT_SHADE:
       return reinterpret_cast<const void*>(vcm_light_shade_kernel);
     case K_CAMERA_SHADE:
@@ -1668,8 +1232,18 @@ extern "C" int imba_vcm_shade(int which, void* const* ptrs, int nptrs,
   const int lanes = a.i[I_LANES];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lanes > 0) {
-    if (which == K_LIGHT_START)
-      launch_start_variant(a.i[I_BOUNCE], a, lanes, s);
+    if (which == K_LIGHT_START) {
+      const int b = blocks_for(lanes);
+      switch (a.i[I_BOUNCE]) {
+        case 1: vcm_light_start_kernel<3, 99><<<b, kBlk, 0, s>>>(a); break;
+        case 2: vcm_light_start_kernel<7, 99><<<b, kBlk, 0, s>>>(a); break;
+        case 3: vcm_light_start_kernel<7, 1><<<b, kBlk, 0, s>>>(a); break;
+        case 4: vcm_light_start_kernel<3, 2><<<b, kBlk, 0, s>>>(a); break;
+        case 5: vcm_light_start_kernel<15, 1><<<b, kBlk, 0, s>>>(a); break;
+        case 6: vcm_light_start_kernel<3, 1><<<b, kBlk, 0, s>>>(a); break;
+        default: vcm_light_start_kernel<1, 0><<<b, kBlk, 0, s>>>(a);
+      }
+    }
     else if (which == K_LIGHT_SHADE)
       vcm_light_shade_kernel<<<blocks_for(lanes), kBlk, 0, s>>>(a);
     else

@@ -35,8 +35,9 @@ rows): two hand-written kernels around the library's stable sort
 (imbatracer_tpu/ops/pallas_merge.py:135): grid_keys_kernel writes the
 cell keys from the position column the selection's gather writes and
 the scalars from the box it reduced (ops/select.py), grid_tiles_kernel
-the tiles and padded keys straight from the sorted order.  Their plain versions are grid_keys_plain and
-grid_tiles_plain, build_merge_grid's head and tail.
+the tiles and padded keys straight from the sorted order.  Their plain
+versions are grid_keys_plain and grid_tiles_plain, build_merge_grid's
+head and tail.
 
 Dispatch: `merge_contrib` (query preparation, gather), `merge_rows`
 (the gather on sorted rows) and `photon_grid` run the kernels

@@ -290,7 +290,8 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
 # where it has one; the film a launch), the selection's gather a word
 # (with the position column it writes, 16 B an output row) and the
 # grid's tiles a photon slot, the grid's keys a row (a 16-byte read of
-# the column a kept photon, and the 4-byte key of every row).  The PT bounce's NEE add (pt_shade_finish_kernel,
+# the column a kept photon, and the 4-byte key of every row).  The PT
+# bounce's NEE add (pt_shade_finish_kernel,
 # four lanes a thread in one tree, one in another) moves 38 B a lane of
 # its band -- radiance, contrib and two flags in, radiance out -- over
 # the frame's mean band (its pixels over its bands).  The slot
