@@ -388,28 +388,29 @@ __device__ __forceinline__ int upper_bound(const float* a, int n, float x) {
   return lo;
 }
 
-// upper_bound over a non-decreasing array (a CDF), its first Rounds
-// rounds with Probes loads issued together (then one load a round): a
-// round keeps the entries between the last probe <= x and the first probe
-// > x, so a wide round cuts the entries by Probes + 1 for one memory
-// latency where upper_bound's dependent loads halve them.  On a
-// non-decreasing array every such search returns the one index whose
-// entry is the first > x (n if none): upper_bound's.
-template <int Probes, int Rounds>
+// upper_bound over a non-decreasing array (a CDF), its first
+// kWideRounds rounds with kWideProbes loads issued together, then one
+// load a round: a round keeps the entries between the last probe <= x and
+// the first probe > x, so a wide round cuts the entries by
+// kWideProbes + 1 for one memory latency where upper_bound's dependent
+// loads halve them.  On a non-decreasing array every such search returns
+// the one index whose entry is the first > x (n if none): upper_bound's.
+constexpr int kWideProbes = 3;
+constexpr int kWideRounds = 2;
 __device__ __forceinline__ int upper_bound_wide(const float* a, int n,
                                                 float x) {
   int lo = 0, hi = n;
-  for (int r = 0; r < Rounds && lo < hi; ++r) {
+  for (int r = 0; r < kWideRounds && lo < hi; ++r) {
     const int span = hi - lo;
-    float v[Probes];
+    float v[kWideProbes];
 #pragma unroll
-    for (int j = 0; j < Probes; ++j)
-      v[j] = a[lo + ((j + 1) * span) / (Probes + 1)];
+    for (int j = 0; j < kWideProbes; ++j)
+      v[j] = a[lo + ((j + 1) * span) / (kWideProbes + 1)];
     int c = 0;
 #pragma unroll
-    for (int j = 0; j < Probes; ++j) c += !(v[j] > x);
-    const int next_lo = c ? lo + (c * span) / (Probes + 1) + 1 : lo;
-    if (c < Probes) hi = lo + ((c + 1) * span) / (Probes + 1);
+    for (int j = 0; j < kWideProbes; ++j) c += !(v[j] > x);
+    const int next_lo = c ? lo + (c * span) / (kWideProbes + 1) + 1 : lo;
+    if (c < kWideProbes) hi = lo + ((c + 1) * span) / (kWideProbes + 1);
     lo = next_lo;
   }
   while (lo < hi) {
@@ -420,16 +421,6 @@ __device__ __forceinline__ int upper_bound_wide(const float* a, int n,
       hi = mid;
   }
   return lo;
-}
-
-// The environment's CDF search: upper_bound, or with Probes > 1
-// upper_bound_wide's Rounds wide rounds first.
-template <int Probes, int Rounds>
-__device__ __forceinline__ int cdf_search(const float* a, int n, float x) {
-  if constexpr (Probes > 1)
-    return upper_bound_wide<Probes, Rounds>(a, n, x);
-  else
-    return upper_bound(a, n, x);
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -464,21 +455,23 @@ __device__ __forceinline__ V3 env_radiance(const Env& e, V3 d, float& pdf_w) {
 }
 
 // sample_dir: an importance-sampled direction toward the environment,
-// its radiance and pdf_w.  Probes, Rounds: the CDFs' search (cdf_search:
-// upper_bound by default; the same result any way).
-template <int Probes = 1, int Rounds = 0>
+// its radiance and pdf_w.  Wide: the CDFs searched by upper_bound_wide
+// (fewer rounds of memory latency; the same result).
+template <bool Wide = false>
 __device__ __forceinline__ V3 env_sample_dir(const Env& e, float u1, float u2,
                                              V3& li, float& pdf_w) {
   const int h = e.tab_h, w = e.tab_w;
-  const int row =
-      clampi(cdf_search<Probes, Rounds>(e.marginal_cdf, h + 1, u1) - 1, 0,
-             h - 1);
+  const float* m = e.marginal_cdf;
+  const int row = clampi((Wide ? upper_bound_wide(m, h + 1, u1)
+                               : upper_bound(m, h + 1, u1)) - 1,
+                         0, h - 1);
   const float lo = e.marginal_cdf[row], hi = e.marginal_cdf[row + 1];
   const float v_res =
       clamp((u1 - lo) / clamp_min(hi - lo, F(1e-12)), 0.f, F(1.0 - 1e-7));
   const float* cdf = e.row_cdf + static_cast<int64_t>(row) * (w + 1);
-  const int col =
-      clampi(cdf_search<Probes, Rounds>(cdf, w + 1, u2) - 1, 0, w - 1);
+  const int col = clampi((Wide ? upper_bound_wide(cdf, w + 1, u2)
+                               : upper_bound(cdf, w + 1, u2)) - 1,
+                         0, w - 1);
   const float c_lo = cdf[col], c_hi = cdf[col + 1];
   const float u_res =
       clamp((u2 - c_lo) / clamp_min(c_hi - c_lo, F(1e-12)), 0.f, F(1.0 - 1e-7));
@@ -600,9 +593,8 @@ __device__ __forceinline__ V3 disc_point(const BSphere& bs, V3 axis, float dx,
 }
 
 // sample_emit for one lane: light row `rec`, uniforms u1..u4, the
-// environment (Probes, Rounds: its CDFs' search, env_sample_dir) and the
-// bounding sphere.
-template <int Probes = 1, int Rounds = 0>
+// environment (its CDFs searched by upper_bound_wide: its one caller, the
+// light band's start, waits on those loads) and the bounding sphere.
 __device__ EmitSample sample_emit(const float* rec, float u1, float u2,
                                   float u3, float u4, const Env& env,
                                   bool has_env, const BSphere& bs) {
@@ -657,8 +649,7 @@ __device__ EmitSample sample_emit(const float* rec, float u1, float u2,
   } else if (kind == LIGHT_ENV && has_env) {
     V3 li;
     float env_pdf;
-    const V3 inward =
-        neg(env_sample_dir<Probes, Rounds>(env, u3, u4, li, env_pdf));
+    const V3 inward = neg(env_sample_dir<true>(env, u3, u4, li, env_pdf));
     float dx, dy;
     sample_concentric_disc(u1, u2, dx, dy);
     const float pdf_emit_e = (bs.inv_r2 * F(kInvPi)) * env_pdf;

@@ -300,17 +300,15 @@ __device__ __forceinline__ void store_next(const Args& a, int i,
 // tables the plain kernel's L1 holds (an inference: not traced, the
 // carve-out the shared memory takes).  The other columns are one
 // coalesced store a lane, as before; a warp at the band's ragged end (or
-// an unaligned column) writes a lane a thread.  Built for 12 resident
-// blocks of 128 (40 registers, as the plain kernel): every value is
-// computed by the same operations in the same order, so the outputs are
-// the plain kernel's bit for bit.
+// an unaligned column) writes a lane a thread.  In a frame, a band with
+// few environment lanes waits on their CDF searches' dependent loads (17
+// on the instanced scene's 256 x 128 sky): sample_emit searches with
+// upper_bound_wide (shading.cuh), two rounds of three loads issued
+// together before the binary steps, the same index.  Built for 12
+// resident blocks of 128 (40 registers, as the plain kernel): every value
+// is computed by the same operations in the same order, so the outputs
+// are the plain kernel's bit for bit.
 // ---------------------------------------------------------------------------
-
-// The environment's CDF search in the light start (shading.cuh
-// cdf_search): kStartRounds rounds of kStartProbes loads issued together,
-// then upper_bound.
-constexpr int kStartProbes = 7;
-constexpr int kStartRounds = 1;
 
 // A light lane's start: the next carry's values.
 struct StartOut {
@@ -324,7 +322,6 @@ struct StartOut {
 // The start of lane i of the band from path `start`: the seed, the light
 // pick, sample_emit and the initial partial weights; `end` the band's end
 // (INT_MAX for none), `eta_vc` the frame's MIS constant.
-template <int Probes, int Rounds>
 __device__ __forceinline__ StartOut start_lane(const Args& a, int i,
                                                int start, uint32_t frame,
                                                int end, float eta_vc) {
@@ -340,9 +337,9 @@ __device__ __forceinline__ StartOut start_lane(const Args& a, int i,
   const float u2 = next_float(st);
   const float u3 = next_float(st);
   const float u4 = next_float(st);
-  const EmitSample es = sample_emit<Probes, Rounds>(
-      in<float>(a, P_LIGHT_REC) + 24 * light_idx, u1, u2, u3, u4, env_of(a),
-      a.i[I_HAS_ENV] != 0, bsphere_of(a));
+  const EmitSample es =
+      sample_emit(in<float>(a, P_LIGHT_REC) + 24 * light_idx, u1, u2, u3, u4,
+                  env_of(a), a.i[I_HAS_ENV] != 0, bsphere_of(a));
   o.d_vc = es.is_delta ? 0.f
                        : es.cos_out /
                              clamp_min(es.pdf_emit_w * a.f[F_PICK], F(1e-20));
@@ -396,7 +393,6 @@ __device__ __forceinline__ void warp_store3(float* dst, V3 v, int lane) {
     reinterpret_cast<float4*>(dst)[lane] = make_float4(w[0], w[1], w[2], w[3]);
 }
 
-template <int Probes, int Rounds>
 __global__ void __launch_bounds__(kBlk, 12)
     vcm_light_start_kernel(const __grid_constant__ Args a) {
   const int i = blockIdx.x * kBlk + threadIdx.x;
@@ -420,16 +416,14 @@ __global__ void __launch_bounds__(kBlk, 12)
                        reinterpret_cast<uintptr_t>(thr)) & 15) == 0;
   if (!words) {
     if (i >= lanes) return;
-    const StartOut o =
-        start_lane<Probes, Rounds>(a, i, start, frame, end, eta_vc);
+    const StartOut o = start_lane(a, i, start, frame, end, eta_vc);
     store3(org + 3 * i, o.pos);
     store3(dir + 3 * i, o.dir);
     store3(thr + 3 * i, o.thr);
     store_start_scalars(a, i, o);
     return;
   }
-  const StartOut o =
-      start_lane<Probes, Rounds>(a, i, start, frame, end, eta_vc);
+  const StartOut o = start_lane(a, i, start, frame, end, eta_vc);
   store_start_scalars(a, i, o);
   const int64_t b3 = 3 * static_cast<int64_t>(wbase);
   warp_store3(org + b3, o.pos, lane);
@@ -1200,7 +1194,7 @@ int blocks_for(int lanes) { return (lanes + kBlk - 1) / kBlk; }
 const void* kernel_of(int which) {
   switch (which) {
     case K_LIGHT_START:
-      return reinterpret_cast<const void*>(vcm_light_start_kernel<1, 0>);
+      return reinterpret_cast<const void*>(vcm_light_start_kernel);
     case K_LIGHT_SHADE:
       return reinterpret_cast<const void*>(vcm_light_shade_kernel);
     case K_CAMERA_SHADE:
@@ -1232,18 +1226,8 @@ extern "C" int imba_vcm_shade(int which, void* const* ptrs, int nptrs,
   const int lanes = a.i[I_LANES];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lanes > 0) {
-    if (which == K_LIGHT_START) {
-      const int b = blocks_for(lanes);
-      switch (a.i[I_BOUNCE]) {
-        case 1: vcm_light_start_kernel<3, 99><<<b, kBlk, 0, s>>>(a); break;
-        case 2: vcm_light_start_kernel<7, 99><<<b, kBlk, 0, s>>>(a); break;
-        case 3: vcm_light_start_kernel<7, 1><<<b, kBlk, 0, s>>>(a); break;
-        case 4: vcm_light_start_kernel<3, 2><<<b, kBlk, 0, s>>>(a); break;
-        case 5: vcm_light_start_kernel<15, 1><<<b, kBlk, 0, s>>>(a); break;
-        case 6: vcm_light_start_kernel<3, 1><<<b, kBlk, 0, s>>>(a); break;
-        default: vcm_light_start_kernel<1, 0><<<b, kBlk, 0, s>>>(a);
-      }
-    }
+    if (which == K_LIGHT_START)
+      vcm_light_start_kernel<<<blocks_for(lanes), kBlk, 0, s>>>(a);
     else if (which == K_LIGHT_SHADE)
       vcm_light_shade_kernel<<<blocks_for(lanes), kBlk, 0, s>>>(a);
     else

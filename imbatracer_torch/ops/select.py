@@ -114,13 +114,7 @@ def select_gather_plain(rec, order1, order2, rows: int):
     src = order2 if order1 is None else order1[order2]
     out = rec.new_zeros((rows, rec.shape[1]))
     out[:src.shape[0]] = rec[src]
-    return out, None, pos_column(out)
-
-
-def pos_column(rows):
-    """The (N, 4) position column of packed (N, 24) rows: pos and a
-    zero."""
-    return torch.nn.functional.pad(rows[:, 0:3], (0, POS_W - 3))
+    return out, None, torch.nn.functional.pad(out[:, 0:3], (0, POS_W - 3))
 
 
 def box_plain(rows, kept: int):

@@ -441,11 +441,7 @@ def main():
     cs.log("[ab] done")
 
 
-# The L2 flush before a cold launch (torch.zero_ of FLUSH_BYTES, timed
-# alone and taken off), and the instanced frame's light paths (its
-# renderer's default: one band).
-FLUSH_BYTES = 256 << 20
-FLUSH = None
+# The instanced frame's light paths (its renderer's default: one band).
 INST_LPC = 1 << 17
 # The emission sample's columns, in the carry-in slots a split build's
 # stores-only variant loads them from (see --split).
@@ -513,19 +509,11 @@ def start_case(libs, label, scene, fi, lpc, first, lanes, valid, card,
         ms = {"earlier": [], "this": []}
         for which in ("earlier", "this", "this", "earlier"):
             ms[which].append(cs.graph_ms(old if which == "earlier" else new))
-        cold = {"earlier": [], "this": []}
-        flush_ms = cs.graph_ms(FLUSH.zero_)
-        for which in ("earlier", "this", "this", "earlier"):
-            fn = old if which == "earlier" else new
-            cold[which].append(cs.graph_ms(lambda: (FLUSH.zero_(), fn()))
-                               - flush_ms)
         cs.log(f"[ab] vcm_light_start_kernel, {label}: {lanes} lanes, "
                f"{alive:.4f} active, light kinds {kinds}: earlier"
                f"{f' variant {v}' if split else ''} {fmt(ms['earlier'])} "
-               f"ms, this tree {fmt(ms['this'])} ms; after an L2 flush "
-               f"{fmt(cold['earlier'])} / {fmt(cold['this'])} ms; bound "
-               f"{bound_ms:.4f} ms by {by} ({nbytes} bytes); {held} "
-               f"[{card}]")
+               f"ms, this tree {fmt(ms['this'])} ms; bound {bound_ms:.4f} "
+               f"ms by {by} ({nbytes} bytes); {held} [{card}]")
 
 
 def start_cells(libs, scene, meta, fi, lpc, dev, card, variants, equal,
@@ -533,8 +521,6 @@ def start_cells(libs, scene, meta, fi, lpc, dev, card, variants, equal,
     from imbatracer_torch.scene.build import build_scene
     from imbatracer_torch.scene.generate import CARD, write_instanced_scene
 
-    global FLUSH
-    FLUSH = torch.empty((FLUSH_BYTES // 4,), dtype=torch.float32, device=dev)
     n = cs.NUM_RAYS
     for b in range(lpc // n):
         start_case(libs, f"still_life 1920x1080, band {b} of {lpc // n}",
@@ -560,7 +546,6 @@ def start_cells(libs, scene, meta, fi, lpc, dev, card, variants, equal,
     start_case(libs, f"instanced 1920x1080, its one band of {INST_LPC} "
                f"light paths", inst, fi_i, INST_LPC, 0, INST_LPC, INST_LPC,
                card, variants, equal, split)
-    FLUSH = None
 
 
 def earlier_gather(lib, rec, order1, order2, rows):
