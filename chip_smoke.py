@@ -1686,17 +1686,15 @@ def connection_rows(scene, c, fi, conns):
         mats.clamp(min=0), scene.materials.rec.shape[1]))
 
 
-def hold_vcm_camera(label, scene, meta, cam, fi, lpc, max_len, bounce,
-                    conns, card, stats):
-    """The camera kernels against their plain versions on the middle
-    NUM_RAYS band of the frame's camera pass at camera bounce `bounce`
-    (the bounces before it through the renderer's route and the
-    kernels), with `conns` connections a bounce."""
-    from imbatracer_torch.core import rng
+def camera_carry(scene, meta, cam, fi, lpc, max_len, bounce, conns):
+    """(carry, hit, camera_kw) of the middle NUM_RAYS band of the frame's
+    camera pass at camera bounce `bounce` (the bounces before it through
+    the renderer's route and the kernels), with `conns` connections a
+    bounce."""
     from imbatracer_torch.ops import vcm_shade as vs
     from imbatracer_torch.render.integrators import pt, vcm
     from imbatracer_torch.render.intersect import BIG
-    from imbatracer_torch.render.traverse import any_hit, closest_hit
+    from imbatracer_torch.render.traverse import closest_hit
 
     w, h = cam.width, cam.height
     dev = cam.pos.device
@@ -1717,7 +1715,21 @@ def hold_vcm_camera(label, scene, meta, cam, fi, lpc, max_len, bounce,
             techniques=vs.TECHNIQUES, mat_kinds=kinds)
     hit = closest_hit(scene.bvh, c["org"], c["d"], c["tmin"], BIG,
                       alpha_fn=alpha_fn, active=c["active"], sort=True)
-    kw = camera_kw(meta, fi, lpc, max_len, conns)
+    return c, hit, camera_kw(meta, fi, lpc, max_len, conns)
+
+
+def hold_vcm_camera(label, scene, meta, cam, fi, lpc, max_len, bounce,
+                    conns, card, stats):
+    """The camera kernels against their plain versions on camera_carry's
+    band at camera bounce `bounce` with `conns` connections a bounce."""
+    from imbatracer_torch.core import rng
+    from imbatracer_torch.ops import vcm_shade as vs
+    from imbatracer_torch.render.integrators import pt
+    from imbatracer_torch.render.traverse import any_hit
+
+    alpha_fn = pt.alpha_fn_for(scene) if meta.has_masks else None
+    c, hit, kw = camera_carry(scene, meta, cam, fi, lpc, max_len, bounce,
+                              conns)
     k_nxt, k_sh, k_q = vs.camera_shade_cuda(scene, c, hit, bounce, **kw)
     p_nxt, p_sh, p_q = vs.camera_shade_plain(scene, c, hit, bounce, **kw)
     occ = any_hit(scene.bvh, p_sh.pos, p_sh.dir, p_sh.tmin, p_sh.tmax,

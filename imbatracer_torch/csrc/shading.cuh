@@ -456,7 +456,14 @@ __device__ __forceinline__ V3 env_radiance(const Env& e, V3 d, float& pdf_w) {
 
 // sample_dir: an importance-sampled direction toward the environment,
 // its radiance and pdf_w.  Wide: the CDFs searched by upper_bound_wide
-// (fewer rounds of memory latency; the same result).
+// (fewer rounds of memory latency; the same result).  Each caller takes
+// the search that measured faster in it (NVIDIA H100 80GB HBM3, 700.00
+// W): the light band's start, a short kernel that waits on its
+// environment lanes' dependent loads, the wide one (the instanced band
+// ~6% faster); NEE in pt_shade_kernel and vcm_camera_shade_kernel the
+// binary one (the wide one 1-6% slower there, with the environment on
+// 11-33% of NEE's lanes: the bounce's other work hiding the binary
+// search's loads is an inference, not traced).
 template <bool Wide = false>
 __device__ __forceinline__ V3 env_sample_dir(const Env& e, float u1, float u2,
                                              V3& li, float& pdf_w) {

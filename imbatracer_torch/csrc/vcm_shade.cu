@@ -282,8 +282,8 @@ __device__ __forceinline__ void store_next(const Args& a, int i,
 // four draws, the light pick (an int32 product and floor division), the
 // light's row (uniform across most warps), sample_emit (for the
 // environment two binary searches over its CDFs and its texel and pdf
-// reads), then 66 B of outputs.  Measured alone (scripts/redesign_ab.py
-// --split, 262,144-lane still-life bands; NVIDIA H100 80GB HBM3, 700.00
+// reads), then 66 B of outputs.  Measured alone with variants of this
+// kernel on 262,144-lane still-life bands (NVIDIA H100 80GB HBM3, 700.00
 // W): an empty launch of the same grid takes ~3 us, the loads and
 // sample_emit with one 4-byte store a lane ~6.5 us on the area light's
 // bands and ~13.5 on the environment's, against 9.8 and 15.4 for the plain

@@ -518,6 +518,9 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
                 del collect
             if algo in ("vcm", "ppm"):
                 grid = photon_grid(cache, pm_radius, stats)
+            if cache is not None:
+                # Only the grid's keys read the position column.
+                cache = dataclasses.replace(cache, pos4=None)
         if algo == "lt":
             return film
         band = max(1, camera_band // max(spp, 1))

@@ -10,7 +10,11 @@ csrc/light_tail.cu) against the earlier wrapper where the earlier tree
 has one (the library's prefix sum, a copy, a one-thread tail); the
 selection's sort keys (select_keys_kernel) from the key columns against
 the earlier kernel; the re-trace's slot gather (slot_gather_kernel,
-csrc/dispatch.cu) through the same C interface.
+csrc/dispatch.cu) through the same C interface; and the two bounces
+whose NEE searches the environment's CDFs (pt_shade_kernel,
+csrc/pt_shade.cu, and vcm_camera_shade_kernel, csrc/vcm_shade.cu, both
+through csrc/shading.cuh's env_sample_dir) against an earlier tree's,
+for a change of that search.
 
 The earlier designs are another checkout's sources (--root, for example
 the parent commit unpacked under the git-ignored out/), built with this
@@ -33,25 +37,25 @@ lights); each design's columns held against the plain version at phase
 gather and the grid's keys on phase 4f's collect cache (the frame's
 selection to its working capacity), each design's rows, box, keys and
 scalars (and the redesign's position column) bit-equal to the plain
-versions, timed as a pair and alone.  `append` the append on phase 4e's
-still-life band (8 x 262,144 staged rows of the middle light band) into
-an empty cache of the frame's capacity, and on seeded bands of the same
+versions, timed as a pair and alone; beside them a third design built
+from scripts/ab_grid_last_block.cu, the scalars computed once by the
+gather's last block and read by the keys, held and timed the same way.
+`append` the append on phase 4e's still-life band (8 x 262,144 staged
+rows of the middle light band) into an empty cache of the frame's
+capacity, and on seeded bands of the same
 size with 0, 31 and 100% of the rows valid; `keys` the sort keys on
 phase 4f's collect cache (the admission keys of the collected rows, the
 canonical keys of the kept rows through the first sort's order; 32-bit,
 the frame's width, and 64-bit), the redesign from the key columns and
 from the rows; `gather` the slot gather on phase 4e's seeded need masks
-at both slot shares and on the still life's bounce-1 re-trace.  Every
-design's outputs must equal the plain version's bit for bit (the light
-start's: phase 4b's gates, and the two designs' bit for bit).
-
-`--split`: the --root tree is a measuring build whose light-start entry
-launches the kernel that the launch's `bounce` int names (0 its kept
-kernel); the light_start cells then time each of `--variants` against
-this tree's kernel in turns, passing the plain version's emission sample
-in the carry-in slots (org, d, throughput, d_vc, d_vcm, d_vm, finite,
-active) for a variant that loads it instead of sampling, and hold a
-variant's columns bit-equal to this tree's only for `--equal` variants.
+at both slot shares and on the still life's bounce-1 re-trace; `nee`
+pt_shade_kernel on the middle band of PT bounce 1 of the still life and
+of the instanced scene, and vcm_camera_shade_kernel on phase 4c's
+still-life camera bounces 0 and 3, each line with the share of the lanes
+whose NEE picks the environment.  Every design's outputs must equal the
+plain version's bit for bit (the light start's: phase 4b's gates, and
+the two designs' bit for bit; the NEE cells': the two designs' bit for
+bit, phase 4b's and 4c's gates holding the plain versions).
 
 Each `[ab]` line names the card and its power limit, with the bound of
 the bytes the function moves (chip_smoke.py's count) and each build's
@@ -59,8 +63,6 @@ registers, spills and resident blocks.  Run from the repository root
 (`--only light_start grid` and so on: those cells alone):
 
     python3 scripts/redesign_ab.py --root out/earlier [--only CELLS]
-    python3 scripts/redesign_ab.py --root out/split --split --only \
-        light_start --variants 1 2 3 4 --equal 4
 """
 
 import argparse
@@ -85,6 +87,7 @@ from imbatracer_torch.ops import dispatch as dp  # noqa: E402
 from imbatracer_torch.ops import light_tail as lt  # noqa: E402
 from imbatracer_torch.ops import merge as mg  # noqa: E402
 from imbatracer_torch.ops import select as sel  # noqa: E402
+from imbatracer_torch.ops import shade as sh  # noqa: E402
 from imbatracer_torch.ops import stream_traverse as st  # noqa: E402
 from imbatracer_torch.ops import vcm_shade as vs  # noqa: E402
 from imbatracer_torch.render import traverse as tt  # noqa: E402
@@ -100,13 +103,14 @@ EARLIER_GATHER_ARGS = [vp, vp, vp, i64, i64, vp, vp, vp]
 EARLIER_TAIL = "collect_tail_kernel"
 # This tree's gather, which names its interface.
 POS_GATHER = "void* pos, void* stream"
-CELLS = ("light_start", "grid", "append", "keys", "gather")
+CELLS = ("light_start", "grid", "append", "keys", "gather", "nee")
 # Each earlier library: (module, its NativeLib's attribute, its cached
 # library's attribute, its binding function's name).
 LIBS = {"light_tail": (lt, "LIB", "_lib", "_library"),
         "select": (sel, "LIB", "_lib", "_library"),
         "dispatch": (dp, "LIB", "_lib", "_library"),
         "vcm_shade": (vs, "LIB", "_lib", "_library"),
+        "pt_shade": (sh, "LIB", "_lib", "_library"),
         "grid_build": (mg, "GRID_LIB", "_grid_lib", "_grid_library")}
 
 
@@ -193,13 +197,6 @@ def ptxas(log, kernel):
                              for x in lines[k + 1:k + 4]
                              if "stack frame" in x or "registers" in x)
     return "built before this process (its log: the build's)"
-
-
-def entry_names(log, part):
-    """The entry functions of a build log whose names hold `part`."""
-    return [ln.split("'")[1] for ln in log.splitlines()
-            if "Compiling entry function" in ln and part in ln
-            and ln.count("'") >= 2]
 
 
 def fmt(ms):
@@ -359,7 +356,9 @@ def log_builds(built, same, card):
                         ("collect_append_kernel", "light_tail"),
                         (EARLIER_TAIL, "light_tail"),
                         ("select_keys_kernel", "select"),
-                        ("slot_gather_kernel", "dispatch")):
+                        ("slot_gather_kernel", "dispatch"),
+                        ("pt_shade_kernel", "pt_shade"),
+                        ("vcm_camera_shade_kernel", "vcm_shade")):
         if (same and kernel == EARLIER_TAIL) or key not in built:
             continue
         cs.log(f"[ab] {kernel} ptxas: earlier {ptxas(built[key][1], kernel)};"
@@ -379,7 +378,13 @@ def log_builds(built, same, card):
                                          lambda: sel.resources("keys32")),
            "slot_gather_kernel": ("dispatch", "imba_dispatch_resources",
                                   dp.KERNELS.index("slot_gather"),
-                                  lambda: dp.resources("slot_gather"))}
+                                  lambda: dp.resources("slot_gather")),
+           "pt_shade_kernel": ("pt_shade", "imba_pt_shade_resources", 0,
+                               sh.resources),
+           "vcm_camera_shade_kernel": ("vcm_shade", "imba_vcm_resources",
+                                       vs.RESOURCE_KERNELS.index(
+                                           "camera_shade"),
+                                       lambda: vs.resources("camera_shade"))}
     for kernel, (key, entry, which, new) in res.items():
         if key not in built:
             continue
@@ -394,14 +399,6 @@ def main():
                    help="checkout holding the earlier designs")
     p.add_argument("--only", nargs="+", default=CELLS, choices=CELLS,
                    help="the kernels whose cells run")
-    p.add_argument("--split", action="store_true",
-                   help="--root is a measuring build of light-start "
-                        "variants, picked by the launch's bounce int")
-    p.add_argument("--variants", nargs="+", type=int, default=[0],
-                   help="with --split, the variants timed")
-    p.add_argument("--equal", nargs="*", type=int, default=[],
-                   help="with --split, the variants held bit-equal to "
-                        "this tree's kernel")
     args = p.parse_args()
     from imbatracer_torch.scene.procedural import make_still_life_like
 
@@ -410,10 +407,6 @@ def main():
     new = {key: this_library(key) for key in LIBS}
     built, same, same_gather = earlier_builds(args.root)
     log_builds(built, same, card)
-    if args.split and "vcm_shade" in built:
-        for name in entry_names(built["vcm_shade"][1], "start"):
-            cs.log(f"[ab] {name} ptxas: {ptxas(built['vcm_shade'][1], name)} "
-                   f"[{card}]")
     libs = {k: {"earlier": built[k][0], "redesigned": new[k]}
             for k in new if k in built}
 
@@ -421,15 +414,13 @@ def main():
     cam, fi, lpc, cap = cs.vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
     for cell, key in (("light_start", "vcm_shade"), ("grid", "select"),
                       ("grid", "grid_build"), ("append", "light_tail"),
-                      ("keys", "select"), ("gather", "dispatch")):
+                      ("keys", "select"), ("gather", "dispatch"),
+                      ("nee", "pt_shade"), ("nee", "vcm_shade")):
         if cell in args.only and key not in libs:
             cs.log(f"[ab] {cell}: no earlier {key} library; not run")
             args.only = [c for c in args.only if c != cell]
     if "light_start" in args.only:
-        variants = args.variants if args.split else [0]
-        start_cells(libs["vcm_shade"], scene, meta, fi, lpc, dev, card,
-                    variants, set(args.equal) if args.split else {0},
-                    args.split)
+        start_cells(libs["vcm_shade"], scene, meta, fi, lpc, dev, card)
     if "grid" in args.only:
         grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card)
     if "append" in args.only:
@@ -438,21 +429,31 @@ def main():
         keys_cells(libs, same, scene, meta, cam, fi, lpc, cap, card)
     if "gather" in args.only:
         gather_cells(libs, scene, meta, card)
+    if "nee" in args.only:
+        nee_cells(libs, scene, meta, cam, fi, lpc, cap, dev, card)
     cs.log("[ab] done")
 
 
 # The instanced frame's light paths (its renderer's default: one band).
 INST_LPC = 1 << 17
-# The emission sample's columns, in the carry-in slots a split build's
-# stores-only variant loads them from (see --split).
-EMIT_SLOTS = ("org", "d", "throughput", "d_vc", "d_vcm", "d_vm", "finite",
-              "active")
 
 
-def start_call(scene, fi, lanes, lpc, start, end, variant=0, emit=None):
+def instanced_scene(dev):
+    """The instanced scene (scene/generate.CARD) on `dev`: (scene, meta)."""
+    from imbatracer_torch.scene.build import build_scene
+    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
+
+    tmp = tempfile.mkdtemp(prefix="imba_ab_")
+    try:
+        return build_scene(write_instanced_scene(tmp, **CARD), quiet=True,
+                           device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def start_call(scene, fi, lanes, lpc, start, end):
     """vcm_light_start_kernel's launch as light_start_cuda makes it (the
-    path start and end as pointers), with `variant` as its bounce int and
-    `emit` ({carry-in slot: column}) in the carry-in slots."""
+    path start and end as pointers)."""
     dev = scene.lights.rec.device
     out = vs._empty_carry(vs.LIGHT_CARRY, lanes, dev)
     ptrs = {"o_" + k: v for k, v in out.items()}
@@ -460,20 +461,15 @@ def start_call(scene, fi, lanes, lpc, start, end, variant=0, emit=None):
                 mis_eta_vc=vs._scalar(fi.mis_eta_vc, torch.float32, dev,
                                       "mis_eta_vc"),
                 path_start=start, path_end=end)
-    ptrs.update(emit or {})
-    vs._launch("light_start", scene, lanes, ptrs,
-               dict(lpc=lpc, bounce=variant), {}, dev)
+    vs._launch("light_start", scene, lanes, ptrs, dict(lpc=lpc), {}, dev)
     return out
 
 
-def start_case(libs, label, scene, fi, lpc, first, lanes, valid, card,
-               variants, equal, split):
-    """`[ab]` lines of the light band's start on `lanes` paths from
+def start_case(libs, label, scene, fi, lpc, first, lanes, valid, card):
+    """An `[ab]` line of the light band's start on `lanes` paths from
     `first` (those from first + valid on padding): this tree's kernel
-    held against the plain version at phase 4b's gates, then each
-    variant of the earlier build (its kept kernel, 0, where not --split)
-    held bit-equal to this tree's where `equal` names it, and the two
-    timed in turns."""
+    held against the plain version at phase 4b's gates and the earlier
+    kernel bit-equal to it, then the two timed in turns."""
     dev = scene.lights.rec.device
     start = torch.tensor(first, dtype=torch.int32, device=dev)
     end = start + valid
@@ -489,63 +485,46 @@ def start_case(libs, label, scene, fi, lpc, first, lanes, valid, card,
     cs.hold_vcm_columns(f"light start, {label}, this tree",
                         {k: (got[k], want[k]) for k in want}, alive, {},
                         "err")
-    emit = {k: want[k] for k in EMIT_SLOTS} if split else None
     nbytes = cs.tensor_bytes(want) + cs.distinct_rows(idx, 24)
     bound_ms, by = cs.shade_bound(nbytes,
                                   lanes * cs.VCM_LANE_OPS["light_start"])
-    for v in variants:
-        old = partial(with_lib, "vcm_shade", libs["earlier"], start_call,
-                      scene, fi, lanes, lpc, start, end, v, emit)
-        held = "not held (a split variant)"
-        if v in equal:
-            o = old()
-            torch.cuda.synchronize()
-            bad = {k: cs.bit_mismatches(o[k], got[k]) for k in got}
-            if any(bad.values()):
-                raise AssertionError(f"[ab] light start {label}: the earlier "
-                                     f"kernel (variant {v}) is not bit-equal "
-                                     f"to this tree's: {bad}")
-            held = "bit-equal"
-        ms = {"earlier": [], "this": []}
-        for which in ("earlier", "this", "this", "earlier"):
-            ms[which].append(cs.graph_ms(old if which == "earlier" else new))
-        cs.log(f"[ab] vcm_light_start_kernel, {label}: {lanes} lanes, "
-               f"{alive:.4f} active, light kinds {kinds}: earlier"
-               f"{f' variant {v}' if split else ''} {fmt(ms['earlier'])} "
-               f"ms, this tree {fmt(ms['this'])} ms; bound {bound_ms:.4f} "
-               f"ms by {by} ({nbytes} bytes); {held} [{card}]")
+    old = partial(with_lib, "vcm_shade", libs["earlier"], start_call, scene,
+                  fi, lanes, lpc, start, end)
+    o = old()
+    torch.cuda.synchronize()
+    bad = {k: cs.bit_mismatches(o[k], got[k]) for k in got}
+    if any(bad.values()):
+        raise AssertionError(f"[ab] light start {label}: the earlier kernel "
+                             f"is not bit-equal to this tree's: {bad}")
+    ms = {"earlier": [], "this": []}
+    for which in ("earlier", "this", "this", "earlier"):
+        ms[which].append(cs.graph_ms(old if which == "earlier" else new))
+    cs.log(f"[ab] vcm_light_start_kernel, {label}: {lanes} lanes, "
+           f"{alive:.4f} active, light kinds {kinds}: earlier "
+           f"{fmt(ms['earlier'])} ms, this tree {fmt(ms['this'])} ms; bound "
+           f"{bound_ms:.4f} ms by {by} ({nbytes} bytes); bit-equal [{card}]")
 
 
-def start_cells(libs, scene, meta, fi, lpc, dev, card, variants, equal,
-                split):
-    from imbatracer_torch.scene.build import build_scene
-    from imbatracer_torch.scene.generate import CARD, write_instanced_scene
-
+def start_cells(libs, scene, meta, fi, lpc, dev, card):
     n = cs.NUM_RAYS
     for b in range(lpc // n):
         start_case(libs, f"still_life 1920x1080, band {b} of {lpc // n}",
-                   scene, fi, lpc, b * n, n, n, card, variants, equal, split)
+                   scene, fi, lpc, b * n, n, n, card)
     mid = (lpc - n) // 2
     start_case(libs, "still_life 1920x1080, phase 4c's padded middle band",
-               scene, fi, lpc, mid, n, n - 1000, card, variants, equal,
-               split)
+               scene, fi, lpc, mid, n, n - 1000, card)
     start_case(libs, "still_life 1920x1080, half a band", scene, fi, lpc,
-               mid, n // 2, n // 2, card, variants, equal, split)
+               mid, n // 2, n // 2, card)
     delta = cs.delta_light_cornell(dev)
     _, fi_c, lpc_c, _ = cs.vcm_frame_inputs(*delta, 1024, 1024, 8, dev)
     start_case(libs, "cornell with point, spot and dir lights 1024x1024, "
                "middle band", delta[0], fi_c, lpc_c, (lpc_c - n) // 2, n, n,
-               card, variants, equal, split)
-    tmp = tempfile.mkdtemp(prefix="imba_ab_")
-    try:
-        inst, inst_meta = build_scene(write_instanced_scene(tmp, **CARD),
-                                      quiet=True, device=dev)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+               card)
+    inst, inst_meta = instanced_scene(dev)
     _, fi_i, _, _ = cs.vcm_frame_inputs(inst, inst_meta, 1920, 1080, 8, dev)
     start_case(libs, f"instanced 1920x1080, its one band of {INST_LPC} "
                f"light paths", inst, fi_i, INST_LPC, 0, INST_LPC, INST_LPC,
-               card, variants, equal, split)
+               card)
 
 
 def earlier_gather(lib, rec, order1, order2, rows):
@@ -570,6 +549,55 @@ def earlier_grid_keys(lib, rows_rec, count, box, radius):
                            key.data_ptr(), scal.data_ptr(), _stream()),
         "grid keys")
     return key, scal
+
+
+# The last-block design's entry points and argument types.
+LAST_BLOCK_SRC = os.path.join(HERE, "scripts", "ab_grid_last_block.cu")
+LAST_BLOCK_ARGS = {"imba_ab_gather_last_block": [vp] * 3 + [i64] * 2
+                   + [vp] * 8,
+                   "imba_ab_keys_from_scalars": [vp, vp, vp, i64, vp, vp]}
+
+
+def last_block_library():
+    """The last-block design (scripts/ab_grid_last_block.cu), built with
+    this tree's flags and bound; None (its log printed) if it fails."""
+    so = os.path.join(libbuild.BUILD_DIR, "libab_grid_last_block.so")
+    proc = build(LAST_BLOCK_SRC, so, libbuild.CSRC)
+    err = proc.communicate()[1]
+    if proc.returncode != 0:
+        cs.log(f"[ab] building {LAST_BLOCK_SRC} failed:\n{err}")
+        return None
+    lib = ctypes.CDLL(so)
+    for name, types in LAST_BLOCK_ARGS.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, types
+    return lib
+
+
+def last_block_gather(lib, rec, order1, order2, rows, count, radius, ticket):
+    """The last-block gather: (rows, box, position column, scalars)."""
+    dev = rec.device
+    out = torch.empty((rows, 24), dtype=torch.float32, device=dev)
+    box = torch.empty((6,), dtype=torch.int32, device=dev)
+    pos = torch.empty((rows, 4), dtype=torch.float32, device=dev)
+    scal = torch.empty((5,), dtype=torch.float32, device=dev)
+    _ok(lib.imba_ab_gather_last_block(
+        rec.data_ptr(), None if order1 is None else order1.data_ptr(),
+        order2.data_ptr(), order2.shape[0], rows, out.data_ptr(),
+        box.data_ptr(), pos.data_ptr(), count.data_ptr(), radius.data_ptr(),
+        scal.data_ptr(), ticket.data_ptr(), _stream()), "last-block gather")
+    return out, box, pos, scal
+
+
+def last_block_keys(lib, g, count):
+    """The last-block keys from its gather's column and scalars."""
+    pos, scal = g[2], g[3]
+    key = torch.empty((pos.shape[0],), dtype=torch.int32, device=pos.device)
+    _ok(lib.imba_ab_keys_from_scalars(pos.data_ptr(), count.data_ptr(),
+                                      scal.data_ptr(), pos.shape[0],
+                                      key.data_ptr(), _stream()),
+        "last-block keys")
+    return key
 
 
 def grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card):
@@ -608,8 +636,18 @@ def grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card):
     valid = torch.arange(rows, device=rec.device) < n
     pkey, pbmin, pinv = mg.grid_keys_plain(ref[:, 0:3], valid, radius)
     want_box = sel.box_plain(ref, kept)
+    want_scal = torch.cat([pbmin, pinv.reshape(1),
+                           (radius * radius).reshape(1)])
     g_old, g_new = old_gather(), new_gather()
     k_old, k_new = old_keys(g_old), new_keys(g_new)
+    lb = last_block_library()
+    if lb is not None:
+        ticket = torch.zeros((1,), dtype=torch.int32, device=rec.device)
+        lb_gather = partial(last_block_gather, lb, rec, order1, order2, rows,
+                            n, radius, ticket)
+        lb_keys = lambda g: last_block_keys(lb, g, n)
+        g_lb = lb_gather()
+        k_lb = lb_keys(g_lb)
     torch.cuda.synchronize()
     bad = {"earlier rows": cs.bit_mismatches(g_old[0], ref),
            "redesigned rows": cs.bit_mismatches(g_new[0], ref),
@@ -621,14 +659,20 @@ def grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card):
                                                  want_box)),
            "earlier keys": cs.bit_mismatches(k_old[0], pkey),
            "redesigned keys": cs.bit_mismatches(k_new[0], pkey),
-           "earlier scalars": cs.bit_mismatches(
-               k_old[1], torch.cat([pbmin, pinv.reshape(1),
-                                    (radius * radius).reshape(1)])),
+           "earlier scalars": cs.bit_mismatches(k_old[1], want_scal),
            "redesigned scalars": cs.bit_mismatches(
                torch.cat([k_new[1], k_new[2].reshape(1),
-                          k_new[3].reshape(1)]),
-               torch.cat([pbmin, pinv.reshape(1),
-                          (radius * radius).reshape(1)]))}
+                          k_new[3].reshape(1)]), want_scal)}
+    if lb is not None:
+        bad.update({
+            "last-block rows": cs.bit_mismatches(g_lb[0], ref),
+            "last-block position column": cs.bit_mismatches(g_lb[2],
+                                                            ref_pos),
+            "last-block box": int(not torch.equal(sel.box_floats(g_lb[1]),
+                                                  want_box)),
+            "last-block keys": cs.bit_mismatches(k_lb, pkey),
+            "last-block scalars": cs.bit_mismatches(g_lb[3], want_scal),
+            "last-block ticket": int(ticket.item() != 0)})
     if any(bad.values()):
         raise AssertionError(f"[ab] gather and grid keys: elements not "
                              f"bit-equal to the plain versions {bad}")
@@ -636,6 +680,9 @@ def grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card):
                     lambda: new_keys(new_gather())),
            "gather": (old_gather, new_gather),
            "keys": (partial(old_keys, g_old), partial(new_keys, g_new))}
+    lb_fns = None if lb is None else {
+        "pair": lambda: lb_keys(lb_gather()), "gather": lb_gather,
+        "keys": partial(lb_keys, g_lb)}
     i64 = 8
     gather_bytes = kept * (2 * i64 + 96) + rows * 96 + 24
     nbytes = {"pair": (gather_bytes + kept * 12 + rows * 4 + 44,
@@ -643,17 +690,26 @@ def grid_cells(libs, same_gather, scene, meta, cam, fi, lpc, cap, card):
               "gather": (gather_bytes, gather_bytes + rows * 16),
               "keys": (kept * 12 + rows * 4 + 44, kept * 16 + rows * 4 + 44)}
     for what, (old, new) in fns.items():
-        ms = {"earlier": [], "redesigned": []}
-        for which in ("earlier", "redesigned", "redesigned", "earlier"):
-            ms[which].append(cs.graph_ms(old if which == "earlier" else new))
+        run = {"earlier": old, "redesigned": new}
+        turns = ("earlier", "redesigned", "redesigned", "earlier")
+        if lb_fns is not None:
+            run["last block"] = lb_fns[what]
+            turns = ("earlier", "redesigned", "last block", "last block",
+                     "redesigned", "earlier")
+        ms = {which: [] for which in run}
+        for which in turns:
+            ms[which].append(cs.graph_ms(run[which]))
         bounds_ms = [cs.shade_bound(b, 0)[0] for b in nbytes[what]]
+        third = ("" if lb_fns is None else f", the scalars by the gather's "
+                 f"last block {fmt(ms['last block'])} ms")
         cs.log(f"[ab] select_gather_kernel + grid_keys_kernel, {what}, "
                f"still_life 1920x1080, {kept} kept rows of {rows}: earlier "
                f"(keys from the rows) {fmt(ms['earlier'])} ms, redesigned "
-               f"(keys from the position column) {fmt(ms['redesigned'])} "
-               f"ms; bound {bounds_ms[0]:.4f} / {bounds_ms[1]:.4f} ms by "
-               f"bytes ({nbytes[what][0]} / {nbytes[what][1]} bytes); "
-               f"bit-equal [{card}]")
+               f"(keys from the position column, the scalars by thread 0 "
+               f"of each keys block) {fmt(ms['redesigned'])} ms{third}; "
+               f"bound {bounds_ms[0]:.4f} / {bounds_ms[1]:.4f} ms by bytes "
+               f"({nbytes[what][0]} / {nbytes[what][1]} bytes); bit-equal "
+               f"[{card}]")
     del collect, c, k1, order1, order2, ref, g_old, g_new
     torch.cuda.empty_cache()
 
@@ -710,6 +766,69 @@ def gather_cells(libs, scene, meta, card):
     need, slots, hit, tcur = cs.recorded_slots(scene, carry, alpha_fn)
     gather_case(libs["dispatch"], "still_life 1920x1080 bounce 1, the khit "
                 "re-trace's", need, slots, hit, tcur, card)
+
+
+def tensors(x):
+    """The tensors of a kernel's outputs (dicts and tuples, nested)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors(v)]
+    return []
+
+
+def env_share(scene, c):
+    """The share of the lanes whose NEE picks the environment (the pick
+    of pt_shade's and the camera bounce's light draw)."""
+    from imbatracer_torch.core import rng
+    from imbatracer_torch.render.lights import LIGHT_ENV
+
+    num = scene.lights.kind.shape[0]
+    _, (ul,) = rng.next_floats(c["state"], 1)
+    pick = torch.clamp((ul * num).to(torch.int32), max=num - 1).long()
+    return float((scene.lights.kind[pick] == LIGHT_ENV).double().mean())
+
+
+def nee_case(kernel, key, libs, label, fn, c, scene, card):
+    """An `[ab]` line of `fn` (a shade wrapper's call on its inputs) with
+    the earlier and this tree's library of LIBS[key]: their outputs held
+    bit-equal, then timed in turns."""
+    old = partial(with_lib, key, libs[key]["earlier"], fn)
+    got, ref = tensors(fn()), tensors(old())
+    torch.cuda.synchronize()
+    bad = sum(cs.bit_mismatches(a, b) for a, b in zip(got, ref))
+    if bad or len(got) != len(ref):
+        raise AssertionError(f"[ab] {kernel} {label}: {bad} elements of the "
+                             f"earlier kernel differ from this tree's")
+    ms = {"earlier": [], "this": []}
+    for which in ("earlier", "this", "this", "earlier"):
+        ms[which].append(cs.graph_ms(old if which == "earlier" else fn))
+    alive = float(c["active"].double().mean())
+    cs.log(f"[ab] {kernel}, {label}: {c['active'].shape[0]} lanes, "
+           f"{alive:.4f} active, NEE on the environment "
+           f"{env_share(scene, c):.4f}: earlier {fmt(ms['earlier'])} ms, "
+           f"this tree {fmt(ms['this'])} ms; bit-equal [{card}]")
+
+
+def nee_cells(libs, scene, meta, cam, fi, lpc, cap, dev, card):
+    inst = instanced_scene(dev)
+    for name, (scn, mt) in (("still_life", (scene, meta)),
+                            ("instanced", inst)):
+        c, hit, _ = cs.shade_carry(scn, mt, 1920, 1080, 8, 1, dev)
+        fn = partial(sh.pt_shade_cuda, scn, c, hit, has_bump=mt.has_bump,
+                     max_len=8)
+        nee_case("pt_shade_kernel", "pt_shade", libs, f"{name} 1920x1080, "
+                 f"PT bounce 1", fn, c, scn, card)
+    del inst, c, hit, fn
+    wfi = cs.vcm_working_cache(scene, meta, cam, fi, lpc, cap, 8)
+    for bounce in (0, 3):
+        c, hit, kw = cs.camera_carry(scene, meta, cam, wfi, lpc, 8, bounce, 1)
+        fn = partial(vs.camera_shade_cuda, scene, c, hit, bounce, **kw)
+        nee_case("vcm_camera_shade_kernel", "vcm_shade", libs,
+                 f"still_life 1920x1080, camera bounce {bounce}", fn, c,
+                 scene, card)
 
 
 if __name__ == "__main__":
