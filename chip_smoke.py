@@ -96,6 +96,16 @@ failure raises and the script exits non-zero:
    and its bound (vcm_shade_bytes: the columns it reads and writes, the distinct
    shade-record, light, cache and material rows; or VCM_LANE_OPS float
    instructions a lane), with its registers, spills and resident blocks.
+   Then the merge's query preparation on the camera bounce-1 queries of
+   the still life's band: each launch (merge_sort_key_kernel,
+   merge_inverse_kernel, merge_query_rows_kernel) bit-equal to its plain
+   version, timed alone as graph_ms beside its plain version, its bound
+   (PREP_BYTES) and the library call computing the same function
+   (index_copy_ of the inverse, index_select of the query-order rows), and
+   the kernels with the library sort in one graph: timed here, before any
+   frame's graphs exist (a run that made and dropped these captures in
+   phase 7b, after the frame's graphs were captured, segfaulted in that
+   frame's traced replay).
 4d. Dispatch glue kernels vs plain: the four kernels of csrc/dispatch.cu
    (ops/dispatch.py: dispatch_keys_kernel, dispatch_rows_kernel,
    khit_resolve_kernel, stream_resolve_kernel) against their plain
@@ -210,11 +220,13 @@ failure raises and the script exits non-zero:
    kinds (0, 3, 4, 5), ppm both ways: per-query sums within 1e-4
    relative (of max(|plain|, 1e-6 max|plain|)), the counting launch's
    tallies equal to the plain version's; on the recorded queries also the
-   query preparation kernels against prepare_queries (rows and
-   permutation bit for bit); the kernel timed alone (queries prepared
+   query preparation against prepare_queries (rows and permutation bit
+   for bit), each of its launches (sort keys, inverse, rows) against its
+   plain version bit for bit, and the camera pass's columns handed to
+   the kernels uncopied; the kernel timed alone (queries prepared
    beforehand), in merge_contrib (printed beside the same function with
    torch glue, TORCH_GLUE_MS) and the preparation alone, the plain
-   versions over 2-3 calls.  (c) bpt, ppm and vcm_pt on the still life at 480x270,
+   versions over 2-3 calls (each preparation kernel alone: phase 4c).  (c) bpt, ppm and vcm_pt on the still life at 480x270,
    max_len 8, 2 frames each: finite, non-zero, mean within 5% of PT's.
    lt there too (finite, non-zero, reported); light tracing cannot see
    emitters directly nor through mirrors and glass, so it is held, over
@@ -479,6 +491,13 @@ REPLACES = {
                     " and the fallback test, around pallas_call :397)",
     "merge_prep": "imbatracer_tpu/ops/pallas_merge.py:497 (merge_contrib's "
                   "query preparation, around pallas_call :469)",
+    "merge_sort_keys": "imbatracer_tpu/ops/pallas_merge.py:510-533 "
+                       "(merge_contrib's anchor cell and sort key, before "
+                       "its lax.sort :535)",
+    "merge_inverse": "imbatracer_tpu/ops/pallas_merge.py:536 (merge_contrib's"
+                     " inv_perm by a scatter)",
+    "merge_query_rows": "imbatracer_tpu/ops/pallas_merge.py:538-555 "
+                        "(merge_contrib's query rows and qrec[perm])",
     "pt_shade": "imbatracer_tpu/render/integrators/pt.py:241 (_pt_bounce's "
                 "shading between its traversal calls, XLA-fused in _pt_band "
                 ":536; no pallas_call)",
@@ -768,7 +787,9 @@ def counters():
     return dict(got, stream_plain=st.LAUNCHES["plain"],
                 candidates_plain=st.LAUNCHES["candidates_plain"],
                 khit=kh.LAUNCHES["khit"], khit_plain=kh.LAUNCHES["plain"],
-                merge=mg.LAUNCHES["merge"], merge_prep=mg.LAUNCHES["prep"],
+                merge=mg.LAUNCHES["merge"], merge_prep=mg.LAUNCHES["prep_rows"],
+                merge_prep_keys=mg.LAUNCHES["prep_keys"],
+                merge_prep_inverse=mg.LAUNCHES["prep_inverse"],
                 merge_plain=sum(mg.LAUNCHES[k] for k in mg.PLAIN_KEYS),
                 pairs_plain=sum(pm.LAUNCHES[k] for k in pm.PLAIN_KEYS),
                 pt_shade=sh.LAUNCHES["pt_shade"],
@@ -1809,7 +1830,12 @@ def vcm_shade_phase(dev, card, scenes, stats):
     for bounce in (0, 3):
         hold_vcm_camera(label, scene, meta, cam, fi, lpc, 8, bounce, 1,
                         card, stats)
-    del fi
+    c, hit, kw = camera_carry(scene, meta, cam, fi, lpc, 8, 1, 1)
+    q = vs.camera_shade_cuda(scene, c, hit, 1, **kw)[2]
+    time_preparation(f"{label}, camera bounce 1 queries", fi.grid,
+                     (q.pos, q.normal, q.gn, q.w_out, q.params, q.d_vcm,
+                      q.d_vm, q.active), stats, card)
+    del fi, c, hit, q
     delta = delta_light_cornell(dev)
     cam, fi, lpc, cap = vcm_frame_inputs(*delta, 1024, 1024, 8, dev)
     label = "cornell with point, spot and dir lights 1024x1024"
@@ -3129,7 +3155,9 @@ def time_merge(label, q, stats, card):
     prepare_queries (rows and permutation bit for bit), the gather's
     parity, then the gather alone (queries prepared beforehand), the
     wrapper (merge_contrib: preparation, gather into the caller's rows),
-    the preparation alone, the plain versions, and the bounds."""
+    each preparation launch held (hold_preparation), the preparation
+    alone, the plain versions, and the bounds.  Nothing here captures a
+    graph: the frame's graphs are traced after it (phase 7a)."""
     from imbatracer_torch.ops import merge as mg
 
     stats["merge_label"] = label
@@ -3157,18 +3185,108 @@ def time_merge(label, q, stats, card):
     stats["merge"] = (ms, wrapper_ms,
                       merge_bound(qrec, grid, scal, kinds, ppm, work))
     stats["merge_plain_ms"] = plain_ms
-    num_q = qrec.shape[0]
-    # In: 3 position, 3 normal, 3 geometric normal, 3 w_out, kind, 3 kd,
-    # 3 ks, ns, d_vcm, d_vm words and the active byte a query; out: its
-    # 40-word row and 8-byte permutation entry.
+    hold_preparation(label, grid, args)
     stats["merge_prep"] = (
         cuda_ms(lambda: mg.prepare_cuda(grid, *args), 10), None,
-        bytes_bound(num_q * (4 * 22 + 1 + 4 * mg.QREC_W + 8), queries=num_q))
+        bytes_bound(qrec.shape[0] * PREP_BYTES["prep"],
+                    queries=qrec.shape[0]))
     stats["merge_prep_plain_ms"] = cuda_ms(
         lambda: mg.prepare_queries(grid, *args), 3)
     stats["merge_prep_err"] = float((gq - qrec).abs().max())
     log_time(f"merge preparation kernels, {label} queries", stats["merge_prep"],
              stats["merge_prep_plain_ms"], card, second=None)
+
+
+# Bytes a query of each preparation kernel must move: the keys its
+# position and flag in and its key out; the inverse its permutation entry
+# in and its inverse entry out; the rows its inverse entry, 3 position, 3
+# normal, 3 geometric normal, 3 w_out, kind, 3 kd, 3 ks, ns, d_vcm and
+# d_vm words and the active byte in and its 40-word row out.  The whole
+# preparation: its inputs in, the rows and the 8-byte permutation entry
+# out; the keys and the inverse are this design's intermediates, counted
+# only in their own kernels' bytes.
+PREP_BYTES = {"keys": 12 + 1 + 4, "inverse": 8 + 4,
+              "rows": 4 + 4 * 22 + 1 + 4 * 40}
+PREP_BYTES["prep"] = 4 * 22 + 1 + 4 * 40 + 8
+
+
+def hold_preparation(label, grid, args):
+    """Every launch of prepare_cuda on prepare_queries' arguments `args`
+    held against its plain version bit for bit (sort keys, inverse, rows
+    through the plain permutation), and the columns handed to the kernels
+    uncopied; returns (prep_inputs, keys, perm, inv) of the plain
+    permutation."""
+    from imbatracer_torch.ops import merge as mg
+
+    qpos, active = args[0], args[7]
+    qrec, perm = mg.prepare_queries(grid, *args)
+    pin = mg.prep_inputs(grid, *args)
+    given = dict(zip(("qpos", "normal", "gn", "w_out"), args[:4]),
+                 kind=args[4]["kind"], kd=args[4]["kd"], ks=args[4]["ks"],
+                 ns=args[4]["ns"], d_vcm=args[5], d_vm=args[6],
+                 active=active, bbox_min=grid.bbox_min,
+                 inv_cell=grid.inv_cell)
+    copied = [k for k, x in given.items()
+              if pin[k].data_ptr() != x.data_ptr()]
+    keys = mg.sort_keys_cuda(pin)
+    inv = mg.inverse_cuda(perm)
+    rows = mg.query_rows_cuda(pin, inv)
+    want_keys = mg.sort_keys_plain(grid, qpos, active)
+    want_inv = mg.inverse_plain(perm)
+    torch.cuda.synchronize()
+    bad = dict(keys=bit_mismatches(keys, want_keys),
+               inverse=bit_mismatches(inv, want_inv),
+               rows=bit_mismatches(rows, qrec))
+    log(f"[merge] {label}: preparation launches vs their plain versions, "
+        f"elements not bit-equal: {bad}; inputs copied on the way in: "
+        f"{copied or 'none'}")
+    if any(bad.values()) or copied:
+        raise AssertionError("a merge preparation kernel disagrees with its "
+                             "plain version, or its inputs were copied")
+    return pin, keys, perm, inv, qrec
+
+
+def time_preparation(label, grid, args, stats, card):
+    """Phase 4c's merge preparation on a camera band's queries: each launch
+    held (hold_preparation), then each kernel alone (graph_ms, before any
+    frame's graphs are captured) beside its plain version, its bound and
+    the library call that computes the same function, and the kernels
+    with the library's sort in one graph."""
+    from imbatracer_torch.ops import merge as mg
+
+    pin, keys, perm, inv, qrec = hold_preparation(label, grid, args)
+    num_q = qrec.shape[0]
+    iota = torch.arange(num_q, dtype=torch.int32, device=qrec.device)
+    by_query = qrec[inv.long()]
+    inv_lib = torch.empty_like(inv)
+    steps = {
+        "keys": (partial(mg.sort_keys_cuda, pin),
+                 partial(mg.sort_keys_plain, grid, args[0], args[7]), None),
+        "inverse": (partial(mg.inverse_cuda, perm),
+                    partial(mg.inverse_plain, perm),
+                    partial(inv_lib.index_copy_, 0, perm, iota)),
+        "rows": (partial(mg.query_rows_cuda, pin, inv),
+                 partial(mg.prepare_queries, grid, *args),
+                 partial(torch.index_select, by_query, 0, perm))}
+    for step, (kernel, plain, library) in steps.items():
+        stats[f"merge_{step}"] = (
+            graph_ms(kernel), None,
+            bytes_bound(num_q * PREP_BYTES[step], queries=num_q))
+        stats[f"merge_{step}_plain_ms"] = cuda_ms(plain, 3)
+        stats[f"merge_{step}_library_ms"] = (None if library is None
+                                             else graph_ms(library))
+        log_time(f"merge preparation, {step}, {label}",
+                 stats[f"merge_{step}"], stats[f"merge_{step}_plain_ms"],
+                 card, second=None)
+    sort_ms = graph_ms(lambda: torch.sort(keys, stable=True))
+    whole = graph_ms(lambda: mg.prepare_cuda(grid, *args))
+    log(f"[time] merge preparation, {label} [{card}]: in one graph "
+        f"{whole:.4f} ms = keys {stats['merge_keys'][0]:.4f} + library sort "
+        f"{sort_ms:.4f} + inverse {stats['merge_inverse'][0]:.4f} + rows "
+        f"{stats['merge_rows'][0]:.4f} ms alone; library: inverse "
+        f"(index_copy_) {stats['merge_inverse_library_ms']:.4f}, rows "
+        f"(index_select of query-order rows) "
+        f"{stats['merge_rows_library_ms']:.4f} ms")
 
 
 def family_frames(scene, meta, algo, width, height, max_len, frames,
@@ -3246,7 +3364,9 @@ def vcm_main_path(scene, meta, card, stats):
     log(f"[vcm] warm-up frame: {fstats['collected']} vertices collected, "
         f"cache {fstats['cache']}, photons {fstats['photons']}; launches "
         f"over the timed frames: {got}")
-    if (got["merge"] == 0 or got["merge_prep"] == 0 or got["khit"] == 0
+    if (got["merge"] == 0 or got["merge_prep"] == 0
+            or got["merge_prep_keys"] == 0 or got["merge_prep_inverse"] == 0
+            or got["khit"] == 0
             or plain_runs(got)):
         raise AssertionError("still_life vcm: the main path did not run "
                              "through the merge and khit kernels")
@@ -4860,6 +4980,7 @@ VCM_GRAPH_CELLS = (
 )
 VCM_LAUNCH_KEYS = ("closest_hit", "any_hit", "closest_hit_instanced",
                    "any_hit_instanced", "khit", "merge", "merge_prep",
+                   "merge_prep_keys", "merge_prep_inverse",
                    "vcm_light_start", "vcm_light_shade", "vcm_light_finish",
                    "vcm_camera_shade", "vcm_camera_finish",
                    *DISPATCH_KERNELS, *SLOT_COUNTS, *TAIL_KERNELS,
@@ -5433,6 +5554,14 @@ def run():
                      REPLACES["merge_prep"], vcm_got["merge_prep"],
                      stats["merge_prep_err"], stats["merge_prep"],
                      stats["merge_prep_plain_ms"]),
+        *[kernel_entry(f"merge_{name}", src + "merge_kernel.cu",
+                       REPLACES[f"merge_{name}"], vcm_got[counter], 0.0,
+                       stats[f"merge_{step}"], stats[f"merge_{step}_plain_ms"],
+                       library_ms=stats[f"merge_{step}_library_ms"])
+          for name, step, counter in (
+              ("sort_keys", "keys", "merge_prep_keys"),
+              ("inverse", "inverse", "merge_prep_inverse"),
+              ("query_rows", "rows", "merge_prep"))],
     ]
     for key in ("closest", "any"):
         kernels.append(kernel_entry(

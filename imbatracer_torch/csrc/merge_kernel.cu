@@ -47,14 +47,28 @@
 // accepted pair (~100 float instructions for glossy) is far from the
 // compute bound.
 //
-// Query preparation (merge_sort_key_kernel, merge_query_rows_kernel): the
-// anchor sort key of each query (its first combo key, 1 << 30 for an
-// inactive one), and, after the caller's stable sort, the (Q, 40) rows in
-// sorted order -- the local frame, the four projections, the parameters
+// Query preparation (merge_sort_key_kernel, merge_inverse_kernel,
+// merge_query_rows_kernel): the anchor sort key of each query (its first
+// combo key, 1 << 30 for an inactive one); after the caller's stable sort
+// (perm), the inverse permutation inv[perm[i]] = i; then the (Q, 40) rows
+// in sorted order -- the local frame, the four projections, the parameters
 // and the combo keys -- each product and sum rounded on its own, left to
 // right, and division IEEE, as ops/merge.py::prepare_queries computes them
 // with torch ops, so the rows are its rows bit for bit.  With `perm` the
 // gather writes query i's sum to the caller's row perm[i].
+//
+// The rows are built in query order, the JAX package's own structure
+// (imbatracer_tpu/ops/pallas_merge.py::merge_contrib builds its rows by
+// query and gathers them through perm): two threads a query read its
+// inputs where a warp's loads of the (Q, 3) columns are contiguous words,
+// and each writes one 16-byte half of every 32-byte sector of the row
+// inv[q], so a warp store covers 16 rows' sectors whole.  Built in sorted
+// order, a thread gathers 22 scattered words of query perm[i]: staged in
+// shared memory and stored whole, that took twice as long
+// (scripts/ab_prep_designs.cu).  The sort keys take one query a thread:
+// at a band's 262,144 queries the kernel is bound by its launch and one
+// trip to DRAM, not by its 17 bytes a query, and wider threads or other
+// blocks traced no faster (the same file).
 //
 // Numerics: built with --fmad=false; every product and sum is rounded on
 // its own, in the order of the plain PyTorch version
@@ -493,34 +507,53 @@ merge_sort_key_kernel(const float* __restrict__ qpos,
   sort_key[q] = active[q] ? k[0] : 1 << 30;
 }
 
+constexpr int kInvB = 256;
+
+__global__ void __launch_bounds__(kInvB)
+merge_inverse_kernel(const long long* __restrict__ perm, int num_q,
+                     int* __restrict__ inv) {
+  const int i = blockIdx.x * kInvB + threadIdx.x;
+  if (i < num_q) inv[perm[i]] = i;
+}
+
 __device__ __forceinline__ float dot3(const float* v, const float* a) {
   return v[0] * a[0] + v[1] * a[1] + v[2] * a[2];
 }
 
-__global__ void __launch_bounds__(kQB)
-merge_query_rows_kernel(const long long* __restrict__ perm,
-                        const float* __restrict__ qpos,
-                        const float* __restrict__ normal,
-                        const float* __restrict__ gn,
-                        const float* __restrict__ w_out,
-                        const int* __restrict__ kind,
-                        const float* __restrict__ kd,
-                        const float* __restrict__ ks,
-                        const float* __restrict__ ns,
-                        const float* __restrict__ d_vcm,
-                        const float* __restrict__ d_vm,
-                        const unsigned char* __restrict__ active,
-                        const float* __restrict__ bbox_min,
-                        const float* __restrict__ inv_cell, int num_q,
-                        float* __restrict__ qrec) {
-  const int i = blockIdx.x * kQB + threadIdx.x;
-  if (i >= num_q) return;
-  const size_t q = (size_t)perm[i];
-  const float* p = qpos + q * 3;
-  const float* n = normal + q * 3;
-  const float* g = gn + q * 3;
-  const float* w = w_out + q * 3;
-  const bool act = active[q] != 0;
+// The preparation's per-query input columns (contiguous; kind int32, the
+// vectors (Q, 3) f32, the scalars (Q,) f32, active bool).
+struct QueryCols {
+  const float* __restrict__ qpos;
+  const float* __restrict__ normal;
+  const float* __restrict__ gn;
+  const float* __restrict__ w_out;
+  const int* __restrict__ kind;
+  const float* __restrict__ kd;
+  const float* __restrict__ ks;
+  const float* __restrict__ ns;
+  const float* __restrict__ d_vcm;
+  const float* __restrict__ d_vm;
+  const unsigned char* __restrict__ active;
+};
+
+// Query q's (40,) row r (words 34:40 zero): its inputs are all loaded
+// before any is used.
+__device__ __forceinline__ void query_row(const QueryCols& in, size_t q,
+                                          const float* lo, float ic,
+                                          float* r) {
+  float p[3], n[3], g[3], w[3], kd[3], ks[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    p[c] = in.qpos[q * 3 + c];
+    n[c] = in.normal[q * 3 + c];
+    g[c] = in.gn[q * 3 + c];
+    w[c] = in.w_out[q * 3 + c];
+    kd[c] = in.kd[q * 3 + c];
+    ks[c] = in.ks[q * 3 + c];
+  }
+  const int kind = in.kind[q];
+  const float ns = in.ns[q], d_vcm = in.d_vcm[q], d_vm = in.d_vm[q];
+  const bool act = in.active[q] != 0;
   // local_coordinates (core/sampling.py): the branchless ONB.
   const float s = n[2] >= 0.0f ? 1.0f : -1.0f;
   const float a = -1.0f / (s + n[2]);
@@ -528,31 +561,59 @@ merge_query_rows_kernel(const long long* __restrict__ perm,
   const float t[3] = {1.0f + s * n[0] * n[0] * a, s * b, -s * n[0]};
   const float bt[3] = {b, s + n[1] * n[1] * a, -n[1]};
   int k[4] = {kInvalid, kInvalid, kInvalid, kInvalid};
-  if (act) combo_keys(p, bbox_min, *inv_cell, k);
-  float* o = qrec + (size_t)i * kQW;
+  if (act) combo_keys(p, lo, ic, k);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    o[c] = p[c];
-    o[3 + c] = t[c];
-    o[6 + c] = bt[c];
-    o[9 + c] = n[c];
-    o[12 + c] = g[c];
-    o[22 + c] = kd[q * 3 + c];
-    o[25 + c] = ks[q * 3 + c];
+    r[c] = p[c];
+    r[3 + c] = t[c];
+    r[6 + c] = bt[c];
+    r[9 + c] = n[c];
+    r[12 + c] = g[c];
+    r[22 + c] = kd[c];
+    r[25 + c] = ks[c];
   }
-  o[15] = dot3(w, t);
-  o[16] = dot3(w, bt);
-  o[17] = dot3(w, n);
-  o[18] = dot3(w, g);
-  o[19] = d_vcm[q];
-  o[20] = d_vm[q];
-  o[21] = (float)kind[q];
-  o[28] = ns[q];
+  r[15] = dot3(w, t);
+  r[16] = dot3(w, bt);
+  r[17] = dot3(w, n);
+  r[18] = dot3(w, g);
+  r[19] = d_vcm;
+  r[20] = d_vm;
+  r[21] = (float)kind;
+  r[28] = ns;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) o[29 + c] = (float)k[c];
-  o[33] = act ? 1.0f : 0.0f;
+  for (int c = 0; c < 4; ++c) r[29 + c] = (float)k[c];
+  r[33] = act ? 1.0f : 0.0f;
 #pragma unroll
-  for (int c = 34; c < kQW; ++c) o[c] = 0.0f;
+  for (int c = 34; c < kQW; ++c) r[c] = 0.0f;
+}
+
+constexpr int kRowB = 256;            // threads a rows block: 2 a query
+constexpr int kRowQ = kRowB / 2;      // queries a rows block
+
+// Two threads a query q, in query order; thread h writes the 16-byte
+// words 2j + h (j < 5) of row inv[q], so the pair writes each 32-byte
+// sector of the row whole.
+__global__ void __launch_bounds__(kRowB)
+merge_query_rows_kernel(const int* __restrict__ inv, QueryCols in,
+                        const float* __restrict__ bbox_min,
+                        const float* __restrict__ inv_cell, int num_q,
+                        float4* __restrict__ qrec) {
+  const int h = threadIdx.x & 1;
+  const int q = blockIdx.x * kRowQ + (threadIdx.x >> 1);
+  if (q >= num_q) return;
+  const int row = inv[q];
+  const float lo[3] = {bbox_min[0], bbox_min[1], bbox_min[2]};
+  float r[kQW];
+  query_row(in, q, lo, *inv_cell, r);
+  float4* o = qrec + (size_t)row * (kQW / 4);
+#pragma unroll
+  for (int j = 0; j < kQW / 8; ++j) {
+    const float4 lo4 = make_float4(r[8 * j], r[8 * j + 1], r[8 * j + 2],
+                                   r[8 * j + 3]);
+    const float4 hi4 = make_float4(r[8 * j + 4], r[8 * j + 5],
+                                   r[8 * j + 6], r[8 * j + 7]);
+    o[2 * j + h] = h ? hi4 : lo4;
+  }
 }
 
 inline int blocks_for(int n) { return (n + kQB - 1) / kQB; }
@@ -602,27 +663,41 @@ extern "C" int imba_merge_sort_keys(const void* qpos, const void* active,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Preparation, step 2: qrec (num_q, 40) f32, row i for query perm[i]
-// (int64), from the caller's arrays (contiguous; kind int32, the vectors
-// (num_q, 3) f32, the scalars (num_q,) f32, active bool).
+// Preparation, step 2 (after the caller's stable sort of the keys):
+// inv (num_q,) int32, inv[perm[i]] = i, of perm (num_q,) int64.
+extern "C" int imba_merge_inverse(const void* perm, int num_q, void* inv,
+                                  void* stream) {
+  if (num_q > 0)
+    merge_inverse_kernel<<<(num_q + kInvB - 1) / kInvB, kInvB, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(perm), num_q, static_cast<int*>(inv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Preparation, step 3: qrec (num_q, 40) f32 (16-byte aligned), query q's
+// row at row inv[q] (int32), from the caller's arrays (contiguous; kind
+// int32, the vectors (num_q, 3) f32, the scalars (num_q,) f32, active
+// bool).
 extern "C" int imba_merge_query_rows(
-    const void* perm, const void* qpos, const void* normal, const void* gn,
+    const void* inv, const void* qpos, const void* normal, const void* gn,
     const void* w_out, const void* kind, const void* kd, const void* ks,
     const void* ns, const void* d_vcm, const void* d_vm, const void* active,
     const void* bbox_min, const void* inv_cell, int num_q, void* qrec,
     void* stream) {
-  if (num_q > 0)
-    merge_query_rows_kernel<<<blocks_for(num_q), kQB, 0,
+  if (num_q > 0) {
+    const QueryCols in{
+        static_cast<const float*>(qpos), static_cast<const float*>(normal),
+        static_cast<const float*>(gn), static_cast<const float*>(w_out),
+        static_cast<const int*>(kind), static_cast<const float*>(kd),
+        static_cast<const float*>(ks), static_cast<const float*>(ns),
+        static_cast<const float*>(d_vcm), static_cast<const float*>(d_vm),
+        static_cast<const unsigned char*>(active)};
+    merge_query_rows_kernel<<<(num_q + kRowQ - 1) / kRowQ, kRowB, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(perm), static_cast<const float*>(qpos),
-        static_cast<const float*>(normal), static_cast<const float*>(gn),
-        static_cast<const float*>(w_out), static_cast<const int*>(kind),
-        static_cast<const float*>(kd), static_cast<const float*>(ks),
-        static_cast<const float*>(ns), static_cast<const float*>(d_vcm),
-        static_cast<const float*>(d_vm),
-        static_cast<const unsigned char*>(active),
+        static_cast<const int*>(inv), in,
         static_cast<const float*>(bbox_min),
         static_cast<const float*>(inv_cell), num_q,
-        static_cast<float*>(qrec));
+        static_cast<float4*>(qrec));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,6 +69,7 @@ POS_W = 4             # the selection's position column (ops/select.py)
 BIG = 1e30
 INV_PI = 1.0 / math.pi
 INVALID = -2
+INACTIVE_KEY = 1 << 30   # an inactive query's sort key: after every cell
 
 MAT_DIFFUSE = 0
 MAT_GLOSSY = 3
@@ -77,13 +78,17 @@ MAT_OREN_NAYAR = 5
 # Non-delta kinds the merge evaluates, in the kernel's kind-mask bits.
 MERGE_KINDS = (MAT_DIFFUSE, MAT_GLOSSY, MAT_PHONG, MAT_OREN_NAYAR)
 
-# Launch counts: one per wrapper call on the CUDA route ("merge" the
-# gather, "prep" the query preparation, "grid_keys" and "grid_tiles" the
-# photon grid's build), one per call of a plain version (PLAIN_KEYS).
-# chip_smoke.py reads them to show the main path ran through the kernels.
+# Launch counts: one per kernel launch on the CUDA route ("merge" the
+# gather, PREP_KERNELS the query preparation's sort keys, inverse
+# permutation and rows, "grid_keys" and "grid_tiles" the photon grid's
+# build), one per call of a plain version (PLAIN_KEYS).  chip_smoke.py
+# reads them to show the main path ran through the kernels.
+PREP_KERNELS = ("prep_keys", "prep_inverse", "prep_rows")
 GRID_KERNELS = ("grid_keys", "grid_tiles")
-PLAIN_KEYS = ("plain", "prep_plain", "grid_keys_plain", "grid_tiles_plain")
-LAUNCHES = dict.fromkeys(("merge", "prep") + GRID_KERNELS + PLAIN_KEYS, 0)
+PLAIN_KEYS = ("plain", "prep_plain", "prep_keys_plain", "prep_inverse_plain",
+              "grid_keys_plain", "grid_tiles_plain")
+LAUNCHES = dict.fromkeys(("merge",) + PREP_KERNELS + GRID_KERNELS
+                         + PLAIN_KEYS, 0)
 
 # Counter slots of a counting launch (csrc/merge_kernel.cu): photons
 # examined (in a combo key range of a live query), those within the
@@ -216,6 +221,28 @@ def combo_keys(grid: MergeGrid, qpos, active):
     return torch.where(active[:, None], keys, INVALID)
 
 
+def _anchor_sort_key(keys, active):
+    return torch.where(active, keys[:, 0], INACTIVE_KEY)
+
+
+def sort_keys_plain(grid: MergeGrid, qpos, active):
+    """(Q,) i32 anchor sort keys: each query's first combo key,
+    INACTIVE_KEY for an inactive one.  The plain version of
+    sort_keys_cuda."""
+    LAUNCHES["prep_keys_plain"] += 1
+    return _anchor_sort_key(combo_keys(grid, qpos, active), active)
+
+
+def inverse_plain(perm):
+    """(Q,) i32 inv with inv[perm[i]] = i.  The plain version of
+    inverse_cuda."""
+    LAUNCHES["prep_inverse_plain"] += 1
+    inv = torch.empty(perm.shape, dtype=torch.int32, device=perm.device)
+    inv[perm] = torch.arange(perm.shape[0], dtype=torch.int32,
+                             device=perm.device)
+    return inv
+
+
 def prepare_queries(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
                     d_vm, active):
     """(qrec (Q, 40) sorted by anchor key, perm (Q,) int64): the gather's
@@ -224,8 +251,7 @@ def prepare_queries(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
     LAUNCHES["prep_plain"] += 1
     num_q = qpos.shape[0]
     keys = combo_keys(grid, qpos, active)
-    sort_key = torch.where(active, keys[:, 0], 1 << 30)
-    perm = torch.sort(sort_key, stable=True)[1]
+    perm = torch.sort(_anchor_sort_key(keys, active), stable=True)[1]
 
     t, b = local_coordinates(normal)
     proj = lambda v, a: (v[:, 0] * a[:, 0] + v[:, 1] * a[:, 1]
@@ -464,6 +490,7 @@ def _library():
         for name, args in (
                 ("imba_merge", [vp, i, vp, i, vp, vp, i, i, vp, vp, vp, vp]),
                 ("imba_merge_sort_keys", [vp] * 4 + [i, vp, vp]),
+                ("imba_merge_inverse", [vp, i, vp, vp]),
                 ("imba_merge_query_rows", [vp] * 14 + [i, vp, vp])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -489,11 +516,18 @@ def _launched(err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def prepare_cuda(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
-                 d_vm, active):
-    """prepare_queries' (qrec, perm) on CUDA tensors (raises on anything
-    else): a kernel writes each query's anchor sort key, torch.sort orders
-    them (stable), and a second kernel writes the rows in sorted order."""
+# The preparation's query columns in the order of imba_merge_query_rows.
+PREP_COLUMNS = ("qpos", "normal", "gn", "w_out", "kind", "kd", "ks", "ns",
+                "d_vcm", "d_vm", "active")
+
+
+def prep_inputs(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
+                d_vm, active):
+    """The preparation kernels' inputs by name (PREP_COLUMNS, bbox_min,
+    inv_cell), checked: f32 but kind int32 and active bool, contiguous,
+    on the queries' CUDA device (raises otherwise).  Columns that already
+    are so are passed as they are: the camera pass's are, so nothing is
+    copied on the frame's path."""
     dev = qpos.device
     num_q = qpos.shape[0]
     f32 = lambda x: x.to(torch.float32).contiguous()
@@ -507,22 +541,65 @@ def prepare_cuda(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
                   active=(num_q,), bbox_min=(3,), inv_cell=())
     for name, x in args.items():
         _check(name, x, x.dtype, shapes.get(name, (num_q, 3)), dev)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sort_key = torch.empty((num_q,), dtype=torch.int32, device=dev)
-    _launched(lib.imba_merge_sort_keys(
-        args["qpos"].data_ptr(), args["active"].data_ptr(),
-        args["bbox_min"].data_ptr(), args["inv_cell"].data_ptr(), num_q,
-        sort_key.data_ptr(), stream), "merge sort keys")
-    perm = torch.sort(sort_key, stable=True)[1]
+    return args
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def sort_keys_cuda(args):
+    """Launch merge_sort_key_kernel on prep_inputs' `args`: sort_keys_plain's
+    (Q,) i32 keys."""
+    q = args["qpos"]
+    sort_key = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    _launched(_library().imba_merge_sort_keys(
+        q.data_ptr(), args["active"].data_ptr(), args["bbox_min"].data_ptr(),
+        args["inv_cell"].data_ptr(), q.shape[0], sort_key.data_ptr(),
+        _stream(q.device)), "merge sort keys")
+    LAUNCHES["prep_keys"] += 1
+    return sort_key
+
+
+def inverse_cuda(perm):
+    """Launch merge_inverse_kernel on a CUDA permutation (Q,) int64
+    (raises on anything else): inverse_plain's (Q,) i32."""
+    num_q = perm.numel()
+    _check("perm", perm, torch.int64, (num_q,), perm.device)
+    inv = torch.empty((num_q,), dtype=torch.int32, device=perm.device)
+    _launched(_library().imba_merge_inverse(
+        perm.data_ptr(), num_q, inv.data_ptr(), _stream(perm.device)),
+        "merge inverse")
+    LAUNCHES["prep_inverse"] += 1
+    return inv
+
+
+def query_rows_cuda(args, inv):
+    """Launch merge_query_rows_kernel on prep_inputs' `args` and the
+    inverse permutation `inv` (Q,) int32 of the sort: (Q, 40) rows, query
+    q's in row inv[q]."""
+    dev = args["qpos"].device
+    num_q = args["qpos"].shape[0]
+    _check("inv", inv, torch.int32, (num_q,), dev)
     qrec = torch.empty((num_q, QREC_W), dtype=torch.float32, device=dev)
-    _launched(lib.imba_merge_query_rows(
-        perm.data_ptr(), *(args[k].data_ptr() for k in (
-            "qpos", "normal", "gn", "w_out", "kind", "kd", "ks", "ns",
-            "d_vcm", "d_vm", "active", "bbox_min", "inv_cell")),
-        num_q, qrec.data_ptr(), stream), "merge query rows")
-    LAUNCHES["prep"] += 1
-    return qrec, perm
+    _launched(_library().imba_merge_query_rows(
+        inv.data_ptr(), *(args[k].data_ptr() for k in PREP_COLUMNS),
+        args["bbox_min"].data_ptr(), args["inv_cell"].data_ptr(), num_q,
+        qrec.data_ptr(), _stream(dev)), "merge query rows")
+    LAUNCHES["prep_rows"] += 1
+    return qrec
+
+
+def prepare_cuda(grid: MergeGrid, qpos, normal, gn, w_out, params, d_vcm,
+                 d_vm, active):
+    """prepare_queries' (qrec, perm) on CUDA tensors (raises on anything
+    else): a kernel writes each query's anchor sort key, torch.sort orders
+    them (stable), a kernel inverts the permutation, and a kernel writes
+    each query's row, in query order, to its sorted place."""
+    args = prep_inputs(grid, qpos, normal, gn, w_out, params, d_vcm, d_vm,
+                       active)
+    perm = torch.sort(sort_keys_cuda(args), stable=True)[1]
+    return query_rows_cuda(args, inverse_cuda(perm)), perm
 
 
 def merge_cuda(qrec, grid: MergeGrid, scal, kinds: tuple, ppm: bool,
@@ -549,7 +626,7 @@ def merge_cuda(qrec, grid: MergeGrid, scal, kinds: tuple, ppm: bool,
         grid.tiles.data_ptr(), scal.data_ptr(), int(ppm), kind_mask(kinds),
         None if perm is None else perm.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "merge kernel")
+        _stream(dev)), "merge kernel")
     LAUNCHES["merge"] += 1
     return out
 

@@ -14,7 +14,10 @@ csrc/dispatch.cu) through the same C interface; and the two bounces
 whose NEE searches the environment's CDFs (pt_shade_kernel,
 csrc/pt_shade.cu, and vcm_camera_shade_kernel, csrc/vcm_shade.cu, both
 through csrc/shading.cuh's env_sample_dir) against an earlier tree's,
-for a change of that search.
+for a change of that search; and the merge's query preparation
+(merge_sort_key_kernel, merge_inverse_kernel, merge_query_rows_kernel in
+csrc/merge_kernel.cu) against the earlier tree's sort keys and sorted
+rows.
 
 The earlier designs are another checkout's sources (--root, for example
 the parent commit unpacked under the git-ignored out/), built with this
@@ -52,10 +55,21 @@ at both slot shares and on the still life's bounce-1 re-trace; `nee`
 pt_shade_kernel on the middle band of PT bounce 1 of the still life and
 of the instanced scene, and vcm_camera_shade_kernel on phase 4c's
 still-life camera bounces 0 and 3, each line with the share of the lanes
-whose NEE picks the environment.  Every design's outputs must equal the
-plain version's bit for bit (the light start's: phase 4b's gates, and
-the two designs' bit for bit; the NEE cells': the two designs' bit for
-bit, phase 4b's and 4c's gates holding the plain versions).
+whose NEE picks the environment; `prep` the merge's query preparation on
+the camera bounce-1 queries of the middle band of a 1920x1080 vcm frame
+with 2^20 light paths of the still life and of the instanced scene, and
+on seeded queries spread over the still life's grid: the earlier design
+(its sort keys, the library's sort, its rows in sorted order), this
+tree's (keys, sort, inverse, rows in query order) and the sorted-order
+staged rows of scripts/ab_prep_designs.cu, each step and the whole
+timed (and each design's kernels traced after an L2 flush), and this
+tree's keys and inverse at other widths (KEY_WIDTHS, INVERSE_WIDTHS),
+traced with their inputs L2-warm and after a flush, beside a library
+read of the same inputs and an empty kernel of the port's grid.  Every
+design's outputs must equal the plain version's bit for bit (the light
+start's: phase 4b's gates, and the two designs' bit for bit; the NEE
+cells': the two designs' bit for bit, phase 4b's and 4c's gates holding
+the plain versions).
 
 Each `[ab]` line names the card and its power limit, with the bound of
 the bytes the function moves (chip_smoke.py's count) and each build's
@@ -103,7 +117,12 @@ EARLIER_GATHER_ARGS = [vp, vp, vp, i64, i64, vp, vp, vp]
 EARLIER_TAIL = "collect_tail_kernel"
 # This tree's gather, which names its interface.
 POS_GATHER = "void* pos, void* stream"
-CELLS = ("light_start", "grid", "append", "keys", "gather", "nee")
+CELLS = ("light_start", "grid", "append", "keys", "gather", "nee", "prep")
+# The earlier libraries of LIBS each cell runs (prep builds its own).
+CELL_LIBS = {"light_start": ("vcm_shade",), "grid": ("select", "grid_build"),
+             "append": ("light_tail",), "keys": ("select",),
+             "gather": ("dispatch",), "nee": ("pt_shade", "vcm_shade"),
+             "prep": ()}
 # Each earlier library: (module, its NativeLib's attribute, its cached
 # library's attribute, its binding function's name).
 LIBS = {"light_tail": (lt, "LIB", "_lib", "_library"),
@@ -156,11 +175,11 @@ def this_library(key):
     return getattr(mod, bind)()
 
 
-def earlier_builds(root):
-    """({LIBS key: (library, ptxas log)} of the earlier sources, built in
-    parallel; whether the append and keys have this tree's C interfaces;
-    whether the gather has).  A library that fails to build is left out
-    (its log printed)."""
+def earlier_builds(root, keys):
+    """({LIBS key: (library, ptxas log)} of the earlier sources of `keys`,
+    built in parallel; whether the append and keys have this tree's C
+    interfaces; whether the gather has).  A library that fails to build
+    is left out (its log printed)."""
     os.makedirs(libbuild.BUILD_DIR, exist_ok=True)
     inc = os.path.join(os.path.abspath(root), "imbatracer_torch", "csrc")
     src = {}
@@ -170,7 +189,8 @@ def earlier_builds(root):
     same = EARLIER_TAIL not in src["light_tail"]
     same_gather = POS_GATHER in src["select"]
     procs = {}
-    for key, (mod, lib_attr, _, _) in LIBS.items():
+    for key in keys:
+        mod, lib_attr, _, _ = LIBS[key]
         name = getattr(mod, lib_attr).name
         so = os.path.join(libbuild.BUILD_DIR, f"lib{name}_earlier.so")
         procs[key] = (so, build(os.path.join(inc, getattr(
@@ -404,8 +424,10 @@ def main():
 
     dev = get_device("cuda")
     card = card_line(dev)
+    cs.build_libraries()
     new = {key: this_library(key) for key in LIBS}
-    built, same, same_gather = earlier_builds(args.root)
+    built, same, same_gather = earlier_builds(args.root, sorted(
+        {key for cell in args.only for key in CELL_LIBS[cell]}))
     log_builds(built, same, card)
     libs = {k: {"earlier": built[k][0], "redesigned": new[k]}
             for k in new if k in built}
@@ -431,6 +453,8 @@ def main():
         gather_cells(libs, scene, meta, card)
     if "nee" in args.only:
         nee_cells(libs, scene, meta, cam, fi, lpc, cap, dev, card)
+    if "prep" in args.only:
+        prep_cells(args.root, scene, meta, dev, card)
     cs.log("[ab] done")
 
 
@@ -829,6 +853,348 @@ def nee_cells(libs, scene, meta, cam, fi, lpc, cap, dev, card):
         nee_case("vcm_camera_shade_kernel", "vcm_shade", libs,
                  f"still_life 1920x1080, camera bounce {bounce}", fn, c,
                  scene, card)
+
+
+# The merge's query preparation: the earlier design's entry points (its
+# rows take the sort's permutation), the sorted-order design and this
+# tree's keys and inverse at other widths (scripts/ab_prep_designs.cu).
+EARLIER_PREP_ARGS = {"imba_merge_sort_keys": [vp] * 4 + [i32, vp, vp],
+                     "imba_merge_query_rows": [vp] * 14 + [i32, vp, vp]}
+DESIGNS_SRC = os.path.join(HERE, "scripts", "ab_prep_designs.cu")
+DESIGNS_ARGS = {"imba_ab_rows_sorted": [vp] * 14 + [i32, vp, vp],
+                "imba_ab_sort_keys": [i32, i32] + [vp] * 4 + [i32, vp, vp],
+                "imba_ab_inverse": [i32, i32, vp, i32, vp, vp],
+                "imba_ab_empty": [i32, i32, vp]}
+# (entries a thread, threads a block) of the keys' and the inverse's
+# variants (ab_prep_designs.cu KEY_WIDTHS, INVERSE_WIDTHS); the port's
+# kernels' first (csrc/merge_kernel.cu: one entry a thread, kQB and kInvB
+# threads a block).
+KEY_WIDTHS = ((1, 128), (1, 256), (1, 512), (1, 1024), (2, 128), (2, 256),
+              (4, 64), (4, 128), (8, 64))
+INVERSE_WIDTHS = ((1, 256), (1, 128), (1, 512), (1, 1024), (2, 256),
+                  (4, 256))
+PREP_SEED = 26
+# An L2 flush before each traced call: a fill of more than the 50 MB L2.
+FLUSH_BYTES = 256 << 20
+
+
+def bound_lib(src, inc, so, types):
+    """`src` built with this tree's flags (including from `inc`) into
+    `so` and bound with `types` ({entry point: argument types}): (the
+    library, its ptxas log), or (None, the log) if it fails to build."""
+    proc = build(src, so, inc)
+    err = proc.communicate()[1]
+    if proc.returncode != 0:
+        cs.log(f"[ab] building {src} failed:\n{err}")
+        return None, err
+    lib = ctypes.CDLL(so)
+    for name, args in types.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, args
+    return lib, err
+
+
+def earlier_sort_keys(lib, pin):
+    """The earlier design's sort keys."""
+    q = pin["qpos"]
+    key = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    _ok(lib.imba_merge_sort_keys(
+        q.data_ptr(), pin["active"].data_ptr(), pin["bbox_min"].data_ptr(),
+        pin["inv_cell"].data_ptr(), q.shape[0], key.data_ptr(), _stream()),
+        "sort keys")
+    return key
+
+
+def earlier_prep(lib, pin):
+    """The earlier preparation: its sort keys, the library's stable sort,
+    its rows in sorted order through the permutation: (qrec, perm,
+    keys)."""
+    key = earlier_sort_keys(lib, pin)
+    perm = torch.sort(key, stable=True)[1]
+    return earlier_rows(lib, pin, perm), perm, key
+
+
+def earlier_rows(lib, pin, perm, entry="imba_merge_query_rows"):
+    """Rows in sorted order through `perm` by the earlier design's rows
+    kernel (or the sorted-order design's, `entry`)."""
+    q = pin["qpos"]
+    qrec = torch.empty((q.shape[0], mg.QREC_W), dtype=torch.float32,
+                       device=q.device)
+    _ok(getattr(lib, entry)(
+        perm.data_ptr(), *(pin[k].data_ptr() for k in mg.PREP_COLUMNS),
+        pin["bbox_min"].data_ptr(), pin["inv_cell"].data_ptr(), q.shape[0],
+        qrec.data_ptr(), _stream()), entry)
+    return qrec
+
+
+def width_keys(lib, width, pin):
+    """This tree's sort keys at `width` (a KEY_WIDTHS entry)."""
+    q = pin["qpos"]
+    key = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    _ok(lib.imba_ab_sort_keys(
+        *width, q.data_ptr(), pin["active"].data_ptr(),
+        pin["bbox_min"].data_ptr(), pin["inv_cell"].data_ptr(), q.shape[0],
+        key.data_ptr(), _stream()), f"sort keys at {width}")
+    return key
+
+
+def width_inverse(lib, width, perm):
+    """This tree's inverse at `width` (an INVERSE_WIDTHS entry)."""
+    inv = torch.empty(perm.shape, dtype=torch.int32, device=perm.device)
+    _ok(lib.imba_ab_inverse(*width, perm.data_ptr(), perm.shape[0],
+                            inv.data_ptr(), _stream()),
+        f"inverse at {width}")
+    return inv
+
+
+def cold_traced_us(fn, name=None, reps=10, flush=True):
+    """Mean device time (us) of the kernels whose name holds `name` (all
+    of a call's kernels but the flush, for None) over `reps` calls of fn,
+    each after an L2 flush (a fill of FLUSH_BYTES; none unless `flush`),
+    captured in one CUDA graph and traced (torch.profiler) over one
+    replay: a launch as a frame meets it, its inputs in DRAM."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.empty((FLUSH_BYTES // 4,), dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            if flush:
+                buf.fill_(1)
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA
+          and (name in e.name() if name else "FillFunctor" not in e.name())]
+    return sum(ns) / (max(len(ns), 1) if name else reps) / 1e3
+
+
+def width_cells(slib, label, pin, perm, want_key, want_inv, card):
+    """`[ab]` lines of the sort keys and the inverse at each width of
+    KEY_WIDTHS and INVERSE_WIDTHS: bit-equal to the plain versions, then
+    timed in turns, widths down the list and back: traced with the
+    inputs L2-warm and after an L2 flush (cold_traced_us), beside a
+    library read of the same inputs and an empty kernel of each port
+    kernel's grid."""
+    runs = {("keys", w): partial(width_keys, slib, w, pin)
+            for w in KEY_WIDTHS}
+    runs.update({("inverse", w): partial(width_inverse, slib, w, perm)
+                 for w in INVERSE_WIDTHS})
+    got = {k: fn() for k, fn in runs.items()}
+    torch.cuda.synchronize()
+    bad = {f"{k[0]} {k[1]}": cs.bit_mismatches(
+        v, want_key if k[0] == "keys" else want_inv) for k, v in got.items()}
+    if any(bad.values()):
+        raise AssertionError(f"[ab] merge preparation widths {label}: "
+                             f"elements not bit-equal {bad}")
+    kernel = {"keys": "keys_wide_kernel", "inverse": "inverse_wide_kernel"}
+    warm = {k: [] for k in runs}
+    cold = {k: [] for k in runs}
+    for k in [*runs, *reversed(list(runs))]:
+        warm[k].append(cold_traced_us(runs[k], kernel[k[0]], flush=False))
+        cold[k].append(cold_traced_us(runs[k], kernel[k[0]]))
+    # One read pass over the same inputs by the library, cold: a sum over
+    # the positions (3 MB in, 1 MB out) and the inverse's yardstick.
+    iota = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    inv_lib = torch.empty_like(iota)
+    floor = {"keys": ("torch.sum of the positions' rows", [cold_traced_us(
+        partial(torch.sum, pin["qpos"], 1)) for _ in range(2)]),
+             "inverse": ("index_copy_ of the inverse", [cold_traced_us(
+                 partial(inv_lib.index_copy_, 0, perm, iota))
+                 for _ in range(2)])}
+    # The floor of the port's grids: an empty kernel of the same shape.
+    n = perm.shape[0]
+    for what, block in (("keys", 128), ("inverse", 256)):
+        blocks = -(-n // block)
+        empty = lambda: _ok(slib.imba_ab_empty(blocks, block, _stream()),
+                            "empty kernel")
+        floor[what] += ([cold_traced_us(empty, "empty_kernel", flush=False)
+                         for _ in range(2)], blocks, block)
+    us = lambda v: " / ".join(f"{x:.2f}" for x in v)
+    for what in ("keys", "inverse"):
+        parts = "; ".join(
+            f"{w[0]} a thread x {w[1]}: {us(warm[kind, w])} us warm, "
+            f"{us(cold[kind, w])} us cold"
+            for kind, w in runs if kind == what)
+        lib_name, lib_us, empty_us, blocks, block = floor[what]
+        cs.log(f"[ab] merge preparation, {label}: {what} (entries a thread "
+               f"x threads a block; the port's first): {parts}; bit-equal; "
+               f"the library's {lib_name} "
+               + " / ".join(f"{x:.2f}" for x in lib_us) + " us cold; an "
+               f"empty kernel of {blocks} x {block} threads "
+               + " / ".join(f"{x:.2f}" for x in empty_us) + f" us [{card}]")
+
+
+def recorded_queries(scene, meta, dev):
+    """(grid, prepare_queries' arguments) of the camera bounce-1 merge of
+    the middle band of a 1920x1080 vcm frame with 2^20 light paths, the
+    working cache and grid as the frame builds them."""
+    cam, fi, lpc, cap = cs.vcm_frame_inputs(scene, meta, 1920, 1080, 8, dev)
+    wfi = cs.vcm_working_cache(scene, meta, cam, fi, lpc, cap, 8)
+    c, hit, kw = cs.camera_carry(scene, meta, cam, wfi, lpc, 8, 1, 1)
+    q = vs.camera_shade_cuda(scene, c, hit, 1, **kw)[2]
+    return wfi.grid, (q.pos, q.normal, q.gn, q.w_out, q.params, q.d_vcm,
+                      q.d_vm, q.active)
+
+
+def seeded_queries(grid, num_q, dev):
+    """prepare_queries' arguments of `num_q` seeded queries spread over
+    the grid's 256^3 cells (PREP_SEED), 85% active."""
+    rs = np.random.RandomState(PREP_SEED)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def unit(n):
+        v = rs.randn(n, 3)
+        return t(v / np.linalg.norm(v, axis=1, keepdims=True))
+
+    extent = 256.0 / float(grid.inv_cell)
+    n = unit(num_q)
+    params = dict(kind=torch.as_tensor(rs.choice((0, 3, 4, 5), num_q),
+                                       dtype=torch.int32, device=dev),
+                  kd=t(rs.rand(num_q, 3)), ks=t(rs.rand(num_q, 3)),
+                  ns=t(1.0 + rs.rand(num_q) * 30.0))
+    return (grid.bbox_min + t(rs.rand(num_q, 3)) * extent, n,
+            torch.nn.functional.normalize(n + 0.1 * unit(num_q), dim=1),
+            unit(num_q), params, t(rs.rand(num_q) * 2), t(rs.rand(num_q) * 2),
+            torch.as_tensor(rs.rand(num_q) > 0.15, device=dev))
+
+
+def prep_case(elib, slib, label, grid, args, card):
+    """An `[ab]` line of the merge's query preparation on `args`: the
+    earlier design, this tree's (sort keys, sort, inverse, rows in query
+    order) and the sorted-order design (this tree's keys and sort, the
+    staged rows) held against prepare_queries bit for bit, then each step
+    and the whole timed in turns (graph_ms)."""
+    want, want_perm = mg.prepare_queries(grid, *args)
+    want_key = mg.sort_keys_plain(grid, args[0], args[7])
+    pin = mg.prep_inputs(grid, *args)
+    e_rec, e_perm, e_key = earlier_prep(elib, pin)
+    key = mg.sort_keys_cuda(pin)
+    perm = torch.sort(key, stable=True)[1]
+    inv = mg.inverse_cuda(perm)
+    rows = mg.query_rows_cuda(pin, inv)
+    got = {"earlier": (e_rec, e_perm, e_key),
+           "redesigned": (rows, perm, key)}
+    if slib is not None:
+        got["sorted"] = (earlier_rows(slib, pin, perm, "imba_ab_rows_sorted"),
+                         perm, key)
+    torch.cuda.synchronize()
+    bad = {which: cs.bit_mismatches(r, want)
+           + cs.bit_mismatches(p, want_perm) + cs.bit_mismatches(k, want_key)
+           for which, (r, p, k) in got.items()}
+    want_inv = mg.inverse_plain(perm)
+    bad["inverse"] = cs.bit_mismatches(inv, want_inv)
+    if any(bad.values()):
+        raise AssertionError(f"[ab] merge preparation {label}: elements not "
+                             f"bit-equal to the plain versions {bad}")
+    sort = partial(torch.sort, key, stable=True)
+    fns = {"earlier": {
+        "keys": partial(earlier_sort_keys, elib, pin),
+        "rows": partial(earlier_rows, elib, pin, perm),
+        "whole": partial(earlier_prep, elib, pin)},
+        "redesigned": {
+        "keys": partial(mg.sort_keys_cuda, pin), "sort": sort,
+        "inverse": partial(mg.inverse_cuda, perm),
+        "rows": partial(mg.query_rows_cuda, pin, inv),
+        "whole": partial(mg.prepare_cuda, grid, *args)}}
+    if slib is not None:
+        fns["sorted"] = {
+            "rows": partial(earlier_rows, slib, pin, perm,
+                            "imba_ab_rows_sorted"),
+            "whole": lambda: earlier_rows(
+                slib, pin, torch.sort(mg.sort_keys_cuda(pin),
+                                      stable=True)[1], "imba_ab_rows_sorted")}
+    turns = ("earlier", "redesigned", "sorted", "sorted", "redesigned",
+             "earlier")
+    ms = {}
+    for which in turns:
+        for step, fn in fns.get(which, {}).items():
+            ms.setdefault((which, step), []).append(cs.graph_ms(fn))
+    num_q = want.shape[0]
+    # The earlier keys moved the same 17 B a query; its rows read an
+    # 8-byte permutation entry where this tree's read a 4-byte inverse one.
+    bounds = {step: cs.shade_bound(num_q * nbytes, 0)[0] for step, nbytes in
+              (("keys", cs.PREP_BYTES["keys"]),
+               ("inverse", cs.PREP_BYTES["inverse"]),
+               ("rows", cs.PREP_BYTES["rows"]),
+               ("whole", cs.PREP_BYTES["prep"]))}
+    live = float(args[7].double().mean())
+    for which in fns:
+        parts = ", ".join(f"{step} {fmt(ms[which, step])}"
+                          for step in ("keys", "sort", "inverse", "rows",
+                                       "whole") if (which, step) in ms)
+        cs.log(f"[ab] merge preparation, {label}: {num_q} queries, {live:.4f}"
+               f" active; {which}: {parts} ms; bounds keys "
+               f"{bounds['keys']:.4f}, inverse {bounds['inverse']:.4f}, rows "
+               f"{bounds['rows']:.4f}, whole {bounds['whole']:.4f} ms by "
+               f"bytes; bit-equal [{card}]")
+    names = {"keys": "merge_sort_key_kernel", "inverse":
+             "merge_inverse_kernel", "rows": "merge_query_rows_kernel"}
+    cold = {}
+    for which in ("earlier", "redesigned", "sorted", "redesigned",
+                  "earlier"):
+        for step, fn in fns.get(which, {}).items():
+            if step in names:
+                name = "rows_sorted_kernel" if which == "sorted" else \
+                    names[step]
+                cold.setdefault((which, step), []).append(
+                    cold_traced_us(fn, name))
+    for which in fns:
+        parts = ", ".join(
+            f"{step} " + " / ".join(f"{x:.2f}" for x in cold[which, step])
+            for step in names if (which, step) in cold)
+        cs.log(f"[ab] merge preparation, {label}: {which}, traced after an "
+               f"L2 flush: {parts} us a launch [{card}]")
+    if slib is not None:
+        width_cells(slib, label, pin, perm, want_key, want_inv, card)
+
+
+def prep_cells(root, scene, meta, dev, card):
+    """`[ab]` lines of the merge's query preparation: the earlier tree's
+    (its merge_kernel.cu), this tree's and the sorted-order design, and
+    this tree's keys and inverse at other widths, on the still life's and
+    the instanced scene's recorded camera bounce-1 queries and on seeded
+    queries over the still life's grid."""
+    inc = os.path.join(os.path.abspath(root), "imbatracer_torch", "csrc")
+    os.makedirs(libbuild.BUILD_DIR, exist_ok=True)
+    elib, elog = bound_lib(os.path.join(inc, mg.LIB.source), inc, os.path.join(
+        libbuild.BUILD_DIR, "libmerge_kernel_earlier.so"), EARLIER_PREP_ARGS)
+    slib, slog = bound_lib(DESIGNS_SRC, libbuild.CSRC, os.path.join(
+        libbuild.BUILD_DIR, "libab_prep_designs.so"), DESIGNS_ARGS)
+    if elib is None:
+        cs.log("[ab] prep: the earlier merge library did not build; not run")
+        return
+    grid, args = recorded_queries(scene, meta, dev)
+    # This tree's kernels are in the designs' build too (the same flags)
+    # when this process did not build the port's library itself.
+    this = libbuild.BUILD_INFO.get(mg.LIB.name, {}).get("log", "") or slog
+    for which, log, kernels in (
+            ("earlier", elog, ("merge_sort_key_kernel",
+                               "merge_query_rows_kernel")),
+            ("this tree's", this, ("merge_sort_key_kernel",
+                                   "merge_inverse_kernel",
+                                   "merge_query_rows_kernel")),
+            ("designs'", slog, ("rows_sorted_kernel", "keys_wide_kernel",
+                                "inverse_wide_kernel"))):
+        for kernel in kernels:
+            if kernel in log:
+                cs.log(f"[ab] {which} {kernel}: {ptxas(log, kernel)}")
+    prep_case(elib, slib, "still_life 1920x1080 camera bounce 1, middle band",
+              grid, args, card)
+    prep_case(elib, slib, f"seeded over the still life's grid "
+              f"(seed {PREP_SEED})", grid,
+              seeded_queries(grid, args[0].shape[0], dev), card)
+    del args
+    inst, inst_meta = instanced_scene(dev)
+    grid, args = recorded_queries(inst, inst_meta, dev)
+    prep_case(elib, slib, "instanced 1920x1080 camera bounce 1, middle band",
+              grid, args, card)
 
 
 if __name__ == "__main__":

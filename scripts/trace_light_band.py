@@ -28,13 +28,15 @@ between the marks, the port's ctypes launches included):
   ranks every hand-written kernel by launches x (us a launch - bound at
   the traced threads): each launch's threads (its grid and block, from
   the frame's chrome trace) times a thread's share of the bound, plus
-  the bytes a launch moves whatever its threads (THREAD_BYTES,
-  THREAD_US, LAUNCH_BYTES; the re-trace's valid slots a dispatch
-  counted on the card in one more frame of fresh captures, after every
-  trace is taken), beside the traced time of an empty kernel replayed
-  in a graph; and counts the
-  launches from each masked dispatch's first-round resolve to its WHILE
-  node, from a pass's resolve to the node's next test, and from the
+  the bytes a launch moves whatever its threads, plus the merge
+  preparation's bytes a query (THREAD_BYTES, THREAD_US, LAUNCH_BYTES,
+  QUERY_BYTES from chip_smoke.PREP_BYTES; the re-trace's valid slots a
+  dispatch counted on the card in one more frame of fresh captures,
+  after every trace is taken), the groups of GROUPS summed (the
+  preparation's against the whole job's bytes, GROUP_QUERY_BYTES),
+  beside the traced time of an empty kernel replayed in a graph; and
+  counts the launches from each masked dispatch's first-round resolve to
+  its WHILE node, from a pass's resolve to the node's next test, and from the
   node to the merged hit (`[loop]` lines);
 * the instanced scene (scene/generate.CARD, 1920x1080, default light
   paths): one graphed vcm frame (busy, the middle, the scalar-add
@@ -70,6 +72,11 @@ def _args():
 
 
 ARGS = _args()
+# This tree's byte counts (chip_smoke.PREP_BYTES), whichever tree is traced.
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
+
 sys.path.insert(0, os.path.abspath(ARGS.root))
 
 import torch  # noqa: E402
@@ -271,7 +278,9 @@ NAMED = ("pt_shade_kernel", "pt_shade_finish_kernel",
          "stream_resolve_kernel", "slot_gather_kernel",
          "slot_finish_kernel", "collect_append_kernel", "splat_kernel",
          "select_keys_kernel", "select_gather_kernel",
-         "grid_keys_kernel", "grid_tiles_kernel", "set_conditional")
+         "grid_keys_kernel", "grid_tiles_kernel", "set_conditional",
+         "merge_sort_key_kernel", "merge_inverse_kernel",
+         "merge_query_rows_kernel")
 
 # Every hand-written kernel of PERF.md section 6 is ranked by the time it
 # loses against its bound, a launch's bound being the bytes its threads
@@ -320,15 +329,24 @@ THREAD_BYTES = {"pt_shade_kernel": 86 + 115,
                 "grid_tiles_kernel": 268.4e6 / 2034225}
 # The traversals' operations bound of section 6 on a 262,144-ray band, a
 # ray a thread: khit on the still life (S = 140), the instanced stream
-# kernel's closest and any hit (S = 1,404), the flat one's (S = 68), the
-# merge's gather and its query rows on the still-life band.
+# kernel's closest and any hit (S = 1,404), the flat one's (S = 68), and
+# the merge's gather on the still-life band.
 THREAD_US = {"khit_kernel": 35.9 / 262144,
              "stream_traverse_kernel<false, true": 58.5 / 262144,
              "stream_traverse_kernel<true, true": 54.0 / 262144,
              "stream_traverse_kernel<false, false": 19.1 / 262144,
              "stream_traverse_kernel<true, false": 12.5 / 262144,
-             "merge_kernel<": 12.3 / 262144,
-             "merge_query_rows_kernel": 20.1 / 262144}
+             "merge_kernel<": 12.3 / 262144}
+# The merge's query preparation moves bytes a query, whatever its threads
+# (chip_smoke.PREP_BYTES): the sort keys a position and a flag in and a
+# key out; the inverse permutation a permutation entry in and an inverse
+# entry out; the rows an inverse entry and 89 B of inputs in and the
+# 160-byte row out.  A frame's queries are the threads of its gather
+# (MERGE_GATHER, a query a thread, 128 a block).
+QUERY_BYTES = {"merge_sort_key_kernel": chip_smoke.PREP_BYTES["keys"],
+               "merge_inverse_kernel": chip_smoke.PREP_BYTES["inverse"],
+               "merge_query_rows_kernel": chip_smoke.PREP_BYTES["rows"]}
+MERGE_GATHER = "merge_kernel<"
 LAUNCH_BYTES = {
     "pt_shade_finish_kernel": lambda f: 38 * f["pixels"] / -(-f["pixels"]
                                                              // BAND),
@@ -390,7 +408,9 @@ def rank(tag, tot, threads, frame):
     FLOOR["us"].  `frame`: the band's lanes and slots, a slot's bytes, the
     valid slots a dispatch and the pixels."""
     rows = []
-    for part in dict.fromkeys([*THREAD_BYTES, *THREAD_US, *LAUNCH_BYTES]):
+    queries = sum(v[0] for k, v in threads.items() if MERGE_GATHER in k)
+    for part in dict.fromkeys([*THREAD_BYTES, *THREAD_US, *LAUNCH_BYTES,
+                               *QUERY_BYTES]):
         names = [k for k in tot if part in k]
         if not names:
             continue
@@ -400,6 +420,8 @@ def rank(tag, tot, threads, frame):
         bound_us = (lanes * (THREAD_BYTES.get(part, 0.0) / HBM_BYTES_PER_S
                              * 1e6 + THREAD_US.get(part, 0.0))
                     + n * 1e6 * LAUNCH_BYTES.get(part, lambda f: 0)(frame)
+                    / HBM_BYTES_PER_S
+                    + queries * QUERY_BYTES.get(part, 0) * 1e6
                     / HBM_BYTES_PER_S)
         rows.append((us - bound_us, part, us, n, lanes, bound_us))
     for lost, part, us, n, lanes, bound_us in sorted(rows, reverse=True):
@@ -408,11 +430,17 @@ def rank(tag, tot, threads, frame):
               f"{bound_us / n:.3f} us at {lanes / n:.0f} threads a launch "
               f"({us / max(bound_us, 1e-9):.1f}x), "
               f"{lost / 1e3:.3f} ms a frame above it", flush=True)
-    pair = [r for r in rows if r[1] in PAIR]
-    if len(pair) == len(PAIR):
-        us, bound_us = sum(r[2] for r in pair), sum(r[5] for r in pair)
-        print(f"[rank] graphed {tag} frame: {' + '.join(PAIR)}: "
-              f"{us:.2f} us a frame against a bound of {bound_us:.3f} us "
+    for group in GROUPS:
+        got = [r for r in rows if r[1] in group]
+        if not got:
+            continue
+        us, bound_us = sum(r[2] for r in got), sum(r[5] for r in got)
+        if group in GROUP_QUERY_BYTES:
+            bound_us = (queries * GROUP_QUERY_BYTES[group] * 1e6
+                        / HBM_BYTES_PER_S)
+        print(f"[rank] graphed {tag} frame: "
+              f"{' + '.join(r[1] for r in got)}: {us:.2f} us a frame "
+              f"against a bound of {bound_us:.3f} us "
               f"({us / max(bound_us, 1e-9):.1f}x)", flush=True)
     print(f"[rank] graphed {tag} frame: the floor, an empty kernel "
           f"replayed in a graph: {FLOOR['us']:.2f} us a launch over "
@@ -420,9 +448,15 @@ def rank(tag, tot, threads, frame):
 
 
 FLOOR = {"us": 0.0}
-# The selection's gather and the grid's keys, ranked together too: the
-# position column moves bytes from the keys to the gather.
-PAIR = ("select_gather_kernel", "grid_keys_kernel")
+# Kernels ranked together too, those of a group the frame launched: the
+# selection's gather and the grid's keys (the position column moves bytes
+# from the keys to the gather); the merge's query preparation (an earlier
+# design launches no inverse), whose bound is the job's bytes a query
+# whatever its kernels: the inputs and the sort's permutation in, the rows
+# out (the keys and the inverse are one design's intermediates).
+GROUPS = (("select_gather_kernel", "grid_keys_kernel"),
+          tuple(QUERY_BYTES))
+GROUP_QUERY_BYTES = {tuple(QUERY_BYTES): chip_smoke.PREP_BYTES["prep"]}
 
 
 RESOLVES = ("khit_resolve_kernel", "stream_resolve_kernel")

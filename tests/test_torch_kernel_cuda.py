@@ -749,9 +749,9 @@ def test_cuda_merge_preparation_matches_plain(cuda_device, kinds):
                     if isinstance(x, dict) else x.to(cuda_device))
     gargs = {k: on(v) for k, v in args.items()}
     ggrid = grid.to(cuda_device)
-    before = mg.LAUNCHES["prep"]
+    before = {k: mg.LAUNCHES[k] for k in mg.PREP_KERNELS}
     qrec, perm = mg.prepare_cuda(ggrid, **gargs)
-    assert mg.LAUNCHES["prep"] == before + 1
+    assert all(mg.LAUNCHES[k] == before[k] + 1 for k in mg.PREP_KERNELS)
     want, wperm = mg.prepare_queries(grid, **args)
     assert torch.equal(perm.cpu(), wperm)
     assert torch.equal(qrec.cpu().view(torch.int32), want.view(torch.int32))
@@ -762,6 +762,116 @@ def test_cuda_merge_preparation_matches_plain(cuda_device, kinds):
     scale = torch.clamp(ref.abs(), min=1e-6 * float(ref.abs().max()))
     assert float(((got - ref).abs() / scale).max()) <= 1e-4
     assert float(ref.sum()) > 0.0
+
+
+def _prep_queries(num_q, flags, seed):
+    """prepare_queries' arguments (CPU tensors) of `num_q` seeded queries
+    over the unit box, with no query active, all, or a seeded 85%."""
+    rs = np.random.RandomState(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+
+    def unit(n):
+        v = rs.randn(n, 3)
+        return f32(v / np.linalg.norm(v, axis=1, keepdims=True))
+
+    n = unit(num_q)
+    active = {"none": np.zeros(num_q, bool), "all": np.ones(num_q, bool),
+              "seeded": rs.rand(num_q) > 0.15}[flags]
+    return dict(
+        qpos=f32(rs.rand(num_q, 3) * 1.2 - 0.1), normal=n,
+        gn=torch.nn.functional.normalize(n + 0.1 * unit(num_q), dim=1),
+        w_out=unit(num_q),
+        params=dict(kind=torch.from_numpy(rs.choice((0, 3, 4, 5), num_q)
+                                          .astype(np.int32)),
+                    kd=f32(rs.rand(num_q, 3)), ks=f32(rs.rand(num_q, 3)),
+                    ns=f32(1.0 + rs.rand(num_q) * 30.0)),
+        d_vcm=f32(rs.rand(num_q) * 2), d_vm=f32(rs.rand(num_q) * 2),
+        active=torch.from_numpy(active))
+
+
+def _prep_grid(seed):
+    from imbatracer_torch.ops import merge as mg
+
+    rs = np.random.RandomState(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return mg.build_merge_grid(
+        f32(rs.rand(3000, 3)), torch.from_numpy(rs.rand(3000) > 0.1), 0.02,
+        f32(rs.rand(3000, 3)), f32(rs.rand(3000, 3)), f32(rs.rand(3000)),
+        f32(rs.rand(3000)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["none", "all", "seeded"])
+@pytest.mark.parametrize("num_q", [1, 127, 128, 129, 262144, 262145])
+def test_cuda_merge_preparation_in_a_replayed_graph(cuda_device, num_q,
+                                                    flags):
+    """prepare_cuda at ragged sizes around the kernels' blocks (128
+    queries a block) and at a full band, with no query active,
+    all and some: each launch bit-equal to its plain version (sort keys,
+    inverse, rows), and the whole preparation captured in one CUDA graph
+    whose three replays each rewrite the rows and permutation (poisoned
+    before each) bit-equal to prepare_queries'."""
+    from imbatracer_torch.ops import merge as mg
+
+    grid = _prep_grid(11)
+    args = _prep_queries(num_q, flags, num_q)
+    want, wperm = mg.prepare_queries(grid, **args)
+    on = lambda x: ({k: v.to(cuda_device) for k, v in x.items()}
+                    if isinstance(x, dict) else x.to(cuda_device))
+    gargs = {k: on(v) for k, v in args.items()}
+    ggrid = grid.to(cuda_device)
+    pin = mg.prep_inputs(ggrid, **gargs)
+    keys = mg.sort_keys_cuda(pin)
+    assert torch.equal(keys.cpu(), mg.sort_keys_plain(grid, args["qpos"],
+                                                      args["active"]))
+    inv = mg.inverse_cuda(wperm.to(cuda_device))
+    assert torch.equal(inv.cpu(), mg.inverse_plain(wperm))
+    rows = mg.query_rows_cuda(pin, inv)
+    assert torch.equal(rows.cpu().view(torch.int32), want.view(torch.int32))
+    mg.prepare_cuda(ggrid, **gargs)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        qrec, perm = mg.prepare_cuda(ggrid, **gargs)
+    for _ in range(3):
+        qrec.fill_(float("nan"))
+        perm.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(perm.cpu(), wperm)
+        assert torch.equal(qrec.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_merge_preparation_input_checks(cuda_device):
+    """The preparation's wrappers raise before launching on a permutation
+    or inverse of the wrong dtype, shape or device."""
+    from imbatracer_torch.ops import merge as mg
+
+    grid = _prep_grid(12).to(cuda_device)
+    args = _prep_queries(100, "seeded", 3)
+    pin = mg.prep_inputs(grid, **{k: (
+        {j: w.to(cuda_device) for j, w in v.items()} if isinstance(v, dict)
+        else v.to(cuda_device)) for k, v in args.items()})
+    perm = torch.arange(100, device=cuda_device)
+    inv = mg.inverse_cuda(perm)
+    assert inv.dtype == torch.int32 and torch.equal(
+        inv, perm.to(torch.int32))
+    with pytest.raises(TypeError):
+        mg.inverse_cuda(perm.to(torch.int32))
+    with pytest.raises(ValueError):
+        mg.inverse_cuda(perm.reshape(4, 25))
+    with pytest.raises(ValueError):
+        mg.inverse_cuda(perm.cpu())
+    with pytest.raises(ValueError):
+        mg.inverse_cuda(perm[::2])
+    with pytest.raises(TypeError):
+        mg.query_rows_cuda(pin, inv.long())
+    with pytest.raises(ValueError):
+        mg.query_rows_cuda(pin, inv[:99])
+    with pytest.raises(ValueError):
+        mg.query_rows_cuda(pin, inv.cpu())
 
 
 @pytest.mark.cuda

@@ -258,3 +258,115 @@ def test_merge_rows_routes_by_device():
     assert tmerge.LAUNCHES["merge"] == before["merge"]
     with pytest.raises(ValueError):
         tmerge.merge_cuda(qrec, grid, scal, (0,), False)
+
+
+# Words of a query row that the port copies from its inputs or computes
+# from integers (pos, normal, gn, d_vcm, d_vm, kind, kd, ks, ns, the combo
+# keys, active, the zero pad): equal to JAX's bit for bit.  The local frame
+# (3:9) and the four projections (15:19) are products and sums, which XLA
+# on the CPU may contract into FMAs: within ROW_ATOL (the inputs are unit
+# vectors, |a| = 1 / (1 + |n_z|) <= 1, so every term is at most 1).
+EXACT_WORDS = [*range(0, 3), *range(9, 15), *range(19, 40)]
+ROUNDED_WORDS = [*range(3, 9), *range(15, 19)]
+ROW_ATOL = 2e-6
+
+
+def _jax_sorted_rows(monkeypatch, jgrid, q):
+    """JAX merge_contrib's sorted query rows qrec_s (its first Q rows) and
+    its inv_perm, recorded by wrapping _merge_call for the call (the
+    Pallas kernel in interpret mode): the wrapper keeps qrec_s and writes
+    each sorted row's index into column 0 of the kernel's output, which
+    merge_contrib returns as out[inv_perm, 0:3]."""
+    seen = {}
+    real = jmerge._merge_call
+
+    def spy(qrec_s, *args):
+        seen["qrec_s"] = np.asarray(qrec_s)
+        out = real(qrec_s, *args)
+        return out.at[:, 0].set(jnp.arange(out.shape[0], dtype=jnp.float32))
+
+    monkeypatch.setattr(jmerge, "_merge_call", spy)
+    monkeypatch.setattr(jmerge, "INTERPRET", True)
+    a = jnp.asarray
+    out = jmerge.merge_contrib(
+        jgrid, a(q["pos"]), a(q["n"]), a(q["gn"]), a(q["w_out"]),
+        jmat.MatParams(_params(q, jnp)), a(q["d_vcm"]), a(q["d_vm"]),
+        a(q["active"]), jnp.float32(0.3), kinds=(0,), ppm=False)
+    num_q = q["pos"].shape[0]
+    return seen["qrec_s"][:num_q], np.asarray(out)[:, 0].astype(np.int64)
+
+
+PREP_CASES = {
+    "q127": (127, "some"), "q128": (128, "some"), "q129": (129, "some"),
+    "none_active": (129, "none"), "corner": (96, "corner")}
+
+
+@pytest.mark.parametrize("case", list(PREP_CASES))
+def test_prepare_queries_matches_jax_sorted_rows(monkeypatch, case):
+    """prepare_queries' rows and permutation, and inverse_plain of the
+    permutation, against the rows and inv_perm of JAX's merge_contrib:
+    ragged Q around BLKQ, no query active, and queries at the box corner
+    where the clamped combos collapse (keys -2)."""
+    num_q, mode = PREP_CASES[case]
+    rs = np.random.RandomState(31 + num_q)
+    ph = _photons(rs, 300, spread=0.01 if mode == "corner" else 1.0)
+    pos = (0.01 * rs.rand(num_q, 3)).astype(np.float32) \
+        if mode == "corner" else None
+    q = _queries(rs, num_q, (0,), pos=pos)
+    if mode == "none":
+        q["active"][:] = False
+    if mode == "corner":
+        ph["valid"][:] = True
+        q["active"][:] = True
+    jgrid, grid = _grids(ph, 0.2 if mode == "corner" else 0.07)
+    want, want_inv = _jax_sorted_rows(monkeypatch, jgrid, q)
+    t = torch.from_numpy
+    qrec, perm = tmerge.prepare_queries(
+        grid, t(q["pos"]), t(q["n"]), t(q["gn"]), t(q["w_out"]),
+        tmat.MatParams(_params(q, torch)), t(q["d_vcm"]), t(q["d_vm"]),
+        t(q["active"]))
+    inv = tmerge.inverse_plain(perm)
+    assert inv.dtype == torch.int32
+    np.testing.assert_array_equal(inv.numpy(), want_inv)
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(want_inv))
+    got = qrec.numpy()
+    assert got.shape == want.shape == (num_q, tmerge.QREC_W)
+    np.testing.assert_array_equal(got[:, EXACT_WORDS].view(np.uint32),
+                                  want[:, EXACT_WORDS].view(np.uint32))
+    np.testing.assert_allclose(got[:, ROUNDED_WORDS], want[:, ROUNDED_WORDS],
+                               rtol=0, atol=ROW_ATOL)
+    assert not got[:, 34:].any()
+    keys = got[:, 29:33]
+    if mode == "none":
+        assert (keys == tmerge.INVALID).all() and not got[:, 33].any()
+    if mode == "corner":
+        assert (keys[:, 1:] == tmerge.INVALID).any()
+    sort_key = tmerge.sort_keys_plain(grid, t(q["pos"]), t(q["active"]))
+    assert torch.equal(sort_key[perm], torch.sort(sort_key, stable=True)[0])
+
+
+def test_preparation_wrappers_refuse_cpu_tensors(monkeypatch):
+    """The preparation's CUDA wrappers check their inputs before they
+    build or launch anything: CPU tensors, a wrong dtype or shape raise."""
+    def refuse():
+        raise AssertionError("the merge library was built for CPU tensors")
+
+    monkeypatch.setattr(tmerge, "_library", refuse)
+    rs = np.random.RandomState(5)
+    _, grid = _grids(_photons(rs, 100), 0.1)
+    q = _queries(rs, 10, (0,))
+    t = torch.from_numpy
+    args = (grid, t(q["pos"]), t(q["n"]), t(q["gn"]), t(q["w_out"]),
+            tmat.MatParams(_params(q, torch)), t(q["d_vcm"]), t(q["d_vm"]),
+            t(q["active"]))
+    with pytest.raises(ValueError):
+        tmerge.prep_inputs(*args)
+    with pytest.raises(ValueError):
+        tmerge.prepare_cuda(*args)
+    perm = torch.arange(10)
+    with pytest.raises(ValueError):
+        tmerge.inverse_cuda(perm)
+    with pytest.raises(TypeError):
+        tmerge.inverse_cuda(perm.to(torch.int32))
+    with pytest.raises(ValueError):
+        tmerge.inverse_cuda(perm.reshape(2, 5))
