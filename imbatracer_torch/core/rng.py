@@ -15,13 +15,17 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 _MASK = 0xFFFFFFFF
 
 
 def _u32(x, device=None) -> torch.Tensor:
-    """Any integer tensor / Python int -> int64 tensor of 32-bit words."""
+    """Any integer tensor / Python int -> int64 tensor of 32-bit words.
+    A Python int's copy to the card waits for the queue to drain."""
     if not torch.is_tensor(x):
-        x = torch.tensor(x, dtype=torch.int64, device=device)
+        with trace.span("wait:seed"):
+            x = torch.tensor(x, dtype=torch.int64, device=device)
     return x.to(torch.int64) & _MASK
 
 

@@ -26,6 +26,19 @@
 // the gather and the flag kernel.  What bounds it is its launch (~1 us
 // in a graph); the bytes, at most the slots' flags, take ~0.02 us.
 //
+// The re-trace's loops stamp themselves on the card's %globaltimer: the
+// entry's flag kernel keeps its stamp beside the round counter (`stamp`),
+// and the launch that ends the loop (the entry's, or the last pass's)
+// appends one record to the scene's loop log: the entry's and its own
+// stamp and the rounds, with the loop's id above them.  The log is an
+// int64 vector: word 0 counts the records appended, those past the
+// capacity too, which are counted there and not written; the records
+// follow, kLogWords words each.  Thread 0 does it: a timer read and a
+// store at the entry, a timer read, an atomic add and three stores at the
+// exit.  The profiler leaves out what runs inside a WHILE node's body;
+// the log times the whole loop, and the entry's stamp, beside the traced
+// entry launch, puts the log on the profiler's clock.
+//
 // No host read is needed: the condition is read on the card at each
 // replay.  A body is captured on a stream of its own (imba_stream_create):
 // not one of PyTorch's pooled streams, one of which may be the stream
@@ -41,11 +54,15 @@ namespace {
 
 constexpr int kTestThreads = 512;
 constexpr int kTestUnroll = 8;
+// Words of a loop log's record: entry ns, exit ns, rounds | loop << 32.
+constexpr int kLogWords = 3;
 
 // The loop's condition: `flag` (a 0-d bool) when set; else the masked
 // re-trace's, at the entry with `count` (0-d i32, the lanes in need) and
 // at the end of a pass with `need` (n bools, the slots' flags); `rounds`
-// a 0-d i32 round counter, `cap` the most rounds.
+// a 0-d i32 round counter, `cap` the most rounds.  With `log`, the
+// re-trace's loop is stamped: `stamp` a 0-d i64 for the entry's stamp,
+// `log` the scene's loop log of `log_cap` records, `loop` the loop's id.
 struct Test {
   const bool* flag;
   const uint8_t* need;
@@ -53,7 +70,30 @@ struct Test {
   const int* count;
   int* rounds;
   int cap;
+  long long* stamp;
+  long long* log;
+  long long log_cap;
+  int loop;
 };
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+// Append the ended loop's record, or count it past the capacity.
+__device__ void log_loop(const Test& c, long long entry, int rounds) {
+  const long long exit = global_ns();
+  const unsigned long long i =
+      atomicAdd(reinterpret_cast<unsigned long long*>(c.log), 1ull);
+  if (i >= static_cast<unsigned long long>(c.log_cap)) return;
+  long long* r = c.log + 1 + kLogWords * i;
+  r[0] = entry;
+  r[1] = exit;
+  r[2] = static_cast<long long>(static_cast<unsigned>(rounds)) |
+         static_cast<long long>(c.loop) << 32;
+}
 
 // Whether a flag of p[0:n] that this thread reads is set: 16-byte words
 // where p is aligned, kTestUnroll loads in flight, then the bytes left.
@@ -88,21 +128,44 @@ __global__ void __launch_bounds__(kTestThreads)
     return;
   }
   if (c.count) {
+    const long long entry = c.log ? global_ns() : 0;
+    const bool go = *c.count > 0 && 1 < c.cap;
     *c.rounds = 1;
-    cudaGraphSetConditional(handle, *c.count > 0 && 1 < c.cap ? 1u : 0u);
+    cudaGraphSetConditional(handle, go ? 1u : 0u);
+    if (c.log) {
+      *c.stamp = entry;
+      if (!go) log_loop(c, entry, 1);
+    }
     return;
   }
   const int r = *c.rounds + 1;
   const int any = __syncthreads_or(any_flag(c.need, c.n));
   if (threadIdx.x == 0) {
+    const bool go = any && r < c.cap;
     *c.rounds = r;
-    cudaGraphSetConditional(handle, any && r < c.cap ? 1u : 0u);
+    cudaGraphSetConditional(handle, go ? 1u : 0u);
+    if (c.log && !go) log_loop(c, *c.stamp, r);
+  }
+}
+
+// The %globaltimer's steps: one thread reads it until it has changed `n`
+// times and writes each change in ns to out[0:n] (0 where it did not
+// change within 2^20 reads).
+__global__ void timer_steps(long long* out, int n) {
+  long long last = global_ns();
+  for (int k = 0; k < n; ++k) {
+    long long t = last;
+    for (int spin = 0; t == last && spin < (1 << 20); ++spin) t = global_ns();
+    out[k] = t - last;
+    last = t;
   }
 }
 
 cudaError_t launch_test(cudaStream_t s, cudaGraphConditionalHandle handle,
                         const Test& c) {
   if (!c.flag && !(c.rounds && (c.count || c.need)))
+    return cudaErrorInvalidValue;
+  if (c.log && (c.flag || !c.stamp || c.log_cap < 0 || c.loop < 0))
     return cudaErrorInvalidValue;
   set_conditional<<<1, c.flag || c.count ? 1 : kTestThreads, 0, s>>>(handle,
                                                                       c);
@@ -123,9 +186,12 @@ cudaError_t capture_info(cudaStream_t s, cudaStreamCaptureStatus* status,
 }  // namespace
 
 // imba_cond_begin: the condition at the loop's entry is `flag`, or, with
-// `flag` null, the re-trace's: `count`, `rounds`, `cap`.
+// `flag` null, the re-trace's: `count`, `rounds`, `cap`, stamped into
+// `log` (null: not stamped) with `stamp`, `log_cap` and `loop`.
 extern "C" int imba_cond_begin(void* stream, void* body, const bool* flag,
                                const int* count, int* rounds, int cap,
+                               long long* stamp, long long* log,
+                               long long log_cap, int loop,
                                unsigned long long* handle_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStream_t b = static_cast<cudaStream_t>(body);
@@ -145,7 +211,8 @@ extern "C" int imba_cond_begin(void* stream, void* body, const bool* flag,
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (err != cudaSuccess) return err;
-  err = launch_test(s, handle, {flag, nullptr, 0, count, rounds, cap});
+  err = launch_test(s, handle, {flag, nullptr, 0, count, rounds, cap, stamp,
+                                log, log_cap, loop});
   if (err != cudaSuccess) return err;
   err = capture_info(s, &status, &graph, &deps, &ndeps);
   if (err != cudaSuccess) return err;
@@ -177,15 +244,19 @@ extern "C" int imba_cond_begin(void* stream, void* body, const bool* flag,
 }
 
 // imba_cond_end: with `set`, the condition at the end of a pass is `flag`,
-// or, with `flag` null, the re-trace's: `need` (n flags), `rounds`, `cap`.
+// or, with `flag` null, the re-trace's: `need` (n flags), `rounds`, `cap`,
+// stamped as imba_cond_begin's.
 extern "C" int imba_cond_end(void* body, unsigned long long handle, int set,
                              const bool* flag, const void* need,
-                             long long n, int* rounds, int cap) {
+                             long long n, int* rounds, int cap,
+                             long long* stamp, long long* log,
+                             long long log_cap, int loop) {
   cudaStream_t b = static_cast<cudaStream_t>(body);
   if (set) {
     cudaError_t err = launch_test(
         b, handle,
-        {flag, static_cast<const uint8_t*>(need), n, nullptr, rounds, cap});
+        {flag, static_cast<const uint8_t*>(need), n, nullptr, rounds, cap,
+         stamp, log, log_cap, loop});
     if (err != cudaSuccess) return err;
   }
   cudaGraph_t graph;
@@ -198,4 +269,11 @@ extern "C" int imba_stream_create(void** out) {
   if (err != cudaSuccess) return err;
   *out = s;
   return 0;
+}
+
+// imba_timer_steps: timer_steps on `stream`.
+extern "C" int imba_timer_steps(void* stream, long long* out, int n) {
+  if (n < 1) return cudaErrorInvalidValue;
+  timer_steps<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, n);
+  return cudaGetLastError();
 }

@@ -14,6 +14,7 @@ import torch
 from ..io.image import store_png
 from ..render.camera import Camera, make_camera
 from ..render.film import tonemap
+from ..utils import trace
 from ..utils.log import logger
 
 
@@ -79,7 +80,8 @@ class ProgressiveRenderer:
         self.frames = 0
 
     def step(self):
-        self.accum = self.accum + self.frame_fn(self.frames)
+        with trace.span("frame", frame=self.frames):
+            self.accum = self.accum + self.frame_fn(self.frames)
         self.frames += 1
 
     def run(self, quiet: bool = False):

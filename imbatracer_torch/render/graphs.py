@@ -48,6 +48,15 @@ re-trace's, which the flag kernel tests itself, counting the rounds.
 Outside a capture it loops on the host, reading cond() each time (a
 LoopTest's plain version).
 
+Each captured LoopTest loop is stamped on the card (csrc/graph_cond.cu):
+the launch that ends it appends (entry ns, exit ns, rounds, the loop's
+id) to its scene's loop log (SceneGraphs.loops), which holds
+LOOP_LOG_RECORDS records and counts those past them.  The log is read
+only by drain_loops (utils/trace.py drain), outside any frame; a loop's
+id indexes LOOP_DELTAS, the counts a run of its body ticks, so that
+body_counts tells the launches made inside WHILE bodies, which the
+profiler does not trace, from the rest.
+
 The launch counters of the kernel wrappers and MASK_STATS tick in
 Python, so a capture counts one step and a replay none.  A capture's
 counts are therefore taken as the graph's deltas and taken back off the
@@ -83,10 +92,19 @@ from ..ops import merge as merge_mod
 from ..ops import shade as shade_mod
 from ..ops import stream_traverse as st
 from ..ops import vcm_shade as vcm_shade_mod
+from ..utils import trace
 from ..utils.log import logger
 from . import traverse as tt
 
 GRAPH_STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "reruns": 0}
+
+# Records a scene's loop log holds, and the int64 words of one
+# (csrc/graph_cond.cu kLogWords).
+LOOP_LOG_RECORDS = 1 << 14
+LOOP_WORDS = 3
+# The counts a run of each stamped loop's body ticks, by the loop's id:
+# (slot of the device counts, n) pairs, filled when the body is captured.
+LOOP_DELTAS = []
 
 
 def reset_stats():
@@ -99,6 +117,11 @@ def _counters():
     return (st.LAUNCHES, khit_mod.LAUNCHES, merge_mod.LAUNCHES,
             shade_mod.LAUNCHES, vcm_shade_mod.LAUNCHES,
             dispatch_mod.LAUNCHES, light_tail_mod.LAUNCHES, tt.MASK_STATS)
+
+
+# The names of _counters(), in its order: their modules'.
+COUNTER_NAMES = ("stream_traverse", "khit", "merge", "shade", "vcm_shade",
+                 "dispatch", "light_tail", "mask_stats")
 
 
 def _snapshot():
@@ -149,16 +172,18 @@ def _cond_library():
     if _cond_lib is None:
         lib = ctypes.CDLL(COND_LIB.build())
         lib.imba_cond_begin.restype = ctypes.c_int
-        vp = ctypes.c_void_p
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        stamped = [vp, vp, i64, i32]     # stamp, log, its records, loop id
         lib.imba_cond_begin.argtypes = [
-            vp, vp, vp, vp, vp, ctypes.c_int,
+            vp, vp, vp, vp, vp, i32, *stamped,
             ctypes.POINTER(ctypes.c_ulonglong)]
         lib.imba_cond_end.restype = ctypes.c_int
-        lib.imba_cond_end.argtypes = [vp, ctypes.c_ulonglong, ctypes.c_int,
-                                      vp, vp, ctypes.c_longlong, vp,
-                                      ctypes.c_int]
+        lib.imba_cond_end.argtypes = [vp, ctypes.c_ulonglong, i32,
+                                      vp, vp, i64, vp, i32, *stamped]
         lib.imba_stream_create.restype = ctypes.c_int
         lib.imba_stream_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+        lib.imba_timer_steps.restype = ctypes.c_int
+        lib.imba_timer_steps.argtypes = [vp, vp, i32]
         _cond_lib = lib
     return _cond_lib
 
@@ -224,7 +249,9 @@ class LoopTest:
     pass, so that it holds the rounds run when the loop ends.
 
     Inside a capture the WHILE node's flag kernel tests it on the card
-    (csrc/graph_cond.cu set_conditional).  Called, it is the plain
+    (csrc/graph_cond.cu set_conditional) and stamps the loop into the
+    scene's loop log under `loop`, its id in LOOP_DELTAS, which
+    while_loop gives it.  Called, it is the plain
     version, which a loop on the host reads: the first call (the entry)
     sets `rounds` to 1 and returns count > 0 and 1 < cap, each later call
     (the end of a pass) adds the round and returns any(need) and rounds <
@@ -233,6 +260,7 @@ class LoopTest:
     def __init__(self, need, count, rounds, cap: int):
         self.need, self.count, self.rounds, self.cap = need, count, rounds, cap
         self.entered = False
+        self.loop = None
 
     def __call__(self):
         if not self.entered:
@@ -292,6 +320,9 @@ def while_loop(cond, body):
     graph, counts = _ACTIVE[-1]
     folded = isinstance(cond, LoopTest)
     deltas = []
+    if folded:
+        cond.loop = len(LOOP_DELTAS)
+        LOOP_DELTAS.append(deltas)
 
     def counted():
         before = _snapshot()
@@ -335,6 +366,7 @@ class CudaGraph:
     def __init__(self, sg):
         self.graph = torch.cuda.CUDAGraph()
         self.pool, self.bodies, self.device = sg.pool, sg.bodies, sg.device
+        self.loops = sg.loops
         self.depth = 0
         # One entry a captured conditional body: the body pool it
         # allocated from, held as long as this graph, as a capture holds
@@ -360,9 +392,16 @@ class CudaGraph:
         lib = _cond_library()
         stream, pool = _body(self.bodies, self.device, self.depth)
         test = isinstance(cond, LoopTest)
+        # A flag loop is not stamped: (stamp, log, its records, loop id).
+        stamped = (None, None, 0, 0)
         if test:
             count, rounds, need = cond.pointers()
-            dev, entry = cond.need.device, (None, count, rounds, cond.cap)
+            dev = cond.need.device
+            # The entry's stamp, which the loop's last launch reads.
+            stamp = torch.empty((), dtype=torch.int64, device=dev)
+            stamped = (stamp.data_ptr(), self.loops.data_ptr(),
+                       log_records(self.loops), cond.loop)
+            entry = (None, count, rounds, cond.cap)
             at_end = (None, need, cond.need.numel(), rounds, cond.cap)
         else:
             flag = cond()
@@ -370,7 +409,7 @@ class CudaGraph:
         handle = ctypes.c_ulonglong()
         err = lib.imba_cond_begin(
             torch.cuda.current_stream(dev).cuda_stream, stream.cuda_stream,
-            *entry, ctypes.byref(handle))
+            *entry, *stamped, ctypes.byref(handle))
         if err != 0:
             raise RuntimeError(f"adding a WHILE conditional node to the "
                                f"captured graph failed: CUDA error {err}")
@@ -389,12 +428,13 @@ class CudaGraph:
                         at_end = (flag.data_ptr(), None, 0, None, 0)
                 except BaseException:
                     lib.imba_cond_end(stream.cuda_stream, handle.value, 0,
-                                      None, None, 0, None, 0)
+                                      None, None, 0, None, 0, None, None, 0,
+                                      0)
                     raise
                 finally:
                     torch._C._cuda_endAllocateToPool(dev.index, pool)
                 err = lib.imba_cond_end(stream.cuda_stream, handle.value, 1,
-                                        *at_end)
+                                        *at_end, *stamped)
         finally:
             self.depth -= 1
         if err != 0:
@@ -434,15 +474,16 @@ class PhaseGraph:
         overflow = sg.overflow
         # The tensors the graph writes live as long as the graph.
         self.state, self.counts = state, sg.counts
-        scratch = {k: v.clone() for k, v in state.items()}
-        with _side_stream(overflow.device):
-            step(scratch, overflow=torch.zeros_like(overflow))
-        del scratch
-        self.graph = make_graph(sg)
-        before = _snapshot()
-        with _active(self.graph, self.counts):
-            self.graph.capture(lambda: step(state, overflow=overflow),
-                               list(state.values()) + [self.counts])
+        with trace.span("capture"):
+            scratch = {k: v.clone() for k, v in state.items()}
+            with _side_stream(overflow.device):
+                step(scratch, overflow=torch.zeros_like(overflow))
+            del scratch
+            self.graph = make_graph(sg)
+            before = _snapshot()
+            with _active(self.graph, self.counts):
+                self.graph.capture(lambda: step(state, overflow=overflow),
+                                   list(state.values()) + [self.counts])
         after = _snapshot()
         self.deltas = [{k: a[k] - b[k] for k in a}
                        for a, b in zip(after, before)]
@@ -454,7 +495,7 @@ class PhaseGraph:
         """Run the captured step `times` times, adding the capture's
         launch counts for each."""
         for _ in range(times):
-            with _active(self.graph, self.counts):
+            with trace.span("replay"), _active(self.graph, self.counts):
                 self.graph.replay()
             for c, d in zip(_counters(), self.deltas):
                 for k, n in d.items():
@@ -516,7 +557,9 @@ class SceneGraphs:
     streams and memory pools their conditional bodies are captured on
     and allocate from, their device counts (an int32 vector: the overflow
     counter of their masked re-traces, `overflow`, then one slot for
-    each launch counter) and their static inputs."""
+    each launch counter), their loop log (`loops`, an int64 vector: the
+    records appended, then LOOP_LOG_RECORDS records of LOOP_WORDS words;
+    csrc/graph_cond.cu) and their static inputs."""
 
     def __init__(self, device):
         device = torch.device(device)
@@ -529,8 +572,27 @@ class SceneGraphs:
         self.counts = torch.zeros(1 + len(_slots()), dtype=torch.int32,
                                   device=device)
         self.overflow = self.counts[0]
+        self.loops = torch.zeros(1 + LOOP_WORDS * LOOP_LOG_RECORDS,
+                                 dtype=torch.int64, device=device)
         self.graphs = {}
         self.statics = {}
+
+    def empty_loops(self):
+        """Empty the loop log (one launch)."""
+        self.loops[0].zero_()
+
+    def drain_loops(self) -> tuple:
+        """(records, lost): the loops logged since the log was emptied,
+        each (entry ns, exit ns, rounds, loop id) on the card's
+        %globaltimer, in the order they ended, and the count of those past
+        the log's capacity; the log emptied.  Host reads: call it outside
+        the frames it reports."""
+        n = int(self.loops[0])
+        kept = min(n, log_records(self.loops))
+        rows = self.loops[1:1 + LOOP_WORDS * kept].view(kept, LOOP_WORDS)
+        self.empty_loops()
+        return ([(t0, t1, r & 0xFFFFFFFF, r >> 32)
+                 for t0, t1, r in rows.tolist()], n - kept)
 
     def bounce(self, key, step, template: dict, lanes: int) -> BounceGraph:
         """The graph of `key`, captured from `step` and `template` when
@@ -567,7 +629,9 @@ def render_frame(scene, graph: bool, render, what: str, total=None):
         sg = for_scene(scene)
         sg.counts.zero_()
         out = render(sg)
-        values = sg.counts.tolist() if total is None else total(sg.counts)
+        with trace.span("wait:counts"):
+            values = (sg.counts.tolist() if total is None
+                      else total(sg.counts))
         add_device_counts(values)
         if values[0] == 0:
             return out
@@ -578,7 +642,45 @@ def render_frame(scene, graph: bool, render, what: str, total=None):
                     "cap of the rounds on this rank); rendered again on the "
                     "eager route", what, values[0], at("dropped"),
                     at("capped"))
+        with trace.span("rerun"):
+            return render(None)
     return render(None)
+
+
+def log_records(log) -> int:
+    """The records a loop log holds."""
+    return (log.numel() - 1) // LOOP_WORDS
+
+
+def body_counts(records) -> dict:
+    """{(counter name, key): n}: what the WHILE bodies of the logged
+    loops `records` (drain_loops') ticked, each body's per-run counts
+    (LOOP_DELTAS) times its runs, rounds - 1.  The launch counters count
+    these launches too, and the profiler traces none of them."""
+    slots, out = _slots(), {}
+    for _, _, rounds, loop in records:
+        for slot, n in LOOP_DELTAS[loop]:
+            i, k = slots[slot - 1]
+            key = (COUNTER_NAMES[i], k)
+            out[key] = out.get(key, 0) + n * (rounds - 1)
+    return out
+
+
+def scenes() -> list:
+    """The SceneGraphs of the live scenes."""
+    return list(_SCENES.values())
+
+
+def timer_steps(device, n: int = 64) -> list:
+    """The card's %globaltimer read until it changed `n` times: each
+    change in ns (its resolution where the steps agree; 0 where it did
+    not change within 2^20 reads)."""
+    out = torch.zeros(n, dtype=torch.int64, device=device)
+    err = _cond_library().imba_timer_steps(
+        torch.cuda.current_stream(out.device).cuda_stream, out.data_ptr(), n)
+    if err != 0:
+        raise RuntimeError(f"timer_steps failed: CUDA error {err}")
+    return out.tolist()
 
 
 def _release_pools(device, held):

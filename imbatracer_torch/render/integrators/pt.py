@@ -46,6 +46,7 @@ import torch
 from ...core import rng as rng_mod
 from ...ops import shade as shade_mod
 from ...scene.textures import MaskTest
+from ...utils import trace
 from .. import graphs as graphs_mod
 from .. import traverse as tt
 from ..camera import Camera, generate_ray
@@ -161,19 +162,23 @@ def compact_lanes(carries, band_lanes: int, phase2, stats=None):
     as the banded frame's does).  The live count is the one host sync.
     Empties `carries`.  With `stats`, a dict, records "lanes", "alive"
     and "phase2_bands"."""
-    merged = {k: torch.cat([c[k] for c in carries]) for k in carries[0]}
-    carries.clear()
-    lanes = merged["active"].shape[0]
-    lane_id = torch.arange(lanes, device=merged["active"].device)
-    sc, lane_id, alive = _compact_carry(merged, lane_id)
-    del merged
-    n_alive = int(alive)
+    with trace.span("compaction"):
+        merged = {k: torch.cat([c[k] for c in carries])
+                  for k in carries[0]}
+        carries.clear()
+        lanes = merged["active"].shape[0]
+        lane_id = torch.arange(lanes, device=merged["active"].device)
+        sc, lane_id, alive = _compact_carry(merged, lane_id)
+        del merged
+        with trace.span("wait:compact"):
+            n_alive = int(alive)
     rad = sc["radiance"]
     n_bands2 = 0
     for done in range(0, n_alive, band_lanes):
         end = min(done + band_lanes, lanes)
-        rad[done:end] = phase2({k: v[done:end] for k, v in sc.items()})[
-            "radiance"]
+        with trace.span("band"):
+            rad[done:end] = phase2({k: v[done:end]
+                                    for k, v in sc.items()})["radiance"]
         n_bands2 += 1
     if stats is not None:
         stats.update(lanes=lanes, alive=n_alive, phase2_bands=n_bands2)
@@ -191,7 +196,8 @@ def run_bands(bands, *, spp: int, width: int, max_len: int, depth0: int,
     over bands."""
     parts, carries = [], []
     for start, n in bands:
-        c = phase1(start, n)
+        with trace.span("band"):
+            c = phase1(start, n)
         if compact:
             carries.append(c)
         else:
@@ -247,17 +253,20 @@ def camera_rays(cam: Camera, width: int, height: int, spp: int, frame,
     [start_pixel, start_pixel + count), emitted in image-tile order; RNG
     streams are keyed by global pixel ids, so banding never changes the
     image."""
-    dev = cam.pos.device
-    num_pixels = count if count > 0 else width * height
-    perm, _ = _tile_perm(num_pixels, width, dev)
-    rel = perm if perm is not None else torch.arange(num_pixels, device=dev)
-    pixel_id = (start_pixel + rel).repeat(spp)
-    sample_id = torch.arange(spp, device=dev).repeat_interleave(num_pixels)
-    state = rng_mod.seed(pixel_id, sample_id, frame)
-    state, (jx, jy) = rng_mod.next_floats(state, 2)
-    px = (pixel_id % width).to(torch.float32) + jx
-    py = (pixel_id // width).to(torch.float32) + jy
-    org, d = generate_ray(cam, px, py)
+    with trace.span("camera_rays"):
+        dev = cam.pos.device
+        num_pixels = count if count > 0 else width * height
+        perm, _ = _tile_perm(num_pixels, width, dev)
+        rel = (perm if perm is not None
+               else torch.arange(num_pixels, device=dev))
+        pixel_id = (start_pixel + rel).repeat(spp)
+        sample_id = torch.arange(spp, device=dev).repeat_interleave(
+            num_pixels)
+        state = rng_mod.seed(pixel_id, sample_id, frame)
+        state, (jx, jy) = rng_mod.next_floats(state, 2)
+        px = (pixel_id % width).to(torch.float32) + jx
+        py = (pixel_id // width).to(torch.float32) + jy
+        org, d = generate_ray(cam, px, py)
     return org, d, state, pixel_id
 
 

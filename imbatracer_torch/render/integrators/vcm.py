@@ -73,6 +73,7 @@ from ...core.vecmath import dot
 from ...ops import merge as merge_mod
 from ...ops import vcm_shade as vs
 from ...ops.vcm_shade import ALGOS, TECHNIQUES
+from ...utils import trace
 from .. import graphs as graphs_mod
 from .. import traverse as tt
 from ..camera import Camera
@@ -278,9 +279,11 @@ def frame_constants(cam: Camera, frame, base_radius, *, algo: str,
     if algo not in ALGOS:
         raise ValueError(f"unknown algorithm {algo!r}")
     dev = cam.pos.device
-    frame = torch.as_tensor(frame, device=dev).to(torch.int64)
-    base_radius = torch.as_tensor(base_radius, dtype=torch.float32,
-                                  device=dev)
+    # A host number's copy to the card waits for the queue to drain.
+    with trace.span("wait:constants"):
+        frame = torch.as_tensor(frame, device=dev).to(torch.int64)
+        base_radius = torch.as_tensor(base_radius, dtype=torch.float32,
+                                      device=dev)
     if light_path_count <= 0:
         light_path_count = num_pixels // 2
     cache_capacity = auto_cache_capacity(light_path_count, max_len)
@@ -495,29 +498,34 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
         if algo != "pt":
             collect = (frame_collect(sg, key, collect_capacity, dev)
                        if algo != "lt" else None)
-            band = light_bands(
-                scene, fi, collect, sg=sg, key=key,
-                lanes=min(light_band, light_path_count), algo=algo,
-                num_pixels=num_pixels, light_path_count=light_path_count,
-                max_len=max_len, alpha_fn=alpha_fn, has_bump=has_bump,
-                techniques=techniques)
-            for start in range(0, light_path_count, light_band):
-                film = film + band(start, min(light_band,
-                                              light_path_count - start))
-            film = film * float(spp)
+            with trace.span("light_pass"):
+                band = light_bands(
+                    scene, fi, collect, sg=sg, key=key,
+                    lanes=min(light_band, light_path_count), algo=algo,
+                    num_pixels=num_pixels,
+                    light_path_count=light_path_count, max_len=max_len,
+                    alpha_fn=alpha_fn, has_bump=has_bump,
+                    techniques=techniques)
+                for start in range(0, light_path_count, light_band):
+                    film = film + band(start, min(light_band,
+                                                  light_path_count - start))
+                film = film * float(spp)
             if collect is not None:
-                count = collect.check()
-                # Canonical (path, bounce) layout of the shallowest
-                # vertices: the same set and order under any band schedule.
-                cache = select_shallowest(
-                    collect.cache(), cache_capacity, count=count,
-                    **key_bounds(light_path_count, max_len))
+                with trace.span("select"):
+                    count = collect.check()
+                    # Canonical (path, bounce) layout of the shallowest
+                    # vertices: the same set and order under any band
+                    # schedule.
+                    cache = select_shallowest(
+                        collect.cache(), cache_capacity, count=count,
+                        **key_bounds(light_path_count, max_len))
                 if stats is not None:
                     stats["collected"] = collect.count.clone()
                     stats["cache"] = cache.count.clone()
                 del collect
             if algo in ("vcm", "ppm"):
-                grid = photon_grid(cache, pm_radius, stats)
+                with trace.span("photon_grid"):
+                    grid = photon_grid(cache, pm_radius, stats)
             if cache is not None:
                 # Only the grid's keys read the position column.
                 cache = dataclasses.replace(cache, pos4=None)
@@ -526,13 +534,15 @@ def render_vcm_frame(scene, cam: Camera, frame, base_radius, *,
         band = max(1, camera_band // max(spp, 1))
         bands = [(start, min(band, num_pixels - start))
                  for start in range(0, num_pixels, band)]
-        return film + camera_film(
-            scene, working_cache(fi, cache, grid, sg, key), bands,
-            stats=stats, algo=algo, width=width, height=height, spp=spp,
-            max_len=max_len, light_path_count=light_path_count,
-            num_connections=num_connections, has_bump=has_bump,
-            alpha_fn=alpha_fn, techniques=techniques, mat_kinds=mat_kinds,
-            compact=compact, sg=sg, key=key)
+        with trace.span("camera_pass"):
+            return film + camera_film(
+                scene, working_cache(fi, cache, grid, sg, key), bands,
+                stats=stats, algo=algo, width=width, height=height,
+                spp=spp, max_len=max_len,
+                light_path_count=light_path_count,
+                num_connections=num_connections, has_bump=has_bump,
+                alpha_fn=alpha_fn, techniques=techniques,
+                mat_kinds=mat_kinds, compact=compact, sg=sg, key=key)
 
     return graphs_mod.render_frame(scene, graph, render, "VCM frame")
 

@@ -34,6 +34,7 @@ import torch
 
 from ..ops import light_tail, select
 from ..tensors import TensorData
+from ..utils import trace
 
 # Columns of the (C, 24) wide record (LightVertexCache.packed).
 REC_W = 24
@@ -145,7 +146,8 @@ class CollectCache(TensorData):
     def check(self) -> int:
         """Raise if rows did not fit; else return the count of rows (one
         host read of both)."""
-        lost, count = torch.stack([self.lost, self.count]).tolist()
+        with trace.span("wait:collect"):
+            lost, count = torch.stack([self.lost, self.count]).tolist()
         if lost:
             raise RuntimeError(
                 f"light vertex cache overflow: {lost} vertices did not fit "

@@ -64,6 +64,7 @@ from ..ops import dispatch as dp
 from ..ops import khit as khit_mod
 from ..ops import pairs as pairs_mod
 from ..ops import stream_traverse as st
+from ..utils import trace
 from . import graphs
 from .intersect import BIG
 
@@ -412,7 +413,14 @@ def closest_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None,
     dispatch (exact; only block coherence changes).  With `alpha_fn(prim,
     u, v) -> opaque`, hits it reports transparent are passed through;
     with `overflow`, a 0-d int32 device tensor, through the graph-ready
-    re-trace, which adds the lanes it left unresolved to it."""
+    re-trace, which adds the lanes it left unresolved to it.  A trace
+    span `dispatch` (utils/trace.py)."""
+    with trace.span("dispatch"):
+        return _closest_hit(bvh, org, d, tmin, tmax, alpha_fn, active, sort,
+                            overflow)
+
+
+def _closest_hit(bvh, org, d, tmin, tmax, alpha_fn, active, sort, overflow):
     if alpha_fn is not None:
         if bvh.two_level:
             if overflow is not None:
@@ -434,14 +442,15 @@ def any_hit(bvh: DeviceBvh, org, d, tmin, tmax, alpha_fn=None, active=None,
     """Occlusion query: True where any (opaque, under `alpha_fn`)
     primitive lies in (tmin, tmax).  Masked, it is the masked closest
     hit's `prim_id >= 0` (through `_any_hit_masked` on a two-level BVH);
-    `overflow` as in closest_hit."""
-    if alpha_fn is not None:
-        if bvh.two_level:
-            return _any_hit_masked(bvh, org, d, tmin, tmax, alpha_fn, active,
-                                   sort, overflow)
-        return closest_hit(bvh, org, d, tmin, tmax, alpha_fn, active,
-                           overflow=overflow).prim_id >= 0
-    return _occluded(bvh, org, d, tmin, tmax, active, sort)
+    `overflow` as in closest_hit.  A trace span `dispatch`."""
+    with trace.span("dispatch"):
+        if alpha_fn is not None:
+            if bvh.two_level:
+                return _any_hit_masked(bvh, org, d, tmin, tmax, alpha_fn,
+                                       active, sort, overflow)
+            return _closest_hit(bvh, org, d, tmin, tmax, alpha_fn, active,
+                                False, overflow).prim_id >= 0
+        return _occluded(bvh, org, d, tmin, tmax, active, sort)
 
 
 def graph_route(bvh: DeviceBvh, masked: bool) -> tuple:

@@ -2783,6 +2783,52 @@ def test_cuda_slot_counts_follow_the_replay(cuda_device, two_level,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True])
+def test_cuda_retrace_loop_is_logged(cuda_device, two_level, monkeypatch):
+    """A captured masked closest hit over 9 stacked masked layers runs
+    its re-trace's WHILE loop past its first round; each replay logs the
+    loop once, its exit stamp not before its entry's, its rounds the
+    eager dispatch's, and its body's traversal launches (body_counts)
+    one a round past the first."""
+    from imbatracer_torch.render import graphs
+
+    monkeypatch.setattr(tt, "RETRACE_SLOT_DIV" if two_level
+                        else "KHIT_SLOT_DIV", 1)
+    bvh, alpha = _layer_scene(9, two_level, cuda_device)
+    org, d, act = _layer_rays(9, 1024, 0, cuda_device)
+    state = dict(t=torch.empty_like(org[:, 0]))
+
+    def step(s, overflow):
+        s["t"].copy_(tt.closest_hit(bvh, org, d, 0.0, BIG, alpha_fn=alpha,
+                                    active=act, sort=True,
+                                    overflow=overflow).t)
+
+    rounds0 = tt.MASK_STATS["max_rounds"]
+    tt.MASK_STATS["max_rounds"] = 0
+    try:
+        tt.closest_hit(bvh, org, d, 0.0, BIG, alpha_fn=alpha, active=act,
+                       sort=True)
+        want = tt.MASK_STATS["max_rounds"]
+    finally:
+        tt.MASK_STATS["max_rounds"] = max(rounds0, tt.MASK_STATS["max_rounds"])
+    assert want >= 2
+    sg = graphs.SceneGraphs(cuda_device)
+    g = sg.phase("logged", step, state)
+    sg.drain_loops()
+    for _ in range(2):
+        sg.counts.zero_()
+        g.replay()
+        records, lost = sg.drain_loops()
+        assert lost == 0 and len(records) == 1
+        t0, t1, rounds, _ = records[0]
+        assert 0 < t0 <= t1 and rounds == want
+        assert int(sg.counts[0]) == 0
+        walks = {k: n for k, n in graphs.body_counts(records).items()
+                 if k[0] in ("khit", "stream_traverse") and n}
+        assert sum(walks.values()) == want - 1, walks
+
+
+@pytest.mark.cuda
 def test_cuda_slot_input_checks(cuda_device):
     """The slot wrappers raise on tensors off the card or of another
     type."""
